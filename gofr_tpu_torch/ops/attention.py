@@ -1,0 +1,80 @@
+"""Attention in plain PyTorch (counterpart of gofr_tpu/ops/attention.py).
+
+These are the plain versions of the two CUDA kernels: ``causal_attention``
+of flash prefill (ops.flash) and ``decode_attention_appended`` of flash
+decode (ops.flash_decode). The CPU runs them; on the card they are the
+reference the kernels are held against. Layouts follow the JAX package:
+q [B, S, H, D], k/v [B, S, KV, D], GQA by grouping query heads
+[B, S, KV, G, D]; softmax in float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """[B, S, H, D] -> [B, S, KV, G, D] (a view)."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal self-attention for prefill.
+
+    q: [B, S, H, D]; k, v: [B, S, KV, D]; mask: optional [B, S] validity
+    (True = real token). Returns [B, S, H, D] in q's dtype.
+    """
+    b, s, h, d = q.shape
+    n_kv = k.shape[2]
+    qg = _group(q * d ** -0.5, n_kv)                        # [B,S,KV,G,D]
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                   device=q.device))
+    scores = scores.masked_fill(~causal, NEG_INF)
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, d)
+
+
+def decode_attention_appended(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, k_new: torch.Tensor,
+                              v_new: torch.Tensor, lengths: torch.Tensor,
+                              k_scale: torch.Tensor | None = None,
+                              v_scale: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Decode attention over the cache PLUS the current token's k/v,
+    before that token is written back.
+
+    q: [B, 1, H, D]; k_cache/v_cache: [B, Smax, KV, D] (int8 with
+    ``k_scale``/``v_scale`` [B, Smax, KV] float32, or dense);
+    k_new/v_new: [B, 1, KV, D]; lengths: [B] valid cache entries
+    EXCLUDING the current token. The k scale multiplies the scores and
+    the v scale the probabilities (both constant over the contracted
+    head_dim). Returns [B, 1, H, D] in q's dtype.
+    """
+    b, _, h, d = q.shape
+    smax = k_cache.shape[1]
+    n_kv = k_cache.shape[2]
+    qg = _group(q * d ** -0.5, n_kv)[:, 0].float()          # [B,KV,G,D]
+    scores_c = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float())
+    if k_scale is not None:
+        scores_c = scores_c * k_scale.transpose(1, 2)[:, :, None, :]
+    valid = torch.arange(smax, device=q.device)[None, :] < lengths[:, None]
+    scores_c = scores_c.masked_fill(~valid[:, None, None, :], NEG_INF)
+    scores_s = torch.einsum("bkgd,btkd->bkgt", qg, k_new.float())
+    probs = torch.softmax(torch.cat([scores_c, scores_s], dim=-1), dim=-1)
+    probs_c = probs[..., :smax]
+    if v_scale is not None:
+        probs_c = probs_c * v_scale.transpose(1, 2)[:, :, None, :]
+    vdt = q.dtype if v_scale is not None else v_cache.dtype
+    out = (torch.einsum("bkgt,btkd->bkgd", probs_c.to(vdt),
+                        v_cache.to(vdt))
+           + torch.einsum("bkgt,btkd->bkgd",
+                          probs[..., smax:].to(v_new.dtype), v_new))
+    return out.reshape(b, 1, h, d).to(q.dtype)

@@ -1,0 +1,154 @@
+"""Build and load the hand-written CUDA kernels in ``ops/csrc``.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled on its
+own with ``nvcc`` for ``sm_90a`` into a shared library, loaded with
+``ctypes``. Building happens at first use (or all at once through
+``build_all``, which starts one ``nvcc`` per source in parallel) into
+``ops/_build/``; a library's file name carries a hash of its source and
+flags, so an edited source rebuilds and an unchanged one loads as built.
+Nothing here runs when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures of every exported launcher: name -> (source, argtypes).
+# Every launcher returns its cudaError_t as an int (0 = success).
+SIGNATURES = {
+    # q, k, v, lengths, out, B, S, H, KV, scale, stream
+    "gofr_flash_prefill_bf16": (
+        "flash_prefill.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    # q, k_cache, v_cache, k_scale, v_scale, lengths, k_new, v_new, out,
+    # B, Smax, H, KV, scale, stream
+    "gofr_flash_decode_int8": (
+        "flash_decode.cu",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "gofr_flash_decode_bf16": (
+        "flash_decode.cu",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, object] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(source: str) -> Path:
+    text = (CSRC / source).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
+
+
+class _Build:
+    """One source's library: already built, or an ``nvcc`` run that
+    writes a temporary file renamed into place when it succeeds (so a
+    failed or cut build never leaves a library that looks built)."""
+
+    def __init__(self, source: str):
+        self.source = source
+        self.out = _target(source)
+        self.proc: subprocess.Popen | None = None
+        if self.out.exists():
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.tmp = self.out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(self.tmp),
+               str(CSRC / source)]
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+
+    def wait(self) -> str:
+        """Wait for ``nvcc`` and return its log ("" if already built);
+        ``failed`` then holds the error, if any."""
+        self.failed = ""
+        if self.proc is None:
+            return ""
+        log, _ = self.proc.communicate()
+        (BUILD_DIR / f"{self.out.stem}.log").write_text(log)
+        if self.proc.returncode != 0:
+            self.failed = (f"nvcc failed on {self.source} "
+                           f"(exit {self.proc.returncode}):\n{log}")
+        else:
+            os.replace(self.tmp, self.out)
+        return log
+
+
+def _wait_all(builds: "list[_Build]") -> dict[str, str]:
+    """Wait for every build, then raise if any failed."""
+    logs = {b.source: b.wait() for b in builds}
+    failed = [b.failed for b in builds if b.failed]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source that is not built yet, one ``nvcc`` per
+    source, all started together. Returns each source's compiler log
+    (empty for a source that was already built)."""
+    sources = sorted({src for src, _ in SIGNATURES.values()})
+    with _lock:
+        return _wait_all([_Build(src) for src in sources])
+
+
+def _library(source: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            build = _Build(source)
+            _wait_all([build])
+            lib = ctypes.CDLL(str(build.out))
+            lib.gofr_error_string.argtypes = [_I]
+            lib.gofr_error_string.restype = ctypes.c_char_p
+            _libs[source] = lib
+        return lib
+
+
+def function(name: str):
+    """The ctypes function ``name`` with its argtypes set, building and
+    loading its library at first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        source, argtypes = SIGNATURES[name]
+        fn = getattr(_library(source), name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+        _fns[name] = fn
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a launcher reported a CUDA error."""
+    if err != 0:
+        lib = _library(SIGNATURES[name][0])
+        text = lib.gofr_error_string(err).decode()
+        raise RuntimeError(f"{name} failed with CUDA error {err}: {text}")

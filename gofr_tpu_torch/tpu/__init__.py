@@ -1,0 +1,105 @@
+"""The serving datasource of the port (counterpart of gofr_tpu/tpu):
+``new_engine_from_config`` reads the ``TPU_*`` rows this slice honours
+and builds a Llama generation engine reachable as ``ctx.tpu``.
+
+Rows read:
+  TPU_MODEL         Llama-family name (llama3-8b, llama-1b, tiny, ...;
+                    default tiny)
+  TPU_WEIGHTS       a ``.npz`` written by the JAX package's ``save_npz``;
+                    absent = random init on the device from seed 0
+  TPU_QUANT         "int8" to quantize projection weights on load
+  TPU_KV_DTYPE      KV-cache dtype: "int8" (default, float32 per-vector
+                    scales) or anything else for the dense model-dtype
+                    cache
+  TPU_SLOTS         decode batch slots (default 48)
+  TPU_MAX_SEQ       serving KV capacity (default min(model max, 2048))
+  TPU_DECODE_BLOCK  decode steps fused per dispatch (default 4)
+
+Every other ``TPU_*`` row of the JAX package names a feature this port
+does not serve yet; a set one raises with its name rather than being
+silently ignored.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
+from ..models import llama
+from ..models.common import LLAMA_CONFIGS
+from .checkpoint import from_jax_params, load_npz, maybe_quantize
+from .engine import Health, TorchEngine
+from .generator import GenerationEngine, GenerationError, GenStream
+
+__all__ = ["GenerationEngine", "GenerationError", "GenStream", "Health",
+           "TorchEngine", "from_jax_params", "load_npz", "maybe_quantize",
+           "new_engine_from_config"]
+
+# rows of the JAX package that name features outside this slice
+UNPORTED_ROWS = (
+    "TPU_ADMIT_WINDOW_MS", "TPU_PREFILL_CHUNK", "TPU_SLO_THROUGHPUT_FACTOR",
+    "TPU_SLO_THROUGHPUT_SHARE", "TPU_SLO_LATENCY_SLOTS",
+    "TPU_SLO_BATCH_SHARE", "TPU_SLO_BATCH_DELAY", "TPU_PREFIX_CACHE",
+    "TPU_PREFIX_MIN", "TPU_KVCACHE_BLOCK", "TPU_KVCACHE_HOST_MB",
+    "TPU_KVCACHE_REDIS", "TPU_KVCACHE_REDIS_TTL_S",
+    "TPU_KVCACHE_REDIS_TIMEOUT_S", "TPU_KVCACHE_EPOCH_REFRESH_S",
+    "TPU_SPEC_DECODE", "TPU_PAGED_BLOCKS", "TPU_PAGED_BLOCK",
+    "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_BUDGET_MB",
+    "TPU_HBM_HEADROOM", "TPU_HBM_DEVICE_BUDGET_MB", "TPU_MAX_QUEUE_DEPTH",
+    "TPU_MAX_QUEUE_DELAY", "TPU_BROWNOUT_DELAY", "TPU_BROWNOUT_MAX_NEW",
+    "TPU_BATCH_BUCKETS", "TPU_SEQ_BUCKETS", "TPU_MAX_BATCH_DELAY",
+    "TPU_SHARDING", "TPU_PD_LISTEN", "TPU_PD_PEER", "TPU_PD_BLOCK",
+    "TPU_PD_WINDOW_MB", "TPU_WARMUP", "TPU_TENANTS", "TPU_TENANTS_INLINE",
+    "TPU_TENANTS_RELOAD_S", "TPU_TENANT_HEADER", "TPU_TENANT_TOPIC",
+    "TPU_TENANT_CHECKPOINT_EVERY",
+)
+
+
+def _check_rows(cfg) -> None:
+    def is_set(row: str) -> bool:
+        return (cfg.get(row) or "").strip() != ""
+
+    rejected = [row for row in UNPORTED_ROWS if is_set(row)]
+    if is_set("TPU_DECODE_PIPELINE") and \
+            cfg.get("TPU_DECODE_PIPELINE").strip() != "1":
+        rejected.append("TPU_DECODE_PIPELINE")
+    if is_set("TPU_SERVING_ROLE") and \
+            cfg.get("TPU_SERVING_ROLE").strip().lower() != "fused":
+        rejected.append("TPU_SERVING_ROLE")
+    if rejected:
+        raise ValueError(f"config rows not honoured by gofr_tpu_torch yet: "
+                         f"{', '.join(rejected)}")
+
+
+def new_engine_from_config(cfg, device="cuda", logger=None) -> TorchEngine:
+    """Build the generation engine from ``TPU_*`` rows on ``device``
+    (the CUDA card unless the caller asks for the CPU; raises when
+    there is no card)."""
+    _check_rows(cfg)
+    device = resolve_device(device)
+    name = (cfg.get("TPU_MODEL") or "tiny").strip()
+    mc = LLAMA_CONFIGS.get(name)
+    if mc is None:
+        raise KeyError(f"unknown TPU_MODEL {name!r} for gofr_tpu_torch; "
+                       f"known: {sorted(LLAMA_CONFIGS)}")
+    weights = cfg.get("TPU_WEIGHTS")
+    if weights:
+        if not weights.endswith(".npz"):
+            raise ValueError(f"TPU_WEIGHTS={weights!r}: gofr_tpu_torch "
+                             "loads .npz checkpoints only")
+        params = load_npz(weights, device=device)
+    else:
+        params = llama.init(mc, 0, device=device)
+    params = maybe_quantize(params,
+                            (cfg.get("TPU_QUANT") or "").lower() == "int8")
+    max_seq = cfg.get_int("TPU_MAX_SEQ", min(mc.max_seq, 2048))
+    kv_choice = (cfg.get("TPU_KV_DTYPE") or "int8").lower()
+    generator = GenerationEngine(
+        mc, params, slots=cfg.get_int("TPU_SLOTS", 48), max_seq=max_seq,
+        logger=logger,
+        kv_dtype=torch.int8 if kv_choice == "int8" else None,
+        decode_block=cfg.get_int("TPU_DECODE_BLOCK", 4), device=device)
+    if logger is not None:
+        logger.info({"event": "torch engine ready", "model": name,
+                     "device": str(device)})
+    return TorchEngine(generator, name, device)
