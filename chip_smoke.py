@@ -9,19 +9,32 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build every CUDA kernel from gofr_tpu_torch/ops/csrc (one nvcc per
      source, all started together) and print the build time and what
      ptxas reports per kernel;
-  3. hold each kernel against its plain PyTorch version on the card at
-     the serving shapes (bf16), and time kernel, plain version and the
+  3. hold each kernel (bf16 in, bf16 out) against its plain PyTorch
+     version, evaluated in float32 on the same input values, on the card
+     at the serving shapes, and time kernel, plain version and the
      library yardstick (scaled_dot_product_attention, which the port
-     never calls);
+     never calls); the paged kernel reads a pool whose block ids are
+     shuffled so that no slot's blocks are adjacent, and is also held at
+     phase paged's own shapes (32 slots over its 257-block pool, its
+     prompt lengths), as flash_prefill is at its longest prompt;
   4. Llama-3-8B at full width and 4 layers, prefill plus 8 decode steps,
      once through the kernels and once through the plain versions on
      the same inputs: the largest logit difference against a tolerance;
+     then the same contents in contiguous rows and in a shuffled pool,
+     decoded through flash_decode and through paged_decode: the logits
+     must be equal;
   5. the main path at full width and depth: new_engine_from_config with
      TPU_MODEL=llama3-8b (random weights from seed 0), 8 slots, 2048
      positions, int8 KV, K=4, serving 6 concurrent requests; the launch
      counters show both kernels on the path and the plain versions
      unused; then one more request under torch.profiler gives the
      device's busy share and the kernels that hold it;
+  5b. (phase ``paged``) the paged path at full width and depth: the
+     same model with 32 slots, 4096 positions and a pool of 257 blocks
+     of 128 int8 tokens, serving 24 concurrent requests; the counters
+     show flash_prefill and paged_decode on the path and nothing else,
+     the pool is whole again afterwards, and the streams equal a
+     contiguous engine's on the same weights and requests;
   6. a ``{"kernels": [...]}`` line, then the card line, then the
      ``{"ok": true, "device": {...}}`` line last.
 
@@ -32,6 +45,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,14 +60,20 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12   # flash prefill's QK^T and PV
 FP32_FLOPS = 67e12           # flash decode's dot products (CUDA cores)
 
-# kernel against plain, both bf16: |got - want| <= ATOL + RTOL * |want|.
-# Each side rounds its output to bf16 (a step of 2^-7 relative at most),
-# and the two round the probabilities to bf16 at different points
-# (kernel: per tile, unnormalised; plain: normalised), so they may part
-# by about one output step plus a small absolute term
+# kernel against plain: |got - want| <= ATOL + RTOL * |want|, where the
+# plain version runs in float32 on the kernel's own input values (bf16 ->
+# float32 is exact; an int8 cache and its scales stay as they are). What
+# is left is the kernel's own rounding: its bf16 output (2^-9 relative at
+# most) and, in flash_prefill, the bf16 probabilities it feeds the
+# tensor cores (2^-9 of a probability, under 0.01 absolute for values of
+# unit scale). The plain version in bf16 rounds the scaled query, the
+# probabilities and, in the decodes, two partial sums to bf16: where
+# those partials cancel, its own error is a step of the partials (0.0156
+# at |partial| in [2, 4)) against a small result, which no tolerance
+# relative to the result holds; that difference is printed beside
 KERNEL_ATOL = 1e-2
 KERNEL_RTOL = 2.0 ** -7
-TOL = f"tolerance {KERNEL_ATOL} + 2^-7 |plain|"
+TOL = f"tolerance {KERNEL_ATOL} + 2^-7 |plain in float32|"
 # random-init logits have unit scale; bf16 activations through 4 layers
 # and 8 decode steps drift by a few bf16 steps between the two orders of
 # summation
@@ -147,6 +167,15 @@ def compare(got, want) -> tuple[float, bool]:
     return diff.max().item(), ok
 
 
+def f32(*tensors):
+    """The tensors with bf16 ones in float32 (exact), the rest as given:
+    the plain version's inputs for the comparison."""
+    import torch
+
+    return tuple(t.float() if t is not None and t.dtype == torch.bfloat16
+                 else t for t in tensors)
+
+
 def _rng_bf16(gen, shape):
     import torch
 
@@ -168,7 +197,8 @@ def prefill_case(gen, b: int, s: int, lengths: list[int], record: dict,
              _rng_bf16(gen, (b, s, kv, d)), lens) for _ in range(copies)]
     q, k, v, _ = sets[0]
     got = flash.flash_prefill(q, k, v, lens)
-    want = flash.causal_prefill_plain(q, k, v, lens)
+    want = flash.causal_prefill_plain(*f32(q, k, v), lens)
+    err_bf16, _ = compare(got, flash.causal_prefill_plain(q, k, v, lens))
     torch.cuda.synchronize()
     err, ok = compare(got, want)
 
@@ -199,7 +229,8 @@ def prefill_case(gen, b: int, s: int, lengths: list[int], record: dict,
     n_ops = sum(4 * h * d * n * (n + 1) // 2 for n in lengths)
     bound, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
     print(f"[kernel] flash_prefill B={b} S={s} H={h} KV={kv} "
-          f"lengths={lengths} max_err={err:.3e} ({TOL}) "
+          f"lengths={lengths} max_err={err:.3e} ({TOL}; against the "
+          f"plain version in bf16 {err_bf16:.3e}) "
           f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
           f"library_ms={library_ms:.5f} bound_ms={bound:.5f} ({by}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -234,7 +265,8 @@ def decode_case(gen, lengths: list[int], quant: bool, record: dict,
                      _rng_bf16(gen, (b, 1, kv, d)),
                      _rng_bf16(gen, (b, 1, kv, d)), lens, ks, vs))
     got = flash_decode.flash_decode_appended(*sets[0])
-    want = flash_decode.decode_plain(*sets[0])
+    want = flash_decode.decode_plain(*f32(*sets[0]))
+    err_bf16, _ = compare(got, flash_decode.decode_plain(*sets[0]))
     torch.cuda.synchronize()
     err, ok = compare(got, want)
 
@@ -266,7 +298,8 @@ def decode_case(gen, lengths: list[int], quant: bool, record: dict,
     bound, by = bound_ms(n_bytes, n_ops, FP32_FLOPS)
     cache = "int8" if quant else "bf16"
     print(f"[kernel] flash_decode {cache} B={b} Smax={smax} H={h} KV={kv} "
-          f"lengths={lengths} max_err={err:.3e} ({TOL}) "
+          f"lengths={lengths} max_err={err:.3e} ({TOL}; against the "
+          f"plain version in bf16 {err_bf16:.3e}) "
           f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
           f"library_ms={library_ms:.5f} bound_ms={bound:.5f} ({by}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -286,7 +319,139 @@ def decode_case(gen, lengths: list[int], quant: bool, record: dict,
                       bound_ms=bound, bound_by=by)
 
 
+SPREAD = 97   # pool stride between consecutive live blocks
+
+
+def shuffled_table(lengths: list[int], t: int, mb: int, n: int = 0):
+    """A clamped block table [B, MB] (a row repeats its last live block;
+    a slot of length 0 keeps an all-trash row, block 0) and the pool's
+    block count. No slot's consecutive blocks are adjacent in the pool:
+    by default the pool holds B*MB + 1 blocks and the ids are
+    interleaved and descending; given ``n``, the live blocks, numbered
+    slot after slot, take ids 1 + (k * SPREAD) mod (n - 1) in a pool of
+    ``n`` blocks, as the serving pool's size gives them."""
+    import torch
+
+    b = len(lengths)
+    live = [-(-x // t) for x in lengths]
+    if n:
+        require(sum(live) < n and math.gcd(SPREAD, n - 1) == 1,
+                f"{sum(live)} live blocks do not spread over a pool of {n} "
+                f"blocks")
+    table = torch.zeros((b, mb), dtype=torch.int32)
+    k = 0
+    for i, nb in enumerate(live):
+        for j in range(mb):
+            if not nb:
+                break
+            if n:
+                table[i, j] = 1 + ((k + min(j, nb - 1)) * SPREAD) % (n - 1)
+            else:
+                table[i, j] = 1 + (mb - 1 - min(j, nb - 1)) * b + i
+        k += nb
+    return table.to("cuda"), n or b * mb + 1
+
+
+def paged_case(gen, lengths: list[int], quant: bool, record: dict,
+               t: int = 128, mb: int = 16, n: int = 0, h: int = 32,
+               kv: int = 8, d: int = 128, main_shape: bool = False,
+               timed: bool = False) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ops import flash_decode, paged_attention
+    from gofr_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+
+    b = len(lengths)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    table, n = shuffled_table(lengths, t, mb, n)
+    timed = timed or main_shape
+    sets = []
+    for _ in range(4 if timed else 1):  # 4 pools: more than the L2
+        kp = _rng_bf16(gen, (n, t, kv, d))
+        vp = _rng_bf16(gen, (n, t, kv, d))
+        if quant:
+            (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        else:
+            ks = vs = None
+        sets.append((_rng_bf16(gen, (b, 1, h, d)), kp, vp,
+                     _rng_bf16(gen, (b, 1, kv, d)),
+                     _rng_bf16(gen, (b, 1, kv, d)), table, lens, ks, vs))
+    got = paged_attention.paged_decode_attention(*sets[0])
+    want = paged_attention.paged_attention_reference(*f32(*sets[0]))
+    err_bf16, _ = compare(
+        got, paged_attention.paged_attention_reference(*sets[0]))
+    # the same K/V as a contiguous cache through flash_decode: the two
+    # kernels visit positions in one order, so the bits agree
+    q, kp, vp, kn, vn, _, _, ks, vs = sets[0]
+
+    def dense(x):
+        return None if x is None else \
+            paged_attention.gather_blocks(x, table).contiguous()
+
+    contiguous = flash_decode.flash_decode_appended(
+        q, dense(kp), dense(vp), kn, vn, lens, dense(ks), dense(vs))
+    torch.cuda.synchronize()
+    err, ok = compare(got, want)
+    same = torch.equal(got, contiguous)
+
+    # yardstick: SDPA of the query over the gathered (and dequantized)
+    # dense view, positions < length, gathered outside the timed region;
+    # no library call reads a block table, and this step's token is not
+    # folded in
+    smax = mb * t
+    valid = (torch.arange(smax, device="cuda")[None, :]
+             < lens[:, None])[:, None, None, :]
+    lib_sets = []
+    for q, kp, vp, _, _, _, _, ks, vs in sets:
+        kc, vc = dense(kp), dense(vp)
+        if quant:
+            kc, vc = dequantize_kv(kc, dense(ks)), dequantize_kv(vc, dense(vs))
+        lib_sets.append((q.transpose(1, 2),
+                         kc.repeat_interleave(h // kv, 2).transpose(1, 2),
+                         vc.repeat_interleave(h // kv, 2).transpose(1, 2)))
+
+    def lib(qt, kt, vt):
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid)
+
+    if timed:
+        ms = graph_ms(paged_attention.paged_decode_attention, sets, 200)
+        plain_ms = graph_ms(paged_attention.paged_attention_reference, sets,
+                            10)
+        library_ms = graph_ms(lib, lib_sets, 50)
+    live = sum(lengths)
+    elem = 1 if quant else 2
+    n_bytes = (2 * live * kv * d * elem + (2 * live * kv * 4 if quant else 0)
+               + 2 * (2 * b * h * d + 2 * b * kv * d) + 4 * b
+               + 4 * sum(-(-x // t) for x in lengths))   # live table words
+    n_ops = 4 * h * d * (live + b)
+    bound, by = bound_ms(n_bytes, n_ops, FP32_FLOPS)
+    pool = "int8" if quant else "bf16"
+    times = (f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+             f"library_ms={library_ms:.5f} " if timed else "")
+    print(f"[kernel] paged_decode {pool} B={b} T={t} MB={mb} N={n} H={h} "
+          f"KV={kv} lengths={lengths} max_err={err:.3e} ({TOL}; against "
+          f"the plain version in bf16 {err_bf16:.3e}) "
+          f"bit-equal to flash_decode on the gathered view: {same} "
+          f"{times}bound_ms={bound:.5f} ({by}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    require(ok, f"paged_decode ({pool}, T={t}) disagrees with its plain "
+                f"version at lengths={lengths}: max_err {err}")
+    require(same, f"paged_decode ({pool}, T={t}) and flash_decode on the "
+                  f"gathered view differ at lengths={lengths}")
+    for i, x in enumerate(lengths):
+        if x == 0:  # an all-trash row returns this step's v_new
+            exact = sets[0][4][i, 0].repeat_interleave(h // kv, 0)
+            require(torch.equal(got[i, 0], exact),
+                    "paged_decode: a slot of length 0 must return v_new")
+    record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
+    if main_shape:
+        record.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound, bound_by=by)
+
+
 def phase_kernels(records: dict) -> None:
+    import numpy as np
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -297,11 +462,25 @@ def phase_kernels(records: dict) -> None:
             lengths = [s] if b == 1 else [s, max(1, s // 2 - 5)]
             prefill_case(gen, b, s, lengths, pre)
     prefill_case(gen, 2, 200, [200, 0], pre)    # ragged tile, empty row
+    prefill_case(gen, 1, 1500, [1500], pre)     # phase paged's longest
     dec = records["flash_decode"]
     edges = [0, 1, 63, 64, 65, 512, 1000, 2047]
     for quant in (True, False):
         decode_case(gen, edges, quant, dec)
         decode_case(gen, [512] * 8, quant, dec, main_shape=quant)
+    pag = records["paged_decode"]
+    edges = [0, 1, 127, 128, 129, 512, 1000, 2047]
+    for quant in (True, False):
+        paged_case(gen, edges, quant, pag)
+        paged_case(gen, [512] * 8, quant, pag, main_shape=quant)
+    paged_case(gen, edges, True, pag, t=16, mb=128)  # the CPU tests' T
+    # phase paged's shapes: 32 slots of MB=32 over its pool of 257
+    # blocks, its prompt lengths at the first and the last of its 40
+    # decode steps, 8 slots empty
+    for step in (0, PAGED_NEW_TOKENS - 1):
+        prompts = paged_prompt_lengths(np.random.default_rng(PAGED_SEED))
+        lengths = [x + step for x in prompts] + [0] * 8
+        paged_case(gen, lengths, True, pag, mb=32, n=257, timed=step == 0)
 
 
 # -- phase 4: kernels against plain versions through the model ----------------
@@ -353,7 +532,53 @@ def phase_model_4_layers() -> None:
           flush=True)
     require(ok, f"4-layer logits through the kernels differ from the plain "
                 f"path by {diff}")
+    paged_arm(cfg, params, tokens, lengths, steps, rope, smax)
     del params
+
+
+def paged_arm(cfg, params, tokens, lengths, steps, rope, smax: int,
+              t: int = 128) -> None:
+    """The same prefill written once into contiguous rows and once into
+    a shuffled pool, then 8 decode steps through llama.decode_step
+    (flash_decode) and paged_llama.paged_decode_step (paged_decode).
+    The two kernels visit positions in one order, so the logits must
+    be equal, bit for bit."""
+    import torch
+
+    from gofr_tpu_torch.models import llama, paged_llama
+
+    b = tokens.shape[0]
+    mb = smax // t
+    lens = lengths.tolist()
+    table, n = shuffled_table([x + len(steps) for x in lens], t, mb)
+    with torch.no_grad():
+        _, k, v, _ = llama.prefill_kv(params, cfg, tokens, lengths,
+                                      rope_tables=rope, flash=True)
+        rows = llama.init_cache(cfg, b, smax, dtype=torch.int8,
+                                device="cuda")
+        llama.write_kv(rows, k, v, lengths=lengths.clone())
+        pool = paged_llama.init_paged_cache(cfg, b, n, t, dtype=torch.int8,
+                                            device="cuda")
+        host_table = table.cpu()
+        for i, x in enumerate(lens):
+            blocks = host_table[i, :-(-x // t)].tolist()
+            paged_llama.write_prompt_blocks(pool, k[:, i:i + 1, :x],
+                                            v[:, i:i + 1, :x], blocks)
+        pool.lengths = lengths.clone()
+        diff = 0.0
+        for step in steps:
+            want, rows = llama.decode_step(params, cfg, step, rows, rope,
+                                           flash=True)
+            got, pool = paged_llama.paged_decode_step(params, cfg, step, pool,
+                                                      table, rope)
+            diff = max(diff, (got - want).abs().max().item())
+    torch.cuda.synchronize()
+    ok = diff == 0.0 and torch.equal(pool.lengths, rows.lengths)
+    print(f"[model] paged arm: {len(steps)} decode steps over a shuffled "
+          f"pool of {n} blocks of {t} (paged_decode) against contiguous "
+          f"rows (flash_decode): max |logit diff| = {diff:.4e} (must be 0) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"paged and contiguous decode logits differ by {diff}")
 
 
 # -- phase 5: the main path ---------------------------------------------------
@@ -469,13 +694,140 @@ def phase_main_path(card: str) -> dict:
     return counts
 
 
+# -- phase paged: the paged path ---------------------------------------------
+
+PAGED_ROWS = {"TPU_MODEL": "llama3-8b", "TPU_SLOTS": "32",
+              "TPU_MAX_SEQ": "4096", "TPU_KV_DTYPE": "int8",
+              "TPU_DECODE_BLOCK": "4", "TPU_PAGED_BLOCK": "128",
+              "TPU_PAGED_BLOCKS": "257"}
+PAGED_SEED = 23
+PAGED_NEW_TOKENS = 40
+
+
+def paged_prompt_lengths(rng) -> list[int]:
+    """Phase paged's prompt lengths: 20 drawn from ``rng`` in 64-1500,
+    then the block boundaries 127, 128, 129 and 256."""
+    return rng.integers(64, 1501, 20).tolist() + [127, 128, 129, 256]
+
+
+def _serve(engine, prompts, sampled: dict, new_tokens: int):
+    """Submit every request, then drain them in order: (token lists,
+    streams, wall seconds)."""
+    t0 = time.monotonic()
+    streams = [engine.generate(
+        p, max_new_tokens=new_tokens,
+        temperature=0.8 if i in sampled else 0.0,
+        top_k=50 if i in sampled else 0, seed=sampled.get(i))
+        for i, p in enumerate(prompts)]
+    outs = [s.tokens() for s in streams]
+    return outs, streams, time.monotonic() - t0
+
+
+def phase_paged(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.tpu import GenerationEngine, new_engine_from_config
+
+    t0 = time.monotonic()
+    engine = new_engine_from_config(MapConfig(PAGED_ROWS), device="cuda")
+    gen = engine.generator
+    torch.cuda.synchronize()
+    print(f"[paged] llama3-8b paged engine ready in "
+          f"{time.monotonic() - t0:.1f} s: {PAGED_ROWS}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    rng = np.random.default_rng(PAGED_SEED)
+    vocab = gen.cfg.vocab_size
+    lens = paged_prompt_lengths(rng)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
+    sampled = {5: 101, 17: 202}   # request index -> seed
+    new_tokens = PAGED_NEW_TOKENS
+    try:
+        warm = engine.generate(prompts[0][:32], max_new_tokens=4).tokens()
+        require(len(warm) == 4, f"warm-up gave {len(warm)} tokens")
+        adm0, steps0 = gen.admissions, gen.decode_steps
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        outs, streams, wall = _serve(engine, prompts, sampled, new_tokens)
+        counts = {"flash_prefill": flash.launches,
+                  "paged_decode": paged_attention.launches,
+                  "flash_decode": flash_decode.launches,
+                  "prefill_plain": flash.plain_calls,
+                  "decode_plain": flash_decode.plain_calls,
+                  "paged_plain": paged_attention.plain_calls}
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+        stats = gen.stats()
+        health = engine.health_check()
+    finally:
+        engine.close()
+    require(not gen._thread.is_alive(), "the generation thread outlived "
+            "close()")
+    for i, toks in enumerate(outs):
+        require(len(toks) == new_tokens,
+                f"paged request {i} gave {len(toks)} tokens, want "
+                f"{new_tokens}")
+        require(all(0 <= x < vocab for x in toks),
+                f"paged request {i} gave a token outside the vocabulary")
+    require(health.status == "UP", f"paged engine health {health.status}")
+    require(admissions == len(prompts),
+            f"{admissions} admissions for {len(prompts)} requests")
+    require(counts["flash_prefill"] == LAYERS * admissions,
+            f"flash_prefill launched {counts['flash_prefill']} times for "
+            f"{admissions} admissions of {LAYERS} layers")
+    require(counts["paged_decode"] == LAYERS * steps,
+            f"paged_decode launched {counts['paged_decode']} times for "
+            f"{steps} decode steps of {LAYERS} layers")
+    others = {k: counts[k] for k in ("flash_decode", "prefill_plain",
+                                     "decode_plain", "paged_plain")}
+    require(not any(others.values()),
+            f"other attention paths ran on the paged path: {others}")
+    paged = stats["paged"]
+    require(paged["evictions"] == 0, f"paged evictions: {paged}")
+    require(paged["free"] == 256, f"pool not whole after retiring: {paged}")
+    ttft = [s.trace["first_put"] - s.trace["submit"] for s in streams]
+    total = sum(len(x) for x in outs)
+    print(f"[paged] {len(prompts)} requests, prompts {lens}, {new_tokens} "
+          f"new tokens each ({len(sampled)} sampled): {total} tokens in "
+          f"{wall:.3f} s = {total / wall:.1f} tok/s; TTFT mean "
+          f"{1e3 * np.mean(ttft):.1f} ms max {1e3 * max(ttft):.1f} ms; "
+          f"decode step {stats['decode_step_ms_mean']:.2f} ms (host clock, "
+          f"K=4 blocks, 32 slots); {admissions} admissions, {steps} decode "
+          f"steps; launches {counts}; pool {paged}; card: {card}",
+          flush=True)
+
+    # the same requests through a contiguous engine on the same weights:
+    # each row is computed on its own, so the streams must be equal
+    rows = GenerationEngine(gen.cfg, gen.params, slots=32, max_seq=4096,
+                            kv_dtype=torch.int8, decode_block=4,
+                            device="cuda")
+    try:
+        want, _, rows_wall = _serve(rows, prompts, sampled, new_tokens)
+    finally:
+        rows.close()
+    greedy = [i for i in range(len(prompts)) if i not in sampled]
+    differ = [i for i in range(len(prompts)) if outs[i] != want[i]]
+    print(f"[paged] contiguous engine on the same weights and requests "
+          f"({rows_wall:.3f} s): streams that differ {differ} (greedy "
+          f"{len(greedy)}, sampled {sorted(sampled)})", flush=True)
+    require(not [i for i in differ if i in greedy],
+            f"greedy paged streams differ from the contiguous engine's: "
+            f"{differ}")
+    require(not differ, f"sampled paged streams differ from the contiguous "
+                        f"engine's: {differ}")
+    return counts
+
+
 # -- running the phases -------------------------------------------------------
 
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
 
-def run(phases=("build", "kernels", "model", "main")) -> dict:
+def run(phases=("build", "kernels", "model", "main", "paged")) -> dict:
     import torch
 
     card = card_line()
@@ -493,6 +845,10 @@ def run(phases=("build", "kernels", "model", "main")) -> dict:
             "name": "flash_decode", "route": "cuda",
             "source": "gofr_tpu_torch/ops/csrc/flash_decode.cu",
             "replaces": "gofr_tpu/ops/flash_decode.py:171"},
+        "paged_decode": {
+            "name": "paged_decode", "route": "cuda",
+            "source": "gofr_tpu_torch/ops/csrc/paged_decode.cu",
+            "replaces": "gofr_tpu/ops/paged_attention.py:96"},
     }
     for phase in phases:
         t0 = time.monotonic()
@@ -506,6 +862,9 @@ def run(phases=("build", "kernels", "model", "main")) -> dict:
             counts = phase_main_path(card)
             records["flash_prefill"]["launches"] = counts["flash_prefill"]
             records["flash_decode"]["launches"] = counts["flash_decode"]
+        elif phase == "paged":
+            counts = phase_paged(card)
+            records["paged_decode"]["launches"] = counts["paged_decode"]
         else:
             raise SmokeFailure(f"unknown phase {phase!r}")
         torch.cuda.empty_cache()

@@ -1,0 +1,244 @@
+"""Paged (block-pool) KV cache for Llama-family serving (counterpart of
+gofr_tpu/models/paged_llama.py, the decode and admission half).
+
+The contiguous ``llama.KVCache`` reserves [B, Smax] rows per slot. This
+module keeps the same model math (the layer loop calls the same
+``llama._layer``) but stores KV in a shared pool of fixed T-token
+blocks with a per-slot block table:
+
+    k/v        [L, N, T, KV, hd]   (int8 with [L, N, T, KV] f32 scales)
+    table      [B, MB] int32       host-owned, passed per decode block
+    lengths    [B] int32           live tokens per slot
+
+Table invariants (kept by the engine's allocator):
+  - entries for live logical blocks hold real pool block ids;
+  - entries past the live range repeat the LAST live block, or block 0
+    for empty and retired slots;
+  - block 0 is a reserved trash block no slot ever owns: writes at a
+    retired slot's frozen cursor, and past capacity, land there.
+
+As in ``llama``, the pool is updated IN PLACE. The verify step, the
+block-to-row restore and the shared prefix index wait for speculative
+decode and chunked prefill.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ops import paged_attention
+from ..ops.quant import quantize_kv
+from . import llama
+from .common import ModelConfig
+
+
+@dataclass
+class PagedKVCache:
+    k: torch.Tensor        # [L, N, T, KV, hd]
+    v: torch.Tensor        # [L, N, T, KV, hd]
+    lengths: torch.Tensor  # [B] int32, live tokens per slot
+    k_scale: torch.Tensor | None = None  # [L, N, T, KV] f32 (int8 pools)
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def n_blocks(self) -> int:
+        return self.k.shape[1]
+
+
+def init_paged_cache(cfg: ModelConfig, slots: int, n_blocks: int,
+                     block_size: int = 128, dtype: torch.dtype | None = None,
+                     device="cuda") -> PagedKVCache:
+    """Pool of ``n_blocks`` blocks (block 0 is the reserved trash block:
+    size the pool as usable_tokens // block_size + 1).
+    ``dtype=torch.int8`` allocates the quantized pool with scale planes;
+    anything else a dense pool in that dtype."""
+    device = resolve_device(device)
+    dtype = dtype or cfg.tdtype
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    quant = dtype == torch.int8
+
+    def zeros(s, dt):
+        return torch.zeros(s, dtype=dt, device=device)
+
+    return PagedKVCache(
+        k=zeros(shape, dtype), v=zeros(shape, dtype),
+        lengths=zeros((slots,), torch.int32),
+        k_scale=zeros(shape[:-1], torch.float32) if quant else None,
+        v_scale=zeros(shape[:-1], torch.float32) if quant else None)
+
+
+def _pool_coords(table: torch.Tensor, positions: torch.Tensor, T: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(block_ids, offsets) [B] for writing at ``positions`` [B] through
+    a clamped ``table`` [B, MB]. Past-capacity positions route to the
+    trash block: the paged form of the contiguous cache's dropped write
+    (without it the offset would wrap into the slot's own live last
+    block)."""
+    mb = table.shape[1]
+    pos = positions.long()
+    idx = torch.clamp(pos // T, max=mb - 1)
+    blk = torch.gather(table.long(), 1, idx[:, None])[:, 0]
+    blk = torch.where(pos < mb * T, blk, torch.zeros_like(blk))
+    return blk, pos % T
+
+
+def paged_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: PagedKVCache, table: torch.Tensor,
+                      rope_tables=None) -> tuple[torch.Tensor, PagedKVCache]:
+    """One decode step for tokens [B] against the paged pool.
+
+    ``table`` [B, MB] int32: clamped block ids (see the module
+    docstring). The pool is read-only inside the layer loop (each
+    layer's attention takes this token's k/v beside the pool), and all
+    layers' new k/v [L, B, KV, hd] are written by one scatter
+    afterwards, at each slot's cursor. IN PLACE: returns (logits [B, V]
+    float32, the same cache with lengths + 1).
+
+    The caller guarantees that each live slot's current block
+    (table[b, lengths[b] // T]) is allocated. Attention runs through the
+    paged kernel (ops.paged_attention), which takes its plain version on
+    CPU tensors."""
+    cfg = llama.multi_request_serving_config(cfg)
+    T = cache.block_size
+    mb = table.shape[1]
+    cos, sin = rope_tables or llama.get_rope_tables(cfg, mb * T,
+                                                    tokens.device)
+    lengths = cache.lengths
+    # a frozen cursor past the rope table reads its last row, as JAX's
+    # clamped gather does; such a slot's output is never delivered
+    positions = lengths.clamp(max=cos.shape[0] - 1).long()[:, None]
+
+    x = params["embedding"][tokens[:, None]].to(cfg.tdtype)   # [B, 1, D]
+    k_toks, v_toks = [], []
+    for i in range(cfg.n_layers):
+        k_l, v_l = cache.k[i], cache.v[i]
+        ks_l = cache.k_scale[i] if cache.quantized else None
+        vs_l = cache.v_scale[i] if cache.quantized else None
+
+        def attend(q, k_new, v_new, k_l=k_l, v_l=v_l, ks_l=ks_l, vs_l=vs_l):
+            return paged_attention.paged_decode_attention(
+                q, k_l, v_l, k_new, v_new, table, lengths, ks_l, vs_l)
+
+        x, (k, v) = llama._layer(x, llama._layer_weights(params["layers"], i),
+                                 cfg, cos, sin, positions, attend)
+        k_toks.append(k[:, 0])
+        v_toks.append(v[:, 0])
+    k_tok = torch.stack(k_toks)                               # [L,B,KV,hd]
+    v_tok = torch.stack(v_toks)
+    blk, off = _pool_coords(table, lengths, T)
+    if cache.quantized:
+        qk, sk = quantize_kv(k_tok)
+        qv, sv = quantize_kv(v_tok)
+        cache.k[:, blk, off] = qk
+        cache.v[:, blk, off] = qv
+        cache.k_scale[:, blk, off] = sk
+        cache.v_scale[:, blk, off] = sv
+    else:
+        cache.k[:, blk, off] = k_tok.to(cache.k.dtype)
+        cache.v[:, blk, off] = v_tok.to(cache.v.dtype)
+    cache.lengths = lengths + 1
+    return llama._logits(params, cfg, x[:, 0]), cache
+
+
+def write_prompt_blocks(cache: PagedKVCache, k_stack, v_stack,
+                        blocks) -> PagedKVCache:
+    """Write one admitted prompt's KV stacks [L, 1, S, KV, hd] into its
+    allocated ``blocks`` (at least ceil(S/T) ids; the last may be
+    partly filled, and positions past S in it keep what they held).
+    Quantizes on write for an int8 pool, then one block copy
+    (write_row_to_blocks) moves the rows. IN PLACE."""
+    if cache.quantized:
+        qk, sk = quantize_kv(k_stack)
+        qv, sv = quantize_kv(v_stack)
+        row = llama.KVCache(k=qk, v=qv, lengths=None, k_scale=sk,
+                            v_scale=sv)
+    else:
+        row = llama.KVCache(k=k_stack, v=v_stack, lengths=None)
+    return write_row_to_blocks(cache, row, blocks)
+
+
+def write_row_to_blocks(cache: PagedKVCache, row: llama.KVCache,
+                        blocks) -> PagedKVCache:
+    """Copy a dense single-slot row (``llama.KVCache`` with B=1,
+    [L, 1, S, KV, hd]) into pool blocks: position p goes to
+    blocks[p // T] at offset p % T. Ids in ``blocks`` past ceil(S/T)
+    are not touched. Same-dtype copy for a quantized row (int8 and
+    scales move as they are). IN PLACE."""
+    T = cache.block_size
+    S = row.k.shape[2]
+    need = -(-S // T)
+    if len(blocks) < need:
+        raise ValueError(f"{S} positions need {need} blocks of {T}, got "
+                         f"{len(blocks)}")
+    device = cache.k.device
+    ids = torch.as_tensor(list(blocks)[:need], dtype=torch.long,
+                          device=device)
+    pos = torch.arange(S, device=device)
+    blk, off = ids[pos // T], pos % T
+    cache.k[:, blk, off] = row.k[:, 0].to(cache.k.dtype)
+    cache.v[:, blk, off] = row.v[:, 0].to(cache.v.dtype)
+    if cache.quantized:
+        cache.k_scale[:, blk, off] = row.k_scale[:, 0]
+        cache.v_scale[:, blk, off] = row.v_scale[:, 0]
+    return cache
+
+
+class BlockAllocator:
+    """Host-side refcounted free list over pool blocks 1..N-1 (block 0
+    is the reserved trash block). Refcounts are for blocks held by more
+    than one owner (the shared prefix index to come); a block returns
+    to the free list only when its last holder drops it. Thread-
+    compatible: the engine calls it only from the serving loop."""
+
+    def __init__(self, n_blocks: int):
+        if n_blocks < 2:
+            raise ValueError("paged pool needs >= 2 blocks "
+                             "(block 0 is reserved)")
+        self._free = list(range(n_blocks - 1, 0, -1))
+        self._rc = np.zeros(n_blocks, np.int32)
+        self.n_blocks = n_blocks
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> list[int] | None:
+        """n block ids (each at refcount 1), or None (nothing allocated)
+        if the pool cannot cover the request: the caller picks what to
+        do under pressure."""
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._rc[b] = 1
+        return out
+
+    def ref(self, blocks) -> None:
+        """One more holder for already-allocated blocks."""
+        for b in blocks:
+            if self._rc[b] <= 0:
+                raise ValueError(f"ref of unallocated block {b}")
+            self._rc[b] += 1
+
+    def free(self, blocks) -> None:
+        """Drop one reference per block; blocks with no remaining holder
+        return to the free list."""
+        for b in blocks:
+            if self._rc[b] <= 0:
+                raise ValueError(f"double free of block {b}")
+            self._rc[b] -= 1
+            if self._rc[b] == 0:
+                self._free.append(b)

@@ -31,76 +31,17 @@
 //  - scales are read in the cache's own [B, Smax, KV] layout, no
 //    transpose;
 //  - the epilogue folds in k_new / v_new and writes bf16.
-// Splitting S across blocks, to fill more than B*KV SMs at small batch,
-// is later work.
+// Row, fold, start (the prologue), finish (the combine and epilogue) and
+// the constants are decode_attention.cuh, shared with the paged kernel,
+// which visits positions in this kernel's order. Splitting
+// S across blocks, to fill more than B*KV SMs at small batch, is later
+// work.
 
-#include "common.cuh"
+#include "decode_attention.cuh"
 
 namespace {
 
-constexpr int D = 128;
-constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int LANES_PER_ROW = 8;
-constexpr int EPT = D / LANES_PER_ROW;            // 16 elements per lane
-constexpr int GROUPS = NTHREADS / LANES_PER_ROW;  // positions per step
-constexpr unsigned FULL = 0xffffffffu;
-
-template <typename T>
-struct Row;
-
-template <>
-struct Row<int8_t> {
-  __device__ __forceinline__ static void load(const int8_t* p, float* f) {
-    const int4 raw = *reinterpret_cast<const int4*>(p);
-    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) f[i] = static_cast<float>(c[i]);
-  }
-};
-
-template <>
-struct Row<__nv_bfloat16> {
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* f) {
-    gofr::load8(p, f);
-    gofr::load8(p + 8, f + 8);
-  }
-};
-
-// Fold one cache position into a group's running (m, l, acc) for the G
-// query heads. `kf`/`vf` are this lane's 16 elements of the K/V row.
-template <int G>
-__device__ __forceinline__ void fold(const float (&qf)[G][EPT],
-                                     const float (&kf)[EPT],
-                                     const float (&vf)[EPT], float ksc,
-                                     float vsc, unsigned gmask, float (&m)[G],
-                                     float (&l)[G], float (&acc)[G][EPT]) {
-  float s[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float d = 0.f;
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) d = fmaf(qf[g][i], kf[i], d);
-    s[g] = d;
-  }
-#pragma unroll
-  for (int off = LANES_PER_ROW / 2; off > 0; off /= 2) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(gmask, s[g], off);
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float sg = s[g] * ksc;
-    const float mn = fmaxf(m[g], sg);
-    const float corr = __expf(m[g] - mn);
-    const float p = __expf(sg - mn);
-    l[g] = l[g] * corr + p;
-    const float pv = p * vsc;
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) acc[g][i] = fmaf(acc[g][i], corr, pv * vf[i]);
-    m[g] = mn;
-  }
-}
+using namespace gofr::decode;
 
 template <typename T, int G, bool QUANT>
 __global__ void __launch_bounds__(NTHREADS)
@@ -112,41 +53,20 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ v_new,
                     __nv_bfloat16* __restrict__ out, int Smax, int H, int KV,
                     float scale) {
-  __shared__ float sm_m[NWARPS][G];
-  __shared__ float sm_l[NWARPS][G];
-  __shared__ float sm_acc[NWARPS][G][D];
-  __shared__ float sm_snew[G];
-
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
-  const int warp = tid / 32;
   const int grp = tid / LANES_PER_ROW;
   const int d0 = (tid % LANES_PER_ROW) * EPT;
   const unsigned gmask = 0xffu << (lane & ~(LANES_PER_ROW - 1));
   int length = lengths[b];
   length = length < 0 ? 0 : (length > Smax ? Smax : length);
 
-  // this KV head's G query heads (h = kvh*G + g), this lane's slice,
-  // pre-scaled by 1/sqrt(D)
+  // this KV head's G query heads (h = kvh*G + g)
   const __nv_bfloat16* qh = q + ((size_t)b * H + (size_t)kvh * G) * D;
-  float qf[G][EPT];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    gofr::load8(qh + g * D + d0, qf[g]);
-    gofr::load8(qh + g * D + d0 + 8, qf[g] + 8);
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) qf[g][i] *= scale;
-  }
-  float m[G], l[G], acc[G][EPT];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = gofr::kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) acc[g][i] = 0.f;
-  }
+  float qf[G][EPT], m[G], l[G], acc[G][EPT];
+  start<G>(qh, scale, qf, m, l, acc);
 
   const size_t row = (size_t)KV * D;  // elements between positions
   const T* kb = kc + (size_t)b * Smax * row + (size_t)kvh * D + d0;
@@ -175,70 +95,9 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     if (has1) fold<G>(qf, kf1, vf1, ks1, vs1, gmask, m, l, acc);
   }
 
-  // combine the warp's 4 groups (lanes 8 and 16 apart)
-#pragma unroll
-  for (int off = LANES_PER_ROW; off < 32; off *= 2) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float mo = __shfl_xor_sync(FULL, m[g], off);
-      const float lo = __shfl_xor_sync(FULL, l[g], off);
-      const float mn = fmaxf(m[g], mo);
-      const float cs = __expf(m[g] - mn);
-      const float co = __expf(mo - mn);
-      l[g] = l[g] * cs + lo * co;
-#pragma unroll
-      for (int i = 0; i < EPT; ++i)
-        acc[g][i] = acc[g][i] * cs + __shfl_xor_sync(FULL, acc[g][i], off) * co;
-      m[g] = mn;
-    }
-  }
-  if (lane < LANES_PER_ROW) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-#pragma unroll
-      for (int i = 0; i < EPT; ++i) sm_acc[warp][g][d0 + i] = acc[g][i];
-      if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
-      }
-    }
-  }
-  // this step's score for query head `warp` against k_new
-  if (warp < G) {
-    const __nv_bfloat16* qp = qh + warp * D;
-    const __nv_bfloat16* kp = k_new + ((size_t)b * KV + kvh) * D;
-    float d = 0.f;
-#pragma unroll
-    for (int i = lane; i < D; i += 32)
-      d = fmaf(__bfloat162float(qp[i]) * scale, __bfloat162float(kp[i]), d);
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) d += __shfl_xor_sync(FULL, d, off);
-    if (lane == 0) sm_snew[warp] = d;
-  }
-  __syncthreads();
-
-  const __nv_bfloat16* vn = v_new + ((size_t)b * KV + kvh) * D;
-  for (int o = tid; o < G * D; o += NTHREADS) {
-    const int g = o / D;
-    const int d = o % D;
-    float M = gofr::kNegInf;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, sm_m[w][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      const float c = __expf(sm_m[w][g] - M);
-      L = fmaf(sm_l[w][g], c, L);
-      A = fmaf(sm_acc[w][g][d], c, A);
-    }
-    const float sn = sm_snew[g];
-    const float mt = fmaxf(M, sn);
-    const float alpha = __expf(M - mt);
-    const float beta = __expf(sn - mt);
-    const float lt = L * alpha + beta;
-    const float res = (A * alpha + beta * __bfloat162float(vn[d])) / lt;
-    out[((size_t)b * H + (size_t)kvh * G + g) * D + d] = __float2bfloat16(res);
-  }
+  finish<G>(m, l, acc, qh, k_new + ((size_t)b * KV + kvh) * D,
+            v_new + ((size_t)b * KV + kvh) * D,
+            out + ((size_t)b * H + (size_t)kvh * G) * D, scale);
 }
 
 template <typename T, bool QUANT>

@@ -42,6 +42,16 @@ SIGNATURES = {
     "gofr_flash_decode_bf16": (
         "flash_decode.cu",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    # q, k_pool, v_pool, k_scale, v_scale, table, lengths, k_new, v_new,
+    # out, B, MB, T, N, H, KV, scale, stream
+    "gofr_paged_decode_int8": (
+        "paged_decode.cu",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+         _P]),
+    "gofr_paged_decode_bf16": (
+        "paged_decode.cu",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+         _P]),
 }
 
 _lock = threading.Lock()

@@ -14,6 +14,11 @@ Rows read:
   TPU_SLOTS         decode batch slots (default 48)
   TPU_MAX_SEQ       serving KV capacity (default min(model max, 2048))
   TPU_DECODE_BLOCK  decode steps fused per dispatch (default 4)
+  TPU_PAGED_BLOCKS  > 0 serves from a paged pool of that many KV blocks
+                    shared by all slots (block 0 is the reserved trash
+                    block, so size it as live tokens // block + 1);
+                    0 or unset keeps contiguous [slots, max_seq] rows
+  TPU_PAGED_BLOCK   tokens per paged block (default 128)
 
 Every other ``TPU_*`` row of the JAX package names a feature this port
 does not serve yet; a set one raises with its name rather than being
@@ -43,8 +48,7 @@ UNPORTED_ROWS = (
     "TPU_PREFIX_MIN", "TPU_KVCACHE_BLOCK", "TPU_KVCACHE_HOST_MB",
     "TPU_KVCACHE_REDIS", "TPU_KVCACHE_REDIS_TTL_S",
     "TPU_KVCACHE_REDIS_TIMEOUT_S", "TPU_KVCACHE_EPOCH_REFRESH_S",
-    "TPU_SPEC_DECODE", "TPU_PAGED_BLOCKS", "TPU_PAGED_BLOCK",
-    "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_BUDGET_MB",
+    "TPU_SPEC_DECODE", "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_BUDGET_MB",
     "TPU_HBM_HEADROOM", "TPU_HBM_DEVICE_BUDGET_MB", "TPU_MAX_QUEUE_DEPTH",
     "TPU_MAX_QUEUE_DELAY", "TPU_BROWNOUT_DELAY", "TPU_BROWNOUT_MAX_NEW",
     "TPU_BATCH_BUCKETS", "TPU_SEQ_BUCKETS", "TPU_MAX_BATCH_DELAY",
@@ -98,7 +102,9 @@ def new_engine_from_config(cfg, device="cuda", logger=None) -> TorchEngine:
         mc, params, slots=cfg.get_int("TPU_SLOTS", 48), max_seq=max_seq,
         logger=logger,
         kv_dtype=torch.int8 if kv_choice == "int8" else None,
-        decode_block=cfg.get_int("TPU_DECODE_BLOCK", 4), device=device)
+        decode_block=cfg.get_int("TPU_DECODE_BLOCK", 4),
+        paged_blocks=cfg.get_int("TPU_PAGED_BLOCKS", 0),
+        paged_block_size=cfg.get_int("TPU_PAGED_BLOCK", 128), device=device)
     if logger is not None:
         logger.info({"event": "torch engine ready", "model": name,
                      "device": str(device)})

@@ -4,6 +4,13 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
   - A fixed pool of B slots shares one preallocated KV cache
     [L, B, Smax, KV, hd]; slots are admitted and retired independently
     through the per-slot ``lengths`` cursor.
+  - Or, with ``paged_blocks``, a pool of fixed T-token blocks
+    (models.paged_llama) that the slots share through a host-owned
+    block table: the host allocates each admission's prompt blocks,
+    grows every active slot's blocks before each decode block, and a
+    slot the pool cannot grow is truncated and counted, never
+    corrupted. Pool pressure plays out as in the JAX engine at
+    dispatch depth 1.
   - Admission prefills ONE prompt at its exact length (eager PyTorch has
     no compile keys, so there are no prompt buckets and no chunking up to
     ``max_seq - 1`` tokens), writes its KV into the slot and samples the
@@ -14,14 +21,14 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
     one [B, W] state pack and reads the [K, B] tokens once per block.
     Dispatch depth is 1 (the block is reaped before the next starts).
   - Sampling (greedy, temperature, top-k) is keyed on each request's
-    (seed, absolute position) through a counter-based hash, so a stream
-    is a pure function of its seed; the bits differ from JAX's threefry.
+    (seed, absolute position) as ``fold_in(PRNGKey(seed), pos)`` with
+    JAX's threefry (tpu.prng), so a stream is a pure function of its
+    seed and draws JAX's random bits.
 
 Consumers call ``generate()`` from any thread and read tokens off a
 stream; one background thread, ``gofr-torch-gen``, owns the device loop.
 Features outside the slice (prefix cache, speculative decode, LoRA,
-paged KV, a depth-2 pipeline, the kv-cache tiers, meshes) raise when
-asked for.
+a depth-2 pipeline, the kv-cache tiers, meshes) raise when asked for.
 """
 
 from __future__ import annotations
@@ -36,9 +43,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models import llama
+from ..models import llama, paged_llama
 from ..models.common import ModelConfig
 from ..wire import PushStream
+from . import prng
 
 _REQ_IDS = itertools.count(1)
 
@@ -51,57 +59,33 @@ class GenerationError(RuntimeError):
 # fixed top set (larger k saturates to it)
 TOP_K_MAX = 64
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for int64 ``x`` in [0, 2**32) without int64
-    overflow: the high half's product is cut to the 16 bits that land."""
-    lo, hi = x & 0xFFFF, x >> 16
-    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer finalizer (xorshift-multiply) on int64 holders."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def gumbel_noise(seeds: torch.Tensor, pos: torch.Tensor, n: int,
-                 stream: int) -> torch.Tensor:
-    """[B, n] float32 Gumbel noise keyed on (seed, absolute position,
-    index, stream): counter-based, so the same key gives the same noise
-    on any device and in any batch."""
-    key = _mix32((seeds.long() & _M32) ^ 0x243F6A88)
-    key = _mix32(key ^ (pos.long() & _M32))
-    key = _mix32(key ^ (0x9E3779B9 + stream))
-    idx = _mix32(torch.arange(n, device=seeds.device, dtype=torch.long))
-    bits = _mix32(key[:, None] ^ idx[None, :])
-    u = ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))       # (0, 1)
-    return -torch.log(-torch.log(u))
-
 
 def sample(logits: torch.Tensor, temps: torch.Tensor, seeds: torch.Tensor,
-           pos: torch.Tensor, top_ks: torch.Tensor):
+           pos: torch.Tensor, top_ks: torch.Tensor, draw: bool = True):
     """Greedy where temp == 0; categorical(logits / temp) otherwise,
     truncated to the request's top-k logits when top_k > 0 -- per slot,
-    by the Gumbel-max rule on ``gumbel_noise``. Returns (tokens [B]
-    int64, logprob [B] of each token under the untempered model)."""
-    V = logits.shape[-1]
-    scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
-    sampled = torch.argmax(scaled + gumbel_noise(seeds, pos, V, 0), dim=-1)
-    kmax = min(TOP_K_MAX, V)
-    vals, idx = torch.topk(scaled, kmax, dim=-1)
-    kk = torch.clamp(torch.where(top_ks > 0, top_ks, kmax), max=kmax)
-    ranks = torch.arange(kmax, device=logits.device)
-    vals = vals.masked_fill(ranks[None, :] >= kk[:, None], float("-inf"))
-    in_k = torch.argmax(vals + gumbel_noise(seeds, pos, kmax, 1), dim=-1)
-    topk_tok = torch.gather(idx, 1, in_k[:, None])[:, 0]
-    sampled = torch.where(top_ks > 0, topk_tok, sampled)
-    tok = torch.where(temps > 0, sampled, torch.argmax(logits, dim=-1))
+    by the Gumbel-max rule under the key ``fold_in(PRNGKey(seed), pos)``,
+    as the JAX engine's ``_sample`` draws it: one key per slot for both
+    draws, words 0..V-1 for the full vocabulary and words 0..kmax-1 for
+    the top-k set. ``draw=False`` (no slot samples) skips the noise.
+    Returns (tokens [B] int64, logprob [B] of each token under the
+    untempered model)."""
+    greedy = torch.argmax(logits, dim=-1)
+    tok = greedy
+    if draw:
+        V = logits.shape[-1]
+        noise = prng.gumbel(prng.fold_in(prng.prng_key(seeds), pos), V)
+        scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
+        sampled = torch.argmax(scaled + noise, dim=-1)
+        kmax = min(TOP_K_MAX, V)
+        vals, idx = torch.topk(scaled, kmax, dim=-1)
+        kk = torch.clamp(torch.where(top_ks > 0, top_ks, kmax), max=kmax)
+        ranks = torch.arange(kmax, device=logits.device)
+        vals = vals.masked_fill(ranks[None, :] >= kk[:, None], float("-inf"))
+        in_k = torch.argmax(vals + noise[:, :kmax], dim=-1)
+        topk_tok = torch.gather(idx, 1, in_k[:, None])[:, 0]
+        sampled = torch.where(top_ks > 0, topk_tok, sampled)
+        tok = torch.where(temps > 0, sampled, greedy)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return tok, torch.gather(logp, 1, tok[:, None])[:, 0]
 
@@ -167,7 +151,8 @@ class GenerationEngine:
 
     # dispatch-pack columns (_dispatch_pack / _decode_block agree):
     # 0 last token, 1 active, 2 budget, 3 temp (float32 bits), 4 top_k,
-    # 5 seed, 6 position of the next sample, 7.. EOS set
+    # 5 seed, 6 position of the next sample, 7.. EOS set, then (paged)
+    # the block-table row
     _PACK_EXTRA = 7
 
     def __init__(self, cfg: ModelConfig, params: dict, *, slots: int = 8,
@@ -176,19 +161,18 @@ class GenerationEngine:
                  decode_pipeline: int = 1, device="cuda",
                  prefix_cache_slots: int = 0, spec_decode_k: int = 0,
                  lora_adapters: int = 0, paged_blocks: int = 0,
-                 kvcache=None, mesh=None):
+                 paged_block_size: int = 128, kvcache=None, mesh=None):
         unported = {"prefix_cache_slots": prefix_cache_slots != 0,
                     "spec_decode_k": spec_decode_k != 0,
                     "lora_adapters": lora_adapters != 0,
-                    "paged_blocks": paged_blocks != 0,
                     "decode_pipeline": decode_pipeline != 1,
                     "kvcache": kvcache is not None,
                     "mesh": mesh is not None}
         asked = [name for name, on in unported.items() if on]
         if asked:
             raise ValueError(f"not ported to gofr_tpu_torch yet: {asked} "
-                             "(the port serves contiguous slots at "
-                             "dispatch depth 1)")
+                             "(the port serves contiguous or paged slots "
+                             "at dispatch depth 1)")
         if cfg.n_experts > 0:
             raise ValueError("the port serves dense Llama models; MoE is "
                              "not ported yet")
@@ -201,8 +185,38 @@ class GenerationEngine:
         self.logger = logger
         self._seed = int(seed)
         self._auto_seed = itertools.count(1)
-        self.cache = llama.init_cache(cfg, slots, self.max_seq,
-                                      dtype=kv_dtype, device=self.device)
+        # Paged KV: slots share a pool of T-token blocks through a
+        # host-owned table instead of owning [max_seq] rows, so the
+        # pool is sized to the expected live tokens
+        self._paged = paged_blocks > 0
+        if self._paged:
+            self._block_t = int(paged_block_size)
+            if self._block_t <= 0:
+                raise ValueError(f"paged_block_size={paged_block_size} "
+                                 "must be positive")
+            self._mb = -(-self.max_seq // self._block_t)
+            if paged_blocks < 2:
+                # no prompt buckets here, so the floor is the trash
+                # block plus one block to serve from
+                raise ValueError(f"paged_blocks={paged_blocks} too small: "
+                                 "need >= 2 (trash block + one block)")
+            self._alloc = paged_llama.BlockAllocator(paged_blocks)
+            self._table = np.zeros((slots, self._mb), np.int32)
+            self._slot_blocks: list[list[int]] = [[] for _ in range(slots)]
+            # the host's view of each slot's device cursor, advanced at
+            # dispatch
+            self._cursors = np.zeros((slots,), np.int64)
+            # where each slot's on-device stop mask freezes its cursor
+            # (budget/capacity; 0 = none): blocks past it are never
+            # demanded for the slot
+            self._stop_cursors = np.zeros((slots,), np.int64)
+            self._paged_evictions = 0
+            self.cache = paged_llama.init_paged_cache(
+                cfg, slots, paged_blocks, self._block_t, dtype=kv_dtype,
+                device=self.device)
+        else:
+            self.cache = llama.init_cache(cfg, slots, self.max_seq,
+                                          dtype=kv_dtype, device=self.device)
         self.rope_tables = llama.get_rope_tables(cfg, self.max_seq,
                                                  self.device)
 
@@ -264,10 +278,22 @@ class GenerationEngine:
         stream.prompt_len = len(prompt)
         stream.seed = seed
         limit = self.max_seq - 1
+        why = None
         if len(prompt) == 0 or len(prompt) > limit:
             why = ("empty prompt" if len(prompt) == 0 else
                    f"prompt length {len(prompt)} exceeds serving limit "
                    f"{limit}")
+        elif self._paged:
+            # fail fast when the POOL can never hold this prompt: a
+            # transient shortage requeues at admission, a structural one
+            # would requeue forever
+            need = -(-len(prompt) // self._block_t)
+            usable = self._alloc.n_blocks - 1
+            if need > usable:
+                why = (f"prompt needs {need} pool blocks but the pool has "
+                       f"{usable} (raise TPU_PAGED_BLOCKS or "
+                       "TPU_PAGED_BLOCK)")
+        if why is not None:
             stream._q.put(GenerationError(why))
             stream._q.put(None)
             return stream
@@ -284,7 +310,7 @@ class GenerationEngine:
         blocks = list(self._block_s)
         step_ms = (1e3 * sum(blocks) / (len(blocks) * self.decode_block)
                    if blocks else None)
-        return {
+        out = {
             "slots": self.n_slots,
             "active": int(self._active.sum()),
             "queued": self._pending.qsize(),
@@ -299,6 +325,17 @@ class GenerationEngine:
             "decode_step_ms_mean": step_ms,
             "down": self.down,
         }
+        if self._paged:
+            n_usable = self._alloc.n_blocks - 1
+            out["paged"] = {
+                "block_size": self._block_t,
+                "blocks": n_usable,
+                "free": self._alloc.free_blocks,
+                "utilization": round(1 - self._alloc.free_blocks
+                                     / max(1, n_usable), 3),
+                "evictions": self._paged_evictions,
+            }
+        return out
 
     def close(self) -> None:
         with self._admission_lock:
@@ -357,11 +394,23 @@ class GenerationEngine:
             if req.stream.cancelled.is_set():
                 req.stream._q.put(None)
                 continue
-            self._start(idx, slot, req)
+            blocks = None
+            if self._paged:
+                # the prompt's ceil(L/T) blocks, or None (nothing held)
+                blocks = self._alloc.alloc(-(-len(req.prompt)
+                                             // self._block_t))
+                if blocks is None:
+                    # transient pool pressure: requeue and let active
+                    # slots retire blocks
+                    self._pending.put(req)
+                    return
+            self._start(idx, slot, req, blocks)
 
-    def _prefill(self, idx: int, req: _Request) -> tuple[int, float]:
-        """Prefill the prompt into slot ``idx`` at its exact length and
-        sample the first token (position 0 of the request's stream)."""
+    def _prefill(self, idx: int, req: _Request,
+                 blocks: list[int] | None) -> tuple[int, float]:
+        """Prefill the prompt into slot ``idx`` (paged: into ``blocks``)
+        at its exact length and sample the first token (position 0 of
+        the request's stream)."""
         n = len(req.prompt)
         dev = self.device
         tokens = torch.tensor(req.prompt[None], dtype=torch.long, device=dev)
@@ -371,7 +420,15 @@ class GenerationEngine:
                 torch.tensor([n], dtype=torch.int32, device=dev),
                 rope_tables=self.rope_tables, flash=True,
                 logit_pos=torch.tensor([n - 1], device=dev))
-            llama.write_kv(self.cache, k, v, slot=idx)
+            if self._paged:
+                # the slot owns its blocks from here: every exit path
+                # frees them through _retire (or _start's failure path)
+                self._slot_blocks[idx] = blocks
+                self._cursors[idx] = n
+                paged_llama.write_prompt_blocks(self.cache, k, v, blocks)
+                self._write_table_row(idx)
+            else:
+                llama.write_kv(self.cache, k, v, slot=idx)
             self.cache.lengths[idx] = n
             tok, lp = sample(
                 logits[:, 0],
@@ -379,16 +436,25 @@ class GenerationEngine:
                              device=dev),
                 torch.tensor([req.seed], device=dev),
                 torch.zeros((1,), dtype=torch.long, device=dev),
-                torch.tensor([req.top_k], device=dev))
+                torch.tensor([req.top_k], device=dev),
+                draw=req.temperature > 0)
         out = torch.stack([tok.double(), lp.double()]).cpu()
         return int(out[0, 0]), float(out[1, 0])
 
-    def _start(self, idx: int, slot: _Slot, req: _Request) -> None:
+    def _start(self, idx: int, slot: _Slot, req: _Request,
+               blocks: list[int] | None = None) -> None:
         req.stream.trace["admit"] = time.monotonic()
         slot.request = req
         try:
-            first, first_lp = self._prefill(idx, req)
+            first, first_lp = self._prefill(idx, req, blocks)
         except Exception as e:
+            if self._paged:
+                # clear the slot's blocks, table row and cursor before
+                # freeing, so no stale row points at reallocated blocks
+                self._slot_blocks[idx] = []
+                self._table[idx, :] = 0
+                self._cursors[idx] = 0
+                self._alloc.free(blocks)
             slot.request = None
             req.stream._q.put(GenerationError(f"prefill failed: {e!r}"))
             req.stream._q.put(None)
@@ -408,6 +474,12 @@ class GenerationEngine:
             self._budgets[idx] = slot.remaining
             self._eos_row(idx, req.eos_id)
             self._pos_abs[idx] = slot.generated
+            if self._paged:
+                # where the device's budget/capacity stop masks will
+                # freeze this slot's cursor (EOS may stop earlier)
+                self._stop_cursors[idx] = min(
+                    req.stream.prompt_len + slot.remaining,
+                    self.max_seq - 2)
 
     def _eos_row(self, idx: int, eos_id) -> None:
         row = self._eos_mat[idx]
@@ -423,7 +495,8 @@ class GenerationEngine:
         array, uploaded as one copy (the numpy staging array is fresh, so
         nothing aliases host state that changes later)."""
         E = self.EOS_MAX
-        p = np.empty((self.n_slots, self._PACK_EXTRA + E), np.int64)
+        width = self._PACK_EXTRA + E + (self._mb if self._paged else 0)
+        p = np.empty((self.n_slots, width), np.int64)
         p[:, 0] = self._last_tokens
         p[:, 1] = self._active
         p[:, 2] = self._budgets
@@ -431,15 +504,23 @@ class GenerationEngine:
         p[:, 4] = self._top_ks
         p[:, 5] = self._slot_seed
         p[:, 6] = self._pos_abs
-        p[:, self._PACK_EXTRA:] = self._eos_mat
+        p[:, self._PACK_EXTRA:self._PACK_EXTRA + E] = self._eos_mat
+        if self._paged:
+            p[:, self._PACK_EXTRA + E:] = self._table
         return torch.from_numpy(p).to(self.device)
 
     def _decode_block(self) -> None:
         """K fused decode steps over all slots; each step feeds its
         sampled tokens to the next on the device. Inactive cursors stay
         frozen (their scatter lands at the frozen position, which a later
-        admission overwrites). One host read per block returns the
-        [K, B] tokens, logprobs and emitted mask, delivered in order."""
+        admission overwrites; a paged slot's lands through its table
+        row, in the trash block once it is retired). One host read per
+        block returns the [K, B] tokens, logprobs and emitted mask,
+        delivered in order."""
+        if self._paged:
+            self._ensure_blocks()  # may retire starving slots
+            if not self._active.any():
+                return
         t0 = time.monotonic()
         pack = self._dispatch_pack()
         tokens = pack[:, 0]
@@ -449,7 +530,24 @@ class GenerationEngine:
         top_ks = pack[:, 4]
         seeds = pack[:, 5]
         pos = pack[:, 6]
-        eos_ids = pack[:, self._PACK_EXTRA:]
+        E = self.EOS_MAX
+        eos_ids = pack[:, self._PACK_EXTRA:self._PACK_EXTRA + E]
+        if self._paged:
+            # the table is constant through the block: the host has
+            # allocated blocks covering K positions per slot
+            table = pack[:, self._PACK_EXTRA + E:].to(torch.int32)
+
+            def step(tokens):
+                return paged_llama.paged_decode_step(
+                    self.params, self.cfg, tokens, self.cache, table,
+                    self.rope_tables)
+        else:
+            def step(tokens):
+                return llama.decode_step(self.params, self.cfg, tokens,
+                                         self.cache, self.rope_tables,
+                                         flash=True)
+        # Gumbel noise only when some slot samples (host-known, no sync)
+        draw = bool((self._temps > 0).any())
         # the host retires one delivered token before the cursor reaches
         # capacity (see _deliver): post-step cursors at max_seq - 2 mean
         # the NEXT delivery would reach the bound
@@ -458,12 +556,10 @@ class GenerationEngine:
         with torch.no_grad():
             for _ in range(self.decode_block):
                 before = self.cache.lengths
-                logits, _ = llama.decode_step(self.params, self.cfg, tokens,
-                                              self.cache, self.rope_tables,
-                                              flash=True)
+                logits, _ = step(tokens)
                 lengths = torch.where(active, self.cache.lengths, before)
                 self.cache.lengths = lengths
-                toks, lps = sample(logits, temps, seeds, pos, top_ks)
+                toks, lps = sample(logits, temps, seeds, pos, top_ks, draw)
                 toks = torch.where(active, toks, tokens)
                 emitted = active
                 budget = torch.where(active, budget - 1, budget)
@@ -476,6 +572,14 @@ class GenerationEngine:
         out = torch.stack(rows).cpu().numpy()                  # [K, 3, B]
         self._block_s.append(time.monotonic() - t0)
         self.decode_steps += self.decode_block
+        if self._paged:
+            # cursors advance by K, bounded by each slot's device stop
+            # cursor (the scan freezes a slot there); EOS stops land
+            # wherever they land, and such a slot retires below
+            adv = np.minimum(self.decode_block,
+                             np.maximum(self._stop_cursors - self._cursors, 0))
+            adv = np.where(self._stop_cursors > 0, adv, self.decode_block)
+            self._cursors[self._active] += adv[self._active]
         snap_active = self._active.copy()
         snap_reqs = [s.request for s in self._slots]
         for k in range(out.shape[0]):
@@ -514,6 +618,18 @@ class GenerationEngine:
             self._retire(idx, slot)
 
     def _retire(self, idx: int, slot: _Slot) -> None:
+        if self._paged:
+            # freed blocks may be handed out at once; the retired slot's
+            # frozen-cursor writes go to the trash block because its
+            # table row zeroes before the next dispatch. Freed before
+            # the stream ends, so a consumer that sees the end sees its
+            # blocks back in the pool.
+            if self._slot_blocks[idx]:
+                self._alloc.free(self._slot_blocks[idx])
+                self._slot_blocks[idx] = []
+            self._table[idx, :] = 0
+            self._cursors[idx] = 0
+            self._stop_cursors[idx] = 0
         slot.request.stream._push(None)
         slot.request = None
         self._active[idx] = False
@@ -523,3 +639,54 @@ class GenerationEngine:
         self._slot_seed[idx] = 0
         self._pos_abs[idx] = 0
         self._eos_mat[idx, :] = llama.EOS_PAD
+
+    # -- paged-mode host side ------------------------------------------------
+    def _write_table_row(self, idx: int) -> None:
+        """Clamped table row: entries past the slot's live blocks repeat
+        the last one; an empty slot stays on the trash block."""
+        blocks = self._slot_blocks[idx]
+        if not blocks:
+            self._table[idx, :] = 0
+            return
+        n = min(len(blocks), self._mb)
+        self._table[idx, :n] = blocks[:n]
+        self._table[idx, n:] = blocks[n - 1]
+
+    def _ensure_blocks(self) -> None:
+        """Before each decode block: every active slot owns blocks
+        covering its next K positions, bounded by its stop cursor. A
+        slot the pool cannot grow is retired at once (its stream ends
+        as if at capacity), freeing its blocks for the rest; the
+        eviction is logged and counted."""
+        K = self.decode_block
+        T = self._block_t
+        for idx, slot in enumerate(self._slots):
+            if not self._active[idx]:
+                continue
+            cur = int(self._cursors[idx])
+            hi = cur + K  # the highest write is at position hi - 1
+            stop = int(self._stop_cursors[idx])
+            if stop > 0:
+                hi = min(hi, stop)
+                if hi <= cur:
+                    continue  # stopped on the device; retires at delivery
+            need = min((hi - 1) // T + 1, self._mb)
+            if len(self._slot_blocks[idx]) >= need:
+                continue
+            starved = False
+            while len(self._slot_blocks[idx]) < need:
+                got = self._alloc.alloc(1)
+                if got is None:
+                    starved = True
+                    break
+                self._slot_blocks[idx].extend(got)
+            if starved:
+                self._paged_evictions += 1
+                if self.logger is not None:
+                    self.logger.warn({
+                        "event": "paged pool exhausted: stream truncated",
+                        "slot": idx, "generated": slot.generated,
+                        "free_blocks": self._alloc.free_blocks})
+                self._retire(idx, slot)
+                continue
+            self._write_table_row(idx)

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: each against its plain version at
 odd shapes and every GQA group size the kernels take, the wrappers'
 refusals on CUDA tensors they cannot take (an exception, never the plain
-version), and the launch counters. They need an NVIDIA card and skip
-without one; on the card run
+version), and the launch counters. The paged kernel also returns the
+contiguous kernel's bits on the gathered view of its pool, and a paged
+decode step the contiguous step's logits. They need an NVIDIA card and
+skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -13,7 +15,8 @@ does not use).
 import pytest
 import torch
 
-from gofr_tpu_torch.ops import flash, flash_decode
+from gofr_tpu_torch.models import LLAMA_CONFIGS, llama, paged_llama
+from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
 from gofr_tpu_torch.ops.quant import quantize_kv
 
 pytestmark = pytest.mark.cuda
@@ -126,3 +129,143 @@ def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(gen):
             qd, cache.transpose(1, 2).contiguous().transpose(1, 2), cache,
             new, new, lens)
     assert (flash_decode.launches, flash_decode.plain_calls) == (0, 0)
+
+
+def _shuffled_table(lengths, t, mb):
+    """Clamped rows over a pool of B*MB + 1 blocks with interleaved,
+    descending ids (no slot's blocks adjacent); length 0 keeps an
+    all-trash row."""
+    b = len(lengths)
+    table = torch.zeros((b, mb), dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        live = -(-n // t)
+        for j in range(mb):
+            if live:
+                table[i, j] = 1 + (mb - 1 - min(j, live - 1)) * b + i
+    return table.cuda(), b * mb + 1
+
+
+def _paged_args(gen, lengths, t, mb, h, kv, quant):
+    table, n = _shuffled_table(lengths, t, mb)
+    kp, vp = _randn(gen, n, t, kv, 128), _randn(gen, n, t, kv, 128)
+    ks = vs = None
+    if quant:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+    b = len(lengths)
+    return (_randn(gen, b, 1, h, 128), kp, vp, _randn(gen, b, 1, kv, 128),
+            _randn(gen, b, 1, kv, 128), table,
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"), ks, vs)
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("h,kv", [(8, 8), (8, 4), (32, 8), (16, 2)])
+@pytest.mark.parametrize("t,mb", [(16, 16), (128, 4)])
+def test_paged_decode_kernel_matches_plain(gen, quant, h, kv, t, mb):
+    cap = mb * t
+    lengths = [0, 1, t - 1, t, t + 1, cap // 2 + 3, cap - 1]
+    args = _paged_args(gen, lengths, t, mb, h, kv, quant)
+    paged_attention.reset_counts()
+    got = paged_attention.paged_decode_attention(*args)
+    assert (paged_attention.launches, paged_attention.plain_calls) == (1, 0)
+    _assert_close(got, paged_attention.paged_attention_reference(*args))
+    # the all-trash row of the empty slot returns this step's value
+    assert torch.equal(got[0, 0], args[4][0, 0].repeat_interleave(h // kv, 0))
+    # and the contiguous kernel on the gathered view gives the same bits
+    q, kp, vp, kn, vn, table, lens, ks, vs = args
+
+    def dense(x):
+        return None if x is None else \
+            paged_attention.gather_blocks(x, table).contiguous()
+
+    contiguous = flash_decode.flash_decode_appended(
+        q, dense(kp), dense(vp), kn, vn, lens, dense(ks), dense(vs))
+    assert torch.equal(got, contiguous)
+
+
+def test_paged_decode_ignores_table_entries_past_the_length(gen):
+    """Entries past a slot's live blocks are never read: pointing them at
+    other blocks, or past the pool, changes nothing."""
+    lengths = [5, 40, 17]
+    args = list(_paged_args(gen, lengths, 16, 4, 8, 2, True))
+    want = paged_attention.paged_decode_attention(*args)
+    table = args[5].clone()
+    for i, n in enumerate(lengths):
+        table[i, -(-n // 16):] = 10**6 if i % 2 else 1
+    args[5] = table
+    assert torch.equal(paged_attention.paged_decode_attention(*args), want)
+
+
+def _good_paged(gen, quant=True):
+    return list(_paged_args(gen, [3, 16], 16, 2, 8, 2, quant))
+
+
+@pytest.mark.parametrize("case,error", [
+    (lambda a: a.__setitem__(0, a[0].float()), TypeError),        # q dtype
+    (lambda a: a.__setitem__(1, a[1].to(torch.bfloat16)), TypeError),
+    (lambda a: a.__setitem__(7, None), ValueError),                # one scale
+    (lambda a: a.__setitem__(0, a[0][:, :, :6].contiguous()), ValueError),
+    (lambda a: a.__setitem__(1, a[1][:, :12].contiguous()), ValueError),
+    (lambda a: a.__setitem__(5, a[5].long()), TypeError),          # table
+    (lambda a: a.__setitem__(5, a[5][:1].contiguous()), ValueError),
+    (lambda a: a.__setitem__(6, a[6].long()), TypeError),          # lengths
+    (lambda a: a.__setitem__(7, a[7][:, :8].contiguous()), ValueError),
+    (lambda a: a.__setitem__(
+        1, a[1].transpose(1, 2).contiguous().transpose(1, 2)), ValueError),
+    (lambda a: a.__setitem__(5, a[5].t().contiguous().t()), ValueError),
+    (lambda a: a.__setitem__(5, a[5].cpu()), ValueError),          # device
+    (lambda a: a.__setitem__(0, a[0][..., :64].contiguous()), ValueError),
+])
+def test_paged_wrapper_raises_on_cuda_tensors_the_kernel_does_not_take(
+        gen, case, error):
+    args = _good_paged(gen)
+    case(args)
+    paged_attention.reset_counts()
+    with pytest.raises(error):
+        paged_attention.paged_decode_attention(*args)
+    assert (paged_attention.launches, paged_attention.plain_calls) == (0, 0)
+
+
+def test_paged_decode_step_equals_decode_step_bit_for_bit(gen):
+    """At small width (head_dim 128, G=2), the same prefill in contiguous
+    rows and in a shuffled pool, then 8 decode steps through
+    llama.decode_step (flash_decode) and paged_llama.paged_decode_step
+    (paged_decode): equal logits, since the kernels visit positions in
+    one order."""
+    cfg = LLAMA_CONFIGS["llama3-8b"].with_(
+        vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+        ffn_dim=1024, max_seq=512)
+    params = llama.init(cfg, 0, device="cuda")
+    smax, t = 256, 16
+    lens = [100, 37, 1]
+    b = len(lens)
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (b, 100), generator=g).cuda()
+    steps = torch.randint(0, cfg.vocab_size, (8, b), generator=g).cuda()
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    rope = llama.get_rope_tables(cfg, smax, "cuda")
+    table, n = _shuffled_table([x + len(steps) for x in lens], t, smax // t)
+    flash_decode.reset_counts()
+    paged_attention.reset_counts()
+    with torch.no_grad():
+        _, k, v, _ = llama.prefill_kv(params, cfg, tokens, lengths,
+                                      rope_tables=rope, flash=True)
+        rows = llama.init_cache(cfg, b, smax, dtype=torch.int8,
+                                device="cuda")
+        llama.write_kv(rows, k, v, lengths=lengths.clone())
+        pool = paged_llama.init_paged_cache(cfg, b, n, t, dtype=torch.int8,
+                                            device="cuda")
+        host = table.cpu()
+        for i, x in enumerate(lens):
+            paged_llama.write_prompt_blocks(pool, k[:, i:i + 1, :x],
+                                            v[:, i:i + 1, :x],
+                                            host[i, :-(-x // t)].tolist())
+        pool.lengths = lengths.clone()
+        for step in steps:
+            want, rows = llama.decode_step(params, cfg, step, rows, rope,
+                                           flash=True)
+            got, pool = paged_llama.paged_decode_step(params, cfg, step, pool,
+                                                      table, rope)
+            assert torch.equal(got, want)
+    assert torch.equal(pool.lengths, rows.lengths)
+    assert flash_decode.launches == paged_attention.launches == 8 * 2
+    assert flash_decode.plain_calls == paged_attention.plain_calls == 0

@@ -5,9 +5,10 @@ when asked).
 
 Both engines: 4 slots, K=4 fused decode blocks, dispatch depth 1, an
 int8 KV cache. Greedy streams are token-identical, and EOS and budget
-stop both at the same token. Sampled streams use another generator on
-each side (the port keys a counter-based hash on (seed, position), JAX
-its threefry), so they are held to determinism, not to JAX's bits.
+stop both at the same token. Sampled streams are token-identical too:
+the port draws JAX's threefry bits under the same key,
+``fold_in(PRNGKey(seed), position)`` (the words bit-equal, the Gumbel
+values within one ulp of ``log``).
 """
 
 import threading
@@ -99,6 +100,43 @@ def test_same_seed_gives_the_same_sampled_stream(engines):
     assert a.seed == 42
 
 
+@pytest.mark.parametrize("seed", [0, 1, 42, 123457, 2**31 - 1])
+def test_threefry_keys_and_words_equal_jax(seed):
+    from gofr_tpu_torch.tpu import prng
+
+    pos = np.array([0, 1, 7, 511, 4095, 2**20 + 3], np.int64)
+    seeds = np.full(pos.shape, seed, np.int64)
+    want_keys = jax.vmap(
+        lambda s, p: jax.random.fold_in(jax.random.PRNGKey(s), p))(
+        jnp.asarray(seeds, jnp.int32), jnp.asarray(pos, jnp.int32))
+    keys = prng.fold_in(prng.prng_key(torch.from_numpy(seeds)),
+                        torch.from_numpy(pos))
+    np.testing.assert_array_equal(keys.numpy(),
+                                  np.asarray(want_keys).astype(np.int64))
+    want_bits = jax.vmap(lambda k: jax.random.bits(k, (300,)))(want_keys)
+    np.testing.assert_array_equal(prng.random_bits(keys, 300).numpy(),
+                                  np.asarray(want_bits).astype(np.int64))
+    # Gumbel values: the same uniforms through log twice, one ulp apart
+    want_g = jax.vmap(lambda k: jax.random.gumbel(k, (300,)))(want_keys)
+    np.testing.assert_allclose(prng.gumbel(keys, 300).numpy(),
+                               np.asarray(want_g), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("top_k", [0, 20])
+def test_sampled_streams_match_jax(engines, top_k):
+    prompts = [PROMPTS[0], PROMPTS[1], PROMPTS[2]]
+    jeng, teng = engines
+    kw = dict(max_new_tokens=16, temperature=0.8, top_k=top_k)
+    js = [jeng.generate(p, seed=s, **kw) for p, s in zip(prompts, (5, 6, 7))]
+    ts = [teng.generate(p, seed=s, **kw) for p, s in zip(prompts, (5, 6, 7))]
+    want, got = [s.tokens() for s in js], [s.tokens() for s in ts]
+    assert [len(t) for t in got] == [16, 16, 16]
+    assert got == want
+    # and they really sample: the greedy streams differ
+    greedy = teng.generate(prompts[1], max_new_tokens=16).tokens()
+    assert got[1] != greedy
+
+
 def test_unseeded_sampling_gets_a_deterministic_seed(weights):
     _, tparams = weights
     streams = []
@@ -170,7 +208,8 @@ def test_cancel_ends_the_stream_and_frees_the_slot(weights):
 
 @pytest.mark.parametrize("kw", [
     {"prefix_cache_slots": 2}, {"spec_decode_k": 4}, {"lora_adapters": 2},
-    {"paged_blocks": 64}, {"decode_pipeline": 2}, {"kvcache": object()},
+    {"paged_blocks": 64, "prefix_cache_slots": 2}, {"decode_pipeline": 2},
+    {"kvcache": object()},
     {"mesh": object()},
 ])
 def test_features_outside_the_slice_raise(weights, kw):
@@ -218,7 +257,7 @@ def test_new_engine_from_config_loads_jax_weights(weights, tmp_path):
 
 
 @pytest.mark.parametrize("rows,name", [
-    ({"TPU_PAGED_BLOCKS": "64"}, "TPU_PAGED_BLOCKS"),
+    ({"TPU_PAGED_BLOCKS": "64", "TPU_PREFIX_CACHE": "4"}, "TPU_PREFIX_CACHE"),
     ({"TPU_DECODE_PIPELINE": "2"}, "TPU_DECODE_PIPELINE"),
     ({"TPU_SERVING_ROLE": "prefill"}, "TPU_SERVING_ROLE"),
 ])

@@ -141,8 +141,8 @@ def test_build_all_compiles_each_source_once_into_the_build_dir(
     from gofr_tpu_torch.ops import kernels
 
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "_build")
-    monkeypatch.setattr(kernels, "nvcc_path",
-                        lambda: _fake_nvcc(tmp_path, 0))
+    nvcc = _fake_nvcc(tmp_path, 0)  # written once: builds run it at once
+    monkeypatch.setattr(kernels, "nvcc_path", lambda: nvcc)
     logs = kernels.build_all()
     sources = {src for src, _ in kernels.SIGNATURES.values()}
     assert set(logs) == sources
@@ -157,8 +157,8 @@ def test_a_failed_build_raises_and_leaves_no_library(tmp_path, monkeypatch):
     from gofr_tpu_torch.ops import kernels
 
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "_build")
-    monkeypatch.setattr(kernels, "nvcc_path",
-                        lambda: _fake_nvcc(tmp_path, 1))
+    nvcc = _fake_nvcc(tmp_path, 1)
+    monkeypatch.setattr(kernels, "nvcc_path", lambda: nvcc)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         kernels.build_all()
     assert not list((tmp_path / "_build").glob("*.so"))
