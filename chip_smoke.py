@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from gofr_tpu_torch/ops/csrc (one nvcc per
      source, all started together) and print the build time and what
-     ptxas reports per kernel;
+     ptxas reports per kernel; a flash_prefill instance that spills
+     fails the run;
   3. hold each kernel (bf16 in, bf16 out) against its plain PyTorch
      version, evaluated in float32 on the same input values, on the card
      at the serving shapes, and time kernel, plain version and the
@@ -16,7 +17,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      never calls); the paged kernel reads a pool whose block ids are
      shuffled so that no slot's blocks are adjacent, and is also held at
      phase paged's own shapes (32 slots over its 257-block pool, its
-     prompt lengths), as flash_prefill is at its longest prompt;
+     prompt lengths), as flash_prefill is at its longest prompt (1500),
+     at phase paged's TPU_MAX_SEQ (4096) and on and around its tile
+     edges;
   4. Llama-3-8B at full width and 4 layers, prefill plus 8 decode steps,
      once through the kernels and once through the plain versions on
      the same inputs: the largest logit difference against a tolerance;
@@ -40,6 +43,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 It needs the repository beside it and a CUDA card; without either it
 exits non-zero and prints no result.
+
+    python3 chip_smoke.py --prefill-ab TREE [TREE ...]
+
+times flash_prefill alone at S of 512, 1500 and 4096, and the host time
+of one call of its wrapper, in each checkout TREE of this repository, in
+the order given (name a tree twice to take
+it in turns with another), each in a process of its own. A tree whose
+kernel disagrees with the plain version (an experiment that leaves work
+out to see what it costs) is timed all the same, and marked.
 """
 
 from __future__ import annotations
@@ -150,8 +162,33 @@ def phase_build() -> None:
           f"(nvcc {kernels.nvcc_path()})", flush=True)
     for source, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "warning", "Compiling entry")):
                 print(f"[build] {source}: {line.strip()}")
+    spills = ptxas_spills(logs["flash_prefill.cu"])
+    require(not logs["flash_prefill.cu"] or spills,
+            "ptxas reported no flash_prefill kernel")
+    require(not any(spills.values()),
+            f"flash_prefill instances spill (stack + spill bytes): {spills}")
+
+
+def ptxas_spills(log: str) -> dict[str, int]:
+    """Entry function -> bytes of stack frame, spill stores and spill
+    loads together, from what ``ptxas -v`` printed ("" for a library
+    that was already built)."""
+    import re
+
+    spills: dict[str, int] = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            spills[entry] = sum(int(x) for x in m.groups())
+    return spills
 
 
 # -- phase 3: kernels against their plain versions ----------------------------
@@ -184,7 +221,8 @@ def _rng_bf16(gen, shape):
 
 
 def prefill_case(gen, b: int, s: int, lengths: list[int], record: dict,
-                 h: int = 32, kv: int = 8, d: int = 128) -> None:
+                 h: int = 32, kv: int = 8, d: int = 128,
+                 timed: bool = True) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -220,24 +258,28 @@ def prefill_case(gen, b: int, s: int, lengths: list[int], record: dict,
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   attn_mask=mask)
 
-    ms = graph_ms(flash.flash_prefill, sets, 50)
-    plain_ms = graph_ms(flash.causal_prefill_plain, sets, 10)
-    library_ms = graph_ms(lib, lib_sets, 50)
-
     live = sum(lengths)
     n_bytes = 2 * (live * (h + 2 * kv) * d + b * s * h * d) + 4 * b
     n_ops = sum(4 * h * d * n * (n + 1) // 2 for n in lengths)
     bound, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
+    times = ""
+    if timed:
+        few = s >= 2048   # the plain version takes many ms a call
+        ms = graph_ms(flash.flash_prefill, sets, 20 if few else 50)
+        plain_ms = graph_ms(flash.causal_prefill_plain, sets,
+                            3 if few else 10)
+        library_ms = graph_ms(lib, lib_sets, 20 if few else 50)
+        times = (f"kernel_ms={ms:.5f} ({n_ops / ms / 1e9:.1f} TFLOP/s) "
+                 f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} ")
     print(f"[kernel] flash_prefill B={b} S={s} H={h} KV={kv} "
           f"lengths={lengths} max_err={err:.3e} ({TOL}; against the "
           f"plain version in bf16 {err_bf16:.3e}) "
-          f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-          f"library_ms={library_ms:.5f} bound_ms={bound:.5f} ({by}) "
+          f"{times}bound_ms={bound:.5f} ({by}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     require(ok, f"flash_prefill disagrees with its plain version at "
                 f"B={b} S={s} lengths={lengths}: max_err {err}")
     record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
-    if (b, s) == (1, 512):  # the main path's admission shape
+    if timed and (b, s) == (1, 512):  # the main path's admission shape
         record.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                       bound_ms=bound, bound_by=by)
 
@@ -463,6 +505,11 @@ def phase_kernels(records: dict) -> None:
             prefill_case(gen, b, s, lengths, pre)
     prefill_case(gen, 2, 200, [200, 0], pre)    # ragged tile, empty row
     prefill_case(gen, 1, 1500, [1500], pre)     # phase paged's longest
+    prefill_case(gen, 1, 4096, [4096], pre)     # its TPU_MAX_SEQ
+    for s in (1, 17, 64, 65, 127, 129):         # around the tile edges
+        prefill_case(gen, 1, s, [s], pre, timed=False)
+    # lengths that end on a tile edge and one past it
+    prefill_case(gen, 2, 384, [256, 257], pre, timed=False)
     dec = records["flash_decode"]
     edges = [0, 1, 63, 64, 65, 512, 1000, 2047]
     for quant in (True, False):
@@ -873,6 +920,44 @@ def run(phases=("build", "kernels", "model", "main", "paged")) -> dict:
     return {"card": card, "records": records}
 
 
+# one arm of --prefill-ab, run inside a tree with that tree's own
+# chip_smoke and kernels; it uses only what every version of this script
+# has had
+AB_ARM = """
+import time, torch, chip_smoke as c
+from gofr_tpu_torch.ops import flash
+print("[card]", c.card_line(), flush=True)
+c.phase_build()
+g = torch.Generator(device="cuda")
+g.manual_seed(1234)
+for s in (512, 1500, 4096):
+    try:
+        c.prefill_case(g, 1, s, [s], {})
+    except c.SmokeFailure as e:   # an experiment that gives up the result
+        print("[ab] times only:", e, flush=True)
+q, k, v = (torch.randn((1, 512, n, 128), generator=g, device="cuda")
+           .to(torch.bfloat16) for n in (32, 8, 8))
+lens = torch.tensor([512], dtype=torch.int32, device="cuda")
+for n in (20, 1000):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        flash.flash_prefill(q, k, v, lens)
+    us = 1e6 * (time.perf_counter() - t0) / n
+torch.cuda.synchronize()
+print(f"[host] flash_prefill B=1 S=512: {us:.2f} us of host time per call",
+      flush=True)
+"""
+
+
+def prefill_ab(trees: list[str]) -> int:
+    for tree in trees:
+        print(f"[ab] {tree}", flush=True)
+        subprocess.run([sys.executable, "-c", AB_ARM], cwd=tree, check=True,
+                       timeout=600)
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gofr_tpu_torch", "ops", "csrc")):
         print("chip_smoke: gofr_tpu_torch is not beside this script",
@@ -884,6 +969,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if len(sys.argv) > 2 and sys.argv[1] == "--prefill-ab":
+        return prefill_ab(sys.argv[2:])
     t0 = time.monotonic()
     out = run()
     kernels = []

@@ -31,8 +31,9 @@ from ..ops.rope import apply_rope, rope_frequencies
 from .common import ModelConfig, dense_init
 
 
-def get_rope_tables(cfg: ModelConfig, max_seq: int, device=None):
-    """(cos, sin) [max_seq, hd/2] float32 tables on ``device``."""
+def get_rope_tables(cfg: ModelConfig, max_seq: int, device="cuda"):
+    """(cos, sin) [max_seq, hd/2] float32 tables on ``device`` (the card
+    unless the caller asks for another)."""
     return rope_frequencies(cfg.head_dim, max_seq, cfg.rope_theta,
                             cfg.rope_scaling, device=device)
 

@@ -7,15 +7,19 @@ import math
 
 import torch
 
+from ..device import resolve_device
+
 
 def rope_frequencies(head_dim: int, max_seq: int, theta: float = 500000.0,
-                     scaling: dict | None = None, device=None
+                     scaling: dict | None = None, device="cuda"
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) tables of shape [max_seq, head_dim // 2] in float32.
+    """(cos, sin) tables of shape [max_seq, head_dim // 2] in float32, on
+    ``device`` (the card unless the caller asks for another).
 
     ``scaling`` is the Llama-3 frequency-scaling dict
     {factor, low_freq_factor, high_freq_factor, original_max_position}.
     """
+    device = resolve_device(device)
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,

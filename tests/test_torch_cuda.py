@@ -46,9 +46,17 @@ def _assert_close(got, want):
     assert (diff <= ATOL + RTOL * want.float().abs()).all(), diff.max()
 
 
+# The kernel's tiles are 128 query rows (two warpgroups of 64) by 128
+# keys, in K and V rings of two stages: the cases sit on and around those
+# edges, with 1, 2 (the ring's depth), 3 and 8 key tiles in a block's loop,
+# a warpgroup whose rows are all padding, and an empty row.
 @pytest.mark.parametrize("b,s,h,kv,lengths", [
     (1, 1, 8, 8, [1]), (2, 63, 8, 2, [63, 0]), (2, 65, 16, 2, [65, 64]),
     (3, 129, 32, 8, [1, 128, 129]), (1, 300, 4, 1, [257]),
+    (1, 127, 8, 2, [127]), (1, 128, 8, 2, [128]), (1, 129, 8, 2, [129]),
+    (1, 255, 8, 1, [255]), (1, 257, 8, 1, [257]), (2, 384, 8, 2, [256, 257]),
+    (1, 200, 8, 2, [130]), (2, 1024, 8, 2, [1024, 700]),
+    (3, 520, 16, 4, [520, 0, 385]),
 ])
 def test_flash_prefill_kernel_matches_plain(gen, b, s, h, kv, lengths):
     q, k, v = (_randn(gen, b, s, h, 128), _randn(gen, b, s, kv, 128),
@@ -57,7 +65,11 @@ def test_flash_prefill_kernel_matches_plain(gen, b, s, h, kv, lengths):
     flash.reset_counts()
     got = flash.flash_prefill(q, k, v, lens)
     assert (flash.launches, flash.plain_calls) == (1, 0)
-    _assert_close(got, flash.causal_prefill_plain(q, k, v, lens))
+    # the plain version in float32 on the same bf16 values, as
+    # chip_smoke.py holds it: in bf16 it rounds its own partial sums, and
+    # at the longer shapes that error alone passes the tolerance
+    _assert_close(got, flash.causal_prefill_plain(q.float(), k.float(),
+                                                  v.float(), lens))
     for i, n in enumerate(lengths):
         assert not got[i, n:].any()
 

@@ -47,6 +47,26 @@ def test_flash_prefill_matches_jax_kernel(h, kv, lengths):
         assert not got[b, n:].any()
 
 
+@pytest.mark.parametrize("lengths", [[128, 256], [129, 1]])
+def test_plain_version_matches_jax_kernel_at_the_128_tile_edges(lengths):
+    """The CUDA kernel's tiles are 128 keys and 128 query rows; on the
+    card it is held against causal_prefill_plain, which is held here
+    against the JAX kernel (128-wide blocks, interpret mode) with lengths
+    on a tile edge and one past it, at H/KV = 4."""
+    s = 256
+    q, k, v = _inputs(sum(lengths), 2, 4, 1, s=s)
+    lens = np.asarray(lengths, np.int32)
+    want = np.asarray(flash_causal_prefill(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
+        block_q=128, block_k=128, interpret=True))
+    got = flash.causal_prefill_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lens))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    for b, n in enumerate(lengths):
+        assert got[b, :n].abs().sum() > 0 and not got[b, n:].any()
+
+
 def test_flash_prefill_ragged_s_on_cpu():
     """S need not divide any tile on the port's side (the kernel masks
     its ragged last tile); the plain version is the same function."""

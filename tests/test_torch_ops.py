@@ -52,6 +52,27 @@ def test_rope_frequencies_match_jax(scaling):
     _close(ts, js)
 
 
+def test_rope_tables_default_to_the_card_and_take_the_cpu_when_asked(
+        monkeypatch):
+    """Like every entry point, the rope tables are built on the card
+    unless the caller asks for another device: without a card the default
+    raises, and device="cpu" works."""
+    from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = LLAMA_CONFIGS["tiny"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trope.rope_frequencies(32, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.get_rope_tables(tiny, 16)
+    cos, sin = llama.get_rope_tables(tiny, 16, "cpu")
+    assert cos.device.type == sin.device.type == "cpu"
+    assert cos.shape == (16, tiny.head_dim // 2)
+    want = trope.rope_frequencies(tiny.head_dim, 16, tiny.rope_theta,
+                                  tiny.rope_scaling, device="cpu")
+    assert torch.equal(cos, want[0]) and torch.equal(sin, want[1])
+
+
 def test_apply_rope_matches_jax():
     rng = np.random.default_rng(1)
     x = _randn(rng, 2, 7, 4, 32)
