@@ -8,8 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from gofr_tpu_torch/ops/csrc (one nvcc per
      source, all started together) and print the build time and what
-     ptxas reports per kernel; a flash_prefill instance that spills
-     fails the run;
+     ptxas reports per kernel; an instance of flash_prefill, flash_decode
+     or paged_decode (every group size) that spills fails the run;
   3. hold each kernel (bf16 in, bf16 out) against its plain PyTorch
      version, evaluated in float32 on the same input values, on the card
      at the serving shapes, and time kernel, plain version and the
@@ -19,7 +19,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      phase paged's own shapes (32 slots over its 257-block pool, its
      prompt lengths), as flash_prefill is at its longest prompt (1500),
      at phase paged's TPU_MAX_SEQ (4096) and on and around its tile
-     edges;
+     edges; both decodes also on and around their chunk edges (the
+     split over the cache), at capacity and for one slot of 4096, and
+     the paged one bit for bit against flash_decode on the gathered
+     view;
   4. Llama-3-8B at full width and 4 layers, prefill plus 8 decode steps,
      once through the kernels and once through the plain versions on
      the same inputs: the largest logit difference against a tolerance;
@@ -52,6 +55,12 @@ the order given (name a tree twice to take
 it in turns with another), each in a process of its own. A tree whose
 kernel disagrees with the plain version (an experiment that leaves work
 out to see what it costs) is timed all the same, and marked.
+
+    python3 chip_smoke.py --decode-ab TREE [TREE ...]
+
+does the same for the decodes: flash_decode (int8) at 8 slots x 512,
+paged_decode (int8) at 8 slots x 512 and at phase paged's first decode
+step (32 slots over its 257-block pool, its prompt lengths).
 """
 
 from __future__ import annotations
@@ -165,11 +174,12 @@ def phase_build() -> None:
             if any(w in line for w in ("registers", "spill", "error",
                                        "warning", "Compiling entry")):
                 print(f"[build] {source}: {line.strip()}")
-    spills = ptxas_spills(logs["flash_prefill.cu"])
-    require(not logs["flash_prefill.cu"] or spills,
-            "ptxas reported no flash_prefill kernel")
-    require(not any(spills.values()),
-            f"flash_prefill instances spill (stack + spill bytes): {spills}")
+    for source in ("flash_prefill.cu", "flash_decode.cu", "paged_decode.cu"):
+        spills = ptxas_spills(logs[source])
+        require(not logs[source] or spills,
+                f"ptxas reported no kernel of {source}")
+        require(not any(spills.values()),
+                f"{source} instances spill (stack + spill bytes): {spills}")
 
 
 def ptxas_spills(log: str) -> dict[str, int]:
@@ -510,17 +520,28 @@ def phase_kernels(records: dict) -> None:
         prefill_case(gen, 1, s, [s], pre, timed=False)
     # lengths that end on a tile edge and one past it
     prefill_case(gen, 2, 384, [256, 257], pre, timed=False)
+    from gofr_tpu_torch.ops.flash_decode import SPLIT_CHUNK as C
+
+    # the decodes split a slot into chunks of C positions: lengths on and
+    # around the chunk edges, a slot at capacity, and one slot of 4096
+    # (phase paged's TPU_MAX_SEQ), where the split matters most
+    chunk_edges = [0, C - 1, C, C + 1, 2 * C, 2048]
     dec = records["flash_decode"]
     edges = [0, 1, 63, 64, 65, 512, 1000, 2047]
     for quant in (True, False):
         decode_case(gen, edges, quant, dec)
+        decode_case(gen, chunk_edges, quant, dec)
         decode_case(gen, [512] * 8, quant, dec, main_shape=quant)
+    decode_case(gen, [4096], True, dec, smax=4096)
     pag = records["paged_decode"]
     edges = [0, 1, 127, 128, 129, 512, 1000, 2047]
     for quant in (True, False):
         paged_case(gen, edges, quant, pag)
+        paged_case(gen, chunk_edges, quant, pag)
         paged_case(gen, [512] * 8, quant, pag, main_shape=quant)
     paged_case(gen, edges, True, pag, t=16, mb=128)  # the CPU tests' T
+    paged_case(gen, chunk_edges, True, pag, t=16, mb=128)
+    paged_case(gen, [4096], True, pag, mb=32, timed=True)
     # phase paged's shapes: 32 slots of MB=32 over its pool of 257
     # blocks, its prompt lengths at the first and the last of its 40
     # decode steps, 8 slots empty
@@ -950,10 +971,31 @@ print(f"[host] flash_prefill B=1 S=512: {us:.2f} us of host time per call",
 """
 
 
-def prefill_ab(trees: list[str]) -> int:
+# one arm of --decode-ab: K2 int8 at 8 x 512, K3 int8 at 8 x 512 and at
+# phase paged's first decode step
+DECODE_AB_ARM = """
+import numpy as np, torch, chip_smoke as c
+print("[card]", c.card_line(), flush=True)
+c.phase_build()
+g = torch.Generator(device="cuda")
+g.manual_seed(1234)
+prompts = c.paged_prompt_lengths(np.random.default_rng(c.PAGED_SEED))
+for case, args, kw in (
+        (c.decode_case, ([512] * 8, True, {}), {}),
+        (c.paged_case, ([512] * 8, True, {}), {"timed": True}),
+        (c.paged_case, (prompts + [0] * 8, True, {}),
+         {"mb": 32, "n": 257, "timed": True})):
+    try:
+        case(g, *args, **kw)
+    except c.SmokeFailure as e:   # an experiment that gives up the result
+        print("[ab] times only:", e, flush=True)
+"""
+
+
+def tree_ab(arm: str, trees: list[str]) -> int:
     for tree in trees:
         print(f"[ab] {tree}", flush=True)
-        subprocess.run([sys.executable, "-c", AB_ARM], cwd=tree, check=True,
+        subprocess.run([sys.executable, "-c", arm], cwd=tree, check=True,
                        timeout=600)
     return 0
 
@@ -969,8 +1011,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if len(sys.argv) > 2 and sys.argv[1] == "--prefill-ab":
-        return prefill_ab(sys.argv[2:])
+    arms = {"--prefill-ab": AB_ARM, "--decode-ab": DECODE_AB_ARM}
+    if len(sys.argv) > 2 and sys.argv[1] in arms:
+        return tree_ab(arms[sys.argv[1]], sys.argv[2:])
     t0 = time.monotonic()
     out = run()
     kernels = []

@@ -9,11 +9,20 @@ CPU tensors. The kernel folds this step's k/v into its epilogue, so it
 is the whole of ``decode_attention_appended``, append included. A CUDA
 tensor the kernel does not take raises; nothing falls back.
 
-``launches`` counts kernel launches and ``plain_calls`` calls of the
-plain version.
+The kernel splits each slot's cache into chunks of ``SPLIT_CHUNK``
+positions (``csrc/decode_attention.cuh``, shared with the paged kernel),
+writes a float32 partial per live chunk into a workspace the wrapper
+allocates, and folds them in a second launch. ``split_geometry`` sizes
+the grid and the workspace from shapes alone, for both wrappers.
+
+``launches`` counts wrapper calls that launched the kernel and
+``plain_calls`` calls of the plain version.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -22,6 +31,8 @@ from .attention import decode_attention_appended
 
 HEAD_DIM = 128
 GROUP_SIZES = (1, 2, 4, 8)
+SPLIT_CHUNK = 256      # positions a work item; kChunk in the kernel
+BLOCKS_PER_SM = 4      # blocks a wave aims to keep on each SM
 
 launches = 0
 plain_calls = 0
@@ -31,6 +42,48 @@ def reset_counts() -> None:
     global launches, plain_calls
     launches = 0
     plain_calls = 0
+
+
+class SplitGeometry(NamedTuple):
+    chunk: int       # positions a work item
+    n_chunks: int    # chunks a slot at capacity: ceil(capacity / chunk)
+    blocks: int      # W, blocks per KV head that walk the live items
+    work: int        # float32 workspace: a partial per (slot, head, chunk)
+
+
+def split_geometry(b: int, kv: int, g: int, capacity: int,
+                   sms: int = 132) -> SplitGeometry:
+    """The decode kernels' grid and workspace, from shapes alone (the
+    lengths stay on the card): B*KV*n_chunks partials of G heads x (128
+    accumulators + max + sum), and W = enough blocks per KV head for
+    BLOCKS_PER_SM a streaming multiprocessor, no more than there can be
+    items. ``sms``: the card's SM count (132 on an H100 SXM)."""
+    n_chunks = -(-capacity // SPLIT_CHUNK)
+    blocks = max(1, min(b * n_chunks, -(-BLOCKS_PER_SM * sms // kv)))
+    return SplitGeometry(SPLIT_CHUNK, n_chunks, blocks,
+                         b * kv * n_chunks * g * (HEAD_DIM + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_split(name: str, q: torch.Tensor, pointers: list,
+                 shape_args: list, kv: int, capacity: int) -> torch.Tensor:
+    """Allocate the output and the workspace and run launcher ``name``
+    (``q``'s pointer and ``pointers`` up to k_new/v_new, then out, work,
+    B, ``shape_args``, H, KV, W, chunk, scale, stream)."""
+    b, _, h, d = q.shape
+    geo = split_geometry(b, kv, h // kv, capacity, sm_count(q.device))
+    out = torch.empty_like(q)
+    work = torch.empty(geo.work, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = kernels.function(name)(
+        q.data_ptr(), *pointers, out.data_ptr(), work.data_ptr(), b,
+        *shape_args, h, kv, geo.blocks, geo.chunk, d ** -0.5, stream)
+    kernels.check(err, name)
+    return out
 
 
 def decode_plain(q, k_cache, v_cache, k_new, v_new, lengths,
@@ -103,18 +156,14 @@ def flash_decode_appended(q, k_cache, v_cache, k_new, v_new, lengths,
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
     _check(q, k_cache, v_cache, k_new, v_new, lengths, k_scale, v_scale)
-    b, _, h, d = q.shape
     smax, kv = k_cache.shape[1], k_cache.shape[2]
-    out = torch.empty_like(q)
     name = ("gofr_flash_decode_int8" if k_scale is not None
             else "gofr_flash_decode_bf16")
-    fn = kernels.function(name)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             k_scale.data_ptr() if k_scale is not None else None,
-             v_scale.data_ptr() if v_scale is not None else None,
-             lengths.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-             out.data_ptr(), b, smax, h, kv, d ** -0.5, stream)
-    kernels.check(err, name)
+    out = launch_split(
+        name, q, [k_cache.data_ptr(), v_cache.data_ptr(),
+                  k_scale.data_ptr() if k_scale is not None else None,
+                  v_scale.data_ptr() if v_scale is not None else None,
+                  lengths.data_ptr(), k_new.data_ptr(), v_new.data_ptr()],
+        [smax], kv, smax)
     launches += 1
     return out

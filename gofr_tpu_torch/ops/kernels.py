@@ -35,23 +35,25 @@ SIGNATURES = {
     "gofr_flash_prefill_bf16": (
         "flash_prefill.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     # q, k_cache, v_cache, k_scale, v_scale, lengths, k_new, v_new, out,
-    # B, Smax, H, KV, scale, stream
+    # work, B, Smax, H, KV, W, chunk, scale, stream
     "gofr_flash_decode_int8": (
         "flash_decode.cu",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+         _P]),
     "gofr_flash_decode_bf16": (
         "flash_decode.cu",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+         _P]),
     # q, k_pool, v_pool, k_scale, v_scale, table, lengths, k_new, v_new,
-    # out, B, MB, T, N, H, KV, scale, stream
+    # out, work, B, MB, T, N, H, KV, W, chunk, scale, stream
     "gofr_paged_decode_int8": (
         "paged_decode.cu",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-         _P]),
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         _I, _I, _F, _P]),
     "gofr_paged_decode_bf16": (
         "paged_decode.cu",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-         _P]),
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         _I, _I, _F, _P]),
 }
 
 _lock = threading.Lock()

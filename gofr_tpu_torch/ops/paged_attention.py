@@ -13,8 +13,10 @@ empty slots at block 0, a trash block no slot owns.
 scales ``[N, T, KV]``, or dense bf16 pool -- and runs the plain version,
 ``paged_attention_reference`` (gather the table's dense view, then
 ``ops.attention.decode_attention_appended``), only on CPU tensors. The
-kernel folds this step's k/v in, as ``ops.flash_decode``'s does. A CUDA
-tensor the kernel does not take raises; nothing falls back.
+kernel folds this step's k/v in, as ``ops.flash_decode``'s does, and is
+its body with another address policy: the same split, grid and
+workspace (``ops.flash_decode.split_geometry``). A CUDA tensor the
+kernel does not take raises; nothing falls back.
 
 ``launches`` counts kernel launches and ``plain_calls`` calls of the
 plain version. The speculative-verify window over the pool waits for
@@ -25,8 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from . import kernels
 from .attention import decode_attention_appended
+from .flash_decode import launch_split
 
 HEAD_DIM = 128
 GROUP_SIZES = (1, 2, 4, 8)
@@ -130,19 +132,16 @@ def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, table, lengths,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode runs on cuda or cpu, not {q.device}")
     _check(q, k_pool, v_pool, k_new, v_new, table, lengths, k_scale, v_scale)
-    b, _, h, d = q.shape
     n, t, kv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
-    out = torch.empty_like(q)
+    mb = table.shape[1]
     name = ("gofr_paged_decode_int8" if k_scale is not None
             else "gofr_paged_decode_bf16")
-    fn = kernels.function(name)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             k_scale.data_ptr() if k_scale is not None else None,
-             v_scale.data_ptr() if v_scale is not None else None,
-             table.data_ptr(), lengths.data_ptr(), k_new.data_ptr(),
-             v_new.data_ptr(), out.data_ptr(), b, table.shape[1], t, n, h,
-             kv, d ** -0.5, stream)
-    kernels.check(err, name)
+    out = launch_split(
+        name, q, [k_pool.data_ptr(), v_pool.data_ptr(),
+                  k_scale.data_ptr() if k_scale is not None else None,
+                  v_scale.data_ptr() if v_scale is not None else None,
+                  table.data_ptr(), lengths.data_ptr(), k_new.data_ptr(),
+                  v_new.data_ptr()],
+        [mb, t, n], kv, mb * t)
     launches += 1
     return out

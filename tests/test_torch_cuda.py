@@ -207,6 +207,48 @@ def test_paged_decode_ignores_table_entries_past_the_length(gen):
     assert torch.equal(paged_attention.paged_decode_attention(*args), want)
 
 
+# The decodes split a slot into chunks of SPLIT_CHUNK positions: lengths
+# on and around the chunk edges, a slot at capacity and an empty one,
+# through both kernels (the paged one at block sizes 16 and 128), against
+# the plain version and bit for bit against each other.
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("t", [16, 128])
+def test_decodes_at_the_chunk_edges(gen, quant, t):
+    c = flash_decode.SPLIT_CHUNK
+    cap = 4 * c
+    lengths = [0, c - 1, c, c + 1, 2 * c, cap]
+    args = _paged_args(gen, lengths, t, cap // t, 32, 8, quant)
+    flash_decode.reset_counts()
+    paged_attention.reset_counts()
+    got = paged_attention.paged_decode_attention(*args)
+    _assert_close(got, paged_attention.paged_attention_reference(*args))
+    q, kp, vp, kn, vn, table, lens, ks, vs = args
+
+    def dense(x):
+        return None if x is None else \
+            paged_attention.gather_blocks(x, table).contiguous()
+
+    rows = (q, dense(kp), dense(vp), kn, vn, lens, dense(ks), dense(vs))
+    contiguous = flash_decode.flash_decode_appended(*rows)
+    _assert_close(contiguous, flash_decode.decode_plain(*rows))
+    assert torch.equal(got, contiguous)
+    assert torch.equal(got[0, 0], vn[0, 0].repeat_interleave(4, 0))
+    assert flash_decode.launches == paged_attention.launches == 1
+
+
+def test_decodes_one_slot_of_4096(gen):
+    """One slot at phase paged's TPU_MAX_SEQ, where the split spreads a
+    single slot over 16 chunks."""
+    args = _paged_args(gen, [4096], 128, 32, 32, 8, True)
+    got = paged_attention.paged_decode_attention(*args)
+    _assert_close(got, paged_attention.paged_attention_reference(*args))
+    q, kp, vp, kn, vn, table, lens, ks, vs = args
+    dense = [paged_attention.gather_blocks(x, table).contiguous()
+             for x in (kp, vp, ks, vs)]
+    assert torch.equal(got, flash_decode.flash_decode_appended(
+        q, dense[0], dense[1], kn, vn, lens, dense[2], dense[3]))
+
+
 def _good_paged(gen, quant=True):
     return list(_paged_args(gen, [3, 16], 16, 2, 8, 2, quant))
 
