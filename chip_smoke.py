@@ -9,7 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build every CUDA kernel from gofr_tpu_torch/ops/csrc (one nvcc per
      source, all started together) and print the build time and what
      ptxas reports per kernel; an instance of flash_prefill, flash_decode
-     or paged_decode (every group size) that spills fails the run;
+     or paged_decode (every group size; the paged window's launchers run
+     the same instances, rows in groups of 1, 2, 4 or 8) that spills
+     fails the run;
   3. hold each kernel (bf16 in, bf16 out) against its plain PyTorch
      version, evaluated in float32 on the same input values, on the card
      at the serving shapes, and time kernel, plain version and the
@@ -22,13 +24,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      edges; both decodes also on and around their chunk edges (the
      split over the cache), at capacity and for one slot of 4096, and
      the paged one bit for bit against flash_decode on the gathered
-     view;
+     view; the paged verify window (K3w) at phase paged's shapes with a
+     window of 5, at 8 slots x 512 with windows of 2 and 5, on and
+     around the chunk edges with an empty slot, and at a window of one
+     bit for bit against paged_decode;
   4. Llama-3-8B at full width and 4 layers, prefill plus 8 decode steps,
      once through the kernels and once through the plain versions on
      the same inputs: the largest logit difference against a tolerance;
      then the same contents in contiguous rows and in a shuffled pool,
      decoded through flash_decode and through paged_decode: the logits
-     must be equal;
+     must be equal; then, from one prefilled shuffled pool (bf16, then
+     int8), 4 greedy paged decode steps against one verify pass over the
+     window [last token, the 4 true tokens]: verify logits j against
+     decode step j's;
   5. the main path at full width and depth: new_engine_from_config with
      TPU_MODEL=llama3-8b (random weights from seed 0), 8 slots, 2048
      positions, int8 KV, K=4, serving 6 concurrent requests; the launch
@@ -41,6 +49,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      show flash_prefill and paged_decode on the path and nothing else,
      the pool is whole again afterwards, and the streams equal a
      contiguous engine's on the same weights and requests;
+  5c. (phase ``spec``) speculative decoding on the paged path: the same
+     rows plus TPU_SPEC_DECODE=4, 24 greedy requests whose prompts X + S
+     + X (S: the spec-less engine's greedy continuation of X) let the
+     prompt-lookup drafts hit; the counters show a K3w launch per layer
+     and verify pass and a K3 launch per layer and decode step, the pool
+     is whole again, and the streams that differ from a spec-less paged
+     engine's are printed; then a contiguous spec engine serves a few
+     requests through verify_step;
   6. a ``{"kernels": [...]}`` line, then the card line, then the
      ``{"ok": true, "device": {...}}`` line last.
 
@@ -99,6 +115,15 @@ TOL = f"tolerance {KERNEL_ATOL} + 2^-7 |plain in float32|"
 # and 8 decode steps drift by a few bf16 steps between the two orders of
 # summation
 LOGIT_ATOL = 0.1
+# A verify pass over an int8 pool attends its window's own K/V in bf16,
+# where the decode steps it is held against read them back from the pool
+# as int8 codes: a code is within half a step, 1/254 < 2^-7 of its row's
+# largest value, of the bf16 value. Where every row of a layer's window
+# moved by that much of the largest value, the layer's attention output
+# would move by at most 2^-7 of |v|max; four layers, each adding at most
+# that share of the logits' own scale, stay within 4 * 2^-7 of max|logit|
+# beyond the bf16 tolerance.
+INT8_WINDOW_REL = 4 * 2.0 ** -7
 
 LAYERS = 32
 
@@ -502,6 +527,107 @@ def paged_case(gen, lengths: list[int], quant: bool, record: dict,
                       bound_ms=bound, bound_by=by)
 
 
+def window_case(gen, lengths: list[int], w: int, quant: bool, record: dict,
+                t: int = 128, mb: int = 16, n: int = 0, h: int = 32,
+                kv: int = 8, d: int = 128, main_shape: bool = False,
+                timed: bool = False) -> None:
+    """K3w, the paged verify window, against its plain version evaluated
+    in float32 on the same inputs; at a window of one also bit for bit
+    against paged_decode."""
+    import torch
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ops import paged_attention
+    from gofr_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+
+    b = len(lengths)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    table, n = shuffled_table(lengths, t, mb, n)
+    timed = timed or main_shape
+    sets = []
+    for _ in range(4 if timed else 1):  # 4 pools: more than the L2
+        kp = _rng_bf16(gen, (n, t, kv, d))
+        vp = _rng_bf16(gen, (n, t, kv, d))
+        if quant:
+            (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        else:
+            ks = vs = None
+        sets.append((_rng_bf16(gen, (b, w, h, d)), kp, vp,
+                     _rng_bf16(gen, (b, w, kv, d)),
+                     _rng_bf16(gen, (b, w, kv, d)), table, lens, ks, vs))
+    got = paged_attention.paged_window_attention(*sets[0])
+    want = paged_attention.paged_window_reference(*f32(*sets[0]))
+    err_bf16, _ = compare(
+        got, paged_attention.paged_window_reference(*sets[0]))
+    same = (torch.equal(got, paged_attention.paged_decode_attention(
+        *sets[0])) if w == 1 else None)
+    torch.cuda.synchronize()
+    err, ok = compare(got, want)
+
+    # yardstick: SDPA over the gathered (and dequantized) bf16 view with
+    # the window's k/v appended, under a boolean mask: positions <
+    # length, then window positions t <= w; gathered outside the timed
+    # region (no library call reads a block table)
+    smax = mb * t
+    pos = torch.arange(smax + w, device="cuda")
+    row = torch.arange(w, device="cuda")
+    mask = torch.where(pos[None, None, :] < smax,
+                       pos[None, None, :] < lens[:, None, None],
+                       pos[None, None, :] - smax <= row[None, :, None])
+    mask = mask[:, None]                                     # [B,1,W,S+W]
+
+    def dense(x):
+        return None if x is None else \
+            paged_attention.gather_blocks(x, table).contiguous()
+
+    lib_sets = []
+    for q, kp, vp, kn, vn, _, _, ks, vs in sets:
+        kc, vc = dense(kp), dense(vp)
+        if quant:
+            kc, vc = dequantize_kv(kc, dense(ks)), dequantize_kv(vc, dense(vs))
+        kc, vc = torch.cat([kc, kn], 1), torch.cat([vc, vn], 1)
+        lib_sets.append((q.transpose(1, 2),
+                         kc.repeat_interleave(h // kv, 2).transpose(1, 2),
+                         vc.repeat_interleave(h // kv, 2).transpose(1, 2)))
+
+    def lib(qt, kt, vt):
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    if timed:
+        ms = graph_ms(paged_attention.paged_window_attention, sets, 100)
+        plain_ms = graph_ms(paged_attention.paged_window_reference, sets, 5)
+        library_ms = graph_ms(lib, lib_sets, 50)
+    live = sum(lengths)
+    elem = 1 if quant else 2
+    n_bytes = (2 * live * kv * d * elem + (2 * live * kv * 4 if quant else 0)
+               + 2 * (2 * b * w * h * d + 2 * b * w * kv * d) + 4 * b
+               + 4 * sum(-(-x // t) for x in lengths))   # live table words
+    # two products of 2 FLOP a multiply-add: each query row against the
+    # live positions, and against the window positions up to it
+    n_ops = 4 * h * d * (w * live + b * w * (w + 1) // 2)
+    bound, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
+    fp32_ms = n_ops / FP32_FLOPS * 1e3
+    pool = "int8" if quant else "bf16"
+    times = (f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+             f"library_ms={library_ms:.5f} " if timed else "")
+    bits = ("" if same is None else
+            f"bit-equal to paged_decode at W=1: {same} ")
+    print(f"[kernel] paged_window {pool} B={b} W={w} T={t} MB={mb} N={n} "
+          f"H={h} KV={kv} lengths={lengths} max_err={err:.3e} ({TOL}; "
+          f"against the plain version in bf16 {err_bf16:.3e}) {bits}"
+          f"{times}bound_ms={bound:.5f} ({by}; bytes {n_bytes / 1e6:.2f} MB, "
+          f"{n_ops / 1e9:.3f} GFLOP: {fp32_ms:.5f} ms on fp32 CUDA cores) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"paged_window ({pool}, T={t}, W={w}) disagrees with its "
+                f"plain version at lengths={lengths}: max_err {err}")
+    require(same is not False, f"paged_window at W=1 and paged_decode "
+                               f"({pool}, T={t}) differ at lengths={lengths}")
+    record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
+    if main_shape:
+        record.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound, bound_by=by)
+
+
 def phase_kernels(records: dict) -> None:
     import numpy as np
     import torch
@@ -549,6 +675,20 @@ def phase_kernels(records: dict) -> None:
         prompts = paged_prompt_lengths(np.random.default_rng(PAGED_SEED))
         lengths = [x + step for x in prompts] + [0] * 8
         paged_case(gen, lengths, True, pag, mb=32, n=257, timed=step == 0)
+    # K3w, the verify window (W = TPU_SPEC_DECODE + 1): phase paged's
+    # shapes at W=5, 8 slots x 512 at W = 2 and 5, the chunk edges with
+    # an empty slot, and W=1 bit for bit against paged_decode
+    win = records["paged_window"]
+    prompts = paged_prompt_lengths(np.random.default_rng(PAGED_SEED))
+    window_case(gen, prompts + [0] * 8, 5, True, win, mb=32, n=257,
+                main_shape=True)
+    for quant in (True, False):
+        for w in (2, 5):
+            window_case(gen, [512] * 8, w, quant, win, timed=w == 5)
+        window_case(gen, chunk_edges, 5, quant, win)
+        window_case(gen, edges, 1, quant, win)
+        window_case(gen, chunk_edges, 1, quant, win)
+    window_case(gen, edges, 3, True, win, t=16, mb=128)  # the CPU tests' T
 
 
 # -- phase 4: kernels against plain versions through the model ----------------
@@ -601,6 +741,8 @@ def phase_model_4_layers() -> None:
     require(ok, f"4-layer logits through the kernels differ from the plain "
                 f"path by {diff}")
     paged_arm(cfg, params, tokens, lengths, steps, rope, smax)
+    for quant in (False, True):
+        verify_arm(cfg, params, tokens, lengths, rope, smax, quant)
     del params
 
 
@@ -647,6 +789,74 @@ def paged_arm(cfg, params, tokens, lengths, steps, rope, smax: int,
           f"rows (flash_decode): max |logit diff| = {diff:.4e} (must be 0) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     require(ok, f"paged and contiguous decode logits differ by {diff}")
+
+
+def verify_arm(cfg, params, tokens, lengths, rope, smax: int, quant: bool,
+               t: int = 128, k: int = 4) -> None:
+    """From one prefilled shuffled pool: k greedy paged decode steps
+    (paged_decode), and one verify pass (paged_window) over the window
+    [last token, the k true tokens]; verify logits j must match decode
+    step j's. The window keys are the values the decode steps cached:
+    in a bf16 pool the same bf16 values (only the order of summation
+    differs), in an int8 pool their int8 codes (INT8_WINDOW_REL)."""
+    import torch
+
+    from gofr_tpu_torch.models import llama, paged_llama
+    from gofr_tpu_torch.ops import paged_attention
+    from gofr_tpu_torch.tpu.generator import verify_epilogue
+
+    b = tokens.shape[0]
+    mb = smax // t
+    lens = lengths.tolist()
+    table, n = shuffled_table([x + k + 1 for x in lens], t, mb)
+    host_table = table.cpu()
+    dt = torch.int8 if quant else None
+    with torch.no_grad():
+        logits, kk, vv, _ = llama.prefill_kv(
+            params, cfg, tokens, lengths, rope_tables=rope, flash=True,
+            logit_pos=lengths.long() - 1)
+        pool = paged_llama.init_paged_cache(cfg, b, n, t, dtype=dt,
+                                            device="cuda")
+        for i, x in enumerate(lens):
+            paged_llama.write_prompt_blocks(
+                pool, kk[:, i:i + 1, :x], vv[:, i:i + 1, :x],
+                host_table[i, :-(-x // t)].tolist())
+        pool.lengths = lengths.clone()
+        fresh = paged_llama.PagedKVCache(
+            pool.k.clone(), pool.v.clone(), lengths.clone(),
+            None if dt is None else pool.k_scale.clone(),
+            None if dt is None else pool.v_scale.clone())
+        tok = logits[:, 0].argmax(-1)
+        window, want = [tok], []
+        for _ in range(k):
+            step, pool = paged_llama.paged_decode_step(params, cfg, window[-1],
+                                                       pool, table, rope)
+            want.append(step)
+            window.append(step.argmax(-1))
+        window = torch.stack(window, 1)                           # [B, k+1]
+        paged_attention.reset_counts()
+        got, fresh = paged_llama.paged_verify_step(params, cfg, window, fresh,
+                                                   table, rope)
+        launches = paged_attention.window_launches
+        want = torch.stack(want, 1)
+        _, _, accepted, _ = verify_epilogue(
+            got, window, torch.ones(b, dtype=torch.bool, device="cuda"))
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    atol = LOGIT_ATOL + (INT8_WINDOW_REL * scale if quant else 0.0)
+    diff = (got[:, :k] - want).abs().max().item()
+    ok = (diff <= atol and bool(torch.isfinite(got).all())
+          and launches == cfg.n_layers
+          and torch.equal(fresh.lengths, lengths))
+    print(f"[model] verify arm ({'int8' if quant else 'bf16'} pool of {n} "
+          f"blocks of {t}): {k} greedy decode steps (paged_decode) against "
+          f"one verify pass over a window of {k + 1} (paged_window, "
+          f"{launches} launches): max |logit diff| = {diff:.4e} (atol "
+          f"{atol:.4f}; max |logit| {scale:.3f}); accepted drafts "
+          f"{accepted.tolist()} of {k} {'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"verify logits differ from the decode steps' by {diff} "
+                f"(atol {atol}), or {launches} window launches for "
+                f"{cfg.n_layers} layers")
 
 
 # -- phase 5: the main path ---------------------------------------------------
@@ -889,13 +1099,154 @@ def phase_paged(card: str) -> dict:
     return counts
 
 
+# -- phase spec: speculative decoding on the paged path -----------------------
+
+SPEC_ROWS = dict(PAGED_ROWS, TPU_SPEC_DECODE="4")
+SPEC_SEED = 29
+SPEC_REQUESTS = 24
+SPEC_X = (64, 400)        # |X| drawn in this range
+SPEC_CONTINUATION = 32    # |S| of the prompts X + S + X
+
+
+def _first_difference(a: list, b: list):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def phase_spec(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.tpu import GenerationEngine, new_engine_from_config
+
+    t0 = time.monotonic()
+    engine = new_engine_from_config(MapConfig(SPEC_ROWS), device="cuda")
+    gen = engine.generator
+    torch.cuda.synchronize()
+    print(f"[spec] llama3-8b paged spec engine ready (verify pass warmed) "
+          f"in {time.monotonic() - t0:.1f} s: {SPEC_ROWS}", flush=True)
+    # the spec-less paged engine on the same weights: it writes S, then
+    # serves the same requests for the record
+    n_blocks = int(SPEC_ROWS["TPU_PAGED_BLOCKS"])
+    ref = GenerationEngine(gen.cfg, gen.params, slots=gen.n_slots,
+                           max_seq=gen.max_seq, kv_dtype=torch.int8,
+                           decode_block=gen.decode_block,
+                           paged_blocks=n_blocks,
+                           paged_block_size=int(SPEC_ROWS["TPU_PAGED_BLOCK"]),
+                           device="cuda")
+    rng = np.random.default_rng(SPEC_SEED)
+    vocab = gen.cfg.vocab_size
+    xs = [rng.integers(0, vocab, n).tolist()
+          for n in rng.integers(SPEC_X[0], SPEC_X[1] + 1, SPEC_REQUESTS)]
+    new_tokens = PAGED_NEW_TOKENS
+    try:
+        conts, _, _ = _serve(ref, xs, {}, SPEC_CONTINUATION)
+        prompts = [x + c + x for x, c in zip(xs, conts)]
+        warm = engine.generate(prompts[0][:32], max_new_tokens=4).tokens()
+        require(len(warm) == 4, f"warm-up gave {len(warm)} tokens")
+        adm0, steps0, passes0 = (gen.admissions, gen.decode_steps,
+                                 gen.verify_passes)
+        spec0 = dict(gen.stats()["spec_decode"])
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        outs, streams, wall = _serve(engine, prompts, {}, new_tokens)
+        counts = {"flash_prefill": flash.launches,
+                  "paged_decode": paged_attention.launches,
+                  "paged_window": paged_attention.window_launches,
+                  "flash_decode": flash_decode.launches,
+                  "prefill_plain": flash.plain_calls,
+                  "decode_plain": flash_decode.plain_calls,
+                  "paged_plain": paged_attention.plain_calls,
+                  "window_plain": paged_attention.window_plain_calls}
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+        passes = gen.verify_passes - passes0
+        stats = gen.stats()
+        health = engine.health_check()
+        want, _, ref_wall = _serve(ref, prompts, {}, new_tokens)
+    finally:
+        engine.close()
+        ref.close()
+    require(not gen._thread.is_alive(), "the generation thread outlived "
+            "close()")
+    spec = stats["spec_decode"]
+    windows = spec["windows"] - spec0["windows"]
+    emitted = spec["emitted"] - spec0["emitted"]
+    for i, toks in enumerate(outs):
+        require(len(toks) == new_tokens,
+                f"spec request {i} gave {len(toks)} tokens, want "
+                f"{new_tokens}")
+        require(all(0 <= x < vocab for x in toks),
+                f"spec request {i} gave a token outside the vocabulary")
+    require(health.status == "UP", f"spec engine health {health.status}")
+    require(windows > 0 and emitted >= windows,
+            f"verify windows {windows}, emitted {emitted}")
+    require(admissions == len(prompts),
+            f"{admissions} admissions for {len(prompts)} requests")
+    require(counts["flash_prefill"] == LAYERS * admissions,
+            f"flash_prefill launched {counts['flash_prefill']} times for "
+            f"{admissions} admissions of {LAYERS} layers")
+    require(counts["paged_window"] == LAYERS * passes,
+            f"paged_window launched {counts['paged_window']} times for "
+            f"{passes} verify passes of {LAYERS} layers")
+    require(counts["paged_decode"] == LAYERS * steps,
+            f"paged_decode launched {counts['paged_decode']} times for "
+            f"{steps} decode steps of {LAYERS} layers")
+    others = {k: counts[k] for k in ("flash_decode", "prefill_plain",
+                                     "decode_plain", "paged_plain",
+                                     "window_plain")}
+    require(not any(others.values()),
+            f"other attention paths ran on the spec path: {others}")
+    paged = stats["paged"]
+    require(paged["evictions"] == 0, f"paged evictions: {paged}")
+    require(paged["free"] == n_blocks - 1,
+            f"pool not whole after retiring: {paged}")
+    ttft = [s.trace["first_put"] - s.trace["submit"] for s in streams]
+    total = sum(len(x) for x in outs)
+    differ = {i: _first_difference(outs[i], want[i])
+              for i in range(len(prompts)) if outs[i] != want[i]}
+    print(f"[spec] {len(prompts)} greedy requests, prompts X + S + X of "
+          f"{[len(p) for p in prompts]} tokens, {new_tokens} new tokens "
+          f"each: {total} tokens in {wall:.3f} s = {total / wall:.1f} tok/s; "
+          f"TTFT mean {1e3 * np.mean(ttft):.1f} ms max "
+          f"{1e3 * max(ttft):.1f} ms; {passes} verify passes "
+          f"({spec['verify_ms_mean']:.2f} ms mean, host clock), {steps} "
+          f"decode steps; {windows} slot-windows emitted {emitted} tokens = "
+          f"{emitted / windows:.3f} a window; launches {counts}; pool "
+          f"{paged}; card: {card}", flush=True)
+    print(f"[spec] the spec-less paged engine on the same weights and "
+          f"requests: {total} tokens in {ref_wall:.3f} s = "
+          f"{total / ref_wall:.1f} tok/s; streams that differ (request: "
+          f"first differing index) {differ} of {len(prompts)} (a record: "
+          f"bf16 near-ties can flip a greedy token)", flush=True)
+
+    # the contiguous spec engine: verify_step's plain window attention
+    rows = GenerationEngine(gen.cfg, gen.params, slots=4, max_seq=2048,
+                            kv_dtype=torch.int8, decode_block=4,
+                            spec_decode_k=4, device="cuda")
+    try:
+        couts, _, cwall = _serve(rows, prompts[:4], {}, 16)
+        cspec = rows.stats()["spec_decode"]
+    finally:
+        rows.close()
+    require(all(len(x) == 16 for x in couts),
+            f"contiguous spec streams of {[len(x) for x in couts]} tokens")
+    require(cspec["windows"] > 0, f"contiguous spec engine: {cspec}")
+    print(f"[spec] contiguous spec engine (4 slots, 2048 positions, int8): "
+          f"4 requests x 16 tokens in {cwall:.3f} s; {cspec}", flush=True)
+    return counts
+
+
 # -- running the phases -------------------------------------------------------
 
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
 
-def run(phases=("build", "kernels", "model", "main", "paged")) -> dict:
+def run(phases=("build", "kernels", "model", "main", "paged", "spec")
+        ) -> dict:
     import torch
 
     card = card_line()
@@ -917,6 +1268,10 @@ def run(phases=("build", "kernels", "model", "main", "paged")) -> dict:
             "name": "paged_decode", "route": "cuda",
             "source": "gofr_tpu_torch/ops/csrc/paged_decode.cu",
             "replaces": "gofr_tpu/ops/paged_attention.py:96"},
+        "paged_window": {
+            "name": "paged_window", "route": "cuda",
+            "source": "gofr_tpu_torch/ops/csrc/paged_decode.cu",
+            "replaces": "gofr_tpu/ops/paged_attention.py:256"},
     }
     for phase in phases:
         t0 = time.monotonic()
@@ -933,6 +1288,9 @@ def run(phases=("build", "kernels", "model", "main", "paged")) -> dict:
         elif phase == "paged":
             counts = phase_paged(card)
             records["paged_decode"]["launches"] = counts["paged_decode"]
+        elif phase == "spec":
+            counts = phase_spec(card)
+            records["paged_window"]["launches"] = counts["paged_window"]
         else:
             raise SmokeFailure(f"unknown phase {phase!r}")
         torch.cuda.empty_cache()

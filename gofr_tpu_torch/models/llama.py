@@ -13,7 +13,10 @@ buffer for the life of the engine, as the JAX engine does by donation.
 
 ``flash=True`` runs attention through the CUDA kernels (ops.flash,
 ops.flash_decode), which take the plain versions on CPU tensors;
-``flash=False`` calls the plain versions directly.
+``flash=False`` calls the plain versions directly. ``verify_step``, the
+speculative verify pass over the contiguous cache, runs the plain
+``window_attention_appended`` on every device, as the JAX package runs
+its jnp version there.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops import flash, flash_decode
+from ..ops.attention import window_attention_appended
 from ..ops.norms import rms_norm
 from ..ops.quant import QuantizedLinear, qmatmul, quantize_kv
 from ..ops.rope import apply_rope, rope_frequencies
@@ -250,13 +254,33 @@ def multi_request_serving_config(cfg: ModelConfig) -> ModelConfig:
 
 
 def _scatter_drop(buf: torch.Tensor, slots, pos, keep, new) -> None:
-    """buf[:, slots, pos] = new where ``keep``, in place. Rows whose
-    cursor is at or past capacity are dropped, as JAX's ``mode="drop"``
-    scatter drops them (torch indexing would raise): their index is
-    clamped in range and the old value written back."""
+    """buf[:, slots, pos] = new where ``keep``, in place; ``slots``,
+    ``pos`` and ``keep`` are [B] (one row a slot). Rows whose cursor is
+    at or past capacity are dropped, as JAX's ``mode="drop"`` scatter
+    drops them (torch indexing would raise): their index is clamped in
+    range and the old value written back."""
     old = buf[:, slots, pos]
     shape = (1, -1) + (1,) * (new.ndim - 2)
     buf[:, slots, pos] = torch.where(keep.view(shape), new.to(buf.dtype), old)
+
+
+def _write_rows(cache: KVCache, slots, positions, k_rows, v_rows) -> None:
+    """Write KV rows [L, B, KV, hd] at ``positions`` [B] of each slot,
+    quantizing on write for an int8 cache and dropping rows at or past
+    capacity; IN PLACE."""
+    smax = cache.k.shape[2]
+    keep = positions < smax
+    pos = positions.clamp(max=smax - 1)
+    if cache.quantized:
+        qk, sk = quantize_kv(k_rows)
+        qv, sv = quantize_kv(v_rows)
+        _scatter_drop(cache.k, slots, pos, keep, qk)
+        _scatter_drop(cache.v, slots, pos, keep, qv)
+        _scatter_drop(cache.k_scale, slots, pos, keep, sk)
+        _scatter_drop(cache.v_scale, slots, pos, keep, sv)
+    else:
+        _scatter_drop(cache.k, slots, pos, keep, k_rows)
+        _scatter_drop(cache.v, slots, pos, keep, v_rows)
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -296,20 +320,60 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                            cos, sin, positions, attend)
         k_toks.append(k[:, 0])
         v_toks.append(v[:, 0])
-    k_tok = torch.stack(k_toks)                               # [L,B,KV,hd]
-    v_tok = torch.stack(v_toks)
-    slots = torch.arange(B, device=device)
-    pos = positions[:, 0]
-    keep = lengths < smax
-    if cache.quantized:
-        qk, sk = quantize_kv(k_tok)
-        qv, sv = quantize_kv(v_tok)
-        _scatter_drop(cache.k, slots, pos, keep, qk)
-        _scatter_drop(cache.v, slots, pos, keep, qv)
-        _scatter_drop(cache.k_scale, slots, pos, keep, sk)
-        _scatter_drop(cache.v_scale, slots, pos, keep, sv)
-    else:
-        _scatter_drop(cache.k, slots, pos, keep, k_tok)
-        _scatter_drop(cache.v, slots, pos, keep, v_tok)
+    _write_rows(cache, torch.arange(B, device=device), lengths.long(),
+                torch.stack(k_toks), torch.stack(v_toks))   # [L, B, KV, hd]
     cache.lengths = lengths + 1
     return _logits(params, cfg, x[:, 0]), cache
+
+
+def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: KVCache, rope_tables=None
+                ) -> tuple[torch.Tensor, KVCache]:
+    """The speculative verify pass over the contiguous cache.
+
+    ``tokens`` [B, W]: column 0 is each slot's pending last token (the
+    one decode_step would consume), columns 1.. drafts. One forward
+    computes logits at every window position (logits[:, j] predicts the
+    token after tokens[:, :j+1]); attention is the plain
+    ``window_attention_appended``. All W KV rows are written at each
+    slot's cursor afterwards, rows at or past capacity dropped. IN
+    PLACE: returns (logits [B, W, V] float32, the same cache with
+    ``lengths`` UNCHANGED: how far a cursor advances is the caller's
+    acceptance, and rows past it stay invisible behind the cursor).
+    W=1 is decode_step without the cursor advance. The caller honours
+    acceptance only where lengths + W <= capacity.
+    """
+    cfg = multi_request_serving_config(cfg)
+    B, W = tokens.shape
+    smax = cache.k.shape[2]
+    device = tokens.device
+    cos, sin = rope_tables or get_rope_tables(cfg, smax, device)
+    lengths = cache.lengths
+    positions = lengths.long()[:, None] + torch.arange(W, device=device)
+    # a row past the rope table is dropped below; any in-range position
+    # serves its rotation
+    rope_pos = positions.clamp(max=cos.shape[0] - 1)
+
+    x = params["embedding"][tokens].to(cfg.tdtype)            # [B, W, D]
+    k_w, v_w = [], []
+    for i in range(cfg.n_layers):
+        k_l, v_l = cache.k[i], cache.v[i]
+        ks_l = cache.k_scale[i] if cache.quantized else None
+        vs_l = cache.v_scale[i] if cache.quantized else None
+
+        def attend(q, k_new, v_new, k_l=k_l, v_l=v_l, ks_l=ks_l, vs_l=vs_l):
+            return window_attention_appended(q, k_l, v_l, k_new, v_new,
+                                             lengths, ks_l, vs_l)
+
+        x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
+                           cos, sin, rope_pos, attend)
+        k_w.append(k)
+        v_w.append(v)
+    k_w = torch.stack(k_w)                                    # [L,B,W,KV,hd]
+    v_w = torch.stack(v_w)
+    # one window column at a time: a column's dropped rows write back
+    # what the earlier columns left, so no two writes of one scatter meet
+    slots = torch.arange(B, device=device)
+    for j in range(W):
+        _write_rows(cache, slots, positions[:, j], k_w[:, :, j], v_w[:, :, j])
+    return _logits(params, cfg, x), cache

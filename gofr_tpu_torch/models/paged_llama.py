@@ -17,9 +17,10 @@ Table invariants (kept by the engine's allocator):
   - block 0 is a reserved trash block no slot ever owns: writes at a
     retired slot's frozen cursor, and past capacity, land there.
 
-As in ``llama``, the pool is updated IN PLACE. The verify step, the
-block-to-row restore and the shared prefix index wait for speculative
-decode and chunked prefill.
+As in ``llama``, the pool is updated IN PLACE. ``paged_verify_step`` is
+the speculative verify pass over the pool, through the paged window
+kernel. The block-to-row restore and the shared prefix index wait for
+chunked prefill.
 """
 
 from __future__ import annotations
@@ -82,17 +83,34 @@ def init_paged_cache(cfg: ModelConfig, slots: int, n_blocks: int,
 
 def _pool_coords(table: torch.Tensor, positions: torch.Tensor, T: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(block_ids, offsets) [B] for writing at ``positions`` [B] through
-    a clamped ``table`` [B, MB]. Past-capacity positions route to the
-    trash block: the paged form of the contiguous cache's dropped write
-    (without it the offset would wrap into the slot's own live last
-    block)."""
+    """(block_ids, offsets), shaped as ``positions`` ([B] or [B, W]), for
+    writing at ``positions`` through a clamped ``table`` [B, MB].
+    Past-capacity positions route to the trash block: the paged form of
+    the contiguous cache's dropped write (without it the offset would
+    wrap into the slot's own live last block)."""
     mb = table.shape[1]
     pos = positions.long()
     idx = torch.clamp(pos // T, max=mb - 1)
-    blk = torch.gather(table.long(), 1, idx[:, None])[:, 0]
+    blk = torch.gather(table.long(), 1, idx if idx.ndim == 2 else idx[:, None])
+    if pos.ndim == 1:
+        blk = blk[:, 0]
     blk = torch.where(pos < mb * T, blk, torch.zeros_like(blk))
     return blk, pos % T
+
+
+def _write_pool_rows(cache: PagedKVCache, blk, off, k_rows, v_rows) -> None:
+    """cache[:, blk, off] = rows (quantized on write for an int8 pool);
+    ``blk``/``off`` index the rows' dims after L. IN PLACE."""
+    if cache.quantized:
+        qk, sk = quantize_kv(k_rows)
+        qv, sv = quantize_kv(v_rows)
+        cache.k[:, blk, off] = qk
+        cache.v[:, blk, off] = qv
+        cache.k_scale[:, blk, off] = sk
+        cache.v_scale[:, blk, off] = sv
+    else:
+        cache.k[:, blk, off] = k_rows.to(cache.k.dtype)
+        cache.v[:, blk, off] = v_rows.to(cache.v.dtype)
 
 
 def paged_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -136,21 +154,59 @@ def paged_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                  cfg, cos, sin, positions, attend)
         k_toks.append(k[:, 0])
         v_toks.append(v[:, 0])
-    k_tok = torch.stack(k_toks)                               # [L,B,KV,hd]
-    v_tok = torch.stack(v_toks)
     blk, off = _pool_coords(table, lengths, T)
-    if cache.quantized:
-        qk, sk = quantize_kv(k_tok)
-        qv, sv = quantize_kv(v_tok)
-        cache.k[:, blk, off] = qk
-        cache.v[:, blk, off] = qv
-        cache.k_scale[:, blk, off] = sk
-        cache.v_scale[:, blk, off] = sv
-    else:
-        cache.k[:, blk, off] = k_tok.to(cache.k.dtype)
-        cache.v[:, blk, off] = v_tok.to(cache.v.dtype)
+    _write_pool_rows(cache, blk, off, torch.stack(k_toks),
+                     torch.stack(v_toks))                     # [L,B,KV,hd]
     cache.lengths = lengths + 1
     return llama._logits(params, cfg, x[:, 0]), cache
+
+
+def paged_verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: PagedKVCache, table: torch.Tensor,
+                      rope_tables=None) -> tuple[torch.Tensor, PagedKVCache]:
+    """The speculative verify pass over the paged pool: the contract of
+    ``llama.verify_step`` (logits [B, W, V] float32; all W KV rows
+    written at each slot's cursor; ``lengths`` returned UNCHANGED), with
+    the pool addressed through ``table`` [B, MB].
+
+    Attention is the paged window kernel (ops.paged_attention.
+    paged_window_attention; its plain version on CPU tensors): the pool
+    side streams each slot's live blocks, the W x W in-window part folds
+    in exactly. All layers' window rows [L, B, W, KV, hd] are written by
+    one scatter through ``_pool_coords``; rows past capacity go to the
+    trash block. The caller guarantees that each live slot owns the
+    blocks its window covers (positions lengths[b] .. + W - 1), and
+    honours acceptance only where lengths + W <= capacity. IN PLACE."""
+    cfg = llama.multi_request_serving_config(cfg)
+    W = tokens.shape[1]
+    T = cache.block_size
+    mb = table.shape[1]
+    device = tokens.device
+    cos, sin = rope_tables or llama.get_rope_tables(cfg, mb * T, device)
+    lengths = cache.lengths
+    positions = lengths.long()[:, None] + torch.arange(W, device=device)
+    # a frozen cursor past the rope table reads its last rows; such a
+    # slot's rows land in the trash block and are never delivered
+    rope_pos = positions.clamp(max=cos.shape[0] - 1)
+
+    x = params["embedding"][tokens].to(cfg.tdtype)            # [B, W, D]
+    k_w, v_w = [], []
+    for i in range(cfg.n_layers):
+        k_l, v_l = cache.k[i], cache.v[i]
+        ks_l = cache.k_scale[i] if cache.quantized else None
+        vs_l = cache.v_scale[i] if cache.quantized else None
+
+        def attend(q, k_new, v_new, k_l=k_l, v_l=v_l, ks_l=ks_l, vs_l=vs_l):
+            return paged_attention.paged_window_attention(
+                q, k_l, v_l, k_new, v_new, table, lengths, ks_l, vs_l)
+
+        x, (k, v) = llama._layer(x, llama._layer_weights(params["layers"], i),
+                                 cfg, cos, sin, rope_pos, attend)
+        k_w.append(k)
+        v_w.append(v)
+    blk, off = _pool_coords(table, positions, T)              # [B, W]
+    _write_pool_rows(cache, blk, off, torch.stack(k_w), torch.stack(v_w))
+    return llama._logits(params, cfg, x), cache
 
 
 def write_prompt_blocks(cache: PagedKVCache, k_stack, v_stack,

@@ -1,9 +1,13 @@
 """Attention in plain PyTorch (counterpart of gofr_tpu/ops/attention.py).
 
-These are the plain versions of the two CUDA kernels: ``causal_attention``
-of flash prefill (ops.flash) and ``decode_attention_appended`` of flash
-decode (ops.flash_decode). The CPU runs them; on the card they are the
-reference the kernels are held against. Layouts follow the JAX package:
+These are the plain versions of the CUDA kernels: ``causal_attention``
+of flash prefill (ops.flash), ``decode_attention_appended`` of the
+decodes (ops.flash_decode, ops.paged_attention) and
+``window_attention_appended`` of the paged verify window
+(ops.paged_attention). The CPU runs them; on the card they are the
+reference the kernels are held against, and the contiguous verify pass
+(models.llama.verify_step) runs ``window_attention_appended`` itself, as
+the JAX package runs its jnp version. Layouts follow the JAX package:
 q [B, S, H, D], k/v [B, S, KV, D], GQA by grouping query heads
 [B, S, KV, G, D]; softmax in float32.
 """
@@ -78,3 +82,44 @@ def decode_attention_appended(q: torch.Tensor, k_cache: torch.Tensor,
            + torch.einsum("bkgt,btkd->bkgd",
                           probs[..., smax:].to(v_new.dtype), v_new))
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def window_attention_appended(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, k_new: torch.Tensor,
+                              v_new: torch.Tensor, lengths: torch.Tensor,
+                              k_scale: torch.Tensor | None = None,
+                              v_scale: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """``decode_attention_appended`` over a W-token window, the
+    speculative verify pass: window query w attends the cache prefix
+    (positions < lengths[b]) plus window positions <= w, before any of
+    the window's k/v is written back. W=1 is the appended decode step.
+
+    q: [B, W, H, D]; k_cache/v_cache: [B, Smax, KV, D] (int8 with
+    ``k_scale``/``v_scale`` [B, Smax, KV] float32, or dense);
+    k_new/v_new: [B, W, KV, D]; lengths: [B] valid cache entries
+    EXCLUDING the window. Returns [B, W, H, D] in q's dtype.
+    """
+    b, w, h, d = q.shape
+    smax = k_cache.shape[1]
+    n_kv = k_cache.shape[2]
+    qg = _group(q * d ** -0.5, n_kv).float()                 # [B,W,KV,G,D]
+    scores_c = torch.einsum("bwkgd,btkd->bkgwt", qg, k_cache.float())
+    if k_scale is not None:
+        scores_c = scores_c * k_scale.transpose(1, 2)[:, :, None, None, :]
+    valid = torch.arange(smax, device=q.device)[None, :] < lengths[:, None]
+    scores_c = scores_c.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    scores_s = torch.einsum("bwkgd,btkd->bkgwt", qg, k_new.float())
+    causal = torch.tril(torch.ones((w, w), dtype=torch.bool,
+                                   device=q.device))
+    scores_s = scores_s.masked_fill(~causal, NEG_INF)
+    probs = torch.softmax(torch.cat([scores_c, scores_s], dim=-1), dim=-1)
+    probs_c = probs[..., :smax]
+    if v_scale is not None:
+        probs_c = probs_c * v_scale.transpose(1, 2)[:, :, None, None, :]
+    vdt = q.dtype if v_scale is not None else v_cache.dtype
+    out = (torch.einsum("bkgwt,btkd->bwkgd", probs_c.to(vdt),
+                        v_cache.to(vdt))
+           + torch.einsum("bkgwt,btkd->bwkgd",
+                          probs[..., smax:].to(v_new.dtype), v_new))
+    return out.reshape(b, w, h, d).to(q.dtype)

@@ -18,8 +18,6 @@ import torch
 from . import kernels
 from .attention import causal_attention
 
-HEAD_DIM = 128
-
 launches = 0
 plain_calls = 0
 
@@ -46,21 +44,16 @@ def causal_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check(q, k, v, lengths) -> None:
-    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 \
-            or v.dtype != torch.bfloat16:
-        raise TypeError(f"flash_prefill takes bf16 q/k/v on CUDA, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"flash_prefill shapes: q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     b, _, h, d = q.shape
-    kv = k.shape[2]
-    if d != HEAD_DIM:
-        raise ValueError(f"flash_prefill kernel takes head_dim {HEAD_DIM}, "
-                         f"got {d}")
-    if h % kv:
-        raise ValueError(f"query heads {h} not a multiple of KV heads {kv}")
+    kernels.check_attention_shape("flash_prefill", head_dim=d, n_heads=h,
+                                  n_kv_heads=k.shape[2], dtype=q.dtype)
+    if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise TypeError(f"flash_prefill takes bf16 q/k/v on CUDA, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     if lengths.dtype != torch.int32 or lengths.shape != (b,):
         raise ValueError(f"lengths must be int32 [{b}], got "
                          f"{lengths.dtype} {tuple(lengths.shape)}")

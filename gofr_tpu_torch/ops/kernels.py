@@ -7,6 +7,12 @@ own with ``nvcc`` for ``sm_90a`` into a shared library, loaded with
 ``ops/_build/``; a library's file name carries a hash of its source and
 flags, so an edited source rebuilds and an unchanged one loads as built.
 Nothing here runs when the module is imported.
+
+``check_attention_shape`` holds what the attention kernels take of a
+model (head_dim, activation dtype, query heads per KV head, the paged
+block size, the verify window): every wrapper's input check and the
+serving engine's construction-time check call it, so the two cannot
+drift apart.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -54,7 +62,62 @@ SIGNATURES = {
         "paged_decode.cu",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _I, _I, _F, _P]),
+    # q, k_pool, v_pool, k_scale, v_scale, table, lengths, k_new, v_new,
+    # out, work, B, MB, T, N, Wn, H, KV, W, chunk, scale, stream
+    "gofr_paged_window_int8": (
+        "paged_decode.cu",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         _I, _I, _I, _F, _P]),
+    "gofr_paged_window_bf16": (
+        "paged_decode.cu",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         _I, _I, _I, _F, _P]),
 }
+
+# What the attention kernels take (csrc/*.cu): head_dim 128, bf16
+# activations; the decode body (K2, K3 and the window) G = H/KV in
+# GROUP_SIZES, a pool block size that is a multiple of 8, and a verify
+# window of 1 to MAX_WINDOW query positions (kMaxWindow)
+HEAD_DIM = 128
+GROUP_SIZES = (1, 2, 4, 8)
+MAX_WINDOW = 16
+KERNELS = ("flash_prefill", "flash_decode", "paged_decode", "paged_window")
+
+
+def check_attention_shape(kernel: str, *, head_dim: int, n_heads: int,
+                          n_kv_heads: int, dtype: torch.dtype,
+                          block_size: int | None = None,
+                          window: int = 1) -> None:
+    """Raise if attention kernel ``kernel`` (one of ``KERNELS``) does not
+    take a model with these shapes: TypeError for the activation dtype,
+    ValueError for a shape. ``block_size``: the paged pool's T (paged
+    kernels); ``window``: the verify window W (``paged_window``)."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown attention kernel {kernel!r}")
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{kernel} kernel takes bf16 activations, got "
+                        f"{dtype}")
+    if head_dim != HEAD_DIM:
+        raise ValueError(f"{kernel} kernel takes head_dim {HEAD_DIM}, got "
+                         f"{head_dim}")
+    if n_kv_heads <= 0 or n_heads % n_kv_heads:
+        raise ValueError(f"{kernel} kernel: query heads {n_heads} not a "
+                         f"multiple of KV heads {n_kv_heads}")
+    if kernel == "flash_prefill":
+        return
+    if n_heads // n_kv_heads not in GROUP_SIZES:
+        raise ValueError(f"{kernel} kernel takes H/KV in {GROUP_SIZES}, got "
+                         f"H={n_heads} KV={n_kv_heads}")
+    if kernel.startswith("paged") and (block_size is None or block_size <= 0
+                                       or block_size % 8):
+        raise ValueError(f"{kernel} kernel takes a block size that is a "
+                         f"multiple of 8, got T={block_size}")
+    if not 1 <= window <= (MAX_WINDOW if kernel == "paged_window" else 1):
+        raise ValueError(f"{kernel} kernel takes a window of 1 to "
+                         f"{MAX_WINDOW if kernel == 'paged_window' else 1} "
+                         f"query positions, got W={window} (W*G = "
+                         f"{window * (n_heads // n_kv_heads)} rows)")
+
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

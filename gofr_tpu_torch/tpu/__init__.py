@@ -19,6 +19,11 @@ Rows read:
                     block, so size it as live tokens // block + 1);
                     0 or unset keeps contiguous [slots, max_seq] rows
   TPU_PAGED_BLOCK   tokens per paged block (default 128)
+  TPU_SPEC_DECODE   k > 0: prompt-lookup speculative decoding with k
+                    draft tokens (greedy slots; a verify window of k + 1
+                    positions, through the paged window kernel on a
+                    paged engine, at most 15 there on the card); 0 or
+                    unset: off
 
 Every other ``TPU_*`` row of the JAX package names a feature this port
 does not serve yet; a set one raises with its name rather than being
@@ -48,7 +53,7 @@ UNPORTED_ROWS = (
     "TPU_PREFIX_MIN", "TPU_KVCACHE_BLOCK", "TPU_KVCACHE_HOST_MB",
     "TPU_KVCACHE_REDIS", "TPU_KVCACHE_REDIS_TTL_S",
     "TPU_KVCACHE_REDIS_TIMEOUT_S", "TPU_KVCACHE_EPOCH_REFRESH_S",
-    "TPU_SPEC_DECODE", "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_BUDGET_MB",
+    "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_BUDGET_MB",
     "TPU_HBM_HEADROOM", "TPU_HBM_DEVICE_BUDGET_MB", "TPU_MAX_QUEUE_DEPTH",
     "TPU_MAX_QUEUE_DELAY", "TPU_BROWNOUT_DELAY", "TPU_BROWNOUT_MAX_NEW",
     "TPU_BATCH_BUCKETS", "TPU_SEQ_BUCKETS", "TPU_MAX_BATCH_DELAY",
@@ -104,7 +109,8 @@ def new_engine_from_config(cfg, device="cuda", logger=None) -> TorchEngine:
         kv_dtype=torch.int8 if kv_choice == "int8" else None,
         decode_block=cfg.get_int("TPU_DECODE_BLOCK", 4),
         paged_blocks=cfg.get_int("TPU_PAGED_BLOCKS", 0),
-        paged_block_size=cfg.get_int("TPU_PAGED_BLOCK", 128), device=device)
+        paged_block_size=cfg.get_int("TPU_PAGED_BLOCK", 128),
+        spec_decode_k=cfg.get_int("TPU_SPEC_DECODE", 0), device=device)
     if logger is not None:
         logger.info({"event": "torch engine ready", "model": name,
                      "device": str(device)})

@@ -24,11 +24,24 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
     (seed, absolute position) as ``fold_in(PRNGKey(seed), pos)`` with
     JAX's threefry (tpu.prng), so a stream is a pure function of its
     seed and draws JAX's random bits.
+  - With ``spec_decode_k`` = k, prompt-lookup speculative decoding: a
+    tick whose active slots are all greedy and clear of capacity, and
+    at least half of which find a draft (the k tokens that followed the
+    last earlier occurrence of their history's trailing 2-gram), runs
+    one verify pass over a window of k + 1 tokens per slot
+    (models.llama.verify_step, or paged_llama.paged_verify_step through
+    the paged window kernel) and delivers each slot's agreeing prefix
+    plus one token; otherwise a decode block runs. Streams are the
+    spec-less engine's, token for token.
+  - On a CUDA device the engine refuses at construction a model the
+    attention kernels do not take (ops.kernels.check_attention_shape),
+    naming its shape and the kernel, so nothing raises in the loop for
+    that reason.
 
 Consumers call ``generate()`` from any thread and read tokens off a
 stream; one background thread, ``gofr-torch-gen``, owns the device loop.
-Features outside the slice (prefix cache, speculative decode, LoRA,
-a depth-2 pipeline, the kv-cache tiers, meshes) raise when asked for.
+Features outside the slice (prefix cache, LoRA, a depth-2 pipeline,
+the kv-cache tiers, meshes) raise when asked for.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ import torch
 from ..device import resolve_device
 from ..models import llama, paged_llama
 from ..models.common import ModelConfig
+from ..ops import kernels
 from ..wire import PushStream
 from . import prng
 
@@ -88,6 +102,24 @@ def sample(logits: torch.Tensor, temps: torch.Tensor, seeds: torch.Tensor,
         tok = torch.where(temps > 0, sampled, greedy)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return tok, torch.gather(logp, 1, tok[:, None])[:, 0]
+
+
+def verify_epilogue(logits: torch.Tensor, window: torch.Tensor,
+                    active: torch.Tensor):
+    """The verify pass's tail: greedy tokens [B, W] and their logprobs,
+    each slot's accepted draft count (the longest run of drafts
+    window[:, 1:] that agree with the greedy tokens before them) and
+    emit [B] = accepted + 1 for active slots (the pass's guaranteed
+    token), 0 for the rest: how many leading greedy tokens are real and
+    how far the slot's cursor advances. Returns (greedy, logprobs,
+    accepted, emit)."""
+    greedy = torch.argmax(logits, dim=-1)                     # [B, W]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    lps = torch.gather(logp, -1, greedy[..., None])[..., 0]
+    agree = (greedy[:, :-1] == window[:, 1:]).long()
+    accepted = torch.cumprod(agree, dim=1).sum(dim=1)
+    emit = torch.where(active, accepted + 1, torch.zeros_like(accepted))
+    return greedy, lps, accepted, emit
 
 
 class GenStream(PushStream):
@@ -163,7 +195,6 @@ class GenerationEngine:
                  lora_adapters: int = 0, paged_blocks: int = 0,
                  paged_block_size: int = 128, kvcache=None, mesh=None):
         unported = {"prefix_cache_slots": prefix_cache_slots != 0,
-                    "spec_decode_k": spec_decode_k != 0,
                     "lora_adapters": lora_adapters != 0,
                     "decode_pipeline": decode_pipeline != 1,
                     "kvcache": kvcache is not None,
@@ -179,6 +210,10 @@ class GenerationEngine:
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
+        self._spec_k = max(0, int(spec_decode_k))
+        if self.device.type == "cuda":
+            self._check_kernels(kv_dtype, paged_blocks > 0,
+                                int(paged_block_size))
         self.n_slots = slots
         self.decode_block = max(1, int(decode_block))
         self.max_seq = min(max_seq or cfg.max_seq, cfg.max_seq)
@@ -231,6 +266,15 @@ class GenerationEngine:
         self._eos_mat = np.full((slots, self.EOS_MAX), llama.EOS_PAD,
                                 np.int64)
 
+        # Prompt-lookup speculative decoding (greedy slots only): each
+        # slot's token history in a preallocated buffer, so _draft reads
+        # views and an append is one index write
+        if self._spec_k:
+            self._spec_windows = 0   # slot-windows verified
+            self._spec_emitted = 0   # tokens those windows emitted
+            self._hist_buf = np.zeros((slots, self.max_seq), np.int32)
+            self._hist_n = np.zeros((slots,), np.int64)
+
         self._pending: "queue.Queue[_Request]" = queue.Queue()
         self._device_lock = threading.Lock()
         self._admission_lock = threading.Lock()
@@ -241,7 +285,11 @@ class GenerationEngine:
         self.total_requests = 0
         self.admissions = 0      # prefills run (one per admission)
         self.decode_steps = 0    # decode steps run (K per block)
+        self.verify_passes = 0   # speculative verify passes run
         self._block_s: "deque[float]" = deque(maxlen=1024)
+        self._verify_s: "deque[float]" = deque(maxlen=1024)
+        if self._spec_k:
+            self._warm_verify()
         self._thread = threading.Thread(target=self._loop,
                                         name="gofr-torch-gen", daemon=True)
         self._thread.start()
@@ -335,6 +383,18 @@ class GenerationEngine:
                                      / max(1, n_usable), 3),
                 "evictions": self._paged_evictions,
             }
+        if self._spec_k:
+            out["spec_decode"] = {
+                "k": self._spec_k,
+                "windows": self._spec_windows,
+                "emitted": self._spec_emitted,
+                "tokens_per_window": (
+                    round(self._spec_emitted / self._spec_windows, 3)
+                    if self._spec_windows else None),
+                "verify_ms_mean": (1e3 * sum(self._verify_s)
+                                   / len(self._verify_s)
+                                   if self._verify_s else None),
+            }
         return out
 
     def close(self) -> None:
@@ -353,7 +413,7 @@ class GenerationEngine:
                     with self._device_lock:
                         self._admit()
                         if self._active.any() and not self._closed:
-                            self._decode_block()
+                            self._tick()
                 else:
                     self._work.clear()
                     if self._pending.empty() and not self._closed:
@@ -467,6 +527,9 @@ class GenerationEngine:
         self._temps[idx] = req.temperature
         self._top_ks[idx] = req.top_k
         self._slot_seed[idx] = req.seed
+        if self._spec_k:
+            self._hist_set(idx, req.prompt)
+            self._hist_append(idx, first)
         self._deliver(idx, slot, first, first_lp)
         if slot.request is not None:  # not finished by the first token
             self._last_tokens[idx] = first
@@ -591,6 +654,8 @@ class GenerationEngine:
                 tok = int(out[k, 0, idx])
                 self._last_tokens[idx] = tok
                 self._pos_abs[idx] += 1
+                if self._spec_k:
+                    self._hist_append(idx, tok)
                 self._deliver(idx, slot, tok, float(out[k, 1, idx]))
         for idx, slot in enumerate(self._slots):
             if self._active[idx]:
@@ -652,13 +717,15 @@ class GenerationEngine:
         self._table[idx, :n] = blocks[:n]
         self._table[idx, n:] = blocks[n - 1]
 
-    def _ensure_blocks(self) -> None:
-        """Before each decode block: every active slot owns blocks
-        covering its next K positions, bounded by its stop cursor. A
-        slot the pool cannot grow is retired at once (its stream ends
-        as if at capacity), freeing its blocks for the rest; the
-        eviction is logged and counted."""
-        K = self.decode_block
+    def _ensure_blocks(self, horizon: int | None = None) -> None:
+        """Before each dispatch: every active slot owns blocks covering
+        its next ``horizon`` positions (default: one decode block,
+        bounded by its stop cursor; a verify pass passes its window
+        width, unbounded: its rows past acceptance are the clamped
+        table's contract). A slot the pool cannot grow is retired at
+        once (its stream ends as if at capacity), freeing its blocks for
+        the rest; the eviction is logged and counted."""
+        K = horizon or self.decode_block
         T = self._block_t
         for idx, slot in enumerate(self._slots):
             if not self._active[idx]:
@@ -666,7 +733,7 @@ class GenerationEngine:
             cur = int(self._cursors[idx])
             hi = cur + K  # the highest write is at position hi - 1
             stop = int(self._stop_cursors[idx])
-            if stop > 0:
+            if horizon is None and stop > 0:
                 hi = min(hi, stop)
                 if hi <= cur:
                     continue  # stopped on the device; retires at delivery
@@ -690,3 +757,178 @@ class GenerationEngine:
                 self._retire(idx, slot)
                 continue
             self._write_table_row(idx)
+
+    def _check_kernels(self, kv_dtype, paged: bool, block_size: int) -> None:
+        """Refuse, before anything is allocated or started, a model the
+        attention kernels of this engine's path do not take on the
+        card: flash_prefill at every admission, flash_decode or
+        paged_decode at every decode step, the paged window at every
+        verify pass of a paged spec engine."""
+        cfg = self.cfg
+        path = [("flash_prefill", {}),
+                ("paged_decode", {"block_size": block_size}) if paged
+                else ("flash_decode", {})]
+        if paged and self._spec_k:
+            path.append(("paged_window", {"block_size": block_size,
+                                          "window": self._spec_k + 1}))
+        shape = (f"model {cfg.name!r} (head_dim {cfg.head_dim}, "
+                 f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
+                 f"{cfg.dtype})")
+        if kv_dtype not in (None, torch.int8, torch.bfloat16):
+            raise ValueError(f"{shape}: the decode kernels take an int8 or "
+                             f"bf16 KV cache, not {kv_dtype}")
+        for kernel, extra in path:
+            try:
+                kernels.check_attention_shape(
+                    kernel, head_dim=cfg.head_dim, n_heads=cfg.n_heads,
+                    n_kv_heads=cfg.n_kv_heads, dtype=cfg.tdtype, **extra)
+            except (TypeError, ValueError) as e:
+                raise ValueError(f"{shape} cannot be served on "
+                                 f"{self.device}: {e}") from None
+
+    # -- speculative decoding ------------------------------------------------
+    def _hist_set(self, idx: int, tokens) -> None:
+        n = min(len(tokens), self._hist_buf.shape[1])
+        self._hist_buf[idx, :n] = tokens[:n]
+        self._hist_n[idx] = n
+
+    def _hist_append(self, idx: int, token: int) -> None:
+        n = self._hist_n[idx]
+        if n < self._hist_buf.shape[1]:
+            self._hist_buf[idx, n] = token
+            self._hist_n[idx] = n + 1
+
+    def _draft(self, idx: int) -> list[int] | None:
+        """Prompt-lookup draft: the k tokens that followed the most
+        recent earlier occurrence of the history's trailing 2-gram
+        (zero-padded), or None when there is none."""
+        n = int(self._hist_n[idx])
+        K = self._spec_k
+        if n < 3:
+            return None
+        h = self._hist_buf[idx, :n]
+        a, b = h[-2], h[-1]
+        hits = np.flatnonzero((h[:-2] == a) & (h[1:-1] == b))
+        if len(hits) == 0:
+            return None
+        j = int(hits[-1])
+        cont = h[j + 2:j + 2 + K]
+        if cont.size == 0:
+            return None
+        return cont.tolist() + [0] * (K - cont.size)
+
+    def _tick(self) -> None:
+        """One serving tick: a verify pass when every active slot is
+        greedy and clear of capacity and at least half of them draft
+        (a slot without a draft emits one token a pass where a decode
+        block gives it K), else a decode block."""
+        if self._spec_k and self._spec_eligible():
+            drafts = {idx: self._draft(idx)
+                      for idx in range(self.n_slots) if self._active[idx]}
+            drafted = sum(d is not None for d in drafts.values())
+            if drafted > 0 and 2 * drafted >= len(drafts):
+                self._verify_tick(drafts)
+                return
+        self._decode_block()
+
+    def _spec_eligible(self) -> bool:
+        W = self._spec_k + 1
+        saw_active = False
+        for idx, slot in enumerate(self._slots):
+            if not self._active[idx]:
+                continue
+            req = slot.request
+            if req is None or req.temperature > 0:
+                return False  # sampling slots need the decode sampler
+            if req.stream.prompt_len + slot.generated + W > self.max_seq:
+                return False  # its window would write past capacity
+            saw_active = True
+        return saw_active
+
+    def _verify(self, window: torch.Tensor, active: torch.Tensor,
+                table: torch.Tensor | None):
+        """One verify pass (models.llama.verify_step, or paged_llama.
+        paged_verify_step through ``table``), then the epilogue; the
+        cursors advance by emit. Returns (greedy, logprobs, emit)."""
+        if self._paged:
+            logits, _ = paged_llama.paged_verify_step(
+                self.params, self.cfg, window, self.cache, table,
+                self.rope_tables)
+        else:
+            logits, _ = llama.verify_step(self.params, self.cfg, window,
+                                          self.cache, self.rope_tables)
+        toks, lps, _, emit = verify_epilogue(logits, window, active)
+        self.cache.lengths = self.cache.lengths + emit.to(torch.int32)
+        return toks, lps, emit
+
+    def _warm_verify(self) -> None:
+        """One verify pass with no slot active before serving, so the
+        first real one builds and loads nothing under the device lock:
+        it emits nothing and leaves every cursor where it was; its rows
+        land past the cursors (paged: in the trash block, through an
+        all-zero table)."""
+        W = self._spec_k + 1
+        zeros = torch.zeros((self.n_slots, W), dtype=torch.long,
+                            device=self.device)
+        table = (torch.zeros((self.n_slots, self._mb), dtype=torch.int32,
+                             device=self.device) if self._paged else None)
+        with torch.no_grad():
+            self._verify(zeros, zeros[:, 0].bool(), table)
+
+    def _verify_tick(self, drafts: dict) -> None:
+        """One verify pass over window = [last token, k drafts] per slot
+        (zero drafts for a slot without a match: it still emits its one
+        guaranteed token), reaped at once: each slot's emitted tokens
+        are delivered in order, and a retirement mid-window discards the
+        rest."""
+        W = self._spec_k + 1
+        window = np.zeros((self.n_slots, W), np.int64)
+        window[:, 0] = self._last_tokens
+        for idx, d in drafts.items():
+            if d is not None:
+                window[idx, 1:] = d
+        if self._paged:
+            self._ensure_blocks(W)  # a window writes up to W positions
+            if not self._active.any():
+                return
+        t0 = time.monotonic()
+        with torch.no_grad():
+            table = (torch.from_numpy(self._table.copy()).to(self.device)
+                     if self._paged else None)
+            toks, lps, emit = self._verify(
+                torch.from_numpy(window).to(self.device),
+                torch.from_numpy(self._active.copy()).to(self.device), table)
+            out = torch.cat([toks.double(), lps.double(),
+                             emit.double()[:, None]], dim=1).cpu().numpy()
+        self._verify_s.append(time.monotonic() - t0)
+        self.verify_passes += 1
+        toks_np, lps_np = out[:, :W], out[:, W:2 * W]
+        emit_np = out[:, 2 * W].astype(np.int64)
+        snap_active = self._active.copy()
+        snap_reqs = [s.request for s in self._slots]
+        self._spec_windows += int(snap_active.sum())
+        self._spec_emitted += int(emit_np.sum())
+        if self._paged:
+            # device cursors advanced by emit (0 for inactive slots)
+            self._cursors += emit_np
+        for idx, slot in enumerate(self._slots):
+            if not snap_active[idx] or slot.request is not snap_reqs[idx]:
+                continue
+            for k in range(emit_np[idx]):
+                if not self._active[idx]:
+                    break  # retired mid-window (EOS, budget, cancel)
+                tok = int(toks_np[idx, k])
+                self._last_tokens[idx] = tok
+                self._pos_abs[idx] += 1
+                self._hist_append(idx, tok)
+                self._deliver(idx, slot, tok, float(lps_np[idx, k]))
+        # the host's mirrors of the device stop state follow what the
+        # deliveries left
+        for idx in np.flatnonzero(snap_active):
+            s = self._slots[idx]
+            self._budgets[idx] = s.remaining if s.request is not None else 0
+            if self._paged:
+                self._stop_cursors[idx] = (
+                    min(int(self._cursors[idx]) + s.remaining,
+                        self.max_seq - 2)
+                    if s.request is not None else 0)

@@ -3,8 +3,11 @@ odd shapes and every GQA group size the kernels take, the wrappers'
 refusals on CUDA tensors they cannot take (an exception, never the plain
 version), and the launch counters. The paged kernel also returns the
 contiguous kernel's bits on the gathered view of its pool, and a paged
-decode step the contiguous step's logits. They need an NVIDIA card and
-skip without one; on the card run
+decode step the contiguous step's logits; its verify window (K3w) is
+held against its plain version at every group size and at windows of 1,
+2 and 5, and returns the paged decode's bits at a window of one. An
+engine refuses at construction a model the kernels do not take. They
+need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -323,3 +326,83 @@ def test_paged_decode_step_equals_decode_step_bit_for_bit(gen):
     assert torch.equal(pool.lengths, rows.lengths)
     assert flash_decode.launches == paged_attention.launches == 8 * 2
     assert flash_decode.plain_calls == paged_attention.plain_calls == 0
+
+
+def _window_args(gen, lengths, t, mb, h, kv, w, quant):
+    args = list(_paged_args(gen, lengths, t, mb, h, kv, quant))
+    b = len(lengths)
+    args[0] = _randn(gen, b, w, h, 128)
+    args[3] = _randn(gen, b, w, kv, 128)
+    args[4] = _randn(gen, b, w, kv, 128)
+    return args
+
+
+def _f32(args):
+    """The plain version's inputs: bf16 tensors in float32 (exact), the
+    rest as they are, as chip_smoke.py evaluates the plain versions."""
+    return [x.float() if x is not None and x.dtype == torch.bfloat16 else x
+            for x in args]
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("h,kv", [(8, 8), (8, 4), (32, 8), (16, 2)])
+@pytest.mark.parametrize("w", [1, 2, 5])
+def test_paged_window_kernel_matches_plain(gen, quant, h, kv, w):
+    """G = 1, 2, 4, 8 by W = 1, 2, 5 (row groups of 1 to 8 rows, up to
+    five of them): lengths 0, on and around a block and a chunk edge,
+    and at capacity less the window."""
+    t, mb = 16, 40
+    c = flash_decode.SPLIT_CHUNK
+    lengths = [0, 1, t + 1, c - 1, c, c + 1, mb * t - w]
+    args = _window_args(gen, lengths, t, mb, h, kv, w, quant)
+    paged_attention.reset_counts()
+    got = paged_attention.paged_window_attention(*args)
+    assert (paged_attention.window_launches,
+            paged_attention.window_plain_calls) == (1, 0)
+    assert (paged_attention.launches, paged_attention.plain_calls) == (0, 0)
+    assert got.shape == args[0].shape and got.dtype == torch.bfloat16
+    _assert_close(got, paged_attention.paged_window_reference(*_f32(args)))
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("h,kv", [(8, 8), (8, 4), (32, 8), (16, 2)])
+def test_paged_window_of_one_returns_the_paged_decode_bits(gen, quant, h,
+                                                            kv):
+    c = flash_decode.SPLIT_CHUNK
+    args = _window_args(gen, [0, 5, c, c + 1, 2 * c + 7], 128, 4, h, kv, 1,
+                        quant)
+    want = paged_attention.paged_decode_attention(*args)
+    assert torch.equal(paged_attention.paged_window_attention(*args), want)
+    # and the empty slot attends its window alone: v_new
+    assert torch.equal(want[0, 0], args[4][0, 0].repeat_interleave(h // kv,
+                                                                    0))
+
+
+def test_paged_window_refuses_what_it_does_not_take(gen):
+    args = _window_args(gen, [3, 16], 16, 2, 8, 2, 17, True)
+    paged_attention.reset_counts()
+    with pytest.raises(ValueError, match="W=17"):
+        paged_attention.paged_window_attention(*args)
+    args = _window_args(gen, [3, 16], 16, 2, 8, 2, 4, True)
+    args[3] = args[3][:, :3].contiguous()     # k_new of another window
+    with pytest.raises(ValueError):
+        paged_attention.paged_window_attention(*args)
+    with pytest.raises(ValueError):           # the decode caller: W = 1
+        paged_attention.paged_decode_attention(
+            *_window_args(gen, [3, 16], 16, 2, 8, 2, 2, True))
+    assert (paged_attention.window_launches, paged_attention.launches,
+            paged_attention.window_plain_calls,
+            paged_attention.plain_calls) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("tiny", {}), ("llama-1b", {}),
+    ("llama3-8b", {"paged_blocks": 9, "spec_decode_k": 16})])
+def test_engine_refuses_at_construction_on_the_card(gen, name, kw):
+    from gofr_tpu_torch.tpu import GenerationEngine
+
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(ValueError, match=f"'{name}'"):
+        GenerationEngine(LLAMA_CONFIGS[name], {}, slots=2, max_seq=64,
+                         device="cuda", **kw)
+    assert torch.cuda.memory_allocated() == before

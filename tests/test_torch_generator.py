@@ -207,7 +207,8 @@ def test_cancel_ends_the_stream_and_frees_the_slot(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    {"prefix_cache_slots": 2}, {"spec_decode_k": 4}, {"lora_adapters": 2},
+    {"prefix_cache_slots": 2}, {"spec_decode_k": 4, "lora_adapters": 2},
+    {"lora_adapters": 2},
     {"paged_blocks": 64, "prefix_cache_slots": 2}, {"decode_pipeline": 2},
     {"kvcache": object()},
     {"mesh": object()},
@@ -217,6 +218,73 @@ def test_features_outside_the_slice_raise(weights, kw):
     with pytest.raises(ValueError, match="not ported"):
         GenerationEngine(LLAMA_CONFIGS["tiny"], tparams, slots=2,
                          max_seq=32, device="cpu", **kw)
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """torch reports a card; the engine's construction-time check runs
+    before anything is allocated on it, so no card is touched."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+
+
+LLAMA3 = LLAMA_CONFIGS["llama3-8b"]
+
+
+@pytest.mark.parametrize("cfg,kw,match", [
+    (LLAMA_CONFIGS["tiny"], {}, r"'tiny' \(head_dim 16, .*float32\)"),
+    (LLAMA_CONFIGS["tiny"], {"paged_blocks": 9, "paged_block_size": 16},
+     "head_dim 16"),
+    (LLAMA_CONFIGS["llama-1b"], {}, "head_dim 64"),
+    (LLAMA3.with_(dtype="float32"), {}, "bf16 activations, got "
+     "torch.float32"),
+    (LLAMA3, {"paged_blocks": 9, "paged_block_size": 12}, "multiple of 8"),
+    (LLAMA3, {"paged_blocks": 9, "spec_decode_k": 16}, "W=17"),
+    (LLAMA3.with_(n_heads=24, dim=3072), {}, "H/KV"),
+    (LLAMA3, {"kv_dtype": torch.float32}, "int8 or bf16 KV cache"),
+])
+def test_a_cuda_engine_refuses_at_construction_what_the_kernels_do_not_take(
+        card, cfg, kw, match):
+    """On a CUDA device the engine names the model's shape and the
+    kernel that refuses it, before it starts a stream or allocates."""
+    started = threading.active_count()
+    with pytest.raises(ValueError, match=match):
+        GenerationEngine(cfg, {}, slots=2, max_seq=64, device="cuda", **kw)
+    assert threading.active_count() == started
+
+
+@pytest.mark.parametrize("kernel,kw,error", [
+    ("flash_prefill", {}, None),
+    ("flash_decode", {}, None),
+    ("paged_decode", {"block_size": 128}, None),
+    ("paged_window", {"block_size": 128, "window": 5}, None),
+    ("paged_window", {"block_size": 16, "window": 16}, None),
+    ("paged_window", {"block_size": 128, "window": 17}, ValueError),
+    ("paged_window", {"block_size": 128, "window": 0}, ValueError),
+    ("flash_decode", {"window": 2}, ValueError),
+    ("paged_decode", {"block_size": 12}, ValueError),
+    ("paged_decode", {}, ValueError),
+    ("flash_decode", {"head_dim": 64}, ValueError),
+    ("flash_prefill", {"head_dim": 16}, ValueError),
+    ("flash_decode", {"dtype": torch.float32}, TypeError),
+    ("flash_prefill", {"dtype": torch.float32}, TypeError),
+    ("flash_prefill", {"n_heads": 24}, None),     # any whole group
+    ("flash_decode", {"n_heads": 24}, ValueError),
+    ("flash_prefill", {"n_heads": 20}, ValueError),
+    ("unknown", {}, ValueError),
+])
+def test_the_shared_kernel_shape_check(kernel, kw, error):
+    """The one function every wrapper's input check and the engine's
+    construction-time check call, on Llama-3-8B's shapes and variants."""
+    from gofr_tpu_torch.ops import kernels
+
+    args = dict(head_dim=128, n_heads=32, n_kv_heads=8,
+                dtype=torch.bfloat16)
+    args.update(kw)
+    if error is None:
+        kernels.check_attention_shape(kernel, **args)
+    else:
+        with pytest.raises(error):
+            kernels.check_attention_shape(kernel, **args)
 
 
 def test_new_engine_from_config_serves_on_the_cpu():
