@@ -8,10 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from gofr_tpu_torch/ops/csrc (one nvcc per
      source, all started together) and print the build time and what
-     ptxas reports per kernel; an instance of flash_prefill, flash_decode
-     or paged_decode (every group size; the paged window's launchers run
-     the same instances, rows in groups of 1, 2, 4 or 8) that spills
-     fails the run;
+     ptxas reports per kernel; an instance of flash_prefill, flash_decode,
+     paged_decode (every group size) or paged_window (every count of
+     16-row tiles, 1 to 8) that spills fails the run;
   3. hold each kernel (bf16 in, bf16 out) against its plain PyTorch
      version, evaluated in float32 on the same input values, on the card
      at the serving shapes, and time kernel, plain version and the
@@ -26,8 +25,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      the paged one bit for bit against flash_decode on the gathered
      view; the paged verify window (K3w) at phase paged's shapes with a
      window of 5, at 8 slots x 512 with windows of 2 and 5, on and
-     around the chunk edges with an empty slot, and at a window of one
-     bit for bit against paged_decode;
+     around the chunk edges with an empty slot, at 24 and 128 query rows
+     a KV head (G = 8, W = 3 and 16), and at a window of one bit for bit
+     against paged_decode;
   4. Llama-3-8B at full width and 4 layers, prefill plus 8 decode steps,
      once through the kernels and once through the plain versions on
      the same inputs: the largest logit difference against a tolerance;
@@ -76,7 +76,9 @@ out to see what it costs) is timed all the same, and marked.
 
 does the same for the decodes: flash_decode (int8) at 8 slots x 512,
 paged_decode (int8) at 8 slots x 512 and at phase paged's first decode
-step (32 slots over its 257-block pool, its prompt lengths).
+step (32 slots over its 257-block pool, its prompt lengths), and the
+verify window paged_window (int8, W = 5) at 8 slots x 512 and at phase
+paged's first-step lengths.
 """
 
 from __future__ import annotations
@@ -199,7 +201,8 @@ def phase_build() -> None:
             if any(w in line for w in ("registers", "spill", "error",
                                        "warning", "Compiling entry")):
                 print(f"[build] {source}: {line.strip()}")
-    for source in ("flash_prefill.cu", "flash_decode.cu", "paged_decode.cu"):
+    for source in ("flash_prefill.cu", "flash_decode.cu", "paged_decode.cu",
+                   "paged_window.cu"):
         spills = ptxas_spills(logs[source])
         require(not logs[source] or spills,
                 f"ptxas reported no kernel of {source}")
@@ -606,7 +609,6 @@ def window_case(gen, lengths: list[int], w: int, quant: bool, record: dict,
     # live positions, and against the window positions up to it
     n_ops = 4 * h * d * (w * live + b * w * (w + 1) // 2)
     bound, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
-    fp32_ms = n_ops / FP32_FLOPS * 1e3
     pool = "int8" if quant else "bf16"
     times = (f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
              f"library_ms={library_ms:.5f} " if timed else "")
@@ -616,8 +618,7 @@ def window_case(gen, lengths: list[int], w: int, quant: bool, record: dict,
           f"H={h} KV={kv} lengths={lengths} max_err={err:.3e} ({TOL}; "
           f"against the plain version in bf16 {err_bf16:.3e}) {bits}"
           f"{times}bound_ms={bound:.5f} ({by}; bytes {n_bytes / 1e6:.2f} MB, "
-          f"{n_ops / 1e9:.3f} GFLOP: {fp32_ms:.5f} ms on fp32 CUDA cores) "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{n_ops / 1e9:.3f} GFLOP) {'ok' if ok else 'FAIL'}", flush=True)
     require(ok, f"paged_window ({pool}, T={t}, W={w}) disagrees with its "
                 f"plain version at lengths={lengths}: max_err {err}")
     require(same is not False, f"paged_window at W=1 and paged_decode "
@@ -677,7 +678,8 @@ def phase_kernels(records: dict) -> None:
         paged_case(gen, lengths, True, pag, mb=32, n=257, timed=step == 0)
     # K3w, the verify window (W = TPU_SPEC_DECODE + 1): phase paged's
     # shapes at W=5, 8 slots x 512 at W = 2 and 5, the chunk edges with
-    # an empty slot, and W=1 bit for bit against paged_decode
+    # an empty slot, 24 and 128 rows a KV head (G = 8: a padded tile, all
+    # eight tiles), and W=1 bit for bit against paged_decode
     win = records["paged_window"]
     prompts = paged_prompt_lengths(np.random.default_rng(PAGED_SEED))
     window_case(gen, prompts + [0] * 8, 5, True, win, mb=32, n=257,
@@ -689,6 +691,8 @@ def phase_kernels(records: dict) -> None:
         window_case(gen, edges, 1, quant, win)
         window_case(gen, chunk_edges, 1, quant, win)
     window_case(gen, edges, 3, True, win, t=16, mb=128)  # the CPU tests' T
+    for w in (3, 16):
+        window_case(gen, chunk_edges, w, True, win, h=64)
 
 
 # -- phase 4: kernels against plain versions through the model ----------------
@@ -1270,7 +1274,7 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec")
             "replaces": "gofr_tpu/ops/paged_attention.py:96"},
         "paged_window": {
             "name": "paged_window", "route": "cuda",
-            "source": "gofr_tpu_torch/ops/csrc/paged_decode.cu",
+            "source": "gofr_tpu_torch/ops/csrc/paged_window.cu",
             "replaces": "gofr_tpu/ops/paged_attention.py:256"},
     }
     for phase in phases:
@@ -1330,7 +1334,7 @@ print(f"[host] flash_prefill B=1 S=512: {us:.2f} us of host time per call",
 
 
 # one arm of --decode-ab: K2 int8 at 8 x 512, K3 int8 at 8 x 512 and at
-# phase paged's first decode step
+# phase paged's first decode step, K3w int8 at W = 5 at the same lengths
 DECODE_AB_ARM = """
 import numpy as np, torch, chip_smoke as c
 print("[card]", c.card_line(), flush=True)
@@ -1342,6 +1346,9 @@ for case, args, kw in (
         (c.decode_case, ([512] * 8, True, {}), {}),
         (c.paged_case, ([512] * 8, True, {}), {"timed": True}),
         (c.paged_case, (prompts + [0] * 8, True, {}),
+         {"mb": 32, "n": 257, "timed": True}),
+        (c.window_case, ([512] * 8, 5, True, {}), {"timed": True}),
+        (c.window_case, (prompts + [0] * 8, 5, True, {}),
          {"mb": 32, "n": 257, "timed": True})):
     try:
         case(g, *args, **kw)

@@ -1,47 +1,30 @@
 // The decode-attention kernel body that flash_decode.cu (a contiguous
 // [B, Smax, KV, 128] cache) and paged_decode.cu (a block pool
-// [N, T, KV, 128] read through a block table) both instantiate, and
-// that paged_decode.cu's window launchers run for speculative decoding's
-// verify pass. Two address policies: `Rows`, the pool or cache row of
-// position t of slot b, and `QueryRows`, where query row r of a KV head
-// lies in q. Everything else -- the split, the tiles, the float
-// operations and their order -- is this one body, so on the same K/V the
-// callers return the same bits by construction.
+// [N, T, KV, 128] read through a block table) both instantiate. The two
+// differ only in their address policy, `Rows`: the pool or cache row of
+// position t of slot b. Everything else -- the split, the tiles, the
+// float operations and their order -- is this one body, so on the same
+// K/V the two kernels return the same bits by construction.
 //
-// Function: a window of Wn query positions q [B, Wn, H, 128] bf16 (Wn =
-// 1 for a decode step) against int8 K/V with float32 per-vector scales
-// (the k scale multiplies the scores, the v scale the probabilities) or
-// dense bf16 K/V, over positions < lengths[b] (clamped to the capacity);
-// then the window's own k_new / v_new [B, Wn, KV, 128], query position w
-// attending window positions t <= w, join with the exact flash
-// combination; bf16 out [B, Wn, H, 128]. A slot of length 0 attends its
-// window alone (at Wn = 1 it returns v_new).
+// Function: q [B, H, 128] bf16 against int8 K/V with float32 per-vector
+// scales (the k scale multiplies the scores, the v scale the
+// probabilities) or dense bf16 K/V, over positions < lengths[b] (clamped
+// to the capacity), then this step's k_new / v_new [B, KV, 128] join with
+// the exact flash combination; bf16 out. A slot of length 0 returns v_new.
 //
-// What bounds it on an H100: the K/V stream (about 4 FLOP per byte and
-// query row). At 8 slots of 512 live tokens a launch reads 8.8 MB (2.6
-// us at 3.35 TB/s); at 24 live slots of 115-1290 tokens, 29.9 MB (8.9
-// us). A window of Wn positions multiplies the arithmetic by Wn: at Wn =
-// 5 and G = 4, 20 query rows per KV head, about 18 us of fp32 work on
-// CUDA cores at phase paged's shapes, where tensor cores would take 1.2.
+// What bounds it on an H100: the K/V stream (about 4 FLOP per byte). At
+// 8 slots of 512 live tokens a launch reads 8.8 MB (2.6 us at 3.35
+// TB/s); at 24 live slots of 115-1290 tokens, 29.9 MB (8.9 us).
 //
 // Design:
 //  - Split over the cache. A work item is (KV head, slot, chunk of
-//    kChunk positions, row group); kChunk does not depend on the pool's
-//    block size, so the paged and contiguous kernels cut a slot
-//    identically. The grid is fixed from shapes alone (KV x NB blocks;
-//    the wrapper may run inside CUDA-graph capture, so it never reads
-//    lengths on the host): block (kvh, y) walks the live items y, y +
-//    NB, ... of the list that the lengths give, slot after slot, and no
-//    item exists for an empty chunk. A slot's time is no longer the
-//    kernel's time.
-//  - Row groups. A KV head has R = Wn * G query rows (row r = w * G + g
-//    is q[b, w, kvh * G + g], read in place). An item takes a group of RG
-//    <= 8 of them (RG = G for a decode step); a window of R > 8 rows is
-//    cut into ceil(R / 8) groups, padding rows of the last one computed
-//    on a zero query and never read. Each row's float operations do not
-//    depend on the group it rides in, so a window of one position gives
-//    the decode's bits. The cost: K/V are read once per group (3 times
-//    at Wn = 5, G = 4).
+//    kChunk positions); kChunk does not depend on the pool's block size,
+//    so the paged and contiguous kernels cut a slot identically. The grid
+//    is fixed from shapes alone (KV x W blocks; the wrapper may run
+//    inside CUDA-graph capture, so it never reads lengths on the host):
+//    block (kvh, y) walks the live items y, y + W, ... of the list that
+//    the lengths give, slot after slot, and no item exists for an empty
+//    chunk. A slot's time is no longer the kernel's time.
 //  - Inside an item, 128 threads take the chunk in sub-tiles of 8 KB of
 //    K (64 int8 or 32 bf16 rows). K and V rows and their scales arrive by
 //    16-byte (scales 4-byte) cp.async copies into a 2-stage ring in
@@ -52,24 +35,23 @@
 //    two positions; the query, pre-scaled by 1/sqrt(128), sits in shared
 //    memory and is read as a broadcast. The four quarters' partial dots
 //    are summed in a fixed order.
-//  - Tile-wise softmax: one max per row per sub-tile, one exp per
-//    (position, row), the running sum and the accumulator rescaled once
+//  - Tile-wise softmax: one max per head per sub-tile, one exp per
+//    (position, head), the running sum and the accumulator rescaled once
 //    per sub-tile, not once per position.
 //  - P.V: each lane owns 4 adjacent dims of the 128, each warp a quarter
-//    of the sub-tile's positions; RG*4 accumulators a thread, so no
+//    of the sub-tile's positions; G*4 accumulators a thread, so no
 //    instance spills. The warps' accumulators share the running max and
 //    are summed (fixed order) once per item.
 //  - int8 becomes float without I2F (a quarter-rate conversion on sm_90):
 //    the byte, XOR'd with 0x80, is permuted into 0x4B0000xx and
 //    8388736.0f subtracted: exact, at full issue rate.
-//  - Each item writes (acc[RG][128], m[RG], l[RG]) in float32 to a
-//    workspace the wrapper allocates. A second launch, one block per (KV
-//    head, slot), folds each row's partials in chunk order with the flash
-//    rule, then the row's window positions t <= w (their max first, as
-//    the TPU kernel's fold does), and writes bf16. No atomics: the bits
-//    do not vary between runs. A slot of length 0 has no partials; its
-//    result is the window alone. The second launch costs one more launch
-//    of host time per layer, a few us of a decode step of tens of ms.
+//  - Each item writes (acc[G][128], m[G], l[G]) in float32 to a workspace
+//    the wrapper allocates. A second launch, one block per (KV head,
+//    slot), folds a slot's partials in chunk order with the flash rule,
+//    then k_new / v_new, and writes bf16. No atomics: the bits do not vary
+//    between runs. A slot of length 0 has no partials; its result is the
+//    new token alone. The second launch costs one more launch of host
+//    time per layer, a few us of a decode step of tens of ms.
 #pragma once
 
 #include "common.cuh"
@@ -82,27 +64,8 @@ constexpr int kChunk = 256;      // positions per work item
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int kTileBytes = 8192; // K bytes per sub-tile
-constexpr int kWork = D + 2;     // floats per row in a partial: acc, m, l
-constexpr int kMaxWindow = 16;   // query positions a launch (Wn)
-constexpr int kMaxRows = 8 * kMaxWindow;  // R = Wn * G rows a KV head
+constexpr int kWork = D + 2;     // floats per head in a partial: acc, m, l
 constexpr unsigned FULL = 0xffffffffu;
-
-// rows an item takes for R query rows a KV head: R itself up to 4 (1, 2,
-// 4; 3 -> 4), else 8; ops/flash_decode.py's row_groups mirrors it
-__host__ __device__ inline int row_group(int R) {
-  return R > 4 ? 8 : (R > 2 ? 4 : R);
-}
-
-// the query-row policy: row r of KV head kvh of slot b is window
-// position w = r / G, head kvh * G + r % G, of q [B, Wn, H, 128]; the
-// same index addresses the output
-struct QueryRows {
-  int wn, g, h;
-  __device__ __forceinline__ size_t row(int b, int kvh, int r) const {
-    const int w = r / g;
-    return ((size_t)(b * wn + w) * h + kvh * g + (r - w * g)) * D;
-  }
-};
 
 // the address policies: the element row of position t of slot b
 
@@ -203,7 +166,7 @@ __device__ __forceinline__ int n_chunks(int length) {
   return (length + kChunk - 1) / kChunk;
 }
 
-template <typename T, int RG, bool QUANT>
+template <typename T, int G, bool QUANT>
 struct Tiles {
   static constexpr int RB = D * (int)sizeof(T);       // bytes a row
   static constexpr int P = kTileBytes / RB;           // rows a sub-tile
@@ -212,17 +175,17 @@ struct Tiles {
   static constexpr int QSEGS = 32 / EPS;              // segments a quarter
   static constexpr int PPT = P / 32;                  // score rows a lane
   static constexpr int PPW = P / NWARPS;              // P.V rows a warp
-  static constexpr int HPW = (RG + NWARPS - 1) / NWARPS;  // rows a warp
+  static constexpr int HPW = (G + NWARPS - 1) / NWARPS;  // heads a warp
   static_assert(P % 32 == 0 && PPW % 4 == 0 && kChunk % P == 0, "tiles");
 
   unsigned char k[2][P * RB];
   unsigned char v[2][P * RB];
   float ks[2][QUANT ? P : 1];
   float vs[2][QUANT ? P : 1];
-  float part[NWARPS][RG][P];  // the quarters' partial scores; part[0]
-                              // then holds the probabilities (x v scale)
-  float q[RG][D];             // query x 1/sqrt(D)
-  float corr[RG];
+  float part[NWARPS][G][P];  // the quarters' partial scores; part[0]
+                             // then holds the probabilities (x v scale)
+  float q[G][D];             // query x 1/sqrt(D)
+  float corr[G];
 
   // byte offset of segment `seg` of row r, swizzled
   __device__ __forceinline__ static int at(int r, int seg) {
@@ -232,13 +195,13 @@ struct Tiles {
 
 // Fill stage `st` with sub-tile rows [t0, t0 + P) of slot b (rows past
 // `end` zero-filled).
-template <typename T, int RG, bool QUANT, class Rows>
-__device__ __forceinline__ void load_tile(Tiles<T, RG, QUANT>& sm, int st,
+template <typename T, int G, bool QUANT, class Rows>
+__device__ __forceinline__ void load_tile(Tiles<T, G, QUANT>& sm, int st,
                                           const Rows& rows, int b, int t0,
                                           int end, const T* kbase,
                                           const T* vbase, const float* ks,
                                           const float* vs, int KV, int kvh) {
-  using S = Tiles<T, RG, QUANT>;
+  using S = Tiles<T, G, QUANT>;
   constexpr int COPIES = S::P * S::SEGS;
   const int tid = threadIdx.x;
 #pragma unroll
@@ -264,53 +227,48 @@ __device__ __forceinline__ void load_tile(Tiles<T, RG, QUANT>& sm, int st,
   cp_commit();
 }
 
-// Pass 1: grid (KV, NB), 128 threads. Partials of every live item. (The
+// Pass 1: grid (KV, W), 128 threads. Partials of every live item. (The
 // explicit minimum of one block an SM: without it ptxas spilled a few
 // registers in three instances to reach a lower register count.)
-template <typename T, int RG, bool QUANT, class Rows>
+template <typename T, int G, bool QUANT, class Rows>
 __global__ void __launch_bounds__(NTHREADS, 1)
 decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     const T* __restrict__ kc, const T* __restrict__ vc,
                     const float* __restrict__ ks,
-                    const float* __restrict__ vs, Rows rows, QueryRows qr,
-                    int ngr, const int* __restrict__ lengths,
-                    float* __restrict__ work, int B, int KV, int NC,
-                    float scale) {
-  using S = Tiles<T, RG, QUANT>;
+                    const float* __restrict__ vs, Rows rows,
+                    const int* __restrict__ lengths,
+                    float* __restrict__ work, int B, int H, int KV,
+                    int NC, float scale) {
+  using S = Tiles<T, G, QUANT>;
   constexpr int P = S::P;
   __shared__ __align__(128) S sm;
   const int kvh = blockIdx.x;
-  const int NB = gridDim.y;
+  const int W = gridDim.y;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
   const int cap = rows.capacity();
-  const int R = qr.wn * qr.g;
 
-  // walk the item list (slot after slot; in a slot, chunk after chunk,
-  // the row groups of one chunk side by side) to item y
+  // walk the item list (slot after slot, chunk after chunk) to item y
   int b = 0, base = 0;
   int len = B > 0 ? live_length(lengths, 0, cap) : 0;
 #pragma unroll 1
-  for (int item = blockIdx.y;; item += NB) {
-    while (b < B && item >= base + n_chunks(len) * ngr) {
-      base += n_chunks(len) * ngr;
+  for (int item = blockIdx.y;; item += W) {
+    while (b < B && item >= base + n_chunks(len)) {
+      base += n_chunks(len);
       if (++b < B) len = live_length(lengths, b, cap);
     }
     if (b >= B) return;
-    const int c = (item - base) / ngr;
-    const int gi = item - base - c * ngr;
+    const int c = item - base;
     const int t_begin = c * kChunk;
     const int t_end = min(len, t_begin + kChunk);
     const int ntiles = (t_end - t_begin + P - 1) / P;
 
-    // the group's query rows; a padding row past R gets a zero query
+    // the query of this KV head's G heads (h = kvh*G + g)
+    const __nv_bfloat16* qh = q + ((size_t)b * H + (size_t)kvh * G) * D;
 #pragma unroll
-    for (int g = 0; g < RG; ++g) {
-      const int r = gi * RG + g;
-      sm.q[g][tid] =
-          r < R ? __bfloat162float(q[qr.row(b, kvh, r) + tid]) * scale : 0.f;
-    }
+    for (int g = 0; g < G; ++g)
+      sm.q[g][tid] = __bfloat162float(qh[g * D + tid]) * scale;
     load_tile(sm, 0, rows, b, t_begin, t_end, kc, vc, ks, vs, KV, kvh);
 
     float m[S::HPW], l[S::HPW];
@@ -319,9 +277,9 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
       m[j] = kNegInf;
       l[j] = 0.f;
     }
-    float acc[RG][4];
+    float acc[G][4];
 #pragma unroll
-    for (int g = 0; g < RG; ++g)
+    for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[g][i] = 0.f;
 
@@ -337,11 +295,11 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 
       // scores: warp = a quarter of the dims, lane = positions
       {
-        float s[S::PPT][RG];
+        float s[S::PPT][G];
 #pragma unroll
         for (int j = 0; j < S::PPT; ++j)
 #pragma unroll
-          for (int g = 0; g < RG; ++g) s[j][g] = 0.f;
+          for (int g = 0; g < G; ++g) s[j][g] = 0.f;
 #pragma unroll
         for (int qs = 0; qs < S::QSEGS; ++qs) {
           const int seg = warp * S::QSEGS + qs;
@@ -357,7 +315,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
             for (int j = 0; j < S::PPT; ++j) kf[j] = Conv<T>::quad(raw[j], k);
             const int d0 = seg * S::EPS + 4 * k;
 #pragma unroll
-            for (int g = 0; g < RG; ++g) {
+            for (int g = 0; g < G; ++g) {
               const float4 qv = *reinterpret_cast<const float4*>(&sm.q[g][d0]);
 #pragma unroll
               for (int j = 0; j < S::PPT; ++j) {
@@ -374,16 +332,16 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < S::PPT; ++j)
 #pragma unroll
-          for (int g = 0; g < RG; ++g) sm.part[warp][g][lane + 32 * j] = s[j][g];
+          for (int g = 0; g < G; ++g) sm.part[warp][g][lane + 32 * j] = s[j][g];
       }
       __syncthreads();
 
-      // softmax over the sub-tile: warp w keeps rows w, w + 4
+      // softmax over the sub-tile: warp w keeps heads w, w + 4
       const int nv = min(P, t_end - t0);
 #pragma unroll
       for (int jh = 0; jh < S::HPW; ++jh) {
         const int g = warp + NWARPS * jh;
-        if (g < RG) {
+        if (g < G) {
           float sc[S::PPT];
           float mx = kNegInf;
 #pragma unroll
@@ -422,7 +380,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
       // P.V: lane = 4 adjacent dims, warp = a quarter of the positions
       {
 #pragma unroll
-        for (int g = 0; g < RG; ++g) {
+        for (int g = 0; g < G; ++g) {
           const float cr = sm.corr[g];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[g][i] *= cr;
@@ -439,7 +397,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                                    (byte & 15));
           }
 #pragma unroll
-          for (int g = 0; g < RG; ++g) {
+          for (int g = 0; g < G; ++g) {
             const float4 pr =
                 *reinterpret_cast<const float4*>(&sm.part[0][g][p0]);
 #pragma unroll
@@ -458,142 +416,121 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 
     // the item's partial: the warps' accumulators summed in warp order
     __syncthreads();
-    float* red = reinterpret_cast<float*>(sm.k);  // [NWARPS][RG][D]
+    float* red = reinterpret_cast<float*>(sm.k);  // [NWARPS][G][D]
 #pragma unroll
-    for (int g = 0; g < RG; ++g)
-      *reinterpret_cast<float4*>(&red[(warp * RG + g) * D + 4 * lane]) =
+    for (int g = 0; g < G; ++g)
+      *reinterpret_cast<float4*>(&red[(warp * G + g) * D + 4 * lane]) =
           make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-    float* wp = work + ((((size_t)b * KV + kvh) * NC + c) * ngr + gi) *
-                           (RG * kWork);
+    float* wp = work + (((size_t)b * KV + kvh) * NC + c) * (G * kWork);
 #pragma unroll
     for (int jh = 0; jh < S::HPW; ++jh) {
       const int g = warp + NWARPS * jh;
-      if (g < RG && lane == 0) {
-        wp[RG * D + g] = m[jh];
-        wp[RG * D + RG + g] = l[jh];
+      if (g < G && lane == 0) {
+        wp[G * D + g] = m[jh];
+        wp[G * D + G + g] = l[jh];
       }
     }
     __syncthreads();
 #pragma unroll
-    for (int g = 0; g < RG; ++g) {
+    for (int g = 0; g < G; ++g) {
       float a = red[g * D + tid];
 #pragma unroll
-      for (int w = 1; w < NWARPS; ++w) a += red[(w * RG + g) * D + tid];
+      for (int w = 1; w < NWARPS; ++w) a += red[(w * G + g) * D + tid];
       wp[g * D + tid] = a;
     }
     __syncthreads();
   }
 }
 
-// Pass 2: grid (KV, B), 128 threads (thread = dim). For each of the KV
-// head's R rows: fold the row's partials in chunk order, then the
-// window positions t <= w of k_new / v_new (the decode: the one new
-// token); write bf16.
+// Pass 2: grid (KV, B), 128 threads (thread = dim). Fold the slot's
+// partials in chunk order, then this step's k_new / v_new; write bf16.
+template <int G>
 __global__ void __launch_bounds__(NTHREADS)
 decode_combine_kernel(const __nv_bfloat16* __restrict__ q,
                       const int* __restrict__ lengths,
                       const float* __restrict__ work,
                       const __nv_bfloat16* __restrict__ k_new,
                       const __nv_bfloat16* __restrict__ v_new,
-                      __nv_bfloat16* __restrict__ out, QueryRows qr, int rg,
-                      int ngr, int KV, int NC, int cap, float scale) {
-  __shared__ float snew[kMaxRows * kMaxWindow];  // [R][Wn] scores
+                      __nv_bfloat16* __restrict__ out, int H, int KV,
+                      int NC, int cap, float scale) {
+  __shared__ float snew[G];
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int wn = qr.wn;
-  const int R = wn * qr.g;
+  const __nv_bfloat16* qh = q + ((size_t)b * H + (size_t)kvh * G) * D;
+  const __nv_bfloat16* kn = k_new + ((size_t)b * KV + kvh) * D;
 
-  // each row's scores against the window's keys t <= w
-  for (int p = warp; p < R * wn; p += NWARPS) {
-    const int r = p / wn;
-    const int t = p - r * wn;
-    if (t > r / qr.g) continue;
-    const __nv_bfloat16* qp = q + qr.row(b, kvh, r);
-    const __nv_bfloat16* kn = k_new + ((size_t)(b * wn + t) * KV + kvh) * D;
+  // this step's score for each head against k_new
+  for (int g = warp; g < G; g += NWARPS) {
+    const __nv_bfloat16* qp = qh + g * D;
     float d = 0.f;
 #pragma unroll
     for (int i = lane; i < D; i += 32)
       d = fmaf(__bfloat162float(qp[i]) * scale, __bfloat162float(kn[i]), d);
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) d += __shfl_xor_sync(FULL, d, off);
-    if (lane == 0) snew[p] = d;
+    if (lane == 0) snew[g] = d;
   }
   __syncthreads();
 
   const int nc = n_chunks(live_length(lengths, b, cap));
-  const float* wp = work + ((size_t)b * KV + kvh) * NC * ngr * (rg * kWork);
-  const __nv_bfloat16* vn = v_new + ((size_t)b * wn * KV + kvh) * D + tid;
-#pragma unroll 1
-  for (int r = 0; r < R; ++r) {
-    const int gi = r / rg;
-    const int g = r - gi * rg;
-    const int w = r / qr.g;
+  const float* wp = work + ((size_t)b * KV + kvh) * NC * (G * kWork);
+  const float vn = __bfloat162float(v_new[((size_t)b * KV + kvh) * D + tid]);
+  __nv_bfloat16* o = out + ((size_t)b * H + (size_t)kvh * G) * D;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
     float M = kNegInf, L = 0.f, A = 0.f;
     for (int c = 0; c < nc; ++c) {
-      const float* it = wp + ((size_t)c * ngr + gi) * (rg * kWork);
-      const float mc = it[rg * D + g];
+      const float* it = wp + (size_t)c * (G * kWork);
+      const float mc = it[G * D + g];
       const float mn = fmaxf(M, mc);
       const float a = __expf(M - mn);
       const float e = __expf(mc - mn);
-      L = L * a + it[rg * D + rg + g] * e;
+      L = L * a + it[G * D + G + g] * e;
       A = A * a + it[g * D + tid] * e;
       M = mn;
     }
-    // the window: its max first, then the flash rule
-    const float* sr = snew + r * wn;
-    float smax = kNegInf;
-    for (int t = 0; t <= w; ++t) smax = fmaxf(smax, sr[t]);
-    const float mt = fmaxf(M, smax);
+    const float sn = snew[g];
+    const float mt = fmaxf(M, sn);
     const float alpha = __expf(M - mt);
-    float psum = 0.f, pv = 0.f;
-    for (int t = 0; t <= w; ++t) {
-      const float pt = __expf(sr[t] - mt);
-      psum += pt;
-      pv = fmaf(pt, __bfloat162float(vn[(size_t)t * KV * D]), pv);
-    }
-    const float lt = L * alpha + psum;
-    out[qr.row(b, kvh, r) + tid] = __float2bfloat16((A * alpha + pv) / lt);
+    const float beta = __expf(sn - mt);
+    const float lt = L * alpha + beta;
+    o[g * D + tid] = __float2bfloat16((A * alpha + beta * vn) / lt);
   }
 }
 
-// Both passes on `stream` for a window of Wn query positions (1 for a
-// decode step). `work` holds B*KV*NC*ngr*RG*(D+2) floats, NC =
-// ceil(capacity / kChunk), RG = row_group(Wn * G), ngr = ceil(Wn * G /
-// RG); NB blocks per KV head walk the items; `chunk` is the wrapper's
-// idea of kChunk, checked.
+// Both passes on `stream`. `work` holds B*KV*NC*G*(D+2) floats, NC =
+// ceil(capacity / kChunk); W blocks per KV head walk the items; `chunk`
+// is the wrapper's idea of kChunk, checked.
 template <typename T, bool QUANT, class Rows>
 int launch(const void* q, const void* kc, const void* vc, const void* ks,
            const void* vs, const Rows& rows, const void* lengths,
            const void* k_new, const void* v_new, void* out, void* work,
-           int B, int H, int KV, int Wn, int NB, int chunk, float scale,
+           int B, int H, int KV, int W, int chunk, float scale,
            void* stream) {
   const int cap = rows.capacity();
-  if (KV <= 0 || H % KV != 0 || B <= 0 || NB <= 0 || cap < 0 ||
-      Wn < 1 || Wn > kMaxWindow || chunk != kChunk)
+  if (KV <= 0 || H % KV != 0 || B <= 0 || W <= 0 || cap < 0 ||
+      chunk != kChunk)
     return cudaErrorInvalidValue;
-  const int G = H / KV;
-  if (G != 1 && G != 2 && G != 4 && G != 8) return cudaErrorInvalidValue;
   const int NC = (cap + kChunk - 1) / kChunk;
-  const int R = Wn * G;
-  const int RG = row_group(R);
-  const int ngr = (R + RG - 1) / RG;
-  const QueryRows qr{Wn, G, H};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
   const int* lens = static_cast<const int*>(lengths);
   float* wk = static_cast<float*>(work);
-#define GOFR_DECODE_CASE(RGV)                                                  \
-  case RGV:                                                                    \
-    decode_split_kernel<T, RGV, QUANT, Rows>                                   \
-        <<<dim3(KV, NB), NTHREADS, 0, st>>>(                                   \
-            qb, static_cast<const T*>(kc), static_cast<const T*>(vc),         \
-            static_cast<const float*>(ks), static_cast<const float*>(vs),     \
-            rows, qr, ngr, lens, wk, B, KV, NC, scale);                       \
+#define GOFR_DECODE_CASE(GV)                                                   \
+  case GV:                                                                     \
+    decode_split_kernel<T, GV, QUANT, Rows><<<dim3(KV, W), NTHREADS, 0, st>>>( \
+        qb, static_cast<const T*>(kc), static_cast<const T*>(vc),             \
+        static_cast<const float*>(ks), static_cast<const float*>(vs), rows,   \
+        lens, wk, B, H, KV, NC, scale);                                       \
+    decode_combine_kernel<GV><<<dim3(KV, B), NTHREADS, 0, st>>>(              \
+        qb, lens, wk, static_cast<const __nv_bfloat16*>(k_new),               \
+        static_cast<const __nv_bfloat16*>(v_new),                             \
+        static_cast<__nv_bfloat16*>(out), H, KV, NC, cap, scale);             \
     break;
-  switch (RG) {
+  switch (H / KV) {
     GOFR_DECODE_CASE(1)
     GOFR_DECODE_CASE(2)
     GOFR_DECODE_CASE(4)
@@ -602,10 +539,6 @@ int launch(const void* q, const void* kc, const void* vc, const void* ks,
       return cudaErrorInvalidValue;
   }
 #undef GOFR_DECODE_CASE
-  decode_combine_kernel<<<dim3(KV, B), NTHREADS, 0, st>>>(
-      qb, lens, wk, static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new),
-      static_cast<__nv_bfloat16*>(out), qr, RG, ngr, KV, NC, cap, scale);
   return cudaGetLastError();
 }
 

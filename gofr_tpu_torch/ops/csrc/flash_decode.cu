@@ -29,7 +29,6 @@ using gofr::decode::launch;
 // k_scale/v_scale [B, Smax, KV] float32; lengths [B] int32; k_new/v_new
 // [B, KV, 128] bf16; work: B*KV*ceil(Smax/chunk)*(H/KV)*130 floats of
 // scratch; W blocks per KV head; all contiguous on the current device.
-// (The body's window of query positions is one here.)
 extern "C" int gofr_flash_decode_int8(const void* q, const void* kc,
                                       const void* vc, const void* ks,
                                       const void* vs, const void* lengths,
@@ -38,8 +37,8 @@ extern "C" int gofr_flash_decode_int8(const void* q, const void* kc,
                                       int H, int KV, int W, int chunk,
                                       float scale, void* stream) {
   return launch<int8_t, true>(q, kc, vc, ks, vs, ContiguousRows{Smax},
-                              lengths, k_new, v_new, out, work, B, H, KV, 1,
-                              W, chunk, scale, stream);
+                              lengths, k_new, v_new, out, work, B, H, KV, W,
+                              chunk, scale, stream);
 }
 
 // The dense bf16 cache: as above without scales (ks/vs are ignored).
@@ -52,6 +51,6 @@ extern "C" int gofr_flash_decode_bf16(const void* q, const void* kc,
                                       float scale, void* stream) {
   return launch<__nv_bfloat16, false>(q, kc, vc, ks, vs,
                                       ContiguousRows{Smax}, lengths, k_new,
-                                      v_new, out, work, B, H, KV, 1, W,
-                                      chunk, scale, stream);
+                                      v_new, out, work, B, H, KV, W, chunk,
+                                      scale, stream);
 }

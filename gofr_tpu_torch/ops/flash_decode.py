@@ -10,11 +10,10 @@ is the whole of ``decode_attention_appended``, append included. A CUDA
 tensor the kernel does not take raises; nothing falls back.
 
 The kernel splits each slot's cache into chunks of ``SPLIT_CHUNK``
-positions (``csrc/decode_attention.cuh``, shared with the paged kernel
-and its verify window), writes a float32 partial per live chunk and
-group of query rows into a workspace the wrapper allocates, and folds
-them in a second launch. ``split_geometry`` sizes the grid and the
-workspace from shapes alone, for every wrapper of that body.
+positions (``csrc/decode_attention.cuh``, shared with the paged kernel),
+writes a float32 partial per live chunk into a workspace the wrapper
+allocates, and folds them in a second launch. ``split_geometry`` sizes
+the grid and the workspace from shapes alone, for both wrappers.
 
 ``launches`` counts wrapper calls that launched the kernel and
 ``plain_calls`` calls of the plain version.
@@ -51,29 +50,17 @@ class SplitGeometry(NamedTuple):
     work: int        # float32 workspace: a partial per (slot, head, chunk)
 
 
-def row_groups(rows: int) -> tuple[int, int]:
-    """(rows an item takes, groups) for ``rows`` query rows per KV head
-    (W*G; G for a decode step): up to 4 rows in one group of 1, 2 or 4
-    (3 padded to 4), more in groups of 8, the last one padded. The
-    kernel's ``row_group`` is the same rule."""
-    rg = 8 if rows > 4 else (4 if rows > 2 else rows)
-    return rg, -(-rows // rg)
-
-
 def split_geometry(b: int, kv: int, g: int, capacity: int,
-                   sms: int = 132, window: int = 1) -> SplitGeometry:
+                   sms: int = 132) -> SplitGeometry:
     """The decode kernels' grid and workspace, from shapes alone (the
-    lengths stay on the card): B*KV*n_chunks*groups partials of a row
-    group's rows x (128 accumulators + max + sum), and W = enough blocks
-    per KV head for BLOCKS_PER_SM a streaming multiprocessor, no more
-    than there can be items. ``sms``: the card's SM count (132 on an
-    H100 SXM); ``window``: query positions (the verify window; 1 for a
-    decode step)."""
+    lengths stay on the card): B*KV*n_chunks partials of G heads x (128
+    accumulators + max + sum), and W = enough blocks per KV head for
+    BLOCKS_PER_SM a streaming multiprocessor, no more than there can be
+    items. ``sms``: the card's SM count (132 on an H100 SXM)."""
     n_chunks = -(-capacity // SPLIT_CHUNK)
-    rg, groups = row_groups(window * g)
-    blocks = max(1, min(b * n_chunks * groups, -(-BLOCKS_PER_SM * sms // kv)))
+    blocks = max(1, min(b * n_chunks, -(-BLOCKS_PER_SM * sms // kv)))
     return SplitGeometry(SPLIT_CHUNK, n_chunks, blocks,
-                         b * kv * n_chunks * groups * rg * (HEAD_DIM + 2))
+                         b * kv * n_chunks * g * (HEAD_DIM + 2))
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,10 +72,9 @@ def launch_split(name: str, q: torch.Tensor, pointers: list,
                  shape_args: list, kv: int, capacity: int) -> torch.Tensor:
     """Allocate the output and the workspace and run launcher ``name``
     (``q``'s pointer and ``pointers`` up to k_new/v_new, then out, work,
-    B, ``shape_args``, H, KV, W, chunk, scale, stream). q: [B, Wn, H, D],
-    Wn query positions a slot."""
-    b, wn, h, d = q.shape
-    geo = split_geometry(b, kv, h // kv, capacity, sm_count(q.device), wn)
+    B, ``shape_args``, H, KV, W, chunk, scale, stream)."""
+    b, _, h, d = q.shape
+    geo = split_geometry(b, kv, h // kv, capacity, sm_count(q.device))
     out = torch.empty_like(q)
     work = torch.empty(geo.work, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream

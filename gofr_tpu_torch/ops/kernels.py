@@ -63,21 +63,22 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _I, _I, _F, _P]),
     # q, k_pool, v_pool, k_scale, v_scale, table, lengths, k_new, v_new,
-    # out, work, B, MB, T, N, Wn, H, KV, W, chunk, scale, stream
+    # out, work, B, MB, T, N, Wn, H, KV, NB, chunk, scale, stream
     "gofr_paged_window_int8": (
-        "paged_decode.cu",
+        "paged_window.cu",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _I, _I, _I, _F, _P]),
     "gofr_paged_window_bf16": (
-        "paged_decode.cu",
+        "paged_window.cu",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _I, _I, _I, _F, _P]),
 }
 
 # What the attention kernels take (csrc/*.cu): head_dim 128, bf16
-# activations; the decode body (K2, K3 and the window) G = H/KV in
-# GROUP_SIZES, a pool block size that is a multiple of 8, and a verify
-# window of 1 to MAX_WINDOW query positions (kMaxWindow)
+# activations; the decodes (K2, K3) and the verify window (K3w) G = H/KV
+# in GROUP_SIZES, a pool block size that is a multiple of 8, and a verify
+# window of 1 to MAX_WINDOW query positions (paged_window.cu's
+# kMaxWindow)
 HEAD_DIM = 128
 GROUP_SIZES = (1, 2, 4, 8)
 MAX_WINDOW = 16

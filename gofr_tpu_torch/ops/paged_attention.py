@@ -19,12 +19,15 @@ its body with another address policy: the same split, grid and
 workspace (``ops.flash_decode.split_geometry``). A CUDA tensor the
 kernel does not take raises; nothing falls back.
 
-``paged_window_attention`` is the same kernel's second caller, the
-verify pass of speculative decoding: a window of W query positions per
-slot, each attending the pool below ``lengths[b]`` and the window's own
-positions up to it (``csrc/paged_decode.cu``'s window launchers, the
-same body with W*G query rows per KV head read in place from q). Its
-plain version is ``paged_window_reference`` (the dense view, then
+``paged_window_attention`` is the verify pass of speculative decoding:
+a window of W query positions per slot, each attending the pool below
+``lengths[b]`` and the window's own positions up to it. For 2 <= W <= 16
+it launches a kernel of its own (``csrc/paged_window.cu``: a work item
+carries all W*G query rows of a KV head through one read of a chunk's
+K/V, both products on tensor cores), whose grid and workspace
+``window_geometry`` sizes from shapes alone; a window of one position is
+a decode step and launches the paged decode kernel. Its plain version is
+``paged_window_reference`` (the dense view, then
 ``ops.attention.window_attention_appended``).
 
 ``launches``/``plain_calls`` count the decode caller's kernel launches
@@ -34,11 +37,17 @@ caller's, so a run can tell the two callers apart.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import kernels
 from .attention import decode_attention_appended, window_attention_appended
-from .flash_decode import launch_split
+from .flash_decode import HEAD_DIM, SPLIT_CHUNK, launch_split, sm_count
+
+WINDOW_TILE = 16            # query rows an mma tile: R padded to these
+WINDOW_ROW = HEAD_DIM + 4   # floats a row of a partial: acc, m, l, pad
+WINDOW_BLOCKS_PER_SM = 2    # blocks of the window kernel an SM holds
 
 launches = 0
 plain_calls = 0
@@ -89,6 +98,40 @@ def paged_window_reference(q, k_pool, v_pool, k_new, v_new, table, lengths,
                                      v_new, lengths, ks, vs)
 
 
+class WindowGeometry(NamedTuple):
+    rows: int         # R = W*G query rows a KV head
+    rows_padded: int  # R padded to whole WINDOW_TILE-row tiles
+    tiles: int        # those tiles
+    slices: int       # warps a tile, each a slice of a sub-tile's positions
+    warps: int        # warps a block: tiles x slices
+    n_chunks: int     # chunks a slot at capacity: ceil(capacity / chunk)
+    items: int        # work items a KV head at most: one a slot and chunk
+    blocks: int       # NB, blocks per KV head that walk the live items
+    work: int         # float32 workspace: a partial per item, slice, row
+
+
+def window_geometry(b: int, kv: int, g: int, w: int, capacity: int,
+                    sms: int = 132) -> WindowGeometry:
+    """The window kernel's grid and workspace, from shapes alone (the
+    lengths stay on the card): an item (KV head, slot, chunk of
+    SPLIT_CHUNK positions) carries all R = W*G rows, padded to 16-row
+    tiles; 1 or 2 tiles take 4 warps (a tile's warps split each
+    sub-tile's positions 4 or 2 ways), more a warp each (the kernel's
+    pos_split). A partial of R rows x WINDOW_ROW floats per item and
+    slice; NB = enough blocks per KV head for WINDOW_BLOCKS_PER_SM an
+    SM, no more than there can be items. ``sms``: the card's SM count
+    (132 on an H100 SXM)."""
+    rows = w * g
+    tiles = -(-rows // WINDOW_TILE)
+    slices = 1 if tiles >= 3 else 4 // tiles
+    n_chunks = -(-capacity // SPLIT_CHUNK)
+    items = b * n_chunks
+    blocks = max(1, min(items, -(-WINDOW_BLOCKS_PER_SM * sms // kv)))
+    return WindowGeometry(rows, tiles * WINDOW_TILE, tiles, slices,
+                          tiles * slices, n_chunks, items, blocks,
+                          b * kv * n_chunks * slices * rows * WINDOW_ROW)
+
+
 def _check(q, k_pool, v_pool, k_new, v_new, table, lengths, k_scale,
            v_scale, kernel: str = "paged_decode"):
     """What ``kernel`` (paged_decode: W = 1; paged_window: W = q's second
@@ -137,21 +180,43 @@ def _check(q, k_pool, v_pool, k_new, v_new, table, lengths, k_scale,
             raise ValueError(f"{kernel} kernel needs contiguous inputs")
 
 
-def _launch(kernel: str, q, k_pool, v_pool, k_new, v_new, table, lengths,
-            k_scale, v_scale) -> torch.Tensor:
-    _check(q, k_pool, v_pool, k_new, v_new, table, lengths, k_scale, v_scale,
-           kernel)
+def _pointers(k_pool, v_pool, k_new, v_new, table, lengths, k_scale,
+              v_scale) -> list:
+    """The launchers' pointers after q, up to k_new/v_new."""
+    return [k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if k_scale is not None else None,
+            v_scale.data_ptr() if v_scale is not None else None,
+            table.data_ptr(), lengths.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr()]
+
+
+def _launch_decode(q, k_pool, v_pool, k_new, v_new, table, lengths, k_scale,
+                   v_scale) -> torch.Tensor:
     n, t, kv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     mb = table.shape[1]
-    shape = [mb, t, n] + ([q.shape[1]] if kernel == "paged_window" else [])
-    name = f"gofr_{kernel}_{'int8' if k_scale is not None else 'bf16'}"
+    name = f"gofr_paged_decode_{'int8' if k_scale is not None else 'bf16'}"
     return launch_split(
-        name, q, [k_pool.data_ptr(), v_pool.data_ptr(),
-                  k_scale.data_ptr() if k_scale is not None else None,
-                  v_scale.data_ptr() if v_scale is not None else None,
-                  table.data_ptr(), lengths.data_ptr(), k_new.data_ptr(),
-                  v_new.data_ptr()],
-        shape, kv, mb * t)
+        name, q, _pointers(k_pool, v_pool, k_new, v_new, table, lengths,
+                           k_scale, v_scale), [mb, t, n], kv, mb * t)
+
+
+def _launch_window(q, k_pool, v_pool, k_new, v_new, table, lengths, k_scale,
+                   v_scale) -> torch.Tensor:
+    b, w, h, d = q.shape
+    n, t, kv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    mb = table.shape[1]
+    geo = window_geometry(b, kv, h // kv, w, mb * t, sm_count(q.device))
+    out = torch.empty_like(q)
+    work = torch.empty(geo.work, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    name = f"gofr_paged_window_{'int8' if k_scale is not None else 'bf16'}"
+    err = kernels.function(name)(
+        q.data_ptr(), *_pointers(k_pool, v_pool, k_new, v_new, table,
+                                 lengths, k_scale, v_scale),
+        out.data_ptr(), work.data_ptr(), b, mb, t, n, w, h, kv, geo.blocks,
+        SPLIT_CHUNK, d ** -0.5, stream)
+    kernels.check(err, name)
+    return out
 
 
 def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, table, lengths,
@@ -170,8 +235,10 @@ def paged_decode_attention(q, k_pool, v_pool, k_new, v_new, table, lengths,
                                          table, lengths, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode runs on cuda or cpu, not {q.device}")
-    out = _launch("paged_decode", q, k_pool, v_pool, k_new, v_new, table,
-                  lengths, k_scale, v_scale)
+    _check(q, k_pool, v_pool, k_new, v_new, table, lengths, k_scale,
+           v_scale)
+    out = _launch_decode(q, k_pool, v_pool, k_new, v_new, table, lengths,
+                         k_scale, v_scale)
     launches += 1
     return out
 
@@ -187,7 +254,8 @@ def paged_window_attention(q, k_pool, v_pool, k_new, v_new, table, lengths,
     int32 block ids; lengths [B] valid tokens EXCLUDING the window;
     ``k_scale``/``v_scale`` [N, T, KV] for an int8 pool. Returns
     [B, W, H, D] in q's dtype. On CUDA tensors W is 1 to
-    ``kernels.MAX_WINDOW``.
+    ``kernels.MAX_WINDOW``; at W = 1 the launch is the paged decode
+    kernel's (a window of one position is a decode step), counted here.
     """
     global window_launches
     if q.device.type == "cpu":
@@ -195,7 +263,10 @@ def paged_window_attention(q, k_pool, v_pool, k_new, v_new, table, lengths,
                                       table, lengths, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_window runs on cuda or cpu, not {q.device}")
-    out = _launch("paged_window", q, k_pool, v_pool, k_new, v_new, table,
-                  lengths, k_scale, v_scale)
+    _check(q, k_pool, v_pool, k_new, v_new, table, lengths, k_scale,
+           v_scale, "paged_window")
+    launch = _launch_decode if q.shape[1] == 1 else _launch_window
+    out = launch(q, k_pool, v_pool, k_new, v_new, table, lengths, k_scale,
+                 v_scale)
     window_launches += 1
     return out

@@ -4,8 +4,9 @@ refusals on CUDA tensors they cannot take (an exception, never the plain
 version), and the launch counters. The paged kernel also returns the
 contiguous kernel's bits on the gathered view of its pool, and a paged
 decode step the contiguous step's logits; its verify window (K3w) is
-held against its plain version at every group size and at windows of 1,
-2 and 5, and returns the paged decode's bits at a window of one. An
+held against its plain version at every group size, at windows of 1,
+2 and 5 and at 24 to 128 query rows a KV head, and returns the paged
+decode's bits at a window of one. An
 engine refuses at construction a model the kernels do not take. They
 need an NVIDIA card and skip without one; on the card run
 
@@ -360,6 +361,26 @@ def test_paged_window_kernel_matches_plain(gen, quant, h, kv, w):
     assert (paged_attention.window_launches,
             paged_attention.window_plain_calls) == (1, 0)
     assert (paged_attention.launches, paged_attention.plain_calls) == (0, 0)
+    assert got.shape == args[0].shape and got.dtype == torch.bfloat16
+    _assert_close(got, paged_attention.paged_window_reference(*_f32(args)))
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("h,kv,w", [(64, 8, 3), (64, 8, 16), (32, 8, 2),
+                                    (8, 1, 5)])
+def test_paged_window_kernel_at_its_row_tiles(gen, quant, h, kv, w):
+    """R = W*G query rows a KV head in 16-row tiles: 24 rows (a padded
+    second tile), 128 (all eight tiles, eight warps), W=2 (one padded
+    tile, 4 position slices) and 40 rows (three tiles); lengths on and
+    around the chunk edges, an empty slot and one at capacity."""
+    t, mb = 16, 40
+    c = flash_decode.SPLIT_CHUNK
+    lengths = [0, c - 1, c, c + 1, 2 * c, 2 * c + 1, mb * t]
+    args = _window_args(gen, lengths, t, mb, h, kv, w, quant)
+    paged_attention.reset_counts()
+    got = paged_attention.paged_window_attention(*args)
+    assert (paged_attention.window_launches,
+            paged_attention.window_plain_calls) == (1, 0)
     assert got.shape == args[0].shape and got.dtype == torch.bfloat16
     _assert_close(got, paged_attention.paged_window_reference(*_f32(args)))
 

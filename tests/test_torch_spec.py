@@ -8,10 +8,12 @@ interpret mode, as that file runs it; on CPU tensors the port's wrapper
 runs its plain version (the CUDA kernel is held against that plain
 version on the card by chip_smoke.py and tests/test_torch_cuda.py).
 
-A plain model of the CUDA kernel's own arithmetic (its work items over
-chunks and row groups, its workspace and its combine with the window
-fold) is held against the plain version here, so the kernel's index
-arithmetic is checked where no card is.
+A plain model of the CUDA window kernel's own arithmetic (its work items
+over chunks carrying all W*G rows in 16-row tiles, the position slices
+of a sub-tile, its workspace and its combine with the window fold) is
+held against the plain version here in float32 and with the kernel's
+bf16 roundings, and against JAX's window kernel on bf16 inputs, so the
+kernel's index arithmetic and numerics are checked where no card is.
 
 Tolerances: attention outputs atol 2e-5 (float32, another order of
 summation); logits atol 1e-4 (float32 through two layers); int8 codes
@@ -38,8 +40,8 @@ from gofr_tpu_torch.models import LLAMA_CONFIGS, llama, paged_llama
 from gofr_tpu_torch.ops import paged_attention
 from gofr_tpu_torch.ops.attention import (NEG_INF, decode_attention_appended,
                                           window_attention_appended)
-from gofr_tpu_torch.ops.flash_decode import (SPLIT_CHUNK, row_groups,
-                                             split_geometry)
+from gofr_tpu_torch.ops.flash_decode import SPLIT_CHUNK, split_geometry
+from gofr_tpu_torch.ops.paged_attention import window_geometry
 from gofr_tpu_torch.tpu import (GenerationEngine, from_jax_params,
                                 new_engine_from_config)
 from gofr_tpu_torch.tpu.generator import verify_epilogue
@@ -146,26 +148,41 @@ def test_paged_window_of_one_is_the_paged_decode():
 
 # -- a plain model of the CUDA kernel's arithmetic ----------------------------
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
 def kernel_model(q, k_pool, v_pool, k_new, v_new, table, lengths,
-                 k_scale=None, v_scale=None, chunk=SPLIT_CHUNK, nb=3):
-    """csrc/decode_attention.cuh's two passes with its own indexing, in
+                 k_scale=None, v_scale=None, chunk=SPLIT_CHUNK, sub=64, nb=3,
+                 bf16=True):
+    """csrc/paged_window.cu's two passes with its own indexing, in
     float32 on flat buffers: NB blocks per KV head walk the work items
-    (slot, chunk, row group), each writing its partial (acc, m, l) for
-    RG query rows -- rows read in place from q [B, W, H, D] by the
-    query-row policy, padding rows on a zero query -- into a workspace
-    of NaN; the combine folds each row's partials in chunk order, then
-    the window positions t <= w. A partial read that no item wrote
-    shows up as NaN."""
+    (slot, chunk), each carrying all R = W*G query rows of the KV head
+    (read in place from q [B, W, H, D]) in 16-row tiles, with the
+    window_geometry's warps: a tile's position slices (4 or 2 of each
+    sub-tile of ``sub`` positions, or 1) keep their own running max, sum
+    and accumulator over the sub-tiles (one max and one rescale a step:
+    the slice, at most sub/2 positions, sub/4 in a block of eight tiles)
+    and each writes its partial, rows of D + 4 floats (acc, m, l), into a
+    workspace of NaN; the combine takes each row's largest partial max,
+    sums the partials weighted by it in chunk and slice order, then folds
+    in the window positions t <= w. With ``bf16`` the kernel's roundings: q x scale,
+    the probabilities x v scale before P.V, the window's probabilities
+    before P.V, and the output. A partial read that no item wrote shows
+    up as NaN."""
+    rnd = _bf16 if bf16 else (lambda x: x)
     b_, wn, h, d = q.shape
     n, t_blk, kv, _ = k_pool.shape
     mb = table.shape[1]
     g_ = h // kv
     cap = mb * t_blk
+    geo = window_geometry(b_, kv, g_, wn, cap)
+    rows, tiles, slices = geo.rows, geo.tiles, geo.slices
+    width = sub // slices
+    step = min(width, sub // 4 if geo.warps > 7 else sub // 2)
     nc = -(-cap // chunk)
-    rows = wn * g_
-    rg, ngr = row_groups(rows)
-    kw = d + 2
-    work = torch.full((b_ * kv * nc * ngr * rg * kw,), float("nan"))
+    kw = d + 4
+    work = torch.full((b_ * kv * nc * slices * rows * kw,), float("nan"))
     qf = q.reshape(-1).float()
     kf = k_pool.reshape(n * t_blk, kv, d).float()
     vf = v_pool.reshape(n * t_blk, kv, d).float()
@@ -176,6 +193,11 @@ def kernel_model(q, k_pool, v_pool, k_new, v_new, table, lengths,
     def qrow(b, kvh, r):
         w = r // g_
         return ((b * wn + w) * h + kvh * g_ + (r - w * g_)) * d
+
+    def qs(b, kvh, r):   # a query row x scale; a padding row is zero
+        if r >= rows:
+            return torch.zeros(d)
+        return rnd(qf[qrow(b, kvh, r):][:d] * scale)
 
     def live(b):
         return min(max(int(lengths[b]), 0), cap)
@@ -188,98 +210,184 @@ def kernel_model(q, k_pool, v_pool, k_new, v_new, table, lengths,
             b, base, item = 0, 0, y
             ln = live(0)
             while True:
-                while b < b_ and item >= base + n_chunks(ln) * ngr:
-                    base += n_chunks(ln) * ngr
+                while b < b_ and item >= base + n_chunks(ln):
+                    base += n_chunks(ln)
                     b += 1
                     if b < b_:
                         ln = live(b)
                 if b >= b_:
                     break
-                c = (item - base) // ngr
-                gi = item - base - c * ngr
+                c = item - base
                 t0, t1 = c * chunk, min(ln, c * chunk + chunk)
-                qs = torch.stack([
-                    qf[qrow(b, kvh, gi * rg + g):][:d] * scale
-                    if gi * rg + g < rows else torch.zeros(d)
-                    for g in range(rg)])                         # [RG, D]
-                pos = torch.arange(t0, t1)
-                blk = table[b, pos // t_blk].long().clamp(0, n - 1)
-                prow = blk * t_blk + pos % t_blk
-                s = qs @ kf[prow, kvh].T                         # [RG, n]
-                p_scale = torch.ones(len(pos))
-                if ksf is not None:
-                    s = s * ksf[prow, kvh]
-                    p_scale = vsf[prow, kvh]
-                m = s.max(-1).values
-                p = torch.exp(s - m[:, None])
-                acc = (p * p_scale) @ vf[prow, kvh]
-                wp = ((((b * kv + kvh) * nc + c) * ngr + gi) * (rg * kw))
-                work[wp:wp + rg * d] = acc.reshape(-1)
-                work[wp + rg * d:wp + rg * d + rg] = m
-                work[wp + rg * d + rg:wp + rg * (d + 2)] = p.sum(-1)
+                for rt in range(tiles):
+                    qt = torch.stack([qs(b, kvh, rt * 16 + i)
+                                      for i in range(16)])       # [16, D]
+                    for ps in range(slices):
+                        m = torch.full((16,), NEG_INF)
+                        l, acc = torch.zeros(16), torch.zeros(16, d)
+                        starts = [s0 + ps * width + h
+                                  for s0 in range(t0, t1, sub)
+                                  for h in range(0, width, step)]
+                        for lo in starts:
+                            if lo >= t1:
+                                continue
+                            pos = torch.arange(lo, min(lo + step, t1))
+                            blk = table[b, pos // t_blk].long().clamp(0, n - 1)
+                            prow = blk * t_blk + pos % t_blk
+                            s = qt @ kf[prow, kvh].T             # [16, n]
+                            p_scale = torch.ones(len(pos))
+                            if ksf is not None:
+                                s = s * ksf[prow, kvh]
+                                p_scale = vsf[prow, kvh]
+                            mn = torch.maximum(m, s.max(-1).values)
+                            corr = torch.exp(m - mn)
+                            p = torch.exp(s - mn[:, None])
+                            l = l * corr + p.sum(-1)
+                            acc = acc * corr[:, None] + \
+                                rnd(p * p_scale) @ vf[prow, kvh]
+                            m = mn
+                        wp = (((b * kv + kvh) * nc + c) * slices + ps) \
+                            * rows * kw
+                        for i in range(16):
+                            r = rt * 16 + i
+                            if r < rows:
+                                o = wp + r * kw
+                                work[o:o + d] = acc[i]
+                                work[o + d] = m[i]
+                                work[o + d + 1] = l[i]
                 item += nb
 
     out = torch.full((b_ * wn * h * d,), float("nan"))
     knf, vnf = k_new.float(), v_new.float()
     for kvh in range(kv):
         for b in range(b_):
-            wp = ((b * kv + kvh) * nc) * ngr * (rg * kw)
+            wp = ((b * kv + kvh) * nc) * slices * rows * kw
             for r in range(rows):
-                gi, g = divmod(r, rg)
                 w = r // g_
-                m_run, l_run, a_run = torch.tensor(NEG_INF), 0.0, 0.0
-                for c in range(n_chunks(live(b))):
-                    it = wp + (c * ngr + gi) * (rg * kw)
-                    mc = work[it + rg * d + g]
-                    mn = torch.maximum(m_run, mc)
-                    a, e = torch.exp(m_run - mn), torch.exp(mc - mn)
-                    l_run = l_run * a + work[it + rg * d + rg + g] * e
-                    a_run = a_run * a + work[it + g * d:it + g * d + d] * e
-                    m_run = mn
-                qr = qf[qrow(b, kvh, r):][:d] * scale
+                its = [wp + (c * rows + r) * kw
+                       for c in range(n_chunks(live(b)) * slices)]
+                m_run = torch.tensor(max([work[i + d].item() for i in its],
+                                         default=NEG_INF))
+                l_run, a_run = 0.0, 0.0
+                for it in its:                 # chunk, then slice order
+                    e = torch.exp(work[it + d] - m_run)
+                    l_run = l_run + work[it + d + 1] * e
+                    a_run = a_run + work[it:it + d] * e
+                qr = qs(b, kvh, r)
                 sw = torch.stack([qr @ knf[b, t, kvh] for t in range(w + 1)])
                 mt = torch.maximum(m_run, sw.max())
                 alpha = torch.exp(m_run - mt)
                 pw = torch.exp(sw - mt)
-                pv = (pw[:, None] * vnf[b, :w + 1, kvh]).sum(0)
-                out[qrow(b, kvh, r):qrow(b, kvh, r) + d] = \
-                    (a_run * alpha + pv) / (l_run * alpha + pw.sum())
+                pv = (rnd(pw)[:, None] * vnf[b, :w + 1, kvh]).sum(0)
+                out[qrow(b, kvh, r):qrow(b, kvh, r) + d] = rnd(
+                    (a_run * alpha + pv) / (l_run * alpha + pw.sum()))
     return out.reshape(b_, wn, h, d)
+
+
+# the kernel against the plain window, as chip_smoke.py holds it: its
+# bf16 roundings of q x scale, of the probabilities before P.V and of
+# the output move a unit-scale result by about a bf16 step (2^-8
+# relative) plus a small absolute term
+KERNEL_ATOL, KERNEL_RTOL = 1e-2, 2.0 ** -7
 
 
 @pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (8, 2), (8, 1)])
 @pytest.mark.parametrize("w", [1, 2, 3, 5])
 def test_kernel_model_matches_the_plain_window(h, kv, w):
-    """G = 1, 2, 4, 8 by W = 1, 2, 3, 5: row groups of 1 to 8 rows, one
-    to five groups, padded last groups; lengths on and around the chunk
-    edges, an empty slot and one at capacity."""
+    """G = 1, 2, 4, 8 by W = 1, 2, 3, 5: one or more 16-row tiles, rows
+    padded, 4, 2 or 1 position slices, sub-tiles cut by the chunk's end;
+    lengths on and around the chunk edges, an empty slot and one at
+    capacity. In float32 the model is the plain window within atol 2e-5
+    (another order of summation); with the kernel's bf16 roundings
+    within the kernel's tolerance."""
     chunk, t, mb = 16, 8, 5
     lengths = [0, chunk - 1, chunk, chunk + 1, 2 * chunk + 3, t * mb]
     args = _torch(*_pool_inputs(h * w + kv, w, kv % 2 == 0, lengths, h=h,
                                 kv=kv, d=16, t=t, mb=mb))
     want = paged_attention.paged_window_reference(*args)
-    got = kernel_model(*args, chunk=chunk)
+    got = kernel_model(*args, chunk=chunk, sub=8, bf16=False)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
+    got = kernel_model(*args, chunk=chunk, sub=8)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=KERNEL_ATOL,
+                               rtol=KERNEL_RTOL)
     paged_attention.reset_counts()
 
 
-@pytest.mark.parametrize("rows,want", [
-    (1, (1, 1)), (2, (2, 1)), (3, (4, 1)), (4, (4, 1)), (5, (8, 1)),
-    (8, (8, 1)), (20, (8, 3)), (128, (8, 16))])
-def test_row_groups(rows, want):
-    assert row_groups(rows) == want
+def _bf16_np(x):
+    return None if x is None else np.asarray(
+        jnp.asarray(x).astype(jnp.bfloat16))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("w", [2, 5])
+def test_kernel_model_matches_the_jax_window_kernel(quant, w):
+    """The model in the kernel's bf16-operand numerics against JAX's
+    paged_window_attention in interpret mode on the same bf16 inputs
+    (an int8 pool is the same codes and scales on both sides): both
+    round q x scale, the probabilities before P.V and the output to
+    bf16. They round at other values: JAX rounds 1/sqrt(128) to bf16
+    before it scales q, so a score moves by about 2^-9 of itself and a
+    probability can round to the neighbouring bf16 step (2^-8 of itself,
+    times |v| up to 4 here), JAX also rounds the window's P.V to bf16,
+    and the two cut the positions differently (the kernel's 256-position
+    chunks and 64-position sub-tiles, JAX's 128-position blocks). The
+    kernel's tolerance on the card covers a step of either kind:
+    KERNEL_ATOL + KERNEL_RTOL |want| (measured here: 0.016 at 2.39)."""
+    lengths = [256, 100, 0]
+    q, kp, vp, kn, vn, table, lens, ks, vs = _pool_inputs(
+        40 + w, w, quant, lengths)
+    q, kn, vn = _bf16_np(q), _bf16_np(kn), _bf16_np(vn)
+    if not quant:
+        kp, vp = _bf16_np(kp), _bf16_np(vp)
+    want = np.asarray(jax_paged_window(
+        *_jax(q, kp, vp, kn, vn, table, lens, ks, vs), interpret=True)
+        .astype(jnp.float32))
+
+    def tb(x):
+        if x is None or x.dtype != jnp.bfloat16:
+            return None if x is None else torch.from_numpy(x)
+        return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+
+    got = kernel_model(*[tb(x) for x in (q, kp, vp, kn, vn, table, lens, ks,
+                                         vs)])
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, atol=KERNEL_ATOL,
+                               rtol=KERNEL_RTOL)
+
+
+@pytest.mark.parametrize("w,g,want", [
+    (2, 1, (2, 16, 1, 4, 4)), (16, 1, (16, 16, 1, 4, 4)),
+    (3, 8, (24, 32, 2, 2, 4)), (5, 4, (20, 32, 2, 2, 4)),
+    (4, 8, (32, 32, 2, 2, 4)), (5, 8, (40, 48, 3, 1, 3)),
+    (8, 8, (64, 64, 4, 1, 4)), (9, 8, (72, 80, 5, 1, 5)),
+    (16, 4, (64, 64, 4, 1, 4)), (16, 8, (128, 128, 8, 1, 8))])
+def test_window_geometry(w, g, want):
+    """Rows, rows padded to 16-row tiles, tiles, position slices a tile
+    and warps, for (W, G) from (2, 1) to (16, 8), at phase paged's 32
+    slots x 4096 positions: one item a slot and chunk whatever the rows,
+    a partial of R rows a chunk and slice."""
+    geo = window_geometry(32, 8, g, w, 4096, sms=132)
+    assert (geo.rows, geo.rows_padded, geo.tiles, geo.slices,
+            geo.warps) == want
+    assert geo.items == 32 * 16 and geo.n_chunks == 16
+    assert geo.work == 32 * 8 * 16 * want[3] * w * g * (128 + 4)
+    assert geo.blocks == 33
 
 
 def test_split_geometry_of_the_verify_window():
-    """Phase paged's shapes with W = 5: 20 rows a KV head in 3 groups of
-    8, so 3 partials of 8 rows a chunk; a window of one is the decode's
-    geometry."""
-    geo = split_geometry(32, 8, 4, 4096, sms=132, window=5)
-    assert geo.work == 32 * 8 * 16 * 3 * 8 * 130
-    assert geo.blocks == 66
-    assert split_geometry(32, 8, 4, 4096, window=1) == \
-        split_geometry(32, 8, 4, 4096)
+    """Phase paged's shapes with W = 5: 20 rows a KV head in two 16-row
+    tiles (32 rows, 12 of them padding) on 4 warps, two a tile, one item
+    a slot and chunk, so each chunk's K/V is read once; 33 blocks a KV
+    head, two an SM; and the decodes' split is the decode's own, with no
+    window."""
+    geo = window_geometry(32, 8, 4, 5, 4096, sms=132)
+    assert geo == (20, 32, 2, 2, 4, 16, 512, 33,
+                   32 * 8 * 16 * 2 * 20 * 132)
+    assert window_geometry(2, 8, 4, 5, 4096).blocks == 32   # = the items
+    dec = split_geometry(32, 8, 4, 4096, sms=132)
+    assert dec.work == 32 * 8 * 16 * 4 * 130 and dec.blocks == 66
 
 
 # -- the model -----------------------------------------------------------------
