@@ -39,24 +39,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode step j's;
   5. the main path at full width and depth: new_engine_from_config with
      TPU_MODEL=llama3-8b (random weights from seed 0), 8 slots, 2048
-     positions, int8 KV, K=4, serving 6 concurrent requests; the launch
-     counters show both kernels on the path and the plain versions
-     unused; then one more request under torch.profiler gives the
-     device's busy share and the kernels that hold it;
+     positions, int8 KV, K=4, dispatch depth 2 (the default; each decode
+     block one replay of a CUDA graph captured at construction), serving
+     6 concurrent requests; the launch counters, which count replays,
+     show both kernels on the path (flash_decode 32 a decode step) and
+     the plain versions unused; then one more request under
+     torch.profiler gives the device's busy share, by kind of kernel;
+     then a replay of each captured graph against an eager call of the
+     same block function on a copy of the state, at the engine's shapes;
+     then the same requests on a TPU_DECODE_PIPELINE=1 engine: the
+     streams must be equal;
   5b. (phase ``paged``) the paged path at full width and depth: the
      same model with 32 slots, 4096 positions and a pool of 257 blocks
-     of 128 int8 tokens, serving 24 concurrent requests; the counters
-     show flash_prefill and paged_decode on the path and nothing else,
-     the pool is whole again afterwards, and the streams equal a
+     of 128 int8 tokens, at depth 2, serving 24 concurrent requests; the
+     counters show flash_prefill and paged_decode (32 a decode step,
+     through replays) on the path and nothing else, the pool is whole
+     again afterwards, a profiler window as phase 5's, the replays
+     against the eager block at these shapes, and the streams equal a
      contiguous engine's on the same weights and requests;
   5c. (phase ``spec``) speculative decoding on the paged path: the same
-     rows plus TPU_SPEC_DECODE=4, 24 greedy requests whose prompts X + S
-     + X (S: the spec-less engine's greedy continuation of X) let the
-     prompt-lookup drafts hit; the counters show a K3w launch per layer
-     and verify pass and a K3 launch per layer and decode step, the pool
-     is whole again, and the streams that differ from a spec-less paged
-     engine's are printed; then a contiguous spec engine serves a few
-     requests through verify_step;
+     rows plus TPU_SPEC_DECODE=4 (the pipeline pinned to depth 1), 24
+     greedy requests whose prompts X + S + X (S: the spec-less engine's
+     greedy continuation of X) let the prompt-lookup drafts hit; the
+     counters show a K3w launch per layer and verify pass and a K3
+     launch per layer and decode step, the pool is whole again, and the
+     streams that differ from a spec-less paged engine's are printed;
+     then a contiguous spec engine serves a few requests through
+     verify_step;
   6. a ``{"kernels": [...]}`` line, then the card line, then the
      ``{"ok": true, "device": {...}}`` line last.
 
@@ -79,6 +88,16 @@ paged_decode (int8) at 8 slots x 512 and at phase paged's first decode
 step (32 slots over its 257-block pool, its prompt lengths), and the
 verify window paged_window (int8, W = 5) at 8 slots x 512 and at phase
 paged's first-step lengths.
+
+    python3 chip_smoke.py --serve-ab TREE [TREE ...]
+
+times the serving runs of phases 5 (at the default depth and at
+TPU_DECODE_PIPELINE=1), paged and spec (the same rows and requests, each
+on a fresh engine warmed by one short request) in each tree, one process
+a tree in the order given, and prints one ``[ab]`` JSON line a run:
+tok/s, the step time, TTFT, the pipeline depth, overlapped reaps, the gap
+p50 and the graph replays (a tree that predates a number prints null for
+it). Name each tree at least three times, in turns.
 """
 
 from __future__ import annotations
@@ -865,31 +884,200 @@ def verify_arm(cfg, params, tokens, lengths, rope, smax: int, quant: bool,
 
 # -- phase 5: the main path ---------------------------------------------------
 
-def profile_decode(engine, prompt, card: str) -> None:
+def timed_blocks(gen) -> list:
+    """Wrap the engine's block dispatch with CUDA events around the
+    replay and its output copy: each block's device time, read without
+    the profiler. Returns the list the (start, end) pairs go into."""
+    import torch
+
+    run = gen._run_block
+    spans: list = []
+
+    def timed(draw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(draw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    gen._run_block = timed
+    return spans
+
+
+def kernel_kind(name: str) -> str:
+    """The profile's three kinds of device work: the port's attention
+    kernels, matrix products (cuBLAS/CUTLASS), and the rest, the
+    elementwise glue (norms, rope, casts, gathers, sampling)."""
+    low = name.lower()
+    if any(f"{k}_kernel" in low for k in ("flash_prefill", "decode_split",
+                                           "decode_combine", "window_split",
+                                           "window_combine")):
+        return "attention"
+    if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "sm90_",
+                              "cublas", "splitk", "nvjet")):
+        return "matmul"
+    return "glue"
+
+
+def profile_decode(engine, prompt, card: str, tag: str = "profile") -> dict:
     """One more request through the running engine (its first token from
     the prefill, then 4 blocks of K=4 decode steps) under torch.profiler:
-    the device's busy share of the wall time and the kernels that hold
-    it. Outside the counted run."""
+    the device's busy share of the wall time, by kind of kernel, and the
+    kernels that hold it; beside it the blocks' device time from CUDA
+    events. Outside the counted run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        toks = engine.generate(prompt, max_new_tokens=17).tokens()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.monotonic() - t0)
+    gen = engine.generator
+    run = gen._run_block
+    spans = timed_blocks(gen)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            toks = engine.generate(prompt, max_new_tokens=17).tokens()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.monotonic() - t0)
+    finally:
+        gen._run_block = run
     require(len(toks) == 17, f"profiled request gave {len(toks)} tokens")
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in rows)
-    print(f"[profile] 1 prefill ({len(prompt)} tokens) + 16 decode steps: "
-          f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}% busy, "
-          f"{100 - 100 * busy_ms / wall_ms:.1f}% idle); card: {card}",
+    block_ms = sum(a.elapsed_time(b) for a, b in spans)
+    steps = gen.decode_block * len(spans)
+    kinds: dict = {}
+    for name, ms, count in rows:
+        k = kinds.setdefault(kernel_kind(name), [0.0, 0])
+        k[0] += ms
+        k[1] += count
+    print(f"[{tag}] 1 prefill ({len(prompt)} tokens) + {steps} decode steps "
+          f"({len(spans)} blocks): wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% busy, "
+          f"{100 - 100 * busy_ms / wall_ms:.1f}% idle); the blocks' device "
+          f"time by CUDA events {block_ms:.2f} ms = "
+          f"{block_ms / max(1, steps):.3f} ms a step; card: {card}",
           flush=True)
-    for name, ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
-        print(f"[profile]   {ms:9.3f} ms  {count:6d} x  {name[:90]}")
+    for kind, (ms, count) in sorted(kinds.items(), key=lambda r: -r[1][0]):
+        print(f"[{tag}]   {kind:9s} {ms:9.3f} ms  {count:6d} launches "
+              f"({ms / max(1, steps):.3f} ms and {count / max(1, steps):.0f} "
+              f"launches a decode step)")
+    for name, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"[{tag}]   {ms:9.3f} ms  {count:6d} x  {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "block_ms": block_ms}
+
+
+MAIN_ROWS = {"TPU_MODEL": "llama3-8b", "TPU_SLOTS": "8",
+             "TPU_MAX_SEQ": "2048", "TPU_KV_DTYPE": "int8",
+             "TPU_DECODE_BLOCK": "4"}
+MAIN_SEED = 11
+MAIN_LENS = [17, 500, 123, 256, 64]
+MAIN_NEW_TOKENS = 32
+MAIN_SAMPLED = {3: 5}   # request index -> seed (temperature 0.8, top-k 50)
+# a replay against the eager block: the same kernels on the same inputs,
+# so tokens, emitted mask, cursors, cache bytes and carry are equal; the
+# logprobs may part by float32 rounding if a library kernel took another
+# algorithm under capture
+LOGPROB_ATOL = 1e-3
+
+
+def serve_line(stats: dict, streams, outs, wall: float) -> str:
+    """tok/s, TTFT, the step time and the pipeline's numbers of a
+    serving run."""
+    import numpy as np
+
+    ttft = [s.trace["first_put"] - s.trace["submit"] for s in streams]
+    total = sum(len(t) for t in outs)
+    pipe = stats["scheduler"]["pipeline"]
+    step = stats["decode_step_ms_mean"]
+    return (f"{total} tokens in {wall:.3f} s = {total / wall:.1f} tok/s; "
+            f"TTFT mean {1e3 * np.mean(ttft):.1f} ms max "
+            f"{1e3 * max(ttft):.1f} ms; decode step "
+            f"{'n/a' if step is None else f'{step:.2f}'} ms (host clock, "
+            f"K={stats['decode_block']}); depth {pipe['depth']} (target "
+            f"{pipe['target_depth']}), {pipe['reaps']} reaps, "
+            f"{pipe['overlapped_reaps']} overlapped, gap p50 "
+            f"{pipe['gap_p50_ms']} ms over {pipe['gap_samples']} samples; "
+            f"{stats['graph_replays']} graph replays, "
+            f"{stats['pack_uploads']} pack uploads")
+
+
+def replay_vs_eager(gen, lengths: list, seed: int, tag: str) -> None:
+    """At the engine's own shapes: a random int8 cache, cursors at
+    ``lengths``, every slot live under host_wins (sampling in the draw
+    graph; paged: a shuffled table over the pool), written into the
+    engine's tensors; replay the captured graph, then run
+    fused_decode_block eagerly on a copy of the state it started from.
+    Tokens, emitted mask, cursors, cache bytes and carry must be equal,
+    logprobs within LOGPROB_ATOL. On a closed engine (its graphs live
+    on); launches made here are not counted."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.tpu.generator import (EOS_MAX, PACK_EXTRA,
+                                              fused_decode_block)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    c = gen.cache
+    b = gen.n_slots
+    for draw in (False, True):
+        for t in (c.k, c.v):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device="cuda", dtype=torch.int8))
+        for t in (c.k_scale, c.v_scale):
+            t.copy_(torch.rand(t.shape, generator=g, device="cuda") * 0.02)
+        c.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+        p = gen._warm_pack()
+        p[:, 0] = rng.integers(0, gen.cfg.vocab_size, b)
+        p[:, 1] = 1
+        p[:, 2] = 1000
+        if draw:
+            temps = rng.choice([0.0, 0.8, 1.2], b).astype(np.float32)
+            p[:, 3] = temps.view(np.int32)
+            p[:, 4] = rng.choice([0, 50], b)
+        p[:, 7] = rng.integers(0, 2**31 - 1, b)
+        p[:, 8] = rng.integers(0, 100, b)
+        if gen._paged:
+            table, _ = shuffled_table([x + 16 for x in lengths], gen._block_t,
+                                      gen._mb, n=c.n_blocks)
+            p[:, PACK_EXTRA + EOS_MAX:] = table.cpu().numpy()
+        gen._pack.copy_(torch.from_numpy(p))
+        cache = dataclasses.replace(
+            c, k=c.k.clone(), v=c.v.clone(), lengths=c.lengths.clone(),
+            k_scale=c.k_scale.clone(), v_scale=c.v_scale.clone())
+        pack = gen._pack.clone()
+        carry = tuple(t.clone() for t in gen._carry)
+        graph, out, _ = gen._graphs[draw]
+        graph.replay()
+        got = out.clone()
+        with torch.no_grad():
+            want = fused_decode_block(
+                gen.params, gen.cfg, cache, pack, carry, gen.rope_tables,
+                steps=gen.decode_block, capacity=gen.max_seq - 2, draw=draw)
+        torch.cuda.synchronize()
+        lp = (got[:, 1] - want[:, 1]).abs().max().item()
+        same = {"tokens": torch.equal(got[:, 0], want[:, 0]),
+                "emitted": torch.equal(got[:, 2], want[:, 2]),
+                "all emitted": bool(got[:, 2].all()),
+                "lengths": torch.equal(c.lengths, cache.lengths),
+                "cache bytes": all(torch.equal(x, y) for x, y in (
+                    (c.k, cache.k), (c.v, cache.v), (c.k_scale, cache.k_scale),
+                    (c.v_scale, cache.v_scale))),
+                "carry": all(torch.equal(x, y)
+                             for x, y in zip(gen._carry, carry))}
+        ok = all(same.values()) and lp <= LOGPROB_ATOL
+        print(f"[{tag}] graph replay vs eager fused_decode_block "
+              f"(draw={draw}, {b} slots, lengths {lengths}): {same}, max "
+              f"|logprob diff| {lp:.3e} (atol {LOGPROB_ATOL}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        require(ok, f"{tag}: a graph replay differs from the eager block "
+                    f"(draw={draw}): {same}, logprob diff {lp}")
 
 
 def phase_main_path(card: str) -> dict:
@@ -900,52 +1088,43 @@ def phase_main_path(card: str) -> dict:
     from gofr_tpu_torch.ops import flash, flash_decode
     from gofr_tpu_torch.tpu import new_engine_from_config
 
-    cfg = MapConfig({"TPU_MODEL": "llama3-8b", "TPU_SLOTS": "8",
-                     "TPU_MAX_SEQ": "2048", "TPU_KV_DTYPE": "int8",
-                     "TPU_DECODE_BLOCK": "4"})
     t0 = time.monotonic()
-    engine = new_engine_from_config(cfg, device="cuda")
+    engine = new_engine_from_config(MapConfig(MAIN_ROWS), device="cuda")
+    gen = engine.generator
     torch.cuda.synchronize()
-    print(f"[main] llama3-8b engine ready in {time.monotonic() - t0:.1f} s, "
+    print(f"[main] llama3-8b engine ready (kernels built, decode graphs "
+          f"captured) in {time.monotonic() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
           flush=True)
-    rng = np.random.default_rng(11)
-    vocab = engine.generator.cfg.vocab_size
-    lens = [17, 500, 123, 256, 64]
-    prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
+    vocab = gen.cfg.vocab_size
+    rng = np.random.default_rng(MAIN_SEED)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in MAIN_LENS]
     prompts.append(list(prompts[0]))         # a repeated greedy prompt
-    new_tokens = 32
+    new_tokens = MAIN_NEW_TOKENS
     try:
         # warm the process (cuBLAS handles, first launches) outside the
         # counted run
         warm = engine.generate(prompts[2], max_new_tokens=4).tokens()
         require(len(warm) == 4, f"warm-up gave {len(warm)} tokens")
-        gen = engine.generator
-        adm0, steps0 = gen.admissions, gen.decode_steps
+        adm0, steps0, replays0 = (gen.admissions, gen.decode_steps,
+                                  gen.graph_replays)
         flash.reset_counts()
         flash_decode.reset_counts()
-        t_start = time.monotonic()
-        streams = []
-        for i, p in enumerate(prompts):
-            sampled = i == 3
-            streams.append(engine.generate(
-                p, max_new_tokens=new_tokens,
-                temperature=0.8 if sampled else 0.0,
-                top_k=50 if sampled else 0, seed=5 if sampled else None))
-        outs = [s.tokens() for s in streams]
-        wall = time.monotonic() - t_start
+        outs, streams, wall = _serve(engine, prompts, MAIN_SAMPLED,
+                                     new_tokens)
         counts = {"flash_prefill": flash.launches,
                   "flash_decode": flash_decode.launches,
                   "prefill_plain": flash.plain_calls,
                   "decode_plain": flash_decode.plain_calls}
         admissions = gen.admissions - adm0
         steps = gen.decode_steps - steps0
+        replays = gen.graph_replays - replays0
         stats = gen.stats()
         health = engine.health_check()
         profile_decode(engine, prompts[4], card)
     finally:
         engine.close()
-    require(not engine.generator._thread.is_alive(),
+    require(not gen._thread.is_alive(),
             "the generation thread outlived close()")
     for i, toks in enumerate(outs):
         require(len(toks) == new_tokens,
@@ -962,17 +1141,38 @@ def phase_main_path(card: str) -> dict:
     require(counts["flash_decode"] == LAYERS * steps,
             f"flash_decode launched {counts['flash_decode']} times for "
             f"{steps} decode steps of {LAYERS} layers")
+    require(replays > 0 and replays * gen.decode_block == steps,
+            f"{replays} graph replays for {steps} decode steps")
     require(counts["prefill_plain"] == 0 and counts["decode_plain"] == 0,
             f"plain versions ran on the main path: {counts}")
-    ttft = [s.trace["first_put"] - s.trace["submit"] for s in streams]
-    total = sum(len(t) for t in outs)
-    print(f"[main] {len(prompts)} requests, prompts {lens + [lens[0]]}, "
-          f"{new_tokens} new tokens each: {total} tokens in {wall:.3f} s = "
-          f"{total / wall:.1f} tok/s; TTFT mean {1e3 * np.mean(ttft):.1f} ms "
-          f"max {1e3 * max(ttft):.1f} ms; decode step "
-          f"{stats['decode_step_ms_mean']:.2f} ms (host clock, K=4 blocks); "
-          f"{admissions} admissions, {steps} decode steps; launches "
+    require(stats["scheduler"]["pipeline"]["depth"] == 2,
+            f"phase 5 serves at depth {stats['scheduler']['pipeline']}")
+    print(f"[main] {len(prompts)} requests, prompts "
+          f"{MAIN_LENS + [MAIN_LENS[0]]}, {new_tokens} new tokens each: "
+          f"{serve_line(stats, streams, outs, wall)}; {admissions} "
+          f"admissions, {steps} decode steps in {replays} replays; launches "
           f"{counts}; card: {card}", flush=True)
+    replay_vs_eager(gen, MAIN_LENS + [17, 1000, 2000], 101, "main")
+
+    # the same requests at dispatch depth 1, on the same weights (seed 0)
+    t0 = time.monotonic()
+    d1 = new_engine_from_config(
+        MapConfig(dict(MAIN_ROWS, TPU_DECODE_PIPELINE="1")), device="cuda")
+    try:
+        d1.generate(prompts[2], max_new_tokens=4).tokens()
+        outs1, streams1, wall1 = _serve(d1, prompts, MAIN_SAMPLED,
+                                        new_tokens)
+        stats1 = d1.generator.stats()
+    finally:
+        d1.close()
+    differ = [i for i in range(len(prompts)) if outs1[i] != outs[i]]
+    print(f"[main] TPU_DECODE_PIPELINE=1 (engine ready in "
+          f"{time.monotonic() - t0 - wall1:.1f} s, serving included): "
+          f"{serve_line(stats1, streams1, outs1, wall1)}; streams that "
+          f"differ from depth 2's: {differ}", flush=True)
+    require(stats1["scheduler"]["pipeline"]["depth"] == 1,
+            f"TPU_DECODE_PIPELINE=1 served at {stats1['scheduler']}")
+    require(not differ, f"depth-1 streams differ from depth 2's: {differ}")
     return counts
 
 
@@ -1017,8 +1217,8 @@ def phase_paged(card: str) -> dict:
     engine = new_engine_from_config(MapConfig(PAGED_ROWS), device="cuda")
     gen = engine.generator
     torch.cuda.synchronize()
-    print(f"[paged] llama3-8b paged engine ready in "
-          f"{time.monotonic() - t0:.1f} s: {PAGED_ROWS}; "
+    print(f"[paged] llama3-8b paged engine ready (decode graphs captured) "
+          f"in {time.monotonic() - t0:.1f} s: {PAGED_ROWS}; "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
           flush=True)
     rng = np.random.default_rng(PAGED_SEED)
@@ -1030,7 +1230,8 @@ def phase_paged(card: str) -> dict:
     try:
         warm = engine.generate(prompts[0][:32], max_new_tokens=4).tokens()
         require(len(warm) == 4, f"warm-up gave {len(warm)} tokens")
-        adm0, steps0 = gen.admissions, gen.decode_steps
+        adm0, steps0, replays0 = (gen.admissions, gen.decode_steps,
+                                  gen.graph_replays)
         for mod in (flash, flash_decode, paged_attention):
             mod.reset_counts()
         outs, streams, wall = _serve(engine, prompts, sampled, new_tokens)
@@ -1042,8 +1243,10 @@ def phase_paged(card: str) -> dict:
                   "paged_plain": paged_attention.plain_calls}
         admissions = gen.admissions - adm0
         steps = gen.decode_steps - steps0
+        replays = gen.graph_replays - replays0
         stats = gen.stats()
         health = engine.health_check()
+        profile_decode(engine, prompts[4], card, "paged-profile")
     finally:
         engine.close()
     require(not gen._thread.is_alive(), "the generation thread outlived "
@@ -1063,23 +1266,24 @@ def phase_paged(card: str) -> dict:
     require(counts["paged_decode"] == LAYERS * steps,
             f"paged_decode launched {counts['paged_decode']} times for "
             f"{steps} decode steps of {LAYERS} layers")
+    require(replays > 0 and replays * gen.decode_block == steps,
+            f"{replays} graph replays for {steps} decode steps")
     others = {k: counts[k] for k in ("flash_decode", "prefill_plain",
                                      "decode_plain", "paged_plain")}
     require(not any(others.values()),
             f"other attention paths ran on the paged path: {others}")
+    require(stats["scheduler"]["pipeline"]["depth"] == 2,
+            f"phase paged serves at depth {stats['scheduler']['pipeline']}")
     paged = stats["paged"]
     require(paged["evictions"] == 0, f"paged evictions: {paged}")
     require(paged["free"] == 256, f"pool not whole after retiring: {paged}")
-    ttft = [s.trace["first_put"] - s.trace["submit"] for s in streams]
-    total = sum(len(x) for x in outs)
     print(f"[paged] {len(prompts)} requests, prompts {lens}, {new_tokens} "
-          f"new tokens each ({len(sampled)} sampled): {total} tokens in "
-          f"{wall:.3f} s = {total / wall:.1f} tok/s; TTFT mean "
-          f"{1e3 * np.mean(ttft):.1f} ms max {1e3 * max(ttft):.1f} ms; "
-          f"decode step {stats['decode_step_ms_mean']:.2f} ms (host clock, "
-          f"K=4 blocks, 32 slots); {admissions} admissions, {steps} decode "
-          f"steps; launches {counts}; pool {paged}; card: {card}",
-          flush=True)
+          f"new tokens each ({len(sampled)} sampled): "
+          f"{serve_line(stats, streams, outs, wall)}; {admissions} "
+          f"admissions, {steps} decode steps in {replays} replays; launches "
+          f"{counts}; pool {paged}; card: {card}", flush=True)
+    # phase paged's first-step lengths and 8 empty slots
+    replay_vs_eager(gen, lens + [0] * 8, 102, "paged")
 
     # the same requests through a contiguous engine on the same weights:
     # each row is computed on its own, so the streams must be equal
@@ -1150,8 +1354,9 @@ def phase_spec(card: str) -> dict:
         prompts = [x + c + x for x, c in zip(xs, conts)]
         warm = engine.generate(prompts[0][:32], max_new_tokens=4).tokens()
         require(len(warm) == 4, f"warm-up gave {len(warm)} tokens")
-        adm0, steps0, passes0 = (gen.admissions, gen.decode_steps,
-                                 gen.verify_passes)
+        adm0, steps0, passes0, replays0 = (gen.admissions, gen.decode_steps,
+                                           gen.verify_passes,
+                                           gen.graph_replays)
         spec0 = dict(gen.stats()["spec_decode"])
         for mod in (flash, flash_decode, paged_attention):
             mod.reset_counts()
@@ -1167,6 +1372,7 @@ def phase_spec(card: str) -> dict:
         admissions = gen.admissions - adm0
         steps = gen.decode_steps - steps0
         passes = gen.verify_passes - passes0
+        replays = gen.graph_replays - replays0
         stats = gen.stats()
         health = engine.health_check()
         want, _, ref_wall = _serve(ref, prompts, {}, new_tokens)
@@ -1198,6 +1404,12 @@ def phase_spec(card: str) -> dict:
     require(counts["paged_decode"] == LAYERS * steps,
             f"paged_decode launched {counts['paged_decode']} times for "
             f"{steps} decode steps of {LAYERS} layers")
+    require(replays * gen.decode_block == steps,
+            f"{replays} graph replays for {steps} decode steps")
+    pipe = stats["scheduler"]["pipeline"]
+    require(pipe["depth"] == 2 and pipe["target_depth"] == 1
+            and pipe["overlapped_reaps"] == 0,
+            f"a spec engine must run at depth 1: {pipe}")
     others = {k: counts[k] for k in ("flash_decode", "prefill_plain",
                                      "decode_plain", "paged_plain",
                                      "window_plain")}
@@ -1207,17 +1419,15 @@ def phase_spec(card: str) -> dict:
     require(paged["evictions"] == 0, f"paged evictions: {paged}")
     require(paged["free"] == n_blocks - 1,
             f"pool not whole after retiring: {paged}")
-    ttft = [s.trace["first_put"] - s.trace["submit"] for s in streams]
     total = sum(len(x) for x in outs)
     differ = {i: _first_difference(outs[i], want[i])
               for i in range(len(prompts)) if outs[i] != want[i]}
     print(f"[spec] {len(prompts)} greedy requests, prompts X + S + X of "
           f"{[len(p) for p in prompts]} tokens, {new_tokens} new tokens "
-          f"each: {total} tokens in {wall:.3f} s = {total / wall:.1f} tok/s; "
-          f"TTFT mean {1e3 * np.mean(ttft):.1f} ms max "
-          f"{1e3 * max(ttft):.1f} ms; {passes} verify passes "
-          f"({spec['verify_ms_mean']:.2f} ms mean, host clock), {steps} "
-          f"decode steps; {windows} slot-windows emitted {emitted} tokens = "
+          f"each: {serve_line(stats, streams, outs, wall)}; {passes} verify "
+          f"passes ({spec['verify_ms_mean']:.2f} ms mean, host clock), "
+          f"{steps} decode steps in {replays} replays; {windows} "
+          f"slot-windows emitted {emitted} tokens = "
           f"{emitted / windows:.3f} a window; launches {counts}; pool "
           f"{paged}; card: {card}", flush=True)
     print(f"[spec] the spec-less paged engine on the same weights and "
@@ -1357,11 +1567,88 @@ for case, args, kw in (
 """
 
 
+# one arm of --serve-ab: the serving runs of phases 5 (at the default
+# depth, then with TPU_DECODE_PIPELINE=1), paged and spec, each on a fresh
+# engine from new_engine_from_config (random weights from seed 0), warmed
+# by one short request, then its requests timed; one JSON line a run. It
+# uses only what every version of this script has had and the engine's
+# public surface, so a parent tree runs it too
+SERVE_AB_ARM = """
+import json, numpy as np, torch, chip_smoke as c
+from gofr_tpu_torch.config import MapConfig
+from gofr_tpu_torch.tpu import GenerationEngine, new_engine_from_config
+card = c.card_line()
+print("[card]", card, flush=True)
+c.phase_build()
+
+
+def report(phase, eng, prompts, sampled, new_tokens):
+    gen = eng.generator
+    eng.generate(prompts[0][:32], max_new_tokens=4).tokens()
+    outs, streams, wall = c._serve(eng, prompts, sampled, new_tokens)
+    st = gen.stats()
+    ttft = [s.trace["first_put"] - s.trace["submit"] for s in streams]
+    pipe = st.get("scheduler", {}).get("pipeline", {})
+    total = sum(len(x) for x in outs)
+    print("[ab] " + json.dumps({
+        "phase": phase, "tok_s": total / wall, "wall_s": wall,
+        "step_ms": st["decode_step_ms_mean"],
+        "ttft_mean_ms": 1e3 * float(np.mean(ttft)),
+        "ttft_max_ms": 1e3 * max(ttft), "depth": pipe.get("depth", 1),
+        "overlapped_reaps": pipe.get("overlapped_reaps"),
+        "gap_p50_ms": pipe.get("gap_p50_ms"),
+        "graph_replays": st.get("graph_replays"), "card": card}), flush=True)
+
+
+rows5 = {"TPU_MODEL": "llama3-8b", "TPU_SLOTS": "8", "TPU_MAX_SEQ": "2048",
+         "TPU_KV_DTYPE": "int8", "TPU_DECODE_BLOCK": "4"}
+for phase, rows in (("main", rows5),
+                    ("main-depth1", dict(rows5, TPU_DECODE_PIPELINE="1"))):
+    eng = new_engine_from_config(MapConfig(rows), device="cuda")
+    vocab = eng.generator.cfg.vocab_size
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, vocab, n).tolist()
+               for n in (17, 500, 123, 256, 64)]
+    try:
+        report(phase, eng, prompts + [list(prompts[0])], {3: 5}, 32)
+    finally:
+        eng.close()
+    del eng
+    torch.cuda.empty_cache()
+eng = new_engine_from_config(MapConfig(c.PAGED_ROWS), device="cuda")
+rng = np.random.default_rng(c.PAGED_SEED)
+lens = c.paged_prompt_lengths(rng)
+try:
+    report("paged", eng, [rng.integers(0, vocab, n).tolist() for n in lens],
+           {5: 101, 17: 202}, c.PAGED_NEW_TOKENS)
+finally:
+    eng.close()
+del eng
+torch.cuda.empty_cache()
+eng = new_engine_from_config(MapConfig(c.SPEC_ROWS), device="cuda")
+gen = eng.generator
+ref = GenerationEngine(gen.cfg, gen.params, slots=gen.n_slots,
+                       max_seq=gen.max_seq, kv_dtype=torch.int8,
+                       decode_block=gen.decode_block, paged_blocks=257,
+                       paged_block_size=128, device="cuda")
+rng = np.random.default_rng(c.SPEC_SEED)
+xs = [rng.integers(0, vocab, n).tolist()
+      for n in rng.integers(c.SPEC_X[0], c.SPEC_X[1] + 1, c.SPEC_REQUESTS)]
+try:
+    conts, _, _ = c._serve(ref, xs, {}, c.SPEC_CONTINUATION)
+    report("spec", eng, [x + s + x for x, s in zip(xs, conts)], {},
+           c.PAGED_NEW_TOKENS)
+finally:
+    eng.close()
+    ref.close()
+"""
+
+
 def tree_ab(arm: str, trees: list[str]) -> int:
     for tree in trees:
         print(f"[ab] {tree}", flush=True)
         subprocess.run([sys.executable, "-c", arm], cwd=tree, check=True,
-                       timeout=600)
+                       timeout=900)
     return 0
 
 
@@ -1376,7 +1663,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    arms = {"--prefill-ab": AB_ARM, "--decode-ab": DECODE_AB_ARM}
+    arms = {"--prefill-ab": AB_ARM, "--decode-ab": DECODE_AB_ARM,
+            "--serve-ab": SERVE_AB_ARM}
     if len(sys.argv) > 2 and sys.argv[1] in arms:
         return tree_ab(arms[sys.argv[1]], sys.argv[2:])
     t0 = time.monotonic()

@@ -1,7 +1,8 @@
 """Configuration: ``.env`` file + process environment (the port's own
 copy of the part of gofr_tpu/config.py's reader that
 ``new_engine_from_config`` uses). ``get`` returns the raw string;
-``get_int`` falls back to its default on a missing or malformed value."""
+``get_int`` and ``get_float`` fall back to their default on a missing or
+malformed value."""
 
 from __future__ import annotations
 
@@ -21,6 +22,15 @@ class _TypedMixin:
             return default
         try:
             return int(v)
+        except ValueError:
+            return default
+
+    def get_float(self, key: str, default: float) -> float:
+        v = self.get(key)
+        if v in (None, ""):
+            return default
+        try:
+            return float(v)
         except ValueError:
             return default
 

@@ -14,6 +14,10 @@ Rows read:
   TPU_SLOTS         decode batch slots (default 48)
   TPU_MAX_SEQ       serving KV capacity (default min(model max, 2048))
   TPU_DECODE_BLOCK  decode steps fused per dispatch (default 4)
+  TPU_DECODE_PIPELINE  decode blocks in flight on the device at once
+                    (default 2, as in JAX; a spec engine runs 1)
+  TPU_ADMIT_WINDOW_MS  how often (ms) the loop looks for arrivals to
+                    admit while a block runs (default 2.0)
   TPU_PAGED_BLOCKS  > 0 serves from a paged pool of that many KV blocks
                     shared by all slots (block 0 is the reserved trash
                     block, so size it as live tokens // block + 1);
@@ -47,7 +51,7 @@ __all__ = ["GenerationEngine", "GenerationError", "GenStream", "Health",
 
 # rows of the JAX package that name features outside this slice
 UNPORTED_ROWS = (
-    "TPU_ADMIT_WINDOW_MS", "TPU_PREFILL_CHUNK", "TPU_SLO_THROUGHPUT_FACTOR",
+    "TPU_PREFILL_CHUNK", "TPU_SLO_THROUGHPUT_FACTOR",
     "TPU_SLO_THROUGHPUT_SHARE", "TPU_SLO_LATENCY_SLOTS",
     "TPU_SLO_BATCH_SHARE", "TPU_SLO_BATCH_DELAY", "TPU_PREFIX_CACHE",
     "TPU_PREFIX_MIN", "TPU_KVCACHE_BLOCK", "TPU_KVCACHE_HOST_MB",
@@ -69,9 +73,6 @@ def _check_rows(cfg) -> None:
         return (cfg.get(row) or "").strip() != ""
 
     rejected = [row for row in UNPORTED_ROWS if is_set(row)]
-    if is_set("TPU_DECODE_PIPELINE") and \
-            cfg.get("TPU_DECODE_PIPELINE").strip() != "1":
-        rejected.append("TPU_DECODE_PIPELINE")
     if is_set("TPU_SERVING_ROLE") and \
             cfg.get("TPU_SERVING_ROLE").strip().lower() != "fused":
         rejected.append("TPU_SERVING_ROLE")
@@ -108,6 +109,8 @@ def new_engine_from_config(cfg, device="cuda", logger=None) -> TorchEngine:
         logger=logger,
         kv_dtype=torch.int8 if kv_choice == "int8" else None,
         decode_block=cfg.get_int("TPU_DECODE_BLOCK", 4),
+        decode_pipeline=cfg.get_int("TPU_DECODE_PIPELINE", 2),
+        admit_window_ms=cfg.get_float("TPU_ADMIT_WINDOW_MS", 2.0),
         paged_blocks=cfg.get_int("TPU_PAGED_BLOCKS", 0),
         paged_block_size=cfg.get_int("TPU_PAGED_BLOCK", 128),
         spec_decode_k=cfg.get_int("TPU_SPEC_DECODE", 0), device=device)

@@ -9,21 +9,30 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
     block table: the host allocates each admission's prompt blocks,
     grows every active slot's blocks before each decode block, and a
     slot the pool cannot grow is truncated and counted, never
-    corrupted. Pool pressure plays out as in the JAX engine at
-    dispatch depth 1.
+    corrupted. Pool pressure plays out as in the JAX engine.
   - Admission prefills ONE prompt at its exact length (eager PyTorch has
     no compile keys, so there are no prompt buckets and no chunking up to
     ``max_seq - 1`` tokens), writes its KV into the slot and samples the
     first token, so TTFT is one prefill.
   - Decode runs K = ``decode_block`` steps per dispatch over all slots
-    with the sampled token fed back on the device and per-slot stop masks
-    (EOS set, budget, capacity) evaluated on the device; the host uploads
-    one [B, W] state pack and reads the [K, B] tokens once per block.
-    Dispatch depth is 1 (the block is reaped before the next starts).
+    (``fused_decode_block``, the port of the JAX engine's fused scan)
+    with the sampled token fed back on the device and per-slot stop
+    masks (EOS set, budget, capacity) evaluated on the device. Last
+    token, active, budget and position ride a device carry from block
+    to block; the host's one [B, W] dispatch pack is uploaded only when
+    a mutation marked it dirty, and per slot its ``host_wins`` column
+    picks the pack's values over the carry's (after an admission, a
+    retirement or a verify pass). On the card the block is one CUDA
+    graph replay, captured at construction (the port of ``_step_jit``);
+    the CPU runs the same function eagerly.
+  - Up to ``decode_pipeline`` blocks (default 2, as in JAX) are in
+    flight on the device stream: the host reaps block N, delivers its
+    tokens and admits arrivals while block N+1 runs
+    (``resilience.DecodePipelinePolicy``; a spec engine runs depth 1).
   - Sampling (greedy, temperature, top-k) is keyed on each request's
     (seed, absolute position) as ``fold_in(PRNGKey(seed), pos)`` with
     JAX's threefry (tpu.prng), so a stream is a pure function of its
-    seed and draws JAX's random bits.
+    seed and draws JAX's random bits, at any depth.
   - With ``spec_decode_k`` = k, prompt-lookup speculative decoding: a
     tick whose active slots are all greedy and clear of capacity, and
     at least half of which find a draft (the k tokens that followed the
@@ -40,12 +49,15 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
 
 Consumers call ``generate()`` from any thread and read tokens off a
 stream; one background thread, ``gofr-torch-gen``, owns the device loop.
-Features outside the slice (prefix cache, LoRA, a depth-2 pipeline,
-the kv-cache tiers, meshes) raise when asked for.
+A failed step takes the engine down for good (every stream and waiter
+fails). Features outside the slice (prefix cache, LoRA, the kv-cache
+tiers, meshes) raise when asked for.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import itertools
 import queue
 import threading
@@ -58,7 +70,8 @@ import torch
 from ..device import resolve_device
 from ..models import llama, paged_llama
 from ..models.common import ModelConfig
-from ..ops import kernels
+from ..ops import flash, flash_decode, kernels, paged_attention
+from ..resilience import DecodePipelinePolicy
 from ..wire import PushStream
 from . import prng
 
@@ -72,6 +85,35 @@ class GenerationError(RuntimeError):
 # top-k truncation width: ranks past a request's k are masked within this
 # fixed top set (larger k saturates to it)
 TOP_K_MAX = 64
+
+# on-device EOS stop-set width: requests with more stop ids keep the host
+# check as their only stop for the extra ids
+EOS_MAX = 8
+
+# dispatch-pack columns, the JAX engine's layout (_dispatch_pack and
+# fused_decode_block agree): 0 last token, 1 active, 2 budget, 3 temp
+# (float32 bits), 4 top_k, 5 adapter (0: LoRA is not ported), 6 host_wins,
+# 7 seed, 8 position of the next sample (the host's value, read only
+# under host_wins), 9.. the EOS set, then (paged) the block-table row
+PACK_EXTRA = 9
+
+# the kernel wrappers' counters: a graph replay runs no Python, so the
+# engine adds what each graph's capture counted at every replay
+_COUNTERS = ((flash, "launches"), (flash, "plain_calls"),
+             (flash_decode, "launches"), (flash_decode, "plain_calls"),
+             (paged_attention, "launches"), (paged_attention, "plain_calls"),
+             (paged_attention, "window_launches"),
+             (paged_attention, "window_plain_calls"))
+
+
+def _counts() -> list[int]:
+    return [getattr(mod, name) for mod, name in _COUNTERS]
+
+
+def _add_counts(deltas: list[int]) -> None:
+    for (mod, name), d in zip(_COUNTERS, deltas):
+        if d:
+            setattr(mod, name, getattr(mod, name) + d)
 
 
 def sample(logits: torch.Tensor, temps: torch.Tensor, seeds: torch.Tensor,
@@ -102,6 +144,77 @@ def sample(logits: torch.Tensor, temps: torch.Tensor, seeds: torch.Tensor,
         tok = torch.where(temps > 0, sampled, greedy)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return tok, torch.gather(logp, 1, tok[:, None])[:, 0]
+
+
+def fused_decode_block(params: dict, cfg: ModelConfig, cache, pack, carry,
+                       rope_tables, *, steps: int, capacity: int,
+                       draw: bool) -> torch.Tensor:
+    """``steps`` fused decode steps over all slots (the JAX engine's
+    ``_fused_decode_scan``): each step feeds its sampled tokens to the
+    next on the device; a slot whose token is in its EOS set, whose
+    budget is spent or whose cursor reached ``capacity`` deactivates
+    there, and inactive cursors stay frozen.
+
+    ``cache``: a ``llama.KVCache`` or (paged) ``paged_llama.
+    PagedKVCache``. ``pack`` [B, W] int64: the dispatch pack (PACK_EXTRA
+    columns, the EOS_MAX-wide EOS set, then for a paged cache the
+    block-table row). ``carry``: (last token, active, budget, position)
+    [B] each, the slot state the previous block left on the device; per
+    slot, the pack's ``host_wins`` column picks the pack's values or the
+    carry's. Position rides the carry because the host, packing block
+    N+1, cannot know how many tokens block N emitted.
+
+    Updates the cache (KV rows and ``lengths``) and the carry IN PLACE
+    and returns [steps, 3, B] float64: each step's tokens, their
+    logprobs and the emitted mask. Tensors in, tensors out, no host
+    read: the engine captures it into a CUDA graph on the card, and the
+    CPU (or a check of a replay) runs it eagerly."""
+    host_wins = pack[:, 6].bool()
+    tokens = torch.where(host_wins, pack[:, 0], carry[0])
+    active = torch.where(host_wins, pack[:, 1].bool(), carry[1])
+    budget = torch.where(host_wins, pack[:, 2], carry[2])
+    pos = torch.where(host_wins, pack[:, 8], carry[3])
+    temps = pack[:, 3].to(torch.int32).view(torch.float32)
+    top_ks = pack[:, 4]
+    seeds = pack[:, 7]
+    eos_ids = pack[:, PACK_EXTRA:PACK_EXTRA + EOS_MAX]
+    # the model steps rebind their cache's cursor tensor: they run on a
+    # shallow copy, and the last cursors are copied into the cache's own
+    # tensor, the one a captured graph reads and writes
+    work = dataclasses.replace(cache)
+    if isinstance(cache, paged_llama.PagedKVCache):
+        # constant through the block: the host has allocated blocks
+        # covering ``steps`` positions per slot
+        table = pack[:, PACK_EXTRA + EOS_MAX:].to(torch.int32)
+
+        def step(toks):
+            return paged_llama.paged_decode_step(params, cfg, toks, work,
+                                                 table, rope_tables)
+    else:
+        def step(toks):
+            return llama.decode_step(params, cfg, toks, work, rope_tables,
+                                     flash=True)
+    rows = []
+    for _ in range(steps):
+        before = work.lengths
+        logits, _ = step(tokens)
+        lengths = torch.where(active, work.lengths, before)
+        work.lengths = lengths
+        toks, lps = sample(logits, temps, seeds, pos, top_ks, draw)
+        toks = torch.where(active, toks, tokens)
+        emitted = active
+        budget = torch.where(active, budget - 1, budget)
+        # position advances only where a token was emitted
+        pos = pos + emitted.long()
+        stop = active & llama.decode_stop_mask(toks, lengths, budget,
+                                               eos_ids, capacity)
+        rows.append(torch.stack([toks.double(), lps.double(),
+                                 emitted.double()]))
+        tokens, active = toks, active & ~stop
+    cache.lengths.copy_(work.lengths)
+    for dst, src in zip(carry, (tokens, active, budget, pos)):
+        dst.copy_(src)
+    return torch.stack(rows)
 
 
 def verify_epilogue(logits: torch.Tensor, window: torch.Tensor,
@@ -163,6 +276,26 @@ class _Request:
         return self.stream.logprobs
 
 
+class _Inflight:
+    """A dispatched-but-unreaped tick. ``done``: the CUDA event recorded
+    after the dispatch's results were queued for the host (None when the
+    work finished at dispatch, as on the CPU), the readiness probe;
+    ``reap(overlapped)``: fetch the results and deliver tokens, under
+    the engine's device lock (``overlapped``: a block is still queued
+    behind this one); ``ready_t``: when the loop saw the results ready,
+    the instant the device stream ran dry unless another block was
+    queued behind this one."""
+    __slots__ = ("done", "reap", "ready_t")
+
+    def __init__(self, done, reap):
+        self.done = done
+        self.reap = reap
+        self.ready_t: float | None = None
+
+    def ready(self) -> bool:
+        return self.done is None or self.done.query()
+
+
 class _Slot:
     __slots__ = ("request", "remaining", "generated")
 
@@ -177,33 +310,22 @@ class _Slot:
 
 
 class GenerationEngine:
-    # on-device EOS stop-set width: requests with more stop ids keep the
-    # host check as their only stop for the extra ids
-    EOS_MAX = 8
-
-    # dispatch-pack columns (_dispatch_pack / _decode_block agree):
-    # 0 last token, 1 active, 2 budget, 3 temp (float32 bits), 4 top_k,
-    # 5 seed, 6 position of the next sample, 7.. EOS set, then (paged)
-    # the block-table row
-    _PACK_EXTRA = 7
-
     def __init__(self, cfg: ModelConfig, params: dict, *, slots: int = 8,
                  max_seq: int | None = None, logger=None, seed: int = 0,
                  kv_dtype: torch.dtype | None = None, decode_block: int = 4,
-                 decode_pipeline: int = 1, device="cuda",
-                 prefix_cache_slots: int = 0, spec_decode_k: int = 0,
-                 lora_adapters: int = 0, paged_blocks: int = 0,
-                 paged_block_size: int = 128, kvcache=None, mesh=None):
+                 decode_pipeline: int = 2, admit_window_ms: float = 2.0,
+                 device="cuda", prefix_cache_slots: int = 0,
+                 spec_decode_k: int = 0, lora_adapters: int = 0,
+                 paged_blocks: int = 0, paged_block_size: int = 128,
+                 kvcache=None, mesh=None):
         unported = {"prefix_cache_slots": prefix_cache_slots != 0,
                     "lora_adapters": lora_adapters != 0,
-                    "decode_pipeline": decode_pipeline != 1,
                     "kvcache": kvcache is not None,
                     "mesh": mesh is not None}
         asked = [name for name, on in unported.items() if on]
         if asked:
             raise ValueError(f"not ported to gofr_tpu_torch yet: {asked} "
-                             "(the port serves contiguous or paged slots "
-                             "at dispatch depth 1)")
+                             "(the port serves contiguous or paged slots)")
         if cfg.n_experts > 0:
             raise ValueError("the port serves dense Llama models; MoE is "
                              "not ported yet")
@@ -263,8 +385,22 @@ class GenerationEngine:
         self._top_ks = np.zeros((slots,), np.int64)
         self._slot_seed = np.zeros((slots,), np.int64)
         self._pos_abs = np.zeros((slots,), np.int64)
-        self._eos_mat = np.full((slots, self.EOS_MAX), llama.EOS_PAD,
-                                np.int64)
+        self._eos_mat = np.full((slots, EOS_MAX), llama.EOS_PAD, np.int64)
+        # per slot: the next decode dispatch takes the pack's slot state
+        # over the device carry's (set at admission, retirement and after
+        # a verify pass, cleared by a decode dispatch)
+        self._host_wins = np.ones((slots,), bool)
+
+        # The decode dispatch's device inputs, allocated once (a captured
+        # graph reads these very tensors): the pack, rewritten only when
+        # a mutation site marked it dirty (_touch), and the slot-state
+        # carry each block leaves for the next
+        width = PACK_EXTRA + EOS_MAX + (self._mb if self._paged else 0)
+        self._pack = torch.zeros((slots, width), dtype=torch.long,
+                                 device=self.device)
+        self._pack_dirty = True
+        self.pack_uploads = 0
+        self._carry = self._host_carry()
 
         # Prompt-lookup speculative decoding (greedy slots only): each
         # slot's token history in a preallocated buffer, so _draft reads
@@ -275,6 +411,25 @@ class GenerationEngine:
             self._hist_buf = np.zeros((slots, self.max_seq), np.int32)
             self._hist_n = np.zeros((slots,), np.int64)
 
+        # The decode dispatch pipeline (the JAX engine's): up to depth
+        # blocks in flight on the device stream, the host reaping the
+        # oldest while the next runs
+        self._pipeline = DecodePipelinePolicy(decode_pipeline)
+        # in-flight admission poll cadence (seconds), TPU_ADMIT_WINDOW_MS;
+        # 0 polls every millisecond
+        self._admit_window = max(0.0, float(admit_window_ms)) / 1e3
+        self._depth_now = 0
+        # inter-block host gaps: _idle_from marks when the device stream
+        # ran dry (a reap with no block queued behind it), the next
+        # dispatch closes the gap; overlapped reaps record 0.0
+        self._idle_from: float | None = None
+        self._gap_samples: "deque[float]" = deque(maxlen=2048)
+        self._reaps = 0
+        self._overlapped_reaps = 0
+        # reap time of the last reap that had a block queued behind it
+        # (decode_step_ms_mean's reap-to-reap anchor)
+        self._steady_from: float | None = None
+
         self._pending: "queue.Queue[_Request]" = queue.Queue()
         self._device_lock = threading.Lock()
         self._admission_lock = threading.Lock()
@@ -284,10 +439,13 @@ class GenerationEngine:
         self.total_tokens = 0
         self.total_requests = 0
         self.admissions = 0      # prefills run (one per admission)
-        self.decode_steps = 0    # decode steps run (K per block)
+        self.decode_steps = 0    # decode steps dispatched (K per block)
         self.verify_passes = 0   # speculative verify passes run
+        self.graph_replays = 0   # decode blocks run as a graph replay
         self._block_s: "deque[float]" = deque(maxlen=1024)
         self._verify_s: "deque[float]" = deque(maxlen=1024)
+        if self.device.type == "cuda":
+            self._capture_graphs()
         if self._spec_k:
             self._warm_verify()
         self._thread = threading.Thread(target=self._loop,
@@ -346,8 +504,13 @@ class GenerationEngine:
             stream._q.put(None)
             return stream
         with self._admission_lock:
+            # checked under the lock the failure path sets ``down``
+            # under, so no request is queued after the queue was failed
             if self._closed:
                 raise GenerationError("generation engine is closed")
+            if self.down is not None:
+                raise GenerationError(
+                    f"generation engine is down: {self.down}")
             self._pending.put(_Request(stream, prompt, int(max_new_tokens),
                                        float(temperature), int(top_k),
                                        eos_id, seed or 0))
@@ -371,6 +534,9 @@ class GenerationEngine:
             "admissions": self.admissions,
             "decode_steps": self.decode_steps,
             "decode_step_ms_mean": step_ms,
+            "graph_replays": self.graph_replays,
+            "pack_uploads": self.pack_uploads,
+            "scheduler": {"pipeline": self._pipeline_stats()},
             "down": self.down,
         }
         if self._paged:
@@ -397,38 +563,96 @@ class GenerationEngine:
             }
         return out
 
+    def _pipeline_stats(self) -> dict:
+        """The decode pipeline as the JAX engine reports it: the
+        configured ceiling, the depth the next top-up targets, the depth
+        in flight, and the inter-block host-gap distribution (overlapped
+        reaps are those whose successor was already queued)."""
+        samples: list = []
+        for _ in range(4):  # the loop appends concurrently
+            try:
+                samples = list(self._gap_samples)
+                break
+            except RuntimeError:
+                continue
+        return {
+            "depth": self._pipeline.depth,
+            "target_depth": self._target_depth(),
+            "depth_now": self._depth_now,
+            "reaps": self._reaps,
+            "overlapped_reaps": self._overlapped_reaps,
+            "gap_p50_ms": (round(float(np.median(samples)) * 1e3, 4)
+                           if samples else None),
+            "gap_samples": len(samples),
+        }
+
     def close(self) -> None:
         with self._admission_lock:
             self._closed = True
         self._work.set()
         self._thread.join(timeout=60.0)
         with self._device_lock:
+            if self.device.type == "cuda":
+                # blocks still in flight finish before their graphs and
+                # buffers can go
+                torch.cuda.synchronize(self.device)
             self._fail_all(GenerationError("engine closed"))
 
     # -- the serving loop ----------------------------------------------------
     def _loop(self) -> None:
+        # the decode dispatch pipeline: an oldest-first deque of in-flight
+        # blocks. Each pass tops it up to the target depth, admits
+        # arrivals while the oldest block runs, then reaps that block
+        pipe: "deque[_Inflight]" = deque()
         while not self._closed:
             try:
-                if self._active.any() or not self._pending.empty():
+                if pipe or self._active.any() or not self._pending.empty():
                     with self._device_lock:
-                        self._admit()
-                        if self._active.any() and not self._closed:
-                            self._tick()
+                        if not pipe:
+                            self._admit()
+                        depth = self._target_depth()
+                        while len(pipe) < depth and not self._closed:
+                            inflight = self._tick(decode_only=bool(pipe))
+                            if inflight is None:
+                                break
+                            pipe.append(inflight)
+                        self._depth_now = len(pipe)
+                    if not pipe:
+                        continue
+                    self._admit_inflight(pipe[0])
+                    with self._device_lock:
+                        inflight = pipe.popleft()
+                        self._reaps += 1
+                        if pipe:
+                            # a block still queued on the device: no gap
+                            self._overlapped_reaps += 1
+                            self._gap_samples.append(0.0)
+                        else:
+                            # the stream ran dry when this block's results
+                            # came ready; the next dispatch closes the gap
+                            self._idle_from = (inflight.ready_t
+                                               or time.monotonic())
+                        inflight.reap(bool(pipe))
                 else:
                     self._work.clear()
                     if self._pending.empty() and not self._closed:
                         self._work.wait(0.05)
             except Exception as e:  # noqa: BLE001 — waiters must not hang
-                # a failed device call leaves the cache in an unknown
-                # state: the engine goes down and fails every stream
-                self.down = repr(e)
-                if self.logger is not None:
-                    self.logger.error({"event": "generation loop failed",
-                                       "error": repr(e)})
-                with self._device_lock:
-                    self._fail_all(GenerationError(
-                        f"generation failed: {e!r}"))
+                # the blocks in flight died with the failure, and the
+                # cache is in an unknown state: drop every handle, fail
+                # every stream and waiter, and stay down
+                pipe.clear()
+                self._go_down(e)
                 return
+
+    def _go_down(self, e: Exception) -> None:
+        with self._admission_lock:
+            self.down = repr(e)
+        if self.logger is not None:
+            self.logger.error({"event": "generation loop failed",
+                               "error": repr(e)})
+        with self._device_lock:
+            self._fail_all(GenerationError(f"generation failed: {e!r}"))
 
     def _fail_all(self, err: Exception) -> None:
         for idx, slot in enumerate(self._slots):
@@ -443,14 +667,58 @@ class GenerationEngine:
             req.stream._q.put(err)
             req.stream._q.put(None)
 
-    def _admit(self) -> None:
+    def _admit_inflight(self, inflight: _Inflight) -> None:
+        """Admit arrivals while a dispatched block runs on the device
+        (the JAX engine's ``_admit_inflight``): their prefills queue on
+        the stream behind it, so a first token costs the rest of the
+        block plus a prefill. One admission pass comes before the first
+        readiness probe, so a device that finishes blocks before the
+        host looks (the CPU runs them at dispatch) still admits while
+        blocks are queued; then it polls the block's event every
+        TPU_ADMIT_WINDOW_MS, admitting what arrives. The deadline bounds
+        the poll: the reap then waits on the event."""
+        deadline = time.monotonic() + 60.0
+        poll = self._admit_window or 1e-3
+        while not self._closed and time.monotonic() < deadline:
+            started = 0
+            if not self._pending.empty():
+                with self._device_lock:
+                    started = self._admit()
+            if inflight.ready():
+                inflight.ready_t = time.monotonic()
+                return
+            if started:
+                continue  # more may be queued behind the ones admitted
+            self._work.clear()
+            self._work.wait(poll)
+
+    def _target_depth(self) -> int:
+        """Pipeline depth for the next top-up (also in stats()): the
+        policy's verdict on the facts this engine has. No latency class
+        and no chunk lattice are ported, so only spec decoding pins
+        depth 1."""
+        return self._pipeline.target(spec_decode=bool(self._spec_k))
+
+    def _note_dispatch(self, now: float) -> None:
+        """Close an open inter-block gap: the device stream ran dry at
+        ``_idle_from`` and this dispatch is the first work queued
+        since."""
+        if self._idle_from is None:
+            return
+        gap, self._idle_from = max(0.0, now - self._idle_from), None
+        self._gap_samples.append(gap)
+
+    def _admit(self) -> int:
+        """Start pending requests in free slots; returns how many
+        started."""
+        started = 0
         for idx, slot in enumerate(self._slots):
             if not slot.free:
                 continue
             try:
                 req = self._pending.get_nowait()
             except queue.Empty:
-                return
+                break
             if req.stream.cancelled.is_set():
                 req.stream._q.put(None)
                 continue
@@ -463,14 +731,17 @@ class GenerationEngine:
                     # transient pool pressure: requeue and let active
                     # slots retire blocks
                     self._pending.put(req)
-                    return
+                    break
             self._start(idx, slot, req, blocks)
+            started += 1
+        return started
 
     def _prefill(self, idx: int, req: _Request,
                  blocks: list[int] | None) -> tuple[int, float]:
         """Prefill the prompt into slot ``idx`` (paged: into ``blocks``)
         at its exact length and sample the first token (position 0 of
-        the request's stream)."""
+        the request's stream). Queued on the stream behind any blocks in
+        flight; reading the first token waits for them."""
         n = len(req.prompt)
         dev = self.device
         tokens = torch.tensor(req.prompt[None], dtype=torch.long, device=dev)
@@ -515,6 +786,7 @@ class GenerationEngine:
                 self._table[idx, :] = 0
                 self._cursors[idx] = 0
                 self._alloc.free(blocks)
+                self._touch()
             slot.request = None
             req.stream._q.put(GenerationError(f"prefill failed: {e!r}"))
             req.stream._q.put(None)
@@ -527,6 +799,7 @@ class GenerationEngine:
         self._temps[idx] = req.temperature
         self._top_ks[idx] = req.top_k
         self._slot_seed[idx] = req.seed
+        self._touch()
         if self._spec_k:
             self._hist_set(idx, req.prompt)
             self._hist_append(idx, first)
@@ -536,6 +809,8 @@ class GenerationEngine:
             self._active[idx] = True
             self._budgets[idx] = slot.remaining
             self._eos_row(idx, req.eos_id)
+            # the next sample's absolute position: the prefill's first
+            # token took position 0
             self._pos_abs[idx] = slot.generated
             if self._paged:
                 # where the device's budget/capacity stop masks will
@@ -543,6 +818,10 @@ class GenerationEngine:
                 self._stop_cursors[idx] = min(
                     req.stream.prompt_len + slot.remaining,
                     self.max_seq - 2)
+            # the pack's slot state wins over whatever the device carry
+            # holds for this slot
+            self._host_wins[idx] = True
+            self._touch()
 
     def _eos_row(self, idx: int, eos_id) -> None:
         row = self._eos_mat[idx]
@@ -550,116 +829,234 @@ class GenerationEngine:
         if eos_id is None:
             return
         ids = (eos_id,) if isinstance(eos_id, int) else tuple(eos_id)
-        for j, t in zip(range(self.EOS_MAX), ids):
+        for j, t in zip(range(EOS_MAX), ids):
             row[j] = t
 
-    def _dispatch_pack(self) -> torch.Tensor:
-        """Every host-owned per-slot decode input in one [B, W] int64
-        array, uploaded as one copy (the numpy staging array is fresh, so
-        nothing aliases host state that changes later)."""
-        E = self.EOS_MAX
-        width = self._PACK_EXTRA + E + (self._mb if self._paged else 0)
-        p = np.empty((self.n_slots, width), np.int64)
+    # -- the decode dispatch -------------------------------------------------
+    def _touch(self) -> None:
+        """A mutation site changed host state the dispatch pack carries:
+        the next decode dispatch uploads the pack."""
+        self._pack_dirty = True
+
+    def _warm_pack(self) -> np.ndarray:
+        """All-inactive dispatch pack for the warm-up: host_wins set so
+        the carry is ignored, active clear so no cursor moves, EOS rows
+        padded, (paged) table zeroed so the step's writes land in the
+        trash block."""
+        p = np.zeros(tuple(self._pack.shape), np.int64)
+        p[:, 6] = 1
+        p[:, PACK_EXTRA:PACK_EXTRA + EOS_MAX] = llama.EOS_PAD
+        return p
+
+    def _host_carry(self) -> tuple:
+        """The device slot-state carry built from the host arrays: the
+        first block's stand-in for a previous block's (every slot starts
+        under host_wins). ``torch.tensor`` copies the arrays."""
+        return tuple(torch.tensor(a, device=self.device)
+                     for a in (self._last_tokens, self._active,
+                               self._budgets, self._pos_abs))
+
+    def _dispatch_pack(self) -> None:
+        """Upload every host-owned per-slot decode input as one [B, W]
+        int64 matrix into the device pack, only when a mutation site
+        marked it dirty (_touch): in steady state nothing is uploaded.
+
+        On the card the matrix is built in a pinned staging buffer and
+        copied ``non_blocking``, queued on the stream behind the blocks
+        in flight: a copy from pageable memory would synchronise the
+        stream, and the host would wait for the block in flight (depth 2
+        would run as depth 1). A staging buffer is written again only
+        once the copy that read it has completed (its event)."""
+        if not self._pack_dirty:
+            return
+        cuda = self.device.type == "cuda"
+        if cuda:
+            staged, copied = self._staging[self.pack_uploads % 2]
+            copied.synchronize()
+            p = staged.numpy()
+        else:
+            p = np.empty(tuple(self._pack.shape), np.int64)
         p[:, 0] = self._last_tokens
         p[:, 1] = self._active
         p[:, 2] = self._budgets
         p[:, 3] = self._temps.view(np.int32)
         p[:, 4] = self._top_ks
-        p[:, 5] = self._slot_seed
-        p[:, 6] = self._pos_abs
-        p[:, self._PACK_EXTRA:self._PACK_EXTRA + E] = self._eos_mat
+        p[:, 5] = 0
+        p[:, 6] = self._host_wins
+        p[:, 7] = self._slot_seed
+        p[:, 8] = self._pos_abs
+        p[:, PACK_EXTRA:PACK_EXTRA + EOS_MAX] = self._eos_mat
         if self._paged:
-            p[:, self._PACK_EXTRA + E:] = self._table
-        return torch.from_numpy(p).to(self.device)
+            p[:, PACK_EXTRA + EOS_MAX:] = self._table
+        if cuda:
+            self._pack.copy_(staged, non_blocking=True)
+            copied.record()
+        else:
+            self._pack.copy_(torch.from_numpy(p))
+        self._pack_dirty = False
+        self.pack_uploads += 1
 
-    def _decode_block(self) -> None:
-        """K fused decode steps over all slots; each step feeds its
-        sampled tokens to the next on the device. Inactive cursors stay
-        frozen (their scatter lands at the frozen position, which a later
-        admission overwrites; a paged slot's lands through its table
-        row, in the trash block once it is retired). One host read per
-        block returns the [K, B] tokens, logprobs and emitted mask,
-        delivered in order."""
+    def _block(self, draw: bool) -> torch.Tensor:
+        return fused_decode_block(
+            self.params, self.cfg, self.cache, self._pack, self._carry,
+            self.rope_tables, steps=self.decode_block,
+            # the host retires one delivered token before the cursor
+            # reaches capacity (see _deliver): post-step cursors at
+            # max_seq - 2 mean the NEXT delivery would reach the bound
+            capacity=self.max_seq - 2, draw=draw)
+
+    def _capture_graphs(self) -> None:
+        """The port of the JAX engine's ``_step_jit``: the decode block
+        captured into one CUDA graph per ``draw`` value, the two sharing
+        one memory pool. The kernels are built and loaded first; each
+        graph's body runs once on a side stream over the all-inactive
+        warm pack (as JAX warms its step); then the captures. A capture
+        launches nothing, so the launch counters go back to what they
+        were, and what they counted is added at each replay. Raises when
+        a capture fails: on the card every decode block is a replay."""
+        kernels.build_all()
+        self._staging = [(torch.empty(tuple(self._pack.shape),
+                                      dtype=torch.long, pin_memory=True),
+                          torch.cuda.Event()) for _ in range(2)]
+        self._out_free: list = []   # pinned output buffers for reaps
+        self._pack.copy_(torch.from_numpy(self._warm_pack()))
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), torch.no_grad():
+            for draw in (False, True):
+                self._block(draw)
+        main.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        self._graphs = {}
+        pool = None
+        for draw in (False, True):
+            graph = torch.cuda.CUDAGraph()
+            before = _counts()
+            try:
+                with torch.no_grad(), torch.cuda.graph(
+                        graph, pool=pool, capture_error_mode="thread_local"):
+                    out = self._block(draw)
+            except Exception as e:
+                raise RuntimeError(
+                    f"capturing the decode block (draw={draw}) as a CUDA "
+                    f"graph failed: {e!r}") from e
+            finally:
+                deltas = [a - b for a, b in zip(_counts(), before)]
+                _add_counts([-d for d in deltas])
+            pool = graph.pool()
+            self._graphs[draw] = (graph, out, deltas)
+        self._pack_dirty = True   # the device pack holds the warm pack
+
+    def _run_block(self, draw: bool):
+        """Run one decode block: (its [K, 3, B] results on the host, the
+        event the reap waits on). On the card: one graph replay, then a
+        ``non_blocking`` copy of the graph's output (the next replay
+        overwrites it) into a pinned buffer the handle owns, and an
+        event. On the CPU: the block, eagerly."""
+        if self.device.type != "cuda":
+            with torch.no_grad():
+                return self._block(draw), None
+        graph, out, deltas = self._graphs[draw]
+        graph.replay()
+        _add_counts(deltas)
+        self.graph_replays += 1
+        if self._out_free:
+            host, done = self._out_free.pop()
+        else:
+            host = torch.empty(tuple(out.shape), dtype=out.dtype,
+                               pin_memory=True)
+            done = torch.cuda.Event()
+        host.copy_(out, non_blocking=True)
+        done.record()
+        return host, done
+
+    def _tick(self, decode_only: bool = False) -> _Inflight | None:
+        """Dispatch one serving tick: a verify pass when every active
+        slot is greedy and clear of capacity and at least half of them
+        draft (a slot without a draft emits one token a pass where a
+        decode block gives it K), else a decode block. ``decode_only``:
+        a top-up behind an unreaped block, where verify windows cannot
+        be built (they need the host-delivered history). Returns the
+        in-flight handle, or None."""
+        if not decode_only and self._spec_k and self._spec_eligible():
+            drafts = {idx: self._draft(idx)
+                      for idx in range(self.n_slots) if self._active[idx]}
+            drafted = sum(d is not None for d in drafts.values())
+            if drafted > 0 and 2 * drafted >= len(drafts):
+                return self._verify_tick(drafts)
+        return self._decode_tick()
+
+    def _decode_tick(self) -> _Inflight | None:
+        """Dispatch one fused decode block. A slot that finishes (EOS,
+        budget, capacity) at step k deactivates on the device, in the
+        carry, so a block dispatched before this one's tokens reached
+        the host freezes it instead of emitting junk."""
+        if not self._active.any():
+            return None
         if self._paged:
             self._ensure_blocks()  # may retire starving slots
             if not self._active.any():
-                return
-        t0 = time.monotonic()
-        pack = self._dispatch_pack()
-        tokens = pack[:, 0]
-        active = pack[:, 1].bool()
-        budget = pack[:, 2]
-        temps = pack[:, 3].to(torch.int32).view(torch.float32)
-        top_ks = pack[:, 4]
-        seeds = pack[:, 5]
-        pos = pack[:, 6]
-        E = self.EOS_MAX
-        eos_ids = pack[:, self._PACK_EXTRA:self._PACK_EXTRA + E]
-        if self._paged:
-            # the table is constant through the block: the host has
-            # allocated blocks covering K positions per slot
-            table = pack[:, self._PACK_EXTRA + E:].to(torch.int32)
-
-            def step(tokens):
-                return paged_llama.paged_decode_step(
-                    self.params, self.cfg, tokens, self.cache, table,
-                    self.rope_tables)
-        else:
-            def step(tokens):
-                return llama.decode_step(self.params, self.cfg, tokens,
-                                         self.cache, self.rope_tables,
-                                         flash=True)
+                return None
+        t_dispatch = time.monotonic()
+        self._note_dispatch(t_dispatch)
+        self._dispatch_pack()
         # Gumbel noise only when some slot samples (host-known, no sync)
-        draw = bool((self._temps > 0).any())
-        # the host retires one delivered token before the cursor reaches
-        # capacity (see _deliver): post-step cursors at max_seq - 2 mean
-        # the NEXT delivery would reach the bound
-        cap = self.max_seq - 2
-        rows = []
-        with torch.no_grad():
-            for _ in range(self.decode_block):
-                before = self.cache.lengths
-                logits, _ = step(tokens)
-                lengths = torch.where(active, self.cache.lengths, before)
-                self.cache.lengths = lengths
-                toks, lps = sample(logits, temps, seeds, pos, top_ks, draw)
-                toks = torch.where(active, toks, tokens)
-                emitted = active
-                budget = torch.where(active, budget - 1, budget)
-                pos = pos + emitted.long()
-                stop = active & llama.decode_stop_mask(toks, lengths, budget,
-                                                       eos_ids, cap)
-                rows.append(torch.stack([toks.double(), lps.double(),
-                                         emitted.double()]))
-                tokens, active = toks, active & ~stop
-        out = torch.stack(rows).cpu().numpy()                  # [K, 3, B]
-        self._block_s.append(time.monotonic() - t0)
+        out, done = self._run_block(bool((self._temps > 0).any()))
         self.decode_steps += self.decode_block
         if self._paged:
             # cursors advance by K, bounded by each slot's device stop
-            # cursor (the scan freezes a slot there); EOS stops land
-            # wherever they land, and such a slot retires below
+            # cursor (the block freezes a slot there), so the host view
+            # does not run past it while unreaped blocks pile up; EOS
+            # stops land wherever they land (bounded by one reap)
             adv = np.minimum(self.decode_block,
                              np.maximum(self._stop_cursors - self._cursors, 0))
             adv = np.where(self._stop_cursors > 0, adv, self.decode_block)
             self._cursors[self._active] += adv[self._active]
+        if self._host_wins.any():
+            self._host_wins[:] = False
+            self._touch()
+        # dispatch-time snapshots: admissions while the block runs mutate
+        # _active and slot.request, and this block's tokens belong to the
+        # slots as dispatched
         snap_active = self._active.copy()
         snap_reqs = [s.request for s in self._slots]
-        for k in range(out.shape[0]):
+        return _Inflight(done, functools.partial(
+            self._decode_reap, out, done, snap_active, snap_reqs,
+            t_dispatch))
+
+    def _decode_reap(self, out, done, snap_active, snap_reqs,
+                     t_dispatch: float, overlapped: bool) -> None:
+        """Wait for the block's results and deliver its [K, B] tokens in
+        step order; the emitted mask replays the device stop masks, so
+        a slot that deactivated on the device gets no more tokens.
+        Records the block's share of the step time: reap to reap while
+        a block stayed queued behind the last reap, else dispatch to
+        reap."""
+        if done is not None:
+            done.synchronize()
+        now = time.monotonic()
+        start = self._steady_from if self._steady_from is not None \
+            else t_dispatch
+        self._block_s.append(now - start)
+        self._steady_from = now if overlapped else None
+        res = out.numpy()
+        toks_l = res[:, 0].astype(np.int64).tolist()
+        lps_l = res[:, 1].tolist()
+        emit_l = res[:, 2].tolist()
+        if done is not None:
+            self._out_free.append((out, done))
+        for k in range(len(toks_l)):
+            trow, lrow, erow = toks_l[k], lps_l[k], emit_l[k]
             for idx, slot in enumerate(self._slots):
                 if not snap_active[idx] or not self._active[idx] \
                         or slot.request is not snap_reqs[idx] \
-                        or not out[k, 2, idx]:
+                        or not erow[idx]:
                     continue
-                tok = int(out[k, 0, idx])
-                self._last_tokens[idx] = tok
-                self._pos_abs[idx] += 1
+                self._last_tokens[idx] = trow[idx]
                 if self._spec_k:
-                    self._hist_append(idx, tok)
-                self._deliver(idx, slot, tok, float(out[k, 1, idx]))
-        for idx, slot in enumerate(self._slots):
-            if self._active[idx]:
-                self._budgets[idx] = slot.remaining
+                    self._hist_append(idx, trow[idx])
+                self._deliver(idx, slot, trow[idx], lrow[idx])
 
     def _deliver(self, idx: int, slot: _Slot, token: int,
                  lp: float | None = None) -> None:
@@ -704,12 +1101,18 @@ class GenerationEngine:
         self._slot_seed[idx] = 0
         self._pos_abs[idx] = 0
         self._eos_mat[idx, :] = llama.EOS_PAD
+        # the host wins the next dispatch's merge for this slot: a
+        # host-only retirement (cancel, paged starvation, a stop id past
+        # EOS_MAX) deactivates a slot the device carry may still run
+        self._host_wins[idx] = True
+        self._touch()
 
     # -- paged-mode host side ------------------------------------------------
     def _write_table_row(self, idx: int) -> None:
         """Clamped table row: entries past the slot's live blocks repeat
         the last one; an empty slot stays on the trash block."""
         blocks = self._slot_blocks[idx]
+        self._touch()
         if not blocks:
             self._table[idx, :] = 0
             return
@@ -817,20 +1220,6 @@ class GenerationEngine:
             return None
         return cont.tolist() + [0] * (K - cont.size)
 
-    def _tick(self) -> None:
-        """One serving tick: a verify pass when every active slot is
-        greedy and clear of capacity and at least half of them draft
-        (a slot without a draft emits one token a pass where a decode
-        block gives it K), else a decode block."""
-        if self._spec_k and self._spec_eligible():
-            drafts = {idx: self._draft(idx)
-                      for idx in range(self.n_slots) if self._active[idx]}
-            drafted = sum(d is not None for d in drafts.values())
-            if drafted > 0 and 2 * drafted >= len(drafts):
-                self._verify_tick(drafts)
-                return
-        self._decode_block()
-
     def _spec_eligible(self) -> bool:
         W = self._spec_k + 1
         saw_active = False
@@ -849,7 +1238,9 @@ class GenerationEngine:
                 table: torch.Tensor | None):
         """One verify pass (models.llama.verify_step, or paged_llama.
         paged_verify_step through ``table``), then the epilogue; the
-        cursors advance by emit. Returns (greedy, logprobs, emit)."""
+        cursors advance by emit, in place (a captured decode graph reads
+        the cache's own cursor tensor). Returns (greedy, logprobs,
+        emit)."""
         if self._paged:
             logits, _ = paged_llama.paged_verify_step(
                 self.params, self.cfg, window, self.cache, table,
@@ -858,7 +1249,7 @@ class GenerationEngine:
             logits, _ = llama.verify_step(self.params, self.cfg, window,
                                           self.cache, self.rope_tables)
         toks, lps, _, emit = verify_epilogue(logits, window, active)
-        self.cache.lengths = self.cache.lengths + emit.to(torch.int32)
+        self.cache.lengths.add_(emit.to(torch.int32))
         return toks, lps, emit
 
     def _warm_verify(self) -> None:
@@ -875,12 +1266,12 @@ class GenerationEngine:
         with torch.no_grad():
             self._verify(zeros, zeros[:, 0].bool(), table)
 
-    def _verify_tick(self, drafts: dict) -> None:
+    def _verify_tick(self, drafts: dict) -> _Inflight | None:
         """One verify pass over window = [last token, k drafts] per slot
         (zero drafts for a slot without a match: it still emits its one
-        guaranteed token), reaped at once: each slot's emitted tokens
-        are delivered in order, and a retirement mid-window discards the
-        rest."""
+        guaranteed token), run at once (spec engines run at depth 1);
+        the reap delivers each slot's emitted tokens in order, and a
+        retirement mid-window discards the rest."""
         W = self._spec_k + 1
         window = np.zeros((self.n_slots, W), np.int64)
         window[:, 0] = self._last_tokens
@@ -890,7 +1281,7 @@ class GenerationEngine:
         if self._paged:
             self._ensure_blocks(W)  # a window writes up to W positions
             if not self._active.any():
-                return
+                return None
         t0 = time.monotonic()
         with torch.no_grad():
             table = (torch.from_numpy(self._table.copy()).to(self.device)
@@ -902,10 +1293,16 @@ class GenerationEngine:
                              emit.double()[:, None]], dim=1).cpu().numpy()
         self._verify_s.append(time.monotonic() - t0)
         self.verify_passes += 1
-        toks_np, lps_np = out[:, :W], out[:, W:2 * W]
-        emit_np = out[:, 2 * W].astype(np.int64)
         snap_active = self._active.copy()
         snap_reqs = [s.request for s in self._slots]
+        return _Inflight(None, functools.partial(
+            self._verify_reap, out, snap_active, snap_reqs))
+
+    def _verify_reap(self, out: np.ndarray, snap_active, snap_reqs,
+                     overlapped: bool) -> None:
+        W = self._spec_k + 1
+        toks_np, lps_np = out[:, :W], out[:, W:2 * W]
+        emit_np = out[:, 2 * W].astype(np.int64)
         self._spec_windows += int(snap_active.sum())
         self._spec_emitted += int(emit_np.sum())
         if self._paged:
@@ -919,16 +1316,20 @@ class GenerationEngine:
                     break  # retired mid-window (EOS, budget, cancel)
                 tok = int(toks_np[idx, k])
                 self._last_tokens[idx] = tok
-                self._pos_abs[idx] += 1
                 self._hist_append(idx, tok)
                 self._deliver(idx, slot, tok, float(lps_np[idx, k]))
-        # the host's mirrors of the device stop state follow what the
+        # the pass advanced host state outside the decode carry: the
+        # host wins the next decode dispatch's merge for these slots,
+        # with its mirrors of the device stop state synced to what the
         # deliveries left
         for idx in np.flatnonzero(snap_active):
             s = self._slots[idx]
-            self._budgets[idx] = s.remaining if s.request is not None else 0
+            live = s.request is not None
+            self._budgets[idx] = s.remaining if live else 0
+            self._pos_abs[idx] = s.generated if live else 0
             if self._paged:
                 self._stop_cursors[idx] = (
                     min(int(self._cursors[idx]) + s.remaining,
-                        self.max_seq - 2)
-                    if s.request is not None else 0)
+                        self.max_seq - 2) if live else 0)
+        self._host_wins |= snap_active
+        self._touch()

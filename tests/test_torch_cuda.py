@@ -7,7 +7,13 @@ decode step the contiguous step's logits; its verify window (K3w) is
 held against its plain version at every group size, at windows of 1,
 2 and 5 and at 24 to 128 query rows a KV head, and returns the paged
 decode's bits at a window of one. An
-engine refuses at construction a model the kernels do not take. They
+engine refuses at construction a model the kernels do not take. The
+engine's decode block, captured as a CUDA graph, replays what an eager
+call of the same block function computes (contiguous and paged,
+sampling on and off, and after a prefill and a verify pass have moved
+the cursors between replays); a dispatch returns before its block is
+done; replays count their kernels' launches; and a body that cannot be
+captured makes construction raise. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -16,6 +22,11 @@ need an NVIDIA card and skip without one; on the card run
 does not use).
 """
 
+import dataclasses
+import threading
+import time
+
+import numpy as np
 import pytest
 import torch
 
@@ -427,3 +438,212 @@ def test_engine_refuses_at_construction_on_the_card(gen, name, kw):
         GenerationEngine(LLAMA_CONFIGS[name], {}, slots=2, max_seq=64,
                          device="cuda", **kw)
     assert torch.cuda.memory_allocated() == before
+
+
+# -- the decode block as a CUDA graph (tpu.generator) --------------------------
+
+SMALL = LLAMA_CONFIGS["llama3-8b"].with_(
+    vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+    ffn_dim=1024, max_seq=512)
+# a replay and an eager call of the block run the same kernels on the same
+# inputs: tokens, emitted mask, cursors and cache bytes are equal; the
+# logprobs may part by float32 rounding if a library kernel picks another
+# algorithm under capture
+LOGPROB_ATOL = 1e-3
+
+
+def _engine(paged: bool, **kw):
+    from gofr_tpu_torch.tpu import GenerationEngine
+
+    params = llama.init(SMALL, 0, device="cuda")
+    args = dict(slots=3, max_seq=256, kv_dtype=torch.int8, decode_block=4,
+                device="cuda")
+    if paged:
+        args.update(paged_blocks=3 * 16 + 1, paged_block_size=16)
+    args.update(kw)
+    return GenerationEngine(SMALL, params, **args)
+
+
+def _random_state(eng, gen, lengths, draw):
+    """Random cache contents, cursors at ``lengths`` and a dispatch pack
+    with every slot live under host_wins (some sampling when ``draw``;
+    paged: a shuffled clamped table over the pool), written into the
+    engine's own tensors, the ones its graphs read."""
+    from gofr_tpu_torch.tpu.generator import EOS_MAX, PACK_EXTRA
+
+    c = eng.cache
+    for t in (c.k, c.v):
+        t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                              device="cuda", dtype=torch.int8))
+    for t in (c.k_scale, c.v_scale):
+        t.copy_(torch.rand(t.shape, generator=gen, device="cuda") * 0.02)
+    c.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+    b = eng.n_slots
+    p = eng._warm_pack()
+    p[:, 0] = torch.randint(0, SMALL.vocab_size, (b,)).numpy()
+    p[:, 1] = 1
+    p[:, 2] = 100
+    if draw:
+        p[:, 3] = np.array([0.0, 0.8, 1.3][:b], np.float32).view(np.int32)
+        p[:, 4] = [0, 20, 0][:b]
+    p[:, 7] = np.arange(b) + 5
+    p[:, 8] = 3
+    if eng._paged:
+        table, _ = _shuffled_table([x + 16 for x in lengths], 16, eng._mb)
+        p[:, PACK_EXTRA + EOS_MAX:] = table.cpu().numpy()
+    eng._pack.copy_(torch.from_numpy(p))
+
+
+def _snapshot(eng):
+    c = eng.cache
+    cache = dataclasses.replace(
+        c, k=c.k.clone(), v=c.v.clone(), lengths=c.lengths.clone(),
+        k_scale=c.k_scale.clone(), v_scale=c.v_scale.clone())
+    return cache, eng._pack.clone(), tuple(t.clone() for t in eng._carry)
+
+
+def _replay_equals_eager(eng, draw):
+    """Replay the engine's graph for ``draw``, run fused_decode_block
+    eagerly on a copy of the state it started from, and compare."""
+    from gofr_tpu_torch.tpu.generator import fused_decode_block
+
+    cache, pack, carry = _snapshot(eng)
+    graph, out, _ = eng._graphs[draw]
+    graph.replay()
+    got = out.clone()
+    with torch.no_grad():
+        want = fused_decode_block(eng.params, eng.cfg, cache, pack, carry,
+                                  eng.rope_tables, steps=eng.decode_block,
+                                  capacity=eng.max_seq - 2, draw=draw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0], want[:, 0])          # tokens
+    assert torch.equal(got[:, 2], want[:, 2])          # emitted
+    assert (got[:, 1] - want[:, 1]).abs().max() <= LOGPROB_ATOL
+    c = eng.cache
+    for a, b in ((c.lengths, cache.lengths), (c.k, cache.k), (c.v, cache.v),
+                 (c.k_scale, cache.k_scale), (c.v_scale, cache.v_scale)):
+        assert torch.equal(a, b)
+    for a, b in zip(eng._carry, carry):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("draw", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_graph_replay_equals_the_eager_block(gen, paged, draw):
+    eng = _engine(paged)
+    try:
+        with eng._device_lock:
+            _random_state(eng, gen, [40, 131, 0], draw)
+            got = _replay_equals_eager(eng, draw)
+            assert got[:, 2].all()   # every slot live, none stops
+            eng._host_wins[:] = True
+            eng._touch()
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_prefill_and_verify_between_replays_are_seen(gen, paged):
+    """A prefill into a free slot and a verify pass write the cursors in
+    place between two replays; the second replay must equal an eager
+    block on a copy of the state they left (a graph bound to a stale
+    cursor tensor would not)."""
+    from gofr_tpu_torch.tpu.generator import GenStream, _Request
+
+    eng = _engine(paged, spec_decode_k=2)
+    try:
+        with eng._device_lock:
+            _random_state(eng, gen, [40, 131, 0], False)
+            _replay_equals_eager(eng, False)
+            prompt = np.arange(1, 30)
+            blocks = eng._alloc.alloc(2) if paged else None
+            eng._prefill(2, _Request(GenStream(0), prompt, 8, 0.0, 0, None,
+                                     0), blocks)
+            window = torch.randint(0, SMALL.vocab_size, (3, 3),
+                                   device="cuda")
+            table = eng._pack[:, -eng._mb:].to(torch.int32) \
+                if paged else None
+            if paged:
+                table[2] = torch.tensor(eng._table[2], device="cuda")
+            eng._verify(window, torch.ones(3, dtype=torch.bool,
+                                           device="cuda"), table)
+            lengths = eng.cache.lengths.tolist()
+            assert lengths[2] > 29 and lengths[0] > 44
+            if paged:
+                eng._pack[:, -eng._mb:] = table.long()
+            _replay_equals_eager(eng, False)
+            eng._host_wins[:] = True
+            eng._touch()
+    finally:
+        eng.close()
+
+
+def test_a_dispatch_returns_before_its_block_completes(gen):
+    """With the stream busy ahead of it, a decode dispatch (pack upload
+    from pinned memory, replay, the copy of its output, its event)
+    returns at once with its event not yet reached: nothing in it
+    waits for the device."""
+    from gofr_tpu_torch.tpu.generator import GenStream, _Request
+
+    eng = _engine(False)
+    try:
+        with eng._device_lock:
+            slot = eng._slots[0]
+            slot.request = _Request(GenStream(0), np.arange(1, 4), 50, 0.0,
+                                    0, None, 0)
+            eng._active[0] = True
+            eng._budgets[0] = 50
+            eng._touch()
+            eng.cache.lengths[0] = 3
+            torch.cuda._sleep(2_000_000_000)   # about a second of the stream
+            t0 = time.monotonic()
+            inflight = eng._decode_tick()
+            took = time.monotonic() - t0
+            assert not inflight.ready() and took < 0.2
+            inflight.done.synchronize()
+            assert inflight.ready()
+            eng._retire(0, slot)
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_replays_count_their_kernel_launches(gen, paged):
+    eng = _engine(paged)
+    try:
+        eng.generate([5, 9, 17], max_new_tokens=4).tokens()
+        steps0, replays0 = eng.decode_steps, eng.graph_replays
+        flash_decode.reset_counts()
+        paged_attention.reset_counts()
+        toks = eng.generate(list(range(1, 40)), max_new_tokens=21).tokens()
+        steps = eng.decode_steps - steps0
+        st = eng.stats()
+    finally:
+        eng.close()
+    assert len(toks) == 21
+    assert eng.graph_replays - replays0 == steps // 4 > 0
+    decode = paged_attention if paged else flash_decode
+    other = flash_decode if paged else paged_attention
+    assert decode.launches == SMALL.n_layers * steps
+    assert (decode.plain_calls, other.launches) == (0, 0)
+    assert st["scheduler"]["pipeline"]["depth"] == 2
+
+
+def test_construction_raises_when_capture_fails(gen, monkeypatch):
+    """A block body that reads the device from the host cannot be
+    captured: construction raises, and no eager path takes over."""
+    from gofr_tpu_torch.tpu import generator
+
+    body = generator.fused_decode_block
+
+    def reads_the_host(*args, **kw):
+        out = body(*args, **kw)
+        out.sum().item()
+        return out
+
+    monkeypatch.setattr(generator, "fused_decode_block", reads_the_host)
+    started = threading.active_count()
+    with pytest.raises(RuntimeError, match="capturing the decode block"):
+        _engine(False)
+    assert threading.active_count() == started

@@ -297,7 +297,7 @@ def _engines(weights, **kw):
     jeng = JaxEngine(JCFG, jparams, slots=2, max_seq=64, decode_pipeline=1,
                      prompt_buckets=(8, 16), **jkw)
     teng = GenerationEngine(CFG, tparams, slots=2, max_seq=64, device="cpu",
-                            **kw)
+                            decode_pipeline=1, **kw)
     return jeng, teng
 
 
