@@ -40,29 +40,43 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. the main path at full width and depth: new_engine_from_config with
      TPU_MODEL=llama3-8b (random weights from seed 0), 8 slots, 2048
      positions, int8 KV, K=4, dispatch depth 2 (the default; each decode
-     block one replay of a CUDA graph captured at construction), serving
-     6 concurrent requests; the launch counters, which count replays,
-     show both kernels on the path (flash_decode 32 a decode step) and
+     block one replay of a CUDA graph captured at construction), the
+     default prompt buckets (32..512; each admission one replay of its
+     bucket's prefill graph), serving 6 concurrent requests; the launch
+     counters, which count replays, show both kernels on the path
+     (flash_prefill 32 an admission, flash_decode 32 a decode step) and
      the plain versions unused; then one more request under
-     torch.profiler gives the device's busy share, by kind of kernel;
-     then a replay of each captured graph against an eager call of the
-     same block function on a copy of the state, at the engine's shapes;
-     then the same requests on a TPU_DECODE_PIPELINE=1 engine: the
-     streams must be equal;
+     torch.profiler gives the device's busy share, by kind of kernel,
+     and a bucket-512 admission beside three decoding streams its own
+     device time and the window's idle share; then a replay of each
+     captured decode graph against an eager call of the same block
+     function on a copy of the state, and a 500-token and a 1500-token
+     admission (the lattice: two mid chunks, a final chunk) through the
+     admission graphs against their functions run eagerly on a copy,
+     at the engine's shapes; then the same requests on a
+     TPU_DECODE_PIPELINE=1 engine: the streams must be equal;
   5b. (phase ``paged``) the paged path at full width and depth: the
      same model with 32 slots, 4096 positions and a pool of 257 blocks
-     of 128 int8 tokens, at depth 2, serving 24 concurrent requests; the
-     counters show flash_prefill and paged_decode (32 a decode step,
-     through replays) on the path and nothing else, the pool is whole
-     again afterwards, a profiler window as phase 5's, the replays
-     against the eager block at these shapes, and the streams equal a
-     contiguous engine's on the same weights and requests;
+     of 128 int8 tokens, at depth 2, serving 24 concurrent requests (the
+     prompts past 512 through the chunk lattice on the scratch row, a
+     decode block between chunks); the counters show flash_prefill (32
+     a bucket admission) and paged_decode (32 a decode step, through
+     replays) on the path and nothing else, the admission replays are
+     one a bucket admission and chunks + 2 a lattice, the pool is whole
+     again afterwards; TTFT and the inter-token gap of the streams
+     decoding across a lattice; profiler windows as phase 5's, the
+     decode and admission replays against their eager functions at
+     these shapes; the same burst with TPU_PREFILL_CHUNK=0 (interleave
+     off: its gap, streams equal); and the streams equal a contiguous
+     engine's on the same weights and requests;
   5c. (phase ``spec``) speculative decoding on the paged path: the same
      rows plus TPU_SPEC_DECODE=4 (the pipeline pinned to depth 1), 24
      greedy requests whose prompts X + S + X (S: the spec-less engine's
      greedy continuation of X) let the prompt-lookup drafts hit; the
-     counters show a K3w launch per layer and verify pass and a K3
-     launch per layer and decode step, the pool is whole again, and the
+     counters show a K3w launch per layer and verify pass, a K3
+     launch per layer and decode step and a K1 launch per layer and
+     bucket admission (prompts past 512 take the lattice), the pool is
+     whole again, and the
      streams that differ from a spec-less paged engine's are printed;
      then a contiguous spec engine serves a few requests through
      verify_step;
@@ -993,7 +1007,8 @@ def serve_line(stats: dict, streams, outs, wall: float) -> str:
     pipe = stats["scheduler"]["pipeline"]
     step = stats["decode_step_ms_mean"]
     return (f"{total} tokens in {wall:.3f} s = {total / wall:.1f} tok/s; "
-            f"TTFT mean {1e3 * np.mean(ttft):.1f} ms max "
+            f"TTFT mean {1e3 * np.mean(ttft):.1f} ms p50 "
+            f"{1e3 * np.median(ttft):.1f} ms max "
             f"{1e3 * max(ttft):.1f} ms; decode step "
             f"{'n/a' if step is None else f'{step:.2f}'} ms (host clock, "
             f"K={stats['decode_block']}); depth {pipe['depth']} (target "
@@ -1001,7 +1016,8 @@ def serve_line(stats: dict, streams, outs, wall: float) -> str:
             f"{pipe['overlapped_reaps']} overlapped, gap p50 "
             f"{pipe['gap_p50_ms']} ms over {pipe['gap_samples']} samples; "
             f"{stats['graph_replays']} graph replays, "
-            f"{stats['pack_uploads']} pack uploads")
+            f"{stats['pack_uploads']} pack uploads, "
+            f"{stats['admission_replays']} admission replays")
 
 
 def replay_vs_eager(gen, lengths: list, seed: int, tag: str) -> None:
@@ -1080,6 +1096,268 @@ def replay_vs_eager(gen, lengths: list, seed: int, tag: str) -> None:
                     f"(draw={draw}): {same}, logprob diff {lp}")
 
 
+def admission_vs_eager(gen, seed: int, tag: str) -> None:
+    """At the engine's own shapes, from a random int8 cache (and, paged,
+    scratch row) with random cursors: one admission of 500 tokens
+    (bucket 512, one prefill replay; paged: into shuffled blocks) and
+    one of 1500 (the lattice: mid chunks at 0 and 512, a final chunk of
+    512 at 988; paged: then the write-back), greedy and sampled, through
+    the engine's graph replays; then the same admissions with each
+    dispatch's function run eagerly on a copy of the state they started
+    from. First token, cursors and cache bytes (a pool's outside its
+    trash block) must be equal, the logprob within LOGPROB_ATOL. On a
+    closed engine (its graphs live on); launches made here are not
+    counted."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.tpu.generator import GenStream, _Request
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    caches = ["cache"] + (["_scratch"] if gen._paged else [])
+
+    def randomize(c):
+        for t in (c.k, c.v):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device="cuda", dtype=torch.int8))
+        for t in (c.k_scale, c.v_scale):
+            t.copy_(torch.rand(t.shape, generator=g, device="cuda") * 0.02)
+        c.lengths.copy_(torch.randint(0, 100, c.lengths.shape, generator=g,
+                                      device="cuda", dtype=torch.int32))
+
+    def clone(c):
+        return dataclasses.replace(
+            c, k=c.k.clone(), v=c.v.clone(), lengths=c.lengths.clone(),
+            k_scale=c.k_scale.clone(), v_scale=c.v_scale.clone())
+
+    def eager(key):
+        with torch.no_grad():
+            out = gen._admission_fn(key)()
+        return None if out is None else (int(out[0]), float(out[1]))
+
+    slot = 3
+    for n, draw in ((500, False), (500, True), (1500, False), (1500, True)):
+        for name in caches:
+            randomize(getattr(gen, name))
+        copies = {name: clone(getattr(gen, name)) for name in caches}
+        prompt = rng.integers(0, gen.cfg.vocab_size, n)
+        seed_r = int(rng.integers(0, 2**31 - 1))
+        blocks = None
+        if gen._paged:
+            need = -(-n // gen._block_t)
+            blocks = rng.choice(np.arange(1, gen.cache.n_blocks), need,
+                                replace=False).tolist()
+
+        def request():
+            return _Request(GenStream(0), prompt, 4, 0.8 if draw else 0.0,
+                            50 if draw else 0, None, seed_r)
+
+        replays0 = gen.admission_replays
+        got = gen._prefill(slot, request(), blocks and list(blocks))
+        replays = gen.admission_replays - replays0
+        real = {name: getattr(gen, name) for name in caches}
+        for name, c in copies.items():
+            setattr(gen, name, c)
+        gen._run_admission = eager
+        try:
+            want = gen._prefill(slot, request(), blocks and list(blocks))
+        finally:
+            del gen._run_admission
+            for name, c in real.items():
+                setattr(gen, name, c)
+        torch.cuda.synchronize()
+        same = {"first token": got[0] == want[0]}
+        for name in caches:
+            a, b = real[name], copies[name]
+            # a pool's trash block 0 takes every write routed nowhere,
+            # several to one position in a write-back: its bytes are
+            # whichever landed last, and nothing reads them
+            live = slice(1 if gen._paged and name == "cache" else 0, None)
+            same[f"{name} cursors"] = torch.equal(a.lengths, b.lengths)
+            same[f"{name} bytes"] = all(
+                torch.equal(x[:, live], y[:, live]) for x, y in (
+                    (a.k, b.k), (a.v, b.v), (a.k_scale, b.k_scale),
+                    (a.v_scale, b.v_scale)))
+        lp = abs(got[1] - want[1])
+        ok = all(same.values()) and lp <= LOGPROB_ATOL
+        print(f"[{tag}] admission of {n} tokens (draw={draw}) as {replays} "
+              f"graph replays vs its functions run eagerly: {same}, "
+              f"|logprob diff| {lp:.3e} (atol {LOGPROB_ATOL}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        require(ok, f"{tag}: an admission's replays differ from its eager "
+                    f"functions ({n} tokens, draw={draw}): {same}, "
+                    f"logprob diff {lp}")
+        del copies
+
+
+def timed_admissions(gen) -> list:
+    """Wrap the engine's admission dispatch with CUDA events around the
+    replay and its first token's copy (the start event is reached when
+    the stream gets there, behind any block in flight): each dispatch's
+    (key, start, end). The caller deletes ``gen._run_admission``."""
+    import torch
+
+    run = gen._run_admission
+    spans: list = []
+
+    def timed(key):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(key)
+        end.record()
+        spans.append((key, start, end))
+        return out
+
+    gen._run_admission = timed
+    return spans
+
+
+def delivery_clock(gen) -> dict:
+    """Wrap the engine's token delivery: each stream's delivery times
+    (host clock) by request id. The caller deletes ``gen._deliver``."""
+    deliver = gen._deliver
+    times: dict = {}
+
+    def clocked(idx, slot, token, lp=None):
+        times.setdefault(slot.request.stream.request_id, []).append(
+            time.monotonic())
+        return deliver(idx, slot, token, lp)
+
+    gen._deliver = clocked
+    return times
+
+
+def lattice_gaps(streams, times: dict) -> list:
+    """For each lattice admission (a stream with mid chunks, from its
+    admission to the end of its prefill), the longest wait between two
+    deliveries of each other stream that was decoding across it, ms."""
+    import numpy as np
+
+    gaps = []
+    for s in streams:
+        if not s.chunks:
+            continue
+        a, b = s.trace["admit"], s.trace["prefill_done"]
+        for o in streams:
+            t = times.get(o.request_id, [])
+            before = [x for x in t if x <= a]
+            after = [x for x in t if x >= b]
+            if o is s or not before or not after:
+                continue
+            inside = [before[-1]] + [x for x in t if a < x < b] + [after[0]]
+            gaps.append(1e3 * float(np.max(np.diff(inside))))
+    return gaps
+
+
+def gap_line(streams, times: dict) -> str:
+    import numpy as np
+
+    gaps = lattice_gaps(streams, times)
+    chunks = [s.chunks for s in streams]
+    if not gaps:
+        return f"stream.chunks {chunks}; no stream decoded across a lattice"
+    return (f"stream.chunks {chunks}; inter-token gap of streams decoding "
+            f"across a lattice admission: mean {np.mean(gaps):.1f} ms, p50 "
+            f"{np.median(gaps):.1f} ms, max {max(gaps):.1f} ms over "
+            f"{len(gaps)} (lattice, stream) pairs")
+
+
+def dispatch_times(spans) -> dict:
+    """Admission dispatches by kind (a bucket's prefill, mid chunk, final
+    chunk of a width, write-back): count and mean device time, ms."""
+    import numpy as np
+
+    kinds: dict = {}
+    for key, start, end in spans:
+        name = "/".join(str(k) for k in key if not isinstance(k, bool))
+        kinds.setdefault(name, []).append(start.elapsed_time(end))
+    return {k: f"{len(v)} x {np.mean(v):.2f}" for k, v in sorted(kinds.items())}
+
+
+def chunk_attention_case(cfg, smax: int, c: int) -> None:
+    """The chunk lattice's attention (ops.attention.chunk_attention, plain
+    PyTorch on every device, as it is plain jnp in JAX) at a mid chunk's
+    shapes, one layer: its device time, the 32 layers of a chunk, and
+    the least time the card could take (bytes: the int8 row and scales,
+    q and the chunk's k/v, the output; operations: both products over
+    Smax + C positions on bf16 tensor cores). Printed as a record; no
+    kernel of the port computes it."""
+    import torch
+
+    from gofr_tpu_torch.ops.attention import chunk_attention
+    from gofr_tpu_torch.ops.quant import quantize_kv
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    start = torch.tensor([smax // 4], device="cuda")
+    sets = []
+    for _ in range(2):
+        (kc, ks), (vc, vs) = (quantize_kv(_rng_bf16(g, (1, smax, kv, d)))
+                              for _ in range(2))
+        sets.append((_rng_bf16(g, (1, c, h, d)), kc, vc,
+                     _rng_bf16(g, (1, c, kv, d)), _rng_bf16(g, (1, c, kv, d)),
+                     start, ks, vs))
+    ms = graph_ms(chunk_attention, sets, 4)
+    n_bytes = (2 * smax * kv * (d + 4) + 2 * c * (h + 2 * kv) * d
+               + 2 * c * h * d)
+    n_ops = 2 * 2 * c * h * d * (smax + c)
+    bound, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
+    print(f"[chunk] chunk_attention C={c} Smax={smax} H={h} KV={kv} int8 "
+          f"row: {ms:.3f} ms a layer, {LAYERS * ms:.1f} ms a chunk of "
+          f"{LAYERS} layers; bound {bound:.4f} ms a layer ({by})",
+          flush=True)
+
+
+def profile_admission(engine, prompt, background, card: str,
+                      tag: str) -> None:
+    """A running engine (``background`` streams decoding) takes one
+    bucket admission under torch.profiler: the device's busy share of
+    the window, and the admission's device time by CUDA events around
+    its replay. Outside the counted run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = engine.generator
+    bg = [engine.generate(p, max_new_tokens=48) for p in background]
+    heads = [next(iter(s)) for s in bg]
+    spans = timed_admissions(gen)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            toks = engine.generate(prompt, max_new_tokens=4).tokens()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.monotonic() - t0)
+    finally:
+        del gen._run_admission
+    rest = [s.tokens() for s in bg]
+    require(len(toks) == 4 and all(len(r) + 1 == 48 for r in rest)
+            and len(heads) == len(bg), "the profiled admission's streams "
+            "are short")
+    busy_ms = sum(e.self_device_time_total / 1e3
+                  for e in prof.key_averages() if e.self_device_time_total > 0)
+    adm = [(k, a.elapsed_time(b)) for k, a, b in spans]
+    print(f"[{tag}] one admission of {len(prompt)} tokens beside "
+          f"{len(bg)} decoding streams: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 - 100 * busy_ms / wall_ms:.1f}% idle); "
+          f"its dispatches by CUDA events {adm}; card: {card}", flush=True)
+
+
+def release_graphs(gen) -> None:
+    """Drop a closed engine's graphs, so their pools go back to the card
+    before the next engine is built."""
+    import torch
+
+    gen._graphs = gen._adm_graphs = None
+    torch.cuda.empty_cache()
+
+
 def phase_main_path(card: str) -> dict:
     import numpy as np
     import torch
@@ -1106,8 +1384,9 @@ def phase_main_path(card: str) -> dict:
         # counted run
         warm = engine.generate(prompts[2], max_new_tokens=4).tokens()
         require(len(warm) == 4, f"warm-up gave {len(warm)} tokens")
-        adm0, steps0, replays0 = (gen.admissions, gen.decode_steps,
-                                  gen.graph_replays)
+        adm0, steps0, replays0, adm_replays0 = (
+            gen.admissions, gen.decode_steps, gen.graph_replays,
+            gen.admission_replays)
         flash.reset_counts()
         flash_decode.reset_counts()
         outs, streams, wall = _serve(engine, prompts, MAIN_SAMPLED,
@@ -1119,9 +1398,12 @@ def phase_main_path(card: str) -> dict:
         admissions = gen.admissions - adm0
         steps = gen.decode_steps - steps0
         replays = gen.graph_replays - replays0
+        adm_replays = gen.admission_replays - adm_replays0
         stats = gen.stats()
         health = engine.health_check()
         profile_decode(engine, prompts[4], card)
+        profile_admission(engine, prompts[1], [prompts[i] for i in (0, 2, 4)],
+                          card, "main-admission")
     finally:
         engine.close()
     require(not gen._thread.is_alive(),
@@ -1143,6 +1425,9 @@ def phase_main_path(card: str) -> dict:
             f"{steps} decode steps of {LAYERS} layers")
     require(replays > 0 and replays * gen.decode_block == steps,
             f"{replays} graph replays for {steps} decode steps")
+    require(adm_replays == admissions,
+            f"{adm_replays} admission replays for {admissions} bucket "
+            f"admissions")
     require(counts["prefill_plain"] == 0 and counts["decode_plain"] == 0,
             f"plain versions ran on the main path: {counts}")
     require(stats["scheduler"]["pipeline"]["depth"] == 2,
@@ -1150,9 +1435,15 @@ def phase_main_path(card: str) -> dict:
     print(f"[main] {len(prompts)} requests, prompts "
           f"{MAIN_LENS + [MAIN_LENS[0]]}, {new_tokens} new tokens each: "
           f"{serve_line(stats, streams, outs, wall)}; {admissions} "
-          f"admissions, {steps} decode steps in {replays} replays; launches "
-          f"{counts}; card: {card}", flush=True)
+          f"admissions in {adm_replays} replays (buckets "
+          f"{stats['prompt_buckets']}), {steps} decode steps in {replays} "
+          f"replays; launches {counts}; the admission graphs "
+          f"({len(gen._adm_graphs)}) reserved "
+          f"{gen.admission_graph_bytes / 2**30:.2f} GiB; card: {card}",
+          flush=True)
     replay_vs_eager(gen, MAIN_LENS + [17, 1000, 2000], 101, "main")
+    admission_vs_eager(gen, 103, "main")
+    release_graphs(gen)
 
     # the same requests at dispatch depth 1, on the same weights (seed 0)
     t0 = time.monotonic()
@@ -1230,11 +1521,18 @@ def phase_paged(card: str) -> dict:
     try:
         warm = engine.generate(prompts[0][:32], max_new_tokens=4).tokens()
         require(len(warm) == 4, f"warm-up gave {len(warm)} tokens")
-        adm0, steps0, replays0 = (gen.admissions, gen.decode_steps,
-                                  gen.graph_replays)
+        adm0, steps0, replays0, adm_replays0 = (
+            gen.admissions, gen.decode_steps, gen.graph_replays,
+            gen.admission_replays)
+        times = delivery_clock(gen)
+        spans = timed_admissions(gen)
         for mod in (flash, flash_decode, paged_attention):
             mod.reset_counts()
-        outs, streams, wall = _serve(engine, prompts, sampled, new_tokens)
+        try:
+            outs, streams, wall = _serve(engine, prompts, sampled,
+                                         new_tokens)
+        finally:
+            del gen._deliver, gen._run_admission
         counts = {"flash_prefill": flash.launches,
                   "paged_decode": paged_attention.launches,
                   "flash_decode": flash_decode.launches,
@@ -1244,11 +1542,17 @@ def phase_paged(card: str) -> dict:
         admissions = gen.admissions - adm0
         steps = gen.decode_steps - steps0
         replays = gen.graph_replays - replays0
+        adm_replays = gen.admission_replays - adm_replays0
         stats = gen.stats()
         health = engine.health_check()
         profile_decode(engine, prompts[4], card, "paged-profile")
+        profile_admission(engine, prompts[lens.index(max(lens))][:500],
+                          [p[:100] for p in prompts[:8]], card,
+                          "paged-admission")
     finally:
         engine.close()
+    lattices = [s for s in streams if s.chunks]
+    bucket_admissions = len(streams) - len(lattices)
     require(not gen._thread.is_alive(), "the generation thread outlived "
             "close()")
     for i, toks in enumerate(outs):
@@ -1260,9 +1564,17 @@ def phase_paged(card: str) -> dict:
     require(health.status == "UP", f"paged engine health {health.status}")
     require(admissions == len(prompts),
             f"{admissions} admissions for {len(prompts)} requests")
-    require(counts["flash_prefill"] == LAYERS * admissions,
+    require(len(lattices) == sum(n > 512 for n in lens),
+            f"{len(lattices)} lattice admissions for "
+            f"{sum(n > 512 for n in lens)} prompts past the largest bucket")
+    require(counts["flash_prefill"] == LAYERS * bucket_admissions,
             f"flash_prefill launched {counts['flash_prefill']} times for "
-            f"{admissions} admissions of {LAYERS} layers")
+            f"{bucket_admissions} bucket admissions of {LAYERS} layers")
+    # a bucket admission is one replay; a lattice its mid chunks, its
+    # final chunk and the write-back
+    want_replays = bucket_admissions + sum(s.chunks + 2 for s in lattices)
+    require(adm_replays == want_replays,
+            f"{adm_replays} admission replays, want {want_replays}")
     require(counts["paged_decode"] == LAYERS * steps,
             f"paged_decode launched {counts['paged_decode']} times for "
             f"{steps} decode steps of {LAYERS} layers")
@@ -1280,10 +1592,44 @@ def phase_paged(card: str) -> dict:
     print(f"[paged] {len(prompts)} requests, prompts {lens}, {new_tokens} "
           f"new tokens each ({len(sampled)} sampled): "
           f"{serve_line(stats, streams, outs, wall)}; {admissions} "
-          f"admissions, {steps} decode steps in {replays} replays; launches "
-          f"{counts}; pool {paged}; card: {card}", flush=True)
+          f"admissions ({bucket_admissions} in a bucket, {len(lattices)} "
+          f"through the lattice) in {adm_replays} admission replays, "
+          f"{steps} decode steps in {replays} replays; "
+          f"{gap_line(streams, times)}; launches {counts}; pool {paged}; "
+          f"the admission graphs ({len(gen._adm_graphs)}) reserved "
+          f"{gen.admission_graph_bytes / 2**30:.2f} GiB; card: {card}",
+          flush=True)
+    print(f"[paged] the burst's admission dispatches, device time by CUDA "
+          f"events: {dispatch_times(spans)}", flush=True)
+    chunk_attention_case(gen.cfg, gen.max_seq, gen._chunk)
     # phase paged's first-step lengths and 8 empty slots
     replay_vs_eager(gen, lens + [0] * 8, 102, "paged")
+    admission_vs_eager(gen, 104, "paged")
+    release_graphs(gen)
+
+    # the same burst with interleave off (TPU_PREFILL_CHUNK=0): the
+    # lattices' chunks back to back, no decode block between them
+    off = GenerationEngine(gen.cfg, gen.params, slots=32, max_seq=4096,
+                           kv_dtype=torch.int8, decode_block=4,
+                           paged_blocks=257, paged_block_size=128,
+                           prefill_chunk=0, device="cuda")
+    try:
+        off.generate(prompts[0][:32], max_new_tokens=4).tokens()
+        off_times = delivery_clock(off)
+        off_outs, off_streams, off_wall = _serve(off, prompts, sampled,
+                                                 new_tokens)
+        off_stats = off.stats()
+    finally:
+        off.close()
+    release_graphs(off)
+    off_differ = [i for i in range(len(prompts)) if off_outs[i] != outs[i]]
+    print(f"[paged] TPU_PREFILL_CHUNK=0 (interleave off), the same burst: "
+          f"{serve_line(off_stats, off_streams, off_outs, off_wall)}; "
+          f"{gap_line(off_streams, off_times)}; streams that differ from "
+          f"the interleaved run's: {off_differ}", flush=True)
+    require(not off_stats["scheduler"]["chunk_interleave"],
+            f"TPU_PREFILL_CHUNK=0 ran with {off_stats['scheduler']}")
+    require(not off_differ, f"interleave-off streams differ: {off_differ}")
 
     # the same requests through a contiguous engine on the same weights:
     # each row is computed on its own, so the streams must be equal
@@ -1395,9 +1741,10 @@ def phase_spec(card: str) -> dict:
             f"verify windows {windows}, emitted {emitted}")
     require(admissions == len(prompts),
             f"{admissions} admissions for {len(prompts)} requests")
-    require(counts["flash_prefill"] == LAYERS * admissions,
+    bucket_admissions = sum(not s.chunks for s in streams)
+    require(counts["flash_prefill"] == LAYERS * bucket_admissions,
             f"flash_prefill launched {counts['flash_prefill']} times for "
-            f"{admissions} admissions of {LAYERS} layers")
+            f"{bucket_admissions} bucket admissions of {LAYERS} layers")
     require(counts["paged_window"] == LAYERS * passes,
             f"paged_window launched {counts['paged_window']} times for "
             f"{passes} verify passes of {LAYERS} layers")

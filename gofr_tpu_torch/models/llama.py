@@ -16,7 +16,8 @@ ops.flash_decode), which take the plain versions on CPU tensors;
 ``flash=False`` calls the plain versions directly. ``verify_step``, the
 speculative verify pass over the contiguous cache, runs the plain
 ``window_attention_appended`` on every device, as the JAX package runs
-its jnp version there.
+its jnp version there; ``prefill_chunk``, a long prompt's chunk, runs
+the plain ``chunk_attention`` for the same reason.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops import flash, flash_decode
-from ..ops.attention import window_attention_appended
+from ..ops.attention import chunk_attention, window_attention_appended
 from ..ops.norms import rms_norm
 from ..ops.quant import QuantizedLinear, qmatmul, quantize_kv
 from ..ops.rope import apply_rope, rope_frequencies
@@ -205,16 +206,34 @@ def prefill_kv(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return _logits(params, cfg, x), k_stack, v_stack, lengths
 
 
-def write_kv(cache: KVCache, k_stack, v_stack, slot: int = 0,
-             start: int = 0, lengths: torch.Tensor | None = None) -> KVCache:
+def _offsets(base, n: int, device) -> torch.Tensor:
+    """base + arange(n) as int64 on ``device``: ``base`` an int, or a
+    one-element tensor there (read on the device, never by the host)."""
+    idx = torch.arange(n, device=device)
+    if isinstance(base, torch.Tensor):
+        return idx + base.reshape(-1)[:1].long()
+    return idx + int(base)
+
+
+def write_kv(cache: KVCache, k_stack, v_stack, slot=0, start=0,
+             lengths: torch.Tensor | None = None) -> KVCache:
     """Write KV stacks [L, B', S', KV, hd] into the cache at batch row
     ``slot`` and position ``start``, quantizing on write for an int8
-    cache; IN PLACE. ``lengths`` replaces the cursors when given."""
+    cache; IN PLACE. ``lengths`` replaces the cursors when given.
+
+    ``slot`` and ``start`` are ints, or one-element integer tensors on
+    the cache's device, read there: the write is an index write, so one
+    captured graph serves every slot and chunk offset. An int ``start``
+    is checked against the capacity; for a tensor one the caller keeps
+    the rows in range (a host check would read the device)."""
     nb, ns = k_stack.shape[1], k_stack.shape[2]
-    rows = (slice(None), slice(slot, slot + nb), slice(start, start + ns))
-    if ns > cache.k.shape[2] - start:
+    if not isinstance(start, torch.Tensor) and \
+            ns > cache.k.shape[2] - start:
         raise ValueError(f"{ns} positions at {start} exceed the cache "
                          f"capacity {cache.k.shape[2]}")
+    device = cache.k.device
+    rows = (slice(None), _offsets(slot, nb, device)[:, None],
+            _offsets(start, ns, device)[None, :])
     if cache.quantized:
         qk, sk = quantize_kv(k_stack)
         qv, sv = quantize_kv(v_stack)
@@ -228,6 +247,61 @@ def write_kv(cache: KVCache, k_stack, v_stack, slot: int = 0,
     if lengths is not None:
         cache.lengths = lengths
     return cache
+
+
+def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  cache: KVCache, start: torch.Tensor, slot: torch.Tensor,
+                  rope_tables=None, compute_logits: bool = True,
+                  logit_pos: torch.Tensor | None = None):
+    """One chunk of C prompt tokens [B, C] at positions [start, start+C)
+    against the cache (the long-prompt path: a prompt of any length up
+    to the capacity runs as a sequence of fixed-shape chunk calls, so
+    one captured graph serves every chunk of a width).
+
+    ``start`` and ``slot``: one-element integer tensors on the device,
+    the chunk's offset and the first of the B batch rows of ``cache``
+    it belongs to. Positions, the rope rows, the prefix mask
+    (ops.attention.chunk_attention, reading an int8 cache through its
+    scales) and the KV write's offset are all computed on the device.
+    The cache is read-only inside the layer loop and the chunk's KV
+    [L, B, C, KV, hd] is written afterwards at [start, start+C).
+    ``cache.lengths`` is NOT advanced: the caller sets the cursor once
+    after the last chunk. Returns (logits [B, C, V] float32, or
+    [B, 1, V] gathered at ``logit_pos``, or None when
+    ``compute_logits`` is False, sparing a mid-prompt chunk the lm_head;
+    the same cache, written IN PLACE)."""
+    B, C = tokens.shape
+    device = tokens.device
+    cos, sin = rope_tables or get_rope_tables(cfg, cache.k.shape[2], device)
+    positions = _offsets(start, C, device).expand(B, C)
+    rows = _offsets(slot, B, device)
+
+    def row(t, i):
+        return t[i].index_select(0, rows)
+
+    x = params["embedding"][tokens].to(cfg.tdtype)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        k_l, v_l = row(cache.k, i), row(cache.v, i)
+        ks_l = row(cache.k_scale, i) if cache.quantized else None
+        vs_l = row(cache.v_scale, i) if cache.quantized else None
+
+        def attend(q, k_new, v_new, k_l=k_l, v_l=v_l, ks_l=ks_l, vs_l=vs_l):
+            return chunk_attention(q, k_l, v_l, k_new, v_new, start, ks_l,
+                                   vs_l)
+
+        x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
+                           cos, sin, positions, attend)
+        ks.append(k)
+        vs.append(v)
+    write_kv(cache, torch.stack(ks), torch.stack(vs), slot=slot,
+             start=start)
+    if not compute_logits:
+        return None, cache
+    if logit_pos is not None:
+        idx = logit_pos.long()[:, None, None].expand(-1, 1, x.shape[-1])
+        x = torch.gather(x, 1, idx)                          # [B, 1, D]
+    return _logits(params, cfg, x), cache
 
 
 EOS_PAD = -1  # unused entries of a per-slot on-device stop set

@@ -19,8 +19,10 @@ Table invariants (kept by the engine's allocator):
 
 As in ``llama``, the pool is updated IN PLACE. ``paged_verify_step`` is
 the speculative verify pass over the pool, through the paged window
-kernel. The block-to-row restore and the shared prefix index wait for
-chunked prefill.
+kernel. A long prompt is chunk-prefilled into a dense single-slot
+scratch row (``llama.KVCache``, B=1) and lands in the pool through
+``write_row_to_blocks``; ``read_blocks_to_row`` is the restore half the
+shared prefix index (not ported yet) reads with.
 """
 
 from __future__ import annotations
@@ -209,11 +211,16 @@ def paged_verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return llama._logits(params, cfg, x), cache
 
 
-def write_prompt_blocks(cache: PagedKVCache, k_stack, v_stack,
-                        blocks) -> PagedKVCache:
-    """Write one admitted prompt's KV stacks [L, 1, S, KV, hd] into its
-    allocated ``blocks`` (at least ceil(S/T) ids; the last may be
-    partly filled, and positions past S in it keep what they held).
+def write_prompt_blocks(cache: PagedKVCache, k_stack, v_stack, blocks,
+                        length=None) -> PagedKVCache:
+    """Write one admitted prompt's KV stacks [L, 1, S, KV, hd] (S the
+    prompt's bucket) into its ``blocks``: at least ceil(S/T) ids, a
+    list or an integer tensor on the pool's device (one captured graph
+    a bucket serves every admission). ``length`` is the true prompt
+    length, as in JAX's signature: rows in [length, S) are bucket
+    padding, landing in the slot's own last block past its cursor
+    (invisible behind ``lengths``, overwritten as decode advances) or,
+    through the ids past the prompt's own blocks, in the trash block.
     Quantizes on write for an int8 pool, then one block copy
     (write_row_to_blocks) moves the rows. IN PLACE."""
     if cache.quantized:
@@ -226,12 +233,22 @@ def write_prompt_blocks(cache: PagedKVCache, k_stack, v_stack,
     return write_row_to_blocks(cache, row, blocks)
 
 
+def _block_ids(blocks, device) -> torch.Tensor:
+    if isinstance(blocks, torch.Tensor):
+        return blocks.long()
+    return torch.as_tensor(list(blocks), dtype=torch.long, device=device)
+
+
 def write_row_to_blocks(cache: PagedKVCache, row: llama.KVCache,
                         blocks) -> PagedKVCache:
     """Copy a dense single-slot row (``llama.KVCache`` with B=1,
     [L, 1, S, KV, hd]) into pool blocks: position p goes to
-    blocks[p // T] at offset p % T. Ids in ``blocks`` past ceil(S/T)
-    are not touched. Same-dtype copy for a quantized row (int8 and
+    blocks[p // T] at offset p % T. ``blocks``: a list or an integer
+    tensor on the pool's device, at least ceil(S/T) ids; ids past
+    ceil(S/T) are not touched, and positions routed to block 0 land in
+    the trash block. The paged admissions' one block copy: a bucket
+    prefill's quantized stacks (write_prompt_blocks) and a long prompt's
+    chunked scratch row. Same-dtype copy for a quantized row (int8 and
     scales move as they are). IN PLACE."""
     T = cache.block_size
     S = row.k.shape[2]
@@ -240,16 +257,35 @@ def write_row_to_blocks(cache: PagedKVCache, row: llama.KVCache,
         raise ValueError(f"{S} positions need {need} blocks of {T}, got "
                          f"{len(blocks)}")
     device = cache.k.device
-    ids = torch.as_tensor(list(blocks)[:need], dtype=torch.long,
-                          device=device)
     pos = torch.arange(S, device=device)
-    blk, off = ids[pos // T], pos % T
+    blk, off = _block_ids(blocks, device)[pos // T], pos % T
     cache.k[:, blk, off] = row.k[:, 0].to(cache.k.dtype)
     cache.v[:, blk, off] = row.v[:, 0].to(cache.v.dtype)
     if cache.quantized:
         cache.k_scale[:, blk, off] = row.k_scale[:, 0]
         cache.v_scale[:, blk, off] = row.v_scale[:, 0]
     return cache
+
+
+def read_blocks_to_row(row: llama.KVCache, cache: PagedKVCache,
+                       blocks) -> llama.KVCache:
+    """Inverse of write_row_to_blocks: gather pool blocks into a dense
+    single-slot row [L, 1, S, KV, hd], position p from blocks[p // T]
+    at offset p % T, for p below min(S, len(blocks) * T); the rest of
+    the row keeps what it held. The restore half of paged prefix
+    sharing (shared blocks into the scratch row, then the chunked
+    prefill resumes from the match point). IN PLACE on ``row``."""
+    T = cache.block_size
+    n = min(row.k.shape[2], len(blocks) * T)
+    device = cache.k.device
+    pos = torch.arange(n, device=device)
+    blk, off = _block_ids(blocks, device)[pos // T], pos % T
+    row.k[:, 0, :n] = cache.k[:, blk, off].to(row.k.dtype)
+    row.v[:, 0, :n] = cache.v[:, blk, off].to(row.v.dtype)
+    if cache.quantized:
+        row.k_scale[:, 0, :n] = cache.k_scale[:, blk, off]
+        row.v_scale[:, 0, :n] = cache.v_scale[:, blk, off]
+    return row
 
 
 class BlockAllocator:

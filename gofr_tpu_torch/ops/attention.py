@@ -7,7 +7,9 @@ decodes (ops.flash_decode, ops.paged_attention) and
 (ops.paged_attention). The CPU runs them; on the card they are the
 reference the kernels are held against, and the contiguous verify pass
 (models.llama.verify_step) runs ``window_attention_appended`` itself, as
-the JAX package runs its jnp version. Layouts follow the JAX package:
+the JAX package runs its jnp version. ``chunk_attention``, the chunked
+prefill's attention, has no kernel in either package: it is plain jnp in
+JAX and plain PyTorch here, on every device. Layouts follow the JAX package:
 q [B, S, H, D], k/v [B, S, KV, D], GQA by grouping query heads
 [B, S, KV, G, D]; softmax in float32.
 """
@@ -123,3 +125,50 @@ def window_attention_appended(q: torch.Tensor, k_cache: torch.Tensor,
            + torch.einsum("bkgwt,btkd->bwkgd",
                           probs[..., smax:].to(v_new.dtype), v_new))
     return out.reshape(b, w, h, d).to(q.dtype)
+
+
+def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor, start: torch.Tensor,
+                    k_scale: torch.Tensor | None = None,
+                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Chunked-prefill attention: a chunk of C new tokens at positions
+    [start, start + C) attends to the cache prefix (positions < start)
+    plus causally within the chunk, before the chunk's k/v is written.
+
+    q: [B, C, H, D]; k_cache/v_cache: [B, Smax, KV, D] (int8 with
+    ``k_scale``/``v_scale`` [B, Smax, KV] float32, or dense);
+    k_new/v_new: [B, C, KV, D]; ``start``: a one-element integer tensor
+    on q's device, so one captured graph serves every chunk offset (the
+    prefix mask is built on the device). Trailing padding inside the
+    chunk is harmless: causality keeps valid positions from attending
+    it. Returns [B, C, H, D] in q's dtype.
+    """
+    b, c, h, d = q.shape
+    smax, n_kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // n_kv
+    # JAX's function, with fewer passes over the [B, KV, G, C, Smax + C]
+    # float32 scores: the scales are folded into the keys and values
+    # instead of the scores and probabilities, both key sets go through
+    # one product, and the mask is applied in place.
+    qg = _group(q * d ** -0.5, n_kv).float().permute(0, 2, 3, 1, 4)
+    qg = qg.reshape(b, n_kv, g * c, d)                       # [B,KV,G*C,D]
+    k_c = k_cache.float()
+    if k_scale is not None:
+        k_c = k_c * k_scale[..., None]
+    keys = torch.cat([k_c, k_new.float()], dim=1)           # [B,Smax+C,KV,D]
+    scores = torch.matmul(qg, keys.permute(0, 2, 3, 1))     # [B,KV,G*C,Smax+C]
+    pos = torch.arange(smax + c, device=q.device)
+    row = torch.arange(c, device=q.device)[:, None]
+    visible = torch.where(pos < smax, pos < start.reshape(1),
+                          pos - smax <= row)                 # [C, Smax+C]
+    scores.view(b, n_kv, g, c, smax + c).masked_fill_(~visible, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    vdt = q.dtype if v_scale is not None else v_cache.dtype
+    v_c = v_cache if v_scale is None else v_cache.float() * v_scale[..., None]
+    out = (torch.matmul(probs[..., :smax].to(vdt),
+                        v_c.to(vdt).transpose(1, 2))
+           + torch.matmul(probs[..., smax:].to(v_new.dtype),
+                          v_new.transpose(1, 2)))           # [B,KV,G*C,D]
+    out = out.reshape(b, n_kv, g, c, d).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, c, h, d).to(q.dtype)

@@ -567,20 +567,22 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
+// One-time set-up, run once when the library is loaded
+// (gofr_tpu_torch/ops/kernels.py), never at a launch: it raises the
+// kernel's dynamic shared memory limit, so a launch holds nothing but the
+// launch itself and can sit inside a captured CUDA graph.
+extern "C" int gofr_flash_prefill_init() {
+  return cudaFuncSetAttribute(flash_prefill_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              SMEM_BYTES);
+}
+
 // q/out [B, S, H, 128] bf16, k/v [B, S, KV, 128] bf16, lengths [B] int32,
 // all contiguous on the current device; scale = 1/sqrt(128).
 extern "C" int gofr_flash_prefill_bf16(const void* q, const void* k,
                                        const void* v, const void* lengths,
                                        void* out, int B, int S, int H, int KV,
                                        float scale, void* stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
   flash_prefill_kernel<<<grid, NT, SMEM_BYTES,

@@ -6,7 +6,8 @@ own with ``nvcc`` for ``sm_90a`` into a shared library, loaded with
 ``build_all``, which starts one ``nvcc`` per source in parallel) into
 ``ops/_build/``; a library's file name carries a hash of its source and
 flags, so an edited source rebuilds and an unchanged one loads as built.
-Nothing here runs when the module is imported.
+A source's one-time set-up (``INITS``) runs once, right after its
+library is loaded. Nothing here runs when the module is imported.
 
 ``check_attention_shape`` holds what the attention kernels take of a
 model (head_dim, activation dtype, query heads per KV head, the paged
@@ -73,6 +74,11 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _I, _I, _I, _F, _P]),
 }
+
+# one-time set-up entry points, run once right after a library is loaded
+# (each returns its cudaError_t as an int): what may not run at a launch
+# that sits inside a captured CUDA graph
+INITS = {"flash_prefill.cu": "gofr_flash_prefill_init"}
 
 # What the attention kernels take (csrc/*.cu): head_dim 128, bf16
 # activations; the decodes (K2, K3) and the verify window (K3w) G = H/KV
@@ -205,6 +211,16 @@ def _library(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build.out))
             lib.gofr_error_string.argtypes = [_I]
             lib.gofr_error_string.restype = ctypes.c_char_p
+            init = INITS.get(source)
+            if init is not None:
+                fn = getattr(lib, init)
+                fn.argtypes = []
+                fn.restype = _I
+                err = fn()
+                if err != 0:
+                    raise RuntimeError(
+                        f"{init} failed with CUDA error {err}: "
+                        f"{lib.gofr_error_string(err).decode()}")
             _libs[source] = lib
         return lib
 

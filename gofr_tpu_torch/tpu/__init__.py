@@ -18,6 +18,14 @@ Rows read:
                     (default 2, as in JAX; a spec engine runs 1)
   TPU_ADMIT_WINDOW_MS  how often (ms) the loop looks for arrivals to
                     admit while a block runs (default 2.0)
+  TPU_SEQ_BUCKETS   csv of prompt buckets (default 32,64,128,256,512;
+                    those below TPU_MAX_SEQ are the engine's, as in JAX):
+                    a prompt is padded to its bucket and prefilled by one
+                    dispatch; a longer one runs the chunk lattice
+  TPU_PREFILL_CHUNK  the lattice's chunk budget: unset = the largest
+                    bucket with a decode block interleaved between
+                    chunks, <= 0 = the same chunks back to back, else
+                    snapped up to a bucket
   TPU_PAGED_BLOCKS  > 0 serves from a paged pool of that many KV blocks
                     shared by all slots (block 0 is the reserved trash
                     block, so size it as live tokens // block + 1);
@@ -43,7 +51,8 @@ from ..models import llama
 from ..models.common import LLAMA_CONFIGS
 from .checkpoint import from_jax_params, load_npz, maybe_quantize
 from .engine import Health, TorchEngine
-from .generator import GenerationEngine, GenerationError, GenStream
+from .generator import (DEFAULT_SEQ_BUCKETS, GenerationEngine,
+                        GenerationError, GenStream)
 
 __all__ = ["GenerationEngine", "GenerationError", "GenStream", "Health",
            "TorchEngine", "from_jax_params", "load_npz", "maybe_quantize",
@@ -51,7 +60,7 @@ __all__ = ["GenerationEngine", "GenerationError", "GenStream", "Health",
 
 # rows of the JAX package that name features outside this slice
 UNPORTED_ROWS = (
-    "TPU_PREFILL_CHUNK", "TPU_SLO_THROUGHPUT_FACTOR",
+    "TPU_SLO_THROUGHPUT_FACTOR",
     "TPU_SLO_THROUGHPUT_SHARE", "TPU_SLO_LATENCY_SLOTS",
     "TPU_SLO_BATCH_SHARE", "TPU_SLO_BATCH_DELAY", "TPU_PREFIX_CACHE",
     "TPU_PREFIX_MIN", "TPU_KVCACHE_BLOCK", "TPU_KVCACHE_HOST_MB",
@@ -60,12 +69,29 @@ UNPORTED_ROWS = (
     "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_BUDGET_MB",
     "TPU_HBM_HEADROOM", "TPU_HBM_DEVICE_BUDGET_MB", "TPU_MAX_QUEUE_DEPTH",
     "TPU_MAX_QUEUE_DELAY", "TPU_BROWNOUT_DELAY", "TPU_BROWNOUT_MAX_NEW",
-    "TPU_BATCH_BUCKETS", "TPU_SEQ_BUCKETS", "TPU_MAX_BATCH_DELAY",
+    "TPU_BATCH_BUCKETS", "TPU_MAX_BATCH_DELAY",
     "TPU_SHARDING", "TPU_PD_LISTEN", "TPU_PD_PEER", "TPU_PD_BLOCK",
     "TPU_PD_WINDOW_MB", "TPU_WARMUP", "TPU_TENANTS", "TPU_TENANTS_INLINE",
     "TPU_TENANTS_RELOAD_S", "TPU_TENANT_HEADER", "TPU_TENANT_TOPIC",
     "TPU_TENANT_CHECKPOINT_EVERY",
 )
+
+
+def _opt_int(val: str | None) -> int | None:
+    """A row whose unset value means something of its own (None); a
+    malformed value reads as unset, as in the JAX reader."""
+    if not val:
+        return None
+    try:
+        return int(val)
+    except (TypeError, ValueError):
+        return None
+
+
+def _csv_ints(val: str | None, default: tuple[int, ...]) -> tuple[int, ...]:
+    if not val:
+        return default
+    return tuple(int(x) for x in val.split(",") if x.strip())
 
 
 def _check_rows(cfg) -> None:
@@ -104,9 +130,13 @@ def new_engine_from_config(cfg, device="cuda", logger=None) -> TorchEngine:
                             (cfg.get("TPU_QUANT") or "").lower() == "int8")
     max_seq = cfg.get_int("TPU_MAX_SEQ", min(mc.max_seq, 2048))
     kv_choice = (cfg.get("TPU_KV_DTYPE") or "int8").lower()
+    seq_buckets = _csv_ints(cfg.get("TPU_SEQ_BUCKETS"), DEFAULT_SEQ_BUCKETS)
+    prompt_b = tuple(b for b in seq_buckets if b < max_seq) \
+        or (max_seq // 2,)
     generator = GenerationEngine(
         mc, params, slots=cfg.get_int("TPU_SLOTS", 48), max_seq=max_seq,
-        logger=logger,
+        logger=logger, prompt_buckets=prompt_b,
+        prefill_chunk=_opt_int(cfg.get("TPU_PREFILL_CHUNK")),
         kv_dtype=torch.int8 if kv_choice == "int8" else None,
         decode_block=cfg.get_int("TPU_DECODE_BLOCK", 4),
         decode_pipeline=cfg.get_int("TPU_DECODE_PIPELINE", 2),

@@ -10,10 +10,25 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
     grows every active slot's blocks before each decode block, and a
     slot the pool cannot grow is truncated and counted, never
     corrupted. Pool pressure plays out as in the JAX engine.
-  - Admission prefills ONE prompt at its exact length (eager PyTorch has
-    no compile keys, so there are no prompt buckets and no chunking up to
-    ``max_seq - 1`` tokens), writes its KV into the slot and samples the
-    first token, so TTFT is one prefill.
+  - Admission pads a prompt of at most the largest prompt bucket
+    (``prompt_buckets``, default 32..512 as in JAX) to its bucket and
+    prefills it once, writes its KV into the slot and samples the first
+    token, so TTFT is one prefill. A longer prompt runs JAX's chunk
+    lattice: mid chunks of C = ``prefill_chunk`` tokens (default the
+    largest bucket) against the slot's row with the slot's cursor parked
+    at capacity, then a final chunk of one bucket's width ending at the
+    prompt's end; with interleave on (JAX's default) one admission pass
+    for arrivals and one decode block for the live slots run between
+    mid chunks. A paged engine runs the lattice on a dense single-slot
+    scratch row and lands it in the slot's blocks in one copy. The
+    lattice runs only from the loop's synchronous pass, with no block
+    in flight: an arrival that needs it while blocks are queued is put
+    back at the front of the queue and drops the pipeline to depth 1.
+    On the card each admission dispatch (a bucket's prefill, a mid
+    chunk, a final chunk, the paged write-back) is one replay of a CUDA
+    graph captured at construction (the port of ``_prefill_jit``,
+    ``_chunk_mid_jit``, ``_chunk_final_jit``); the CPU runs the same
+    functions eagerly.
   - Decode runs K = ``decode_block`` steps per dispatch over all slots
     (``fused_decode_block``, the port of the JAX engine's fused scan)
     with the sampled token fed back on the device and per-slot stop
@@ -96,6 +111,30 @@ EOS_MAX = 8
 # 7 seed, 8 position of the next sample (the host's value, read only
 # under host_wins), 9.. the EOS set, then (paged) the block-table row
 PACK_EXTRA = 9
+
+# the JAX engine's default prompt buckets (gofr_tpu/tpu/engine.py)
+DEFAULT_SEQ_BUCKETS = (32, 64, 128, 256, 512)
+
+
+def pad_bucket(n: int, buckets) -> int:
+    """Smallest configured bucket >= n (each bucket is one captured
+    graph; the largest when none is that wide)."""
+    for b in sorted(buckets):
+        if b >= n:
+            return b
+    return max(buckets)
+
+
+class _Pending(queue.Queue):
+    """The admission queue: FIFO, plus ``put_front`` for a request the
+    in-flight admission pass defers to the next synchronous pass."""
+
+    def put_front(self, item) -> None:
+        with self.not_empty:
+            self.queue.appendleft(item)
+            self.unfinished_tasks += 1
+            self.not_empty.notify()
+
 
 # the kernel wrappers' counters: a graph replay runs no Python, so the
 # engine adds what each graph's capture counted at every replay
@@ -235,10 +274,155 @@ def verify_epilogue(logits: torch.Tensor, window: torch.Tensor,
     return greedy, lps, accepted, emit
 
 
+class AdmissionInputs:
+    """The admission dispatches' device inputs: views of one int64
+    vector the host fills before each dispatch (one upload; the
+    captured admission graphs read these very tensors, so nothing of a
+    request is baked into a graph). Layout: the prompt's length (the
+    cursor the admission leaves), the slot (the batch row written), a
+    chunk's start, the position the first token is sampled at, the
+    request's temperature (float32 bits), top-k and seed, then
+    ``n_blocks`` pool block ids (paged), then ``width`` token ids,
+    zero-padded."""
+
+    LENGTH, SLOT, START, LOGIT_POS, TEMP, TOP_K, SEED = range(7)
+    HEAD = 7
+
+    def __init__(self, n_blocks: int, width: int, device):
+        self.n_blocks = n_blocks
+        self.width = width
+        self.buf = torch.zeros((self.HEAD + n_blocks + width,),
+                               dtype=torch.long, device=device)
+
+    def _at(self, i: int) -> torch.Tensor:
+        return self.buf[i:i + 1]
+
+    @property
+    def length(self) -> torch.Tensor:
+        return self._at(self.LENGTH).to(torch.int32)
+
+    @property
+    def slot(self) -> torch.Tensor:
+        return self._at(self.SLOT)
+
+    @property
+    def start(self) -> torch.Tensor:
+        return self._at(self.START)
+
+    @property
+    def logit_pos(self) -> torch.Tensor:
+        return self._at(self.LOGIT_POS)
+
+    @property
+    def temp(self) -> torch.Tensor:
+        return self._at(self.TEMP).to(torch.int32).view(torch.float32)
+
+    @property
+    def top_k(self) -> torch.Tensor:
+        return self._at(self.TOP_K)
+
+    @property
+    def seed(self) -> torch.Tensor:
+        return self._at(self.SEED)
+
+    def blocks(self, n: int) -> torch.Tensor:
+        return self.buf[self.HEAD:self.HEAD + n]
+
+    def tokens(self, width: int) -> torch.Tensor:
+        lo = self.HEAD + self.n_blocks
+        return self.buf[lo:lo + width][None]
+
+    def pack(self, host: np.ndarray, tokens, *, length: int, slot: int,
+             start: int, logit_pos: int, temp: float, top_k: int, seed: int,
+             blocks) -> None:
+        """Fill ``host`` (this vector's host image) for one dispatch."""
+        host[:] = 0
+        host[self.LENGTH] = length
+        host[self.SLOT] = slot
+        host[self.START] = start
+        host[self.LOGIT_POS] = logit_pos
+        host[self.TEMP] = np.float32(temp).view(np.int32)
+        host[self.TOP_K] = top_k
+        host[self.SEED] = seed
+        host[self.HEAD:self.HEAD + len(blocks)] = blocks
+        lo = self.HEAD + self.n_blocks
+        host[lo:lo + len(tokens)] = tokens
+
+
+def _first_token(logits: torch.Tensor, inp: AdmissionInputs,
+                 draw: bool) -> torch.Tensor:
+    """The first token and its logprob, [2] float64, sampled from
+    logits [1, V] under the request's key at position 0 (the JAX
+    engine's ``fold_in(PRNGKey(seed), 0)``)."""
+    tok, lp = sample(logits, inp.temp, inp.seed, torch.zeros_like(inp.seed),
+                     inp.top_k, draw)
+    return torch.cat([tok.double(), lp.double()])
+
+
+def prefill_admission(params: dict, cfg: ModelConfig, cache,
+                      inp: AdmissionInputs, rope_tables, *, bucket: int,
+                      draw: bool) -> torch.Tensor:
+    """A bucket admission (the JAX engine's ``_prefill_fn``, or
+    ``_paged_prefill_fn`` for a ``paged_llama.PagedKVCache``): prefill
+    the prompt padded to ``bucket`` tokens through flash_prefill with
+    its true length, write its KV into the slot's row (paged: into
+    ``inp.blocks``, ceil(bucket/T) ids, those past the prompt's own
+    blocks the trash block), set the slot's cursor to the length and
+    sample the first token at the prompt's last position. Tensors in,
+    [2] float64 (token, logprob) out, no host read: the engine captures
+    one graph per (bucket, draw) on the card."""
+    length = inp.length
+    logits, k, v, _ = llama.prefill_kv(
+        params, cfg, inp.tokens(bucket), length, rope_tables=rope_tables,
+        flash=True, logit_pos=inp.logit_pos)
+    if isinstance(cache, paged_llama.PagedKVCache):
+        paged_llama.write_prompt_blocks(
+            cache, k, v, inp.blocks(-(-bucket // cache.block_size)), length)
+    else:
+        llama.write_kv(cache, k, v, slot=inp.slot)
+    cache.lengths.index_copy_(0, inp.slot, length)
+    return _first_token(logits[:, 0], inp, draw)
+
+
+def chunk_admission(params: dict, cfg: ModelConfig, cache: llama.KVCache,
+                    inp: AdmissionInputs, rope_tables, *, width: int,
+                    final: bool, draw: bool = False):
+    """One chunk of the lattice (the JAX engine's ``_chunk_fn``):
+    ``width`` tokens at ``inp.start`` into row ``inp.slot`` of
+    ``cache`` (a serving cache, or a paged engine's B=1 scratch row).
+    A mid chunk parks the row's cursor at capacity, so the decode blocks
+    interleaved between chunks drop their writes for it, and returns
+    None; the final chunk sets the cursor to the prompt's length and
+    returns the first token, sampled at ``inp.logit_pos`` within the
+    chunk ([2] float64)."""
+    logits, _ = llama.prefill_chunk(
+        params, cfg, inp.tokens(width), cache, inp.start, inp.slot,
+        rope_tables=rope_tables, compute_logits=final,
+        logit_pos=inp.logit_pos if final else None)
+    if not final:
+        cache.lengths.index_fill_(0, inp.slot, cache.k.shape[2])
+        return None
+    cache.lengths.index_copy_(0, inp.slot, inp.length)
+    return _first_token(logits[:, 0], inp, draw)
+
+
+def writeback_admission(cache: paged_llama.PagedKVCache,
+                        row: llama.KVCache, inp: AdmissionInputs) -> None:
+    """A paged long prompt's last dispatch: its chunked scratch row into
+    the slot's blocks (``inp.blocks``, one id per MB block, those past
+    the prompt's own the trash block), then the slot's cursor."""
+    T = cache.block_size
+    paged_llama.write_row_to_blocks(cache, row,
+                                    inp.blocks(-(-row.k.shape[2] // T)))
+    cache.lengths.index_copy_(0, inp.slot, inp.length)
+
+
 class GenStream(PushStream):
     """Iterator over generated token ids; ``cancel()`` releases the slot.
     ``trace`` holds time.monotonic() stamps: "submit", "admit",
-    "prefill_done" and "first_put" (the first token's delivery)."""
+    "prefill_done" and "first_put" (the first token's delivery);
+    ``chunks`` counts the mid chunks of its prefill (0 for a bucket
+    admission)."""
 
     def __init__(self, request_id: int, logprobs: bool = False):
         super().__init__()
@@ -248,6 +432,7 @@ class GenStream(PushStream):
         self.logprobs = logprobs  # items are (token, logprob) tuples
         self.trace: dict[str, float] = {}
         self.seed: int | None = None
+        self.chunks = 0
 
     def tokens(self) -> list[int]:
         """Drain the whole stream (blocking) into a list of ids."""
@@ -314,7 +499,10 @@ class GenerationEngine:
                  max_seq: int | None = None, logger=None, seed: int = 0,
                  kv_dtype: torch.dtype | None = None, decode_block: int = 4,
                  decode_pipeline: int = 2, admit_window_ms: float = 2.0,
-                 device="cuda", prefix_cache_slots: int = 0,
+                 device="cuda",
+                 prompt_buckets: tuple[int, ...] = DEFAULT_SEQ_BUCKETS,
+                 prefill_chunk: int | None = None,
+                 prefix_cache_slots: int = 0,
                  spec_decode_k: int = 0, lora_adapters: int = 0,
                  paged_blocks: int = 0, paged_block_size: int = 128,
                  kvcache=None, mesh=None):
@@ -339,6 +527,22 @@ class GenerationEngine:
         self.n_slots = slots
         self.decode_block = max(1, int(decode_block))
         self.max_seq = min(max_seq or cfg.max_seq, cfg.max_seq)
+        self.prompt_buckets = tuple(sorted(
+            b for b in prompt_buckets if b <= self.max_seq)) \
+            or (self.max_seq,)
+        # The chunked-prefill budget (TPU_PREFILL_CHUNK), as in JAX: None
+        # is the largest bucket with interleave on; <= 0 interleave off
+        # (the chunks run back to back); any other value snaps up to a
+        # bucket (a chunk width is a captured graph)
+        c_max = self.prompt_buckets[-1]
+        if prefill_chunk is None:
+            self._chunk, self._chunk_interleave = c_max, True
+        elif prefill_chunk <= 0:
+            self._chunk, self._chunk_interleave = c_max, False
+        else:
+            self._chunk = pad_bucket(min(int(prefill_chunk), c_max),
+                                     self.prompt_buckets)
+            self._chunk_interleave = True
         self.logger = logger
         self._seed = int(seed)
         self._auto_seed = itertools.count(1)
@@ -352,11 +556,11 @@ class GenerationEngine:
                 raise ValueError(f"paged_block_size={paged_block_size} "
                                  "must be positive")
             self._mb = -(-self.max_seq // self._block_t)
-            if paged_blocks < 2:
-                # no prompt buckets here, so the floor is the trash
-                # block plus one block to serve from
+            min_blocks = 2 + self.prompt_buckets[-1] // self._block_t
+            if paged_blocks < min_blocks:
                 raise ValueError(f"paged_blocks={paged_blocks} too small: "
-                                 "need >= 2 (trash block + one block)")
+                                 f"need >= {min_blocks} (trash block + "
+                                 "one prompt's worth)")
             self._alloc = paged_llama.BlockAllocator(paged_blocks)
             self._table = np.zeros((slots, self._mb), np.int32)
             self._slot_blocks: list[list[int]] = [[] for _ in range(slots)]
@@ -376,6 +580,25 @@ class GenerationEngine:
                                           dtype=kv_dtype, device=self.device)
         self.rope_tables = llama.get_rope_tables(cfg, self.max_seq,
                                                  self.device)
+        # a prompt past the chunk budget runs the chunk lattice; a paged
+        # engine runs it on a dense single-slot scratch row (one slot's
+        # row of memory), landed in the slot's blocks in one copy
+        self._lattice = self.max_seq - 1 > self._chunk
+        if self._paged and self._lattice:
+            self._scratch = llama.init_cache(cfg, 1, self.max_seq,
+                                             dtype=kv_dtype,
+                                             device=self.device)
+        # the admission dispatches' inputs, one vector uploaded per
+        # dispatch (AdmissionInputs); no dispatch is wider than the chunk
+        # budget, itself a bucket
+        self._adm_in = AdmissionInputs(self._mb if self._paged else 0,
+                                       self._chunk, self.device)
+        self._adm_uploads = 0
+        self.admission_replays = 0   # admission dispatches run as replays
+        # set when the in-flight admission pass deferred a lattice
+        # admission; drops the pipeline to depth 1 until the synchronous
+        # pass that runs it
+        self._lattice_deferred = False
 
         self._slots = [_Slot() for _ in range(slots)]
         self._last_tokens = np.zeros((slots,), np.int64)
@@ -430,7 +653,7 @@ class GenerationEngine:
         # (decode_step_ms_mean's reap-to-reap anchor)
         self._steady_from: float | None = None
 
-        self._pending: "queue.Queue[_Request]" = queue.Queue()
+        self._pending: "_Pending[_Request]" = _Pending()
         self._device_lock = threading.Lock()
         self._admission_lock = threading.Lock()
         self._work = threading.Event()
@@ -446,6 +669,7 @@ class GenerationEngine:
         self._verify_s: "deque[float]" = deque(maxlen=1024)
         if self.device.type == "cuda":
             self._capture_graphs()
+            self._capture_admission_graphs()
         if self._spec_k:
             self._warm_verify()
         self._thread = threading.Thread(target=self._loop,
@@ -526,6 +750,7 @@ class GenerationEngine:
             "active": int(self._active.sum()),
             "queued": self._pending.qsize(),
             "max_seq": self.max_seq,
+            "prompt_buckets": list(self.prompt_buckets),
             "decode_block": self.decode_block,
             "kv_dtype": str(self.cache.k.dtype),
             "device": str(self.device),
@@ -535,8 +760,11 @@ class GenerationEngine:
             "decode_steps": self.decode_steps,
             "decode_step_ms_mean": step_ms,
             "graph_replays": self.graph_replays,
+            "admission_replays": self.admission_replays,
             "pack_uploads": self.pack_uploads,
-            "scheduler": {"pipeline": self._pipeline_stats()},
+            "scheduler": {"prefill_chunk": self._chunk,
+                          "chunk_interleave": self._chunk_interleave,
+                          "pipeline": self._pipeline_stats()},
             "down": self.down,
         }
         if self._paged:
@@ -609,6 +837,10 @@ class GenerationEngine:
                 if pipe or self._active.any() or not self._pending.empty():
                     with self._device_lock:
                         if not pipe:
+                            # the synchronous pass, the only one that
+                            # may run a chunk lattice (its interleaved
+                            # decode blocks need a fully reaped loop)
+                            self._lattice_deferred = False
                             self._admit()
                         depth = self._target_depth()
                         while len(pipe) < depth and not self._closed:
@@ -675,15 +907,17 @@ class GenerationEngine:
         readiness probe, so a device that finishes blocks before the
         host looks (the CPU runs them at dispatch) still admits while
         blocks are queued; then it polls the block's event every
-        TPU_ADMIT_WINDOW_MS, admitting what arrives. The deadline bounds
-        the poll: the reap then waits on the event."""
+        TPU_ADMIT_WINDOW_MS, admitting what arrives. An arrival that needs
+        the chunk lattice waits for the next synchronous pass
+        (``defer_lattice``). The deadline bounds the poll: the reap then
+        waits on the event."""
         deadline = time.monotonic() + 60.0
         poll = self._admit_window or 1e-3
         while not self._closed and time.monotonic() < deadline:
             started = 0
             if not self._pending.empty():
                 with self._device_lock:
-                    started = self._admit()
+                    started = self._admit(defer_lattice=True)
             if inflight.ready():
                 inflight.ready_t = time.monotonic()
                 return
@@ -694,10 +928,11 @@ class GenerationEngine:
 
     def _target_depth(self) -> int:
         """Pipeline depth for the next top-up (also in stats()): the
-        policy's verdict on the facts this engine has. No latency class
-        and no chunk lattice are ported, so only spec decoding pins
-        depth 1."""
-        return self._pipeline.target(spec_decode=bool(self._spec_k))
+        policy's verdict on the facts this engine has. A deferred
+        lattice admission and spec decoding pin depth 1 (no latency
+        class is ported)."""
+        return self._pipeline.target(lattice_deferred=self._lattice_deferred,
+                                     spec_decode=bool(self._spec_k))
 
     def _note_dispatch(self, now: float) -> None:
         """Close an open inter-block gap: the device stream ran dry at
@@ -708,9 +943,14 @@ class GenerationEngine:
         gap, self._idle_from = max(0.0, now - self._idle_from), None
         self._gap_samples.append(gap)
 
-    def _admit(self) -> int:
+    def _admit(self, defer_lattice: bool = False) -> int:
         """Start pending requests in free slots; returns how many
-        started."""
+        started. ``defer_lattice``: the in-flight pass must not start a
+        chunk-lattice admission (its interleaved decode blocks would
+        decode the active slots a second time under the unreaped block),
+        so such a request goes back to the front of the queue for the
+        next synchronous pass, and the pipeline drops to depth 1 so that
+        pass comes within one reap."""
         started = 0
         for idx, slot in enumerate(self._slots):
             if not slot.free:
@@ -718,6 +958,10 @@ class GenerationEngine:
             try:
                 req = self._pending.get_nowait()
             except queue.Empty:
+                break
+            if defer_lattice and self._needs_lattice(req):
+                self._lattice_deferred = True
+                self._pending.put_front(req)
                 break
             if req.stream.cancelled.is_set():
                 req.stream._q.put(None)
@@ -736,41 +980,180 @@ class GenerationEngine:
             started += 1
         return started
 
+    def _needs_lattice(self, req: _Request) -> bool:
+        """Would admitting ``req`` run the chunk lattice? (A prompt past
+        the chunk budget.)"""
+        return len(req.prompt) > self._chunk
+
     def _prefill(self, idx: int, req: _Request,
                  blocks: list[int] | None) -> tuple[int, float]:
         """Prefill the prompt into slot ``idx`` (paged: into ``blocks``)
-        at its exact length and sample the first token (position 0 of
-        the request's stream). Queued on the stream behind any blocks in
-        flight; reading the first token waits for them."""
+        and sample the first token (position 0 of the request's stream):
+        one bucket dispatch, or the chunk lattice past the chunk budget.
+        Queued on the stream behind any blocks in flight; reading the
+        first token waits for them."""
+        if self._paged:
+            return self._paged_admit_prefill(idx, req, blocks)
+        if len(req.prompt) <= self._chunk:
+            return self._bucket_prefill(idx, req)
+        return self._chunk_lattice(idx, req)
+
+    def _bucket_prefill(self, idx: int, req: _Request,
+                        blocks: list[int] = ()) -> tuple[int, float]:
         n = len(req.prompt)
-        dev = self.device
-        tokens = torch.tensor(req.prompt[None], dtype=torch.long, device=dev)
-        with torch.no_grad():
-            logits, k, v, _ = llama.prefill_kv(
-                self.params, self.cfg, tokens,
-                torch.tensor([n], dtype=torch.int32, device=dev),
-                rope_tables=self.rope_tables, flash=True,
-                logit_pos=torch.tensor([n - 1], device=dev))
+        bucket = pad_bucket(n, self.prompt_buckets)
+        self._admission_inputs(req.prompt, req, length=n, slot=idx,
+                               logit_pos=n - 1, blocks=blocks)
+        return self._run_admission(("prefill", bucket,
+                                    req.temperature > 0))
+
+    def _paged_admit_prefill(self, idx: int, req: _Request,
+                             blocks: list[int]) -> tuple[int, float]:
+        """Paged admission (the JAX engine's ``_paged_admit_prefill``
+        without a prefix hit). The blocks are the slot's from the start,
+        so every exit path frees them through ``_retire``; its table row
+        stays zeroed (trash-routed) until the prompt is in, because the
+        decode blocks a lattice interleaves step the slot at its stale
+        cursor. A bucket prompt is one dispatch writing ceil(bucket/T)
+        blocks (ids past the prompt's own: the trash block); a longer one
+        runs the lattice on the scratch row, then one copy lands the row
+        in the blocks and sets the cursor."""
+        n = len(req.prompt)
+        self._slot_blocks[idx] = blocks
+        self._cursors[idx] = n
+        if n <= self._chunk:
+            width = -(-pad_bucket(n, self.prompt_buckets) // self._block_t)
+            first = self._bucket_prefill(
+                idx, req, blocks + [0] * (width - len(blocks)))
+            self._write_table_row(idx)
+            return first
+        first = self._chunk_lattice(0, req)
+        if req.stream.cancelled.is_set():
+            return first   # the slot retires at delivery, freeing blocks
+        self._admission_inputs((), req, length=n, slot=idx,
+                               blocks=blocks + [0] * (self._mb - len(blocks)))
+        self._run_admission(("writeback",))
+        self._write_table_row(idx)
+        return first
+
+    def _chunk_lattice(self, row: int, req: _Request) -> tuple[int, float]:
+        """The chunked-prefill lattice (the JAX engine's
+        ``_chunk_lattice``) for ``req.prompt`` into batch row ``row`` of
+        the serving cache (paged: row 0 of the scratch row): mid chunks
+        of C tokens from position 0 while more than C remain, then a
+        final chunk of bucket width Sb ending exactly at the prompt's
+        end (it may overlap the last mid chunk: those positions
+        recompute the same KV). With interleave on, between mid chunks:
+        one admission pass for arrivals into other free slots (lattice
+        arrivals deferred: one lattice at a time), then one decode block
+        for the live slots, reaped at once. Returns the first token and
+        its logprob, or (0, 0.0) when the stream was cancelled mid-way
+        (the slot retires at delivery)."""
+        n = len(req.prompt)
+        c = self._chunk
+        pos = 0
+        while n - pos > c:
+            if req.stream.cancelled.is_set():
+                return 0, 0.0
+            self._admission_inputs(req.prompt[pos:pos + c], req, slot=row,
+                                   start=pos)
+            self._run_admission(("mid",))
+            pos += c
+            req.stream.chunks += 1
+            if not self._chunk_interleave:
+                continue
+            self._admit(defer_lattice=True)
+            inflight = self._decode_tick()
+            if inflight is not None:
+                inflight.reap(False)
+        if req.stream.cancelled.is_set():
+            return 0, 0.0
+        width = pad_bucket(n - pos, self.prompt_buckets)
+        self._admission_inputs(req.prompt[n - width:], req, length=n,
+                               slot=row, start=n - width,
+                               logit_pos=width - 1)
+        return self._run_admission(("final", width, req.temperature > 0))
+
+    def _admission_inputs(self, tokens, req: _Request, *, slot: int,
+                          length: int = 0, start: int = 0,
+                          logit_pos: int = 0, blocks=()) -> None:
+        """Upload one admission dispatch's inputs (AdmissionInputs). On
+        the card through one of two pinned staging buffers, copied
+        ``non_blocking`` behind whatever the stream holds, a buffer
+        written again only once the copy that read it has completed."""
+        inp = self._adm_in
+        cuda = self.device.type == "cuda"
+        if cuda:
+            staged, copied = self._adm_staging[self._adm_uploads % 2]
+            copied.synchronize()
+            host = staged.numpy()
+        else:
+            host = np.empty(tuple(inp.buf.shape), np.int64)
+        inp.pack(host, tokens, length=length, slot=slot, start=start,
+                 logit_pos=logit_pos, temp=req.temperature,
+                 top_k=req.top_k, seed=req.seed, blocks=blocks)
+        if cuda:
+            inp.buf.copy_(staged, non_blocking=True)
+            copied.record()
+        else:
+            inp.buf.copy_(torch.from_numpy(host))
+        self._adm_uploads += 1
+
+    def _admission_fn(self, key: tuple):
+        """The admission dispatch ``key`` names, bound to the engine's
+        tensors: ("prefill", bucket, draw), ("mid",), ("final", width,
+        draw) or ("writeback",)."""
+        kind = key[0]
+        if kind == "prefill":
+            return functools.partial(
+                prefill_admission, self.params, self.cfg, self.cache,
+                self._adm_in, self.rope_tables, bucket=key[1], draw=key[2])
+        if kind == "writeback":
+            return functools.partial(writeback_admission, self.cache,
+                                     self._scratch, self._adm_in)
+        final = kind == "final"
+        return functools.partial(
+            chunk_admission, self.params, self.cfg,
+            self._scratch if self._paged else self.cache, self._adm_in,
+            self.rope_tables, width=key[1] if final else self._chunk,
+            final=final, draw=final and key[2])
+
+    def _admission_keys(self) -> list[tuple]:
+        """Every admission dispatch this engine can run: a prefill per
+        bucket within the chunk budget (wider buckets never dispatch)
+        and draw value; with the lattice, the mid chunk, a final chunk
+        per such bucket and draw value, and (paged) the write-back."""
+        buckets = [b for b in self.prompt_buckets if b <= self._chunk]
+        keys = [("prefill", b, d) for b in buckets for d in (False, True)]
+        if self._lattice:
+            keys.append(("mid",))
+            keys += [("final", b, d) for b in buckets for d in (False, True)]
             if self._paged:
-                # the slot owns its blocks from here: every exit path
-                # frees them through _retire (or _start's failure path)
-                self._slot_blocks[idx] = blocks
-                self._cursors[idx] = n
-                paged_llama.write_prompt_blocks(self.cache, k, v, blocks)
-                self._write_table_row(idx)
-            else:
-                llama.write_kv(self.cache, k, v, slot=idx)
-            self.cache.lengths[idx] = n
-            tok, lp = sample(
-                logits[:, 0],
-                torch.tensor([req.temperature], dtype=torch.float32,
-                             device=dev),
-                torch.tensor([req.seed], device=dev),
-                torch.zeros((1,), dtype=torch.long, device=dev),
-                torch.tensor([req.top_k], device=dev),
-                draw=req.temperature > 0)
-        out = torch.stack([tok.double(), lp.double()]).cpu()
-        return int(out[0, 0]), float(out[1, 0])
+                keys.append(("writeback",))
+        return keys
+
+    def _run_admission(self, key: tuple):
+        """Run one admission dispatch on the inputs uploaded last: its
+        (first token, logprob), or None for a mid chunk and the
+        write-back. On the card one replay of its graph, whose first
+        token is copied into a pinned buffer and read after the copy's
+        event (as JAX reads ``int(tok)``: behind the blocks in flight);
+        on the CPU the function, eagerly."""
+        if self.device.type != "cuda":
+            with torch.no_grad():
+                out = self._admission_fn(key)()
+            return None if out is None else (int(out[0]), float(out[1]))
+        graph, out, deltas = self._adm_graphs[key]
+        graph.replay()
+        _add_counts(deltas)
+        self.admission_replays += 1
+        if out is None:
+            return None
+        host, done = self._adm_out
+        host.copy_(out, non_blocking=True)
+        done.record()
+        done.synchronize()
+        return int(host[0]), float(host[1])
 
     def _start(self, idx: int, slot: _Slot, req: _Request,
                blocks: list[int] | None = None) -> None:
@@ -905,48 +1288,85 @@ class GenerationEngine:
             # max_seq - 2 mean the NEXT delivery would reach the bound
             capacity=self.max_seq - 2, draw=draw)
 
+    def _capture(self, fns: dict, label: str) -> dict:
+        """Capture each ``fns[key]()`` into a CUDA graph, all the graphs
+        in one memory pool of their own: each function runs once on a
+        side stream first (as JAX warms its programs), then the captures.
+        A capture launches nothing, so the launch counters go back to
+        what they were, and what they counted is added at each replay.
+        Returns key -> (graph, output, counter deltas). Raises when a
+        capture fails: on the card there is no eager path."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), torch.no_grad():
+            for fn in fns.values():
+                fn()
+        main.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        graphs = {}
+        pool = None
+        for key, fn in fns.items():
+            graph = torch.cuda.CUDAGraph()
+            before = _counts()
+            try:
+                with torch.no_grad(), torch.cuda.graph(
+                        graph, pool=pool, capture_error_mode="thread_local"):
+                    out = fn()
+            except Exception as e:
+                raise RuntimeError(
+                    f"capturing the {label.format(key)} as a CUDA graph "
+                    f"failed: {e!r}") from e
+            finally:
+                deltas = [a - b for a, b in zip(_counts(), before)]
+                _add_counts([-d for d in deltas])
+            pool = graph.pool()
+            graphs[key] = (graph, out, deltas)
+        return graphs
+
     def _capture_graphs(self) -> None:
         """The port of the JAX engine's ``_step_jit``: the decode block
-        captured into one CUDA graph per ``draw`` value, the two sharing
-        one memory pool. The kernels are built and loaded first; each
-        graph's body runs once on a side stream over the all-inactive
-        warm pack (as JAX warms its step); then the captures. A capture
-        launches nothing, so the launch counters go back to what they
-        were, and what they counted is added at each replay. Raises when
-        a capture fails: on the card every decode block is a replay."""
+        captured into one CUDA graph per ``draw`` value (``_capture``),
+        warmed over the all-inactive warm pack. The kernels are built and
+        loaded first."""
         kernels.build_all()
         self._staging = [(torch.empty(tuple(self._pack.shape),
                                       dtype=torch.long, pin_memory=True),
                           torch.cuda.Event()) for _ in range(2)]
         self._out_free: list = []   # pinned output buffers for reaps
         self._pack.copy_(torch.from_numpy(self._warm_pack()))
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side), torch.no_grad():
-            for draw in (False, True):
-                self._block(draw)
-        main.wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        self._graphs = {}
-        pool = None
-        for draw in (False, True):
-            graph = torch.cuda.CUDAGraph()
-            before = _counts()
-            try:
-                with torch.no_grad(), torch.cuda.graph(
-                        graph, pool=pool, capture_error_mode="thread_local"):
-                    out = self._block(draw)
-            except Exception as e:
-                raise RuntimeError(
-                    f"capturing the decode block (draw={draw}) as a CUDA "
-                    f"graph failed: {e!r}") from e
-            finally:
-                deltas = [a - b for a, b in zip(_counts(), before)]
-                _add_counts([-d for d in deltas])
-            pool = graph.pool()
-            self._graphs[draw] = (graph, out, deltas)
+        self._graphs = self._capture(
+            {draw: functools.partial(self._block, draw)
+             for draw in (False, True)}, "decode block (draw={})")
         self._pack_dirty = True   # the device pack holds the warm pack
+
+    def _capture_admission_graphs(self) -> None:
+        """The port of the JAX engine's ``_prefill_jit``,
+        ``_chunk_mid_jit`` and ``_chunk_final_jit`` (and, paged, its
+        write-back): one CUDA graph per admission dispatch
+        (``_admission_keys``, ``_capture``), in a pool apart from the
+        decode graphs', so no decode replay can reuse what an
+        admission's output holds before it is copied out. The warm-up
+        writes only what is rewritten before it is read (slot 0's row,
+        the trash block, the scratch row), and the cursors are zeroed
+        afterwards. ``admission_graph_bytes``: the memory the captures
+        reserved."""
+        reserved = torch.cuda.memory_reserved(self.device)
+        self._adm_staging = [(torch.zeros(tuple(self._adm_in.buf.shape),
+                                          dtype=torch.long, pin_memory=True),
+                              torch.cuda.Event()) for _ in range(2)]
+        self._adm_out = (torch.empty((2,), dtype=torch.float64,
+                                     pin_memory=True), torch.cuda.Event())
+        warm = _Request(GenStream(0), np.zeros((0,), np.int64), 0, 0.0, 0,
+                        None, 0)
+        self._admission_inputs((), warm, slot=0, length=1)
+        self._adm_graphs = self._capture(
+            {key: self._admission_fn(key) for key in self._admission_keys()},
+            "admission dispatch {}")
+        self.cache.lengths.zero_()
+        torch.cuda.synchronize(self.device)
+        self.admission_graph_bytes = (torch.cuda.memory_reserved(self.device)
+                                      - reserved)
 
     def _run_block(self, draw: bool):
         """Run one decode block: (its [K, 3, B] results on the host, the

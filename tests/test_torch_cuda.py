@@ -13,7 +13,11 @@ call of the same block function computes (contiguous and paged,
 sampling on and off, and after a prefill and a verify pass have moved
 the cursors between replays); a dispatch returns before its block is
 done; replays count their kernels' launches; and a body that cannot be
-captured makes construction raise. They
+captured makes construction raise. The admission path is captured too:
+K1 replays its eager bits inside a graph, each admission (a bucket
+prefill, the chunk lattice, the paged write-back) replays what its
+functions compute eagerly, and long prompts stream the same tokens with
+interleave on and off and on a contiguous engine. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -645,5 +649,165 @@ def test_construction_raises_when_capture_fails(gen, monkeypatch):
     monkeypatch.setattr(generator, "fused_decode_block", reads_the_host)
     started = threading.active_count()
     with pytest.raises(RuntimeError, match="capturing the decode block"):
+        _engine(False)
+    assert threading.active_count() == started
+
+
+# -- the admission path as CUDA graphs (tpu.generator) -------------------------
+
+def test_flash_prefill_replays_in_a_graph_with_the_eager_bits(gen):
+    """K1's shared-memory attribute is set once when its library loads,
+    so a launch can sit inside a captured graph: the replay returns the
+    eager call's bits."""
+    q = _randn(gen, 1, 512, 32, 128)
+    k, v = _randn(gen, 1, 512, 8, 128), _randn(gen, 1, 512, 8, 128)
+    lens = torch.tensor([500], dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash.flash_prefill(q, k, v, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash.flash_prefill(q, k, v, lens)
+    graph.replay()
+    want = flash.flash_prefill(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def _lattice_engine(paged: bool, **kw):
+    """SMALL with buckets of 16 and 32, so a prompt past 32 runs the
+    chunk lattice (mid chunks of 32)."""
+    return _engine(paged, prompt_buckets=(16, 32), **kw)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_admission_replays_equal_their_eager_functions(gen, paged):
+    """A bucket admission (one replay) and a lattice admission (three mid
+    chunks, a final chunk and, paged, the write-back) through the
+    engine's graphs, then the same admissions with each dispatch's
+    function run eagerly on a copy of the state they started from: the
+    same first token, cursors and cache bytes (and scratch row; a pool
+    outside its trash block)."""
+    from gofr_tpu_torch.tpu.generator import GenStream, _Request
+
+    eng = _lattice_engine(paged)
+    names = ["cache"] + (["_scratch"] if paged else [])
+    rng = np.random.default_rng(3)
+
+    def eager(key):
+        with torch.no_grad():
+            out = eng._admission_fn(key)()
+        return None if out is None else (int(out[0]), float(out[1]))
+
+    try:
+        with eng._device_lock:
+            for n, temp in ((30, 0.0), (100, 0.0), (100, 0.8)):
+                for name in names:
+                    c = getattr(eng, name)
+                    for t in (c.k, c.v):
+                        t.copy_(torch.randint(-127, 128, t.shape,
+                                              generator=gen, device="cuda",
+                                              dtype=torch.int8))
+                    for t in (c.k_scale, c.v_scale):
+                        t.copy_(torch.rand(t.shape, generator=gen,
+                                           device="cuda") * 0.02)
+                copies = {name: _snapshot_cache(getattr(eng, name))
+                          for name in names}
+                prompt = rng.integers(0, SMALL.vocab_size, n)
+                blocks = (rng.choice(np.arange(1, 49), -(-n // 16),
+                                     replace=False).tolist()
+                          if paged else None)
+
+                def admit():
+                    return eng._prefill(1, _Request(
+                        GenStream(0), prompt, 4, temp, 20, None, 9),
+                        blocks and list(blocks))
+
+                replays = eng.admission_replays
+                got = admit()
+                assert eng.admission_replays - replays == (
+                    1 if n <= 32 else 3 + 1 + paged)
+                real = {name: getattr(eng, name) for name in names}
+                for name in names:
+                    setattr(eng, name, copies[name])
+                eng._run_admission = eager
+                try:
+                    want = admit()
+                finally:
+                    del eng._run_admission
+                    for name in names:
+                        setattr(eng, name, real[name])
+                torch.cuda.synchronize()
+                assert got[0] == want[0]
+                assert abs(got[1] - want[1]) <= LOGPROB_ATOL
+                for name in names:
+                    a, b = real[name], copies[name]
+                    assert torch.equal(a.lengths, b.lengths)
+                    # the pool's trash block takes the write-back's rows
+                    # routed nowhere, several to a position: whichever
+                    # lands last stays, and nothing reads it
+                    live = slice(1 if paged and name == "cache" else 0,
+                                 None)
+                    for x, y in ((a.k, b.k), (a.v, b.v), (a.k_scale,
+                                 b.k_scale), (a.v_scale, b.v_scale)):
+                        assert torch.equal(x[:, live], y[:, live])
+    finally:
+        eng.close()
+
+
+def _snapshot_cache(c):
+    return dataclasses.replace(
+        c, k=c.k.clone(), v=c.v.clone(), lengths=c.lengths.clone(),
+        k_scale=c.k_scale.clone(), v_scale=c.v_scale.clone())
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_lattice_streams_through_replays_equal_the_contiguous_ones(gen,
+                                                                   paged):
+    """Long and short prompts served together: every admission is a
+    replay (the counters show K1 only at bucket admissions), and the
+    streams equal those of the same engine with interleave off and of a
+    contiguous engine."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, SMALL.vocab_size, n).tolist()
+               for n in (100, 20, 70, 31, 200)]
+    outs = []
+    for make in (lambda: _lattice_engine(paged),
+                 lambda: _lattice_engine(paged, prefill_chunk=0),
+                 lambda: _lattice_engine(False)):
+        eng = make()
+        try:
+            eng.generate([5, 9, 17], max_new_tokens=4).tokens()
+            adm0 = eng.admission_replays
+            flash.reset_counts()
+            streams = [eng.generate(p, max_new_tokens=12) for p in prompts]
+            outs.append([s.tokens() for s in streams])
+            chunks = [s.chunks for s in streams]
+            replays = eng.admission_replays - adm0
+        finally:
+            eng.close()
+        assert chunks == [3, 0, 2, 0, 6]
+        assert flash.launches == SMALL.n_layers * 2
+        assert flash.plain_calls == 0
+        assert replays == 2 + sum(c + 1 + eng._paged for c in chunks if c)
+    assert outs[0] == outs[1] == outs[2]
+
+
+def test_construction_raises_when_an_admission_capture_fails(gen,
+                                                              monkeypatch):
+    from gofr_tpu_torch.tpu import generator
+
+    body = generator.prefill_admission
+
+    def reads_the_host(*args, **kw):
+        out = body(*args, **kw)
+        out.sum().item()
+        return out
+
+    monkeypatch.setattr(generator, "prefill_admission", reads_the_host)
+    started = threading.active_count()
+    with pytest.raises(RuntimeError, match="capturing the admission"):
         _engine(False)
     assert threading.active_count() == started

@@ -297,7 +297,7 @@ def _engines(weights, **kw):
     jeng = JaxEngine(JCFG, jparams, slots=2, max_seq=64, decode_pipeline=1,
                      prompt_buckets=(8, 16), **jkw)
     teng = GenerationEngine(CFG, tparams, slots=2, max_seq=64, device="cpu",
-                            decode_pipeline=1, **kw)
+                            decode_pipeline=1, prompt_buckets=(8, 16), **kw)
     return jeng, teng
 
 
@@ -396,10 +396,11 @@ def test_pool_too_small_and_prompt_over_the_serving_limit(weights):
             s = eng.generate(list(range(1, 65)), max_new_tokens=2)
             with pytest.raises(Exception, match="serving limit"):
                 s.tokens()
-        # the smallest pool still serves
+        # the smallest pool still serves: the trash block plus the
+        # largest bucket's blocks plus one (JAX's floor)
         small = GenerationEngine(CFG, tparams, slots=2, max_seq=64,
-                                 device="cpu", paged_blocks=2,
-                                 paged_block_size=16)
+                                 device="cpu", paged_blocks=3,
+                                 paged_block_size=16, prompt_buckets=(8, 16))
         try:
             assert len(small.generate([1, 2, 3], max_new_tokens=5).tokens()) \
                 == 5

@@ -61,7 +61,7 @@ def weights():
 
 def _port(weights, depth, paged=False, kv="int8", **kw):
     args = dict(slots=4, max_seq=64, decode_block=4, decode_pipeline=depth,
-                kv_dtype=KV[kv][0], device="cpu")
+                kv_dtype=KV[kv][0], prompt_buckets=(8, 16, 32), device="cpu")
     if paged:
         args.update(PAGED)
     args.update(kw)

@@ -2,8 +2,9 @@
 chip_smoke.py, imports JAX or the JAX package; its entry points run on
 the card unless the caller asks for the CPU, and raise rather than fall
 back when there is no card; importing it builds nothing; and every C
-launcher it binds with ctypes exists in its source with the argument
-count the binding declares.
+launcher it binds with ctypes, and every one-time set-up it calls at
+load, exists in its source with the argument count the binding
+declares.
 """
 
 import ast
@@ -115,6 +116,20 @@ def test_every_ctypes_binding_matches_its_c_launcher():
         launchers = _c_launchers(source)
         assert name in launchers, (name, source)
         assert launchers[name] == len(argtypes), name
+
+
+def test_every_one_time_setup_exists_in_its_source():
+    """A source's set-up entry point (run once at load, never at a
+    launch a CUDA graph may capture) takes no arguments."""
+    from gofr_tpu_torch.ops import kernels
+
+    assert kernels.INITS
+    for source, name in kernels.INITS.items():
+        assert _c_launchers(source).get(name) == 0, (source, name)
+    # the launchers themselves set no attribute at a launch
+    text = (PORT / "ops" / "csrc" / "flash_prefill.cu").read_text()
+    launcher = text[text.index("int gofr_flash_prefill_bf16"):]
+    assert "cudaFuncSetAttribute" not in launcher
 
 
 def test_every_kernel_source_names_the_tpu_kernel_it_replaces():
