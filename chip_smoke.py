@@ -48,7 +48,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      the plain versions unused; then one more request under
      torch.profiler gives the device's busy share, by kind of kernel,
      and a bucket-512 admission beside three decoding streams its own
-     device time and the window's idle share; then a replay of each
+     device time and the window's idle share; a greedy stream killed by
+     the GENERATOR_MIDKILL seam after 12 tokens is continued with
+     continue_from (a full recompute) and its splice printed; then a
+     replay of each
      captured decode graph against an eager call of the same block
      function on a copy of the state, and a 500-token and a 1500-token
      admission (the lattice: two mid chunks, a final chunk) through the
@@ -80,6 +83,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      streams that differ from a spec-less paged engine's are printed;
      then a contiguous spec engine serves a few requests through
      verify_step;
+  5d. (phase ``durable``) durable streaming on the paged path: phase
+     paged's rows plus TPU_PREFIX_CACHE=8 on the same weights; a
+     request with a seeded 1536-token shared prefix (12 blocks) stores
+     an entry, then 15 more with the prefix and their own tails (two
+     sampled) and 4 unrelated prompts arrive at once: 15 hits, the
+     shared blocks' bytes unchanged, the pool back to its idle count
+     less the blocks the entries hold, flash_prefill 32 a bucket
+     admission and paged_decode 32 a decode step, the admission replays
+     by kind (read-back, mid, final, write-back, prefill); TTFT of hits,
+     the storing request and misses, and the read-back graph's device
+     time; a greedy and a seeded hit killed by GENERATOR_MIDKILL after
+     12 tokens while others decode, continued with continue_from (the
+     continuation must hit its stored prompt; the splice is printed);
+     then a DeviceLost at the step seam with a block in flight: the 32
+     live streams fail, 4 queued requests are served, the engine stays
+     up, the index is empty, the pool whole, the graphs kept, and a
+     greedy request streams the same tokens before and after;
   6. a ``{"kernels": [...]}`` line, then the card line, then the
      ``{"ok": true, "device": {...}}`` line last.
 
@@ -1156,15 +1176,16 @@ def admission_vs_eager(gen, seed: int, tag: str) -> None:
             return _Request(GenStream(0), prompt, 4, 0.8 if draw else 0.0,
                             50 if draw else 0, None, seed_r)
 
+        held = blocks and ([], 0, list(blocks))   # (shared, matched, fresh)
         replays0 = gen.admission_replays
-        got = gen._prefill(slot, request(), blocks and list(blocks))
+        got = gen._prefill(slot, request(), held)
         replays = gen.admission_replays - replays0
         real = {name: getattr(gen, name) for name in caches}
         for name, c in copies.items():
             setattr(gen, name, c)
         gen._run_admission = eager
         try:
-            want = gen._prefill(slot, request(), blocks and list(blocks))
+            want = gen._prefill(slot, request(), held)
         finally:
             del gen._run_admission
             for name, c in real.items():
@@ -1401,6 +1422,10 @@ def phase_main_path(card: str) -> dict:
         adm_replays = gen.admission_replays - adm_replays0
         stats = gen.stats()
         health = engine.health_check()
+        # one contiguous continue_from resume (a full recompute of
+        # prompt + emitted, then flash_decode), outside the counted run
+        (spliced,), _ = kill_and_resume(engine, [(prompts[1], {})],
+                                        [prompts[2]], new_tokens)
         profile_decode(engine, prompts[4], card)
         profile_admission(engine, prompts[1], [prompts[i] for i in (0, 2, 4)],
                           card, "main-admission")
@@ -1432,6 +1457,14 @@ def phase_main_path(card: str) -> dict:
             f"plain versions ran on the main path: {counts}")
     require(stats["scheduler"]["pipeline"]["depth"] == 2,
             f"phase 5 serves at depth {stats['scheduler']['pipeline']}")
+    require(len(spliced) == new_tokens,
+            f"the resumed stream gave {len(spliced)} tokens")
+    print(f"[main] a {len(prompts[1])}-token greedy stream killed by "
+          f"GENERATOR_MIDKILL after {KILL_AT} tokens and continued with "
+          f"continue_from (contiguous: a full recompute, flash_decode): "
+          f"first index where the spliced stream differs from the "
+          f"uninterrupted one: {splice_agreement(spliced, outs[1])}",
+          flush=True)
     print(f"[main] {len(prompts)} requests, prompts "
           f"{MAIN_LENS + [MAIN_LENS[0]]}, {new_tokens} new tokens each: "
           f"{serve_line(stats, streams, outs, wall)}; {admissions} "
@@ -1507,6 +1540,7 @@ def phase_paged(card: str) -> dict:
     t0 = time.monotonic()
     engine = new_engine_from_config(MapConfig(PAGED_ROWS), device="cuda")
     gen = engine.generator
+    SHARED["params"] = gen.params   # the later phases' weights
     torch.cuda.synchronize()
     print(f"[paged] llama3-8b paged engine ready (decode graphs captured) "
           f"in {time.monotonic() - t0:.1f} s: {PAGED_ROWS}; "
@@ -1676,7 +1710,8 @@ def phase_spec(card: str) -> dict:
     from gofr_tpu_torch.tpu import GenerationEngine, new_engine_from_config
 
     t0 = time.monotonic()
-    engine = new_engine_from_config(MapConfig(SPEC_ROWS), device="cuda")
+    engine = new_engine_from_config(MapConfig(SPEC_ROWS), device="cuda",
+                                    params=SHARED.get("params"))
     gen = engine.generator
     torch.cuda.synchronize()
     print(f"[spec] llama3-8b paged spec engine ready (verify pass warmed) "
@@ -1725,6 +1760,8 @@ def phase_spec(card: str) -> dict:
     finally:
         engine.close()
         ref.close()
+    release_graphs(gen)
+    release_graphs(ref)
     require(not gen._thread.is_alive(), "the generation thread outlived "
             "close()")
     spec = stats["spec_decode"]
@@ -1800,14 +1837,343 @@ def phase_spec(card: str) -> dict:
     return counts
 
 
+# -- phase durable: prefix sharing, resume and recovery on the paged path ----
+
+SHARED: dict = {}   # phase paged's weights, reused by the later phases
+DURABLE_ROWS = dict(PAGED_ROWS, TPU_PREFIX_CACHE="8")
+DURABLE_SEED = 31
+DURABLE_PREFIX = 1536            # the shared system prompt: 12 blocks
+DURABLE_TAILS = (17, 400)        # each request's own tail, drawn here
+DURABLE_HITS = 15
+DURABLE_MISSES = (64, 250, 480, 700)   # unrelated prompts
+DURABLE_SAMPLED = {2: 303, 8: 909}     # burst index -> seed
+DURABLE_FLOOD = 48               # the recovery's prompts: one bucket each
+KILL_AT = 12
+
+
+def splice_agreement(spliced: list, ref: list):
+    """'equal', or the first index where a resumed stream parts from the
+    uninterrupted one."""
+    return "equal" if spliced == ref else _first_difference(spliced, ref)
+
+
+def kill_and_resume(engine, targets, others, new_tokens: int):
+    """Submit every target ((prompt, sampling kwargs)) and every other
+    prompt (greedy) at once; each target stream is killed by the port's
+    GENERATOR_MIDKILL seam at its KILL_AT-th token (its delivery runs
+    under a schedule that fires once, so the seam's count of the other
+    streams' tokens does not move the kill) while the others keep
+    decoding (they must stream every token); then each is continued
+    with ``continue_from``. Returns (spliced token lists, the
+    continuation streams)."""
+    from gofr_tpu_torch import chaos
+    from gofr_tpu_torch.tpu import GenerationError
+
+    gen = engine.generator
+    deliver = gen._deliver
+    seen: dict = {}
+    ids: set = set()
+
+    def targeted(idx, slot, token, lp=None):
+        rid = slot.request.stream.request_id
+        seen[rid] = seen.get(rid, 0) + 1
+        if rid in ids and seen[rid] == KILL_AT:
+            sched = chaos.ChaosSchedule(seed=0).on(
+                chaos.GENERATOR_MIDKILL, error=RuntimeError, every=1,
+                limit=1)
+            with chaos.scope(sched):
+                return deliver(idx, slot, token, lp)
+        return deliver(idx, slot, token, lp)
+
+    gen._deliver = targeted
+    try:
+        with gen._device_lock:   # the ids are known before any delivery
+            killed = [engine.generate(p, max_new_tokens=new_tokens, **kw)
+                      for p, kw in targets]
+            ids.update(s.request_id for s in killed)
+            rest = [engine.generate(p, max_new_tokens=new_tokens)
+                    for p in others]
+        got = []
+        for s in killed:
+            toks = []
+            try:
+                for t in s:
+                    toks.append(int(t))
+            except GenerationError as e:
+                require("mid-stream kill" in str(e), f"a killed stream "
+                        f"failed otherwise: {e!r}")
+            require(len(toks) == KILL_AT and s.failed,
+                    f"a stream killed at token {KILL_AT} gave {len(toks)} "
+                    f"(failed: {s.failed})")
+            got.append(toks)
+        served = [len(s.tokens()) for s in rest]
+    finally:
+        del gen._deliver
+    require(gen.down is None and served == [new_tokens] * len(rest),
+            f"beside the killed streams: down {gen.down}, the others gave "
+            f"{served} tokens")
+    conts = [engine.generate(p, max_new_tokens=new_tokens,
+                             continue_from=(p, g), **kw)
+             for (p, kw), g in zip(targets, got)]
+    spliced = [g + c.tokens() for g, c in zip(got, conts)]
+    return spliced, conts
+
+
+def shared_bytes(cache, blocks: list) -> list:
+    """Copies of the pool's codes and scales at ``blocks``."""
+    return [t[:, blocks].clone() for t in (cache.k, cache.v, cache.k_scale,
+                                           cache.v_scale)]
+
+
+def phase_durable(card: str) -> None:
+    """Durable streaming on the paged path: prefix sharing (a stored
+    system prompt, then a burst of hits and misses), kill-and-resume with
+    continue_from, and recovery from a failed step with blocks in
+    flight."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import chaos
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.tpu import GenerationError, new_engine_from_config
+
+    t0 = time.monotonic()
+    engine = new_engine_from_config(MapConfig(DURABLE_ROWS), device="cuda",
+                                    params=SHARED.get("params"))
+    gen = engine.generator
+    torch.cuda.synchronize()
+    print(f"[durable] llama3-8b paged engine with prefix sharing ready in "
+          f"{time.monotonic() - t0:.1f} s: {DURABLE_ROWS}", flush=True)
+    rng = np.random.default_rng(DURABLE_SEED)
+    vocab = gen.cfg.vocab_size
+    T = gen._block_t
+    prefix = rng.integers(0, vocab, DURABLE_PREFIX).tolist()
+    tails = rng.integers(DURABLE_TAILS[0], DURABLE_TAILS[1] + 1,
+                         DURABLE_HITS + 1).tolist()
+    hits = [prefix + rng.integers(0, vocab, n).tolist() for n in tails]
+    misses = [rng.integers(0, vocab, n).tolist() for n in DURABLE_MISSES]
+    burst = hits[1:] + misses
+    new_tokens = PAGED_NEW_TOKENS
+    idle_free = gen.stats()["paged"]["free"]
+    n_graphs = len(gen._graphs) + len(gen._adm_graphs)
+    graphs = (dict(gen._graphs), dict(gen._adm_graphs))
+    try:
+        warm = engine.generate(misses[0][:32], max_new_tokens=4).tokens()
+        require(len(warm) == 4, f"warm-up gave {len(warm)} tokens")
+        pc0 = dict(gen.stats()["prefix_cache"])
+        adm0, steps0 = gen.admissions, gen.decode_steps
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        spans = timed_admissions(gen)
+        try:
+            store = engine.generate(hits[0], max_new_tokens=new_tokens)
+            store_out = store.tokens()
+            shared = gen._prefix_idx._entries[0]["blocks"][
+                :DURABLE_PREFIX // T]
+            before = shared_bytes(gen.cache, shared)
+            outs, streams, wall = _serve(engine, burst, DURABLE_SAMPLED,
+                                         new_tokens)
+        finally:
+            del gen._run_admission
+        counts = {"flash_prefill": flash.launches,
+                  "paged_decode": paged_attention.launches,
+                  "flash_decode": flash_decode.launches,
+                  "prefill_plain": flash.plain_calls,
+                  "decode_plain": flash_decode.plain_calls,
+                  "paged_plain": paged_attention.plain_calls}
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+        stats = gen.stats()
+        after = shared_bytes(gen.cache, shared)
+        entries = [list(e["blocks"]) for e in gen._prefix_idx._entries]
+        rc = gen._alloc._rc.copy()
+
+        # kill-and-resume: a greedy and a seeded hit killed at token
+        # KILL_AT while two misses decode, each continued
+        targets = [(hits[1], {}),
+                   (hits[3], {"temperature": 0.8, "top_k": 50,
+                              "seed": DURABLE_SAMPLED[2]})]
+        spliced, conts = kill_and_resume(engine, targets, misses[1:3],
+                                         new_tokens)
+
+        # recovery: a DeviceLost at the step seam with a block in flight,
+        # every slot live and four requests queued
+        probe = misses[1][:200]
+        probe_before = engine.generate(probe, max_new_tokens=16).tokens()
+        flood = [rng.integers(0, vocab, DURABLE_FLOOD).tolist()
+                 for _ in range(gen.n_slots + 4)]
+        sched = chaos.ChaosSchedule(seed=0).on(
+            chaos.GENERATOR_STEP, error=chaos.DeviceLost, every=3, limit=1)
+        reset = gen._reset_device
+        reset_s: list = []
+
+        def timed_reset():   # the in-place reset and its probe, host clock
+            t = time.monotonic()
+            reset()
+            reset_s.append(time.monotonic() - t)
+
+        gen._reset_device = timed_reset
+        try:
+            with chaos.scope(sched):
+                with gen._device_lock:   # all queued before the loop runs
+                    fl = [engine.generate(p, max_new_tokens=16)
+                          for p in flood]
+                fates = []
+                for s in fl:
+                    try:
+                        fates.append(len(s.tokens()))
+                    except GenerationError:
+                        fates.append("failed")
+        finally:
+            del gen._reset_device
+        fired = sched.stats()["errors_fired"]
+        rec_stats = gen.stats()
+        rec_index = len(gen._prefix_idx)
+        kept = (len(gen._graphs) + len(gen._adm_graphs) == n_graphs
+                and all(gen._graphs[k] is v for k, v in graphs[0].items())
+                and all(gen._adm_graphs[k] is v
+                        for k, v in graphs[1].items()))
+        probe_after = engine.generate(probe, max_new_tokens=16).tokens()
+        health = engine.health_check()
+    finally:
+        engine.close()
+    release_graphs(gen)
+    require(not gen._thread.is_alive(), "the generation thread outlived "
+            "close()")
+
+    # the burst
+    everyone = [store] + streams
+    for i, toks in enumerate([store_out] + outs):
+        require(len(toks) == new_tokens and all(0 <= x < vocab
+                                                 for x in toks),
+                f"durable request {i}: {len(toks)} tokens, want "
+                f"{new_tokens} in the vocabulary")
+    pc = stats["prefix_cache"]
+    got_hits, got_misses = (pc["hits"] - pc0["hits"],
+                            pc["misses"] - pc0["misses"])
+    require(got_hits == DURABLE_HITS and got_misses == 1 + len(misses),
+            f"prefix cache {pc} from {pc0}: {got_hits} hits, {got_misses} "
+            f"misses, want {DURABLE_HITS} and {1 + len(misses)}")
+    hit_streams = streams[:DURABLE_HITS]
+    require(all(s.cache_tier == "paged" and s.cache_tokens == DURABLE_PREFIX
+                for s in hit_streams)
+            and store.cache_tokens == 0
+            and all(s.cache_tokens == 0 for s in streams[DURABLE_HITS:]),
+            "a hit did not cover the stored prefix: "
+            f"{[(s.cache_tier, s.cache_tokens) for s in everyone]}")
+    require(all(torch.equal(a, b) for a, b in zip(before, after)),
+            "the shared blocks' bytes changed under the burst")
+    held = collections.Counter(b for e in entries for b in e)
+    require(stats["active"] == 0 and stats["paged"]["free"]
+            == idle_free - len(held),
+            f"pool {stats['paged']} after every stream retired: want "
+            f"{idle_free} less the {len(held)} distinct blocks the "
+            f"{len(entries)} entries hold")
+    require(all(rc[b] == n for b, n in held.items())
+            and int(rc.sum()) == sum(held.values()),
+            "block references other than the entries' remain")
+    kinds = collections.Counter(k[0] for k, _, _ in spans)
+    buckets = sum(n <= gen._chunk for n in DURABLE_MISSES)
+    lattices = 1 + DURABLE_HITS + len(misses) - buckets
+    want_kinds = {"prefill": buckets, "readback": DURABLE_HITS,
+                  "mid": sum(s.chunks for s in everyone),
+                  "final": lattices, "writeback": lattices}
+    require(dict(kinds) == {k: v for k, v in want_kinds.items() if v},
+            f"admission replays by kind {dict(kinds)}, want {want_kinds}")
+    require(admissions == 1 + len(burst),
+            f"{admissions} admissions for {1 + len(burst)} requests")
+    require(counts["flash_prefill"] == LAYERS * buckets > 0,
+            f"flash_prefill launched {counts['flash_prefill']} times for "
+            f"{buckets} bucket admissions of {LAYERS} layers")
+    require(counts["paged_decode"] == LAYERS * steps > 0,
+            f"paged_decode launched {counts['paged_decode']} times for "
+            f"{steps} decode steps of {LAYERS} layers")
+    others = {k: counts[k] for k in ("flash_decode", "prefill_plain",
+                                     "decode_plain", "paged_plain")}
+    require(not any(others.values()),
+            f"other attention paths ran on the durable path: {others}")
+    ttft = {name: [1e3 * (s.trace["first_put"] - s.trace["submit"])
+                   for s in group]
+            for name, group in (("storing", [store]), ("hits", hit_streams),
+                                ("misses", streams[DURABLE_HITS:]))}
+    readback = [a.elapsed_time(b) for k, a, b in spans if k[0] == "readback"]
+    print(f"[durable] a {len(hits[0])}-token prompt stored ({DURABLE_PREFIX}"
+          f"-token shared prefix), then {DURABLE_HITS} hits (tails "
+          f"{tails[1:]}) and {len(misses)} misses {list(DURABLE_MISSES)} at "
+          f"once, {new_tokens} new tokens each ({len(DURABLE_SAMPLED)} "
+          f"sampled): {serve_line(stats, streams, outs, wall)}; prefix "
+          f"cache {pc}; {steps} decode steps; launches {counts}; "
+          f"admission replays {dict(kinds)}; the admission graphs "
+          f"({len(graphs[1])}) reserved "
+          f"{gen.admission_graph_bytes / 2**30:.2f} GiB; card: {card}",
+          flush=True)
+    print(f"[durable] TTFT ms (submit to first token; the burst's requests "
+          f"queue behind each other's admissions): storing "
+          f"{ttft['storing'][0]:.1f}; hits mean "
+          f"{np.mean(ttft['hits']):.1f} p50 {np.median(ttft['hits']):.1f} "
+          f"max {max(ttft['hits']):.1f}; misses mean "
+          f"{np.mean(ttft['misses']):.1f} max {max(ttft['misses']):.1f}; "
+          f"the read-back graph's device time (CUDA events, {len(readback)} "
+          f"replays) mean {np.mean(readback):.4f} ms min "
+          f"{min(readback):.4f} ms; dispatches by kind "
+          f"{dispatch_times(spans)}; pool {stats['paged']}, "
+          f"{len(held)} distinct blocks held by {len(entries)} entries; "
+          f"card: {card}", flush=True)
+
+    # the resume
+    for (p, kw), sp, c, ref in zip(targets, spliced, conts,
+                                   [outs[0], outs[2]]):
+        require(len(sp) == new_tokens, f"a resumed stream gave {len(sp)}")
+        require(c.cache_tier == "paged" and c.cache_tokens >= DURABLE_PREFIX,
+                f"the continuation of a {len(p)}-token prompt did not hit "
+                f"its stored blocks: {c.cache_tier} {c.cache_tokens}")
+        print(f"[durable] {'seeded' if kw else 'greedy'} {len(p)}-token "
+              f"stream killed by GENERATOR_MIDKILL after {KILL_AT} tokens "
+              f"while two others decoded, continued with continue_from "
+              f"({c.prompt_len} positions, {c.cache_tokens} from the stored "
+              f"prompt): first index where the spliced stream differs from "
+              f"the uninterrupted one: {splice_agreement(sp, ref)}",
+              flush=True)
+
+    # the recovery
+    n = gen.n_slots
+    require(fired == {chaos.GENERATOR_STEP: 1},
+            f"the step seam fired {fired}")
+    require(fates[:n] == ["failed"] * n and fates[n:] == [16] * 4,
+            f"live streams must fail and queued ones be served: {fates}")
+    require(rec_stats["down"] is None and rec_stats["recoveries"] == 1
+            and health.status == "UP",
+            f"after the failed step: down {rec_stats['down']}, recoveries "
+            f"{rec_stats['recoveries']}, health {health.status}")
+    require(rec_index == 0, f"{rec_index} prefix entries survived")
+    require(rec_stats["paged"]["free"] == idle_free,
+            f"pool {rec_stats['paged']} after the recovery, want "
+            f"{idle_free} free")
+    require(kept, "the recovery changed the captured graphs")
+    require(probe_after == probe_before,
+            "a greedy request streams other tokens after the recovery")
+    print(f"[durable] a DeviceLost at the step seam with a block in "
+          f"flight: {n} live streams failed, 4 queued served "
+          f"({fates[n:]}), down {rec_stats['down']}, recoveries "
+          f"{rec_stats['recoveries']}, prefix entries {rec_index}, pool "
+          f"{rec_stats['paged']}, {n_graphs} graphs kept; the in-place "
+          f"reset and its synchronize probe took "
+          f"{1e3 * sum(reset_s):.2f} ms (host clock); a greedy "
+          f"200-token request streams the same 16 tokens before and "
+          f"after", flush=True)
+
+
 # -- running the phases -------------------------------------------------------
 
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
 
-def run(phases=("build", "kernels", "model", "main", "paged", "spec")
-        ) -> dict:
+def run(phases=("build", "kernels", "model", "main", "paged", "spec",
+                "durable")) -> dict:
     import torch
 
     card = card_line()
@@ -1852,6 +2218,8 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec")
         elif phase == "spec":
             counts = phase_spec(card)
             records["paged_window"]["launches"] = counts["paged_window"]
+        elif phase == "durable":
+            phase_durable(card)
         else:
             raise SmokeFailure(f"unknown phase {phase!r}")
         torch.cuda.empty_cache()

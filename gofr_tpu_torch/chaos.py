@@ -1,0 +1,187 @@
+"""Fault injection at the generator's seams: the port's own copy of the
+part of gofr_tpu/chaos.py that the serving loop uses.
+
+A ``ChaosSchedule`` holds per-seam rules (latency, injected errors, or
+both); the engine calls ``chaos.fire(SEAM)`` at a fixed set of seams,
+which is one global read when no schedule is installed. It runs on the
+host between dispatches, never inside a captured CUDA graph. Decisions
+are deterministic: every firing is derived from ``(seed, seam,
+call_index)`` only, so a schedule driven by the same call counts makes
+the same injections.
+
+Seams (grep for ``chaos.fire``):
+
+  ==================  =====================================================
+  GENERATOR_PREFILL   tpu/generator._start, before the prefill dispatch:
+                      a raised error fails that stream, then the loop
+                      recovers
+  GENERATOR_CHUNK     tpu/generator._chunk_lattice, before each mid-chunk
+                      dispatch of a chunked prefill (a schedule can kill
+                      chunk N of a long admission)
+  GENERATOR_STEP      tpu/generator._loop, once a loop pass before the
+                      pipeline's top-up: a raised ``DeviceLost`` takes
+                      the loop's recovery path
+  GENERATOR_MIDKILL   tpu/generator._deliver, after each delivered token:
+                      an injected error kills that one stream after
+                      exactly N tokens (``every=N, limit=1``) with a
+                      typed error; the engine keeps serving
+  ==================  =====================================================
+"""
+
+from __future__ import annotations
+
+import contextlib
+import random
+import threading
+import time
+
+__all__ = [
+    "GENERATOR_CHUNK", "GENERATOR_MIDKILL", "GENERATOR_PREFILL",
+    "GENERATOR_STEP", "SEAMS", "ChaosSchedule", "DeviceLost", "Rule",
+    "active", "fire", "install", "scope", "uninstall",
+]
+
+GENERATOR_CHUNK = "generator.chunk"
+GENERATOR_MIDKILL = "generator.midkill"
+GENERATOR_PREFILL = "generator.prefill"
+GENERATOR_STEP = "generator.step"
+
+SEAMS = (GENERATOR_CHUNK, GENERATOR_MIDKILL, GENERATOR_PREFILL,
+         GENERATOR_STEP)
+
+
+class DeviceLost(RuntimeError):
+    """Injected stand-in for a device runtime failure. Raised at
+    GENERATOR_STEP it takes the path a failed dispatch takes."""
+
+
+class Rule:
+    """One seam's injection policy.
+
+    latency/jitter: every call sleeps ``latency + U[0, jitter)`` seconds
+      (the uniform draw is deterministic per call index).
+    error: exception instance, class, or zero-argument factory raised
+      on firing calls.
+    every: fire on every Nth call, OR
+    p: fire with probability ``p`` a call (a deterministic draw per call
+      index from the schedule's seed).
+    limit: stop firing errors after this many (0 = unlimited); latency
+      keeps applying.
+    """
+
+    __slots__ = ("latency", "jitter", "error", "every", "p", "limit")
+
+    def __init__(self, latency: float = 0.0, jitter: float = 0.0,
+                 error=None, every: int = 0, p: float = 0.0,
+                 limit: int = 0):
+        if every and p:
+            raise ValueError("rule takes every= OR p=, not both")
+        self.latency = float(latency)
+        self.jitter = float(jitter)
+        self.error = error
+        self.every = int(every)
+        self.p = float(p)
+        self.limit = int(limit)
+
+    def _make_error(self) -> BaseException:
+        err = self.error
+        if isinstance(err, BaseException):
+            return err
+        return err()  # class or factory
+
+    def decide(self, seed: int, seam: str, idx: int) -> tuple[bool, float]:
+        """(fire_error, sleep_s) for call ``idx``: a pure function of
+        (seed, seam, idx), which makes schedules replayable."""
+        rng = random.Random(f"{seed}:{seam}:{idx}")
+        sleep_s = self.latency + (rng.random() * self.jitter
+                                  if self.jitter > 0 else 0.0)
+        fire = False
+        if self.error is not None:
+            if self.every > 0:
+                fire = (idx % self.every) == self.every - 1
+            elif self.p > 0:
+                fire = rng.random() < self.p
+        return fire, sleep_s
+
+
+class ChaosSchedule:
+    def __init__(self, seed: int = 0):
+        self.seed = int(seed)
+        self._rules: dict[str, Rule] = {}
+        self._lock = threading.Lock()
+        self._calls: dict[str, int] = {}
+        self._fired: dict[str, int] = {}
+        self._slept: dict[str, float] = {}
+
+    def on(self, seam: str, *, latency: float = 0.0, jitter: float = 0.0,
+           error=None, every: int = 0, p: float = 0.0,
+           limit: int = 0) -> "ChaosSchedule":
+        """Attach a rule to a seam; chainable."""
+        self._rules[seam] = Rule(latency=latency, jitter=jitter, error=error,
+                                 every=every, p=p, limit=limit)
+        return self
+
+    def fire(self, seam: str) -> None:
+        rule = self._rules.get(seam)
+        if rule is None:
+            return
+        with self._lock:
+            idx = self._calls.get(seam, 0)
+            self._calls[seam] = idx + 1
+        fire_error, sleep_s = rule.decide(self.seed, seam, idx)
+        if sleep_s > 0:
+            with self._lock:
+                self._slept[seam] = self._slept.get(seam, 0.0) + sleep_s
+            time.sleep(sleep_s)
+        if fire_error:
+            with self._lock:
+                fired = self._fired.get(seam, 0)
+                if rule.limit and fired >= rule.limit:
+                    return
+                self._fired[seam] = fired + 1
+            raise rule._make_error()
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"seed": self.seed,
+                    "calls": dict(self._calls),
+                    "errors_fired": dict(self._fired),
+                    "injected_sleep_s": {k: round(v, 6)
+                                         for k, v in self._slept.items()}}
+
+
+# -- module-level installation (what the seams consult) -----------------------
+_ACTIVE: ChaosSchedule | None = None
+
+
+def install(schedule: ChaosSchedule) -> ChaosSchedule:
+    global _ACTIVE
+    _ACTIVE = schedule
+    return schedule
+
+
+def uninstall() -> None:
+    global _ACTIVE
+    _ACTIVE = None
+
+
+def active() -> ChaosSchedule | None:
+    return _ACTIVE
+
+
+def fire(seam: str) -> None:
+    """Called by the engine at each seam: one global read when no
+    schedule is installed."""
+    s = _ACTIVE
+    if s is not None:
+        s.fire(seam)
+
+
+@contextlib.contextmanager
+def scope(schedule: ChaosSchedule):
+    """Install for the duration of a with-block."""
+    install(schedule)
+    try:
+        yield schedule
+    finally:
+        uninstall()

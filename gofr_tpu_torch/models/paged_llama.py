@@ -21,8 +21,9 @@ As in ``llama``, the pool is updated IN PLACE. ``paged_verify_step`` is
 the speculative verify pass over the pool, through the paged window
 kernel. A long prompt is chunk-prefilled into a dense single-slot
 scratch row (``llama.KVCache``, B=1) and lands in the pool through
-``write_row_to_blocks``; ``read_blocks_to_row`` is the restore half the
-shared prefix index (not ported yet) reads with.
+``write_row_to_blocks``; ``read_blocks_to_row`` is the restore half of
+paged prefix sharing (``SharedPrefixIndex``): a hit gathers the shared
+blocks into the scratch row and the chunked prefill resumes there.
 """
 
 from __future__ import annotations
@@ -291,7 +292,7 @@ def read_blocks_to_row(row: llama.KVCache, cache: PagedKVCache,
 class BlockAllocator:
     """Host-side refcounted free list over pool blocks 1..N-1 (block 0
     is the reserved trash block). Refcounts are for blocks held by more
-    than one owner (the shared prefix index to come); a block returns
+    than one owner (a slot and the shared prefix index); a block returns
     to the free list only when its last holder drops it. Thread-
     compatible: the engine calls it only from the serving loop."""
 
@@ -334,3 +335,154 @@ class BlockAllocator:
             self._rc[b] -= 1
             if self._rc[b] == 0:
                 self._free.append(b)
+
+    def sole_holder(self, blocks) -> bool:
+        """True when the caller's reference is the only one on every
+        block: freeing would return them all to the free list."""
+        return all(self._rc[b] == 1 for b in blocks)
+
+
+class SharedPrefixIndex:
+    """Zero-copy prefix reuse over the paged pool (the JAX engine's
+    index of the same name): an entry records the FULL T-token blocks
+    of a stored prompt and holds one reference on each; no KV is copied
+    to store. Full blocks are immutable once written (decode only writes
+    the block at a slot's cursor, past its prompt's full blocks), so an
+    entry stays valid for any continuation; a hit refs the shared blocks
+    into the new slot and the prefill resumes at the match point.
+    Matches clamp to whole blocks and never take the whole prompt (at
+    least one token recomputes). Least-recently-used entries evict under
+    pool pressure: eviction drops the entry's references. ``version``
+    counts the mutations that can change a ``match`` outcome, so callers
+    may memoize a peek. Thread-compatible: serving loop only."""
+
+    def __init__(self, max_entries: int, alloc: BlockAllocator,
+                 block_size: int):
+        self.max_entries = int(max_entries)
+        self._alloc = alloc
+        self._t = int(block_size)
+        self._entries: list[dict] = []  # {key, blocks, adapter, used}
+        self._tick = 0
+        self.hits = 0
+        self.misses = 0
+        self.version = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def match(self, prompt, adapter: int = 0) -> tuple[list[int], int]:
+        """(shared blocks, matched tokens): the longest stored common
+        prefix, clamped to whole blocks and to len(prompt) - 1; ([], 0)
+        on a miss. Pure: ``accept``/``reject`` do the accounting."""
+        prompt = np.asarray(prompt, np.int32)
+        limit = (len(prompt) - 1) // self._t  # blocks fully reusable
+        best, best_blocks = 0, []
+        for e in self._entries:
+            if e["adapter"] != adapter:
+                continue
+            key = e["key"]
+            n = min(len(key), len(prompt))
+            neq = np.nonzero(key[:n] != prompt[:n])[0]
+            m = int(neq[0]) if len(neq) else n
+            nb = min(m // self._t, limit)
+            if nb * self._t > best:
+                best = nb * self._t
+                best_blocks = e["blocks"][:nb]
+        return (list(best_blocks), best) if best else ([], 0)
+
+    def accept(self, blocks: list[int]) -> None:
+        """A hit went live: count it and touch its entry's LRU stamp."""
+        self.hits += 1
+        self._tick += 1
+        lead = blocks[0] if blocks else -1
+        for e in self._entries:
+            if e["blocks"] and e["blocks"][0] == lead:
+                e["used"] = self._tick
+
+    def reject(self) -> None:
+        self.misses += 1
+
+    def covered(self, prompt, adapter: int = 0) -> bool:
+        """True when an entry already stores at least this prompt's full
+        blocks with the same tokens: storing again would only duplicate
+        references."""
+        prompt = np.asarray(prompt, np.int32)
+        n_full = len(prompt) // self._t
+        if n_full == 0:
+            return True  # nothing storable
+        head = prompt[:n_full * self._t]
+        for e in self._entries:
+            if e["adapter"] == adapter and len(e["key"]) >= len(head) \
+                    and np.array_equal(e["key"][:len(head)], head):
+                return True
+        return False
+
+    def store(self, prompt, blocks: list[int], adapter: int = 0) -> None:
+        """Record ``prompt``'s full blocks as an entry, holding one
+        reference on each (the blocks are the slot's own, already
+        written). Evicts LRU entries past capacity."""
+        prompt = np.asarray(prompt, np.int32)
+        n_full = len(prompt) // self._t
+        if n_full == 0:
+            return
+        held = list(blocks[:n_full])
+        self._alloc.ref(held)
+        self._tick += 1
+        self.version += 1
+        self._entries.append({"key": prompt[:n_full * self._t].copy(),
+                              "blocks": held, "adapter": int(adapter),
+                              "used": self._tick})
+        while len(self._entries) > self.max_entries:
+            self.evict_one()
+
+    def evict_one(self) -> bool:
+        """Drop one entry's references (the pool-pressure valve); False
+        when there is nothing left to evict. Prefers the LRU entry among
+        those whose blocks will really return to the free list (no live
+        slot still holds them): evicting a share-held entry reclaims
+        nothing. Share-held entries go only when nothing reclaimable is
+        left (their references still unpin the blocks once the sharing
+        slots retire, so a caller's retry loop stays finite)."""
+        if not self._entries:
+            return False
+        order = sorted(range(len(self._entries)),
+                       key=lambda i: self._entries[i]["used"])
+        victim = next(
+            (i for i in order
+             if self._alloc.sole_holder(self._entries[i]["blocks"])),
+            order[0])
+        e = self._entries.pop(victim)
+        self._alloc.free(e["blocks"])
+        self.version += 1
+        return True
+
+    def clear(self) -> int:
+        """Drop every entry, releasing its references. Engine recovery
+        calls this before it resets the pool: an entry would otherwise
+        match prompts against zeroed blocks."""
+        n = len(self._entries)
+        for e in self._entries:
+            self._alloc.free(e["blocks"])
+        self._entries = []
+        self.version += 1
+        return n
+
+    def invalidate_adapter(self, adapter: int) -> int:
+        """Drop every entry stored under ``adapter`` (its KV flowed
+        through that adapter's weights)."""
+        keep, dropped = [], 0
+        for e in self._entries:
+            if e["adapter"] == int(adapter):
+                self._alloc.free(e["blocks"])
+                dropped += 1
+            else:
+                keep.append(e)
+        self._entries = keep
+        if dropped:
+            self.version += 1
+        return dropped
+
+    def stats(self) -> dict:
+        return {"slots": self.max_entries, "entries": len(self._entries),
+                "hits": self.hits, "misses": self.misses,
+                "blocks_held": sum(len(e["blocks"]) for e in self._entries)}

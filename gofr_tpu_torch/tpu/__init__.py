@@ -31,6 +31,12 @@ Rows read:
                     block, so size it as live tokens // block + 1);
                     0 or unset keeps contiguous [slots, max_seq] rows
   TPU_PAGED_BLOCK   tokens per paged block (default 128)
+  TPU_PREFIX_CACHE  > 0 on a paged engine: zero-copy prefix sharing over
+                    the pool with that many stored entries (default 0 =
+                    off); on a contiguous engine it raises (the JAX
+                    engine's kv-cache tiers are not ported)
+  TPU_PREFIX_MIN    the shortest prompt stored as an entry (default: the
+                    largest prompt bucket)
   TPU_SPEC_DECODE   k > 0: prompt-lookup speculative decoding with k
                     draft tokens (greedy slots; a verify window of k + 1
                     positions, through the paged window kernel on a
@@ -62,8 +68,8 @@ __all__ = ["GenerationEngine", "GenerationError", "GenStream", "Health",
 UNPORTED_ROWS = (
     "TPU_SLO_THROUGHPUT_FACTOR",
     "TPU_SLO_THROUGHPUT_SHARE", "TPU_SLO_LATENCY_SLOTS",
-    "TPU_SLO_BATCH_SHARE", "TPU_SLO_BATCH_DELAY", "TPU_PREFIX_CACHE",
-    "TPU_PREFIX_MIN", "TPU_KVCACHE_BLOCK", "TPU_KVCACHE_HOST_MB",
+    "TPU_SLO_BATCH_SHARE", "TPU_SLO_BATCH_DELAY",
+    "TPU_KVCACHE_BLOCK", "TPU_KVCACHE_HOST_MB",
     "TPU_KVCACHE_REDIS", "TPU_KVCACHE_REDIS_TTL_S",
     "TPU_KVCACHE_REDIS_TIMEOUT_S", "TPU_KVCACHE_EPOCH_REFRESH_S",
     "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_BUDGET_MB",
@@ -107,10 +113,13 @@ def _check_rows(cfg) -> None:
                          f"{', '.join(rejected)}")
 
 
-def new_engine_from_config(cfg, device="cuda", logger=None) -> TorchEngine:
+def new_engine_from_config(cfg, device="cuda", logger=None,
+                           params: dict | None = None) -> TorchEngine:
     """Build the generation engine from ``TPU_*`` rows on ``device``
     (the CUDA card unless the caller asks for the CPU; raises when
-    there is no card)."""
+    there is no card). ``params``: weights already on ``device`` for
+    this model, used instead of TPU_WEIGHTS or a random init (engines
+    built one after another on the same weights)."""
     _check_rows(cfg)
     device = resolve_device(device)
     name = (cfg.get("TPU_MODEL") or "tiny").strip()
@@ -118,16 +127,17 @@ def new_engine_from_config(cfg, device="cuda", logger=None) -> TorchEngine:
     if mc is None:
         raise KeyError(f"unknown TPU_MODEL {name!r} for gofr_tpu_torch; "
                        f"known: {sorted(LLAMA_CONFIGS)}")
-    weights = cfg.get("TPU_WEIGHTS")
-    if weights:
-        if not weights.endswith(".npz"):
-            raise ValueError(f"TPU_WEIGHTS={weights!r}: gofr_tpu_torch "
-                             "loads .npz checkpoints only")
-        params = load_npz(weights, device=device)
-    else:
-        params = llama.init(mc, 0, device=device)
-    params = maybe_quantize(params,
-                            (cfg.get("TPU_QUANT") or "").lower() == "int8")
+    if params is None:
+        weights = cfg.get("TPU_WEIGHTS")
+        if weights:
+            if not weights.endswith(".npz"):
+                raise ValueError(f"TPU_WEIGHTS={weights!r}: gofr_tpu_torch "
+                                 "loads .npz checkpoints only")
+            params = load_npz(weights, device=device)
+        else:
+            params = llama.init(mc, 0, device=device)
+        params = maybe_quantize(
+            params, (cfg.get("TPU_QUANT") or "").lower() == "int8")
     max_seq = cfg.get_int("TPU_MAX_SEQ", min(mc.max_seq, 2048))
     kv_choice = (cfg.get("TPU_KV_DTYPE") or "int8").lower()
     seq_buckets = _csv_ints(cfg.get("TPU_SEQ_BUCKETS"), DEFAULT_SEQ_BUCKETS)
@@ -143,6 +153,8 @@ def new_engine_from_config(cfg, device="cuda", logger=None) -> TorchEngine:
         admit_window_ms=cfg.get_float("TPU_ADMIT_WINDOW_MS", 2.0),
         paged_blocks=cfg.get_int("TPU_PAGED_BLOCKS", 0),
         paged_block_size=cfg.get_int("TPU_PAGED_BLOCK", 128),
+        prefix_cache_slots=cfg.get_int("TPU_PREFIX_CACHE", 0),
+        prefix_store_min=cfg.get_int("TPU_PREFIX_MIN", 0) or None,
         spec_decode_k=cfg.get_int("TPU_SPEC_DECODE", 0), device=device)
     if logger is not None:
         logger.info({"event": "torch engine ready", "model": name,

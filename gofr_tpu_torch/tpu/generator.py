@@ -57,6 +57,20 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
     the paged window kernel) and delivers each slot's agreeing prefix
     plus one token; otherwise a decode block runs. Streams are the
     spec-less engine's, token for token.
+  - With ``prefix_cache_slots`` on a paged engine, zero-copy prefix
+    sharing (models.paged_llama.SharedPrefixIndex): an admitted prompt
+    of at least ``prefix_store_min`` tokens leaves an entry that holds a
+    reference on its full blocks; a later prompt with a common prefix
+    takes those blocks into its slot, gathers them into the scratch row
+    (one replay of the read-back graph) and runs the lattice from the
+    match point, writing back only its fresh blocks. Entries evict
+    (least recently used first) before a live stream is truncated.
+  - ``generate(continue_from=(prompt, emitted))`` resumes an
+    interrupted stream: prompt + emitted prefill as one prompt (a hit on
+    the prompt's own stored blocks once prefix sharing is on), the
+    budget counts from the original request, and sampling resumes at
+    absolute position ``len(emitted)``, so greedy and seeded streams
+    splice token for token.
   - On a CUDA device the engine refuses at construction a model the
     attention kernels do not take (ops.kernels.check_attention_shape),
     naming its shape and the kernel, so nothing raises in the loop for
@@ -64,9 +78,13 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
 
 Consumers call ``generate()`` from any thread and read tokens off a
 stream; one background thread, ``gofr-torch-gen``, owns the device loop.
-A failed step takes the engine down for good (every stream and waiter
-fails). Features outside the slice (prefix cache, LoRA, the kv-cache
-tiers, meshes) raise when asked for.
+A failed step fails the live streams, clears the prefix index, resets
+the device state in place (the captured graphs stay bound to it) and
+keeps serving the queue, as the JAX engine does; only a device that no
+longer synchronises takes the engine down (``down`` names the error).
+The seams of ``chaos`` inject such failures. Features outside the slice
+(LoRA, the contiguous engine's kv-cache tiers, meshes) raise when asked
+for.
 """
 
 from __future__ import annotations
@@ -82,6 +100,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import chaos
 from ..device import resolve_device
 from ..models import llama, paged_llama
 from ..models.common import ModelConfig
@@ -281,12 +300,13 @@ class AdmissionInputs:
     request is baked into a graph). Layout: the prompt's length (the
     cursor the admission leaves), the slot (the batch row written), a
     chunk's start, the position the first token is sampled at, the
-    request's temperature (float32 bits), top-k and seed, then
-    ``n_blocks`` pool block ids (paged), then ``width`` token ids,
-    zero-padded."""
+    request's temperature (float32 bits), top-k and seed, the absolute
+    stream position of its first token (``pos_base``: 0, or the emitted
+    count of a continuation), then ``n_blocks`` pool block ids (paged),
+    then ``width`` token ids, zero-padded."""
 
-    LENGTH, SLOT, START, LOGIT_POS, TEMP, TOP_K, SEED = range(7)
-    HEAD = 7
+    LENGTH, SLOT, START, LOGIT_POS, TEMP, TOP_K, SEED, POS_BASE = range(8)
+    HEAD = 8
 
     def __init__(self, n_blocks: int, width: int, device):
         self.n_blocks = n_blocks
@@ -325,6 +345,10 @@ class AdmissionInputs:
     def seed(self) -> torch.Tensor:
         return self._at(self.SEED)
 
+    @property
+    def pos_base(self) -> torch.Tensor:
+        return self._at(self.POS_BASE)
+
     def blocks(self, n: int) -> torch.Tensor:
         return self.buf[self.HEAD:self.HEAD + n]
 
@@ -334,7 +358,7 @@ class AdmissionInputs:
 
     def pack(self, host: np.ndarray, tokens, *, length: int, slot: int,
              start: int, logit_pos: int, temp: float, top_k: int, seed: int,
-             blocks) -> None:
+             blocks, pos_base: int = 0) -> None:
         """Fill ``host`` (this vector's host image) for one dispatch."""
         host[:] = 0
         host[self.LENGTH] = length
@@ -344,6 +368,7 @@ class AdmissionInputs:
         host[self.TEMP] = np.float32(temp).view(np.int32)
         host[self.TOP_K] = top_k
         host[self.SEED] = seed
+        host[self.POS_BASE] = pos_base
         host[self.HEAD:self.HEAD + len(blocks)] = blocks
         lo = self.HEAD + self.n_blocks
         host[lo:lo + len(tokens)] = tokens
@@ -352,10 +377,11 @@ class AdmissionInputs:
 def _first_token(logits: torch.Tensor, inp: AdmissionInputs,
                  draw: bool) -> torch.Tensor:
     """The first token and its logprob, [2] float64, sampled from
-    logits [1, V] under the request's key at position 0 (the JAX
-    engine's ``fold_in(PRNGKey(seed), 0)``)."""
-    tok, lp = sample(logits, inp.temp, inp.seed, torch.zeros_like(inp.seed),
-                     inp.top_k, draw)
+    logits [1, V] under the request's key at its absolute stream
+    position ``pos_base`` (the JAX engine's ``fold_in(PRNGKey(seed),
+    pos_base)``: 0 for a fresh request), read on the device."""
+    tok, lp = sample(logits, inp.temp, inp.seed, inp.pos_base, inp.top_k,
+                     draw)
     return torch.cat([tok.double(), lp.double()])
 
 
@@ -417,12 +443,28 @@ def writeback_admission(cache: paged_llama.PagedKVCache,
     cache.lengths.index_copy_(0, inp.slot, inp.length)
 
 
+def readback_admission(cache: paged_llama.PagedKVCache,
+                       row: llama.KVCache, inp: AdmissionInputs) -> None:
+    """A paged prefix hit's first dispatch (the JAX engine's
+    ``_blocks_to_row_jit``): the shared blocks (``inp.blocks``, one id
+    per MB block, those past the hit's own the trash block) gathered
+    into the scratch row, so its positions [0, m) hold the stored
+    prefix's KV and the lattice resumes at m."""
+    T = cache.block_size
+    paged_llama.read_blocks_to_row(row, cache,
+                                   inp.blocks(-(-row.k.shape[2] // T)))
+
+
 class GenStream(PushStream):
     """Iterator over generated token ids; ``cancel()`` releases the slot.
     ``trace`` holds time.monotonic() stamps: "submit", "admit",
     "prefill_done" and "first_put" (the first token's delivery);
     ``chunks`` counts the mid chunks of its prefill (0 for a bucket
-    admission)."""
+    admission). What the App's ``/generate`` route reads:
+    ``prompt_len`` (a continuation's prompt + emitted), ``cache_tokens``
+    and ``cache_tier`` (the prompt positions a prefix hit covered, and
+    "paged"), ``seed`` (a sampled request's, for a resume) and
+    ``failed`` (why the loop failed it)."""
 
     def __init__(self, request_id: int, logprobs: bool = False):
         super().__init__()
@@ -433,6 +475,9 @@ class GenStream(PushStream):
         self.trace: dict[str, float] = {}
         self.seed: int | None = None
         self.chunks = 0
+        self.cache_tier: str | None = None
+        self.cache_tokens = 0
+        self.failed: str | None = None
 
     def tokens(self) -> list[int]:
         """Drain the whole stream (blocking) into a list of ids."""
@@ -444,10 +489,11 @@ class GenStream(PushStream):
 
 class _Request:
     __slots__ = ("stream", "prompt", "max_new", "temperature", "top_k",
-                 "eos_id", "seed")
+                 "eos_id", "seed", "pos_base", "lattice_peek")
 
     def __init__(self, stream: GenStream, prompt: np.ndarray, max_new: int,
-                 temperature: float, top_k: int, eos_id, seed: int):
+                 temperature: float, top_k: int, eos_id, seed: int,
+                 pos_base: int = 0):
         self.stream = stream
         self.prompt = prompt
         self.max_new = max_new
@@ -455,6 +501,11 @@ class _Request:
         self.top_k = top_k
         self.eos_id = eos_id
         self.seed = seed
+        # the absolute stream position of the first token (a
+        # continuation's emitted count)
+        self.pos_base = pos_base
+        # (prefix index version, verdict): _needs_lattice's memo
+        self.lattice_peek: tuple[int, bool] | None = None
 
     @property
     def logprobs(self) -> bool:
@@ -503,17 +554,24 @@ class GenerationEngine:
                  prompt_buckets: tuple[int, ...] = DEFAULT_SEQ_BUCKETS,
                  prefill_chunk: int | None = None,
                  prefix_cache_slots: int = 0,
+                 prefix_store_min: int | None = None,
                  spec_decode_k: int = 0, lora_adapters: int = 0,
                  paged_blocks: int = 0, paged_block_size: int = 128,
                  kvcache=None, mesh=None):
-        unported = {"prefix_cache_slots": prefix_cache_slots != 0,
-                    "lora_adapters": lora_adapters != 0,
+        unported = {"lora_adapters": lora_adapters != 0,
                     "kvcache": kvcache is not None,
                     "mesh": mesh is not None}
         asked = [name for name, on in unported.items() if on]
         if asked:
             raise ValueError(f"not ported to gofr_tpu_torch yet: {asked} "
                              "(the port serves contiguous or paged slots)")
+        if prefix_cache_slots > 0 and paged_blocks <= 0:
+            raise ValueError(
+                "prefix_cache_slots (TPU_PREFIX_CACHE) on a contiguous "
+                "engine is the JAX engine's kv-cache tiers (tpu/kvcache/), "
+                "not ported yet (ROADMAP queue 1 item 6); the port shares "
+                "prefixes on a paged engine (paged_blocks > 0, "
+                "TPU_PAGED_BLOCKS)")
         if cfg.n_experts > 0:
             raise ValueError("the port serves dense Llama models; MoE is "
                              "not ported yet")
@@ -578,13 +636,23 @@ class GenerationEngine:
         else:
             self.cache = llama.init_cache(cfg, slots, self.max_seq,
                                           dtype=kv_dtype, device=self.device)
+        # zero-copy prefix sharing over the pool: entries hold references
+        # on a stored prompt's full blocks; a hit takes them into the new
+        # slot and the prefill resumes at the match point
+        self._prefix_idx = None
+        if self._paged and prefix_cache_slots > 0:
+            self._prefix_idx = paged_llama.SharedPrefixIndex(
+                prefix_cache_slots, self._alloc, self._block_t)
+            self._store_min = int(prefix_store_min
+                                  or self.prompt_buckets[-1])
         self.rope_tables = llama.get_rope_tables(cfg, self.max_seq,
                                                  self.device)
         # a prompt past the chunk budget runs the chunk lattice; a paged
-        # engine runs it on a dense single-slot scratch row (one slot's
-        # row of memory), landed in the slot's blocks in one copy
+        # engine runs it, and a prefix hit's resume, on a dense
+        # single-slot scratch row (one slot's row of memory), landed in
+        # the slot's blocks in one copy
         self._lattice = self.max_seq - 1 > self._chunk
-        if self._paged and self._lattice:
+        if self._paged and (self._lattice or self._prefix_idx is not None):
             self._scratch = llama.init_cache(cfg, 1, self.max_seq,
                                              dtype=kv_dtype,
                                              device=self.device)
@@ -659,6 +727,7 @@ class GenerationEngine:
         self._work = threading.Event()
         self._closed = False
         self.down: str | None = None
+        self._recoveries = 0     # failed steps the loop recovered from
         self.total_tokens = 0
         self.total_requests = 0
         self.admissions = 0      # prefills run (one per admission)
@@ -679,8 +748,8 @@ class GenerationEngine:
     # -- public API ----------------------------------------------------------
     def generate(self, prompt, max_new_tokens: int = 128,
                  temperature: float = 0.0, top_k: int = 0, eos_id=None,
-                 logprobs: bool = False, seed: int | None = None
-                 ) -> GenStream:
+                 adapter: int = 0, logprobs: bool = False,
+                 seed: int | None = None, continue_from=None) -> GenStream:
         """Enqueue a prompt (sequence of token ids); returns a GenStream
         yielding generated ids as the device produces them.
 
@@ -689,11 +758,36 @@ class GenerationEngine:
         stop id or an iterable of them; the stream ends at, and
         includes, the first generated token in the set. ``seed`` fixes a
         sampled request's stream; sampled requests without one get a
-        deterministic per-engine seed, surfaced as ``stream.seed``."""
+        deterministic per-engine seed, surfaced as ``stream.seed``.
+        ``adapter``: 0 only (LoRA is not ported).
+
+        ``continue_from=(prompt, emitted)`` admits the continuation of
+        an interrupted stream (the JAX engine's durable-stream resume):
+        prompt + emitted prefill as one prompt, ``max_new_tokens`` still
+        counts from the original request (a spent budget raises), and
+        sampling resumes at absolute position ``len(emitted)``, so the
+        spliced stream equals the uninterrupted one, greedy or seeded."""
         if self._closed:
             raise GenerationError("generation engine is closed")
         if self.down is not None:
             raise GenerationError(f"generation engine is down: {self.down}")
+        if adapter:
+            raise GenerationError(
+                f"adapter {adapter}: LoRA adapters are not ported to "
+                "gofr_tpu_torch yet (ROADMAP queue 1 item 8); only "
+                "adapter 0 is served")
+        pos_base = 0
+        if continue_from is not None:
+            base, emitted = continue_from
+            base = np.asarray(base, np.int64).reshape(-1)
+            emitted = np.asarray(emitted, np.int64).reshape(-1)
+            prompt = np.concatenate([base, emitted])
+            pos_base = int(emitted.size)
+            max_new_tokens = int(max_new_tokens) - pos_base
+            if max_new_tokens <= 0:
+                raise GenerationError(
+                    f"continue_from carries {pos_base} emitted tokens but "
+                    "the request budget allows no more: nothing to resume")
         if eos_id is not None and not isinstance(eos_id, (int, np.integer)):
             eos_id = frozenset(int(t) for t in eos_id) or None
         elif isinstance(eos_id, np.integer):
@@ -737,7 +831,8 @@ class GenerationEngine:
                     f"generation engine is down: {self.down}")
             self._pending.put(_Request(stream, prompt, int(max_new_tokens),
                                        float(temperature), int(top_k),
-                                       eos_id, seed or 0))
+                                       eos_id, seed or 0,
+                                       pos_base=pos_base))
         self._work.set()
         return stream
 
@@ -765,8 +860,11 @@ class GenerationEngine:
             "scheduler": {"prefill_chunk": self._chunk,
                           "chunk_interleave": self._chunk_interleave,
                           "pipeline": self._pipeline_stats()},
+            "recoveries": self._recoveries,
             "down": self.down,
         }
+        if self._prefix_idx is not None:
+            out["prefix_cache"] = self._prefix_idx.stats()
         if self._paged:
             n_usable = self._alloc.n_blocks - 1
             out["paged"] = {
@@ -842,6 +940,7 @@ class GenerationEngine:
                             # decode blocks need a fully reaped loop)
                             self._lattice_deferred = False
                             self._admit()
+                        chaos.fire(chaos.GENERATOR_STEP)
                         depth = self._target_depth()
                         while len(pipe) < depth and not self._closed:
                             inflight = self._tick(decode_only=bool(pipe))
@@ -870,27 +969,108 @@ class GenerationEngine:
                     if self._pending.empty() and not self._closed:
                         self._work.wait(0.05)
             except Exception as e:  # noqa: BLE001 — waiters must not hang
-                # the blocks in flight died with the failure, and the
-                # cache is in an unknown state: drop every handle, fail
-                # every stream and waiter, and stay down
+                # the blocks in flight died with the failure: drop every
+                # handle (reaping one would only meet the same error),
+                # then recover once for however many were in flight
                 pipe.clear()
-                self._go_down(e)
-                return
+                if self._closed:
+                    return
+                self._recover(e)
+                if self.down is not None:
+                    return
 
-    def _go_down(self, e: Exception) -> None:
-        with self._admission_lock:
-            self.down = repr(e)
+    def _recover(self, e: Exception) -> None:
+        """Recovery after a failed step (the JAX engine's ``_loop``
+        handler), in JAX's three phases and order:
+
+          1. host invariants: the dispatch state (pack, idle clock,
+             deferral) is dropped, every slot's next dispatch takes the
+             host's state (``host_wins``), the recovery is counted, and
+             the prefix index is cleared before anything touches the
+             pool (its entries would match prompts against zeroed
+             blocks);
+          2. delivery: every live slot's stream fails with
+             GenerationError and the slot retires, freeing its blocks
+             through the refcounts; queued requests are not failed, they
+             are served after the recovery;
+          3. device reset, in place: the captured decode and admission
+             graphs bind the cache's, the scratch row's, the pack's, the
+             carry's and the admission inputs' tensors, so those are
+             zeroed where they lie (the cursors to 0) and every graph is
+             kept. The stream is synchronised first, so no pinned
+             staging or output buffer is reused under an unmet copy, and
+             again after, as the probe: a device that no longer
+             synchronises (a sticky CUDA error) takes the engine down,
+             ``down`` naming the error, and the queue fails -- the
+             counterpart of JAX going down when its reallocation fails.
+
+        The sampling salt: the JAX engine reseeds its chained key with
+        ``PRNGKey(seed + recoveries)``, but no draw reads that key (every
+        sample is keyed on the request's seed and absolute position), and
+        an automatic seed is ``seed * 1000003 + n`` with n running on
+        across recoveries; the port keeps the same counter, so a
+        post-recovery request gets the seed the JAX engine would give it
+        in the same position."""
         if self.logger is not None:
             self.logger.error({"event": "generation loop failed",
                                "error": repr(e)})
+        err = GenerationError(f"generation failed: {e!r}")
         with self._device_lock:
-            self._fail_all(GenerationError(f"generation failed: {e!r}"))
+            self._pack_dirty = True
+            self._idle_from = None
+            self._steady_from = None
+            self._lattice_deferred = False
+            self._host_wins[:] = True
+            self._recoveries += 1
+            if self._prefix_idx is not None:
+                self._prefix_idx.clear()
+            for idx, slot in enumerate(self._slots):
+                if slot.request is not None:
+                    slot.request.stream.failed = repr(e)
+                    self._retire(idx, slot, err)
+            try:
+                self._reset_device()
+            except Exception as e2:  # noqa: BLE001 — the engine stops here
+                with self._admission_lock:
+                    self.down = (f"device reset failed: {e2!r} "
+                                 f"(after: {e!r})")
+                if self.logger is not None:
+                    self.logger.error({"event": "generation engine down",
+                                       "error": self.down})
+                self._fail_all(GenerationError(
+                    f"generation engine is down: {self.down}"))
+                return
+        if self.logger is not None:
+            self.logger.warn({"event": "generation state reset after a "
+                              "failed step", "recoveries": self._recoveries})
+
+    def _device_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a captured graph reads or writes that holds
+        serving state: the cache (the pool), the scratch row, the
+        dispatch pack, the carry and the admission inputs."""
+        out = []
+        for c in (self.cache, getattr(self, "_scratch", None)):
+            if c is not None:
+                out += [t for t in (c.k, c.v, c.k_scale, c.v_scale,
+                                    c.lengths) if t is not None]
+        return out + [self._pack, *self._carry, self._adm_in.buf]
+
+    def _reset_device(self) -> None:
+        """Phase 3 of ``_recover``: zero the serving state in place; the
+        captured graphs, bound to these tensors, stay as they are."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        with torch.no_grad():
+            for t in self._device_tensors():
+                t.zero_()
+        if cuda:
+            torch.cuda.synchronize(self.device)   # the probe
 
     def _fail_all(self, err: Exception) -> None:
         for idx, slot in enumerate(self._slots):
             if slot.request is not None:
-                slot.request.stream._q.put(err)
-                self._retire(idx, slot)
+                self._retire(idx, slot, err)
         while True:
             try:
                 req = self._pending.get_nowait()
@@ -968,9 +1148,9 @@ class GenerationEngine:
                 continue
             blocks = None
             if self._paged:
-                # the prompt's ceil(L/T) blocks, or None (nothing held)
-                blocks = self._alloc.alloc(-(-len(req.prompt)
-                                             // self._block_t))
+                # (shared, matched, fresh) with one reference a block
+                # held for the slot, or None (nothing held)
+                blocks = self._paged_admission_blocks(req)
                 if blocks is None:
                     # transient pool pressure: requeue and let active
                     # slots retire blocks
@@ -981,19 +1161,80 @@ class GenerationEngine:
         return started
 
     def _needs_lattice(self, req: _Request) -> bool:
-        """Would admitting ``req`` run the chunk lattice? (A prompt past
-        the chunk budget.)"""
-        return len(req.prompt) > self._chunk
+        """Would admitting ``req`` run the chunk lattice? A prompt past
+        the chunk budget does, and so does a paged prefix hit that
+        ``_lattice_resume_valid`` accepts (the lattice resumes at the
+        match point). ``match`` is pure, so the peek perturbs nothing;
+        the verdict is memoized on the request, keyed by the index's
+        version, as the in-flight pass re-peeks the queue's head at
+        every poll."""
+        L = len(req.prompt)
+        if L > self._chunk:
+            return True
+        if self._prefix_idx is None:
+            return False
+        ver = self._prefix_idx.version
+        if req.lattice_peek is not None and req.lattice_peek[0] == ver:
+            return req.lattice_peek[1]
+        _, m = self._prefix_idx.match(req.prompt)
+        verdict = bool(m) and self._lattice_resume_valid(L, m)
+        req.lattice_peek = (ver, verdict)
+        return verdict
 
-    def _prefill(self, idx: int, req: _Request,
-                 blocks: list[int] | None) -> tuple[int, float]:
-        """Prefill the prompt into slot ``idx`` (paged: into ``blocks``)
-        and sample the first token (position 0 of the request's stream):
-        one bucket dispatch, or the chunk lattice past the chunk budget.
-        Queued on the stream behind any blocks in flight; reading the
-        first token waits for them."""
+    def _lattice_resume_valid(self, L: int, m: int) -> bool:
+        """Can the chunk lattice resume at position ``m`` of an L-token
+        prompt? The final chunk's bucket must not pad wider than the
+        prompt (its window would start before position 0): a hit that
+        fails this is a miss. Mirrors ``_chunk_lattice``'s loop, whose
+        mid chunks advance by the chunk budget."""
+        rem = L - m
+        while rem > self._chunk:
+            rem -= self._chunk
+        return L - pad_bucket(rem, self.prompt_buckets) >= 0
+
+    def _paged_admission_blocks(self, req: _Request):
+        """Blocks for one paged admission (the JAX engine's
+        ``_paged_admission_blocks``): consult the prefix index (an
+        off-lattice hit is a miss), take the slot's reference on the
+        shared blocks before any evict-and-retry could free them,
+        allocate the fresh remainder (evicting LRU entries under
+        pressure), then count the hit or the miss. Returns (shared,
+        matched tokens, fresh), one reference a block held for the slot,
+        or None (nothing held) when the pool cannot cover the request
+        now."""
+        shared, m = [], 0
+        idx = self._prefix_idx
+        if idx is not None:
+            shared, m = idx.match(req.prompt)
+            if m and not self._lattice_resume_valid(len(req.prompt), m):
+                shared, m = [], 0
+            if shared:
+                self._alloc.ref(shared)
+        need = -(-len(req.prompt) // self._block_t) - len(shared)
+        fresh = self._alloc.alloc(need)
+        while fresh is None and idx is not None and idx.evict_one():
+            fresh = self._alloc.alloc(need)
+        if fresh is None:
+            if shared:
+                self._alloc.free(shared)
+            return None
+        if idx is not None:
+            if m:
+                idx.accept(shared)
+            else:
+                idx.reject()
+        return shared, m, fresh
+
+    def _prefill(self, idx: int, req: _Request, blocks) -> tuple[int, float]:
+        """Prefill the prompt into slot ``idx`` (paged: into ``blocks``,
+        the (shared, matched, fresh) of ``_paged_admission_blocks``) and
+        sample the first token (position ``req.pos_base`` of the
+        request's stream): one bucket dispatch, or the chunk lattice
+        past the chunk budget or from a prefix hit. Queued on the stream
+        behind any blocks in flight; reading the first token waits for
+        them."""
         if self._paged:
-            return self._paged_admit_prefill(idx, req, blocks)
+            return self._paged_admit_prefill(idx, req, *blocks)
         if len(req.prompt) <= self._chunk:
             return self._bucket_prefill(idx, req)
         return self._chunk_lattice(idx, req)
@@ -1008,53 +1249,73 @@ class GenerationEngine:
                                     req.temperature > 0))
 
     def _paged_admit_prefill(self, idx: int, req: _Request,
-                             blocks: list[int]) -> tuple[int, float]:
-        """Paged admission (the JAX engine's ``_paged_admit_prefill``
-        without a prefix hit). The blocks are the slot's from the start,
-        so every exit path frees them through ``_retire``; its table row
-        stays zeroed (trash-routed) until the prompt is in, because the
-        decode blocks a lattice interleaves step the slot at its stale
-        cursor. A bucket prompt is one dispatch writing ceil(bucket/T)
-        blocks (ids past the prompt's own: the trash block); a longer one
-        runs the lattice on the scratch row, then one copy lands the row
-        in the blocks and sets the cursor."""
+                             shared: list[int], m: int,
+                             fresh: list[int]) -> tuple[int, float]:
+        """Paged admission (the JAX engine's ``_paged_admit_prefill``).
+        ``shared``/``m``: a prefix hit, m tokens of KV already in the
+        shared blocks (the slot holds a reference on each); ``fresh``:
+        the blocks allocated for the rest. The blocks are the slot's
+        from the start, so every exit path frees them through
+        ``_retire``; its table row stays zeroed (trash-routed) until the
+        prompt is in, because the decode blocks a lattice interleaves
+        step the slot at its stale cursor: through an installed row
+        those writes would land in the new blocks, for a hit in the
+        SHARED blocks of every other holder. A bucket prompt without a
+        hit is one dispatch writing ceil(bucket/T) blocks (ids past the
+        prompt's own: the trash block). Anything else runs the lattice
+        on the scratch row -- for a hit from position m, after the
+        read-back gathered the shared blocks into positions [0, m) --
+        and one copy lands only the FRESH region in the pool (the
+        shared blocks' ids route to the trash block: they are never
+        rewritten), then the cursor, then the table row."""
         n = len(req.prompt)
+        blocks = shared + fresh
         self._slot_blocks[idx] = blocks
         self._cursors[idx] = n
-        if n <= self._chunk:
+        if m == 0 and n <= self._chunk:
             width = -(-pad_bucket(n, self.prompt_buckets) // self._block_t)
             first = self._bucket_prefill(
                 idx, req, blocks + [0] * (width - len(blocks)))
             self._write_table_row(idx)
             return first
-        first = self._chunk_lattice(0, req)
+        if m > 0:
+            self._admission_inputs((), req, slot=0,
+                                   blocks=shared + [0] * (self._mb
+                                                          - len(shared)))
+            self._run_admission(("readback",))
+            req.stream.cache_tier = "paged"
+            req.stream.cache_tokens = m
+        first = self._chunk_lattice(0, req, m)
         if req.stream.cancelled.is_set():
             return first   # the slot retires at delivery, freeing blocks
-        self._admission_inputs((), req, length=n, slot=idx,
-                               blocks=blocks + [0] * (self._mb - len(blocks)))
+        self._admission_inputs(
+            (), req, length=n, slot=idx,
+            blocks=[0] * len(shared) + fresh + [0] * (self._mb - len(blocks)))
         self._run_admission(("writeback",))
         self._write_table_row(idx)
         return first
 
-    def _chunk_lattice(self, row: int, req: _Request) -> tuple[int, float]:
+    def _chunk_lattice(self, row: int, req: _Request,
+                       pos: int = 0) -> tuple[int, float]:
         """The chunked-prefill lattice (the JAX engine's
-        ``_chunk_lattice``) for ``req.prompt`` into batch row ``row`` of
-        the serving cache (paged: row 0 of the scratch row): mid chunks
-        of C tokens from position 0 while more than C remain, then a
-        final chunk of bucket width Sb ending exactly at the prompt's
-        end (it may overlap the last mid chunk: those positions
-        recompute the same KV). With interleave on, between mid chunks:
-        one admission pass for arrivals into other free slots (lattice
-        arrivals deferred: one lattice at a time), then one decode block
-        for the live slots, reaped at once. Returns the first token and
-        its logprob, or (0, 0.0) when the stream was cancelled mid-way
-        (the slot retires at delivery)."""
+        ``_chunk_lattice``) for ``req.prompt[pos:]`` into batch row
+        ``row`` of the serving cache (paged: row 0 of the scratch row;
+        ``pos`` > 0 resumes a prefix hit): mid chunks of C tokens while
+        more than C remain, then a final chunk of bucket width Sb ending
+        exactly at the prompt's end (it may overlap the last mid chunk,
+        or the restored prefix: those positions recompute the same KV).
+        With interleave on, between mid chunks: one admission pass for
+        arrivals into other free slots (lattice arrivals deferred: one
+        lattice at a time), then one decode block for the live slots,
+        reaped at once. Returns the first token and its logprob, or (0,
+        0.0) when the stream was cancelled mid-way (the slot retires at
+        delivery)."""
         n = len(req.prompt)
         c = self._chunk
-        pos = 0
         while n - pos > c:
             if req.stream.cancelled.is_set():
                 return 0, 0.0
+            chaos.fire(chaos.GENERATOR_CHUNK)
             self._admission_inputs(req.prompt[pos:pos + c], req, slot=row,
                                    start=pos)
             self._run_admission(("mid",))
@@ -1091,7 +1352,8 @@ class GenerationEngine:
             host = np.empty(tuple(inp.buf.shape), np.int64)
         inp.pack(host, tokens, length=length, slot=slot, start=start,
                  logit_pos=logit_pos, temp=req.temperature,
-                 top_k=req.top_k, seed=req.seed, blocks=blocks)
+                 top_k=req.top_k, seed=req.seed, pos_base=req.pos_base,
+                 blocks=blocks)
         if cuda:
             inp.buf.copy_(staged, non_blocking=True)
             copied.record()
@@ -1102,15 +1364,17 @@ class GenerationEngine:
     def _admission_fn(self, key: tuple):
         """The admission dispatch ``key`` names, bound to the engine's
         tensors: ("prefill", bucket, draw), ("mid",), ("final", width,
-        draw) or ("writeback",)."""
+        draw), ("writeback",) or ("readback",)."""
         kind = key[0]
         if kind == "prefill":
             return functools.partial(
                 prefill_admission, self.params, self.cfg, self.cache,
                 self._adm_in, self.rope_tables, bucket=key[1], draw=key[2])
-        if kind == "writeback":
-            return functools.partial(writeback_admission, self.cache,
-                                     self._scratch, self._adm_in)
+        if kind in ("writeback", "readback"):
+            fn = writeback_admission if kind == "writeback" \
+                else readback_admission
+            return functools.partial(fn, self.cache, self._scratch,
+                                     self._adm_in)
         final = kind == "final"
         return functools.partial(
             chunk_admission, self.params, self.cfg,
@@ -1121,15 +1385,20 @@ class GenerationEngine:
     def _admission_keys(self) -> list[tuple]:
         """Every admission dispatch this engine can run: a prefill per
         bucket within the chunk budget (wider buckets never dispatch)
-        and draw value; with the lattice, the mid chunk, a final chunk
-        per such bucket and draw value, and (paged) the write-back."""
+        and draw value; with the lattice, the mid chunk; with the
+        lattice or a prefix index (a hit resumes the lattice), a final
+        chunk per such bucket and draw value and (paged) the write-back;
+        with a prefix index, the read-back."""
         buckets = [b for b in self.prompt_buckets if b <= self._chunk]
         keys = [("prefill", b, d) for b in buckets for d in (False, True)]
         if self._lattice:
             keys.append(("mid",))
+        if self._lattice or self._prefix_idx is not None:
             keys += [("final", b, d) for b in buckets for d in (False, True)]
             if self._paged:
                 keys.append(("writeback",))
+        if self._prefix_idx is not None:
+            keys.append(("readback",))
         return keys
 
     def _run_admission(self, key: tuple):
@@ -1156,25 +1425,33 @@ class GenerationEngine:
         return int(host[0]), float(host[1])
 
     def _start(self, idx: int, slot: _Slot, req: _Request,
-               blocks: list[int] | None = None) -> None:
+               blocks=None) -> None:
         req.stream.trace["admit"] = time.monotonic()
+        # claim the slot before any dispatch: a lattice runs nested
+        # admission passes between its chunks
         slot.request = req
         try:
+            chaos.fire(chaos.GENERATOR_PREFILL)
             first, first_lp = self._prefill(idx, req, blocks)
         except Exception as e:
             if self._paged:
                 # clear the slot's blocks, table row and cursor before
-                # freeing, so no stale row points at reallocated blocks
+                # freeing, so no stale row points at reallocated blocks;
+                # the slot holds one reference on shared and fresh alike
+                shared, _, fresh = blocks
                 self._slot_blocks[idx] = []
                 self._table[idx, :] = 0
                 self._cursors[idx] = 0
-                self._alloc.free(blocks)
+                self._alloc.free(shared + fresh)
                 self._touch()
+            # un-claimed before the loop's recovery, which fails every
+            # slot holding a request: this stream is failed here, once
             slot.request = None
             req.stream._q.put(GenerationError(f"prefill failed: {e!r}"))
             req.stream._q.put(None)
             raise
         req.stream.trace["prefill_done"] = time.monotonic()
+        self._prefix_store(idx, req)
         self.admissions += 1
         self.total_requests += 1
         slot.generated = 0
@@ -1193,8 +1470,8 @@ class GenerationEngine:
             self._budgets[idx] = slot.remaining
             self._eos_row(idx, req.eos_id)
             # the next sample's absolute position: the prefill's first
-            # token took position 0
-            self._pos_abs[idx] = slot.generated
+            # token took pos_base itself
+            self._pos_abs[idx] = req.pos_base + slot.generated
             if self._paged:
                 # where the device's budget/capacity stop masks will
                 # freeze this slot's cursor (EOS may stop earlier)
@@ -1205,6 +1482,21 @@ class GenerationEngine:
             # holds for this slot
             self._host_wins[idx] = True
             self._touch()
+
+    def _prefix_store(self, idx: int, req: _Request) -> None:
+        """After a completed admission and before the slot's first
+        decode block (the JAX engine's ``_prefix_store``): reference the
+        slot's full prompt blocks as an index entry. They are immutable
+        from here on (decode writes only the cursor's block), and the
+        admission has run, so no entry is stored over a failed prefill.
+        Skipped for cancelled streams, prompts under ``prefix_store_min``
+        and prompts already covered."""
+        if self._prefix_idx is None or req.stream.cancelled.is_set():
+            return
+        if len(req.prompt) < self._store_min or \
+                self._prefix_idx.covered(req.prompt):
+            return
+        self._prefix_idx.store(req.prompt, self._slot_blocks[idx])
 
     def _eos_row(self, idx: int, eos_id) -> None:
         row = self._eos_mat[idx]
@@ -1491,6 +1783,18 @@ class GenerationEngine:
         slot.generated += 1
         slot.remaining -= 1
         self.total_tokens += 1
+        try:
+            # a seeded GENERATOR_MIDKILL (every=N, limit=1) kills this
+            # stream after exactly N delivered tokens: the stand-in for
+            # a replica dying mid-stream. Only this stream fails (typed
+            # error, its slot retires); the engine keeps serving.
+            chaos.fire(chaos.GENERATOR_MIDKILL)
+        except Exception as e:  # noqa: BLE001 — one request's failure
+            req.stream.failed = (f"chaos mid-stream kill after "
+                                 f"{slot.generated} tokens")
+            self._retire(idx, slot, GenerationError(
+                f"mid-stream kill after {slot.generated} tokens: {e!r}"))
+            return
         at_eos = req.eos_id is not None and (
             token in req.eos_id if isinstance(req.eos_id, frozenset)
             else token == req.eos_id)
@@ -1499,20 +1803,23 @@ class GenerationEngine:
         if at_eos or slot.remaining <= 0 or at_capacity:
             self._retire(idx, slot)
 
-    def _retire(self, idx: int, slot: _Slot) -> None:
+    def _retire(self, idx: int, slot: _Slot,
+                err: Exception | None = None) -> None:
+        """Free the slot and end its stream, with ``err`` as its last
+        item when the slot failed. The stream ends last, so a consumer
+        that sees the end (or the error) sees the slot free and its
+        blocks back in the pool."""
+        stream = slot.request.stream
         if self._paged:
             # freed blocks may be handed out at once; the retired slot's
             # frozen-cursor writes go to the trash block because its
-            # table row zeroes before the next dispatch. Freed before
-            # the stream ends, so a consumer that sees the end sees its
-            # blocks back in the pool.
+            # table row zeroes before the next dispatch
             if self._slot_blocks[idx]:
                 self._alloc.free(self._slot_blocks[idx])
                 self._slot_blocks[idx] = []
             self._table[idx, :] = 0
             self._cursors[idx] = 0
             self._stop_cursors[idx] = 0
-        slot.request.stream._push(None)
         slot.request = None
         self._active[idx] = False
         self._temps[idx] = 0.0
@@ -1526,6 +1833,9 @@ class GenerationEngine:
         # EOS_MAX) deactivates a slot the device carry may still run
         self._host_wins[idx] = True
         self._touch()
+        if err is not None:
+            stream._q.put(err)
+        stream._push(None)
 
     # -- paged-mode host side ------------------------------------------------
     def _write_table_row(self, idx: int) -> None:
@@ -1567,6 +1877,11 @@ class GenerationEngine:
             while len(self._slot_blocks[idx]) < need:
                 got = self._alloc.alloc(1)
                 if got is None:
+                    # stored prefixes are the pressure valve: evict LRU
+                    # entries before truncating a live stream
+                    if self._prefix_idx is not None and \
+                            self._prefix_idx.evict_one():
+                        continue
                     starved = True
                     break
                 self._slot_blocks[idx].extend(got)
@@ -1746,7 +2061,8 @@ class GenerationEngine:
             s = self._slots[idx]
             live = s.request is not None
             self._budgets[idx] = s.remaining if live else 0
-            self._pos_abs[idx] = s.generated if live else 0
+            self._pos_abs[idx] = (s.request.pos_base + s.generated
+                                  if live else 0)
             if self._paged:
                 self._stop_cursors[idx] = (
                     min(int(self._cursors[idx]) + s.remaining,

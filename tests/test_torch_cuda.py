@@ -561,7 +561,7 @@ def test_prefill_and_verify_between_replays_are_seen(gen, paged):
             _random_state(eng, gen, [40, 131, 0], False)
             _replay_equals_eager(eng, False)
             prompt = np.arange(1, 30)
-            blocks = eng._alloc.alloc(2) if paged else None
+            blocks = ([], 0, eng._alloc.alloc(2)) if paged else None
             eng._prefill(2, _Request(GenStream(0), prompt, 8, 0.0, 0, None,
                                      0), blocks)
             window = torch.randint(0, SMALL.vocab_size, (3, 3),
@@ -723,7 +723,7 @@ def test_admission_replays_equal_their_eager_functions(gen, paged):
                 def admit():
                     return eng._prefill(1, _Request(
                         GenStream(0), prompt, 4, temp, 20, None, 9),
-                        blocks and list(blocks))
+                        blocks and ([], 0, list(blocks)))
 
                 replays = eng.admission_replays
                 got = admit()
@@ -811,3 +811,146 @@ def test_construction_raises_when_an_admission_capture_fails(gen,
     with pytest.raises(RuntimeError, match="capturing the admission"):
         _engine(False)
     assert threading.active_count() == started
+
+
+# -- durable streams: the read-back graph, pos_base, recovery ------------------
+
+def test_the_read_back_graph_equals_read_blocks_to_row(gen):
+    """A prefix hit's read-back (readback_admission) captured in a graph
+    and replayed, at phase durable's shapes (Llama-3-8B's KV: a 257-block
+    int8 pool of 128 and a 4096-position scratch row; 12 shared blocks
+    spread over the pool), against read_blocks_to_row run eagerly on a
+    copy of the row: the same bytes. The ids come through the input
+    vector, so a second replay with other ids follows them."""
+    from gofr_tpu_torch.tpu.generator import (AdmissionInputs, GenStream,
+                                              _Request, readback_admission)
+
+    cfg = LLAMA_CONFIGS["llama3-8b"]
+    pool = paged_llama.init_paged_cache(cfg, 32, 257, 128,
+                                        dtype=torch.int8, device="cuda")
+    for t in (pool.k, pool.v):
+        t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                              device="cuda", dtype=torch.int8))
+    for t in (pool.k_scale, pool.v_scale):
+        t.copy_(torch.rand(t.shape, generator=gen, device="cuda"))
+    row = llama.init_cache(cfg, 1, 4096, dtype=torch.int8, device="cuda")
+    mb = 4096 // 128
+    inp = AdmissionInputs(mb, 512, "cuda")
+    req = _Request(GenStream(0), np.zeros(0, np.int64), 1, 0.0, 0, None, 0)
+    host = np.empty(tuple(inp.buf.shape), np.int64)
+
+    def upload(blocks):
+        inp.pack(host, (), length=0, slot=0, start=0, logit_pos=0,
+                 temp=0.0, top_k=0, seed=req.seed,
+                 blocks=blocks + [0] * (mb - len(blocks)))
+        inp.buf.copy_(torch.from_numpy(host))
+
+    upload([])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        readback_admission(pool, row, inp)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        readback_admission(pool, row, inp)
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        shared = rng.choice(np.arange(1, 257), 12, replace=False).tolist()
+        upload(shared)
+        want = _snapshot_cache(row)
+        graph.replay()
+        paged_llama.read_blocks_to_row(want, pool, shared + [0] * (mb - 12))
+        torch.cuda.synchronize()
+        for a, b in ((row.k, want.k), (row.v, want.v),
+                     (row.k_scale, want.k_scale),
+                     (row.v_scale, want.v_scale)):
+            assert torch.equal(a, b)
+        assert torch.equal(row.k[:, 0, 128:256], pool.k[:, shared[1]])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_replays_with_a_pos_base_equal_their_eager_functions(gen, paged):
+    """A continuation's first token is sampled at its absolute position
+    pos_base, a device input of the prefill and final-chunk graphs: a
+    bucket admission and a lattice admission of a sampled request with
+    pos_base 7 replay what their functions compute eagerly, and a
+    sampled first token follows pos_base (not a constant of the
+    graph)."""
+    from gofr_tpu_torch.tpu.generator import GenStream, _Request
+
+    eng = _lattice_engine(paged)
+    rng = np.random.default_rng(8)
+
+    def eager(key):
+        with torch.no_grad():
+            out = eng._admission_fn(key)()
+        return None if out is None else (int(out[0]), float(out[1]))
+
+    try:
+        with eng._device_lock:
+            for n in (30, 70):
+                prompt = rng.integers(0, SMALL.vocab_size, n)
+                firsts = {}
+                for pos_base in (0, 1, 2, 3, 7, 7):
+                    blocks = ([], 0, list(range(1, 1 + -(-n // 16)))) \
+                        if paged else None
+                    req = _Request(GenStream(0), prompt, 4, 1.5, 0, None, 9,
+                                   pos_base=pos_base)
+                    if pos_base in firsts:
+                        eng._run_admission = eager
+                        try:
+                            want = eng._prefill(1, req, blocks)
+                        finally:
+                            del eng._run_admission
+                        assert want[0] == firsts[pos_base][0]
+                        assert abs(want[1] - firsts[pos_base][1]) <= \
+                            LOGPROB_ATOL
+                    else:
+                        firsts[pos_base] = eng._prefill(1, req, blocks)
+                # the same logits, other draws: over a 512-token
+                # vocabulary at temperature 1.5 five positions do not
+                # all draw one token
+                assert len({f[0] for f in firsts.values()}) > 1, n
+                if paged:
+                    eng._slot_blocks[1] = []
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_a_recovery_between_replays_keeps_the_graphs(gen, paged):
+    """A failed step between two replays of the decode graph: the reset
+    zeroes the cache (and pack, carry, scratch row, admission inputs) in
+    place, keeps every captured graph, and the next replay still reads
+    and writes the engine's tensors (it equals an eager block on a copy
+    of the state)."""
+    from gofr_tpu_torch import chaos
+
+    eng = _lattice_engine(paged, prefix_cache_slots=2 if paged else 0)
+    try:
+        with eng._device_lock:
+            _random_state(eng, gen, [40, 131, 0], False)
+            _replay_equals_eager(eng, False)
+            eng._host_wins[:] = True
+            eng._touch()
+            graphs = (dict(eng._graphs), dict(eng._adm_graphs))
+            ptrs = [t.data_ptr() for t in eng._device_tensors()]
+        sched = chaos.ChaosSchedule(seed=0).on(
+            chaos.GENERATOR_STEP, error=chaos.DeviceLost, every=1, limit=1)
+        with chaos.scope(sched):
+            with pytest.raises(Exception, match="DeviceLost"):
+                eng.generate(list(range(1, 40)), max_new_tokens=8).tokens()
+        with eng._device_lock:
+            assert eng.down is None and eng.stats()["recoveries"] == 1
+            assert (eng._graphs, eng._adm_graphs) == graphs
+            tensors = eng._device_tensors()
+            assert [t.data_ptr() for t in tensors] == ptrs
+            assert not any(bool(t.any()) for t in tensors)
+            _random_state(eng, gen, [17, 0, 90], True)
+            _replay_equals_eager(eng, True)
+            eng._host_wins[:] = True
+            eng._touch()
+        assert len(eng.generate([5, 9, 17], max_new_tokens=6).tokens()) == 6
+    finally:
+        eng.close()

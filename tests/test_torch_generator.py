@@ -209,7 +209,7 @@ def test_cancel_ends_the_stream_and_frees_the_slot(weights):
 @pytest.mark.parametrize("kw", [
     {"prefix_cache_slots": 2}, {"spec_decode_k": 4, "lora_adapters": 2},
     {"lora_adapters": 2},
-    {"paged_blocks": 64, "prefix_cache_slots": 2},
+    {"paged_blocks": 64, "prefix_cache_slots": 2, "lora_adapters": 2},
     {"decode_pipeline": 2, "lora_adapters": 2},
     {"kvcache": object()},
     {"mesh": object()},
@@ -326,7 +326,7 @@ def test_new_engine_from_config_loads_jax_weights(weights, tmp_path):
 
 
 @pytest.mark.parametrize("rows,name", [
-    ({"TPU_PAGED_BLOCKS": "64", "TPU_PREFIX_CACHE": "4"}, "TPU_PREFIX_CACHE"),
+    ({"TPU_PREFIX_CACHE": "4"}, "TPU_PREFIX_CACHE"),
     ({"TPU_MAX_QUEUE_DEPTH": "16"}, "TPU_MAX_QUEUE_DEPTH"),
     ({"TPU_SERVING_ROLE": "prefill"}, "TPU_SERVING_ROLE"),
 ])

@@ -186,7 +186,7 @@ def test_bucket_padding_lands_nowhere(weights, paged):
                     owned.append(own)
                     want = jeng._paged_admit_prefill(b, jreq, [], 0,
                                                      list(own))
-                    got = teng._prefill(b, treq, list(own))
+                    got = teng._prefill(b, treq, ([], 0, list(own)))
                 else:
                     want = jeng._admit_prefill(b, jreq)
                     got = teng._prefill(b, treq, None)

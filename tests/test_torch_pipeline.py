@@ -336,8 +336,10 @@ def test_steady_state_uploads_no_pack(weights, n):
 def test_a_failed_step_with_two_blocks_in_flight_fails_every_stream(
         weights):
     """A block dispatch made to raise as a top-up behind an unreaped
-    block: every stream and every waiter fails, the engine goes down
-    and stays down, and its thread ends."""
+    block, with the JAX engine's recovery contract: every live stream
+    fails, the waiters are served after the recovery (their tokens
+    those of the same prompts served afterwards), the engine stays up
+    (``down`` None, its thread alive) and ``active`` returns to 0."""
     eng = _port(weights, 2)
     calls = {"n": 0}
     run = eng._run_block
@@ -354,17 +356,21 @@ def test_a_failed_step_with_two_blocks_in_flight_fails_every_stream(
             streams = [eng.generate([5, 17, 42, i], max_new_tokens=40)
                        for i in range(3)]
             streams.append(eng.generate([9, 9], max_new_tokens=40))
-            streams += [eng.generate([1, i], max_new_tokens=40)
-                        for i in range(2)]   # waiters: 4 slots, 6 requests
+            waiters = [eng.generate([1, i], max_new_tokens=40)
+                       for i in range(2)]   # 4 slots, 6 requests
         for s in streams:
             with pytest.raises(GenerationError, match="injected"):
                 s.tokens()
-        eng._thread.join(timeout=10)
-        assert not eng._thread.is_alive()
-        assert "injected" in eng.down
-        with pytest.raises(GenerationError, match="down"):
-            eng.generate([1, 2], max_new_tokens=2)
+            assert "injected" in s.failed
+        served = [w.tokens() for w in waiters]
+        assert [len(t) for t in served] == [40, 40]
+        assert eng.down is None
+        assert eng._thread.is_alive()
+        assert eng.stats()["recoveries"] == 1
         assert eng.stats()["active"] == 0
+        again = [eng.generate([1, i], max_new_tokens=40).tokens()
+                 for i in range(2)]
+        assert again == served
     finally:
         eng.close()
     assert not [t for t in threading.enumerate() if t is eng._thread]
