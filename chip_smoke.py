@@ -81,8 +81,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      bucket admission (prompts past 512 take the lattice), the pool is
      whole again, and the
      streams that differ from a spec-less paged engine's are printed;
-     then a contiguous spec engine serves a few requests through
-     verify_step;
+     each verify pass is one replay of the verify graph captured at
+     construction (replays = passes), and a replay equals verify_pass
+     run eagerly on a copy of the same state, with its device time (CUDA
+     events) printed beside the host-clock verify ms; then a contiguous
+     spec engine serves a few requests through verify_step, through its
+     own verify graph, held against its eager pass the same way;
   5d. (phase ``durable``) durable streaming on the paged path: phase
      paged's rows plus TPU_PREFIX_CACHE=8 on the same weights; a
      request with a seeded 1536-token shared prefix (12 blocks) stores
@@ -100,6 +104,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      live streams fail, 4 queued requests are served, the engine stays
      up, the index is empty, the pool whole, the graphs kept, and a
      greedy request streams the same tokens before and after;
+  5e. (phase ``slo``) deadlines, SLO classes and the admission gate on
+     the paged path: phase paged's rows plus TPU_MAX_QUEUE_DEPTH=16,
+     TPU_SLO_LATENCY_SLOTS=4 and TPU_SLO_THROUGHPUT_SHARE=0.25 on the
+     same weights; a latency request with 400 new tokens and a 1.0 s
+     budget and a latency prompt of 3000 tokens whose deadline ends after
+     two mid chunks, then 48 throughput prompts of 700-1500 tokens at
+     once (4 more with a 20 ms budget right behind the first), 100 ms
+     later 8 latency prompts of 64-400 tokens: the gate sheds throughput
+     only (429 with
+     Retry-After), the expiries land in the queue (4), mid-prefill (1)
+     and mid-decode (1), TTFT by class, the pool whole afterwards,
+     flash_prefill 32 a bucket admission and paged_decode 32 a decode
+     step; then drain(30) with 8 live greedy streams: every stream
+     whole, generate refused while draining;
   6. a ``{"kernels": [...]}`` line, then the card line, then the
      ``{"ok": true, "device": {...}}`` line last.
 
@@ -1116,6 +1134,82 @@ def replay_vs_eager(gen, lengths: list, seed: int, tag: str) -> None:
                     f"(draw={draw}): {same}, logprob diff {lp}")
 
 
+def verify_vs_eager(gen, lengths: list, seed: int, tag: str) -> float:
+    """At the engine's own shapes: a random int8 cache, cursors at
+    ``lengths``, every slot active over a random window (paged: a
+    shuffled table over the pool), written into the engine's verify
+    inputs; replay the captured verify graph, then run verify_pass
+    eagerly on a copy of the state it started from. Tokens, emit,
+    cursors and cache bytes must be equal, logprobs within LOGPROB_ATOL.
+    Then the pass's device time: 20 replays with no slot active (the same
+    work, the cursors stay) between CUDA events. Returns that time (ms).
+    On a closed engine (its graphs live on); launches made here are not
+    counted."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.tpu.generator import verify_pass
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    c = gen.cache
+    b, w = gen.n_slots, gen._spec_k + 1
+    for t in (c.k, c.v):
+        t.copy_(torch.randint(-127, 128, t.shape, generator=g, device="cuda",
+                              dtype=torch.int8))
+    for t in (c.k_scale, c.v_scale):
+        t.copy_(torch.rand(t.shape, generator=g, device="cuda") * 0.02)
+    c.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+    buf = gen._verify_in
+    buf[:, :w] = torch.randint(0, gen.cfg.vocab_size, (b, w), generator=g,
+                               device="cuda")
+    buf[:, w] = 1
+    if gen._paged:
+        table, _ = shuffled_table([x + w for x in lengths], gen._block_t,
+                                  gen._mb, n=c.n_blocks)
+        buf[:, w + 1:] = table.long()
+    inputs = buf.clone()
+    cache = dataclasses.replace(
+        c, k=c.k.clone(), v=c.v.clone(), lengths=c.lengths.clone(),
+        k_scale=c.k_scale.clone(), v_scale=c.v_scale.clone())
+    graph, out, _ = gen._verify_graph
+    graph.replay()
+    got = out.clone()
+    with torch.no_grad():
+        want = verify_pass(
+            gen.params, gen.cfg, cache, inputs[:, :w], inputs[:, w].bool(),
+            inputs[:, w + 1:].to(torch.int32) if gen._paged else None,
+            gen.rope_tables)
+    torch.cuda.synchronize()
+    lp = (got[:, w:2 * w] - want[:, w:2 * w]).abs().max().item()
+    same = {"tokens": torch.equal(got[:, :w], want[:, :w]),
+            "emit": torch.equal(got[:, 2 * w], want[:, 2 * w]),
+            "all emit": bool((got[:, 2 * w] >= 1).all()),
+            "lengths": torch.equal(c.lengths, cache.lengths),
+            "cache bytes": all(torch.equal(x, y) for x, y in (
+                (c.k, cache.k), (c.v, cache.v), (c.k_scale, cache.k_scale),
+                (c.v_scale, cache.v_scale)))}
+    ok = all(same.values()) and lp <= LOGPROB_ATOL
+    print(f"[{tag}] verify graph replay vs eager verify_pass ({b} slots, "
+          f"W={w}, lengths {lengths}): {same}, max |logprob diff| {lp:.3e} "
+          f"(atol {LOGPROB_ATOL}) {'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"{tag}: a verify replay differs from the eager pass: "
+                f"{same}, logprob diff {lp}")
+    buf[:, w] = 0
+    graph.replay()
+    torch.cuda.synchronize()
+    n = 20
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def admission_vs_eager(gen, seed: int, tag: str) -> None:
     """At the engine's own shapes, from a random int8 cache (and, paged,
     scratch row) with random cursors: one admission of 500 tokens
@@ -1376,6 +1470,7 @@ def release_graphs(gen) -> None:
     import torch
 
     gen._graphs = gen._adm_graphs = None
+    gen._verify_graph = None
     torch.cuda.empty_cache()
 
 
@@ -1714,7 +1809,8 @@ def phase_spec(card: str) -> dict:
                                     params=SHARED.get("params"))
     gen = engine.generator
     torch.cuda.synchronize()
-    print(f"[spec] llama3-8b paged spec engine ready (verify pass warmed) "
+    print(f"[spec] llama3-8b paged spec engine ready (verify graph "
+          f"captured) "
           f"in {time.monotonic() - t0:.1f} s: {SPEC_ROWS}", flush=True)
     # the spec-less paged engine on the same weights: it writes S, then
     # serves the same requests for the record
@@ -1735,9 +1831,9 @@ def phase_spec(card: str) -> dict:
         prompts = [x + c + x for x, c in zip(xs, conts)]
         warm = engine.generate(prompts[0][:32], max_new_tokens=4).tokens()
         require(len(warm) == 4, f"warm-up gave {len(warm)} tokens")
-        adm0, steps0, passes0, replays0 = (gen.admissions, gen.decode_steps,
-                                           gen.verify_passes,
-                                           gen.graph_replays)
+        adm0, steps0, passes0, replays0, vreplays0 = (
+            gen.admissions, gen.decode_steps, gen.verify_passes,
+            gen.graph_replays, gen.verify_replays)
         spec0 = dict(gen.stats()["spec_decode"])
         for mod in (flash, flash_decode, paged_attention):
             mod.reset_counts()
@@ -1754,12 +1850,17 @@ def phase_spec(card: str) -> dict:
         steps = gen.decode_steps - steps0
         passes = gen.verify_passes - passes0
         replays = gen.graph_replays - replays0
+        vreplays = gen.verify_replays - vreplays0
         stats = gen.stats()
         health = engine.health_check()
         want, _, ref_wall = _serve(ref, prompts, {}, new_tokens)
     finally:
         engine.close()
         ref.close()
+    first_step = paged_prompt_lengths(np.random.default_rng(PAGED_SEED))
+    verify_ms = verify_vs_eager(
+        gen, first_step + [0] * (gen.n_slots - len(first_step)), SPEC_SEED,
+        "spec")
     release_graphs(gen)
     release_graphs(ref)
     require(not gen._thread.is_alive(), "the generation thread outlived "
@@ -1782,6 +1883,8 @@ def phase_spec(card: str) -> dict:
     require(counts["flash_prefill"] == LAYERS * bucket_admissions,
             f"flash_prefill launched {counts['flash_prefill']} times for "
             f"{bucket_admissions} bucket admissions of {LAYERS} layers")
+    require(vreplays == passes and passes > 0,
+            f"{vreplays} verify graph replays for {passes} verify passes")
     require(counts["paged_window"] == LAYERS * passes,
             f"paged_window launched {counts['paged_window']} times for "
             f"{passes} verify passes of {LAYERS} layers")
@@ -1808,8 +1911,12 @@ def phase_spec(card: str) -> dict:
               for i in range(len(prompts)) if outs[i] != want[i]}
     print(f"[spec] {len(prompts)} greedy requests, prompts X + S + X of "
           f"{[len(p) for p in prompts]} tokens, {new_tokens} new tokens "
-          f"each: {serve_line(stats, streams, outs, wall)}; {passes} verify "
-          f"passes ({spec['verify_ms_mean']:.2f} ms mean, host clock), "
+          f"each: {serve_line(stats, streams, outs, wall)} (PR 9: "
+          f"363.9-410.5 tok/s); {passes} verify passes in {vreplays} verify "
+          f"graph replays ({spec['verify_ms_mean']:.2f} ms mean dispatch to "
+          f"reap, host clock; PR 7's eager pass: 37.05 and 41.36 ms; one "
+          f"replay {verify_ms:.3f} ms of device time, CUDA events, at phase "
+          f"paged's first-step lengths), "
           f"{steps} decode steps in {replays} replays; {windows} "
           f"slot-windows emitted {emitted} tokens = "
           f"{emitted / windows:.3f} a window; launches {counts}; pool "
@@ -1829,11 +1936,19 @@ def phase_spec(card: str) -> dict:
         cspec = rows.stats()["spec_decode"]
     finally:
         rows.close()
+    cverify_ms = verify_vs_eager(rows, [500, 1200, 64, 0], SPEC_SEED,
+                                 "spec contiguous")
+    release_graphs(rows)
     require(all(len(x) == 16 for x in couts),
             f"contiguous spec streams of {[len(x) for x in couts]} tokens")
     require(cspec["windows"] > 0, f"contiguous spec engine: {cspec}")
+    require(cspec["verify_replays"] == rows.verify_passes,
+            f"contiguous spec engine: {cspec['verify_replays']} verify "
+            f"replays for {rows.verify_passes} passes")
     print(f"[spec] contiguous spec engine (4 slots, 2048 positions, int8): "
-          f"4 requests x 16 tokens in {cwall:.3f} s; {cspec}", flush=True)
+          f"4 requests x 16 tokens in {cwall:.3f} s; {cspec}; one verify "
+          f"replay {cverify_ms:.3f} ms of device time (CUDA events)",
+          flush=True)
     return counts
 
 
@@ -2166,6 +2281,239 @@ def phase_durable(card: str) -> None:
           f"after", flush=True)
 
 
+# -- phase slo: deadlines, SLO classes and the admission gate -----------------
+
+SLO_ROWS = dict(PAGED_ROWS, TPU_MAX_QUEUE_DEPTH="16",
+                TPU_SLO_LATENCY_SLOTS="4", TPU_SLO_THROUGHPUT_SHARE="0.25")
+SLO_SEED = 37
+SLO_BATCH = 48                  # throughput-class prompts, at once
+SLO_BATCH_LENS = (700, 1500)    # each one a lattice admission
+SLO_LATE = 4                    # throughput, 20 ms deadline: expire queued
+SLO_INTERACTIVE = 8             # latency-class prompts, 100 ms later
+SLO_INTERACTIVE_LENS = (64, 400)   # each one a bucket admission (K1)
+SLO_LONG = 3000                 # latency; its deadline ends mid-lattice
+SLO_DECODE = (128, 400, 1.0)    # latency: prompt, new tokens, budget (s)
+SLO_DRAIN = 8                   # live greedy streams through the drain
+
+
+def ttft_line(streams) -> str:
+    import numpy as np
+
+    t = [1e3 * (s.trace["first_put"] - s.trace["submit"]) for s in streams
+         if "first_put" in s.trace]
+    if not t:
+        return "none delivered"
+    return (f"mean {np.mean(t):.1f} ms p50 {np.median(t):.1f} ms max "
+            f"{max(t):.1f} ms over {len(t)}")
+
+
+def phase_slo(card: str) -> None:
+    """A service whose batch jobs (throughput class) share a replica with
+    interactive clients (latency class), behind request budgets: a burst
+    the gate sheds from its throughput side, deadlines that run out in
+    the queue, between lattice chunks and while decoding, the pool whole
+    afterwards; then a graceful drain with live streams."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.errors import DeadlineExceeded, TooManyRequests
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.resilience import (SLO_LATENCY, SLO_THROUGHPUT,
+                                           Deadline)
+    from gofr_tpu_torch.tpu import GenerationError, new_engine_from_config
+
+    class LatticeDeadline(Deadline):
+        """A deadline that runs out once its stream's lattice has run two
+        of its mid chunks: it ends mid-prefill on any machine, however
+        long the request waited for its slot."""
+        __slots__ = ("stream",)
+
+        def __init__(self):
+            super().__init__(time.monotonic() + 3600.0)
+            self.stream = None
+
+        def expired(self) -> bool:
+            return (self.stream is not None and self.stream.chunks >= 2) \
+                or super().expired()
+
+    t0 = time.monotonic()
+    engine = new_engine_from_config(MapConfig(SLO_ROWS), device="cuda",
+                                    params=SHARED.get("params"))
+    gen = engine.generator
+    torch.cuda.synchronize()
+    print(f"[slo] llama3-8b paged engine with the admission gate ready in "
+          f"{time.monotonic() - t0:.1f} s: {SLO_ROWS}", flush=True)
+    rng = np.random.default_rng(SLO_SEED)
+    vocab = gen.cfg.vocab_size
+
+    def prompts(n, lens):
+        return [rng.integers(0, vocab, k).tolist()
+                for k in rng.integers(lens[0], lens[1] + 1, n)]
+
+    batch = prompts(SLO_BATCH, SLO_BATCH_LENS)
+    late = prompts(SLO_LATE, SLO_BATCH_LENS)
+    inter = prompts(SLO_INTERACTIVE, SLO_INTERACTIVE_LENS)
+    long_prompt = rng.integers(0, vocab, SLO_LONG).tolist()
+    decode_prompt = rng.integers(0, vocab, SLO_DECODE[0]).tolist()
+    new_tokens = PAGED_NEW_TOKENS
+    submitted, sheds = [], []
+
+    def submit(tag, prompt, cls, new, deadline=None):
+        try:
+            s = engine.generate(prompt, max_new_tokens=new, slo_class=cls,
+                                deadline=deadline)
+        except TooManyRequests as e:
+            sheds.append((tag, cls, e.status_code, dict(e.headers)))
+            return None
+        submitted.append((tag, cls, s))
+        return s
+
+    def outcome(stream):
+        got = 0
+        try:
+            for _ in stream:
+                got += 1
+        except DeadlineExceeded as e:
+            return ("DeadlineExceeded", got, stream.where, str(e))
+        return ("ok", got, stream.where, "")
+
+    try:
+        warm = engine.generate(inter[0][:32], max_new_tokens=4).tokens()
+        require(len(warm) == 4, f"warm-up gave {len(warm)} tokens")
+        adm0, steps0 = gen.admissions, gen.decode_steps
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        t_burst = time.monotonic()
+        # the interactive client whose budget ends while it decodes, and
+        # the one whose deadline ends mid-lattice (both ahead of the
+        # burst: behind it the gate's latency bound, 16 waiting, would
+        # shed one of the interactive requests)
+        submit("decode", decode_prompt, SLO_LATENCY, SLO_DECODE[1],
+               Deadline.after(SLO_DECODE[2]))
+        dl = LatticeDeadline()
+        dl.stream = submit("long", long_prompt, SLO_LATENCY, new_tokens, dl)
+        # the batch burst at once; 4 more batch requests with a 20 ms
+        # budget right behind its first (they wait for a synchronous pass,
+        # as every lattice admission does), then its tail, which the gate
+        # sheds once 8 requests wait (16 x the throughput factor 0.5)
+        submit("batch0", batch[0], SLO_THROUGHPUT, new_tokens)
+        for i, p in enumerate(late):
+            submit(f"late{i}", p, SLO_THROUGHPUT, new_tokens,
+                   Deadline.after(0.02))
+        for i, p in enumerate(batch[1:], 1):
+            submit(f"batch{i}", p, SLO_THROUGHPUT, new_tokens)
+        time.sleep(max(0.0, t_burst + 0.1 - time.monotonic()))
+        for i, p in enumerate(inter):
+            submit(f"inter{i}", p, SLO_LATENCY, new_tokens)
+        fates = {tag: (cls, s, outcome(s)) for tag, cls, s in submitted}
+        wall = time.monotonic() - t_burst
+        counts = {"flash_prefill": flash.launches,
+                  "paged_decode": paged_attention.launches,
+                  "paged_window": paged_attention.window_launches,
+                  "flash_decode": flash_decode.launches,
+                  "prefill_plain": flash.plain_calls,
+                  "decode_plain": flash_decode.plain_calls,
+                  "paged_plain": paged_attention.plain_calls}
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+        stats = gen.stats()
+        bucket_admissions = sum(
+            1 for _, s, f in fates.values()
+            if "admit" in s.trace and not s.chunks and f[2] != "queue")
+
+        # the drain: live greedy streams finish, new requests are refused
+        live = [engine.generate(p, max_new_tokens=new_tokens)
+                for p in prompts(SLO_DRAIN, SLO_INTERACTIVE_LENS)]
+        end = time.monotonic() + 60
+        while gen.stats()["active"] < SLO_DRAIN and time.monotonic() < end:
+            time.sleep(0.002)
+        drained = {}
+        drainer = threading.Thread(target=lambda: drained.update(
+            ok=gen.drain(30.0)))
+        t_drain = time.monotonic()
+        drainer.start()
+        while not gen.stats()["draining"] and time.monotonic() < end:
+            time.sleep(0.001)
+        draining = gen.stats()["draining"]
+        try:
+            engine.generate(inter[0], max_new_tokens=4)
+            refused = None
+        except GenerationError as e:
+            refused = str(e)
+        live_outs = [len(s.tokens()) for s in live]
+        drainer.join(60)
+        drain_s = time.monotonic() - t_drain
+    finally:
+        engine.close()
+    release_graphs(gen)
+
+    by_class = {c: [s for cls, s, _ in fates.values() if cls == c]
+                for c in (SLO_LATENCY, SLO_THROUGHPUT)}
+    shed_by = {c: sum(1 for _, cls, _, _ in sheds if cls == c)
+               for c in (SLO_LATENCY, SLO_THROUGHPUT)}
+    expired = {tag: f for tag, (_, _, f) in fates.items()
+               if f[0] != "ok"}
+    served = {tag: f[1] for tag, (_, _, f) in fates.items() if f[0] == "ok"}
+    print(f"[slo] {SLO_BATCH + SLO_LATE} throughput and "
+          f"{SLO_INTERACTIVE + 2} latency requests in {wall:.3f} s: "
+          f"{len(submitted)} queued, {len(sheds)} shed ({shed_by}; first "
+          f"{sheds[0] if sheds else None}); TTFT latency class "
+          f"{ttft_line(by_class[SLO_LATENCY])}, throughput class "
+          f"{ttft_line(by_class[SLO_THROUGHPUT])}; served {served}; "
+          f"{admissions} admissions ({bucket_admissions} bucket), {steps} "
+          f"decode steps; launches {counts}; card: {card}", flush=True)
+    print(f"[slo] expiries by where {stats['expired']}; typed errors "
+          f"{expired}; gate {stats['admission']}; scheduler "
+          f"{stats['scheduler']}; pool {stats['paged']}", flush=True)
+    print(f"[slo] drain with {SLO_DRAIN} live greedy streams: drain(30) "
+          f"returned {drained.get('ok')} after {drain_s:.3f} s, streams "
+          f"{live_outs}, draining {draining}, a new request refused with "
+          f"{refused!r}", flush=True)
+    require(shed_by[SLO_THROUGHPUT] >= 1 and shed_by[SLO_LATENCY] == 0,
+            f"sheds by class {shed_by}: want throughput >= 1, latency 0")
+    require(all(code == 429 and "Retry-After" in h
+                for _, _, code, h in sheds), f"sheds {sheds[:3]}")
+    require(stats["expired"] == {"pre-queue": 0, "queue": SLO_LATE,
+                                 "mid-prefill": 1, "mid-decode": 1},
+            f"expiries by where {stats['expired']}")
+    require(all(fates[f"late{i}"][2][:3] == ("DeadlineExceeded", 0, "queue")
+                for i in range(SLO_LATE)),
+            f"the late requests: {[fates[f'late{i}'][2] for i in range(4)]}")
+    require(fates["long"][2][0::2] == ("DeadlineExceeded", "mid-prefill")
+            and fates["long"][1].chunks >= 2,
+            f"the long prompt: {fates['long'][2]}, "
+            f"{fates['long'][1].chunks} chunks")
+    decode_fate = fates["decode"][2]
+    require(decode_fate[0::2] == ("DeadlineExceeded", "mid-decode")
+            and 0 < decode_fate[1] < SLO_DECODE[1],
+            f"the {SLO_DECODE[1]}-token request: {decode_fate}")
+    require(all(n == new_tokens for n in served.values()),
+            f"served streams {served}")
+    require(stats["paged"]["free"] == int(SLO_ROWS["TPU_PAGED_BLOCKS"]) - 1
+            and gen._prefix_idx is None,
+            f"pool not whole after the burst: {stats['paged']}")
+    require(counts["paged_decode"] == LAYERS * steps and steps > 0,
+            f"paged_decode launched {counts['paged_decode']} times for "
+            f"{steps} decode steps of {LAYERS} layers")
+    require(counts["flash_prefill"] == LAYERS * bucket_admissions
+            and bucket_admissions > 0,
+            f"flash_prefill launched {counts['flash_prefill']} times for "
+            f"{bucket_admissions} bucket admissions")
+    others = {k: counts[k] for k in ("paged_window", "flash_decode",
+                                     "prefill_plain", "decode_plain",
+                                     "paged_plain")}
+    require(not any(others.values()),
+            f"other attention paths ran on the slo path: {others}")
+    require(drained.get("ok") is True and draining
+            and refused is not None and "draining" in refused
+            and live_outs == [new_tokens] * SLO_DRAIN,
+            f"drain: {drained}, draining {draining}, refused {refused!r}, "
+            f"streams {live_outs}")
+
+
 # -- running the phases -------------------------------------------------------
 
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2173,7 +2521,7 @@ RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
-                "durable")) -> dict:
+                "durable", "slo")) -> dict:
     import torch
 
     card = card_line()
@@ -2220,6 +2568,8 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             records["paged_window"]["launches"] = counts["paged_window"]
         elif phase == "durable":
             phase_durable(card)
+        elif phase == "slo":
+            phase_slo(card)
         else:
             raise SmokeFailure(f"unknown phase {phase!r}")
         torch.cuda.empty_cache()

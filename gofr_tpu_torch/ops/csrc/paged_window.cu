@@ -781,16 +781,34 @@ cudaError_t launch_split(const void* q, const void* kp, const void* vp,
                          float* work, int B, int Wn, int H, int KV, int NB,
                          int NC, float scale, cudaStream_t st) {
   using L = Layout<T, RT>;
-  auto kernel = window_split_kernel<T, RT>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(KV, NB), L::NT, L::BYTES, st>>>(
+  window_split_kernel<T, RT><<<dim3(KV, NB), L::NT, L::BYTES, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), rows, lengths, work, B, Wn, H, KV, NC,
       scale);
   return cudaGetLastError();
+}
+
+// Raise one pass-1 instance's dynamic shared memory limit (once, at
+// load: see gofr_paged_window_init).
+template <typename T, int RT>
+cudaError_t set_smem() {
+  return cudaFuncSetAttribute(window_split_kernel<T, RT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Layout<T, RT>::BYTES);
+}
+
+// Every pass-1 instance `launch` reaches: both pool types, 1 to 8 row
+// tiles.
+template <typename T>
+cudaError_t set_smem_all() {
+  const cudaError_t errs[] = {set_smem<T, 1>(), set_smem<T, 2>(),
+                              set_smem<T, 3>(), set_smem<T, 4>(),
+                              set_smem<T, 5>(), set_smem<T, 6>(),
+                              set_smem<T, 7>(), set_smem<T, 8>()};
+  for (const cudaError_t e : errs)
+    if (e != cudaSuccess) return e;
+  return cudaSuccess;
 }
 
 // Both passes on `stream`. `work` holds B*KV*NC*PS*R*kRow floats, NC =
@@ -849,6 +867,17 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks,
 
 }  // namespace window
 }  // namespace gofr
+
+// One-time set-up, run once when the library is loaded
+// (gofr_tpu_torch/ops/kernels.py), never at a launch: it raises every
+// pass-1 instance's dynamic shared memory limit, so a launch holds
+// nothing but the launches themselves and can sit inside a captured CUDA
+// graph (the verify pass).
+extern "C" int gofr_paged_window_init() {
+  const cudaError_t err = gofr::window::set_smem_all<int8_t>();
+  if (err != cudaSuccess) return err;
+  return gofr::window::set_smem_all<__nv_bfloat16>();
+}
 
 // q/out [B, Wn, H, 128] bf16 (1 <= Wn <= 16); k_pool/v_pool
 // [N, T, KV, 128] int8 with k_scale/v_scale [N, T, KV] float32; table

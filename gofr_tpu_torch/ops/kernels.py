@@ -78,7 +78,8 @@ SIGNATURES = {
 # one-time set-up entry points, run once right after a library is loaded
 # (each returns its cudaError_t as an int): what may not run at a launch
 # that sits inside a captured CUDA graph
-INITS = {"flash_prefill.cu": "gofr_flash_prefill_init"}
+INITS = {"flash_prefill.cu": "gofr_flash_prefill_init",
+         "paged_window.cu": "gofr_paged_window_init"}
 
 # What the attention kernels take (csrc/*.cu): head_dim 128, bf16
 # activations; the decodes (K2, K3) and the verify window (K3w) G = H/KV

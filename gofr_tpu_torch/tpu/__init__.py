@@ -42,6 +42,19 @@ Rows read:
                     positions, through the paged window kernel on a
                     paged engine, at most 15 there on the card); 0 or
                     unset: off
+  TPU_MAX_QUEUE_DEPTH  the admission gate sheds (TooManyRequests, 429)
+                    once this many requests wait (default 0 = off)
+  TPU_MAX_QUEUE_DELAY  ... or once the estimated queue wait exceeds this
+                    many seconds (default 0 = off)
+  TPU_BROWNOUT_DELAY  above this estimated wait (seconds) the gate caps
+                    max_new_tokens (default 0 = off)
+  TPU_BROWNOUT_MAX_NEW  that cap (default 32)
+  TPU_SLO_THROUGHPUT_FACTOR  the fraction of each gate bound that holds
+                    for throughput-class requests (default 0.5)
+  TPU_SLO_THROUGHPUT_SHARE  the throughput line's share of admissions
+                    while latency-class requests also wait (default 0.25)
+  TPU_SLO_LATENCY_SLOTS  free slots kept from throughput-class requests
+                    for latency-class arrivals (default 1)
 
 Every other ``TPU_*`` row of the JAX package names a feature this port
 does not serve yet; a set one raises with its name rather than being
@@ -55,6 +68,7 @@ import torch
 from ..device import resolve_device
 from ..models import llama
 from ..models.common import LLAMA_CONFIGS
+from ..resilience import gate_from_config
 from .checkpoint import from_jax_params, load_npz, maybe_quantize
 from .engine import Health, TorchEngine
 from .generator import (DEFAULT_SEQ_BUCKETS, GenerationEngine,
@@ -66,16 +80,12 @@ __all__ = ["GenerationEngine", "GenerationError", "GenStream", "Health",
 
 # rows of the JAX package that name features outside this slice
 UNPORTED_ROWS = (
-    "TPU_SLO_THROUGHPUT_FACTOR",
-    "TPU_SLO_THROUGHPUT_SHARE", "TPU_SLO_LATENCY_SLOTS",
     "TPU_SLO_BATCH_SHARE", "TPU_SLO_BATCH_DELAY",
     "TPU_KVCACHE_BLOCK", "TPU_KVCACHE_HOST_MB",
     "TPU_KVCACHE_REDIS", "TPU_KVCACHE_REDIS_TTL_S",
     "TPU_KVCACHE_REDIS_TIMEOUT_S", "TPU_KVCACHE_EPOCH_REFRESH_S",
     "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_BUDGET_MB",
-    "TPU_HBM_HEADROOM", "TPU_HBM_DEVICE_BUDGET_MB", "TPU_MAX_QUEUE_DEPTH",
-    "TPU_MAX_QUEUE_DELAY", "TPU_BROWNOUT_DELAY", "TPU_BROWNOUT_MAX_NEW",
-    "TPU_BATCH_BUCKETS", "TPU_MAX_BATCH_DELAY",
+    "TPU_HBM_HEADROOM", "TPU_HBM_DEVICE_BUDGET_MB", "TPU_BATCH_BUCKETS", "TPU_MAX_BATCH_DELAY",
     "TPU_SHARDING", "TPU_PD_LISTEN", "TPU_PD_PEER", "TPU_PD_BLOCK",
     "TPU_PD_WINDOW_MB", "TPU_WARMUP", "TPU_TENANTS", "TPU_TENANTS_INLINE",
     "TPU_TENANTS_RELOAD_S", "TPU_TENANT_HEADER", "TPU_TENANT_TOPIC",
@@ -114,12 +124,15 @@ def _check_rows(cfg) -> None:
 
 
 def new_engine_from_config(cfg, device="cuda", logger=None,
-                           params: dict | None = None) -> TorchEngine:
+                           params: dict | None = None,
+                           metrics=None) -> TorchEngine:
     """Build the generation engine from ``TPU_*`` rows on ``device``
     (the CUDA card unless the caller asks for the CPU; raises when
     there is no card). ``params``: weights already on ``device`` for
     this model, used instead of TPU_WEIGHTS or a random init (engines
-    built one after another on the same weights)."""
+    built one after another on the same weights). ``metrics``: what the
+    admission gate and the engine count sheds, brownouts and expiries
+    into (``increment_counter``/``set_gauge``), if given."""
     _check_rows(cfg)
     device = resolve_device(device)
     name = (cfg.get("TPU_MODEL") or "tiny").strip()
@@ -155,7 +168,12 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
         paged_block_size=cfg.get_int("TPU_PAGED_BLOCK", 128),
         prefix_cache_slots=cfg.get_int("TPU_PREFIX_CACHE", 0),
         prefix_store_min=cfg.get_int("TPU_PREFIX_MIN", 0) or None,
-        spec_decode_k=cfg.get_int("TPU_SPEC_DECODE", 0), device=device)
+        spec_decode_k=cfg.get_int("TPU_SPEC_DECODE", 0),
+        gate=gate_from_config(cfg, "generate", metrics=metrics,
+                              logger=logger),
+        slo_throughput_share=cfg.get_float("TPU_SLO_THROUGHPUT_SHARE", 0.25),
+        slo_latency_slots=cfg.get_int("TPU_SLO_LATENCY_SLOTS", 1),
+        metrics=metrics, device=device)
     if logger is not None:
         logger.info({"event": "torch engine ready", "model": name,
                      "device": str(device)})

@@ -20,6 +20,11 @@ class Health:
     status: str
     details: dict[str, Any] = field(default_factory=dict)
 
+    def to_dict(self) -> dict[str, Any]:
+        """The health check's wire form, as the App's
+        ``/.well-known/health`` reads every datasource's."""
+        return {"status": self.status, "details": self.details}
+
 
 class TorchEngine:
     def __init__(self, generator: GenerationEngine, model_name: str,

@@ -56,7 +56,9 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
     (models.llama.verify_step, or paged_llama.paged_verify_step through
     the paged window kernel) and delivers each slot's agreeing prefix
     plus one token; otherwise a decode block runs. Streams are the
-    spec-less engine's, token for token.
+    spec-less engine's, token for token. On the card the pass is one
+    replay of a CUDA graph captured at construction (``verify_pass``,
+    the port of ``_verify_jit``), in flight like a decode block.
   - With ``prefix_cache_slots`` on a paged engine, zero-copy prefix
     sharing (models.paged_llama.SharedPrefixIndex): an admitted prompt
     of at least ``prefix_store_min`` tokens leaves an entry that holds a
@@ -71,6 +73,16 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
     budget counts from the original request, and sampling resumes at
     absolute position ``len(emitted)``, so greedy and seeded streams
     splice token for token.
+  - Requests carry a deadline and an SLO class (resilience): the
+    pending line picks latency-class requests first, with every Nth
+    pick going to the throughput line while both wait, and keeps the
+    last ``slo_latency_slots`` free slots from throughput; an optional
+    admission gate sheds with TooManyRequests and caps the token budget
+    in its brownout band; a deadline that runs out fails the stream with
+    DeadlineExceeded before queueing, in the queue, between lattice
+    chunks or at a reap, and its device work stops there. ``drain``
+    refuses new requests and serves the accepted ones (the App's
+    graceful stop).
   - On a CUDA device the engine refuses at construction a model the
     attention kernels do not take (ops.kernels.check_attention_shape),
     naming its shape and the kernel, so nothing raises in the loop for
@@ -102,10 +114,12 @@ import torch
 
 from .. import chaos
 from ..device import resolve_device
+from ..errors import DeadlineExceeded
 from ..models import llama, paged_llama
 from ..models.common import ModelConfig
 from ..ops import flash, flash_decode, kernels, paged_attention
-from ..resilience import DecodePipelinePolicy
+from ..resilience import (SLO_LATENCY, SLO_THROUGHPUT, DecodePipelinePolicy,
+                          current_deadline, current_slo_class)
 from ..wire import PushStream
 from . import prng
 
@@ -144,15 +158,73 @@ def pad_bucket(n: int, buckets) -> int:
     return max(buckets)
 
 
-class _Pending(queue.Queue):
-    """The admission queue: FIFO, plus ``put_front`` for a request the
-    in-flight admission pass defers to the next synchronous pass."""
+class _ClassPending:
+    """The SLO-class-aware admission line (the JAX engine's
+    ``_ClassPending``): latency-class requests are picked first; a
+    weighted anti-starvation streak hands every Nth pick to the
+    throughput line while it has waiters, so saturating interactive
+    traffic never starves batch streams out of the slots.
 
-    def put_front(self, item) -> None:
-        with self.not_empty:
-            self.queue.appendleft(item)
-            self.unfinished_tasks += 1
-            self.not_empty.notify()
+    Any thread puts (``generate``); only the serving loop pops, which is
+    what makes pop-then-``put_front`` exact. Each class line is a plain
+    FIFO: JAX's per-tenant fair line collapses to one for requests
+    without a tenant, and tenancy is not ported (ROADMAP queue 1 item
+    10)."""
+
+    def __init__(self, throughput_share: float = 0.25):
+        share = min(max(float(throughput_share), 0.0), 1.0)
+        # share -> latency picks per throughput pick, floored so the
+        # contended throughput fraction 1/(weight + 1) is at least the
+        # share; None: throughput drains only when no latency request
+        # waits
+        self._weight = int((1.0 - share) / share) if share > 0 else None
+        self._lat: deque = deque()
+        self._thr: deque = deque()
+        self._lock = threading.Lock()
+        self._lat_streak = 0
+        self._prev_streak = 0   # the streak before the latest pop
+
+    def _line(self, req) -> deque:
+        return self._thr if req.slo_class == SLO_THROUGHPUT else self._lat
+
+    def put(self, req) -> None:
+        with self._lock:
+            self._line(req).append(req)
+
+    def put_front(self, req) -> None:
+        """Undo the latest pop (the in-flight pass deferring a lattice
+        admission): the request goes back to the head of its line and
+        the streak to its value before the pop, so a throughput turn
+        deferred is not a turn spent."""
+        with self._lock:
+            self._line(req).appendleft(req)
+            self._lat_streak = self._prev_streak
+
+    def get_nowait(self, allow_throughput: bool = True):
+        """Pop the next admissible request (queue.Empty when there is
+        none). ``allow_throughput=False``: the caller fills one of the
+        slots reserved for latency, which only the latency line may
+        serve."""
+        with self._lock:
+            use_thr = allow_throughput and bool(self._thr) and (
+                not self._lat
+                or (self._weight is not None
+                    and self._lat_streak >= self._weight))
+            line = self._thr if use_thr else self._lat
+            if not line:
+                raise queue.Empty
+            self._prev_streak = self._lat_streak
+            self._lat_streak = 0 if use_thr else self._lat_streak + 1
+            return line.popleft()
+
+    def qsize(self) -> int:
+        return len(self._lat) + len(self._thr)
+
+    def qsize_class(self, slo_class: str) -> int:
+        return len(self._thr if slo_class == SLO_THROUGHPUT else self._lat)
+
+    def empty(self) -> bool:
+        return not (self._lat or self._thr)
 
 
 # the kernel wrappers' counters: a graph replay runs no Python, so the
@@ -291,6 +363,68 @@ def verify_epilogue(logits: torch.Tensor, window: torch.Tensor,
     accepted = torch.cumprod(agree, dim=1).sum(dim=1)
     emit = torch.where(active, accepted + 1, torch.zeros_like(accepted))
     return greedy, lps, accepted, emit
+
+
+def verify_pass(params: dict, cfg: ModelConfig, cache, window: torch.Tensor,
+                active: torch.Tensor, table, rope_tables) -> torch.Tensor:
+    """One speculative verify pass (the JAX engine's ``_verify_fn``, or
+    ``_paged_verify_fn`` for a ``paged_llama.PagedKVCache`` through
+    ``table`` [B, MB] int32, then ``_verify_epilogue``): ``window``
+    [B, W] is each slot's last token then its drafts, ``active`` [B]
+    bool the slots that verify. The cursors advance by emit IN PLACE
+    (a captured graph reads the cache's own cursor tensor). Returns
+    [B, 2W + 1] float64: the greedy tokens, their logprobs, emit.
+    Tensors in, tensors out, no host read: the engine captures it into
+    one CUDA graph on the card, and the CPU runs it eagerly."""
+    if isinstance(cache, paged_llama.PagedKVCache):
+        logits, _ = paged_llama.paged_verify_step(params, cfg, window, cache,
+                                                  table, rope_tables)
+    else:
+        logits, _ = llama.verify_step(params, cfg, window, cache,
+                                      rope_tables)
+    toks, lps, _, emit = verify_epilogue(logits, window, active)
+    cache.lengths.add_(emit.to(torch.int32))
+    return torch.cat([toks.double(), lps.double(), emit.double()[:, None]],
+                     dim=1)
+
+
+class _Staged:
+    """Uploads into one int64 device tensor that a captured graph reads
+    (the dispatch pack, the admission inputs, the verify inputs): fill
+    ``host()``, then ``upload()``. On the card through two pinned
+    staging buffers, copied ``non_blocking`` behind whatever the stream
+    holds (a copy from pageable memory would synchronise the stream and
+    the host would wait for the blocks in flight), a buffer written
+    again only once the copy that read it has completed (its event); on
+    the CPU a plain copy. ``uploads`` counts them."""
+
+    def __init__(self, dst: torch.Tensor):
+        self.dst = dst
+        self.uploads = 0
+        self._bufs = None
+        self._image = None
+        if dst.device.type == "cuda":
+            self._bufs = [(torch.zeros(tuple(dst.shape), dtype=torch.long,
+                                       pin_memory=True), torch.cuda.Event())
+                          for _ in range(2)]
+
+    def host(self) -> np.ndarray:
+        """The host image of the next upload (holding stale values)."""
+        if self._bufs is None:
+            self._image = np.empty(tuple(self.dst.shape), np.int64)
+            return self._image
+        staged, copied = self._bufs[self.uploads % 2]
+        copied.synchronize()
+        return staged.numpy()
+
+    def upload(self) -> None:
+        if self._bufs is None:
+            self.dst.copy_(torch.from_numpy(self._image))
+        else:
+            staged, copied = self._bufs[self.uploads % 2]
+            self.dst.copy_(staged, non_blocking=True)
+            copied.record()
+        self.uploads += 1
 
 
 class AdmissionInputs:
@@ -464,7 +598,9 @@ class GenStream(PushStream):
     ``prompt_len`` (a continuation's prompt + emitted), ``cache_tokens``
     and ``cache_tier`` (the prompt positions a prefix hit covered, and
     "paged"), ``seed`` (a sampled request's, for a resume) and
-    ``failed`` (why the loop failed it)."""
+    ``failed`` (why the loop failed it). ``slo_class``: the request's
+    class; ``where``: where its deadline ran out ("queue",
+    "mid-prefill", "mid-decode"), if it did."""
 
     def __init__(self, request_id: int, logprobs: bool = False):
         super().__init__()
@@ -478,6 +614,8 @@ class GenStream(PushStream):
         self.cache_tier: str | None = None
         self.cache_tokens = 0
         self.failed: str | None = None
+        self.slo_class = SLO_LATENCY
+        self.where: str | None = None
 
     def tokens(self) -> list[int]:
         """Drain the whole stream (blocking) into a list of ids."""
@@ -489,11 +627,13 @@ class GenStream(PushStream):
 
 class _Request:
     __slots__ = ("stream", "prompt", "max_new", "temperature", "top_k",
-                 "eos_id", "seed", "pos_base", "lattice_peek")
+                 "eos_id", "seed", "pos_base", "lattice_peek", "deadline",
+                 "slo_class", "enqueued_at")
 
     def __init__(self, stream: GenStream, prompt: np.ndarray, max_new: int,
                  temperature: float, top_k: int, eos_id, seed: int,
-                 pos_base: int = 0):
+                 pos_base: int = 0, deadline=None,
+                 slo_class: str = SLO_LATENCY):
         self.stream = stream
         self.prompt = prompt
         self.max_new = max_new
@@ -506,6 +646,12 @@ class _Request:
         self.pos_base = pos_base
         # (prefix index version, verdict): _needs_lattice's memo
         self.lattice_peek: tuple[int, bool] | None = None
+        # resilience.Deadline: an expired request is dropped at
+        # admission, between lattice chunks or at a reap
+        self.deadline = deadline
+        # the pending line it waits in and the gate's band it is held to
+        self.slo_class = slo_class
+        self.enqueued_at = time.monotonic()
 
     @property
     def logprobs(self) -> bool:
@@ -557,7 +703,9 @@ class GenerationEngine:
                  prefix_store_min: int | None = None,
                  spec_decode_k: int = 0, lora_adapters: int = 0,
                  paged_blocks: int = 0, paged_block_size: int = 128,
-                 kvcache=None, mesh=None):
+                 kvcache=None, mesh=None, gate=None,
+                 slo_throughput_share: float = 0.25,
+                 slo_latency_slots: int = 1, metrics=None):
         unported = {"lora_adapters": lora_adapters != 0,
                     "kvcache": kvcache is not None,
                     "mesh": mesh is not None}
@@ -602,6 +750,12 @@ class GenerationEngine:
                                      self.prompt_buckets)
             self._chunk_interleave = True
         self.logger = logger
+        self.metrics = metrics
+        # resilience.AdmissionGate in front of the pending line (None:
+        # admit everything): sheds with TooManyRequests under overload,
+        # caps max_new_tokens in its brownout band, and is fed each
+        # admission's queue wait at _start
+        self.gate = gate
         self._seed = int(seed)
         self._auto_seed = itertools.count(1)
         # Paged KV: slots share a pool of T-token blocks through a
@@ -661,7 +815,7 @@ class GenerationEngine:
         # budget, itself a bucket
         self._adm_in = AdmissionInputs(self._mb if self._paged else 0,
                                        self._chunk, self.device)
-        self._adm_uploads = 0
+        self._adm_up = _Staged(self._adm_in.buf)
         self.admission_replays = 0   # admission dispatches run as replays
         # set when the in-flight admission pass deferred a lattice
         # admission; drops the pipeline to depth 1 until the synchronous
@@ -689,8 +843,8 @@ class GenerationEngine:
         width = PACK_EXTRA + EOS_MAX + (self._mb if self._paged else 0)
         self._pack = torch.zeros((slots, width), dtype=torch.long,
                                  device=self.device)
+        self._pack_up = _Staged(self._pack)
         self._pack_dirty = True
-        self.pack_uploads = 0
         self._carry = self._host_carry()
 
         # Prompt-lookup speculative decoding (greedy slots only): each
@@ -701,6 +855,14 @@ class GenerationEngine:
             self._spec_emitted = 0   # tokens those windows emitted
             self._hist_buf = np.zeros((slots, self.max_seq), np.int32)
             self._hist_n = np.zeros((slots,), np.int64)
+            # the verify pass's device inputs, one [B, W + 1 (+ MB)] int64
+            # matrix uploaded per pass (the window, the active mask, then
+            # the paged table): the captured verify graph reads this very
+            # tensor, so nothing of a pass is baked into it
+            self._verify_in = torch.zeros(
+                (slots, self._spec_k + 2 + (self._mb if self._paged else 0)),
+                dtype=torch.long, device=self.device)
+            self._verify_up = _Staged(self._verify_in)
 
         # The decode dispatch pipeline (the JAX engine's): up to depth
         # blocks in flight on the device stream, the host reaping the
@@ -721,11 +883,23 @@ class GenerationEngine:
         # (decode_step_ms_mean's reap-to-reap anchor)
         self._steady_from: float | None = None
 
-        self._pending: "_Pending[_Request]" = _Pending()
+        self._pending = _ClassPending(slo_throughput_share)
+        # throughput-class admissions never take the last
+        # ``slo_latency_slots`` free slots, so a latency arrival under
+        # batch saturation finds a slot (the gate bounds the line, this
+        # the slots); clamped so that throughput can always run
+        self._lat_reserve = max(0, min(int(slo_latency_slots), slots - 1))
         self._device_lock = threading.Lock()
         self._admission_lock = threading.Lock()
         self._work = threading.Event()
         self._closed = False
+        self._draining = False
+        # requests popped off the line but not yet live in a slot: drain()
+        # counts them as in flight
+        self._admitting = 0
+        # requests whose deadline ran out, by where
+        self._expired = dict.fromkeys(
+            ("pre-queue", "queue", "mid-prefill", "mid-decode"), 0)
         self.down: str | None = None
         self._recoveries = 0     # failed steps the loop recovered from
         self.total_tokens = 0
@@ -733,14 +907,15 @@ class GenerationEngine:
         self.admissions = 0      # prefills run (one per admission)
         self.decode_steps = 0    # decode steps dispatched (K per block)
         self.verify_passes = 0   # speculative verify passes run
+        self.verify_replays = 0  # verify passes run as a graph replay
         self.graph_replays = 0   # decode blocks run as a graph replay
         self._block_s: "deque[float]" = deque(maxlen=1024)
         self._verify_s: "deque[float]" = deque(maxlen=1024)
         if self.device.type == "cuda":
             self._capture_graphs()
             self._capture_admission_graphs()
-        if self._spec_k:
-            self._warm_verify()
+            if self._spec_k:
+                self._capture_verify_graph()
         self._thread = threading.Thread(target=self._loop,
                                         name="gofr-torch-gen", daemon=True)
         self._thread.start()
@@ -748,8 +923,9 @@ class GenerationEngine:
     # -- public API ----------------------------------------------------------
     def generate(self, prompt, max_new_tokens: int = 128,
                  temperature: float = 0.0, top_k: int = 0, eos_id=None,
-                 adapter: int = 0, logprobs: bool = False,
-                 seed: int | None = None, continue_from=None) -> GenStream:
+                 adapter: int = 0, logprobs: bool = False, deadline=None,
+                 slo_class: str | None = None, seed: int | None = None,
+                 continue_from=None) -> GenStream:
         """Enqueue a prompt (sequence of token ids); returns a GenStream
         yielding generated ids as the device produces them.
 
@@ -766,9 +942,24 @@ class GenerationEngine:
         prompt + emitted prefill as one prompt, ``max_new_tokens`` still
         counts from the original request (a spent budget raises), and
         sampling resumes at absolute position ``len(emitted)``, so the
-        spliced stream equals the uninterrupted one, greedy or seeded."""
+        spliced stream equals the uninterrupted one, greedy or seeded.
+
+        ``deadline`` (resilience.Deadline) defaults to the calling
+        thread's ambient one (``resilience.deadline_scope``): an expired
+        request raises DeadlineExceeded here, and one that expires while
+        queued, between lattice chunks or while decoding fails its
+        stream with DeadlineExceeded and stops its device work.
+        ``slo_class`` (resilience.SLO_LATENCY or SLO_THROUGHPUT) defaults
+        to the ambient class (latency): latency-class requests take
+        slots first; throughput-class ones are shed and browned out
+        first by the gate and drain through the line's anti-starvation
+        turns. With a gate, overload sheds with TooManyRequests and the
+        brownout band caps ``max_new_tokens``. While ``drain`` runs,
+        ``generate`` raises."""
         if self._closed:
             raise GenerationError("generation engine is closed")
+        if self._draining:
+            raise GenerationError("generation engine is draining")
         if self.down is not None:
             raise GenerationError(f"generation engine is down: {self.down}")
         if adapter:
@@ -788,6 +979,21 @@ class GenerationEngine:
                 raise GenerationError(
                     f"continue_from carries {pos_base} emitted tokens but "
                     "the request budget allows no more: nothing to resume")
+        if deadline is None:
+            deadline = current_deadline()
+        if slo_class is None:
+            slo_class = current_slo_class()
+        elif slo_class not in (SLO_LATENCY, SLO_THROUGHPUT):
+            raise GenerationError(f"unknown slo_class {slo_class!r}")
+        if deadline is not None and deadline.expired():
+            self._count_expired("pre-queue")
+            raise DeadlineExceeded("deadline expired before generate() "
+                                   "was queued")
+        if self.gate is not None:
+            self.gate.admit(self._pending.qsize(), program="generate",
+                            slo_class=slo_class)
+            max_new_tokens = self.gate.cap_tokens(max_new_tokens,
+                                                  slo_class=slo_class)
         if eos_id is not None and not isinstance(eos_id, (int, np.integer)):
             eos_id = frozenset(int(t) for t in eos_id) or None
         elif isinstance(eos_id, np.integer):
@@ -801,6 +1007,7 @@ class GenerationEngine:
         stream.trace["submit"] = time.monotonic()
         stream.prompt_len = len(prompt)
         stream.seed = seed
+        stream.slo_class = slo_class
         limit = self.max_seq - 1
         why = None
         if len(prompt) == 0 or len(prompt) > limit:
@@ -826,13 +1033,19 @@ class GenerationEngine:
             # under, so no request is queued after the queue was failed
             if self._closed:
                 raise GenerationError("generation engine is closed")
+            if self._draining:
+                # drain() sets the flag under this lock: without the
+                # re-check a racing generate() could slip a request in
+                # after the drain began
+                raise GenerationError("generation engine is draining")
             if self.down is not None:
                 raise GenerationError(
                     f"generation engine is down: {self.down}")
             self._pending.put(_Request(stream, prompt, int(max_new_tokens),
                                        float(temperature), int(top_k),
-                                       eos_id, seed or 0,
-                                       pos_base=pos_base))
+                                       eos_id, seed or 0, pos_base=pos_base,
+                                       deadline=deadline,
+                                       slo_class=slo_class))
         self._work.set()
         return stream
 
@@ -844,6 +1057,7 @@ class GenerationEngine:
             "slots": self.n_slots,
             "active": int(self._active.sum()),
             "queued": self._pending.qsize(),
+            "draining": self._draining,
             "max_seq": self.max_seq,
             "prompt_buckets": list(self.prompt_buckets),
             "decode_block": self.decode_block,
@@ -856,13 +1070,22 @@ class GenerationEngine:
             "decode_step_ms_mean": step_ms,
             "graph_replays": self.graph_replays,
             "admission_replays": self.admission_replays,
-            "pack_uploads": self.pack_uploads,
-            "scheduler": {"prefill_chunk": self._chunk,
-                          "chunk_interleave": self._chunk_interleave,
-                          "pipeline": self._pipeline_stats()},
+            "pack_uploads": self._pack_up.uploads,
+            "scheduler": {
+                "prefill_chunk": self._chunk,
+                "chunk_interleave": self._chunk_interleave,
+                "latency_reserved_slots": self._lat_reserve,
+                "queued_latency": self._pending.qsize_class(SLO_LATENCY),
+                "queued_throughput":
+                    self._pending.qsize_class(SLO_THROUGHPUT),
+                "pipeline": self._pipeline_stats(),
+            },
+            "expired": dict(self._expired),
             "recoveries": self._recoveries,
             "down": self.down,
         }
+        if self.gate is not None:
+            out["admission"] = self.gate.stats()
         if self._prefix_idx is not None:
             out["prefix_cache"] = self._prefix_idx.stats()
         if self._paged:
@@ -883,6 +1106,7 @@ class GenerationEngine:
                 "tokens_per_window": (
                     round(self._spec_emitted / self._spec_windows, 3)
                     if self._spec_windows else None),
+                "verify_replays": self.verify_replays,
                 "verify_ms_mean": (1e3 * sum(self._verify_s)
                                    / len(self._verify_s)
                                    if self._verify_s else None),
@@ -911,6 +1135,34 @@ class GenerationEngine:
                            if samples else None),
             "gap_samples": len(samples),
         }
+
+    def kvcache_stats(self) -> dict | None:
+        """Prefix-cache stats for the App's ``/debug/cache``: the paged
+        pool's shared-prefix index, or None when no prefix cache is
+        configured."""
+        if self._prefix_idx is not None:
+            return {"kind": "paged-shared", **self._prefix_idx.stats()}
+        return None
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Graceful shutdown, phase 1 (the App's ``stop(grace_s=...)``):
+        refuse new requests (``generate`` raises) and keep serving every
+        accepted one -- live slots and the queue -- until idle or
+        ``timeout``. Returns True when fully drained; the caller still
+        owns ``close()``."""
+        with self._admission_lock:
+            self._draining = True
+
+        def idle() -> bool:
+            return (not self._active.any() and self._pending.empty()
+                    and self._admitting == 0)
+
+        deadline = time.monotonic() + max(0.0, timeout)
+        while time.monotonic() < deadline:
+            if idle():
+                return True
+            time.sleep(0.05)
+        return idle()
 
     def close(self) -> None:
         with self._admission_lock:
@@ -1108,11 +1360,13 @@ class GenerationEngine:
 
     def _target_depth(self) -> int:
         """Pipeline depth for the next top-up (also in stats()): the
-        policy's verdict on the facts this engine has. A deferred
-        lattice admission and spec decoding pin depth 1 (no latency
-        class is ported)."""
-        return self._pipeline.target(lattice_deferred=self._lattice_deferred,
-                                     spec_decode=bool(self._spec_k))
+        policy's verdict on the facts this engine has. A waiting
+        latency-class request, a deferred lattice admission and spec
+        decoding pin depth 1."""
+        return self._pipeline.target(
+            latency_waiting=self._pending.qsize_class(SLO_LATENCY) > 0,
+            lattice_deferred=self._lattice_deferred,
+            spec_decode=bool(self._spec_k))
 
     def _note_dispatch(self, now: float) -> None:
         """Close an open inter-block gap: the device stream ran dry at
@@ -1130,34 +1384,54 @@ class GenerationEngine:
         decode the active slots a second time under the unreaped block),
         so such a request goes back to the front of the queue for the
         next synchronous pass, and the pipeline drops to depth 1 so that
-        pass comes within one reap."""
+        pass comes within one reap. A throughput-class request never
+        takes one of the last ``_lat_reserve`` free slots, and a request
+        whose deadline ran out in the queue fails without a prefill."""
         started = 0
         for idx, slot in enumerate(self._slots):
             if not slot.free:
                 continue
+            # up BEFORE the pop: between the pop and the slot going live
+            # the request is neither queued nor active, and drain() must
+            # still see it
+            self._admitting += 1
             try:
-                req = self._pending.get_nowait()
-            except queue.Empty:
-                break
-            if defer_lattice and self._needs_lattice(req):
-                self._lattice_deferred = True
-                self._pending.put_front(req)
-                break
-            if req.stream.cancelled.is_set():
-                req.stream._q.put(None)
-                continue
-            blocks = None
-            if self._paged:
-                # (shared, matched, fresh) with one reference a block
-                # held for the slot, or None (nothing held)
-                blocks = self._paged_admission_blocks(req)
-                if blocks is None:
-                    # transient pool pressure: requeue and let active
-                    # slots retire blocks
-                    self._pending.put(req)
-                    break
-            self._start(idx, slot, req, blocks)
-            started += 1
+                free_now = sum(1 for s in self._slots if s.free)
+                try:
+                    req = self._pending.get_nowait(
+                        allow_throughput=free_now > self._lat_reserve)
+                except queue.Empty:
+                    return started
+                if defer_lattice and self._needs_lattice(req):
+                    self._lattice_deferred = True
+                    self._pending.put_front(req)
+                    return started
+                if req.stream.cancelled.is_set():
+                    req.stream._q.put(None)
+                    continue
+                if req.deadline is not None and req.deadline.expired():
+                    self._count_expired("queue")
+                    req.stream.where = "queue"
+                    wait_s = time.monotonic() - req.enqueued_at
+                    req.stream._q.put(DeadlineExceeded(
+                        f"deadline expired after {wait_s:.3f}s in the "
+                        "admission queue"))
+                    req.stream._q.put(None)
+                    continue
+                blocks = None
+                if self._paged:
+                    # (shared, matched, fresh) with one reference a block
+                    # held for the slot, or None (nothing held)
+                    blocks = self._paged_admission_blocks(req)
+                    if blocks is None:
+                        # transient pool pressure: requeue and let active
+                        # slots retire blocks
+                        self._pending.put(req)
+                        return started
+                self._start(idx, slot, req, blocks)
+                started += 1
+            finally:
+                self._admitting -= 1
         return started
 
     def _needs_lattice(self, req: _Request) -> bool:
@@ -1315,6 +1589,8 @@ class GenerationEngine:
         while n - pos > c:
             if req.stream.cancelled.is_set():
                 return 0, 0.0
+            if self._expire_mid_lattice(req, pos):
+                return 0, 0.0
             chaos.fire(chaos.GENERATOR_CHUNK)
             self._admission_inputs(req.prompt[pos:pos + c], req, slot=row,
                                    start=pos)
@@ -1329,37 +1605,69 @@ class GenerationEngine:
                 inflight.reap(False)
         if req.stream.cancelled.is_set():
             return 0, 0.0
+        if self._expire_mid_lattice(req, pos):
+            return 0, 0.0
         width = pad_bucket(n - pos, self.prompt_buckets)
         self._admission_inputs(req.prompt[n - width:], req, length=n,
                                slot=row, start=n - width,
                                logit_pos=width - 1)
         return self._run_admission(("final", width, req.temperature > 0))
 
+    def _expire_mid_lattice(self, req: _Request, pos: int) -> bool:
+        """Deadline check between chunk dispatches: a half-prefilled
+        request whose caller gave up stops using the device now. Fails
+        the stream with DeadlineExceeded and cancels it, so the cancel
+        path retires the slot (paged: its blocks back to the pool)."""
+        if req.deadline is None or not req.deadline.expired():
+            return False
+        self._count_expired("mid-prefill")
+        req.stream.where = "mid-prefill"
+        req.stream.failed = "deadline expired mid-prefill"
+        req.stream._q.put(DeadlineExceeded(
+            f"deadline expired after {pos}/{len(req.prompt)} prompt "
+            "tokens were prefilled"))
+        req.stream.cancel()
+        return True
+
+    def _expire_decoding(self, idx: int, slot: _Slot) -> bool:
+        """Deadline check at a reap, once a slot and block (or verify
+        pass): a decoding stream whose deadline ran out retires now,
+        even with blocks for it still in flight (their tokens are
+        dropped by the reaps' snapshot guards, and ``_retire``'s
+        host_wins deactivates the slot for every dispatch after them).
+        Fails the stream with DeadlineExceeded."""
+        req = slot.request
+        if req is None or req.deadline is None or not req.deadline.expired():
+            return False
+        self._count_expired("mid-decode")
+        req.stream.where = "mid-decode"
+        req.stream.failed = "deadline expired mid-decode"
+        req.stream._q.put(DeadlineExceeded(
+            f"deadline expired after {slot.generated} generated tokens"))
+        req.stream.cancel()
+        self._retire(idx, slot)
+        return True
+
+    def _count_expired(self, where: str) -> None:
+        self._expired[where] += 1
+        if self.metrics is not None:
+            try:
+                self.metrics.increment_counter(
+                    "app_tpu_expired_dropped_total", program="generate")
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+
     def _admission_inputs(self, tokens, req: _Request, *, slot: int,
                           length: int = 0, start: int = 0,
                           logit_pos: int = 0, blocks=()) -> None:
-        """Upload one admission dispatch's inputs (AdmissionInputs). On
-        the card through one of two pinned staging buffers, copied
-        ``non_blocking`` behind whatever the stream holds, a buffer
-        written again only once the copy that read it has completed."""
-        inp = self._adm_in
-        cuda = self.device.type == "cuda"
-        if cuda:
-            staged, copied = self._adm_staging[self._adm_uploads % 2]
-            copied.synchronize()
-            host = staged.numpy()
-        else:
-            host = np.empty(tuple(inp.buf.shape), np.int64)
-        inp.pack(host, tokens, length=length, slot=slot, start=start,
-                 logit_pos=logit_pos, temp=req.temperature,
-                 top_k=req.top_k, seed=req.seed, pos_base=req.pos_base,
-                 blocks=blocks)
-        if cuda:
-            inp.buf.copy_(staged, non_blocking=True)
-            copied.record()
-        else:
-            inp.buf.copy_(torch.from_numpy(host))
-        self._adm_uploads += 1
+        """Upload one admission dispatch's inputs (AdmissionInputs,
+        through ``_Staged``)."""
+        self._adm_in.pack(self._adm_up.host(), tokens, length=length,
+                          slot=slot, start=start, logit_pos=logit_pos,
+                          temp=req.temperature, top_k=req.top_k,
+                          seed=req.seed, pos_base=req.pos_base,
+                          blocks=blocks)
+        self._adm_up.upload()
 
     def _admission_fn(self, key: tuple):
         """The admission dispatch ``key`` names, bound to the engine's
@@ -1426,7 +1734,10 @@ class GenerationEngine:
 
     def _start(self, idx: int, slot: _Slot, req: _Request,
                blocks=None) -> None:
-        req.stream.trace["admit"] = time.monotonic()
+        t0 = time.monotonic()
+        req.stream.trace["admit"] = t0
+        if self.gate is not None:
+            self.gate.note_wait(t0 - req.enqueued_at)
         # claim the slot before any dispatch: a lattice runs nested
         # admission passes between its chunks
         slot.request = req
@@ -1535,22 +1846,12 @@ class GenerationEngine:
         """Upload every host-owned per-slot decode input as one [B, W]
         int64 matrix into the device pack, only when a mutation site
         marked it dirty (_touch): in steady state nothing is uploaded.
-
-        On the card the matrix is built in a pinned staging buffer and
-        copied ``non_blocking``, queued on the stream behind the blocks
-        in flight: a copy from pageable memory would synchronise the
-        stream, and the host would wait for the block in flight (depth 2
-        would run as depth 1). A staging buffer is written again only
-        once the copy that read it has completed (its event)."""
+        On the card the upload (``_Staged``) queues behind the blocks in
+        flight without waiting for them (else depth 2 would run as depth
+        1)."""
         if not self._pack_dirty:
             return
-        cuda = self.device.type == "cuda"
-        if cuda:
-            staged, copied = self._staging[self.pack_uploads % 2]
-            copied.synchronize()
-            p = staged.numpy()
-        else:
-            p = np.empty(tuple(self._pack.shape), np.int64)
+        p = self._pack_up.host()
         p[:, 0] = self._last_tokens
         p[:, 1] = self._active
         p[:, 2] = self._budgets
@@ -1563,13 +1864,8 @@ class GenerationEngine:
         p[:, PACK_EXTRA:PACK_EXTRA + EOS_MAX] = self._eos_mat
         if self._paged:
             p[:, PACK_EXTRA + EOS_MAX:] = self._table
-        if cuda:
-            self._pack.copy_(staged, non_blocking=True)
-            copied.record()
-        else:
-            self._pack.copy_(torch.from_numpy(p))
+        self._pack_up.upload()
         self._pack_dirty = False
-        self.pack_uploads += 1
 
     def _block(self, draw: bool) -> torch.Tensor:
         return fused_decode_block(
@@ -1622,9 +1918,6 @@ class GenerationEngine:
         warmed over the all-inactive warm pack. The kernels are built and
         loaded first."""
         kernels.build_all()
-        self._staging = [(torch.empty(tuple(self._pack.shape),
-                                      dtype=torch.long, pin_memory=True),
-                          torch.cuda.Event()) for _ in range(2)]
         self._out_free: list = []   # pinned output buffers for reaps
         self._pack.copy_(torch.from_numpy(self._warm_pack()))
         self._graphs = self._capture(
@@ -1644,9 +1937,6 @@ class GenerationEngine:
         afterwards. ``admission_graph_bytes``: the memory the captures
         reserved."""
         reserved = torch.cuda.memory_reserved(self.device)
-        self._adm_staging = [(torch.zeros(tuple(self._adm_in.buf.shape),
-                                          dtype=torch.long, pin_memory=True),
-                              torch.cuda.Event()) for _ in range(2)]
         self._adm_out = (torch.empty((2,), dtype=torch.float64,
                                      pin_memory=True), torch.cuda.Event())
         warm = _Request(GenStream(0), np.zeros((0,), np.int64), 0, 0.0, 0,
@@ -1758,6 +2048,10 @@ class GenerationEngine:
         emit_l = res[:, 2].tolist()
         if done is not None:
             self._out_free.append((out, done))
+        for idx, slot in enumerate(self._slots):
+            if snap_active[idx] and self._active[idx] \
+                    and slot.request is snap_reqs[idx]:
+                self._expire_decoding(idx, slot)
         for k in range(len(toks_l)):
             trow, lrow, erow = toks_l[k], lps_l[k], emit_l[k]
             for idx, slot in enumerate(self._slots):
@@ -1969,44 +2263,69 @@ class GenerationEngine:
             saw_active = True
         return saw_active
 
-    def _verify(self, window: torch.Tensor, active: torch.Tensor,
-                table: torch.Tensor | None):
-        """One verify pass (models.llama.verify_step, or paged_llama.
-        paged_verify_step through ``table``), then the epilogue; the
-        cursors advance by emit, in place (a captured decode graph reads
-        the cache's own cursor tensor). Returns (greedy, logprobs,
-        emit)."""
-        if self._paged:
-            logits, _ = paged_llama.paged_verify_step(
-                self.params, self.cfg, window, self.cache, table,
-                self.rope_tables)
-        else:
-            logits, _ = llama.verify_step(self.params, self.cfg, window,
-                                          self.cache, self.rope_tables)
-        toks, lps, _, emit = verify_epilogue(logits, window, active)
-        self.cache.lengths.add_(emit.to(torch.int32))
-        return toks, lps, emit
-
-    def _warm_verify(self) -> None:
-        """One verify pass with no slot active before serving, so the
-        first real one builds and loads nothing under the device lock:
-        it emits nothing and leaves every cursor where it was; its rows
-        land past the cursors (paged: in the trash block, through an
-        all-zero table)."""
+    def _verify_fn(self) -> torch.Tensor:
+        """``verify_pass`` bound to the engine's tensors, its inputs
+        read from ``_verify_in``."""
         W = self._spec_k + 1
-        zeros = torch.zeros((self.n_slots, W), dtype=torch.long,
-                            device=self.device)
-        table = (torch.zeros((self.n_slots, self._mb), dtype=torch.int32,
-                             device=self.device) if self._paged else None)
-        with torch.no_grad():
-            self._verify(zeros, zeros[:, 0].bool(), table)
+        buf = self._verify_in
+        table = buf[:, W + 1:].to(torch.int32) if self._paged else None
+        return verify_pass(self.params, self.cfg, self.cache, buf[:, :W],
+                           buf[:, W].bool(), table, self.rope_tables)
+
+    def _capture_verify_graph(self) -> None:
+        """The port of the JAX engine's ``_verify_jit``: the verify pass
+        captured into one CUDA graph (W = k + 1 is fixed for the
+        engine), in a pool of its own, through ``_capture``. It warms
+        over inputs with no slot active, so it emits nothing and leaves
+        every cursor where it was; its rows land past the cursors
+        (paged: in the trash block, through an all-zero table)."""
+        self._verify_out_free: list = []   # pinned output buffers
+        self._verify_in.zero_()
+        self._verify_graph = self._capture({"verify": self._verify_fn},
+                                           "{} pass")["verify"]
+
+    def _verify_inputs(self, window: np.ndarray) -> None:
+        """Upload one pass's inputs into ``_verify_in`` (``_Staged``):
+        the window, the active mask and (paged) the table."""
+        W = self._spec_k + 1
+        host = self._verify_up.host()
+        host[:, :W] = window
+        host[:, W] = self._active
+        if self._paged:
+            host[:, W + 1:] = self._table
+        self._verify_up.upload()
+
+    def _run_verify(self):
+        """Run one verify pass on the inputs uploaded last: (its
+        [B, 2W + 1] results on the host, the event the reap waits on).
+        On the card one replay, then a ``non_blocking`` copy of the
+        graph's output into a pinned buffer the handle owns, queued
+        right behind the replay (before any other graph can replay),
+        and an event; on the CPU ``verify_pass``, eagerly."""
+        if self.device.type != "cuda":
+            with torch.no_grad():
+                return self._verify_fn().numpy(), None
+        graph, out, deltas = self._verify_graph
+        graph.replay()
+        _add_counts(deltas)
+        self.verify_replays += 1
+        if self._verify_out_free:
+            host, done = self._verify_out_free.pop()
+        else:
+            host = torch.empty(tuple(out.shape), dtype=out.dtype,
+                               pin_memory=True)
+            done = torch.cuda.Event()
+        host.copy_(out, non_blocking=True)
+        done.record()
+        return host, done
 
     def _verify_tick(self, drafts: dict) -> _Inflight | None:
-        """One verify pass over window = [last token, k drafts] per slot
-        (zero drafts for a slot without a match: it still emits its one
-        guaranteed token), run at once (spec engines run at depth 1);
-        the reap delivers each slot's emitted tokens in order, and a
-        retirement mid-window discards the rest."""
+        """Dispatch one verify pass over window = [last token, k drafts]
+        per slot (zero drafts for a slot without a match: it still emits
+        its one guaranteed token). Its handle is in flight like a
+        decode block's (the JAX engine's verify handle); the reap
+        delivers each slot's emitted tokens in order, and a retirement
+        mid-window discards the rest."""
         W = self._spec_k + 1
         window = np.zeros((self.n_slots, W), np.int64)
         window[:, 0] = self._last_tokens
@@ -2018,23 +2337,26 @@ class GenerationEngine:
             if not self._active.any():
                 return None
         t0 = time.monotonic()
-        with torch.no_grad():
-            table = (torch.from_numpy(self._table.copy()).to(self.device)
-                     if self._paged else None)
-            toks, lps, emit = self._verify(
-                torch.from_numpy(window).to(self.device),
-                torch.from_numpy(self._active.copy()).to(self.device), table)
-            out = torch.cat([toks.double(), lps.double(),
-                             emit.double()[:, None]], dim=1).cpu().numpy()
-        self._verify_s.append(time.monotonic() - t0)
+        self._verify_inputs(window)
+        out, done = self._run_verify()
         self.verify_passes += 1
         snap_active = self._active.copy()
         snap_reqs = [s.request for s in self._slots]
-        return _Inflight(None, functools.partial(
-            self._verify_reap, out, snap_active, snap_reqs))
+        return _Inflight(done, functools.partial(
+            self._verify_reap, out, done, snap_active, snap_reqs, t0))
 
-    def _verify_reap(self, out: np.ndarray, snap_active, snap_reqs,
+    def _verify_reap(self, out, done, snap_active, snap_reqs, t0: float,
                      overlapped: bool) -> None:
+        """Wait for the pass's results (``verify_ms``: dispatch to here,
+        host clock) and deliver them; a slot whose deadline ran out
+        retires instead."""
+        if done is not None:
+            done.synchronize()
+        self._verify_s.append(time.monotonic() - t0)
+        if done is not None:
+            res = out.numpy().copy()
+            self._verify_out_free.append((out, done))
+            out = res
         W = self._spec_k + 1
         toks_np, lps_np = out[:, :W], out[:, W:2 * W]
         emit_np = out[:, 2 * W].astype(np.int64)
@@ -2045,6 +2367,8 @@ class GenerationEngine:
             self._cursors += emit_np
         for idx, slot in enumerate(self._slots):
             if not snap_active[idx] or slot.request is not snap_reqs[idx]:
+                continue
+            if self._expire_decoding(idx, slot):
                 continue
             for k in range(emit_np[idx]):
                 if not self._active[idx]:

@@ -11,7 +11,8 @@ engine refuses at construction a model the kernels do not take. The
 engine's decode block, captured as a CUDA graph, replays what an eager
 call of the same block function computes (contiguous and paged,
 sampling on and off, and after a prefill and a verify pass have moved
-the cursors between replays); a dispatch returns before its block is
+the cursors between replays), and so does the verify pass's graph; a
+dispatch returns before its block is
 done; replays count their kernels' launches; and a body that cannot be
 captured makes construction raise. The admission path is captured too:
 K1 replays its eager bits inside a graph, each admission (a bucket
@@ -566,17 +567,80 @@ def test_prefill_and_verify_between_replays_are_seen(gen, paged):
                                      0), blocks)
             window = torch.randint(0, SMALL.vocab_size, (3, 3),
                                    device="cuda")
-            table = eng._pack[:, -eng._mb:].to(torch.int32) \
-                if paged else None
+            table = eng._pack[:, -eng._mb:].clone() if paged else None
             if paged:
                 table[2] = torch.tensor(eng._table[2], device="cuda")
-            eng._verify(window, torch.ones(3, dtype=torch.bool,
-                                           device="cuda"), table)
+            _verify_inputs(eng, window, table)
+            _, done = eng._run_verify()   # one replay of the verify graph
+            done.synchronize()
             lengths = eng.cache.lengths.tolist()
             assert lengths[2] > 29 and lengths[0] > 44
             if paged:
-                eng._pack[:, -eng._mb:] = table.long()
+                eng._pack[:, -eng._mb:] = table
             _replay_equals_eager(eng, False)
+            eng._host_wins[:] = True
+            eng._touch()
+    finally:
+        eng.close()
+
+
+def _verify_inputs(eng, window, table=None):
+    """Write one verify pass's inputs into the engine's own tensor, the
+    one its verify graph reads: the window, every slot active, (paged)
+    the table."""
+    w = window.shape[1]
+    buf = eng._verify_in
+    buf[:, :w] = window
+    buf[:, w] = 1
+    if table is not None:
+        buf[:, w + 1:] = table
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_replay_equals_the_eager_pass(gen, paged):
+    """The verify pass captured as a CUDA graph (the port of
+    ``_verify_jit``) replays what ``verify_pass`` computes eagerly on a
+    copy of the state it started from: tokens, emit, the cursors and
+    the cache bytes bit for bit, the logprobs within LOGPROB_ATOL (as
+    for the decode block); a replay adds its
+    capture's window launches (paged) to the counter."""
+    from gofr_tpu_torch.tpu.generator import verify_pass
+
+    eng = _engine(paged, spec_decode_k=4)
+    try:
+        with eng._device_lock:
+            _random_state(eng, gen, [40, 131, 0], False)
+            window = torch.randint(0, SMALL.vocab_size, (3, 5),
+                                   device="cuda", generator=gen)
+            table = eng._pack[:, -eng._mb:].clone() if paged else None
+            _verify_inputs(eng, window, table)
+            cache, _, _ = _snapshot(eng)
+            inputs = eng._verify_in.clone()
+            before = paged_attention.window_launches
+            graph, out, _ = eng._verify_graph
+            host, done = eng._run_verify()
+            done.synchronize()
+            got = torch.from_numpy(host.numpy().copy())
+            assert paged_attention.window_launches - before == \
+                (SMALL.n_layers if paged else 0)
+            with torch.no_grad():
+                want = verify_pass(
+                    eng.params, eng.cfg, cache, inputs[:, :5],
+                    inputs[:, 5].bool(),
+                    inputs[:, 6:].to(torch.int32) if paged else None,
+                    eng.rope_tables).cpu()
+            torch.cuda.synchronize()
+            assert torch.equal(got[:, :5], want[:, :5])     # tokens
+            assert torch.equal(got[:, 10], want[:, 10])     # emit
+            assert (got[:, 5:10] - want[:, 5:10]).abs().max() <= \
+                LOGPROB_ATOL
+            assert (got[:, 10] >= 1).all()   # every slot emits
+            c = eng.cache
+            for a, b in ((c.lengths, cache.lengths), (c.k, cache.k),
+                         (c.v, cache.v), (c.k_scale, cache.k_scale),
+                         (c.v_scale, cache.v_scale)):
+                assert torch.equal(a, b)
+            assert eng.verify_replays == 1
             eng._host_wins[:] = True
             eng._touch()
     finally:

@@ -37,7 +37,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 15
     # the port's own copies of the JAX package's JAX-free modules
-    for own in ("chaos.py", "wire.py", "config.py", "resilience.py"):
+    for own in ("chaos.py", "wire.py", "config.py", "resilience.py",
+                "errors.py"):
         assert PORT / own in files
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))
@@ -133,6 +134,51 @@ def test_every_one_time_setup_exists_in_its_source():
     text = (PORT / "ops" / "csrc" / "flash_prefill.cu").read_text()
     launcher = text[text.index("int gofr_flash_prefill_bf16"):]
     assert "cudaFuncSetAttribute" not in launcher
+
+
+def _functions(text: str) -> dict[str, tuple[int, int]]:
+    """C++ function definitions at the start of a line: name -> the span
+    of its body, braces matched."""
+    spans = {}
+    for m in re.finditer(r'^[\w:<>, *&"]*?\b(\w+)\(([^;{}]*)\)\s*\{', text,
+                         re.MULTILINE):
+        depth, i = 0, m.end() - 1
+        for i in range(m.end() - 1, len(text)):
+            depth += {"{": 1, "}": -1}.get(text[i], 0)
+            if depth == 0:
+                break
+        spans[m.group(1)] = (m.end(), i)
+    return spans
+
+
+def test_no_launch_path_sets_a_function_attribute():
+    """Every ``cudaFuncSetAttribute`` in ops/csrc sits in a function that
+    only a one-time set-up (``kernels.INITS``) reaches: no launcher
+    calls one, however indirectly, so every launch can sit inside a
+    captured CUDA graph."""
+    from gofr_tpu_torch.ops import kernels
+
+    inits = set(kernels.INITS.values())
+    for src in sorted((PORT / "ops" / "csrc").glob("*.cu*")):
+        # comments out, so that only code is read
+        text = re.sub(r"//[^\n]*|/\*.*?\*/", "", src.read_text(),
+                      flags=re.DOTALL)
+        bodies = {n: text[a:b] for n, (a, b) in _functions(text).items()}
+        assert text.count("cudaFuncSetAttribute") == sum(
+            b.count("cudaFuncSetAttribute") for b in bodies.values())
+        # the functions that set an attribute, and every one that calls
+        # one of those, transitively
+        reach = {n for n, b in bodies.items() if "cudaFuncSetAttribute" in b}
+        grew = True
+        while grew:
+            callers = {n for n, b in bodies.items() if n not in reach and any(
+                re.search(rf"\b{r}\s*[<(]", b) for r in reach)}
+            reach |= callers
+            grew = bool(callers)
+        launchers = {n for n, (source, _) in kernels.SIGNATURES.items()
+                     if source == src.name}
+        assert not launchers & reach, (src.name, launchers & reach)
+        assert not reach or reach & inits, src.name
 
 
 def test_every_kernel_source_names_the_tpu_kernel_it_replaces():

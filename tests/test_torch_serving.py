@@ -13,6 +13,8 @@ trip as a JAX-engine App on the same rows.
 """
 
 import json
+import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -360,3 +362,100 @@ def test_the_route_refuses_an_adapter_as_the_jax_route_does(apps):
                                            "adapter": 1})
     assert (ps, pbody) == (js, jbody)
     assert ps >= 400
+
+
+# -- the App's drain, health and /debug/cache (both engines mounted) ----------
+
+def _mounted(weights, rows):
+    """Two Apps on localhost as a deployment mounts them: the JAX engine
+    under a TPUEngine, the port's under TorchEngine, both as
+    ``ctx.tpu`` with ``POST /generate``; (name, app, generator) each."""
+    from gofr_tpu.tpu.engine import TPUEngine
+
+    jtpu = TPUEngine(model_name="tiny")
+    jtpu.generator = _jax(weights, **rows)
+    ptpu = TorchEngine(_port(weights, **rows), "tiny", torch.device("cpu"))
+    out = []
+    for name, tpu in (("jax", jtpu), ("port", ptpu)):
+        app = App(JMapConfig({"HTTP_PORT": "0", "METRICS_PORT": "0",
+                              "APP_NAME": f"replica-{name}",
+                              "LOG_LEVEL": "ERROR"}))
+        app.container.tpu = tpu
+        install_generate(app)
+        app.run(block=False)
+        out.append((name, app, tpu.generator))
+    return out
+
+
+def _get(port, path):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+def test_health_and_debug_cache_agree_with_the_jax_app(weights, prefix):
+    """With the port's engine mounted, ``/.well-known/health`` reports
+    UP and ``/debug/cache?format=json`` answers with the JAX-engine
+    App's keys: ``{"enabled": false}`` without prefix sharing, the
+    paged-shared index's stats with it."""
+    mounted = _mounted(weights, dict(PAGED, **(PREFIX if prefix else {})))
+    try:
+        seen = {}
+        for name, app, gen in mounted:
+            hs, body = _get(app.http_port, "/.well-known/health")
+            health = body["data"]
+            cs, cache = _get(app.metrics_port, "/debug/cache?format=json")
+            seen[name] = (hs, health["status"], health["tpu"]["status"],
+                          sorted(health["tpu"]), cs, sorted(cache),
+                          cache["enabled"],
+                          sorted(cache["cache"] or {}))
+    finally:
+        for _, app, gen in mounted:
+            app.stop()
+            gen.close()
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][:3] == (200, "UP", "UP")
+    assert seen["port"][6] is prefix
+    if prefix:
+        assert "kind" in seen["port"][7] and "hits" in seen["port"][7]
+
+
+def test_a_graceful_stop_finishes_a_live_stream_then_stops(weights):
+    """``app.stop(grace_s > 0)`` with a stream live on ``POST /generate``:
+    the engine drains (new requests refused), the client receives the
+    whole stream over its live connection, then the listeners stop, on
+    the port's App as on the JAX-engine App."""
+    mounted = _mounted(weights, PAGED)
+    seen = {}
+    try:
+        for name, app, gen in mounted:
+            box = {}
+            client = threading.Thread(target=lambda: box.update(
+                out=_post(app.http_port, {"tokens": _prompt(20, seed=37),
+                                          "max_new": 40})))
+            client.start()
+            deadline = time.monotonic() + 30
+            while gen.stats()["active"] == 0 and time.monotonic() < deadline:
+                time.sleep(0.005)
+            live = gen.stats()["active"]
+            app.stop(grace_s=30.0)
+            client.join(30)
+            assert not client.is_alive()
+            with pytest.raises(urllib.error.URLError):
+                urllib.request.urlopen(
+                    f"http://127.0.0.1:{app.http_port}/.well-known/alive",
+                    timeout=5)
+            with pytest.raises(Exception, match="draining|closed"):
+                gen.generate(_prompt(8), max_new_tokens=2)
+            seen[name] = (live, box["out"], gen.stats().get("draining"))
+    finally:
+        for _, app, gen in mounted:
+            gen.close()
+    assert seen["port"] == seen["jax"]
+    live, (status, lines), draining = seen["port"]
+    assert live == 1 and status == 200 and draining is True
+    assert [ln["cursor"] for ln in lines] == list(range(40))

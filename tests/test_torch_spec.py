@@ -44,7 +44,7 @@ from gofr_tpu_torch.ops.flash_decode import SPLIT_CHUNK, split_geometry
 from gofr_tpu_torch.ops.paged_attention import window_geometry
 from gofr_tpu_torch.tpu import (GenerationEngine, from_jax_params,
                                 new_engine_from_config)
-from gofr_tpu_torch.tpu.generator import verify_epilogue
+from gofr_tpu_torch.tpu.generator import verify_epilogue, verify_pass
 
 JCFG = JAX_CONFIGS["tiny"]
 CFG = LLAMA_CONFIGS["tiny"]
@@ -501,13 +501,12 @@ def test_verify_epilogue_accepts_the_agreeing_prefix():
         lps.numpy(), torch.log_softmax(logits, -1).max(-1).values.numpy())
 
 
-@pytest.mark.parametrize("quant", [False, True])
-def test_paged_verify_step_matches_jax(weights, quant):
-    """Both sides prefill the same prompts into their own pools, then
-    one verify window of 5 whose rows cross a block boundary, and one
-    slot whose window runs past the table's capacity (those rows go to
-    the trash block): logits within atol, lengths unchanged, the pools
-    equal (int8 codes bit for bit)."""
+def _paged_prefilled(weights, quant):
+    """Three prompts prefilled into a JAX pool and the port's (T = 16,
+    4 blocks a slot, every block owned), the third close enough to the
+    table's capacity that a window of 5 runs past it (those rows go to
+    the trash block). Returns (jcache, tcache, table, jrope, trope,
+    lens, rng)."""
     jparams, tparams = weights
     slots, t, mb = 3, 16, 4
     cap = t * mb
@@ -535,6 +534,20 @@ def test_paged_verify_step_matches_jax(weights, quant):
                                         rope_tables=trope)
         paged_llama.write_prompt_blocks(tcache, tk, tv, blocks)
         tcache.lengths[b] = n
+    return jcache, tcache, table, jrope, trope, lens, rng
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_verify_step_matches_jax(weights, quant):
+    """Both sides prefill the same prompts into their own pools, then
+    one verify window of 5 whose rows cross a block boundary, and one
+    slot whose window runs past the table's capacity (those rows go to
+    the trash block): logits within atol, lengths unchanged, the pools
+    equal (int8 codes bit for bit)."""
+    jparams, tparams = weights
+    jcache, tcache, table, jrope, trope, lens, rng = _paged_prefilled(
+        weights, quant)
+    slots = len(lens)
     window = rng.integers(1, CFG.vocab_size, (slots, 5))
     jl, jcache = jpaged.paged_verify_step(
         jparams, JCFG, jnp.asarray(window, jnp.int32), jcache,
@@ -564,6 +577,63 @@ def test_paged_verify_step_matches_jax(weights, quant):
     # the positions give
     assert tcache.k[:, 0, :3].abs().sum() > 0
     paged_attention.reset_counts()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_pass_matches_jax_verify_fn(weights, paged, quant):
+    """``verify_pass`` (the function the engine captures as its verify
+    graph) against the JAX engine's ``_verify_fn``/``_paged_verify_fn``
+    with its ``_verify_epilogue``, on the same caches: the greedy tokens
+    and their logprobs, emit (0 for an inactive slot; more than 1 where
+    a draft agrees) and the cursors afterwards."""
+    jparams, tparams = weights
+    active = np.array([True, False, True])
+
+    def run(window):
+        if paged:
+            jcache, tcache, table, _, trope, lens, _ = _paged_prefilled(
+                weights, quant)
+            rows = dict(max_seq=64, paged_blocks=13, paged_block_size=16)
+        else:
+            jcache, tcache, _ = _prefilled(weights, quant, 32)
+            table, lens = None, [8, 5, 30]
+            trope = llama.get_rope_tables(CFG, 32, "cpu")
+            rows = dict(max_seq=32)
+        jeng = JaxEngine(JCFG, jparams, slots=3, spec_decode_k=4,
+                         kv_dtype=jnp.int8 if quant else None, **rows)
+        try:
+            args = (jcache, jparams, jnp.asarray(window, jnp.int32),
+                    jnp.asarray(active), jeng._key)
+            toks, lps, emit, jcache = (
+                jeng._paged_verify_fn(*args, jnp.asarray(table)) if paged
+                else jeng._verify_fn(*args))
+        finally:
+            jeng.close()
+        out = verify_pass(
+            tparams, CFG, tcache, torch.from_numpy(window),
+            torch.from_numpy(active),
+            None if table is None else torch.from_numpy(table), trope)
+        w = window.shape[1]
+        assert out.shape == (3, 2 * w + 1) and out.dtype == torch.float64
+        np.testing.assert_array_equal(out[:, :w].numpy(), np.asarray(toks))
+        np.testing.assert_allclose(out[:, w:2 * w].numpy(), np.asarray(lps),
+                                   atol=LOGIT_ATOL, rtol=0)
+        np.testing.assert_array_equal(out[:, 2 * w].numpy(),
+                                      np.asarray(emit))
+        np.testing.assert_array_equal(tcache.lengths.numpy(),
+                                      np.asarray(jcache.lengths))
+        assert tcache.lengths.tolist() == [n + int(e) for n, e in
+                                           zip(lens, np.asarray(emit))]
+        return np.asarray(toks), np.asarray(emit)
+
+    window = np.random.default_rng(4).integers(1, CFG.vocab_size, (3, 5))
+    greedy, emit = run(window)
+    assert emit.tolist() == [1, 0, 1]
+    # slot 0's first draft is now the token its window predicts there
+    window[0, 1] = greedy[0, 0]
+    _, emit = run(window)
+    assert emit[0] >= 2 and emit[1] == 0
 
 
 # -- the engine ----------------------------------------------------------------
