@@ -118,6 +118,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      flash_prefill 32 a bucket admission and paged_decode 32 a decode
      step; then drain(30) with 8 live greedy streams: every stream
      whole, generate refused while draining;
+  5f. (phase ``app``) the framework's own main path: the port's App
+     (``gofr_tpu_torch.App``), whose Container builds the engine from
+     phase slo's rows on "cuda" (phase slo's weights freed first), and
+     ``install_generate``; phase slo's burst sent as HTTP from client
+     threads (48 throughput prompts with X-SLO-Class, 100 ms later 8
+     latency ones, one of them with a traceparent), one latency request
+     of 1000 tokens with X-Request-Timeout 50ms right behind the batch
+     burst; the 429s (each with Retry-After) by class must equal the
+     gate's sheds and app_tpu_shed_total, the budget must answer a
+     buffered 504 naming the deadline with one expiry counted, the
+     traced stream's trace_id must be the inbound one, every served
+     stream whole, the pool whole, flash_prefill 32 a bucket admission
+     and paged_decode 32 a decode step; health, /metrics and
+     /debug/cache scraped; the HTTP layer's cost (alive round trips,
+     send to submit, first delivery to the client's first line) and
+     TTFT at the client and at the engine printed; then stop(grace_s=30)
+     with 8 live streams: health and a new request answer 503 with
+     Retry-After, every stream ends whole over its connection;
   6. a ``{"kernels": [...]}`` line, then the card line, then the
      ``{"ok": true, "device": {...}}`` line last.
 
@@ -150,10 +168,20 @@ a tree in the order given, and prints one ``[ab]`` JSON line a run:
 tok/s, the step time, TTFT, the pipeline depth, overlapped reaps, the gap
 p50 and the graph replays (a tree that predates a number prints null for
 it). Name each tree at least three times, in turns.
+
+    python3 chip_smoke.py --repeat N [HANG_S]
+
+runs the whole script N times, each in a process of its own, and prints
+one line a run: its exit code, its time and the last phase that ended.
+A run still going after HANG_S seconds (default 300) is sent SIGUSR1,
+which makes it print every thread's stack, and is then killed. Each
+run's output goes to chiprun_out/repeat/. A hang that a single run can
+miss shows here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -199,6 +227,10 @@ LOGIT_ATOL = 0.1
 INT8_WINDOW_REL = 4 * 2.0 ** -7
 
 LAYERS = 32
+
+# a run that has not ended by then dumps every thread's stack to stderr
+# and exits 1, inside the 1200 s the script is given
+WATCHDOG_S = 1050
 
 
 class SmokeFailure(RuntimeError):
@@ -973,27 +1005,48 @@ def kernel_kind(name: str) -> str:
     return "glue"
 
 
+@contextlib.contextmanager
+def quiet_device(gen):
+    """Hold the engine's device lock across a profiler start or stop.
+    CUPTI's switch deadlocks against a CUDA graph launched on another
+    thread: on the H100 a run hung in the profiler's ``__exit__`` while
+    the serving thread sat in a decode graph's ``replay``. Under the lock
+    the serving loop dispatches and reaps nothing; the synchronize and
+    the short wait after it let a readiness probe in flight (an event
+    query, outside the lock) return before the switch. Yields the clock
+    at the synchronize: the device is idle from then until the lock is
+    let go, so a window that ends there holds all its device work."""
+    import torch
+
+    with gen._device_lock:
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        time.sleep(0.02)
+        yield t
+
+
 def profile_decode(engine, prompt, card: str, tag: str = "profile") -> dict:
     """One more request through the running engine (its first token from
     the prefill, then 4 blocks of K=4 decode steps) under torch.profiler:
     the device's busy share of the wall time, by kind of kernel, and the
     kernels that hold it; beside it the blocks' device time from CUDA
     events. Outside the counted run."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     gen = engine.generator
     run = gen._run_block
     spans = timed_blocks(gen)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with quiet_device(gen):
+        prof.start()
+        t0 = time.monotonic()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            toks = engine.generate(prompt, max_new_tokens=17).tokens()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.monotonic() - t0)
+        toks = engine.generate(prompt, max_new_tokens=17).tokens()
     finally:
+        with quiet_device(gen) as t_end:
+            prof.stop()
         gen._run_block = run
+    wall_ms = 1e3 * (t_end - t0)
     require(len(toks) == 17, f"profiled request gave {len(toks)} tokens")
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -1435,22 +1488,23 @@ def profile_admission(engine, prompt, background, card: str,
     bucket admission under torch.profiler: the device's busy share of
     the window, and the admission's device time by CUDA events around
     its replay. Outside the counted run."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     gen = engine.generator
     bg = [engine.generate(p, max_new_tokens=48) for p in background]
     heads = [next(iter(s)) for s in bg]
     spans = timed_admissions(gen)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with quiet_device(gen):
+        prof.start()
+        t0 = time.monotonic()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            toks = engine.generate(prompt, max_new_tokens=4).tokens()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.monotonic() - t0)
+        toks = engine.generate(prompt, max_new_tokens=4).tokens()
     finally:
+        with quiet_device(gen) as t_end:
+            prof.stop()
         del gen._run_admission
+    wall_ms = 1e3 * (t_end - t0)
     rest = [s.tokens() for s in bg]
     require(len(toks) == 4 and all(len(r) + 1 == 48 for r in rest)
             and len(heads) == len(bg), "the profiled admission's streams "
@@ -2514,6 +2568,341 @@ def phase_slo(card: str) -> None:
             f"streams {live_outs}")
 
 
+APP_ROWS = dict(SLO_ROWS, HTTP_PORT="0", METRICS_PORT="0", LOG_LEVEL="WARN",
+                APP_NAME="chip-smoke")
+APP_SEED = 41
+APP_BUDGET_LEN = 1000    # the 50 ms budget's prompt: a lattice admission,
+#                          so no first token can come inside the budget
+APP_DRAIN_NEW = 160      # the drain's streams: still live while it is probed
+APP_TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
+APP_RTTS = 50            # GET /.well-known/alive round trips timed
+APP_CALL_TIMEOUT_S = 120  # one request's socket wait; a stream takes seconds
+APP_JOIN_S = 180         # all client threads of one wave together
+
+
+def http_call(port: int, method: str, path: str, body=None,
+              headers=None) -> dict:
+    """One request over its own connection: status, headers, and either
+    the JSON body or, for a 200 on POST /generate, the ndjson lines with
+    the client's clock at the send, the first line and the end."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=APP_CALL_TIMEOUT_S)
+    try:
+        t_send = time.monotonic()
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
+        resp = conn.getresponse()
+        out = {"status": resp.status, "headers": dict(resp.getheaders()),
+               "t_send": t_send}
+        if resp.status == 200 and path == "/generate":
+            lines = []
+            for line in resp:
+                if not lines:
+                    out["t_first"] = time.monotonic()
+                lines.append(json.loads(line))
+            out["lines"] = lines
+        else:
+            raw = resp.read()
+            out["body"] = json.loads(raw) if raw.startswith(b"{") else raw
+        out["t_end"] = time.monotonic()
+        return out
+    finally:
+        conn.close()
+
+
+def stats_line(values) -> str:
+    import numpy as np
+
+    if not values:
+        return "none"
+    return (f"mean {np.mean(values):.1f} ms p50 {np.median(values):.1f} ms "
+            f"max {max(values):.1f} ms over {len(values)}")
+
+
+def phase_app(card: str) -> None:
+    """The framework's own main path on the card: the port's App, its
+    Container wiring the engine from phase slo's TPU_* rows on "cuda",
+    POST /generate over HTTP from client threads. Phase slo's burst as
+    HTTP requests (sheds as 429s with Retry-After, counted by class
+    against the engine's gate), a request whose X-Request-Timeout of
+    50 ms runs out (a buffered 504, counted by the engine), a traceparent
+    that reaches its stream, the health, metrics and cache scrapes, and
+    a graceful stop with live streams."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.resilience import SLO_LATENCY, SLO_THROUGHPUT
+    from gofr_tpu_torch.serving import install_generate
+
+    SHARED.pop("params", None)   # the App's Container makes its own
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    app = App(MapConfig(APP_ROWS))
+    tpu = app.container.tpu
+    gen = tpu.generator
+    torch.cuda.synchronize()
+    install_generate(app)
+    app.run(block=False)
+    print(f"[app] App with the llama3-8b paged engine on "
+          f"{gen.device} ready in {time.monotonic() - t0:.1f} s, HTTP "
+          f"port {app.http_port}, metrics port {app.metrics_port}",
+          flush=True)
+    require(gen.device.type == "cuda", f"the engine runs on {gen.device}")
+    # each POST /generate's stream, by its prompt, for the engine's clock
+    streams, calls, lock = {}, [], threading.Lock()
+    generate = tpu.generate
+
+    def tracked(prompt, *args, **kw):
+        try:
+            s = generate(prompt, *args, **kw)
+        except Exception:
+            with lock:
+                calls.append(None)
+            raise
+        with lock:
+            streams[tuple(prompt)] = s
+            calls.append(s)
+        return s
+
+    tpu.generate = tracked
+    port = app.http_port
+    rng = np.random.default_rng(APP_SEED)
+    vocab = gen.cfg.vocab_size
+
+    def prompts(n, lens):
+        return [rng.integers(0, vocab, k).tolist()
+                for k in rng.integers(lens[0], lens[1] + 1, n)]
+
+    results: dict = {}
+
+    def client(tag, tokens, new, headers=None):
+        def go():
+            results[tag] = http_call(port, "POST", "/generate",
+                                     {"tokens": tokens, "max_new": new},
+                                     headers)
+        t = threading.Thread(target=go, name=f"client-{tag}", daemon=True)
+        t.start()
+        return t
+
+    def join(threads):
+        end = time.monotonic() + APP_JOIN_S
+        for t in threads:
+            t.join(max(0.0, end - time.monotonic()))
+        waiting = [t.name for t in threads if t.is_alive()]
+        require(not waiting, f"client threads still waiting after "
+                             f"{APP_JOIN_S} s: {waiting}")
+
+    try:
+        warm = http_call(port, "POST", "/generate",
+                         {"tokens": prompts(1, (32, 32))[0], "max_new": 4})
+        require(warm["status"] == 200 and len(warm["lines"]) == 4,
+                f"warm-up: {warm['status']}")
+        rtts = []
+        for _ in range(APP_RTTS):
+            r = http_call(port, "GET", "/.well-known/alive")
+            rtts.append(1e3 * (r["t_end"] - r["t_send"]))
+        batch = prompts(SLO_BATCH, SLO_BATCH_LENS)
+        inter = prompts(SLO_INTERACTIVE, SLO_INTERACTIVE_LENS)
+        budget = rng.integers(0, vocab, APP_BUDGET_LEN).tolist()
+        new_tokens = PAGED_NEW_TOKENS
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        adm0, steps0, n0 = gen.admissions, gen.decode_steps, len(calls)
+        sheds0 = dict(gen.gate.sheds_by_class)
+        expired0 = dict(gen.stats()["expired"])
+        t_burst = time.monotonic()
+        threads = [client(f"batch{i}", p, new_tokens,
+                          {"X-SLO-Class": "throughput"})
+                   for i, p in enumerate(batch)]
+        # the budget right behind the batch burst, once the gate has seen
+        # all of it: a latency request the gate takes (fewer than 16
+        # wait), whose deadline runs out before its first token
+        end = time.monotonic() + 60
+        while len(calls) < SLO_BATCH and time.monotonic() < end:
+            time.sleep(0.001)
+        threads.append(client("budget", budget, new_tokens,
+                              {"X-Request-Timeout": "50ms"}))
+        time.sleep(max(0.0, t_burst + 0.1 - time.monotonic()))
+        threads += [client(f"inter{i}", p, new_tokens,
+                           {"traceparent": f"00-{APP_TRACE_ID}-"
+                                           f"00f067aa0ba902b7-01"}
+                           if i == 0 else None)
+                    for i, p in enumerate(inter)]
+        join(threads)
+        wall = time.monotonic() - t_burst
+        counts = {"flash_prefill": flash.launches,
+                  "paged_decode": paged_attention.launches,
+                  "paged_window": paged_attention.window_launches,
+                  "flash_decode": flash_decode.launches,
+                  "prefill_plain": flash.plain_calls,
+                  "decode_plain": flash_decode.plain_calls,
+                  "paged_plain": paged_attention.plain_calls}
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+        bucket_admissions = sum(1 for s in calls[n0:] if s is not None
+                                and "admit" in s.trace
+                                and s.prompt_len <= gen.prompt_buckets[-1])
+        stats = gen.stats()
+        sheds = {c: n - sheds0[c] for c, n in
+                 stats["admission"]["sheds_by_class"].items()}
+        expired = {w: n - expired0[w] for w, n in stats["expired"].items()}
+        health = http_call(port, "GET", "/.well-known/health")
+        metrics = http_call(app.metrics_port, "GET", "/metrics")["body"]
+        cache = http_call(app.metrics_port, "GET",
+                          "/debug/cache?format=json")
+
+        # the drain: live greedy streams finish over their connections,
+        # health and new requests answer 503 with Retry-After
+        drain_prompts = prompts(SLO_DRAIN, SLO_INTERACTIVE_LENS)
+        live = [client(f"drain{i}", p, APP_DRAIN_NEW)
+                for i, p in enumerate(drain_prompts)]
+        end = time.monotonic() + 60
+        while gen.stats()["active"] < SLO_DRAIN and time.monotonic() < end:
+            time.sleep(0.002)
+        active = gen.stats()["active"]
+        t_drain = time.monotonic()
+        stopper = threading.Thread(target=lambda: app.stop(grace_s=30.0),
+                                   daemon=True)
+        stopper.start()
+        while not app._draining and time.monotonic() < end:
+            time.sleep(0.001)
+        health_draining = http_call(port, "GET", "/.well-known/health")
+        refused = http_call(port, "POST", "/generate",
+                            {"tokens": inter[0], "max_new": 4})
+        join(live)
+        stopper.join(60)
+        drain_s = time.monotonic() - t_drain
+        require(not stopper.is_alive(), "app.stop(grace_s=30) did not end")
+    finally:
+        if app._running.is_set():
+            app.stop()
+    release_graphs(gen)
+
+    def cls(tag):
+        return SLO_THROUGHPUT if tag.startswith("batch") else SLO_LATENCY
+
+    burst = {t: r for t, r in results.items()
+             if t.startswith(("batch", "inter"))}
+    shed_http = {c: sum(1 for t, r in burst.items()
+                        if r["status"] == 429 and cls(t) == c)
+                 for c in (SLO_LATENCY, SLO_THROUGHPUT)}
+    served = {t: r for t, r in burst.items() if r["status"] == 200}
+    client_ttft = {c: [1e3 * (r["t_first"] - r["t_send"])
+                       for t, r in served.items() if cls(t) == c]
+                   for c in (SLO_LATENCY, SLO_THROUGHPUT)}
+    engine_s = {t: streams[tuple(batch[int(t[5:])] if t.startswith("batch")
+                                 else inter[int(t[5:])])]
+                for t in served}
+    engine_ttft = {c: [1e3 * (s.trace["first_put"] - s.trace["submit"])
+                       for t, s in engine_s.items() if cls(t) == c]
+                   for c in (SLO_LATENCY, SLO_THROUGHPUT)}
+    # one clock (time.monotonic) on both sides: the client's send to the
+    # engine's submit is the way in (connect, parse, middleware, route),
+    # the engine's first delivery to the client's first line the way out
+    ingress = [1e3 * (engine_s[t].trace["submit"] - r["t_send"])
+               for t, r in served.items()]
+    egress = [1e3 * (r["t_first"] - engine_s[t].trace["first_put"])
+              for t, r in served.items()]
+    tokens = sum(len(r["lines"]) for r in served.values())
+    traced = streams[tuple(inter[0])]
+    shed_lines = [line for line in metrics.decode().splitlines()
+                  if line.startswith("app_tpu_shed_total{")]
+    expired_lines = [line for line in metrics.decode().splitlines()
+                     if line.startswith("app_tpu_expired_dropped_total")]
+    b = results["budget"]
+    drained = [results[f"drain{i}"] for i in range(SLO_DRAIN)]
+    drain_outs = [(r["status"], len(r.get("lines", []))) for r in drained]
+    print(f"[app] HTTP layer: GET /.well-known/alive round trip "
+          f"{stats_line(rtts)}; in the burst, client send to engine "
+          f"submit {stats_line(ingress)}, engine first delivery to the "
+          f"client's first line {stats_line(egress)}; card: {card}",
+          flush=True)
+    print(f"[app] burst of {SLO_BATCH} throughput and {SLO_INTERACTIVE} "
+          f"latency POST /generate in {wall:.3f} s: {len(served)} served, "
+          f"{tokens} tokens ({tokens / wall:.1f} tok/s at the clients), "
+          f"429s by class {shed_http}, the gate's sheds {sheds}; TTFT at "
+          f"the client: latency {stats_line(client_ttft[SLO_LATENCY])}, "
+          f"throughput {stats_line(client_ttft[SLO_THROUGHPUT])}; at the "
+          f"engine: latency {stats_line(engine_ttft[SLO_LATENCY])}, "
+          f"throughput {stats_line(engine_ttft[SLO_THROUGHPUT])}; "
+          f"{admissions} admissions ({bucket_admissions} bucket), {steps} "
+          f"decode steps; launches {counts}; card: {card}", flush=True)
+    print(f"[app] X-Request-Timeout 50ms: {b['status']} "
+          f"{b.get('body')}, expiries by where {expired}; traceparent: "
+          f"stream trace_id {traced.trace_id}, X-Correlation-ID "
+          f"{results['inter0']['headers'].get('X-Correlation-ID')}; "
+          f"health {health['status']} {health['body']['data']['status']}; "
+          f"metrics {shed_lines} {expired_lines}; /debug/cache "
+          f"{cache['status']} {cache['body']}; pool {stats['paged']}",
+          flush=True)
+    print(f"[app] stop(grace_s=30) with {active} live streams of "
+          f"{APP_DRAIN_NEW} tokens: {drain_s:.3f} s; health while draining "
+          f"{health_draining['status']} Retry-After "
+          f"{health_draining['headers'].get('Retry-After')}; a new request "
+          f"{refused['status']} Retry-After "
+          f"{refused['headers'].get('Retry-After')}; streams {drain_outs}",
+          flush=True)
+    require(all(r["status"] in (200, 429) for r in burst.values()),
+            f"burst statuses {sorted({r['status'] for r in burst.values()})}")
+    require(all(int(r["headers"].get("Retry-After", 0)) >= 1
+                for r in burst.values() if r["status"] == 429),
+            "a 429 without Retry-After")
+    require(shed_http[SLO_THROUGHPUT] >= 1 and shed_http == sheds,
+            f"429s by class {shed_http} against the gate's sheds {sheds}")
+    require(sum(float(line.rsplit(" ", 1)[1]) for line in shed_lines)
+            == sum(gen.gate.sheds_by_class.values()),
+            f"app_tpu_shed_total {shed_lines}")
+    require(all([ln.get("cursor") for ln in r["lines"]]
+                == list(range(new_tokens)) for r in served.values()),
+            "a served stream is not whole")
+    require(b["status"] == 504
+            and "deadline" in b["body"]["error"]["message"].lower()
+            and sum(expired.values()) == 1 and expired["mid-decode"] == 0
+            and expired_lines,
+            f"the 50 ms budget: {b['status']} {b.get('body')}, expiries "
+            f"{expired}, {expired_lines}")
+    require(traced.trace_id == APP_TRACE_ID
+            and results["inter0"]["headers"].get("X-Correlation-ID")
+            == APP_TRACE_ID, f"trace id {traced.trace_id}")
+    require(health["status"] == 200
+            and health["body"]["data"]["status"] == "UP"
+            and "generator" in health["body"]["data"]["tpu"]["details"],
+            f"health {health}")
+    require(b"app_http_response_bucket" in metrics and cache["status"] == 200
+            and "enabled" in cache["body"], "the scrapes")
+    require(stats["paged"]["free"] == int(APP_ROWS["TPU_PAGED_BLOCKS"]) - 1,
+            f"pool not whole after the burst: {stats['paged']}")
+    require(counts["paged_decode"] == LAYERS * steps and steps > 0,
+            f"paged_decode launched {counts['paged_decode']} times for "
+            f"{steps} decode steps of {LAYERS} layers")
+    require(counts["flash_prefill"] == LAYERS * bucket_admissions
+            and bucket_admissions > 0,
+            f"flash_prefill launched {counts['flash_prefill']} times for "
+            f"{bucket_admissions} bucket admissions")
+    others = {k: counts[k] for k in ("paged_window", "flash_decode",
+                                     "prefill_plain", "decode_plain",
+                                     "paged_plain")}
+    require(not any(others.values()),
+            f"other attention paths ran on the app path: {others}")
+    require(active == SLO_DRAIN
+            and health_draining["status"] == 503
+            and health_draining["headers"].get("Retry-After") == "30"
+            and refused["status"] == 503
+            and all(r["status"] == 200 and len(r["lines"]) == APP_DRAIN_NEW
+                    for r in drained),
+            f"drain: {active} live, health {health_draining['status']}, "
+            f"new request {refused['status']}, streams {drain_outs}")
+
+
 # -- running the phases -------------------------------------------------------
 
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2521,7 +2910,7 @@ RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
-                "durable", "slo")) -> dict:
+                "durable", "slo", "app")) -> dict:
     import torch
 
     card = card_line()
@@ -2570,6 +2959,8 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             phase_durable(card)
         elif phase == "slo":
             phase_slo(card)
+        elif phase == "app":
+            phase_app(card)
         else:
             raise SmokeFailure(f"unknown phase {phase!r}")
         torch.cuda.empty_cache()
@@ -2717,6 +3108,36 @@ def tree_ab(arm: str, trees: list[str]) -> int:
     return 0
 
 
+def repeat(n: int, hang_s: float) -> int:
+    import signal
+
+    out = os.path.join(ROOT, "chiprun_out", "repeat")
+    os.makedirs(out, exist_ok=True)
+    failed = 0
+    for i in range(n):
+        t0 = time.monotonic()
+        with open(os.path.join(out, f"run{i}.out"), "w") as so, \
+                open(os.path.join(out, f"run{i}.err"), "w") as se:
+            proc = subprocess.Popen([sys.executable, __file__], cwd=ROOT,
+                                    stdout=so, stderr=se,
+                                    stdin=subprocess.DEVNULL)
+            try:
+                rc = proc.wait(hang_s)
+            except subprocess.TimeoutExpired:
+                proc.send_signal(signal.SIGUSR1)   # every thread's stack
+                time.sleep(3)
+                proc.kill()
+                proc.wait()
+                rc = "hung"
+        with open(os.path.join(out, f"run{i}.out")) as f:
+            phases = [ln.strip() for ln in f if ln.startswith("[phase]")]
+        failed += rc != 0
+        print(f"[repeat] run {i}: exit {rc} after "
+              f"{time.monotonic() - t0:.1f} s; last "
+              f"{phases[-1] if phases else None}", flush=True)
+    return 1 if failed else 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gofr_tpu_torch", "ops", "csrc")):
         print("chip_smoke: gofr_tpu_torch is not beside this script",
@@ -2732,6 +3153,14 @@ def main() -> int:
             "--serve-ab": SERVE_AB_ARM}
     if len(sys.argv) > 2 and sys.argv[1] in arms:
         return tree_ab(arms[sys.argv[1]], sys.argv[2:])
+    if len(sys.argv) > 2 and sys.argv[1] == "--repeat":
+        return repeat(int(sys.argv[2]),
+                      float(sys.argv[3]) if len(sys.argv) > 3 else 300.0)
+    import faulthandler
+    import signal
+
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t0 = time.monotonic()
     out = run()
     kernels = []

@@ -1,13 +1,14 @@
-"""Fault injection at the generator's seams: the port's own copy of the
-part of gofr_tpu/chaos.py that the serving loop uses.
+"""Fault injection at the generator's and the HTTP server's seams: the
+port's own copy of the part of gofr_tpu/chaos.py that the serving loop
+and the App's transport use.
 
 A ``ChaosSchedule`` holds per-seam rules (latency, injected errors, or
-both); the engine calls ``chaos.fire(SEAM)`` at a fixed set of seams,
-which is one global read when no schedule is installed. It runs on the
-host between dispatches, never inside a captured CUDA graph. Decisions
-are deterministic: every firing is derived from ``(seed, seam,
-call_index)`` only, so a schedule driven by the same call counts makes
-the same injections.
+both); the engine and the server call ``chaos.fire(SEAM)`` at a fixed
+set of seams, which is one global read when no schedule is installed.
+It runs on the host between dispatches, never inside a captured CUDA
+graph. Decisions are deterministic: every firing is derived from
+``(seed, seam, call_index)`` only, so a schedule driven by the same call
+counts makes the same injections.
 
 Seams (grep for ``chaos.fire``):
 
@@ -25,6 +26,8 @@ Seams (grep for ``chaos.fire``):
                       an injected error kills that one stream after
                       exactly N tokens (``every=N, limit=1``) with a
                       typed error; the engine keeps serving
+  HTTP_REQUEST        http/server._Handler._handle, as each request
+                      arrives, before routing
   ==================  =====================================================
 """
 
@@ -37,17 +40,18 @@ import time
 
 __all__ = [
     "GENERATOR_CHUNK", "GENERATOR_MIDKILL", "GENERATOR_PREFILL",
-    "GENERATOR_STEP", "SEAMS", "ChaosSchedule", "DeviceLost", "Rule",
-    "active", "fire", "install", "scope", "uninstall",
+    "GENERATOR_STEP", "HTTP_REQUEST", "SEAMS", "ChaosSchedule", "DeviceLost",
+    "Rule", "active", "fire", "install", "scope", "uninstall",
 ]
 
 GENERATOR_CHUNK = "generator.chunk"
 GENERATOR_MIDKILL = "generator.midkill"
 GENERATOR_PREFILL = "generator.prefill"
 GENERATOR_STEP = "generator.step"
+HTTP_REQUEST = "http.request"
 
 SEAMS = (GENERATOR_CHUNK, GENERATOR_MIDKILL, GENERATOR_PREFILL,
-         GENERATOR_STEP)
+         GENERATOR_STEP, HTTP_REQUEST)
 
 
 class DeviceLost(RuntimeError):

@@ -1,8 +1,8 @@
 """Configuration: ``.env`` file + process environment (the port's own
 copy of the part of gofr_tpu/config.py's reader that
-``new_engine_from_config`` uses). ``get`` returns the raw string;
-``get_int`` and ``get_float`` fall back to their default on a missing or
-malformed value."""
+``new_engine_from_config`` and the App use). ``get`` returns the raw
+string; ``get_int`` and ``get_float`` fall back to their default on a
+missing or malformed value; ``get_bool`` reads 1/true/yes/on."""
 
 from __future__ import annotations
 
@@ -33,6 +33,12 @@ class _TypedMixin:
             return float(v)
         except ValueError:
             return default
+
+    def get_bool(self, key: str, default: bool = False) -> bool:
+        v = self.get(key)
+        if v in (None, ""):
+            return default
+        return v.strip().lower() in ("1", "true", "yes", "on")
 
 
 def parse_env_file(path: str) -> dict[str, str]:

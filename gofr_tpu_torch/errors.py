@@ -1,7 +1,9 @@
-"""The errors the port's admission gate and generation engine raise to a
-caller (counterpart of the part of gofr_tpu/errors.py they use): a shed
-(429 with ``Retry-After``) and an expired deadline (504). Each carries
-its HTTP ``status_code``, and a shed its response ``headers``."""
+"""The port's error hierarchy (its own copy of the part of
+gofr_tpu/errors.py that the App raises or maps). An error carries its
+HTTP status: any handler may raise ``HTTPError`` (or a subclass) with an
+explicit ``status_code``; the responder answers with it and with the
+error's ``headers`` (a shed's ``Retry-After``), and an unexpected
+exception becomes a 500 in the recovery middleware."""
 
 from __future__ import annotations
 
@@ -15,17 +17,68 @@ def format_retry_after(seconds: float) -> str:
     return str(max(1, math.ceil(seconds)))
 
 
-class HTTPError(Exception):
-    """An error with an HTTP status code."""
+class GofrError(Exception):
+    """Base class for all framework errors."""
+
+
+class HTTPError(GofrError):
+    """An error with an explicit HTTP status code."""
 
     status_code: int = 500
 
-    def __init__(self, message: str = ""):
+    def __init__(self, message: str = "", status_code: int | None = None):
         super().__init__(message or type(self).__name__)
+        if status_code is not None:
+            self.status_code = status_code
         self.message = message or type(self).__name__
 
     def to_dict(self) -> dict:
         return {"message": self.message}
+
+
+class BadRequest(HTTPError):
+    status_code = 400
+
+
+class Unauthorized(HTTPError):
+    status_code = 401
+
+
+class Forbidden(HTTPError):
+    status_code = 403
+
+
+class NotFound(HTTPError):
+    status_code = 404
+
+
+class EntityNotFound(NotFound):
+    """No entity of that name for that value -> 404."""
+
+    def __init__(self, name: str = "entity", value: str = ""):
+        super().__init__(f"No {name} found for value {value!r}")
+        self.name = name
+        self.value = value
+
+
+class InvalidParameter(BadRequest):
+    def __init__(self, *params: str):
+        super().__init__(f"Invalid parameter(s): {', '.join(params)}")
+        self.params = params
+
+
+class MissingParameter(BadRequest):
+    def __init__(self, *params: str):
+        super().__init__(f"Missing parameter(s): {', '.join(params)}")
+        self.params = params
+
+
+class InternalServerError(HTTPError):
+    status_code = 500
+
+
+class ServiceUnavailable(HTTPError):
+    status_code = 503
 
 
 class TooManyRequests(HTTPError):
@@ -58,3 +111,13 @@ class DeadlineExceeded(HTTPError):
 
     def __init__(self, message: str = "deadline exceeded"):
         super().__init__(message)
+
+
+def status_from_error(err: BaseException | None) -> int:
+    """Map an exception to an HTTP status: None is 200, an HTTPError its
+    own status, anything else 500."""
+    if err is None:
+        return 200
+    if isinstance(err, HTTPError):
+        return err.status_code
+    return 500

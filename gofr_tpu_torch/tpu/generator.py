@@ -112,7 +112,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from .. import chaos
+from .. import chaos, tracing
 from ..device import resolve_device
 from ..errors import DeadlineExceeded
 from ..models import llama, paged_llama
@@ -616,6 +616,8 @@ class GenStream(PushStream):
         self.failed: str | None = None
         self.slo_class = SLO_LATENCY
         self.where: str | None = None
+        self.trace_id = ""
+        self.traceparent: str | None = None
 
     def tokens(self) -> list[int]:
         """Drain the whole stream (blocking) into a list of ids."""
@@ -623,6 +625,22 @@ class GenStream(PushStream):
 
     def cancel(self) -> None:
         self.cancelled.set()
+
+
+def _trace(stream: GenStream, traceparent: str | None) -> None:
+    """The stream's trace, as the JAX engine sets it: the explicit
+    ``traceparent``, else the submitting thread's span, else a fresh
+    trace id without a parent."""
+    ids = tracing.parse_traceparent(traceparent)
+    if ids is not None:
+        stream.traceparent, stream.trace_id = traceparent, ids[0]
+        return
+    span = tracing.current_span()
+    if span is not None:
+        stream.traceparent, stream.trace_id = span.traceparent(), \
+            span.trace_id
+    else:
+        stream.trace_id = tracing._new_trace_id()
 
 
 class _Request:
@@ -925,7 +943,8 @@ class GenerationEngine:
                  temperature: float = 0.0, top_k: int = 0, eos_id=None,
                  adapter: int = 0, logprobs: bool = False, deadline=None,
                  slo_class: str | None = None, seed: int | None = None,
-                 continue_from=None) -> GenStream:
+                 continue_from=None,
+                 traceparent: str | None = None) -> GenStream:
         """Enqueue a prompt (sequence of token ids); returns a GenStream
         yielding generated ids as the device produces them.
 
@@ -955,7 +974,12 @@ class GenerationEngine:
         first by the gate and drain through the line's anti-starvation
         turns. With a gate, overload sheds with TooManyRequests and the
         brownout band caps ``max_new_tokens``. While ``drain`` runs,
-        ``generate`` raises."""
+        ``generate`` raises.
+
+        ``traceparent`` (W3C) names the trace the request joins; without
+        one the stream joins the calling thread's span (the App's request
+        span), else a fresh trace id is minted. ``stream.trace_id`` and
+        ``stream.traceparent`` carry it."""
         if self._closed:
             raise GenerationError("generation engine is closed")
         if self._draining:
@@ -1008,6 +1032,7 @@ class GenerationEngine:
         stream.prompt_len = len(prompt)
         stream.seed = seed
         stream.slo_class = slo_class
+        _trace(stream, traceparent)
         limit = self.max_seq - 1
         why = None
         if len(prompt) == 0 or len(prompt) > limit:

@@ -38,7 +38,10 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert len(files) > 15
     # the port's own copies of the JAX package's JAX-free modules
     for own in ("chaos.py", "wire.py", "config.py", "resilience.py",
-                "errors.py"):
+                "errors.py", "app.py", "container.py", "context.py",
+                "glog.py", "metrics.py", "tracing.py", "serving.py",
+                "static.py", "http/server.py", "http/middleware.py",
+                "observe/registry.py", "tpu/kvcache/radix.py"):
         assert PORT / own in files
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))
@@ -55,14 +58,18 @@ def no_card(monkeypatch):
 
 
 def _entry_points():
-    from gofr_tpu_torch import resolve_device
+    from gofr_tpu_torch import App, resolve_device
     from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.container import Container
     from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
     from gofr_tpu_torch.tpu import (GenerationEngine, from_jax_params,
                                     new_engine_from_config)
 
     tiny = LLAMA_CONFIGS["tiny"]
+    rows = {"TPU_MODEL": "tiny", "HTTP_PORT": "0", "METRICS_PORT": "0"}
     return {
+        "App": lambda: App(MapConfig(rows)),
+        "Container": lambda: Container(MapConfig(rows)),
         "resolve_device": lambda: resolve_device(),
         "llama.init": lambda: llama.init(tiny, 0),
         "llama.init_cache": lambda: llama.init_cache(tiny, 2, 16),
@@ -74,8 +81,8 @@ def _entry_points():
     }
 
 
-ENTRY_POINTS = ["GenerationEngine", "from_jax_params", "llama.init",
-                "llama.init_cache", "new_engine_from_config",
+ENTRY_POINTS = ["App", "Container", "GenerationEngine", "from_jax_params",
+                "llama.init", "llama.init_cache", "new_engine_from_config",
                 "resolve_device"]
 
 
@@ -94,6 +101,33 @@ def test_the_cpu_is_used_only_when_asked_for(no_card):
     assert resolve_device("cpu") == torch.device("cpu")
     cache = llama.init_cache(LLAMA_CONFIGS["tiny"], 2, 16, device="cpu")
     assert cache.k.device.type == "cpu"
+
+
+def test_an_app_without_a_model_serves_where_there_is_no_card(no_card):
+    """An App with no TPU_* rows touches no device: it builds and serves
+    its routes, health and metrics on a machine without a card."""
+    import json
+    import urllib.request
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+
+    app = App(MapConfig({"HTTP_PORT": "0", "METRICS_PORT": "0",
+                         "LOG_LEVEL": "ERROR"}))
+    app.get("/ping", lambda ctx: "pong")
+    assert app.container.tpu is None
+    with app:
+        base = f"http://127.0.0.1:{app.http_port}"
+        with urllib.request.urlopen(base + "/ping", timeout=5) as r:
+            assert json.loads(r.read()) == {"data": "pong"}
+        with urllib.request.urlopen(base + "/.well-known/health",
+                                    timeout=5) as r:
+            health = json.loads(r.read())["data"]
+        assert health["status"] == "UP" and "tpu" not in health
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{app.metrics_port}/metrics",
+                timeout=5) as r:
+            assert b"app_http_response" in r.read()
 
 
 def test_importing_the_port_builds_nothing():
