@@ -20,8 +20,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      phase paged's own shapes (32 slots over its 257-block pool, its
      prompt lengths), as flash_prefill is at its longest prompt (1500),
      at phase paged's TPU_MAX_SEQ (4096) and on and around its tile
-     edges; both decodes also on and around their chunk edges (the
-     split over the cache), at capacity and for one slot of 4096, and
+     edges, and at the score program's batches (8 ragged rows of 512
+     with a padded row of length 0, timed, and of 32); both decodes
+     also on and around their chunk edges (the split over the cache),
+     at capacity and for one slot of 4096, and
      the paged one bit for bit against flash_decode on the gathered
      view; the paged verify window (K3w) at phase paged's shapes with a
      window of 5, at 8 slots x 512 with windows of 2 and 5, on and
@@ -136,7 +138,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      TTFT at the client and at the engine printed; then stop(grace_s=30)
      with 8 live streams: health and a new request answer 503 with
      Retry-After, every stream ends whole over its connection;
-  6. a ``{"kernels": [...]}`` line, then the card line, then the
+  5g. (phase ``predict``) the predict path at full width and depth, each
+     request through the port's coalescing batcher: BERT-base ``embed``
+     on a ``gofr_tpu_torch.App`` with ``install_embeddings``
+     (TPU_BATCH_BUCKETS=1,2,4,8, TPU_WARMUP): 64 clients at once, one
+     POST /v1/embeddings of 8-512 tokens each, then 8 requests of 4
+     inputs; client latency p50/p99, items/s, the dispatches and their
+     batch sizes, app_tpu_batch_fill and app_tpu_batch_wait_duration;
+     every embedding of unit norm and equal to the same input sent alone,
+     8 equal to bert.embed on the weights in float32 on the card; a
+     request with X-Request-Timeout 1ms behind a batch held at the
+     BATCHER_DISPATCH seam answers 504 and is counted, never run; an
+     unknown program answers 404; a second App with
+     TPU_MAX_QUEUE_DEPTH=4 sheds 24 clients' excess as 429s with
+     Retry-After, as many as the gate's sheds and app_tpu_shed_total.
+     ViT-L/14 ``classify`` (224 x 224, patch 14): 16 images through
+     predict_batch and as 16 concurrent predicts, each row a
+     distribution, the two equal, 4 against float32 on the card.
+     Llama-3-8B ``score`` on phase paged's rows and seed-0 weights
+     passed by ``params=``: 16 concurrent score requests of 17-512
+     tokens while 8 greedy streams decode; flash_prefill 32 a score
+     dispatch and a bucket admission, each row equal to its prompt
+     scored alone and, at [8, 512], to the plain attention, the argmax
+     equal to each stream's first token where the top-2 gap is over
+     twice the tolerance, the streams token-exact against the same
+     prompts served with no score traffic;
+  6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
+     5's and the score run's), then the card line, then the
      ``{"ok": true, "device": {...}}`` line last.
 
 It needs the repository beside it and a CUDA card; without either it
@@ -260,6 +288,8 @@ def graph_ms(fn, arg_sets, n: int) -> float:
     the number."""
     import torch
 
+    from gofr_tpu_torch.tpu.generator import no_collection
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture stream
@@ -268,7 +298,7 @@ def graph_ms(fn, arg_sets, n: int) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_collection(), torch.cuda.graph(graph):
         for i in range(n):
             fn(*arg_sets[i % len(arg_sets)])
     graph.replay()
@@ -750,6 +780,10 @@ def phase_kernels(records: dict) -> None:
         prefill_case(gen, 1, s, [s], pre, timed=False)
     # lengths that end on a tile edge and one past it
     prefill_case(gen, 2, 384, [256, 257], pre, timed=False)
+    # the score program's batches (phase predict): 8 ragged rows of a
+    # bucket of 512 with a padded row of length 0, and a bucket of 32
+    prefill_case(gen, 8, 512, [512, 500, 384, 257, 129, 64, 17, 0], pre)
+    prefill_case(gen, 8, 32, [32, 31, 17, 16, 9, 2, 1, 0], pre, timed=False)
     from gofr_tpu_torch.ops.flash_decode import SPLIT_CHUNK as C
 
     # the decodes split a slot into chunks of C positions: lengths on and
@@ -2903,6 +2937,418 @@ def phase_app(card: str) -> None:
             f"new request {refused['status']}, streams {drain_outs}")
 
 
+# -- phase predict: BERT embed, ViT classify, Llama score ---------------------
+
+PREDICT_BERT_ROWS = {"HTTP_PORT": "0", "METRICS_PORT": "0",
+                     "LOG_LEVEL": "WARN", "APP_NAME": "chip-smoke-embed",
+                     "TPU_MODEL": "bert-base", "TPU_BATCH_BUCKETS": "1,2,4,8",
+                     "TPU_WARMUP": "1"}
+PREDICT_SHED_ROWS = dict(PREDICT_BERT_ROWS, TPU_MAX_QUEUE_DEPTH="4",
+                         TPU_WARMUP="")
+PREDICT_VIT_ROWS = {"TPU_MODEL": "vit-l-14", "TPU_BATCH_BUCKETS": "1,2,4,8"}
+PREDICT_SCORE_ROWS = dict(PAGED_ROWS, TPU_BATCH_BUCKETS="1,2,4,8")
+PREDICT_SEED = 43
+PREDICT_CLIENTS = 64          # one POST /v1/embeddings each, at once
+PREDICT_LENS = (8, 512)       # their token counts, drawn here
+PREDICT_MULTI = (8, 4)        # then 8 requests of 4 inputs each
+PREDICT_SHED_CLIENTS = 24     # against TPU_MAX_QUEUE_DEPTH=4
+PREDICT_HOLD_S = 0.3          # BATCHER_DISPATCH latency while they queue
+PREDICT_IMAGES = 16
+PREDICT_SCORES = 16           # score requests, the streams' 8 prompts first
+PREDICT_STREAMS = 8           # greedy generate streams beside them
+PREDICT_SCORE_LENS = (17, 512)
+# bf16 against bf16 at another bucket shape: the same roundings but for
+# the accumulation order of the products (cuBLAS picks its kernels by
+# shape), which flips some bf16 roundings (a step is 2^-8 of a value)
+# in every one of 12 layers: a few steps, up to 2% of the unit norm. A
+# mask or padding fault moves an embedding by tenths of its norm.
+EMBED_SOLO_L2 = 0.02
+# bf16 engine against the same weights in float32 through 12 layers: a
+# bf16 rounding (2^-9) of every activation, a few percent at most of the
+# pooled vector
+EMBED_F32_L2 = 0.05
+# ViT-L/14 in log-probabilities (the logits up to one constant a row):
+# against itself at another batch bucket, and against float32 through
+# 24 layers (unit-scale logits, as LOGIT_ATOL holds the Llama's 4)
+VIT_SOLO_LOGP = 0.05
+VIT_F32_LOGP = 0.25
+
+
+def _threads(fns, join_s: float = APP_JOIN_S) -> list:
+    """Run every call at once, one thread each; their results in order."""
+    import threading
+
+    out = [None] * len(fns)
+
+    def run(i):
+        out[i] = fns[i]()
+    ts = [threading.Thread(target=run, args=(i,), daemon=True)
+          for i in range(len(fns))]
+    for t in ts:
+        t.start()
+    end = time.monotonic() + join_s
+    for t in ts:
+        t.join(max(0.0, end - time.monotonic()))
+    require(not any(t.is_alive() for t in ts),
+            f"threads still waiting after {join_s} s")
+    return out
+
+
+def _scraped(app, name: str) -> list[str]:
+    body = http_call(app.metrics_port, "GET", "/metrics")["body"]
+    return [line for line in body.decode().splitlines()
+            if line.startswith(name)]
+
+
+def _total(lines) -> float:
+    return sum(float(line.rsplit(" ", 1)[1]) for line in lines)
+
+
+def _f32_tree(tree: dict) -> dict:
+    return {k: _f32_tree(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def predict_bert(card: str, rng) -> None:
+    """BERT-base ``embed`` over POST /v1/embeddings on the port's App:
+    64 clients at once, then 8 requests of 4 inputs; a 1 ms budget behind
+    a held batch (a 504, its item never run), an unknown program (404),
+    and a second App whose gate holds 4 waiting (429s = the gate's
+    sheds = app_tpu_shed_total)."""
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import App, chaos, install_embeddings
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.models import BERT_CONFIGS, bert
+
+    t0 = time.monotonic()
+    app = App(MapConfig(PREDICT_BERT_ROWS))
+    tpu = app.container.tpu
+    install_embeddings(app)
+    app.post("/predict/{program}", lambda ctx: ctx.tpu.predict(
+        ctx.path_param("program"), np.arange(1, 9, dtype=np.int32)))
+    app.run(block=False)
+    port = app.http_port
+    prog = tpu._programs["embed"]
+    print(f"[predict] App with bert-base embed on {tpu.device} ready "
+          f"(run at {len(prog.compiled_shapes)} bucket shapes by "
+          f"TPU_WARMUP) in {time.monotonic() - t0:.1f} s", flush=True)
+    require(tpu.device.type == "cuda", f"the engine runs on {tpu.device}")
+    batcher = tpu._batchers["embed"]
+    sizes, executed = [], []
+    hook, runner = batcher.on_dispatch, batcher.runner
+
+    def seen(n, wait):
+        sizes.append(n)
+        hook(n, wait)
+
+    def recorded(items):
+        executed.extend(tuple(int(t) for t in it) for it in items)
+        return runner(items)
+
+    batcher.on_dispatch, batcher.runner = seen, recorded
+    vocab = BERT_CONFIGS["bert-base"].vocab_size
+
+    def draw(n):
+        return [rng.integers(1, vocab, k).tolist() for k in rng.integers(
+            PREDICT_LENS[0], PREDICT_LENS[1] + 1, n)]
+
+    singles = draw(PREDICT_CLIENTS)
+    multis = [draw(PREDICT_MULTI[1]) for _ in range(PREDICT_MULTI[0])]
+    inputs = singles + [x for m in multis for x in m]
+
+    def post(x):
+        return http_call(port, "POST", "/v1/embeddings", {"input": x})
+
+    try:
+        d0 = prog.dispatches
+        t_burst = time.monotonic()
+        burst = _threads([lambda x=x: post(x) for x in singles])
+        burst_s = time.monotonic() - t_burst
+        burst_dispatches, burst_sizes = prog.dispatches - d0, list(sizes)
+        t_multi = time.monotonic()
+        multi = _threads([lambda x=x: post(x) for x in multis])
+        multi_s = time.monotonic() - t_multi
+        multi_sizes = sizes[len(burst_sizes):]
+        fill = _scraped(app, "app_tpu_batch_fill{")
+        wait = [line for line in _scraped(
+            app, "app_tpu_batch_wait_duration_") if "_bucket" not in line]
+        solo = [tpu.predict("embed", np.asarray(x, np.int32))
+                for x in inputs]
+        # a 1 ms budget behind a full batch held at the dispatch seam
+        expired0 = _total(_scraped(app, "app_tpu_expired_dropped_total{"))
+        doomed = rng.integers(1, vocab, 40).tolist()
+        with chaos.scope(chaos.ChaosSchedule(seed=1).on(
+                chaos.BATCHER_DISPATCH, latency=PREDICT_HOLD_S)):
+            full = _threads([lambda x=x: post(x) for x in singles[:8]] + [
+                lambda: (time.sleep(0.05), http_call(
+                    port, "POST", "/v1/embeddings", {"input": doomed},
+                    {"X-Request-Timeout": "1ms"}))[1]])
+        timed_out = full.pop()
+        expired = _total(_scraped(app, "app_tpu_expired_dropped_total{")) \
+            - expired0
+        missing = http_call(port, "POST", "/predict/nope", {})
+        # 8 inputs against bert.embed on the same weights in float32
+        f32 = _f32_tree(prog.params)
+        mc = BERT_CONFIGS["bert-base"].with_(dtype="float32")
+        with torch.inference_mode():
+            ref = [bert.embed(f32, mc, torch.tensor([x], device="cuda"))[0]
+                   .cpu().numpy() for x in inputs[:8]]
+        del f32
+    finally:
+        app.stop()
+    statuses = [r["status"] for r in burst + multi]
+    require(statuses == [200] * len(statuses), f"statuses {statuses}")
+    got = [np.asarray(d["embedding"], np.float32) for r in burst + multi
+           for d in r["body"]["data"]["data"]]
+    require(len(got) == len(inputs),
+            f"{len(got)} embeddings for {len(inputs)} inputs")
+    lat = sorted(1e3 * (r["t_end"] - r["t_send"]) for r in burst)
+    norms = max(abs(float(np.linalg.norm(v)) - 1.0) for v in got)
+    solo_l2 = max(float(np.linalg.norm(a - b)) for a, b in zip(got, solo))
+    f32_l2 = max(float(np.linalg.norm(a - b)) for a, b in zip(got, ref))
+    print(f"[predict] bert-base: {PREDICT_CLIENTS} clients at once, one "
+          f"input of {PREDICT_LENS[0]}-{PREDICT_LENS[1]} tokens each, in "
+          f"{burst_s:.3f} s ({PREDICT_CLIENTS / burst_s:.1f} items/s); "
+          f"latency at the client p50 {np.percentile(lat, 50):.1f} ms p99 "
+          f"{np.percentile(lat, 99):.1f} ms max {lat[-1]:.1f} ms; "
+          f"{burst_dispatches} dispatches, batch sizes {burst_sizes}; then "
+          f"{PREDICT_MULTI[0]} requests of {PREDICT_MULTI[1]} inputs in "
+          f"{multi_s:.3f} s ({len(multi_sizes)} dispatches, sizes "
+          f"{multi_sizes}); {fill}; {wait}; card: "
+          f"{card}", flush=True)
+    print(f"[predict] bert-base checks: |norm - 1| max {norms:.2e}; "
+          f"against the same input alone (one dispatch each) L2 max "
+          f"{solo_l2:.3e} (tolerance {EMBED_SOLO_L2}); 8 against bert.embed "
+          f"in float32 on the card L2 max {f32_l2:.3e} (tolerance "
+          f"{EMBED_F32_L2}); X-Request-Timeout 1ms behind a held batch: "
+          f"{timed_out['status']} {timed_out.get('body')}, expired counted "
+          f"{expired}; unknown program: {missing['status']} "
+          f"{missing.get('body')}", flush=True)
+    require(norms < 1e-3, f"an embedding off unit norm by {norms}")
+    require(solo_l2 <= EMBED_SOLO_L2, f"coalesced against solo: {solo_l2}")
+    require(f32_l2 <= EMBED_F32_L2, f"bf16 against float32: {f32_l2}")
+    require(burst_dispatches < PREDICT_CLIENTS and max(burst_sizes) > 1,
+            f"the burst did not coalesce: {burst_sizes}")
+    require(all(r["status"] == 200 for r in full)
+            and timed_out["status"] == 504
+            and "deadline" in json.dumps(timed_out["body"]).lower()
+            and expired == 1 and tuple(doomed) not in executed,
+            f"the 1 ms budget: {timed_out['status']}, expired {expired}")
+    require(missing["status"] == 404
+            and "nope" in missing["body"]["error"]["message"],
+            f"unknown program: {missing}")
+
+    app = App(MapConfig(PREDICT_SHED_ROWS))
+    install_embeddings(app)
+    app.run(block=False)
+    try:
+        sheds0 = _total(_scraped(app, "app_tpu_shed_total{"))
+        with chaos.scope(chaos.ChaosSchedule(seed=2).on(
+                chaos.BATCHER_DISPATCH, latency=PREDICT_HOLD_S)):
+            shed = _threads([lambda x=x: http_call(
+                app.http_port, "POST", "/v1/embeddings", {"input": x})
+                for x in singles[:PREDICT_SHED_CLIENTS]])
+        counted = _total(_scraped(app, "app_tpu_shed_total{")) - sheds0
+        gate_sheds = app.container.tpu._gates["embed"].sheds
+    finally:
+        app.stop()
+    n429 = sum(r["status"] == 429 for r in shed)
+    after = sorted({r["headers"].get("Retry-After") for r in shed
+                    if r["status"] == 429})
+    print(f"[predict] {PREDICT_SHED_CLIENTS} clients against "
+          f"TPU_MAX_QUEUE_DEPTH=4, each dispatch held {PREDICT_HOLD_S} s: "
+          f"{n429} answered 429 (Retry-After {after}), the gate's sheds "
+          f"{gate_sheds}, app_tpu_shed_total {counted}, the rest "
+          f"{sorted(r['status'] for r in shed if r['status'] != 429)}",
+          flush=True)
+    require(all(r["status"] in (200, 429) for r in shed),
+            f"shed statuses {sorted({r['status'] for r in shed})}")
+    require(n429 >= 1 and n429 == gate_sheds == counted,
+            f"429s {n429}, the gate's sheds {gate_sheds}, counted {counted}")
+    require(all(int(r["headers"].get("Retry-After", 0)) >= 1
+                for r in shed if r["status"] == 429),
+            "a 429 without Retry-After")
+
+
+def predict_vit(card: str, rng) -> None:
+    """ViT-L/14 ``classify``: 16 images through predict_batch and as 16
+    concurrent predicts; 4 rows against float32 on the card."""
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.models import VIT_CONFIGS, vit
+    from gofr_tpu_torch.tpu import new_engine_from_config
+
+    t0 = time.monotonic()
+    eng = new_engine_from_config(MapConfig(PREDICT_VIT_ROWS), device="cuda")
+    prog = eng._programs["classify"]
+    try:
+        images = [rng.normal(size=(224, 224, 3)).astype(np.float32)
+                  for _ in range(PREDICT_IMAGES)]
+        eng.predict_batch("classify", images[:1])   # first-call set-up
+        t_b = time.monotonic()
+        batch = eng.predict_batch("classify", images)
+        batch_s = time.monotonic() - t_b
+        d0 = prog.dispatches
+        t_c = time.monotonic()
+        conc = _threads([lambda x=x: eng.predict("classify", x)
+                         for x in images])
+        conc_s = time.monotonic() - t_c
+        dispatches = prog.dispatches - d0
+        mc = VIT_CONFIGS["vit-l-14"].with_(dtype="float32")
+        f32 = _f32_tree(prog.params)
+        with torch.inference_mode():
+            ref = torch.log_softmax(vit.forward(
+                f32, mc, torch.from_numpy(np.stack(images[:4])).cuda()),
+                dim=-1).cpu().numpy()
+        del f32
+    finally:
+        eng.close()
+    require(all(p.shape == (1000,) and np.isfinite(p).all() and
+                (p > 0).all() for p in batch + conc),
+            "a probability row of another shape, or not positive")
+    sums = max(abs(float(p.sum()) - 1.0) for p in batch + conc)
+    logp = [np.log(p) for p in batch]
+    conc_d = max(float(np.abs(np.log(c) - b).max())
+                 for c, b in zip(conc, logp))
+    f32_d = max(float(np.abs(a - b).max()) for a, b in zip(logp, ref))
+    print(f"[predict] vit-l-14 classify: engine ready in {t_b - t0:.1f} s; "
+          f"predict_batch of {PREDICT_IMAGES} in {batch_s:.3f} s, "
+          f"{PREDICT_IMAGES} concurrent predicts in {conc_s:.3f} s "
+          f"({dispatches} dispatches); |sum - 1| max {sums:.2e}; concurrent "
+          f"against predict_batch: log-prob max diff {conc_d:.3e} "
+          f"(tolerance {VIT_SOLO_LOGP}); 4 against float32 on the card: "
+          f"log-prob max diff {f32_d:.3e} (tolerance {VIT_F32_LOGP}); "
+          f"card: {card}", flush=True)
+    require(sums < 1e-3, f"a probability row sums off 1 by {sums}")
+    require(conc_d <= VIT_SOLO_LOGP,
+            f"concurrent against predict_batch: {conc_d}")
+    require(f32_d <= VIT_F32_LOGP, f"bf16 against float32: {f32_d}")
+
+
+def predict_score(card: str, rng) -> dict:
+    """Llama-3-8B ``score`` through K1 on phase paged's engine rows and
+    seed-0 weights: 16 concurrent score requests while 8 greedy streams
+    decode; K1 = 32 a score dispatch and a bucket admission, each row
+    equal to its prompt scored alone and, at [8, 512], to the plain
+    attention, the argmax equal to the stream's first token, and the
+    streams equal to the same prompts served with no score traffic.
+    Returns the launch counts of that run."""
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.tpu import new_engine_from_config
+
+    t0 = time.monotonic()
+    mc = LLAMA_CONFIGS["llama3-8b"]
+    params = llama.init(mc, 0, device="cuda")   # phase paged's weights
+    eng = new_engine_from_config(MapConfig(PREDICT_SCORE_ROWS),
+                                 device="cuda", params=params)
+    gen = eng.generator
+    prog = eng._programs["score"]
+    torch.cuda.synchronize()
+    print(f"[predict] llama3-8b paged engine with its score program ready "
+          f"in {time.monotonic() - t0:.1f} s", flush=True)
+    prompts = [rng.integers(0, mc.vocab_size, n).tolist() for n in
+               rng.integers(PREDICT_SCORE_LENS[0], PREDICT_SCORE_LENS[1] + 1,
+                            PREDICT_SCORES)]
+    new_tokens = PAGED_NEW_TOKENS
+    try:
+        eng.predict("score", np.asarray(prompts[0], np.int32))  # set-up
+        ref, _, _ = _serve(eng, prompts[:PREDICT_STREAMS], {}, new_tokens)
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        d0, adm0 = prog.dispatches, gen.admissions
+        t_s = time.monotonic()
+        streams = [eng.generate(p, max_new_tokens=new_tokens)
+                   for p in prompts[:PREDICT_STREAMS]]
+        scores = _threads([lambda x=x: eng.predict(
+            "score", np.asarray(x, np.int32)) for x in prompts])
+        score_s = time.monotonic() - t_s
+        outs = [s.tokens() for s in streams]
+        counts = {"flash_prefill": flash.launches,
+                  "prefill_plain": flash.plain_calls,
+                  "paged_decode": paged_attention.launches,
+                  "flash_decode": flash_decode.launches}
+        dispatches = prog.dispatches - d0
+        admissions = gen.admissions - adm0
+        solo = [eng.predict("score", np.asarray(x, np.int32))
+                for x in prompts]
+        # K1 against the plain attention at [8, 512], ragged, on the card
+        tokens = torch.zeros((8, 512), dtype=torch.int32, device="cuda")
+        for i, x in enumerate(prompts[:8]):
+            tokens[i, :len(x)] = torch.tensor(x, device="cuda")
+        lengths = torch.tensor([len(x) for x in prompts[:8]],
+                               dtype=torch.int32, device="cuda")
+        rope = llama.get_rope_tables(mc, 512, "cuda")
+        with torch.inference_mode():
+            via_k1 = llama.score(params, mc, tokens, lengths, rope,
+                                 flash=True)
+            via_plain = llama.score(params, mc, tokens, lengths, rope,
+                                    flash=False)
+        k1_plain = (via_k1 - via_plain).abs().max().item()
+    finally:
+        eng.close()
+    release_graphs(gen)
+    del params
+    solo_d = max(float(np.abs(a - b).max()) for a, b in zip(scores, solo))
+    top2 = [np.sort(s)[-2:] for s in scores[:PREDICT_STREAMS]]
+    checked = [(int(np.argmax(s)), o[0]) for s, t, o in
+               zip(scores, top2, outs) if t[1] - t[0] > 2 * LOGIT_ATOL]
+    print(f"[predict] llama3-8b score: {PREDICT_SCORES} requests of "
+          f"{PREDICT_SCORE_LENS[0]}-{PREDICT_SCORE_LENS[1]} tokens beside "
+          f"{PREDICT_STREAMS} greedy streams of {new_tokens} tokens in "
+          f"{score_s:.3f} s: {dispatches} score dispatches, {admissions} "
+          f"admissions, launches {counts}; against the same prompt scored "
+          f"alone max |diff| {solo_d:.3e}, K1 against the plain attention "
+          f"at [8, 512] max |diff| {k1_plain:.3e} (tolerance {LOGIT_ATOL}); "
+          f"argmax = the stream's first token at {len(checked)} of "
+          f"{PREDICT_STREAMS} rows (those with a top-2 gap over "
+          f"{2 * LOGIT_ATOL}); card: {card}", flush=True)
+    require(counts["flash_prefill"] == LAYERS * (dispatches + admissions)
+            and dispatches > 0 and admissions == PREDICT_STREAMS
+            and counts["prefill_plain"] == 0,
+            f"flash_prefill launched {counts['flash_prefill']} times for "
+            f"{dispatches} score dispatches and {admissions} admissions")
+    require(all(s.shape == (mc.vocab_size,) and s.dtype == np.float32
+                and np.isfinite(s).all() for s in scores),
+            "a score row of another shape, or not finite")
+    require(solo_d <= LOGIT_ATOL,
+            f"score against the same prompt alone: {solo_d}")
+    require(k1_plain <= LOGIT_ATOL,
+            f"score through K1 against the plain attention: {k1_plain}")
+    require(all(a == b for a, b in checked),
+            f"score's argmax against the first greedy token: {checked}")
+    require(outs == ref, "the greedy streams changed beside score traffic: "
+            + str([_first_difference(a, b) for a, b in zip(outs, ref)]))
+    return counts
+
+
+def phase_predict(card: str) -> dict:
+    """The predict path at full width and depth: BERT-base embed over
+    HTTP, ViT-L/14 classify, Llama-3-8B score through K1 beside greedy
+    streams. Returns the score run's launch counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(PREDICT_SEED)
+    predict_bert(card, rng)
+    predict_vit(card, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return predict_score(card, rng)
+
+
 # -- running the phases -------------------------------------------------------
 
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2910,7 +3356,7 @@ RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
-                "durable", "slo", "app")) -> dict:
+                "durable", "slo", "app", "predict")) -> dict:
     import torch
 
     card = card_line()
@@ -2961,6 +3407,11 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             phase_slo(card)
         elif phase == "app":
             phase_app(card)
+        elif phase == "predict":
+            counts = phase_predict(card)
+            # K1's count: phase 5's main path plus the score run
+            rec = records["flash_prefill"]
+            rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
         else:
             raise SmokeFailure(f"unknown phase {phase!r}")
         torch.cuda.empty_cache()

@@ -16,5 +16,7 @@ only when the caller asks for it, as the tests do.
 
 from .app import App, new_app
 from .device import resolve_device
+from .serving import install_embeddings, install_generate
 
-__all__ = ["App", "new_app", "resolve_device"]
+__all__ = ["App", "install_embeddings", "install_generate", "new_app",
+           "resolve_device"]

@@ -1,10 +1,11 @@
 """The App: one object running the HTTP server and the metrics server
-over a container that holds the generation engine (the port's own copy
-of the HTTP half of gofr_tpu/app.py; a service moves to the port by
-changing one import, ``from gofr_tpu_torch import App``).
+over a container that holds the engine (the port's own copy of the
+HTTP half of gofr_tpu/app.py; a service moves to the port by changing
+one import, ``from gofr_tpu_torch import App``).
 
     app = App(device="cuda")          # TPU_* rows build ctx.tpu on the card
-    install_generate(app)             # POST /generate (serving.py)
+    install_generate(app)             # POST /generate (Llama; serving.py)
+    install_embeddings(app)           # POST /v1/embeddings (BERT)
     app.run()
 
 Reference: pkg/gofr/gofr.go -- route registration (gofr.go:190-207) and

@@ -1,6 +1,6 @@
-"""Fault injection at the generator's and the HTTP server's seams: the
-port's own copy of the part of gofr_tpu/chaos.py that the serving loop
-and the App's transport use.
+"""Fault injection at the generator's, the batcher's and the HTTP
+server's seams: the port's own copy of the part of gofr_tpu/chaos.py
+that the serving loop, the predict path and the App's transport use.
 
 A ``ChaosSchedule`` holds per-seam rules (latency, injected errors, or
 both); the engine and the server call ``chaos.fire(SEAM)`` at a fixed
@@ -13,6 +13,8 @@ counts makes the same injections.
 Seams (grep for ``chaos.fire``):
 
   ==================  =====================================================
+  BATCHER_DISPATCH    tpu/batcher._run_one, before the runner executes a
+                      coalesced predict batch (a slow or failing dispatch)
   GENERATOR_PREFILL   tpu/generator._start, before the prefill dispatch:
                       a raised error fails that stream, then the loop
                       recovers
@@ -39,19 +41,21 @@ import threading
 import time
 
 __all__ = [
-    "GENERATOR_CHUNK", "GENERATOR_MIDKILL", "GENERATOR_PREFILL",
-    "GENERATOR_STEP", "HTTP_REQUEST", "SEAMS", "ChaosSchedule", "DeviceLost",
-    "Rule", "active", "fire", "install", "scope", "uninstall",
+    "BATCHER_DISPATCH", "GENERATOR_CHUNK", "GENERATOR_MIDKILL",
+    "GENERATOR_PREFILL", "GENERATOR_STEP", "HTTP_REQUEST", "SEAMS",
+    "ChaosSchedule", "DeviceLost", "Rule", "active", "fire", "install",
+    "scope", "uninstall",
 ]
 
+BATCHER_DISPATCH = "batcher.dispatch"
 GENERATOR_CHUNK = "generator.chunk"
 GENERATOR_MIDKILL = "generator.midkill"
 GENERATOR_PREFILL = "generator.prefill"
 GENERATOR_STEP = "generator.step"
 HTTP_REQUEST = "http.request"
 
-SEAMS = (GENERATOR_CHUNK, GENERATOR_MIDKILL, GENERATOR_PREFILL,
-         GENERATOR_STEP, HTTP_REQUEST)
+SEAMS = (BATCHER_DISPATCH, GENERATOR_CHUNK, GENERATOR_MIDKILL,
+         GENERATOR_PREFILL, GENERATOR_STEP, HTTP_REQUEST)
 
 
 class DeviceLost(RuntimeError):

@@ -1,8 +1,8 @@
 """Dependency container: the one object carrying every shared resource
 (the port's own copy of the part of gofr_tpu/container.py the App
 uses): the logger, the metrics registry, the tracer, the in-flight
-request registry and the generation engine as ``tpu``, with ``health()``
-and ``close()``.
+request registry and the engine as ``tpu`` (a BERT, ViT or Llama engine
+from the ``TPU_*`` rows), with ``health()`` and ``close()``.
 
 One difference from the JAX container is deliberate. There a failed
 engine construction is logged and the App goes on with ``tpu = None``;
@@ -55,7 +55,7 @@ class Container:
 
             self.tpu = new_engine_from_config(
                 self.config, device=device, logger=self.logger,
-                metrics=self.metrics)
+                metrics=self.metrics, requests=self.requests)
 
     def health(self) -> dict[str, Any]:
         out: dict[str, Any] = {"name": self.app_name,

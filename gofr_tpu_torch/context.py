@@ -1,12 +1,13 @@
 """Per-request Context: the request and the container behind one facade
-(the port's own copy of gofr_tpu/context.py, without the tenant).
+(the port's own copy of gofr_tpu/context.py, without a tenancy plane).
 
 A handler receives exactly one of these: ``ctx.bind()``,
 ``ctx.param(...)``, ``ctx.header(...)`` read the request,
 ``ctx.stream(...)`` writes a live chunked response, ``ctx.trace(...)``
-opens a span, ``ctx.tpu`` is the generation engine, and
+opens a span, ``ctx.tpu`` is the engine, and
 ``ctx.deadline``/``ctx.slo_class`` are the request's ambient budget and
-class (which ``ctx.tpu.generate`` reads by itself).
+class (which ``ctx.tpu.generate`` and ``ctx.tpu.predict`` read by
+themselves).
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ class Context:
 
     @property
     def tpu(self):
-        """The generation engine: ``ctx.tpu.generate(...)``."""
+        """The engine: ``ctx.tpu.generate(...)``,
+        ``ctx.tpu.predict(program, item)``."""
         return self.container.tpu
 
     # -- request facade -----------------------------------------------------
@@ -56,6 +58,13 @@ class Context:
 
     def header(self, key: str, default: str = "") -> str:
         return self.request.header(key, default)
+
+    @property
+    def tenant(self) -> str:
+        """The request's tenant id: its ``X-Tenant-Id`` header, or
+        ``default`` when untagged. The port has no tenancy plane, so no
+        quota or policy applies, as in a JAX App without one."""
+        return self.header("X-Tenant-Id").strip() or "default"
 
     @property
     def deadline(self):

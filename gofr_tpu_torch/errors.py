@@ -61,6 +61,20 @@ class EntityNotFound(NotFound):
         self.value = value
 
 
+class ProgramNotFound(NotFound, KeyError):
+    """A predict call named a program the engine never registered: 404
+    with the registered names, not the 500 a bare KeyError becomes. A
+    KeyError still, so dict-style lookup-miss handling keeps working."""
+
+    def __init__(self, program: str, registered: list[str] | None = None):
+        known = f"; registered: {sorted(registered)}" if registered else ""
+        super().__init__(f"no TPU program {program!r}{known}")
+        self.program = program
+
+    # KeyError.__str__ repr()s its message; the wire renders plain text
+    __str__ = Exception.__str__
+
+
 class InvalidParameter(BadRequest):
     def __init__(self, *params: str):
         super().__init__(f"Invalid parameter(s): {', '.join(params)}")

@@ -7,6 +7,8 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..ops.quant import QuantizedLinear
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -23,6 +25,11 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    # encoder-model extras (BERT, ViT)
+    n_classes: int = 0
+    image_size: int = 224
+    patch_size: int = 14
+    type_vocab_size: int = 2
     # mixture-of-experts (0 experts = dense FFN); the port serves dense
     # models only so far
     n_experts: int = 0
@@ -68,6 +75,24 @@ LLAMA_CONFIGS = {
                             experts_per_token=2),
 }
 
+BERT_CONFIGS = {
+    "bert-base": ModelConfig(name="bert-base", vocab_size=30522, dim=768,
+                             n_layers=12, n_heads=12, n_kv_heads=12,
+                             ffn_dim=3072, max_seq=512, norm_eps=1e-12),
+    "tiny": ModelConfig(name="tiny-bert", vocab_size=128, dim=64, n_layers=2,
+                        n_heads=4, n_kv_heads=4, ffn_dim=128, max_seq=64,
+                        norm_eps=1e-12, dtype="float32"),
+}
+
+VIT_CONFIGS = {
+    "vit-l-14": ModelConfig(name="vit-l-14", dim=1024, n_layers=24,
+                            n_heads=16, n_kv_heads=16, ffn_dim=4096,
+                            image_size=224, patch_size=14, n_classes=1000),
+    "tiny": ModelConfig(name="tiny-vit", dim=64, n_layers=2, n_heads=4,
+                        n_kv_heads=4, ffn_dim=128, image_size=28,
+                        patch_size=14, n_classes=10, dtype="float32"),
+}
+
 
 def dense_init(shape, dtype: torch.dtype, generator: torch.Generator,
                scale: float | None = None) -> torch.Tensor:
@@ -86,3 +111,11 @@ def dense_init(shape, dtype: torch.dtype, generator: torch.Generator,
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
         row.copy_(t.mul_(std))
     return out
+
+
+def layer_weights(layers: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked ``[L, ...]`` weight dict (int8
+    ``QuantizedLinear`` leaves sliced with their scales)."""
+    return {k: (QuantizedLinear(v.w[i], v.scale[i])
+                if isinstance(v, QuantizedLinear) else v[i])
+            for k, v in layers.items()}

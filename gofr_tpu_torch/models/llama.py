@@ -31,9 +31,10 @@ from ..device import resolve_device
 from ..ops import flash, flash_decode
 from ..ops.attention import chunk_attention, window_attention_appended
 from ..ops.norms import rms_norm
-from ..ops.quant import QuantizedLinear, qmatmul, quantize_kv
+from ..ops.quant import qmatmul, quantize_kv
 from ..ops.rope import apply_rope, rope_frequencies
 from .common import ModelConfig, dense_init
+from .common import layer_weights as _layer_weights
 
 
 def get_rope_tables(cfg: ModelConfig, max_seq: int, device="cuda"):
@@ -117,12 +118,6 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     return params
 
 
-def _layer_weights(layers: dict, i: int) -> dict:
-    return {k: (QuantizedLinear(v.w[i], v.scale[i])
-                if isinstance(v, QuantizedLinear) else v[i])
-            for k, v in layers.items()}
-
-
 def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend):
     """One transformer block; ``attend(q, k, v)`` runs attention.
     Returns (x_out, (k, v)) with this block's new keys and values."""
@@ -149,9 +144,10 @@ def _logits(params: dict, cfg: ModelConfig, x) -> torch.Tensor:
 
 
 def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
-            rope_tables, flash_attn: bool):
-    """Shared causal body of forward/prefill_kv: embed, run the layers.
-    Returns (x [B, S, D], k_stack, v_stack [L, B, S, KV, hd], lengths)."""
+            rope_tables, flash_attn: bool, collect_kv: bool = True):
+    """Shared causal body of forward/prefill_kv/score: embed, run the
+    layers. Returns (x [B, S, D], k_stack, v_stack [L, B, S, KV, hd] --
+    None without ``collect_kv`` --, lengths)."""
     B, S = tokens.shape
     device = tokens.device
     if lengths is None:
@@ -171,8 +167,11 @@ def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
     for i in range(cfg.n_layers):
         x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
                            cos, sin, positions, attend)
-        ks.append(k)
-        vs.append(v)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    if not collect_kv:
+        return x, None, None, lengths
     return x, torch.stack(ks), torch.stack(vs), lengths
 
 
@@ -182,8 +181,30 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Cache-free causal forward over [B, S] tokens -> [B, S, V] float32
     logits."""
     x, _, _, _ = _causal(params, cfg, tokens, lengths, tokens.shape[1],
-                         rope_tables, flash)
+                         rope_tables, flash, collect_kv=False)
     return _logits(params, cfg, x)
+
+
+def _gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """x [B, S, D] at one position a row, ``pos`` [B] -> [B, 1, D]."""
+    idx = pos.long()[:, None, None].expand(-1, 1, x.shape[-1])
+    return torch.gather(x, 1, idx)
+
+
+def score(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+          lengths: torch.Tensor, rope_tables=None,
+          flash: bool = False) -> torch.Tensor:
+    """Next-token logits at each prompt's end: [B, V] float32, row b at
+    position ``max(lengths[b] - 1, 0)`` (the engine's ``score``
+    program). The hidden state is gathered there BEFORE the LM head, so
+    only B logit rows are computed -- JAX's ``forward`` then one row,
+    without the [B, S, V] float32 logits. Causal attention never lets a
+    row see past itself, so the keys masked at or past ``lengths[b]``
+    change nothing at the row read."""
+    x, _, _, _ = _causal(params, cfg, tokens, lengths, tokens.shape[1],
+                         rope_tables, flash, collect_kv=False)
+    pos = torch.clamp(lengths.long() - 1, min=0)
+    return _logits(params, cfg, _gather_rows(x, pos))[:, 0]
 
 
 def prefill_kv(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -201,8 +222,7 @@ def prefill_kv(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         params, cfg, tokens, lengths, rope_max or tokens.shape[1],
         rope_tables, flash)
     if logit_pos is not None:
-        idx = logit_pos.long()[:, None, None].expand(-1, 1, x.shape[-1])
-        x = torch.gather(x, 1, idx)                          # [B, 1, D]
+        x = _gather_rows(x, logit_pos)                       # [B, 1, D]
     return _logits(params, cfg, x), k_stack, v_stack, lengths
 
 
@@ -299,8 +319,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if not compute_logits:
         return None, cache
     if logit_pos is not None:
-        idx = logit_pos.long()[:, None, None].expand(-1, 1, x.shape[-1])
-        x = torch.gather(x, 1, idx)                          # [B, 1, D]
+        x = _gather_rows(x, logit_pos)                       # [B, 1, D]
     return _logits(params, cfg, x), cache
 
 

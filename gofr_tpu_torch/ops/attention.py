@@ -9,7 +9,8 @@ reference the kernels are held against, and the contiguous verify pass
 (models.llama.verify_step) runs ``window_attention_appended`` itself, as
 the JAX package runs its jnp version. ``chunk_attention``, the chunked
 prefill's attention, has no kernel in either package: it is plain jnp in
-JAX and plain PyTorch here, on every device. Layouts follow the JAX package:
+JAX and plain PyTorch here, on every device; so has ``full_attention``,
+the encoders' bidirectional attention. Layouts follow the JAX package:
 q [B, S, H, D], k/v [B, S, KV, D], GQA by grouping query heads
 [B, S, KV, G, D]; softmax in float32.
 """
@@ -172,3 +173,21 @@ def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
                           v_new.transpose(1, 2)))           # [B,KV,G*C,D]
     out = out.reshape(b, n_kv, g, c, d).permute(0, 3, 1, 2, 4)
     return out.reshape(b, c, h, d).to(q.dtype)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Bidirectional attention (BERT/ViT encoders). q [B, S, H, D], k/v
+    [B, S, KV, D]; ``mask`` [B, S] marks the real keys. The scaled query
+    meets the keys in float32 (JAX's ``preferred_element_type``), masked
+    keys score ``NEG_INF``, and the probabilities are cast to v's dtype
+    before the second product. Returns [B, S, H, D] in v's dtype."""
+    b, s, h, d = q.shape
+    n_kv = k.shape[2]
+    qg = _group(q * d ** -0.5, n_kv)                        # [B,S,KV,G,D]
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, d)

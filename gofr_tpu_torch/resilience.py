@@ -253,6 +253,20 @@ class AdmissionGate:
         self.sheds_by_class = {c: 0 for c in SLO_CLASSES}
         self.brownout_capped = 0
 
+    def clone(self, name: str) -> "AdmissionGate":
+        """A fresh gate with the same bounds and telemetry but its OWN
+        state: one gate fronts one queue, so an engine with several
+        predict programs clones its configured gate per program (a
+        shared wait estimate would let a backlogged program shed a
+        healthy one's traffic)."""
+        return AdmissionGate(
+            max_queue_depth=self.max_queue_depth,
+            max_queue_delay=self.max_queue_delay,
+            brownout_delay=self.brownout_delay,
+            brownout_max_new=self.brownout_max_new,
+            throughput_factor=self.throughput_factor,
+            name=name, metrics=self.metrics, logger=self.logger)
+
     # -- dispatcher side ------------------------------------------------------
     def note_wait(self, wait_s: float) -> None:
         """Feed one observed queue wait (seconds) into the estimate."""

@@ -1,6 +1,8 @@
-"""Framework-owned replica serving route (the port's own copy of
-gofr_tpu/serving.py's generate half): POST /generate with the
-durable-streams resume contract. ``install_generate(app)`` registers a
+"""Framework-owned replica serving routes (the port's own copy of
+gofr_tpu/serving.py's generate and embeddings halves): POST /generate
+with the durable-streams resume contract, and POST /v1/embeddings over
+a BERT engine's ``embed`` program (``install_embeddings``, at the end
+of this module). ``install_generate(app)`` registers a
 POST handler over ``ctx.tpu.generate`` that speaks it:
 
   - every ndjson token line carries a monotone **cursor** — the
@@ -47,7 +49,8 @@ import threading
 from .errors import BadRequest, HTTPError, status_from_error
 from .wire import WAKE
 
-__all__ = ["GenerateRoute", "install_generate", "resume_chain"]
+__all__ = ["EmbeddingsRoute", "GenerateRoute", "install_embeddings",
+           "install_generate", "resume_chain"]
 
 
 def resume_chain(tokens, emitted, block: int = 16, adapter: int = 0) -> str:
@@ -267,5 +270,60 @@ def install_generate(app, path: str = "/generate") -> GenerateRoute:
         retry_after_s=app.config.get_float("TPU_RESUME_RETRY_AFTER_S",
                                            1.0),
         logger=app.logger)
+    app.post(path, route.handle)
+    return route
+
+
+class EmbeddingsRoute:
+    """POST /v1/embeddings over the BERT family's ``embed`` program. The
+    wire shape follows the OpenAI embeddings response, except that the
+    input is token ids (the framework serves tokens, not text)::
+
+        {"input": [[101, 2023, ...], ...]}   # or one flat id list
+
+    Each input is one ``predict`` call, so concurrent requests coalesce
+    in the program's batcher; the request's deadline and class reach it
+    through the App's middleware scopes."""
+
+    def __init__(self, engine, *, logger=None):
+        self.engine = engine
+        self.logger = logger
+
+    def handle(self, ctx):
+        body = ctx.bind()
+        if not isinstance(body, dict):
+            raise BadRequest("embeddings: body must be a JSON object "
+                             "with an 'input' array")
+        raw = body.get("input")
+        if not isinstance(raw, list) or not raw:
+            raise BadRequest("embeddings: 'input' must be a non-empty "
+                             "array of token-id lists")
+        if "embed" not in getattr(self.engine, "_programs", {}):
+            raise BadRequest(
+                "embeddings: this replica serves no 'embed' program — "
+                "run a bert-family model (TPU_MODEL=bert)")
+        try:
+            items = ([[int(t) for t in raw]]
+                     if not isinstance(raw[0], list)
+                     else [[int(t) for t in row] for row in raw])
+        except (TypeError, ValueError) as e:
+            raise BadRequest(
+                f"embeddings: malformed token id: {e}") from e
+        data = []
+        for i, tokens in enumerate(items):
+            if not tokens:
+                raise BadRequest(f"embeddings: input[{i}] is empty")
+            vec = self.engine.predict("embed", tokens)
+            data.append({"object": "embedding", "index": i,
+                         "embedding": [float(x) for x in vec]})
+        return {"object": "list", "data": data,
+                "model": getattr(self.engine, "model_name", "bert"),
+                "meta": {"tenant": ctx.tenant,
+                         "slo_class": ctx.slo_class}}
+
+
+def install_embeddings(app, path: str = "/v1/embeddings") -> EmbeddingsRoute:
+    """Register the canonical /v1/embeddings on an App (BERT family)."""
+    route = EmbeddingsRoute(app.container.tpu, logger=app.logger)
     app.post(path, route.handle)
     return route

@@ -1,13 +1,27 @@
 """The serving datasource of the port (counterpart of gofr_tpu/tpu):
 ``new_engine_from_config`` reads the ``TPU_*`` rows this slice honours
-and builds a Llama generation engine reachable as ``ctx.tpu``.
+and builds the engine reachable as ``ctx.tpu``: a BERT engine with the
+``embed`` program, a ViT engine with ``classify``, or a Llama engine
+with its generator and the ``score`` program.
 
 Rows read:
-  TPU_MODEL         Llama-family name (llama3-8b, llama-1b, tiny, ...;
-                    default tiny)
+  TPU_MODEL         bert-base (alias bert; bert-tiny), vit-l-14 (aliases
+                    vit, vit-l14; vit-tiny), or a Llama-family name
+                    (llama3-8b, llama-1b, tiny, ...; default tiny)
   TPU_WEIGHTS       a ``.npz`` written by the JAX package's ``save_npz``;
                     absent = random init on the device from seed 0
   TPU_QUANT         "int8" to quantize projection weights on load
+  TPU_BATCH_BUCKETS  csv of a predict program's batch buckets (default
+                    1,2,4,8; the largest is a dispatch's cap)
+  TPU_MAX_BATCH_DELAY  seconds the oldest waiting predict item may wait
+                    before a partial batch is dispatched (default 0.004)
+  TPU_SLO_BATCH_SHARE  > 0: per-class wait lines in every predict
+                    batcher, with this share of each full batch reserved
+                    for throughput-class items (default 0 = one FIFO line)
+  TPU_SLO_BATCH_DELAY  the throughput line's own flush delay in seconds
+                    (default 4 x TPU_MAX_BATCH_DELAY)
+  TPU_WARMUP        run every predict program once at every bucket shape
+                    when the engine is built
   TPU_KV_DTYPE      KV-cache dtype: "int8" (default, float32 per-vector
                     scales) or anything else for the dense model-dtype
                     cache
@@ -18,10 +32,13 @@ Rows read:
                     (default 2, as in JAX; a spec engine runs 1)
   TPU_ADMIT_WINDOW_MS  how often (ms) the loop looks for arrivals to
                     admit while a block runs (default 2.0)
-  TPU_SEQ_BUCKETS   csv of prompt buckets (default 32,64,128,256,512;
-                    those below TPU_MAX_SEQ are the engine's, as in JAX):
-                    a prompt is padded to its bucket and prefilled by one
-                    dispatch; a longer one runs the chunk lattice
+  TPU_SEQ_BUCKETS   csv of sequence buckets (default 32,64,128,256,512):
+                    a predict item is padded to its bucket (those up to
+                    the model's max_seq, or TPU_MAX_SEQ for score); the
+                    generator's prompt buckets are those below
+                    TPU_MAX_SEQ, as in JAX: a prompt is padded to its
+                    bucket and prefilled by one dispatch; a longer one
+                    runs the chunk lattice
   TPU_PREFILL_CHUNK  the lattice's chunk budget: unset = the largest
                     bucket with a decode block interleaved between
                     chunks, <= 0 = the same chunks back to back, else
@@ -42,8 +59,9 @@ Rows read:
                     positions, through the paged window kernel on a
                     paged engine, at most 15 there on the card); 0 or
                     unset: off
-  TPU_MAX_QUEUE_DEPTH  the admission gate sheds (TooManyRequests, 429)
-                    once this many requests wait (default 0 = off)
+  TPU_MAX_QUEUE_DEPTH  the admission gates (the generator's, and one a
+                    predict program) shed (TooManyRequests, 429) once
+                    this many requests wait (default 0 = off)
   TPU_MAX_QUEUE_DELAY  ... or once the estimated queue wait exceeds this
                     many seconds (default 0 = off)
   TPU_BROWNOUT_DELAY  above this estimated wait (seconds) the gate caps
@@ -63,34 +81,42 @@ silently ignored.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models import llama
-from ..models.common import LLAMA_CONFIGS
+from ..models import bert, llama, vit
+from ..models.common import BERT_CONFIGS, LLAMA_CONFIGS, VIT_CONFIGS
+from ..ops import kernels
 from ..resilience import gate_from_config
+from .batcher import (BatcherClosed, ClassPolicy, CoalescingBatcher,
+                      pad_bucket)
 from .checkpoint import from_jax_params, load_npz, maybe_quantize
-from .engine import Health, TorchEngine
+from .engine import (DEFAULT_BATCH_BUCKETS, Health, Program, TorchEngine)
 from .generator import (DEFAULT_SEQ_BUCKETS, GenerationEngine,
                         GenerationError, GenStream)
 
-__all__ = ["GenerationEngine", "GenerationError", "GenStream", "Health",
-           "TorchEngine", "from_jax_params", "load_npz", "maybe_quantize",
-           "new_engine_from_config"]
+__all__ = ["BatcherClosed", "ClassPolicy", "CoalescingBatcher",
+           "GenerationEngine", "GenerationError", "GenStream", "Health",
+           "Program", "TorchEngine", "from_jax_params", "load_npz",
+           "maybe_quantize", "new_engine_from_config", "pad_bucket"]
 
 # rows of the JAX package that name features outside this slice
 UNPORTED_ROWS = (
-    "TPU_SLO_BATCH_SHARE", "TPU_SLO_BATCH_DELAY",
     "TPU_KVCACHE_BLOCK", "TPU_KVCACHE_HOST_MB",
     "TPU_KVCACHE_REDIS", "TPU_KVCACHE_REDIS_TTL_S",
     "TPU_KVCACHE_REDIS_TIMEOUT_S", "TPU_KVCACHE_EPOCH_REFRESH_S",
     "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_BUDGET_MB",
-    "TPU_HBM_HEADROOM", "TPU_HBM_DEVICE_BUDGET_MB", "TPU_BATCH_BUCKETS", "TPU_MAX_BATCH_DELAY",
+    "TPU_HBM_HEADROOM", "TPU_HBM_DEVICE_BUDGET_MB",
     "TPU_SHARDING", "TPU_PD_LISTEN", "TPU_PD_PEER", "TPU_PD_BLOCK",
-    "TPU_PD_WINDOW_MB", "TPU_WARMUP", "TPU_TENANTS", "TPU_TENANTS_INLINE",
+    "TPU_PD_WINDOW_MB", "TPU_TENANTS", "TPU_TENANTS_INLINE",
     "TPU_TENANTS_RELOAD_S", "TPU_TENANT_HEADER", "TPU_TENANT_TOPIC",
     "TPU_TENANT_CHECKPOINT_EVERY",
 )
+
+# TPU_MODEL aliases, as the JAX package reads them
+BERT_ALIASES = {"bert": "bert-base", "bert-tiny": "tiny"}
+VIT_ALIASES = {"vit": "vit-l-14", "vit-l14": "vit-l-14", "vit-tiny": "tiny"}
 
 
 def _opt_int(val: str | None) -> int | None:
@@ -123,23 +149,54 @@ def _check_rows(cfg) -> None:
                          f"{', '.join(rejected)}")
 
 
+def _known_models() -> list[str]:
+    return (sorted(LLAMA_CONFIGS) + sorted(BERT_ALIASES) + sorted(BERT_CONFIGS)
+            + sorted(VIT_ALIASES) + sorted(VIT_CONFIGS))
+
+
+def _model_config(name: str):
+    """(family, ModelConfig) for a TPU_MODEL name."""
+    if name.startswith("bert"):
+        mc = BERT_CONFIGS.get(BERT_ALIASES.get(name, name))
+        family = "bert"
+    elif name.startswith("vit"):
+        mc = VIT_CONFIGS.get(VIT_ALIASES.get(name, name))
+        family = "vit"
+    else:
+        mc = LLAMA_CONFIGS.get(name)
+        family = "llama"
+    if mc is None:
+        raise KeyError(f"unknown TPU_MODEL {name!r} for gofr_tpu_torch; "
+                       f"known: {_known_models()}")
+    return family, mc
+
+
 def new_engine_from_config(cfg, device="cuda", logger=None,
                            params: dict | None = None,
-                           metrics=None) -> TorchEngine:
-    """Build the generation engine from ``TPU_*`` rows on ``device``
-    (the CUDA card unless the caller asks for the CPU; raises when
-    there is no card). ``params``: weights already on ``device`` for
-    this model, used instead of TPU_WEIGHTS or a random init (engines
-    built one after another on the same weights). ``metrics``: what the
-    admission gate and the engine count sheds, brownouts and expiries
-    into (``increment_counter``/``set_gauge``), if given."""
+                           metrics=None, requests=None) -> TorchEngine:
+    """Build the engine from ``TPU_*`` rows on ``device`` (the CUDA card
+    unless the caller asks for the CPU; raises when there is no card).
+    ``params``: weights already on ``device`` for this model, used
+    instead of TPU_WEIGHTS or a random init (engines built one after
+    another on the same weights). ``metrics``: what the admission gates
+    and the engine count sheds, brownouts, expiries and dispatches into
+    (``increment_counter``/``set_gauge``/``record_histogram``), if
+    given. ``requests``: the App's in-flight registry, where each
+    ``predict`` is listed while it waits."""
     _check_rows(cfg)
     device = resolve_device(device)
     name = (cfg.get("TPU_MODEL") or "tiny").strip()
-    mc = LLAMA_CONFIGS.get(name)
-    if mc is None:
-        raise KeyError(f"unknown TPU_MODEL {name!r} for gofr_tpu_torch; "
-                       f"known: {sorted(LLAMA_CONFIGS)}")
+    family, mc = _model_config(name)
+    if family == "llama" and device.type == "cuda":
+        # the score program runs its attention through flash_prefill:
+        # refuse a model the kernel does not take now, not at a request
+        try:
+            kernels.check_attention_shape(
+                "flash_prefill", head_dim=mc.head_dim, n_heads=mc.n_heads,
+                n_kv_heads=mc.n_kv_heads, dtype=mc.tdtype)
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"{name} cannot be scored on {device}: "
+                             f"{e}") from None
     if params is None:
         weights = cfg.get("TPU_WEIGHTS")
         if weights:
@@ -148,15 +205,81 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
                                  "loads .npz checkpoints only")
             params = load_npz(weights, device=device)
         else:
-            params = llama.init(mc, 0, device=device)
+            init = {"bert": bert.init, "vit": vit.init,
+                    "llama": llama.init}[family]
+            params = init(mc, 0, device=device)
         params = maybe_quantize(
             params, (cfg.get("TPU_QUANT") or "").lower() == "int8")
+    batch_buckets = _csv_ints(cfg.get("TPU_BATCH_BUCKETS"),
+                              DEFAULT_BATCH_BUCKETS)
+    seq_buckets = _csv_ints(cfg.get("TPU_SEQ_BUCKETS"), DEFAULT_SEQ_BUCKETS)
+    batch_share = cfg.get_float("TPU_SLO_BATCH_SHARE", 0.0)
+    class_policy = None
+    if batch_share > 0:
+        class_policy = ClassPolicy(
+            throughput_delay=cfg.get_float("TPU_SLO_BATCH_DELAY", 0.0)
+            or None, throughput_share=batch_share)
+    generator = None
+    if family == "llama":
+        generator = _generator(cfg, mc, params, seq_buckets, device, logger,
+                               metrics)
+    engine = TorchEngine(
+        generator, name, device, logger=logger, metrics=metrics,
+        max_delay=cfg.get_float("TPU_MAX_BATCH_DELAY", 0.004),
+        gate=gate_from_config(cfg, "predict", metrics=metrics,
+                              logger=logger),
+        class_policy=class_policy, requests=requests)
+    if family == "bert":
+        def embed_fn(p, tokens, lengths):
+            mask = (torch.arange(tokens.shape[1], device=tokens.device)[None]
+                    < lengths[:, None])
+            return bert.embed(p, mc, tokens, mask)
+
+        engine.register("embed", embed_fn, params, kind="tokens",
+                        batch_buckets=batch_buckets,
+                        seq_buckets=tuple(b for b in seq_buckets
+                                          if b <= mc.max_seq)
+                        or (mc.max_seq,))
+    elif family == "vit":
+        def classify_fn(p, images):
+            return torch.softmax(vit.forward(p, mc, images), dim=-1)
+
+        engine.register("classify", classify_fn, params, kind="fixed",
+                        batch_buckets=batch_buckets,
+                        example_item=np.zeros(
+                            (mc.image_size, mc.image_size, 3), np.float32))
+    else:
+        # next-token logits at each prompt's end. The batcher coalesces
+        # unrelated requests into one batch, so grouped MoE dispatch is
+        # ruled out here as at decode (request isolation).
+        score_mc = llama.multi_request_serving_config(mc)
+        max_seq = generator.max_seq
+        seq_b = tuple(b for b in seq_buckets if b <= max_seq) or (max_seq,)
+        rope = llama.get_rope_tables(score_mc, max(seq_b), device)
+
+        def score_fn(p, tokens, lengths):
+            return llama.score(p, score_mc, tokens, lengths,
+                               rope_tables=rope, flash=True)
+
+        engine.register("score", score_fn, params, kind="tokens",
+                        batch_buckets=batch_buckets, seq_buckets=seq_b)
+    if cfg.get_bool("TPU_WARMUP"):
+        engine.warmup()
+    if logger is not None:
+        logger.info({"event": "torch engine ready", "model": name,
+                     "device": str(device),
+                     "programs": sorted(engine._programs)})
+    return engine
+
+
+def _generator(cfg, mc, params, seq_buckets, device, logger,
+               metrics) -> GenerationEngine:
+    """The Llama generation engine from its rows."""
     max_seq = cfg.get_int("TPU_MAX_SEQ", min(mc.max_seq, 2048))
     kv_choice = (cfg.get("TPU_KV_DTYPE") or "int8").lower()
-    seq_buckets = _csv_ints(cfg.get("TPU_SEQ_BUCKETS"), DEFAULT_SEQ_BUCKETS)
     prompt_b = tuple(b for b in seq_buckets if b < max_seq) \
         or (max_seq // 2,)
-    generator = GenerationEngine(
+    return GenerationEngine(
         mc, params, slots=cfg.get_int("TPU_SLOTS", 48), max_seq=max_seq,
         logger=logger, prompt_buckets=prompt_b,
         prefill_chunk=_opt_int(cfg.get("TPU_PREFILL_CHUNK")),
@@ -174,7 +297,3 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
         slo_throughput_share=cfg.get_float("TPU_SLO_THROUGHPUT_SHARE", 0.25),
         slo_latency_slots=cfg.get_int("TPU_SLO_LATENCY_SLOTS", 1),
         metrics=metrics, device=device)
-    if logger is not None:
-        logger.info({"event": "torch engine ready", "model": name,
-                     "device": str(device)})
-    return TorchEngine(generator, name, device)

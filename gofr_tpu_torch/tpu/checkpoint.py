@@ -1,12 +1,13 @@
 """Weight loading (counterpart of gofr_tpu/tpu/checkpoint.py).
 
-``from_jax_params`` carries a JAX parameter tree across -- nested dicts
-of numpy arrays, with ``QuantizedLinear``-shaped leaves (a named tuple
-with fields ``w`` and ``scale``) -- without importing anything of the
-JAX package. ``load_npz`` reads the JAX package's ``.npz`` format
-(``/``-joined tree paths, int8 projections as ``<path>/__qw`` and
-``<path>/__qscale``). ``maybe_quantize`` int8-quantizes the projection
-leaves of a loaded tree.
+``from_jax_params`` carries a JAX parameter tree of any model family
+(Llama, BERT, ViT) across -- nested dicts of numpy arrays, with
+``QuantizedLinear``-shaped leaves (a named tuple with fields ``w`` and
+``scale``) -- without importing anything of the JAX package.
+``load_npz`` reads the JAX package's ``.npz`` format (``/``-joined tree
+paths, int8 projections as ``<path>/__qw`` and ``<path>/__qscale``).
+``maybe_quantize`` int8-quantizes the projection leaves of a loaded
+tree, the same leaves as the JAX package's ``maybe_quantize``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import torch
 from ..device import resolve_device
 from ..ops.quant import QuantizedLinear, quantize_int8
 
-# Llama projection leaves worth int8-quantizing (stacked [L, in, out]).
+# projection leaves worth int8-quantizing (stacked [L, in, out]): the
+# Llama names, which the BERT and ViT trees share for their attention
+# projections
 _QUANT_LEAVES = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"}
 
 
@@ -45,10 +48,10 @@ def _is_quantized(node) -> bool:
 
 
 def from_jax_params(tree: Any, device="cuda") -> Any:
-    """Carry a JAX Llama parameter tree (numpy leaves; layout of
-    gofr_tpu/models/llama.py ``init``) into torch tensors on ``device``,
-    keeping the layout. ``QuantizedLinear`` leaves become the port's
-    ``QuantizedLinear``."""
+    """Carry a JAX parameter tree of any model family (numpy leaves;
+    the layout of the ``init`` of gofr_tpu/models/llama.py, bert.py or
+    vit.py) into torch tensors on ``device``, keeping the layout.
+    ``QuantizedLinear`` leaves become the port's ``QuantizedLinear``."""
     device = resolve_device(device)
 
     def walk(node):
@@ -93,8 +96,8 @@ def load_npz(path: str, device="cuda") -> dict:
 
 
 def maybe_quantize(params: Any, enabled: bool) -> Any:
-    """Int8-quantize the known projection leaves of a Llama param tree
-    per output channel (the contraction axis is ndim - 2 for plain and
+    """Int8-quantize the known projection leaves of a param tree per
+    output channel (the contraction axis is ndim - 2 for plain and
     stacked weights alike)."""
     if not enabled:
         return params

@@ -101,8 +101,10 @@ for.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
 import itertools
 import queue
 import threading
@@ -274,6 +276,23 @@ def sample(logits: torch.Tensor, temps: torch.Tensor, seeds: torch.Tensor,
         tok = torch.where(temps > 0, sampled, greedy)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return tok, torch.gather(logp, 1, tok[:, None])[:, 0]
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Collect Python's garbage now, then keep the collector off until
+    the block ends. A CUDA graph destroyed while another is being
+    captured invalidates that capture, and a graph left in a reference
+    cycle (an engine closed earlier, a traceback's frame) is destroyed
+    whenever the collector happens to run."""
+    gc.collect()
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
 
 
 def fused_decode_block(params: dict, cfg: ModelConfig, cache, pack, carry,
@@ -1908,7 +1927,9 @@ class GenerationEngine:
         A capture launches nothing, so the launch counters go back to
         what they were, and what they counted is added at each replay.
         Returns key -> (graph, output, counter deltas). Raises when a
-        capture fails: on the card there is no eager path."""
+        capture fails: on the card there is no eager path. The captures
+        run under ``no_collection``: a dead CUDA graph that Python's
+        collector frees mid-capture invalidates the capture."""
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
@@ -1919,22 +1940,24 @@ class GenerationEngine:
         torch.cuda.synchronize(self.device)
         graphs = {}
         pool = None
-        for key, fn in fns.items():
-            graph = torch.cuda.CUDAGraph()
-            before = _counts()
-            try:
-                with torch.no_grad(), torch.cuda.graph(
-                        graph, pool=pool, capture_error_mode="thread_local"):
-                    out = fn()
-            except Exception as e:
-                raise RuntimeError(
-                    f"capturing the {label.format(key)} as a CUDA graph "
-                    f"failed: {e!r}") from e
-            finally:
-                deltas = [a - b for a, b in zip(_counts(), before)]
-                _add_counts([-d for d in deltas])
-            pool = graph.pool()
-            graphs[key] = (graph, out, deltas)
+        with no_collection():
+            for key, fn in fns.items():
+                graph = torch.cuda.CUDAGraph()
+                before = _counts()
+                try:
+                    with torch.no_grad(), torch.cuda.graph(
+                            graph, pool=pool,
+                            capture_error_mode="thread_local"):
+                        out = fn()
+                except Exception as e:
+                    raise RuntimeError(
+                        f"capturing the {label.format(key)} as a CUDA "
+                        f"graph failed: {e!r}") from e
+                finally:
+                    deltas = [a - b for a, b in zip(_counts(), before)]
+                    _add_counts([-d for d in deltas])
+                pool = graph.pool()
+                graphs[key] = (graph, out, deltas)
         return graphs
 
     def _capture_graphs(self) -> None:

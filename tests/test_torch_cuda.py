@@ -13,12 +13,15 @@ call of the same block function computes (contiguous and paged,
 sampling on and off, and after a prefill and a verify pass have moved
 the cursors between replays), and so does the verify pass's graph; a
 dispatch returns before its block is
-done; replays count their kernels' launches; and a body that cannot be
-captured makes construction raise. The admission path is captured too:
+done; replays count their kernels' launches; a body that cannot be
+captured makes construction raise, and a dead graph that the collector
+frees meanwhile does not. The admission path is captured too:
 K1 replays its eager bits inside a graph, each admission (a bucket
 prefill, the chunk lattice, the paged write-back) replays what its
 functions compute eagerly, and long prompts stream the same tokens with
-interleave on and off and on a contiguous engine. They
+interleave on and off and on a contiguous engine. The score program's
+function runs K1 at a ragged batch and equals the plain attention, and
+the encoders' engines predict on the card. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -450,6 +453,53 @@ def test_engine_refuses_at_construction_on_the_card(gen, name, kw):
 SMALL = LLAMA_CONFIGS["llama3-8b"].with_(
     vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
     ffn_dim=1024, max_seq=512)
+
+
+def test_score_runs_k1_at_a_batch_and_equals_the_plain_attention(gen):
+    """The score program's function at a batch of 8 ragged rows, one of
+    length 0: one K1 launch a layer and no plain call, the last-row
+    logits within the plain attention's (chip_smoke.py's LOGIT_ATOL)."""
+    params = llama.init(SMALL, 0, device="cuda")
+    tokens = torch.randint(0, SMALL.vocab_size, (8, 64), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    lengths = torch.tensor([64, 60, 33, 32, 17, 9, 1, 0], dtype=torch.int32,
+                           device="cuda")
+    flash.reset_counts()
+    with torch.inference_mode():
+        got = llama.score(params, SMALL, tokens, lengths, flash=True)
+        assert (flash.launches, flash.plain_calls) == (SMALL.n_layers, 0)
+        want = llama.score(params, SMALL, tokens, lengths, flash=False)
+    assert got.shape == (8, SMALL.vocab_size) and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 0.1
+
+
+@pytest.mark.parametrize("model", ["tiny", "bert-tiny", "vit-tiny"])
+def test_new_engine_from_config_on_the_card(gen, model):
+    """A float32 Llama model is refused before anything is allocated
+    (its score program would need K1); the encoders' programs run on
+    the card through the batcher."""
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.tpu import new_engine_from_config
+
+    rows = MapConfig({"TPU_MODEL": model, "TPU_SEQ_BUCKETS": "8,16"})
+    if model == "tiny":
+        before = torch.cuda.memory_allocated()
+        with pytest.raises(ValueError, match="cannot be scored on cuda"):
+            new_engine_from_config(rows, device="cuda")
+        assert torch.cuda.memory_allocated() == before
+        return
+    eng = new_engine_from_config(rows, device="cuda")
+    try:
+        (name,) = eng._programs
+        item = (np.arange(1, 12, dtype=np.int32) if model == "bert-tiny"
+                else np.ones((28, 28, 3), np.float32))
+        out = eng.predict(name, item)
+        assert out.dtype == np.float32 and np.isfinite(out).all()
+        assert eng.health_check().details["platform"] == "gpu"
+    finally:
+        eng.close()
+
+
 # a replay and an eager call of the block run the same kernels on the same
 # inputs: tokens, emitted mask, cursors and cache bytes are equal; the
 # logprobs may part by float32 rounding if a library kernel picks another
@@ -875,6 +925,51 @@ def test_construction_raises_when_an_admission_capture_fails(gen,
     with pytest.raises(RuntimeError, match="capturing the admission"):
         _engine(False)
     assert threading.active_count() == started
+
+
+def test_a_graph_left_in_a_cycle_does_not_break_a_capture(gen,
+                                                         monkeypatch):
+    """A CUDA graph destroyed while another is being captured invalidates
+    that capture. A closed engine's graphs can sit in a reference cycle
+    (a traceback's frame, an engine and its batchers) until Python's
+    collector runs. Here a graph becomes such garbage in the middle of
+    an admission capture, with the collector set to run at nearly every
+    allocation: the engine must still capture every graph."""
+    import gc
+
+    from gofr_tpu_torch.tpu import generator
+
+    class Cycle:
+        pass
+
+    x = torch.ones(64, device="cuda")
+    dead = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(dead):
+        y = x * 2
+    dead.replay()
+    pending = [(dead, y)]
+    del dead, y
+    body = generator.prefill_admission
+
+    def drops_a_graph(*args, **kw):
+        if pending and torch.cuda.is_current_stream_capturing():
+            holder = Cycle()
+            holder.self, holder.graph = holder, pending.pop()
+            del holder   # garbage the collector's next pass frees
+        return body(*args, **kw)
+
+    monkeypatch.setattr(generator, "prefill_admission", drops_a_graph)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng = _engine(False)
+    finally:
+        gc.set_threshold(*threshold)
+    try:
+        assert not pending and eng._graphs and eng._adm_graphs
+    finally:
+        eng.close()
+    gc.collect()
 
 
 # -- durable streams: the read-back graph, pos_base, recovery ------------------

@@ -327,7 +327,7 @@ def test_new_engine_from_config_loads_jax_weights(weights, tmp_path):
 
 @pytest.mark.parametrize("rows,name", [
     ({"TPU_PREFIX_CACHE": "4"}, "TPU_PREFIX_CACHE"),
-    ({"TPU_SLO_BATCH_SHARE": "0.5"}, "TPU_SLO_BATCH_SHARE"),
+    ({"TPU_TENANTS": "a,b"}, "TPU_TENANTS"),
     ({"TPU_SERVING_ROLE": "prefill"}, "TPU_SERVING_ROLE"),
 ])
 def test_rows_the_port_does_not_honour_raise_with_their_name(rows, name):

@@ -41,7 +41,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "errors.py", "app.py", "container.py", "context.py",
                 "glog.py", "metrics.py", "tracing.py", "serving.py",
                 "static.py", "http/server.py", "http/middleware.py",
-                "observe/registry.py", "tpu/kvcache/radix.py"):
+                "observe/registry.py", "tpu/kvcache/radix.py",
+                "tpu/batcher.py"):
         assert PORT / own in files
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))
@@ -61,13 +62,21 @@ def _entry_points():
     from gofr_tpu_torch import App, resolve_device
     from gofr_tpu_torch.config import MapConfig
     from gofr_tpu_torch.container import Container
-    from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
-    from gofr_tpu_torch.tpu import (GenerationEngine, from_jax_params,
-                                    new_engine_from_config)
+    from gofr_tpu_torch.models import (BERT_CONFIGS, LLAMA_CONFIGS,
+                                       VIT_CONFIGS, bert, llama, vit)
+    from gofr_tpu_torch.tpu import (GenerationEngine, TorchEngine,
+                                    from_jax_params, new_engine_from_config)
 
     tiny = LLAMA_CONFIGS["tiny"]
     rows = {"TPU_MODEL": "tiny", "HTTP_PORT": "0", "METRICS_PORT": "0"}
     return {
+        "TorchEngine": lambda: TorchEngine(),
+        "bert.init": lambda: bert.init(BERT_CONFIGS["tiny"], 0),
+        "vit.init": lambda: vit.init(VIT_CONFIGS["tiny"], 0),
+        "new_engine_from_config[bert]": lambda: new_engine_from_config(
+            MapConfig({"TPU_MODEL": "bert-tiny"})),
+        "new_engine_from_config[vit]": lambda: new_engine_from_config(
+            MapConfig({"TPU_MODEL": "vit-tiny"})),
         "App": lambda: App(MapConfig(rows)),
         "Container": lambda: Container(MapConfig(rows)),
         "resolve_device": lambda: resolve_device(),
@@ -81,9 +90,11 @@ def _entry_points():
     }
 
 
-ENTRY_POINTS = ["App", "Container", "GenerationEngine", "from_jax_params",
-                "llama.init", "llama.init_cache", "new_engine_from_config",
-                "resolve_device"]
+ENTRY_POINTS = ["App", "Container", "GenerationEngine", "TorchEngine",
+                "bert.init", "from_jax_params", "llama.init",
+                "llama.init_cache", "new_engine_from_config",
+                "new_engine_from_config[bert]", "new_engine_from_config[vit]",
+                "resolve_device", "vit.init"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -495,6 +495,24 @@ def test_new_engine_from_config_honours_the_slo_rows():
 
 @pytest.mark.parametrize("row", ["TPU_SLO_BATCH_SHARE", "TPU_SLO_BATCH_DELAY"])
 def test_the_batch_class_rows_still_raise(row):
-    with pytest.raises(ValueError, match=row):
-        new_engine_from_config(MapConfig({"TPU_MODEL": "tiny", row: "0.5"}),
+    """The batch class rows are honoured since the predict path was
+    ported: they shape the class lines of the score program's batcher
+    (TPU_SLO_BATCH_DELAY alone leaves one FIFO line, as in JAX). A row
+    of a feature still outside the port, set beside them, still raises
+    with its name."""
+    eng = new_engine_from_config(MapConfig({"TPU_MODEL": "tiny", row: "0.5",
+                                            "TPU_SLOTS": "2",
+                                            "TPU_MAX_SEQ": "64"}),
+                                 device="cpu")
+    try:
+        policy = eng._batchers["score"].class_policy
+        if row == "TPU_SLO_BATCH_SHARE":
+            assert policy.throughput_share == 0.5
+        else:
+            assert policy is None
+    finally:
+        eng.close()
+    with pytest.raises(ValueError, match="TPU_KVCACHE_BLOCK"):
+        new_engine_from_config(MapConfig({"TPU_MODEL": "tiny", row: "0.5",
+                                          "TPU_KVCACHE_BLOCK": "16"}),
                                device="cpu")
