@@ -163,8 +163,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal to each stream's first token where the top-2 gap is over
      twice the tolerance, the streams token-exact against the same
      prompts served with no score traffic;
+  5h. (phase ``grpc``) the headline route, Llama-3-8B tokens over the
+     port's own HTTP/2 gRPC server: a ``gofr_tpu_torch.App`` whose
+     Container builds phase 5's contiguous engine on "cuda" (phase
+     predict's engines freed first) behind phase slo's gate rows, with
+     ``llm.Generation`` (Generate, Chat) and ``POST /generate`` as
+     examples/tpu-token-streaming/main.py defines them; health SERVING;
+     16 Generate RPCs at once, 4 on each of 4 connections (17-500
+     tokens, 48 new, two sampled), each equal to the same request sent
+     to the engine directly, with TTFT at the client and at the engine,
+     client send to engine submit, first_put to the first message on
+     the wire (the grpc.handoff and grpc.frame-write spans), tok/s and
+     the streams served on the producing thread; the HTTP route through
+     GenStream.map streams the same tokens; a Chat turn, a turn
+     cancelled after its first token (the slot free within 2 s) and a
+     fresh call; a 1000-token Generate with grpc-timeout 50m behind 8
+     busy slots ends DEADLINE_EXCEEDED and is counted where it expired;
+     32 throughput RPCs at once and 4 latency ones 100 ms later: the
+     RESOURCE_EXHAUSTED by class equal the gate's sheds and
+     app_tpu_shed_total, each with retry-after, no latency RPC shed;
+     stop(grace_s=30) with 8 live streams of 160 tokens: health
+     NOT_SERVING, a new RPC UNAVAILABLE with retry-after, every stream
+     whole, no server thread left; flash_prefill 32 a bucket admission
+     and flash_decode 32 a decode step over the whole phase;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
-     5's and the score run's), then the card line, then the
+     5's, the score run's and phase grpc's; flash_decode's phase 5's and
+     phase grpc's), then the card line, then the
      ``{"ok": true, "device": {...}}`` line last.
 
 It needs the repository beside it and a CUDA card; without either it
@@ -3349,6 +3373,505 @@ def phase_predict(card: str) -> dict:
     return predict_score(card, rng)
 
 
+# -- phase grpc: Llama-3-8B tokens over the port's gRPC transport -------------
+
+GRPC_ROWS = dict(MAIN_ROWS, HTTP_PORT="0", METRICS_PORT="0", GRPC_PORT="0",
+                 LOG_LEVEL="WARN", APP_NAME="chip-smoke-grpc",
+                 TPU_MAX_QUEUE_DEPTH="16", TPU_SLO_LATENCY_SLOTS="4",
+                 TPU_SLO_THROUGHPUT_SHARE="0.25")
+GRPC_SEED = 47
+GRPC_CHANNELS = 4         # client connections of step 2
+GRPC_PER_CHANNEL = 4      # Generate streams multiplexed on each
+GRPC_LENS = (17, 500)     # step 2's prompts: each one a bucket admission
+GRPC_NEW = 48
+GRPC_SAMPLED = (5, 11)    # step 2's sampled requests (temperature 0.8, top-k 50)
+GRPC_CHAT = (64, 16)      # Chat turn 1: prompt and new tokens
+GRPC_CHAT_LONG = 1000     # Chat turn 2's new tokens, cancelled after one
+GRPC_FREED_S = 2.0        # the cancelled turn's slot must be free by then
+GRPC_BUSY_NEW = 200       # the 8 streams that keep every slot busy
+GRPC_BUDGET_LEN = 1000    # the 50 ms budget's prompt: a lattice admission
+GRPC_WAVE = 32            # throughput Generate RPCs at once
+GRPC_WAVE_LATENCY = 4     # latency ones, 100 ms later
+GRPC_WAVE_NEW = 40
+GRPC_DRAIN_NEW = 160
+GRPC_METHOD = "/llm.Generation/Generate"
+
+
+def token_streaming_service(app) -> None:
+    """``llm.Generation`` (Generate, Chat) and ``POST /generate`` as
+    examples/tpu-token-streaming/main.py defines them, on the port."""
+    from gofr_tpu_torch.grpcx import GRPCService, ServerStream
+
+    llm = GRPCService("llm.Generation")
+
+    def token_msg(item):
+        if isinstance(item, tuple):
+            return {"token": item[0], "logprob": item[1]}
+        return {"token": item}
+
+    @llm.server_stream("Generate")
+    def generate_grpc(ctx, req):
+        stream = ctx.tpu.generate(req["tokens"],
+                                  max_new_tokens=req.get("max_new_tokens", 64),
+                                  temperature=req.get("temperature", 0.0),
+                                  top_k=req.get("top_k", 0),
+                                  eos_id=req.get("eos_id"),
+                                  logprobs=req.get("logprobs", False))
+        return ServerStream(stream, token_msg)
+
+    @llm.bidi_stream("Chat")
+    def chat_grpc(ctx, requests):
+        for req in requests:
+            stream = ctx.tpu.generate(
+                req["tokens"], max_new_tokens=req.get("max_new_tokens", 64),
+                temperature=req.get("temperature", 0.0),
+                top_k=req.get("top_k", 0), eos_id=req.get("eos_id"))
+            try:
+                for tok in stream:
+                    yield {"token": tok}
+            finally:
+                stream.cancel()
+            yield {"turn_done": True}
+
+    app.register_grpc_service(llm)
+
+    @app.post("/generate")
+    def generate_http(ctx):
+        body = ctx.bind()
+        stream = ctx.tpu.generate(body["tokens"],
+                                  max_new_tokens=body.get("max_new_tokens", 64),
+                                  temperature=body.get("temperature", 0.0),
+                                  top_k=body.get("top_k", 0))
+        ctx.stream(stream.map(
+            lambda t: (json.dumps({"token": t}) + "\n").encode()))
+        return None
+
+
+def grpc_channel(port: int):
+    """A client connection whose finished calls' trailers are kept, in
+    order, on ``ch.trailers`` (the client raises a call's status, not
+    its trailers)."""
+    from gofr_tpu_torch.grpcx import dial
+
+    ch = dial(f"127.0.0.1:{port}")
+    ch.trailers = []
+    finish = ch._finish_call
+
+    def keep(call):
+        ch.trailers.append(dict(call.trailers))
+        finish(call)
+
+    ch._finish_call = keep
+    return ch
+
+
+def grpc_generate(port_or_channel, body: dict, metadata=None) -> dict:
+    """One Generate: the tokens, the status, and the client's clock at
+    the send, the first message and the end; on a connection of its own
+    (given a port) also the trailers."""
+    from gofr_tpu_torch.grpcx import GRPCError
+
+    own = isinstance(port_or_channel, int)
+    ch = grpc_channel(port_or_channel) if own else port_or_channel
+    out = {"tokens": [], "code": 0, "message": "", "t_send": time.monotonic()}
+    try:
+        for m in ch.server_stream(GRPC_METHOD, body, metadata=metadata,
+                                  timeout=APP_CALL_TIMEOUT_S):
+            if not out["tokens"]:
+                out["t_first"] = time.monotonic()
+            out["tokens"].append(m["token"])
+        out["t_end"] = time.monotonic()
+    except GRPCError as e:
+        out["code"], out["message"] = e.code, e.message
+    finally:
+        if own:
+            end = time.monotonic() + 5
+            while not ch.trailers and time.monotonic() < end:
+                time.sleep(0.001)
+            out["trailers"] = ch.trailers[-1] if ch.trailers else {}
+            ch.close()
+    return out
+
+
+def grpc_server_threads() -> list[str]:
+    import threading
+
+    return sorted(t.name for t in threading.enumerate() if t.is_alive()
+                  and t.name.startswith(("gofr-grpc", "grpc-stream")))
+
+
+def phase_grpc(card: str) -> dict:
+    """The system's headline route on the card: Llama-3-8B tokens
+    streamed over the port's own HTTP/2 gRPC server, as
+    examples/tpu-token-streaming/main.py serves them, from a
+    ``gofr_tpu_torch.App`` whose Container builds the contiguous engine
+    of phase 5's rows (K1 a bucket admission, K2 a decode step). Health;
+    16 Generate RPCs on 4 connections, each equal to the same request
+    sent to the engine directly; the HTTP route through GenStream.map;
+    a Chat turn, a cancelled one and a fresh call; a grpc-timeout that
+    runs out in the queue; a throughput wave shed as RESOURCE_EXHAUSTED
+    with retry-after; a drain with live streams. Returns the launch
+    counts of the phase."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.grpcx import (DEADLINE_EXCEEDED, OK,
+                                      RESOURCE_EXHAUSTED, UNAVAILABLE)
+    from gofr_tpu_torch.grpcx import server as grpc_server
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.resilience import SLO_LATENCY, SLO_THROUGHPUT
+    from gofr_tpu_torch.tracing import InMemoryExporter
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    app = App(MapConfig(GRPC_ROWS))
+    tpu = app.container.tpu
+    gen = tpu.generator
+    torch.cuda.synchronize()
+    spans = InMemoryExporter()   # the first-send spans (grpc.handoff, ...)
+    app.container.tracer.exporter = spans
+    token_streaming_service(app)
+    # each RPC's push sender, to count the streams served on the
+    # producing thread against those the worker finished
+    senders = []
+
+    class CountedSender(grpc_server._PushSender):
+        def __init__(self, *args):
+            super().__init__(*args)
+            senders.append(self)
+
+    grpc_server._PushSender = CountedSender
+    app.run(block=False)
+    port = app.grpc_port
+    print(f"[grpc] App with the llama3-8b contiguous engine on {gen.device} "
+          f"ready in {time.monotonic() - t0:.1f} s, gRPC port {port}, HTTP "
+          f"port {app.http_port}", flush=True)
+    streams, calls, lock = {}, [], threading.Lock()
+    generate = tpu.generate
+
+    def tracked(prompt, *args, **kw):
+        try:
+            s = generate(prompt, *args, **kw)
+        except Exception:
+            with lock:
+                calls.append(None)
+            raise
+        with lock:
+            streams.setdefault(tuple(prompt), s)
+            calls.append(s)
+        return s
+
+    tpu.generate = tracked
+    rng = np.random.default_rng(GRPC_SEED)
+    vocab = gen.cfg.vocab_size
+
+    def prompts(n, lens):
+        return [rng.integers(0, vocab, k).tolist()
+                for k in rng.integers(lens[0], lens[1] + 1, n)]
+
+    def trace_of(i):
+        return f"{i + 1:032x}"
+
+    try:
+        require(gen.device.type == "cuda", f"the engine runs on {gen.device}")
+        ch = grpc_channel(port)
+        health = ch.unary("/grpc.health.v1.Health/Check", {}, timeout=10.0)
+        warm = grpc_generate(ch, {"tokens": prompts(1, (32, 32))[0],
+                                  "max_new_tokens": 4})
+        ch.close()
+        require(health == {"status": "SERVING"} and warm["code"] == OK
+                and len(warm["tokens"]) == 4,
+                f"health {health}, warm-up {warm['code']}")
+        # step 2: 16 Generate RPCs at once, 4 on each of 4 connections
+        n = GRPC_CHANNELS * GRPC_PER_CHANNEL
+        step2 = prompts(n, GRPC_LENS)
+        bodies = [{"tokens": p, "max_new_tokens": GRPC_NEW,
+                   **({"temperature": 0.8, "top_k": 50}
+                      if i in GRPC_SAMPLED else {})}
+                  for i, p in enumerate(step2)]
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        adm0, steps0, n0 = gen.admissions, gen.decode_steps, len(calls)
+        chans = [grpc_channel(port) for _ in range(GRPC_CHANNELS)]
+        del senders[:]
+        spans.spans.clear()
+        t_burst = time.monotonic()
+        got = _threads([lambda i=i: grpc_generate(
+            chans[i % GRPC_CHANNELS], bodies[i],
+            {"traceparent": f"00-{trace_of(i)}-00f067aa0ba902b7-01"})
+            for i in range(n)])
+        wall = time.monotonic() - t_burst
+        end = time.monotonic() + 5
+        while (sum(len(c.trailers) for c in chans) < n
+               and time.monotonic() < end):
+            time.sleep(0.001)
+        step2_trailers = [t for c in chans for t in c.trailers]
+        for c in chans:
+            c.close()
+        downgraded = [s.downgraded for s in senders]
+        first_spans = list(spans.spans)
+        s2 = [streams[tuple(p)] for p in step2]
+        direct, _, _ = _serve(tpu, step2,
+                              {i: s2[i].seed for i in GRPC_SAMPLED},
+                              GRPC_NEW)
+        # step 3: the HTTP route of the same App, through GenStream.map
+        http = http_call(app.http_port, "POST", "/generate",
+                         {"tokens": step2[0], "max_new_tokens": GRPC_NEW})
+        # step 4: Chat -- a turn, a cancelled turn, a fresh call
+        chat_p = prompts(3, (GRPC_CHAT[0], GRPC_CHAT[0]))
+        ch = grpc_channel(port)
+        call = ch.bidi_stream("/llm.Generation/Chat",
+                              timeout=APP_CALL_TIMEOUT_S)
+        it = iter(call)
+        call.send({"tokens": chat_p[0], "max_new_tokens": GRPC_CHAT[1]})
+        turn1 = [next(it) for _ in range(GRPC_CHAT[1] + 1)]
+        call.send({"tokens": chat_p[1], "max_new_tokens": GRPC_CHAT_LONG})
+        turn2 = next(it)
+        t_cancel = time.monotonic()
+        call.cancel()
+        while (gen.stats()["active"] and time.monotonic()
+               < t_cancel + GRPC_FREED_S + 5):
+            time.sleep(0.001)
+        freed_s = time.monotonic() - t_cancel
+        call3 = ch.bidi_stream("/llm.Generation/Chat",
+                               timeout=APP_CALL_TIMEOUT_S)
+        call3.send({"tokens": chat_p[2], "max_new_tokens": GRPC_CHAT[1]})
+        call3.close_send()
+        turn3 = list(call3)
+        ch.close()
+        # step 5: a 50 ms grpc-timeout behind 8 busy slots
+        busy = [tpu.generate(p, max_new_tokens=GRPC_BUSY_NEW)
+                for p in prompts(8, SLO_INTERACTIVE_LENS)]
+        end = time.monotonic() + 60
+        while gen.stats()["active"] < 8 and time.monotonic() < end:
+            time.sleep(0.001)
+        expired0 = dict(gen.stats()["expired"])
+        budget = grpc_generate(
+            port, {"tokens": rng.integers(0, vocab, GRPC_BUDGET_LEN).tolist(),
+                   "max_new_tokens": GRPC_NEW},
+            {"grpc-timeout": "50m"})
+        busy_outs = [s.tokens() for s in busy]
+        expired = {w: k - expired0[w]
+                   for w, k in gen.stats()["expired"].items()}
+        # step 6: a throughput wave, then latency RPCs 100 ms later
+        sheds0 = dict(gen.gate.sheds_by_class)
+        shed_total0 = _total(_scraped(app, "app_tpu_shed_total{"))
+        wave = prompts(GRPC_WAVE + GRPC_WAVE_LATENCY, SLO_INTERACTIVE_LENS)
+        box = {}
+
+        def wave_rpc(i):
+            meta = {"slo-class": "throughput"} if i < GRPC_WAVE else None
+            box[i] = grpc_generate(port, {"tokens": wave[i],
+                                          "max_new_tokens": GRPC_WAVE_NEW},
+                                   meta)
+
+        t_wave = time.monotonic()
+        wave_threads = [threading.Thread(target=wave_rpc, args=(i,),
+                                         daemon=True)
+                        for i in range(GRPC_WAVE)]
+        for t in wave_threads:
+            t.start()
+        time.sleep(max(0.0, t_wave + 0.1 - time.monotonic()))
+        late = [threading.Thread(target=wave_rpc, args=(i,), daemon=True)
+                for i in range(GRPC_WAVE, GRPC_WAVE + GRPC_WAVE_LATENCY)]
+        for t in late:
+            t.start()
+        for t in wave_threads + late:
+            t.join(APP_JOIN_S)
+        require(len(box) == GRPC_WAVE + GRPC_WAVE_LATENCY,
+                f"wave RPCs still waiting after {APP_JOIN_S} s")
+        sheds = {c: k - sheds0[c] for c, k in gen.gate.sheds_by_class.items()}
+        shed_total = _total(_scraped(app, "app_tpu_shed_total{")) \
+            - shed_total0
+        # step 7: stop(grace_s=30) with 8 live Generate streams
+        drain_p = prompts(SLO_DRAIN, SLO_INTERACTIVE_LENS)
+        drained = {}
+
+        def drain_rpc(i):
+            drained[i] = grpc_generate(port, {"tokens": drain_p[i],
+                                              "max_new_tokens":
+                                              GRPC_DRAIN_NEW})
+
+        live = [threading.Thread(target=drain_rpc, args=(i,), daemon=True)
+                for i in range(SLO_DRAIN)]
+        for t in live:
+            t.start()
+        end = time.monotonic() + 60
+        while gen.stats()["active"] < SLO_DRAIN and time.monotonic() < end:
+            time.sleep(0.002)
+        active = gen.stats()["active"]
+        probe = grpc_channel(port)
+        t_drain = time.monotonic()
+        stopper = threading.Thread(target=lambda: app.stop(grace_s=30.0),
+                                   daemon=True)
+        stopper.start()
+        while not gen.stats()["draining"] and time.monotonic() < end:
+            time.sleep(0.001)
+        health_draining = probe.unary("/grpc.health.v1.Health/Check", {},
+                                      timeout=10.0)
+        probe.close()
+        refused = grpc_generate(port, {"tokens": drain_p[0],
+                                       "max_new_tokens": 4})
+        for t in live:
+            t.join(APP_JOIN_S)
+        stopper.join(60)
+        drain_s = time.monotonic() - t_drain
+        require(not stopper.is_alive(), "app.stop(grace_s=30) did not end")
+        end = time.monotonic() + 5
+        while grpc_server_threads() and time.monotonic() < end:
+            time.sleep(0.01)
+        left = grpc_server_threads()
+        counts = {"flash_prefill": flash.launches,
+                  "flash_decode": flash_decode.launches,
+                  "paged_decode": paged_attention.launches,
+                  "paged_window": paged_attention.window_launches,
+                  "prefill_plain": flash.plain_calls,
+                  "decode_plain": flash_decode.plain_calls,
+                  "paged_plain": paged_attention.plain_calls}
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+        bucket_admissions = sum(1 for s in calls[n0:] if s is not None
+                                and "admit" in s.trace
+                                and s.prompt_len <= gen.prompt_buckets[-1])
+    finally:
+        grpc_server._PushSender = CountedSender.__mro__[1]
+        if app._running.is_set():
+            app.stop()
+    release_graphs(gen)
+
+    # step 2's numbers, on one clock (time.monotonic) on both sides
+    client_ttft = [1e3 * (r["t_first"] - r["t_send"]) for r in got
+                   if r["tokens"]]
+    engine_ttft = [1e3 * (s.trace["first_put"] - s.trace["submit"])
+                   for s in s2]
+    ingress = [1e3 * (s.trace["submit"] - r["t_send"])
+               for s, r in zip(s2, got)]
+    by_trace: dict = {}
+    for sp in first_spans:
+        by_trace.setdefault(sp.trace_id, {})[sp.name] = sp
+    handoff = [1e-6 * (d["grpc.handoff"].end_ns - d["grpc.handoff"].start_ns)
+               for d in by_trace.values() if "grpc.handoff" in d]
+    to_wire = [1e-6 * (d["grpc.frame-write"].end_ns
+                       - d["grpc.handoff"].start_ns)
+               for d in by_trace.values()
+               if "grpc.handoff" in d and "grpc.frame-write" in d]
+    tokens = sum(len(r["tokens"]) for r in got)
+    zero_handoff = downgraded.count(False)
+    mism = [i for i in range(n) if got[i]["tokens"] != direct[i]]
+    print(f"[grpc] {n} Generate RPCs on {GRPC_CHANNELS} connections "
+          f"({len(GRPC_SAMPLED)} sampled), prompts of {GRPC_LENS[0]}-"
+          f"{GRPC_LENS[1]} tokens, {GRPC_NEW} new each, in {wall:.3f} s: "
+          f"{tokens} tokens, {tokens / wall:.1f} tok/s at the clients; TTFT "
+          f"at the client {stats_line(client_ttft)}, at the engine "
+          f"{stats_line(engine_ttft)}; client send to engine submit "
+          f"{stats_line(ingress)}; first_put to the transport (grpc.handoff) "
+          f"{stats_line(handoff)}, first_put to the first message on the "
+          f"wire {stats_line(to_wire)}; push senders {len(downgraded)}: "
+          f"{zero_handoff} served on the producing thread, "
+          f"{len(downgraded) - zero_handoff} downgraded to the worker; equal to "
+          f"the engine called directly: {n - len(mism)} of {n}; card: {card}",
+          flush=True)
+    http_toks = [ln.get("token") for ln in http.get("lines", [])]
+    print(f"[grpc] POST /generate through GenStream.map: {http['status']}, "
+          f"{len(http_toks)} lines, equal to the gRPC stream: "
+          f"{http_toks == got[0]['tokens']}; Chat: turn 1 {len(turn1) - 1} "
+          f"tokens then {turn1[-1]}, turn 2 cancelled after {turn2}, slot "
+          f"free {1e3 * freed_s:.1f} ms after the cancel, a fresh call "
+          f"{len(turn3) - 1} tokens then {turn3[-1]}", flush=True)
+    shed_codes = {c: sum(1 for i, r in box.items()
+                         if r["code"] == RESOURCE_EXHAUSTED
+                         and (i < GRPC_WAVE) == (c == SLO_THROUGHPUT))
+                  for c in (SLO_LATENCY, SLO_THROUGHPUT)}
+    shed_trailers = [r["trailers"] for r in box.values()
+                     if r["code"] == RESOURCE_EXHAUSTED]
+    wave_served = [r for r in box.values() if r["code"] == OK]
+    print(f"[grpc] grpc-timeout 50m behind 8 busy slots: status "
+          f"{budget['code']} {budget['message']!r}, trailers "
+          f"{budget['trailers']}, expiries by where {expired}; wave of "
+          f"{GRPC_WAVE} throughput and {GRPC_WAVE_LATENCY} latency RPCs: "
+          f"RESOURCE_EXHAUSTED by class {shed_codes}, the gate's sheds "
+          f"{sheds}, app_tpu_shed_total {shed_total}, retry-after "
+          f"{sorted({t.get('retry-after') for t in shed_trailers})}, "
+          f"{len(wave_served)} served", flush=True)
+    drain_outs = [(drained[i]["code"], len(drained[i]["tokens"]))
+                  for i in range(SLO_DRAIN)]
+    print(f"[grpc] stop(grace_s=30) with {active} live streams of "
+          f"{GRPC_DRAIN_NEW} tokens: {drain_s:.3f} s; health while draining "
+          f"{health_draining}; a new Generate {refused['code']} "
+          f"retry-after {refused['trailers'].get('retry-after')}; streams "
+          f"{drain_outs}; server threads after the stop {left}", flush=True)
+    print(f"[grpc] {admissions} admissions ({bucket_admissions} bucket), "
+          f"{steps} decode steps; launches {counts}; card: {card}",
+          flush=True)
+    require(all(r["code"] == OK and len(r["tokens"]) == GRPC_NEW
+                for r in got)
+            and len(step2_trailers) == n
+            and all(t.get("grpc-status") == "0" for t in step2_trailers),
+            f"step 2: {[(r['code'], len(r['tokens'])) for r in got]}, "
+            f"trailers {step2_trailers}")
+    require(not mism, f"gRPC streams differ from the engine called "
+                      f"directly at {mism}: " + str(
+                          [_first_difference(got[i]["tokens"], direct[i])
+                           for i in mism]))
+    require(all(s.trace_id == trace_of(i) for i, s in enumerate(s2)),
+            "a traceparent did not reach its stream")
+    require(len(downgraded) == n and len(handoff) == n and len(to_wire) == n,
+            f"{len(downgraded)} push senders, {len(handoff)} handoff spans, "
+            f"{len(to_wire)} first writes for {n} streams")
+    require(http["status"] == 200 and http_toks == got[0]["tokens"],
+            f"POST /generate: {http['status']}, {http_toks}")
+    require(len(turn1) == GRPC_CHAT[1] + 1 and turn1[-1] == {"turn_done": True}
+            and all("token" in m for m in turn1[:-1]) and "token" in turn2
+            and freed_s <= GRPC_FREED_S
+            and len(turn3) == GRPC_CHAT[1] + 1
+            and turn3[-1] == {"turn_done": True},
+            f"Chat: {turn1}, {turn2}, freed in {freed_s:.3f} s, {turn3}")
+    require(budget["code"] == DEADLINE_EXCEEDED
+            and budget["trailers"].get("grpc-status") == "4"
+            and sum(expired.values()) == 1
+            and all(len(o) == GRPC_BUSY_NEW for o in busy_outs),
+            f"the 50 ms grpc-timeout: {budget['code']} {budget['message']}, "
+            f"expiries {expired}")
+    require(shed_codes[SLO_THROUGHPUT] >= 1 and shed_codes[SLO_LATENCY] == 0
+            and shed_codes == sheds
+            and shed_total == sum(sheds.values())
+            and all(int(t.get("retry-after", 0)) >= 1
+                    and t.get("grpc-status") == "8" for t in shed_trailers)
+            and all(r["code"] in (OK, RESOURCE_EXHAUSTED)
+                    for r in box.values())
+            and all(len(r["tokens"]) == GRPC_WAVE_NEW for r in wave_served),
+            f"the wave: RESOURCE_EXHAUSTED {shed_codes}, sheds {sheds}, "
+            f"app_tpu_shed_total {shed_total}, trailers {shed_trailers}")
+    require(active == SLO_DRAIN
+            and health_draining == {"status": "NOT_SERVING"}
+            and refused["code"] == UNAVAILABLE
+            and refused["trailers"].get("retry-after") == "30"
+            and drain_outs == [(OK, GRPC_DRAIN_NEW)] * SLO_DRAIN
+            and not left,
+            f"drain: {active} live, health {health_draining}, new RPC "
+            f"{refused['code']} {refused['trailers']}, streams {drain_outs}, "
+            f"threads {left}")
+    require(counts["flash_prefill"] == LAYERS * bucket_admissions
+            and bucket_admissions == admissions and admissions > 0,
+            f"flash_prefill launched {counts['flash_prefill']} times for "
+            f"{bucket_admissions} bucket admissions of {admissions}")
+    require(counts["flash_decode"] == LAYERS * steps and steps > 0,
+            f"flash_decode launched {counts['flash_decode']} times for "
+            f"{steps} decode steps of {LAYERS} layers")
+    others = {k: counts[k] for k in ("paged_decode", "paged_window",
+                                     "prefill_plain", "decode_plain",
+                                     "paged_plain")}
+    require(not any(others.values()),
+            f"other attention paths ran on the gRPC path: {others}")
+    return counts
+
+
 # -- running the phases -------------------------------------------------------
 
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3356,7 +3879,7 @@ RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
-                "durable", "slo", "app", "predict")) -> dict:
+                "durable", "slo", "app", "predict", "grpc")) -> dict:
     import torch
 
     card = card_line()
@@ -3412,6 +3935,12 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             # K1's count: phase 5's main path plus the score run
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
+        elif phase == "grpc":
+            counts = phase_grpc(card)
+            # K1's and K2's counts: the earlier phases' plus the gRPC run
+            for name in ("flash_prefill", "flash_decode"):
+                rec = records[name]
+                rec["launches"] = rec.get("launches", 0) + counts[name]
         else:
             raise SmokeFailure(f"unknown phase {phase!r}")
         torch.cuda.empty_cache()

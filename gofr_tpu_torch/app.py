@@ -1,23 +1,26 @@
-"""The App: one object running the HTTP server and the metrics server
-over a container that holds the engine (the port's own copy of the
-HTTP half of gofr_tpu/app.py; a service moves to the port by changing
-one import, ``from gofr_tpu_torch import App``).
+"""The App: one object running the HTTP server, the gRPC server and the
+metrics server over a container that holds the engine (the port's own
+copy of the HTTP and gRPC halves of gofr_tpu/app.py; a service moves to
+the port by changing its imports, ``from gofr_tpu_torch import App`` and
+``from gofr_tpu_torch.grpcx import GRPCService, ServerStream``).
 
     app = App(device="cuda")          # TPU_* rows build ctx.tpu on the card
     install_generate(app)             # POST /generate (Llama; serving.py)
     install_embeddings(app)           # POST /v1/embeddings (BERT)
+    app.register_grpc_service(llm)    # served on GRPC_PORT (default 9000)
     app.run()
 
-Reference: pkg/gofr/gofr.go -- route registration (gofr.go:190-207) and
-Run (gofr.go:108-164): the metrics server, the default routes (health,
-alive, favicon) and the HTTP server. ``run(block=False)`` and ``stop()``
-make an App testable in-process; ``stop(grace_s)`` drains it.
+Reference: pkg/gofr/gofr.go -- route registration (gofr.go:190-207),
+RegisterService (gofr.go:49-53) and Run (gofr.go:108-164): the metrics
+server, the default routes (health, alive, favicon), the HTTP server and
+the gRPC server. ``run(block=False)`` and ``stop()`` make an App
+testable in-process; ``stop(grace_s)`` drains it.
 
 ``device`` reaches the container's engine and nothing else: an App with
-no ``TPU_MODEL``/``TPU_ENABLED`` row touches no device. gRPC, pub/sub,
-the CLI, migrations, outbound HTTP services, the gateway, the auth and
-tenant middlewares and the ``/debug`` pages other than ``/debug/cache``
-are not ported yet.
+no ``TPU_MODEL``/``TPU_ENABLED`` row touches no device. Pub/sub, the
+CLI, migrations, outbound HTTP services, the gateway, the auth and
+tenant middlewares (``X-Tenant-Id``, gRPC's ``x-tenant-id``) and the
+``/debug`` pages other than ``/debug/cache`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ __version__ = "0.1.0-dev"
 # Default ports (reference pkg/gofr/default.go:3-7)
 DEFAULT_HTTP_PORT = 8000
 DEFAULT_METRICS_PORT = 2121
+DEFAULT_GRPC_PORT = 9000
 
 HandlerFunc = Callable[[Context], Any]
 
@@ -64,8 +68,11 @@ class App:
         self.http_port = self.config.get_int("HTTP_PORT", DEFAULT_HTTP_PORT)
         self.metrics_port = self.config.get_int("METRICS_PORT",
                                                 DEFAULT_METRICS_PORT)
+        self.grpc_port = self.config.get_int("GRPC_PORT", DEFAULT_GRPC_PORT)
         self._http_server: HTTPServer | None = None
         self._metrics_server: HTTPServer | None = None
+        self._grpc_server = None
+        self._grpc_services: list = []
         self._running = threading.Event()
         # graceful-drain readiness: flipped FIRST in stop(grace_s>0) so
         # load balancers stop routing before the engine stops serving
@@ -138,6 +145,11 @@ class App:
     def delete(self, path: str, fn: HandlerFunc | None = None):
         return self._route("DELETE", path, fn)
 
+    def register_grpc_service(self, service) -> None:
+        """Serve a ``grpcx.GRPCService`` on ``GRPC_PORT`` once the App
+        runs (reference App.RegisterService, gofr.go:49-53)."""
+        self._grpc_services.append(service)
+
     # -- default routes (reference gofr.go:125-141, handler.go:38-57) --------
     def _install_default_routes(self) -> None:
         def health(req: Request, w: ResponseWriter) -> None:
@@ -198,6 +210,13 @@ class App:
                                            self.logger)
             self._http_server.start()
             self.http_port = self._http_server.port
+        if self._grpc_services:
+            from .grpcx.server import GRPCServer
+
+            self._grpc_server = GRPCServer(
+                self._grpc_services, self.grpc_port, self.container)
+            self._grpc_server.start()
+            self.grpc_port = self._grpc_server.port
         self._running.set()
         if block:
             try:
@@ -208,16 +227,20 @@ class App:
     def stop(self, grace_s: float = 0.0) -> None:
         """Stop the app. ``grace_s > 0`` drains first, and the FIRST act
         of the grace window is flipping readiness: ``/.well-known/health``
-        answers 503 + Retry-After and every new request gets the same,
-        so load balancers stop routing BEFORE the engine stops serving.
-        The generation engine then finishes every accepted stream, and
-        the in-flight HTTP requests finish on their handler threads,
+        answers 503 + Retry-After and gRPC health NOT_SERVING, and every
+        new request gets 503 or UNAVAILABLE with a retry-after, so load
+        balancers stop routing BEFORE the engine stops serving. The
+        generation engine then finishes every accepted stream, and the
+        in-flight HTTP requests and RPCs finish on their handler threads,
         with the listeners still up (clients receive complete streams
         over their live connections), all within ``grace_s``; then
         everything tears down."""
+        grpc = self._grpc_server
         if grace_s > 0:
             self._drain_retry_after = grace_s
             self._draining = True
+            if grpc is not None:
+                grpc.start_draining(retry_after=grace_s)
             self.logger.info({"event": "drain started: readiness down",
                               "grace_s": grace_s})
             t_end = time.monotonic() + grace_s
@@ -226,14 +249,24 @@ class App:
                 drained = gen.drain(grace_s)
                 self.logger.info({"event": "generation engine drained",
                                   "clean": drained})
+            # an RPC whose stream the engine has ended still writes its
+            # trailers on its handler thread: wait for those as for the
+            # HTTP handlers, or the GOAWAY below could overtake them
             reg = self.container.requests
-            while time.monotonic() < t_end and len(reg):
+
+            def inflight() -> int:
+                return len(reg) + (grpc.inflight() if grpc is not None
+                                   else 0)
+
+            while time.monotonic() < t_end and inflight():
                 time.sleep(0.02)
             self.logger.info({"event": "http in-flight drained",
-                              "remaining": len(reg)})
+                              "remaining": inflight()})
         for srv in (self._http_server, self._metrics_server):
             if srv is not None:
                 srv.stop()
+        if grpc is not None:
+            grpc.stop()
         self.container.close()
         self._running.clear()
 

@@ -1,6 +1,7 @@
-"""Fault injection at the generator's, the batcher's and the HTTP
-server's seams: the port's own copy of the part of gofr_tpu/chaos.py
-that the serving loop, the predict path and the App's transport use.
+"""Fault injection at the generator's, the batcher's and the HTTP and
+gRPC servers' seams: the port's own copy of the part of
+gofr_tpu/chaos.py that the serving loop, the predict path and the App's
+transports use.
 
 A ``ChaosSchedule`` holds per-seam rules (latency, injected errors, or
 both); the engine and the server call ``chaos.fire(SEAM)`` at a fixed
@@ -28,6 +29,9 @@ Seams (grep for ``chaos.fire``):
                       an injected error kills that one stream after
                       exactly N tokens (``every=N, limit=1``) with a
                       typed error; the engine keeps serving
+  GRPC_STREAM         grpcx/server._handle_stream, before dispatch:
+                      transport-level latency or errors per RPC (a
+                      raised error ends the RPC UNAVAILABLE)
   HTTP_REQUEST        http/server._Handler._handle, as each request
                       arrives, before routing
   ==================  =====================================================
@@ -42,7 +46,8 @@ import time
 
 __all__ = [
     "BATCHER_DISPATCH", "GENERATOR_CHUNK", "GENERATOR_MIDKILL",
-    "GENERATOR_PREFILL", "GENERATOR_STEP", "HTTP_REQUEST", "SEAMS",
+    "GENERATOR_PREFILL", "GENERATOR_STEP", "GRPC_STREAM", "HTTP_REQUEST",
+    "SEAMS",
     "ChaosSchedule", "DeviceLost", "Rule", "active", "fire", "install",
     "scope", "uninstall",
 ]
@@ -52,10 +57,11 @@ GENERATOR_CHUNK = "generator.chunk"
 GENERATOR_MIDKILL = "generator.midkill"
 GENERATOR_PREFILL = "generator.prefill"
 GENERATOR_STEP = "generator.step"
+GRPC_STREAM = "grpc.stream"
 HTTP_REQUEST = "http.request"
 
 SEAMS = (BATCHER_DISPATCH, GENERATOR_CHUNK, GENERATOR_MIDKILL,
-         GENERATOR_PREFILL, GENERATOR_STEP, HTTP_REQUEST)
+         GENERATOR_PREFILL, GENERATOR_STEP, GRPC_STREAM, HTTP_REQUEST)
 
 
 class DeviceLost(RuntimeError):

@@ -127,6 +127,18 @@ class DeadlineExceeded(HTTPError):
         super().__init__(message)
 
 
+class ConnectionLost(HTTPError, EOFError):
+    """A transport peer vanished mid-exchange: socket closed, GOAWAY,
+    half-read frame. 502 on HTTP (the upstream died, not us). An
+    EOFError too, so every ``except (EOFError, OSError)`` arm of the
+    transports (wire, grpcx) catches it."""
+
+    status_code = 502
+
+    def __init__(self, message: str = "connection lost"):
+        super().__init__(message)
+
+
 def status_from_error(err: BaseException | None) -> int:
     """Map an exception to an HTTP status: None is 200, an HTTPError its
     own status, anything else 500."""

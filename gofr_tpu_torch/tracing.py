@@ -1,6 +1,6 @@
 """Self-contained distributed tracing with W3C traceparent propagation
 (the port's own copy of the part of gofr_tpu/tracing.py that the App,
-its middleware and the generation engine use).
+its middleware, the gRPC transport and the generation engine use).
 
 Spans are kept in a contextvar stack, trace context crosses process
 boundaries through the ``traceparent`` header (W3C Trace Context), and
@@ -149,6 +149,46 @@ class Tracer:
             yield s
         finally:
             s.end()
+
+    def record_span(
+        self,
+        name: str,
+        start_monotonic: float,
+        end_monotonic: float,
+        *,
+        traceparent: str | None = None,
+        trace_id: str | None = None,
+        attributes: dict[str, Any] | None = None,
+    ) -> Span:
+        """Export a span for an interval measured elsewhere (the gRPC
+        transport's first-send stages: handoff, HPACK encode, frame
+        write). Unlike start_span this never touches the contextvar
+        stack, since the interval was timed on another thread (the
+        serving loop multiplexes every request), and the span arrives
+        already finished.
+
+        ``trace_id`` correlates spans without claiming a parent: when no
+        valid ``traceparent`` exists, the span joins that trace as a
+        root instead of pointing at a phantom parent span id."""
+        ctx = parse_traceparent(traceparent)
+        if ctx is not None:
+            trace_id, parent_id = ctx
+        else:
+            trace_id, parent_id = trace_id or _new_trace_id(), None
+        now_mono, now_epoch = time.monotonic(), time.time()
+        span = Span(
+            name=name,
+            trace_id=trace_id,
+            span_id=_new_span_id(),
+            parent_id=parent_id,
+            start_ns=int(start_monotonic * 1e9),
+            start_epoch_us=int((now_epoch - (now_mono - start_monotonic)) * 1e6),
+            attributes=dict(attributes or {}),
+        )
+        span.end_ns = int(end_monotonic * 1e9)
+        if self.exporter is not None:
+            self.exporter.export(span, self.service_name)
+        return span
 
 
 class SpanExporter:

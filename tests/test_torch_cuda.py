@@ -20,8 +20,9 @@ K1 replays its eager bits inside a graph, each admission (a bucket
 prefill, the chunk lattice, the paged write-back) replays what its
 functions compute eagerly, and long prompts stream the same tokens with
 interleave on and off and on a contiguous engine. The score program's
-function runs K1 at a ragged batch and equals the plain attention, and
-the encoders' engines predict on the card. They
+function runs K1 at a ragged batch and equals the plain attention, the
+encoders' engines predict on the card, and an App on the card streams a
+Generate over its gRPC server and frees the slot of a cancelled Chat. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1113,3 +1114,71 @@ def test_a_recovery_between_replays_keeps_the_graphs(gen, paged):
         assert len(eng.generate([5, 9, 17], max_new_tokens=6).tokens()) == 6
     finally:
         eng.close()
+
+
+# -- the gRPC transport over an App on the card (grpcx) --------------------------
+
+def test_an_app_on_the_card_streams_generate_and_frees_a_cancelled_chat(
+        gen, monkeypatch):
+    """A ``gofr_tpu_torch.App`` on "cuda" (one slot, a small bf16 Llama
+    from its rows) serves the token-streaming example's service over its
+    own gRPC server: a Generate streams the tokens a direct ``generate``
+    returns, and a Chat turn cancelled after its first token gives the
+    only slot back, so a fresh Generate is served."""
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.grpcx import GRPCService, ServerStream, dial
+
+    monkeypatch.setitem(LLAMA_CONFIGS, "llama-small", SMALL)
+    app = App(MapConfig({"GRPC_PORT": "0", "METRICS_PORT": "0",
+                         "LOG_LEVEL": "WARN", "TPU_MODEL": "llama-small",
+                         "TPU_SLOTS": "1", "TPU_MAX_SEQ": "256",
+                         "TPU_SEQ_BUCKETS": "16,32"}))
+    llm = GRPCService("llm.Generation")
+
+    @llm.server_stream("Generate")
+    def generate(ctx, req):
+        return ServerStream(ctx.tpu.generate(
+            req["tokens"], max_new_tokens=req["max_new_tokens"]),
+            lambda t: {"token": t})
+
+    @llm.bidi_stream("Chat")
+    def chat(ctx, requests):
+        for req in requests:
+            stream = ctx.tpu.generate(req["tokens"],
+                                      max_new_tokens=req["max_new_tokens"])
+            try:
+                for tok in stream:
+                    yield {"token": tok}
+            finally:
+                stream.cancel()
+            yield {"turn_done": True}
+
+    app.register_grpc_service(llm)
+    app.run(block=False)
+    engine = app.container.tpu.generator
+    ch = dial(f"127.0.0.1:{app.grpc_port}")
+    try:
+        assert engine.device.type == "cuda"
+        prompt = [int(x) for x in torch.randint(
+            1, SMALL.vocab_size, (19,), generator=gen, device="cuda")]
+        got = [m["token"] for m in ch.server_stream(
+            "/llm.Generation/Generate",
+            {"tokens": prompt, "max_new_tokens": 12}, timeout=120.0)]
+        want = app.container.tpu.generate(prompt, max_new_tokens=12).tokens()
+        assert got == want and len(got) == 12
+        call = ch.bidi_stream("/llm.Generation/Chat", timeout=120.0)
+        call.send({"tokens": prompt[:7], "max_new_tokens": 200})
+        assert "token" in next(iter(call))
+        call.cancel()
+        end = time.monotonic() + 10
+        while engine.stats()["active"] and time.monotonic() < end:
+            time.sleep(0.005)
+        assert engine.stats()["active"] == 0
+        again = [m["token"] for m in ch.server_stream(
+            "/llm.Generation/Generate",
+            {"tokens": prompt, "max_new_tokens": 12}, timeout=120.0)]
+        assert again == want
+    finally:
+        ch.close()
+        app.stop()

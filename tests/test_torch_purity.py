@@ -42,7 +42,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "glog.py", "metrics.py", "tracing.py", "serving.py",
                 "static.py", "http/server.py", "http/middleware.py",
                 "observe/registry.py", "tpu/kvcache/radix.py",
-                "tpu/batcher.py"):
+                "tpu/batcher.py", "grpcx/__init__.py", "grpcx/_hufftable.py",
+                "grpcx/hpack.py", "grpcx/http2.py", "grpcx/service.py",
+                "grpcx/server.py", "grpcx/client.py"):
         assert PORT / own in files
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))
