@@ -186,9 +186,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      NOT_SERVING, a new RPC UNAVAILABLE with retry-after, every stream
      whole, no server thread left; flash_prefill 32 a bucket admission
      and flash_decode 32 a decode step over the whole phase;
+  5i. (phase ``tiers``) prefix reuse through the contiguous engine's
+     tiers on the same route: a ``gofr_tpu_torch.App`` builds phase 5's
+     engine with TPU_PREFIX_CACHE=2 (T0), TPU_KVCACHE_HOST_MB=1024 (T1)
+     and TPU_KVCACHE_REDIS=true (T2, on the port's FakeRedisServer on
+     localhost), TPU_PREFIX_MIN=1072; six system prompts of 1024 tokens
+     with first turns of 48-200 tokens as gRPC Generate RPCs, one after
+     another (6 misses: T0 full, 4 rows spilled to T1, all 6 written
+     through to T2), then the same systems with follow-ups of 16-32
+     tokens (2 T0 hits, 4 T1 hits), then a fresh App (a new replica)
+     takes round 2's requests (6 T2 hits); every restore lands the
+     stored int8 codes and scales, a request's greedy stream is the
+     same from T0, T1 and T2, and an App without tiers streams round
+     1's tokens (its round 2 printed beside the hits); TTFT by tier
+     against misses, the pool-row copy's
+     device time, the host time of spills, promotions, T2 fetches and
+     uploads, the T2 bytes written; then the arbiter on the new replica:
+     a budget of in-use + half a row and a one-row PRI_SCRATCH lease
+     shrink T0 by one row (spilling to T1), a 10 GiB lease sheds with
+     HBMExhausted (429, Retry-After) and a burst of 8 is served, and
+     with the budget back the seeded HBM_ALLOC seam sheds exactly one
+     request of a burst of 8 as RESOURCE_EXHAUSTED; the declared bytes
+     beside the growth of torch.cuda.memory_allocated for each App;
+     flash_prefill 32 a bucket admission and flash_decode 32 a decode
+     step;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
-     5's, the score run's and phase grpc's; flash_decode's phase 5's and
-     phase grpc's), then the card line, then the
+     5's, the score run's and phases grpc's and tiers'; flash_decode's
+     phase 5's and phases grpc's and tiers'), then the card line, then the
      ``{"ok": true, "device": {...}}`` line last.
 
 It needs the repository beside it and a CUDA card; without either it
@@ -3872,6 +3896,532 @@ def phase_grpc(card: str) -> dict:
     return counts
 
 
+# TPU_KVCACHE_REDIS_TIMEOUT_S: the shared tier here is an in-process
+# Python server, which takes about 0.3 s to take in a prompt's 70 MB of
+# frames; at the default 0.25 s the tier's fail-open path would skip
+# most writes
+TIERS_ROWS = dict(MAIN_ROWS, HTTP_PORT="0", METRICS_PORT="0", GRPC_PORT="0",
+                  LOG_LEVEL="WARN", APP_NAME="chip-smoke-tiers",
+                  TPU_PREFIX_CACHE="2", TPU_PREFIX_MIN="1072",
+                  TPU_KVCACHE_HOST_MB="1024", TPU_KVCACHE_REDIS="true",
+                  TPU_KVCACHE_REDIS_TIMEOUT_S="10")
+# the reference: the same model and rows without the tiers
+TIERS_REF_ROWS = {k: v for k, v in TIERS_ROWS.items()
+                  if not k.startswith(("TPU_PREFIX", "TPU_KVCACHE"))}
+TIERS_SEED = 53
+TIERS_SYSTEMS = 6          # system prompts: one request each a round
+TIERS_SYSTEM_LEN = 1024
+TIERS_TURN1 = (48, 200)    # round 1's user turns: stored (past PREFIX_MIN)
+TIERS_TURN2 = (16, 32)     # round 2's follow-up turns: not stored
+TIERS_NEW = 32
+TIERS_BURST = 8
+TIERS_BURST_LENS = (64, 400)   # bucket admissions (K1)
+TIERS_HUGE = 10 << 30          # a lease no reclaim can cover
+TIERS_SEAM_EVERY = 3           # the burst admission the HBM_ALLOC seam kills
+TIERS_COPY_REPS = 20
+TIERS_LIVE_NEW = 1000          # a live stream decoding through round 1
+
+
+def _tiers_instrument(app, timers: dict) -> dict:
+    """Wrap one App's engine to record, per request, its stream and what
+    its restore moved, and to time the tier paths on the host clock:
+    spills (a T0 row to host RAM), promotions (a T1 or T2 snapshot into
+    a pool row, spill of the displaced row included), T2 fetches (MGET,
+    checksum and decode of the frames), T2 writes (encode and the SET
+    pipeline; the row's copy to the host before it is the caller's) and
+    uploads (staging and queueing the host-to-device copies)."""
+    from gofr_tpu_torch.tpu.generator import GenerationEngine
+
+    tpu = app.container.tpu
+    gen = tpu.generator
+    state = {"streams": [], "upload": None, "load": None}
+    generate = tpu.generate
+
+    def tracked(prompt, *args, **kw):
+        s = generate(prompt, *args, **kw)
+        state["streams"].append(s)
+        return s
+
+    tpu.generate = tracked
+    if gen._kvc is None:
+        return state
+
+    def timed(name, fn, when=lambda *a: True):
+        def run(*args):
+            if not when(*args):
+                return fn(*args)
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                timers[name].append(1e3 * (time.perf_counter() - t))
+        return run
+
+    gen._offload_victim = timed("spill", gen._offload_victim,
+                                lambda victim: victim is not None)
+    promote = gen._promote_hostkv
+    gen._promote_hostkv = lambda mt: timed(f"promote_{mt.tier}",
+                                           promote)(mt)
+    upload = timed("upload", gen._upload_row)
+
+    def recorded_upload(kv, row):
+        state["upload"] = (kv, row)
+        return upload(kv, row)
+
+    gen._upload_row = recorded_upload
+    if gen._kvc.redis is not None:
+        gen._kvc.redis.match = timed("t2_fetch", gen._kvc.redis.match)
+        gen._kvc.store_shared = timed("t2_write", gen._kvc.store_shared)
+
+    def recorded_copy(dst, dst_row, src, src_row, n):
+        if dst is gen.cache:
+            state["load"] = (dst_row, src_row, n)
+        return GenerationEngine._pool_copy(gen, dst, dst_row, src, src_row,
+                                           n)
+
+    gen._pool_copy = recorded_copy
+    return state
+
+
+def _tiers_restored_equal(gen, state: dict, prompt_len: int):
+    """Did the restore land exactly the stored bytes? A promotion: the
+    pool row's int8 codes and scales against the host snapshot it was
+    uploaded from; a load: the slot's positions up to its final chunk
+    (which recomputes its own window) against the pool row. None when
+    the request restored nothing. Run with the engine idle."""
+    import torch
+
+    from gofr_tpu_torch.tpu.generator import pad_bucket
+
+    ok = []
+    if state["upload"] is not None:
+        kv, row = state["upload"]
+        ok += [torch.equal(d[:, row, :kv.plen].cpu(), s)
+               for d, s in zip(gen._planes(gen._pool), gen._planes(kv))]
+    if state["load"] is not None:
+        idx, row, n = state["load"]
+        stop = min(n, prompt_len - pad_bucket(prompt_len - n,
+                                              gen.prompt_buckets))
+        ok += [torch.equal(d[:, idx, :stop], s[:, row, :stop])
+               for d, s in zip(gen._planes(gen.cache),
+                               gen._planes(gen._pool))]
+    return all(ok) if ok else None
+
+
+def _tiers_round(app, state: dict, prompts) -> list:
+    """One round: each prompt a gRPC Generate of its own, one after
+    another (a round's tiers depend on its order), greedy; per request
+    the tokens, the status, the serving tier and restored positions, the
+    engine's TTFT and the restored-bytes check."""
+    gen = app.container.tpu.generator
+    out = []
+    for p in prompts:
+        state["upload"] = state["load"] = None
+        r = grpc_generate(app.grpc_port, {"tokens": p,
+                                          "max_new_tokens": TIERS_NEW})
+        s = state["streams"][-1]
+        same = None
+        if state["upload"] is not None or state["load"] is not None:
+            with quiet_device(gen):
+                same = _tiers_restored_equal(gen, state, len(p))
+        out.append({"tokens": r["tokens"], "code": r["code"],
+                    "tier": s.cache_tier, "cached": s.cache_tokens,
+                    "ttft": 1e3 * (s.trace["first_put"] - s.trace["submit"]),
+                    "client_ttft": 1e3 * (r["t_first"] - r["t_send"])
+                    if r["tokens"] else None,
+                    "restored_equal": same})
+    return out
+
+
+def _tiers_app(rows: dict, timers: dict):
+    """A gofr_tpu_torch.App from ``rows`` with the token-streaming
+    service, running; (app, its state, build seconds, the bytes the
+    arbiter was declared over the construction, the growth of
+    torch.cuda.memory_allocated over it)."""
+    import gc
+
+    import torch
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.tpu import hbm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    decl0 = sum(hbm.live_bytes().values())
+    t0 = time.monotonic()
+    app = App(MapConfig(rows))
+    token_streaming_service(app)
+    app.run(block=False)
+    torch.cuda.synchronize()
+    built = time.monotonic() - t0
+    state = _tiers_instrument(app, timers)
+    return (app, state, built, sum(hbm.live_bytes().values()) - decl0,
+            torch.cuda.memory_allocated() - alloc0)
+
+
+def _tiers_close(app) -> None:
+    gen = app.container.tpu.generator
+    if app._running.is_set():
+        app.stop()
+    release_graphs(gen)
+
+
+def _launches() -> dict:
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+
+    return {"flash_prefill": flash.launches,
+            "flash_decode": flash_decode.launches,
+            "paged_decode": paged_attention.launches,
+            "paged_window": paged_attention.window_launches,
+            "prefill_plain": flash.plain_calls,
+            "decode_plain": flash_decode.plain_calls,
+            "paged_plain": paged_attention.plain_calls}
+
+
+def _reset_launches() -> None:
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+
+    for mod in (flash, flash_decode, paged_attention):
+        mod.reset_counts()
+
+
+def _tiers_burst(app, prompts, metadata=None) -> list:
+    return _threads([lambda p=p: grpc_generate(
+        app.grpc_port, {"tokens": p, "max_new_tokens": TIERS_NEW}, metadata)
+        for p in prompts])
+
+
+def phase_tiers(card: str) -> dict:
+    """Prefix reuse through the tiers on the headline route: services
+    that put one of a few system prompts before every request, over
+    gRPC, and a replica that restarts and warms from Redis. A
+    ``gofr_tpu_torch.App`` builds phase 5's contiguous Llama-3-8B engine
+    with TPU_PREFIX_CACHE=2 (T0: two pool rows), TPU_KVCACHE_HOST_MB=1024
+    (T1) and TPU_KVCACHE_REDIS=true (T2, on the port's FakeRedisServer
+    on localhost). TPU_PREFIX_MIN=1072 stores a system prompt with its
+    first, longer turn (48-200 tokens) and not each short follow-up
+    (16-32 tokens), so a follow-up does not evict another system
+    prompt's row. Round 1: six system prompts of 1024 tokens with their
+    first turns, misses that fill T0, spill 4 rows to T1 and write all 6
+    through to T2. Round 2: the same systems with follow-up turns, the
+    two in T0 first: 2 T0 hits, then 4 T1 hits (promotions). Round 3: a
+    fresh App (a new replica, T0 and T1 empty) takes round 2's requests:
+    6 T2 hits. Every hit restores the same bytes, the system prompt's
+    1024 positions as round 1 stored them, and runs one final chunk
+    over the turn, so a request's greedy stream is the same from T0, T1
+    and T2, and the restored int8 codes and scales equal the stored
+    ones. An App without tiers (the reference, built last) serves the
+    same requests: its misses must equal round 1's; against the hits it
+    is printed (a hit reads the positions round 1's final chunk
+    recomputed, the reference its own mid chunk's). Then the arbiter on the fresh
+    replica: a budget of its in-use bytes plus half a T0 row and a
+    one-row lease at PRI_SCRATCH shrink T0 by a row (spilling to T1);
+    a 10 GiB lease sheds with HBMExhausted and a burst of 8 is served;
+    with the budget back, the seeded HBM_ALLOC seam sheds exactly one of
+    a burst of 8 as RESOURCE_EXHAUSTED with retry-after. Returns the
+    phase's launch counts (rounds and bursts; the reference not)."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import chaos
+    from gofr_tpu_torch.grpcx import OK, RESOURCE_EXHAUSTED
+    from gofr_tpu_torch.testutil.redisfake import FakeRedisServer
+    from gofr_tpu_torch.tpu import hbm
+    from gofr_tpu_torch.tpu.generator import GenerationEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    redis = FakeRedisServer()
+    rows = dict(TIERS_ROWS, REDIS_HOST=redis.host, REDIS_PORT=str(redis.port))
+    timers = {k: [] for k in ("spill", "promote_t1", "promote_t2",
+                              "t2_fetch", "t2_write", "upload")}
+    apps = []
+    try:
+        app, state, built, declared, grown = _tiers_app(rows, timers)
+        apps.append(app)
+        gen = app.container.tpu.generator
+        require(gen.device.type == "cuda" and gen._kvc is not None
+                and gen._kvc.redis is not None,
+                f"the tiers engine: {gen.device}, {gen.kvcache_stats()}")
+        builds = [("tiers", built, declared, grown)]
+        rng = np.random.default_rng(TIERS_SEED)
+        vocab = gen.cfg.vocab_size
+        systems = [rng.integers(0, vocab, TIERS_SYSTEM_LEN).tolist()
+                   for _ in range(TIERS_SYSTEMS)]
+        turns1 = [rng.integers(0, vocab, k).tolist() for k in
+                  rng.integers(TIERS_TURN1[0], TIERS_TURN1[1] + 1,
+                               TIERS_SYSTEMS)]
+        turns2 = [rng.integers(0, vocab, k).tolist() for k in
+                  rng.integers(TIERS_TURN2[0], TIERS_TURN2[1] + 1,
+                               TIERS_SYSTEMS)]
+        for t1, t2 in zip(turns1, turns2):
+            t2[0] = (t1[0] + 1) % vocab   # a follow-up parts at its first token
+        round1 = [s + t for s, t in zip(systems, turns1)]
+        # T0 holds the last two systems after round 1: ask for them first
+        order = [4, 5, 0, 1, 2, 3]
+        round2 = [systems[i] + turns2[i] for i in order]
+        # the launches are counted while each App serves (a construction
+        # runs every graph's function once before capturing it)
+        _reset_launches()
+        steps = [gen.decode_steps]
+        # a live stream decodes through round 1: what the stores (spill,
+        # write-through), run on the serving loop's thread before a
+        # miss's first token, cost a stream already delivering
+        live_p = rng.integers(0, vocab, 64).tolist()
+        live_times = []
+
+        def live_stream():
+            ch = grpc_channel(app.grpc_port)
+            try:
+                for _ in ch.server_stream(
+                        GRPC_METHOD, {"tokens": live_p,
+                                      "max_new_tokens": TIERS_LIVE_NEW},
+                        timeout=APP_CALL_TIMEOUT_S):
+                    live_times.append(time.monotonic())
+            finally:
+                ch.close()
+
+        live = threading.Thread(target=live_stream, daemon=True)
+        live.start()
+        end = time.monotonic() + 60
+        while len(live_times) < 8 and time.monotonic() < end:
+            time.sleep(0.001)
+        t_round1 = time.monotonic()
+        r1 = _tiers_round(app, state, round1)
+        t_round1 = (t_round1, time.monotonic())
+        live.join(APP_JOIN_S)
+        require(not live.is_alive() and len(live_times) == TIERS_LIVE_NEW,
+                f"the live stream: {len(live_times)} tokens")
+        st1 = gen.kvcache_stats()
+        r2 = _tiers_round(app, state, round2)
+        st2 = gen.kvcache_stats()
+        # round 3: a fresh replica warms from Redis
+        steps[0] = gen.decode_steps - steps[0]
+        streams = state["streams"]
+        counts = _launches()
+        _tiers_close(app)
+        del gen, app
+        app, state, built, declared, grown = _tiers_app(rows, timers)
+        apps.append(app)
+        builds.append(("fresh replica", built, declared, grown))
+        gen = app.container.tpu.generator
+        steps.append(gen.decode_steps)
+        _reset_launches()
+        r3 = _tiers_round(app, state, round2)
+        st3 = gen.kvcache_stats()
+        # the pool-row copy on the card: T0 row 0 into idle slot 0, the
+        # system prompt's 1024 positions (CUDA events)
+        kvc = gen._kvc
+        row_bytes = hbm.tree_nbytes(gen._pool) // kvc.slots
+        copy_bytes = 2 * sum(hbm.tree_nbytes(t[:, 0, :TIERS_SYSTEM_LEN])
+                             for t in gen._planes(gen._pool))
+        with quiet_device(gen):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            GenerationEngine._pool_copy(gen, gen.cache, 0, gen._pool, 0,
+                                        TIERS_SYSTEM_LEN)
+            e0.record()
+            for _ in range(TIERS_COPY_REPS):
+                GenerationEngine._pool_copy(gen, gen.cache, 0, gen._pool, 0,
+                                            TIERS_SYSTEM_LEN)
+            e1.record()
+            torch.cuda.synchronize()
+        copy_ms = e0.elapsed_time(e1) / TIERS_COPY_REPS
+        copy_bound = 1e3 * copy_bytes / HBM_BYTES_PER_S
+        # the arbiter, part 1: one more T0 row's worth leased by another
+        # subsystem under a budget of in-use + half a row
+        budget0 = hbm.budget()
+        slots0, spills0 = kvc.slots, kvc.host.spills
+        in_use0 = hbm.arbiter_stats()["in_use_bytes"]
+        hbm.set_budget(in_use0 + row_bytes // 2)
+        owner = object()
+        t0 = time.perf_counter()
+        hbm.lease("smoke-subsystem", row_bytes, owner=owner, tag="row",
+                  priority=hbm.PRI_SCRATCH)
+        shrink_ms = 1e3 * (time.perf_counter() - t0)
+        arb1 = hbm.arbiter_stats()
+        part1 = (slots0, gen._kvc.slots, gen._kvc.host.spills - spills0,
+                 hbm.tree_nbytes(gen._pool))
+        # part 2: a lease no reclaim can cover sheds; serving goes on
+        try:
+            hbm.lease("smoke-huge", TIERS_HUGE, owner=owner, tag="huge")
+            huge = None
+        except hbm.HBMExhausted as e:
+            huge = e
+        burst_p = [rng.integers(0, vocab, k).tolist() for k in
+                   rng.integers(TIERS_BURST_LENS[0],
+                                TIERS_BURST_LENS[1] + 1, TIERS_BURST)]
+        after_huge = _tiers_burst(app, burst_p)
+        arb2 = hbm.arbiter_stats()
+        hbm.release(owner=owner)
+        hbm.set_budget(budget0)
+        # part 3: the seeded HBM_ALLOC seam at one admission of a burst
+        seam_p = [rng.integers(0, vocab, k).tolist() for k in
+                  rng.integers(TIERS_BURST_LENS[0],
+                               TIERS_BURST_LENS[1] + 1, TIERS_BURST)]
+        sheds0 = dict(hbm.arbiter_stats()["sheds"])
+        sched = chaos.ChaosSchedule(seed=TIERS_SEED).on(
+            chaos.HBM_ALLOC, error=chaos.ResourceExhausted,
+            every=TIERS_SEAM_EVERY, limit=1)
+        with chaos.scope(sched):
+            seamed = _tiers_burst(app, seam_p)
+        arb3 = hbm.arbiter_stats()
+        steps[1] = gen.decode_steps - steps[1]
+        counts = {k: n + counts[k] for k, n in _launches().items()}
+        admitted = [s for s in streams + state["streams"]
+                    if "admit" in s.trace]
+        bucket_admissions = sum(1 for s in admitted
+                                if s.prompt_len <= gen.prompt_buckets[-1])
+        t2_put = st1["tiers"]["t2"]["bytes_put"]
+        _tiers_close(app)
+        del gen, app, kvc
+        # the reference: the same requests on an App without tiers
+        app, state, built, declared, grown = _tiers_app(
+            dict(TIERS_REF_ROWS), timers)
+        apps.append(app)
+        builds.append(("reference", built, declared, grown))
+        ref1 = _tiers_round(app, state, round1)
+        ref2 = _tiers_round(app, state, round2)
+        _tiers_close(app)
+    finally:
+        for a in apps:
+            if a._running.is_set():
+                a.stop()
+        redis.close()
+
+    def ttfts(rows_, tier):
+        return [r["ttft"] for r in rows_ if r["tier"] == tier]
+
+    misses = [r["ttft"] for r in r1]
+    # the live stream's gaps between deliveries (a block's K tokens
+    # arrive together: gaps under 1 ms are within a block)
+    gaps = [1e3 * (b - a) for a, b in zip(live_times, live_times[1:])
+            if t_round1[0] <= a and b <= t_round1[1] and b - a > 1e-3]
+    quiet = [1e3 * (b - a) for a, b in zip(live_times, live_times[1:])
+             if (b < t_round1[0] or a > t_round1[1]) and b - a > 1e-3]
+    for name, built, declared, grown in builds:
+        print(f"[tiers] App ({name}) built in {built:.1f} s: the arbiter "
+              f"was declared {declared} bytes ({declared / 2**20:.1f} MiB), "
+              f"torch.cuda.memory_allocated grew {grown} bytes "
+              f"({grown / 2**20:.1f} MiB), the gap (weights, rope tables, "
+              f"graph pools) {grown - declared} bytes "
+              f"({(grown - declared) / 2**30:.3f} GiB)", flush=True)
+    print(f"[tiers] round 1 (misses) tiers {[r['tier'] for r in r1]}; round "
+          f"2 tiers {[r['tier'] for r in r2]} restoring "
+          f"{[r['cached'] for r in r2]}; round 3 (fresh replica) tiers "
+          f"{[r['tier'] for r in r3]} restoring {[r['cached'] for r in r3]}",
+          flush=True)
+    print(f"[tiers] TTFT at the engine: misses {stats_line(misses)}; T0 hits "
+          f"{stats_line(ttfts(r2, 't0'))}; T1 hits "
+          f"{stats_line(ttfts(r2, 't1'))}; T2 hits "
+          f"{stats_line(ttfts(r3, 't2'))}; at the client: misses "
+          f"{stats_line([r['client_ttft'] for r in r1])}, T0 "
+          f"{stats_line([r['client_ttft'] for r in r2 if r['tier'] == 't0'])}"
+          f", T1 "
+          f"{stats_line([r['client_ttft'] for r in r2 if r['tier'] == 't1'])}"
+          f", T2 {stats_line([r['client_ttft'] for r in r3])}; card: {card}",
+          flush=True)
+    print(f"[tiers] a live stream through round 1 ({TIERS_LIVE_NEW} tokens): "
+          f"its gaps between blocks while round 1's six misses were "
+          f"admitted and stored {stats_line(gaps)}, "
+          f"{sum(g > 100 for g in gaps)} over 100 ms; outside round 1 "
+          f"{stats_line(quiet)}; card: {card}", flush=True)
+    print(f"[tiers] pool-row copy of {TIERS_SYSTEM_LEN} positions (4 planes, "
+          f"{copy_bytes} bytes moved): {copy_ms:.5f} ms of device time, bound "
+          f"{copy_bound:.5f} ms (bytes); host time: spill "
+          f"{stats_line(timers['spill'])}; T1 promotion (its spill "
+          f"included) {stats_line(timers['promote_t1'])}; T2 fetch (MGET, "
+          f"checksum, decode) {stats_line(timers['t2_fetch'])}, T2 promotion "
+          f"{stats_line(timers['promote_t2'])}, upload (staging + queued "
+          f"copies) {stats_line(timers['upload'])}; T2 write (encode, SET "
+          f"pipeline) {stats_line(timers['t2_write'])}, bytes written in "
+          f"round 1: {t2_put}; card: {card}", flush=True)
+    print(f"[tiers] tier stats after round 1 {json.dumps(st1)}", flush=True)
+    print(f"[tiers] tier stats after round 2 {json.dumps(st2)}", flush=True)
+    print(f"[tiers] tier stats after round 3 {json.dumps(st3)}", flush=True)
+    print(f"[tiers] arbiter part 1: budget in-use {in_use0} + half a row "
+          f"({row_bytes} bytes), a one-row PRI_SCRATCH lease took "
+          f"{shrink_ms:.1f} ms: T0 {part1[0]} -> {part1[1]} rows, "
+          f"{part1[2]} rows spilled to T1, pool {part1[3]} bytes; "
+          f"arbiter_stats {json.dumps(arb1)}", flush=True)
+    print(f"[tiers] arbiter part 2: a {TIERS_HUGE >> 30} GiB lease: "
+          f"{type(huge).__name__} {huge} (status "
+          f"{getattr(huge, 'status_code', None)}, Retry-After "
+          f"{getattr(huge, 'headers', {}).get('Retry-After')}); then "
+          f"{TIERS_BURST} requests: "
+          f"{[(r['code'], len(r['tokens'])) for r in after_huge]}; sheds "
+          f"{arb2['sheds']}", flush=True)
+    shed_rpcs = [r for r in seamed if r["code"] == RESOURCE_EXHAUSTED]
+    print(f"[tiers] arbiter part 3: HBM_ALLOC every={TIERS_SEAM_EVERY} "
+          f"limit=1 over a burst of {TIERS_BURST}: "
+          f"{[(r['code'], len(r['tokens'])) for r in seamed]}, retry-after "
+          f"{[r['trailers'].get('retry-after') for r in shed_rpcs]}; sheds "
+          f"{sheds0} -> {arb3['sheds']}", flush=True)
+    print(f"[tiers] {bucket_admissions} bucket admissions of "
+          f"{len(admitted)}, {sum(steps)} decode steps; launches {counts}; "
+          f"card: {card}", flush=True)
+    tiers_seen = ([r["tier"] for r in r1], [r["tier"] for r in r2],
+                  [r["tier"] for r in r3])
+    require(all(r["code"] == OK and len(r["tokens"]) == TIERS_NEW
+                for r in r1 + r2 + r3 + ref1 + ref2),
+            "a round's stream failed or came short")
+    require(tiers_seen == ([None] * 6, ["t0"] * 2 + ["t1"] * 4, ["t2"] * 6),
+            f"tiers by round {tiers_seen}")
+    require(st1["tiers"]["t1"]["spills"] == TIERS_SYSTEMS - 2
+            and st1["tiers"]["t2"]["blocks_put"]
+            == sum(len(p) // st1["block"] for p in round1),
+            f"round 1 spills and write-through: {st1['tiers']}")
+    require(all(r["cached"] == TIERS_SYSTEM_LEN for r in r2 + r3),
+            "a hit restored other than the system prompt")
+    require(all(r["restored_equal"] is True for r in r2 + r3),
+            f"restored bytes differ: {[r['restored_equal'] for r in r2 + r3]}")
+    print(f"[tiers] round 2's streams against the reference (no tiers): "
+          f"first difference by request "
+          f"{[_first_difference(r2[i]['tokens'], ref2[i]['tokens']) for i in range(TIERS_SYSTEMS)]}"
+          f" (None: equal); a hit reads the stored row's last positions "
+          f"as round 1's final chunk wrote them, where the reference's "
+          f"mid chunk wrote its own", flush=True)
+    same = [r2[i]["tokens"] == r3[i]["tokens"] for i in range(TIERS_SYSTEMS)]
+    require(all(same), f"a request's streams differ between its T0/T1 "
+            f"and its T2 hit: {same}")
+    require([r["tokens"] for r in r1] == [r["tokens"] for r in ref1],
+            "round 1's misses differ from the reference's")
+    require(part1[:3] == (2, 1, 2) and isinstance(huge, hbm.HBMExhausted)
+            and huge.status_code == 429
+            and "Retry-After" in huge.headers
+            and arb1["reclaims"].get("kvcache-t0", 0) >= 1,
+            f"arbiter parts 1-2: {part1}, {huge!r}, {arb1['reclaims']}")
+    require(all(r["code"] == OK and len(r["tokens"]) == TIERS_NEW
+                for r in after_huge),
+            "the burst after the shed lease was not served")
+    require(len(shed_rpcs) == 1
+            and all(r["code"] == OK and len(r["tokens"]) == TIERS_NEW
+                    for r in seamed if r["code"] != RESOURCE_EXHAUSTED)
+            and int(shed_rpcs[0]["trailers"].get("retry-after", 0)) >= 1
+            and arb3["sheds"].get("engine", 0)
+            == sheds0.get("engine", 0) + 1,
+            f"the seam: {[r['code'] for r in seamed]}, sheds {arb3['sheds']}")
+    require(counts["flash_prefill"] == LAYERS * bucket_admissions
+            and bucket_admissions > 0,
+            f"flash_prefill launched {counts['flash_prefill']} times for "
+            f"{bucket_admissions} bucket admissions")
+    require(counts["flash_decode"] == LAYERS * sum(steps) and sum(steps) > 0,
+            f"flash_decode launched {counts['flash_decode']} times for "
+            f"{sum(steps)} decode steps of {LAYERS} layers")
+    others = {k: counts[k] for k in ("paged_decode", "paged_window",
+                                     "prefill_plain", "decode_plain",
+                                     "paged_plain")}
+    require(not any(others.values()),
+            f"other attention paths ran on the tiers' path: {others}")
+    return counts
+
+
 # -- running the phases -------------------------------------------------------
 
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3879,7 +4429,7 @@ RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
-                "durable", "slo", "app", "predict", "grpc")) -> dict:
+                "durable", "slo", "app", "predict", "grpc", "tiers")) -> dict:
     import torch
 
     card = card_line()
@@ -3935,9 +4485,9 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             # K1's count: phase 5's main path plus the score run
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
-        elif phase == "grpc":
-            counts = phase_grpc(card)
-            # K1's and K2's counts: the earlier phases' plus the gRPC run
+        elif phase in ("grpc", "tiers"):
+            counts = (phase_grpc if phase == "grpc" else phase_tiers)(card)
+            # K1's and K2's counts: the earlier phases' plus this run
             for name in ("flash_prefill", "flash_decode"):
                 rec = records[name]
                 rec["launches"] = rec.get("launches", 0) + counts[name]

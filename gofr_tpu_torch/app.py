@@ -20,7 +20,8 @@ testable in-process; ``stop(grace_s)`` drains it.
 no ``TPU_MODEL``/``TPU_ENABLED`` row touches no device. Pub/sub, the
 CLI, migrations, outbound HTTP services, the gateway, the auth and
 tenant middlewares (``X-Tenant-Id``, gRPC's ``x-tenant-id``) and the
-``/debug`` pages other than ``/debug/cache`` are not ported yet.
+``/debug`` pages other than ``/debug/cache`` and ``/debug/vars`` (the
+latter reduced to the memory arbiter's sections) are not ported yet.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
-"""Fault injection at the generator's, the batcher's and the HTTP and
-gRPC servers' seams: the port's own copy of the part of
-gofr_tpu/chaos.py that the serving loop, the predict path and the App's
-transports use.
+"""Fault injection at the generator's, the batcher's, the memory
+arbiter's and the HTTP and gRPC servers' seams: the port's own copy of
+the part of gofr_tpu/chaos.py that the serving loop, the predict path,
+the arbiter and the App's transports use.
 
 A ``ChaosSchedule`` holds per-seam rules (latency, injected errors, or
 both); the engine and the server call ``chaos.fire(SEAM)`` at a fixed
@@ -32,6 +32,12 @@ Seams (grep for ``chaos.fire``):
   GRPC_STREAM         grpcx/server._handle_stream, before dispatch:
                       transport-level latency or errors per RPC (a
                       raised error ends the RPC UNAVAILABLE)
+  HBM_ALLOC           tpu/hbm lease points (lease/alloc/check): an
+                      injected ``ResourceExhausted`` models a device
+                      allocation failure that survived reclaim and
+                      retry; the arbiter sheds that request (429 /
+                      RESOURCE_EXHAUSTED + Retry-After) and the process
+                      keeps serving. ``every=N`` kills allocation N
   HTTP_REQUEST        http/server._Handler._handle, as each request
                       arrives, before routing
   ==================  =====================================================
@@ -46,10 +52,10 @@ import time
 
 __all__ = [
     "BATCHER_DISPATCH", "GENERATOR_CHUNK", "GENERATOR_MIDKILL",
-    "GENERATOR_PREFILL", "GENERATOR_STEP", "GRPC_STREAM", "HTTP_REQUEST",
-    "SEAMS",
-    "ChaosSchedule", "DeviceLost", "Rule", "active", "fire", "install",
-    "scope", "uninstall",
+    "GENERATOR_PREFILL", "GENERATOR_STEP", "GRPC_STREAM", "HBM_ALLOC",
+    "HTTP_REQUEST", "SEAMS",
+    "ChaosSchedule", "DeviceLost", "ResourceExhausted", "Rule", "active",
+    "fire", "install", "scope", "uninstall",
 ]
 
 BATCHER_DISPATCH = "batcher.dispatch"
@@ -58,15 +64,29 @@ GENERATOR_MIDKILL = "generator.midkill"
 GENERATOR_PREFILL = "generator.prefill"
 GENERATOR_STEP = "generator.step"
 GRPC_STREAM = "grpc.stream"
+HBM_ALLOC = "hbm.alloc"
 HTTP_REQUEST = "http.request"
 
 SEAMS = (BATCHER_DISPATCH, GENERATOR_CHUNK, GENERATOR_MIDKILL,
-         GENERATOR_PREFILL, GENERATOR_STEP, GRPC_STREAM, HTTP_REQUEST)
+         GENERATOR_PREFILL, GENERATOR_STEP, GRPC_STREAM, HBM_ALLOC,
+         HTTP_REQUEST)
 
 
 class DeviceLost(RuntimeError):
     """Injected stand-in for a device runtime failure. Raised at
     GENERATOR_STEP it takes the path a failed dispatch takes."""
+
+
+class ResourceExhausted(RuntimeError):
+    """Injected stand-in for a device allocation failure. Raised at
+    HBM_ALLOC it takes the arbiter's shed path; raised at
+    BATCHER_DISPATCH it exercises the batcher's reclaim-then-retry. The
+    message carries the marker ``tpu.hbm.is_oom_error`` keys on, so
+    injected and real out-of-memory errors classify alike."""
+
+    def __init__(self, msg: str = "injected RESOURCE_EXHAUSTED: device "
+                                  "memory exhausted (chaos)"):
+        super().__init__(msg)
 
 
 class Rule:

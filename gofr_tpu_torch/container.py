@@ -10,7 +10,8 @@ here the error propagates, so an App asked for the card on a machine
 without one raises instead of serving without its model (the port's
 rule that nothing falls back on its own). The datasource rows the port
 does not serve yet (Redis, SQL, pub/sub, the remote log level) raise
-with their names.
+with their names; ``REDIS_HOST`` is read only as the address of the
+kv-cache's shared tier, with ``TPU_KVCACHE_REDIS`` set.
 """
 
 from __future__ import annotations
@@ -33,8 +34,12 @@ class Container:
     def __init__(self, config=None, logger: Logger | None = None,
                  device="cuda"):
         self.config = config if config is not None else EnvConfig()
+        # REDIS_HOST as a datasource is not ported; the kv-cache's
+        # shared tier (TPU_KVCACHE_REDIS) builds its own client from it
+        tier_redis = self.config.get_bool("TPU_KVCACHE_REDIS")
         rejected = [row for row in UNPORTED_ROWS
-                    if (self.config.get(row) or "").strip()]
+                    if (self.config.get(row) or "").strip()
+                    and not (row == "REDIS_HOST" and tier_redis)]
         if rejected:
             raise ValueError(f"config rows not honoured by gofr_tpu_torch "
                              f"yet: {', '.join(rejected)}")

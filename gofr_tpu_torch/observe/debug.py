@@ -1,12 +1,17 @@
 """The App's ``/debug`` pages on the metrics server (the port's
 counterpart of gofr_tpu/observe/debug.py, reduced to ``/debug/cache``:
-the prefix KV cache's stats as JSON, or as an HTML table by default).
+the prefix KV cache's stats as JSON, or as an HTML table by default;
+and ``/debug/vars``, reduced to the memory arbiter's sections:
+``device_memory``, the declared device bytes by subsystem, and
+``hbm_arbiter``, its budget and lease table).
 """
 
 from __future__ import annotations
 
 import html
 import json
+
+from ..tpu import hbm
 
 
 def _json(w, payload) -> None:
@@ -61,3 +66,17 @@ def install_debug_routes(router, app) -> None:
                 heads="".join(f"<th>{c}</th>" for c in cols), rows=rows))
 
     router.add("GET", "/debug/cache", cache_page)
+
+    def vars_page(req, w) -> None:
+        """The memory arbiter's live state: the per-subsystem declared
+        bytes (the figures the app_tpu_device_bytes gauges export) and
+        the lease/reclaim table (budget, per-lease priority class and
+        reclaimability, shed and reclaim counters), present once a
+        budget is set or anything has leased."""
+        payload: dict = {"device_memory": hbm.live_bytes()}
+        arb = hbm.arbiter_stats()
+        if arb["budget_bytes"] or arb["leases"]:
+            payload["hbm_arbiter"] = arb
+        _json(w, payload)
+
+    router.add("GET", "/debug/vars", vars_page)

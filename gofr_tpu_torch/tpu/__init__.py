@@ -49,11 +49,26 @@ Rows read:
                     0 or unset keeps contiguous [slots, max_seq] rows
   TPU_PAGED_BLOCK   tokens per paged block (default 128)
   TPU_PREFIX_CACHE  > 0 on a paged engine: zero-copy prefix sharing over
-                    the pool with that many stored entries (default 0 =
-                    off); on a contiguous engine it raises (the JAX
-                    engine's kv-cache tiers are not ported)
+                    the pool with that many stored entries; on a
+                    contiguous engine: the hierarchical prefix cache
+                    (tpu/kvcache) with a T0 pool of that many rows,
+                    tuned by the TPU_KVCACHE_* rows (default 0 = off)
   TPU_PREFIX_MIN    the shortest prompt stored as an entry (default: the
                     largest prompt bucket)
+  TPU_KVCACHE_BLOCK  radix block size in tokens (default 16)
+  TPU_KVCACHE_HOST_MB  the host-RAM tier (T1) budget in MiB: T0's
+                    evicted rows spill there (default 0 = off)
+  TPU_KVCACHE_REDIS  "true" shares int8 KV blocks through Redis (T2) at
+                    REDIS_HOST / REDIS_PORT, read by this tier only
+  TPU_KVCACHE_REDIS_TTL_S  shared-block TTL seconds (default 300)
+  TPU_KVCACHE_REDIS_TIMEOUT_S  the tier's socket timeout (default 0.25)
+  TPU_KVCACHE_EPOCH_REFRESH_S  adapter-epoch staleness bound (default 5)
+  TPU_HBM_BUDGET_MB  the memory arbiter's budget (tpu/hbm) in MiB;
+                    unset: on the card its total memory less
+                    TPU_HBM_HEADROOM, on the CPU off
+  TPU_HBM_HEADROOM  the fraction of the card's memory left outside the
+                    budget for what the arbiter does not see: weights,
+                    graph pools, workspaces (default 0.1)
   TPU_SPEC_DECODE   k > 0: prompt-lookup speculative decoding with k
                     draft tokens (greedy slots; a verify window of k + 1
                     positions, through the paged window kernel on a
@@ -89,12 +104,14 @@ from ..models import bert, llama, vit
 from ..models.common import BERT_CONFIGS, LLAMA_CONFIGS, VIT_CONFIGS
 from ..ops import kernels
 from ..resilience import gate_from_config
+from . import hbm
 from .batcher import (BatcherClosed, ClassPolicy, CoalescingBatcher,
                       pad_bucket)
 from .checkpoint import from_jax_params, load_npz, maybe_quantize
 from .engine import (DEFAULT_BATCH_BUCKETS, Health, Program, TorchEngine)
 from .generator import (DEFAULT_SEQ_BUCKETS, GenerationEngine,
                         GenerationError, GenStream)
+from .kvcache import options_from_config
 
 __all__ = ["BatcherClosed", "ClassPolicy", "CoalescingBatcher",
            "GenerationEngine", "GenerationError", "GenStream", "Health",
@@ -103,11 +120,7 @@ __all__ = ["BatcherClosed", "ClassPolicy", "CoalescingBatcher",
 
 # rows of the JAX package that name features outside this slice
 UNPORTED_ROWS = (
-    "TPU_KVCACHE_BLOCK", "TPU_KVCACHE_HOST_MB",
-    "TPU_KVCACHE_REDIS", "TPU_KVCACHE_REDIS_TTL_S",
-    "TPU_KVCACHE_REDIS_TIMEOUT_S", "TPU_KVCACHE_EPOCH_REFRESH_S",
-    "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_BUDGET_MB",
-    "TPU_HBM_HEADROOM", "TPU_HBM_DEVICE_BUDGET_MB",
+    "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_DEVICE_BUDGET_MB",
     "TPU_SHARDING", "TPU_PD_LISTEN", "TPU_PD_PEER", "TPU_PD_BLOCK",
     "TPU_PD_WINDOW_MB", "TPU_TENANTS", "TPU_TENANTS_INLINE",
     "TPU_TENANTS_RELOAD_S", "TPU_TENANT_HEADER", "TPU_TENANT_TOPIC",
@@ -197,6 +210,11 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
         except (TypeError, ValueError) as e:
             raise ValueError(f"{name} cannot be scored on {device}: "
                              f"{e}") from None
+    # the memory arbiter's budget (one per process: the subsystems of
+    # every engine built after this lease from it)
+    hbm.configure(budget_mb=cfg.get_int("TPU_HBM_BUDGET_MB", 0) or None,
+                  headroom=cfg.get_float("TPU_HBM_HEADROOM", 0.1),
+                  device=device)
     if params is None:
         weights = cfg.get("TPU_WEIGHTS")
         if weights:
@@ -279,6 +297,12 @@ def _generator(cfg, mc, params, seq_buckets, device, logger,
     kv_choice = (cfg.get("TPU_KV_DTYPE") or "int8").lower()
     prompt_b = tuple(b for b in seq_buckets if b < max_seq) \
         or (max_seq // 2,)
+    kv_opts = None
+    if cfg.get_int("TPU_PREFIX_CACHE", 0) > 0 \
+            and cfg.get_int("TPU_PAGED_BLOCKS", 0) == 0:
+        # a paged engine keeps its zero-copy shared-prefix index: no
+        # Redis connection it would discard at once
+        kv_opts = options_from_config(cfg, logger=logger, metrics=metrics)
     return GenerationEngine(
         mc, params, slots=cfg.get_int("TPU_SLOTS", 48), max_seq=max_seq,
         logger=logger, prompt_buckets=prompt_b,
@@ -291,6 +315,7 @@ def _generator(cfg, mc, params, seq_buckets, device, logger,
         paged_block_size=cfg.get_int("TPU_PAGED_BLOCK", 128),
         prefix_cache_slots=cfg.get_int("TPU_PREFIX_CACHE", 0),
         prefix_store_min=cfg.get_int("TPU_PREFIX_MIN", 0) or None,
+        kvcache=kv_opts,
         spec_decode_k=cfg.get_int("TPU_SPEC_DECODE", 0),
         gate=gate_from_config(cfg, "generate", metrics=metrics,
                               logger=logger),

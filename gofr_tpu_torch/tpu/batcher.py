@@ -22,10 +22,13 @@ Deadlines: an item whose deadline expires while it waits is dropped
 unexecuted and counted through ``on_expired``; a waiter that times out
 reaps its item, so the runner never executes it.
 
-Device memory: a runner that raises ``torch.OutOfMemoryError`` gets the
-caching allocator's free blocks released and the SAME batch retried
+Device memory: a runner that raises a device out-of-memory error
+(``hbm.is_oom_error``: ``torch.OutOfMemoryError`` among them) gets one
+reclaim pass of the memory arbiter (every reclaimable lease asked, the
+caching allocator's free blocks given back) and the SAME batch retried
 once; a second failure sheds the batch with ``TooManyRequests`` (429,
-``Retry-After: 1``) rather than a 500.
+``Retry-After: 1``, counted as the arbiter's ``batcher`` shed) rather
+than a 500.
 
 The runner receives a list of payloads and returns a list of results of
 the same length; a runner error is raised in every submitting thread of
@@ -45,6 +48,8 @@ import torch
 from .. import chaos
 from ..errors import DeadlineExceeded, TooManyRequests
 from ..resilience import SLO_LATENCY, SLO_THROUGHPUT, current_slo_class
+from . import hbm
+from .hbm import is_oom_error
 
 __all__ = ["BatchItem", "BatcherClosed", "ClassPolicy", "CoalescingBatcher",
            "is_oom_error", "pad_bucket"]
@@ -98,14 +103,12 @@ class BatcherClosed(RuntimeError):
     pass
 
 
-def is_oom_error(err: BaseException) -> bool:
-    """A device allocation failure: the batcher retries those once."""
-    return isinstance(err, torch.OutOfMemoryError)
-
-
 def _reclaim() -> None:
-    """Give the caching allocator's free blocks back to the card before
-    the retry (the JAX engine runs its memory arbiter's reclaim here)."""
+    """Before the retry: one reclaim pass of the memory arbiter over
+    every reclaimable lease (the transient deficit is unknowable), then
+    the caching allocator's free blocks back to the card, where the
+    reclaimed tensors went."""
+    hbm.reclaim()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.empty_cache()
 
@@ -343,6 +346,7 @@ class CoalescingBatcher:
                 except BaseException as e2:
                     if not is_oom_error(e2):
                         raise
+                    hbm.note_shed("batcher")
                     raise TooManyRequests(
                         f"{self.name}: device memory exhausted after "
                         "reclaim and retry -- shed", retry_after=1.0) from e2

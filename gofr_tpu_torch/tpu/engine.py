@@ -35,6 +35,7 @@ from .. import tracing
 from ..device import resolve_device
 from ..errors import DeadlineExceeded, ProgramNotFound, ServiceUnavailable
 from ..resilience import current_deadline, current_slo_class
+from . import hbm
 from .batcher import ClassPolicy, CoalescingBatcher, pad_bucket
 from .generator import GenerationEngine, GenStream
 
@@ -128,6 +129,10 @@ class TorchEngine:
         self.device = resolve_device(device)
         self.logger = logger
         self.metrics = metrics
+        if metrics is not None:
+            # device-byte and arbiter gauges (app_tpu_device_bytes,
+            # app_tpu_hbm_*), also for engines without a generator
+            hbm.set_metrics(metrics)
         self.max_delay = max_delay
         # resilience.AdmissionGate TEMPLATE (None = admit everything):
         # each program gets its own clone, fed with that program's waits
@@ -412,6 +417,17 @@ class TorchEngine:
         if cuda:
             details["memory_allocated"] = torch.cuda.memory_allocated(
                 self.device)
+        # the memory arbiter: per-subsystem declared bytes, and its
+        # budget/reclaim/shed summary (the lease table is on /debug/vars)
+        acct = hbm.live_bytes()
+        if acct:
+            details["device_memory"] = acct
+        arb = hbm.arbiter_stats()
+        if arb["budget_bytes"] or arb["leases"]:
+            details["hbm_arbiter"] = {
+                k: arb[k] for k in ("budget_bytes", "in_use_bytes",
+                                    "headroom_bytes", "reclaims", "sheds",
+                                    "oom_retries")}
         if self.generator is not None:
             details["generator"] = self.generator.stats()
         if self._closed or (self.generator is not None

@@ -123,7 +123,10 @@ from ..ops import flash, flash_decode, kernels, paged_attention
 from ..resilience import (SLO_LATENCY, SLO_THROUGHPUT, DecodePipelinePolicy,
                           current_deadline, current_slo_class)
 from ..wire import PushStream
-from . import prng
+from . import hbm, prng
+from .kvcache import (CacheManager, HostKV, KVCacheOptions, KVLayout,
+                      clamp_restore_len, dense_hostkv, dtype_name,
+                      model_fingerprint)
 
 _REQ_IDS = itertools.count(1)
 
@@ -158,6 +161,20 @@ def pad_bucket(n: int, buckets) -> int:
         if b >= n:
             return b
     return max(buckets)
+
+
+def _cache_nbytes(cfg: ModelConfig, rows: int, positions: int,
+                  dtype: torch.dtype | None, lengths: int) -> int:
+    """Bytes of a KV cache of ``rows`` x ``positions`` (a contiguous
+    cache's slots x max_seq, or a paged pool's blocks x block size) with
+    ``lengths`` int32 cursors, from its shapes: what the arbiter leases
+    before the cache is allocated."""
+    dtype = dtype or cfg.tdtype
+    vectors = cfg.n_layers * rows * positions * cfg.n_kv_heads
+    n = 2 * vectors * cfg.head_dim * dtype.itemsize + 4 * lengths
+    if dtype == torch.int8:
+        n += 2 * vectors * 4   # the float32 scale planes
+    return n
 
 
 class _ClassPending:
@@ -664,8 +681,8 @@ def _trace(stream: GenStream, traceparent: str | None) -> None:
 
 class _Request:
     __slots__ = ("stream", "prompt", "max_new", "temperature", "top_k",
-                 "eos_id", "seed", "pos_base", "lattice_peek", "deadline",
-                 "slo_class", "enqueued_at")
+                 "eos_id", "seed", "pos_base", "lattice_peek", "kv_match",
+                 "deadline", "slo_class", "enqueued_at")
 
     def __init__(self, stream: GenStream, prompt: np.ndarray, max_new: int,
                  temperature: float, top_k: int, eos_id, seed: int,
@@ -683,6 +700,9 @@ class _Request:
         self.pos_base = pos_base
         # (prefix index version, verdict): _needs_lattice's memo
         self.lattice_peek: tuple[int, bool] | None = None
+        # (cache manager version, Match): _kv_match's memo, so the
+        # in-flight peek and the admission see one tier verdict
+        self.kv_match = None
         # resilience.Deadline: an expired request is dropped at
         # admission, between lattice chunks or at a reap
         self.deadline = deadline
@@ -744,19 +764,11 @@ class GenerationEngine:
                  slo_throughput_share: float = 0.25,
                  slo_latency_slots: int = 1, metrics=None):
         unported = {"lora_adapters": lora_adapters != 0,
-                    "kvcache": kvcache is not None,
                     "mesh": mesh is not None}
         asked = [name for name, on in unported.items() if on]
         if asked:
             raise ValueError(f"not ported to gofr_tpu_torch yet: {asked} "
                              "(the port serves contiguous or paged slots)")
-        if prefix_cache_slots > 0 and paged_blocks <= 0:
-            raise ValueError(
-                "prefix_cache_slots (TPU_PREFIX_CACHE) on a contiguous "
-                "engine is the JAX engine's kv-cache tiers (tpu/kvcache/), "
-                "not ported yet (ROADMAP queue 1 item 6); the port shares "
-                "prefixes on a paged engine (paged_blocks > 0, "
-                "TPU_PAGED_BLOCKS)")
         if cfg.n_experts > 0:
             raise ValueError("the port serves dense Llama models; MoE is "
                              "not ported yet")
@@ -795,6 +807,15 @@ class GenerationEngine:
         self.gate = gate
         self._seed = int(seed)
         self._auto_seed = itertools.count(1)
+        # created before the first hbm.alloc: the reclaim callbacks this
+        # engine registers take it, from whichever thread's lease ran
+        # short (reentrant: the loop's own admission checkpoint may
+        # trigger this engine's pool shrink)
+        self._device_lock = threading.RLock()
+        self._kv_dtype = kv_dtype
+        if metrics is not None:
+            # device-byte attribution gauges (app_tpu_device_bytes)
+            hbm.set_metrics(metrics)
         # Paged KV: slots share a pool of T-token blocks through a
         # host-owned table instead of owning [max_seq] rows, so the
         # pool is sized to the expected live tokens
@@ -821,12 +842,28 @@ class GenerationEngine:
             # demanded for the slot
             self._stop_cursors = np.zeros((slots,), np.int64)
             self._paged_evictions = 0
-            self.cache = paged_llama.init_paged_cache(
-                cfg, slots, paged_blocks, self._block_t, dtype=kv_dtype,
-                device=self.device)
+        # every persistent device buffer is leased from the memory
+        # arbiter (tpu.hbm) before it is allocated, and accounted under
+        # this engine. The serving cache is PRI_SERVING: never
+        # auto-reclaimed, but a paged pool's lease carries the cold
+        # shared-prefix release
+        if self._paged:
+            self.cache = hbm.alloc(
+                "engine", lambda: paged_llama.init_paged_cache(
+                    cfg, slots, paged_blocks, self._block_t, dtype=kv_dtype,
+                    device=self.device),
+                nbytes=_cache_nbytes(cfg, paged_blocks, self._block_t,
+                                     kv_dtype, slots),
+                owner=self, tag="cache", priority=hbm.PRI_SERVING,
+                reclaim=self._hbm_paged_reclaim)
         else:
-            self.cache = llama.init_cache(cfg, slots, self.max_seq,
-                                          dtype=kv_dtype, device=self.device)
+            self.cache = hbm.alloc(
+                "engine", lambda: llama.init_cache(
+                    cfg, slots, self.max_seq, dtype=kv_dtype,
+                    device=self.device),
+                nbytes=_cache_nbytes(cfg, slots, self.max_seq, kv_dtype,
+                                     slots),
+                owner=self, tag="cache", priority=hbm.PRI_SERVING)
         # zero-copy prefix sharing over the pool: entries hold references
         # on a stored prompt's full blocks; a hit takes them into the new
         # slot and the prefill resumes at the match point
@@ -836,6 +873,45 @@ class GenerationEngine:
                 prefix_cache_slots, self._alloc, self._block_t)
             self._store_min = int(prefix_store_min
                                   or self.prompt_buckets[-1])
+        # The contiguous engine's hierarchical prefix cache (tpu/kvcache):
+        # a P-row device pool (T0) indexed by a block-hash radix tree,
+        # spilling LRU-evicted rows to host RAM (T1) and sharing int8
+        # blocks through Redis (T2), behind one CacheManager. A hit
+        # replaces the matched positions' prefill with a row copy (T0)
+        # or a host -> device upload and a row copy (T1/T2, promoted
+        # into a pool row first); the rest (at least one token, so the
+        # first sample recomputes) runs the lattice from the match
+        # point. The pool copies run eagerly on the serving stream,
+        # outside every captured graph, so a shrink may reallocate it
+        self._pool = None
+        self._kvc = None
+        self._stage = None   # pinned staging of a promotion's upload
+        if not self._paged and prefix_cache_slots > 0:
+            opts = kvcache or KVCacheOptions()
+            self._pool = self._alloc_pool(prefix_cache_slots)
+            layout = KVLayout(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+                              self._pool.quantized, self._pool.k.dtype,
+                              self.max_seq)
+            self._kvc = CacheManager(
+                prefix_cache_slots, layout, block=opts.block,
+                host_bytes=opts.host_mb << 20, redis=opts.redis,
+                redis_ttl_s=opts.redis_ttl_s,
+                epoch_refresh_s=opts.epoch_refresh_s,
+                fingerprint=model_fingerprint(
+                    cfg, params, extra=dtype_name(layout.dtype)),
+                metrics=metrics, logger=logger)
+            self._store_min = int(prefix_store_min
+                                  or self.prompt_buckets[-1])
+        if self._kvc is None and kvcache is not None \
+                and kvcache.redis is not None:
+            # KVCacheOptions hands the engine the client: an engine that
+            # builds no cache manager (paged, or no prefix cache) closes
+            # it rather than leak the socket
+            if logger is not None:
+                logger.warn({"event": "kvcache redis client discarded "
+                             "(engine has no prefix cache: paged or "
+                             "prefix_cache_slots=0)"})
+            kvcache.redis.close()
         self.rope_tables = llama.get_rope_tables(cfg, self.max_seq,
                                                  self.device)
         # a prompt past the chunk budget runs the chunk lattice; a paged
@@ -844,9 +920,12 @@ class GenerationEngine:
         # the slot's blocks in one copy
         self._lattice = self.max_seq - 1 > self._chunk
         if self._paged and (self._lattice or self._prefix_idx is not None):
-            self._scratch = llama.init_cache(cfg, 1, self.max_seq,
-                                             dtype=kv_dtype,
-                                             device=self.device)
+            self._scratch = hbm.alloc(
+                "engine", lambda: llama.init_cache(
+                    cfg, 1, self.max_seq, dtype=kv_dtype,
+                    device=self.device),
+                nbytes=_cache_nbytes(cfg, 1, self.max_seq, kv_dtype, 1),
+                owner=self, tag="scratch", priority=hbm.PRI_SCRATCH)
         # the admission dispatches' inputs, one vector uploaded per
         # dispatch (AdmissionInputs); no dispatch is wider than the chunk
         # budget, itself a bucket
@@ -926,7 +1005,6 @@ class GenerationEngine:
         # batch saturation finds a slot (the gate bounds the line, this
         # the slots); clamped so that throughput can always run
         self._lat_reserve = max(0, min(int(slo_latency_slots), slots - 1))
-        self._device_lock = threading.Lock()
         self._admission_lock = threading.Lock()
         self._work = threading.Event()
         self._closed = False
@@ -1130,6 +1208,8 @@ class GenerationEngine:
         }
         if self.gate is not None:
             out["admission"] = self.gate.stats()
+        if self._kvc is not None:
+            out["prefix_cache"] = self._kvc.stats()
         if self._prefix_idx is not None:
             out["prefix_cache"] = self._prefix_idx.stats()
         if self._paged:
@@ -1181,9 +1261,11 @@ class GenerationEngine:
         }
 
     def kvcache_stats(self) -> dict | None:
-        """Prefix-cache stats for the App's ``/debug/cache``: the paged
-        pool's shared-prefix index, or None when no prefix cache is
-        configured."""
+        """Prefix-cache stats for the App's ``/debug/cache``: the
+        contiguous engine's tiers, the paged pool's shared-prefix index,
+        or None when no prefix cache is configured."""
+        if self._kvc is not None:
+            return {"kind": "hierarchical", **self._kvc.stats()}
         if self._prefix_idx is not None:
             return {"kind": "paged-shared", **self._prefix_idx.stats()}
         return None
@@ -1219,6 +1301,11 @@ class GenerationEngine:
                 # buffers can go
                 torch.cuda.synchronize(self.device)
             self._fail_all(GenerationError("engine closed"))
+        # the arbiter must not keep claiming bytes for a closed engine
+        hbm.release(owner=self)
+        if self._kvc is not None and self._kvc.redis is not None:
+            # the engine owns the T2 client (KVCacheOptions.redis)
+            self._kvc.redis.client.close()
 
     # -- the serving loop ----------------------------------------------------
     def _loop(self) -> None:
@@ -1282,9 +1369,11 @@ class GenerationEngine:
           1. host invariants: the dispatch state (pack, idle clock,
              deferral) is dropped, every slot's next dispatch takes the
              host's state (``host_wins``), the recovery is counted, and
-             the prefix index is cleared before anything touches the
-             pool (its entries would match prompts against zeroed
-             blocks);
+             the prefix index (or the tiers' T0) is cleared before
+             anything touches the pool (its entries would match prompts
+             against zeroed blocks or rows); T1 and T2 survive, so the
+             next admission of a spilled or shared prefix rewarms the
+             fresh pool from them;
           2. delivery: every live slot's stream fails with
              GenerationError and the slot retires, freeing its blocks
              through the refcounts; queued requests are not failed, they
@@ -1293,8 +1382,10 @@ class GenerationEngine:
              graphs bind the cache's, the scratch row's, the pack's, the
              carry's and the admission inputs' tensors, so those are
              zeroed where they lie (the cursors to 0) and every graph is
-             kept. The stream is synchronised first, so no pinned
-             staging or output buffer is reused under an unmet copy, and
+             kept; the T0 pool, which no graph binds, is reallocated
+             through the arbiter as in JAX. The stream is synchronised
+             first, so no pinned staging or output buffer is reused
+             under an unmet copy, and
              again after, as the probe: a device that no longer
              synchronises (a sticky CUDA error) takes the engine down,
              ``down`` naming the error, and the queue fails -- the
@@ -1320,6 +1411,8 @@ class GenerationEngine:
             self._recoveries += 1
             if self._prefix_idx is not None:
                 self._prefix_idx.clear()
+            if self._kvc is not None:
+                self._kvc.clear_device()
             for idx, slot in enumerate(self._slots):
                 if slot.request is not None:
                     slot.request.stream.failed = repr(e)
@@ -1360,6 +1453,9 @@ class GenerationEngine:
         with torch.no_grad():
             for t in self._device_tensors():
                 t.zero_()
+        if self._pool is not None:
+            self._pool = None
+            self._pool = self._alloc_pool(self._kvc.slots)
         if cuda:
             torch.cuda.synchronize(self.device)   # the probe
 
@@ -1462,6 +1558,17 @@ class GenerationEngine:
                         "admission queue"))
                     req.stream._q.put(None)
                     continue
+                try:
+                    # the arbiter's checkpoint, one zero-byte lease per
+                    # admission: the seeded HBM_ALLOC seam and the
+                    # over-budget reclaim live behind it, and a failure
+                    # sheds THIS request (429 + Retry-After) instead of
+                    # failing the loop: memory pressure degrades the
+                    # request, never the engine
+                    hbm.check("engine")
+                except hbm.HBMExhausted as e:
+                    self._shed_oom(req, e)
+                    continue
                 blocks = None
                 if self._paged:
                     # (shared, matched, fresh) with one reference a block
@@ -1480,15 +1587,25 @@ class GenerationEngine:
 
     def _needs_lattice(self, req: _Request) -> bool:
         """Would admitting ``req`` run the chunk lattice? A prompt past
-        the chunk budget does, and so does a paged prefix hit that
+        the chunk budget does, and so does a prefix hit -- a paged one,
+        or a tier hit of a contiguous engine -- that
         ``_lattice_resume_valid`` accepts (the lattice resumes at the
         match point). ``match`` is pure, so the peek perturbs nothing;
         the verdict is memoized on the request, keyed by the index's
         version, as the in-flight pass re-peeks the queue's head at
-        every poll."""
+        every poll. A contiguous engine's memo is the tier match itself
+        (``_kv_match``): a T2 consult does network I/O, and the peek
+        and the restore must see one answer."""
         L = len(req.prompt)
         if L > self._chunk:
             return True
+        if self._kvc is not None:
+            mt = self._kv_match(req)
+            if mt is None:
+                return False
+            m_eff = clamp_restore_len(mt.matched_len, L)
+            return (m_eff >= self.prompt_buckets[0]
+                    and self._lattice_resume_valid(L, m_eff))
         if self._prefix_idx is None:
             return False
         ver = self._prefix_idx.version
@@ -1553,9 +1670,10 @@ class GenerationEngine:
         them."""
         if self._paged:
             return self._paged_admit_prefill(idx, req, *blocks)
-        if len(req.prompt) <= self._chunk:
+        pos = self._prefix_restore(idx, req)
+        if pos == 0 and len(req.prompt) <= self._chunk:
             return self._bucket_prefill(idx, req)
-        return self._chunk_lattice(idx, req)
+        return self._chunk_lattice(idx, req, pos)
 
     def _bucket_prefill(self, idx: int, req: _Request,
                         blocks: list[int] = ()) -> tuple[int, float]:
@@ -1745,7 +1863,8 @@ class GenerationEngine:
         keys = [("prefill", b, d) for b in buckets for d in (False, True)]
         if self._lattice:
             keys.append(("mid",))
-        if self._lattice or self._prefix_idx is not None:
+        if self._lattice or self._prefix_idx is not None \
+                or self._kvc is not None:
             keys += [("final", b, d) for b in buckets for d in (False, True)]
             if self._paged:
                 keys.append(("writeback",))
@@ -1802,6 +1921,12 @@ class GenerationEngine:
             # un-claimed before the loop's recovery, which fails every
             # slot holding a request: this stream is failed here, once
             slot.request = None
+            if isinstance(e, hbm.HBMExhausted):
+                # an admission-path lease the arbiter could not cover:
+                # memory pressure, a 429 shed of THIS request, never the
+                # loop's recovery
+                self._shed_oom(req, e)
+                return
             req.stream._q.put(GenerationError(f"prefill failed: {e!r}"))
             req.stream._q.put(None)
             raise
@@ -1840,18 +1965,298 @@ class GenerationEngine:
 
     def _prefix_store(self, idx: int, req: _Request) -> None:
         """After a completed admission and before the slot's first
-        decode block (the JAX engine's ``_prefix_store``): reference the
-        slot's full prompt blocks as an index entry. They are immutable
-        from here on (decode writes only the cursor's block), and the
-        admission has run, so no entry is stored over a failed prefill.
-        Skipped for cancelled streams, prompts under ``prefix_store_min``
-        and prompts already covered."""
-        if self._prefix_idx is None or req.stream.cancelled.is_set():
+        decode block (the JAX engine's ``_prefix_store``), remember the
+        prompt's KV. Paged: reference the slot's full prompt blocks as
+        an index entry (immutable from here on: decode writes only the
+        cursor's block). Contiguous: claim a T0 row (a victim spills to
+        the host tier before its row is overwritten), copy the slot's
+        positions [0, L) into it, and with the Redis tier on write the
+        fresh KV's full blocks through, so sibling replicas skip the
+        prefill too. The admission has run, so nothing is stored over a
+        failed prefill. Skipped for cancelled streams, prompts under
+        ``prefix_store_min`` and prompts already covered."""
+        if req.stream.cancelled.is_set():
             return
-        if len(req.prompt) < self._store_min or \
-                self._prefix_idx.covered(req.prompt):
+        if self._prefix_idx is not None:
+            if len(req.prompt) < self._store_min or \
+                    self._prefix_idx.covered(req.prompt):
+                return
+            self._prefix_idx.store(req.prompt, self._slot_blocks[idx])
             return
-        self._prefix_idx.store(req.prompt, self._slot_blocks[idx])
+        kvc = self._kvc
+        prompt = np.asarray(req.prompt, np.int32)
+        if kvc is None or len(prompt) < self._store_min \
+                or kvc.covered(prompt):
+            return
+        row, victim = kvc.store(prompt)
+        self._offload_victim(victim)
+        self._pool_copy(self._pool, row, self.cache, idx, len(prompt))
+        if kvc.shares:
+            # write-through: a host copy of the slot's fresh KV is the
+            # price of warming every replica, but only through the last
+            # full block this replica hasn't already shared
+            want = kvc.redis.pending_put_len(prompt)
+            if want > 0:
+                kvc.store_shared(prompt, 0,
+                                 self._kv_row_get(self.cache, idx, want))
+
+    # -- the contiguous engine's prefix tiers --------------------------------
+    def _new_pool(self, slots: int) -> llama.KVCache:
+        return llama.init_cache(self.cfg, slots, self.max_seq,
+                                dtype=self._kv_dtype, device=self.device)
+
+    def _alloc_pool(self, slots: int) -> llama.KVCache:
+        """The T0 pool through the arbiter: PRI_CACHE with the shrink
+        callback, so under pressure from ANY subsystem the arbiter
+        spills its entries to the host tier and reallocates it
+        smaller."""
+        return hbm.alloc(
+            "kvcache-t0", functools.partial(self._new_pool, slots),
+            nbytes=_cache_nbytes(self.cfg, slots, self.max_seq,
+                                 self._kv_dtype, slots),
+            owner=self, tag="pool", priority=hbm.PRI_CACHE,
+            reclaim=self._hbm_pool_reclaim)
+
+    @staticmethod
+    def _planes(c: llama.KVCache) -> list[torch.Tensor]:
+        return [t for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None]
+
+    def _pool_copy(self, dst: llama.KVCache, dst_row: int,
+                   src: llama.KVCache, src_row: int, n: int) -> None:
+        """Copy positions [0, n) of one batch row (values and scale
+        planes) between the pool and the serving cache: the T0 store and
+        load (the JAX engine's ``_copy_row``; positions past n are never
+        read, so only the prefix moves). Strided copies queued on the
+        serving stream, behind the admission's replays and ahead of the
+        slot's first decode block; the cursors are untouched."""
+        with torch.no_grad():
+            for d, s in zip(self._planes(dst), self._planes(src)):
+                d[:, dst_row, :n].copy_(s[:, src_row, :n])
+
+    def _kv_match(self, req: _Request, prompt: np.ndarray | None = None):
+        """Request-memoized ``CacheManager.match``, keyed by the
+        manager's version counter: the in-flight admission peek
+        (``_needs_lattice``) and the real admission must see ONE verdict
+        -- a disagreement would start a chunk lattice inside an
+        in-flight admission -- and a T2 consult does network I/O the
+        peek's poll must not repeat. Only the serving-loop thread calls
+        this, and it cannot store between peek and admit, so a memo
+        keyed by version is exact."""
+        ver = self._kvc.version
+        if req.kv_match is not None and req.kv_match[0] == ver:
+            return req.kv_match[1]
+        if prompt is None:
+            prompt = np.asarray(req.prompt, np.int32)
+        mt = self._kvc.match(prompt)
+        req.kv_match = (ver, mt)
+        return mt
+
+    def _kv_row_get(self, store: llama.KVCache, row: int, plen: int
+                    ) -> HostKV:
+        """Positions [0, plen) of one pool or cache row as CPU tensors:
+        the spill half of T1 offload and the read half of T2
+        write-through. The copy waits for the stream (every block in
+        flight included)."""
+        quant = store.k_scale is not None
+
+        def host(t):
+            return t[:, row, :plen].contiguous().cpu()
+
+        return HostKV(host(store.k), host(store.v),
+                      host(store.k_scale) if quant else None,
+                      host(store.v_scale) if quant else None)
+
+    def _offload_victim(self, victim) -> None:
+        """Spill a T0-evicted entry's pool row to the host tier. MUST
+        run before the copy that overwrites the row (store and promote
+        call it between claiming the row and copying into it)."""
+        if victim is None or not self._kvc.wants_offload:
+            return
+        plen = min(len(victim.key), self.max_seq)
+        self._kvc.offload(victim, self._kv_row_get(self._pool, victim.row,
+                                                   plen))
+
+    def _upload_row(self, kv: HostKV, row: int) -> None:
+        """Land a host snapshot's positions [0, plen) in pool row
+        ``row`` (the JAX engine's ``_write_row_from_host``, without its
+        zero-padded Smax-wide row). On the card each plane goes through
+        a pinned staging buffer, as one contiguous [L, plen, ...]
+        block, so the upload is an asynchronous copy on the serving
+        stream; the staging is reused once the previous upload's event
+        has passed."""
+        planes = list(zip(self._planes(self._pool), self._planes(kv)))
+        with torch.no_grad():
+            if self.device.type != "cuda":
+                for dst, src in planes:
+                    dst[:, row, :kv.plen].copy_(src)
+                return
+            if self._stage is None:
+                self._stage = ([torch.empty(
+                    (d.shape[0] * d.shape[2] * d[0, 0, 0].numel(),),
+                    dtype=d.dtype, pin_memory=True) for d, _ in planes],
+                    torch.cuda.Event())
+            bufs, done = self._stage
+            done.synchronize()
+            for (dst, src), buf in zip(planes, bufs):
+                stage = buf[:src.numel()].view(src.shape)
+                stage.copy_(src)
+                dst[:, row, :kv.plen].copy_(stage, non_blocking=True)
+            done.record()
+
+    def _promote_hostkv(self, mt) -> int | None:
+        """Land a T1/T2 match's host KV in a T0 pool row and register it
+        under the entry's key: the next hit on this prefix is a T0 row
+        copy. Returns the row, or None when the payload cannot serve
+        this engine (shape or quantization drift: a miss, never an
+        error)."""
+        kv = dense_hostkv(mt.hostkv) if mt.hostkv is not None else None
+        pool = self._pool
+        if (kv is None or kv.plen > self.max_seq or len(mt.key) < kv.plen
+                or (pool.quantized and kv.k_scale is None)
+                or kv.k.dtype != pool.k.dtype
+                or kv.k.shape[0] != pool.k.shape[0]
+                or kv.k.shape[2:] != pool.k.shape[3:]):
+            return None
+        row, victim = self._kvc.store(mt.key[:kv.plen], mt.adapter)
+        self._offload_victim(victim)
+        self._upload_row(kv, row)
+        return row
+
+    def _prefix_restore(self, idx: int, req: _Request) -> int:
+        """Consult the cache hierarchy; on a useful hit land the prefix
+        KV in slot ``idx`` and return the position prefill resumes from
+        (0 = no hit). T0 hits are one pool-row copy; T1/T2 hits promote
+        through a pool row first (``_promote_hostkv``). At least one
+        prompt position is always recomputed: the final chunk ends at
+        the prompt end and samples there."""
+        if self._kvc is None:
+            return 0
+        L = len(req.prompt)
+        prompt = np.asarray(req.prompt, np.int32)
+        t_start = time.monotonic()
+        mt = self._kv_match(req, prompt)
+        # the memo's job (one verdict for peek AND restore) is done once
+        # the restore reads it; a T2 match's decoded HostKV must not
+        # stay pinned on the request for the stream's lifetime
+        req.kv_match = None
+        if mt is None:
+            self._kvc.reject(prompt=prompt)
+            return 0
+        # full-prompt-hit clamp: restore at most L - 1 positions so the
+        # final chunk prefills >= 1 token and samples from its logits
+        m_eff = clamp_restore_len(mt.matched_len, L)
+        if (m_eff < self.prompt_buckets[0]
+                or not self._lattice_resume_valid(L, m_eff)):
+            self._kvc.reject(mt)
+            return 0
+        row = mt.row if mt.tier == "t0" else self._promote_hostkv(mt)
+        if row is None:
+            self._kvc.reject(mt)
+            return 0
+        self._pool_copy(self.cache, idx, self._pool, row, m_eff)
+        self._kvc.accept(mt, time.monotonic() - t_start)
+        req.stream.cache_tier = mt.tier
+        req.stream.cache_tokens = m_eff
+        if self.metrics is not None:
+            try:
+                self.metrics.increment_counter(
+                    "app_tpu_prefix_cache_hits_total")
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+        return m_eff
+
+    def _shed_oom(self, req: _Request, e: hbm.HBMExhausted) -> None:
+        """OOM-shed a popped admission: the arbiter could not cover a
+        lease (the seeded HBM_ALLOC seam, or a real budget overshoot
+        that survived reclaim), so THIS request ends with a 429 /
+        RESOURCE_EXHAUSTED carrying the arbiter's Retry-After, through
+        the gate's shed surface when there is a gate, while the engine
+        keeps serving. The arbiter counted app_tpu_hbm_shed_total at its
+        raise site."""
+        err: Exception = e
+        if self.gate is not None:
+            err = self.gate.shed_memory(
+                program="generate", slo_class=req.slo_class,
+                retry_after=e.retry_after or 1.0,
+                trace_id=req.stream.trace_id)
+        req.stream.failed = "hbm exhausted: shed"
+        req.stream._q.put(err)
+        req.stream._q.put(None)
+
+    # -- the arbiter's reclaim callbacks -------------------------------------
+    def _hbm_pool_reclaim(self, need: int) -> int:
+        """Shrink the T0 pool toward the host tier: spill every live
+        entry's row to T1 (when configured), drop enough rows to cover
+        ``need`` bytes (always keeping one), and reallocate the pool at
+        the smaller size. Future hits promote back from T1/T2 exactly
+        like post-recovery rewarming: the cache gets slower, the process
+        survives. Runs under the device lock. Returns bytes freed."""
+        with self._device_lock:
+            kvc, pool = self._kvc, self._pool
+            if kvc is None or pool is None or kvc.slots <= 1:
+                return 0
+            slots = kvc.slots
+            total = hbm.tree_nbytes(pool)
+            row_b = max(1, total // slots)
+            drop = min(slots - 1, -(-max(int(need), 1) // row_b))
+            new_slots = slots - drop
+            for entry in kvc.t0.entries():
+                self._offload_victim(entry)
+            kvc.shrink(new_slots)
+            # drop the old pool BEFORE allocating the smaller one:
+            # holding both would spike usage past the very budget this
+            # reclaim is trying to satisfy
+            self._pool = pool = None
+            try:
+                self._pool = hbm.account("kvcache-t0",
+                                         self._new_pool(new_slots),
+                                         owner=self, tag="pool")
+            except Exception:  # noqa: BLE001 — degrade, never crash
+                # even the SMALLER pool failed to allocate (this runs
+                # under memory pressure): disable the prefix tiers, so
+                # serving continues cache-less, and count the whole old
+                # pool as freed
+                self._disable_prefix_tiers()
+                hbm.release("kvcache-t0", owner=self, tag="pool")
+                if self.logger is not None:
+                    self.logger.error({
+                        "event": "kvcache t0 disabled: arbiter shrink "
+                                 "could not reallocate the smaller pool",
+                        "slots_attempted": new_slots})
+                return total
+            if self.logger is not None:
+                self.logger.warn({
+                    "event": "kvcache t0 shrunk by hbm arbiter reclaim",
+                    "slots": new_slots, "dropped_rows": drop,
+                    "freed_bytes": drop * row_b})
+            return drop * row_b
+
+    def _disable_prefix_tiers(self) -> None:
+        """Last-resort degradation: drop the hierarchical prefix cache
+        (pool gone, manager detached, its Redis client closed) so every
+        cache path sees what it sees on an engine built without one:
+        requests keep serving, they just prefill fully."""
+        kvc, self._kvc = self._kvc, None
+        self._pool = None
+        self._stage = None
+        if kvc is not None and kvc.redis is not None:
+            kvc.redis.client.close()
+
+    def _hbm_paged_reclaim(self, need: int) -> int:
+        """Release ONE cold shared-prefix entry's blocks back to the
+        paged pool, the same one-at-a-time valve the in-pool pressure
+        paths use. The pool is one preallocated tensor, so this frees
+        BLOCK capacity, not device bytes: it reports 0 toward a byte
+        deficit but still runs under pressure so the next block-level
+        allocation finds room."""
+        del need
+        if not self._paged or self._prefix_idx is None:
+            return 0
+        with self._device_lock:
+            if self._prefix_idx.evict_one() and self.logger is not None:
+                self.logger.warn({"event": "paged prefix entry evicted "
+                                  "by hbm arbiter reclaim"})
+        return 0
 
     def _eos_row(self, idx: int, eos_id) -> None:
         row = self._eos_mat[idx]

@@ -22,7 +22,10 @@ functions compute eagerly, and long prompts stream the same tokens with
 interleave on and off and on a contiguous engine. The score program's
 function runs K1 at a ragged batch and equals the plain attention, the
 encoders' engines predict on the card, and an App on the card streams a
-Generate over its gRPC server and frees the slot of a cancelled Chat. They
+Generate over its gRPC server and frees the slot of a cancelled Chat.
+The prefix tiers restore their stored int8 bytes through the pinned
+staging upload and stream the same tokens from T1 and T2, and the memory
+arbiter budgets the card and retries a real out-of-memory error. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1182,3 +1185,106 @@ def test_an_app_on_the_card_streams_generate_and_frees_a_cancelled_chat(
     finally:
         ch.close()
         app.stop()
+
+
+# -- the prefix tiers and the memory arbiter on the card ----------------------
+
+def test_the_prefix_tiers_restore_the_stored_bytes_on_the_card(gen):
+    """A contiguous engine with one T0 row, a host tier and a shared tier
+    on the port's FakeRedisServer: two stored prompts (a 64-token system
+    prompt and a first turn) stream an untiered engine's tokens and push
+    the first into host RAM; a follow-up of each is a T1 hit whose
+    promotion uploads the snapshot through the pinned staging, landing
+    its int8 codes and scales in the pool row; a fresh engine's T2 hits
+    of the same follow-ups stream the same tokens as those T1 hits."""
+    from gofr_tpu_torch.datasource.redisclient import RedisClient
+    from gofr_tpu_torch.testutil.redisfake import FakeRedisServer
+    from gofr_tpu_torch.tpu.kvcache import KVCacheOptions
+
+    rng = np.random.default_rng(9)
+    systems = [rng.integers(1, SMALL.vocab_size, 64).tolist()
+               for _ in range(2)]
+    first = [s + rng.integers(1, SMALL.vocab_size, 20).tolist()
+             for s in systems]
+    follow = [s + rng.integers(1, SMALL.vocab_size, 12).tolist()
+              for s in systems]
+    plain = _lattice_engine(False)
+    try:
+        want = [plain.generate(p, max_new_tokens=8).tokens() for p in first]
+    finally:
+        plain.close()
+    srv = FakeRedisServer()
+
+    def tiered():
+        # follow-ups (76 tokens) stay under the store minimum
+        return _lattice_engine(False, prefix_cache_slots=1,
+                               prefix_store_min=80,
+                               kvcache=KVCacheOptions(
+                                   host_mb=64,
+                                   redis=RedisClient(srv.host, srv.port)))
+
+    try:
+        eng = tiered()
+        try:
+            assert [eng.generate(p, max_new_tokens=8).tokens()
+                    for p in first] == want
+            hits, promoted = [], []
+            for i in range(2):
+                s = eng.generate(follow[i], max_new_tokens=8)
+                hits.append((s.tokens(), s.cache_tier, s.cache_tokens))
+                entry, _ = eng._kvc.host.match(np.asarray(first[i]))
+                row = eng._kvc.t0.match(np.asarray(first[i]))[0].row
+                kv = entry.payload
+                promoted.append(all(
+                    torch.equal(d[:, row, :kv.plen].cpu(), h)
+                    for d, h in zip(eng._planes(eng._pool),
+                                    eng._planes(kv))))
+        finally:
+            eng.close()
+        assert [h[1:] for h in hits] == [("t1", 64)] * 2 and all(promoted)
+        eng = tiered()
+        try:
+            again = []
+            for p in follow:
+                s = eng.generate(p, max_new_tokens=8)
+                again.append((s.tokens(), s.cache_tier, s.cache_tokens))
+        finally:
+            eng.close()
+        assert [a[1:] for a in again] == [("t2", 64)] * 2
+        assert [a[0] for a in again] == [h[0] for h in hits]
+    finally:
+        srv.close()
+
+
+def test_the_arbiter_budgets_the_card_and_retries_a_real_oom(gen):
+    """The budget resolves from the card's memory less the headroom; an
+    allocation that fails with torch.OutOfMemoryError once is retried
+    after a reclaim, and one the card can never hold (twice its memory,
+    no budget to refuse the lease first) sheds as HBMExhausted."""
+    from gofr_tpu_torch.tpu import hbm
+
+    hbm.reset()
+    try:
+        _, total = torch.cuda.mem_get_info()
+        assert hbm.configure(headroom=0.1, device="cuda") == int(total * 0.9)
+        tries = []
+
+        def flaky():
+            tries.append(1)
+            if len(tries) == 1:
+                raise torch.OutOfMemoryError("CUDA out of memory (injected)")
+            return torch.zeros((1024,), device="cuda")
+
+        owner = object()
+        got = hbm.alloc("engine", flaky, nbytes=4096, owner=owner, tag="x")
+        assert got.is_cuda and len(tries) == 2
+        assert hbm.arbiter_stats()["oom_retries"] == {"engine": 1}
+        hbm.set_budget(None)
+        with pytest.raises(hbm.HBMExhausted):
+            hbm.alloc("engine", lambda: torch.empty(
+                (2 * total,), dtype=torch.uint8, device="cuda"),
+                owner=owner, tag="huge")
+        assert hbm.arbiter_stats()["oom_retries"] == {"engine": 2}
+        assert hbm.live_bytes() == {"engine": 4096}
+    finally:
+        hbm.reset()

@@ -207,11 +207,12 @@ def test_cancel_ends_the_stream_and_frees_the_slot(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    {"prefix_cache_slots": 2}, {"spec_decode_k": 4, "lora_adapters": 2},
+    {"prefix_cache_slots": 2, "lora_adapters": 2},
+    {"spec_decode_k": 4, "lora_adapters": 2},
     {"lora_adapters": 2},
     {"paged_blocks": 64, "prefix_cache_slots": 2, "lora_adapters": 2},
     {"decode_pipeline": 2, "lora_adapters": 2},
-    {"kvcache": object()},
+    {"kvcache": object(), "mesh": object()},
     {"mesh": object()},
 ])
 def test_features_outside_the_slice_raise(weights, kw):
@@ -326,7 +327,7 @@ def test_new_engine_from_config_loads_jax_weights(weights, tmp_path):
 
 
 @pytest.mark.parametrize("rows,name", [
-    ({"TPU_PREFIX_CACHE": "4"}, "TPU_PREFIX_CACHE"),
+    ({"TPU_HBM_DEVICE_BUDGET_MB": "4"}, "TPU_HBM_DEVICE_BUDGET_MB"),
     ({"TPU_TENANTS": "a,b"}, "TPU_TENANTS"),
     ({"TPU_SERVING_ROLE": "prefill"}, "TPU_SERVING_ROLE"),
 ])

@@ -313,10 +313,10 @@ def test_a_lattice_arrival_under_a_block_in_flight_is_deferred(weights):
             inflight.on = False
         facts.append((eng._lattice_deferred, eng._target_depth()))
 
-    def spy_lattice(row, req):
+    def spy_lattice(row, req, pos=0):
         entries.append((getattr(inflight, "on", False),
                         eng._lattice_deferred))
-        return lattice(row, req)
+        return lattice(row, req, pos)
 
     eng._admit_inflight, eng._chunk_lattice = spy_admit, spy_lattice
     try:

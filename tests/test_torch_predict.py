@@ -314,8 +314,9 @@ def test_the_predict_rows_are_honoured_as_in_jax(npz):
 
 
 @pytest.mark.parametrize("row", ["TPU_SHARDING", "TPU_TENANTS",
-                                 "TPU_LORA_ADAPTERS", "TPU_HBM_BUDGET_MB",
-                                 "TPU_KVCACHE_BLOCK"])
+                                 "TPU_LORA_ADAPTERS",
+                                 "TPU_HBM_DEVICE_BUDGET_MB",
+                                 "TPU_LORA_RANK"])
 def test_every_other_row_still_raises_with_its_name(npz, row):
     with pytest.raises(ValueError, match=row):
         _build("port", npz, "bert-tiny", **{row: "4"})

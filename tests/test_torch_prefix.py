@@ -322,11 +322,12 @@ def test_entries_evict_under_pool_pressure_before_truncation(weights):
 def test_the_prefix_rows(weights):
     """TPU_PREFIX_CACHE and TPU_PREFIX_MIN build the index on a paged
     engine (the store minimum defaults to the largest bucket, as in
-    JAX); on a contiguous engine TPU_PREFIX_CACHE raises, naming the
-    roadmap item of the tiers. TPU_KVCACHE_* stay refused."""
+    JAX); on a contiguous engine TPU_PREFIX_CACHE builds the kv-cache
+    tiers instead, with T0 rows and radix blocks from the rows
+    (TPU_KVCACHE_* are honoured since the tiers were ported)."""
     assert "TPU_PREFIX_CACHE" not in UNPORTED_ROWS
     assert "TPU_PREFIX_MIN" not in UNPORTED_ROWS
-    assert "TPU_KVCACHE_BLOCK" in UNPORTED_ROWS
+    assert "TPU_KVCACHE_BLOCK" not in UNPORTED_ROWS
     rows = {"TPU_MODEL": "tiny", "TPU_SLOTS": "2", "TPU_MAX_SEQ": "64",
             "TPU_DECODE_BLOCK": "2", "TPU_SEQ_BUCKETS": "8,16",
             "TPU_PAGED_BLOCKS": "13", "TPU_PAGED_BLOCK": "16"}
@@ -346,10 +347,13 @@ def test_the_prefix_rows(weights):
         finally:
             eng.close()
     contiguous = {k: v for k, v in rows.items() if "PAGED" not in k}
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        new_engine_from_config(MapConfig({**contiguous,
-                                          "TPU_PREFIX_CACHE": "2"}),
-                               device="cpu")
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        GenerationEngine(CFG, weights[1], slots=2, max_seq=64,
-                         prefix_cache_slots=2, device="cpu")
+    eng = new_engine_from_config(MapConfig({**contiguous,
+                                            "TPU_PREFIX_CACHE": "2",
+                                            "TPU_KVCACHE_BLOCK": "8"}),
+                                 device="cpu")
+    try:
+        st = eng.generator.kvcache_stats()
+        assert (st["kind"], st["slots"], st["block"]) == \
+            ("hierarchical", 2, 8)
+    finally:
+        eng.close()

@@ -512,7 +512,7 @@ def test_the_batch_class_rows_still_raise(row):
             assert policy is None
     finally:
         eng.close()
-    with pytest.raises(ValueError, match="TPU_KVCACHE_BLOCK"):
+    with pytest.raises(ValueError, match="TPU_HBM_DEVICE_BUDGET_MB"):
         new_engine_from_config(MapConfig({"TPU_MODEL": "tiny", row: "0.5",
-                                          "TPU_KVCACHE_BLOCK": "16"}),
+                                          "TPU_HBM_DEVICE_BUDGET_MB": "16"}),
                                device="cpu")
