@@ -210,10 +210,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      beside the growth of torch.cuda.memory_allocated for each App;
      flash_prefill 32 a bucket admission and flash_decode 32 a decode
      step;
+  5j. (phase ``lora``) multi-LoRA on examples/tpu-multi-lora's routes
+     and rows: a ``gofr_tpu_torch.App`` builds Llama-3-8B with int8
+     weights and KV, 48 slots, 1024 positions and 4 adapter slots of
+     rank 16 (seed-0 weights); adapters 1-3 installed through ``POST
+     /adapters/{idx}`` (seeded npz bodies, B scaled so their greedy
+     tokens part from adapter 0's); ``GET /adapters``; 32 concurrent
+     ``POST /generate`` of 17-500 tokens, 48 new, 8 an adapter (K1 32 a
+     bucket admission, K2 32 a decode step, counted), then the same
+     prompts all on adapter 0; adapter-0 prompts alone against an engine
+     without LoRA on the same base tensors (equal); adapters 1-3's
+     first-token log-probabilities against float32 with the adapter
+     merged into the dequantized weights; a decode block's device time
+     with and without LoRA; a hot swap (``POST /adapters/3`` with
+     adapter 1's body) under 8 live streams, after which adapter 3
+     streams adapter 1's tokens; then a paged engine (257 blocks of 128)
+     on the same base tensors and adapters: 8 mixed prompts alone,
+     token for token the contiguous engine's, K3 32 a decode step;
+  5k. (phase ``pubsub``) BASELINE config #4 on one card:
+     examples/kafka-vit-classify's handler on a ``gofr_tpu_torch.App``
+     whose subscriber loop feeds ViT-L/14 from the MEM broker: 12 jobs
+     of 1-8 images and one malformed message published at once; labels
+     equal to a direct ``predict_batch``, the subscribe counters 13 and
+     12, the malformed message logged and uncommitted, ``stop()``
+     joining the subscriber; jobs and images a second, publish to result
+     split into the JSON bind and the dispatch;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
-     5's, the score run's and phases grpc's and tiers'; flash_decode's
-     phase 5's and phases grpc's and tiers'), then the card line, then the
-     ``{"ok": true, "device": {...}}`` line last.
+     5's, the score run's and phases grpc's, tiers' and lora's;
+     flash_decode's phase 5's and phases grpc's, tiers' and lora's;
+     paged_decode's phase paged's and lora's), then the card line, then
+     the ``{"ok": true, "device": {...}}`` line last.
 
 It needs the repository beside it and a CUDA card; without either it
 exits non-zero and prints no result.
@@ -1303,7 +1329,7 @@ def verify_vs_eager(gen, lengths: list, seed: int, tag: str) -> float:
     if gen._paged:
         table, _ = shuffled_table([x + w for x in lengths], gen._block_t,
                                   gen._mb, n=c.n_blocks)
-        buf[:, w + 1:] = table.long()
+        buf[:, w + 1:-1] = table.long()
     inputs = buf.clone()
     cache = dataclasses.replace(
         c, k=c.k.clone(), v=c.v.clone(), lengths=c.lengths.clone(),
@@ -1314,7 +1340,7 @@ def verify_vs_eager(gen, lengths: list, seed: int, tag: str) -> float:
     with torch.no_grad():
         want = verify_pass(
             gen.params, gen.cfg, cache, inputs[:, :w], inputs[:, w].bool(),
-            inputs[:, w + 1:].to(torch.int32) if gen._paged else None,
+            inputs[:, w + 1:-1].to(torch.int32) if gen._paged else None,
             gen.rope_tables)
     torch.cuda.synchronize()
     lp = (got[:, w:2 * w] - want[:, w:2 * w]).abs().max().item()
@@ -3893,7 +3919,7 @@ def phase_grpc(card: str) -> dict:
                                      "paged_plain")}
     require(not any(others.values()),
             f"other attention paths ran on the gRPC path: {others}")
-    return counts
+    return {k: counts[k] for k in ("flash_prefill", "flash_decode")}
 
 
 # TPU_KVCACHE_REDIS_TIMEOUT_S: the shared tier here is an in-process
@@ -4419,17 +4445,720 @@ def phase_tiers(card: str) -> dict:
                                      "paged_plain")}
     require(not any(others.values()),
             f"other attention paths ran on the tiers' path: {others}")
-    return counts
+    return {k: counts[k] for k in ("flash_prefill", "flash_decode")}
 
 
 # -- running the phases -------------------------------------------------------
+
+# -- phase lora: multi-LoRA on the example's rows ----------------------------
+
+# examples/tpu-multi-lora/configs/.env's engine rows
+LORA_ROWS = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "WARN",
+             "TPU_MODEL": "llama3-8b", "TPU_QUANT": "int8",
+             "TPU_KV_DTYPE": "int8", "TPU_SLOTS": "48", "TPU_MAX_SEQ": "1024",
+             "TPU_LORA_ADAPTERS": "4", "TPU_LORA_RANK": "16"}
+LORA_PAGED_ROWS = dict(LORA_ROWS, TPU_PAGED_BLOCKS="257",
+                       TPU_PAGED_BLOCK="128")
+LORA_SEED = 59
+LORA_PER_ADAPTER = 8         # burst requests a adapter (adapters 0-3)
+LORA_LENS = (17, 500)        # their prompt lengths: bucket admissions (K1)
+LORA_NEW = 48
+LORA_B_SCALE = 0.1           # B ~ N(0, scale^2): parts greedy tokens from
+                             # adapter 0's (A ~ N(0, 1/in), as init_lora)
+LORA_SWAP_NEW = 160          # the 8 streams live through the hot swap
+LORA_F32_PROMPTS = 2         # a adapter, first-token logits against f32
+LORA_BLOCK_REPS = 20         # decode-block replays timed, with and without
+# first-token log-probabilities of the bf16 engine path (int8 weights,
+# LoRA deltas) against float32 on the same weights with the adapter
+# merged, through 32 layers (as VIT_F32_LOGP holds ViT's 24); on an H100
+# the right merge read 0.0756 and the controls (a wrong adapter merged,
+# none merged) 5.31 and 4.63, so the limit parts them
+LORA_F32_LOGP = 0.25
+
+
+def multi_lora_routes(app) -> None:
+    """examples/tpu-multi-lora/main.py's three routes, on the port."""
+    import io
+
+    import numpy as np
+
+    from gofr_tpu_torch.models.llama import LORA_TARGETS
+
+    @app.post("/generate")
+    def generate(ctx):
+        body = ctx.bind()
+        stream = ctx.tpu.generate(body["tokens"],
+                                  max_new_tokens=body.get("max_new_tokens", 32),
+                                  temperature=body.get("temperature", 0.0),
+                                  adapter=body.get("adapter", 0))
+        return {"tokens": stream.tokens(), "adapter": body.get("adapter", 0)}
+
+    @app.get("/adapters")
+    def list_adapters(ctx):
+        return ctx.tpu.generator.stats().get("lora", {})
+
+    @app.post("/adapters/{idx}")
+    def install_adapter(ctx):
+        idx = int(ctx.path_param("idx"))
+        with np.load(io.BytesIO(ctx.request.body)) as f:
+            tree = {name: (f[f"{name}.a"], f[f"{name}.b"])
+                    for name in LORA_TARGETS if f"{name}.a" in f.files}
+        ctx.tpu.generator.load_adapter(idx, tree)
+        return {"installed": idx, "targets": sorted(tree)}
+
+
+def http_raw(port: int, method: str, path: str, data: bytes) -> dict:
+    """One request with a raw body: status and the JSON reply."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=APP_CALL_TIMEOUT_S)
+    try:
+        conn.request(method, path, body=data,
+                     headers={"Content-Type": "application/octet-stream"})
+        resp = conn.getresponse()
+        return {"status": resp.status, "body": json.loads(resp.read())}
+    finally:
+        conn.close()
+
+
+def adapter_npz(cfg, rank: int, seed: int) -> bytes:
+    """An adapter as the example's install route reads it: '<target>.a'
+    [L, in, r] drawn N(0, 1/in) and '<target>.b' [L, r, out] drawn
+    N(0, LORA_B_SCALE^2), float16, from ``seed``."""
+    import io
+
+    import numpy as np
+
+    from gofr_tpu_torch.models import llama
+
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for name, (din, dout) in llama._lora_dims(cfg).items():
+        L = cfg.n_layers
+        arrays[f"{name}.a"] = (rng.standard_normal((L, din, rank), np.float32)
+                               * din ** -0.5).astype(np.float16)
+        arrays[f"{name}.b"] = (rng.standard_normal((L, rank, dout),
+                                                   np.float32)
+                               * LORA_B_SCALE).astype(np.float16)
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def f32_merged_logits(params: dict, cfg, prompt, adapter: int):
+    """Next-token log-probabilities [V] at the prompt's end in float32:
+    the int8 weights dequantized and adapter ``adapter`` merged into
+    them (W + A B), one layer at a time, plain attention. The reference
+    the engine's bf16 path is held against."""
+    import torch
+
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.models.common import layer_weights
+    from gofr_tpu_torch.ops import flash
+    from gofr_tpu_torch.ops.norms import rms_norm
+    from gofr_tpu_torch.ops.quant import QuantizedLinear
+
+    def deq(w):
+        if isinstance(w, QuantizedLinear):
+            return w.w.float() * w.scale.float()
+        return w.float()
+
+    mc = cfg.with_(dtype="float32")
+    n = len(prompt)
+    dev = params["embedding"].device
+    tokens = torch.tensor([prompt], device=dev)
+    lengths = torch.tensor([n], dtype=torch.int32, device=dev)
+    cos, sin = llama.get_rope_tables(mc, n, dev)
+    positions = torch.arange(n, device=dev)[None]
+
+    def attend(q, k, v):
+        return flash.causal_prefill_plain(q, k, v, lengths)
+
+    with torch.inference_mode():
+        x = params["embedding"][tokens].float()
+        for i in range(cfg.n_layers):
+            w = layer_weights(params["layers"], i)
+            f = {k: deq(v) for k, v in w.items() if not k.startswith("lora_")}
+            for name in llama.LORA_TARGETS:
+                f[name] = f[name] + (w[f"lora_a_{name}"][adapter].float()
+                                     @ w[f"lora_b_{name}"][adapter].float())
+            x, _ = llama._layer(x, f, mc, cos, sin, positions, attend)
+            del f
+        x = rms_norm(x[:, -1], params["final_norm"].float(), cfg.norm_eps)
+        logits = x @ deq(params["lm_head"])
+    return torch.log_softmax(logits[0], dim=-1)
+
+
+def engine_first_logp(gen, prompt, adapter: int):
+    """The engine's bucket admission path run eagerly on the card
+    (prefill_kv through K1 at the prompt's bucket, the adapter's
+    deltas): next-token log-probabilities [V] at the prompt's end."""
+    import torch
+
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.tpu.generator import pad_bucket
+
+    n = len(prompt)
+    width = pad_bucket(n, gen.prompt_buckets)
+    dev = gen.device
+    tokens = torch.zeros((1, width), dtype=torch.long, device=dev)
+    tokens[0, :n] = torch.tensor(prompt)
+    with torch.inference_mode():
+        logits, _, _, _ = llama.prefill_kv(
+            gen.params, gen.cfg, tokens,
+            torch.tensor([n], dtype=torch.int32, device=dev),
+            rope_tables=gen.rope_tables, flash=True,
+            logit_pos=torch.tensor([n - 1], device=dev),
+            adapter=torch.tensor([adapter], device=dev))
+    return torch.log_softmax(logits[0, 0].float(), dim=-1)
+
+
+def block_device_ms(gen, lengths: list, adapters: list, reps: int) -> float:
+    """The median device time of one decode-block replay (CUDA events)
+    with every slot live at ``lengths`` on ``adapters``, the cursors and
+    the pack put back before each replay; the engine is idle, and is
+    left as an idle engine finds it."""
+    import numpy as np
+    import torch
+
+    b = gen.n_slots
+    p = gen._warm_pack()
+    p[:, 0] = np.arange(b) + 7
+    p[:, 1] = 1
+    p[:, 2] = 10_000
+    p[:, 5] = adapters
+    p[:, 8] = lengths
+    pack = torch.from_numpy(p).to(gen.device)
+    cursors = torch.tensor(lengths, dtype=torch.int32, device=gen.device)
+    graph = gen._graphs[False][0]
+    times = []
+    with quiet_device(gen):
+        for _ in range(reps + 1):
+            gen._pack.copy_(pack)
+            gen.cache.lengths.copy_(cursors)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        gen.cache.lengths.zero_()
+        gen._host_wins[:] = True
+        gen._touch()
+    return float(np.median(times[1:]))
+
+
+def _lora_generate(port: int, prompt, adapter: int, new: int) -> list:
+    out = http_call(port, "POST", "/generate",
+                    {"tokens": prompt, "adapter": adapter,
+                     "max_new_tokens": new})
+    require(out["status"] == 200, f"POST /generate: {out['status']} "
+                                  f"{out.get('body')}")
+    data = out["lines"][0]["data"]
+    require(data["adapter"] == adapter, f"the route answered {data}")
+    return data["tokens"]
+
+
+def _first_split(a: list, b: list):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def phase_lora(card: str) -> dict:
+    """Multi-LoRA serving at full width and depth, on
+    examples/tpu-multi-lora's routes and rows: a ``gofr_tpu_torch.App``
+    builds Llama-3-8B (int8 weights and KV, 48 slots, 1024 positions,
+    4 adapter slots of rank 16; seed-0 weights); adapters 1-3 installed
+    through ``POST /adapters/{idx}`` (seeded npz bodies); 32 concurrent
+    ``POST /generate`` (8 an adapter, greedy) with K1 a bucket admission
+    and K2 a decode step counted, then the same prompts all on adapter
+    0; adapter-0 streams against an engine without LoRA on the same base
+    tensors, prompts alone on each; first-token log-probabilities of
+    adapters 1-3 against float32 with the adapter merged; a hot swap
+    (``POST /adapters/3`` with adapter 1's body) under 8 live streams,
+    after which adapter 3 streams adapter 1's tokens; ``GET /adapters``;
+    a decode block's device time with and without LoRA; the stacks'
+    bytes in the arbiter; then a paged engine (257 blocks of 128) on the
+    same base weights and adapters serving 8 mixed prompts alone
+    through K3, token for token the contiguous engine's. Returns the
+    launch counts of the contiguous burst and the paged run."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.tpu import GenerationEngine, hbm, new_engine_from_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    app = App(MapConfig(LORA_ROWS))
+    multi_lora_routes(app)
+    app.run(block=False)
+    tpu = app.container.tpu
+    gen = tpu.generator
+    cfg = gen.cfg
+    layers = cfg.n_layers
+    torch.cuda.synchronize()
+    built_s = time.monotonic() - t0
+    lora_bytes = hbm.live_bytes().get("lora", 0)
+    rank = int(gen.params["layers"]["lora_a_wq"].shape[-1])
+    port = app.http_port
+    streams, lock = [], threading.Lock()
+    generate = tpu.generate
+
+    def tracked(*args, **kw):
+        s = generate(*args, **kw)
+        with lock:
+            streams.append(s)
+        return s
+
+    tpu.generate = tracked
+    plain = None
+    try:
+        # adapters 1-3 through the install route
+        bodies = {k: adapter_npz(cfg, rank, LORA_SEED * 100 + k)
+                  for k in (1, 2, 3)}
+        t_inst = time.monotonic()
+        installed = [http_raw(port, "POST", f"/adapters/{k}", bodies[k])
+                     for k in (1, 2, 3)]
+        inst_s = (time.monotonic() - t_inst) / 3
+        require(all(r["status"] == 200 and r["body"]["data"]["targets"]
+                    == ["wk", "wo", "wq", "wv"] for r in installed),
+                f"adapter installs: {installed}")
+        listed = http_call(port, "GET", "/adapters")
+        want = {"adapters": int(LORA_ROWS["TPU_LORA_ADAPTERS"]),
+                "rank": int(LORA_ROWS["TPU_LORA_RANK"])}
+        require(listed["status"] == 200 and listed["body"]["data"] == want,
+                f"GET /adapters: {listed}")
+        rng = np.random.default_rng(LORA_SEED)
+        vocab = cfg.vocab_size
+        lens = rng.integers(LORA_LENS[0], LORA_LENS[1] + 1,
+                            4 * LORA_PER_ADAPTER)
+        prompts = [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+        adapters = [i % 4 for i in range(len(prompts))]
+
+        def burst(which) -> tuple:
+            del streams[:]
+            t_b = time.monotonic()
+            outs = _threads([lambda p=p, a=a: _lora_generate(
+                port, p, a, LORA_NEW) for p, a in zip(prompts, which)])
+            wall = time.monotonic() - t_b
+            ttft = [1e3 * (s.trace["first_put"] - s.trace["submit"])
+                    for s in streams]
+            return outs, wall, ttft
+
+        # the main path: the mixed burst, counted
+        adm0, steps0 = gen.admissions, gen.decode_steps
+        _reset_launches()
+        mixed, mixed_s, mixed_ttft = burst(adapters)
+        counts = _launches()
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+        require(all(len(t) == LORA_NEW for t in mixed),
+                f"burst lengths {[len(t) for t in mixed]}")
+        require(admissions == len(prompts),
+                f"{admissions} admissions for {len(prompts)} requests")
+        require(counts["flash_prefill"] == layers * admissions,
+                f"flash_prefill launches {counts['flash_prefill']} for "
+                f"{admissions} bucket admissions of {layers} layers")
+        require(counts["flash_decode"] == layers * steps,
+                f"flash_decode launches {counts['flash_decode']} for "
+                f"{steps} decode steps of {layers} layers")
+        require(counts["prefill_plain"] == counts["decode_plain"] == 0,
+                f"plain versions ran on the card: {counts}")
+        base0, base_s, base_ttft = burst([0] * len(prompts))
+        require(all(len(t) == LORA_NEW for t in base0), "adapter-0 burst")
+        # (a) adapter 0 against an engine without LoRA, prompts alone
+        base_params = {**gen.params, "layers": {
+            k: v for k, v in gen.params["layers"].items()
+            if not k.startswith("lora_")}}
+        plain = GenerationEngine(
+            cfg, base_params, slots=gen.n_slots, max_seq=gen.max_seq,
+            kv_dtype=torch.int8, prompt_buckets=gen.prompt_buckets,
+            device=gen.device)
+        zero = [i for i, a in enumerate(adapters) if a == 0]
+        alone0 = [_lora_generate(port, prompts[i], 0, LORA_NEW) for i in zero]
+        plain0 = [plain.generate(prompts[i], max_new_tokens=LORA_NEW).tokens()
+                  for i in zero]
+        splits_a = [(i, _first_split(a, b)) for i, a, b in
+                    zip(zero, alone0, plain0) if a != b]
+        in_burst = sum(mixed[i] == a for i, a in zip(zero, alone0))
+        # adapters part from adapter 0: the first prompt of each, alone
+        parted = {}
+        for k in (1, 2, 3):
+            i = adapters.index(k)
+            parted[k] = (_lora_generate(port, prompts[i], 0, LORA_NEW)
+                         != _lora_generate(port, prompts[i], k, LORA_NEW))
+        block_plain = block_device_ms(
+            plain, [int(n) for n in np.resize(lens, plain.n_slots)],
+            [0] * plain.n_slots, LORA_BLOCK_REPS)
+        plain.close()
+        release_graphs(plain)
+        plain = None
+        block_lora = block_device_ms(
+            gen, [int(n) for n in np.resize(lens, gen.n_slots)],
+            [i % 4 for i in range(gen.n_slots)], LORA_BLOCK_REPS)
+        # (b) first-token log-probabilities against float32, merged
+        # and, as controls, against float32 with the wrong adapter merged
+        # (k's neighbour) and with none: the tolerance must part the
+        # right reference from both
+        f32_d, agree = 0.0, 0
+        ctl_d = {"wrong": float("inf"), "off": float("inf")}
+        for k in (1, 2, 3):
+            for i in [j for j, a in enumerate(adapters)
+                      if a == k][:LORA_F32_PROMPTS]:
+                got = engine_first_logp(gen, prompts[i], k)
+                ref = f32_merged_logits(gen.params, cfg, prompts[i], k)
+                f32_d = max(f32_d, float((got - ref).abs().max()))
+                agree += int(torch.argmax(ref)) == mixed[i][0]
+                for ctl, other in (("wrong", k % 3 + 1), ("off", 0)):
+                    ref = f32_merged_logits(gen.params, cfg, prompts[i],
+                                            other)
+                    ctl_d[ctl] = min(ctl_d[ctl],
+                                     float((got - ref).abs().max()))
+                del ref
+                torch.cuda.empty_cache()
+        # (c) the hot swap under 8 live streams
+        live_idx = [i for i, a in enumerate(adapters) if a == 3][:4] + \
+            [i for i, a in enumerate(adapters) if a != 3][:4]
+        live_out = [None] * len(live_idx)
+
+        def live(j, i):
+            live_out[j] = _lora_generate(port, prompts[i], adapters[i],
+                                         LORA_SWAP_NEW)
+
+        threads = [threading.Thread(target=live, args=(j, i), daemon=True)
+                   for j, i in enumerate(live_idx)]
+        for t in threads:
+            t.start()
+        end = time.monotonic() + 60
+        while gen.stats()["active"] < len(live_idx) and \
+                time.monotonic() < end:
+            time.sleep(0.005)
+        active_at_swap = gen.stats()["active"]
+        t_swap = time.monotonic()
+        swap = http_raw(port, "POST", "/adapters/3", bodies[1])
+        swap_s = time.monotonic() - t_swap
+        for t in threads:
+            t.join(APP_JOIN_S)
+        require(swap["status"] == 200, f"the swap: {swap}")
+        require(all(o is not None and len(o) == LORA_SWAP_NEW
+                    for o in live_out), "a live stream did not finish")
+        require(active_at_swap == len(live_idx),
+                f"{active_at_swap} streams live at the swap")
+        probe = prompts[adapters.index(1)]
+        after3 = _lora_generate(port, probe, 3, LORA_NEW)
+        as1 = _lora_generate(port, probe, 1, LORA_NEW)
+        # the paged half: the same base tensors and adapters, 8 alone
+        picks = [i for k in range(4)
+                 for i in [j for j, a in enumerate(adapters) if a == k][:2]]
+        contig = [_lora_generate(port, prompts[i], adapters[i], LORA_NEW)
+                  for i in picks]
+        stats = gen.stats()
+    finally:
+        if plain is not None:
+            plain.close()
+            release_graphs(plain)
+        app.stop()
+        release_graphs(gen)
+    paged_params = gen.params
+    del gen, tpu, app
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_p = time.monotonic()
+    peng = new_engine_from_config(MapConfig(LORA_PAGED_ROWS), device="cuda",
+                                  params=paged_params)
+    pgen = peng.generator
+    try:
+        paged_built = time.monotonic() - t_p
+        adm0, steps0 = pgen.admissions, pgen.decode_steps
+        _reset_launches()
+        paged = [pgen.generate(prompts[i], max_new_tokens=LORA_NEW,
+                               adapter=adapters[i]).tokens() for i in picks]
+        pcounts = _launches()
+        p_adm = pgen.admissions - adm0
+        p_steps = pgen.decode_steps - steps0
+        pool_whole = pgen.stats()["paged"]["free"] == pgen._alloc.n_blocks - 1
+    finally:
+        peng.close()
+        release_graphs(pgen)
+    del paged_params, pgen, peng
+    splits_p = [(adapters[i], _first_split(a, b)) for i, a, b in
+                zip(picks, paged, contig) if a != b]
+    toks = len(prompts) * LORA_NEW
+    rows = LORA_ROWS
+    print(f"[lora] App with {rows['TPU_MODEL']} ({rows['TPU_QUANT']} "
+          f"weights, {rows['TPU_KV_DTYPE']} KV, {rows['TPU_SLOTS']} slots, "
+          f"{rows['TPU_MAX_SEQ']} positions, {rows['TPU_LORA_ADAPTERS']} "
+          f"adapters of rank {rank}) ready in {built_s:.1f} s; "
+          f"LoRA stacks held by the arbiter {lora_bytes} bytes "
+          f"({lora_bytes / 2**20:.2f} MiB); an adapter install through POST "
+          f"/adapters/{{idx}} {inst_s:.3f} s; GET /adapters "
+          f"{listed['body']['data']}; card: {card}", flush=True)
+    print(f"[lora] mixed burst: {len(prompts)} requests of "
+          f"{LORA_LENS[0]}-{LORA_LENS[1]} tokens, {LORA_NEW} new each, "
+          f"{LORA_PER_ADAPTER} an adapter: {toks / mixed_s:.1f} tok/s in "
+          f"{mixed_s:.3f} s, TTFT {stats_line(mixed_ttft)}; the same prompts "
+          f"on adapter 0: {toks / base_s:.1f} tok/s in {base_s:.3f} s, TTFT "
+          f"{stats_line(base_ttft)}; launches flash_prefill "
+          f"{counts['flash_prefill']} = {layers} x {admissions} admissions, "
+          f"flash_decode {counts['flash_decode']} = {layers} x {steps} decode "
+          f"steps; card: {card}", flush=True)
+    print(f"[lora] decode block (K={stats['decode_block']}, {stats['slots']} "
+          f"slots live at "
+          f"the burst's lengths, CUDA events, median of {LORA_BLOCK_REPS}): "
+          f"{block_lora:.3f} ms on 4 adapters against {block_plain:.3f} ms "
+          f"on the engine without LoRA, LoRA's gather and thin products "
+          f"{block_lora - block_plain:.3f} ms "
+          f"({100 * (block_lora / block_plain - 1):.1f} %); card: {card}",
+          flush=True)
+    print(f"[lora] adapter 0 alone against the engine without LoRA: "
+          f"{len(zero) - len(splits_a)}/{len(zero)} equal "
+          f"{'(splits ' + str(splits_a) + ')' if splits_a else ''}; in the "
+          f"mixed burst {in_burst}/{len(zero)} equal to alone; adapters "
+          f"1-3 part from adapter 0 on their first prompt: {parted}; "
+          f"first-token log-probs of adapters 1-3 against float32 merged: "
+          f"max |diff| {f32_d:.3e} (tolerance {LORA_F32_LOGP}), argmax = "
+          f"the burst's first token at {agree}/{3 * LORA_F32_PROMPTS}; "
+          f"controls (least max |diff| over the same prompts): the wrong "
+          f"adapter merged {ctl_d['wrong']:.3e}, no adapter "
+          f"{ctl_d['off']:.3e}", flush=True)
+    print(f"[lora] hot swap: POST /adapters/3 (adapter 1's body) with "
+          f"{active_at_swap} streams live in {swap_s:.3f} s; the live streams "
+          f"finished ({LORA_SWAP_NEW} tokens each); adapter 3 after the swap "
+          f"{'equals' if after3 == as1 else 'differs from'} adapter 1 on the "
+          f"same prompt (first split {_first_split(after3, as1)})",
+          flush=True)
+    print(f"[lora] paged ({LORA_PAGED_ROWS['TPU_PAGED_BLOCKS']} blocks of "
+          f"{LORA_PAGED_ROWS['TPU_PAGED_BLOCK']}, the same base tensors and "
+          f"adapters) ready in {paged_built:.1f} s: {len(picks)} mixed prompts "
+          f"alone, {len(picks) - len(splits_p)}/{len(picks)} token for token "
+          f"the contiguous engine's"
+          f"{' (splits: adapter, first position ' + str(splits_p) + ')' if splits_p else ''}; "
+          f"launches paged_decode {pcounts['paged_decode']} = {layers} x "
+          f"{p_steps} decode steps, flash_prefill {pcounts['flash_prefill']} "
+          f"= {layers} x {p_adm} admissions; the pool whole afterwards: "
+          f"{pool_whole}", flush=True)
+    require(not splits_a, f"adapter 0 against no LoRA: {splits_a}")
+    require(all(parted.values()), f"an adapter streams adapter 0: {parted}")
+    require(f32_d <= LORA_F32_LOGP, f"LoRA first token against float32: "
+                                    f"{f32_d}")
+    require(agree == 3 * LORA_F32_PROMPTS,
+            f"float32's argmax is the burst's first token at {agree}/"
+            f"{3 * LORA_F32_PROMPTS}")
+    require(min(ctl_d.values()) > LORA_F32_LOGP,
+            f"the float32 check cannot tell a wrong adapter: {ctl_d} within "
+            f"{LORA_F32_LOGP}")
+    require(after3 == as1, "adapter 3 after the swap is not adapter 1: the "
+                           "graphs read stale stacks")
+    require(pcounts["paged_decode"] == layers * p_steps and p_steps > 0,
+            f"paged_decode launches {pcounts['paged_decode']} for {p_steps} "
+            "decode steps")
+    require(pcounts["flash_prefill"] == layers * p_adm,
+            f"flash_prefill {pcounts['flash_prefill']} for {p_adm} admissions")
+    require(pcounts["paged_plain"] == 0, "the paged plain version ran")
+    require(pool_whole, "the paged pool is not whole after the run")
+    return {"flash_prefill": counts["flash_prefill"]
+            + pcounts["flash_prefill"],
+            "flash_decode": counts["flash_decode"],
+            "paged_decode": pcounts["paged_decode"]}
+
+
+# -- phase pubsub: BASELINE config #4 (Kafka -> batched ViT-L/14) -------------
+
+# examples/kafka-vit-classify/configs/.env with the in-process broker
+PUBSUB_ROWS = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "WARN",
+               "PUBSUB_BACKEND": "MEM", "CONSUMER_ID": "vit-classifier",
+               "TPU_MODEL": "vit-l-14", "TPU_BATCH_BUCKETS": "1,2,4,8"}
+PUBSUB_SEED = 61
+PUBSUB_JOBS = 12
+PUBSUB_IMAGES = (1, 8)       # images a job, drawn here
+PUBSUB_POOL = 16             # distinct images the jobs draw from
+PUBSUB_WAIT_S = 240
+PUBSUB_STOP_S = 2.0          # SubscriptionManager.stop's join timeout
+FILL_UNSET = ("unset (predict_batch bypasses the coalescing batcher, as in "
+              "JAX)")
+
+
+def vit_classify(ctx):
+    """examples/kafka-vit-classify/main.py's handler, on the port."""
+    import numpy as np
+
+    job = ctx.bind()
+    batch = [np.asarray(img, np.float32) for img in job["images"]]
+    probs = ctx.tpu.predict_batch("classify", batch)
+    ctx.get_publisher().publish("classifications", {
+        "job_id": job.get("job_id"),
+        "labels": [int(np.argmax(p)) for p in probs],
+    })
+    return None  # commit
+
+
+def phase_pubsub(card: str) -> None:
+    """BASELINE config #4 on one card: a ``gofr_tpu_torch.App`` whose
+    subscriber loop feeds ViT-L/14 (``classify``, batch buckets 1-8)
+    from the ``images`` topic of the in-process broker, the example's
+    handler publishing each job's labels on ``classifications``. 12 jobs
+    of 1-8 images (224 x 224 x 3 float32 as JSON lists, as the example
+    takes them) and one malformed message are published at once; each
+    job's labels must equal a direct ``predict_batch`` on the card, the
+    subscribe counters read 13 and 12, the malformed message is logged
+    and left uncommitted, and ``stop()`` joins the subscriber thread.
+    Jobs and images a second, and each job's publish-to-result latency
+    split into the JSON bind and the dispatch. No attention kernel runs
+    here: ViT's attention is plain, in JAX as in the port."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.tpu.batcher import pad_bucket
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    app = App(MapConfig(PUBSUB_ROWS))
+    app.subscribe("images")(vit_classify)
+    tpu = app.container.tpu
+    prog = tpu._programs["classify"]
+    size = prog.example_item.shape[0]
+    rng = np.random.default_rng(PUBSUB_SEED)
+    pool = [rng.standard_normal((size, size, 3), np.float32)
+            for _ in range(PUBSUB_POOL)]
+    encoded = [json.dumps(img.tolist()) for img in pool]
+    jobs = [rng.integers(0, PUBSUB_POOL, int(n)).tolist()
+            for n in rng.integers(PUBSUB_IMAGES[0], PUBSUB_IMAGES[1] + 1,
+                                  PUBSUB_JOBS)]
+    bodies = [('{"job_id": "job-%d", "images": [' % j
+               + ", ".join(encoded[i] for i in job) + "]}").encode()
+              for j, job in enumerate(jobs)]
+    bad_at = PUBSUB_JOBS // 2
+    bodies.insert(bad_at, b"{not json")
+    errors, recv, calls, results = [], {}, [], []
+    log_error = app.container.logger.error
+
+    def note_error(*a, **k):
+        errors.append(a[0])
+        log_error(*a, **k)
+
+    app.container.logger.error = note_error
+    client = app.container.pubsub
+    subscribe, publish = client.subscribe, client.publish
+    delivered = []
+
+    def timed_subscribe(topic, timeout=None):
+        msg = subscribe(topic, timeout)
+        if msg is not None:
+            recv[int(msg.metadata["offset"])] = time.monotonic()
+            delivered.append(msg)
+        return msg
+
+    def timed_publish(topic, message):
+        publish(topic, message)
+        if topic == "classifications":
+            results.append((time.monotonic(), json.loads(
+                json.dumps(message))))
+
+    client.subscribe, client.publish = timed_subscribe, timed_publish
+    predict_batch = tpu.predict_batch
+
+    def timed_predict(program, items):
+        t = time.monotonic()
+        out = predict_batch(program, items)
+        torch.cuda.synchronize()
+        calls.append((t, time.monotonic(), len(items)))
+        return out
+
+    tpu.predict_batch = timed_predict
+    tpu.predict_batch("classify", pool[:1])   # first-call set-up
+    del calls[:]
+    d0 = prog.dispatches
+    built_s = time.monotonic() - t0
+    app.run(block=False)
+    sent = []
+    for body in bodies:
+        sent.append(time.monotonic())
+        publish("images", body)
+    end = time.monotonic() + PUBSUB_WAIT_S
+    while len(results) < PUBSUB_JOBS and time.monotonic() < end:
+        time.sleep(0.01)
+    time.sleep(0.2)   # the last commit lands
+    require(len(results) == PUBSUB_JOBS,
+            f"{len(results)} results of {PUBSUB_JOBS} jobs")
+    dispatches = prog.dispatches - d0
+    # the direct call, with the subscriber idle: the same images through
+    # the engine's own predict_batch
+    want = [[int(np.argmax(p)) for p in predict_batch(
+        "classify", [pool[i] for i in job])] for job in jobs]
+    t_stop = time.monotonic()
+    app.stop()
+    stop_s = time.monotonic() - t_stop
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("subscriber-") and t.is_alive()]
+    m = app.container.metrics.render_prometheus().splitlines()
+
+    def metric(name):
+        return [line for line in m if line.startswith(name)]
+
+    total = _total(metric("app_pubsub_subscribe_total_count"))
+    success = _total(metric("app_pubsub_subscribe_success_count"))
+    fill = metric("app_tpu_batch_fill")
+    got = {r["job_id"]: r["labels"] for _, r in results}
+    good = [i for i in range(len(bodies)) if i != bad_at]
+    bind = [1e3 * (c[0] - recv[o]) for c, o in zip(calls, good)]
+    disp = [1e3 * (c[1] - c[0]) for c in calls]
+    lat = [1e3 * (r[0] - sent[o]) for r, o in zip(results, good)]
+    span = results[-1][0] - sent[0]
+    images = sum(len(j) for j in jobs)
+    sizes = [c[2] for c in calls]
+    fills = [n / pad_bucket(n, prog.batch_buckets) for n in sizes]
+    mb = sum(len(b) for b in bodies) / 2**20
+    print(f"[pubsub] App with {PUBSUB_ROWS['TPU_MODEL']} (batch buckets "
+          f"{prog.batch_buckets}) and the MEM broker ready in {built_s:.1f} "
+          f"s; {PUBSUB_JOBS} jobs of "
+          f"{PUBSUB_IMAGES[0]}-{PUBSUB_IMAGES[1]} images ({images} in all, "
+          f"{mb:.1f} MiB of JSON) and one malformed message published at "
+          f"once: {PUBSUB_JOBS / span:.2f} jobs/s, {images / span:.2f} "
+          f"images/s over {span:.3f} s; publish-to-result p50 "
+          f"{np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} "
+          f"ms; a job's bind (JSON to arrays) p50 "
+          f"{np.percentile(bind, 50):.1f} ms p99 {np.percentile(bind, 99):.1f} "
+          f"ms, its dispatch p50 {np.percentile(disp, 50):.1f} ms p99 "
+          f"{np.percentile(disp, 99):.1f} ms; {dispatches} dispatches of "
+          f"sizes {sizes} (bucket fill mean {np.mean(fills):.3f}); "
+          f"app_tpu_batch_fill {fill or FILL_UNSET}; subscribe counters total "
+          f"{total:.0f} success {success:.0f}; stop() in {stop_s:.3f} s; "
+          f"card: {card}", flush=True)
+    require(got == {f"job-{j}": w for j, w in enumerate(want)},
+            f"labels differ from a direct predict_batch: {got} {want}")
+    require((total, success) == (PUBSUB_JOBS + 1, PUBSUB_JOBS),
+            f"subscribe counters {total} {success}")
+    require(any(e.get("event") == "subscriber handler error"
+                and e.get("topic") == "images" for e in errors),
+            "the malformed job was not logged")
+    require([msg.committed for msg in delivered] ==
+            [i != bad_at for i in range(len(bodies))],
+            "the commits: only the malformed message may stay uncommitted")
+    require(not alive and stop_s < PUBSUB_STOP_S + 1.0,
+            f"subscriber threads after stop(): {alive} ({stop_s:.3f} s)")
+
 
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
-                "durable", "slo", "app", "predict", "grpc", "tiers")) -> dict:
+                "durable", "slo", "app", "predict", "grpc", "tiers", "lora",
+                "pubsub")) -> dict:
     import torch
 
     card = card_line()
@@ -4485,12 +5214,16 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             # K1's count: phase 5's main path plus the score run
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
-        elif phase in ("grpc", "tiers"):
-            counts = (phase_grpc if phase == "grpc" else phase_tiers)(card)
-            # K1's and K2's counts: the earlier phases' plus this run
-            for name in ("flash_prefill", "flash_decode"):
+        elif phase in ("grpc", "tiers", "lora"):
+            counts = {"grpc": phase_grpc, "tiers": phase_tiers,
+                      "lora": phase_lora}[phase](card)
+            # K1's, K2's (and K3's) counts: the earlier phases' plus this
+            # run's
+            for name, n in counts.items():
                 rec = records[name]
-                rec["launches"] = rec.get("launches", 0) + counts[name]
+                rec["launches"] = rec.get("launches", 0) + n
+        elif phase == "pubsub":
+            phase_pubsub(card)
         else:
             raise SmokeFailure(f"unknown phase {phase!r}")
         torch.cuda.empty_cache()

@@ -8,17 +8,23 @@ the port by changing its imports, ``from gofr_tpu_torch import App`` and
     install_generate(app)             # POST /generate (Llama; serving.py)
     install_embeddings(app)           # POST /v1/embeddings (BERT)
     app.register_grpc_service(llm)    # served on GRPC_PORT (default 9000)
+
+    @app.subscribe("images")          # PUBSUB_BACKEND: one consumer thread
+    def classify(ctx): ...            # a topic, commit on success
     app.run()
 
 Reference: pkg/gofr/gofr.go -- route registration (gofr.go:190-207),
-RegisterService (gofr.go:49-53) and Run (gofr.go:108-164): the metrics
-server, the default routes (health, alive, favicon), the HTTP server and
-the gRPC server. ``run(block=False)`` and ``stop()`` make an App
-testable in-process; ``stop(grace_s)`` drains it.
+RegisterService (gofr.go:49-53), Subscribe (subscriber.go:11-46) and Run
+(gofr.go:108-164): the metrics server, the default routes (health,
+alive, favicon), the HTTP server, the gRPC server, then the
+subscribers. ``run(block=False)`` and ``stop()`` make an App testable
+in-process; ``stop(grace_s)`` drains it, stopping the subscribers
+first.
 
 ``device`` reaches the container's engine and nothing else: an App with
-no ``TPU_MODEL``/``TPU_ENABLED`` row touches no device. Pub/sub, the
-CLI, migrations, outbound HTTP services, the gateway, the auth and
+no ``TPU_MODEL``/``TPU_ENABLED`` row touches no device. The CLI,
+migrations, outbound HTTP services, the gateway (its rows raise at
+construction, as does any serving role but ``fused``), the auth and
 tenant middlewares (``X-Tenant-Id``, gRPC's ``x-tenant-id``) and the
 ``/debug`` pages other than ``/debug/cache`` and ``/debug/vars`` (the
 latter reduced to the memory arbiter's sections) are not ported yet.
@@ -45,6 +51,7 @@ from .http.server import HTTPServer
 from .metrics import update_system_metrics
 from .observe.debug import install_debug_routes
 from .static import FAVICON_ICO
+from .subscriber import SubscriptionManager
 
 __version__ = "0.1.0-dev"
 
@@ -74,6 +81,7 @@ class App:
         self._metrics_server: HTTPServer | None = None
         self._grpc_server = None
         self._grpc_services: list = []
+        self.subscription_manager = SubscriptionManager(self.container)
         self._running = threading.Event()
         # graceful-drain readiness: flipped FIRST in stop(grace_s>0) so
         # load balancers stop routing before the engine stops serving
@@ -151,6 +159,19 @@ class App:
         runs (reference App.RegisterService, gofr.go:49-53)."""
         self._grpc_services.append(service)
 
+    def subscribe(self, topic: str, fn: HandlerFunc | None = None):
+        """``app.subscribe("t", handler)`` or ``@app.subscribe("t")``: one
+        consumer thread for the topic once the App runs; the handler gets
+        a Context over the message, and its message is committed when it
+        returns (the JAX App's ``subscribe``)."""
+        if fn is None:
+            def deco(f: HandlerFunc) -> HandlerFunc:
+                self.subscription_manager.register(topic, f)
+                return f
+            return deco
+        self.subscription_manager.register(topic, fn)
+        return fn
+
     # -- default routes (reference gofr.go:125-141, handler.go:38-57) --------
     def _install_default_routes(self) -> None:
         def health(req: Request, w: ResponseWriter) -> None:
@@ -218,6 +239,8 @@ class App:
                 self._grpc_services, self.grpc_port, self.container)
             self._grpc_server.start()
             self.grpc_port = self._grpc_server.port
+        if self.subscription_manager.subscriptions:
+            self.subscription_manager.start()
         self._running.set()
         if block:
             try:
@@ -230,7 +253,8 @@ class App:
         of the grace window is flipping readiness: ``/.well-known/health``
         answers 503 + Retry-After and gRPC health NOT_SERVING, and every
         new request gets 503 or UNAVAILABLE with a retry-after, so load
-        balancers stop routing BEFORE the engine stops serving. The
+        balancers stop routing BEFORE the engine stops serving. Pub/sub
+        consumption stops next (a handler running finishes), the
         generation engine then finishes every accepted stream, and the
         in-flight HTTP requests and RPCs finish on their handler threads,
         with the listeners still up (clients receive complete streams
@@ -244,6 +268,7 @@ class App:
                 grpc.start_draining(retry_after=grace_s)
             self.logger.info({"event": "drain started: readiness down",
                               "grace_s": grace_s})
+            self.subscription_manager.stop()
             t_end = time.monotonic() + grace_s
             gen = getattr(self.container.tpu, "generator", None)
             if gen is not None:
@@ -268,6 +293,7 @@ class App:
                 srv.stop()
         if grpc is not None:
             grpc.stop()
+        self.subscription_manager.stop()
         self.container.close()
         self._running.clear()
 

@@ -1,8 +1,10 @@
 """Configuration: ``.env`` file + process environment (the port's own
 copy of the part of gofr_tpu/config.py's reader that
-``new_engine_from_config`` and the App use). ``get`` returns the raw
-string; ``get_int`` and ``get_float`` fall back to their default on a
-missing or malformed value; ``get_bool`` reads 1/true/yes/on."""
+``new_engine_from_config``, the App and the pub/sub clients use).
+``get`` returns the raw string; ``get_or_default`` the string or its
+default when unset; ``get_int`` and ``get_float`` fall back to their
+default on a missing or malformed value; ``get_bool`` reads
+1/true/yes/on; ``keys`` names every row that is set."""
 
 from __future__ import annotations
 
@@ -33,6 +35,10 @@ class _TypedMixin:
             return float(v)
         except ValueError:
             return default
+
+    def get_or_default(self, key: str, default: str) -> str:
+        v = self.get(key)
+        return default if v in (None, "") else v
 
     def get_bool(self, key: str, default: bool = False) -> bool:
         v = self.get(key)
@@ -84,6 +90,10 @@ class EnvConfig(_TypedMixin):
             return os.environ[key]
         return self._file_vars.get(key)
 
+    def keys(self) -> set[str]:
+        """Every row set in the files or the process environment."""
+        return set(self._file_vars) | set(os.environ)
+
 
 class MapConfig(_TypedMixin):
     """In-memory config (tests, scripts)."""
@@ -93,3 +103,6 @@ class MapConfig(_TypedMixin):
 
     def get(self, key: str) -> str | None:
         return self.values.get(key)
+
+    def keys(self) -> set[str]:
+        return set(self.values)

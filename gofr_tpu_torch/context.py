@@ -4,7 +4,9 @@
 A handler receives exactly one of these: ``ctx.bind()``,
 ``ctx.param(...)``, ``ctx.header(...)`` read the request,
 ``ctx.stream(...)`` writes a live chunked response, ``ctx.trace(...)``
-opens a span, ``ctx.tpu`` is the engine, and
+opens a span, ``ctx.tpu`` is the engine, ``ctx.get_publisher()`` the
+pub/sub client (a subscriber's handler gets a Context whose request is
+the consumed ``pubsub.Message``), and
 ``ctx.deadline``/``ctx.slo_class`` are the request's ambient budget and
 class (which ``ctx.tpu.generate`` and ``ctx.tpu.predict`` read by
 themselves).
@@ -38,6 +40,11 @@ class Context:
     @property
     def config(self):
         return self.container.config
+
+    def get_publisher(self):
+        """The container's pub/sub client (``PUBSUB_BACKEND``), or None:
+        ``ctx.get_publisher().publish(topic, payload)``."""
+        return self.container.get_publisher()
 
     @property
     def tpu(self):

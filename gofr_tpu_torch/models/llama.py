@@ -11,6 +11,16 @@ Unlike the JAX functions, which return new arrays, the cache is updated
 IN PLACE (``write_kv``, ``decode_step``): serving keeps one cache
 buffer for the life of the engine, as the JAX engine does by donation.
 
+Multi-LoRA: ``init_lora`` draws adapter stacks for the attention
+projections (``LORA_TARGETS``), merged into ``params["layers"]``; every
+entry point takes ``adapter`` [B] (each batch row's adapter id) and
+adds each row's rank-r delta to those projections (``_lora``: a
+per-row gather and two thin batched products, plain PyTorch as in the
+JAX package, which computes them outside any Pallas kernel). The
+attention kernels never see an adapter. ``merge_lora`` folds one
+adapter into dense weights: the single-tenant path and the tests'
+oracle. Without stacks, or with ``adapter=None``, no LoRA op runs.
+
 ``flash=True`` runs attention through the CUDA kernels (ops.flash,
 ops.flash_decode), which take the plain versions on CPU tensors;
 ``flash=False`` calls the plain versions directly. ``verify_step``, the
@@ -118,19 +128,100 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     return params
 
 
-def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend):
-    """One transformer block; ``attend(q, k, v)`` runs attention.
-    Returns (x_out, (k, v)) with this block's new keys and values."""
+LORA_TARGETS = ("wq", "wk", "wv", "wo")
+
+
+def _lora_dims(cfg: ModelConfig) -> dict[str, tuple[int, int]]:
+    D, H, KV, hd = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": (D, H * hd), "wk": (D, KV * hd), "wv": (D, KV * hd),
+            "wo": (H * hd, D)}
+
+
+def lora_nbytes(cfg: ModelConfig, n_adapters: int, rank: int) -> int:
+    """Bytes of ``init_lora``'s stacks, from their shapes."""
+    n = sum(din + dout for din, dout in _lora_dims(cfg).values())
+    return cfg.n_layers * n_adapters * rank * n * cfg.tdtype.itemsize
+
+
+def init_lora(cfg: ModelConfig, n_adapters: int, rank: int,
+              generator: torch.Generator) -> dict:
+    """Stacked multi-LoRA leaves for the attention projections (the JAX
+    package's ``init_lora``): per target, A [L, n_adapters, in, r] drawn
+    N(0, 1) * in ** -0.5 from ``generator`` (on its device) and B
+    [L, n_adapters, r, out] ZEROS, so every adapter starts as an exact
+    no-op and adapter 0 conventionally stays the base model. Merge the
+    returned dict into ``params["layers"]``."""
+    device = generator.device
+    out = {}
+    for name in LORA_TARGETS:
+        din, dout = _lora_dims(cfg)[name]
+        a = torch.randn((cfg.n_layers, n_adapters, din, rank),
+                        generator=generator, device=device)
+        out[f"lora_a_{name}"] = (a * din ** -0.5).to(cfg.tdtype)
+        out[f"lora_b_{name}"] = torch.zeros(
+            (cfg.n_layers, n_adapters, rank, dout), dtype=cfg.tdtype,
+            device=device)
+    return out
+
+
+def merge_lora(params: dict, cfg: ModelConfig, adapter: int) -> dict:
+    """Fold ONE adapter into dense base weights (W + A_i @ B_i, in
+    float32, then the weight's dtype) and drop the adapter stacks: the
+    single-tenant path, and the oracle the multi-LoRA tests hold the
+    gathered path against. Requires unquantized base weights."""
+    layers = dict(params["layers"])
+    for name in LORA_TARGETS:
+        a = layers.pop(f"lora_a_{name}", None)
+        b = layers.pop(f"lora_b_{name}", None)
+        if a is None:
+            continue
+        delta = torch.einsum("ldr,lro->ldo", a[:, adapter].float(),
+                             b[:, adapter].float())
+        layers[name] = (layers[name].float() + delta).to(layers[name].dtype)
+    return {**params, "layers": layers}
+
+
+def _lora(h, w, name: str, adapter):
+    """Per-row LoRA delta for projection ``name``: h @ A[adapter[b]] @
+    B[adapter[b]] in ``h``'s dtype (the JAX package's ``_lora``), or
+    None when ``w`` carries no adapter stacks or ``adapter`` is None.
+    ``h`` [B, S, in], ``adapter`` [B] integer ids on ``h``'s device."""
+    a = w.get(f"lora_a_{name}")
+    if a is None or adapter is None:
+        return None
+    b = w[f"lora_b_{name}"]
+    idx = adapter.reshape(-1).long()
+    ha = torch.bmm(h, a.index_select(0, idx).to(h.dtype))
+    return torch.bmm(ha, b.index_select(0, idx).to(h.dtype))
+
+
+def _project(h, w, name: str, adapter):
+    """The base projection plus the row's LoRA delta, in that order."""
+    out = qmatmul(h, w[name])
+    delta = _lora(h, w, name, adapter)
+    return out if delta is None else out + delta
+
+
+def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend,
+           adapter=None):
+    """One transformer block; ``attend(q, k, v)`` runs attention;
+    ``adapter`` [B] selects each row's LoRA adapter when ``w`` carries
+    the stacks. Returns (x_out, (k, v)) with this block's new keys and
+    values."""
     B, S = x.shape[0], x.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
-    q = qmatmul(h, w["wq"]).reshape(B, S, H, hd)
-    k = qmatmul(h, w["wk"]).reshape(B, S, KV, hd)
-    v = qmatmul(h, w["wv"]).reshape(B, S, KV, hd)
+    q = _project(h, w, "wq", adapter).reshape(B, S, H, hd)
+    k = _project(h, w, "wk", adapter).reshape(B, S, KV, hd)
+    v = _project(h, w, "wv", adapter).reshape(B, S, KV, hd)
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
     attn = attend(q, k, v).reshape(B, S, H * hd)
+    # (x + base) + delta, the JAX package's order
     x = x + qmatmul(attn, w["wo"])
+    delta = _lora(attn, w, "wo", adapter)
+    if delta is not None:
+        x = x + delta
     h = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
     gated = F.silu(qmatmul(h, w["w_gate"])) * qmatmul(h, w["w_up"])
     return x + qmatmul(gated, w["w_down"]), (k, v)
@@ -144,7 +235,8 @@ def _logits(params: dict, cfg: ModelConfig, x) -> torch.Tensor:
 
 
 def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
-            rope_tables, flash_attn: bool, collect_kv: bool = True):
+            rope_tables, flash_attn: bool, collect_kv: bool = True,
+            adapter=None):
     """Shared causal body of forward/prefill_kv/score: embed, run the
     layers. Returns (x [B, S, D], k_stack, v_stack [L, B, S, KV, hd] --
     None without ``collect_kv`` --, lengths)."""
@@ -166,7 +258,7 @@ def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
-                           cos, sin, positions, attend)
+                           cos, sin, positions, attend, adapter)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -177,11 +269,12 @@ def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             lengths: torch.Tensor | None = None, rope_tables=None,
-            flash: bool = False) -> torch.Tensor:
+            flash: bool = False, adapter=None) -> torch.Tensor:
     """Cache-free causal forward over [B, S] tokens -> [B, S, V] float32
-    logits."""
+    logits; ``adapter`` [B]: each row's LoRA adapter."""
     x, _, _, _ = _causal(params, cfg, tokens, lengths, tokens.shape[1],
-                         rope_tables, flash, collect_kv=False)
+                         rope_tables, flash, collect_kv=False,
+                         adapter=adapter)
     return _logits(params, cfg, x)
 
 
@@ -193,7 +286,7 @@ def _gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 def score(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
           lengths: torch.Tensor, rope_tables=None,
-          flash: bool = False) -> torch.Tensor:
+          flash: bool = False, adapter=None) -> torch.Tensor:
     """Next-token logits at each prompt's end: [B, V] float32, row b at
     position ``max(lengths[b] - 1, 0)`` (the engine's ``score``
     program). The hidden state is gathered there BEFORE the LM head, so
@@ -202,7 +295,8 @@ def score(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     row see past itself, so the keys masked at or past ``lengths[b]``
     change nothing at the row read."""
     x, _, _, _ = _causal(params, cfg, tokens, lengths, tokens.shape[1],
-                         rope_tables, flash, collect_kv=False)
+                         rope_tables, flash, collect_kv=False,
+                         adapter=adapter)
     pos = torch.clamp(lengths.long() - 1, min=0)
     return _logits(params, cfg, _gather_rows(x, pos))[:, 0]
 
@@ -210,7 +304,8 @@ def score(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def prefill_kv(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                lengths: torch.Tensor | None = None,
                rope_max: int | None = None, rope_tables=None,
-               flash: bool = False, logit_pos: torch.Tensor | None = None):
+               flash: bool = False, logit_pos: torch.Tensor | None = None,
+               adapter=None):
     """Causal forward returning the raw KV stacks instead of a filled
     cache, so serving can write one prompt into one slot.
 
@@ -220,7 +315,7 @@ def prefill_kv(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     [L, B, S, KV, hd], lengths [B])."""
     x, k_stack, v_stack, lengths = _causal(
         params, cfg, tokens, lengths, rope_max or tokens.shape[1],
-        rope_tables, flash)
+        rope_tables, flash, adapter=adapter)
     if logit_pos is not None:
         x = _gather_rows(x, logit_pos)                       # [B, 1, D]
     return _logits(params, cfg, x), k_stack, v_stack, lengths
@@ -272,7 +367,7 @@ def write_kv(cache: KVCache, k_stack, v_stack, slot=0, start=0,
 def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: KVCache, start: torch.Tensor, slot: torch.Tensor,
                   rope_tables=None, compute_logits: bool = True,
-                  logit_pos: torch.Tensor | None = None):
+                  logit_pos: torch.Tensor | None = None, adapter=None):
     """One chunk of C prompt tokens [B, C] at positions [start, start+C)
     against the cache (the long-prompt path: a prompt of any length up
     to the capacity runs as a sequence of fixed-shape chunk calls, so
@@ -311,7 +406,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                    vs_l)
 
         x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
-                           cos, sin, positions, attend)
+                           cos, sin, positions, attend, adapter)
         ks.append(k)
         vs.append(v)
     write_kv(cache, torch.stack(ks), torch.stack(vs), slot=slot,
@@ -378,7 +473,8 @@ def _write_rows(cache: KVCache, slots, positions, k_rows, v_rows) -> None:
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: KVCache, rope_tables=None,
-                flash: bool = False) -> tuple[torch.Tensor, KVCache]:
+                flash: bool = False, adapter=None
+                ) -> tuple[torch.Tensor, KVCache]:
     """One decode step for tokens [B] against the cache.
 
     The cache is read-only inside the layer loop (each layer's attention
@@ -410,7 +506,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             return attn_fn(q, k_l, v_l, k_new, v_new, lengths, ks_l, vs_l)
 
         x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
-                           cos, sin, positions, attend)
+                           cos, sin, positions, attend, adapter)
         k_toks.append(k[:, 0])
         v_toks.append(v[:, 0])
     _write_rows(cache, torch.arange(B, device=device), lengths.long(),
@@ -420,7 +516,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: KVCache, rope_tables=None
+                cache: KVCache, rope_tables=None, adapter=None
                 ) -> tuple[torch.Tensor, KVCache]:
     """The speculative verify pass over the contiguous cache.
 
@@ -459,7 +555,7 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                              lengths, ks_l, vs_l)
 
         x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
-                           cos, sin, rope_pos, attend)
+                           cos, sin, rope_pos, attend, adapter)
         k_w.append(k)
         v_w.append(v)
     k_w = torch.stack(k_w)                                    # [L,B,W,KV,hd]

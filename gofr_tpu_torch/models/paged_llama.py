@@ -17,7 +17,9 @@ Table invariants (kept by the engine's allocator):
   - block 0 is a reserved trash block no slot ever owns: writes at a
     retired slot's frozen cursor, and past capacity, land there.
 
-As in ``llama``, the pool is updated IN PLACE. ``paged_verify_step`` is
+As in ``llama``, the pool is updated IN PLACE, and each step takes
+``adapter`` [B], every slot's LoRA adapter (``llama._lora``, on the
+projections around attention). ``paged_verify_step`` is
 the speculative verify pass over the pool, through the paged window
 kernel. A long prompt is chunk-prefilled into a dense single-slot
 scratch row (``llama.KVCache``, B=1) and lands in the pool through
@@ -118,7 +120,8 @@ def _write_pool_rows(cache: PagedKVCache, blk, off, k_rows, v_rows) -> None:
 
 def paged_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                       cache: PagedKVCache, table: torch.Tensor,
-                      rope_tables=None) -> tuple[torch.Tensor, PagedKVCache]:
+                      rope_tables=None, adapter=None
+                      ) -> tuple[torch.Tensor, PagedKVCache]:
     """One decode step for tokens [B] against the paged pool.
 
     ``table`` [B, MB] int32: clamped block ids (see the module
@@ -154,7 +157,7 @@ def paged_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 q, k_l, v_l, k_new, v_new, table, lengths, ks_l, vs_l)
 
         x, (k, v) = llama._layer(x, llama._layer_weights(params["layers"], i),
-                                 cfg, cos, sin, positions, attend)
+                                 cfg, cos, sin, positions, attend, adapter)
         k_toks.append(k[:, 0])
         v_toks.append(v[:, 0])
     blk, off = _pool_coords(table, lengths, T)
@@ -166,7 +169,8 @@ def paged_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def paged_verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                       cache: PagedKVCache, table: torch.Tensor,
-                      rope_tables=None) -> tuple[torch.Tensor, PagedKVCache]:
+                      rope_tables=None, adapter=None
+                      ) -> tuple[torch.Tensor, PagedKVCache]:
     """The speculative verify pass over the paged pool: the contract of
     ``llama.verify_step`` (logits [B, W, V] float32; all W KV rows
     written at each slot's cursor; ``lengths`` returned UNCHANGED), with
@@ -204,7 +208,7 @@ def paged_verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 q, k_l, v_l, k_new, v_new, table, lengths, ks_l, vs_l)
 
         x, (k, v) = llama._layer(x, llama._layer_weights(params["layers"], i),
-                                 cfg, cos, sin, rope_pos, attend)
+                                 cfg, cos, sin, rope_pos, attend, adapter)
         k_w.append(k)
         v_w.append(v)
     blk, off = _pool_coords(table, positions, T)              # [B, W]

@@ -74,6 +74,11 @@ Rows read:
                     positions, through the paged window kernel on a
                     paged engine, at most 15 there on the card); 0 or
                     unset: off
+  TPU_LORA_ADAPTERS  n > 0: multi-LoRA serving with n adapter slots on
+                    the attention projections (slot 0 the base model;
+                    ``generate(adapter=i)``, ``load_adapter``); 0 or
+                    unset: off
+  TPU_LORA_RANK     the adapters' rank (default 16)
   TPU_MAX_QUEUE_DEPTH  the admission gates (the generator's, and one a
                     predict program) shed (TooManyRequests, 429) once
                     this many requests wait (default 0 = off)
@@ -120,7 +125,7 @@ __all__ = ["BatcherClosed", "ClassPolicy", "CoalescingBatcher",
 
 # rows of the JAX package that name features outside this slice
 UNPORTED_ROWS = (
-    "TPU_LORA_ADAPTERS", "TPU_LORA_RANK", "TPU_HBM_DEVICE_BUDGET_MB",
+    "TPU_HBM_DEVICE_BUDGET_MB",
     "TPU_SHARDING", "TPU_PD_LISTEN", "TPU_PD_PEER", "TPU_PD_BLOCK",
     "TPU_PD_WINDOW_MB", "TPU_TENANTS", "TPU_TENANTS_INLINE",
     "TPU_TENANTS_RELOAD_S", "TPU_TENANT_HEADER", "TPU_TENANT_TOPIC",
@@ -317,6 +322,8 @@ def _generator(cfg, mc, params, seq_buckets, device, logger,
         prefix_store_min=cfg.get_int("TPU_PREFIX_MIN", 0) or None,
         kvcache=kv_opts,
         spec_decode_k=cfg.get_int("TPU_SPEC_DECODE", 0),
+        lora_adapters=cfg.get_int("TPU_LORA_ADAPTERS", 0),
+        lora_rank=cfg.get_int("TPU_LORA_RANK", 16),
         gate=gate_from_config(cfg, "generate", metrics=metrics,
                               logger=logger),
         slo_throughput_share=cfg.get_float("TPU_SLO_THROUGHPUT_SHARE", 0.25),

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import tracing
+from ..datasource import STATUS_DEGRADED, STATUS_DOWN, STATUS_UP, Health
 from ..device import resolve_device
 from ..errors import DeadlineExceeded, ProgramNotFound, ServiceUnavailable
 from ..resilience import current_deadline, current_slo_class
@@ -39,23 +40,8 @@ from . import hbm
 from .batcher import ClassPolicy, CoalescingBatcher, pad_bucket
 from .generator import GenerationEngine, GenStream
 
-STATUS_UP = "UP"
-STATUS_DOWN = "DOWN"
-STATUS_DEGRADED = "DEGRADED"
-
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8)
 DEFAULT_SEQ_BUCKETS = (32, 64, 128, 256, 512)
-
-
-@dataclass
-class Health:
-    status: str
-    details: dict[str, Any] = field(default_factory=dict)
-
-    def to_dict(self) -> dict[str, Any]:
-        """The health check's wire form, as the App's
-        ``/.well-known/health`` reads every datasource's."""
-        return {"status": self.status, "details": self.details}
 
 
 def _tree_map(fn: Callable, *trees):

@@ -83,6 +83,16 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
     chunks or at a reap, and its device work stops there. ``drain``
     refuses new requests and serves the accepted ones (the App's
     graceful stop).
+  - With ``lora_adapters`` = n, multi-LoRA serving: n adapter slots of
+    rank-``lora_rank`` deltas on the attention projections, stacked in
+    ``params["layers"]`` (models.llama.init_lora, adapter 0 the base
+    model); ``generate(adapter=i)`` picks a request's adapter and every
+    dispatch gathers each row's (the decode block from the pack's column
+    5, an admission from its inputs, a verify pass from its own column),
+    so one weight stream serves every tenant. ``load_adapter`` copies an
+    adapter's weights into its slot of the stacks IN PLACE, so every
+    captured graph reads them from its next replay on, and drops the
+    adapter's stored prefixes from every tier.
   - On a CUDA device the engine refuses at construction a model the
     attention kernels do not take (ops.kernels.check_attention_shape),
     naming its shape and the kernel, so nothing raises in the loop for
@@ -94,9 +104,8 @@ A failed step fails the live streams, clears the prefix index, resets
 the device state in place (the captured graphs stay bound to it) and
 keeps serving the queue, as the JAX engine does; only a device that no
 longer synchronises takes the engine down (``down`` names the error).
-The seams of ``chaos`` inject such failures. Features outside the slice
-(LoRA, the contiguous engine's kv-cache tiers, meshes) raise when asked
-for.
+The seams of ``chaos`` inject such failures. A mesh, outside the port
+so far, raises when asked for.
 """
 
 from __future__ import annotations
@@ -124,6 +133,7 @@ from ..resilience import (SLO_LATENCY, SLO_THROUGHPUT, DecodePipelinePolicy,
                           current_deadline, current_slo_class)
 from ..wire import PushStream
 from . import hbm, prng
+from .checkpoint import to_tensor
 from .kvcache import (CacheManager, HostKV, KVCacheOptions, KVLayout,
                       clamp_restore_len, dense_hostkv, dtype_name,
                       model_fingerprint)
@@ -145,7 +155,7 @@ EOS_MAX = 8
 
 # dispatch-pack columns, the JAX engine's layout (_dispatch_pack and
 # fused_decode_block agree): 0 last token, 1 active, 2 budget, 3 temp
-# (float32 bits), 4 top_k, 5 adapter (0: LoRA is not ported), 6 host_wins,
+# (float32 bits), 4 top_k, 5 adapter (LoRA id), 6 host_wins,
 # 7 seed, 8 position of the next sample (the host's value, read only
 # under host_wins), 9.. the EOS set, then (paged) the block-table row
 PACK_EXTRA = 9
@@ -328,7 +338,9 @@ def fused_decode_block(params: dict, cfg: ModelConfig, cache, pack, carry,
     [B] each, the slot state the previous block left on the device; per
     slot, the pack's ``host_wins`` column picks the pack's values or the
     carry's. Position rides the carry because the host, packing block
-    N+1, cannot know how many tokens block N emitted.
+    N+1, cannot know how many tokens block N emitted. Each slot's LoRA
+    adapter is the pack's column 5 (read only when the params carry
+    adapter stacks).
 
     Updates the cache (KV rows and ``lengths``) and the carry IN PLACE
     and returns [steps, 3, B] float64: each step's tokens, their
@@ -344,6 +356,7 @@ def fused_decode_block(params: dict, cfg: ModelConfig, cache, pack, carry,
     top_ks = pack[:, 4]
     seeds = pack[:, 7]
     eos_ids = pack[:, PACK_EXTRA:PACK_EXTRA + EOS_MAX]
+    adapter = pack[:, 5]
     # the model steps rebind their cache's cursor tensor: they run on a
     # shallow copy, and the last cursors are copied into the cache's own
     # tensor, the one a captured graph reads and writes
@@ -355,11 +368,11 @@ def fused_decode_block(params: dict, cfg: ModelConfig, cache, pack, carry,
 
         def step(toks):
             return paged_llama.paged_decode_step(params, cfg, toks, work,
-                                                 table, rope_tables)
+                                                 table, rope_tables, adapter)
     else:
         def step(toks):
             return llama.decode_step(params, cfg, toks, work, rope_tables,
-                                     flash=True)
+                                     flash=True, adapter=adapter)
     rows = []
     for _ in range(steps):
         before = work.lengths
@@ -402,22 +415,24 @@ def verify_epilogue(logits: torch.Tensor, window: torch.Tensor,
 
 
 def verify_pass(params: dict, cfg: ModelConfig, cache, window: torch.Tensor,
-                active: torch.Tensor, table, rope_tables) -> torch.Tensor:
+                active: torch.Tensor, table, rope_tables,
+                adapter=None) -> torch.Tensor:
     """One speculative verify pass (the JAX engine's ``_verify_fn``, or
     ``_paged_verify_fn`` for a ``paged_llama.PagedKVCache`` through
     ``table`` [B, MB] int32, then ``_verify_epilogue``): ``window``
     [B, W] is each slot's last token then its drafts, ``active`` [B]
-    bool the slots that verify. The cursors advance by emit IN PLACE
+    bool the slots that verify, ``adapter`` [B] each slot's LoRA adapter
+    (None without stacks). The cursors advance by emit IN PLACE
     (a captured graph reads the cache's own cursor tensor). Returns
     [B, 2W + 1] float64: the greedy tokens, their logprobs, emit.
     Tensors in, tensors out, no host read: the engine captures it into
     one CUDA graph on the card, and the CPU runs it eagerly."""
     if isinstance(cache, paged_llama.PagedKVCache):
         logits, _ = paged_llama.paged_verify_step(params, cfg, window, cache,
-                                                  table, rope_tables)
+                                                  table, rope_tables, adapter)
     else:
         logits, _ = llama.verify_step(params, cfg, window, cache,
-                                      rope_tables)
+                                      rope_tables, adapter)
     toks, lps, _, emit = verify_epilogue(logits, window, active)
     cache.lengths.add_(emit.to(torch.int32))
     return torch.cat([toks.double(), lps.double(), emit.double()[:, None]],
@@ -472,11 +487,12 @@ class AdmissionInputs:
     chunk's start, the position the first token is sampled at, the
     request's temperature (float32 bits), top-k and seed, the absolute
     stream position of its first token (``pos_base``: 0, or the emitted
-    count of a continuation), then ``n_blocks`` pool block ids (paged),
-    then ``width`` token ids, zero-padded."""
+    count of a continuation), its LoRA adapter, then ``n_blocks`` pool
+    block ids (paged), then ``width`` token ids, zero-padded."""
 
-    LENGTH, SLOT, START, LOGIT_POS, TEMP, TOP_K, SEED, POS_BASE = range(8)
-    HEAD = 8
+    (LENGTH, SLOT, START, LOGIT_POS, TEMP, TOP_K, SEED, POS_BASE,
+     ADAPTER) = range(9)
+    HEAD = 9
 
     def __init__(self, n_blocks: int, width: int, device):
         self.n_blocks = n_blocks
@@ -519,6 +535,10 @@ class AdmissionInputs:
     def pos_base(self) -> torch.Tensor:
         return self._at(self.POS_BASE)
 
+    @property
+    def adapter(self) -> torch.Tensor:
+        return self._at(self.ADAPTER)
+
     def blocks(self, n: int) -> torch.Tensor:
         return self.buf[self.HEAD:self.HEAD + n]
 
@@ -528,7 +548,7 @@ class AdmissionInputs:
 
     def pack(self, host: np.ndarray, tokens, *, length: int, slot: int,
              start: int, logit_pos: int, temp: float, top_k: int, seed: int,
-             blocks, pos_base: int = 0) -> None:
+             blocks, pos_base: int = 0, adapter: int = 0) -> None:
         """Fill ``host`` (this vector's host image) for one dispatch."""
         host[:] = 0
         host[self.LENGTH] = length
@@ -539,6 +559,7 @@ class AdmissionInputs:
         host[self.TOP_K] = top_k
         host[self.SEED] = seed
         host[self.POS_BASE] = pos_base
+        host[self.ADAPTER] = adapter
         host[self.HEAD:self.HEAD + len(blocks)] = blocks
         lo = self.HEAD + self.n_blocks
         host[lo:lo + len(tokens)] = tokens
@@ -564,13 +585,14 @@ def prefill_admission(params: dict, cfg: ModelConfig, cache,
     its true length, write its KV into the slot's row (paged: into
     ``inp.blocks``, ceil(bucket/T) ids, those past the prompt's own
     blocks the trash block), set the slot's cursor to the length and
-    sample the first token at the prompt's last position. Tensors in,
-    [2] float64 (token, logprob) out, no host read: the engine captures
-    one graph per (bucket, draw) on the card."""
+    sample the first token at the prompt's last position, the prompt
+    through its LoRA adapter (``inp.adapter``). Tensors in, [2]
+    float64 (token, logprob) out, no host read: the engine captures one
+    graph per (bucket, draw) on the card."""
     length = inp.length
     logits, k, v, _ = llama.prefill_kv(
         params, cfg, inp.tokens(bucket), length, rope_tables=rope_tables,
-        flash=True, logit_pos=inp.logit_pos)
+        flash=True, logit_pos=inp.logit_pos, adapter=inp.adapter)
     if isinstance(cache, paged_llama.PagedKVCache):
         paged_llama.write_prompt_blocks(
             cache, k, v, inp.blocks(-(-bucket // cache.block_size)), length)
@@ -590,11 +612,12 @@ def chunk_admission(params: dict, cfg: ModelConfig, cache: llama.KVCache,
     interleaved between chunks drop their writes for it, and returns
     None; the final chunk sets the cursor to the prompt's length and
     returns the first token, sampled at ``inp.logit_pos`` within the
-    chunk ([2] float64)."""
+    chunk ([2] float64). The chunk runs through the request's LoRA
+    adapter (``inp.adapter``)."""
     logits, _ = llama.prefill_chunk(
         params, cfg, inp.tokens(width), cache, inp.start, inp.slot,
         rope_tables=rope_tables, compute_logits=final,
-        logit_pos=inp.logit_pos if final else None)
+        logit_pos=inp.logit_pos if final else None, adapter=inp.adapter)
     if not final:
         cache.lengths.index_fill_(0, inp.slot, cache.k.shape[2])
         return None
@@ -681,13 +704,13 @@ def _trace(stream: GenStream, traceparent: str | None) -> None:
 
 class _Request:
     __slots__ = ("stream", "prompt", "max_new", "temperature", "top_k",
-                 "eos_id", "seed", "pos_base", "lattice_peek", "kv_match",
-                 "deadline", "slo_class", "enqueued_at")
+                 "eos_id", "seed", "pos_base", "adapter", "lattice_peek",
+                 "kv_match", "deadline", "slo_class", "enqueued_at")
 
     def __init__(self, stream: GenStream, prompt: np.ndarray, max_new: int,
                  temperature: float, top_k: int, eos_id, seed: int,
                  pos_base: int = 0, deadline=None,
-                 slo_class: str = SLO_LATENCY):
+                 slo_class: str = SLO_LATENCY, adapter: int = 0):
         self.stream = stream
         self.prompt = prompt
         self.max_new = max_new
@@ -698,6 +721,9 @@ class _Request:
         # the absolute stream position of the first token (a
         # continuation's emitted count)
         self.pos_base = pos_base
+        # the LoRA adapter the prompt and every token run through; also
+        # part of every prefix key (KV flows through its wk/wv)
+        self.adapter = adapter
         # (prefix index version, verdict): _needs_lattice's memo
         self.lattice_peek: tuple[int, bool] | None = None
         # (cache manager version, Match): _kv_match's memo, so the
@@ -759,15 +785,13 @@ class GenerationEngine:
                  prefix_cache_slots: int = 0,
                  prefix_store_min: int | None = None,
                  spec_decode_k: int = 0, lora_adapters: int = 0,
+                 lora_rank: int = 16,
                  paged_blocks: int = 0, paged_block_size: int = 128,
                  kvcache=None, mesh=None, gate=None,
                  slo_throughput_share: float = 0.25,
                  slo_latency_slots: int = 1, metrics=None):
-        unported = {"lora_adapters": lora_adapters != 0,
-                    "mesh": mesh is not None}
-        asked = [name for name, on in unported.items() if on]
-        if asked:
-            raise ValueError(f"not ported to gofr_tpu_torch yet: {asked} "
+        if mesh is not None:
+            raise ValueError("not ported to gofr_tpu_torch yet: ['mesh'] "
                              "(the port serves contiguous or paged slots)")
         if cfg.n_experts > 0:
             raise ValueError("the port serves dense Llama models; MoE is "
@@ -816,6 +840,44 @@ class GenerationEngine:
         if metrics is not None:
             # device-byte attribution gauges (app_tpu_device_bytes)
             hbm.set_metrics(metrics)
+        # Multi-LoRA serving: n adapter slots of rank-r deltas on the
+        # attention projections, stacked inside params["layers"] so the
+        # layer loop slices them with the base weights; each request
+        # picks its adapter and every dispatch gathers per row. Adapter
+        # 0 is the base no-op (B zero); load_adapter fills the others
+        self._n_adapters = max(0, int(lora_adapters))
+        if self._n_adapters:
+            if "lora_a_wq" not in params["layers"]:
+                def build_lora():
+                    gen = torch.Generator(device=self.device)
+                    gen.manual_seed(self._seed + 1)
+                    return llama.init_lora(cfg, self._n_adapters,
+                                           int(lora_rank), gen)
+
+                stacks = hbm.alloc(
+                    "lora", build_lora, owner=self, tag="stacks",
+                    nbytes=llama.lora_nbytes(cfg, self._n_adapters,
+                                             int(lora_rank)),
+                    priority=hbm.PRI_CACHE)
+                self.params = {**params, "layers": {**params["layers"],
+                                                    **stacks}}
+            else:
+                # a checkpoint brought its own stacks: their width is the
+                # truth. A mismatch would clamp or fault the per-row
+                # gather (one tenant served another's fine-tune) and
+                # misplace load_adapter's copies
+                n_stack = int(params["layers"]["lora_a_wq"].shape[1])
+                if n_stack != self._n_adapters:
+                    raise ValueError(
+                        f"params carry {n_stack} LoRA adapter slots but "
+                        f"lora_adapters={self._n_adapters}; they must "
+                        "match (gather clamping would silently serve "
+                        "the wrong tenant)")
+                hbm.account("lora", {k: v for k, v
+                                     in params["layers"].items()
+                                     if k.startswith("lora_")},
+                            owner=self, tag="stacks")
+        self._slot_adapter = np.zeros((slots,), np.int64)
         # Paged KV: slots share a pool of T-token blocks through a
         # host-owned table instead of owning [max_seq] rows, so the
         # pool is sized to the expected live tokens
@@ -971,12 +1033,13 @@ class GenerationEngine:
             self._spec_emitted = 0   # tokens those windows emitted
             self._hist_buf = np.zeros((slots, self.max_seq), np.int32)
             self._hist_n = np.zeros((slots,), np.int64)
-            # the verify pass's device inputs, one [B, W + 1 (+ MB)] int64
-            # matrix uploaded per pass (the window, the active mask, then
-            # the paged table): the captured verify graph reads this very
-            # tensor, so nothing of a pass is baked into it
+            # the verify pass's device inputs, one [B, W + 1 (+ MB) + 1]
+            # int64 matrix uploaded per pass (the window, the active mask,
+            # then the paged table, then each slot's LoRA adapter):
+            # the captured verify graph reads this very tensor, so nothing
+            # of a pass is baked into it
             self._verify_in = torch.zeros(
-                (slots, self._spec_k + 2 + (self._mb if self._paged else 0)),
+                (slots, self._spec_k + 3 + (self._mb if self._paged else 0)),
                 dtype=torch.long, device=self.device)
             self._verify_up = _Staged(self._verify_in)
 
@@ -1051,7 +1114,9 @@ class GenerationEngine:
         includes, the first generated token in the set. ``seed`` fixes a
         sampled request's stream; sampled requests without one get a
         deterministic per-engine seed, surfaced as ``stream.seed``.
-        ``adapter``: 0 only (LoRA is not ported).
+        ``adapter``: the LoRA adapter the request runs through (0, the
+        base model, by default; 1..n-1 on an engine built with
+        ``lora_adapters`` = n).
 
         ``continue_from=(prompt, emitted)`` admits the continuation of
         an interrupted stream (the JAX engine's durable-stream resume):
@@ -1083,11 +1148,6 @@ class GenerationEngine:
             raise GenerationError("generation engine is draining")
         if self.down is not None:
             raise GenerationError(f"generation engine is down: {self.down}")
-        if adapter:
-            raise GenerationError(
-                f"adapter {adapter}: LoRA adapters are not ported to "
-                "gofr_tpu_torch yet (ROADMAP queue 1 item 8); only "
-                "adapter 0 is served")
         pos_base = 0
         if continue_from is not None:
             base, emitted = continue_from
@@ -1119,6 +1179,10 @@ class GenerationEngine:
             eos_id = frozenset(int(t) for t in eos_id) or None
         elif isinstance(eos_id, np.integer):
             eos_id = int(eos_id)
+        if adapter and not 0 <= adapter < max(self._n_adapters, 1):
+            raise GenerationError(
+                f"adapter {adapter} out of range (engine has "
+                f"{self._n_adapters} LoRA adapter slots)")
         if seed is not None:
             seed = int(seed) & 0x7FFFFFFF
         elif temperature > 0:
@@ -1167,7 +1231,8 @@ class GenerationEngine:
                                        float(temperature), int(top_k),
                                        eos_id, seed or 0, pos_base=pos_base,
                                        deadline=deadline,
-                                       slo_class=slo_class))
+                                       slo_class=slo_class,
+                                       adapter=int(adapter)))
         self._work.set()
         return stream
 
@@ -1222,6 +1287,10 @@ class GenerationEngine:
                                      / max(1, n_usable), 3),
                 "evictions": self._paged_evictions,
             }
+        if self._n_adapters:
+            out["lora"] = {"adapters": self._n_adapters,
+                           "rank": int(self.params["layers"]
+                                       ["lora_a_wq"].shape[-1])}
         if self._spec_k:
             out["spec_decode"] = {
                 "k": self._spec_k,
@@ -1269,6 +1338,52 @@ class GenerationEngine:
         if self._prefix_idx is not None:
             return {"kind": "paged-shared", **self._prefix_idx.stats()}
         return None
+
+    def load_adapter(self, idx: int, tree: dict) -> None:
+        """Install adapter weights into slot ``idx``: ``tree`` maps a
+        projection name ('wq'/'wk'/'wv'/'wo') to its (A [L, in, r],
+        B [L, r, out]) pair, the layout LoRA training produces per
+        layer (numpy, bfloat16 included, or tensors). Safe while serving:
+        every pair is checked first, then, under the device lock, copied
+        IN PLACE into the existing stack tensors, on the default stream
+        the replays run on, so a block already queued reads the old
+        weights and every later replay (each captured graph binds these
+        very tensors) reads the new ones. The adapter's stored prefixes
+        are dropped after the copy, from the paged index or from every
+        tier (T2 by an epoch bump): their KV flowed through the old
+        wk/wv."""
+        if not self._n_adapters:
+            raise GenerationError("engine built without lora_adapters")
+        if not 0 < idx < self._n_adapters:
+            raise GenerationError(
+                f"adapter slot {idx} invalid (1..{self._n_adapters - 1}; "
+                "slot 0 is the base no-op)")
+        layers = self.params["layers"]
+        for name in tree:
+            if f"lora_a_{name}" not in layers:
+                raise GenerationError(f"unknown LoRA target {name!r}")
+        copies = []
+        for name, (a, b) in tree.items():
+            for key, val in ((f"lora_a_{name}", a), (f"lora_b_{name}", b)):
+                dst = layers[key][:, idx]
+                src = val if isinstance(val, torch.Tensor) \
+                    else to_tensor(val, torch.device("cpu"))
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise GenerationError(
+                        f"{key}: adapter weights of shape "
+                        f"{tuple(src.shape)}, the slot holds "
+                        f"{tuple(dst.shape)}")
+                copies.append((dst, src))
+        with self._device_lock, torch.no_grad():
+            for dst, src in copies:
+                dst.copy_(src.to(dst.dtype))
+            if self._prefix_idx is not None:
+                # invalidated under the device lock, after the copy: the
+                # loop matches and stores only under this lock, so no
+                # entry computed through the old weights survives
+                self._prefix_idx.invalidate_adapter(idx)
+            if self._kvc is not None:
+                self._kvc.invalidate_adapter(idx)
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Graceful shutdown, phase 1 (the App's ``stop(grace_s=...)``):
@@ -1611,7 +1726,7 @@ class GenerationEngine:
         ver = self._prefix_idx.version
         if req.lattice_peek is not None and req.lattice_peek[0] == ver:
             return req.lattice_peek[1]
-        _, m = self._prefix_idx.match(req.prompt)
+        _, m = self._prefix_idx.match(req.prompt, req.adapter)
         verdict = bool(m) and self._lattice_resume_valid(L, m)
         req.lattice_peek = (ver, verdict)
         return verdict
@@ -1640,7 +1755,7 @@ class GenerationEngine:
         shared, m = [], 0
         idx = self._prefix_idx
         if idx is not None:
-            shared, m = idx.match(req.prompt)
+            shared, m = idx.match(req.prompt, req.adapter)
             if m and not self._lattice_resume_valid(len(req.prompt), m):
                 shared, m = [], 0
             if shared:
@@ -1828,7 +1943,7 @@ class GenerationEngine:
                           slot=slot, start=start, logit_pos=logit_pos,
                           temp=req.temperature, top_k=req.top_k,
                           seed=req.seed, pos_base=req.pos_base,
-                          blocks=blocks)
+                          blocks=blocks, adapter=req.adapter)
         self._adm_up.upload()
 
     def _admission_fn(self, key: tuple):
@@ -1939,6 +2054,7 @@ class GenerationEngine:
         self._temps[idx] = req.temperature
         self._top_ks[idx] = req.top_k
         self._slot_seed[idx] = req.seed
+        self._slot_adapter[idx] = req.adapter
         self._touch()
         if self._spec_k:
             self._hist_set(idx, req.prompt)
@@ -1979,25 +2095,26 @@ class GenerationEngine:
             return
         if self._prefix_idx is not None:
             if len(req.prompt) < self._store_min or \
-                    self._prefix_idx.covered(req.prompt):
+                    self._prefix_idx.covered(req.prompt, req.adapter):
                 return
-            self._prefix_idx.store(req.prompt, self._slot_blocks[idx])
+            self._prefix_idx.store(req.prompt, self._slot_blocks[idx],
+                                   req.adapter)
             return
         kvc = self._kvc
         prompt = np.asarray(req.prompt, np.int32)
         if kvc is None or len(prompt) < self._store_min \
-                or kvc.covered(prompt):
+                or kvc.covered(prompt, req.adapter):
             return
-        row, victim = kvc.store(prompt)
+        row, victim = kvc.store(prompt, req.adapter)
         self._offload_victim(victim)
         self._pool_copy(self._pool, row, self.cache, idx, len(prompt))
         if kvc.shares:
             # write-through: a host copy of the slot's fresh KV is the
             # price of warming every replica, but only through the last
             # full block this replica hasn't already shared
-            want = kvc.redis.pending_put_len(prompt)
+            want = kvc.redis.pending_put_len(prompt, req.adapter)
             if want > 0:
-                kvc.store_shared(prompt, 0,
+                kvc.store_shared(prompt, req.adapter,
                                  self._kv_row_get(self.cache, idx, want))
 
     # -- the contiguous engine's prefix tiers --------------------------------
@@ -2047,7 +2164,7 @@ class GenerationEngine:
             return req.kv_match[1]
         if prompt is None:
             prompt = np.asarray(req.prompt, np.int32)
-        mt = self._kvc.match(prompt)
+        mt = self._kvc.match(prompt, req.adapter)
         req.kv_match = (ver, mt)
         return mt
 
@@ -2306,7 +2423,7 @@ class GenerationEngine:
         p[:, 2] = self._budgets
         p[:, 3] = self._temps.view(np.int32)
         p[:, 4] = self._top_ks
-        p[:, 5] = 0
+        p[:, 5] = self._slot_adapter
         p[:, 6] = self._host_wins
         p[:, 7] = self._slot_seed
         p[:, 8] = self._pos_abs
@@ -2571,6 +2688,7 @@ class GenerationEngine:
         self._active[idx] = False
         self._temps[idx] = 0.0
         self._top_ks[idx] = 0
+        self._slot_adapter[idx] = 0
         self._budgets[idx] = 0
         self._slot_seed[idx] = 0
         self._pos_abs[idx] = 0
@@ -2721,9 +2839,11 @@ class GenerationEngine:
         read from ``_verify_in``."""
         W = self._spec_k + 1
         buf = self._verify_in
-        table = buf[:, W + 1:].to(torch.int32) if self._paged else None
+        table = (buf[:, W + 1:W + 1 + self._mb].to(torch.int32)
+                 if self._paged else None)
         return verify_pass(self.params, self.cfg, self.cache, buf[:, :W],
-                           buf[:, W].bool(), table, self.rope_tables)
+                           buf[:, W].bool(), table, self.rope_tables,
+                           buf[:, -1])
 
     def _capture_verify_graph(self) -> None:
         """The port of the JAX engine's ``_verify_jit``: the verify pass
@@ -2739,13 +2859,15 @@ class GenerationEngine:
 
     def _verify_inputs(self, window: np.ndarray) -> None:
         """Upload one pass's inputs into ``_verify_in`` (``_Staged``):
-        the window, the active mask and (paged) the table."""
+        the window, the active mask, (paged) the table and each slot's
+        adapter."""
         W = self._spec_k + 1
         host = self._verify_up.host()
         host[:, :W] = window
         host[:, W] = self._active
         if self._paged:
-            host[:, W + 1:] = self._table
+            host[:, W + 1:W + 1 + self._mb] = self._table
+        host[:, -1] = self._slot_adapter
         self._verify_up.upload()
 
     def _run_verify(self):

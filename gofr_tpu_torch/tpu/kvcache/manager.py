@@ -21,10 +21,11 @@ consulted -- and only wins -- when it could beat the local tiers by at
 least one full block: its hit pays MGET + host->device upload + a
 pool-row promotion, never worth less than a block of saved prefill.
 
-The tenancy hooks (``set_tenancy``, ``tenant_budget``,
-``evict_tenant``, the ``tenant=`` arguments) come with tenancy
-(ROADMAP queue 1 item 10), and ``invalidate_adapter`` with LoRA (item
-8); they keep the JAX package's call shapes and raise until then.
+``invalidate_adapter`` is the LoRA hot-swap: every tier drops the
+adapter's entries. The tenancy hooks (``set_tenancy``,
+``tenant_budget``, ``evict_tenant``, the ``tenant=`` arguments) come
+with tenancy (ROADMAP queue 1 item 10); they keep the JAX package's
+call shapes and raise until then.
 """
 
 from __future__ import annotations
@@ -263,10 +264,19 @@ class CacheManager:
         return n
 
     def invalidate_adapter(self, adapter: int) -> dict:
-        """Dropping an adapter's entries from every tier on a hot-swap
-        comes with LoRA (ROADMAP queue 1 item 8)."""
-        raise NotImplementedError(
-            "adapter invalidation comes with LoRA (ROADMAP queue 1 item 8)")
+        """LoRA hot-swap: stored KV was computed through the OLD wk/wv,
+        so every tier drops the adapter's entries (T0 and T1 here, T2 by
+        an epoch bump, which invalidates OTHER replicas' reads of this
+        adapter too). Returns the entries dropped per tier."""
+        self.version += 1
+        out = {"t0": self.t0.invalidate_adapter(adapter)}
+        if self.host is not None:
+            out["t1"] = self.host.invalidate_adapter(adapter)
+        if self.redis is not None:
+            self.redis.invalidate_adapter(adapter)
+            out["t2"] = "epoch_bumped"
+        self._gauges()
+        return out
 
     # -- observability -------------------------------------------------------
     def _count(self, name: str, tier: str) -> None:

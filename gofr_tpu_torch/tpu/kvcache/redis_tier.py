@@ -29,10 +29,13 @@ which the tier is not consulted at all: a down Redis must not tax every
 admission with a fresh connect timeout.
 
 The epoch is read (and cached for ``epoch_refresh_s``) because it is
-part of every key; bumping it on an adapter hot-swap
-(``invalidate_adapter``) comes with LoRA (ROADMAP queue 1 item 8), and
-the per-shard frames of mesh engines with tensor-parallel serving
-(item 11).
+part of every key. An adapter hot-swap (``invalidate_adapter``) bumps
+the adapter's epoch with INCRBY, renaming its namespace for every
+replica at once; that bump is the one fail-CLOSED path: if it cannot
+reach Redis, the adapter's shared reads and writes stay off
+(``_pending_bumps``) until a later bump succeeds, retried at its next
+consult. The per-shard frames of mesh engines with tensor-parallel
+serving come with meshes (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ class RedisTier:
         self.ns = namespace
         self._epochs: dict[int, tuple[int, float]] = {}  # adapter -> (ep, t)
         self._written: set[tuple[int, int, bytes]] = set()
+        self._pending_bumps: set[int] = set()  # fail-closed invalidations
         self._down_until = 0.0
         self._backoff = _BACKOFF_S
         self.errors = 0
@@ -89,6 +93,16 @@ class RedisTier:
         return f"{self.ns}:{self.fingerprint}:{adapter}:{epoch}:{h.hex()}"
 
     def _epoch(self, adapter: int) -> int:
+        if adapter in self._pending_bumps:
+            # a past invalidation never reached Redis: the shared
+            # namespace still holds pre-swap KV under the old epoch, so
+            # the adapter stays fail-CLOSED until the bump lands (an
+            # error here is the caller's miss)
+            ep = int(self.client.incr(self._epoch_key(adapter)))
+            self._pending_bumps.discard(adapter)
+            self._epochs[adapter] = (ep, time.monotonic())
+            self._ok()
+            return ep
         cached = self._epochs.get(adapter)
         now = time.monotonic()
         if cached is not None and now - cached[1] < self.epoch_refresh_s:
@@ -227,10 +241,23 @@ class RedisTier:
         return ok
 
     def invalidate_adapter(self, adapter: int) -> None:
-        """The epoch bump of an adapter hot-swap comes with LoRA (ROADMAP
-        queue 1 item 8); the port serves adapter 0 only."""
-        raise NotImplementedError(
-            "adapter epochs come with LoRA (ROADMAP queue 1 item 8)")
+        """Bump the adapter's epoch: renames the key namespace for every
+        replica sharing this Redis; stale blocks TTL out. Fail-CLOSED:
+        if the bump cannot reach Redis, the old-epoch namespace still
+        holds pre-swap KV, so the adapter's shared reads AND writes stay
+        off until a later bump succeeds (retried from ``_epoch`` at the
+        next consult)."""
+        adapter = int(adapter)
+        try:
+            ep = self.client.incr(self._epoch_key(adapter))
+            self._epochs[adapter] = (int(ep), time.monotonic())
+            self._pending_bumps.discard(adapter)
+            self._ok()
+        except Exception as e:  # noqa: BLE001
+            self._fail("invalidate", e)
+            self._pending_bumps.add(adapter)
+            self._epochs.pop(adapter, None)
+        self._written = {w for w in self._written if w[0] != adapter}
 
     def stats(self) -> dict:
         return {"blocks_put": self.blocks_put, "blocks_got": self.blocks_got,
@@ -239,5 +266,5 @@ class RedisTier:
                 "errors": self.errors,
                 "checksum_rejects": self.checksum_rejects,
                 "available": self.available,
-                "pending_bumps": 0,
+                "pending_bumps": len(self._pending_bumps),
                 "ttl_s": self.ttl_s}

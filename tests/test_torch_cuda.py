@@ -25,7 +25,13 @@ encoders' engines predict on the card, and an App on the card streams a
 Generate over its gRPC server and frees the slot of a cancelled Chat.
 The prefix tiers restore their stored int8 bytes through the pinned
 staging upload and stream the same tokens from T1 and T2, and the memory
-arbiter budgets the card and retries a real out-of-memory error. They
+arbiter budgets the card and retries a real out-of-memory error. With
+multi-LoRA, a replayed decode block, replayed admissions and a replayed
+verify pass with mixed adapters equal their eager versions, and after
+``load_adapter`` and a stream a replay reads the new weights (the graphs
+bind the stacks' storage); repeated swaps and streams keep the replays
+equal to the eager block, and no replay writes memory the allocator can
+hand to another tensor. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -539,7 +545,8 @@ def _random_state(eng, gen, lengths, draw):
     c.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
     b = eng.n_slots
     p = eng._warm_pack()
-    p[:, 0] = torch.randint(0, SMALL.vocab_size, (b,)).numpy()
+    p[:, 0] = torch.randint(0, SMALL.vocab_size, (b,), generator=gen,
+                            device="cuda").cpu().numpy()
     p[:, 1] = 1
     p[:, 2] = 100
     if draw:
@@ -563,7 +570,8 @@ def _snapshot(eng):
 
 def _replay_equals_eager(eng, draw):
     """Replay the engine's graph for ``draw``, run fused_decode_block
-    eagerly on a copy of the state it started from, and compare."""
+    eagerly on a copy of the state it started from (through the
+    adapters of the pack's column 5 on a LoRA engine), and compare."""
     from gofr_tpu_torch.tpu.generator import fused_decode_block
 
     cache, pack, carry = _snapshot(eng)
@@ -638,16 +646,17 @@ def test_prefill_and_verify_between_replays_are_seen(gen, paged):
         eng.close()
 
 
-def _verify_inputs(eng, window, table=None):
+def _verify_inputs(eng, window, table=None, adapters=None):
     """Write one verify pass's inputs into the engine's own tensor, the
     one its verify graph reads: the window, every slot active, (paged)
-    the table."""
+    the table, then each slot's adapter (``adapters``, else 0)."""
     w = window.shape[1]
     buf = eng._verify_in
     buf[:, :w] = window
     buf[:, w] = 1
     if table is not None:
-        buf[:, w + 1:] = table
+        buf[:, w + 1:-1] = table
+    buf[:, -1] = 0 if adapters is None else adapters
 
 
 @pytest.mark.parametrize("paged", [False, True])
@@ -681,7 +690,7 @@ def test_verify_replay_equals_the_eager_pass(gen, paged):
                 want = verify_pass(
                     eng.params, eng.cfg, cache, inputs[:, :5],
                     inputs[:, 5].bool(),
-                    inputs[:, 6:].to(torch.int32) if paged else None,
+                    inputs[:, 6:-1].to(torch.int32) if paged else None,
                     eng.rope_tables).cpu()
             torch.cuda.synchronize()
             assert torch.equal(got[:, :5], want[:, :5])     # tokens
@@ -1288,3 +1297,282 @@ def test_the_arbiter_budgets_the_card_and_retries_a_real_oom(gen):
         assert hbm.live_bytes() == {"engine": 4096}
     finally:
         hbm.reset()
+
+
+# -- multi-LoRA through the captured graphs ------------------------------------
+
+def _lora_engine(gen, paged: bool, **kw):
+    """SMALL with 3 adapter slots of rank 8 whose B matrices are filled
+    (so every adapter moves the logits), on buckets of 16 and 32."""
+    eng = _engine(paged, prompt_buckets=(16, 32), lora_adapters=3,
+                  lora_rank=8, **kw)
+    for name in llama.LORA_TARGETS:
+        b = eng.params["layers"][f"lora_b_{name}"]
+        b.copy_(torch.randn(b.shape, generator=gen, device="cuda") * 0.2)
+    return eng
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_lora_decode_replay_with_mixed_adapters_equals_eager(gen, paged):
+    """Three slots on adapters 1, 0 and 2 in one block: the replay reads
+    the pack's adapter column and equals the eager block, and the
+    adapters matter (the same state on adapter 0 everywhere gives other
+    tokens)."""
+    eng = _lora_engine(gen, paged)
+    try:
+        with eng._device_lock:
+            _random_state(eng, gen, [40, 131, 0], False)
+            state = _snapshot(eng)
+            eng._pack[:, 5] = torch.tensor([1, 0, 2], device="cuda")
+            mixed = _replay_equals_eager(eng, False)
+            for dst, src in zip((eng.cache.k, eng.cache.v, eng.cache.k_scale,
+                                 eng.cache.v_scale, eng.cache.lengths),
+                                (state[0].k, state[0].v, state[0].k_scale,
+                                 state[0].v_scale, state[0].lengths)):
+                dst.copy_(src)
+            eng._pack.copy_(state[1])
+            for dst, src in zip(eng._carry, state[2]):
+                dst.copy_(src)
+            base = _replay_equals_eager(eng, False)
+            assert torch.equal(mixed[:, 0, 1], base[:, 0, 1])   # adapter 0
+            assert not torch.equal(mixed[:, 0], base[:, 0])
+            eng._host_wins[:] = True
+            eng._touch()
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_lora_admission_replays_equal_their_eager_functions(gen, paged):
+    """A bucket admission and a lattice admission on adapter 2 (and a
+    bucket one on adapter 1): the graphs read the adapter from the
+    admission inputs and give the eager functions' first token and
+    cache bytes."""
+    from gofr_tpu_torch.tpu.generator import GenStream, _Request
+
+    eng = _lora_engine(gen, paged)
+    names = ["cache"] + (["_scratch"] if paged else [])
+    rng = np.random.default_rng(5)
+
+    def eager(key):
+        with torch.no_grad():
+            out = eng._admission_fn(key)()
+        return None if out is None else (int(out[0]), float(out[1]))
+
+    try:
+        with eng._device_lock:
+            firsts = []
+            prompts = {n: rng.integers(0, SMALL.vocab_size, n)
+                       for n in (30, 100)}
+            for n, adapter in ((30, 2), (30, 1), (100, 2)):
+                copies = {name: _snapshot_cache(getattr(eng, name))
+                          for name in names}
+                prompt = prompts[n]
+                blocks = (rng.choice(np.arange(1, 49), -(-n // 16),
+                                     replace=False).tolist()
+                          if paged else None)
+
+                def admit():
+                    return eng._prefill(1, _Request(
+                        GenStream(0), prompt, 4, 0.0, 0, None, 9,
+                        adapter=adapter), blocks and ([], 0, list(blocks)))
+
+                got = admit()
+                real = {name: getattr(eng, name) for name in names}
+                for name in names:
+                    setattr(eng, name, copies[name])
+                eng._run_admission = eager
+                try:
+                    want = admit()
+                finally:
+                    del eng._run_admission
+                    for name in names:
+                        setattr(eng, name, real[name])
+                torch.cuda.synchronize()
+                assert got[0] == want[0]
+                assert abs(got[1] - want[1]) <= LOGPROB_ATOL
+                for name in names:
+                    a, b = real[name], copies[name]
+                    assert torch.equal(a.lengths, b.lengths)
+                    live = slice(1 if paged and name == "cache" else 0,
+                                 None)
+                    for x, y in ((a.k, b.k), (a.v, b.v)):
+                        assert torch.equal(x[:, live], y[:, live])
+                firsts.append(got)
+            # the same prompt through adapters 2 and 1: another prefill
+            assert firsts[0] != firsts[1]
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_lora_verify_replay_with_mixed_adapters_equals_eager(gen, paged):
+    """A LoRA engine's verify graph reads each slot's adapter from the
+    last column of its inputs: a replay with slots on adapters 1, 0 and
+    2 equals verify_pass run eagerly through those adapters, and the
+    adapters matter (the same pass on adapter 0 everywhere gives the
+    same tokens for the slot on adapter 0 and others elsewhere)."""
+    from gofr_tpu_torch.tpu.generator import verify_pass
+
+    eng = _lora_engine(gen, paged, spec_decode_k=4)
+    try:
+        with eng._device_lock:
+            _random_state(eng, gen, [40, 131, 0], False)
+            window = torch.randint(0, SMALL.vocab_size, (3, 5),
+                                   device="cuda", generator=gen)
+            table = eng._pack[:, -eng._mb:].clone() if paged else None
+            start, _, _ = _snapshot(eng)
+            results = []
+            for adapters in ([1, 0, 2], [0, 0, 0]):
+                c = eng.cache
+                for dst, src in ((c.k, start.k), (c.v, start.v),
+                                 (c.k_scale, start.k_scale),
+                                 (c.v_scale, start.v_scale),
+                                 (c.lengths, start.lengths)):
+                    dst.copy_(src)
+                _verify_inputs(eng, window, table,
+                               torch.tensor(adapters, device="cuda"))
+                cache, _, _ = _snapshot(eng)
+                inputs = eng._verify_in.clone()
+                host, done = eng._run_verify()
+                done.synchronize()
+                got = torch.from_numpy(host.numpy().copy())
+                with torch.no_grad():
+                    want = verify_pass(
+                        eng.params, eng.cfg, cache, inputs[:, :5],
+                        inputs[:, 5].bool(),
+                        inputs[:, 6:-1].to(torch.int32) if paged else None,
+                        eng.rope_tables, inputs[:, -1]).cpu()
+                torch.cuda.synchronize()
+                assert torch.equal(got[:, :5], want[:, :5])     # tokens
+                assert torch.equal(got[:, 10], want[:, 10])     # emit
+                assert (got[:, 5:10] - want[:, 5:10]).abs().max() <= \
+                    LOGPROB_ATOL
+                for a, b in ((c.lengths, cache.lengths), (c.k, cache.k),
+                             (c.v, cache.v)):
+                    assert torch.equal(a, b)
+                results.append(got)
+            mixed, base = results
+            assert torch.equal(mixed[1, :5], base[1, :5])       # adapter 0
+            assert not torch.equal(mixed[:, :5], base[:, :5])
+            eng._host_wins[:] = True
+            eng._touch()
+    finally:
+        eng.close()
+
+
+def test_a_replay_after_load_adapter_reads_the_new_weights(gen):
+    """load_adapter copies into the stacks every graph binds: a greedy
+    stream on adapter 1 changes after the swap and equals the stream of
+    the donor adapter 2, and a decode replay after that stream equals
+    the eager block on the new weights."""
+    eng = _lora_engine(gen, False)
+    try:
+        prompt = list(range(3, 40))
+        donor = eng.generate(prompt, max_new_tokens=12, adapter=2).tokens()
+        before = eng.generate(prompt, max_new_tokens=12, adapter=1).tokens()
+        assert before != donor
+        layers = eng.params["layers"]
+        tree = {name: (layers[f"lora_a_{name}"][:, 2].cpu(),
+                       layers[f"lora_b_{name}"][:, 2].cpu())
+                for name in llama.LORA_TARGETS}
+        ptr = layers["lora_b_wq"].data_ptr()
+        eng.load_adapter(1, tree)
+        assert layers["lora_b_wq"].data_ptr() == ptr
+        after = eng.generate(prompt, max_new_tokens=12, adapter=1).tokens()
+        assert after == donor
+        with eng._device_lock:
+            torch.cuda.synchronize()
+            _random_state(eng, gen, [40, 131, 0], False)
+            eng._pack[:, 5] = 1
+            _replay_equals_eager(eng, False)
+            eng._host_wins[:] = True
+            eng._touch()
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_lora_replays_after_swaps_and_streams_equal_eager(gen, paged):
+    """The order of the load_adapter test, twelve times over on one
+    engine: a swap of adapters 1 and 2 every fourth round, a stream on
+    a swapped adapter, then a decode replay with mixed adapters against
+    the eager block on a fresh random state."""
+    eng = _lora_engine(gen, paged)
+    try:
+        prompt = list(range(3, 40))
+        layers = eng.params["layers"]
+        for t in range(12):
+            if t % 4 == 0:
+                trees = [{name: (layers[f"lora_a_{name}"][:, k].cpu(),
+                                 layers[f"lora_b_{name}"][:, k].cpu())
+                          for name in llama.LORA_TARGETS} for k in (1, 2)]
+                eng.load_adapter(1, trees[1])
+                eng.load_adapter(2, trees[0])
+            out = eng.generate(prompt, max_new_tokens=8,
+                               adapter=1 + t % 2).tokens()
+            assert len(out) == 8
+            with eng._device_lock:
+                torch.cuda.synchronize()
+                _random_state(eng, gen, [40, 131, 0], False)
+                eng._pack[:, 5] = torch.tensor(
+                    [t % 3, (t + 1) % 3, (t + 2) % 3], device="cuda")
+                _replay_equals_eager(eng, False)
+                eng._host_wins[:] = True
+                eng._touch()
+    finally:
+        eng.close()
+
+
+def _fill_free_memory(value: int) -> list:
+    """Take every free block the caching allocator holds with tensors
+    filled with ``value``, largest first: a size stops at the first
+    allocation that needs new device memory."""
+    out = []
+    for size in (256 << 20, 64 << 20, 16 << 20, 4 << 20, 1 << 20,
+                 256 << 10, 32 << 10, 4 << 10, 512):
+        for _ in range(4096):
+            before = torch.cuda.memory_reserved()
+            t = torch.full((size,), value, dtype=torch.uint8, device="cuda")
+            if torch.cuda.memory_reserved() != before:
+                break
+            out.append(t)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_lora_replays_write_nothing_outside_the_engine(gen, paged):
+    """After a swap and streams on the swapped adapter, the allocator's
+    free memory is handed to canaries; replaying every decode and
+    admission graph, and an eager block, leaves each canary whole: no
+    graph writes memory that the allocator can give to another tensor
+    (the first replay test's eager snapshot lives in such memory)."""
+    eng = _lora_engine(gen, paged)
+    try:
+        prompt = list(range(3, 40))
+        layers = eng.params["layers"]
+        eng.generate(prompt, max_new_tokens=12, adapter=2).tokens()
+        eng.load_adapter(1, {name: (layers[f"lora_a_{name}"][:, 2].cpu(),
+                                    layers[f"lora_b_{name}"][:, 2].cpu())
+                             for name in llama.LORA_TARGETS})
+        eng.generate(prompt, max_new_tokens=12, adapter=1).tokens()
+        with eng._device_lock:
+            torch.cuda.synchronize()
+            canaries = _fill_free_memory(0x5A)
+            assert canaries
+            for _ in range(3):
+                for draw in (False, True):
+                    eng._graphs[draw][0].replay()
+                for graph, _, _ in eng._adm_graphs.values():
+                    graph.replay()
+            with torch.no_grad():
+                eng._block(False)
+            torch.cuda.synchronize()
+            bad = [(i, c.numel()) for i, c in enumerate(canaries)
+                   if not bool((c == 0x5A).all())]
+            assert not bad
+            eng._host_wins[:] = True
+            eng._touch()
+    finally:
+        eng.close()

@@ -207,11 +207,6 @@ def test_cancel_ends_the_stream_and_frees_the_slot(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    {"prefix_cache_slots": 2, "lora_adapters": 2},
-    {"spec_decode_k": 4, "lora_adapters": 2},
-    {"lora_adapters": 2},
-    {"paged_blocks": 64, "prefix_cache_slots": 2, "lora_adapters": 2},
-    {"decode_pipeline": 2, "lora_adapters": 2},
     {"kvcache": object(), "mesh": object()},
     {"mesh": object()},
 ])
@@ -220,6 +215,37 @@ def test_features_outside_the_slice_raise(weights, kw):
     with pytest.raises(ValueError, match="not ported"):
         GenerationEngine(LLAMA_CONFIGS["tiny"], tparams, slots=2,
                          max_seq=32, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"prefix_cache_slots": 2, "lora_adapters": 2},
+    {"spec_decode_k": 4, "lora_adapters": 2},
+    {"lora_adapters": 2},
+    {"paged_blocks": 64, "prefix_cache_slots": 2, "lora_adapters": 2},
+    {"decode_pipeline": 2, "lora_adapters": 2},
+])
+def test_lora_combinations_serve_a_stream_equal_to_jax(weights, kw):
+    """Each combination with LoRA builds on both packages and serves an
+    adapter-1 stream equal to JAX's: the engines draw their own A
+    matrices, and every B starts at zero, so adapter 1 is the base."""
+    jparams, tparams = weights
+    prompt = [5, 9, 17, 5, 9, 17, 5, 9]
+    out = {}
+    for side in ("jax", "port"):
+        if side == "jax":
+            eng = JaxEngine(JAX_CONFIGS["tiny"], jparams, slots=2,
+                            max_seq=32, **kw)
+        else:
+            eng = GenerationEngine(LLAMA_CONFIGS["tiny"], tparams, slots=2,
+                                   max_seq=32, device="cpu", **kw)
+        try:
+            out[side] = (eng.generate(prompt, max_new_tokens=8,
+                                      adapter=1).tokens(),
+                         eng.stats()["lora"])
+        finally:
+            eng.close()
+    assert out["port"] == out["jax"]
+    assert out["port"][1] == {"adapters": 2, "rank": 16}
 
 
 @pytest.fixture

@@ -19,9 +19,10 @@ tiny's float32 model and the int8 cache are token-exact (no tolerance).
   ``new_engine_from_config``, and an unreachable Redis leaves T2 off.
 
 The adapter hot-swap case (tests/test_kvcache_engine.py's
-``test_adapter_hot_swap_invalidates_all_three_tiers``) waits for LoRA,
-ROADMAP queue 1 item 8. The ``tpu.prefix-restore`` span of JAX's T1 case
-waits for the timeline (item 13).
+``test_adapter_hot_swap_invalidates_all_three_tiers``) runs on both
+engines in tests/test_torch_lora.py, with the LoRA cases. The
+``tpu.prefix-restore`` span of JAX's T1 case waits for the timeline
+(item 13).
 """
 
 import time

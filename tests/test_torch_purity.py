@@ -44,7 +44,10 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "observe/registry.py", "tpu/kvcache/radix.py",
                 "tpu/batcher.py", "grpcx/__init__.py", "grpcx/_hufftable.py",
                 "grpcx/hpack.py", "grpcx/http2.py", "grpcx/service.py",
-                "grpcx/server.py", "grpcx/client.py"):
+                "grpcx/server.py", "grpcx/client.py", "subscriber.py",
+                "datasource/__init__.py", "datasource/pubsub/__init__.py",
+                "datasource/pubsub/mem.py", "datasource/pubsub/kafka.py",
+                "datasource/pubsub/google.py", "datasource/pubsub/mqtt.py"):
         assert PORT / own in files
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))
