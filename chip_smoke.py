@@ -235,11 +235,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      12, the malformed message logged and uncommitted, ``stop()``
      joining the subscriber; jobs and images a second, publish to result
      split into the JSON bind and the dispatch;
+  5l. (phase ``tenancy``) the multi-tenant serving plane on a
+     ``gofr_tpu_torch.App``: Llama-3-8B (phase lora's rows at 16 slots,
+     T0 of 4 rows with host RAM behind it, the in-process Redis as
+     ``ctx.redis``, the MEM broker, a registry of tenants A, B and C of
+     weights 2:1:1 routed to adapters 1-3 and ``capped``, 2 requests a
+     second and 2 at once); ``X-Tenant-Id`` and gRPC's ``x-tenant-id``
+     routing a request to its tenant and adapter (greedy tokens equal to
+     the adapter's untenanted); a burst of 64 + 32 + 32 requests whose
+     decode tokens split 2:1:1 (+-15%) while all three wait; A and B
+     served while ``capped`` sends 40 at once (its sheds typed 429s,
+     none of A's or B's, its concurrency at most 2); T0 budgets (every
+     eviction A's own, B's re-query a T0 hit, the ``tenant:A`` lease
+     and its reclaim); the async lane (4 jobs, one killed after its
+     first checkpoint and resumed with ``continue_from`` after a
+     restart); K1 32 a bucket admission and K2 32 a decode step;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
-     5's, the score run's and phases grpc's, tiers' and lora's;
-     flash_decode's phase 5's and phases grpc's, tiers' and lora's;
-     paged_decode's phase paged's and lora's), then the card line, then
-     the ``{"ok": true, "device": {...}}`` line last.
+     5's, the score run's and phases grpc's, tiers', lora's and
+     tenancy's; flash_decode's phase 5's and phases grpc's, tiers',
+     lora's and tenancy's; paged_decode's phase paged's and lora's),
+     then the card line, then the ``{"ok": true, "device": {...}}`` line
+     last.
 
 It needs the repository beside it and a CUDA card; without either it
 exits non-zero and prints no result.
@@ -5152,13 +5168,577 @@ def phase_pubsub(card: str) -> None:
             f"subscriber threads after stop(): {alive} ({stop_s:.3f} s)")
 
 
+# -- phase tenancy: the multi-tenant serving plane -----------------------------
+
+TENANCY_DOC = {"tenants": [
+    {"id": "A", "weight": 2, "adapter": 1, "cache_share": 0.5},
+    {"id": "B", "weight": 1, "adapter": 2, "cache_share": 0.5},
+    {"id": "C", "weight": 1, "adapter": 3},
+    {"id": "capped", "weight": 1, "adapter": 0, "rps": 2,
+     "max_concurrency": 2, "slo_class": "throughput"}]}
+# phase lora's rows, with a burst that saturates 16 slots, T0 of 4 rows
+# over host RAM, the lane's broker and registry; a gate far above every
+# burst, so that any shed it counts but the tenant quota's shows
+TENANCY_ROWS = dict(LORA_ROWS, GRPC_PORT="0", TPU_SLOTS="16",
+                    TPU_PREFIX_CACHE="4", TPU_PREFIX_MIN="256",
+                    TPU_KVCACHE_HOST_MB="256", PUBSUB_BACKEND="MEM",
+                    CONSUMER_ID="tenancy-lane",
+                    TPU_TENANT_CHECKPOINT_EVERY="8",
+                    TPU_MAX_QUEUE_DEPTH="512",
+                    TPU_TENANTS_INLINE=json.dumps(TENANCY_DOC))
+TENANCY_SEED = 67
+TENANCY_BURST = {"A": 64, "B": 32, "C": 32}   # requests a tenant, at once
+TENANCY_LENS = (64, 128)      # the burst's prompts: one bucket each (K1)
+TENANCY_NEW = 48
+TENANCY_SHARE_TOL = 0.15      # relative, tools/tenant_bench.py's
+TENANCY_QUOTA_EACH = 8        # A's and B's requests a round
+TENANCY_CAPPED = 40           # capped's requests, at once
+TENANCY_STORE_LEN = 300       # a stored prompt (>= TPU_PREFIX_MIN)
+TENANCY_JOBS = 4              # async-lane jobs (tenants A, B, A, B)
+TENANCY_JOB_LEN = 200
+TENANCY_JOB_NEW = 64
+TENANCY_KILL_AT = 9           # the last job's handler dies at this token
+TENANCY_WAIT_S = 120
+
+
+def tenancy_routes(app) -> None:
+    """The phase's HTTP route and gRPC method: each reports the tenant
+    the handler sees (``ctx.tenant``) beside its stream's tenant, adapter
+    and class."""
+    from gofr_tpu_torch.grpcx import GRPCService
+
+    @app.post("/generate")
+    def generate(ctx):
+        body = ctx.bind()
+        s = ctx.tpu.generate(body["tokens"],
+                             max_new_tokens=body.get("max_new_tokens", 16),
+                             adapter=body.get("adapter", 0))
+        return {"tokens": s.tokens(), "tenant": ctx.tenant,
+                "stream_tenant": s.tenant, "adapter": s.adapter,
+                "slo_class": s.slo_class}
+
+    svc = GRPCService("tenancy.Generation")
+
+    @svc.server_stream("Generate")
+    def generate_grpc(ctx, req):
+        s = ctx.tpu.generate(req["tokens"],
+                             max_new_tokens=req.get("max_new_tokens", 16))
+        yield {"tenant": ctx.tenant, "stream_tenant": s.tenant,
+               "adapter": s.adapter}
+        for t in s:
+            yield {"token": int(t)}
+
+    app.register_grpc_service(svc)
+
+
+def _tenant_generate(port: int, prompt, tenant=None, new: int = 16,
+                     adapter: int = 0) -> dict:
+    """POST /generate with ``X-Tenant-Id`` (when given): the route's
+    answer, or status and headers of a refusal."""
+    out = http_call(port, "POST", "/generate",
+                    {"tokens": prompt, "max_new_tokens": new,
+                     "adapter": adapter},
+                    {"X-Tenant-Id": tenant} if tenant else None)
+    if out["status"] == 200:
+        return {"status": 200, **out["lines"][0]["data"]}
+    return {"status": out["status"], "headers": out["headers"]}
+
+
+def _tenant_grpc(port: int, prompt, tenant: str, new: int = 16) -> list:
+    ch = grpc_channel(port)
+    try:
+        return list(ch.server_stream(
+            "/tenancy.Generation/Generate",
+            {"tokens": prompt, "max_new_tokens": new},
+            metadata={"x-tenant-id": tenant}, timeout=APP_CALL_TIMEOUT_S))
+    finally:
+        ch.close()
+
+
+class _KillOnce:
+    """The lane's engine: the first stream of ``prompt`` dies after
+    ``n`` tokens (the worker's crash after its first checkpoint), its
+    stream cancelled; everything else passes through."""
+
+    def __init__(self, engine, prompt, n: int):
+        self.engine = engine
+        self.prompt = list(prompt)
+        self.n = n
+        self.armed = True
+        self.fired = False
+
+    def generate(self, tokens, **kw):
+        stream = self.engine.generate(tokens, **kw)
+        if not self.armed or list(tokens) != self.prompt:
+            return stream
+        self.armed = False
+
+        def die():
+            for i, item in enumerate(stream):
+                if i >= self.n:
+                    stream.cancel()
+                    self.fired = True
+                    raise RuntimeError("lane worker killed mid-job")
+                yield item
+        return die()
+
+
+def _pctl(values, q):
+    import numpy as np
+
+    return float(np.percentile(values, q)) if values else float("nan")
+
+
+def phase_tenancy(card: str) -> dict:
+    """The multi-tenant serving plane on ``gofr_tpu_torch.App`` at full
+    width and depth (Llama-3-8B int8, 16 slots, adapters 1-3 installed
+    with ``load_adapter`` from seeded tensors): routing by
+    ``X-Tenant-Id`` and ``x-tenant-id``; the weighted fair share of a
+    saturating burst; quota isolation of ``capped``; per-tenant T0
+    budgets with the ``tenant:A`` lease; the async lane's kill and
+    resume over the MEM broker with checkpoints in the in-process
+    Redis. K1 32 a bucket admission, K2 32 a decode step, no plain
+    version. Returns the launch counts."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.datasource.pubsub import mem, new_pubsub_client
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.resilience import SLO_THROUGHPUT, slo_scope
+    from gofr_tpu_torch.subscriber import SubscriptionManager
+    from gofr_tpu_torch.tenancy import install_async_lane, tenant_scope
+    from gofr_tpu_torch.testutil.redisfake import FakeRedisServer
+    from gofr_tpu_torch.tpu import hbm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem.reset()
+    redis = FakeRedisServer()
+    rows = dict(TENANCY_ROWS, REDIS_HOST=redis.host,
+                REDIS_PORT=str(redis.port))
+    t0 = time.monotonic()
+    app = App(MapConfig(rows))
+    tenancy_routes(app)
+    tpu = app.container.tpu
+    gen = tpu.generator
+    plane = tpu.tenancy
+    kvc = gen._kvc
+    cfg = gen.cfg
+    layers = cfg.n_layers
+    rank = int(gen.params["layers"]["lora_a_wq"].shape[-1])
+    rng = np.random.default_rng(TENANCY_SEED)
+    for k in (1, 2, 3):
+        arng = np.random.default_rng(TENANCY_SEED * 100 + k)
+        gen.load_adapter(k, {
+            name: ((arng.standard_normal((layers, din, rank), np.float32)
+                    * din ** -0.5).astype(np.float16),
+                   (arng.standard_normal((layers, rank, dout), np.float32)
+                    * LORA_B_SCALE).astype(np.float16))
+            for name, (din, dout) in llama._lora_dims(cfg).items()})
+    lane = install_async_lane(app)
+    app.run(block=False)
+    torch.cuda.synchronize()
+    built_s = time.monotonic() - t0
+    port = app.http_port
+    vocab = cfg.vocab_size
+
+    def prompt(n):
+        return rng.integers(0, vocab, int(n)).tolist()
+
+    kinds: dict = {}
+    run_admission = gen._run_admission
+
+    def counted(key):
+        kinds[key[0]] = kinds.get(key[0], 0) + 1
+        return run_admission(key)
+
+    gen._run_admission = counted
+    streams, lock = [], threading.Lock()
+    generate = tpu.generate
+
+    def tracked(*args, **kw):
+        s = generate(*args, **kw)
+        with lock:
+            streams.append(s)
+        return s
+
+    tpu.generate = tracked
+    steps0 = gen.decode_steps
+    _reset_launches()
+    restarted = None
+    try:
+        # 1. routing
+        p1 = prompt(40)
+        via_a = _tenant_generate(port, p1, "A")
+        plain_1 = _tenant_generate(port, p1, None, adapter=1)
+        explicit = _tenant_generate(port, p1, "A", adapter=2)
+        unknown = _tenant_generate(port, p1, "nobody")
+        g_a = _tenant_grpc(app.grpc_port, p1, "A")
+        g_unknown = _tenant_grpc(app.grpc_port, p1, "nobody")
+        routing = {
+            "http_A": (via_a["tenant"], via_a["stream_tenant"],
+                       via_a["adapter"]),
+            "grpc_A": (g_a[0]["tenant"], g_a[0]["stream_tenant"],
+                       g_a[0]["adapter"]),
+            "http_unknown": (unknown["tenant"], unknown["adapter"]),
+            "grpc_unknown": (g_unknown[0]["tenant"], g_unknown[0]["adapter"]),
+            "explicit": explicit["adapter"],
+            "A_equals_adapter_1": via_a["tokens"] == plain_1["tokens"],
+            "grpc_equals_http": [m["token"] for m in g_a[1:]]
+            == via_a["tokens"],
+            "adapter_1_parts_from_0": plain_1["tokens"]
+            != unknown["tokens"]}
+        print(f"[tenancy] App with {rows['TPU_MODEL']} ({rows['TPU_SLOTS']} "
+              f"slots, {rows['TPU_MAX_SEQ']} positions, adapters 1-3 of rank "
+              f"{rank} installed with load_adapter, T0 of "
+              f"{rows['TPU_PREFIX_CACHE']} rows, tenants "
+              f"{[t['id'] for t in TENANCY_DOC['tenants']]}) ready in "
+              f"{built_s:.1f} s; routing {routing}; card: {card}",
+              flush=True)
+        require(routing["http_A"] == ("A", "A", 1)
+                and routing["grpc_A"] == ("A", "A", 1)
+                and routing["http_unknown"] == ("default", 0)
+                and routing["grpc_unknown"] == ("default", 0)
+                and routing["explicit"] == 2,
+                f"tenant routing: {routing}")
+        require(routing["A_equals_adapter_1"] and routing["grpc_equals_http"]
+                and routing["adapter_1_parts_from_0"],
+                f"tenant A's tokens: {routing}")
+
+        # 2. the weighted fair share of a saturating burst
+        deliveries, admits = [], []
+        deliver, start = gen._deliver, gen._start
+
+        def logged_deliver(idx, slot, token, lp=None):
+            deliveries.append((time.monotonic(), slot.request.tenant))
+            return deliver(idx, slot, token, lp)
+
+        def logged_start(idx, slot, req, blocks=None):
+            admits.append((time.monotonic(), req.tenant))
+            return start(idx, slot, req, blocks)
+
+        order = ["A", "B", "A", "C"] * (TENANCY_BURST["B"])
+        lens = rng.integers(TENANCY_LENS[0], TENANCY_LENS[1] + 1,
+                            len(order))
+        burst_prompts = [prompt(n) for n in lens]
+        gen._deliver, gen._start = logged_deliver, logged_start
+        try:
+            with gen._device_lock:
+                burst = []
+                for t, p in zip(order, burst_prompts):
+                    with tenant_scope(t):
+                        burst.append(tpu.generate(
+                            p, max_new_tokens=TENANCY_NEW))
+                queued_by_tenant = gen.stats()["scheduler"][
+                    "queued_by_tenant"]
+                gauges = [ln for ln in app.container.metrics
+                          .render_prometheus().splitlines()
+                          if ln.startswith("app_tpu_queue_depth")
+                          and "tenant=" in ln]
+            t_burst = time.monotonic()
+            outs = [s.tokens() for s in burst]
+            burst_s = time.monotonic() - t_burst
+        finally:
+            del gen._deliver, gen._start
+        require(all(len(o) == TENANCY_NEW for o in outs),
+                "a burst stream came short")
+        last_admit = {t: max(a for a, tt in admits if tt == t)
+                      for t in TENANCY_BURST}
+        w0 = min(a for a, _ in admits)
+        w1 = min(last_admit.values())
+        window = [t for a, t in deliveries if w0 <= a <= w1]
+        weights = {t["id"]: t["weight"] for t in TENANCY_DOC["tenants"]}
+        wsum = sum(weights[t] for t in TENANCY_BURST)
+        shares = {t: window.count(t) / len(window) for t in TENANCY_BURST}
+        rel = {t: abs(shares[t] / (weights[t] / wsum) - 1.0)
+               for t in TENANCY_BURST}
+        first16 = [t for _, t in admits[:gen.n_slots]]
+        print(f"[tenancy] fair share: {len(burst)} requests "
+              f"({TENANCY_BURST}) of {TENANCY_LENS[0]}-{TENANCY_LENS[1]} "
+              f"tokens, {TENANCY_NEW} new, queued at once; at the window's "
+              f"start queued_by_tenant {queued_by_tenant}, gauges {gauges}; "
+              f"first {gen.n_slots} admissions {''.join(first16)}; "
+              f"{len(window)} decode tokens in {w1 - w0:.3f} s while all "
+              f"three waited: shares "
+              f"{ {t: round(v, 4) for t, v in shares.items()} } against "
+              f"{ {t: round(weights[t] / wsum, 4) for t in TENANCY_BURST} } "
+              f"(relative error "
+              f"{ {t: round(v, 4) for t, v in rel.items()} }); the burst "
+              f"{len(burst) * TENANCY_NEW / burst_s:.1f} tok/s in "
+              f"{burst_s:.3f} s; card: {card}", flush=True)
+        require(queued_by_tenant == TENANCY_BURST,
+                f"queued_by_tenant {queued_by_tenant}")
+        require(max(rel.values()) <= TENANCY_SHARE_TOL,
+                f"fair shares {shares} outside "
+                f"{TENANCY_SHARE_TOL:.0%} of 2:1:1")
+
+        # 3. quota isolation
+        def round_ab(extra_capped: int) -> dict:
+            del streams[:]
+            jobs = [("A", prompt(40)) for _ in range(TENANCY_QUOTA_EACH)] + \
+                [("B", prompt(40)) for _ in range(TENANCY_QUOTA_EACH)] + \
+                [("capped", prompt(40)) for _ in range(extra_capped)]
+            peak = [0]
+            stop = threading.Event()
+
+            def watch():
+                while not stop.is_set():
+                    peak[0] = max(peak[0], plane.quotas.active("capped"))
+                    time.sleep(0.0005)
+
+            w = threading.Thread(target=watch, daemon=True)
+            w.start()
+            try:
+                res = _threads([lambda t=t, p=p: (t, _tenant_generate(
+                    port, p, t)) for t, p in jobs])
+            finally:
+                stop.set()
+                w.join(5)
+            ttft = {t: [1e3 * (s.trace["first_put"] - s.trace["submit"])
+                        for s in list(streams) if s.tenant == t]
+                    for t in ("A", "B")}
+            return {"res": res, "ttft": ttft, "peak": peak[0]}
+
+        shed0 = gen.gate.stats()["sheds"]
+        calm = round_ab(0)
+        busy = round_ab(TENANCY_CAPPED)
+        capped = [r for t, r in busy["res"] if t == "capped"]
+        c429 = [r for r in capped if r["status"] == 429]
+        c200 = [r for r in capped if r["status"] == 200]
+        typed = all(r["headers"].get("X-Shed-Reason") == "tenant_quota"
+                    and float(r["headers"].get("Retry-After", 0)) > 0
+                    for r in c429)
+        ab_bad = [r["status"] for t, r in calm["res"] + busy["res"]
+                  if t != "capped" and r["status"] != 200]
+        tstats = plane.stats()["tenants"]
+        shed_lines = _scraped(app, "app_tpu_shed_total{")
+        tenant_gauge = _total(_scraped(app,
+                                       'app_tpu_tenant_shed{tenant="capped"}'))
+        gate_sheds = gen.gate.stats()["sheds"] - shed0
+        end = time.monotonic() + 10
+        while any(v["active"] for v in plane.stats()["tenants"].values()) \
+                and time.monotonic() < end:
+            time.sleep(0.01)
+        active_after = {t: v["active"]
+                        for t, v in plane.stats()["tenants"].items()}
+
+        def tt(r, t):
+            return (f"p50 {_pctl(r['ttft'][t], 50):.1f} ms p95 "
+                    f"{_pctl(r['ttft'][t], 95):.1f} ms")
+
+        print(f"[tenancy] quota: A and B {TENANCY_QUOTA_EACH} requests each "
+              f"over HTTP, alone then beside {TENANCY_CAPPED} of capped "
+              f"(rps 2, 2 at once) at once: capped {len(c200)} served, "
+              f"{len(c429)} 429 (all typed tenant_quota with Retry-After: "
+              f"{typed}), its live concurrency at most {busy['peak']}; "
+              f"app_tpu_tenant_shed{{tenant=capped}} {tenant_gauge:.0f}; the "
+              f"gate's sheds {gate_sheds} ({shed_lines}); A and B refused "
+              f"{ab_bad}; plane sheds A {tstats['A']['shed']} B "
+              f"{tstats['B']['shed']}; live after {active_after}; TTFT "
+              f"alone A {tt(calm, 'A')}, B {tt(calm, 'B')}; beside capped A "
+              f"{tt(busy, 'A')}, B {tt(busy, 'B')}; card: {card}", flush=True)
+        require(len(c429) + len(c200) == TENANCY_CAPPED and c429 and typed,
+                f"capped's answers: {[r['status'] for r in capped]}")
+        require(tenant_gauge == len(c429) == tstats["capped"]["shed"],
+                f"capped's sheds: gauge {tenant_gauge}, 429s {len(c429)}, "
+                f"plane {tstats['capped']['shed']}")
+        require(not ab_bad and tstats["A"]["shed"] == tstats["B"]["shed"]
+                == 0, f"A or B shed: {ab_bad}")
+        require(gate_sheds == len(c429) and all(
+            'tenant="capped"' in ln for ln in shed_lines),
+            f"the gate shed other than capped's quota: {gate_sheds} "
+            f"{shed_lines}")
+        require(busy["peak"] <= 2 and not any(active_after.values()),
+                f"live concurrency: peak {busy['peak']}, after "
+                f"{active_after}")
+
+        # 4. the T0 budgets
+        stored = {"A": [prompt(TENANCY_STORE_LEN) for _ in range(7)],
+                  "B": [prompt(TENANCY_STORE_LEN) for _ in range(2)]}
+        victims = []
+        offload = gen._offload_victim
+
+        def seen(victim):
+            if victim is not None:
+                victims.append(victim.key.tolist())
+            return offload(victim)
+
+        def store(t, i):
+            r = _tenant_generate(port, stored[t][i], t, new=1)
+            require(r["status"] == 200, f"store {t}{i}: {r}")
+
+        gen._offload_victim = seen
+        try:
+            for i in range(3):
+                store("A", i)
+            over = dict(kvc.tenant_rows())
+            lease = [r for r in hbm.arbiter_stats()["leases"]
+                     if r["tag"] == "tenant:A"]
+            reg = hbm._registry
+            (key,) = [k for k in reg._meta if k[2] == "tenant:A"]
+            reg._deref_reclaim(reg._meta[key][1])(1)
+            after_reclaim = dict(kvc.tenant_rows())
+            reclaimed = list(victims)
+            lease_after = [r for r in hbm.arbiter_stats()["leases"]
+                           if r["tag"] == "tenant:A"]
+            for i in range(2):
+                store("B", i)
+            ev0 = kvc.t0.evictions
+            del victims[:]
+            for i in range(3, 7):
+                store("A", i)
+            evictions = kvc.t0.evictions - ev0
+        finally:
+            del gen._offload_victim
+        a_keys = stored["A"]
+        b_indexed = [kvc.covered(np.asarray(p, np.int32),
+                                 plane.resolve("B").adapter)
+                     for p in stored["B"]]
+        hit = _tenant_generate(port, stored["B"][0] + prompt(24), "B", new=4)
+        hit_stream = streams[-1]
+        print(f"[tenancy] T0 budgets (4 rows, A and B a half each): A stored "
+              f"3 -> rows {over}, lease {lease}; the lease's reclaim evicted "
+              f"{len(reclaimed)} row(s), A's: "
+              f"{all(v in a_keys for v in reclaimed)} -> rows "
+              f"{after_reclaim}, lease {lease_after}; B stored 2, A 4 more: "
+              f"{evictions} evictions, all A's: "
+              f"{all(v in a_keys for v in victims)}; rows "
+              f"{kvc.tenant_rows()}; B's rows indexed {b_indexed}; B's "
+              f"re-query tier {hit_stream.cache_tier}, cache_tokens "
+              f"{hit_stream.cache_tokens}; card: {card}", flush=True)
+        require(over == {"A": 3} and len(lease) == 1
+                and lease[0]["reclaimable"], f"A over its share: {over} "
+                f"{lease}")
+        require(after_reclaim == {"A": 2} and len(reclaimed) == 1
+                and reclaimed[0] == stored["A"][0] and not lease_after,
+                f"the reclaim: {after_reclaim}, {len(reclaimed)} victims")
+        require(evictions == 4 and len(victims) == 4
+                and all(v in a_keys for v in victims)
+                and kvc.tenant_rows() == {"A": 2, "B": 2},
+                f"evictions {evictions}: A's {victims}")
+        require(all(b_indexed) and hit["status"] == 200
+                and hit_stream.cache_tier == "t0"
+                and hit_stream.cache_tokens >= TENANCY_STORE_LEN - 16,
+                f"B's re-query: {b_indexed} {hit_stream.cache_tier} "
+                f"{hit_stream.cache_tokens}")
+
+        # 5. the async lane
+        jobs = [{"job_id": f"job-{j}", "tenant": "AB"[j % 2],
+                 "tokens": prompt(TENANCY_JOB_LEN),
+                 "max_new": TENANCY_JOB_NEW} for j in range(TENANCY_JOBS)]
+        killed = jobs[-1]
+        killer = lane.engine = _KillOnce(tpu, killed["tokens"],
+                                         TENANCY_KILL_AT)
+        client = app.container.redis
+
+        def doc(j):
+            raw = client.get(f"async:{j['job_id']}")
+            return json.loads(raw) if raw else None
+
+        t_pub = time.monotonic()
+        for j in jobs:
+            app.container.pubsub.publish("inference-jobs", j)
+        end = time.monotonic() + TENANCY_WAIT_S
+        while time.monotonic() < end and not (
+                killer.fired and all((doc(j) or {}).get("status") == "done"
+                                     for j in jobs[:-1])):
+            time.sleep(0.01)
+        t_first = time.monotonic()
+        # the worker restarts (its thread joined after the failed job's
+        # checkpoint): a fresh client of the same consumer group resumes
+        # from the committed offset, which the kill left behind
+        app.subscription_manager.stop()
+        mid = doc(killed)
+        app.container.pubsub = new_pubsub_client(
+            "MEM", app.config, app.logger, app.container.metrics)
+        restarted = SubscriptionManager(app.container)
+        restarted.register("inference-jobs", lane.handle)
+        restarted.start()
+        while time.monotonic() < end and \
+                (doc(killed) or {}).get("status") != "done":
+            time.sleep(0.01)
+        t_done = time.monotonic()
+        docs = [doc(j) for j in jobs]
+        with tenant_scope(killed["tenant"]), slo_scope(SLO_THROUGHPUT):
+            ref = tpu.generate(killed["tokens"],
+                               max_new_tokens=TENANCY_JOB_NEW).tokens()
+        spliced = docs[-1]["tokens"] if docs[-1] else []
+        print(f"[tenancy] async lane: {TENANCY_JOBS} jobs of "
+              f"{TENANCY_JOB_LEN} tokens, {TENANCY_JOB_NEW} new (tenants "
+              f"{[j['tenant'] for j in jobs]}), checkpoints every "
+              f"{rows['TPU_TENANT_CHECKPOINT_EVERY']}; the last job's worker "
+              f"killed at token {TENANCY_KILL_AT}: its checkpoint "
+              f"{mid and (mid['status'], len(mid['tokens']))}; "
+              f"{TENANCY_JOBS - 1} done and the killed one checkpointed in "
+              f"{t_first - t_pub:.3f} s "
+              f"({(TENANCY_JOBS - 1) / (t_first - t_pub):.2f} jobs/s), the "
+              f"resumed one done {t_done - t_first:.3f} s after the kill "
+              f"({TENANCY_JOBS / (t_done - t_pub):.2f} jobs/s over all "
+              f"{TENANCY_JOBS}); "
+              f"lane {lane.stats()}; the spliced stream against the "
+              f"uninterrupted one: {splice_agreement(spliced, ref)}; card: "
+              f"{card}", flush=True)
+        require(all(d is not None and d["status"] == "done"
+                    and len(d["tokens"]) == TENANCY_JOB_NEW for d in docs),
+                f"lane documents {docs}")
+        require(lane.stats()["done"] == TENANCY_JOBS
+                and lane.stats()["resumed"] == 1,
+                f"lane counters {lane.stats()}")
+        require(mid is not None and mid["status"] == "running"
+                and len(mid["tokens"]) >= 8,
+                f"the killed job's checkpoint {mid}")
+        require(docs[-1]["tokens"][:len(mid["tokens"])] == mid["tokens"],
+                "the resumed job lost its emitted prefix")
+
+        counts = _launches()
+        bucket = kinds.get("prefill", 0)
+        steps = gen.decode_steps - steps0
+        # the burst's decode step on the idle engine: every slot live at
+        # the burst's lengths, on the tenants' adapters in its mix
+        routed = {t["id"]: t["adapter"] for t in TENANCY_DOC["tenants"]}
+        block_ms = block_device_ms(
+            gen, [int(n) + TENANCY_NEW // 2
+                  for n in np.resize(lens, gen.n_slots)],
+            [routed[t] for t in np.resize(order, gen.n_slots)],
+            LORA_BLOCK_REPS)
+        print(f"[tenancy] {bucket} bucket admissions, admission dispatches "
+              f"by kind {kinds}, {steps} decode steps; launches {counts}; a "
+              f"decode block (K={gen.decode_block}, {gen.n_slots} slots live "
+              f"at the burst's lengths on its adapters, CUDA events, median "
+              f"of {LORA_BLOCK_REPS}) {block_ms:.3f} ms; card: {card}",
+              flush=True)
+        require(counts["flash_prefill"] == layers * bucket and bucket > 0,
+                f"flash_prefill launched {counts['flash_prefill']} times for "
+                f"{bucket} bucket admissions of {layers} layers")
+        require(counts["flash_decode"] == layers * steps and steps > 0,
+                f"flash_decode launched {counts['flash_decode']} times for "
+                f"{steps} decode steps of {layers} layers")
+        require(counts["prefill_plain"] == counts["decode_plain"]
+                == counts["paged_decode"] == counts["paged_plain"] == 0,
+                f"a plain version or another kernel ran: {counts}")
+    finally:
+        if restarted is not None:
+            restarted.stop()
+        app.stop()
+        release_graphs(gen)
+        redis.close()
+        mem.reset()
+    return {"flash_prefill": counts["flash_prefill"],
+            "flash_decode": counts["flash_decode"]}
+
+
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
                 "durable", "slo", "app", "predict", "grpc", "tiers", "lora",
-                "pubsub")) -> dict:
+                "pubsub", "tenancy")) -> dict:
     import torch
 
     card = card_line()
@@ -5214,9 +5794,10 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             # K1's count: phase 5's main path plus the score run
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
-        elif phase in ("grpc", "tiers", "lora"):
+        elif phase in ("grpc", "tiers", "lora", "tenancy"):
             counts = {"grpc": phase_grpc, "tiers": phase_tiers,
-                      "lora": phase_lora}[phase](card)
+                      "lora": phase_lora,
+                      "tenancy": phase_tenancy}[phase](card)
             # K1's, K2's (and K3's) counts: the earlier phases' plus this
             # run's
             for name, n in counts.items():

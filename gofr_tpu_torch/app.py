@@ -22,12 +22,15 @@ in-process; ``stop(grace_s)`` drains it, stopping the subscribers
 first.
 
 ``device`` reaches the container's engine and nothing else: an App with
-no ``TPU_MODEL``/``TPU_ENABLED`` row touches no device. The CLI,
-migrations, outbound HTTP services, the gateway (its rows raise at
-construction, as does any serving role but ``fused``), the auth and
-tenant middlewares (``X-Tenant-Id``, gRPC's ``x-tenant-id``) and the
-``/debug`` pages other than ``/debug/cache`` and ``/debug/vars`` (the
-latter reduced to the memory arbiter's sections) are not ported yet.
+no ``TPU_MODEL``/``TPU_ENABLED`` row touches no device. The tenant
+middleware scopes ``X-Tenant-Id`` (``TPU_TENANT_HEADER``) as gRPC does
+``x-tenant-id``, canonicalised through the engine's tenancy plane when
+``TPU_TENANTS`` configures one (``tenancy.install_async_lane(app)`` adds
+the async lane). The CLI, migrations, outbound HTTP services, the
+gateway (its rows raise at construction, as does any serving role but
+``fused``), the auth middlewares and the ``/debug`` pages other than
+``/debug/cache`` and ``/debug/vars`` (the latter reduced to the memory
+arbiter's sections) are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ from .context import Context
 from .http.middleware import (cors_middleware, deadline_middleware,
                               drain_middleware, inflight_middleware,
                               logging_middleware, metrics_middleware,
-                              slo_class_middleware, tracer_middleware)
+                              slo_class_middleware, tenant_middleware,
+                              tracer_middleware)
 from .http.request import Request
 from .http.responder import Responder, ResponseWriter
 from .http.router import Router
@@ -93,7 +97,10 @@ class App:
         # work), then Tracer, the in-flight registry (its entries carry
         # the trace id), Logging(+recovery), the deadline and SLO-class
         # scopes (inside logging, so 504s are logged with their status),
-        # CORS, Metrics.
+        # the tenant scope (after the class: a tenant's registry default
+        # class must see the request's explicit X-SLO-Class first; the
+        # plane is resolved lazily, the engine being built after this
+        # chain), CORS, Metrics.
         self.router.use(drain_middleware(lambda: self._draining,
                                          lambda: self._drain_retry_after))
         self.router.use(tracer_middleware(self.container.tracer))
@@ -101,6 +108,9 @@ class App:
         self.router.use(logging_middleware(self.logger))
         self.router.use(deadline_middleware())
         self.router.use(slo_class_middleware())
+        self.router.use(tenant_middleware(
+            lambda: getattr(self.container.tpu, "tenancy", None),
+            header=self.config.get("TPU_TENANT_HEADER") or "X-Tenant-Id"))
         self.router.use(cors_middleware())
         self.router.use(metrics_middleware(self.container.metrics))
 

@@ -1,15 +1,15 @@
 """Per-request Context: the request and the container behind one facade
-(the port's own copy of gofr_tpu/context.py, without a tenancy plane).
+(the port's own copy of gofr_tpu/context.py).
 
 A handler receives exactly one of these: ``ctx.bind()``,
 ``ctx.param(...)``, ``ctx.header(...)`` read the request,
 ``ctx.stream(...)`` writes a live chunked response, ``ctx.trace(...)``
 opens a span, ``ctx.tpu`` is the engine, ``ctx.get_publisher()`` the
 pub/sub client (a subscriber's handler gets a Context whose request is
-the consumed ``pubsub.Message``), and
-``ctx.deadline``/``ctx.slo_class`` are the request's ambient budget and
-class (which ``ctx.tpu.generate`` and ``ctx.tpu.predict`` read by
-themselves).
+the consumed ``pubsub.Message``), ``ctx.redis`` the Redis client
+(``REDIS_HOST``), and ``ctx.deadline``/``ctx.slo_class``/``ctx.tenant``
+are the request's ambient budget, class and tenant (which
+``ctx.tpu.generate`` and ``ctx.tpu.predict`` read by themselves).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Any
 from .container import Container
 from .errors import InternalServerError
 from .resilience import current_deadline, current_slo_class
+from .tenancy.registry import current_tenant
 
 
 class Context:
@@ -52,6 +53,12 @@ class Context:
         ``ctx.tpu.predict(program, item)``."""
         return self.container.tpu
 
+    @property
+    def redis(self):
+        """The container's Redis client (``REDIS_HOST``/``REDIS_PORT``),
+        or None."""
+        return self.container.redis
+
     # -- request facade -----------------------------------------------------
     def param(self, key: str, default: str = "") -> str:
         return self.request.param(key, default)
@@ -68,10 +75,12 @@ class Context:
 
     @property
     def tenant(self) -> str:
-        """The request's tenant id: its ``X-Tenant-Id`` header, or
-        ``default`` when untagged. The port has no tenancy plane, so no
-        quota or policy applies, as in a JAX App without one."""
-        return self.header("X-Tenant-Id").strip() or "default"
+        """The request's tenant id (``default`` when untagged), from
+        ``X-Tenant-Id`` / gRPC ``x-tenant-id``, canonicalised through the
+        tenant registry when one is configured. Ambient like the
+        deadline and class: ``ctx.tpu.generate``/``predict`` enforce the
+        tenant's quota, weight and cache budget by themselves."""
+        return current_tenant()
 
     @property
     def deadline(self):

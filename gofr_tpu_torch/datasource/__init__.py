@@ -1,10 +1,10 @@
 """The port's datasource layer: the health type every datasource
 reports (the port's own copy of gofr_tpu/datasource/__init__.py's
 ``Health`` and status constants, which the engine's health check shares),
-the Redis client the kv-cache's shared tier (T2) builds
-(``redisclient``), and the pub/sub clients the App's subscribers and
-publishers use (``pubsub``: the in-process broker, Kafka, Google Cloud
-Pub/Sub, MQTT). ``REDIS_HOST`` as an App datasource and SQL are not
+the Redis client (``redisclient``: the App's ``ctx.redis`` from
+``REDIS_HOST``, and the kv-cache's shared tier T2), and the pub/sub
+clients the App's subscribers and publishers use (``pubsub``: the
+in-process broker, Kafka, Google Cloud Pub/Sub, MQTT). SQL is not
 ported yet (ROADMAP queue 1 item 13)."""
 
 from __future__ import annotations

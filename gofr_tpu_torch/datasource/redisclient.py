@@ -1,7 +1,10 @@
 """A dependency-free RESP2 Redis client with command observability (the
 port's own copy of gofr_tpu/datasource/redisclient.py, reduced to the
-commands the kv-cache's shared tier and its tests use: strings,
-counters, expiry, key listing and pipelines).
+commands the kv-cache's shared tier, the async lane's checkpoints and
+their tests use: strings, counters, expiry, key listing, pipelines and
+INFO for the health check). The App's Container builds one from
+``REDIS_HOST``/``REDIS_PORT`` (``new_redis_client``) as ``ctx.redis``;
+the shared tier builds its own.
 
 It speaks the RESP2 wire protocol directly over a socket, and records
 every command and pipeline with its duration in microseconds into the
@@ -15,6 +18,8 @@ import socket
 import threading
 import time
 from typing import Any
+
+from . import STATUS_DOWN, STATUS_UP, Health
 
 
 class RedisError(Exception):
@@ -258,6 +263,27 @@ class RedisClient:
     def flushdb(self) -> bool:
         return self.command("FLUSHDB") == "OK"
 
+    def info(self, section: str = "") -> dict[str, str]:
+        raw = self.command("INFO", section) if section \
+            else self.command("INFO")
+        out: dict[str, str] = {}
+        for line in (self._text(raw) or "").splitlines():
+            if line and not line.startswith("#") and ":" in line:
+                k, v = line.split(":", 1)
+                out[k] = v
+        return out
+
+    def health_check(self) -> Health:
+        """The datasource health the App's ``/.well-known/health``
+        renders under ``redis``."""
+        try:
+            stats = self.info("stats")
+            return Health(status=STATUS_UP, details={
+                "host": f"{self.host}:{self.port}", **stats})
+        except Exception as e:  # noqa: BLE001 — health reports, never raises
+            return Health(status=STATUS_DOWN, details={
+                "host": f"{self.host}:{self.port}", "error": repr(e)})
+
     def close(self) -> None:
         with self._io_lock:
             if self._sock is not None:
@@ -266,3 +292,11 @@ class RedisClient:
                 except OSError:
                     pass
                 self._sock = None
+
+
+def new_redis_client(cfg, logger=None, metrics=None) -> RedisClient:
+    """The client of ``REDIS_HOST`` (default localhost) and
+    ``REDIS_PORT`` (default 6379)."""
+    return RedisClient(host=cfg.get_or_default("REDIS_HOST", "localhost"),
+                       port=cfg.get_int("REDIS_PORT", 6379),
+                       logger=logger, metrics=metrics)

@@ -14,9 +14,9 @@ serialized by FrameIO; DATA sends respect both flow-control windows.
 
 The request metadata reaches the port's serving policies as it does in
 JAX: ``grpc-timeout`` becomes the handler thread's ambient Deadline,
-``slo-class`` its SLO class and ``traceparent`` the RPC span's parent.
-``x-tenant-id`` is not read: the port has no tenancy plane yet, as its
-HTTP middleware leaves ``X-Tenant-Id`` to the handler.
+``slo-class`` its SLO class, ``x-tenant-id`` its tenant (canonicalised
+through the engine's tenancy plane, when there is one) and
+``traceparent`` the RPC span's parent.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from .. import chaos, tracing, wire
 from ..errors import format_retry_after
 from ..resilience import (Deadline, deadline_scope, parse_slo_class,
                           slo_scope)
+from ..tenancy.registry import tenant_scope
 from ..wire import Outbox
 
 _GRPC_CONTENT_TYPES = ("application/grpc",)
@@ -730,15 +731,28 @@ class GRPCServer:
         # the device sees it and ``slo-class: throughput`` metadata
         # routes the request through the batch-traffic line
         slo_class = parse_slo_class(metadata.get("slo-class"))
+        # x-tenant-id metadata is the gRPC face of the HTTP X-Tenant-Id
+        # header: the same ambient scope, the same canonicalisation
+        tenant = (metadata.get("x-tenant-id") or "").strip() or None
+        if tenant is not None:
+            plane = getattr(getattr(self.container, "tpu", None),
+                            "tenancy", None)
+            if plane is not None:
+                try:
+                    tenant = plane.resolve(tenant).tenant_id
+                except Exception:  # noqa: BLE001 — a registry fault
+                    pass           # scopes the raw id
         rpc_span = tracing.current_span()
         if rpc_span is not None:
-            # the RPC root span carries the class, as the HTTP request
-            # span does
+            # the RPC root span carries the class and the tenant, as the
+            # HTTP request span does
             rpc_span.set_attribute("slo_class", slo_class)
+            if tenant is not None:
+                rpc_span.set_attribute("tenant", tenant)
 
         with deadline_scope(Deadline(deadline) if deadline is not None
                             else None), \
-                slo_scope(slo_class):
+                slo_scope(slo_class), tenant_scope(tenant):
             if method.client_streaming:
                 # handler receives a lazy iterator over the request
                 # stream; it ends at the client's half-close

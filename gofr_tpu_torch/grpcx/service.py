@@ -172,9 +172,10 @@ class ServerStream:
 class GRPCContext:
     """Per-RPC context handed to handlers: the container behind the
     facade the port's HTTP Context offers (``logger``, ``metrics``,
-    ``config``, ``tpu``, ``slo_class``, ``trace``), plus the metadata,
-    the deadline and the peer. The port has no Redis, SQL or outbound
-    HTTP service clients yet, so neither has this context."""
+    ``config``, ``tpu``, ``redis``, ``slo_class``, ``tenant``,
+    ``trace``), plus the metadata, the deadline and the peer. The port
+    has no SQL or outbound HTTP service clients yet, so neither has
+    this context."""
 
     def __init__(self, container, method: str, metadata: dict[str, str],
                  deadline: float | None = None, peer: str = ""):
@@ -202,12 +203,25 @@ class GRPCContext:
         return self.container.tpu if self.container else None
 
     @property
+    def redis(self):
+        return self.container.redis if self.container else None
+
+    @property
     def slo_class(self) -> str:
         """The RPC's serving class (``slo-class`` metadata; ``latency``
         by default), ambient for ``ctx.tpu.generate`` as on HTTP."""
         from ..resilience import current_slo_class
 
         return current_slo_class()
+
+    @property
+    def tenant(self) -> str:
+        """The RPC's tenant (``x-tenant-id`` metadata, canonicalised
+        through the registry; ``default`` when untagged), ambient for
+        ``ctx.tpu.generate`` as on HTTP."""
+        from ..tenancy.registry import current_tenant
+
+        return current_tenant()
 
     def trace(self, name: str):
         """Context manager opening a user span under the RPC's span."""

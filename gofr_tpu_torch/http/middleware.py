@@ -1,8 +1,8 @@
 """HTTP middleware chain: drain gate, tracer, in-flight registry,
-logging+recovery, deadline and SLO-class scopes, CORS, metrics (the
-port's own copy of gofr_tpu/http/middleware.py, over the port's
-``resilience`` scopes and ``tracing``; the auth and tenant middlewares
-are not ported).
+logging+recovery, deadline, SLO-class and tenant scopes, CORS, metrics
+(the port's own copy of gofr_tpu/http/middleware.py, over the port's
+``resilience`` and ``tenancy`` scopes and ``tracing``; the auth
+middlewares are not ported).
 
 Reference: pkg/gofr/http/middleware/ —
   - tracer.go:14-30   extract W3C traceparent, start span "METHOD /path"
@@ -22,6 +22,7 @@ from .. import tracing
 from ..errors import format_retry_after
 from ..resilience import (Deadline, deadline_scope, parse_http_timeout,
                           parse_slo_class, slo_scope)
+from ..tenancy.registry import tenant_scope
 from .request import Request
 from .responder import ResponseWriter
 from .router import Handler, Middleware
@@ -157,6 +158,36 @@ def slo_class_middleware(header: str = "X-SLO-Class") -> Middleware:
                     # the root span carries the class (inside the
                     # tracer middleware, the span is the request's)
                     span.set_attribute("slo_class", cls)
+                next_h(req, w)
+        return wrapped
+    return mw
+
+
+def tenant_middleware(resolver: Callable[[], object] | None = None,
+                      header: str = "X-Tenant-Id") -> Middleware:
+    """Parse the request's tenant header into the AMBIENT tenant
+    (tenancy.tenant_scope) for the handler's thread: the HTTP face of
+    gRPC's ``x-tenant-id`` metadata. ``resolver`` is a lazy callable
+    returning the engine's TenantPlane or None (the chain is built
+    before the container's engine, and tenancy may be off). With a
+    plane the raw header is canonicalised through the registry (an
+    unknown id is the default tenant, so the configured tenants bound
+    the label cardinality downstream); without one the header still
+    scopes, and no quota, weight or cache policy applies."""
+    def mw(next_h: Handler) -> Handler:
+        def wrapped(req: Request, w: ResponseWriter) -> None:
+            raw = (req.header(header) or "").strip()
+            plane = resolver() if resolver is not None else None
+            tid = raw
+            if plane is not None and raw:
+                try:
+                    tid = plane.resolve(raw).tenant_id
+                except Exception:  # noqa: BLE001 — a registry fault
+                    tid = raw      # scopes the raw id
+            with tenant_scope(tid or None) as tenant:
+                span = tracing.current_span()
+                if span is not None:
+                    span.set_attribute("tenant", tenant)
                 next_h(req, w)
         return wrapped
     return mw

@@ -279,11 +279,13 @@ class AdmissionGate:
 
     # -- admission side -------------------------------------------------------
     def admit(self, depth: int, program: str = "",
-              slo_class: str = SLO_LATENCY) -> None:
+              slo_class: str = SLO_LATENCY, tenant: str = "") -> None:
         """Admit or raise ``TooManyRequests``. ``depth``: the queue's
         current depth, read lock-free by the caller (a race moves the
         shed boundary by that much). Throughput-class requests are held
-        to bounds scaled by ``throughput_factor``."""
+        to bounds scaled by ``throughput_factor``. ``tenant`` only
+        labels the shed's telemetry (the engines pass it when a tenancy
+        plane is installed); the pressure bounds stay tenant-blind."""
         if not self.enabled:
             return
         f = (self.throughput_factor if slo_class == SLO_THROUGHPUT else 1.0)
@@ -294,7 +296,7 @@ class AdmissionGate:
                       and wait > self.max_queue_delay * f)
         if not (over_depth or over_delay):
             return
-        self._record_shed(program, slo_class)
+        self._record_shed(program, slo_class, tenant=tenant)
         # the current wait estimate, floored so that an early shed does
         # not invite an instant retry storm
         raise TooManyRequests(
@@ -302,19 +304,44 @@ class AdmissionGate:
             f"estimated wait {wait * 1e3:.0f}ms — shed ({slo_class})",
             retry_after=max(0.05, wait))
 
+    def admit_tenant(self, spec, quotas, program: str = "",
+                     slo_class: str = SLO_LATENCY) -> None:
+        """Per-tenant quota admission (the rps token bucket and the
+        concurrency bound of ``quotas``, a ``tenancy.QuotaBook``)
+        through the gate's one shed-bookkeeping path. Over quota raises
+        ``TooManyRequests`` with ``reason`` ``tenant_quota``: a 429 for
+        this tenant while everyone else keeps flowing. On success the
+        quota is consumed; the caller releases the concurrency slot at
+        the request's terminal (``quotas.release(tenant_id)``)."""
+        why, retry_after = quotas.check(spec)
+        if why is None:
+            return
+        tid = spec.tenant_id
+        self._record_shed(program, slo_class, tenant=tid)
+        raise TooManyRequests(
+            f"{self.name or 'admission'}: tenant {tid!r} over {why} "
+            f"quota — shed ({slo_class})",
+            retry_after=max(0.05, retry_after), reason="tenant_quota")
+
     def _record_shed(self, program: str, slo_class: str,
-                     trace_id: str = "") -> None:
-        """The one shed-bookkeeping path (queue and memory pressure):
-        the counters and ``app_tpu_shed_total``, exemplar'd by
-        ``trace_id`` when the caller knows the request's trace."""
+                     trace_id: str = "", tenant: str = "") -> None:
+        """The one shed-bookkeeping path (queue, memory and tenant-quota
+        pressure): the counters and ``app_tpu_shed_total``, exemplar'd
+        by ``trace_id`` when the caller knows the request's trace. The
+        ``tenant`` label appears only on engines with a tenancy plane:
+        without one the series' labels are the ones they always were."""
         self.sheds += 1
         if slo_class in self.sheds_by_class:
             self.sheds_by_class[slo_class] += 1
         if self.metrics is not None:
             try:
+                labels = {"program": program or self.name,
+                          "slo_class": slo_class}
+                if tenant:
+                    labels["tenant"] = tenant
                 self.metrics.increment_counter(
                     "app_tpu_shed_total", exemplar=trace_id or None,
-                    program=program or self.name, slo_class=slo_class)
+                    **labels)
             except Exception:  # noqa: BLE001 — telemetry never sheds twice
                 pass
 

@@ -93,6 +93,27 @@ Rows read:
                     while latency-class requests also wait (default 0.25)
   TPU_SLO_LATENCY_SLOTS  free slots kept from throughput-class requests
                     for latency-class arrivals (default 1)
+  TPU_TENANTS       the multi-tenant serving plane (gofr_tpu_torch/tenancy):
+                    the path of a hot-reloadable JSON tenant registry
+                    mapping tenant id -> LoRA adapter, SLO-class default,
+                    fair-share queue weight, rps/concurrency quota and
+                    cache-budget share. Unset and no TPU_TENANTS_INLINE:
+                    tenancy off (anonymous single-tenant serving). A file
+                    that cannot be read raises, naming the row
+  TPU_TENANTS_INLINE  the same registry as a literal JSON string (static;
+                    TPU_TENANTS wins when both are set); a document that
+                    does not parse raises, naming the row
+  TPU_TENANTS_RELOAD_S  the registry file's mtime poll throttle in seconds
+                    (default 0.5); a malformed edit keeps the last good
+                    table
+  TPU_TENANT_HEADER  the HTTP header carrying the tenant id (default
+                    X-Tenant-Id; gRPC always reads x-tenant-id
+                    metadata), read by the App
+  TPU_TENANT_TOPIC  the pub/sub topic the async inference lane consumes
+                    (default inference-jobs), read by
+                    tenancy.install_async_lane(app)
+  TPU_TENANT_CHECKPOINT_EVERY  the async lane's resume-checkpoint cadence
+                    in tokens (default 8)
 
 Every other ``TPU_*`` row of the JAX package names a feature this port
 does not serve yet; a set one raises with its name rather than being
@@ -109,6 +130,7 @@ from ..models import bert, llama, vit
 from ..models.common import BERT_CONFIGS, LLAMA_CONFIGS, VIT_CONFIGS
 from ..ops import kernels
 from ..resilience import gate_from_config
+from ..tenancy import plane_from_config
 from . import hbm
 from .batcher import (BatcherClosed, ClassPolicy, CoalescingBatcher,
                       pad_bucket)
@@ -127,9 +149,7 @@ __all__ = ["BatcherClosed", "ClassPolicy", "CoalescingBatcher",
 UNPORTED_ROWS = (
     "TPU_HBM_DEVICE_BUDGET_MB",
     "TPU_SHARDING", "TPU_PD_LISTEN", "TPU_PD_PEER", "TPU_PD_BLOCK",
-    "TPU_PD_WINDOW_MB", "TPU_TENANTS", "TPU_TENANTS_INLINE",
-    "TPU_TENANTS_RELOAD_S", "TPU_TENANT_HEADER", "TPU_TENANT_TOPIC",
-    "TPU_TENANT_CHECKPOINT_EVERY",
+    "TPU_PD_WINDOW_MB",
 )
 
 # TPU_MODEL aliases, as the JAX package reads them
@@ -200,8 +220,12 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
     and the engine count sheds, brownouts, expiries and dispatches into
     (``increment_counter``/``set_gauge``/``record_histogram``), if
     given. ``requests``: the App's in-flight registry, where each
-    ``predict`` is listed while it waits."""
+    ``predict`` is listed while it waits. With ``TPU_TENANTS`` or
+    ``TPU_TENANTS_INLINE`` the tenancy plane is installed on the engine
+    and its generator; a registry that cannot be read raises ValueError
+    naming its row before anything is built."""
     _check_rows(cfg)
+    plane = plane_from_config(cfg, metrics=metrics, logger=logger)
     device = resolve_device(device)
     name = (cfg.get("TPU_MODEL") or "tiny").strip()
     family, mc = _model_config(name)
@@ -286,6 +310,13 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
 
         engine.register("score", score_fn, params, kind="tokens",
                         batch_buckets=batch_buckets, seq_buckets=seq_b)
+    if plane is not None:
+        # the registry, quotas and fair-share weights on the engine, and
+        # in the generator: its pending line fans into per-tenant lines
+        # and its prefix cache learns the per-tenant budget shares
+        engine.tenancy = plane
+        if generator is not None:
+            generator.install_tenancy(plane)
     if cfg.get_bool("TPU_WARMUP"):
         engine.warmup()
     if logger is not None:

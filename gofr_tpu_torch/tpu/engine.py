@@ -17,7 +17,9 @@ streaming generation, health and close.
 
 Generation (``generate``) is the ``GenerationEngine``'s own serving
 loop; on a Llama engine the ``score`` program's dispatcher launches on
-the same card beside it.
+the same card beside it. With a tenancy plane (``tenancy``) ``predict``
+resolves the ambient tenant as ``generate`` does and holds one of its
+concurrency slots for the call.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..datasource import STATUS_DEGRADED, STATUS_DOWN, STATUS_UP, Health
 from ..device import resolve_device
 from ..errors import DeadlineExceeded, ProgramNotFound, ServiceUnavailable
 from ..resilience import current_deadline, current_slo_class
+from ..tenancy.registry import current_tenant
 from . import hbm
 from .batcher import ClassPolicy, CoalescingBatcher, pad_bucket
 from .generator import GenerationEngine, GenStream
@@ -127,6 +130,9 @@ class TorchEngine:
         self.class_policy = class_policy
         # the App's in-flight registry (observe.RequestRegistry), if any
         self.requests = requests
+        # tenancy.TenantPlane, set by new_engine_from_config from the
+        # TPU_TENANTS rows; None: anonymous single-tenant serving
+        self.tenancy = None
         self._programs: dict[str, Program] = {}
         self._batchers: dict[str, CoalescingBatcher] = {}
         self._lock = threading.Lock()
@@ -292,10 +298,26 @@ class TorchEngine:
             raise DeadlineExceeded(
                 f"deadline expired before predict({program!r}) was queued")
         gate = self._gate_for(program)
-        if gate is not None:
-            gate.admit(batcher.queue_depth(), program=program,
-                       slo_class=slo_class)
-        self._validate_item(self._programs[program], item)
+        spec = None
+        if self.tenancy is not None:
+            # the edge contract of generate(): resolve the ambient
+            # tenant, apply its class default, hold its quota for the
+            # call
+            spec = self.tenancy.resolve(current_tenant())
+            slo_class = self.tenancy.effective_class(spec, slo_class)
+            self.tenancy.admit(spec, program=program, slo_class=slo_class,
+                               gate=gate)
+        try:
+            if gate is not None:
+                gate.admit(batcher.queue_depth(), program=program,
+                           slo_class=slo_class,
+                           tenant=spec.tenant_id if spec is not None
+                           else "")
+            self._validate_item(self._programs[program], item)
+        except BaseException:
+            if spec is not None:
+                self.tenancy.release(spec.tenant_id)
+            raise
         span = tracing.current_span()
         trace_id = span.trace_id if span else ""
         t0 = time.monotonic()
@@ -307,6 +329,8 @@ class TorchEngine:
             return batcher.submit(item, timeout=timeout, deadline=deadline,
                                   slo_class=slo_class)
         finally:
+            if spec is not None:
+                self.tenancy.release(spec.tenant_id)
             if self.requests is not None:
                 self.requests.remove(entry)
             if self.metrics is not None:
@@ -416,6 +440,8 @@ class TorchEngine:
                                     "oom_retries")}
         if self.generator is not None:
             details["generator"] = self.generator.stats()
+        if self.tenancy is not None:
+            details["tenancy"] = self.tenancy.stats()
         if self._closed or (self.generator is not None
                             and self.generator.down is not None):
             return Health(STATUS_DOWN, details)

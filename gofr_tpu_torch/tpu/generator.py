@@ -93,6 +93,13 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
     adapter's weights into its slot of the stacks IN PLACE, so every
     captured graph reads them from its next replay on, and drops the
     adapter's stored prefixes from every tier.
+  - With a tenancy plane (``install_tenancy``; tenancy.TenantPlane, the
+    ``TPU_TENANTS`` rows), ``generate`` resolves the ambient tenant:
+    its class default and adapter apply, its quota is admitted before
+    the gate, each class line serves tenants deficit-round-robin by
+    weight (tenancy.WeightedFairLine), the T0 rows are charged to the
+    tenant that stored them under its cache share, and every stream
+    gives its tenant's concurrency slot back at its terminal.
   - On a CUDA device the engine refuses at construction a model the
     attention kernels do not take (ops.kernels.check_attention_shape),
     naming its shape and the kernel, so nothing raises in the loop for
@@ -131,6 +138,8 @@ from ..models.common import ModelConfig
 from ..ops import flash, flash_decode, kernels, paged_attention
 from ..resilience import (SLO_LATENCY, SLO_THROUGHPUT, DecodePipelinePolicy,
                           current_deadline, current_slo_class)
+from ..tenancy.fair import WeightedFairLine
+from ..tenancy.registry import current_tenant
 from ..wire import PushStream
 from . import hbm, prng
 from .checkpoint import to_tensor
@@ -195,10 +204,12 @@ class _ClassPending:
     traffic never starves batch streams out of the slots.
 
     Any thread puts (``generate``); only the serving loop pops, which is
-    what makes pop-then-``put_front`` exact. Each class line is a plain
-    FIFO: JAX's per-tenant fair line collapses to one for requests
-    without a tenant, and tenancy is not ported (ROADMAP queue 1 item
-    10)."""
+    what makes pop-then-``put_front`` exact. Each class line is a
+    ``WeightedFairLine``: inside a class, tenants are served
+    deficit-round-robin over their registry weight (2:1:1 pops A, A, B,
+    C under saturation). Requests without a tenant all ride the default
+    line, which makes each class the plain FIFO it was; the class split
+    and the streak are unchanged."""
 
     def __init__(self, throughput_share: float = 0.25):
         share = min(max(float(throughput_share), 0.0), 1.0)
@@ -207,13 +218,13 @@ class _ClassPending:
         # share; None: throughput drains only when no latency request
         # waits
         self._weight = int((1.0 - share) / share) if share > 0 else None
-        self._lat: deque = deque()
-        self._thr: deque = deque()
+        self._lat = WeightedFairLine()
+        self._thr = WeightedFairLine()
         self._lock = threading.Lock()
         self._lat_streak = 0
         self._prev_streak = 0   # the streak before the latest pop
 
-    def _line(self, req) -> deque:
+    def _line(self, req) -> WeightedFairLine:
         return self._thr if req.slo_class == SLO_THROUGHPUT else self._lat
 
     def put(self, req) -> None:
@@ -251,6 +262,15 @@ class _ClassPending:
 
     def qsize_class(self, slo_class: str) -> int:
         return len(self._thr if slo_class == SLO_THROUGHPUT else self._lat)
+
+    def qsize_by_tenant(self) -> dict[str, int]:
+        """Queued requests per tenant across both class lines (the
+        per-tenant queue gauge), read under the put lock."""
+        with self._lock:
+            out = dict(self._lat.by_tenant())
+            for tid, n in self._thr.by_tenant().items():
+                out[tid] = out.get(tid, 0) + n
+            return out
 
     def empty(self) -> bool:
         return not (self._lat or self._thr)
@@ -659,7 +679,9 @@ class GenStream(PushStream):
     "paged"), ``seed`` (a sampled request's, for a resume) and
     ``failed`` (why the loop failed it). ``slo_class``: the request's
     class; ``where``: where its deadline ran out ("queue",
-    "mid-prefill", "mid-decode"), if it did."""
+    "mid-prefill", "mid-decode"), if it did; ``tenant``: the canonical
+    tenant id on an engine with a tenancy plane ("default" otherwise)
+    and ``adapter`` the LoRA adapter it runs through."""
 
     def __init__(self, request_id: int, logprobs: bool = False):
         super().__init__()
@@ -677,6 +699,11 @@ class GenStream(PushStream):
         self.where: str | None = None
         self.trace_id = ""
         self.traceparent: str | None = None
+        self.tenant = "default"
+        self.adapter = 0
+        # the stream holds one of its tenant's concurrency slots until
+        # its terminal gives it back (_end_stream)
+        self._tenant_held = False
 
     def tokens(self) -> list[int]:
         """Drain the whole stream (blocking) into a list of ids."""
@@ -705,7 +732,8 @@ def _trace(stream: GenStream, traceparent: str | None) -> None:
 class _Request:
     __slots__ = ("stream", "prompt", "max_new", "temperature", "top_k",
                  "eos_id", "seed", "pos_base", "adapter", "lattice_peek",
-                 "kv_match", "deadline", "slo_class", "enqueued_at")
+                 "kv_match", "deadline", "slo_class", "enqueued_at",
+                 "tenant", "tenant_weight")
 
     def __init__(self, stream: GenStream, prompt: np.ndarray, max_new: int,
                  temperature: float, top_k: int, eos_id, seed: int,
@@ -735,6 +763,10 @@ class _Request:
         # the pending line it waits in and the gate's band it is held to
         self.slo_class = slo_class
         self.enqueued_at = time.monotonic()
+        # the fair line's scheduling key and quantum (the registry's
+        # weight); without a plane every request is the default tenant
+        self.tenant = "default"
+        self.tenant_weight = 1
 
     @property
     def logprobs(self) -> bool:
@@ -1089,6 +1121,12 @@ class GenerationEngine:
         self.graph_replays = 0   # decode blocks run as a graph replay
         self._block_s: "deque[float]" = deque(maxlen=1024)
         self._verify_s: "deque[float]" = deque(maxlen=1024)
+        # the tenancy plane (tenancy.TenantPlane), installed after
+        # construction by install_tenancy; None: every request is the
+        # anonymous default tenant and nothing tenant-shaped runs
+        self.tenancy = None
+        self._tenant_leased: set[str] = set()   # live tenant:{id} leases
+        self._gauge_tenants: set[str] = set()   # tenants ever gauged
         if self.device.type == "cuda":
             self._capture_graphs()
             self._capture_admission_graphs()
@@ -1099,6 +1137,18 @@ class GenerationEngine:
         self._thread.start()
 
     # -- public API ----------------------------------------------------------
+    def install_tenancy(self, plane) -> None:
+        """Attach the multi-tenant serving plane (tenancy.TenantPlane).
+        From here on ``generate`` resolves the ambient tenant against
+        the registry: quota admission, weighted fair lines, per-tenant
+        T0 budgets and tenant-labelled telemetry all switch on."""
+        self.tenancy = plane
+        if plane is not None and self._kvc is not None:
+            row_bytes = 0
+            if self._pool is not None and self._kvc.slots > 0:
+                row_bytes = hbm.tree_nbytes(self._pool) // self._kvc.slots
+            self._kvc.set_tenancy(plane.cache_shares, row_bytes=row_bytes)
+
     def generate(self, prompt, max_new_tokens: int = 128,
                  temperature: float = 0.0, top_k: int = 0, eos_id=None,
                  adapter: int = 0, logprobs: bool = False, deadline=None,
@@ -1141,7 +1191,15 @@ class GenerationEngine:
         ``traceparent`` (W3C) names the trace the request joins; without
         one the stream joins the calling thread's span (the App's request
         span), else a fresh trace id is minted. ``stream.trace_id`` and
-        ``stream.traceparent`` carry it."""
+        ``stream.traceparent`` carry it.
+
+        With a tenancy plane (``install_tenancy``) the ambient tenant
+        (``tenancy.tenant_scope``) is resolved against the registry: its
+        class default applies to an untagged request, its adapter to a
+        request that picked none, and its quota is admitted before the
+        gate (a 429 with ``reason`` ``tenant_quota`` over it). The
+        stream holds one of the tenant's concurrency slots until its
+        terminal, whichever it is."""
         if self._closed:
             raise GenerationError("generation engine is closed")
         if self._draining:
@@ -1166,73 +1224,107 @@ class GenerationEngine:
             slo_class = current_slo_class()
         elif slo_class not in (SLO_LATENCY, SLO_THROUGHPUT):
             raise GenerationError(f"unknown slo_class {slo_class!r}")
+        spec = tenant = None
+        if self.tenancy is not None:
+            # the ambient tenant (the transport's tenant_scope) against
+            # the registry: the canonical id, the class default for an
+            # untagged request, the registry-routed adapter
+            spec = self.tenancy.resolve(current_tenant())
+            tenant = spec.tenant_id
+            slo_class = self.tenancy.effective_class(spec, slo_class)
+            adapter = self.tenancy.effective_adapter(spec, int(adapter))
         if deadline is not None and deadline.expired():
             self._count_expired("pre-queue")
             raise DeadlineExceeded("deadline expired before generate() "
                                    "was queued")
-        if self.gate is not None:
-            self.gate.admit(self._pending.qsize(), program="generate",
-                            slo_class=slo_class)
-            max_new_tokens = self.gate.cap_tokens(max_new_tokens,
-                                                  slo_class=slo_class)
-        if eos_id is not None and not isinstance(eos_id, (int, np.integer)):
-            eos_id = frozenset(int(t) for t in eos_id) or None
-        elif isinstance(eos_id, np.integer):
-            eos_id = int(eos_id)
-        if adapter and not 0 <= adapter < max(self._n_adapters, 1):
-            raise GenerationError(
-                f"adapter {adapter} out of range (engine has "
-                f"{self._n_adapters} LoRA adapter slots)")
-        if seed is not None:
-            seed = int(seed) & 0x7FFFFFFF
-        elif temperature > 0:
-            seed = (self._seed * 1000003 + next(self._auto_seed)) & 0x7FFFFFFF
-        prompt = np.asarray(prompt, np.int64).reshape(-1)
-        stream = GenStream(next(_REQ_IDS), logprobs=logprobs)
-        stream.trace["submit"] = time.monotonic()
-        stream.prompt_len = len(prompt)
-        stream.seed = seed
-        stream.slo_class = slo_class
-        _trace(stream, traceparent)
-        limit = self.max_seq - 1
-        why = None
-        if len(prompt) == 0 or len(prompt) > limit:
-            why = ("empty prompt" if len(prompt) == 0 else
-                   f"prompt length {len(prompt)} exceeds serving limit "
-                   f"{limit}")
-        elif self._paged:
-            # fail fast when the POOL can never hold this prompt: a
-            # transient shortage requeues at admission, a structural one
-            # would requeue forever
-            need = -(-len(prompt) // self._block_t)
-            usable = self._alloc.n_blocks - 1
-            if need > usable:
-                why = (f"prompt needs {need} pool blocks but the pool has "
-                       f"{usable} (raise TPU_PAGED_BLOCKS or "
-                       "TPU_PAGED_BLOCK)")
-        if why is not None:
-            stream._q.put(GenerationError(why))
-            stream._q.put(None)
-            return stream
-        with self._admission_lock:
-            # checked under the lock the failure path sets ``down``
-            # under, so no request is queued after the queue was failed
-            if self._closed:
-                raise GenerationError("generation engine is closed")
-            if self._draining:
-                # drain() sets the flag under this lock: without the
-                # re-check a racing generate() could slip a request in
-                # after the drain began
-                raise GenerationError("generation engine is draining")
-            if self.down is not None:
+        if spec is not None:
+            # the tenant's quota first: an over-quota tenant sheds on its
+            # own 429 (reason tenant_quota), before the gate judges the
+            # global pressure
+            self.tenancy.admit(spec, program="generate",
+                               slo_class=slo_class, gate=self.gate)
+        # from here to the queue the tenant holds a concurrency slot:
+        # every raise gives it back, and once the stream exists the
+        # stream's terminal does
+        held = spec is not None
+        stream = None
+        try:
+            if self.gate is not None:
+                self.gate.admit(self._pending.qsize(), program="generate",
+                                slo_class=slo_class, tenant=tenant or "")
+                max_new_tokens = self.gate.cap_tokens(max_new_tokens,
+                                                      slo_class=slo_class)
+            if eos_id is not None and not isinstance(eos_id,
+                                                     (int, np.integer)):
+                eos_id = frozenset(int(t) for t in eos_id) or None
+            elif isinstance(eos_id, np.integer):
+                eos_id = int(eos_id)
+            if adapter and not 0 <= adapter < max(self._n_adapters, 1):
                 raise GenerationError(
-                    f"generation engine is down: {self.down}")
-            self._pending.put(_Request(stream, prompt, int(max_new_tokens),
-                                       float(temperature), int(top_k),
-                                       eos_id, seed or 0, pos_base=pos_base,
-                                       deadline=deadline,
-                                       slo_class=slo_class,
-                                       adapter=int(adapter)))
+                    f"adapter {adapter} out of range (engine has "
+                    f"{self._n_adapters} LoRA adapter slots)")
+            if seed is not None:
+                seed = int(seed) & 0x7FFFFFFF
+            elif temperature > 0:
+                seed = (self._seed * 1000003
+                        + next(self._auto_seed)) & 0x7FFFFFFF
+            prompt = np.asarray(prompt, np.int64).reshape(-1)
+            stream = GenStream(next(_REQ_IDS), logprobs=logprobs)
+            stream.tenant = tenant or "default"
+            stream._tenant_held, held = held, False
+            stream.trace["submit"] = time.monotonic()
+            stream.prompt_len = len(prompt)
+            stream.seed = seed
+            stream.slo_class = slo_class
+            stream.adapter = int(adapter)
+            _trace(stream, traceparent)
+            limit = self.max_seq - 1
+            why = None
+            if len(prompt) == 0 or len(prompt) > limit:
+                why = ("empty prompt" if len(prompt) == 0 else
+                       f"prompt length {len(prompt)} exceeds serving "
+                       f"limit {limit}")
+            elif self._paged:
+                # fail fast when the POOL can never hold this prompt: a
+                # transient shortage requeues at admission, a structural
+                # one would requeue forever
+                need = -(-len(prompt) // self._block_t)
+                usable = self._alloc.n_blocks - 1
+                if need > usable:
+                    why = (f"prompt needs {need} pool blocks but the pool "
+                           f"has {usable} (raise TPU_PAGED_BLOCKS or "
+                           "TPU_PAGED_BLOCK)")
+            if why is not None:
+                self._end_stream(stream, GenerationError(why))
+                return stream
+            req = _Request(stream, prompt, int(max_new_tokens),
+                           float(temperature), int(top_k), eos_id, seed or 0,
+                           pos_base=pos_base, deadline=deadline,
+                           slo_class=slo_class, adapter=int(adapter))
+            if spec is not None:
+                req.tenant = tenant
+                req.tenant_weight = spec.weight
+            with self._admission_lock:
+                # checked under the lock the failure path sets ``down``
+                # under, so no request is queued after the queue failed
+                if self._closed:
+                    raise GenerationError("generation engine is closed")
+                if self._draining:
+                    # drain() sets the flag under this lock: without the
+                    # re-check a racing generate() could slip a request
+                    # in after the drain began
+                    raise GenerationError("generation engine is draining")
+                if self.down is not None:
+                    raise GenerationError(
+                        f"generation engine is down: {self.down}")
+                self._pending.put(req)
+        except BaseException:
+            if stream is not None:
+                self._release_tenant(stream)
+            elif held:
+                self.tenancy.release(tenant)
+            raise
+        self._obs_gauges()
         self._work.set()
         return stream
 
@@ -1271,6 +1363,10 @@ class GenerationEngine:
             "recoveries": self._recoveries,
             "down": self.down,
         }
+        if self.tenancy is not None:
+            out["scheduler"]["queued_by_tenant"] = \
+                self._pending.qsize_by_tenant()
+            out["tenancy"] = self.tenancy.stats()
         if self.gate is not None:
             out["admission"] = self.gate.stats()
         if self._kvc is not None:
@@ -1528,6 +1624,7 @@ class GenerationEngine:
                 self._prefix_idx.clear()
             if self._kvc is not None:
                 self._kvc.clear_device()
+                self._tenant_cache_sync()
             for idx, slot in enumerate(self._slots):
                 if slot.request is not None:
                     slot.request.stream.failed = repr(e)
@@ -1583,8 +1680,7 @@ class GenerationEngine:
                 req = self._pending.get_nowait()
             except queue.Empty:
                 break
-            req.stream._q.put(err)
-            req.stream._q.put(None)
+            self._end_stream(req.stream, err)
 
     def _admit_inflight(self, inflight: _Inflight) -> None:
         """Admit arrivals while a dispatched block runs on the device
@@ -1662,16 +1758,15 @@ class GenerationEngine:
                     self._pending.put_front(req)
                     return started
                 if req.stream.cancelled.is_set():
-                    req.stream._q.put(None)
+                    self._end_stream(req.stream)
                     continue
                 if req.deadline is not None and req.deadline.expired():
                     self._count_expired("queue")
                     req.stream.where = "queue"
                     wait_s = time.monotonic() - req.enqueued_at
-                    req.stream._q.put(DeadlineExceeded(
+                    self._end_stream(req.stream, DeadlineExceeded(
                         f"deadline expired after {wait_s:.3f}s in the "
                         "admission queue"))
-                    req.stream._q.put(None)
                     continue
                 try:
                     # the arbiter's checkpoint, one zero-byte lease per
@@ -2041,9 +2136,10 @@ class GenerationEngine:
                 # memory pressure, a 429 shed of THIS request, never the
                 # loop's recovery
                 self._shed_oom(req, e)
+                self._obs_gauges()
                 return
-            req.stream._q.put(GenerationError(f"prefill failed: {e!r}"))
-            req.stream._q.put(None)
+            self._end_stream(req.stream,
+                             GenerationError(f"prefill failed: {e!r}"))
             raise
         req.stream.trace["prefill_done"] = time.monotonic()
         self._prefix_store(idx, req)
@@ -2078,6 +2174,7 @@ class GenerationEngine:
             # holds for this slot
             self._host_wins[idx] = True
             self._touch()
+        self._obs_gauges()
 
     def _prefix_store(self, idx: int, req: _Request) -> None:
         """After a completed admission and before the slot's first
@@ -2105,9 +2202,12 @@ class GenerationEngine:
         if kvc is None or len(prompt) < self._store_min \
                 or kvc.covered(prompt, req.adapter):
             return
-        row, victim = kvc.store(prompt, req.adapter)
+        row, victim = kvc.store(prompt, req.adapter,
+                                tenant=self._tenant(req))
         self._offload_victim(victim)
         self._pool_copy(self._pool, row, self.cache, idx, len(prompt))
+        if self.tenancy is not None:
+            self._tenant_cache_sync()
         if kvc.shares:
             # write-through: a host copy of the slot's fresh KV is the
             # price of warming every replica, but only through the last
@@ -2271,7 +2371,8 @@ class GenerationEngine:
             self._kvc.reject(mt)
             return 0
         self._pool_copy(self.cache, idx, self._pool, row, m_eff)
-        self._kvc.accept(mt, time.monotonic() - t_start)
+        self._kvc.accept(mt, time.monotonic() - t_start,
+                         tenant=self._tenant(req))
         req.stream.cache_tier = mt.tier
         req.stream.cache_tokens = m_eff
         if self.metrics is not None:
@@ -2281,6 +2382,66 @@ class GenerationEngine:
             except Exception:  # noqa: BLE001 — telemetry only
                 pass
         return m_eff
+
+    def _tenant(self, req: _Request) -> str | None:
+        """The tenant a cache row or hit is charged to: the request's,
+        on an engine with a tenancy plane."""
+        return req.tenant if self.tenancy is not None else None
+
+    def _tenant_cache_sync(self) -> None:
+        """Reconcile the per-tenant arbiter leases with the cache ledger
+        (the JAX engine's): a tenant holding more T0 rows than its
+        budget gets a zero-byte ``tenant:{id}`` lease at PRI_SCRATCH
+        whose reclaim evicts that tenant's rows, so arbiter pressure
+        asks it for its own rows before the PRI_CACHE pool shrink
+        flushes everyone's; back within budget, the lease is released.
+        Zero bytes: the pool's own lease accounts them. Best effort:
+        serving never stalls on it."""
+        kvc = self._kvc
+        if kvc is None or self.tenancy is None:
+            return
+        with self._device_lock:
+            try:
+                over = set()
+                for tid, rows in kvc.tenant_rows().items():
+                    budget = kvc.tenant_budget(tid)
+                    if budget is not None and rows > budget:
+                        over.add(tid)
+                for tid in over - self._tenant_leased:
+                    hbm.tenant_lease(
+                        "kvcache-t0", 0, tenant=tid, owner=self,
+                        priority=hbm.PRI_SCRATCH,
+                        reclaim=functools.partial(self._tenant_cache_evict,
+                                                  tid))
+                    self._tenant_leased.add(tid)
+                for tid in self._tenant_leased - over:
+                    hbm.release("kvcache-t0", owner=self,
+                                tag=f"tenant:{tid}")
+                    self._tenant_leased.discard(tid)
+            except Exception:  # noqa: BLE001 — quota leases are best effort
+                pass
+
+    def _tenant_cache_evict(self, tenant: str, need: int = 0) -> int:
+        """The reclaim callback of a tenant's cache-quota lease: evict
+        the over-budget tenant's own T0 rows (least recently used first,
+        down to its budget), each spilled to the host tier as a store's
+        victim is, so its warm state degrades to T1 and other tenants'
+        rows stay. Runs on whichever thread's lease ran short, under the
+        device lock, which the loop holds through every admission: no
+        restore is being set up meanwhile, and an evicted row is read
+        (the spill's copy to the host waits for the stream, every queued
+        restore copy included) or rewritten only by copies queued on the
+        serving stream behind whatever read it before, the fence a
+        store's victim has. Reports 0 toward a byte deficit (the pool's
+        lease holds the bytes) but frees the contended rows."""
+        del need
+        if self._kvc is None:
+            return 0
+        with self._device_lock:
+            for victim in self._kvc.evict_tenant(tenant):
+                self._offload_victim(victim)
+            self._tenant_cache_sync()
+        return 0
 
     def _shed_oom(self, req: _Request, e: hbm.HBMExhausted) -> None:
         """OOM-shed a popped admission: the arbiter could not cover a
@@ -2297,8 +2458,7 @@ class GenerationEngine:
                 retry_after=e.retry_after or 1.0,
                 trace_id=req.stream.trace_id)
         req.stream.failed = "hbm exhausted: shed"
-        req.stream._q.put(err)
-        req.stream._q.put(None)
+        self._end_stream(req.stream, err)
 
     # -- the arbiter's reclaim callbacks -------------------------------------
     def _hbm_pool_reclaim(self, need: int) -> int:
@@ -2320,6 +2480,7 @@ class GenerationEngine:
             for entry in kvc.t0.entries():
                 self._offload_victim(entry)
             kvc.shrink(new_slots)
+            self._tenant_cache_sync()
             # drop the old pool BEFORE allocating the smaller one:
             # holding both would spike usage past the very budget this
             # reclaim is trying to satisfy
@@ -2642,7 +2803,20 @@ class GenerationEngine:
             self._retire(idx, slot)
             return
         if slot.generated == 0:
-            req.stream.trace["first_put"] = time.monotonic()
+            now = req.stream.trace["first_put"] = time.monotonic()
+            if self.metrics is not None:
+                # one label-key set whether or not tenancy is on (tenant
+                # "" when untenanted), so the series never split on the
+                # deployment mode
+                try:
+                    self.metrics.record_histogram(
+                        "app_tpu_ttft_duration",
+                        now - req.stream.trace["submit"],
+                        exemplar=req.stream.trace_id or None,
+                        program="generate", slo_class=req.slo_class,
+                        tenant=self._tenant(req) or "")
+                except Exception:  # noqa: BLE001 — telemetry only
+                    pass
         req.stream._push((token, lp) if req.logprobs else token)
         slot.generated += 1
         slot.remaining -= 1
@@ -2698,9 +2872,59 @@ class GenerationEngine:
         # EOS_MAX) deactivates a slot the device carry may still run
         self._host_wins[idx] = True
         self._touch()
+        self._end_stream(stream, err)
+        self._obs_gauges()
+
+    def _end_stream(self, stream: GenStream,
+                    err: Exception | None = None) -> None:
+        """Every stream's terminal (finish, cancel, each expiry, a failed
+        step or prefill, an out-of-memory shed, a refused prompt, a
+        closed engine): the stream gives back its tenant's concurrency
+        slot, then ends, with ``err`` as its last item when it failed. A
+        consumer that sees the end sees the slot back."""
+        self._release_tenant(stream)
         if err is not None:
             stream._q.put(err)
         stream._push(None)
+
+    def _release_tenant(self, stream: GenStream) -> None:
+        """Give back the stream's tenant concurrency slot, exactly once
+        whichever terminal it reaches."""
+        if not stream._tenant_held:
+            return
+        stream._tenant_held = False
+        if self.tenancy is not None:
+            try:
+                self.tenancy.release(stream.tenant)
+            except Exception:  # noqa: BLE001 — quota bookkeeping never
+                pass           # takes the loop down
+
+    def _obs_gauges(self) -> None:
+        """The live-load gauges after an arrival, an admission or a
+        retirement: active sequences, the queue in all and by class and,
+        with a tenancy plane, by tenant (a tenant that drained reads 0,
+        so every tenant ever seen is set)."""
+        m = self.metrics
+        if m is None:
+            return
+        try:
+            m.set_gauge("app_tpu_active_sequences",
+                        float(self._active.sum()))
+            m.set_gauge("app_tpu_queue_depth", float(self._pending.qsize()),
+                        program="generate")
+            for cls in (SLO_LATENCY, SLO_THROUGHPUT):
+                m.set_gauge("app_tpu_queue_depth",
+                            float(self._pending.qsize_class(cls)),
+                            program="generate", slo_class=cls)
+            if self.tenancy is not None:
+                by_tenant = self._pending.qsize_by_tenant()
+                self._gauge_tenants.update(by_tenant)
+                for tid in self._gauge_tenants:
+                    m.set_gauge("app_tpu_queue_depth",
+                                float(by_tenant.get(tid, 0)),
+                                program="generate", tenant=tid)
+        except Exception:  # noqa: BLE001 — telemetry only
+            pass
 
     # -- paged-mode host side ------------------------------------------------
     def _write_table_row(self, idx: int) -> None:

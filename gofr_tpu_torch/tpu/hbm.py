@@ -50,6 +50,11 @@ see: the weights, the CUDA graphs' memory pools, cuBLAS workspaces and
 the caching allocator's slack. On the CPU the budget stays OFF unless
 set (``set_budget``): there is no device limit to enforce.
 
+Tenancy: :func:`tenant_lease` is a lease tagged ``tenant:{id}`` at
+``PRI_SCRATCH`` whose reclaim callback evicts that tenant's prefix-cache
+rows, so arbiter pressure asks an over-budget tenant for its own rows
+before the ``PRI_CACHE`` pool shrink flushes everyone's.
+
 Observability: ``app_tpu_device_bytes{subsystem=}`` gauges on every
 accounting change, ``app_tpu_hbm_budget_bytes``,
 ``app_tpu_hbm_reclaims_total{subsystem=}`` /
@@ -59,9 +64,8 @@ accounting change, ``app_tpu_hbm_budget_bytes``,
 scratch row), ``kvcache-t0`` (prefix-pool rows), ``batcher``.
 
 Left with their ROADMAP items: per-device budgets, sharded leases and
-``alloc_sharded`` (tensor-parallel serving, queue 1 item 11),
-``tenant_lease`` (tenancy, item 10), and the timeline's counter tracks
-(item 13).
+``alloc_sharded`` (tensor-parallel serving, queue 1 item 11), and the
+timeline's counter tracks (item 13).
 """
 
 from __future__ import annotations
@@ -81,7 +85,7 @@ __all__ = ["HBMExhausted", "PRI_CACHE", "PRI_SCRATCH", "PRI_SERVING",
            "account", "alloc", "arbiter_stats", "budget", "check",
            "configure", "is_oom_error", "lease", "live_bytes", "note_shed",
            "reclaim", "release", "reset", "set_budget", "set_metrics",
-           "snapshot", "tree_nbytes"]
+           "snapshot", "tenant_lease", "tree_nbytes"]
 
 GAUGE = "app_tpu_device_bytes"
 BUDGET_GAUGE = "app_tpu_hbm_budget_bytes"
@@ -291,6 +295,21 @@ class _Registry:
 
     def _in_use_locked(self) -> int:
         return sum(self._entries.values())
+
+    def tenant_lease(self, subsystem: str, nbytes: int, *, tenant: str,
+                     owner: Any = None, priority: int = PRI_SCRATCH,
+                     reclaim: Callable[[int], int] | None = None) -> int:
+        """A per-tenant cache-quota lease: :func:`lease` with the tag
+        ``tenant:{id}``, so the tenant's footprint shows in
+        ``snapshot()`` and ``arbiter_stats()`` under its own key. At
+        PRI_SCRATCH (reclaimed first), with a callback that evicts that
+        tenant's cache rows: under pressure the over-budget tenant gives
+        back its own rows before the PRI_CACHE pool shrink flushes
+        everyone's. Usually zero bytes: the pool's own lease accounts
+        them, and this one exists for its reclaim order."""
+        return self.lease(subsystem, int(nbytes), owner=owner,
+                          tag=f"tenant:{tenant}", priority=priority,
+                          reclaim=reclaim)
 
     def lease(self, subsystem: str, nbytes: int, *, owner: Any = None,
               tag: str = "", priority: int = PRI_CACHE,
@@ -634,3 +653,4 @@ reset = _registry.reset
 set_budget = _registry.set_budget
 set_metrics = _registry.set_metrics
 snapshot = _registry.snapshot
+tenant_lease = _registry.tenant_lease

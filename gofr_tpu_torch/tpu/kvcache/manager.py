@@ -22,10 +22,11 @@ least one full block: its hit pays MGET + host->device upload + a
 pool-row promotion, never worth less than a block of saved prefill.
 
 ``invalidate_adapter`` is the LoRA hot-swap: every tier drops the
-adapter's entries. The tenancy hooks (``set_tenancy``,
-``tenant_budget``, ``evict_tenant``, the ``tenant=`` arguments) come
-with tenancy (ROADMAP queue 1 item 10); they keep the JAX package's
-call shapes and raise until then.
+adapter's entries. The tenancy ledger (``set_tenancy``,
+``tenant_budget``, ``tenant_rows``, ``evict_tenant``, the ``tenant=``
+arguments of ``store`` and ``accept``) charges each T0 row to the
+tenant that stored it: a budgeted tenant at or over its share evicts
+its own rows first.
 """
 
 from __future__ import annotations
@@ -45,13 +46,6 @@ def clamp_restore_len(matched: int, prompt_len: int) -> int:
     has logits to sample the first generated token from (the restore
     path copies KV, not logits)."""
     return min(int(matched), prompt_len - 1)
-
-
-def _no_tenancy(tenant) -> None:
-    if tenant is not None:
-        raise NotImplementedError(
-            "per-tenant cache budgets come with tenancy (ROADMAP queue 1 "
-            "item 10)")
 
 
 class Match:
@@ -98,17 +92,108 @@ class CacheManager:
         self.misses = 0
         self._tier_hits = {"t0": 0, "t1": 0, "t2": 0}
         self._tier_misses = {"t0": 0, "t1": 0, "t2": 0}
+        # the tenancy ledger, empty until set_tenancy: the shares are a
+        # callable, not a snapshot, because the registry hot-reloads and
+        # budgets are read at store time
+        self._shares_fn = None
+        self._row_bytes = 0
+        self._owned: dict[str, dict[int, Entry]] = {}   # tenant -> eid -> e
+        self._eid_owner: dict[int, str] = {}
 
-    # -- tenancy (ROADMAP queue 1 item 10) -----------------------------------
+    # -- tenancy -------------------------------------------------------------
     def set_tenancy(self, shares_fn, row_bytes: int = 0) -> None:
-        _no_tenancy(shares_fn)
+        """Install per-tenant T0 budgets. ``shares_fn() -> {tenant:
+        share}`` (fractions of the row count); ``row_bytes`` sizes the
+        ``app_tpu_tenant_cache_bytes`` gauge. Tenants without a share
+        are unbudgeted; untagged entries stay plain global LRU."""
+        self._shares_fn = shares_fn
+        self._row_bytes = max(0, int(row_bytes))
+
+    def _shares(self) -> dict:
+        if self._shares_fn is None:
+            return {}
+        try:
+            return self._shares_fn() or {}
+        except Exception:  # noqa: BLE001 — a registry fault unbudgets
+            return {}
 
     def tenant_budget(self, tenant: str) -> int | None:
-        _no_tenancy(tenant)
+        """This tenant's T0 row budget (None: unbudgeted)."""
+        share = self._shares().get(tenant, 0.0)
+        if share <= 0:
+            return None
+        return max(1, int(share * self.t0.slots))
+
+    def tenant_rows(self) -> dict[str, int]:
+        return {tid: len(d) for tid, d in self._owned.items()}
+
+    def _prefer_eids(self, tenant) -> set | None:
+        """Entry ids to victimize first: every budgeted tenant already
+        over its share, plus the storing tenant once it is at its share
+        (the incoming row would push it over), so the over-budget tenant
+        eats its own eviction before anyone else's warm row goes cold."""
+        shares = self._shares()
+        if not shares:
+            return None
+        prefer: set | None = None
+        for tid, owned in self._owned.items():
+            share = shares.get(tid, 0.0)
+            if share <= 0 or not owned:
+                continue
+            budget = max(1, int(share * self.t0.slots))
+            rows = len(owned)
+            if rows > budget or (tid == tenant and rows >= budget):
+                if prefer is None:
+                    prefer = set()
+                prefer.update(owned)
+        return prefer
+
+    def _ledger_remove(self, entry: Entry) -> None:
+        tid = self._eid_owner.pop(entry.eid, None)
+        if tid is None:
+            return
+        owned = self._owned.get(tid)
+        if owned is None:
+            return
+        owned.pop(entry.eid, None)
+        if not owned:
+            self._owned.pop(tid, None)   # no empty rows in tenant_rows()
+
+    def _ledger_clear(self) -> None:
+        # tenant keys stay with empty row maps: their cache-bytes gauges
+        # must read 0, not stay at their last value
+        for owned in self._owned.values():
+            owned.clear()
+        self._eid_owner.clear()
 
     def evict_tenant(self, tenant: str, rows: int | None = None
                      ) -> list[Entry]:
-        _no_tenancy(tenant)
+        """Targeted per-tenant reclaim: evict ``rows`` of the tenant's T0
+        entries, least recently used first (default: enough to get back
+        under its budget). Returns the victims, unindexed with their
+        payloads intact, so the engine spills each row to the host tier
+        as it does a store's victim. Other tenants' entries stay."""
+        owned = self._owned.get(tenant)
+        if not owned:
+            return []
+        if rows is None:
+            budget = self.tenant_budget(tenant)
+            if budget is None:
+                return []
+            rows = len(owned) - budget
+        if rows <= 0:
+            return []
+        victims = []
+        for e in sorted(owned.values(), key=lambda e: e.tick)[:rows]:
+            if self.t0.evict(e):
+                self._ledger_remove(e)
+                victims.append(e)
+                self._count("app_tpu_kvcache_evictions_total", "t0",
+                            tenant=tenant)
+        if victims:
+            self.version += 1
+            self._gauges()
+        return victims
 
     # -- engine-facing surface ----------------------------------------------
     def __len__(self) -> int:
@@ -162,8 +247,9 @@ class CacheManager:
                tenant: str | None = None) -> None:
         """The engine restored this match: count the hit on the serving
         tier, a miss on every cheaper tier it had to fall through, and
-        refresh the winning entry's LRU position."""
-        _no_tenancy(tenant)
+        refresh the winning entry's LRU position. ``tenant`` labels the
+        hit series on engines with a tenancy plane (None adds no
+        label)."""
         self.hits += 1
         self._tier_hits[match.tier] += 1
         for tier in match.consulted:
@@ -173,7 +259,8 @@ class CacheManager:
             self.t0.touch(match.entry)
         elif match.tier == "t1" and match.entry is not None:
             self.host.touch(match.entry)
-        self._count("app_tpu_kvcache_hits_total", match.tier)
+        self._count("app_tpu_kvcache_hits_total", match.tier,
+                    tenant=tenant)
         for tier in match.consulted:
             if tier != match.tier:
                 self._count("app_tpu_kvcache_misses_total", tier)
@@ -212,12 +299,21 @@ class CacheManager:
     def store(self, key: np.ndarray, adapter: int = 0,
               tenant: str | None = None) -> tuple[int, Entry | None]:
         """Claim a T0 row (see HBMTier.store). The caller spills the
-        returned victim's row via offload() BEFORE overwriting it."""
-        _no_tenancy(tenant)
+        returned victim's row via offload() BEFORE overwriting it.
+        ``tenant`` charges the row to that tenant's cache budget: once a
+        budgeted tenant is at or over its share, its own rows become the
+        preferred victims (least recently used within the tenant)."""
         self.version += 1
-        row, victim = self.t0.store(np.asarray(key, np.int32), adapter)
+        row, victim = self.t0.store(np.asarray(key, np.int32), adapter,
+                                    prefer=self._prefer_eids(tenant))
         if victim is not None:
+            self._ledger_remove(victim)
             self._count("app_tpu_kvcache_evictions_total", "t0")
+        if tenant:
+            entry = self.t0.entry_at(row)
+            if entry is not None:
+                self._eid_owner[entry.eid] = tenant
+                self._owned.setdefault(tenant, {})[entry.eid] = entry
         self._gauges()
         return row, victim
 
@@ -250,6 +346,7 @@ class CacheManager:
         future hits rewarm from T1/T2 exactly like post-recovery."""
         self.version += 1
         n = self.t0.resize(new_slots)
+        self._ledger_clear()
         self._gauges()
         return n
 
@@ -260,6 +357,7 @@ class CacheManager:
         pool from them instead of paying a full prefill."""
         self.version += 1
         n = self.t0.clear()
+        self._ledger_clear()
         self._gauges()
         return n
 
@@ -269,6 +367,11 @@ class CacheManager:
         an epoch bump, which invalidates OTHER replicas' reads of this
         adapter too). Returns the entries dropped per tier."""
         self.version += 1
+        for owned in self._owned.values():
+            for e in [e for e in owned.values()
+                      if e.adapter == int(adapter)]:
+                owned.pop(e.eid, None)
+                self._eid_owner.pop(e.eid, None)
         out = {"t0": self.t0.invalidate_adapter(adapter)}
         if self.host is not None:
             out["t1"] = self.host.invalidate_adapter(adapter)
@@ -279,10 +382,15 @@ class CacheManager:
         return out
 
     # -- observability -------------------------------------------------------
-    def _count(self, name: str, tier: str) -> None:
+    def _count(self, name: str, tier: str,
+               tenant: str | None = None) -> None:
         if self.metrics is not None:
             try:
-                self.metrics.increment_counter(name, tier=tier)
+                if tenant:
+                    self.metrics.increment_counter(name, tier=tier,
+                                                   tenant=tenant)
+                else:
+                    self.metrics.increment_counter(name, tier=tier)
             except Exception:  # noqa: BLE001 — telemetry only
                 pass
 
@@ -297,6 +405,11 @@ class CacheManager:
                                        float(len(self.host)), tier="t1")
                 self.metrics.set_gauge("app_tpu_kvcache_bytes",
                                        float(self.host.bytes), tier="t1")
+            if self._shares_fn is not None:
+                for tid, owned in self._owned.items():
+                    self.metrics.set_gauge(
+                        "app_tpu_tenant_cache_bytes",
+                        float(len(owned) * self._row_bytes), tenant=tid)
         except Exception:  # noqa: BLE001 — telemetry only
             pass
 
@@ -324,4 +437,9 @@ class CacheManager:
             out["tiers"]["t2"] = {**self.redis.stats(),
                                   "hits": self._tier_hits["t2"],
                                   "misses": self._tier_misses["t2"]}
+        if self._shares_fn is not None:
+            out["tenants"] = {
+                tid: {"rows": len(owned),
+                      "budget": self.tenant_budget(tid)}
+                for tid, owned in self._owned.items()}
         return out

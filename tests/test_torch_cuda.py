@@ -31,7 +31,9 @@ verify pass with mixed adapters equal their eager versions, and after
 ``load_adapter`` and a stream a replay reads the new weights (the graphs
 bind the stacks' storage); repeated swaps and streams keep the replays
 equal to the eager block, and no replay writes memory the allocator can
-hand to another tensor. They
+hand to another tensor; under a tenancy plane routing three tenants to
+three adapters, a replay after a swap and a tenant's stream equals the
+eager block too. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1520,6 +1522,58 @@ def test_lora_replays_after_swaps_and_streams_equal_eager(gen, paged):
                 _replay_equals_eager(eng, False)
                 eng._host_wins[:] = True
                 eng._touch()
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_a_mixed_tenant_replay_after_a_swap_and_a_stream_equals_eager(
+        gen, paged):
+    """The load_adapter scenario under tenant routing: an engine with a
+    tenancy plane routing tenants A, B and C to adapters 1, 2 and 3;
+    adapter 3 is swapped for adapter 1's weights with load_adapter, one
+    greedy stream of C then equals adapter 1's untenanted; a decode
+    replay with slots of A, B and C (three adapters in one pack, as the
+    plane routed their streams) equals the eager block bit for bit."""
+    from gofr_tpu_torch.tenancy import (TenantPlane, TenantRegistry,
+                                        tenant_scope)
+
+    eng = _engine(paged, prompt_buckets=(16, 32), lora_adapters=4,
+                  lora_rank=8)
+    try:
+        layers = eng.params["layers"]
+        for name in llama.LORA_TARGETS:
+            b = layers[f"lora_b_{name}"]
+            b.copy_(torch.randn(b.shape, generator=gen, device="cuda") * 0.2)
+        eng.install_tenancy(TenantPlane(TenantRegistry.from_json(
+            {"tenants": [{"id": "A", "adapter": 1, "weight": 2},
+                         {"id": "B", "adapter": 2},
+                         {"id": "C", "adapter": 3}]})))
+        prompt = list(range(3, 40))
+        donor = eng.generate(prompt, max_new_tokens=12, adapter=1).tokens()
+        tree = {name: (layers[f"lora_a_{name}"][:, 1].cpu(),
+                       layers[f"lora_b_{name}"][:, 1].cpu())
+                for name in llama.LORA_TARGETS}
+        eng.load_adapter(3, tree)
+        with tenant_scope("C"):
+            s = eng.generate(prompt, max_new_tokens=12)
+            after = s.tokens()
+        assert (s.tenant, s.adapter, after) == ("C", 3, donor)
+        routed = []
+        for t in "ABC":
+            with tenant_scope(t):
+                s = eng.generate(prompt[:20], max_new_tokens=2)
+                s.tokens()
+            routed.append(s.adapter)
+        assert routed == [1, 2, 3]
+        assert eng.tenancy.stats()["tenants"]["C"]["active"] == 0
+        with eng._device_lock:
+            torch.cuda.synchronize()
+            _random_state(eng, gen, [40, 131, 7], False)
+            eng._pack[:, 5] = torch.tensor(routed, device="cuda")
+            _replay_equals_eager(eng, False)
+            eng._host_wins[:] = True
+            eng._touch()
     finally:
         eng.close()
 

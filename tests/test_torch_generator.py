@@ -354,10 +354,14 @@ def test_new_engine_from_config_loads_jax_weights(weights, tmp_path):
 
 @pytest.mark.parametrize("rows,name", [
     ({"TPU_HBM_DEVICE_BUDGET_MB": "4"}, "TPU_HBM_DEVICE_BUDGET_MB"),
+    # honoured since the tenancy slice: a registry path that cannot be
+    # read is refused by its row's name
     ({"TPU_TENANTS": "a,b"}, "TPU_TENANTS"),
     ({"TPU_SERVING_ROLE": "prefill"}, "TPU_SERVING_ROLE"),
 ])
 def test_rows_the_port_does_not_honour_raise_with_their_name(rows, name):
+    """A row the port does not honour, or an unreadable tenant registry,
+    raises ValueError naming the row."""
     with pytest.raises(ValueError, match=name):
         new_engine_from_config(MapConfig({"TPU_MODEL": "tiny", **rows}),
                                device="cpu")

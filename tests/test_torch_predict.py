@@ -318,6 +318,10 @@ def test_the_predict_rows_are_honoured_as_in_jax(npz):
                                  "TPU_HBM_DEVICE_BUDGET_MB",
                                  "TPU_TENANTS_INLINE"])
 def test_every_other_row_still_raises_with_its_name(npz, row):
+    """An unported row raises ValueError naming it; the two tenant rows,
+    honoured since the tenancy slice, are refused by name when the
+    registry cannot be read ("4" is no readable path and no registry
+    document)."""
     with pytest.raises(ValueError, match=row):
         _build("port", npz, "bert-tiny", **{row: "4"})
 

@@ -2,9 +2,9 @@
 the port's in-process server (gofr_tpu_torch.testutil.redisfake), the
 JAX package's tests/test_redis.py cases for the commands the port's
 client has, run on both packages (each client against each server), so
-the replies are the JAX client's. The datasource surface of the App
-(``REDIS_HOST`` as a datasource, health) is not ported; the kv-cache's
-shared tier builds this client itself.
+the replies are the JAX client's. The App's ``REDIS_HOST`` client
+(``ctx.redis``, its health entry) is held in tests/test_torch_lane.py;
+the kv-cache's shared tier builds this client itself.
 """
 
 import pytest
