@@ -250,10 +250,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      and its reclaim); the async lane (4 jobs, one killed after its
      first checkpoint and resumed with ``continue_from`` after a
      restart); K1 32 a bucket admission and K2 32 a decode step;
+  5m. (phase ``gateway``) service clients, auth and the prefix-affinity
+     gateway: two replica Apps of Llama-3-8B at phase 5's rows (full
+     width and depth, seed-0 weights each, POST /generate, replica B
+     with ``enable_apikey_auth``) behind a port gateway App
+     (``TPU_SERVING_ROLE=gateway``, block 16, ``enable_basic_auth``, no
+     engine): its health lists both replicas UP and a request without
+     credentials is a 401 that reaches no replica; 8 sessions of two
+     turns (prompts of 17-500 tokens, two sampled with seeds) each
+     served by its ring owner and equal to the owner's direct answer,
+     with the hop's TTFT overhead; a first attempt lost at the
+     GATEWAY_RELAY seam served by the other replica; a 64-token greedy
+     stream cut after token 16 at the GATEWAY_MIDSTREAM seam and resumed
+     on the ring successor (one stream, equal to the first 16 plus the
+     successor's own ``continue_from`` answer; the resume gap and the
+     first index parting from the uninterrupted stream printed); a retry
+     budget of one token spent on an hbm shed's failover (HBM_ALLOC
+     seam), then typed 503s with ``Retry-After`` that reach no replica;
+     BASELINE config #5's ``/chat`` (examples/tpu-sharded-70b/gateway.py
+     against the port) over B through ``CircuitBreakerOption(3, 2 s)``,
+     ``HealthOption`` and ``APIKeyAuthOption``: B's tokens, then B
+     stopped, 3 transport failures, the breaker open and its 503s timed,
+     a fresh B on B's port and the recovery probe closing it; then
+     ``stop(60)`` of replica A with 8 live streams through the gateway:
+     every stream complete, new requests served by B; K1 32 a bucket
+     admission and K2 32 a decode step over the three replica engines;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
-     5's, the score run's and phases grpc's, tiers', lora's and
-     tenancy's; flash_decode's phase 5's and phases grpc's, tiers',
-     lora's and tenancy's; paged_decode's phase paged's and lora's),
+     5's, the score run's and phases grpc's, tiers', lora's, tenancy's
+     and gateway's; flash_decode's phase 5's and phases grpc's, tiers',
+     lora's, tenancy's and gateway's; paged_decode's phase paged's and
+     lora's),
      then the card line, then the ``{"ok": true, "device": {...}}`` line
      last.
 
@@ -5732,13 +5758,573 @@ def phase_tenancy(card: str) -> dict:
             "flash_decode": counts["flash_decode"]}
 
 
+GATEWAY_ROWS = dict(MAIN_ROWS, HTTP_PORT="0", METRICS_PORT="0",
+                    LOG_LEVEL="WARN", TPU_KVCACHE_BLOCK="16")
+GATEWAY_BLOCK = 16            # TPU_GATEWAY_BLOCK == the replicas' block
+GATEWAY_SEED = 71
+GATEWAY_PROMPTS = 8           # sessions, two turns each
+GATEWAY_LENS = (17, 500)      # turn 1's prompt lengths: bucket admissions
+GATEWAY_TAIL = 8              # turn 2 = turn 1 + its answer + this many
+GATEWAY_NEW = 32
+GATEWAY_SAMPLED = {2: 701, 5: 705}   # session -> seed (temperature 0.8,
+#                                      top-k 50), both turns
+GATEWAY_RESUME = (300, 64, 16)       # prompt, new tokens, the cut
+GATEWAY_SHED_LEN = 200        # cache-heavy (>= 4 blocks): the hbm hold
+GATEWAY_BREAKER = (3, 2.0)    # config #5: threshold, recovery interval
+GATEWAY_OPEN_CALLS = 20       # /chat calls timed while the breaker is open
+GATEWAY_DRAIN_NEW = 160       # the drain's 8 streams
+GATEWAY_DRAIN_LENS = (64, 400)   # their prompts and the late ones
+GATEWAY_LATE = 4              # new requests sent while it drains
+GATEWAY_KEY = "chip-smoke-key"            # replica B's X-API-KEY
+GATEWAY_USER = ("smoke", "chip-smoke-pw")  # the gateway's basic auth
+GATEWAY_RECOVER_S = 60
+
+
+def _hit_counter(app) -> dict:
+    """Count the POST /generate requests that reach ``app``'s handler
+    (innermost middleware: a drain 503 or a 401 is not a hit)."""
+    hits = {"n": 0}
+
+    def mw(next_h):
+        def wrapped(req, w):
+            if req.method == "POST" and req.path == "/generate":
+                hits["n"] += 1
+            next_h(req, w)
+        return wrapped
+
+    app.router.use(mw)
+    return hits
+
+
+def _timed_generate(port: int, body: dict, headers=None,
+                    on_first=None) -> dict:
+    """POST /generate over its own connection: status, headers, the
+    ndjson lines and the client's clock at the send and at each line;
+    ``on_first()`` is called when the first line arrives."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=APP_CALL_TIMEOUT_S)
+    try:
+        t_send = time.monotonic()
+        conn.request("POST", "/generate", body=json.dumps(body),
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
+        resp = conn.getresponse()
+        out = {"status": resp.status, "headers": dict(resp.getheaders()),
+               "t_send": t_send, "lines": [], "times": []}
+        if resp.status != 200:
+            raw = resp.read()
+            out["body"] = json.loads(raw) if raw.startswith(b"{") else raw
+            return out
+        for line in resp:
+            if line.strip():
+                out["times"].append(time.monotonic())
+                out["lines"].append(json.loads(line))
+                if on_first is not None and len(out["lines"]) == 1:
+                    on_first()
+        return out
+    finally:
+        conn.close()
+
+
+def _tokens(res: dict) -> list:
+    return [ln["token"] for ln in res["lines"] if "token" in ln]
+
+
+def _replica_app(rows: dict, apikey: bool):
+    """A replica: a gofr_tpu_torch.App with POST /generate on "cuda",
+    its hit counter, running."""
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.serving import install_generate
+
+    app = App(MapConfig(rows))
+    install_generate(app)
+    if apikey:
+        app.enable_apikey_auth(GATEWAY_KEY)
+    hits = _hit_counter(app)
+    app.run(block=False)
+    return app, hits
+
+
+def chat_routes(app) -> None:
+    """examples/tpu-sharded-70b/gateway.py's /chat, against the port."""
+    from gofr_tpu_torch.errors import HTTPError, ServiceUnavailable
+    from gofr_tpu_torch.service import CircuitOpenError
+
+    @app.post("/chat")
+    def chat(ctx):
+        body = ctx.bind()
+        try:
+            r = ctx.get_http_service("llm").post("/generate", body=body)
+        except CircuitOpenError:
+            raise ServiceUnavailable("model backend circuit open")
+        except Exception as e:  # transport failure (counts toward the breaker)
+            raise HTTPError(f"model backend unreachable: {type(e).__name__}",
+                            status_code=502)
+        if not r.ok:
+            raise HTTPError(f"model backend {r.status_code}", status_code=502)
+        tokens = [json.loads(line)["token"]
+                  for line in r.body.decode().splitlines() if line]
+        return {"tokens": tokens}
+
+
+def phase_gateway(card: str) -> dict:
+    """Service clients, auth and the prefix-affinity gateway on the card:
+    two full-width Llama-3-8B replica Apps (phase 5's contiguous int8
+    engine, seed-0 weights each, POST /generate; B with
+    enable_apikey_auth) behind a gofr_tpu_torch gateway App
+    (TPU_SERVING_ROLE=gateway, enable_basic_auth, no engine): health and
+    a 401, affinity with direct-equal streams, failover before the first
+    token, a mid-stream resume on the ring successor, the retry budget's
+    typed 503, BASELINE config #5's /chat behind a circuit breaker while
+    B dies and a fresh B starts on its port, and a rolling drain with 8
+    live streams. K1 32 a bucket admission, K2 32 a decode step, no plain
+    version. Returns the launch counts."""
+    import base64
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import App, chaos
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.gateway.router import RetryBudget
+    from gofr_tpu_torch.service import (APIKeyAuthOption,
+                                        CircuitBreakerOption, HealthOption)
+    from gofr_tpu_torch.tpu.kvcache import first_block_hash
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(GATEWAY_SEED)
+    kinds: dict = {}
+    engines: list = []
+
+    def counted_engine(app):
+        gen = app.container.tpu.generator
+        run_admission = gen._run_admission
+
+        def counted(key):
+            kinds[key[0]] = kinds.get(key[0], 0) + 1
+            return run_admission(key)
+
+        gen._run_admission = counted
+        engines.append((gen, gen.decode_steps))
+        return gen
+
+    t0 = time.monotonic()
+    a, hits_a = _replica_app(dict(GATEWAY_ROWS, APP_NAME="replica-a"), False)
+    b = gw = chat = None
+    apps = [a]
+    try:
+        b, hits_b = _replica_app(dict(GATEWAY_ROWS, APP_NAME="replica-b"),
+                                 True)
+        apps.append(b)
+        for app in (a, b):
+            counted_engine(app)
+        torch.cuda.synchronize()
+        built_s = time.monotonic() - t0
+        # the gateway's and /chat's clients log each transport failure
+        # at ERROR: the phase provokes them and counts them itself
+        gw = App(MapConfig({
+            "HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "FATAL",
+            "APP_NAME": "gateway", "TPU_SERVING_ROLE": "gateway",
+            "TPU_GATEWAY_BLOCK": str(GATEWAY_BLOCK),
+            "TPU_GATEWAY_HEALTH_INTERVAL_S": "0.5",
+            "TPU_GATEWAY_REPLICAS": f"127.0.0.1:{a.http_port},"
+                                    f"127.0.0.1:{b.http_port}"}))
+        gw.enable_basic_auth({GATEWAY_USER[0]: GATEWAY_USER[1]})
+        gw.run(block=False)
+        apps.append(gw)
+        g = gw._gateway
+        reps = [a, b]
+        hits = [hits_a, hits_b]
+        creds = base64.b64encode(":".join(GATEWAY_USER).encode()).decode()
+        auth = {"Authorization": f"Basic {creds}", "X-API-KEY": GATEWAY_KEY}
+        direct_h = {"X-API-KEY": GATEWAY_KEY}
+        vocab = a.container.tpu.generator.cfg.vocab_size
+        layers = a.container.tpu.generator.cfg.n_layers
+
+        def prompt(n):
+            return rng.integers(0, vocab, int(n)).tolist()
+
+        def owners(p):
+            return g.router.ring.order(first_block_hash(p, GATEWAY_BLOCK))
+
+        def hit_counts():
+            return [h["n"] for h in hits]
+
+        def through(body, headers=auth):
+            before = hit_counts()
+            res = _timed_generate(gw.http_port, body, headers)
+            res["served"] = [x - y for x, y in zip(hit_counts(), before)]
+            return res
+
+        _reset_launches()
+
+        # 1. health and auth
+        health = http_call(gw.http_port, "GET", "/.well-known/health")
+        services = health["body"]["data"].get("services", {})
+        before = hit_counts()
+        denied = _timed_generate(gw.http_port,
+                                 {"tokens": prompt(40), "max_new": 4})
+        print(f"[gateway] two replica Apps of {GATEWAY_ROWS['TPU_MODEL']} "
+              f"({GATEWAY_ROWS['TPU_SLOTS']} slots, "
+              f"{GATEWAY_ROWS['TPU_MAX_SEQ']} positions, int8 KV, K="
+              f"{GATEWAY_ROWS['TPU_DECODE_BLOCK']}) ready in {built_s:.1f} s, "
+              f"behind the port's gateway (block {GATEWAY_BLOCK}, no engine: "
+              f"{gw.container.tpu is None}); health services "
+              f"{ {k: v['status'] for k, v in services.items()} }; no "
+              f"credentials: {denied['status']}, replica hits "
+              f"{before} -> {hit_counts()}; card: {card}", flush=True)
+        require(gw.container.tpu is None, "the gateway App built an engine")
+        require(sorted(services) == ["gateway-replica-0", "gateway-replica-1"]
+                and all(v["status"] == "UP" for v in services.values()),
+                f"gateway health services {services}")
+        require(denied["status"] == 401 and hit_counts() == before,
+                f"an unauthenticated request: {denied['status']}, hits "
+                f"{before} -> {hit_counts()}")
+
+        # 2. affinity: 8 sessions of two turns, each against the same
+        # request sent to its owner directly
+        lens = rng.integers(GATEWAY_LENS[0], GATEWAY_LENS[1] + 1,
+                            GATEWAY_PROMPTS)
+        ttft_gw, ttft_direct, rows_ = [], [], []
+        for i, n in enumerate(lens):
+            p = prompt(n)
+            for turn in range(2):
+                body = {"tokens": p, "max_new": GATEWAY_NEW}
+                if i in GATEWAY_SAMPLED:
+                    body.update(temperature=0.8, top_k=50,
+                                seed=GATEWAY_SAMPLED[i])
+                own = owners(p)[0]
+                via = through(body)
+                direct = _timed_generate(reps[own].http_port, body, direct_h)
+                require(via["status"] == 200 and direct["status"] == 200,
+                        f"session {i} turn {turn}: {via['status']} "
+                        f"{direct['status']}")
+                want = [0, 0]
+                want[own] = 1
+                rows_.append((i, turn, len(p), own, via["served"],
+                              _tokens(via) == _tokens(direct)))
+                require(via["served"] == want,
+                        f"session {i} turn {turn} (owner {own}) served by "
+                        f"{via['served']}")
+                require(_tokens(via) == _tokens(direct)
+                        and len(_tokens(via)) == GATEWAY_NEW,
+                        f"session {i} turn {turn}: gateway "
+                        f"{_tokens(via)[:8]} direct {_tokens(direct)[:8]}")
+                ttft_gw.append(1e3 * (via["times"][0] - via["t_send"]))
+                ttft_direct.append(1e3 * (direct["times"][0]
+                                          - direct["t_send"]))
+                p = p + _tokens(via) + prompt(GATEWAY_TAIL)
+        over = [x - y for x, y in zip(ttft_gw, ttft_direct)]
+        st = g.stats()
+        print(f"[gateway] affinity: {len(rows_)} requests (8 sessions x 2 "
+              f"turns, prompts {sorted(int(x) for x in lens)} then + answer "
+              f"+ {GATEWAY_TAIL}; sessions {sorted(GATEWAY_SAMPLED)} sampled "
+              f"with seeds), each served by its ring owner and equal to the "
+              f"owner's direct answer; owners {[r[3] for r in rows_[::2]]}; "
+              f"picks {st['router']['picks']}; TTFT through the gateway "
+              f"{stats_line(ttft_gw)}, direct {stats_line(ttft_direct)}, the "
+              f"hop's overhead {stats_line(over)}; card: {card}", flush=True)
+        require(st["router"]["picks"]["hit"] == len(rows_),
+                f"affinity picks {st['router']['picks']}")
+
+        # 3. failover before the first token
+        p = prompt(120)
+        own, other = owners(p)[0], owners(p)[1]
+        body = {"tokens": p, "max_new": GATEWAY_NEW}
+        direct = _timed_generate(reps[other].http_port, body, direct_h)
+        f0 = g.stats()["failovers"]["transport"]
+        with chaos.scope(chaos.ChaosSchedule(seed=1).on(
+                chaos.GATEWAY_RELAY, error=ConnectionError, every=1,
+                limit=1)):
+            via = through(body)
+        f1 = g.stats()["failovers"]["transport"]
+        print(f"[gateway] failover: attempt 1 on replica {own} lost at the "
+              f"GATEWAY_RELAY seam, served by replica {other} "
+              f"({via['served']}), equal to its direct answer: "
+              f"{_tokens(via) == _tokens(direct)}; transport failovers "
+              f"{f0} -> {f1}; TTFT {1e3 * (via['times'][0] - via['t_send']):.1f}"
+              f" ms; card: {card}", flush=True)
+        require(via["status"] == 200 and via["served"][other] == 1
+                and via["served"][own] == 0
+                and _tokens(via) == _tokens(direct) and f1 == f0 + 1,
+                f"failover: {via['status']} served {via['served']} "
+                f"failovers {f0} -> {f1}")
+        g.table.poll_once()   # the lost replica answers health: ready
+
+        # 4. mid-stream resume on the ring successor
+        n, new, cut = GATEWAY_RESUME
+        p = prompt(n)
+        own, succ = owners(p)[0], owners(p)[1]
+        body = {"tokens": p, "max_new": new}
+        whole = _timed_generate(reps[own].http_port, body, direct_h)
+        r0 = g.stats()["resumes"]
+        with chaos.scope(chaos.ChaosSchedule(seed=2).on(
+                chaos.GATEWAY_MIDSTREAM, error=ConnectionError, every=cut,
+                limit=1)):
+            via = through(body)
+        toks = _tokens(via)
+        cont = _timed_generate(reps[succ].http_port, dict(
+            body, resume_from=cut, emitted=toks[:cut]), direct_h)
+        cursors = [ln.get("cursor") for ln in via["lines"]]
+        gap_ms = 1e3 * (via["times"][cut] - via["times"][cut - 1])
+        # tokens arrive a decode block (K of them) at a time: the mean
+        # over the tokens before the cut is the steady gap
+        steady_ms = 1e3 * (via["times"][cut - 1] - via["times"][0]) \
+            / (cut - 1)
+        print(f"[gateway] mid-stream resume: a {n}-token prompt, {new} greedy "
+              f"tokens, the relay from replica {own} cut after token {cut} at "
+              f"the GATEWAY_MIDSTREAM seam, resumed on replica {succ} "
+              f"(served {via['served']}, resumes {r0} -> "
+              f"{g.stats()['resumes']}): cursors 0..{new - 1} without gap "
+              f"{cursors == list(range(new))}, errors "
+              f"{sum('error' in ln for ln in via['lines'])}; equal to the "
+              f"first {cut} + the successor's continue_from answer "
+              f"{toks == toks[:cut] + _tokens(cont)}; the resume gap "
+              f"(token {cut - 1} to {cut}, client clock) {gap_ms:.1f} ms "
+              f"against a mean inter-token gap of {steady_ms:.2f} ms before "
+              f"the cut; "
+              f"against the uninterrupted stream: "
+              f"{splice_agreement(toks, _tokens(whole))}; card: {card}",
+              flush=True)
+        require(via["status"] == 200 and cursors == list(range(new))
+                and not any("error" in ln for ln in via["lines"]),
+                f"the resumed stream: {via['status']} cursors {cursors}")
+        require(toks == toks[:cut] + _tokens(cont) and len(toks) == new,
+                "the spliced stream is not the first tokens plus the "
+                "successor's continuation")
+        require(g.stats()["resumes"] == r0 + 1 and via["served"][succ] == 1,
+                f"resumes {g.stats()['resumes']} served {via['served']}")
+        g.table.poll_once()
+
+        # 5. the retry budget: one token, spent on a shed failover; the
+        # next losses meet the empty bucket and answer a typed 503
+        g.budget = RetryBudget(ratio=0.0, burst=1.0)
+        p = prompt(GATEWAY_SHED_LEN)
+        own, other = owners(p)[0], owners(p)[1]
+        body = {"tokens": p, "max_new": 8}
+        sched = chaos.ChaosSchedule(seed=3).on(
+            chaos.HBM_ALLOC, error=chaos.ResourceExhausted, every=1, limit=1)
+        with chaos.scope(sched):
+            shed = through(body)
+        rep_stats = g.table.replicas[own].stats()
+        budget_1 = g.budget.stats()
+        typed, exhausted_hits = [], []
+        with chaos.scope(chaos.ChaosSchedule(seed=4).on(
+                chaos.GATEWAY_RELAY, error=ConnectionError, every=1)):
+            for _ in range(3):
+                g.table.poll_once()   # both ready: each request attempts
+                res = through({"tokens": prompt(GATEWAY_SHED_LEN),
+                               "max_new": 8})
+                typed.append((res["status"],
+                              res["headers"].get("Retry-After")))
+                exhausted_hits.append(res["served"])
+        print(f"[gateway] retry budget of 1: replica {own} shed an hbm 429 "
+              f"(HBM_ALLOC seam; its table row {rep_stats}), the one "
+              f"failover served it on replica {other} ({shed['status']}, "
+              f"served {shed['served']}); budget then {budget_1}; three "
+              f"requests whose first attempt is lost (GATEWAY_RELAY seam): "
+              f"{typed}, replica hits {exhausted_hits}, budget "
+              f"{g.budget.stats()}; card: {card}", flush=True)
+        require(shed["status"] == 200 and shed["served"] == [
+            int(own == i) + int(other == i) for i in range(2)]
+            and rep_stats["sheds_hbm"] == 1 and budget_1["spent"] == 1,
+            f"the shed failover: {shed['status']} {shed['served']} "
+            f"{rep_stats} {budget_1}")
+        require(all(s == 503 and ra for s, ra in typed)
+                and all(h == [0, 0] for h in exhausted_hits)
+                and g.budget.stats()["denied"] == 3,
+                f"the exhausted budget: {typed} {exhausted_hits} "
+                f"{g.budget.stats()}")
+        g.budget = RetryBudget()
+        for r in g.table.replicas:
+            r._hold_until = 0.0
+        g.table.poll_once()
+
+        # 6. BASELINE config #5's gateway half: /chat over replica B
+        # through a circuit breaker, while B dies and a fresh B starts
+        threshold, interval = GATEWAY_BREAKER
+        chat = App(MapConfig({"HTTP_PORT": "0", "METRICS_PORT": "0",
+                              "LOG_LEVEL": "FATAL", "APP_NAME": "chat"}))
+        chat.add_http_service(
+            "llm", f"http://127.0.0.1:{b.http_port}",
+            CircuitBreakerOption(threshold=threshold, interval=interval),
+            HealthOption("/.well-known/health"),
+            APIKeyAuthOption(GATEWAY_KEY))
+        chat_routes(chat)
+        chat.run(block=False)
+        apps.append(chat)
+        llm = chat.container.get_http_service("llm")
+        p = prompt(64)
+        body = {"tokens": p, "max_new": GATEWAY_NEW}
+        served = http_call(chat.http_port, "POST", "/chat", body)
+        direct = _timed_generate(b.http_port, body, direct_h)
+        require(served["status"] == 200
+                and served["body"]["data"]["tokens"] == _tokens(direct),
+                f"/chat: {served['status']} against B's direct answer")
+        b_port = b.http_port
+        b_gen = b.container.tpu.generator
+        b.stop()
+        release_graphs(b_gen)
+        failures = [http_call(chat.http_port, "POST", "/chat", body)["status"]
+                    for _ in range(threshold)]
+        opened = llm.is_open
+        open_ms, open_status = [], []
+        for _ in range(GATEWAY_OPEN_CALLS):
+            res = http_call(chat.http_port, "POST", "/chat", body)
+            open_ms.append(1e3 * (res["t_end"] - res["t_send"]))
+            open_status.append(res["status"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_b = time.monotonic()
+        # the fresh engine's construction (its graphs' captures count
+        # their launches) is not the path's: taken out below
+        pre = _launches()
+        b, hits_b = _replica_app(dict(GATEWAY_ROWS, APP_NAME="replica-b2",
+                                      HTTP_PORT=str(b_port)), True)
+        built_launches = {k: v - pre[k] for k, v in _launches().items()}
+        apps.append(b)
+        reps[1], hits[1] = b, hits_b
+        counted_engine(b)
+        rebuilt_s = time.monotonic() - t_b
+        end = time.monotonic() + GATEWAY_RECOVER_S
+        while llm.is_open and time.monotonic() < end:
+            time.sleep(0.05)
+        closed_s = time.monotonic() - t_b - rebuilt_s
+        again = http_call(chat.http_port, "POST", "/chat", body)
+        print(f"[gateway] config #5 /chat over replica B (breaker threshold "
+              f"{threshold}, interval {interval} s, HealthOption, "
+              f"APIKeyAuthOption): served B's direct tokens "
+              f"{served['body']['data']['tokens'] == _tokens(direct)}; B "
+              f"stopped: {failures} then open {opened}, {GATEWAY_OPEN_CALLS} "
+              f"calls answered {sorted(set(open_status))} in "
+              f"{stats_line(open_ms)}; a fresh B on port {b_port} built in "
+              f"{rebuilt_s:.1f} s, the recovery probe closed the breaker "
+              f"{closed_s:.2f} s later; /chat again {again['status']}, equal "
+              f"to the first answer "
+              f"{again.get('body', {}).get('data', {}).get('tokens') == _tokens(direct)}"
+              f"; card: {card}", flush=True)
+        require(failures == [502] * threshold and opened
+                and set(open_status) == {503},
+                f"the breaker: {failures} open {opened} {set(open_status)}")
+        require(not llm.is_open and again["status"] == 200
+                and again["body"]["data"]["tokens"] == _tokens(direct),
+                f"after recovery: open {llm.is_open} {again['status']}")
+        # the gateway's health breaker on B opened while B was down; it
+        # lets a probe through once its interval has passed
+        t_ready = time.monotonic()
+        end = t_ready + GATEWAY_RECOVER_S
+        while time.monotonic() < end and not all(
+                r.state() == "ready" for r in g.table.replicas):
+            g.table.poll_once()
+            time.sleep(0.05)
+        print(f"[gateway] the gateway's table saw the fresh B ready "
+              f"{time.monotonic() - t_ready:.2f} s after /chat recovered; "
+              f"card: {card}", flush=True)
+        require(all(r.state() == "ready" for r in g.table.replicas),
+                f"table after B's restart {g.table.stats()}")
+
+        # 7. rolling drain: 8 live streams on replica A, A.stop(grace_s)
+        drain_prompts = []
+        while len(drain_prompts) < int(GATEWAY_ROWS["TPU_SLOTS"]):
+            p = prompt(rng.integers(*GATEWAY_DRAIN_LENS))
+            if owners(p)[0] == 0:
+                drain_prompts.append(p)
+        late_prompts = []
+        while len(late_prompts) < GATEWAY_LATE:
+            p = prompt(rng.integers(*GATEWAY_DRAIN_LENS))
+            if owners(p)[0] == 0:
+                late_prompts.append(p)
+        first = threading.Semaphore(0)
+        results: list = [None] * len(drain_prompts)
+
+        def live(i):
+            results[i] = _timed_generate(
+                gw.http_port, {"tokens": drain_prompts[i],
+                               "max_new": GATEWAY_DRAIN_NEW}, auth,
+                on_first=first.release)
+
+        a_hits0, b_hits0 = hits_a["n"], hits[1]["n"]
+        ts = [threading.Thread(target=live, args=(i,), daemon=True)
+              for i in range(len(drain_prompts))]
+        for t in ts:
+            t.start()
+        for _ in ts:
+            require(first.acquire(timeout=APP_CALL_TIMEOUT_S),
+                    "a drain stream never got its first token")
+        a_gen = a.container.tpu.generator
+        live_n = a_gen.stats()["active"]
+        t_stop = time.monotonic()
+        stopper = threading.Thread(target=a.stop, args=(60.0,), daemon=True)
+        stopper.start()
+        time.sleep(0.2)
+        late = _threads([lambda q=q: through(
+            {"tokens": q, "max_new": GATEWAY_NEW}) for q in late_prompts])
+        for t in ts:
+            t.join(APP_JOIN_S)
+        stopper.join(APP_JOIN_S)
+        drain_s = time.monotonic() - t_stop
+        complete = [r is not None and r.get("status") == 200
+                    and [ln.get("cursor") for ln in r["lines"]]
+                    == list(range(GATEWAY_DRAIN_NEW)) for r in results]
+        st = g.stats()
+        print(f"[gateway] rolling drain: {live_n} live streams on replica A "
+              f"through the gateway, A.stop(60) took {drain_s:.2f} s; streams "
+              f"complete {sum(complete)}/{len(complete)} "
+              f"({GATEWAY_DRAIN_NEW} tokens each); {GATEWAY_LATE} new requests "
+              f"owned by A sent 0.2 s into the drain: statuses "
+              f"{[r['status'] for r in late]}, served by B "
+              f"{hits[1]['n'] - b_hits0} (A's hits {hits_a['n'] - a_hits0}); "
+              f"gateway outcomes {st['outcomes']} failovers "
+              f"{st['failovers']}; card: {card}", flush=True)
+        require(live_n == len(drain_prompts) and all(complete),
+                f"drain: {live_n} live, complete {complete}")
+        require(all(r["status"] == 200 and len(_tokens(r)) == GATEWAY_NEW
+                    for r in late)
+                and hits[1]["n"] - b_hits0 == GATEWAY_LATE
+                and hits_a["n"] - a_hits0 == len(drain_prompts),
+                f"the drain's new requests: {[r['status'] for r in late]}")
+        require(st["outcomes"]["midstream"] == 0,
+                f"a stream was lost: {st['outcomes']}")
+
+        counts = {k: v - built_launches[k] for k, v in _launches().items()}
+        bucket = kinds.get("prefill", 0)
+        steps = sum(gen.decode_steps - s0 for gen, s0 in engines)
+        print(f"[gateway] {bucket} bucket admissions, admission dispatches "
+              f"by kind {kinds}, {steps} decode steps over the three replica "
+              f"engines; launches {counts} (the fresh B's construction, "
+              f"taken out: {built_launches}); card: {card}", flush=True)
+        require(counts["flash_prefill"] == layers * bucket and bucket > 0,
+                f"flash_prefill launched {counts['flash_prefill']} times for "
+                f"{bucket} bucket admissions of {layers} layers")
+        require(counts["flash_decode"] == layers * steps and steps > 0,
+                f"flash_decode launched {counts['flash_decode']} times for "
+                f"{steps} decode steps of {layers} layers")
+        require(counts["prefill_plain"] == counts["decode_plain"]
+                == counts["paged_decode"] == counts["paged_plain"] == 0,
+                f"a plain version or another kernel ran: {counts}")
+    finally:
+        for app in reversed(apps):
+            if app._running.is_set():
+                app.stop()
+        for gen, _ in engines:
+            release_graphs(gen)
+    return {"flash_prefill": counts["flash_prefill"],
+            "flash_decode": counts["flash_decode"]}
+
+
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
                 "durable", "slo", "app", "predict", "grpc", "tiers", "lora",
-                "pubsub", "tenancy")) -> dict:
+                "pubsub", "tenancy", "gateway")) -> dict:
     import torch
 
     card = card_line()
@@ -5794,10 +6380,10 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             # K1's count: phase 5's main path plus the score run
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
-        elif phase in ("grpc", "tiers", "lora", "tenancy"):
+        elif phase in ("grpc", "tiers", "lora", "tenancy", "gateway"):
             counts = {"grpc": phase_grpc, "tiers": phase_tiers,
-                      "lora": phase_lora,
-                      "tenancy": phase_tenancy}[phase](card)
+                      "lora": phase_lora, "tenancy": phase_tenancy,
+                      "gateway": phase_gateway}[phase](card)
             # K1's, K2's (and K3's) counts: the earlier phases' plus this
             # run's
             for name, n in counts.items():

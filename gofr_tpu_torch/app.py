@@ -11,13 +11,26 @@ the port by changing its imports, ``from gofr_tpu_torch import App`` and
 
     @app.subscribe("images")          # PUBSUB_BACKEND: one consumer thread
     def classify(ctx): ...            # a topic, commit on success
+    app.add_http_service("llm", "http://10.0.0.2:8000",
+                         CircuitBreakerOption(threshold=3, interval=5.0))
+    app.enable_apikey_auth("key")     # or enable_basic_auth / enable_oauth
     app.run()
+
+``TPU_SERVING_ROLE=gateway`` turns the App into the prefix-affinity
+front door over ``TPU_GATEWAY_REPLICAS`` (gofr_tpu_torch/gateway): it
+builds no engine, registers ``POST <TPU_GATEWAY_PATH>`` and ``GET
+/gateway/stats``, lists each replica's health client under ``services``
+in ``/.well-known/health``, starts the replica health poller in
+``run()``, and in ``stop(grace_s)`` lets its in-flight relays finish
+before it closes. A missing replica list raises, and so does a
+``TPU_MODEL`` row on a gateway App ("builds no engine").
 
 Reference: pkg/gofr/gofr.go -- route registration (gofr.go:190-207),
 RegisterService (gofr.go:49-53), Subscribe (subscriber.go:11-46) and Run
 (gofr.go:108-164): the metrics server, the default routes (health,
 alive, favicon), the HTTP server, the gRPC server, then the
-subscribers. ``run(block=False)`` and ``stop()`` make an App testable
+subscribers; the auth enablers (gofr.go:268-302) and AddHTTPService
+(gofr.go:177). ``run(block=False)`` and ``stop()`` make an App testable
 in-process; ``stop(grace_s)`` drains it, stopping the subscribers
 first.
 
@@ -26,11 +39,10 @@ no ``TPU_MODEL``/``TPU_ENABLED`` row touches no device. The tenant
 middleware scopes ``X-Tenant-Id`` (``TPU_TENANT_HEADER``) as gRPC does
 ``x-tenant-id``, canonicalised through the engine's tenancy plane when
 ``TPU_TENANTS`` configures one (``tenancy.install_async_lane(app)`` adds
-the async lane). The CLI, migrations, outbound HTTP services, the
-gateway (its rows raise at construction, as does any serving role but
-``fused``), the auth middlewares and the ``/debug`` pages other than
-``/debug/cache`` and ``/debug/vars`` (the latter reduced to the memory
-arbiter's sections) are not ported yet.
+the async lane). The CLI, migrations, the ``prefill`` and ``decode``
+serving roles (they raise at construction) and the ``/debug`` pages
+other than ``/debug/cache`` and ``/debug/vars`` (the latter reduced to
+the memory arbiter's sections) are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,11 +53,13 @@ import time
 from typing import Any, Callable
 
 from .config import EnvConfig
-from .container import Container
+from .container import Container, serving_role
 from .context import Context
-from .http.middleware import (cors_middleware, deadline_middleware,
-                              drain_middleware, inflight_middleware,
-                              logging_middleware, metrics_middleware,
+from .http.middleware import (JWKSKeyProvider, apikey_auth_middleware,
+                              basic_auth_middleware, cors_middleware,
+                              deadline_middleware, drain_middleware,
+                              inflight_middleware, logging_middleware,
+                              metrics_middleware, oauth_middleware,
                               slo_class_middleware, tenant_middleware,
                               tracer_middleware)
 from .http.request import Request
@@ -91,6 +105,20 @@ class App:
         # load balancers stop routing before the engine stops serving
         self._draining = False
         self._drain_retry_after: float | None = None
+        self._jwks_provider: JWKSKeyProvider | None = None
+
+        # the gateway serving role: its routes are registered here, so
+        # user routes may still be added beside them; a missing replica
+        # list fails construction
+        self._gateway = None
+        if serving_role(self.config) == "gateway":
+            from .gateway import install_gateway
+
+            try:
+                self._gateway = install_gateway(self)
+            except BaseException:
+                self.container.close()
+                raise
 
         # Middleware chain in the JAX App's order: the drain gate
         # outermost (a draining server rejects before any span or log
@@ -100,7 +128,8 @@ class App:
         # the tenant scope (after the class: a tenant's registry default
         # class must see the request's explicit X-SLO-Class first; the
         # plane is resolved lazily, the engine being built after this
-        # chain), CORS, Metrics.
+        # chain), CORS, Metrics; the enable_*_auth middlewares come
+        # after them, innermost.
         self.router.use(drain_middleware(lambda: self._draining,
                                          lambda: self._drain_retry_after))
         self.router.use(tracer_middleware(self.container.tracer))
@@ -163,6 +192,38 @@ class App:
 
     def delete(self, path: str, fn: HandlerFunc | None = None):
         return self._route("DELETE", path, fn)
+
+    # -- auth enablers (reference gofr.go:268-302) ---------------------------
+    def enable_basic_auth(self, users: dict[str, str] | None = None,
+                          validate: Callable[[str, str], bool] | None = None
+                          ) -> None:
+        self.router.use(basic_auth_middleware(users, validate))
+
+    def enable_apikey_auth(self, *keys: str,
+                           validate: Callable[[str], bool] | None = None
+                           ) -> None:
+        self.router.use(apikey_auth_middleware(keys, validate))
+
+    def enable_oauth(self, jwks_url: str, refresh_interval: float = 300.0,
+                     http_get=None) -> None:
+        """Bearer JWTs (RS256) checked against the keys at ``jwks_url``,
+        refreshed every ``refresh_interval`` seconds on a thread that
+        ``stop()`` halts."""
+        provider = JWKSKeyProvider(jwks_url, refresh_interval,
+                                   http_get=http_get)
+        self._jwks_provider = provider
+        self.router.use(oauth_middleware(provider))
+
+    # -- outbound services (reference gofr.go:177 AddHTTPService) -----------
+    def add_http_service(self, name: str, address: str, *options) -> None:
+        """Register ``new_http_service(address, ..., *options)`` as
+        ``ctx.get_http_service(name)``; the Container closes it."""
+        from .service import new_http_service
+
+        self.container.register_service(
+            name, new_http_service(address, self.logger,
+                                   self.container.metrics, *options,
+                                   tracer=self.container.tracer))
 
     def register_grpc_service(self, service) -> None:
         """Serve a ``grpcx.GRPCService`` on ``GRPC_PORT`` once the App
@@ -251,6 +312,9 @@ class App:
             self.grpc_port = self._grpc_server.port
         if self.subscription_manager.subscriptions:
             self.subscription_manager.start()
+        if self._gateway is not None:
+            # a constructed App that never runs polls no replica
+            self._gateway.table.start()
         self._running.set()
         if block:
             try:
@@ -268,8 +332,11 @@ class App:
         generation engine then finishes every accepted stream, and the
         in-flight HTTP requests and RPCs finish on their handler threads,
         with the listeners still up (clients receive complete streams
-        over their live connections), all within ``grace_s``; then
-        everything tears down."""
+        over their live connections), all within ``grace_s``: a
+        gateway's replica relays run inside their handler threads, so
+        they drain here too. Then everything tears down: the servers,
+        the gateway's health poller, the subscribers, the JWKS refresh
+        and the container (its service clients first)."""
         grpc = self._grpc_server
         if grace_s > 0:
             self._drain_retry_after = grace_s
@@ -298,12 +365,23 @@ class App:
                 time.sleep(0.02)
             self.logger.info({"event": "http in-flight drained",
                               "remaining": inflight()})
+            if self._gateway is not None:
+                self.logger.info({
+                    "event": "gateway drained",
+                    "clean": not any(r.inflight for r in
+                                     self._gateway.table.replicas)})
         for srv in (self._http_server, self._metrics_server):
             if srv is not None:
                 srv.stop()
         if grpc is not None:
             grpc.stop()
+        if self._gateway is not None:
+            # the health poller; the replica clients close with the
+            # container's registered services below
+            self._gateway.close()
         self.subscription_manager.stop()
+        if self._jwks_provider is not None:
+            self._jwks_provider.shutdown()
         self.container.close()
         self._running.clear()
 

@@ -1,7 +1,8 @@
 """Fault injection at the generator's, the batcher's, the memory
-arbiter's and the HTTP and gRPC servers' seams: the port's own copy of
-the part of gofr_tpu/chaos.py that the serving loop, the predict path,
-the arbiter and the App's transports use.
+arbiter's, the HTTP and gRPC servers', the service clients' and the
+gateway's seams: the port's own copy of the part of gofr_tpu/chaos.py
+that the serving loop, the predict path, the arbiter, the App's
+transports, ``service/`` and ``gateway/`` use.
 
 A ``ChaosSchedule`` holds per-seam rules (latency, injected errors, or
 both); the engine and the server call ``chaos.fire(SEAM)`` at a fixed
@@ -22,6 +23,19 @@ Seams (grep for ``chaos.fire``):
   GENERATOR_CHUNK     tpu/generator._chunk_lattice, before each mid-chunk
                       dispatch of a chunked prefill (a schedule can kill
                       chunk N of a long admission)
+  GATEWAY_PICK        gateway/router.pick, before each replica-pick
+                      decision: injected latency widens the pick/drain
+                      race; an injected error fails that pick (a typed
+                      503 to the client, never a gateway crash)
+  GATEWAY_RELAY       gateway, before each forward attempt: an injected
+                      error is that attempt's transport loss, driving
+                      the pre-first-token failover on attempt N
+                      (``every=N``)
+  GATEWAY_MIDSTREAM   gateway relay loop, before each relayed token line
+                      after the first: an injected error is that line's
+                      transport loss, driving the post-commit
+                      auto-resume after exactly N relayed tokens
+                      (``every=N, limit=1``)
   GENERATOR_STEP      tpu/generator._loop, once a loop pass before the
                       pipeline's top-up: a raised ``DeviceLost`` takes
                       the loop's recovery path
@@ -40,25 +54,32 @@ Seams (grep for ``chaos.fire``):
                       keeps serving. ``every=N`` kills allocation N
   HTTP_REQUEST        http/server._Handler._handle, as each request
                       arrives, before routing
+  SERVICE_REQUEST     service/client, before the network hop of
+                      ``HTTPService._do`` and of ``stream_generate``
   ==================  =====================================================
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import random
 import threading
 import time
 
 __all__ = [
-    "BATCHER_DISPATCH", "GENERATOR_CHUNK", "GENERATOR_MIDKILL",
+    "BATCHER_DISPATCH", "GATEWAY_MIDSTREAM", "GATEWAY_PICK",
+    "GATEWAY_RELAY", "GENERATOR_CHUNK", "GENERATOR_MIDKILL",
     "GENERATOR_PREFILL", "GENERATOR_STEP", "GRPC_STREAM", "HBM_ALLOC",
-    "HTTP_REQUEST", "SEAMS",
+    "HTTP_REQUEST", "SERVICE_REQUEST", "SEAMS",
     "ChaosSchedule", "DeviceLost", "ResourceExhausted", "Rule", "active",
     "fire", "install", "scope", "uninstall",
 ]
 
 BATCHER_DISPATCH = "batcher.dispatch"
+GATEWAY_MIDSTREAM = "gateway.midstream"
+GATEWAY_PICK = "gateway.pick"
+GATEWAY_RELAY = "gateway.relay"
 GENERATOR_CHUNK = "generator.chunk"
 GENERATOR_MIDKILL = "generator.midkill"
 GENERATOR_PREFILL = "generator.prefill"
@@ -66,10 +87,12 @@ GENERATOR_STEP = "generator.step"
 GRPC_STREAM = "grpc.stream"
 HBM_ALLOC = "hbm.alloc"
 HTTP_REQUEST = "http.request"
+SERVICE_REQUEST = "service.request"
 
-SEAMS = (BATCHER_DISPATCH, GENERATOR_CHUNK, GENERATOR_MIDKILL,
-         GENERATOR_PREFILL, GENERATOR_STEP, GRPC_STREAM, HBM_ALLOC,
-         HTTP_REQUEST)
+SEAMS = (BATCHER_DISPATCH, GATEWAY_MIDSTREAM, GATEWAY_PICK, GATEWAY_RELAY,
+         GENERATOR_CHUNK, GENERATOR_MIDKILL, GENERATOR_PREFILL,
+         GENERATOR_STEP, GRPC_STREAM, HBM_ALLOC, HTTP_REQUEST,
+         SERVICE_REQUEST)
 
 
 class DeviceLost(RuntimeError):
@@ -174,6 +197,23 @@ class ChaosSchedule:
                     return
                 self._fired[seam] = fired + 1
             raise rule._make_error()
+
+    def decisions(self, seam: str, n: int) -> list[tuple[bool, float]]:
+        """The first ``n`` decisions a seam will make: a pure replay
+        that touches no state."""
+        rule = self._rules.get(seam)
+        if rule is None:
+            return [(False, 0.0)] * n
+        return [rule.decide(self.seed, seam, i) for i in range(n)]
+
+    def digest(self, calls_per_seam: int = 256) -> str:
+        """Hex digest of the decision stream over every configured seam:
+        two schedules with the same seed and rules give the same one."""
+        h = hashlib.sha256()
+        for seam in sorted(self._rules):
+            for fire, sleep_s in self.decisions(seam, calls_per_seam):
+                h.update(f"{seam}|{int(fire)}|{sleep_s:.9f};".encode())
+        return h.hexdigest()
 
     def stats(self) -> dict:
         with self._lock:

@@ -1,11 +1,14 @@
 """Dependency container: the one object carrying every shared resource
 (the port's own copy of the part of gofr_tpu/container.py the App
 uses): the logger, the metrics registry, the tracer, the in-flight
-request registry, the Redis client (``REDIS_HOST``/``REDIS_PORT``, as
-``redis`` and ``ctx.redis``), the pub/sub client (``PUBSUB_BACKEND``:
-MEM, KAFKA, GOOGLE or MQTT, behind ``get_publisher``/``get_subscriber``)
-and the engine as ``tpu`` (a BERT, ViT or Llama engine from the
-``TPU_*`` rows), with ``health()`` and ``close()``.
+request registry, the registered outbound HTTP service clients
+(``register_service``/``get_http_service``, listed under ``services``
+in ``health()`` and closed first by ``close()``), the Redis client
+(``REDIS_HOST``/``REDIS_PORT``, as ``redis`` and ``ctx.redis``), the
+pub/sub client (``PUBSUB_BACKEND``: MEM, KAFKA, GOOGLE or MQTT, behind
+``get_publisher``/``get_subscriber``) and the engine as ``tpu`` (a
+BERT, ViT or Llama engine from the ``TPU_*`` rows), with ``health()``
+and ``close()``.
 
 Two differences from the JAX container are deliberate. There a failed
 engine construction, or a Redis or pub/sub client that cannot be
@@ -13,11 +16,14 @@ built, is logged and the App goes on with ``tpu``, ``redis`` or
 ``pubsub`` None; here the error propagates (a client's naming its row
 or backend), so an App asked for the card on a machine without one, or
 for a server it cannot reach, raises instead of serving without it
-(the port's rule that nothing falls back on its own). The rows the port
-does not serve yet raise with their names before anything is built:
-the datasources (SQL, the remote log level), a serving role other than
-``fused`` and the gateway's rows, and the multi-host and fleet rows,
-whether or not the App builds an engine. The kv-cache's shared tier
+(the port's rule that nothing falls back on its own). The same holds
+for ``TPU_MODEL`` on a gateway App (``TPU_SERVING_ROLE=gateway``): the
+JAX container logs the engine's "builds no engine" error and serves the
+gateway without one; here it raises. The rows the port does not serve
+yet raise with their names before anything is built: the datasources
+(SQL, the remote log level), a serving role other than ``fused`` and
+``gateway``, and the multi-host and fleet rows, whether or not the App
+builds an engine. The kv-cache's shared tier
 (``TPU_KVCACHE_REDIS``) keeps a Redis client of its own.
 """
 
@@ -38,23 +44,24 @@ from .observe import RequestRegistry
 UNPORTED_ROWS = ("DB_HOST", "DB_DIALECT", "REMOTE_LOG_URL",
                  "TPU_OBS_PEERS", "TPU_TIMELINE_EVENTS", "TPU_COORDINATOR",
                  "TPU_NUM_PROCESSES")
-# the gateway serving role's rows (gofr_tpu/gateway), every one refused
-GATEWAY_PREFIX = "TPU_GATEWAY_"
+# the serving roles the port serves: the fused replica and the gateway
+# (prefill and decode wait for the P/D split)
+SERVING_ROLES = ("fused", "gateway")
+
+
+def serving_role(cfg) -> str:
+    """``TPU_SERVING_ROLE``, lower-cased; unset is ``fused``."""
+    return (cfg.get("TPU_SERVING_ROLE") or "").strip().lower() or "fused"
 
 
 def unported_rows(cfg) -> list[str]:
     """The rows of ``cfg`` the port refuses, in a stable order:
-    UNPORTED_ROWS, ``TPU_SERVING_ROLE`` other than ``fused``, then every
-    ``TPU_GATEWAY_*`` row."""
-    def is_set(row: str) -> bool:
-        return (cfg.get(row) or "").strip() != ""
-
-    out = [row for row in UNPORTED_ROWS if is_set(row)]
-    if is_set("TPU_SERVING_ROLE") and \
-            cfg.get("TPU_SERVING_ROLE").strip().lower() != "fused":
+    UNPORTED_ROWS, then ``TPU_SERVING_ROLE`` other than ``fused`` and
+    ``gateway``."""
+    out = [row for row in UNPORTED_ROWS
+           if (cfg.get(row) or "").strip() != ""]
+    if serving_role(cfg) not in SERVING_ROLES:
         out.append("TPU_SERVING_ROLE")
-    out += sorted(row for row in cfg.keys()
-                  if row.startswith(GATEWAY_PREFIX) and is_set(row))
     return out
 
 
@@ -79,6 +86,7 @@ class Container:
         self.redis = None
         self.pubsub = None
         self.tpu = None
+        self.services: dict[str, Any] = {}
         cfg = self.config
         try:
             host = (cfg.get("REDIS_HOST") or "").strip()
@@ -113,6 +121,13 @@ class Container:
             self.close()   # the clients built before the failure
             raise
 
+    # -- outbound HTTP services (App.add_http_service, the gateway) ---------
+    def register_service(self, name: str, svc: Any) -> None:
+        self.services[name] = svc
+
+    def get_http_service(self, name: str) -> Any:
+        return self.services.get(name)
+
     def get_publisher(self):
         return self.pubsub
 
@@ -136,9 +151,28 @@ class Container:
                 out[name] = {"status": STATUS_DOWN,
                              "details": {"error": repr(e)}}
                 out["status"] = STATUS_DOWN
+        # a service's health is listed, not folded into the App's own
+        # status: a peer that is down does not make this process down
+        services = {}
+        for name, svc in self.services.items():
+            try:
+                services[name] = svc.health_check().to_dict()
+            except Exception as e:
+                services[name] = {"status": STATUS_DOWN,
+                                  "details": {"error": repr(e)}}
+        if services:
+            out["services"] = services
         return out
 
     def close(self) -> None:
+        # the service clients first: a circuit breaker whose peer is
+        # already gone keeps its recovery-probe thread alive until its
+        # close() stops it, which would otherwise outlive the App
+        for svc in self.services.values():
+            try:
+                svc.close()
+            except Exception:  # noqa: BLE001 — the rest still close
+                pass
         for client in (self.redis, self.pubsub):
             if client is not None:
                 try:

@@ -4,7 +4,9 @@
 A handler receives exactly one of these: ``ctx.bind()``,
 ``ctx.param(...)``, ``ctx.header(...)`` read the request,
 ``ctx.stream(...)`` writes a live chunked response, ``ctx.trace(...)``
-opens a span, ``ctx.tpu`` is the engine, ``ctx.get_publisher()`` the
+opens a span, ``ctx.tpu`` is the engine,
+``ctx.get_http_service(name)`` an outbound service client,
+``ctx.get_publisher()`` the
 pub/sub client (a subscriber's handler gets a Context whose request is
 the consumed ``pubsub.Message``), ``ctx.redis`` the Redis client
 (``REDIS_HOST``), and ``ctx.deadline``/``ctx.slo_class``/``ctx.tenant``
@@ -41,6 +43,12 @@ class Context:
     @property
     def config(self):
         return self.container.config
+
+    def get_http_service(self, name: str):
+        """The outbound service client registered under ``name``
+        (``App.add_http_service``), or None:
+        ``ctx.get_http_service("llm").post("/generate", body=...)``."""
+        return self.container.get_http_service(name)
 
     def get_publisher(self):
         """The container's pub/sub client (``PUBSUB_BACKEND``), or None:

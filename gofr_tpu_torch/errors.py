@@ -1,5 +1,6 @@
 """The port's error hierarchy (its own copy of the part of
-gofr_tpu/errors.py that the App raises or maps). An error carries its
+gofr_tpu/errors.py that the App, the service clients and the gateway
+raise or map). An error carries its
 HTTP status: any handler may raise ``HTTPError`` (or a subclass) with an
 explicit ``status_code``; the responder answers with it and with the
 error's ``headers`` (a shed's ``Retry-After``), and an unexpected
@@ -15,6 +16,17 @@ def format_retry_after(seconds: float) -> str:
     a 90.4 s estimate never advises 90, and at least 1, because 0
     invites an instant retry storm."""
     return str(max(1, math.ceil(seconds)))
+
+
+def parse_retry_after(value: str | None) -> float | None:
+    """The Retry-After reader of the retry decorator, the gateway relay
+    and the replica table: delta-seconds to a non-negative float;
+    ``None`` for absent, garbage, or the HTTP-date form (callers fall
+    back to their own backoff)."""
+    try:
+        return max(0.0, float(value)) if value else None
+    except (TypeError, ValueError):
+        return None
 
 
 class GofrError(Exception):
@@ -137,6 +149,16 @@ class ConnectionLost(HTTPError, EOFError):
 
     def __init__(self, message: str = "connection lost"):
         super().__init__(message)
+
+
+class CircuitOpenError(ServiceUnavailable):
+    """Raised by the client-side circuit breaker while it is open: the
+    call fails at once instead of waiting on a peer known to be down."""
+
+    def __init__(self, address: str = "") -> None:
+        suffix = f" for {address}" if address else ""
+        super().__init__(f"circuit breaker is open{suffix}")
+        self.address = address
 
 
 def status_from_error(err: BaseException | None) -> int:

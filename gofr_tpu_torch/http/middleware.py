@@ -1,8 +1,8 @@
 """HTTP middleware chain: drain gate, tracer, in-flight registry,
-logging+recovery, deadline, SLO-class and tenant scopes, CORS, metrics
-(the port's own copy of gofr_tpu/http/middleware.py, over the port's
-``resilience`` and ``tenancy`` scopes and ``tracing``; the auth
-middlewares are not ported).
+logging+recovery, deadline, SLO-class and tenant scopes, CORS, metrics,
+and the three auth schemes (the port's own copy of
+gofr_tpu/http/middleware.py, over the port's ``resilience`` and
+``tenancy`` scopes and ``tracing``).
 
 Reference: pkg/gofr/http/middleware/ —
   - tracer.go:14-30   extract W3C traceparent, start span "METHOD /path"
@@ -11,15 +11,20 @@ Reference: pkg/gofr/http/middleware/ —
                       recovery -> 500 JSON
   - cors.go:5-19      Access-Control-Allow-* headers, short-circuit OPTIONS
   - metrics.go:20-41  app_http_response histogram labeled path/method/status
+  - basic_auth.go, apikey_auth.go, oauth.go — the three auth schemes
 """
 
 from __future__ import annotations
 
+import base64
+import hmac
+import json
+import threading
 import time
-from typing import Callable
+from typing import Callable, Iterable
 
 from .. import tracing
-from ..errors import format_retry_after
+from ..errors import HTTPError, format_retry_after
 from ..resilience import (Deadline, deadline_scope, parse_http_timeout,
                           parse_slo_class, slo_scope)
 from ..tenancy.registry import tenant_scope
@@ -252,5 +257,169 @@ def metrics_middleware(metrics) -> Middleware:
                     exemplar=span.trace_id if span is not None else None,
                     path=path, method=req.method, status=str(w.status),
                 )
+        return wrapped
+    return mw
+
+
+def _unauthorized(w: ResponseWriter, message: str = "Unauthorized") -> None:
+    w.status = 401
+    w.set_header("Content-Type", "application/json")
+    w.write(json.dumps({"error": {"message": message}}).encode())
+
+
+_WELL_KNOWN_SKIP = ("/.well-known/health", "/.well-known/alive", "/metrics")
+
+
+def basic_auth_middleware(users: dict[str, str] | None = None,
+                          validate: Callable[[str, str], bool] | None = None) -> Middleware:
+    """reference middleware/basic_auth.go:16-58 — map of user->password or a
+    validation function."""
+    def check(user: str, password: str) -> bool:
+        if validate is not None:
+            return validate(user, password)
+        expected = (users or {}).get(user)
+        # compare bytes: compare_digest raises TypeError on non-ASCII str
+        return expected is not None and hmac.compare_digest(
+            expected.encode(), password.encode())
+
+    def mw(next_h: Handler) -> Handler:
+        def wrapped(req: Request, w: ResponseWriter) -> None:
+            if req.path in _WELL_KNOWN_SKIP:
+                return next_h(req, w)
+            header = req.header("Authorization")
+            if not header.startswith("Basic "):
+                return _unauthorized(w)
+            try:
+                decoded = base64.b64decode(header[6:]).decode()
+                user, _, password = decoded.partition(":")
+            except Exception:
+                return _unauthorized(w, "invalid authorization header")
+            if not check(user, password):
+                return _unauthorized(w)
+            next_h(req, w)
+        return wrapped
+    return mw
+
+
+def apikey_auth_middleware(keys: Iterable[str] = (),
+                           validate: Callable[[str], bool] | None = None) -> Middleware:
+    """reference middleware/apikey_auth.go:7-41 — X-API-KEY header."""
+    keyset = set(keys)
+
+    def mw(next_h: Handler) -> Handler:
+        def wrapped(req: Request, w: ResponseWriter) -> None:
+            if req.path in _WELL_KNOWN_SKIP:
+                return next_h(req, w)
+            key = req.header("X-API-KEY")
+            if not key:
+                return _unauthorized(w)
+            ok = validate(key) if validate is not None else key in keyset
+            if not ok:
+                return _unauthorized(w)
+            next_h(req, w)
+        return wrapped
+    return mw
+
+
+class JWKSKeyProvider:
+    """Background-refreshed JWKS key cache
+    (reference middleware/oauth.go:47-84: refresh goroutine + JWKS parsing
+    :126-180). Fetching uses urllib; RSA verification uses ``cryptography``
+    when available and falls back to rejecting RS256 otherwise."""
+
+    def __init__(self, jwks_url: str, refresh_interval: float = 300.0, http_get=None):
+        self.jwks_url = jwks_url
+        self.refresh_interval = refresh_interval
+        self._keys: dict[str, dict] = {}
+        self._lock = threading.Lock()
+        self._http_get = http_get or self._default_get
+        self._stop = threading.Event()
+        self.refresh()
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="jwks-refresh")
+        self._thread.start()
+
+    @staticmethod
+    def _default_get(url: str) -> bytes:
+        import urllib.request
+
+        with urllib.request.urlopen(url, timeout=5) as r:
+            return r.read()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.refresh_interval):
+            self.refresh()
+
+    def refresh(self) -> None:
+        try:
+            data = json.loads(self._http_get(self.jwks_url))
+            keys = {k.get("kid", ""): k for k in data.get("keys", [])}
+            with self._lock:
+                self._keys = keys
+        except Exception:
+            pass
+
+    def get(self, kid: str) -> dict | None:
+        with self._lock:
+            return self._keys.get(kid)
+
+    def shutdown(self) -> None:
+        self._stop.set()
+
+
+def _b64url_decode(s: str) -> bytes:
+    return base64.urlsafe_b64decode(s + "=" * (-len(s) % 4))
+
+
+def verify_jwt(token: str, key_provider: JWKSKeyProvider) -> dict:
+    """Validate an RS256 JWT against JWKS keys; returns claims.
+    Reference: middleware/oauth.go:86-123."""
+    try:
+        header_b64, payload_b64, sig_b64 = token.split(".")
+        header = json.loads(_b64url_decode(header_b64))
+        payload = json.loads(_b64url_decode(payload_b64))
+        signature = _b64url_decode(sig_b64)
+    except Exception as e:
+        raise HTTPError("invalid token", 401) from e
+
+    if header.get("alg") != "RS256":
+        raise HTTPError("unsupported signing algorithm", 401)
+    jwk = key_provider.get(header.get("kid", ""))
+    if jwk is None:
+        raise HTTPError("unknown signing key", 401)
+
+    try:
+        from cryptography.hazmat.primitives.asymmetric import padding, rsa
+        from cryptography.hazmat.primitives import hashes
+    except ImportError as e:  # pragma: no cover - env-dependent
+        raise HTTPError("RS256 verification unavailable", 401) from e
+
+    n = int.from_bytes(_b64url_decode(jwk["n"]), "big")
+    e = int.from_bytes(_b64url_decode(jwk["e"]), "big")
+    pub = rsa.RSAPublicNumbers(e, n).public_key()
+    try:
+        pub.verify(signature, f"{header_b64}.{payload_b64}".encode(),
+                   padding.PKCS1v15(), hashes.SHA256())
+    except Exception as ex:
+        raise HTTPError("invalid token signature", 401) from ex
+
+    exp = payload.get("exp")
+    if exp is not None and time.time() > float(exp):
+        raise HTTPError("token expired", 401)
+    return payload
+
+
+def oauth_middleware(key_provider: JWKSKeyProvider) -> Middleware:
+    def mw(next_h: Handler) -> Handler:
+        def wrapped(req: Request, w: ResponseWriter) -> None:
+            if req.path in _WELL_KNOWN_SKIP:
+                return next_h(req, w)
+            header = req.header("Authorization")
+            if not header.startswith("Bearer "):
+                return _unauthorized(w)
+            try:
+                req.claims = verify_jwt(header[7:], key_provider)
+            except HTTPError as e:
+                return _unauthorized(w, e.message)
+            next_h(req, w)
         return wrapped
     return mw

@@ -37,6 +37,7 @@ class Request:
         self.body = body
         self.path_params: dict[str, str] = dict(path_params or {})
         self.remote_addr = remote_addr
+        self.claims: dict[str, Any] | None = None  # set by OAuth middleware
 
     # -- framework Request interface ---------------------------------------
     def param(self, key: str, default: str = "") -> str:
@@ -83,3 +84,7 @@ class Request:
         if callable(into):
             return into(data)
         raise BadRequest(f"cannot bind into {into!r}")
+
+    def get_claims(self) -> dict[str, Any]:
+        """JWT claims the OAuth middleware placed (empty without one)."""
+        return self.claims or {}

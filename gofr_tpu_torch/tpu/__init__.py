@@ -115,9 +115,15 @@ Rows read:
   TPU_TENANT_CHECKPOINT_EVERY  the async lane's resume-checkpoint cadence
                     in tokens (default 8)
 
+  TPU_SERVING_ROLE  fused (the default) or gateway; a gateway App
+                    (gofr_tpu_torch/gateway) builds no engine, so a
+                    config naming both raises "builds no engine" here;
+                    prefill and decode raise by name
+
 Every other ``TPU_*`` row of the JAX package names a feature this port
 does not serve yet; a set one raises with its name rather than being
-silently ignored.
+silently ignored (the gateway reads ``TPU_GATEWAY_*``, ``TPU_RESUME``
+and ``TPU_RESUME_MAX`` itself).
 """
 
 from __future__ import annotations
@@ -175,12 +181,22 @@ def _csv_ints(val: str | None, default: tuple[int, ...]) -> tuple[int, ...]:
 
 
 def _check_rows(cfg) -> None:
-    def is_set(row: str) -> bool:
-        return (cfg.get(row) or "").strip() != ""
+    from ..container import SERVING_ROLES, serving_role
 
-    rejected = [row for row in UNPORTED_ROWS if is_set(row)]
-    if is_set("TPU_SERVING_ROLE") and \
-            cfg.get("TPU_SERVING_ROLE").strip().lower() != "fused":
+    role = serving_role(cfg)
+    if role == "gateway":
+        # the gateway role (gofr_tpu_torch/gateway) is an App mode, not an
+        # engine mode: it fronts replicas and holds no model. A config
+        # naming both is two deployments in one file: refuse before
+        # building anything rather than guess which one was meant
+        raise ValueError(
+            "TPU_SERVING_ROLE=gateway builds no engine (the gateway "
+            "routes to TPU_GATEWAY_REPLICAS); unset "
+            f"TPU_MODEL={cfg.get('TPU_MODEL')!r} on the gateway "
+            "process, or drop the gateway role on this serving replica")
+    rejected = [row for row in UNPORTED_ROWS
+                if (cfg.get(row) or "").strip() != ""]
+    if role not in SERVING_ROLES:
         rejected.append("TPU_SERVING_ROLE")
     if rejected:
         raise ValueError(f"config rows not honoured by gofr_tpu_torch yet: "

@@ -33,7 +33,9 @@ bind the stacks' storage); repeated swaps and streams keep the replays
 equal to the eager block, and no replay writes memory the allocator can
 hand to another tensor; under a tenancy plane routing three tenants to
 three adapters, a replay after a swap and a tenant's stream equals the
-eager block too. They
+eager block too. A port gateway App over two replica Apps on the card
+routes a request to its owner and resumes a cut stream on the other
+replica. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1196,6 +1198,77 @@ def test_an_app_on_the_card_streams_generate_and_frees_a_cancelled_chat(
     finally:
         ch.close()
         app.stop()
+
+
+def test_a_gateway_over_two_replicas_on_the_card(gen, monkeypatch):
+    """A port gateway App (``TPU_SERVING_ROLE=gateway``, no engine) over
+    two ``gofr_tpu_torch.App`` replicas on "cuda" (a small bf16 Llama
+    from seed 0 each, POST /generate): a greedy request through the
+    gateway streams what its owner answers directly, and a relay cut
+    after 5 tokens (the GATEWAY_MIDSTREAM seam) is resumed on the other
+    replica: one stream, cursors without a gap, equal to the first 5
+    tokens plus that replica's own answer to the continuation."""
+    import json
+    import urllib.request
+
+    from gofr_tpu_torch import App, chaos
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.serving import install_generate
+    from gofr_tpu_torch.tpu.kvcache import first_block_hash
+
+    monkeypatch.setitem(LLAMA_CONFIGS, "llama-small", SMALL)
+    rows = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "WARN",
+            "TPU_MODEL": "llama-small", "TPU_SLOTS": "2",
+            "TPU_MAX_SEQ": "256", "TPU_SEQ_BUCKETS": "16,32,64",
+            "TPU_KVCACHE_BLOCK": "16"}
+    reps, gw = [], None
+
+    def post(port, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps(body).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return [json.loads(x) for x in r.read().splitlines() if x]
+
+    try:
+        for i in range(2):
+            app = App(MapConfig(dict(rows, APP_NAME=f"replica-{i}")))
+            install_generate(app)
+            app.run(block=False)
+            reps.append(app)
+        assert all(a.container.tpu.generator.device.type == "cuda"
+                   for a in reps)
+        gw = App(MapConfig({
+            "HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "WARN",
+            "TPU_SERVING_ROLE": "gateway", "TPU_GATEWAY_BLOCK": "16",
+            "TPU_GATEWAY_REPLICAS": ",".join(
+                f"127.0.0.1:{a.http_port}" for a in reps)}))
+        gw.run(block=False)
+        assert gw.container.tpu is None
+        prompt = [int(x) for x in torch.randint(
+            1, SMALL.vocab_size, (40,), generator=gen, device="cuda")]
+        body = {"tokens": prompt, "max_new": 16}
+        owner = gw._gateway.router.ring.order(first_block_hash(prompt, 16))
+        direct = post(reps[owner[0]].http_port, body)
+        assert [ln["token"] for ln in post(gw.http_port, body)] == \
+            [ln["token"] for ln in direct]
+        sched = chaos.ChaosSchedule(seed=0).on(
+            chaos.GATEWAY_MIDSTREAM, error=RuntimeError, every=5, limit=1)
+        with chaos.scope(sched):
+            lines = post(gw.http_port, body)
+        assert not any("error" in ln for ln in lines)
+        assert [ln["cursor"] for ln in lines] == list(range(16))
+        toks = [ln["token"] for ln in lines]
+        cont = post(reps[owner[1]].http_port, dict(
+            body, resume_from=5, emitted=toks[:5]))
+        assert toks == toks[:5] + [ln["token"] for ln in cont]
+        assert gw._gateway.resumes == 1
+    finally:
+        if gw is not None:
+            gw.stop()
+        for app in reps:
+            app.stop()
 
 
 # -- the prefix tiers and the memory arbiter on the card ----------------------

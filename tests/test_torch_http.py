@@ -2,15 +2,16 @@
 .tracing, .metrics) against the JAX package's: the cases of
 tests/test_http.py (request, router, responder envelopes, logging
 recovery, CORS) and of tests/test_app.py (routes and defaults, the
-metrics scrape, a handler exception, the correlation id), each one test
-body run on both packages, with the same assertions. The auth cases stay
-with the JAX package until the port has its auth middlewares.
+metrics scrape, a handler exception, the correlation id, and the auth
+middlewares: basic, API key, and basic auth on a running App), each one
+test body run on both packages, with the same assertions.
 
 Beside them: the block-chain hashes of ``tpu.kvcache`` bit-equal to
 JAX's, the tracer's traceparent round trip, the error statuses, the
 ambient deadline and class a handler sees, and the server's chaos seam.
 """
 
+import base64
 import dataclasses
 import io
 import json
@@ -191,6 +192,37 @@ def test_cors_short_circuits_options(pkg):
     assert called
 
 
+def test_basic_auth(pkg):
+    ok = []
+    h = pkg.mw.basic_auth_middleware({"admin": "secret"})(
+        lambda req, w: ok.append(1))
+    w = pkg.ResponseWriter()
+    h(pkg.Request("GET", "/x"), w)
+    assert w.status == 401 and not ok
+
+    creds = base64.b64encode(b"admin:secret").decode()
+    w = pkg.ResponseWriter()
+    h(pkg.Request("GET", "/x", headers={"Authorization": f"Basic {creds}"}),
+      w)
+    assert ok
+
+    bad = base64.b64encode(b"admin:wrong").decode()
+    w = pkg.ResponseWriter()
+    h(pkg.Request("GET", "/x", headers={"Authorization": f"Basic {bad}"}), w)
+    assert w.status == 401
+
+
+def test_apikey_auth(pkg):
+    ok = []
+    h = pkg.mw.apikey_auth_middleware(["k1"])(lambda req, w: ok.append(1))
+    w = pkg.ResponseWriter()
+    h(pkg.Request("GET", "/x", headers={"X-API-KEY": "k1"}), w)
+    assert ok
+    w = pkg.ResponseWriter()
+    h(pkg.Request("GET", "/x", headers={"X-API-KEY": "nope"}), w)
+    assert w.status == 401
+
+
 # -- tests/test_app.py's cases ----------------------------------------------
 
 def test_app_serves_routes_and_defaults(app, pkg):
@@ -260,6 +292,20 @@ def test_handler_exception_recovered(app):
     status, body = _get(app.http_port, "/boom")
     assert status == 500
     assert "error" in json.loads(body)
+
+
+def test_basic_auth_enabled_app(app):
+    @app.get("/secure")
+    def secure(ctx):
+        return "top-secret"
+
+    app.enable_basic_auth({"u": "p"})
+    app.run(block=False)
+    status, _ = _get(app.http_port, "/secure")
+    assert status == 401
+    # health stays open (reference middleware skips well-known routes)
+    status, _ = _get(app.http_port, "/.well-known/alive")
+    assert status == 200
 
 
 def test_correlation_id_and_traceparent(app):

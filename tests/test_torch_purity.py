@@ -49,7 +49,13 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "datasource/pubsub/mem.py", "datasource/pubsub/kafka.py",
                 "datasource/pubsub/google.py", "datasource/pubsub/mqtt.py",
                 "datasource/redisclient.py", "tenancy/__init__.py",
-                "tenancy/registry.py", "tenancy/fair.py", "tenancy/lane.py"):
+                "tenancy/registry.py", "tenancy/fair.py", "tenancy/lane.py",
+                "service/__init__.py", "service/wrap.py", "service/client.py",
+                "service/auth.py", "service/circuit_breaker.py",
+                "service/health.py", "service/reconnect.py",
+                "service/retry.py", "gateway/__init__.py",
+                "gateway/table.py", "gateway/router.py",
+                "gateway/relay.py"):
         assert PORT / own in files
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))

@@ -1,14 +1,16 @@
-"""Rows the port's App refuses by name before anything starts, held
-against what the JAX App does with the same rows.
+"""The serving-role and gateway rows on both packages' Apps, and the
+rows the port's App refuses by name before anything starts.
 
-The JAX App turns ``TPU_SERVING_ROLE=gateway`` into the prefix-affinity
-front door over ``TPU_GATEWAY_REPLICAS``, or raises when the replica
-list is missing (gofr_tpu/app.py). The port has no gateway yet: its App
-raises naming ``TPU_SERVING_ROLE``, with or without a ``TPU_MODEL`` row
-(an App that built with no engine and no route would answer every
-``POST /generate`` with 404). Every ``TPU_GATEWAY_*`` row, and the
-fleet, timeline and multi-host rows the port reads nowhere, raise the
-same way; ``fused``, the JAX default role, builds.
+``TPU_SERVING_ROLE=gateway`` turns either App into the prefix-affinity
+front door over ``TPU_GATEWAY_REPLICAS`` (gofr_tpu/gateway,
+gofr_tpu_torch/gateway), or raises when the replica list is missing;
+each ``TPU_GATEWAY_*`` row reads the same on both. With a ``TPU_MODEL``
+row beside the gateway role the JAX App logs the engine's "builds no
+engine" error and serves the gateway without an engine, where the
+port's raises it (the port's rule that nothing falls back on its own).
+The fleet, timeline and multi-host rows the port reads nowhere, and the
+``prefill`` role, raise by name; ``fused``, the JAX default role,
+builds.
 """
 
 import pytest
@@ -26,26 +28,86 @@ def _port_app(rows):
     return gofr_tpu_torch.App(MapConfig(dict(BASE, **rows)), device="cpu")
 
 
+def _jax_app(rows):
+    return gofr_tpu.App(JMapConfig(dict(BASE, **rows)))
+
+
+def _reading(app) -> dict:
+    """What a gateway App made of its rows."""
+    gw = app._gateway
+    return {"path": gw.path, "block": gw.block,
+            "long_prefix": gw.router.long_prefix,
+            "vnodes": len(gw.router.ring._hashes) // len(gw.table),
+            "replicas": [r.address for r in gw.table.replicas],
+            "budget": (gw.budget.ratio, gw.budget.burst),
+            "timeouts": (gw.connect_timeout_s, gw.stream_timeout_s),
+            "resume": (gw.resume, gw.resume_max),
+            "poll_s": gw.table.poll_interval_s,
+            "routes": sorted((r.method, r.path)
+                             for r in app.router.routes),
+            "services": sorted(app.container.services)}
+
+
+# The two tests below keep the names they had while the port refused
+# the gateway role and its rows; their cases now hold the two packages'
+# gateway Apps alike.
+
 @pytest.mark.parametrize("model", [None, "tiny"])
 def test_a_gateway_role_installs_the_jax_gateway_and_is_refused_by_the_port(
         model):
     rows = {"TPU_SERVING_ROLE": "gateway"}
-    if model is not None:
-        rows["TPU_MODEL"] = model
-    # JAX: no replica list raises; with one, the gateway's route is up
+    # no replica list raises on both
     with pytest.raises(ValueError, match="TPU_GATEWAY_REPLICAS"):
-        gofr_tpu.App(JMapConfig(dict(BASE, TPU_SERVING_ROLE="gateway")))
-    japp = gofr_tpu.App(JMapConfig(dict(BASE, TPU_SERVING_ROLE="gateway",
-                                        TPU_GATEWAY_REPLICAS=REPLICAS)))
+        _jax_app(rows)
+    with pytest.raises(ValueError, match="TPU_GATEWAY_REPLICAS"):
+        _port_app(rows)
+    if model is not None:
+        # a model row beside the role: the port raises the engine's
+        # error, JAX logs it and serves the gateway with no engine
+        with pytest.raises(ValueError, match="builds no engine"):
+            _port_app(dict(rows, TPU_MODEL=model,
+                           TPU_GATEWAY_REPLICAS=REPLICAS))
+    japp = _jax_app(dict(rows, TPU_GATEWAY_REPLICAS=REPLICAS,
+                         **({"TPU_MODEL": model} if model else {})))
+    papp = _port_app(dict(rows, TPU_GATEWAY_REPLICAS=REPLICAS))
     try:
-        assert japp._gateway is not None and japp._http_registered
-        assert japp._gateway.path == "/generate"
+        for app in (japp, papp):
+            assert app._gateway is not None and app._http_registered
+            assert app._gateway.path == "/generate"
+            assert app.container.tpu is None
+        assert _reading(papp) == _reading(japp)
+        assert _reading(papp)["replicas"] == REPLICAS.split(",")
+        assert ("POST", "/generate") in _reading(papp)["routes"]
+        assert ("GET", "/gateway/stats") in _reading(papp)["routes"]
+        assert _reading(papp)["services"] == ["gateway-replica-0",
+                                              "gateway-replica-1"]
     finally:
         japp.stop()
-    with pytest.raises(ValueError, match="TPU_SERVING_ROLE"):
-        _port_app(rows)
-    with pytest.raises(ValueError, match="TPU_SERVING_ROLE"):
-        _port_app(dict(rows, TPU_GATEWAY_REPLICAS=REPLICAS))
+        papp.stop()
+
+
+def _gateway_row_reads_alike(row, value, model):
+    """A ``TPU_GATEWAY_*`` row reads the same on both gateway Apps; with
+    a model row the port raises "builds no engine" where JAX logs it and
+    builds its gateway with no engine."""
+    rows = {"TPU_SERVING_ROLE": "gateway", "TPU_GATEWAY_REPLICAS": REPLICAS,
+            row: value}
+    if model is not None:
+        with pytest.raises(ValueError, match="builds no engine"):
+            _port_app(dict(rows, TPU_MODEL=model))
+    japp = _jax_app(dict(rows, **({"TPU_MODEL": model} if model else {})))
+    papp = _port_app(rows)
+    try:
+        assert japp.container.tpu is None and japp._gateway is not None
+        key, want = {"TPU_GATEWAY_REPLICAS": ("replicas", value.split(",")),
+                     "TPU_GATEWAY_PATH": ("path", value),
+                     "TPU_GATEWAY_BLOCK": ("block", 32),
+                     "TPU_GATEWAY_VNODES": ("vnodes", 16)}[row]
+        assert _reading(papp)[key] == want
+        assert _reading(papp) == _reading(japp)
+    finally:
+        japp.stop()
+        papp.stop()
 
 
 @pytest.mark.parametrize("row,value", [
@@ -62,6 +124,9 @@ def test_a_gateway_role_installs_the_jax_gateway_and_is_refused_by_the_port(
 @pytest.mark.parametrize("model", [None, "tiny"])
 def test_the_port_refuses_each_row_it_reads_nowhere_by_name(row, value,
                                                             model):
+    if row.startswith("TPU_GATEWAY_"):
+        _gateway_row_reads_alike(row, value, model)
+        return
     rows = {row: value}
     if model is not None:
         rows["TPU_MODEL"] = model
