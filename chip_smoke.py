@@ -275,11 +275,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``stop(60)`` of replica A with 8 live streams through the gateway:
      every stream complete, new requests served by B; K1 32 a bucket
      admission and K2 32 a decode step over the three replica engines;
+  5n. (phase ``pd``) disaggregated prefill/decode serving: two
+     ``gofr_tpu_torch.App``s of Llama-3-8B at phase 5's rows (full width
+     and depth, seed-0 weights each, POST /generate), P with
+     ``TPU_SERVING_ROLE=prefill`` (``TPU_PD_BLOCK=16``,
+     ``TPU_RESUME_WAIT_S=60``) shipping int8 prompt KV to D, a
+     contiguous ``decode`` worker on a free loopback port: both roles in
+     their health, a HELLO with another model's fingerprint refused; 8
+     prompts of 17-500 tokens (bucket admissions on P) and 2 of 700 and
+     1500 (the lattice on P, shipped mid-chunk), 32 new tokens, two
+     seeded sampled, to P one at a time and as a burst of 10, each equal
+     to the same request on D's own (fused) POST /generate, with TTFT,
+     the handoff gap, ``kv_transfer_s``, bytes and frames shipped, the
+     install's device time (its copies alone, on a stream of their own)
+     and the loop's stall in the ship window; the typed faults after the
+     handoff (a frame torn at the PD_INGEST seam:
+     502; the ``pd-ingest`` lease killed at the HBM_ALLOC seam: a 429
+     line after token 0; a deadline that ends during D's decode: a 504
+     line, counted post-handoff on D), each failing one request only; a
+     64-token greedy stream whose decode worker is stopped after token
+     16 and re-handed off onto a paged decode worker (129 blocks of 128)
+     started on the same address: one stream, equal to the tokens before
+     the re-handoff plus that worker's own ``continue_from`` answer; the
+     burst again through it, each stream equal to its fused answer; K1
+     32 a bucket admission (P's, the re-handoff's included, and D's and
+     Dp's fused references), K2 32 a decode step of D, K3 32 a decode
+     step of Dp, none on P;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
-     5's, the score run's and phases grpc's, tiers', lora's, tenancy's
-     and gateway's; flash_decode's phase 5's and phases grpc's, tiers',
-     lora's, tenancy's and gateway's; paged_decode's phase paged's and
-     lora's),
+     5's, the score run's and phases grpc's, tiers', lora's, tenancy's,
+     gateway's and pd's; flash_decode's phase 5's and phases grpc's,
+     tiers', lora's, tenancy's, gateway's and pd's; paged_decode's phase
+     paged's, lora's and pd's),
      then the card line, then the ``{"ok": true, "device": {...}}`` line
      last.
 
@@ -2681,7 +2707,8 @@ def phase_slo(card: str) -> None:
     require(all(code == 429 and "Retry-After" in h
                 for _, _, code, h in sheds), f"sheds {sheds[:3]}")
     require(stats["expired"] == {"pre-queue": 0, "queue": SLO_LATE,
-                                 "mid-prefill": 1, "mid-decode": 1},
+                                 "mid-prefill": 1, "mid-decode": 1,
+                                 "post-handoff": 0},
             f"expiries by where {stats['expired']}")
     require(all(fates[f"late{i}"][2][:3] == ("DeadlineExceeded", 0, "queue")
                 for i in range(SLO_LATE)),
@@ -5797,10 +5824,11 @@ def _hit_counter(app) -> dict:
 
 
 def _timed_generate(port: int, body: dict, headers=None,
-                    on_first=None) -> dict:
+                    on_first=None, on_line=None) -> dict:
     """POST /generate over its own connection: status, headers, the
     ndjson lines and the client's clock at the send and at each line;
-    ``on_first()`` is called when the first line arrives."""
+    ``on_first()`` is called when the first line arrives, ``on_line(n)``
+    after the n-th."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port,
@@ -5823,6 +5851,8 @@ def _timed_generate(port: int, body: dict, headers=None,
                 out["lines"].append(json.loads(line))
                 if on_first is not None and len(out["lines"]) == 1:
                     on_first()
+                if on_line is not None:
+                    on_line(len(out["lines"]))
         return out
     finally:
         conn.close()
@@ -6318,13 +6348,554 @@ def phase_gateway(card: str) -> dict:
             "flash_decode": counts["flash_decode"]}
 
 
+PD_ROWS = dict(MAIN_ROWS, HTTP_PORT="0", METRICS_PORT="0", LOG_LEVEL="WARN")
+PD_SEED = 73
+PD_BUCKET_LENS = (17, 500)     # 8 prompts: bucket admissions on P (K1)
+PD_LATTICE = (700, 1500)       # 2 prompts: the lattice on P, shipped mid-chunk
+PD_NEW = 32
+PD_SAMPLED = {2: 801, 6: 805}  # request index -> seed (temperature 0.8,
+#                                top-k 50)
+PD_BLOCK = 16                  # TPU_PD_BLOCK: positions a KV frame
+PD_WAIT_S = 60                 # TPU_RESUME_WAIT_S: the re-handoff's wait
+PD_DEATH = (300, 64, 16)       # prompt, new tokens, D stopped after this one
+PD_DEADLINE = (300, 1000, "1500ms")   # prompt, new tokens, X-Request-Timeout
+PD_FAULT_LENS = (700, 200)     # the torn frame's prompt (a lattice: the
+#                                reject lands before token 0), the shed's
+PD_NEXT = 64                   # the request after each fault
+PD_PAGED_ROWS = {"TPU_PAGED_BLOCKS": "129", "TPU_PAGED_BLOCK": "128"}
+
+
+def _pd_app(rows: dict):
+    """A P/D App: a gofr_tpu_torch.App with POST /generate on "cuda",
+    running."""
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.serving import install_generate
+
+    app = App(MapConfig(rows))
+    install_generate(app)
+    app.run(block=False)
+    return app
+
+
+def _gaps_ms(res: dict) -> tuple:
+    """(TTFT, token 0 to token 1, the mean gap over tokens 1..) of one
+    client read, in ms on the client's clock."""
+    t = res["times"]
+    steady = (t[-1] - t[1]) / (len(t) - 2) if len(t) > 2 else float("nan")
+    return (1e3 * (t[0] - res["t_send"]), 1e3 * (t[1] - t[0]),
+            1e3 * steady)
+
+
+def phase_pd(card: str) -> dict:
+    """Disaggregated prefill/decode serving on the card: a prefill-role
+    App (P) ships Llama-3-8B's int8 prompt KV to a contiguous decode
+    worker (D) and, after D dies mid-stream, to a paged one (Dp) started
+    on the same address; every stream is held against the decode
+    worker's own fused answer. K1 32 a bucket admission (P's and the
+    decode workers' fused references), K2 32 a decode step of D, K3 32 a
+    decode step of Dp, no plain version. Returns the launch counts."""
+    import gc
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import chaos
+    from gofr_tpu_torch.pd import protocol as pdp
+    from gofr_tpu_torch.tpu import hbm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(PD_SEED)
+    kinds: dict = {}
+    engines: list = []
+    apps: list = []
+    installs: list = []     # (HostKV, start, end event) of each ingest
+    ingested: list = []     # D's and Dp's ingest streams
+    ships: list = []        # (positions, host s) of each _ship_range call
+    reads: list = []        # host s of each row read a ship makes
+    stalls: list = []       # seconds in each send_windowed call
+    resubmits: list = []    # emitted count of each re-handoff submit
+
+    def instrument(app, label: str):
+        gen = app.container.tpu.generator
+        run_admission = gen._run_admission
+        kinds[label] = {}
+
+        def counted(key):
+            kinds[label][key[0]] = kinds[label].get(key[0], 0) + 1
+            return run_admission(key)
+
+        gen._run_admission = counted
+        engines.append((label, gen, gen.decode_steps))
+        if label == "P":
+            ship_range = gen._ship_range
+
+            def timed_ship(row, req, upto):
+                t0 = time.monotonic()
+                n0 = req.kv_shipped
+                try:
+                    return ship_range(row, req, upto)
+                finally:
+                    ships.append((max(0, upto - n0),
+                                  time.monotonic() - t0))
+
+            row_get = gen._kv_row_get
+
+            def timed_read(*a, **kw):
+                t0 = time.monotonic()
+                try:
+                    return row_get(*a, **kw)
+                finally:
+                    reads.append(time.monotonic() - t0)
+
+            gen._ship_range = timed_ship
+            gen._kv_row_get = timed_read
+            return gen
+        install = gen._ingest_install
+        generate = gen.generate
+
+        def timed_install(idx, req, blocks):
+            # P and D share the default stream, so events there would also
+            # bracket the other engine's queued work: the install runs on
+            # a stream of its own that waits for the serving stream first
+            # (it still lands behind the blocks in flight) and that the
+            # serving stream then waits for, so the events hold only the
+            # install's span: its host staging and its copies (and Dp's
+            # write-back replay). ``copies_ms`` times the copies alone
+            serving = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(serving)
+            t0, t1 = torch.cuda.Event(True), torch.cuda.Event(True)
+            with torch.cuda.stream(side):
+                t0.record(side)
+                out = install(idx, req, blocks)
+                t1.record(side)
+            serving.wait_stream(side)
+            installs.append((req.ingest[0], t0, t1))
+            return out
+
+        def watched(*a, **kw):
+            s = generate(*a, **kw)
+            if kw.get("ingest") is not None:
+                ingested.append(s)
+            return s
+
+        gen._ingest_install = timed_install
+        gen.generate = watched
+        return gen
+
+    def copies_ms(gen, kvs, target) -> list:
+        """Device time of each shipped row's install copies alone: the
+        engine's own ``_upload_row`` into ``target`` (D's serving cache at
+        a free slot, or Dp's scratch row) while the engine is idle, on a
+        stream that a spin kernel holds until every copy is queued, so the
+        events bracket the copies and none of the host's staging; the
+        spin grows until it covers the staging."""
+        out = []
+        side = torch.cuda.Stream()
+        end = time.monotonic() + 10
+        while time.monotonic() < end and not all(sl.free
+                                                 for sl in gen._slots):
+            time.sleep(0.05)   # the last slots retire after their lines
+        with gen._device_lock:
+            require(all(sl.free for sl in gen._slots)
+                    and not gen._scratch_busy,
+                    "copies_ms needs an idle engine")
+            row = 0   # a free slot's row, rewritten at its next admission
+            for kv in kvs:
+                spin = 1 << 25
+                while True:
+                    t0, t1 = torch.cuda.Event(True), torch.cuda.Event(True)
+                    with torch.cuda.stream(side):
+                        torch.cuda._sleep(spin)
+                        t0.record(side)
+                        gen._upload_row(kv, row, target)
+                        t1.record(side)
+                    covered = not t0.query()
+                    side.synchronize()
+                    if covered:
+                        out.append((kv.plen, t0.elapsed_time(t1)))
+                        break
+                    spin *= 4
+        return out
+
+    send_windowed = pdp.Conn.send_windowed
+
+    def timed_send(self, msg, deadline_s=30.0):
+        t0 = time.monotonic()
+        try:
+            return send_windowed(self, msg, deadline_s)
+        finally:
+            stalls.append(time.monotonic() - t0)
+
+    pdp.Conn.send_windowed = timed_send
+    t0 = time.monotonic()
+    try:
+        d = _pd_app(dict(PD_ROWS, APP_NAME="decode",
+                         TPU_SERVING_ROLE="decode",
+                         TPU_PD_LISTEN="127.0.0.1:0"))
+        apps.append(d)
+        srv = d.container.tpu.pd_ingest
+        pd_port = srv.port
+        p = _pd_app(dict(PD_ROWS, APP_NAME="prefill",
+                         TPU_SERVING_ROLE="prefill",
+                         TPU_PD_PEER=f"127.0.0.1:{pd_port}",
+                         TPU_PD_BLOCK=str(PD_BLOCK),
+                         TPU_RESUME_WAIT_S=str(PD_WAIT_S)))
+        apps.append(p)
+        coord = p.container.tpu.pd_prefill
+        p_gen = instrument(p, "P")
+        d_gen = instrument(d, "D")
+        torch.cuda.synchronize()
+        built_s = time.monotonic() - t0
+        cfg = p_gen.cfg
+        layers = cfg.n_layers
+        position_bytes = layers * cfg.n_kv_heads * (2 * cfg.head_dim + 2 * 4)
+
+        def prompt(n):
+            return rng.integers(0, cfg.vocab_size, int(n)).tolist()
+
+        _reset_launches()
+
+        # 1. the handshake
+        p_h0 = p.container.tpu.health_check()
+        d_h = d.container.tpu.health_check()
+        sock = socket.create_connection(("127.0.0.1", pd_port), timeout=10)
+        try:
+            refused0 = srv.refused_hellos
+            sock.sendall(pdp.pack_json(pdp.HELLO, 0, pdp.hello_payload(
+                "another-model", srv.layout)))
+            reply = pdp.read_msg(sock)
+        finally:
+            sock.close()
+        warm = _timed_generate(p.http_port, {"tokens": prompt(64),
+                                             "max_new": 4})
+        p_h1 = p.container.tpu.health_check()
+        print(f"[pd] D (decode, contiguous) and P (prefill) Apps of "
+              f"{PD_ROWS['TPU_MODEL']} ({PD_ROWS['TPU_SLOTS']} slots, "
+              f"{PD_ROWS['TPU_MAX_SEQ']} positions, int8 KV, K="
+              f"{PD_ROWS['TPU_DECODE_BLOCK']}) ready in {built_s:.1f} s; D "
+              f"health {d_h.status} role {d_h.details.get('serving_role')} "
+              f"listening {d_h.details['pd']['listening']} on {pd_port}; P "
+              f"health before its first request {p_h0.status} (connected "
+              f"{p_h0.details['pd']['connected']}), after {p_h1.status} "
+              f"(connected {p_h1.details['pd']['connected']}); a HELLO "
+              f"with another fingerprint: type {reply and reply[0]} req "
+              f"{reply and reply[1]}, refused_hellos {refused0} -> "
+              f"{srv.refused_hellos}; card: {card}", flush=True)
+        require(d_h.details.get("serving_role") == "decode"
+                and d_h.details["pd"]["listening"] and d_h.status == "UP",
+                f"D's health {d_h.status} {d_h.details.get('pd')}")
+        require(p_h1.details.get("serving_role") == "prefill"
+                and p_h1.details["pd"]["connected"] and p_h1.status == "UP"
+                and warm["status"] == 200,
+                f"P's health {p_h1.status} {p_h1.details.get('pd')}")
+        require(reply is not None and reply[0] == pdp.ERR and reply[1] == 0
+                and srv.refused_hellos == refused0 + 1,
+                f"the wrong-fingerprint HELLO: {reply}")
+
+        # 2. token-exact against fused serving, one at a time, then a burst
+        lens = [int(x) for x in rng.integers(PD_BUCKET_LENS[0],
+                                             PD_BUCKET_LENS[1] + 1, 8)]
+        lens = lens[:4] + [PD_LATTICE[0]] + lens[4:] + [PD_LATTICE[1]]
+        bodies = []
+        for i, n in enumerate(lens):
+            body = {"tokens": prompt(n), "max_new": PD_NEW}
+            if i in PD_SAMPLED:
+                body.update(temperature=0.8, top_k=50, seed=PD_SAMPLED[i])
+            bodies.append(body)
+        n_ship0, n_inst0 = len(ships), len(installs)
+        stall0, read0 = len(stalls), len(reads)
+        conn = coord._conn
+        bytes0, frames0 = conn.bytes_sent, conn.kv_frames
+        via, fused = [], []
+        for body in bodies:
+            via.append(_timed_generate(p.http_port, body))
+            fused.append(_timed_generate(d.http_port, body))
+        seq_ok = [v["status"] == 200 and f["status"] == 200
+                  and _tokens(v) == _tokens(f) and len(_tokens(v)) == PD_NEW
+                  for v, f in zip(via, fused)]
+        g_pd = [_gaps_ms(v) for v in via]
+        g_fu = [_gaps_ms(f) for f in fused]
+        seq_bytes = conn.bytes_sent - bytes0
+        seq_frames = conn.kv_frames - frames0
+        burst = _threads([lambda b=b: _timed_generate(p.http_port, b)
+                          for b in bodies])
+        burst_ok = [r["status"] == 200 and _tokens(r) == _tokens(f)
+                    for r, f in zip(burst, fused)]
+        torch.cuda.synchronize()
+        ship_rows = ships[n_ship0:]
+        ship_s = sum(s for _, s in ship_rows)
+        ship_pos = sum(n for n, _ in ship_rows)
+        inst = [(kv.plen, a.elapsed_time(b))
+                for kv, a, b in installs[n_inst0:]]
+        d_gen = d.container.tpu.generator
+        copies = copies_ms(d_gen, [kv for kv, _, _ in
+                                   installs[n_inst0:n_inst0 + len(bodies)]],
+                           d_gen.cache)
+        copy_rate = (sum(n for n, _ in copies) * position_bytes
+                     / max(sum(ms for _, ms in copies), 1e-9) / 1e6)
+        kv_s = [1e3 * s.trace["kv_transfer_s"] for s in ingested
+                if "kv_transfer_s" in s.trace]
+        all_bytes = conn.bytes_sent - bytes0
+        all_frames = conn.kv_frames - frames0
+        print(f"[pd] {len(bodies)} requests to P (prompts {lens}; "
+              f"{sorted(PD_SAMPLED)} sampled with seeds) equal to D's fused "
+              f"answer: {sum(seq_ok)}/{len(seq_ok)} one at a time, "
+              f"{sum(burst_ok)}/{len(burst_ok)} as a burst of {len(burst)}; "
+              f"TTFT through P {stats_line([g[0] for g in g_pd])} against "
+              f"fused {stats_line([g[0] for g in g_fu])}; the handoff gap "
+              f"(token 0 to 1) {stats_line([g[1] for g in g_pd])} against "
+              f"fused {stats_line([g[1] for g in g_fu])}; the steady gap "
+              f"{stats_line([g[2] for g in g_pd])}; card: {card}",
+              flush=True)
+        print(f"[pd] shipped one at a time: {seq_bytes} bytes in "
+              f"{seq_frames} KV frames for {sum(lens)} positions "
+              f"({position_bytes} bytes a position in int8 + scales); with "
+              f"the burst {all_bytes} bytes, {all_frames} frames; P's ship "
+              f"calls {len(ship_rows)} ({ship_pos} positions) took "
+              f"{1e3 * ship_s:.1f} ms on P's serving loop, "
+              f"{ship_pos * position_bytes / max(ship_s, 1e-9) / 1e9:.2f} GB/s"
+              f" (the row reads to the host {1e3 * sum(reads[read0:]):.1f} "
+              f"ms, the rest framing and sending); the loop's stall in "
+              f"send_windowed "
+              f"{1e3 * sum(stalls[stall0:]):.2f} ms over "
+              f"{len(stalls) - stall0} frames (max "
+              f"{1e3 * max(stalls[stall0:] or [0]):.3f} ms); kv_transfer_s "
+              f"(REQ receipt to the installed rows accepted) "
+              f"{stats_line(kv_s)}; the install's span on a stream of its "
+              f"own (host staging and copies) "
+              f"{stats_line([ms for _, ms in inst])} for "
+              f"{min(n for n, _ in inst)}-{max(n for n, _ in inst)} "
+              f"positions; its copies alone (device time, D idle) "
+              f"{stats_line([ms for _, ms in copies])}, "
+              f"{', '.join(f'{n}: {ms:.3f} ms' for n, ms in copies)}, "
+              f"{copy_rate:.1f} GB/s; "
+              f"card: {card}", flush=True)
+        require(all(seq_ok), f"P's streams against D's fused: {seq_ok}")
+        require(all(burst_ok), f"the burst against D's fused: {burst_ok}")
+        require(kinds["P"].get("mid", 0) >= 3,
+                f"the lattice prompts ran no mid chunk on P: {kinds['P']}")
+        require(seq_frames == sum(-(-n // PD_BLOCK) for n in lens),
+                f"{seq_frames} frames of {PD_BLOCK} positions for prompts "
+                f"{lens}")
+
+        # 3. typed faults after the handoff, each one request's
+        def next_equal(n):
+            body = {"tokens": prompt(n), "max_new": 8}
+            a = _timed_generate(p.http_port, body)
+            b = _timed_generate(d.http_port, body)
+            return a["status"] == 200 and _tokens(a) == _tokens(b) \
+                and len(_tokens(a)) == 8
+
+        rejects0 = srv.frame_rejects
+        with chaos.scope(chaos.ChaosSchedule(seed=5).on(
+                chaos.PD_INGEST, error=lambda: OSError("chaos: frame torn"),
+                every=1, limit=1)):
+            torn = _timed_generate(p.http_port, {
+                "tokens": prompt(PD_FAULT_LENS[0]), "max_new": 8})
+        torn_next = next_equal(PD_NEXT)
+        sheds0 = dict(hbm.arbiter_stats()["sheds"])
+        # per request the seam fires at P's admission check, D's, then
+        # D's pd-ingest lease: the third call is the lease
+        with chaos.scope(chaos.ChaosSchedule(seed=6).on(
+                chaos.HBM_ALLOC, error=chaos.ResourceExhausted, every=3,
+                limit=1)):
+            shed = _timed_generate(p.http_port, {
+                "tokens": prompt(PD_FAULT_LENS[1]), "max_new": 8})
+        sheds1 = dict(hbm.arbiter_stats()["sheds"])
+        shed_next = next_equal(PD_NEXT)
+        n, new, timeout = PD_DEADLINE
+        expired0 = d_gen.stats()["expired"]["post-handoff"]
+        late = _timed_generate(p.http_port, {"tokens": prompt(n),
+                                             "max_new": new},
+                               {"X-Request-Timeout": timeout})
+        expired1 = d_gen.stats()["expired"]["post-handoff"]
+        late_next = next_equal(PD_NEXT)
+        shed_err = [ln["error"] for ln in shed["lines"] if "error" in ln]
+        late_err = [ln["error"] for ln in late["lines"] if "error" in ln]
+        torn_msg = torn.get("body")
+        print(f"[pd] a frame torn at the PD_INGEST seam: {torn['status']} "
+              f"{str(torn_msg)[:160]}, D's frame_rejects {rejects0} -> "
+              f"{srv.frame_rejects}, the next request equal "
+              f"{torn_next}; the pd-ingest lease killed at the HBM_ALLOC "
+              f"seam: status {shed['status']}, {len(_tokens(shed))} token "
+              f"line(s) then {shed_err}, arbiter sheds {sheds0} -> {sheds1}, "
+              f"the next equal {shed_next}; a {timeout} deadline over "
+              f"{new} new tokens: {len(_tokens(late))} tokens then "
+              f"{late_err}, D's post-handoff expiries {expired0} -> "
+              f"{expired1}, the next equal {late_next}; card: {card}",
+              flush=True)
+        require(torn["status"] == 502 and srv.frame_rejects == rejects0 + 1
+                and torn_next, f"the torn frame: {torn['status']} "
+                f"{torn_msg}")
+        require(shed["status"] == 200 and len(_tokens(shed)) == 1
+                and len(shed_err) == 1 and shed_err[0]["status"] == 429
+                and shed_err[0].get("retry_after")
+                and sheds1.get("pd-ingest", 0)
+                == sheds0.get("pd-ingest", 0) + 1 and shed_next,
+                f"the pd-ingest shed: {shed['lines'][-2:]} {sheds1}")
+        require(late["status"] == 200 and 0 < len(_tokens(late)) < new
+                and len(late_err) == 1 and late_err[0]["status"] == 504
+                and expired1 == expired0 + 1 and late_next,
+                f"the deadline after the handoff: {late['lines'][-1:]} "
+                f"{expired0} -> {expired1}")
+
+        # 4. D dies mid-stream; the relay is re-handed off to a paged
+        # decode worker started on D's address
+        n, new, cut = PD_DEATH
+        body = {"tokens": prompt(n), "max_new": new}
+        whole = _timed_generate(d.http_port, body)
+        submit = coord._submit
+
+        def recorded(rs, emitted):
+            if emitted:
+                resubmits.append(len(emitted))
+            return submit(rs, emitted)
+
+        coord._submit = recorded
+        reached = threading.Event()
+        box: dict = {}
+
+        def read():
+            box["res"] = _timed_generate(
+                p.http_port, body,
+                on_line=lambda k: k == cut and reached.set())
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        require(reached.wait(APP_CALL_TIMEOUT_S),
+                f"the stream never reached token {cut}")
+        t_kill = time.monotonic()
+        # abruptly: the ingest listener and its connections first (the
+        # App's servers take a poll interval to stop), then the engine,
+        # no drain
+        srv.close()
+        d.stop()
+        release_graphs(d_gen)
+        apps.remove(d)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pre = _launches()
+        dp = _pd_app(dict(PD_ROWS, **PD_PAGED_ROWS, APP_NAME="decode-paged",
+                          TPU_SERVING_ROLE="decode",
+                          TPU_PD_LISTEN=f"127.0.0.1:{pd_port}"))
+        built_launches = {k: v - pre[k] for k, v in _launches().items()}
+        apps.append(dp)
+        dp_gen = instrument(dp, "Dp")
+        dp_built_s = time.monotonic() - t_kill
+        reader.join(APP_CALL_TIMEOUT_S + PD_WAIT_S)
+        res = box.get("res") or {"status": None, "lines": [], "times": []}
+        toks = _tokens(res)
+        cursors = [ln.get("cursor") for ln in res["lines"]]
+        k = resubmits[-1] if resubmits else 0
+        cont = _timed_generate(dp.http_port, dict(
+            body, resume_from=k, emitted=toks[:k]))
+        t = res["times"]
+        gaps = [b - a for a, b in zip(t, t[1:])]
+        at = int(np.argmax(gaps)) + 1 if gaps else 0
+        steady = 1e3 * (t[cut - 1] - t[1]) / (cut - 2) if len(t) >= cut \
+            else float("nan")
+        st = coord.stats()
+        print(f"[pd] D stopped after token {cut} of a {n}-token prompt's "
+              f"{new}-token greedy stream; Dp (paged, "
+              f"{PD_PAGED_ROWS['TPU_PAGED_BLOCKS']} blocks of "
+              f"{PD_PAGED_ROWS['TPU_PAGED_BLOCK']}, scratch row and "
+              f"write-back graph built: "
+              f"{('writeback',) in dp_gen._adm_graphs}) ready on port "
+              f"{pd_port} {dp_built_s:.1f} s after the stop; P re-handed "
+              f"off at {k} emitted tokens (resubmits {resubmits}, resumed "
+              f"{st['resumed']}, peer losses {st['peer_losses']}); the "
+              f"client's stream: status {res['status']}, cursors 0..{new - 1}"
+              f" without gap {cursors == list(range(new))}, errors "
+              f"{sum('error' in ln for ln in res['lines'])}; equal to the "
+              f"first {k} + Dp's continue_from answer "
+              f"{toks == toks[:k] + _tokens(cont)}; the resume gap "
+              f"{1e3 * max(gaps or [0]):.1f} ms before token {at} against a "
+              f"steady {steady:.2f} ms a token; against the uninterrupted "
+              f"stream: {splice_agreement(toks, _tokens(whole))}; card: "
+              f"{card}", flush=True)
+        require(res["status"] == 200 and cursors == list(range(new))
+                and not any("error" in ln for ln in res["lines"]),
+                f"the re-handed-off stream: {res['status']} {cursors}")
+        require(k >= cut and toks == toks[:k] + _tokens(cont)
+                and len(toks) == new,
+                f"the stream is not its {k} tokens plus Dp's continuation")
+        require(st["resumed"] == 1 and st["peer_losses"] == 1
+                and ("writeback",) in dp_gen._adm_graphs,
+                f"P's coordinator {st}")
+
+        # the burst again, through the paged decode worker
+        n_inst1 = len(installs)
+        burst_p = _threads([lambda b=b: _timed_generate(p.http_port, b)
+                            for b in bodies])
+        fused_p = [_timed_generate(dp.http_port, b) for b in bodies]
+        paged_ok = [r["status"] == 200 and _tokens(r) == _tokens(f)
+                    and len(_tokens(r)) == PD_NEW
+                    for r, f in zip(burst_p, fused_p)]
+        as_d = [_tokens(f) == _tokens(g) for f, g in zip(fused_p, fused)]
+        torch.cuda.synchronize()
+        inst_p = [a.elapsed_time(b) for _, a, b in installs[n_inst1:]]
+        copies_p = copies_ms(dp_gen, [kv for kv, _, _ in installs[n_inst1:]],
+                             dp_gen._scratch)
+        print(f"[pd] the burst of {len(bodies)} through P to Dp: statuses "
+              f"{sorted({r['status'] for r in burst_p})}, equal to "
+              f"Dp's fused answer {sum(paged_ok)}/{len(paged_ok)}; Dp's "
+              f"fused answers equal to D's {sum(as_d)}/{len(as_d)}; Dp's "
+              f"install's span on a stream of its own (host staging, the "
+              f"scratch upload and the write-back replay) "
+              f"{stats_line(inst_p)}; the scratch upload's copies alone "
+              f"(device time, Dp idle) "
+              f"{stats_line([ms for _, ms in copies_p])}; card: "
+              f"{card}", flush=True)
+        require(all(paged_ok), f"the burst through Dp: {paged_ok}")
+
+        # 5. the launch counts
+        counts = {k2: v - built_launches[k2] for k2, v in _launches().items()}
+        steps = {label: gen.decode_steps - s0 for label, gen, s0 in engines}
+        bucket = {label: kk.get("prefill", 0) for label, kk in kinds.items()}
+        print(f"[pd] admission dispatches by engine {kinds}; decode steps "
+              f"{steps}; launches {counts} (Dp's construction, taken out: "
+              f"{built_launches}); the phase {time.monotonic() - t0:.1f} s; "
+              f"card: {card}", flush=True)
+        require(steps["P"] == 0, f"P decoded {steps['P']} steps")
+        require(counts["flash_prefill"] == layers * sum(bucket.values())
+                and bucket["P"] > 0,
+                f"flash_prefill launched {counts['flash_prefill']} times for "
+                f"bucket admissions {bucket} of {layers} layers")
+        require(counts["flash_decode"] == layers * steps["D"]
+                and steps["D"] > 0,
+                f"flash_decode launched {counts['flash_decode']} times for "
+                f"{steps['D']} decode steps of D")
+        require(counts["paged_decode"] == layers * steps["Dp"]
+                and steps["Dp"] > 0,
+                f"paged_decode launched {counts['paged_decode']} times for "
+                f"{steps['Dp']} decode steps of Dp")
+        require(counts["prefill_plain"] == counts["decode_plain"]
+                == counts["paged_plain"] == counts["paged_window"] == 0,
+                f"a plain version or another kernel ran: {counts}")
+    finally:
+        pdp.Conn.send_windowed = send_windowed
+        for app in reversed(apps):
+            if app._running.is_set():
+                app.stop()
+        for _, gen, _ in engines:
+            release_graphs(gen)
+    return {"flash_prefill": counts["flash_prefill"],
+            "flash_decode": counts["flash_decode"],
+            "paged_decode": counts["paged_decode"]}
+
+
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
                 "durable", "slo", "app", "predict", "grpc", "tiers", "lora",
-                "pubsub", "tenancy", "gateway")) -> dict:
+                "pubsub", "tenancy", "gateway", "pd")) -> dict:
     import torch
 
     card = card_line()
@@ -6380,10 +6951,10 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             # K1's count: phase 5's main path plus the score run
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
-        elif phase in ("grpc", "tiers", "lora", "tenancy", "gateway"):
+        elif phase in ("grpc", "tiers", "lora", "tenancy", "gateway", "pd"):
             counts = {"grpc": phase_grpc, "tiers": phase_tiers,
                       "lora": phase_lora, "tenancy": phase_tenancy,
-                      "gateway": phase_gateway}[phase](card)
+                      "gateway": phase_gateway, "pd": phase_pd}[phase](card)
             # K1's, K2's (and K3's) counts: the earlier phases' plus this
             # run's
             for name, n in counts.items():

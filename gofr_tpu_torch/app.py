@@ -24,6 +24,10 @@ in ``/.well-known/health``, starts the replica health poller in
 ``run()``, and in ``stop(grace_s)`` lets its in-flight relays finish
 before it closes. A missing replica list raises, and so does a
 ``TPU_MODEL`` row on a gateway App ("builds no engine").
+``TPU_SERVING_ROLE=prefill`` or ``decode`` makes the App one pool of a
+disaggregated pair (gofr_tpu_torch/pd): its engine's ``generate``
+relays through the decode peer, or its engine takes shipped KV on
+``TPU_PD_LISTEN`` (advertising the metrics port to its peers).
 
 Reference: pkg/gofr/gofr.go -- route registration (gofr.go:190-207),
 RegisterService (gofr.go:49-53), Subscribe (subscriber.go:11-46) and Run
@@ -297,6 +301,11 @@ class App:
                                           self.metrics_port, self.logger)
         self._metrics_server.start()
         self.metrics_port = self._metrics_server.port
+        pd_ingest = getattr(c.tpu, "pd_ingest", None)
+        if pd_ingest is not None:
+            # a decode worker advertises its /debug surface to prefill
+            # peers in HELLO_OK
+            pd_ingest.debug_port = self.metrics_port
         if self._http_registered:
             self._install_default_routes()
             self._http_server = HTTPServer(self.router, self.http_port,

@@ -1,8 +1,9 @@
 """Fault injection at the generator's, the batcher's, the memory
-arbiter's, the HTTP and gRPC servers', the service clients' and the
-gateway's seams: the port's own copy of the part of gofr_tpu/chaos.py
-that the serving loop, the predict path, the arbiter, the App's
-transports, ``service/`` and ``gateway/`` use.
+arbiter's, the HTTP and gRPC servers', the service clients', the
+gateway's and the P/D ingest server's seams: the port's own copy of the
+part of gofr_tpu/chaos.py that the serving loop, the predict path, the
+arbiter, the App's transports, ``service/``, ``gateway/`` and ``pd/``
+use.
 
 A ``ChaosSchedule`` holds per-seam rules (latency, injected errors, or
 both); the engine and the server call ``chaos.fire(SEAM)`` at a fixed
@@ -54,6 +55,12 @@ Seams (grep for ``chaos.fire``):
                       keeps serving. ``every=N`` kills allocation N
   HTTP_REQUEST        http/server._Handler._handle, as each request
                       arrives, before routing
+  PD_INGEST           pd/ingest._on_kv, before each received KV frame
+                      is validated and assembled: an injected error is
+                      THAT transfer's fault; the ingest server rejects
+                      the one request typed (502 KVTransferError over
+                      the wire) and the reader loop keeps serving every
+                      other stream on the connection
   SERVICE_REQUEST     service/client, before the network hop of
                       ``HTTPService._do`` and of ``stream_generate``
   ==================  =====================================================
@@ -71,7 +78,7 @@ __all__ = [
     "BATCHER_DISPATCH", "GATEWAY_MIDSTREAM", "GATEWAY_PICK",
     "GATEWAY_RELAY", "GENERATOR_CHUNK", "GENERATOR_MIDKILL",
     "GENERATOR_PREFILL", "GENERATOR_STEP", "GRPC_STREAM", "HBM_ALLOC",
-    "HTTP_REQUEST", "SERVICE_REQUEST", "SEAMS",
+    "HTTP_REQUEST", "PD_INGEST", "SERVICE_REQUEST", "SEAMS",
     "ChaosSchedule", "DeviceLost", "ResourceExhausted", "Rule", "active",
     "fire", "install", "scope", "uninstall",
 ]
@@ -87,11 +94,12 @@ GENERATOR_STEP = "generator.step"
 GRPC_STREAM = "grpc.stream"
 HBM_ALLOC = "hbm.alloc"
 HTTP_REQUEST = "http.request"
+PD_INGEST = "pd.ingest"
 SERVICE_REQUEST = "service.request"
 
 SEAMS = (BATCHER_DISPATCH, GATEWAY_MIDSTREAM, GATEWAY_PICK, GATEWAY_RELAY,
          GENERATOR_CHUNK, GENERATOR_MIDKILL, GENERATOR_PREFILL,
-         GENERATOR_STEP, GRPC_STREAM, HBM_ALLOC, HTTP_REQUEST,
+         GENERATOR_STEP, GRPC_STREAM, HBM_ALLOC, HTTP_REQUEST, PD_INGEST,
          SERVICE_REQUEST)
 
 

@@ -19,10 +19,12 @@ for a server it cannot reach, raises instead of serving without it
 (the port's rule that nothing falls back on its own). The same holds
 for ``TPU_MODEL`` on a gateway App (``TPU_SERVING_ROLE=gateway``): the
 JAX container logs the engine's "builds no engine" error and serves the
-gateway without one; here it raises. The rows the port does not serve
-yet raise with their names before anything is built: the datasources
-(SQL, the remote log level), a serving role other than ``fused`` and
-``gateway``, and the multi-host and fleet rows, whether or not the App
+gateway without one; here it raises, and so does a P/D role the engine
+cannot take (``prefill`` without ``TPU_PD_PEER`` or on a paged engine).
+The rows the port does not serve yet raise with their names before
+anything is built: the datasources (SQL, the remote log level), a
+serving role other than ``fused``, ``gateway``, ``prefill`` and
+``decode``, and the multi-host and fleet rows, whether or not the App
 builds an engine. The kv-cache's shared tier
 (``TPU_KVCACHE_REDIS``) keeps a Redis client of its own.
 """
@@ -44,9 +46,9 @@ from .observe import RequestRegistry
 UNPORTED_ROWS = ("DB_HOST", "DB_DIALECT", "REMOTE_LOG_URL",
                  "TPU_OBS_PEERS", "TPU_TIMELINE_EVENTS", "TPU_COORDINATOR",
                  "TPU_NUM_PROCESSES")
-# the serving roles the port serves: the fused replica and the gateway
-# (prefill and decode wait for the P/D split)
-SERVING_ROLES = ("fused", "gateway")
+# the serving roles the port serves: the fused replica, the gateway and
+# the two P/D pools (gofr_tpu_torch/pd)
+SERVING_ROLES = ("fused", "gateway", "prefill", "decode")
 
 
 def serving_role(cfg) -> str:
@@ -56,8 +58,8 @@ def serving_role(cfg) -> str:
 
 def unported_rows(cfg) -> list[str]:
     """The rows of ``cfg`` the port refuses, in a stable order:
-    UNPORTED_ROWS, then ``TPU_SERVING_ROLE`` other than ``fused`` and
-    ``gateway``."""
+    UNPORTED_ROWS, then ``TPU_SERVING_ROLE`` other than one of
+    SERVING_ROLES."""
     out = [row for row in UNPORTED_ROWS
            if (cfg.get(row) or "").strip() != ""]
     if serving_role(cfg) not in SERVING_ROLES:

@@ -115,15 +115,33 @@ Rows read:
   TPU_TENANT_CHECKPOINT_EVERY  the async lane's resume-checkpoint cadence
                     in tokens (default 8)
 
-  TPU_SERVING_ROLE  fused (the default) or gateway; a gateway App
-                    (gofr_tpu_torch/gateway) builds no engine, so a
-                    config naming both raises "builds no engine" here;
-                    prefill and decode raise by name
+  TPU_SERVING_ROLE  fused (the default), gateway, prefill or decode; a
+                    gateway App (gofr_tpu_torch/gateway) builds no
+                    engine, so a config naming both raises "builds no
+                    engine" here; prefill and decode wire the engine's
+                    P/D half (gofr_tpu_torch/pd): a prefill worker must
+                    be contiguous and name TPU_PD_PEER, a decode worker
+                    may be paged (it then holds the scratch row and the
+                    write-back graph from construction)
+  TPU_PD_LISTEN     a decode worker's KV-ingest listen address, host:port
+                    (default 127.0.0.1:9400; port 0 picks a free one)
+  TPU_PD_PEER       a prefill worker's decode peer, host:port (required)
+  TPU_PD_BLOCK      tokens a shipped KV frame (default 16)
+  TPU_PD_WINDOW_MB  the ship window: KV bytes in flight on a connection
+                    before the ship blocks the serving loop (default 8)
+  TPU_RESUME_PD     a decode peer's death mid-stream re-hands the relay
+                    off as a continuation (default true)
+  TPU_RESUME_MAX    re-handoffs a stream (default 3; the gateway reads it
+                    too)
+  TPU_RESUME_WAIT_S  how long a re-handoff waits for the peer to come
+                    back (default 5)
 
 Every other ``TPU_*`` row of the JAX package names a feature this port
 does not serve yet; a set one raises with its name rather than being
 silently ignored (the gateway reads ``TPU_GATEWAY_*``, ``TPU_RESUME``
-and ``TPU_RESUME_MAX`` itself).
+and ``TPU_RESUME_MAX`` itself). ``TPU_SHARDING`` stays refused by name,
+so the JAX package's refusal of a P/D role on a mesh cannot be reached
+here.
 """
 
 from __future__ import annotations
@@ -152,11 +170,7 @@ __all__ = ["BatcherClosed", "ClassPolicy", "CoalescingBatcher",
            "maybe_quantize", "new_engine_from_config", "pad_bucket"]
 
 # rows of the JAX package that name features outside this slice
-UNPORTED_ROWS = (
-    "TPU_HBM_DEVICE_BUDGET_MB",
-    "TPU_SHARDING", "TPU_PD_LISTEN", "TPU_PD_PEER", "TPU_PD_BLOCK",
-    "TPU_PD_WINDOW_MB",
-)
+UNPORTED_ROWS = ("TPU_HBM_DEVICE_BUDGET_MB", "TPU_SHARDING")
 
 # TPU_MODEL aliases, as the JAX package reads them
 BERT_ALIASES = {"bert": "bert-base", "bert-tiny": "tiny"}
@@ -240,7 +254,10 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
     ``TPU_TENANTS_INLINE`` the tenancy plane is installed on the engine
     and its generator; a registry that cannot be read raises ValueError
     naming its row before anything is built."""
+    from ..container import serving_role
+
     _check_rows(cfg)
+    role = serving_role(cfg)
     plane = plane_from_config(cfg, metrics=metrics, logger=logger)
     device = resolve_device(device)
     name = (cfg.get("TPU_MODEL") or "tiny").strip()
@@ -333,6 +350,16 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
         engine.tenancy = plane
         if generator is not None:
             generator.install_tenancy(plane)
+    if role in ("prefill", "decode"):
+        # the P/D half, after the generator exists: a misconfigured role
+        # (no decoder, a paged prefill worker, no peer) fails here
+        from ..pd import wire_role
+
+        try:
+            wire_role(engine, role, cfg, logger=logger, metrics=metrics)
+        except BaseException:
+            engine.close()
+            raise
     if cfg.get_bool("TPU_WARMUP"):
         engine.warmup()
     if logger is not None:

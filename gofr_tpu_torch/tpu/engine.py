@@ -17,7 +17,12 @@ streaming generation, health and close.
 
 Generation (``generate``) is the ``GenerationEngine``'s own serving
 loop; on a Llama engine the ``score`` program's dispatcher launches on
-the same card beside it. With a tenancy plane (``tenancy``) ``predict``
+the same card beside it. On a P/D prefill worker
+(``TPU_SERVING_ROLE=prefill``, ``pd_prefill``) ``generate`` routes
+through the coordinator: the local engine prefills, the KV ships to the
+decode peer and its tokens come back; a decode worker's ingest listener
+(``pd_ingest``) feeds the same local engine, which still serves its own
+requests fused. With a tenancy plane (``tenancy``) ``predict``
 resolves the ambient tenant as ``generate`` does and holds one of its
 concurrency slots for the call.
 """
@@ -133,6 +138,12 @@ class TorchEngine:
         # tenancy.TenantPlane, set by new_engine_from_config from the
         # TPU_TENANTS rows; None: anonymous single-tenant serving
         self.tenancy = None
+        # disaggregated serving (pd/): pd.wire_role sets one of these for
+        # a non-fused role, a prefill worker's coordinator (generate
+        # routes through it) or a decode worker's KV-ingest listener
+        self.serving_role = "fused"
+        self.pd_prefill = None
+        self.pd_ingest = None
         self._programs: dict[str, Program] = {}
         self._batchers: dict[str, CoalescingBatcher] = {}
         self._lock = threading.Lock()
@@ -374,7 +385,13 @@ class TorchEngine:
                                  f"!= expected {want}")
 
     def generate(self, *args, **kw) -> GenStream:
-        """Streaming token generation; see ``GenerationEngine.generate``."""
+        """Streaming token generation; see ``GenerationEngine.generate``.
+        On a prefill worker this routes through the P/D coordinator
+        (``PDPrefill.generate``, the same signature): local prefill-only
+        compute, the KV shipped to the decode pool, its tokens relayed
+        back as one stream."""
+        if self.pd_prefill is not None:
+            return self.pd_prefill.generate(*args, **kw)
         if self.generator is None:
             raise ServiceUnavailable(
                 "no decoder model configured (TPU_MODEL must be a "
@@ -442,15 +459,38 @@ class TorchEngine:
             details["generator"] = self.generator.stats()
         if self.tenancy is not None:
             details["tenancy"] = self.tenancy.stats()
+        if self.serving_role != "fused":
+            # which pool this replica serves and whether the cross-pool
+            # path is up: a decode worker's listener, a prefill worker's
+            # peer connection
+            details["serving_role"] = self.serving_role
+            pd = self.pd_ingest or self.pd_prefill
+            if pd is not None:
+                details["pd"] = pd.stats()
         if self._closed or (self.generator is not None
                             and self.generator.down is not None):
             return Health(STATUS_DOWN, details)
-        # an engine with neither a program nor a generator serves nothing
+        if self.pd_ingest is not None \
+                and not self.pd_ingest.stats()["listening"]:
+            # a decode worker that cannot take shipped KV is not serving
+            # its role, whatever its local engine does
+            return Health(STATUS_DOWN, details)
+        # an engine with neither a program nor a generator serves nothing;
+        # a prefill worker with no decode peer connected can still
+        # prefill (its reconnect is armed) but is degraded
         up = self._programs or self.generator is not None
+        if self.pd_prefill is not None and not self.pd_prefill.connected:
+            up = False
         return Health(STATUS_UP if up else STATUS_DEGRADED, details)
 
     def close(self) -> None:
         self._closed = True
+        # the P/D half first: the listener stops taking KV and the
+        # coordinator fails its relays typed before the engine they feed
+        # shuts down
+        for pd in (self.pd_ingest, self.pd_prefill):
+            if pd is not None:
+                pd.close()
         for b in self._batchers.values():
             b.close(drain=False)
         if self.generator is not None:

@@ -100,6 +100,14 @@ gofr_tpu/tpu/generator.py, reduced to this slice).
     weight (tenancy.WeightedFairLine), the T0 rows are charged to the
     tenant that stored them under its cache share, and every stream
     gives its tenant's concurrency slot back at its terminal.
+  - Disaggregated serving (pd/): ``generate(kv_sink=)`` runs a request
+    prefill-only on a contiguous engine, shipping its slot row through
+    the sink as it is prefilled (after each mid chunk up to the final
+    window's start, the rest before the first token) and retiring it
+    after token 0; ``generate(ingest=)`` is the decode worker's half,
+    which copies shipped rows into the slot's cache row (paged: the
+    scratch row, then one write-back replay) in place of a prefill and
+    decodes on from the shipped first token.
   - On a CUDA device the engine refuses at construction a model the
     attention kernels do not take (ops.kernels.check_attention_shape),
     naming its shape and the kernel, so nothing raises in the loop for
@@ -676,10 +684,13 @@ class GenStream(PushStream):
     admission). What the App's ``/generate`` route reads:
     ``prompt_len`` (a continuation's prompt + emitted), ``cache_tokens``
     and ``cache_tier`` (the prompt positions a prefix hit covered, and
-    "paged"), ``seed`` (a sampled request's, for a resume) and
-    ``failed`` (why the loop failed it). ``slo_class``: the request's
-    class; ``where``: where its deadline ran out ("queue",
-    "mid-prefill", "mid-decode"), if it did; ``tenant``: the canonical
+    "paged", or "pd-ship" for KV a prefill worker shipped), ``seed`` (a
+    sampled request's, for a resume), ``cursor_base`` (the absolute index
+    of its first token: a continuation's emitted count, 0 for a fresh
+    request) and ``failed`` (why the loop failed it). ``slo_class``: the
+    request's class; ``where``: where its deadline ran out ("queue",
+    "mid-prefill", "mid-decode", or "post-handoff" for an ingested
+    request), if it did; ``tenant``: the canonical
     tenant id on an engine with a tenancy plane ("default" otherwise)
     and ``adapter`` the LoRA adapter it runs through."""
 
@@ -691,6 +702,7 @@ class GenStream(PushStream):
         self.logprobs = logprobs  # items are (token, logprob) tuples
         self.trace: dict[str, float] = {}
         self.seed: int | None = None
+        self.cursor_base = 0
         self.chunks = 0
         self.cache_tier: str | None = None
         self.cache_tokens = 0
@@ -733,7 +745,8 @@ class _Request:
     __slots__ = ("stream", "prompt", "max_new", "temperature", "top_k",
                  "eos_id", "seed", "pos_base", "adapter", "lattice_peek",
                  "kv_match", "deadline", "slo_class", "enqueued_at",
-                 "tenant", "tenant_weight")
+                 "tenant", "tenant_weight", "kv_sink", "kv_shipped",
+                 "ingest")
 
     def __init__(self, stream: GenStream, prompt: np.ndarray, max_new: int,
                  temperature: float, top_k: int, eos_id, seed: int,
@@ -767,6 +780,15 @@ class _Request:
         # weight); without a plane every request is the default tenant
         self.tenant = "default"
         self.tenant_weight = 1
+        # disaggregated serving (pd/): ``kv_sink`` marks a prefill-only
+        # request, whose slot row ships out through the sink as it is
+        # prefilled (``kv_shipped`` positions so far) and which retires
+        # after its first token; ``ingest`` is the decode side's
+        # (HostKV, first token, logprob) a prefill worker shipped, which
+        # admission installs in place of a prefill
+        self.kv_sink = None
+        self.kv_shipped = 0
+        self.ingest = None
 
     @property
     def logprobs(self) -> bool:
@@ -1011,9 +1033,12 @@ class GenerationEngine:
         # a prompt past the chunk budget runs the chunk lattice; a paged
         # engine runs it, and a prefix hit's resume, on a dense
         # single-slot scratch row (one slot's row of memory), landed in
-        # the slot's blocks in one copy
+        # the slot's blocks in one copy. A P/D ingest stages its shipped
+        # row there too, so every paged engine has the row and its
+        # write-back graph from construction: capturing one later, with
+        # blocks in flight, is not safe
         self._lattice = self.max_seq - 1 > self._chunk
-        if self._paged and (self._lattice or self._prefix_idx is not None):
+        if self._paged:
             self._scratch = hbm.alloc(
                 "engine", lambda: llama.init_cache(
                     cfg, 1, self.max_seq, dtype=kv_dtype,
@@ -1031,6 +1056,9 @@ class GenerationEngine:
         # admission; drops the pipeline to depth 1 until the synchronous
         # pass that runs it
         self._lattice_deferred = False
+        # set while a paged engine's chunk lattice holds the scratch row:
+        # an ingest, which stages its row there, waits for it to land
+        self._scratch_busy = False
 
         self._slots = [_Slot() for _ in range(slots)]
         self._last_tokens = np.zeros((slots,), np.int64)
@@ -1109,7 +1137,8 @@ class GenerationEngine:
         self._admitting = 0
         # requests whose deadline ran out, by where
         self._expired = dict.fromkeys(
-            ("pre-queue", "queue", "mid-prefill", "mid-decode"), 0)
+            ("pre-queue", "queue", "mid-prefill", "mid-decode",
+             "post-handoff"), 0)
         self.down: str | None = None
         self._recoveries = 0     # failed steps the loop recovered from
         self.total_tokens = 0
@@ -1153,8 +1182,8 @@ class GenerationEngine:
                  temperature: float = 0.0, top_k: int = 0, eos_id=None,
                  adapter: int = 0, logprobs: bool = False, deadline=None,
                  slo_class: str | None = None, seed: int | None = None,
-                 continue_from=None,
-                 traceparent: str | None = None) -> GenStream:
+                 continue_from=None, traceparent: str | None = None,
+                 kv_sink=None, ingest=None) -> GenStream:
         """Enqueue a prompt (sequence of token ids); returns a GenStream
         yielding generated ids as the device produces them.
 
@@ -1193,6 +1222,16 @@ class GenerationEngine:
         span), else a fresh trace id is minted. ``stream.trace_id`` and
         ``stream.traceparent`` carry it.
 
+        Disaggregated serving (pd/): ``kv_sink`` runs the request
+        prefill-only (a contiguous engine only): the stream delivers
+        exactly the sampled first token while the slot's KV ships out
+        through ``kv_sink(HostKV, start, total)`` in order, during the
+        chunk lattice and then the rest before the first token.
+        ``ingest=(HostKV, first_token, first_lp)`` is the decode side's
+        mirror: admission installs the shipped rows under a ``pd-ingest``
+        stage lease instead of running a prefill, delivers the shipped
+        first token and decodes on. The two are exclusive.
+
         With a tenancy plane (``install_tenancy``) the ambient tenant
         (``tenancy.tenant_scope``) is resolved against the registry: its
         class default applies to an untagged request, its adapter to a
@@ -1218,6 +1257,16 @@ class GenerationEngine:
                 raise GenerationError(
                     f"continue_from carries {pos_base} emitted tokens but "
                     "the request budget allows no more: nothing to resume")
+        if kv_sink is not None and ingest is not None:
+            raise GenerationError("kv_sink and ingest are exclusive (a "
+                                  "request is prefill-only or decode-only, "
+                                  "never both)")
+        if kv_sink is not None and self._paged:
+            raise GenerationError("kv_sink (prefill-only serving) requires "
+                                  "a contiguous engine")
+        if ingest is not None:
+            self._validate_ingest(ingest,
+                                  np.asarray(prompt, np.int64).reshape(-1))
         if deadline is None:
             deadline = current_deadline()
         if slo_class is None:
@@ -1234,7 +1283,8 @@ class GenerationEngine:
             slo_class = self.tenancy.effective_class(spec, slo_class)
             adapter = self.tenancy.effective_adapter(spec, int(adapter))
         if deadline is not None and deadline.expired():
-            self._count_expired("pre-queue")
+            self._count_expired("post-handoff" if ingest is not None
+                                else "pre-queue")
             raise DeadlineExceeded("deadline expired before generate() "
                                    "was queued")
         if spec is not None:
@@ -1275,6 +1325,7 @@ class GenerationEngine:
             stream.trace["submit"] = time.monotonic()
             stream.prompt_len = len(prompt)
             stream.seed = seed
+            stream.cursor_base = pos_base
             stream.slo_class = slo_class
             stream.adapter = int(adapter)
             _trace(stream, traceparent)
@@ -1304,6 +1355,8 @@ class GenerationEngine:
             if spec is not None:
                 req.tenant = tenant
                 req.tenant_weight = spec.weight
+            req.kv_sink = kv_sink
+            req.ingest = ingest
             with self._admission_lock:
                 # checked under the lock the failure path sets ``down``
                 # under, so no request is queued after the queue failed
@@ -1761,8 +1814,11 @@ class GenerationEngine:
                     self._end_stream(req.stream)
                     continue
                 if req.deadline is not None and req.deadline.expired():
-                    self._count_expired("queue")
-                    req.stream.where = "queue"
+                    # an ingested request's budget ran out after the
+                    # pool handoff: this worker records it as such
+                    where = self._expiry_where(req, "queue")
+                    self._count_expired(where)
+                    req.stream.where = where
                     wait_s = time.monotonic() - req.enqueued_at
                     self._end_stream(req.stream, DeadlineExceeded(
                         f"deadline expired after {wait_s:.3f}s in the "
@@ -1783,7 +1839,9 @@ class GenerationEngine:
                 if self._paged:
                     # (shared, matched, fresh) with one reference a block
                     # held for the slot, or None (nothing held)
-                    blocks = self._paged_admission_blocks(req)
+                    blocks = (self._ingest_blocks(req)
+                              if req.ingest is not None
+                              else self._paged_admission_blocks(req))
                     if blocks is None:
                         # transient pool pressure: requeue and let active
                         # slots retire blocks
@@ -1805,7 +1863,13 @@ class GenerationEngine:
         version, as the in-flight pass re-peeks the queue's head at
         every poll. A contiguous engine's memo is the tier match itself
         (``_kv_match``): a T2 consult does network I/O, and the peek
-        and the restore must see one answer."""
+        and the restore must see one answer. An ingested request never
+        does: its install is copies, whatever its length. But a paged
+        install stages its row in the scratch row, so while a lattice
+        holds that row (an admission pass between its mid chunks) the
+        ingest is deferred like a lattice admission."""
+        if req.ingest is not None:
+            return self._scratch_busy
         L = len(req.prompt)
         if L > self._chunk:
             return True
@@ -1931,7 +1995,11 @@ class GenerationEngine:
             self._run_admission(("readback",))
             req.stream.cache_tier = "paged"
             req.stream.cache_tokens = m
-        first = self._chunk_lattice(0, req, m)
+        self._scratch_busy = True
+        try:
+            first = self._chunk_lattice(0, req, m)
+        finally:
+            self._scratch_busy = False
         if req.stream.cancelled.is_set():
             return first   # the slot retires at delivery, freeing blocks
         self._admission_inputs(
@@ -1955,9 +2023,23 @@ class GenerationEngine:
         lattice at a time), then one decode block for the live slots,
         reaped at once. Returns the first token and its logprob, or (0,
         0.0) when the stream was cancelled mid-way (the slot retires at
-        delivery)."""
+        delivery).
+
+        A prefill-only request (``kv_sink``) ships each mid chunk's KV as
+        soon as the chunk is in, so the decode peer's assembly and the
+        wire overlap the rest of the prompt's compute; the read waits
+        for the chunk. Shipping stops at the final window's start: on an
+        int8 cache the final chunk recomputes its overlap over already
+        quantized positions and the row keeps that version, which
+        ``_start`` ships from the settled row."""
         n = len(req.prompt)
         c = self._chunk
+        ship_cap = n
+        if req.kv_sink is not None:
+            rem = n - pos
+            while rem > c:
+                rem -= c
+            ship_cap = n - pad_bucket(rem, self.prompt_buckets)
         while n - pos > c:
             if req.stream.cancelled.is_set():
                 return 0, 0.0
@@ -1969,6 +2051,9 @@ class GenerationEngine:
             self._run_admission(("mid",))
             pos += c
             req.stream.chunks += 1
+            if req.kv_sink is not None and not self._ship_range(
+                    row, req, min(pos, ship_cap)):
+                return 0, 0.0
             if not self._chunk_interleave:
                 continue
             self._admit(defer_lattice=True)
@@ -2011,8 +2096,9 @@ class GenerationEngine:
         req = slot.request
         if req is None or req.deadline is None or not req.deadline.expired():
             return False
-        self._count_expired("mid-decode")
-        req.stream.where = "mid-decode"
+        where = self._expiry_where(req, "mid-decode")
+        self._count_expired(where)
+        req.stream.where = where
         req.stream.failed = "deadline expired mid-decode"
         req.stream._q.put(DeadlineExceeded(
             f"deadline expired after {slot.generated} generated tokens"))
@@ -2067,8 +2153,9 @@ class GenerationEngine:
         bucket within the chunk budget (wider buckets never dispatch)
         and draw value; with the lattice, the mid chunk; with the
         lattice or a prefix index (a hit resumes the lattice), a final
-        chunk per such bucket and draw value and (paged) the write-back;
-        with a prefix index, the read-back."""
+        chunk per such bucket and draw value; paged, the write-back (the
+        lattice's landing, and a P/D ingest's); with a prefix index, the
+        read-back."""
         buckets = [b for b in self.prompt_buckets if b <= self._chunk]
         keys = [("prefill", b, d) for b in buckets for d in (False, True)]
         if self._lattice:
@@ -2076,8 +2163,8 @@ class GenerationEngine:
         if self._lattice or self._prefix_idx is not None \
                 or self._kvc is not None:
             keys += [("final", b, d) for b in buckets for d in (False, True)]
-            if self._paged:
-                keys.append(("writeback",))
+        if self._paged:
+            keys.append(("writeback",))
         if self._prefix_idx is not None:
             keys.append(("readback",))
         return keys
@@ -2116,7 +2203,12 @@ class GenerationEngine:
         slot.request = req
         try:
             chaos.fire(chaos.GENERATOR_PREFILL)
-            first, first_lp = self._prefill(idx, req, blocks)
+            if req.ingest is not None:
+                # shipped KV: the install takes the prefill's place, and
+                # the rest runs as after a prefill (the T0 store too)
+                first, first_lp = self._ingest_install(idx, req, blocks)
+            else:
+                first, first_lp = self._prefill(idx, req, blocks)
         except Exception as e:
             if self._paged:
                 # clear the slot's blocks, table row and cursor before
@@ -2142,11 +2234,20 @@ class GenerationEngine:
                              GenerationError(f"prefill failed: {e!r}"))
             raise
         req.stream.trace["prefill_done"] = time.monotonic()
+        if req.kv_sink is not None:
+            # prefill-only: ship what the chunk hooks have not (the whole
+            # row for a bucket prompt) before the first token's delivery,
+            # since frame order on the wire is the ingest contract. A ship
+            # failure cancelled the stream; _deliver retires the slot
+            self._ship_range(idx, req, len(req.prompt))
         self._prefix_store(idx, req)
-        self.admissions += 1
+        if req.ingest is None:
+            self.admissions += 1
         self.total_requests += 1
         slot.generated = 0
-        slot.remaining = req.max_new
+        # a prefill-only request delivers its first token and retires:
+        # the decode pool owns the rest of the budget
+        slot.remaining = 1 if req.kv_sink is not None else req.max_new
         self._temps[idx] = req.temperature
         self._top_ks[idx] = req.top_k
         self._slot_seed[idx] = req.seed
@@ -2268,16 +2369,17 @@ class GenerationEngine:
         req.kv_match = (ver, mt)
         return mt
 
-    def _kv_row_get(self, store: llama.KVCache, row: int, plen: int
-                    ) -> HostKV:
-        """Positions [0, plen) of one pool or cache row as CPU tensors:
-        the spill half of T1 offload and the read half of T2
-        write-through. The copy waits for the stream (every block in
-        flight included)."""
+    def _kv_row_get(self, store: llama.KVCache, row: int, plen: int,
+                    start: int = 0) -> HostKV:
+        """Positions [start, plen) of one pool or cache row as CPU
+        tensors: the spill half of T1 offload, the read half of T2
+        write-through and (``start`` > 0) a prefill worker's incremental
+        KV ship. The copy waits for the stream (every block in flight
+        included)."""
         quant = store.k_scale is not None
 
         def host(t):
-            return t[:, row, :plen].contiguous().cpu()
+            return t[:, row, start:plen].contiguous().cpu()
 
         return HostKV(host(store.k), host(store.v),
                       host(store.k_scale) if quant else None,
@@ -2293,15 +2395,20 @@ class GenerationEngine:
         self._kvc.offload(victim, self._kv_row_get(self._pool, victim.row,
                                                    plen))
 
-    def _upload_row(self, kv: HostKV, row: int) -> None:
-        """Land a host snapshot's positions [0, plen) in pool row
-        ``row`` (the JAX engine's ``_write_row_from_host``, without its
-        zero-padded Smax-wide row). On the card each plane goes through
-        a pinned staging buffer, as one contiguous [L, plen, ...]
-        block, so the upload is an asynchronous copy on the serving
-        stream; the staging is reused once the previous upload's event
+    def _upload_row(self, kv: HostKV, row: int,
+                    target: llama.KVCache | None = None) -> None:
+        """Land a host snapshot's positions [0, plen) in row ``row`` of
+        ``target`` (the T0 pool by default; a P/D ingest's serving cache
+        or scratch row), the JAX engine's ``_write_row_from_host``
+        without its zero-padded Smax-wide row. Values are copied into
+        the target's tensors in place, which the captured graphs bind.
+        On the card each plane goes through a pinned staging buffer, as
+        one contiguous [L, plen, ...] block, so the upload is an
+        asynchronous copy on the serving stream, behind the blocks in
+        flight; the staging is reused once the previous upload's event
         has passed."""
-        planes = list(zip(self._planes(self._pool), self._planes(kv)))
+        target = self._pool if target is None else target
+        planes = list(zip(self._planes(target), self._planes(kv)))
         with torch.no_grad():
             if self.device.type != "cuda":
                 for dst, src in planes:
@@ -2459,6 +2566,135 @@ class GenerationEngine:
                 trace_id=req.stream.trace_id)
         req.stream.failed = "hbm exhausted: shed"
         self._end_stream(req.stream, err)
+
+    # -- disaggregated serving (pd/) -----------------------------------------
+    @staticmethod
+    def _expiry_where(req: _Request, default: str) -> str:
+        """Where an expiry is counted: an ingested (P/D-shipped) request
+        died after the pool handoff, whatever stage this worker was at."""
+        return "post-handoff" if req.ingest is not None else default
+
+    def _ship_range(self, row: int, req: _Request, upto: int) -> bool:
+        """Prefill-only KV ship: positions [``req.kv_shipped``, ``upto``)
+        of the slot's row to the host and into the request's sink (the
+        P/D shipper frames and sends them). A sink that raises (the peer
+        gone, the ship window stalled past its deadline) fails THIS
+        request through the cancel path and returns False; it never
+        reaches the loop's recovery, the engine is healthy."""
+        if req.kv_sink is None or upto <= req.kv_shipped:
+            return True
+        if req.stream.cancelled.is_set():
+            # a dead request (a client cancel, or an earlier ship failure
+            # that cancelled it) must not block the loop for another
+            # window deadline shipping KV nobody will install
+            return False
+        try:
+            kv = self._kv_row_get(self.cache, row, upto,
+                                  start=req.kv_shipped)
+            req.kv_sink(kv, req.kv_shipped, len(req.prompt))
+            req.kv_shipped = upto
+            return True
+        except BaseException as e:  # noqa: BLE001 — one request's failure
+            req.stream.failed = f"kv ship failed: {e!r}"
+            req.stream._q.put(GenerationError(f"kv ship failed: {e!r}"))
+            req.stream.cancel()
+            # the JAX engine's flight-recorder event; the port has no
+            # recorder yet (ROADMAP item 13c), so it is guarded on one
+            recorder = getattr(getattr(self, "_observe", None), "recorder",
+                               None)
+            if recorder is not None:
+                recorder.record(
+                    "kv_ship_failed", request_id=req.stream.request_id,
+                    trace_id=req.stream.trace_id, shipped=req.kv_shipped,
+                    prompt_len=len(req.prompt), error=repr(e))
+            if self.logger is not None:
+                self.logger.warn({"event": "pd kv ship failed",
+                                  "request_id": req.stream.request_id,
+                                  "shipped": req.kv_shipped,
+                                  "error": repr(e)})
+            return False
+
+    def _validate_ingest(self, ingest, prompt: np.ndarray) -> None:
+        """Refuse shipped KV that cannot land in this engine's cache
+        before it is queued (the ingest server relays the error typed);
+        nothing here touches the device. Each frame's integrity was
+        checked at the transfer boundary (quant.decode_block)."""
+        kv, _, _ = ingest
+        if kv.plen != len(prompt):
+            raise GenerationError(
+                f"ingest KV covers {kv.plen} tokens but the prompt has "
+                f"{len(prompt)}: the transfer is incomplete")
+        cfg = self.cfg
+        if (kv.k.shape[0] != cfg.n_layers
+                or tuple(kv.k.shape[2:]) != (cfg.n_kv_heads, cfg.head_dim)):
+            raise GenerationError(
+                f"ingest KV layout {tuple(kv.k.shape)} does not match this "
+                f"engine ({cfg.n_layers} layers, {cfg.n_kv_heads} KV "
+                f"heads, head_dim {cfg.head_dim})")
+        if self.cache.k_scale is not None and kv.k_scale is None:
+            raise GenerationError("ingest KV lacks scale planes but the "
+                                  "serving cache is int8-quantized")
+        if kv.k.dtype != self.cache.k.dtype:
+            raise GenerationError(
+                f"ingest KV dtype {kv.k.dtype} != serving cache dtype "
+                f"{self.cache.k.dtype}")
+
+    def _ingest_blocks(self, req: _Request):
+        """Pool blocks for one shipped-KV admission on a paged engine:
+        all fresh (the rows are installed, not matched), evicting LRU
+        stored prefixes under pressure as a local admission does. None:
+        a transient shortage, requeue."""
+        need = -(-len(req.prompt) // self._block_t)
+        fresh = self._alloc.alloc(need)
+        while fresh is None and self._prefix_idx is not None \
+                and self._prefix_idx.evict_one():
+            fresh = self._alloc.alloc(need)
+        if fresh is None:
+            return None
+        return [], 0, fresh
+
+    def _ingest_install(self, idx: int, req: _Request,
+                        blocks) -> tuple[int, float]:
+        """Land a prefill worker's shipped KV in slot ``idx`` with no
+        prefill compute, and return the shipped first token. The upload
+        is leased from the arbiter first (``pd-ingest``, PRI_SCRATCH):
+        under memory pressure the request sheds 429 here instead of the
+        decode pool running out. A contiguous engine copies the rows
+        straight into the slot's row of the serving cache and sets its
+        cursor; a paged one stages them in the scratch row and replays
+        the write-back graph into the slot's fresh blocks (``blocks``),
+        which sets the cursor. Every copy writes the captured tensors in
+        place, on the serving stream behind the blocks in flight. The T0
+        store in ``_start`` then keeps the ingested prompt like a
+        prefilled one."""
+        kv, first, first_lp = req.ingest
+        n = kv.plen
+        hbm.lease("pd-ingest", kv.nbytes, owner=self, tag="stage",
+                  priority=hbm.PRI_SCRATCH)
+        try:
+            if self._paged:
+                fresh = blocks[2]
+                self._slot_blocks[idx] = list(fresh)
+                self._cursors[idx] = n
+                self._upload_row(kv, 0, self._scratch)
+                self._admission_inputs(
+                    (), req, length=n, slot=idx,
+                    blocks=list(fresh) + [0] * (self._mb - len(fresh)))
+                self._run_admission(("writeback",))
+                self._write_table_row(idx)
+            else:
+                self._upload_row(kv, idx, self.cache)
+                self.cache.lengths[idx] = n
+        finally:
+            hbm.release("pd-ingest", owner=self, tag="stage")
+        req.stream.cache_tier = "pd-ship"
+        req.stream.cache_tokens = n
+        if self.metrics is not None:
+            try:
+                self.metrics.increment_counter("app_tpu_pd_ingests_total")
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+        return int(first), float(first_lp)
 
     # -- the arbiter's reclaim callbacks -------------------------------------
     def _hbm_pool_reclaim(self, need: int) -> int:

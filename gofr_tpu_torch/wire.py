@@ -5,7 +5,9 @@ by the gRPC transport (grpcx) and the App's HTTP streamer.
       backlog, so a producer thread can hand bytes to the wire without
       ever blocking on the socket or on another writer. One syscall
       carries many frames; partial or contended writes park in the
-      backlog and ride out with the next write.
+      backlog and ride out with the next write. ``backlog_bytes`` is
+      the parked total, which ``observe_backlog`` exports as a gauge
+      and the P/D ship window (pd/protocol) bounds.
   Outbox -- an ordered multi-producer send queue drained by whichever
       thread is available (thread-combining), never by a dedicated
       flusher thread: a fused decode block delivering K tokens back to
@@ -20,8 +22,8 @@ by the gRPC transport (grpcx) and the App's HTTP streamer.
       source a per-consumer transform (gRPC messages, HTTP ndjson
       lines).
 
-Everything here is stdlib-only and transport-agnostic; grpcx frames and
-HTTP chunked encoding both sit on top.
+Everything here is stdlib-only and transport-agnostic; grpcx frames,
+HTTP chunked encoding and the P/D KV-ship frames (pd/) sit on top.
 """
 
 from __future__ import annotations
@@ -151,6 +153,15 @@ class SocketWriter:
         """Blocking drain of any backlog left by nonblocking writes."""
         self.write([], block=True)
 
+    @property
+    def backlog_bytes(self) -> int:
+        """Bytes parked by nonblocking writes and not yet on the wire:
+        the flow-control signal a windowed producer (the P/D KV-ship
+        path) bounds itself against, instead of letting the backlog grow
+        without limit behind a stalled peer."""
+        with self._blk:
+            return len(self._backlog)
+
     def close(self) -> None:
         with self._blk:
             self._closed = True
@@ -162,6 +173,21 @@ class SocketWriter:
         except OSError:
             pass
         self.sock.close()
+
+
+def observe_backlog(metrics, backlog_bytes: int, **labels) -> None:
+    """Export one outbox-backlog sample (``app_tpu_wire_backlog_bytes``,
+    labelled by the caller's role): the flow-control signal
+    ``backlog_bytes`` tracks, made scrapeable so a stalled peer shows on
+    a dashboard before it shows as a deadline storm. Swallows every
+    failure: telemetry must never take a send path down."""
+    if metrics is None:
+        return
+    try:
+        metrics.set_gauge("app_tpu_wire_backlog_bytes",
+                          float(backlog_bytes), **labels)
+    except Exception:  # noqa: BLE001 — telemetry only
+        pass
 
 
 class Outbox:

@@ -35,7 +35,9 @@ hand to another tensor; under a tenancy plane routing three tenants to
 three adapters, a replay after a swap and a tenant's stream equals the
 eager block too. A port gateway App over two replica Apps on the card
 routes a request to its owner and resumes a cut stream on the other
-replica. They
+replica. A P/D pair of Apps on the card (a prefill worker shipping int8
+KV to a decode worker) streams what the decode worker's own fused
+serving answers, for a bucket prompt and a lattice one. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1268,6 +1270,66 @@ def test_a_gateway_over_two_replicas_on_the_card(gen, monkeypatch):
         if gw is not None:
             gw.stop()
         for app in reps:
+            app.stop()
+
+
+def test_a_pd_pair_on_the_card_equals_fused_serving(gen, monkeypatch):
+    """A decode-role ``gofr_tpu_torch.App`` (``TPU_SERVING_ROLE=decode``,
+    ``TPU_PD_LISTEN`` on port 0) and a prefill-role one pointed at it, on
+    "cuda" with the small bf16 Llama from seed 0 and an int8 cache: a
+    greedy request to the prefill worker's POST /generate (a bucket
+    prompt, then one past the largest bucket, shipped mid-lattice)
+    streams what the decode worker answers on its own, fused, and a
+    seeded sampled one too."""
+    import json
+    import urllib.request
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.serving import install_generate
+
+    monkeypatch.setitem(LLAMA_CONFIGS, "llama-small", SMALL)
+    rows = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "WARN",
+            "TPU_MODEL": "llama-small", "TPU_SLOTS": "2",
+            "TPU_MAX_SEQ": "256", "TPU_SEQ_BUCKETS": "16,32,64"}
+    apps = []
+
+    def post(port, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps(body).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return [json.loads(x)["token"] for x in r.read().splitlines()
+                    if x]
+
+    try:
+        dec = App(MapConfig(dict(rows, APP_NAME="decode",
+                                 TPU_SERVING_ROLE="decode",
+                                 TPU_PD_LISTEN="127.0.0.1:0")))
+        install_generate(dec)
+        dec.run(block=False)
+        apps.append(dec)
+        port = dec.container.tpu.pd_ingest.port
+        pre = App(MapConfig(dict(rows, APP_NAME="prefill",
+                                 TPU_SERVING_ROLE="prefill",
+                                 TPU_PD_PEER=f"127.0.0.1:{port}")))
+        install_generate(pre)
+        pre.run(block=False)
+        apps.append(pre)
+        for app in apps:
+            assert app.container.tpu.generator.device.type == "cuda"
+        for n, extra in ((40, {}), (150, {}),
+                         (40, {"temperature": 0.8, "top_k": 50, "seed": 7})):
+            prompt = [int(x) for x in torch.randint(
+                1, SMALL.vocab_size, (n,), generator=gen, device="cuda")]
+            body = {"tokens": prompt, "max_new": 16, **extra}
+            got = post(pre.http_port, body)
+            assert got == post(dec.http_port, body) and len(got) == 16
+        assert pre.container.tpu.pd_prefill.stats()["relayed"] == 3
+        assert dec.container.tpu.health_check().details["pd"]["ingests"] == 3
+    finally:
+        for app in reversed(apps):
             app.stop()
 
 

@@ -31,6 +31,7 @@ from gofr_tpu.models import VIT_CONFIGS as JVIT
 from gofr_tpu.models import bert as jbert
 from gofr_tpu.models import llama as jllama
 from gofr_tpu.models import vit as jvit
+from gofr_tpu.pd import wire_role as jwire_role
 from gofr_tpu.tpu import new_engine_from_config as jnew_engine
 from gofr_tpu.tpu.checkpoint import save_npz
 from gofr_tpu.tpu.engine import TPUEngine
@@ -314,14 +315,30 @@ def test_the_predict_rows_are_honoured_as_in_jax(npz):
 
 
 @pytest.mark.parametrize("row", ["TPU_SHARDING", "TPU_TENANTS",
-                                 "TPU_PD_PEER",
+                                 "TPU_SERVING_ROLE",
                                  "TPU_HBM_DEVICE_BUDGET_MB",
                                  "TPU_TENANTS_INLINE"])
 def test_every_other_row_still_raises_with_its_name(npz, row):
     """An unported row raises ValueError naming it; the two tenant rows,
     honoured since the tenancy slice, are refused by name when the
     registry cannot be read ("4" is no readable path and no registry
-    document)."""
+    document). The P/D roles, honoured since the P/D slice, need a
+    decoder: ``TPU_SERVING_ROLE=prefill`` on BERT raises "requires a
+    decoder model" on both packages (JAX's through its role wiring, as
+    its ``new_engine_from_config`` would leave the engine running)."""
+    if row == "TPU_SERVING_ROLE":
+        rows = {"TPU_SERVING_ROLE": "prefill", "TPU_PD_PEER": "127.0.0.1:1"}
+        jeng = _build("jax", npz, "bert-tiny")
+        try:
+            with pytest.raises(ValueError, match="requires a decoder model"):
+                jwire_role(jeng, "prefill",
+                           JMapConfig(dict(ROWS, TPU_MODEL="bert-tiny",
+                                           **rows)))
+        finally:
+            jeng.close()
+        with pytest.raises(ValueError, match="requires a decoder model"):
+            _build("port", npz, "bert-tiny", **rows)
+        return
     with pytest.raises(ValueError, match=row):
         _build("port", npz, "bert-tiny", **{row: "4"})
 

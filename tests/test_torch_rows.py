@@ -8,9 +8,11 @@ each ``TPU_GATEWAY_*`` row reads the same on both. With a ``TPU_MODEL``
 row beside the gateway role the JAX App logs the engine's "builds no
 engine" error and serves the gateway without an engine, where the
 port's raises it (the port's rule that nothing falls back on its own).
-The fleet, timeline and multi-host rows the port reads nowhere, and the
-``prefill`` role, raise by name; ``fused``, the JAX default role,
-builds.
+The fleet, timeline and multi-host rows the port reads nowhere raise by
+name; ``fused``, the JAX default role, builds. The ``prefill`` role
+reads alike on both: with no model both Apps build without an engine,
+and with one both raise for the missing ``TPU_PD_PEER`` (the port's
+App; JAX's role wiring, which its App would log).
 """
 
 import pytest
@@ -18,6 +20,8 @@ import pytest
 import gofr_tpu
 import gofr_tpu_torch
 from gofr_tpu.config import MapConfig as JMapConfig
+from gofr_tpu.pd import wire_role as jwire_role
+from gofr_tpu.tpu import new_engine_from_config as jnew_engine
 from gofr_tpu_torch.config import MapConfig
 
 BASE = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "ERROR"}
@@ -110,6 +114,35 @@ def _gateway_row_reads_alike(row, value, model):
         papp.stop()
 
 
+def _pd_role_reads_alike(value, model):
+    """A P/D role on both packages: with a model row, both raise for the
+    missing ``TPU_PD_PEER`` (JAX's role wiring on an engine the test
+    closes, as JAX's ``new_engine_from_config`` would leave it running,
+    and the port's App); with none, both Apps build without an engine."""
+    rows = {"TPU_SERVING_ROLE": value}
+    if model is not None:
+        rows["TPU_MODEL"] = model
+        jeng = jnew_engine(JMapConfig({"TPU_MODEL": model}))
+        try:
+            with pytest.raises(ValueError, match="TPU_PD_PEER"):
+                jwire_role(jeng, value, JMapConfig(rows))
+        finally:
+            jeng.close()
+        with pytest.raises(ValueError, match="TPU_PD_PEER"):
+            _port_app(rows)
+        return
+    japp = _jax_app(rows)
+    papp = _port_app(rows)
+    try:
+        assert japp.container.tpu is None and papp.container.tpu is None
+    finally:
+        japp.stop()
+        papp.stop()
+
+
+# The test below keeps the name it had while the port refused the
+# gateway and prefill roles; those cases now hold the two packages alike.
+
 @pytest.mark.parametrize("row,value", [
     ("TPU_GATEWAY_REPLICAS", REPLICAS),
     ("TPU_GATEWAY_PATH", "/v1/generate"),
@@ -126,6 +159,9 @@ def test_the_port_refuses_each_row_it_reads_nowhere_by_name(row, value,
                                                             model):
     if row.startswith("TPU_GATEWAY_"):
         _gateway_row_reads_alike(row, value, model)
+        return
+    if row == "TPU_SERVING_ROLE":
+        _pd_role_reads_alike(value, model)
         return
     rows = {row: value}
     if model is not None:
@@ -145,3 +181,46 @@ def test_the_fused_role_builds_on_both(role):
     finally:
         japp.stop()
         papp.stop()
+
+
+def _pd_reading(engine) -> dict:
+    """What an engine's P/D half made of its rows."""
+    if engine.pd_prefill is not None:
+        c = engine.pd_prefill
+        return {"role": engine.serving_role, "peer": c.peer,
+                "block": c.ship_block, "window": c.window_bytes,
+                "resume": (c.resume, c.resume_max, c.resume_wait_s)}
+    s = engine.pd_ingest
+    return {"role": engine.serving_role, "listening": s.stats()["listening"],
+            "host": s.host, "window": s.window_bytes}
+
+
+@pytest.mark.parametrize("row,value,want", [
+    ("TPU_PD_BLOCK", "32", {"block": 32}),
+    ("TPU_PD_WINDOW_MB", "2", {"window": 2 << 20}),
+    ("TPU_RESUME_PD", "false", {"resume": (False, 3, 5.0)}),
+    ("TPU_RESUME_WAIT_S", "7.5", {"resume": (True, 3, 7.5)}),
+    ("TPU_PD_LISTEN", "127.0.0.1:0", {"listening": True}),
+])
+def test_the_pd_rows_read_alike(row, value, want):
+    """Each P/D row reads the same on both packages' coordinator (the
+    ``prefill`` role, or the ``decode`` role's listener for
+    ``TPU_PD_LISTEN``), built by each package's ``new_engine_from_config``
+    on tiny."""
+    from gofr_tpu_torch.tpu import new_engine_from_config
+
+    role = "decode" if row == "TPU_PD_LISTEN" else "prefill"
+    rows = {"TPU_MODEL": "tiny", "TPU_SLOTS": "2", "TPU_SERVING_ROLE": role,
+            "TPU_PD_PEER": "127.0.0.1:1", row: value}
+    jeng = jnew_engine(JMapConfig(rows))
+    try:
+        peng = new_engine_from_config(MapConfig(rows), device="cpu")
+        try:
+            got = _pd_reading(peng)
+            assert got == _pd_reading(jeng)
+            assert {k: got[k] for k in want} == want
+            assert got["role"] == role
+        finally:
+            peng.close()
+    finally:
+        jeng.close()

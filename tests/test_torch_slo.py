@@ -386,7 +386,8 @@ def test_expiries_are_counted_by_where(weights):
         assert _outcome(blocker)[0] == "ok"
         assert _error(victim)[0] == "DeadlineExceeded"
         assert eng.stats()["expired"] == {"pre-queue": 1, "queue": 1,
-                                          "mid-prefill": 0, "mid-decode": 0}
+                                          "mid-prefill": 0, "mid-decode": 0,
+                                          "post-handoff": 0}
         text = m.render_prometheus()
         assert any(line.startswith("app_tpu_expired_dropped_total")
                    and line.endswith(" 2.0") for line in text.splitlines())
