@@ -301,11 +301,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      32 a bucket admission (P's, the re-handoff's included, and D's and
      Dp's fused references), K2 32 a decode step of D, K3 32 a decode
      step of Dp, none on P;
+  5o. (phase ``tp``) tensor-parallel serving on the one card: K1, K2,
+     K3 and K3w (int8) at the per-rank head counts (16, 4), (8, 2),
+     (4, 1) and (8, 1) held against their plain versions and timed;
+     then Llama-3-8B at phase 5's rows (full width and depth, seed-0
+     weights) at tp=1 (8 greedy streams of 32 tokens, X + S + X prompts'
+     first tokens, score logits), freed; then a ``gofr_tpu_torch.App``
+     with TPU_SHARDING=tp=2 (this process rank 0, one worker process,
+     both on cuda:0, the device group over gloo, dispatches eager): 8
+     POST /generate streams and a score of each prompt, the score logits
+     within TP_LOGIT_ATOL of tp=1's and every first token equal, each
+     stream's first index parting from tp=1's printed, both ranks' carry
+     and cursors equal, K1 32 an admission or score dispatch and K2 32 a
+     decode step on each rank (counted through ``tp_probe``), the
+     leased bytes and building peak of each rank, tok/s, TTFT, the step
+     and one all_reduce's time by shape; the App's stop ends the worker;
+     then a paged tp=2 engine with TPU_SPEC_DECODE=4 serving 4 X + S + X
+     streams: K1, K3 and K3w on both ranks, the same counts on each, a
+     first token that differs from tp=1's only at a near tie (within
+     TP_TIE_ATOL of the winner in the logits the tp=2 admission sampled
+     it from and in tp=1's score logits);
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
      5's, the score run's and phases grpc's, tiers', lora's, tenancy's,
-     gateway's and pd's; flash_decode's phase 5's and phases grpc's,
-     tiers', lora's, tenancy's, gateway's and pd's; paged_decode's phase
-     paged's, lora's and pd's),
+     gateway's, pd's and tp's; flash_decode's phase 5's and phases
+     grpc's, tiers', lora's, tenancy's, gateway's, pd's and tp's;
+     paged_decode's phase paged's, lora's, pd's and tp's; paged_window's
+     phase spec's and tp's; phase tp's summed over its two ranks),
      then the card line, then the ``{"ok": true, "device": {...}}`` line
      last.
 
@@ -6889,13 +6910,365 @@ def phase_pd(card: str) -> dict:
             "paged_decode": counts["paged_decode"]}
 
 
+# -- phase tp: tensor-parallel serving (TPU_SHARDING=tp=2) --------------------
+
+TP_ROWS = {"TPU_MODEL": "llama3-8b", "TPU_SLOTS": "8", "TPU_MAX_SEQ": "2048",
+           "TPU_KV_DTYPE": "int8", "TPU_DECODE_BLOCK": "4"}
+TP_APP_ROWS = dict(TP_ROWS, TPU_SHARDING="tp=2", HTTP_PORT="0",
+                   METRICS_PORT="0", LOG_LEVEL="WARN",
+                   APP_NAME="chip-smoke-tp")
+TP_PAGED_ROWS = dict(TP_ROWS, TPU_SHARDING="tp=2", TPU_PAGED_BLOCK="128",
+                     TPU_PAGED_BLOCKS="65", TPU_SPEC_DECODE="4")
+TP_SEED = 61
+TP_LENS = [17, 500, 123, 256, 64, 300, 40, 200]   # each a bucket admission
+TP_NEW = 32
+# the paged prompts are X + S + X, S tp=1's greedy continuation of X, so
+# the prompt-lookup drafts find S after the second X
+TP_PAGED_X = [150, 90, 200, 60]
+TP_PAGED_NEW = 48   # long enough for the streams to fall into drafts
+# the per-rank head counts (H, KV) the kernels are held at: Llama-3-8B at
+# tp = 2, 4, 8 and Llama-3-70B at tp = 8
+TP_SHAPES = [(16, 4), (8, 2), (4, 1), (8, 1)]
+# tp=2 against tp=1 score logits: both bf16 through 32 layers, the two
+# sum the same products in another order (each rank's partial rounded to
+# bf16, the sum in float32): a few bf16 steps of unit-scale logits per
+# layer, as phase 4's kernels against plain (LOGIT_ATOL over 4 layers)
+TP_LOGIT_ATOL = 0.25
+# a near tie: two candidates within four bf16 steps of logits below 16
+# (0.0625 is one step from 8 to 16); a first token may differ from tp=1's
+# only there, read from the tp=2 engine's own admission logits
+TP_TIE_ATOL = 0.0625
+
+
+def tp_kernel_shapes(card: str) -> dict:
+    """K1, K2 (int8), K3 (int8) and K3w (int8, W = 5) at each per-rank
+    head count of TP_SHAPES: held against their plain versions in float32
+    and timed (prefill B=1 S=512; the decodes 8 slots x 512). Returns
+    {(h, kv): {kernel: ms}}."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(TP_SEED)
+    out = {}
+    for h, kv in TP_SHAPES:
+        recs = {k: {} for k in ("flash_prefill", "flash_decode",
+                                "paged_decode", "paged_window")}
+        prefill_case(g, 1, 512, [512], recs["flash_prefill"], h=h, kv=kv)
+        decode_case(g, [512] * 8, True, recs["flash_decode"], h=h, kv=kv,
+                    main_shape=True)
+        paged_case(g, [512] * 8, True, recs["paged_decode"], h=h, kv=kv,
+                   main_shape=True, timed=True)
+        window_case(g, [512] * 8, 5, True, recs["paged_window"], h=h, kv=kv,
+                    main_shape=True, timed=True)
+        out[(h, kv)] = {k: r.get("ms") for k, r in recs.items()}
+        print(f"[tp] per-rank shape H={h} KV={kv}: kernel ms "
+              f"{ {k: round(v, 5) for k, v in out[(h, kv)].items()} }; "
+              f"card: {card}", flush=True)
+    return out
+
+
+def phase_tp(card: str) -> dict:
+    """Tensor-parallel serving on the one card: Llama-3-8B at full width
+    and depth as two ranks of ``TPU_SHARDING=tp=2`` (this process and one
+    worker process, both on cuda:0, the activations summed over gloo),
+    against a tp=1 engine on the same seed-0 weights built first and
+    freed. Holds the score logits (each prompt's prefill logits) within
+    TP_LOGIT_ATOL of tp=1's and the first token of every stream equal;
+    K1, K2, K3 and K3w launched on both ranks, the same count on each.
+    Returns the launch counts summed over the ranks."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.models.common import LLAMA_CONFIGS
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.serving import install_generate
+    from gofr_tpu_torch.tpu import generator as pgen_mod
+    from gofr_tpu_torch.tpu import hbm, new_engine_from_config
+    from gofr_tpu_torch.tpu.generator import _COUNTERS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_kernel_shapes(card)
+    rng = np.random.default_rng(TP_SEED)
+    vocab = LLAMA_CONFIGS[TP_ROWS["TPU_MODEL"]].vocab_size
+    prompts = [rng.integers(0, vocab, n).tolist() for n in TP_LENS]
+    xs = [rng.integers(0, vocab, n).tolist() for n in TP_PAGED_X]
+
+    def ttft(streams):
+        return [1e3 * (s.trace["first_put"] - s.trace["submit"])
+                for s in streams]
+
+    # tp=1: the reference, on seed-0 weights (CUDA graphs, depth 2)
+    t0 = time.monotonic()
+    ref = new_engine_from_config(MapConfig(TP_ROWS), device="cuda")
+    ready1 = time.monotonic() - t0
+    try:
+        ref.generate(prompts[2], max_new_tokens=4).tokens()
+        outs1, streams1, wall1 = _serve(ref, prompts, {}, TP_NEW)
+        conts, _, _ = _serve(ref, xs, {}, TP_NEW)
+        paged_prompts = [x + s + x for x, s in zip(xs, conts)]
+        paged1, _, _ = _serve(ref, paged_prompts, {}, 1)
+        score1 = [ref.predict("score", np.asarray(p, np.int32))
+                  for p in prompts]
+        pscore1 = [ref.predict("score", np.asarray(p, np.int32))
+                   for p in paged_prompts]
+        step1 = ref.generator.stats()["decode_step_ms_mean"]
+    finally:
+        ref.close()
+    release_graphs(ref.generator)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok_s1 = sum(map(len, outs1)) / wall1
+    print(f"[tp] tp=1 (ready in {ready1:.1f} s): {len(prompts)} streams of "
+          f"{TP_NEW} tokens at {tok_s1:.1f} tok/s, TTFT "
+          f"{stats_line(ttft(streams1))}; card: {card}", flush=True)
+
+    # tp=2: the App, its engine rank 0 of two ranks on cuda:0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    app = App(MapConfig(TP_APP_ROWS))
+    tpu = app.container.tpu
+    gen = tpu.generator
+    install_generate(app)
+    app.run(block=False)
+    ready2 = time.monotonic() - t0
+    mesh = gen.stats()["mesh"]
+    leases = {r["rank"]: r["bytes"] for r in hbm.arbiter_stats()["leases"]
+              if r["subsystem"] == "engine" and "rank" in r}
+    peaks = {r["rank"]: r["peak_bytes"] for r in gen._tp.ready}
+    print(f"[tp] tp=2 App ready in {ready2:.1f} s: ranks on "
+          f"{mesh['ranks']}, device group {mesh['backend']}, graphs "
+          f"{mesh['graphs']}, leased bytes by rank {leases}, peak "
+          f"allocated bytes by rank while building {peaks}, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated by "
+          f"rank 0", flush=True)
+    streams2, lock = [], threading.Lock()
+    generate = tpu.generate
+
+    def tracked(prompt, *args, **kw):
+        s = generate(prompt, *args, **kw)
+        with lock:
+            streams2.append(s)
+        return s
+
+    tpu.generate = tracked
+    results: dict = {}
+    try:
+        warm = http_call(app.http_port, "POST", "/generate",
+                         {"tokens": prompts[2], "max_new": 4})
+        require(warm["status"] == 200 and len(warm["lines"]) == 4,
+                f"tp=2 warm-up: {warm['status']}")
+        streams2.clear()
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        gen.tp_zero_counts()
+        adm0, steps0 = gen.admissions, gen.decode_steps
+
+        def client(i):
+            results[i] = http_call(app.http_port, "POST", "/generate",
+                                   {"tokens": prompts[i], "max_new": TP_NEW})
+
+        t_burst = time.monotonic()
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(APP_JOIN_S)
+        wall2 = time.monotonic() - t_burst
+        require(all(not t.is_alive() for t in threads),
+                "tp=2 clients still waiting")
+        score2 = [tpu.predict("score", np.asarray(p, np.int32))
+                  for p in prompts]
+        dispatches = tpu._programs["score"].dispatches
+        probe = gen.tp_probe()
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+        step2 = gen.stats()["decode_step_ms_mean"]
+        alive = gen.tp_alive()
+        health = tpu.health_check()
+        # where a tp=2 step goes: one float32 sum of a decode step's
+        # partials, of a 512-token admission's, and of the logits
+        reduce_ms = {shape: gen.tp_time_all_reduce(shape, n) for shape, n
+                     in (((8, 1, 4096), 50), ((1, 512, 4096), 20),
+                         ((8, vocab), 20))}
+    finally:
+        app.stop()
+    require(not gen.tp_alive() and all(p.poll() is not None
+                                       for p in gen._tp.procs),
+            "a tp=2 worker outlived the App's stop")
+    require(alive and health.status == "UP",
+            f"tp=2 health {health.status}, ranks alive {alive}")
+    require(mesh["backend"] == "gloo",
+            f"two ranks on one card over {mesh['backend']}")
+    outs2 = []
+    for i in range(len(prompts)):
+        r = results.get(i, {})
+        require(r.get("status") == 200, f"tp=2 request {i}: {r.get('status')}")
+        outs2.append([line["token"] for line in r["lines"]])
+    tok_s2 = sum(map(len, outs2)) / wall2
+    t_first = [1e3 * (results[i]["t_first"] - results[i]["t_send"])
+               for i in range(len(prompts))]
+    names = [f"{mod.__name__.rsplit('.', 1)[1]}.{name}"
+             for mod, name in _COUNTERS]
+    per_rank = [dict(zip(names, (int(x) for x in row[-len(_COUNTERS):])))
+                for row in probe]
+    B = gen.n_slots
+    require((probe[:, :5 * B] == probe[0, :5 * B]).all(),
+            "a worker's carry or cursors differ from rank 0's")
+    require(per_rank[0] == per_rank[1],
+            f"the ranks launched different kernels: {per_rank}")
+    k1, k2 = (per_rank[0]["flash.launches"],
+              per_rank[0]["flash_decode.launches"])
+    require(k1 == LAYERS * (admissions + dispatches),
+            f"K1 launched {k1} times a rank for {admissions} admissions and "
+            f"{dispatches} score dispatches of {LAYERS} layers")
+    require(k2 == LAYERS * steps,
+            f"K2 launched {k2} times a rank for {steps} decode steps")
+    require(per_rank[0]["flash.plain_calls"] == 0
+            and per_rank[0]["flash_decode.plain_calls"] == 0,
+            f"plain versions ran on a rank: {per_rank}")
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(score2, score1)]
+    scale = max(float(np.abs(s).max()) for s in score1)
+    firsts1 = [o[0] for o in outs1]
+    firsts2 = [o[0] for o in outs2]
+    parts = [_first_difference(a, b) for a, b in zip(outs2, outs1)]
+    print(f"[tp] tp=2 {len(prompts)} POST /generate streams of {TP_NEW} "
+          f"tokens at {tok_s2:.1f} tok/s (tp=1 {tok_s1:.1f}), TTFT at the "
+          f"engine {stats_line(ttft(streams2))} (tp=1 "
+          f"{stats_line(ttft(streams1))}), at the client "
+          f"{stats_line(t_first)}; decode step {step2:.2f} ms (tp=1 "
+          f"{step1:.2f} ms); one all_reduce over the device group, ms by "
+          f"shape: { {k: round(v, 4) for k, v in reduce_ms.items()} } "
+          f"({2 * LAYERS + 2} a decode step); "
+          f"{admissions} admissions, {steps} decode "
+          f"steps, {dispatches} score dispatches; launches a rank "
+          f"{per_rank}; score logits against tp=1: max |diff| "
+          f"{max(diffs):.4e} (atol {TP_LOGIT_ATOL}; max |logit| "
+          f"{scale:.3f}); first index where each stream parts from tp=1's: "
+          f"{parts}; card: {card}", flush=True)
+    require(max(diffs) <= TP_LOGIT_ATOL,
+            f"tp=2 score logits differ from tp=1's by {max(diffs)}")
+    require([int(np.argmax(s)) for s in score2] == firsts1,
+            "a tp=2 score argmax is not tp=1's first token")
+    require(firsts2 == firsts1,
+            f"first tokens differ: tp=2 {firsts2}, tp=1 {firsts1}")
+    counts = {"flash_prefill": k1 * 2, "flash_decode": k2 * 2}
+    del app, tpu, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the paged engine at tp=2, with spec decode: K1, K3 and K3w
+    t0 = time.monotonic()
+    eng = new_engine_from_config(MapConfig(TP_PAGED_ROWS), device="cuda")
+    pgen = eng.generator
+    try:
+        eng.generate(paged_prompts[0][:40], max_new_tokens=4).tokens()
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        pgen.tp_zero_counts()
+        adm0, steps0, passes0 = (pgen.admissions, pgen.decode_steps,
+                                 pgen.verify_passes)
+        # rank 0's summed logits at each admission's first token (a TP
+        # engine dispatches eagerly, so the module function runs each
+        # time): what a paged first token was sampled from
+        first_logits = []
+        first_token = pgen_mod._first_token
+
+        def recording(logits, inp, draw):
+            first_logits.append((int(inp.length.item()),
+                                 logits[0].float().cpu().numpy()))
+            return first_token(logits, inp, draw)
+
+        pgen_mod._first_token = recording
+        try:
+            outs3, streams3, wall3 = _serve(eng, paged_prompts, {},
+                                            TP_PAGED_NEW)
+        finally:
+            pgen_mod._first_token = first_token
+        probe = pgen.tp_probe()
+        pscore2 = [eng.predict("score", np.asarray(p, np.int32))
+                   for p in paged_prompts]
+        admissions = pgen.admissions - adm0
+        steps = pgen.decode_steps - steps0
+        passes = pgen.verify_passes - passes0
+        pstats = pgen.stats()
+    finally:
+        eng.close()
+    require(all(p.poll() is not None for p in pgen._tp.procs),
+            "a paged tp=2 worker outlived close()")
+    per_rank = [dict(zip(names, (int(x) for x in row[-len(_COUNTERS):])))
+                for row in probe]
+    require(per_rank[0] == per_rank[1],
+            f"the paged ranks launched different kernels: {per_rank}")
+    pk1 = per_rank[0]["flash.launches"]
+    k3 = per_rank[0]["paged_attention.launches"]
+    k3w = per_rank[0]["paged_attention.window_launches"]
+    print(f"[tp] paged tp=2 + TPU_SPEC_DECODE=4 (ready and served in "
+          f"{time.monotonic() - t0:.1f} s): {len(paged_prompts)} streams "
+          f"of {TP_PAGED_NEW} tokens at {sum(map(len, outs3)) / wall3:.1f} tok/s, "
+          f"TTFT {stats_line(ttft(streams3))}; {admissions} admissions, "
+          f"{steps} decode steps, {passes} verify passes "
+          f"({pstats['spec_decode']['tokens_per_window']} tokens a "
+          f"window); launches a rank {per_rank}; first tokens "
+          f"{[o[0] for o in outs3]} (tp=1 {[o[0] for o in paged1]}); "
+          f"card: {card}", flush=True)
+    # a first token may differ from tp=1's only at a near tie: within
+    # TP_TIE_ATOL of the winner in the logits the tp=2 engine sampled it
+    # from, and in tp=1's score logits
+    pdiff = max(float(np.abs(a - b).max()) for a, b in zip(pscore2, pscore1))
+    own = []
+    for p, o in zip(paged_prompts, outs3):
+        hits = [lg for n, lg in first_logits
+                if n == len(p) and int(np.argmax(lg)) == o[0]]
+        require(hits, f"no admission of length {len(p)} sampled the paged "
+                f"tp=2 first token {o[0]}")
+        own.append(hits[0])
+    ties = [(i, float(l2.max() - l2[t1[0]]),
+             float(pscore1[i].max() - pscore1[i][t2[0]]))
+            for i, (l2, t1, t2) in enumerate(zip(own, paged1, outs3))
+            if t1[0] != t2[0]]
+    print(f"[tp] paged prompts' score logits against tp=1: max |diff| "
+          f"{pdiff:.4e}; first tokens that differ from tp=1's (prompt, "
+          f"tp=1's token below tp=2's in tp=2's admission logits, tp=2's "
+          f"below tp=1's in tp=1's score logits): {ties} (tie limit "
+          f"{TP_TIE_ATOL})", flush=True)
+    require(pdiff <= TP_LOGIT_ATOL,
+            f"paged tp=2 score logits differ from tp=1's by {pdiff}")
+    require(all(g2 <= TP_TIE_ATOL and g1 <= TP_TIE_ATOL
+                for _, g2, g1 in ties),
+            f"a paged tp=2 first token differs from tp=1's past a near "
+            f"tie: {ties}")
+    require(pk1 == LAYERS * admissions and k3 == LAYERS * steps
+            and k3w == LAYERS * passes,
+            f"paged tp=2 launches {per_rank[0]} for {admissions} "
+            f"admissions, {steps} decode steps, {passes} verify passes")
+    require(k3 > 0 and k3w > 0, "K3 or K3w never ran on the paged ranks")
+    require(per_rank[0]["paged_attention.plain_calls"] == 0
+            and per_rank[0]["paged_attention.window_plain_calls"] == 0,
+            f"plain versions ran on a paged rank: {per_rank}")
+    counts["flash_prefill"] += 2 * pk1
+    counts["paged_decode"] = 2 * k3
+    counts["paged_window"] = 2 * k3w
+    del eng, pgen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
                 "durable", "slo", "app", "predict", "grpc", "tiers", "lora",
-                "pubsub", "tenancy", "gateway", "pd")) -> dict:
+                "pubsub", "tenancy", "gateway", "pd", "tp")) -> dict:
     import torch
 
     card = card_line()
@@ -6951,10 +7324,12 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             # K1's count: phase 5's main path plus the score run
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
-        elif phase in ("grpc", "tiers", "lora", "tenancy", "gateway", "pd"):
+        elif phase in ("grpc", "tiers", "lora", "tenancy", "gateway", "pd",
+                       "tp"):
             counts = {"grpc": phase_grpc, "tiers": phase_tiers,
                       "lora": phase_lora, "tenancy": phase_tenancy,
-                      "gateway": phase_gateway, "pd": phase_pd}[phase](card)
+                      "gateway": phase_gateway, "pd": phase_pd,
+                      "tp": phase_tp}[phase](card)
             # K1's, K2's (and K3's) counts: the earlier phases' plus this
             # run's
             for name, n in counts.items():

@@ -45,7 +45,7 @@ from .observe import RequestRegistry
 # multi-host rows the port reads nowhere
 UNPORTED_ROWS = ("DB_HOST", "DB_DIALECT", "REMOTE_LOG_URL",
                  "TPU_OBS_PEERS", "TPU_TIMELINE_EVENTS", "TPU_COORDINATOR",
-                 "TPU_NUM_PROCESSES")
+                 "TPU_NUM_PROCESSES", "TPU_PROCESS_ID")
 # the serving roles the port serves: the fused replica, the gateway and
 # the two P/D pools (gofr_tpu_torch/pd)
 SERVING_ROLES = ("fused", "gateway", "prefill", "decode")

@@ -99,6 +99,18 @@ class MissingParameter(BadRequest):
         self.params = params
 
 
+class ShardingConfigError(GofrError, ValueError):
+    """A ``TPU_SHARDING`` configuration the engine refuses to serve
+    with: raised when the engine is built, before any weights or
+    request, naming the offending row (``sharding_row``) so the
+    operator fixes the config line. A ValueError, so config-validation
+    callers that catch ValueError keep working."""
+
+    def __init__(self, message: str, sharding_row: str = ""):
+        super().__init__(message)
+        self.sharding_row = sharding_row
+
+
 class InternalServerError(HTTPError):
     status_code = 500
 

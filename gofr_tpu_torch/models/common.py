@@ -3,7 +3,8 @@ gofr_tpu/models/common.py)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
+from typing import Any
 
 import torch
 
@@ -46,6 +47,29 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """One tensor-parallel rank's view of a model (parallel.sharding.
+    rank_config): ``n_heads``, ``n_kv_heads`` and ``ffn_dim`` are the
+    rank's own shard, ``head_dim`` stays the model's, and the rank's
+    embedding rows and LM-head columns are the vocabulary ids
+    [vocab_lo, vocab_hi) (the whole vocabulary when it is replicated).
+    ``comm`` (parallel.distributed.TPComm) sums the ranks' partial
+    results; the model code calls it where a ``ModelConfig`` has none,
+    so a tp = 1 model runs unchanged."""
+
+    tp: int = 1
+    rank: int = 0
+    full_heads: int = 1
+    vocab_lo: int = 0
+    vocab_hi: int = 0
+    comm: Any = field(default=None, compare=False, hash=False, repr=False)
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.full_heads
 
 
 LLAMA_CONFIGS = {

@@ -91,9 +91,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int | None = None,
         v_scale=zeros(shape[:-1], torch.float32) if quant else None)
 
 
-def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
+def init(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+         leaf=None) -> dict:
     """Random-init params on ``device`` from a seeded ``torch.Generator``;
-    the same dict layout a checkpoint loader fills."""
+    the same dict layout a checkpoint loader fills. ``leaf(name,
+    tensor)``, if given, maps each leaf as soon as it is drawn (a
+    tensor-parallel rank's slice: tpu.checkpoint.rank_params), so the
+    whole model never exists at once; the draws are the same."""
     if cfg.n_experts > 0:
         raise NotImplementedError("the port serves dense Llama models; "
                                   "MoE is not ported yet")
@@ -105,26 +109,32 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
                               cfg.n_kv_heads, cfg.head_dim, cfg.ffn_dim,
                               cfg.vocab_size)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=device)
+    leaf = leaf or (lambda name, t: t)
 
+    def ones(name, *shape):
+        return leaf(name, torch.ones(shape, dtype=dt, device=device))
+
+    def draw(name, shape, scale=None):
+        return leaf(name, dense_init(shape, dt, gen, scale=scale))
+
+    # drawn in this order, whatever ``leaf`` does
     params = {
-        "embedding": dense_init((V, D), dt, gen, scale=0.02),
+        "embedding": draw("embedding", (V, D), scale=0.02),
         "layers": {
-            "attn_norm": ones(L, D),
-            "wq": dense_init((L, D, H * hd), dt, gen),
-            "wk": dense_init((L, D, KV * hd), dt, gen),
-            "wv": dense_init((L, D, KV * hd), dt, gen),
-            "wo": dense_init((L, H * hd, D), dt, gen),
-            "ffn_norm": ones(L, D),
-            "w_gate": dense_init((L, D, Fd), dt, gen),
-            "w_up": dense_init((L, D, Fd), dt, gen),
-            "w_down": dense_init((L, Fd, D), dt, gen),
+            "attn_norm": ones("attn_norm", L, D),
+            "wq": draw("wq", (L, D, H * hd)),
+            "wk": draw("wk", (L, D, KV * hd)),
+            "wv": draw("wv", (L, D, KV * hd)),
+            "wo": draw("wo", (L, H * hd, D)),
+            "ffn_norm": ones("ffn_norm", L, D),
+            "w_gate": draw("w_gate", (L, D, Fd)),
+            "w_up": draw("w_up", (L, D, Fd)),
+            "w_down": draw("w_down", (L, Fd, D)),
         },
-        "final_norm": ones(D),
+        "final_norm": ones("final_norm", D),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init((D, V), dt, gen)
+        params["lm_head"] = draw("lm_head", (D, V))
     return params
 
 
@@ -218,20 +228,56 @@ def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend,
     k = apply_rope(k, cos, sin, positions)
     attn = attend(q, k, v).reshape(B, S, H * hd)
     # (x + base) + delta, the JAX package's order
-    x = x + qmatmul(attn, w["wo"])
+    x = x + _reduce(cfg, qmatmul(attn, w["wo"]))
     delta = _lora(attn, w, "wo", adapter)
     if delta is not None:
         x = x + delta
     h = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
     gated = F.silu(qmatmul(h, w["w_gate"])) * qmatmul(h, w["w_up"])
-    return x + qmatmul(gated, w["w_down"]), (k, v)
+    return x + _reduce(cfg, qmatmul(gated, w["w_down"])), (k, v)
+
+
+def _reduce(cfg: ModelConfig, part: torch.Tensor) -> torch.Tensor:
+    """A row-parallel projection's partial sum, summed over the
+    tensor-parallel ranks in float32 (``cfg.comm``; a RankConfig); a
+    model without ranks returns ``part`` itself."""
+    comm = getattr(cfg, "comm", None)
+    if comm is None:
+        return part
+    return comm.all_reduce(part.float()).to(part.dtype)
+
+
+def _embed(params: dict, cfg: ModelConfig, tokens) -> torch.Tensor:
+    """Token embeddings in the model dtype. A rank of a vocab-split
+    embedding looks up the ids in its rows [vocab_lo, vocab_hi), zeros
+    the rest, and the ranks sum (one rank holds each id, so the sum is
+    exact)."""
+    emb = params["embedding"]
+    comm = getattr(cfg, "comm", None)
+    if comm is None or emb.shape[0] == cfg.vocab_size:
+        return emb[tokens].to(cfg.tdtype)
+    local = tokens.long() - cfg.vocab_lo
+    inside = (local >= 0) & (local < emb.shape[0])
+    rows = emb[local.clamp(0, emb.shape[0] - 1)].float()
+    rows = torch.where(inside[..., None], rows, 0.0)
+    return comm.all_reduce(rows).to(cfg.tdtype)
 
 
 def _logits(params: dict, cfg: ModelConfig, x) -> torch.Tensor:
+    """float32 logits over the whole vocabulary. A rank of a vocab-split
+    LM head writes its columns into a zeroed [.., V] and the ranks sum
+    it, so every rank holds the same logits."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["embedding"].t()).float()
-    return qmatmul(x, params["lm_head"]).float()
+        local = torch.matmul(x, params["embedding"].t()).float()
+    else:
+        local = qmatmul(x, params["lm_head"]).float()
+    comm = getattr(cfg, "comm", None)
+    if comm is None or local.shape[-1] == cfg.vocab_size:
+        return local
+    full = local.new_zeros((*local.shape[:-1], cfg.vocab_size))
+    full[..., cfg.vocab_lo:cfg.vocab_lo + local.shape[-1]] = local
+    return comm.all_reduce(full)
 
 
 def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
@@ -254,7 +300,7 @@ def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
         def attend(q, k, v):
             return flash.causal_prefill_plain(q, k, v, lengths)
 
-    x = params["embedding"][tokens].to(cfg.tdtype)
+    x = _embed(params, cfg, tokens)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
@@ -394,7 +440,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     def row(t, i):
         return t[i].index_select(0, rows)
 
-    x = params["embedding"][tokens].to(cfg.tdtype)
+    x = _embed(params, cfg, tokens)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         k_l, v_l = row(cache.k, i), row(cache.v, i)
@@ -495,7 +541,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     attn_fn = (flash_decode.flash_decode_appended if flash
                else flash_decode.decode_plain)
 
-    x = params["embedding"][tokens[:, None]].to(cfg.tdtype)   # [B, 1, D]
+    x = _embed(params, cfg, tokens[:, None])                  # [B, 1, D]
     k_toks, v_toks = [], []
     for i in range(cfg.n_layers):
         k_l, v_l = cache.k[i], cache.v[i]
@@ -543,7 +589,7 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     # serves its rotation
     rope_pos = positions.clamp(max=cos.shape[0] - 1)
 
-    x = params["embedding"][tokens].to(cfg.tdtype)            # [B, W, D]
+    x = _embed(params, cfg, tokens)                           # [B, W, D]
     k_w, v_w = [], []
     for i in range(cfg.n_layers):
         k_l, v_l = cache.k[i], cache.v[i]

@@ -145,7 +145,7 @@ def paged_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     # clamped gather does; such a slot's output is never delivered
     positions = lengths.clamp(max=cos.shape[0] - 1).long()[:, None]
 
-    x = params["embedding"][tokens[:, None]].to(cfg.tdtype)   # [B, 1, D]
+    x = llama._embed(params, cfg, tokens[:, None])            # [B, 1, D]
     k_toks, v_toks = [], []
     for i in range(cfg.n_layers):
         k_l, v_l = cache.k[i], cache.v[i]
@@ -196,7 +196,7 @@ def paged_verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     # slot's rows land in the trash block and are never delivered
     rope_pos = positions.clamp(max=cos.shape[0] - 1)
 
-    x = params["embedding"][tokens].to(cfg.tdtype)            # [B, W, D]
+    x = llama._embed(params, cfg, tokens)                     # [B, W, D]
     k_w, v_w = [], []
     for i in range(cfg.n_layers):
         k_l, v_l = cache.k[i], cache.v[i]

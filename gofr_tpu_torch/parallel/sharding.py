@@ -1,0 +1,187 @@
+"""Tensor-parallel slicing rules (counterpart of
+gofr_tpu/parallel/sharding.py's spec table, ``shard_params`` and
+``kv_head_shards``).
+
+The JAX package maps each leaf to a ``PartitionSpec`` and lets GSPMD
+insert the collectives. Here each rule is a slice of a torch tensor (or
+a numpy array, for a checkpoint sliced before it reaches the device),
+and the model code sums the ranks' partial results itself
+(models.llama ``_reduce``, ``_embed``, ``_logits``), Megatron-style:
+
+  column-parallel  wq, wk, wv, w_gate, w_up   split on the output dim
+  row-parallel     wo, w_down                 split on the input dim
+  embedding        [V, D]   split over vocab rows (a masked local
+                             lookup, then a sum over the ranks)
+  lm_head          [D, V]   split over vocab columns (each rank writes
+                             its slice of a zeroed [.., V] and the ranks
+                             sum it)
+  norms                     replicated
+
+An int8 ``QuantizedLinear`` is sliced like its weight; its per-output
+scale is split with a column split and kept whole with a row split (the
+rows share their column's scale). A vocabulary the tp does not divide
+stays whole on every rank, as JAX's ``fit_spec`` replicates an axis
+that does not divide.
+
+Heads: ``tp`` must divide ``n_heads`` and ``ffn_dim``, and either
+divide ``n_kv_heads`` (each rank holds KV/tp KV heads) or be a multiple
+of it (each KV head is replicated on tp/KV ranks, each rank holding the
+one its query heads read). Anything else raises ShardingConfigError.
+JAX refuses only a tp that splits a KV head beside data axes and serves
+the other misfits on its jnp fallback (gofr_tpu/tpu/generator.py:
+699-722); the port refuses them (ROADMAP queue 3).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+from ..errors import ShardingConfigError
+from ..models.common import ModelConfig, RankConfig
+
+# leaf name -> the dim it splits on (JAX's _COLUMN / _ROW)
+_COLUMN = {"wq", "wk", "wv", "w_gate", "w_up"}
+_ROW = {"wo", "w_down"}
+
+
+def check_tp(cfg: ModelConfig, tp: int, row: str = "") -> None:
+    """Refuse a tp the model's head counts do not take, naming the
+    row."""
+    if tp <= 1:
+        return
+    H, KV, F = cfg.n_heads, cfg.n_kv_heads, cfg.ffn_dim
+    bad = []
+    if H % tp:
+        bad.append(f"n_heads={H}")
+    if F % tp:
+        bad.append(f"ffn_dim={F}")
+    if KV % tp and tp % KV:
+        bad.append(f"n_kv_heads={KV} (tp must divide it or be a "
+                   "multiple of it)")
+    if bad:
+        row = row or f"tp={tp}"
+        raise ShardingConfigError(
+            f"TPU_SHARDING={row!r}: tp={tp} does not fit model "
+            f"{cfg.name!r}: {', '.join(bad)}", sharding_row=row)
+
+
+def kv_head_shards(tp: int, n_kv_heads: int) -> int:
+    """How many distinct KV-head shards the ranks hold: tp when tp
+    divides the KV heads, else the KV head count (each head replicated
+    on tp / KV ranks)."""
+    if tp <= 1:
+        return 1
+    return tp if n_kv_heads % tp == 0 else n_kv_heads
+
+
+def vocab_range(cfg: ModelConfig, tp: int, rank: int) -> tuple[int, int]:
+    """The vocabulary ids [lo, hi) of rank ``rank``'s embedding rows and
+    LM-head columns: an even split, or the whole vocabulary when tp does
+    not divide it."""
+    V = cfg.vocab_size
+    if tp <= 1 or V % tp:
+        return 0, V
+    n = V // tp
+    return rank * n, (rank + 1) * n
+
+
+def rank_config(cfg: ModelConfig, tp: int, rank: int,
+                comm: Any = None) -> ModelConfig:
+    """Rank ``rank``'s view of ``cfg`` (models.common.RankConfig): its
+    H/tp query heads, KV/tp KV heads (1 where KV heads are replicated)
+    and ffn/tp hidden units, with ``comm`` to sum the ranks' partials.
+    With tp = 1 the model's own config."""
+    if tp <= 1:
+        return cfg
+    check_tp(cfg, tp)
+    lo, hi = vocab_range(cfg, tp, rank)
+    fields = {k: getattr(cfg, k) for k in cfg.__dataclass_fields__
+              if k in ModelConfig.__dataclass_fields__}
+    fields.update(n_heads=cfg.n_heads // tp,
+                  n_kv_heads=max(cfg.n_kv_heads // tp, 1),
+                  ffn_dim=cfg.ffn_dim // tp)
+    return RankConfig(**fields, tp=tp, rank=rank, full_heads=cfg.n_heads,
+                      vocab_lo=lo, vocab_hi=hi, comm=comm)
+
+
+def _span(name: str, cfg: ModelConfig, rank: int, tp: int
+          ) -> tuple[int, int] | None:
+    """[lo, hi) of the split dim of leaf ``name`` on rank ``rank``, or
+    None for a replicated leaf."""
+    hd = cfg.dim // cfg.n_heads
+    if name in ("wq", "wo"):
+        n = cfg.n_heads // tp * hd
+        return rank * n, (rank + 1) * n
+    if name in ("wk", "wv"):
+        KV = cfg.n_kv_heads
+        if KV % tp == 0:
+            n = KV // tp * hd
+            return rank * n, (rank + 1) * n
+        head = rank // (tp // KV)
+        return head * hd, (head + 1) * hd
+    if name in ("w_gate", "w_up", "w_down"):
+        n = cfg.ffn_dim // tp
+        return rank * n, (rank + 1) * n
+    if name in ("embedding", "lm_head"):
+        lo, hi = vocab_range(cfg, tp, rank)
+        return None if (lo, hi) == (0, cfg.vocab_size) else (lo, hi)
+    return None
+
+
+def _is_quantized(node) -> bool:
+    return isinstance(node, tuple) and getattr(node, "_fields", None) == (
+        "w", "scale")
+
+
+def _take(x, axis: int, lo: int, hi: int):
+    """x[..., lo:hi, ...] on ``axis`` as a new contiguous array or
+    tensor of its own (no view keeps the whole leaf alive)."""
+    idx = [slice(None)] * x.ndim
+    idx[axis] = slice(lo, hi)
+    part = x[tuple(idx)]
+    if isinstance(part, np.ndarray):
+        return np.ascontiguousarray(part).copy()
+    return part.contiguous().clone()
+
+
+def shard_leaf(name: str, leaf, cfg: ModelConfig, rank: int, tp: int):
+    """Rank ``rank``'s slice of parameter leaf ``name`` (a tensor, a
+    numpy array or a QuantizedLinear of either)."""
+    span = _span(name, cfg, rank, tp) if tp > 1 else None
+    if span is None:
+        return leaf
+    lo, hi = span
+    if name == "embedding":
+        return _take(leaf, 0, lo, hi)
+    column = name in _COLUMN or name == "lm_head"
+    if _is_quantized(leaf):
+        w = _take(leaf.w, leaf.w.ndim - (1 if column else 2), lo, hi)
+        scale = (_take(leaf.scale, leaf.scale.ndim - 1, lo, hi) if column
+                 else leaf.scale)
+        return type(leaf)(w=w, scale=scale)
+    return _take(leaf, leaf.ndim - (1 if column else 2), lo, hi)
+
+
+def shard_params(params: dict, cfg: ModelConfig, rank: int, tp: int
+                 ) -> dict:
+    """Rank ``rank``'s shard of a full Llama parameter tree (the layout
+    of models.llama.init). LoRA stacks are refused: LoRA under tp is
+    ROADMAP item 11b."""
+    if tp <= 1:
+        return params
+    check_tp(cfg, tp)
+    out = {}
+    for k, v in params.items():
+        if k == "layers":
+            if any(n.startswith("lora_") for n in v):
+                raise ShardingConfigError(
+                    f"tp={tp}: LoRA adapter stacks are not served under "
+                    "TPU_SHARDING yet (ROADMAP item 11b)",
+                    sharding_row=f"tp={tp}")
+            out[k] = {n: shard_leaf(n, leaf, cfg, rank, tp)
+                      for n, leaf in v.items()}
+        else:
+            out[k] = shard_leaf(k, v, cfg, rank, tp)
+    return out

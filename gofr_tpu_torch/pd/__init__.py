@@ -65,14 +65,22 @@ def wire_role(engine, role: str, cfg, *, logger=None, metrics=None):
     namespaces by, so two pools serving different weights refuse each
     other at hello instead of exchanging wrong attention state.
 
-    (The JAX package also refuses both roles beside ``TPU_SHARDING``: a
-    mesh row would ship per-shard frames no decode pool installs. The
-    port refuses ``TPU_SHARDING`` by name before any engine is built, so
-    that pairing cannot reach this function.)"""
+    Both roles are refused on a tensor-parallel engine, as the JAX
+    package refuses them on a mesh: the shipped KV is dense single-device
+    rows, which no shard installs yet (ROADMAP item 11b). The App's rows
+    are refused before any engine is built (``tpu._check_rows``); an
+    engine built with a ``mesh`` and wired here raises too."""
     gen = engine.generator
     if gen is None:
         raise ValueError(f"TPU_SERVING_ROLE={role}: requires a decoder "
                          "model (TPU_MODEL llama family)")
+    if role in (ROLE_PREFILL, ROLE_DECODE) and gen.mesh is not None:
+        raise ValueError(
+            f"TPU_SERVING_ROLE={role} cannot run with TPU_SHARDING="
+            f"{gen.mesh.row()!r}: the KV-ship wire format is dense "
+            "single-device rows, and no shard installs them yet. Unset "
+            "TPU_SHARDING on this pool, or drop TPU_SERVING_ROLE to "
+            "serve the shards fused")
     from ..tpu.kvcache import model_fingerprint
 
     fingerprint = model_fingerprint(gen.cfg, gen.params, extra="pd")

@@ -136,12 +136,26 @@ Rows read:
   TPU_RESUME_WAIT_S  how long a re-handoff waits for the peer to come
                     back (default 5)
 
+  TPU_SHARDING      "tp=N": serve a Llama model as N tensor-parallel
+                    ranks (parallel/): this process is rank 0 and starts
+                    N - 1 worker processes, each holding its head shard
+                    of the weights and caches (rank r on cuda:{r %
+                    device_count}, or the CPU). Any other axis above 1,
+                    a tp the model's head counts do not take, an encoder
+                    model, LoRA, the prefix caches and the P/D roles
+                    raise ShardingConfigError naming the row. A TP
+                    engine runs its dispatches eagerly (no CUDA
+                    graphs); a rank that dies, or a collective past 60
+                    s, fails the live streams and takes it down
+  TPU_HBM_DEVICE_BUDGET_MB  each TP rank's budget in MiB on its device
+                    (ranks sharing a card are checked together); only
+                    beside TPU_SHARDING (a one-device engine's budget
+                    is TPU_HBM_BUDGET_MB)
+
 Every other ``TPU_*`` row of the JAX package names a feature this port
 does not serve yet; a set one raises with its name rather than being
 silently ignored (the gateway reads ``TPU_GATEWAY_*``, ``TPU_RESUME``
-and ``TPU_RESUME_MAX`` itself). ``TPU_SHARDING`` stays refused by name,
-so the JAX package's refusal of a P/D role on a mesh cannot be reached
-here.
+and ``TPU_RESUME_MAX`` itself).
 """
 
 from __future__ import annotations
@@ -150,15 +164,20 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..errors import ShardingConfigError
 from ..models import bert, llama, vit
 from ..models.common import BERT_CONFIGS, LLAMA_CONFIGS, VIT_CONFIGS
 from ..ops import kernels
+from ..parallel.distributed import MULTIHOST_ROWS
+from ..parallel.mesh import parse_sharding
+from ..parallel.sharding import check_tp, rank_config
 from ..resilience import gate_from_config
 from ..tenancy import plane_from_config
 from . import hbm
 from .batcher import (BatcherClosed, ClassPolicy, CoalescingBatcher,
                       pad_bucket)
-from .checkpoint import from_jax_params, load_npz, maybe_quantize
+from .checkpoint import (WeightSource, from_jax_params, load_npz,
+                         maybe_quantize)
 from .engine import (DEFAULT_BATCH_BUCKETS, Health, Program, TorchEngine)
 from .generator import (DEFAULT_SEQ_BUCKETS, GenerationEngine,
                         GenerationError, GenStream)
@@ -169,8 +188,12 @@ __all__ = ["BatcherClosed", "ClassPolicy", "CoalescingBatcher",
            "Program", "TorchEngine", "from_jax_params", "load_npz",
            "maybe_quantize", "new_engine_from_config", "pad_bucket"]
 
-# rows of the JAX package that name features outside this slice
-UNPORTED_ROWS = ("TPU_HBM_DEVICE_BUDGET_MB", "TPU_SHARDING")
+# rows of the JAX package that name features outside this slice: the
+# multi-host ranks (the App's Container refuses the first two as well)
+UNPORTED_ROWS = MULTIHOST_ROWS
+# what TPU_SHARDING does not serve yet, each beside it (ROADMAP 11b)
+_TP_REFUSED = ("TPU_LORA_ADAPTERS", "TPU_PREFIX_CACHE", "TPU_KVCACHE_REDIS",
+               "TPU_KVCACHE_HOST_MB")
 
 # TPU_MODEL aliases, as the JAX package reads them
 BERT_ALIASES = {"bert": "bert-base", "bert-tiny": "tiny"}
@@ -215,6 +238,27 @@ def _check_rows(cfg) -> None:
     if rejected:
         raise ValueError(f"config rows not honoured by gofr_tpu_torch yet: "
                          f"{', '.join(rejected)}")
+    plan = parse_sharding(cfg.get("TPU_SHARDING"))
+    if plan is None or plan.tp == 1:
+        if (cfg.get("TPU_HBM_DEVICE_BUDGET_MB") or "").strip():
+            raise ValueError(
+                "TPU_HBM_DEVICE_BUDGET_MB is a tensor-parallel rank's "
+                "budget and needs TPU_SHARDING=tp=N; a one-device "
+                "engine's budget is TPU_HBM_BUDGET_MB")
+        return None
+    row = plan.row()
+    beside = [r for r in _TP_REFUSED
+              if (cfg.get(r) or "").strip() not in ("", "0", "false")]
+    if role in ("prefill", "decode"):
+        # as the JAX package refuses a mesh P/D worker: shipped KV is
+        # dense single-device rows, which no shard installs yet
+        beside.append(f"TPU_SERVING_ROLE={role}")
+    if beside:
+        raise ShardingConfigError(
+            f"TPU_SHARDING={row!r} cannot run with {', '.join(beside)} "
+            "yet (ROADMAP item 11b): unset those rows or TPU_SHARDING",
+            sharding_row=row)
+    return plan
 
 
 def _known_models() -> list[str]:
@@ -256,19 +300,29 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
     naming its row before anything is built."""
     from ..container import serving_role
 
-    _check_rows(cfg)
+    plan = _check_rows(cfg)
     role = serving_role(cfg)
     plane = plane_from_config(cfg, metrics=metrics, logger=logger)
     device = resolve_device(device)
     name = (cfg.get("TPU_MODEL") or "tiny").strip()
     family, mc = _model_config(name)
+    if plan is not None:
+        if family != "llama":
+            raise ShardingConfigError(
+                f"TPU_SHARDING={plan.row()!r}: sharded {family} models "
+                "are not served yet (ROADMAP item 11b)",
+                sharding_row=plan.row())
+        check_tp(mc, plan.tp, plan.row())
     if family == "llama" and device.type == "cuda":
-        # the score program runs its attention through flash_prefill:
-        # refuse a model the kernel does not take now, not at a request
+        # the score program runs its attention through flash_prefill (on
+        # each rank's head shard under TP): refuse a model the kernel
+        # does not take now, not at a request
+        shard = rank_config(mc, plan.tp if plan else 1, 0)
         try:
             kernels.check_attention_shape(
-                "flash_prefill", head_dim=mc.head_dim, n_heads=mc.n_heads,
-                n_kv_heads=mc.n_kv_heads, dtype=mc.tdtype)
+                "flash_prefill", head_dim=shard.head_dim,
+                n_heads=shard.n_heads, n_kv_heads=shard.n_kv_heads,
+                dtype=mc.tdtype)
         except (TypeError, ValueError) as e:
             raise ValueError(f"{name} cannot be scored on {device}: "
                              f"{e}") from None
@@ -276,8 +330,19 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
     # every engine built after this lease from it)
     hbm.configure(budget_mb=cfg.get_int("TPU_HBM_BUDGET_MB", 0) or None,
                   headroom=cfg.get_float("TPU_HBM_HEADROOM", 0.1),
-                  device=device)
-    if params is None:
+                  device=device,
+                  device_budget_mb=cfg.get_int("TPU_HBM_DEVICE_BUDGET_MB",
+                                               0) or None)
+    quant = (cfg.get("TPU_QUANT") or "").lower() == "int8"
+    if plan is not None and params is None:
+        # each rank makes or reads its own shard (tpu.checkpoint)
+        weights = cfg.get("TPU_WEIGHTS")
+        if weights and not weights.endswith(".npz"):
+            raise ValueError(f"TPU_WEIGHTS={weights!r}: gofr_tpu_torch "
+                             "loads .npz checkpoints only")
+        params = (WeightSource("npz", path=weights, quant=quant) if weights
+                  else WeightSource("seed", seed=0, quant=quant))
+    elif params is None:
         weights = cfg.get("TPU_WEIGHTS")
         if weights:
             if not weights.endswith(".npz"):
@@ -288,8 +353,7 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
             init = {"bert": bert.init, "vit": vit.init,
                     "llama": llama.init}[family]
             params = init(mc, 0, device=device)
-        params = maybe_quantize(
-            params, (cfg.get("TPU_QUANT") or "").lower() == "int8")
+        params = maybe_quantize(params, quant)
     batch_buckets = _csv_ints(cfg.get("TPU_BATCH_BUCKETS"),
                               DEFAULT_BATCH_BUCKETS)
     seq_buckets = _csv_ints(cfg.get("TPU_SEQ_BUCKETS"), DEFAULT_SEQ_BUCKETS)
@@ -302,7 +366,8 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
     generator = None
     if family == "llama":
         generator = _generator(cfg, mc, params, seq_buckets, device, logger,
-                               metrics)
+                               metrics, plan)
+        params = generator.params   # under TP: rank 0's shard
     engine = TorchEngine(
         generator, name, device, logger=logger, metrics=metrics,
         max_delay=cfg.get_float("TPU_MAX_BATCH_DELAY", 0.004),
@@ -332,14 +397,21 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
         # next-token logits at each prompt's end. The batcher coalesces
         # unrelated requests into one batch, so grouped MoE dispatch is
         # ruled out here as at decode (request isolation).
-        score_mc = llama.multi_request_serving_config(mc)
+        score_mc = llama.multi_request_serving_config(generator.cfg)
         max_seq = generator.max_seq
         seq_b = tuple(b for b in seq_buckets if b <= max_seq) or (max_seq,)
         rope = llama.get_rope_tables(score_mc, max(seq_b), device)
 
-        def score_fn(p, tokens, lengths):
-            return llama.score(p, score_mc, tokens, lengths,
-                               rope_tables=rope, flash=True)
+        if plan is None:
+            def score_fn(p, tokens, lengths):
+                return llama.score(p, score_mc, tokens, lengths,
+                                   rope_tables=rope, flash=True)
+        else:
+            def score_fn(p, tokens, lengths):
+                # every rank runs K1 on its shard (GenerationEngine.
+                # tp_score)
+                return generator.tp_score(tokens, lengths, rope,
+                                          max(seq_b))
 
         engine.register("score", score_fn, params, kind="tokens",
                         batch_buckets=batch_buckets, seq_buckets=seq_b)
@@ -370,8 +442,9 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
 
 
 def _generator(cfg, mc, params, seq_buckets, device, logger,
-               metrics) -> GenerationEngine:
-    """The Llama generation engine from its rows."""
+               metrics, plan=None) -> GenerationEngine:
+    """The Llama generation engine from its rows (under TPU_SHARDING
+    rank 0 of the tensor-parallel group)."""
     max_seq = cfg.get_int("TPU_MAX_SEQ", min(mc.max_seq, 2048))
     kv_choice = (cfg.get("TPU_KV_DTYPE") or "int8").lower()
     prompt_b = tuple(b for b in seq_buckets if b < max_seq) \
@@ -402,4 +475,4 @@ def _generator(cfg, mc, params, seq_buckets, device, logger,
                               logger=logger),
         slo_throughput_share=cfg.get_float("TPU_SLO_THROUGHPUT_SHARE", 0.25),
         slo_latency_slots=cfg.get_int("TPU_SLO_LATENCY_SLOTS", 1),
-        metrics=metrics, device=device)
+        metrics=metrics, device=device, mesh=plan)

@@ -8,11 +8,19 @@
 paths, int8 projections as ``<path>/__qw`` and ``<path>/__qscale``).
 ``maybe_quantize`` int8-quantizes the projection leaves of a loaded
 tree, the same leaves as the JAX package's ``maybe_quantize``.
+
+Tensor parallelism (parallel/): ``rank_params`` builds one rank's shard
+(parallel.sharding.shard_leaf) from a ``WeightSource``: a seeded init or
+a ``.npz`` sliced leaf by leaf as each leaf is made or read (quantized
+first, so a row split keeps the whole model's per-channel scales), so no
+rank ever holds the whole model -- its peak is its shard plus the
+largest single leaf -- or a shard rank 0 already sliced.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from dataclasses import dataclass
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -58,8 +66,9 @@ def from_jax_params(tree: Any, device="cuda") -> Any:
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
         if _is_quantized(node):
-            return QuantizedLinear(w=to_tensor(node.w, device),
-                                   scale=to_tensor(node.scale, device))
+            return QuantizedLinear(w=walk(node.w), scale=walk(node.scale))
+        if isinstance(node, torch.Tensor):   # made on the device already
+            return node.to(device)
         return to_tensor(node, device)
 
     return walk(tree)
@@ -87,12 +96,29 @@ def _unflatten(flat: dict[str, np.ndarray]) -> dict:
     return tree
 
 
-def load_npz(path: str, device="cuda") -> dict:
+def load_npz(path: str, device="cuda",
+             leaf: Callable[[str, Any], Any] | None = None) -> dict:
     """Load a ``.npz`` written by the JAX package's ``save_npz`` onto
-    ``device``."""
+    ``device``. ``leaf(name, array)``, if given, maps each leaf (its
+    last path element and its numpy value, a QuantizedLinear of numpy
+    for an int8 projection) as it is read, before it reaches the
+    device: a rank's slice."""
     with np.load(path) as f:
-        flat = {k: f[k] for k in f.files}
-    return from_jax_params(_unflatten(flat), device=device)
+        tree = _unflatten({k: f[k] for k in f.files})
+
+        def walk(node, name=""):
+            if isinstance(node, dict):
+                return {k: walk(v, k) for k, v in node.items()}
+            return node if leaf is None else leaf(name, node)
+
+        return from_jax_params(walk(tree), device=device)
+
+
+def _quantize_leaf(name: str, node):
+    if (name in _QUANT_LEAVES and isinstance(node, torch.Tensor)
+            and node.ndim in (2, 3, 4)):
+        return quantize_int8(node, axis=node.ndim - 2)
+    return node
 
 
 def maybe_quantize(params: Any, enabled: bool) -> Any:
@@ -105,9 +131,56 @@ def maybe_quantize(params: Any, enabled: bool) -> Any:
     def walk(node: Any, name: str = "") -> Any:
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
-        if (name in _QUANT_LEAVES and isinstance(node, torch.Tensor)
-                and node.ndim in (2, 3, 4)):
-            return quantize_int8(node, axis=node.ndim - 2)
-        return node
+        return _quantize_leaf(name, node)
 
     return walk(params)
+
+
+@dataclass
+class WeightSource:
+    """Where a tensor-parallel rank's weights come from: ``kind`` "seed"
+    (models.llama.init from ``seed``), "npz" (``path``), each made
+    whole one leaf at a time and sliced to the rank at once (int8 first
+    with ``quant``), or "shard" (``tree``: the rank's slice already,
+    numpy leaves)."""
+
+    kind: str
+    seed: int = 0
+    path: str = ""
+    quant: bool = False
+    tree: Any = None
+
+
+def rank_params(cfg, source, rank: int, tp: int, device) -> dict:
+    """Rank ``rank``'s weight shard of a Llama model ``cfg`` on
+    ``device``: from a ``WeightSource``, or sliced out of a whole
+    parameter tree (``source`` a dict of tensors)."""
+    from ..models import llama
+    from ..parallel.sharding import shard_leaf, shard_params
+
+    device = resolve_device(device)
+    if isinstance(source, dict):
+        return _to(shard_params(source, cfg, rank, tp), device)
+    if source.kind == "shard":
+        return from_jax_params(source.tree, device=device)
+
+    def leaf(name, full):
+        if source.quant:
+            if isinstance(full, np.ndarray):
+                full = to_tensor(full, device)
+            full = _quantize_leaf(name, full)
+        return shard_leaf(name, full, cfg, rank, tp)
+
+    if source.kind == "seed":
+        return llama.init(cfg, source.seed, device=device, leaf=leaf)
+    if source.kind == "npz":
+        return load_npz(source.path, device=device, leaf=leaf)
+    raise ValueError(f"unknown weight source {source.kind!r}")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, QuantizedLinear):
+        return QuantizedLinear(tree.w.to(device), tree.scale.to(device))
+    return tree.to(device)

@@ -441,6 +441,13 @@ class TorchEngine:
         if self._gates:
             details["admission"] = {n: g.stats()
                                     for n, g in sorted(self._gates.items())}
+        gen = self.generator
+        if gen is not None and gen.mesh is not None:
+            # the JAX engine's axis sizes, plus the device group's
+            # backend and whether the dispatches are graphs (never under
+            # TP in this slice)
+            details["mesh"] = {**gen.mesh.shape(),
+                               "backend": gen._tp.backend, "graphs": False}
         if cuda:
             details["memory_allocated"] = torch.cuda.memory_allocated(
                 self.device)
@@ -467,8 +474,9 @@ class TorchEngine:
             pd = self.pd_ingest or self.pd_prefill
             if pd is not None:
                 details["pd"] = pd.stats()
-        if self._closed or (self.generator is not None
-                            and self.generator.down is not None):
+        if self._closed or (gen is not None and (gen.down is not None
+                                                 or not gen.tp_alive())):
+            # a dead tensor-parallel rank takes the engine down
             return Health(STATUS_DOWN, details)
         if self.pd_ingest is not None \
                 and not self.pd_ingest.stats()["listening"]:

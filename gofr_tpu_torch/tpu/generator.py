@@ -119,8 +119,18 @@ A failed step fails the live streams, clears the prefix index, resets
 the device state in place (the captured graphs stay bound to it) and
 keeps serving the queue, as the JAX engine does; only a device that no
 longer synchronises takes the engine down (``down`` names the error).
-The seams of ``chaos`` inject such failures. A mesh, outside the port
-so far, raises when asked for.
+The seams of ``chaos`` inject such failures.
+
+With ``mesh`` = ``MeshPlan(tp=N)`` (``TPU_SHARDING=tp=N``) the engine is
+rank 0 of N tensor-parallel ranks (parallel/): every device dispatch
+(``_dispatch``: an admission, a decode block, a verify pass, the
+recovery's reset, a ``score`` batch) first broadcasts one command with
+the host inputs it uploads, then rank 0 runs its share; the workers'
+follower engines (``follow``) run the same op on their head shards, and
+the model sums the partials over the device group. Every rank samples
+the same tokens from the same summed logits. A TP engine dispatches
+eagerly, without CUDA graphs, and a lost rank fails the live streams
+and takes it down.
 """
 
 from __future__ import annotations
@@ -144,13 +154,17 @@ from ..errors import DeadlineExceeded
 from ..models import llama, paged_llama
 from ..models.common import ModelConfig
 from ..ops import flash, flash_decode, kernels, paged_attention
+from ..parallel.distributed import DEFAULT_TIMEOUT_S, TPRanks
+from ..parallel.mesh import MeshPlan
+from ..parallel.sharding import (check_tp, kv_head_shards, rank_config,
+                                 shard_params)
 from ..resilience import (SLO_LATENCY, SLO_THROUGHPUT, DecodePipelinePolicy,
                           current_deadline, current_slo_class)
 from ..tenancy.fair import WeightedFairLine
 from ..tenancy.registry import current_tenant
 from ..wire import PushStream
 from . import hbm, prng
-from .checkpoint import to_tensor
+from .checkpoint import WeightSource, rank_params, to_tensor
 from .kvcache import (CacheManager, HostKV, KVCacheOptions, KVLayout,
                       clamp_restore_len, dense_hostkv, dtype_name,
                       model_fingerprint)
@@ -282,6 +296,32 @@ class _ClassPending:
 
     def empty(self) -> bool:
         return not (self._lat or self._thr)
+
+
+# the constructor arguments a worker rank's follower engine is built with
+_TP_KWARGS = ("slots", "max_seq", "seed", "kv_dtype", "decode_block",
+              "prompt_buckets", "prefill_chunk", "spec_decode_k",
+              "paged_blocks", "paged_block_size")
+
+
+class _RankLeases:
+    """The owner of a worker rank's lease rows in rank 0's arbiter."""
+
+    def __init__(self, rank: int):
+        self.rank = rank
+
+
+def _host_tree(tree):
+    """A rank's weight tree with numpy leaves (bfloat16 as 2-byte
+    voids, which ``checkpoint.to_tensor`` reads back), to pickle."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_host_tree(v) for v in tree))
+    t = tree.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
 
 
 # the kernel wrappers' counters: a graph replay runs no Python, so the
@@ -467,6 +507,35 @@ def verify_pass(params: dict, cfg: ModelConfig, cache, window: torch.Tensor,
                      dim=1)
 
 
+def check_kernel_shapes(cfg: ModelConfig, device, kv_dtype, paged: bool,
+                        block_size: int, spec_k: int) -> None:
+    """Refuse, before anything is allocated or started, a model the
+    attention kernels of an engine's path do not take on the card:
+    flash_prefill at every admission, flash_decode or paged_decode at
+    every decode step, the paged window at every verify pass of a paged
+    spec engine. A TP rank checks its own head counts."""
+    path = [("flash_prefill", {}),
+            ("paged_decode", {"block_size": block_size}) if paged
+            else ("flash_decode", {})]
+    if paged and spec_k:
+        path.append(("paged_window", {"block_size": block_size,
+                                      "window": spec_k + 1}))
+    shape = (f"model {cfg.name!r} (head_dim {cfg.head_dim}, "
+             f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
+             f"{cfg.dtype})")
+    if kv_dtype not in (None, torch.int8, torch.bfloat16):
+        raise ValueError(f"{shape}: the decode kernels take an int8 or "
+                         f"bf16 KV cache, not {kv_dtype}")
+    for kernel, extra in path:
+        try:
+            kernels.check_attention_shape(
+                kernel, head_dim=cfg.head_dim, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, dtype=cfg.tdtype, **extra)
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"{shape} cannot be served on "
+                             f"{device}: {e}") from None
+
+
 class _Staged:
     """Uploads into one int64 device tensor that a captured graph reads
     (the dispatch pack, the admission inputs, the verify inputs): fill
@@ -475,13 +544,17 @@ class _Staged:
     holds (a copy from pageable memory would synchronise the stream and
     the host would wait for the blocks in flight), a buffer written
     again only once the copy that read it has completed (its event); on
-    the CPU a plain copy. ``uploads`` counts them."""
+    the CPU a plain copy. ``uploads`` counts them. ``record``: keep a
+    copy of the latest upload's image for ``take`` (rank 0 of a TP
+    group sends it with its next command)."""
 
-    def __init__(self, dst: torch.Tensor):
+    def __init__(self, dst: torch.Tensor, record: bool = False):
         self.dst = dst
         self.uploads = 0
         self._bufs = None
         self._image = None
+        self._record = record
+        self._sent: np.ndarray | None = None
         if dst.device.type == "cuda":
             self._bufs = [(torch.zeros(tuple(dst.shape), dtype=torch.long,
                                        pin_memory=True), torch.cuda.Event())
@@ -498,12 +571,21 @@ class _Staged:
 
     def upload(self) -> None:
         if self._bufs is None:
-            self.dst.copy_(torch.from_numpy(self._image))
+            image = self._image
+            self.dst.copy_(torch.from_numpy(image))
         else:
             staged, copied = self._bufs[self.uploads % 2]
+            image = staged.numpy()
             self.dst.copy_(staged, non_blocking=True)
             copied.record()
+        if self._record:
+            self._sent = image.copy()
         self.uploads += 1
+
+    def take(self) -> np.ndarray | None:
+        """The image uploaded since the last ``take`` (None if none)."""
+        sent, self._sent = self._sent, None
+        return sent
 
 
 class AdmissionInputs:
@@ -829,7 +911,52 @@ class _Slot:
 
 
 class GenerationEngine:
-    def __init__(self, cfg: ModelConfig, params: dict, *, slots: int = 8,
+    """The serving loop (see the module docstring).
+
+    ``mesh`` (parallel.mesh.MeshPlan, the ``TPU_SHARDING`` row's plan):
+    a plan with ``tp`` = N > 1 serves the model as N tensor-parallel
+    ranks (parallel.distributed). This process is rank 0 and keeps the
+    whole engine; ranks 1..N-1 are worker processes, each a follower
+    engine (``tp_comm``) over its own head shard of the weights and
+    caches: contiguous [L, B, Smax, KV/tp, hd], paged [L, N, T, KV/tp,
+    hd] with the block table replicated. ``cfg`` is the whole model's
+    and ``params`` either the whole model's weights (rank 0 slices
+    every rank's shard and passes it) or a ``checkpoint.WeightSource``
+    each rank builds its own shard from. ``tp_timeout_s``: every
+    collective's limit. A TP engine dispatches
+    its blocks, admissions and verify passes eagerly on every backend
+    (no CUDA graphs: gloo collectives cannot be captured), and refuses
+    LoRA, the prefix caches and the P/D halves (ROADMAP item 11b)."""
+
+    def __init__(self, cfg: ModelConfig, params, *, mesh=None,
+                 tp_comm=None, tp_timeout_s: float = DEFAULT_TIMEOUT_S, **kw):
+        self._tp = None      # rank 0 of a TP group: its TPRanks
+        self._comm = tp_comm  # every rank of a TP group: its TPComm
+        self._tp_holders: list = []   # the worker ranks' lease owners
+        self._score_ropes: dict = {}  # a worker's score rope tables
+        self.mesh = None
+        if mesh is not None and not isinstance(mesh, MeshPlan):
+            raise ValueError(
+                f"mesh={type(mesh).__name__}: not ported to gofr_tpu_torch;"
+                " the port takes a parallel.mesh.MeshPlan (the "
+                "TPU_SHARDING row's plan), not a device mesh")
+        try:
+            if mesh is not None and mesh.tp > 1:
+                cfg, params = self._tp_launch(cfg, params, mesh, kw,
+                                              tp_timeout_s)
+            self._construct(cfg, params, **kw)
+            if self._tp is not None:
+                self._tp_ready()
+        except BaseException:
+            self._tp_close()
+            raise
+        if tp_comm is None:   # a follower runs no serving loop
+            self._thread = threading.Thread(target=self._loop,
+                                            name="gofr-torch-gen",
+                                            daemon=True)
+            self._thread.start()
+
+    def _construct(self, cfg: ModelConfig, params: dict, *, slots: int = 8,
                  max_seq: int | None = None, logger=None, seed: int = 0,
                  kv_dtype: torch.dtype | None = None, decode_block: int = 4,
                  decode_pipeline: int = 2, admit_window_ms: float = 2.0,
@@ -841,22 +968,26 @@ class GenerationEngine:
                  spec_decode_k: int = 0, lora_adapters: int = 0,
                  lora_rank: int = 16,
                  paged_blocks: int = 0, paged_block_size: int = 128,
-                 kvcache=None, mesh=None, gate=None,
+                 kvcache=None, gate=None,
                  slo_throughput_share: float = 0.25,
                  slo_latency_slots: int = 1, metrics=None):
-        if mesh is not None:
-            raise ValueError("not ported to gofr_tpu_torch yet: ['mesh'] "
-                             "(the port serves contiguous or paged slots)")
         if cfg.n_experts > 0:
             raise ValueError("the port serves dense Llama models; MoE is "
                              "not ported yet")
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
+        # the decode, admission and verify dispatches are CUDA graph
+        # replays on the card; a TP rank dispatches them eagerly
+        self._graphed = self.device.type == "cuda" and self._comm is None
+        # a TP rank's leases name its device and rank (tpu.hbm)
+        self._hbm_place = ({"device": str(self.device),
+                            "rank": getattr(cfg, "rank", 0)}
+                           if self._comm is not None else {})
         self._spec_k = max(0, int(spec_decode_k))
         if self.device.type == "cuda":
-            self._check_kernels(kv_dtype, paged_blocks > 0,
-                                int(paged_block_size))
+            check_kernel_shapes(cfg, self.device, kv_dtype, paged_blocks > 0,
+                                int(paged_block_size), self._spec_k)
         self.n_slots = slots
         self.decode_block = max(1, int(decode_block))
         self.max_seq = min(max_seq or cfg.max_seq, cfg.max_seq)
@@ -971,7 +1102,7 @@ class GenerationEngine:
                 nbytes=_cache_nbytes(cfg, paged_blocks, self._block_t,
                                      kv_dtype, slots),
                 owner=self, tag="cache", priority=hbm.PRI_SERVING,
-                reclaim=self._hbm_paged_reclaim)
+                reclaim=self._hbm_paged_reclaim, **self._hbm_place)
         else:
             self.cache = hbm.alloc(
                 "engine", lambda: llama.init_cache(
@@ -979,7 +1110,8 @@ class GenerationEngine:
                     device=self.device),
                 nbytes=_cache_nbytes(cfg, slots, self.max_seq, kv_dtype,
                                      slots),
-                owner=self, tag="cache", priority=hbm.PRI_SERVING)
+                owner=self, tag="cache", priority=hbm.PRI_SERVING,
+                **self._hbm_place)
         # zero-copy prefix sharing over the pool: entries hold references
         # on a stored prompt's full blocks; a hit takes them into the new
         # slot and the prefill resumes at the match point
@@ -1044,13 +1176,14 @@ class GenerationEngine:
                     cfg, 1, self.max_seq, dtype=kv_dtype,
                     device=self.device),
                 nbytes=_cache_nbytes(cfg, 1, self.max_seq, kv_dtype, 1),
-                owner=self, tag="scratch", priority=hbm.PRI_SCRATCH)
+                owner=self, tag="scratch", priority=hbm.PRI_SCRATCH,
+                **self._hbm_place)
         # the admission dispatches' inputs, one vector uploaded per
         # dispatch (AdmissionInputs); no dispatch is wider than the chunk
         # budget, itself a bucket
         self._adm_in = AdmissionInputs(self._mb if self._paged else 0,
                                        self._chunk, self.device)
-        self._adm_up = _Staged(self._adm_in.buf)
+        self._adm_up = _Staged(self._adm_in.buf, record=self._tp is not None)
         self.admission_replays = 0   # admission dispatches run as replays
         # set when the in-flight admission pass deferred a lattice
         # admission; drops the pipeline to depth 1 until the synchronous
@@ -1081,7 +1214,7 @@ class GenerationEngine:
         width = PACK_EXTRA + EOS_MAX + (self._mb if self._paged else 0)
         self._pack = torch.zeros((slots, width), dtype=torch.long,
                                  device=self.device)
-        self._pack_up = _Staged(self._pack)
+        self._pack_up = _Staged(self._pack, record=self._tp is not None)
         self._pack_dirty = True
         self._carry = self._host_carry()
 
@@ -1101,7 +1234,8 @@ class GenerationEngine:
             self._verify_in = torch.zeros(
                 (slots, self._spec_k + 3 + (self._mb if self._paged else 0)),
                 dtype=torch.long, device=self.device)
-            self._verify_up = _Staged(self._verify_in)
+            self._verify_up = _Staged(self._verify_in,
+                                      record=self._tp is not None)
 
         # The decode dispatch pipeline (the JAX engine's): up to depth
         # blocks in flight on the device stream, the host reaping the
@@ -1156,14 +1290,14 @@ class GenerationEngine:
         self.tenancy = None
         self._tenant_leased: set[str] = set()   # live tenant:{id} leases
         self._gauge_tenants: set[str] = set()   # tenants ever gauged
-        if self.device.type == "cuda":
+        self.admission_graph_bytes = 0
+        if self._graphed:
             self._capture_graphs()
             self._capture_admission_graphs()
             if self._spec_k:
                 self._capture_verify_graph()
-        self._thread = threading.Thread(target=self._loop,
-                                        name="gofr-torch-gen", daemon=True)
-        self._thread.start()
+        elif self.device.type == "cuda":
+            kernels.build_all()
 
     # -- public API ----------------------------------------------------------
     def install_tenancy(self, plane) -> None:
@@ -1257,6 +1391,11 @@ class GenerationEngine:
                 raise GenerationError(
                     f"continue_from carries {pos_base} emitted tokens but "
                     "the request budget allows no more: nothing to resume")
+        if self.mesh is not None and (kv_sink is not None
+                                      or ingest is not None):
+            raise GenerationError(
+                "the P/D halves (kv_sink, ingest) are not served under "
+                "TPU_SHARDING yet (ROADMAP item 11b)")
         if kv_sink is not None and ingest is not None:
             raise GenerationError("kv_sink and ingest are exclusive (a "
                                   "request is prefill-only or decode-only, "
@@ -1420,6 +1559,16 @@ class GenerationEngine:
             out["scheduler"]["queued_by_tenant"] = \
                 self._pending.qsize_by_tenant()
             out["tenancy"] = self.tenancy.stats()
+        if self.mesh is not None:
+            out["mesh"] = {
+                "devices": self.mesh.tp,
+                "axes": {"tp": self.mesh.tp},
+                "kv_shards": self._kv_shards,
+                "backend": self._tp.backend,
+                "graphs": False,
+                "ranks": self._tp.devices(),
+                "alive": self._tp.alive(),
+            }
         if self.gate is not None:
             out["admission"] = self.gate.stats()
         if self._kvc is not None:
@@ -1558,18 +1707,219 @@ class GenerationEngine:
         with self._admission_lock:
             self._closed = True
         self._work.set()
-        self._thread.join(timeout=60.0)
+        if self._comm is None or self._tp is not None:
+            self._thread.join(timeout=60.0)
         with self._device_lock:
             if self.device.type == "cuda":
                 # blocks still in flight finish before their graphs and
                 # buffers can go
                 torch.cuda.synchronize(self.device)
             self._fail_all(GenerationError("engine closed"))
+        # every worker rank stops, and its lease rows go with it
+        self._tp_close()
         # the arbiter must not keep claiming bytes for a closed engine
         hbm.release(owner=self)
         if self._kvc is not None and self._kvc.redis is not None:
             # the engine owns the T2 client (KVCacheOptions.redis)
             self._kvc.redis.client.close()
+
+    # -- tensor parallelism (parallel/) --------------------------------------
+    def _tp_launch(self, cfg: ModelConfig, params, mesh: MeshPlan, kw: dict,
+                   timeout_s: float):
+        """Rank 0: refuse what the slice does not serve under TP, start
+        the worker ranks (parallel.distributed.TPRanks), each building
+        its own shard, and build this rank's. Returns (rank 0's config,
+        rank 0's weights)."""
+        from ..errors import ShardingConfigError
+
+        tp, row = mesh.tp, mesh.row()
+        check_tp(cfg, tp, row)
+        refused = [what for what, on in (
+            ("LoRA (lora_adapters)", int(kw.get("lora_adapters", 0)) > 0),
+            ("the prefix caches (prefix_cache_slots)",
+             int(kw.get("prefix_cache_slots", 0)) > 0),
+            ("the kv-cache tiers (kvcache)", kw.get("kvcache") is not None))
+            if on]
+        if refused:
+            raise ShardingConfigError(
+                f"TPU_SHARDING={row!r}: {', '.join(refused)} not served "
+                "under tensor parallelism yet (ROADMAP item 11b)",
+                sharding_row=row)
+        device = resolve_device(kw.get("device", "cuda"))
+        if device.type == "cuda":
+            # the per-rank shapes are refused before any rank starts, and
+            # the kernels are built once, here, for every rank
+            check_kernel_shapes(
+                rank_config(cfg, tp, 0), device, kw.get("kv_dtype"),
+                int(kw.get("paged_blocks", 0)) > 0,
+                int(kw.get("paged_block_size", 128)),
+                max(0, int(kw.get("spec_decode_k", 0))))
+            kernels.build_all()
+        shards = None
+        if not isinstance(params, WeightSource):
+            shards = [None] + [WeightSource(
+                "shard", tree=_host_tree(shard_params(params, cfg, r, tp)))
+                for r in range(1, tp)]
+        spec = {"model": cfg, "weights": None if shards else params,
+                "engine": {k: kw[k] for k in _TP_KWARGS if k in kw},
+                "budget_bytes": hbm.budget(),
+                "device_budget_bytes": hbm.device_budget()}
+        self._tp = TPRanks(tp, device, spec, shards=shards,
+                           timeout_s=timeout_s)
+        self._comm = self._tp.comm
+        self.mesh = mesh
+        self._kv_shards = kv_head_shards(tp, cfg.n_kv_heads)
+        own = rank_params(cfg, params, 0, tp, device)
+        return rank_config(cfg, tp, 0, self._comm), own
+
+    def _tp_ready(self) -> None:
+        """Rank 0: wait for every worker's shard, then record each
+        worker's leases in this process's arbiter, one row a rank with
+        its device (tpu.hbm; ranks sharing a card are checked together
+        against TPU_HBM_DEVICE_BUDGET_MB)."""
+        for report in self._tp.wait_ready(self.tp_report())[1:]:
+            holder = _RankLeases(report["rank"])
+            self._tp_holders.append(holder)
+            for lease in report["leases"]:
+                hbm.lease(lease["subsystem"], lease["bytes"], owner=holder,
+                          tag=lease["tag"], priority=lease["priority"],
+                          device=report["device"], rank=report["rank"])
+
+    def _tp_close(self) -> None:
+        if self._tp is not None:
+            self._tp.close()
+        for holder in self._tp_holders:
+            hbm.release(owner=holder)
+        self._tp_holders = []
+
+    def tp_report(self) -> dict:
+        """This rank's device, leases and (on the card) peak allocated
+        bytes so far, as a worker reports them when it is ready."""
+        pri = {"serving": hbm.PRI_SERVING, "cache": hbm.PRI_CACHE,
+               "scratch": hbm.PRI_SCRATCH}
+        leases = [{"subsystem": r["subsystem"], "tag": r["tag"],
+                   "bytes": r["bytes"], "priority": pri[r["priority"]]}
+                  for r in hbm.arbiter_stats()["leases"]
+                  if r["owner"] == id(self)]
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else None)
+        return {"rank": getattr(self.cfg, "rank", 0),
+                "device": str(self.device), "leases": leases,
+                "peak_bytes": peak}
+
+    def tp_alive(self) -> bool:
+        """False once a worker rank of this engine has died."""
+        return self._tp is None or self._tp.alive()
+
+    def _dispatch(self, op: str, *args):
+        """Rank 0 of a TP group: send command ``op`` (a dispatch carries
+        the host images uploaded since the last one: the pack, the
+        admission inputs, the verify inputs), then run this rank's share
+        in the ``with`` block, under the group lock. Elsewhere nothing."""
+        if self._tp is None:
+            return contextlib.nullcontext()
+        if op in ("adm", "block", "verify"):
+            args = (*args, (self._pack_up.take(), self._adm_up.take(),
+                            self._verify_up.take() if self._spec_k
+                            else None))
+        elif op == "reset":
+            # every rank zeroes the pack and the admission inputs: their
+            # pending images are void. Any other command (a score batch,
+            # a probe) leaves the images pending for the next dispatch
+            self._pack_up.take()
+            self._adm_up.take()
+        return self._tp.step(op, *args)
+
+    def follow(self, op: str, args: tuple) -> None:
+        """A worker rank: apply one of rank 0's commands to this rank's
+        shard (parallel.worker)."""
+        if op in ("adm", "block", "verify"):
+            *args, uploads = args
+            targets = (self._pack, self._adm_in.buf,
+                       self._verify_in if self._spec_k else None)
+            for dst, image in zip(targets, uploads):
+                if image is not None:
+                    dst.copy_(torch.from_numpy(image))
+        with torch.no_grad():
+            if op == "adm":
+                self._admission_fn(args[0])()
+            elif op == "block":
+                self._block(args[0])
+            elif op == "verify":
+                self._verify_fn()
+            elif op == "reset":
+                self._reset_device()
+            elif op == "score":
+                self._follow_score(*args)
+            elif op == "probe":
+                self._comm.gather(self._probe_row())
+            elif op == "zero_counts":
+                _add_counts([-c for c in _counts()])
+            elif op == "time_all_reduce":
+                self._reduce_loop(*args)
+            else:
+                raise ValueError(f"unknown tensor-parallel command {op!r}")
+
+    def tp_score(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                 rope_tables, rope_max: int) -> torch.Tensor:
+        """The ``score`` program on every rank: rank 0 sends the batch's
+        tokens and lengths, each rank runs ``llama.score`` (K1) on its
+        shard, and the logits are summed over the ranks."""
+        with self._device_lock, self._dispatch(
+                "score", tokens.cpu().numpy(), lengths.cpu().numpy(),
+                rope_max):
+            return llama.score(self.params, self.cfg, tokens, lengths,
+                               rope_tables=rope_tables, flash=True)
+
+    def _follow_score(self, tokens, lengths, rope_max: int) -> None:
+        ropes = self._score_ropes
+        if rope_max not in ropes:
+            ropes[rope_max] = llama.get_rope_tables(self.cfg, rope_max,
+                                                    self.device)
+        llama.score(self.params, self.cfg,
+                    torch.from_numpy(tokens).to(self.device),
+                    torch.from_numpy(lengths).to(self.device),
+                    rope_tables=ropes[rope_max], flash=True)
+
+    def _probe_row(self) -> np.ndarray:
+        return np.concatenate(
+            [t.long().cpu().numpy() for t in self._carry]
+            + [self.cache.lengths.long().cpu().numpy(),
+               np.asarray(_counts(), np.int64)])
+
+    def tp_probe(self) -> np.ndarray:
+        """Rank 0: every rank's device state, a [tp, 5B + 8] int64 array:
+        a row a rank, its carry (last token, active, budget, position,
+        B each), its cache cursors (B) and its kernel wrappers' counters
+        (``_COUNTERS``' order). The carries and cursors agree when the
+        ranks follow rank 0."""
+        with self._device_lock, self._dispatch("probe"):
+            return self._comm.gather(self._probe_row())
+
+    def _reduce_loop(self, shape: tuple, n: int) -> None:
+        t = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        for _ in range(n):
+            self._comm.all_reduce(t)
+
+    def tp_time_all_reduce(self, shape: tuple, n: int) -> float:
+        """Rank 0: milliseconds of one float32 ``all_reduce`` of
+        ``shape`` on the device group, the mean of ``n`` that every rank
+        runs back to back (host clock, synchronised)."""
+        with self._device_lock, self._dispatch("time_all_reduce", shape, n):
+            self._reduce_loop(shape, 1)   # warm
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            self._reduce_loop(shape, n - 1)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return 1e3 * (time.perf_counter() - t0) / max(n - 1, 1)
+
+    def tp_zero_counts(self) -> None:
+        """Rank 0: set every worker rank's kernel counters to 0 (rank
+        0's are this process's module counters)."""
+        with self._device_lock, self._dispatch("zero_counts"):
+            pass
 
     # -- the serving loop ----------------------------------------------------
     def _loop(self) -> None:
@@ -1665,6 +2015,12 @@ class GenerationEngine:
         if self.logger is not None:
             self.logger.error({"event": "generation loop failed",
                                "error": repr(e)})
+        if self._comm is not None and self._comm.broken is not None:
+            # a lost tensor-parallel rank: no reset can bring its shard
+            # back, so the engine goes down before any stream hears of it
+            self._go_down(f"a tensor-parallel rank was lost: "
+                          f"{self._comm.broken}", e)
+            return
         err = GenerationError(f"generation failed: {e!r}")
         with self._device_lock:
             self._pack_dirty = True
@@ -1685,18 +2041,28 @@ class GenerationEngine:
             try:
                 self._reset_device()
             except Exception as e2:  # noqa: BLE001 — the engine stops here
-                with self._admission_lock:
-                    self.down = (f"device reset failed: {e2!r} "
-                                 f"(after: {e!r})")
-                if self.logger is not None:
-                    self.logger.error({"event": "generation engine down",
-                                       "error": self.down})
-                self._fail_all(GenerationError(
-                    f"generation engine is down: {self.down}"))
+                self._go_down(f"device reset failed: {e2!r} "
+                              f"(after: {e!r})", e)
                 return
         if self.logger is not None:
             self.logger.warn({"event": "generation state reset after a "
                               "failed step", "recoveries": self._recoveries})
+
+    def _go_down(self, why: str, e: Exception) -> None:
+        """Take the engine down (``down`` names ``why``): every live
+        stream and the queue fail with GenerationError, and ``generate``
+        refuses from here on."""
+        with self._admission_lock:
+            self.down = why
+        if self.logger is not None:
+            self.logger.error({"event": "generation engine down",
+                               "error": self.down})
+        with self._device_lock:
+            for slot in self._slots:
+                if slot.request is not None:
+                    slot.request.stream.failed = repr(e)
+            self._fail_all(GenerationError(
+                f"generation engine is down: {self.down}"))
 
     def _device_tensors(self) -> list[torch.Tensor]:
         """Every tensor a captured graph reads or writes that holds
@@ -1711,11 +2077,13 @@ class GenerationEngine:
 
     def _reset_device(self) -> None:
         """Phase 3 of ``_recover``: zero the serving state in place; the
-        captured graphs, bound to these tensors, stay as they are."""
+        captured graphs, bound to these tensors, stay as they are. Every
+        rank of a TP group zeroes its own; a group that lost a rank
+        raises here, which takes the engine down."""
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize(self.device)
-        with torch.no_grad():
+        with self._dispatch("reset"), torch.no_grad():
             for t in self._device_tensors():
                 t.zero_()
         if self._pool is not None:
@@ -2175,9 +2543,10 @@ class GenerationEngine:
         write-back. On the card one replay of its graph, whose first
         token is copied into a pinned buffer and read after the copy's
         event (as JAX reads ``int(tok)``: behind the blocks in flight);
-        on the CPU the function, eagerly."""
-        if self.device.type != "cuda":
-            with torch.no_grad():
+        on the CPU, and on every rank of a TP group, the function,
+        eagerly."""
+        if not self._graphed:
+            with self._dispatch("adm", key), torch.no_grad():
                 out = self._admission_fn(key)()
             return None if out is None else (int(out[0]), float(out[1]))
         graph, out, deltas = self._adm_graphs[key]
@@ -2922,10 +3291,11 @@ class GenerationEngine:
         event the reap waits on). On the card: one graph replay, then a
         ``non_blocking`` copy of the graph's output (the next replay
         overwrites it) into a pinned buffer the handle owns, and an
-        event. On the CPU: the block, eagerly."""
-        if self.device.type != "cuda":
-            with torch.no_grad():
-                return self._block(draw), None
+        event. On the CPU, and on every rank of a TP group: the block,
+        eagerly."""
+        if not self._graphed:
+            with self._dispatch("block", draw), torch.no_grad():
+                return self._block(draw).cpu(), None
         graph, out, deltas = self._graphs[draw]
         graph.replay()
         _add_counts(deltas)
@@ -3221,34 +3591,6 @@ class GenerationEngine:
                 continue
             self._write_table_row(idx)
 
-    def _check_kernels(self, kv_dtype, paged: bool, block_size: int) -> None:
-        """Refuse, before anything is allocated or started, a model the
-        attention kernels of this engine's path do not take on the
-        card: flash_prefill at every admission, flash_decode or
-        paged_decode at every decode step, the paged window at every
-        verify pass of a paged spec engine."""
-        cfg = self.cfg
-        path = [("flash_prefill", {}),
-                ("paged_decode", {"block_size": block_size}) if paged
-                else ("flash_decode", {})]
-        if paged and self._spec_k:
-            path.append(("paged_window", {"block_size": block_size,
-                                          "window": self._spec_k + 1}))
-        shape = (f"model {cfg.name!r} (head_dim {cfg.head_dim}, "
-                 f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
-                 f"{cfg.dtype})")
-        if kv_dtype not in (None, torch.int8, torch.bfloat16):
-            raise ValueError(f"{shape}: the decode kernels take an int8 or "
-                             f"bf16 KV cache, not {kv_dtype}")
-        for kernel, extra in path:
-            try:
-                kernels.check_attention_shape(
-                    kernel, head_dim=cfg.head_dim, n_heads=cfg.n_heads,
-                    n_kv_heads=cfg.n_kv_heads, dtype=cfg.tdtype, **extra)
-            except (TypeError, ValueError) as e:
-                raise ValueError(f"{shape} cannot be served on "
-                                 f"{self.device}: {e}") from None
-
     # -- speculative decoding ------------------------------------------------
     def _hist_set(self, idx: int, tokens) -> None:
         n = min(len(tokens), self._hist_buf.shape[1])
@@ -3336,10 +3678,11 @@ class GenerationEngine:
         On the card one replay, then a ``non_blocking`` copy of the
         graph's output into a pinned buffer the handle owns, queued
         right behind the replay (before any other graph can replay),
-        and an event; on the CPU ``verify_pass``, eagerly."""
-        if self.device.type != "cuda":
-            with torch.no_grad():
-                return self._verify_fn().numpy(), None
+        and an event; on the CPU, and on every rank of a TP group,
+        ``verify_pass``, eagerly."""
+        if not self._graphed:
+            with self._dispatch("verify"), torch.no_grad():
+                return self._verify_fn().cpu().numpy(), None
         graph, out, deltas = self._verify_graph
         graph.replay()
         _add_counts(deltas)

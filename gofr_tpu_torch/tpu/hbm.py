@@ -63,13 +63,20 @@ accounting change, ``app_tpu_hbm_budget_bytes``,
 ``/debug/vars``. Subsystem vocabulary: ``engine`` (serving KV cache +
 scratch row), ``kvcache-t0`` (prefix-pool rows), ``batcher``.
 
-Left with their ROADMAP items: per-device budgets, sharded leases and
-``alloc_sharded`` (tensor-parallel serving, queue 1 item 11), and the
-timeline's counter tracks (item 13).
+Tensor parallelism (the counterpart of JAX's per-device leases and
+``alloc_sharded``): a lease may name its ``device`` and ``rank``. Each
+rank's process leases its own shard, and rank 0 records every worker
+rank's rows under the worker's device, so ``arbiter_stats()`` lists one
+row a rank with a ``device`` field. ``TPU_HBM_DEVICE_BUDGET_MB``
+(``set_device_budget``) bounds the sum of the rows of each device: two
+ranks sharing one card are checked together on rank 0.
+
+Left with its ROADMAP item: the timeline's counter tracks (item 13).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import weakref
@@ -83,9 +90,10 @@ from ..errors import TooManyRequests
 
 __all__ = ["HBMExhausted", "PRI_CACHE", "PRI_SCRATCH", "PRI_SERVING",
            "account", "alloc", "arbiter_stats", "budget", "check",
-           "configure", "is_oom_error", "lease", "live_bytes", "note_shed",
-           "reclaim", "release", "reset", "set_budget", "set_metrics",
-           "snapshot", "tenant_lease", "tree_nbytes"]
+           "configure", "device_budget", "is_oom_error", "lease",
+           "live_bytes", "note_shed", "reclaim", "release", "reset",
+           "set_budget", "set_device_budget", "set_metrics", "snapshot",
+           "tenant_lease", "tree_nbytes"]
 
 GAUGE = "app_tpu_device_bytes"
 BUDGET_GAUGE = "app_tpu_hbm_budget_bytes"
@@ -169,6 +177,9 @@ def tree_nbytes(tree: Any) -> int:
 class _Registry:
     def __init__(self) -> None:
         self._mu = threading.Lock()
+        # ids of owners whose finalizer ran: dropped under _mu, by the
+        # finalizer itself or by the next _locked section
+        self._dead: list[int] = []
         # (subsystem, owner_id, tag) -> bytes
         self._entries: dict[tuple[str, int, str], int] = {}
         # lease metadata per key: (priority, reclaim-callable-or-ref).
@@ -177,7 +188,11 @@ class _Registry:
         # keeps a key's meta, so a recovery re-account keeps the lease's
         # class and callback
         self._meta: dict[tuple[str, int, str], tuple[int, Any]] = {}
+        # where a lease lives, for a tensor-parallel rank's rows:
+        # key -> (device, rank)
+        self._place: dict[tuple[str, int, str], tuple[str, int]] = {}
         self._budget: int | None = None
+        self._dev_budget: int | None = None
         # single-flight reclaim: one pass at a time process-wide.
         # Concurrent requesters return 0 and judge the budget as-is,
         # which also breaks any cross-engine lock cycle a nested
@@ -197,7 +212,7 @@ class _Registry:
                 tag: str = "") -> Any:
         key = (subsystem, id(owner) if owner is not None else 0, tag)
         n = tree_nbytes(tree)
-        with self._mu:
+        with self._locked():
             self._entries[key] = n   # SET semantics: replace, never add
         if owner is not None:
             self._finalize(owner)
@@ -215,13 +230,44 @@ class _Registry:
             pass  # non-weakrefable owner: explicit release only
 
     def _release_owner_id(self, oid: int) -> None:
+        """An owner's finalizer. It can run inside the garbage collector,
+        in any allocation, even one this thread makes while it holds
+        ``_mu``: so it queues the id and never waits for the lock. The
+        holder of the lock (now, or the next ``_locked`` section) drops
+        the owner's entries."""
+        self._dead.append(oid)
+        if not self._mu.acquire(blocking=False):
+            return
+        try:
+            touched = self._drop_dead_locked()
+        finally:
+            self._mu.release()
+        for sub in touched:
+            self._push(sub)
+
+    def _drop_dead_locked(self) -> set[str]:
         touched: set[str] = set()
-        with self._mu:
+        while self._dead:
+            oid = self._dead.pop()
             for key in [k for k in self._entries if k[1] == oid]:
                 self._entries.pop(key)
                 touched.add(key[0])
             for key in [k for k in self._meta if k[1] == oid]:
                 self._meta.pop(key)
+            for key in [k for k in self._place if k[1] == oid]:
+                self._place.pop(key)
+        return touched
+
+    @contextlib.contextmanager
+    def _locked(self):
+        """``_mu`` held, the entries of owners that died meanwhile
+        dropped first (their gauges pushed after it is released)."""
+        self._mu.acquire()
+        try:
+            touched = self._drop_dead_locked()
+            yield
+        finally:
+            self._mu.release()
         for sub in touched:
             self._push(sub)
 
@@ -234,7 +280,7 @@ class _Registry:
         oid = None if owner is None else id(owner)
         dropped = 0
         touched: set[str] = set()
-        with self._mu:
+        with self._locked():
             for key in list(self._entries):
                 sub, key_oid, key_tag = key
                 if subsystem is not None and sub != subsystem:
@@ -245,6 +291,7 @@ class _Registry:
                     continue
                 dropped += self._entries.pop(key)
                 self._meta.pop(key, None)
+                self._place.pop(key, None)
                 touched.add(sub)
         for sub in touched:
             self._push(sub)
@@ -253,13 +300,13 @@ class _Registry:
     def live_bytes(self) -> dict[str, int]:
         """Accounted bytes aggregated by subsystem."""
         out: dict[str, int] = {}
-        with self._mu:
+        with self._locked():
             for (sub, _, _), n in self._entries.items():
                 out[sub] = out.get(sub, 0) + n
         return dict(sorted(out.items()))
 
     def snapshot(self) -> dict[tuple[str, int, str], int]:
-        with self._mu:
+        with self._locked():
             return dict(self._entries)
 
     # -- the arbiter ----------------------------------------------------------
@@ -277,13 +324,26 @@ class _Registry:
     def budget(self) -> int | None:
         return self._budget
 
+    def set_device_budget(self, nbytes: int | None) -> None:
+        """Install (or clear) the per-device budget: the bytes the rows
+        placed on one device (``lease(..., device=)``) may hold
+        together."""
+        self._dev_budget = int(nbytes) if nbytes else None
+
+    def device_budget(self) -> int | None:
+        return self._dev_budget
+
     def configure(self, budget_mb: int | None = None,
-                  headroom: float = 0.1, device=None) -> int | None:
+                  headroom: float = 0.1, device=None,
+                  device_budget_mb: int | None = None) -> int | None:
         """Resolve and install the budget. An explicit ``budget_mb``
         wins; otherwise, for a CUDA ``device``, the card's total memory
         (``torch.cuda.mem_get_info``) less the ``headroom`` fraction
         (clamped to [0, 0.9]). Any other device leaves the budget off.
-        Returns the active budget."""
+        ``device_budget_mb`` (TPU_HBM_DEVICE_BUDGET_MB) sets the
+        per-device budget, or clears it. Returns the active budget."""
+        self.set_device_budget(int(device_budget_mb) << 20
+                               if device_budget_mb else None)
         if budget_mb:
             self.set_budget(int(budget_mb) << 20)
             return self._budget
@@ -295,6 +355,10 @@ class _Registry:
 
     def _in_use_locked(self) -> int:
         return sum(self._entries.values())
+
+    def _device_in_use_locked(self, device: str) -> int:
+        return sum(n for k, n in self._entries.items()
+                   if self._place.get(k, ("",))[0] == device)
 
     def tenant_lease(self, subsystem: str, nbytes: int, *, tenant: str,
                      owner: Any = None, priority: int = PRI_SCRATCH,
@@ -314,6 +378,7 @@ class _Registry:
     def lease(self, subsystem: str, nbytes: int, *, owner: Any = None,
               tag: str = "", priority: int = PRI_CACHE,
               reclaim: Callable[[int], int] | None = None,
+              device: str | None = None, rank: int | None = None,
               _seam: bool = True) -> int:
         """Reserve ``nbytes`` against the budget BEFORE allocating.
         Fires the seeded ``HBM_ALLOC`` chaos seam, runs reclaim when the
@@ -321,40 +386,62 @@ class _Registry:
         on a surviving deficit. On success the reservation is recorded
         under ``(subsystem, owner, tag)`` -- the later :func:`account`
         of the real tree replaces the figure -- with the priority class
-        and ``reclaim`` callback attached. Returns ``nbytes``."""
+        and ``reclaim`` callback attached. ``device``/``rank``: where a
+        tensor-parallel rank's row lives; with a per-device budget the
+        rows of that device must fit it together (no reclaim: the rows
+        of other ranks' processes cannot be reclaimed from here).
+        Returns ``nbytes``."""
         if _seam:  # alloc fires it once itself
             self._fire_seam(subsystem, int(nbytes))
         need = int(nbytes)
         key = (subsystem, id(owner) if owner is not None else 0, tag)
         wrapped = self._wrap_reclaim(reclaim)
+        place = None if device is None else (str(device), int(rank or 0))
+        over_device: list[int] = []   # the device's use, when it is full
 
         def deficit() -> int:
-            with self._mu:
+            with self._locked():
                 held = self._entries.get(key, 0)
                 return self._in_use_locked() - held + need - self._budget
 
         def try_reserve() -> bool:
-            # budget check and reservation insert under ONE lock hold:
-            # two concurrent leases must not both pass a check neither
-            # has reserved against yet
-            with self._mu:
+            # the budget checks and the reservation insert under ONE lock
+            # hold: two concurrent leases must not both pass a check
+            # neither has reserved against yet
+            with self._locked():
                 held = self._entries.get(key, 0)
+                if place is not None and self._dev_budget:
+                    on_dev = (held if self._place.get(key, ("",))[0]
+                              == place[0] else 0)
+                    in_dev = self._device_in_use_locked(place[0]) - on_dev
+                    if in_dev + need > self._dev_budget:
+                        over_device.append(in_dev)
+                        return False
                 b = self._budget
                 if b and self._in_use_locked() - held + need > b:
                     return False
                 self._entries[key] = need
                 self._meta[key] = (int(priority), wrapped)
+                if place is not None:
+                    self._place[key] = place
                 return True
 
-        if not try_reserve():
+        reserved = try_reserve()
+        if not reserved and not over_device:
+            # no reclaim for a full device: the rows of other ranks'
+            # processes cannot be reclaimed from here
             self._reclaim(deficit(), requester=subsystem)
-            if not try_reserve():
-                self.note_shed(subsystem)
-                with self._mu:
-                    in_use = self._in_use_locked() \
-                        - self._entries.get(key, 0)
-                raise HBMExhausted(subsystem, need, budget=self._budget,
-                                   in_use=in_use)
+            reserved = try_reserve()
+        if not reserved:
+            self.note_shed(subsystem)
+            if over_device:
+                raise HBMExhausted(f"{subsystem}@{place[0]}", need,
+                                   budget=self._dev_budget,
+                                   in_use=over_device[-1])
+            with self._locked():
+                in_use = self._in_use_locked() - self._entries.get(key, 0)
+            raise HBMExhausted(subsystem, need, budget=self._budget,
+                               in_use=in_use)
         if owner is not None:
             self._finalize(owner)
         self._push(subsystem)
@@ -363,7 +450,8 @@ class _Registry:
     def alloc(self, subsystem: str, fn: Callable[[], Any], *,
               nbytes: int | None = None, owner: Any = None, tag: str = "",
               priority: int = PRI_CACHE,
-              reclaim: Callable[[int], int] | None = None) -> Any:
+              reclaim: Callable[[int], int] | None = None,
+              device: str | None = None, rank: int | None = None) -> Any:
         """Reclaim-then-retry allocation, the one call serving code wraps
         its persistent allocations in. Leases ``nbytes`` (the size the
         caller computed from the allocation's shapes; None reserves
@@ -376,27 +464,32 @@ class _Registry:
         (ValueError otherwise: the lease would misstate it), and is
         accounted under ``(subsystem, owner, tag)``. A failed allocation
         rolls the key back to its pre-lease state, so no phantom bytes
-        stay registered."""
+        stay registered. ``device``/``rank``: as for :func:`lease`."""
         key = (subsystem, id(owner) if owner is not None else 0, tag)
-        with self._mu:
+        with self._locked():
             prior = self._entries.get(key)
             prior_meta = self._meta.get(key)
+            prior_place = self._place.get(key)
 
         def rollback() -> None:
-            with self._mu:
+            with self._locked():
                 self._entries.pop(key, None)
                 self._meta.pop(key, None)
+                self._place.pop(key, None)
                 if prior is not None:
                     self._entries[key] = prior
                 if prior_meta is not None:
                     self._meta[key] = prior_meta
+                if prior_place is not None:
+                    self._place[key] = prior_place
             self._push(subsystem)
 
         need = int(nbytes or 0)
         self._fire_seam(subsystem, need)
         try:
             self.lease(subsystem, need, owner=owner, tag=tag,
-                       priority=priority, reclaim=reclaim, _seam=False)
+                       priority=priority, reclaim=reclaim, device=device,
+                       rank=rank, _seam=False)
         except BaseException:
             rollback()
             raise
@@ -406,7 +499,7 @@ class _Registry:
             if not is_oom_error(e):
                 rollback()
                 raise
-            with self._mu:
+            with self._locked():
                 self._oom_retries[subsystem] = \
                     self._oom_retries.get(subsystem, 0) + 1
             self._reclaim(max(need, 1), requester=subsystem)
@@ -441,12 +534,12 @@ class _Registry:
         b = self._budget
         if not b:
             return
-        with self._mu:
+        with self._locked():
             in_use = self._in_use_locked()
         if in_use <= b:
             return
         self._reclaim(in_use - b, requester=subsystem)
-        with self._mu:
+        with self._locked():
             in_use = self._in_use_locked()
         if in_use > b:
             self.note_shed(subsystem)
@@ -473,7 +566,7 @@ class _Registry:
         out-of-memory retry uses, where the transient deficit is
         unknowable. Returns bytes freed."""
         if nbytes is None:
-            with self._mu:
+            with self._locked():
                 need = sum(self._entries.get(k, 0)
                            for k, (_, cb) in self._meta.items()
                            if cb is not None) or 1
@@ -505,7 +598,7 @@ class _Registry:
         if not self._reclaim_mu.acquire(blocking=False):
             return 0
         try:
-            with self._mu:
+            with self._locked():
                 candidates = sorted(
                     ((key, meta, self._entries.get(key, 0))
                      for key, meta in self._meta.items()
@@ -517,7 +610,7 @@ class _Registry:
                     break
                 cb = self._deref_reclaim(meta[1])
                 if cb is None:
-                    with self._mu:  # owner died: drop the dead callback
+                    with self._locked():  # owner died: drop the dead callback
                         self._meta.pop(key, None)
                     continue
                 try:
@@ -527,7 +620,7 @@ class _Registry:
                 if got > 0:
                     freed += got
                     sub = key[0]
-                    with self._mu:
+                    with self._locked():
                         self._reclaims[sub] = self._reclaims.get(sub, 0) + 1
                         self._reclaimed_bytes += got
                     self._count_metric(RECLAIMS_COUNTER, subsystem=sub)
@@ -543,7 +636,7 @@ class _Registry:
         a caller that catches and re-routes one must NOT count it again
         (the batcher's own persistent out-of-memory shed, which raises a
         plain TooManyRequests, is the one external caller)."""
-        with self._mu:
+        with self._locked():
             self._sheds[subsystem] = self._sheds.get(subsystem, 0) + 1
         self._count_metric(SHED_COUNTER, subsystem=subsystem)
 
@@ -551,9 +644,10 @@ class _Registry:
         """The lease/reclaim table: budget, in-use, per-lease rows
         (subsystem/tag/bytes/priority/reclaimable), and the reclaim/
         shed/retry counters -- what health and /debug/vars render."""
-        with self._mu:
+        with self._locked():
             entries = dict(self._entries)
             meta = dict(self._meta)
+            place = dict(self._place)
             reclaims = dict(self._reclaims)
             sheds = dict(self._sheds)
             retries = dict(self._oom_retries)
@@ -562,14 +656,19 @@ class _Registry:
         pri_names = {PRI_SERVING: "serving", PRI_CACHE: "cache",
                      PRI_SCRATCH: "scratch"}
         leases = []
+        per_dev: dict[str, int] = {}
         for (sub, oid, tag), n in sorted(entries.items()):
             pri, cb = meta.get((sub, oid, tag), (PRI_CACHE, None))
-            leases.append({
+            row = {
                 "subsystem": sub, "owner": oid, "tag": tag, "bytes": n,
                 "priority": pri_names.get(pri, str(pri)),
                 "reclaimable": self._deref_reclaim(cb) is not None,
-            })
-        return {
+            }
+            if (sub, oid, tag) in place:
+                row["device"], row["rank"] = place[(sub, oid, tag)]
+                per_dev[row["device"]] = per_dev.get(row["device"], 0) + n
+            leases.append(row)
+        out = {
             "budget_bytes": self._budget,
             "in_use_bytes": in_use,
             "headroom_bytes": (self._budget - in_use
@@ -580,6 +679,14 @@ class _Registry:
             "sheds": sheds,
             "oom_retries": retries,
         }
+        if per_dev or self._dev_budget:
+            db = self._dev_budget
+            out["device_budget_bytes"] = db
+            out["devices"] = {
+                d: {"in_use_bytes": n,
+                    "headroom_bytes": (db - n) if db else None}
+                for d, n in sorted(per_dev.items())}
+        return out
 
     # -- fan-out sinks --------------------------------------------------------
     def set_metrics(self, metrics: Any) -> None:
@@ -600,15 +707,18 @@ class _Registry:
     def reset(self) -> None:
         """Test hook: forget everything -- entries, leases, budget,
         counters (and zero pushed gauges)."""
-        with self._mu:
+        with self._locked():
             subs = {sub for (sub, _, _) in self._entries}
             self._entries.clear()
             self._meta.clear()
+            self._place.clear()
+            self._dead.clear()
             self._reclaims.clear()
             self._sheds.clear()
             self._oom_retries.clear()
             self._reclaimed_bytes = 0
         self.set_budget(None)
+        self.set_device_budget(None)
         for sub in subs:
             self._push(sub)
 
@@ -644,6 +754,7 @@ arbiter_stats = _registry.arbiter_stats
 budget = _registry.budget
 check = _registry.check
 configure = _registry.configure
+device_budget = _registry.device_budget
 lease = _registry.lease
 live_bytes = _registry.live_bytes
 note_shed = _registry.note_shed
@@ -651,6 +762,7 @@ reclaim = _registry.reclaim
 release = _registry.release
 reset = _registry.reset
 set_budget = _registry.set_budget
+set_device_budget = _registry.set_device_budget
 set_metrics = _registry.set_metrics
 snapshot = _registry.snapshot
 tenant_lease = _registry.tenant_lease

@@ -1765,3 +1765,100 @@ def test_lora_replays_write_nothing_outside_the_engine(gen, paged):
             eng._touch()
     finally:
         eng.close()
+
+
+# -- tensor parallelism (gofr_tpu_torch.parallel) ------------------------------
+
+# the per-rank head counts (H, KV) of tensor-parallel serving: Llama-3-8B
+# at tp = 2, 4 and 8, and Llama-3-70B at tp = 8 (one KV head a rank)
+TP_RANK_SHAPES = [(16, 4), (8, 2), (4, 1), (8, 1)]
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("h,kv", TP_RANK_SHAPES)
+def test_the_kernels_at_the_tensor_parallel_rank_shapes(gen, quant, h, kv):
+    """K1, K2, K3 and K3w each launched once at a rank's head counts and
+    held against their plain versions in float32 (K1 on ragged rows past
+    a tile, the decodes on and around a chunk edge with an empty slot,
+    K3w at a window of 5)."""
+    lens = torch.tensor([300, 129], dtype=torch.int32, device="cuda")
+    q, k, v = (_randn(gen, 2, 300, h, 128), _randn(gen, 2, 300, kv, 128),
+               _randn(gen, 2, 300, kv, 128))
+    flash.reset_counts()
+    got = flash.flash_prefill(q, k, v, lens)
+    assert (flash.launches, flash.plain_calls) == (1, 0)
+    _assert_close(got, flash.causal_prefill_plain(q.float(), k.float(),
+                                                  v.float(), lens))
+    c = flash_decode.SPLIT_CHUNK
+    lengths = [0, 1, c - 1, c, c + 1, 2 * c + 7]
+    args = _paged_args(gen, lengths, 16, 40, h, kv, quant)
+    qd, kp, vp, kn, vn, table, lens, ks, vs = args
+
+    def dense(x):
+        return None if x is None else \
+            paged_attention.gather_blocks(x, table).contiguous()
+
+    flash_decode.reset_counts()
+    paged_attention.reset_counts()
+    contiguous = (qd, dense(kp), dense(vp), kn, vn, lens, dense(ks),
+                  dense(vs))
+    got = flash_decode.flash_decode_appended(*contiguous)
+    assert (flash_decode.launches, flash_decode.plain_calls) == (1, 0)
+    _assert_close(got, flash_decode.decode_plain(*_f32(contiguous)))
+    paged = paged_attention.paged_decode_attention(*args)
+    assert (paged_attention.launches, paged_attention.plain_calls) == (1, 0)
+    assert torch.equal(paged, got)
+    wargs = _window_args(gen, lengths, 16, 40, h, kv, 5, quant)
+    window = paged_attention.paged_window_attention(*wargs)
+    assert (paged_attention.window_launches,
+            paged_attention.window_plain_calls) == (1, 0)
+    _assert_close(window, paged_attention.paged_window_reference(
+        *_f32(wargs)))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_a_tp2_engine_on_the_card_serves_tp1_s_first_tokens(gen, paged):
+    """SMALL at tp=2 (two ranks on one card, per-rank H=2 over KV=1,
+    the activations summed over gloo, eagerly): every rank launches its
+    kernels, the carries agree, and each stream's first token equals a
+    tp=1 engine's on the same weights; paged with spec decode (K3w)."""
+    from gofr_tpu_torch.parallel import MeshPlan
+    from gofr_tpu_torch.tpu import GenerationEngine
+    from gofr_tpu_torch.tpu.generator import _COUNTERS
+
+    params = llama.init(SMALL, 0, device="cuda")
+    args = dict(slots=4, max_seq=256, kv_dtype=torch.int8, decode_block=4,
+                prompt_buckets=(32, 64), device="cuda")
+    if paged:
+        args.update(paged_blocks=40, paged_block_size=16, spec_decode_k=3)
+    rng = np.random.default_rng(5)
+    xs = [rng.integers(0, SMALL.vocab_size, n).tolist() for n in (9, 20)]
+    prompts = [x * 3 for x in xs]
+    ref = GenerationEngine(SMALL, params, **args)
+    try:
+        want = [ref.generate(p, max_new_tokens=24).tokens() for p in prompts]
+    finally:
+        ref.close()
+    eng = GenerationEngine(SMALL, params, mesh=MeshPlan(tp=2), **args)
+    try:
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        eng.tp_zero_counts()
+        got = [eng.generate(p, max_new_tokens=24).tokens() for p in prompts]
+        probe = eng.tp_probe()
+        stats = eng.stats()
+    finally:
+        eng.close()
+    assert [g[0] for g in got] == [w[0] for w in want]
+    assert (probe[:, :20] == probe[0, :20]).all()
+    counts = [dict(zip([f"{m.__name__}.{n}" for m, n in _COUNTERS],
+                       row[-len(_COUNTERS):].tolist())) for row in probe]
+    assert counts[0] == counts[1]
+    launched = {k.rsplit(".", 2)[-2] + "." + k.rsplit(".", 1)[-1]: v
+                for k, v in counts[0].items() if v}
+    assert all(k.endswith("launches") for k in launched), launched
+    want_k = ({"flash.launches", "paged_attention.launches"} if paged
+              else {"flash.launches", "flash_decode.launches"})
+    assert want_k <= set(launched)
+    assert stats["mesh"]["backend"] == "gloo" and not stats["mesh"]["graphs"]
+    assert all(p.poll() is not None for p in eng._tp.procs)

@@ -23,6 +23,7 @@ need no mesh and no tenants, on the CPU.
   ``/debug/vars`` sections have the same keys.
 """
 
+import contextlib
 import gc
 import json
 import threading
@@ -188,6 +189,72 @@ def test_dead_owner_reclaim_callback_is_purged(side):
     gc.collect()
     assert hbm.live_bytes() == {}
     hbm.lease("engine", 180, owner=object(), tag="y")
+
+
+def test_an_owner_collected_while_the_registry_lock_is_held_is_released():
+    """An owner's finalizer may run inside the garbage collector while
+    this very thread holds the port registry's lock (any allocation in a
+    registry call can collect): it must not wait for that lock (a
+    deadlock that hung a whole test run) and the owner's entries go at
+    the registry's next call."""
+    class Owner:
+        pass
+
+    phbm.reset()
+    o = Owner()
+    phbm.account("engine", np.zeros(16, np.int64), owner=o, tag="x")
+    reg = phbm._registry
+    done = threading.Event()
+
+    def collect_under_the_lock():
+        nonlocal o
+        with reg._locked():
+            o = None
+            gc.collect()
+        done.set()
+
+    t = threading.Thread(target=collect_under_the_lock, daemon=True)
+    t.start()
+    assert done.wait(10), "a finalizer waited for the registry lock"
+    assert phbm.live_bytes() == {}
+    phbm.reset()
+
+
+def test_two_leases_on_one_device_cannot_both_pass_its_budget(monkeypatch):
+    """The per-device budget is checked and the lease recorded under one
+    hold of the registry lock: a second lease on the device that runs the
+    moment the first one's lock hold ends (here inline, on the first
+    release) sees the first one's bytes and is refused."""
+    phbm.reset()
+    reg = phbm._registry
+    phbm.set_device_budget(100)
+    locked = reg._locked
+    owner = type("Owner", (), {})()
+    second: list = []
+
+    @contextlib.contextmanager
+    def then_the_second_lease():
+        with locked():
+            yield
+        if not second:
+            second.append(None)
+            try:
+                second[0] = phbm.lease("engine", 60, owner=owner, tag="b",
+                                       device="cuda:0", rank=1)
+            except phbm.HBMExhausted as e:
+                second[0] = e
+
+    monkeypatch.setattr(reg, "_locked", then_the_second_lease)
+    try:
+        phbm.lease("engine", 60, owner=owner, tag="a", device="cuda:0",
+                   rank=0)
+        assert isinstance(second[0], phbm.HBMExhausted)
+        assert "cuda:0" in str(second[0])
+        assert sum(r["bytes"] for r in phbm.arbiter_stats()["leases"]
+                   if r.get("device") == "cuda:0") == 60
+    finally:
+        monkeypatch.undo()
+        phbm.reset()
 
 
 def test_is_oom_error_classification():

@@ -224,3 +224,80 @@ def test_the_pd_rows_read_alike(row, value, want):
             peng.close()
     finally:
         jeng.close()
+
+
+# -- tensor parallelism: what TPU_SHARDING does not serve yet ------------------
+
+@pytest.mark.parametrize("rows,name", [
+    ({"TPU_SHARDING": "tp=2,dp=2"}, "TPU_SHARDING"),
+    ({"TPU_SHARDING": "fsdp=2"}, "TPU_SHARDING"),
+    ({"TPU_SHARDING": "tp=2,ep=2"}, "TPU_SHARDING"),
+    ({"TPU_SHARDING": "tp"}, "TPU_SHARDING"),
+    ({"TPU_SHARDING": "tp=3"}, "TPU_SHARDING"),     # tiny: 4 query heads
+    ({"TPU_SHARDING": "tp=8"}, "TPU_SHARDING"),
+    ({"TPU_SHARDING": "tp=2", "TPU_LORA_ADAPTERS": "2"}, "TPU_LORA_ADAPTERS"),
+    ({"TPU_SHARDING": "tp=2", "TPU_PREFIX_CACHE": "2"}, "TPU_PREFIX_CACHE"),
+    ({"TPU_SHARDING": "tp=2", "TPU_KVCACHE_HOST_MB": "4"},
+     "TPU_KVCACHE_HOST_MB"),
+    ({"TPU_SHARDING": "tp=2", "TPU_SERVING_ROLE": "prefill",
+      "TPU_PD_PEER": "127.0.0.1:1"}, "TPU_SERVING_ROLE=prefill"),
+    ({"TPU_SHARDING": "tp=2", "TPU_SERVING_ROLE": "decode"},
+     "TPU_SERVING_ROLE=decode"),
+    ({"TPU_SHARDING": "tp=2", "TPU_MODEL": "bert-tiny"}, "TPU_SHARDING"),
+    ({"TPU_HBM_DEVICE_BUDGET_MB": "64"}, "TPU_HBM_DEVICE_BUDGET_MB"),
+    ({"TPU_PROCESS_ID": "1"}, "TPU_PROCESS_ID"),
+    ({"TPU_COORDINATOR": "127.0.0.1:1234", "TPU_SHARDING": "tp=2"},
+     "TPU_COORDINATOR"),
+    ({"TPU_NUM_PROCESSES": "2", "TPU_SHARDING": "tp=2"},
+     "TPU_NUM_PROCESSES"),
+])
+def test_what_tensor_parallel_serving_does_not_take_is_refused_by_name(
+        monkeypatch, rows, name):
+    """Each row or pairing outside the tp slice raises ValueError (a
+    ShardingConfigError where the plan is at fault) naming it, before any
+    weights are made and before any rank starts."""
+    import gofr_tpu_torch.tpu as ptpu
+    from gofr_tpu_torch.tpu import generator as pgen
+
+    monkeypatch.setattr(ptpu.llama, "init", lambda *a, **k: pytest.fail(
+        "weights made for a refused config"))
+    monkeypatch.setattr(pgen, "TPRanks", lambda *a, **k: pytest.fail(
+        "a rank started for a refused config"))
+    with pytest.raises(ValueError, match=name):
+        ptpu.new_engine_from_config(
+            MapConfig({"TPU_MODEL": "tiny", **rows}), device="cpu")
+
+
+@pytest.mark.parametrize("role", ["prefill", "decode"])
+def test_both_packages_refuse_a_pd_role_on_a_tensor_parallel_engine(role):
+    """JAX refuses a P/D role on a mesh engine in its role wiring; the
+    port refuses it from the rows before any engine (above) and in its
+    role wiring too, naming TPU_SHARDING."""
+    import types
+
+    import jax
+
+    from gofr_tpu.models import LLAMA_CONFIGS as JCONFIGS
+    from gofr_tpu.models import llama as jllama
+    from gofr_tpu.parallel import make_mesh, shard_params
+    from gofr_tpu.tpu.generator import GenerationEngine as JEngine
+    from gofr_tpu_torch.parallel import MeshPlan
+    from gofr_tpu_torch.pd import wire_role
+
+    rows = {"TPU_SHARDING": "tp=2", "TPU_PD_PEER": "127.0.0.1:1"}
+    mesh = make_mesh(tp=2, devices=jax.devices()[:2])
+    jcfg = JCONFIGS["tiny"]
+    jgen = JEngine(jcfg, shard_params(jllama.init(jcfg, jax.random.PRNGKey(0)),
+                                      mesh), slots=2, max_seq=32,
+                   prompt_buckets=(8,), mesh=mesh)
+    try:
+        with pytest.raises(ValueError, match="TPU_SHARDING"):
+            jwire_role(types.SimpleNamespace(generator=jgen), role,
+                       JMapConfig(rows))
+    finally:
+        jgen.close()
+    pgen = types.SimpleNamespace(mesh=MeshPlan(tp=2), params={},
+                                 cfg=None, _paged=False)
+    with pytest.raises(ValueError, match="TPU_SHARDING"):
+        wire_role(types.SimpleNamespace(generator=pgen), role,
+                  MapConfig(rows))
