@@ -321,10 +321,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      first token that differs from tp=1's only at a near tie (within
      TP_TIE_ATOL of the winner in the logits the tp=2 admission sampled
      it from and in tp=1's score logits);
+  5p. (phase ``cmd``) the CLI entry point to the main path:
+     ``gofr_tpu_torch.new_cmd`` with phase 5's rows (Llama-3-8B at full
+     width and depth, seed-0 weights), DB_DIALECT=sqlite with DB_NAME a
+     file in a temporary directory, and CMD_LOGS_FILE there too; migration
+     1 creates a table and 2 records the model in the model-version
+     ledger (``ds.tpu.register_model``): the ledger holds versions 1 and
+     2, a second migrate applies nothing, a third that creates a table
+     and raises gives MigrationError and leaves no table and 2 ledger
+     rows; 8 ``generate`` sub-commands through ``run_command`` (17-500
+     tokens, 32 new greedy tokens each, a row in the table through
+     ``ctx.sql``): exit code 0, each JSON result on stdout, each stream
+     equal to the same prompt through ``engine.generate`` on the same
+     engine, 8 rows, flash_prefill 32 a bucket admission and
+     flash_decode 32 a decode step, no plain call; an unknown command
+     exits 1 with "No Command Found!" and the help on stderr, a raising
+     handler exits 1 with its message on stderr; the log file holds log
+     lines only, the migration events among them; then the CLI as a
+     process of its own (CMD_CLI: Llama-3-8B's width at 2 layers, one
+     ``generate`` command) exits 0 by itself with the engine's thread
+     still live, inside CMD_PROC_S, its result on stdout; a
+     ``{"cmd": {...}}`` line with the migrations applied, the CLI's tok/s
+     and TTFT mean, the launches and the subprocess's wall time;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
      5's, the score run's and phases grpc's, tiers', lora's, tenancy's,
-     gateway's, pd's and tp's; flash_decode's phase 5's and phases
-     grpc's, tiers', lora's, tenancy's, gateway's, pd's and tp's;
+     gateway's, pd's, tp's and cmd's; flash_decode's phase 5's and phases
+     grpc's, tiers', lora's, tenancy's, gateway's, pd's, tp's and cmd's;
      paged_decode's phase paged's, lora's, pd's and tp's; paged_window's
      phase spec's and tp's; phase tp's summed over its two ranks),
      then the card line, then the ``{"ok": true, "device": {...}}`` line
@@ -7262,13 +7284,336 @@ def phase_tp(card: str) -> dict:
     return counts
 
 
+# -- phase cmd: the CLI App (new_cmd), migrations and SQL ----------------------
+
+CMD_ROWS = dict(MAIN_ROWS, LOG_LEVEL="INFO")
+CMD_SEED = 79
+CMD_PROMPTS = 8
+CMD_LENS = (17, 500)      # the prompts' lengths: bucket admissions (K1)
+CMD_NEW = 32
+CMD_MODEL = "llama-3-8b"  # the name the migration's model ledger records
+# the CLI run as a process of its own: Llama-3-8B's width at this depth,
+# inside its own limit
+CMD_PROC_LAYERS = 2
+CMD_PROC_S = 180
+
+# a CLI program as a user writes one: new_cmd, a generate sub-command,
+# run_command's code as the process's; argv[1] is a JSON spec (the rows,
+# the device, the model and depth it registers), the rest the command.
+# It exits while the engine's threads are still live, and reports the
+# launch counts of its one command on stderr
+CMD_CLI = """
+import json, sys, threading
+from gofr_tpu_torch import new_cmd
+from gofr_tpu_torch.config import MapConfig
+from gofr_tpu_torch.models.common import LLAMA_CONFIGS
+from gofr_tpu_torch.ops import flash, flash_decode
+
+spec = json.loads(sys.argv[1])
+LLAMA_CONFIGS[spec["rows"]["TPU_MODEL"]] = LLAMA_CONFIGS[
+    spec["base"]].with_(n_layers=spec["layers"])
+app = new_cmd(MapConfig(spec["rows"]), device=spec["device"])
+
+
+@app.sub_command("generate", description="-prompt 1,2,3 -max N -seed S")
+def generate(ctx):
+    prompt = [int(t) for t in ctx.param("prompt").split(",")]
+    return {"prompt_len": len(prompt), "tokens": ctx.tpu.generate(
+        prompt, max_new_tokens=int(ctx.param("max")),
+        seed=int(ctx.param("seed", "0"))).tokens()}
+
+
+gen = app.container.tpu.generator
+flash.reset_counts()
+flash_decode.reset_counts()
+adm0, steps0 = gen.admissions, gen.decode_steps
+code = app.run_command(sys.argv[2:])
+live = [t.name for t in threading.enumerate()
+        if t.name == "gofr-torch-gen" and t.is_alive()]
+print("[cli] " + json.dumps({
+    "code": code, "live": live, "admissions": gen.admissions - adm0,
+    "steps": gen.decode_steps - steps0, "flash_prefill": flash.launches,
+    "flash_decode": flash_decode.launches,
+    "plain": flash.plain_calls + flash_decode.plain_calls}),
+    file=sys.stderr, flush=True)
+raise SystemExit(code)
+"""
+
+
+def cmd_routes(app, traces: list) -> None:
+    """The ``generate`` sub-command: ``-prompt`` (comma-separated token
+    ids), ``-max`` new tokens and ``-seed``; the stream through
+    ``ctx.tpu.generate``, a row in ``generations`` through ``ctx.sql``,
+    its result as JSON on stdout. Each stream's ``trace`` is appended to
+    ``traces``."""
+    import json
+
+    @app.sub_command("generate", description="-prompt 1,2,3 -max N -seed S")
+    def generate(ctx):
+        prompt = [int(t) for t in ctx.param("prompt").split(",")]
+        n = int(ctx.param("max", "16"))
+        seed = int(ctx.param("seed", "0"))
+        stream = ctx.tpu.generate(prompt, max_new_tokens=n, seed=seed)
+        tokens = stream.tokens()
+        traces.append(stream.trace)
+        ctx.sql.execute("INSERT INTO generations (prompt_len, max_new, "
+                        "seed, tokens) VALUES (?, ?, ?, ?)", len(prompt), n,
+                        seed, json.dumps(tokens))
+        return {"prompt_len": len(prompt), "tokens": tokens}
+
+    @app.sub_command("fail", description="raises")
+    def fail(ctx):
+        raise ValueError(f"refused: {ctx.param('why', 'always')}")
+
+
+def run_command_captured(app, argv: list) -> tuple:
+    """(exit code, stdout, stderr, seconds) of ``app.run_command(argv)``."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code = app.run_command(argv)
+    return code, out.getvalue(), err.getvalue(), time.monotonic() - t0
+
+
+def cmd_migrations(mig, registered: list) -> dict:
+    """Migration 1 creates the generations table, 2 records the model in
+    the model-version ledger."""
+    def register(ds):
+        ds.tpu.register_model(CMD_MODEL, revision="seed0")
+        registered.extend(ds.tpu.registered)
+
+    return {1: mig.Migrate(up=lambda ds: ds.sql.execute(
+                "CREATE TABLE generations (id INTEGER PRIMARY KEY, "
+                "prompt_len INTEGER, max_new INTEGER, seed INTEGER, "
+                "tokens TEXT)")),
+            2: mig.Migrate(up=register)}
+
+
+def phase_cmd(card: str, device: str = "cuda") -> dict:
+    """The CLI entry point to the main path: ``new_cmd`` with Llama-3-8B
+    at full width and depth (seed-0 weights, phase 5's rows), a sqlite
+    file (``DB_DIALECT``, ``DB_NAME``) and ``CMD_LOGS_FILE``; the
+    migrations (ledger, re-run, rollback); 8 ``generate`` sub-commands
+    of 17-500 tokens, each equal to ``engine.generate`` on the same
+    engine, K1 32 a bucket admission and K2 32 a decode step, no plain
+    call; the failure paths; the log file; then the CLI as a process of
+    its own at 2 layers, which must exit 0 by itself. Returns the launch
+    counts of the 8 commands."""
+    import gc
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import migration as mig
+    from gofr_tpu_torch import new_cmd
+    from gofr_tpu_torch.config import MapConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-cmd-")
+    db, log = (os.path.join(tmp.name, n) for n in ("cmd.db", "cmd.log"))
+    rows = dict(CMD_ROWS, DB_DIALECT="sqlite", DB_NAME=db,
+                CMD_LOGS_FILE=log)
+    t0 = time.monotonic()
+    app = new_cmd(MapConfig(rows), device=device)
+    gen = app.container.tpu.generator
+    ready_s = time.monotonic() - t0
+    traces: list = []
+    cmd_routes(app, traces)
+    rng = np.random.default_rng(CMD_SEED)
+    vocab = gen.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, int(n)).tolist() for n in
+               rng.integers(CMD_LENS[0], CMD_LENS[1] + 1, CMD_PROMPTS)]
+    try:
+        # 1. the migrations: applied once, in order; a failing one rolls
+        # its DDL back and leaves the ledger as it was
+        registered: list = []
+        sql = app.container.sql
+        app.migrate(cmd_migrations(mig, registered))
+        ledger = [r["version"] for r in sql.query(
+            "SELECT version FROM gofr_migrations ORDER BY version")]
+        app.migrate(cmd_migrations(mig, registered))
+        again = [r["version"] for r in sql.query(
+            "SELECT version FROM gofr_migrations ORDER BY version")]
+
+        def doomed(ds):
+            ds.sql.execute("CREATE TABLE doomed (x INTEGER)")
+            raise RuntimeError("the third migration fails")
+
+        try:
+            app.migrate({3: doomed})
+            raised = None
+        except mig.MigrationError as e:
+            raised = str(e)
+        left = sql.query("SELECT name FROM sqlite_master "
+                         "WHERE name = 'doomed'")
+        after = sql.query_row("SELECT COUNT(*) AS n FROM gofr_migrations")
+        print(f"[cmd] CLI App ready in {ready_s:.1f} s (kernels built, "
+              f"graphs captured); ledger {ledger}, after a second migrate "
+              f"{again}, the model ledger {registered}; a failing third "
+              f"migration: {raised!r}, table left {left}, ledger rows "
+              f"{after['n']}; card: {card}", flush=True)
+        require(ledger == [1, 2] and again == [1, 2],
+                f"the ledger {ledger}, then {again}")
+        require(registered == [{"name": CMD_MODEL, "weights_path": "",
+                                 "revision": "seed0"}],
+                f"the model ledger {registered}")
+        require(raised is not None and "migration 3 failed" in raised
+                and left == [] and after["n"] == 2,
+                f"the failing migration: {raised!r}, {left}, {after}")
+
+        # 2. the generate sub-commands, counted
+        run_command_captured(app, ["generate", "-prompt", ",".join(
+            map(str, prompts[0][:32])), "-max", "4"])   # warm, uncounted
+        traces.clear()
+        sql.execute("DELETE FROM generations")
+        _reset_launches()
+        adm0, steps0, replays0 = (gen.admissions, gen.decode_steps,
+                                  gen.admission_replays)
+        runs = [run_command_captured(
+            app, ["generate", "-prompt", ",".join(map(str, p)), "-max",
+                  str(CMD_NEW), "-seed", str(i)])
+            for i, p in enumerate(prompts)]
+        counts = _launches()
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+        replays = gen.admission_replays - replays0
+        results = [json.loads(out) if code == 0 else None
+                   for code, out, _, _ in runs]
+        n_rows = sql.query_row("SELECT COUNT(*) AS n FROM generations")["n"]
+        stored = [json.loads(r["tokens"]) for r in sql.query(
+            "SELECT tokens FROM generations ORDER BY id")]
+        # 3. the same prompts through engine.generate, called directly
+        direct = [app.container.tpu.generate(p, max_new_tokens=CMD_NEW,
+                                             seed=i).tokens()
+                  for i, p in enumerate(prompts)]
+        # 4. the failure paths
+        unknown = run_command_captured(app, ["translate", "-prompt", "1"])
+        failing = run_command_captured(app, ["fail", "-why", "on purpose"])
+    finally:
+        app.stop()
+        release_graphs(gen)
+    wall = sum(s for _, _, _, s in runs)
+    tokens = sum(len(r["tokens"]) for r in results if r)
+    ttft = [1e3 * (t["first_put"] - t["submit"]) for t in traces]
+    equal = [r is not None and r["tokens"] == d
+             for r, d in zip(results, direct)]
+    print(f"[cmd] {CMD_PROMPTS} generate commands, prompts "
+          f"{[len(p) for p in prompts]}, {CMD_NEW} new tokens each: exit "
+          f"codes {[c for c, _, _, _ in runs]}, stderr "
+          f"{sorted({e for _, _, e, _ in runs})}; {tokens / wall:.1f} tok/s "
+          f"over the commands' {wall:.3f} s; TTFT mean "
+          f"{float(np.mean(ttft)):.1f} ms (max {max(ttft):.1f}); equal to "
+          f"engine.generate {sum(equal)}/{len(equal)}; rows {n_rows}; "
+          f"{admissions} admissions in {replays} replays, {steps} decode "
+          f"steps; launches {counts}; card: {card}", flush=True)
+    require(all(c == 0 and e == "" for c, _, e, _ in runs),
+            f"a generate command failed: {[(c, e) for c, _, e, _ in runs]}")
+    require(all(equal), f"CLI streams equal to engine.generate: {equal}")
+    require(all(len(r["tokens"]) == CMD_NEW and r["prompt_len"] == len(p)
+                for r, p in zip(results, prompts)),
+            "a command's result has the wrong shape")
+    require(n_rows == CMD_PROMPTS and stored == [r["tokens"]
+                                                 for r in results],
+            f"{n_rows} rows in generations for {CMD_PROMPTS} commands")
+    require(admissions == replays == CMD_PROMPTS,
+            f"{admissions} admissions in {replays} replays for "
+            f"{CMD_PROMPTS} commands")
+    require(counts["flash_prefill"] == LAYERS * admissions
+            and counts["flash_decode"] == LAYERS * steps and steps > 0,
+            f"launches {counts} for {admissions} bucket admissions and "
+            f"{steps} decode steps of {LAYERS} layers")
+    require(counts["prefill_plain"] == counts["decode_plain"]
+            == counts["paged_plain"] == counts["paged_decode"]
+            == counts["paged_window"] == 0,
+            f"a plain version or another kernel ran: {counts}")
+    print(f"[cmd] an unknown command: exit {unknown[0]}, stdout "
+          f"{unknown[1]!r}, stderr {unknown[2]!r}; a raising handler: exit "
+          f"{failing[0]}, stdout {failing[1]!r}, stderr {failing[2]!r}",
+          flush=True)
+    require(unknown[0] == 1 and unknown[1] == ""
+            and unknown[2].startswith("No Command Found!\n")
+            and "generate" in unknown[2] and "-prompt 1,2,3" in unknown[2],
+            f"the unknown command: {unknown}")
+    require(failing[:3] == (1, "", "refused: on purpose\n"),
+            f"the raising handler: {failing}")
+    del app, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. the log file: log lines only, the migration events among them
+    with open(log) as f:
+        lines = f.read().splitlines()
+    entries = [json.loads(ln) for ln in lines]
+    events = [e["message"].get("event") for e in entries
+              if isinstance(e.get("message"), dict)]
+    print(f"[cmd] the log file: {len(lines)} lines, events "
+          f"{sorted(set(events))}", flush=True)
+    require(all(set(e) >= {"level", "time", "message"} for e in entries),
+            "a line of the log file is not a log entry")
+    require(events.count("migration applied") == 2
+            and events.count("migration failed") == 1,
+            f"the log file's migration events: {events}")
+
+    # 6. the CLI as a process of its own, at 2 layers
+    spec = {"rows": dict(rows, TPU_MODEL=f"llama3-8b-{CMD_PROC_LAYERS}l",
+                         DB_NAME=os.path.join(tmp.name, "proc.db"),
+                         CMD_LOGS_FILE=os.path.join(tmp.name, "proc.log")),
+            "base": MAIN_ROWS["TPU_MODEL"], "layers": CMD_PROC_LAYERS,
+            "device": device}
+    argv = ["generate", "-prompt", ",".join(map(str, prompts[0])), "-max",
+            str(CMD_NEW)]
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", CMD_CLI, json.dumps(spec), *argv], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=CMD_PROC_S, stdin=subprocess.DEVNULL)
+    proc_s = time.monotonic() - t0
+    report = [json.loads(ln[len("[cli] "):]) for ln in
+              proc.stderr.splitlines() if ln.startswith("[cli] ")]
+    print(f"[cmd] the CLI as a process of its own ({CMD_PROC_LAYERS} "
+          f"layers): exit {proc.returncode} in {proc_s:.1f} s, stdout "
+          f"{len(proc.stdout)} bytes, its report {report}; card: {card}",
+          flush=True)
+    require(proc.returncode == 0 and len(report) == 1,
+            f"the CLI process: exit {proc.returncode}, stderr "
+            f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    rep = report[0]
+    require(len(out["tokens"]) == CMD_NEW
+            and all(0 <= t < vocab for t in out["tokens"]),
+            f"the CLI process's result {out}")
+    require(rep["live"] == ["gofr-torch-gen"] and rep["admissions"] == 1
+            and rep["flash_prefill"] == CMD_PROC_LAYERS
+            and rep["flash_decode"] == CMD_PROC_LAYERS * rep["steps"] > 0
+            and rep["plain"] == 0, f"the CLI process's report {rep}")
+    tmp.cleanup()
+    summary = {"migrations_applied": len(ledger),
+               "commands": CMD_PROMPTS, "equal": sum(equal),
+               "tok_s": tokens / wall,
+               "ttft_mean_ms": float(np.mean(ttft)),
+               "launches": {"flash_prefill": counts["flash_prefill"],
+                            "flash_decode": counts["flash_decode"]},
+               "admissions": admissions, "decode_steps": steps,
+               "subprocess_s": proc_s, "phase_s": time.monotonic() - t_phase,
+               "card": card}
+    print(json.dumps({"cmd": summary}), flush=True)
+    return {"flash_prefill": counts["flash_prefill"],
+            "flash_decode": counts["flash_decode"]}
+
+
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
                 "durable", "slo", "app", "predict", "grpc", "tiers", "lora",
-                "pubsub", "tenancy", "gateway", "pd", "tp")) -> dict:
+                "pubsub", "tenancy", "gateway", "pd", "tp", "cmd")) -> dict:
     import torch
 
     card = card_line()
@@ -7325,11 +7670,11 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
         elif phase in ("grpc", "tiers", "lora", "tenancy", "gateway", "pd",
-                       "tp"):
+                       "tp", "cmd"):
             counts = {"grpc": phase_grpc, "tiers": phase_tiers,
                       "lora": phase_lora, "tenancy": phase_tenancy,
                       "gateway": phase_gateway, "pd": phase_pd,
-                      "tp": phase_tp}[phase](card)
+                      "tp": phase_tp, "cmd": phase_cmd}[phase](card)
             # K1's, K2's (and K3's) counts: the earlier phases' plus this
             # run's
             for name, n in counts.items():

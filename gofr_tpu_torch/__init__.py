@@ -7,16 +7,17 @@ imports nothing of gofr_tpu or JAX: where it needs a framework piece
 error types) it keeps its own copy. A service moves to the port by
 changing one import::
 
-    from gofr_tpu_torch import App
+    from gofr_tpu_torch import App       # or new_cmd, for a CLI
 
 Entry points take an explicit ``device``, ``"cuda"`` by default; with
 no card they raise instead of falling back to the CPU. The CPU runs
 only when the caller asks for it, as the tests do.
 """
 
-from .app import App, new_app
+from .app import App, new_app, new_cmd
 from .device import resolve_device
 from .serving import install_embeddings, install_generate
+from .version import FRAMEWORK, __version__
 
-__all__ = ["App", "install_embeddings", "install_generate", "new_app",
-           "resolve_device"]
+__all__ = ["App", "FRAMEWORK", "__version__", "install_embeddings",
+           "install_generate", "new_app", "new_cmd", "resolve_device"]

@@ -29,24 +29,36 @@ disaggregated pair (gofr_tpu_torch/pd): its engine's ``generate``
 relays through the decode peer, or its engine takes shipped KV on
 ``TPU_PD_LISTEN`` (advertising the metrics port to its peers).
 
+A CLI App (``new_cmd``) runs sub-commands instead of servers, over the
+same Container (``TPU_MODEL`` builds the same engine, ``DB_DIALECT`` the
+SQL datasource)::
+
+    app = new_cmd(device="cuda")      # CMD_LOGS_FILE: the logs to a file
+    app.migrate({1: Migrate(up=lambda ds: ds.sql.execute("CREATE ..."))})
+
+    @app.sub_command("generate", description="-prompt 1,2,3 -max 32")
+    def generate(ctx): ...            # ctx.param("prompt"), ctx.tpu, ctx.sql
+
+    raise SystemExit(app.run_command())   # sys.argv[1:]: 0, or 1 on error
+
 Reference: pkg/gofr/gofr.go -- route registration (gofr.go:190-207),
 RegisterService (gofr.go:49-53), Subscribe (subscriber.go:11-46) and Run
 (gofr.go:108-164): the metrics server, the default routes (health,
 alive, favicon), the HTTP server, the gRPC server, then the
 subscribers; the auth enablers (gofr.go:268-302) and AddHTTPService
-(gofr.go:177). ``run(block=False)`` and ``stop()`` make an App testable
-in-process; ``stop(grace_s)`` drains it, stopping the subscribers
-first.
+(gofr.go:177), SubCommand (gofr.go:223), Migrate (gofr.go:227) and
+NewCMD (gofr.go:93). ``run(block=False)`` and ``stop()`` make an App
+testable in-process; ``stop(grace_s)`` drains it, stopping the
+subscribers first.
 
 ``device`` reaches the container's engine and nothing else: an App with
 no ``TPU_MODEL``/``TPU_ENABLED`` row touches no device. The tenant
 middleware scopes ``X-Tenant-Id`` (``TPU_TENANT_HEADER``) as gRPC does
 ``x-tenant-id``, canonicalised through the engine's tenancy plane when
 ``TPU_TENANTS`` configures one (``tenancy.install_async_lane(app)`` adds
-the async lane). The CLI, migrations, the ``prefill`` and ``decode``
-serving roles (they raise at construction) and the ``/debug`` pages
-other than ``/debug/cache`` and ``/debug/vars`` (the latter reduced to
-the memory arbiter's sections) are not ported yet.
+the async lane). The ``/debug`` pages other than ``/debug/cache`` and
+``/debug/vars`` (the latter reduced to the memory arbiter's sections)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,11 +66,12 @@ from __future__ import annotations
 import json
 import threading
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 
 from .config import EnvConfig
 from .container import Container, serving_role
 from .context import Context
+from .glog import LogLevel
 from .http.middleware import (JWKSKeyProvider, apikey_auth_middleware,
                               basic_auth_middleware, cors_middleware,
                               deadline_middleware, drain_middleware,
@@ -74,8 +87,7 @@ from .metrics import update_system_metrics
 from .observe.debug import install_debug_routes
 from .static import FAVICON_ICO
 from .subscriber import SubscriptionManager
-
-__version__ = "0.1.0-dev"
+from .version import __version__
 
 # Default ports (reference pkg/gofr/default.go:3-7)
 DEFAULT_HTTP_PORT = 8000
@@ -87,10 +99,10 @@ HandlerFunc = Callable[[Context], Any]
 
 class App:
     def __init__(self, config=None, config_folder: str = "./configs",
-                 device="cuda"):
+                 device="cuda", logger=None):
         self.config = config if config is not None else EnvConfig(
             config_folder)
-        self.container = Container(self.config, device=device)
+        self.container = Container(self.config, logger=logger, device=device)
         self.logger = self.container.logger
 
         self.router = Router()
@@ -104,6 +116,8 @@ class App:
         self._grpc_server = None
         self._grpc_services: list = []
         self.subscription_manager = SubscriptionManager(self.container)
+        # (pattern, handler, description) of each sub-command, in order
+        self._cmd_routes: list[tuple] = []
         self._running = threading.Event()
         # graceful-drain readiness: flipped FIRST in stop(grace_s>0) so
         # load balancers stop routing before the engine stops serving
@@ -246,6 +260,37 @@ class App:
             return deco
         self.subscription_manager.register(topic, fn)
         return fn
+
+    # -- CLI (reference gofr.go:223 SubCommand) ------------------------------
+    def sub_command(self, pattern: str, fn: HandlerFunc | None = None,
+                    description: str = ""):
+        """``app.sub_command("hello", handler)`` or
+        ``@app.sub_command("hello")``: ``run_command`` runs the handler
+        when the positional arguments, joined by spaces, match
+        ``pattern`` in full (a regex; its named groups are path
+        params)."""
+        if fn is None:
+            def deco(f: HandlerFunc) -> HandlerFunc:
+                self._cmd_routes.append((pattern, f, description))
+                return f
+            return deco
+        self._cmd_routes.append((pattern, fn, description))
+        return fn
+
+    def run_command(self, argv: Iterable[str] | None = None) -> int:
+        """Run the sub-command ``argv`` (``sys.argv[1:]`` by default)
+        names and return the process exit code (cli.run_cmd)."""
+        from .cli import run_cmd
+
+        return run_cmd(self, argv)
+
+    # -- migrations (reference gofr.go:227-229 Migrate) ----------------------
+    def migrate(self, migrations: dict) -> None:
+        """Apply the pending ``{version: Migrate}`` in version order
+        against the Container's datasources (migration.run)."""
+        from .migration import run as migration_run
+
+        migration_run(migrations, self.container)
 
     # -- default routes (reference gofr.go:125-141, handler.go:38-57) --------
     def _install_default_routes(self) -> None:
@@ -404,4 +449,21 @@ class App:
 
 def new_app(config=None, **kw) -> App:
     """reference gofr.New (gofr.go:56)."""
+    return App(config, **kw)
+
+
+def new_cmd(config=None, **kw) -> App:
+    """reference gofr.NewCMD (gofr.go:93): the same App, run through
+    ``run_command``. ``CMD_LOGS_FILE`` routes the logs to that file
+    (gofr.go:98), so stdout carries only the commands' output; the file
+    logger is the Container's from its construction, so the engine and
+    the datasources log there too."""
+    config = config if config is not None else EnvConfig(
+        kw.get("config_folder", "./configs"))
+    log_file = config.get("CMD_LOGS_FILE")
+    if log_file:
+        from .glog import new_file_logger
+
+        kw["logger"] = new_file_logger(
+            log_file, LogLevel.parse(config.get("LOG_LEVEL")))
     return App(config, **kw)

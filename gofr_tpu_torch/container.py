@@ -1,32 +1,37 @@
 """Dependency container: the one object carrying every shared resource
-(the port's own copy of the part of gofr_tpu/container.py the App
-uses): the logger, the metrics registry, the tracer, the in-flight
-request registry, the registered outbound HTTP service clients
-(``register_service``/``get_http_service``, listed under ``services``
-in ``health()`` and closed first by ``close()``), the Redis client
-(``REDIS_HOST``/``REDIS_PORT``, as ``redis`` and ``ctx.redis``), the
-pub/sub client (``PUBSUB_BACKEND``: MEM, KAFKA, GOOGLE or MQTT, behind
-``get_publisher``/``get_subscriber``) and the engine as ``tpu`` (a
-BERT, ViT or Llama engine from the ``TPU_*`` rows), with ``health()``
-and ``close()``.
+(the port's own copy of gofr_tpu/container.py): the logger, the metrics
+registry, the tracer, the in-flight request registry, the registered
+outbound HTTP service clients (``register_service``/``get_http_service``,
+listed under ``services`` in ``health()`` and closed first by
+``close()``), the Redis client (``REDIS_HOST``/``REDIS_PORT``, as
+``redis`` and ``ctx.redis``), the SQL datasource (``DB_DIALECT`` /
+``DB_HOST``, with ``DB_NAME``, ``DB_PORT``, ``DB_USER`` and
+``DB_PASSWORD``; as ``sql`` and ``ctx.sql``), the pub/sub client
+(``PUBSUB_BACKEND``: MEM, KAFKA, GOOGLE or MQTT, behind
+``get_publisher``/``get_subscriber``), the remote log level
+(``REMOTE_LOG_URL`` polled every ``REMOTE_LOG_FETCH_INTERVAL`` seconds,
+default 15) and the engine as ``tpu`` (a BERT, ViT or Llama engine from
+the ``TPU_*`` rows), with ``health()`` and ``close()``.
 
 Two differences from the JAX container are deliberate. There a failed
-engine construction, or a Redis or pub/sub client that cannot be
-built, is logged and the App goes on with ``tpu``, ``redis`` or
-``pubsub`` None; here the error propagates (a client's naming its row
-or backend), so an App asked for the card on a machine without one, or
-for a server it cannot reach, raises instead of serving without it
-(the port's rule that nothing falls back on its own). The same holds
-for ``TPU_MODEL`` on a gateway App (``TPU_SERVING_ROLE=gateway``): the
-JAX container logs the engine's "builds no engine" error and serves the
-gateway without one; here it raises, and so does a P/D role the engine
-cannot take (``prefill`` without ``TPU_PD_PEER`` or on a paged engine).
-The rows the port does not serve yet raise with their names before
-anything is built: the datasources (SQL, the remote log level), a
+engine construction, or a Redis, SQL or pub/sub client that cannot be
+built, is logged and the App goes on with ``tpu``, ``redis``, ``sql``
+or ``pubsub`` None; here the error propagates (a client's naming its
+row or backend), so an App asked for the card on a machine without
+one, for a server it cannot reach or for a SQL dialect whose driver is
+not installed, raises instead of serving without it (the port's rule
+that nothing falls back on its own). The same holds for ``TPU_MODEL``
+on a gateway App (``TPU_SERVING_ROLE=gateway``): the JAX container logs
+the engine's "builds no engine" error and serves the gateway without
+one; here it raises, and so does a P/D role the engine cannot take
+(``prefill`` without ``TPU_PD_PEER`` or on a paged engine). The rows
+the port does not serve yet raise with their names before anything is
+built: the fleet-observation, timeline, flight-recorder and clock rows
+(a falsey ``TPU_TIMELINE`` asks for what the port does, and builds), a
 serving role other than ``fused``, ``gateway``, ``prefill`` and
-``decode``, and the multi-host and fleet rows, whether or not the App
-builds an engine. The kv-cache's shared tier
-(``TPU_KVCACHE_REDIS``) keeps a Redis client of its own.
+``decode``, and the multi-host rows, whether or not the App builds an
+engine. The kv-cache's shared tier (``TPU_KVCACHE_REDIS``) keeps a Redis
+client of its own.
 """
 
 from __future__ import annotations
@@ -39,13 +44,19 @@ from .config import EnvConfig
 from .datasource import STATUS_DOWN, STATUS_UP
 from .glog import Logger, LogLevel, new_logger
 from .observe import RequestRegistry
+from .parallel.distributed import MULTIHOST_ROWS
 
-# rows of the JAX App that wire datasources or features outside the
-# port: the datasources, and the fleet-observation, timeline and
-# multi-host rows the port reads nowhere
-UNPORTED_ROWS = ("DB_HOST", "DB_DIALECT", "REMOTE_LOG_URL",
-                 "TPU_OBS_PEERS", "TPU_TIMELINE_EVENTS", "TPU_COORDINATOR",
-                 "TPU_NUM_PROCESSES", "TPU_PROCESS_ID")
+# rows of the JAX App that wire features outside the port: the
+# fleet-observation, timeline, flight-recorder and clock rows (ROADMAP
+# item 13c) and the multi-host rows (item 11b), which the port reads
+# nowhere
+UNPORTED_ROWS = ("TPU_OBS_PEERS", "TPU_OBS_FLEET_TIMEOUT_S",
+                 "TPU_TIMELINE_EVENTS", "TPU_OBS_CLOCK_WINDOW",
+                 "DEBUG_EVENT_BUFFER", *MULTIHOST_ROWS)
+# the JAX timeline is on unless TPU_TIMELINE is one of these
+# (gofr_tpu/observe/timeline.py:58): a falsey value asks for what the
+# port does already, which has no timeline
+TIMELINE_OFF = ("0", "false", "off", "no", "disabled")
 # the serving roles the port serves: the fused replica, the gateway and
 # the two P/D pools (gofr_tpu_torch/pd)
 SERVING_ROLES = ("fused", "gateway", "prefill", "decode")
@@ -58,10 +69,14 @@ def serving_role(cfg) -> str:
 
 def unported_rows(cfg) -> list[str]:
     """The rows of ``cfg`` the port refuses, in a stable order:
-    UNPORTED_ROWS, then ``TPU_SERVING_ROLE`` other than one of
+    UNPORTED_ROWS, then a ``TPU_TIMELINE`` other than one of
+    TIMELINE_OFF, then ``TPU_SERVING_ROLE`` other than one of
     SERVING_ROLES."""
     out = [row for row in UNPORTED_ROWS
            if (cfg.get(row) or "").strip() != ""]
+    timeline = (cfg.get("TPU_TIMELINE") or "").strip().lower()
+    if timeline and timeline not in TIMELINE_OFF:
+        out.append("TPU_TIMELINE")
     if serving_role(cfg) not in SERVING_ROLES:
         out.append("TPU_SERVING_ROLE")
     return out
@@ -86,9 +101,11 @@ class Container:
         # graceful stop waits for it to empty
         self.requests = RequestRegistry()
         self.redis = None
+        self.sql = None
         self.pubsub = None
         self.tpu = None
         self.services: dict[str, Any] = {}
+        self._remote_level_poller = None
         cfg = self.config
         try:
             host = (cfg.get("REDIS_HOST") or "").strip()
@@ -102,6 +119,17 @@ class Container:
                     raise RuntimeError(
                         f"REDIS_HOST={host}: the client could not be "
                         f"built: {e}") from e
+            dialect = (cfg.get("DB_DIALECT") or "").strip()
+            if dialect or (cfg.get("DB_HOST") or "").strip():
+                from .datasource.sql import new_sql
+
+                try:
+                    self.sql = new_sql(cfg, self.logger, self.metrics)
+                except Exception as e:
+                    row = (f"DB_DIALECT={dialect}" if dialect
+                           else f"DB_HOST={cfg.get('DB_HOST')}")
+                    raise RuntimeError(f"{row}: the client could not be "
+                                       f"built: {e}") from e
             backend = (cfg.get("PUBSUB_BACKEND") or "").strip().upper()
             if backend:
                 from .datasource.pubsub import new_pubsub_client
@@ -119,6 +147,15 @@ class Container:
                 self.tpu = new_engine_from_config(
                     self.config, device=device, logger=self.logger,
                     metrics=self.metrics, requests=self.requests)
+            url = (cfg.get("REMOTE_LOG_URL") or "").strip()
+            if url:
+                # logging/dynamicLevelLogger.go, wired at
+                # container/container.go:64-67
+                from .remote_level import RemoteLevelPoller
+
+                self._remote_level_poller = RemoteLevelPoller(
+                    self.logger, url,
+                    cfg.get_float("REMOTE_LOG_FETCH_INTERVAL", 15.0))
         except BaseException:
             self.close()   # the clients built before the failure
             raise
@@ -140,8 +177,8 @@ class Container:
         out: dict[str, Any] = {"name": self.app_name,
                                "version": self.app_version,
                                "status": STATUS_UP}
-        for name, ds in (("redis", self.redis), ("pubsub", self.pubsub),
-                         ("tpu", self.tpu)):
+        for name, ds in (("redis", self.redis), ("sql", self.sql),
+                         ("pubsub", self.pubsub), ("tpu", self.tpu)):
             if ds is None:
                 continue
             try:
@@ -175,11 +212,13 @@ class Container:
                 svc.close()
             except Exception:  # noqa: BLE001 — the rest still close
                 pass
-        for client in (self.redis, self.pubsub):
+        for client in (self.redis, self.sql, self.pubsub):
             if client is not None:
                 try:
                     client.close()
                 except Exception:  # noqa: BLE001 — the engine still closes
                     pass
+        if self._remote_level_poller is not None:
+            self._remote_level_poller.stop()
         if self.tpu is not None:
             self.tpu.close()

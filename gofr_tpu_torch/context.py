@@ -8,9 +8,11 @@ opens a span, ``ctx.tpu`` is the engine,
 ``ctx.get_http_service(name)`` an outbound service client,
 ``ctx.get_publisher()`` the
 pub/sub client (a subscriber's handler gets a Context whose request is
-the consumed ``pubsub.Message``), ``ctx.redis`` the Redis client
-(``REDIS_HOST``), and ``ctx.deadline``/``ctx.slo_class``/``ctx.tenant``
-are the request's ambient budget, class and tenant (which
+the consumed ``pubsub.Message``; a CLI sub-command's, the argv flags),
+``ctx.redis`` the Redis client (``REDIS_HOST``), ``ctx.sql`` the SQL
+datasource (``DB_DIALECT``/``DB_HOST``), and
+``ctx.deadline``/``ctx.slo_class``/``ctx.tenant`` are the request's
+ambient budget, class and tenant (which
 ``ctx.tpu.generate`` and ``ctx.tpu.predict`` read by themselves).
 """
 
@@ -66,6 +68,12 @@ class Context:
         """The container's Redis client (``REDIS_HOST``/``REDIS_PORT``),
         or None."""
         return self.container.redis
+
+    @property
+    def sql(self):
+        """The container's SQL datasource (``DB_DIALECT``/``DB_HOST``), or
+        None: ``ctx.sql.execute("INSERT ... VALUES (?)", x)``."""
+        return self.container.sql
 
     # -- request facade -----------------------------------------------------
     def param(self, key: str, default: str = "") -> str:

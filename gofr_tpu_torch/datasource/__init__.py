@@ -4,8 +4,9 @@ reports (the port's own copy of gofr_tpu/datasource/__init__.py's
 the Redis client (``redisclient``: the App's ``ctx.redis`` from
 ``REDIS_HOST``, and the kv-cache's shared tier T2), and the pub/sub
 clients the App's subscribers and publishers use (``pubsub``: the
-in-process broker, Kafka, Google Cloud Pub/Sub, MQTT). SQL is not
-ported yet (ROADMAP queue 1 item 13)."""
+in-process broker, Kafka, Google Cloud Pub/Sub, MQTT), and the SQL
+datasource (``sql``: the App's ``ctx.sql`` from ``DB_DIALECT`` /
+``DB_HOST``; sqlite, with MySQL and Postgres behind their drivers)."""
 
 from __future__ import annotations
 

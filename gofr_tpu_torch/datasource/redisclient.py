@@ -1,8 +1,8 @@
 """A dependency-free RESP2 Redis client with command observability (the
 port's own copy of gofr_tpu/datasource/redisclient.py, reduced to the
-commands the kv-cache's shared tier, the async lane's checkpoints and
-their tests use: strings, counters, expiry, key listing, pipelines and
-INFO for the health check). The App's Container builds one from
+commands the kv-cache's shared tier, the async lane's checkpoints, the
+migration ledger and their tests use: strings, counters, hashes, expiry,
+key listing, pipelines and INFO for the health check). The App's Container builds one from
 ``REDIS_HOST``/``REDIS_PORT`` (``new_redis_client``) as ``ctx.redis``;
 the shared tier builds its own.
 
@@ -256,6 +256,14 @@ class RedisClient:
 
     def ttl(self, key: str) -> int:
         return self.command("TTL", key)
+
+    def hset(self, key: str, field: str, value: Any, *more) -> int:
+        return self.command("HSET", key, field, value, *more)
+
+    def hgetall(self, key: str) -> dict[str, str]:
+        flat = self.command("HGETALL", key) or []
+        it = iter(flat)
+        return {self._text(k): self._text(v) for k, v in zip(it, it)}
 
     def keys(self, pattern: str = "*") -> list[str]:
         return [self._text(k) for k in self.command("KEYS", pattern)]

@@ -1,6 +1,7 @@
 """Leveled structured logger (the port's own copy of gofr_tpu/glog.py:
 the same levels, JSON lines and trace fields, the trace ids read from
-the port's own ``tracing.current_span``).
+the port's own ``tracing.current_span``; ``change_level`` for the remote
+level poller and ``new_file_logger`` for CLI apps).
 
 Reference: pkg/gofr/logging/logger.go — levels DEBUG<INFO<NOTICE<WARN<ERROR<FATAL
 (logging/level.go:10-17), JSON output when piped and colorized pretty-print on a
@@ -12,6 +13,7 @@ module inside the package.
 from __future__ import annotations
 
 import enum
+import io
 import json
 import sys
 import threading
@@ -61,7 +63,8 @@ class Logger:
 
     Matches the reference ``logging.Logger`` interface surface
     (logging/logger.go:23-39): Debug/Log(Info)/Notice/Warn/Error/Fatal plus
-    the ``*f`` format variants.
+    the ``*f`` format variants, and ``change_level`` used by the remote
+    level poller (logging/dynamicLevelLogger.go).
     """
 
     def __init__(
@@ -169,6 +172,11 @@ class Logger:
         self._logf(LogLevel.FATAL, *args, fmt=fmt)
         raise SystemExit(1)
 
+    def change_level(self, level: LogLevel) -> None:
+        if level != self.level:
+            self.info({"event": "log level changed", "to": level.name})
+            self.level = level
+
 
 def _trace_fields() -> dict[str, str]:
     """Stitch active trace/span ids into every structured log line
@@ -185,3 +193,14 @@ def new_logger(level: LogLevel | str = LogLevel.INFO, **kw: Any) -> Logger:
     if isinstance(level, str):
         level = LogLevel.parse(level)
     return Logger(level=level, **kw)
+
+
+def new_file_logger(path: str, level: LogLevel = LogLevel.INFO) -> Logger:
+    """Reference: logging/logger.go:236-255 NewFileLogger for CMD apps:
+    every level to the file at ``path`` (appended, JSON lines); an empty
+    path discards the logs."""
+    if not path:
+        return Logger(level=level, out=io.StringIO(), err=io.StringIO(),
+                      pretty=False)
+    f = open(path, "a", encoding="utf-8")  # noqa: SIM115 - long-lived handle
+    return Logger(level=level, out=f, err=f, pretty=False)

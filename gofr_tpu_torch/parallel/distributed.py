@@ -30,9 +30,9 @@ runtime. PyTorch has no partitioner, so the port runs SPMD ranks:
     worker waits for its next command without a practical limit, since
     an idle engine sends none, and leaves when rank 0's sockets close.
 
-Multi-host ranks stay refused: ``TPU_COORDINATOR``, ``TPU_NUM_PROCESSES``
-and ``TPU_PROCESS_ID`` raise by name (``MULTIHOST_ROWS``; ROADMAP item
-11b).
+Multi-host ranks stay refused: ``TPU_COORDINATOR``, ``TPU_NUM_PROCESSES``,
+``TPU_PROCESS_ID`` and ``TPU_COORDINATOR_TIMEOUT_S`` raise by name
+(``MULTIHOST_ROWS``; ROADMAP item 11b).
 """
 
 from __future__ import annotations
@@ -51,7 +51,8 @@ from typing import Any
 import numpy as np
 import torch
 
-MULTIHOST_ROWS = ("TPU_COORDINATOR", "TPU_NUM_PROCESSES", "TPU_PROCESS_ID")
+MULTIHOST_ROWS = ("TPU_COORDINATOR", "TPU_NUM_PROCESSES", "TPU_PROCESS_ID",
+                  "TPU_COORDINATOR_TIMEOUT_S")
 # every collective's limit unless the engine is given another
 DEFAULT_TIMEOUT_S = 60.0
 # a worker's wait for rank 0's next command: an idle engine sends none

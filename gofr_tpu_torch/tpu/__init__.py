@@ -189,7 +189,7 @@ __all__ = ["BatcherClosed", "ClassPolicy", "CoalescingBatcher",
            "maybe_quantize", "new_engine_from_config", "pad_bucket"]
 
 # rows of the JAX package that name features outside this slice: the
-# multi-host ranks (the App's Container refuses the first two as well)
+# multi-host ranks (the App's Container refuses them as well)
 UNPORTED_ROWS = MULTIHOST_ROWS
 # what TPU_SHARDING does not serve yet, each beside it (ROADMAP 11b)
 _TP_REFUSED = ("TPU_LORA_ADAPTERS", "TPU_PREFIX_CACHE", "TPU_KVCACHE_REDIS",

@@ -37,7 +37,9 @@ eager block too. A port gateway App over two replica Apps on the card
 routes a request to its owner and resumes a cut stream on the other
 replica. A P/D pair of Apps on the card (a prefill worker shipping int8
 KV to a decode worker) streams what the decode worker's own fused
-serving answers, for a bucket prompt and a lattice one. They
+serving answers, for a bucket prompt and a lattice one. A CLI App
+(``new_cmd``) at Llama-3-8B's width runs a ``generate`` sub-command
+through K1 and K2 and prints what a direct ``generate`` returns. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1862,3 +1864,68 @@ def test_a_tp2_engine_on_the_card_serves_tp1_s_first_tokens(gen, paged):
     assert want_k <= set(launched)
     assert stats["mesh"]["backend"] == "gloo" and not stats["mesh"]["graphs"]
     assert all(p.poll() is not None for p in eng._tp.procs)
+
+
+def test_a_cmd_app_on_the_card_streams_what_engine_generate_does(
+        gen, monkeypatch, tmp_path):
+    """A ``gofr_tpu_torch.new_cmd`` App on "cuda" (Llama-3-8B's width at
+    2 layers, seed-0 weights, int8 KV) with a sqlite file: a migration
+    creates a table, and one ``generate`` sub-command streams the tokens
+    a direct ``generate`` on the same engine returns, writes its row and
+    prints its JSON; K1 launches 2 an admission and K2 2 a decode step,
+    and no plain version runs."""
+    import contextlib
+    import io
+    import json
+
+    from gofr_tpu_torch import new_cmd
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.migration import Migrate
+
+    monkeypatch.setitem(LLAMA_CONFIGS, "llama3-8b-2l",
+                        LLAMA_CONFIGS["llama3-8b"].with_(n_layers=2))
+    app = new_cmd(MapConfig({
+        "TPU_MODEL": "llama3-8b-2l", "TPU_SLOTS": "2", "TPU_MAX_SEQ": "512",
+        "TPU_KV_DTYPE": "int8", "TPU_SEQ_BUCKETS": "32,64",
+        "DB_DIALECT": "sqlite", "DB_NAME": str(tmp_path / "cmd.db"),
+        "CMD_LOGS_FILE": str(tmp_path / "cmd.log"), "LOG_LEVEL": "INFO"}))
+
+    @app.sub_command("generate")
+    def generate(ctx):
+        prompt = [int(t) for t in ctx.param("prompt").split(",")]
+        tokens = ctx.tpu.generate(prompt,
+                                  max_new_tokens=int(ctx.param("max")),
+                                  seed=0).tokens()
+        ctx.sql.execute("INSERT INTO runs (tokens) VALUES (?)",
+                        json.dumps(tokens))
+        return {"tokens": tokens}
+
+    engine = app.container.tpu.generator
+    try:
+        assert engine.device.type == "cuda"
+        app.migrate({1: Migrate(up=lambda ds: ds.sql.execute(
+            "CREATE TABLE runs (id INTEGER PRIMARY KEY, tokens TEXT)"))})
+        prompt = [int(x) for x in torch.randint(
+            1, engine.cfg.vocab_size, (40,), generator=gen, device="cuda")]
+        flash.reset_counts()
+        flash_decode.reset_counts()
+        adm0, steps0 = engine.admissions, engine.decode_steps
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = app.run_command(["generate", "-prompt",
+                                  ",".join(map(str, prompt)), "-max", "16"])
+        admissions = engine.admissions - adm0
+        steps = engine.decode_steps - steps0
+        launched = (flash.launches, flash.plain_calls,
+                    flash_decode.launches, flash_decode.plain_calls)
+        want = app.container.tpu.generate(prompt, max_new_tokens=16,
+                                          seed=0).tokens()
+        rows = app.container.sql.query("SELECT tokens FROM runs")
+    finally:
+        app.stop()
+    got = json.loads(out.getvalue())["tokens"]
+    assert rc == 0 and got == want and len(got) == 16
+    assert [json.loads(r["tokens"]) for r in rows] == [got]
+    assert admissions == 1 and steps > 0
+    assert launched == (2 * admissions, 0, 2 * steps, 0)
+    assert '"migration applied"' in (tmp_path / "cmd.log").read_text()

@@ -56,7 +56,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "service/retry.py", "gateway/__init__.py",
                 "gateway/table.py", "gateway/router.py",
                 "gateway/relay.py", "pd/__init__.py", "pd/protocol.py",
-                "pd/ingest.py", "pd/prefill.py"):
+                "pd/ingest.py", "pd/prefill.py", "version.py",
+                "remote_level.py", "datasource/sql.py", "migration.py",
+                "cli.py"):
         assert PORT / own in files
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))
@@ -73,7 +75,7 @@ def no_card(monkeypatch):
 
 
 def _entry_points():
-    from gofr_tpu_torch import App, resolve_device
+    from gofr_tpu_torch import App, new_cmd, resolve_device
     from gofr_tpu_torch.config import MapConfig
     from gofr_tpu_torch.container import Container
     from gofr_tpu_torch.models import (BERT_CONFIGS, LLAMA_CONFIGS,
@@ -92,6 +94,7 @@ def _entry_points():
         "new_engine_from_config[vit]": lambda: new_engine_from_config(
             MapConfig({"TPU_MODEL": "vit-tiny"})),
         "App": lambda: App(MapConfig(rows)),
+        "new_cmd": lambda: new_cmd(MapConfig(dict(rows, DB_DIALECT="sqlite"))),
         "Container": lambda: Container(MapConfig(rows)),
         "resolve_device": lambda: resolve_device(),
         "llama.init": lambda: llama.init(tiny, 0),
@@ -106,9 +109,9 @@ def _entry_points():
 
 ENTRY_POINTS = ["App", "Container", "GenerationEngine", "TorchEngine",
                 "bert.init", "from_jax_params", "llama.init",
-                "llama.init_cache", "new_engine_from_config",
-                "new_engine_from_config[bert]", "new_engine_from_config[vit]",
-                "resolve_device", "vit.init"]
+                "llama.init_cache", "new_cmd", "new_engine_from_config",
+                "new_engine_from_config[bert]",
+                "new_engine_from_config[vit]", "resolve_device", "vit.init"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

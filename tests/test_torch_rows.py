@@ -8,8 +8,12 @@ each ``TPU_GATEWAY_*`` row reads the same on both. With a ``TPU_MODEL``
 row beside the gateway role the JAX App logs the engine's "builds no
 engine" error and serves the gateway without an engine, where the
 port's raises it (the port's rule that nothing falls back on its own).
-The fleet, timeline and multi-host rows the port reads nowhere raise by
-name; ``fused``, the JAX default role, builds. The ``prefill`` role
+The fleet, timeline, flight-recorder, clock and multi-host rows the port
+reads nowhere raise by name (a falsey ``TPU_TIMELINE`` asks for what the
+port does, and builds); ``fused``, the JAX default role, builds. The SQL
+rows and ``REMOTE_LOG_URL`` build on both packages; a SQL dialect whose
+driver is not installed raises naming the row on the port, where JAX
+logs it and serves without ``sql``. The ``prefill`` role
 reads alike on both: with no model both Apps build without an engine,
 and with one both raise for the missing ``TPU_PD_PEER`` (the port's
 App; JAX's role wiring, which its App would log).
@@ -153,6 +157,12 @@ def _pd_role_reads_alike(value, model):
     ("TPU_TIMELINE_EVENTS", "1024"),
     ("TPU_COORDINATOR", "127.0.0.1:1234"),
     ("TPU_NUM_PROCESSES", "2"),
+    ("TPU_TIMELINE", "1"),
+    ("TPU_TIMELINE", "on"),
+    ("TPU_OBS_CLOCK_WINDOW", "64"),
+    ("TPU_OBS_FLEET_TIMEOUT_S", "2"),
+    ("DEBUG_EVENT_BUFFER", "2048"),
+    ("TPU_COORDINATOR_TIMEOUT_S", "60"),
 ])
 @pytest.mark.parametrize("model", [None, "tiny"])
 def test_the_port_refuses_each_row_it_reads_nowhere_by_name(row, value,
@@ -168,6 +178,108 @@ def test_the_port_refuses_each_row_it_reads_nowhere_by_name(row, value,
         rows["TPU_MODEL"] = model
     with pytest.raises(ValueError, match=row):
         _port_app(rows)
+
+
+@pytest.mark.parametrize("value", ["0", "false", "OFF", "no", "disabled"])
+def test_a_falsey_timeline_row_builds_on_both(value):
+    """A falsey ``TPU_TIMELINE`` turns JAX's timeline off, which the port
+    has none of: the port's App builds, with a model and without."""
+    rows = dict(BASE, TPU_TIMELINE=value)
+    japp = gofr_tpu.App(JMapConfig(rows))
+    papp = gofr_tpu_torch.App(MapConfig(rows), device="cpu")
+    try:
+        assert not japp.container.observe.timeline.enabled
+        assert papp.container.tpu is None
+    finally:
+        japp.stop()
+        papp.stop()
+    papp = _port_app({"TPU_TIMELINE": value, "TPU_MODEL": "tiny",
+                      "TPU_SLOTS": "2"})
+    try:
+        assert papp.container.tpu is not None
+    finally:
+        papp.stop()
+
+
+def test_the_multihost_rows_name_the_coordinator_timeout():
+    from gofr_tpu_torch.container import UNPORTED_ROWS, unported_rows
+    from gofr_tpu_torch.parallel.distributed import MULTIHOST_ROWS
+
+    assert "TPU_COORDINATOR_TIMEOUT_S" in MULTIHOST_ROWS
+    assert set(MULTIHOST_ROWS) <= set(UNPORTED_ROWS)
+    for row in ("TPU_TIMELINE", "TPU_OBS_CLOCK_WINDOW",
+                "TPU_OBS_FLEET_TIMEOUT_S", "DEBUG_EVENT_BUFFER",
+                "TPU_COORDINATOR_TIMEOUT_S"):
+        assert unported_rows(MapConfig({row: "1"})) == [row]
+    assert unported_rows(MapConfig({"TPU_TIMELINE": "off"})) == []
+    for row in ("DB_HOST", "DB_DIALECT", "REMOTE_LOG_URL"):
+        assert unported_rows(MapConfig({row: "x"})) == []
+
+
+@pytest.mark.parametrize("rows", [
+    {"DB_DIALECT": "sqlite"},
+    {"DB_DIALECT": "sqlite3", "DB_NAME": ":memory:"},
+    {"DB_HOST": "localhost"},
+    {"DB_HOST": "localhost", "DB_DIALECT": "SQLite"},
+], ids=["dialect", "sqlite3", "host", "host-and-dialect"])
+def test_the_sql_rows_build_a_sqlite_datasource_on_both(rows):
+    japp = _jax_app(rows)
+    papp = _port_app(rows)
+    try:
+        for app in (japp, papp):
+            sql = app.container.sql
+            assert sql is not None and sql.dialect == "sqlite"
+            sql.execute("CREATE TABLE t (x INTEGER)")
+            sql.execute("INSERT INTO t VALUES (?)", 7)
+            assert sql.query_row("SELECT x FROM t") == {"x": 7}
+        assert papp.container.health()["sql"] == japp.container.health()["sql"]
+    finally:
+        japp.stop()
+        papp.stop()
+    assert not papp.container.sql._open
+
+
+@pytest.mark.parametrize("dialect,driver", [("mysql", "pymysql"),
+                                            ("postgres", "psycopg2"),
+                                            ("oracle", None)])
+def test_a_sql_dialect_without_its_driver_raises_naming_the_row(dialect,
+                                                                driver):
+    """The drivers are not installed: the port raises at construction
+    naming ``DB_DIALECT``; the JAX App logs the error and goes on with
+    ``sql`` None."""
+    import importlib.util
+
+    if driver is not None:
+        assert importlib.util.find_spec(driver) is None
+    with pytest.raises(RuntimeError, match=f"DB_DIALECT={dialect}"):
+        _port_app({"DB_DIALECT": dialect, "DB_HOST": "127.0.0.1"})
+    japp = _jax_app({"DB_DIALECT": dialect, "DB_HOST": "127.0.0.1"})
+    try:
+        assert japp.container.sql is None
+    finally:
+        japp.stop()
+
+
+@pytest.mark.parametrize("interval", [None, "3600"])
+def test_the_remote_log_url_row_builds_a_poller_the_stop_ends(interval):
+    rows = {"REMOTE_LOG_URL": "http://127.0.0.1:1/level"}
+    if interval is not None:
+        rows["REMOTE_LOG_FETCH_INTERVAL"] = interval
+    japp = _jax_app(rows)
+    papp = _port_app(rows)
+    pollers = [app.container._remote_level_poller for app in (japp, papp)]
+    try:
+        for p in pollers:
+            assert p is not None and p._thread.is_alive()
+            assert p.url == rows["REMOTE_LOG_URL"]
+        assert pollers[1].interval == pollers[0].interval == float(
+            interval or 15.0)
+    finally:
+        japp.stop()
+        papp.stop()
+    for p in pollers:
+        p._thread.join(timeout=10)
+        assert not p._thread.is_alive()
 
 
 @pytest.mark.parametrize("role", ["fused", "FUSED", ""])
@@ -246,6 +358,7 @@ def test_the_pd_rows_read_alike(row, value, want):
     ({"TPU_SHARDING": "tp=2", "TPU_MODEL": "bert-tiny"}, "TPU_SHARDING"),
     ({"TPU_HBM_DEVICE_BUDGET_MB": "64"}, "TPU_HBM_DEVICE_BUDGET_MB"),
     ({"TPU_PROCESS_ID": "1"}, "TPU_PROCESS_ID"),
+    ({"TPU_COORDINATOR_TIMEOUT_S": "60"}, "TPU_COORDINATOR_TIMEOUT_S"),
     ({"TPU_COORDINATOR": "127.0.0.1:1234", "TPU_SHARDING": "tp=2"},
      "TPU_COORDINATOR"),
     ({"TPU_NUM_PROCESSES": "2", "TPU_SHARDING": "tp=2"},
