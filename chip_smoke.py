@@ -47,7 +47,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      bucket's prefill graph), serving 6 concurrent requests; the launch
      counters, which count replays, show both kernels on the path
      (flash_prefill 32 an admission, flash_decode 32 a decode step) and
-     the plain versions unused; then one more request under
+     the plain versions unused, and so does the engine's serving
+     timeline (an ``Observe`` bundle's: its decode events' steps and its
+     prefill events, 32 launches each; phases ``paged`` and ``spec``
+     hold their rings against paged_decode and paged_window the same
+     way); then one more request under
      torch.profiler gives the device's busy share, by kind of kernel,
      and a bucket-512 admission beside three decoding streams its own
      device time and the window's idle share; a greedy stream killed by
@@ -343,10 +347,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      still live, inside CMD_PROC_S, its result on stdout; a
      ``{"cmd": {...}}`` line with the migrations applied, the CLI's tok/s
      and TTFT mean, the launches and the subprocess's wall time;
+  5q. (phase ``observe``) observability on the main path: a
+     ``gofr_tpu_torch.App`` replica of phase 5's rows with the timeline
+     on, DEBUG_EVENT_BUFFER, TRACER_HOST/TRACER_PORT on an in-process
+     Zipkin collector (localhost) and TPU_TRACE_SAMPLE=0.5, and a gateway
+     App naming it in TPU_OBS_PEERS. 16 POST /generate streams with
+     traceparents on a TPU_TIMELINE=0 App, then on this one: their tok/s
+     and the idle share (the timeline's dispatch gaps over the burst);
+     then the 16 under new traceparents with a /debug/pprof/profile
+     running and a 17th whose X-Request-Timeout runs out in the queue
+     (504): /debug/timeline's decode steps and prefills x 32 equal
+     flash_decode's and flash_prefill's launches, slot tracks (8 at
+     most) and the hbm:engine counter track; /debug/events holds one
+     wide request event a stream, its tokens the stream's and its
+     breakdown summing to duration_s, and the 17th's (where "queue");
+     /debug/request, /debug/vars (the card's device_kind, timeline,
+     trace_sampler, fleet_clock), the profile's stacks of the serving
+     loop (gofr-torch-gen), the collector's spans against the tail
+     sampler's verdicts (tpu.admit-wait, tpu.prefill, tpu.decode under
+     each kept trace id, the expired trace kept), /metrics' dispatch-gap,
+     pipeline-depth and segment series, and the gateway's
+     /debug/timeline?fleet=1 holding the replica's process, its decode
+     slices and its clock aligned; a ``{"observe": {...}}`` line;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
      5's, the score run's and phases grpc's, tiers', lora's, tenancy's,
-     gateway's, pd's, tp's and cmd's; flash_decode's phase 5's and phases
-     grpc's, tiers', lora's, tenancy's, gateway's, pd's, tp's and cmd's;
+     gateway's, pd's, tp's, cmd's and observe's; flash_decode's phase
+     5's and phases grpc's, tiers', lora's, tenancy's, gateway's, pd's,
+     tp's, cmd's and observe's;
      paged_decode's phase paged's, lora's, pd's and tp's; paged_window's
      phase spec's and tp's; phase tp's summed over its two ranks),
      then the card line, then the ``{"ok": true, "device": {...}}`` line
@@ -1747,16 +1774,48 @@ def release_graphs(gen) -> None:
     torch.cuda.empty_cache()
 
 
+def timeline_mark(gen) -> int:
+    """The seq the engine's timeline gives its next event."""
+    return gen._tl.stats()["total_recorded"]
+
+
+def timeline_window(gen, seq0: int, steps: int, passes: int = 0,
+                    wait_s: float = 5.0, clip=None) -> dict:
+    """The engine's timeline since ``seq0``, read once the reaps of the
+    ``steps`` decode steps and ``passes`` verify passes dispatched in
+    the window have landed (a block is counted at its dispatch and its
+    event appended at its reap): the decode events' steps, the verify
+    events, the prefill events and the seconds of the dispatch gaps
+    (the device stream's idle time between blocks) inside ``clip`` =
+    (t0, t1) on the monotonic clock, when given."""
+    lo, hi = clip if clip is not None else (-math.inf, math.inf)
+    end = time.monotonic() + wait_s
+    while True:
+        events = [e for e in gen._tl.events() if e[0] >= seq0]
+        got = {"decode_steps": sum(e[5] for e in events
+                                   if e[3] == "decode"),
+               "verify": sum(e[3] == "verify" for e in events),
+               "prefill": sum(e[3] == "prefill" for e in events),
+               "gap_s": sum(max(0.0, min(e[1] + e[2], hi) - max(e[1], lo))
+                            for e in events if e[3] == "gap")}
+        if (got["decode_steps"] >= steps and got["verify"] >= passes) \
+                or time.monotonic() > end:
+            return got
+        time.sleep(0.01)
+
+
 def phase_main_path(card: str) -> dict:
     import numpy as np
     import torch
 
     from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.observe import Observe
     from gofr_tpu_torch.ops import flash, flash_decode
     from gofr_tpu_torch.tpu import new_engine_from_config
 
     t0 = time.monotonic()
-    engine = new_engine_from_config(MapConfig(MAIN_ROWS), device="cuda")
+    engine = new_engine_from_config(MapConfig(MAIN_ROWS), device="cuda",
+                                    observe=Observe())
     gen = engine.generator
     torch.cuda.synchronize()
     print(f"[main] llama3-8b engine ready (kernels built, decode graphs "
@@ -1778,6 +1837,7 @@ def phase_main_path(card: str) -> dict:
             gen.admission_replays)
         flash.reset_counts()
         flash_decode.reset_counts()
+        seq0 = timeline_mark(gen)
         outs, streams, wall = _serve(engine, prompts, MAIN_SAMPLED,
                                      new_tokens)
         counts = {"flash_prefill": flash.launches,
@@ -1786,6 +1846,7 @@ def phase_main_path(card: str) -> dict:
                   "decode_plain": flash_decode.plain_calls}
         admissions = gen.admissions - adm0
         steps = gen.decode_steps - steps0
+        ring = timeline_window(gen, seq0, steps)
         replays = gen.graph_replays - replays0
         adm_replays = gen.admission_replays - adm_replays0
         stats = gen.stats()
@@ -1825,6 +1886,12 @@ def phase_main_path(card: str) -> dict:
             f"plain versions ran on the main path: {counts}")
     require(stats["scheduler"]["pipeline"]["depth"] == 2,
             f"phase 5 serves at depth {stats['scheduler']['pipeline']}")
+    print(f"[main] the engine's timeline over the counted run: {ring}; "
+          f"card: {card}", flush=True)
+    require(counts["flash_decode"] == LAYERS * ring["decode_steps"]
+            and counts["flash_prefill"] == LAYERS * ring["prefill"],
+            f"the timeline's decode steps and prefills {ring} against the "
+            f"launches {counts}")
     require(len(spliced) == new_tokens,
             f"the resumed stream gave {len(spliced)} tokens")
     print(f"[main] a {len(prompts[1])}-token greedy stream killed by "
@@ -1905,8 +1972,11 @@ def phase_paged(card: str) -> dict:
     from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
     from gofr_tpu_torch.tpu import GenerationEngine, new_engine_from_config
 
+    from gofr_tpu_torch.observe import Observe
+
     t0 = time.monotonic()
-    engine = new_engine_from_config(MapConfig(PAGED_ROWS), device="cuda")
+    engine = new_engine_from_config(MapConfig(PAGED_ROWS), device="cuda",
+                                    observe=Observe())
     gen = engine.generator
     SHARED["params"] = gen.params   # the later phases' weights
     torch.cuda.synchronize()
@@ -1930,6 +2000,7 @@ def phase_paged(card: str) -> dict:
         spans = timed_admissions(gen)
         for mod in (flash, flash_decode, paged_attention):
             mod.reset_counts()
+        seq0 = timeline_mark(gen)
         try:
             outs, streams, wall = _serve(engine, prompts, sampled,
                                          new_tokens)
@@ -1945,6 +2016,7 @@ def phase_paged(card: str) -> dict:
         steps = gen.decode_steps - steps0
         replays = gen.graph_replays - replays0
         adm_replays = gen.admission_replays - adm_replays0
+        ring = timeline_window(gen, seq0, steps)
         stats = gen.stats()
         health = engine.health_check()
         profile_decode(engine, prompts[4], card, "paged-profile")
@@ -1982,6 +2054,13 @@ def phase_paged(card: str) -> dict:
             f"{steps} decode steps of {LAYERS} layers")
     require(replays > 0 and replays * gen.decode_block == steps,
             f"{replays} graph replays for {steps} decode steps")
+    print(f"[paged] the engine's timeline over the counted run: {ring}; "
+          f"card: {card}", flush=True)
+    require(counts["paged_decode"] == LAYERS * ring["decode_steps"]
+            and ring["prefill"] == admissions,
+            f"the timeline's decode steps and prefills {ring} against "
+            f"{counts['paged_decode']} paged_decode launches and "
+            f"{admissions} admissions")
     others = {k: counts[k] for k in ("flash_decode", "prefill_plain",
                                      "decode_plain", "paged_plain")}
     require(not any(others.values()),
@@ -2075,11 +2154,13 @@ def phase_spec(card: str) -> dict:
 
     from gofr_tpu_torch.config import MapConfig
     from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.observe import Observe
     from gofr_tpu_torch.tpu import GenerationEngine, new_engine_from_config
 
     t0 = time.monotonic()
     engine = new_engine_from_config(MapConfig(SPEC_ROWS), device="cuda",
-                                    params=SHARED.get("params"))
+                                    params=SHARED.get("params"),
+                                    observe=Observe())
     gen = engine.generator
     torch.cuda.synchronize()
     print(f"[spec] llama3-8b paged spec engine ready (verify graph "
@@ -2110,6 +2191,7 @@ def phase_spec(card: str) -> dict:
         spec0 = dict(gen.stats()["spec_decode"])
         for mod in (flash, flash_decode, paged_attention):
             mod.reset_counts()
+        seq0 = timeline_mark(gen)
         outs, streams, wall = _serve(engine, prompts, {}, new_tokens)
         counts = {"flash_prefill": flash.launches,
                   "paged_decode": paged_attention.launches,
@@ -2124,6 +2206,7 @@ def phase_spec(card: str) -> dict:
         passes = gen.verify_passes - passes0
         replays = gen.graph_replays - replays0
         vreplays = gen.verify_replays - vreplays0
+        ring = timeline_window(gen, seq0, steps, passes)
         stats = gen.stats()
         health = engine.health_check()
         want, _, ref_wall = _serve(ref, prompts, {}, new_tokens)
@@ -2158,6 +2241,12 @@ def phase_spec(card: str) -> dict:
             f"{bucket_admissions} bucket admissions of {LAYERS} layers")
     require(vreplays == passes and passes > 0,
             f"{vreplays} verify graph replays for {passes} verify passes")
+    print(f"[spec] the engine's timeline over the counted run: {ring}; "
+          f"card: {card}", flush=True)
+    require(counts["paged_window"] == LAYERS * ring["verify"]
+            and counts["paged_decode"] == LAYERS * ring["decode_steps"],
+            f"the timeline's verify passes and decode steps {ring} against "
+            f"the launches {counts}")
     require(counts["paged_window"] == LAYERS * passes,
             f"paged_window launched {counts['paged_window']} times for "
             f"{passes} verify passes of {LAYERS} layers")
@@ -7607,13 +7696,462 @@ def phase_cmd(card: str, device: str = "cuda") -> dict:
             "flash_decode": counts["flash_decode"]}
 
 
+# -- phase observe: the flight recorder, the timeline, the fleet, Zipkin -----
+
+OBSERVE_ROWS = dict(MAIN_ROWS, HTTP_PORT="0", METRICS_PORT="0",
+                    LOG_LEVEL="WARN", APP_NAME="replica", TPU_TIMELINE="1",
+                    DEBUG_EVENT_BUFFER="4096", TPU_TRACE_SAMPLE="0.5",
+                    TPU_TRACE_TAIL_LINGER_S="2")
+OBSERVE_SEED = 83
+OBSERVE_STREAMS = 16          # POST /generate streams with a traceparent
+OBSERVE_LENS = (17, 500)      # their prompts: bucket admissions (K1)
+OBSERVE_NEW = 32
+OBSERVE_EXPIRE = (64, "150ms")  # the 17th: its prompt, X-Request-Timeout
+OBSERVE_EXPIRE_AFTER_S = 0.05   # sent this long after the 16
+OBSERVE_GATEWAY = 2           # streams through the gateway, for the joins
+OBSERVE_WAIT_S = 20
+
+
+class ZipkinCollector:
+    """An in-process Zipkin collector on localhost: the spans of every
+    ``POST /api/v2/spans`` body it was sent."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        spans = self.spans = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                spans.extend(json.loads(self.rfile.read(n)))
+                self.send_response(202)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="zipkin-collector", daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(5.0)
+
+
+def _observe_app(rows: dict):
+    """A replica App with POST /generate on "cuda", running, its logs
+    (the per-request wide lines among them) kept in a buffer."""
+    import io
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.glog import Logger, LogLevel
+    from gofr_tpu_torch.serving import install_generate
+
+    buf = io.StringIO()
+    app = App(MapConfig(rows), logger=Logger(level=LogLevel.WARN, out=buf,
+                                             err=buf, pretty=False))
+    if rows.get("TPU_SERVING_ROLE") != "gateway":
+        install_generate(app)
+    app.run(block=False)
+    return app, buf
+
+
+def _observe_burst(port: int, prompts, traceparents, expire=None) -> tuple:
+    """The 16 streams at once, each with its traceparent, and, with
+    ``expire`` = (prompt, traceparent), a 17th with a short
+    X-Request-Timeout sent right behind them: (results, the 16's start
+    and end on the monotonic clock)."""
+    import threading
+
+    late = {}
+
+    def late_call():
+        time.sleep(OBSERVE_EXPIRE_AFTER_S)
+        late["res"] = _timed_generate(
+            port, {"tokens": expire[0], "max_new": OBSERVE_NEW},
+            {"traceparent": expire[1],
+             "X-Request-Timeout": OBSERVE_EXPIRE[1]})
+
+    t = None
+    if expire is not None:
+        t = threading.Thread(target=late_call, daemon=True)
+        t.start()
+    t0 = time.monotonic()
+    res = _threads([lambda p=p, tp=tp: _timed_generate(
+        port, {"tokens": p, "max_new": OBSERVE_NEW}, {"traceparent": tp})
+        for p, tp in zip(prompts, traceparents)])
+    t1 = time.monotonic()
+    if t is not None:
+        t.join(APP_JOIN_S)
+        res.append(late.get("res"))
+    return res, t0, t1
+
+
+def phase_observe(card: str) -> dict:
+    """Observability on the main path: a replica App of phase 5's rows
+    (Llama-3-8B, contiguous int8 KV, 8 slots) with the timeline on,
+    DEBUG_EVENT_BUFFER, TRACER_HOST/TRACER_PORT on an in-process Zipkin
+    collector and TPU_TRACE_SAMPLE=0.5, a gateway App naming it in
+    TPU_OBS_PEERS. The burst (16 POST /generate streams with
+    traceparents) on an App with TPU_TIMELINE=0, then on this one, for
+    tok/s and the idle share (the timeline's dispatch gaps over the
+    burst); then the checked burst: the 16 again under new traceparents
+    with a profile running and a 17th whose deadline runs out in the
+    queue. Checks the timeline against the launch counters (K2 32 a
+    decode step, K1 32 a prefill), its slot and HBM counter tracks, one
+    wide event a stream and its breakdown, /debug/request, /debug/vars,
+    the profile's samples of the serving loop, the spans the collector
+    kept, fault 13's series and the gateway's fleet merge. Returns the
+    launch counts of the checked burst."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.models import LLAMA_CONFIGS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(OBSERVE_SEED)
+    vocab = LLAMA_CONFIGS[OBSERVE_ROWS["TPU_MODEL"]].vocab_size
+    lens = rng.integers(OBSERVE_LENS[0], OBSERVE_LENS[1] + 1,
+                        OBSERVE_STREAMS).tolist()
+    prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
+    # the timed bursts' traceparents, then the checked burst's, the
+    # 17th's and the gateway streams'
+    tps_timed = [f"00-{rng.bytes(16).hex()}-{rng.bytes(8).hex()}-01"
+                 for _ in range(OBSERVE_STREAMS)]
+    tps = [f"00-{rng.bytes(16).hex()}-{rng.bytes(8).hex()}-01"
+           for _ in range(OBSERVE_STREAMS + 1 + OBSERVE_GATEWAY)]
+    tids = [tp.split("-")[1] for tp in tps]
+    expire = (rng.integers(0, vocab, OBSERVE_EXPIRE[0]).tolist(),
+              tps[OBSERVE_STREAMS])
+    collector = ZipkinCollector()
+    tracer_rows = {"TRACER_HOST": "127.0.0.1",
+                   "TRACER_PORT": str(collector.port)}
+
+    def streamed(res) -> int:
+        return len(_tokens(res)) if res and res["status"] == 200 else 0
+
+    # 1. the same burst with TPU_TIMELINE=0: no ring, the engine holds None
+    t0 = time.monotonic()
+    off, _ = _observe_app(dict(OBSERVE_ROWS, TPU_TIMELINE="0",
+                               **tracer_rows))
+    off_gen = off.container.tpu.generator
+    try:
+        require(off_gen._tl is None and off.container.tpu._tl is None,
+                "TPU_TIMELINE=0 left the engine a timeline")
+        _timed_generate(off.http_port, {"tokens": prompts[0][:32],
+                                        "max_new": 4})
+        off_res, b0, b1 = _observe_burst(off.http_port, prompts, tps_timed)
+        off_wall = b1 - b0
+        off_stats = http_call(off.metrics_port, "GET",
+                              "/debug/timeline?format=stats")["body"]
+    finally:
+        off.stop()
+        release_graphs(off_gen)
+    off_ready_s = time.monotonic() - t0 - off_wall
+    del off, off_gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    off_tok_s = sum(streamed(r) for r in off_res) / off_wall
+    require(not off_stats["enabled"] and off_stats["buffered"] == 0,
+            f"the off App's ring: {off_stats}")
+    collector.spans.clear()
+
+    # 2. the replica with the timeline on, and a gateway in front
+    t0 = time.monotonic()
+    rep, rep_log = _observe_app(dict(OBSERVE_ROWS, **tracer_rows))
+    gw = None
+    try:
+        gen = rep.container.tpu.generator
+        tl = rep.container.observe.timeline
+        require(gen._tl is tl and tl.enabled and tl.capacity == 65536,
+                "the replica's engine does not hold the App's timeline")
+        peer = f"replica:127.0.0.1:{rep.http_port}"
+        gw, _ = _observe_app({
+            "HTTP_PORT": "0", "METRICS_PORT": "0",
+            "APP_NAME": "gateway", "TPU_SERVING_ROLE": "gateway",
+            "TPU_GATEWAY_REPLICAS": f"127.0.0.1:{rep.http_port}",
+            "TPU_GATEWAY_HEALTH_INTERVAL_S": "0.5",
+            "TPU_OBS_PEERS": f"{peer}=http://127.0.0.1:{rep.metrics_port}",
+            "TPU_OBS_FLEET_TIMEOUT_S": "10", **tracer_rows})
+        _timed_generate(rep.http_port, {"tokens": prompts[0][:32],
+                                        "max_new": 4})
+        ready_s = time.monotonic() - t0
+        clock = gw.container.observe.clock
+        end = time.monotonic() + OBSERVE_WAIT_S
+        while not clock.peer(peer).aligned and time.monotonic() < end:
+            time.sleep(0.05)
+        require(clock.peer(peer).aligned,
+                f"the gateway never sampled {peer}'s clock")
+
+        # 3. the same burst as the off App's, nothing else running
+        seq_t = timeline_mark(gen)
+        steps_t = gen.decode_steps
+        timed, t0, t1 = _observe_burst(rep.http_port, prompts, tps_timed)
+        wall = t1 - t0
+        timed_ring = timeline_window(gen, seq_t, gen.decode_steps - steps_t,
+                                     clip=(t0, t1))
+
+        # 4. the checked burst, a profile of it, the expiring 17th
+        _reset_launches()
+        steps0, adm0 = gen.decode_steps, gen.admissions
+        seq0 = timeline_mark(gen)
+        prof = {}
+
+        def profile():
+            prof["res"] = http_call(rep.metrics_port, "GET",
+                                    "/debug/pprof/profile?seconds=1")
+
+        pt = threading.Thread(target=profile, daemon=True)
+        pt.start()
+        res, b0, b1 = _observe_burst(rep.http_port, prompts, tps, expire)
+        pt.join(30.0)
+        steps = gen.decode_steps - steps0
+        admissions = gen.admissions - adm0
+        ring = timeline_window(gen, seq0, steps, clip=(b0, b1))
+        counts = _launches()
+        trace = http_call(rep.metrics_port, "GET", "/debug/timeline")["body"]
+        events = http_call(rep.metrics_port, "GET",
+                           "/debug/events?event=request&n=4096")["body"]
+        story = http_call(rep.metrics_port, "GET",
+                          f"/debug/request?trace_id={tids[0]}")["body"]
+        rep_vars = http_call(rep.metrics_port, "GET", "/debug/vars")["body"]
+        metrics = http_call(rep.metrics_port, "GET",
+                            "/metrics")["body"].decode()
+
+        # 5. two streams through the gateway, then its fleet merge
+        via_gw = [_timed_generate(gw.http_port, {
+            "tokens": prompts[i], "max_new": 8},
+            {"traceparent": tps[OBSERVE_STREAMS + 1 + i]})
+            for i in range(OBSERVE_GATEWAY)]
+        time.sleep(0.2)
+        t_merge = time.monotonic()
+        merged = http_call(gw.metrics_port, "GET",
+                           "/debug/timeline?fleet=1")["body"]
+        merge_ms = 1e3 * (time.monotonic() - t_merge)
+        gw_vars = http_call(gw.metrics_port, "GET", "/debug/vars")["body"]
+        sampler = rep.container.tracer.exporter.stats()
+        verdicts = dict(rep.container.tracer.exporter._verdicts)
+    finally:
+        if gw is not None:
+            gw.stop()
+        rep.stop()     # the Container's close flushes the exporter
+        release_graphs(rep.container.tpu.generator)
+    collector.close()
+    card_name = torch.cuda.get_device_name(0)
+
+    # the streams: 16 whole (three times), the 17th a 504 before any token
+    out = res[:OBSERVE_STREAMS]
+    late = res[OBSERVE_STREAMS]
+    on_tok_s = sum(streamed(r) for r in timed) / wall
+    idle_share = timed_ring["gap_s"] / wall
+    print(f"[observe] two replica Apps of {OBSERVE_ROWS['TPU_MODEL']} "
+          f"({OBSERVE_ROWS['TPU_SLOTS']} slots, int8 KV): TPU_TIMELINE=0 "
+          f"ready in {off_ready_s:.1f} s, TPU_TIMELINE=1 beside a gateway "
+          f"ready in {ready_s:.1f} s; the burst ({OBSERVE_STREAMS} streams, "
+          f"prompts {lens}, {OBSERVE_NEW} new tokens each): TPU_TIMELINE=0 "
+          f"{off_tok_s:.1f} tok/s over {off_wall:.3f} s, TPU_TIMELINE=1 "
+          f"{on_tok_s:.1f} tok/s over {wall:.3f} s; dispatch gaps on the "
+          f"timeline {1e3 * timed_ring['gap_s']:.3f} ms, idle share "
+          f"{idle_share:.4f} (the checked burst, beside a profile: "
+          f"{1e3 * ring['gap_s']:.3f} ms over {b1 - b0:.3f} s); card: "
+          f"{card}", flush=True)
+    require(all(r["status"] == 200 and streamed(r) == OBSERVE_NEW
+                for r in out + off_res + timed),
+            f"a stream failed: "
+            f"{[r['status'] for r in out + off_res + timed]}")
+    require(late is not None and late["status"] == 504,
+            f"the expiring request: {late and late['status']}")
+
+    # the timeline against the launch counters, over HTTP
+    body = [e for e in trace["traceEvents"]
+            if e.get("args", {}).get("seq", -1) >= seq0]
+    decode_seqs = {e["args"]["seq"]: e["args"]["steps"] for e in body
+                   if e.get("cat") == "decode"}
+    prefills = [e for e in body if e.get("cat") == "prefill"]
+    slots = sorted(e["args"]["name"] for e in trace["traceEvents"]
+                   if e.get("name") == "thread_name"
+                   and e["args"]["name"].startswith("slot "))
+    hbm_tracks = sorted({e["name"] for e in trace["traceEvents"]
+                         if e.get("ph") == "C"
+                         and e["name"].startswith("hbm:")})
+    print(f"[observe] /debug/timeline over the burst: "
+          f"{len(decode_seqs)} decode blocks of {sum(decode_seqs.values())} "
+          f"steps, {len(prefills)} prefills, slot tracks {slots}, counter "
+          f"tracks {hbm_tracks}; {steps} decode steps and {admissions} "
+          f"admissions dispatched; launches {counts}; card: {card}",
+          flush=True)
+    require(counts["flash_decode"] == LAYERS * sum(decode_seqs.values())
+            == LAYERS * steps > 0,
+            f"K2 launches {counts['flash_decode']} for the timeline's "
+            f"{sum(decode_seqs.values())} decode steps of {LAYERS} layers")
+    require(counts["flash_prefill"] == LAYERS * len(prefills)
+            == LAYERS * admissions
+            and admissions == OBSERVE_STREAMS,
+            f"K1 launches {counts['flash_prefill']} for the timeline's "
+            f"{len(prefills)} prefills of {LAYERS} layers")
+    require(counts["prefill_plain"] == counts["decode_plain"]
+            == counts["paged_decode"] == counts["paged_window"] == 0,
+            f"a plain version or another kernel ran: {counts}")
+    require(0 < len(slots) <= int(OBSERVE_ROWS["TPU_SLOTS"])
+            and "hbm:engine" in hbm_tracks,
+            f"slot tracks {slots}, counter tracks {hbm_tracks}")
+
+    # one wide event a stream: its tokens, its breakdown
+    wide = {}
+    for e in events["events"]:
+        wide.setdefault(e.get("trace_id"), []).append(e)
+    bad = []
+    for i, r in enumerate(out):
+        (e,) = wide.get(tids[i], [None])
+        if e is None or e["outcome"] != "finished" \
+                or e["tokens"] != streamed(r) \
+                or abs(sum(e["breakdown"].values()) - e["duration_s"]) \
+                > 1e-3:
+            bad.append((i, e))
+    (late_ev,) = wide.get(tids[OBSERVE_STREAMS], [None])
+    log_lines = [m for m in (json.loads(ln).get("message") for ln in
+                             rep_log.getvalue().splitlines())
+                 if isinstance(m, dict) and m.get("event") == "request"]
+    print(f"[observe] /debug/events: {len(events['events'])} request "
+          f"events; the expiring request's: {late_ev}; the log's wide "
+          f"lines {len(log_lines)}; /debug/request: {story['found']} "
+          f"event(s) for {tids[0]}; card: {card}", flush=True)
+    require(not bad, f"streams without one matching wide event: {bad}")
+    require(late_ev is not None and late_ev["outcome"] == "failed"
+            and late_ev.get("where") == "queue",
+            f"the expiring request's wide event: {late_ev}")
+    require(len(log_lines) >= OBSERVE_STREAMS + 2,
+            f"{len(log_lines)} wide lines in the replica's log")
+    require(story["found"] >= 1 and story["stories"][0]["events"][0][
+        "trace_id"] == tids[0], f"/debug/request: {story}")
+
+    # /debug/vars
+    print(f"[observe] /debug/vars: the replica's devices "
+          f"{rep_vars['devices']}, the gateway's fleet_clock "
+          f"{gw_vars.get('fleet_clock')}; card: {card}", flush=True)
+    for v in (rep_vars, gw_vars):
+        require(v["devices"].get("device_kind") == card_name
+                and v["devices"].get("platform") == "gpu",
+                f"/debug/vars devices: {v['devices']}")
+        require("timeline" in v and "trace_sampler" in v,
+                f"/debug/vars sections: {sorted(v)}")
+    require("fleet_clock" in gw_vars and peer in gw_vars["fleet_clock"],
+            f"the gateway's /debug/vars: {sorted(gw_vars)}")
+
+    # the profile taken during the burst
+    prof_res = prof.get("res") or {}
+    lines = (prof_res.get("body") or b"").decode().splitlines()
+    loop = [ln for ln in lines if ln.startswith("gofr-torch-gen;")]
+    print(f"[observe] /debug/pprof/profile?seconds=1 during the burst: "
+          f"status {prof_res.get('status')}, "
+          f"{prof_res.get('headers', {}).get('X-Profile-Samples')} samples, "
+          f"{len(loop)} stacks of the serving loop; card: {card}",
+          flush=True)
+    require(prof_res.get("status") == 200 and loop,
+            "the profile has no sample of the serving loop")
+
+    # the spans the collector received, against the tail sampler's
+    # verdicts: every trace id at a hash fraction under 0.5 is kept, the
+    # others only as interesting or slow (above the rolling p99 of the
+    # replica's roots, the gateway's health polls among them)
+    def sampled(tid):
+        return int(tid[:13], 16) / float(16 ** 13) < 0.5
+
+    by_trace = {}
+    for z in collector.spans:
+        if z["localEndpoint"]["serviceName"] == "replica":
+            by_trace.setdefault(z["traceId"], set()).add(z["name"])
+    kept = [t for t in tids[:OBSERVE_STREAMS] if verdicts.get(t)]
+    received = [t for t in tids[:OBSERVE_STREAMS] if t in by_trace]
+    stages = {"tpu.admit-wait", "tpu.prefill", "tpu.decode"}
+    print(f"[observe] the Zipkin collector: {len(collector.spans)} spans, "
+          f"the burst's traces kept {len(kept)} of {OBSERVE_STREAMS} "
+          f"({sum(map(sampled, tids[:OBSERVE_STREAMS]))} under the 0.5 "
+          f"hash fraction), received {len(received)}, the expired trace "
+          f"{'kept' if tids[OBSERVE_STREAMS] in by_trace else 'dropped'}; "
+          f"sampler {sampler}; card: {card}", flush=True)
+    require(all(t in verdicts for t in tids[:OBSERVE_STREAMS + 1]),
+            "the sampler never judged a trace of the burst")
+    require(received == kept and kept, f"received {received}, kept {kept}")
+    require(all(verdicts[t] for t in tids[:OBSERVE_STREAMS] if sampled(t)),
+            "a trace under the hash fraction was dropped")
+    require(all(stages <= by_trace[t] for t in kept),
+            f"a kept trace lacks a stage span: "
+            f"{[sorted(by_trace[t]) for t in kept]}")
+    require(tids[OBSERVE_STREAMS] in by_trace
+            and sampler["kept_by_reason"]["interesting"] >= 1,
+            "the expired trace was not kept")
+
+    # fault 13's series
+    def series(name):
+        return [ln for ln in metrics.splitlines() if ln.startswith(name)
+                and 'program="generate"' in ln]
+
+    gap_n = sum(float(ln.rsplit(" ", 1)[1])
+                for ln in series("app_tpu_dispatch_gap_duration_count"))
+    seg_n = sum(float(ln.rsplit(" ", 1)[1])
+                for ln in series("app_tpu_request_segment_duration_count"))
+    depth = series("app_tpu_pipeline_depth")
+    print(f"[observe] /metrics: app_tpu_dispatch_gap_duration {gap_n:.0f} "
+          f"samples, app_tpu_request_segment_duration {seg_n:.0f}, "
+          f"app_tpu_pipeline_depth {depth}; card: {card}", flush=True)
+    require(gap_n > 0 and seg_n > 0 and depth,
+            "fault 13's series have no samples")
+
+    # the gateway's fleet merge
+    fleet = merged["otherData"]["fleet"]
+    proc = next((p for p in fleet["processes"] if p["name"] == peer), None)
+    peer_decodes = [e for e in merged["traceEvents"]
+                    if proc is not None and e.get("pid") == proc["pid"]
+                    and e.get("cat") == "decode"]
+    print(f"[observe] the gateway's /debug/timeline?fleet=1 in "
+          f"{merge_ms:.1f} ms: processes {fleet['processes']}, degraded "
+          f"{fleet['degraded']}, {len(peer_decodes)} decode slices of "
+          f"the replica, traces joined {fleet['traces_joined']}, flow "
+          f"events {fleet['flow_events']}; the gateway's streams "
+          f"{[r['status'] for r in via_gw]}; card: {card}", flush=True)
+    require(proc is not None and proc["offset_s"] is not None
+            and not any(d["peer"] == peer for d in fleet["degraded"])
+            and peer_decodes,
+            f"the fleet merge lacks the aligned replica: {fleet}")
+    require(all(r["status"] == 200 for r in via_gw)
+            and fleet["traces_joined"] >= OBSERVE_GATEWAY,
+            f"the gateway's streams {[r['status'] for r in via_gw]}, "
+            f"traces joined {fleet['traces_joined']}")
+    summary = {"tok_s_timeline_off": off_tok_s, "tok_s_timeline_on": on_tok_s,
+               "burst_s_off": off_wall, "burst_s_on": wall,
+               "gap_ms": 1e3 * timed_ring["gap_s"], "idle_share": idle_share,
+               "decode_steps": steps, "admissions": admissions,
+               "launches": {"flash_prefill": counts["flash_prefill"],
+                            "flash_decode": counts["flash_decode"]},
+               "kept_traces": len(kept), "merge_ms": merge_ms,
+               "phase_s": time.monotonic() - t_phase, "card": card}
+    print(json.dumps({"observe": summary}), flush=True)
+    return {"flash_prefill": counts["flash_prefill"],
+            "flash_decode": counts["flash_decode"]}
+
+
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
                 "durable", "slo", "app", "predict", "grpc", "tiers", "lora",
-                "pubsub", "tenancy", "gateway", "pd", "tp", "cmd")) -> dict:
+                "pubsub", "tenancy", "gateway", "pd", "tp", "cmd",
+                "observe")) -> dict:
     import torch
 
     card = card_line()
@@ -7670,11 +8208,12 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
         elif phase in ("grpc", "tiers", "lora", "tenancy", "gateway", "pd",
-                       "tp", "cmd"):
+                       "tp", "cmd", "observe"):
             counts = {"grpc": phase_grpc, "tiers": phase_tiers,
                       "lora": phase_lora, "tenancy": phase_tenancy,
                       "gateway": phase_gateway, "pd": phase_pd,
-                      "tp": phase_tp, "cmd": phase_cmd}[phase](card)
+                      "tp": phase_tp, "cmd": phase_cmd,
+                      "observe": phase_observe}[phase](card)
             # K1's, K2's (and K3's) counts: the earlier phases' plus this
             # run's
             for name, n in counts.items():

@@ -56,9 +56,11 @@ no ``TPU_MODEL``/``TPU_ENABLED`` row touches no device. The tenant
 middleware scopes ``X-Tenant-Id`` (``TPU_TENANT_HEADER``) as gRPC does
 ``x-tenant-id``, canonicalised through the engine's tenancy plane when
 ``TPU_TENANTS`` configures one (``tenancy.install_async_lane(app)`` adds
-the async lane). The ``/debug`` pages other than ``/debug/cache`` and
-``/debug/vars`` (the latter reduced to the memory arbiter's sections)
-are not ported yet.
+the async lane). The metrics server carries ``/metrics`` and the
+``/debug`` pages (observe/debug.py): the in-flight requests, the flight
+recorder, the serving timeline (``?fleet=1`` merges the peers'), one
+request's story across processes, ``/debug/vars``, ``/debug/cache``
+and the sampling profiler.
 """
 
 from __future__ import annotations
@@ -151,7 +153,7 @@ class App:
         self.router.use(drain_middleware(lambda: self._draining,
                                          lambda: self._drain_retry_after))
         self.router.use(tracer_middleware(self.container.tracer))
-        self.router.use(inflight_middleware(self.container.requests))
+        self.router.use(inflight_middleware(self.container.observe.requests))
         self.router.use(logging_middleware(self.logger))
         self.router.use(deadline_middleware())
         self.router.use(slo_class_middleware())
@@ -409,7 +411,7 @@ class App:
             # an RPC whose stream the engine has ended still writes its
             # trailers on its handler thread: wait for those as for the
             # HTTP handlers, or the GOAWAY below could overtake them
-            reg = self.container.requests
+            reg = self.container.observe.requests
 
             def inflight() -> int:
                 return len(reg) + (grpc.inflight() if grpc is not None

@@ -1,6 +1,12 @@
 """Dependency container: the one object carrying every shared resource
 (the port's own copy of gofr_tpu/container.py): the logger, the metrics
-registry, the tracer, the in-flight request registry, the registered
+registry, the tracer (with ``TRACER_HOST`` a Zipkin exporter behind the
+tail sampler, shut down by ``close()``), the observability bundle
+``observe`` (the in-flight request registry, the flight recorder of
+``DEBUG_EVENT_BUFFER`` events, the serving timeline of ``TPU_TIMELINE``
+and ``TPU_TIMELINE_EVENTS``, the fleet clock registry of
+``TPU_OBS_CLOCK_WINDOW``; handed to the engine, the gateway, the P/D
+roles and tenancy), the registered
 outbound HTTP service clients (``register_service``/``get_http_service``,
 listed under ``services`` in ``health()`` and closed first by
 ``close()``), the Redis client (``REDIS_HOST``/``REDIS_PORT``, as
@@ -26,12 +32,10 @@ the engine's "builds no engine" error and serves the gateway without
 one; here it raises, and so does a P/D role the engine cannot take
 (``prefill`` without ``TPU_PD_PEER`` or on a paged engine). The rows
 the port does not serve yet raise with their names before anything is
-built: the fleet-observation, timeline, flight-recorder and clock rows
-(a falsey ``TPU_TIMELINE`` asks for what the port does, and builds), a
-serving role other than ``fused``, ``gateway``, ``prefill`` and
-``decode``, and the multi-host rows, whether or not the App builds an
-engine. The kv-cache's shared tier (``TPU_KVCACHE_REDIS``) keeps a Redis
-client of its own.
+built: a serving role other than ``fused``, ``gateway``, ``prefill``
+and ``decode``, and the multi-host rows, whether or not the App builds
+an engine. The kv-cache's shared tier (``TPU_KVCACHE_REDIS``) keeps a
+Redis client of its own.
 """
 
 from __future__ import annotations
@@ -43,20 +47,12 @@ from . import tracing
 from .config import EnvConfig
 from .datasource import STATUS_DOWN, STATUS_UP
 from .glog import Logger, LogLevel, new_logger
-from .observe import RequestRegistry
+from .observe import ClockRegistry, Observe, timeline_from_config
 from .parallel.distributed import MULTIHOST_ROWS
 
 # rows of the JAX App that wire features outside the port: the
-# fleet-observation, timeline, flight-recorder and clock rows (ROADMAP
-# item 13c) and the multi-host rows (item 11b), which the port reads
-# nowhere
-UNPORTED_ROWS = ("TPU_OBS_PEERS", "TPU_OBS_FLEET_TIMEOUT_S",
-                 "TPU_TIMELINE_EVENTS", "TPU_OBS_CLOCK_WINDOW",
-                 "DEBUG_EVENT_BUFFER", *MULTIHOST_ROWS)
-# the JAX timeline is on unless TPU_TIMELINE is one of these
-# (gofr_tpu/observe/timeline.py:58): a falsey value asks for what the
-# port does already, which has no timeline
-TIMELINE_OFF = ("0", "false", "off", "no", "disabled")
+# multi-host rows (ROADMAP item 11b), which the port reads nowhere
+UNPORTED_ROWS = MULTIHOST_ROWS
 # the serving roles the port serves: the fused replica, the gateway and
 # the two P/D pools (gofr_tpu_torch/pd)
 SERVING_ROLES = ("fused", "gateway", "prefill", "decode")
@@ -69,14 +65,10 @@ def serving_role(cfg) -> str:
 
 def unported_rows(cfg) -> list[str]:
     """The rows of ``cfg`` the port refuses, in a stable order:
-    UNPORTED_ROWS, then a ``TPU_TIMELINE`` other than one of
-    TIMELINE_OFF, then ``TPU_SERVING_ROLE`` other than one of
+    UNPORTED_ROWS, then ``TPU_SERVING_ROLE`` other than one of
     SERVING_ROLES."""
     out = [row for row in UNPORTED_ROWS
            if (cfg.get(row) or "").strip() != ""]
-    timeline = (cfg.get("TPU_TIMELINE") or "").strip().lower()
-    if timeline and timeline not in TIMELINE_OFF:
-        out.append("TPU_TIMELINE")
     if serving_role(cfg) not in SERVING_ROLES:
         out.append("TPU_SERVING_ROLE")
     return out
@@ -90,16 +82,28 @@ class Container:
         if rejected:
             raise ValueError(f"config rows not honoured by gofr_tpu_torch "
                              f"yet: {', '.join(rejected)}")
+        # the device the engine is built on (and /debug/vars reports)
+        self.device = device
         self.app_name = self.config.get("APP_NAME") or "gofr-app"
         self.app_version = self.config.get("APP_VERSION") or "dev"
         self.logger: Logger = logger if logger is not None else new_logger(
             LogLevel.parse(self.config.get("LOG_LEVEL")))
         self.metrics = gmetrics.Manager(logger=self.logger)
         gmetrics.register_framework_metrics(self.metrics)
-        self.tracer = tracing.tracer_from_config(self.config, self.app_name)
-        # the in-flight HTTP requests: the middleware fills it, the App's
-        # graceful stop waits for it to empty
-        self.requests = RequestRegistry()
+        # tail-sampled when exporting (TPU_TRACE_SAMPLE); the metrics feed
+        # app_tpu_spans_dropped_total from the bounded export buffer
+        self.tracer = tracing.tracer_from_config(self.config, self.app_name,
+                                                 metrics=self.metrics)
+        # the in-flight registry (the HTTP middleware and the engines
+        # fill it, the App's graceful stop waits for it to empty), the
+        # flight recorder, the serving timeline and the fleet clock:
+        # always on, rendered by the /debug pages on the metrics server
+        self.observe = Observe(
+            metrics=self.metrics, tracer=self.tracer,
+            max_events=self.config.get_int("DEBUG_EVENT_BUFFER", 2048),
+            timeline=timeline_from_config(self.config),
+            clock=ClockRegistry(
+                window=self.config.get_int("TPU_OBS_CLOCK_WINDOW", 64)))
         self.redis = None
         self.sql = None
         self.pubsub = None
@@ -146,7 +150,7 @@ class Container:
 
                 self.tpu = new_engine_from_config(
                     self.config, device=device, logger=self.logger,
-                    metrics=self.metrics, requests=self.requests)
+                    metrics=self.metrics, observe=self.observe)
             url = (cfg.get("REMOTE_LOG_URL") or "").strip()
             if url:
                 # logging/dynamicLevelLogger.go, wired at
@@ -222,3 +226,5 @@ class Container:
             self._remote_level_poller.stop()
         if self.tpu is not None:
             self.tpu.close()
+        if self.tracer.exporter is not None:
+            self.tracer.exporter.shutdown()   # the final span flush

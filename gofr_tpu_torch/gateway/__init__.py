@@ -37,10 +37,9 @@ Chaos seams ``GATEWAY_PICK`` / ``GATEWAY_RELAY`` / ``GATEWAY_MIDSTREAM``
 make pick starvation, attempt-N replica loss and a loss after N relayed
 tokens deterministically injectable.
 
-Two things of the JAX gateway wait for a flight recorder and a clock
-registry: the wide ``request`` event of each terminal and the clock
-sample of each health poll go out only when ``observe`` has a
-``recorder`` / ``clock``, and the port's App passes none yet.
+The wide ``request`` event of each terminal goes to the logger
+(``Logger.wide``) and the flight recorder, and the clock sample of each
+health poll to the clock registry, of the App's ``observe`` bundle.
 
 Config (read by :func:`gateway_from_config`):
 

@@ -1,7 +1,8 @@
 """Leveled structured logger (the port's own copy of gofr_tpu/glog.py:
 the same levels, JSON lines and trace fields, the trace ids read from
 the port's own ``tracing.current_span``; ``change_level`` for the remote
-level poller and ``new_file_logger`` for CLI apps).
+level poller, ``new_file_logger`` for CLI apps and ``wide`` for the
+engines' per-request wide events).
 
 Reference: pkg/gofr/logging/logger.go — levels DEBUG<INFO<NOTICE<WARN<ERROR<FATAL
 (logging/level.go:10-17), JSON output when piped and colorized pretty-print on a
@@ -81,9 +82,9 @@ class Logger:
         self._lock = threading.Lock()
 
     # -- core ---------------------------------------------------------------
-    def _logf(self, level: LogLevel, *args: Any,
-              fmt: str | None = None) -> None:
-        if level < self.level:
+    def _logf(self, level: LogLevel, *args: Any, fmt: str | None = None,
+              force: bool = False) -> None:
+        if level < self.level and not force:
             return
         stream = self.err if level >= LogLevel.ERROR else self.out
         now = time.time()
@@ -157,6 +158,18 @@ class Logger:
 
     def warnf(self, fmt: str, *args: Any) -> None:
         self._logf(LogLevel.WARN, *args, fmt=fmt)
+
+    def wide(self, fields: dict) -> None:
+        """Emit one canonical wide event: a single structured line with
+        everything worth knowing about one request (outcome, slo_class,
+        queue wait, chunk count, cache tier, tokens, trace_id). A grep
+        for ``"event": "request"`` finds every request's summary, and
+        the dict's insertion order keeps field positions stable.
+
+        It bypasses the level gate, as JAX's does: a deployment that
+        raises the level to WARN must not lose every request record
+        with it. The line still labels itself INFO."""
+        self._logf(LogLevel.INFO, dict(fields), force=True)
 
     def error(self, *args: Any) -> None:
         self._logf(LogLevel.ERROR, *args)

@@ -1,9 +1,12 @@
 """In-flight request registry: "what is this server doing right now?"
 (the port's own copy of gofr_tpu/observe/registry.py).
 
-Modeled on golang.org/x/net/trace's active-request pages: every HTTP
-request in its handler registers an entry at start and removes it at
-the end; the App's graceful stop waits for the table to empty.
+Modeled on golang.org/x/net/trace's active-request pages: every request
+the server is working on (an HTTP request in its handler, a generation
+stream between submission and its terminal, a predict call waiting on
+a coalesced batch) registers an entry at start and removes it at the
+end. ``/debug/requests`` renders the live table, and the App's graceful
+stop waits for it to empty.
 
 The hot paths touch entries thousands of times per second, so the
 design keeps mutation free of the registry lock: ``add``/``remove``

@@ -231,9 +231,8 @@ class PDPrefill:
     def _note_peer_clock(self, t0, t1, t2, t3, debug_port=None) -> None:
         """Feed one NTP sample for the decode peer into the Observe
         bundle's clock registry — the handshake and every REQ->END round
-        trip are free carriers. The port has no clock registry yet
-        (ROADMAP item 13c), so this is a no-op until the engine carries
-        one; the stamps still cross the wire both ways. Never raises
+        trip are free carriers. A no-op for an engine built without a
+        bundle; the stamps still cross the wire both ways. Never raises
         into the serving path."""
         clock = getattr(getattr(self.gen, "_observe", None), "clock", None)
         if clock is None:

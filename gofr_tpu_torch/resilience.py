@@ -224,7 +224,9 @@ class AdmissionGate:
     Throughput-class requests see every bound scaled by
     ``throughput_factor`` (default 0.5), so batch traffic sheds and
     browns out first; 1.0 is class-blind gating. Both bounds 0: the
-    gate admits everything."""
+    gate admits everything. With a ``tracer`` every shed also exports a
+    zero-length ``tpu.shed`` marker span into the request's trace, as
+    JAX's gate does."""
 
     # EWMA smoothing of the observed wait: heavy enough to ride out one
     # odd admission, light enough to follow a load swing within a few
@@ -233,7 +235,7 @@ class AdmissionGate:
     def __init__(self, max_queue_depth: int = 0, max_queue_delay: float = 0.0,
                  brownout_delay: float = 0.0, brownout_max_new: int = 32,
                  throughput_factor: float = 0.5, name: str = "",
-                 metrics=None, logger=None):
+                 metrics=None, tracer=None, logger=None):
         self.max_queue_depth = int(max_queue_depth)
         self.max_queue_delay = float(max_queue_delay)
         self.brownout_delay = float(brownout_delay)
@@ -243,6 +245,7 @@ class AdmissionGate:
         self.throughput_factor = min(1.0, max(0.01, float(throughput_factor)))
         self.name = name
         self.metrics = metrics
+        self.tracer = tracer
         self.logger = logger
         self.enabled = self.max_queue_depth > 0 or self.max_queue_delay > 0
         self._lock = threading.Lock()
@@ -265,7 +268,8 @@ class AdmissionGate:
             brownout_delay=self.brownout_delay,
             brownout_max_new=self.brownout_max_new,
             throughput_factor=self.throughput_factor,
-            name=name, metrics=self.metrics, logger=self.logger)
+            name=name, metrics=self.metrics, tracer=self.tracer,
+            logger=self.logger)
 
     # -- dispatcher side ------------------------------------------------------
     def note_wait(self, wait_s: float) -> None:
@@ -296,7 +300,10 @@ class AdmissionGate:
                       and wait > self.max_queue_delay * f)
         if not (over_depth or over_delay):
             return
-        self._record_shed(program, slo_class, tenant=tenant)
+        self._record_shed(program, slo_class,
+                          {"queue_depth": depth,
+                           "wait_ewma_ms": round(wait * 1e3, 3)},
+                          tenant=tenant)
         # the current wait estimate, floored so that an early shed does
         # not invite an instant retry storm
         raise TooManyRequests(
@@ -317,22 +324,35 @@ class AdmissionGate:
         if why is None:
             return
         tid = spec.tenant_id
-        self._record_shed(program, slo_class, tenant=tid)
+        self._record_shed(program, slo_class,
+                          {"reason": "tenant_quota", "quota": why},
+                          tenant=tid)
         raise TooManyRequests(
             f"{self.name or 'admission'}: tenant {tid!r} over {why} "
             f"quota — shed ({slo_class})",
             retry_after=max(0.05, retry_after), reason="tenant_quota")
 
     def _record_shed(self, program: str, slo_class: str,
-                     trace_id: str = "", tenant: str = "") -> None:
+                     attributes: dict, trace_id: str = "",
+                     tenant: str = "") -> None:
         """The one shed-bookkeeping path (queue, memory and tenant-quota
-        pressure): the counters and ``app_tpu_shed_total``, exemplar'd
-        by ``trace_id`` when the caller knows the request's trace. The
-        ``tenant`` label appears only on engines with a tenancy plane:
-        without one the series' labels are the ones they always were."""
+        pressure): the counters, ``app_tpu_shed_total`` exemplar'd by
+        the request's trace, and the ``tpu.shed`` marker span carrying
+        ``attributes`` (where and why it died). ``trace_id`` overrides
+        the ambient span for callers off the handler thread (the
+        generation loop). The ``tenant`` label appears only on engines
+        with a tenancy plane: without one the series' labels are the
+        ones they always were."""
         self.sheds += 1
         if slo_class in self.sheds_by_class:
             self.sheds_by_class[slo_class] += 1
+        now = time.monotonic()
+        if not trace_id and (self.metrics is not None
+                             or self.tracer is not None):
+            from . import tracing
+
+            span = tracing.current_span()  # the shed caller's request
+            trace_id = span.trace_id if span is not None else ""
         if self.metrics is not None:
             try:
                 labels = {"program": program or self.name,
@@ -344,6 +364,17 @@ class AdmissionGate:
                     **labels)
             except Exception:  # noqa: BLE001 — telemetry never sheds twice
                 pass
+        if self.tracer is not None:
+            try:
+                attrs = {**attributes, "program": program or self.name,
+                         "slo_class": slo_class}
+                if tenant:
+                    attrs.setdefault("tenant", tenant)
+                self.tracer.record_span(
+                    "tpu.shed", now, now, trace_id=trace_id or None,
+                    attributes=attrs)
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
 
     def shed_memory(self, program: str = "", slo_class: str = SLO_LATENCY,
                     retry_after: float = 1.0,
@@ -352,7 +383,8 @@ class AdmissionGate:
         same counters and 429 + ``Retry-After`` as a queue shed, with
         ``reason`` ``hbm``. Returns the error; the caller raises it or
         delivers it into a stream that already exists."""
-        self._record_shed(program, slo_class, trace_id=trace_id)
+        self._record_shed(program, slo_class, {"reason": "hbm"},
+                          trace_id=trace_id)
         return TooManyRequests(
             f"{self.name or 'admission'}: device memory exhausted — "
             f"shed ({slo_class})", retry_after=max(0.05, retry_after),
@@ -439,7 +471,7 @@ class AdmissionGate:
         }
 
 
-def gate_from_config(cfg, name: str, metrics=None,
+def gate_from_config(cfg, name: str, metrics=None, tracer=None,
                      logger=None) -> AdmissionGate | None:
     """A gate from ``TPU_MAX_QUEUE_DEPTH``, ``TPU_MAX_QUEUE_DELAY``,
     ``TPU_BROWNOUT_DELAY``, ``TPU_BROWNOUT_MAX_NEW`` and
@@ -455,4 +487,4 @@ def gate_from_config(cfg, name: str, metrics=None,
         brownout_delay=b_delay,
         brownout_max_new=cfg.get_int("TPU_BROWNOUT_MAX_NEW", 32),
         throughput_factor=cfg.get_float("TPU_SLO_THROUGHPUT_FACTOR", 0.5),
-        name=name, metrics=metrics, logger=logger)
+        name=name, metrics=metrics, tracer=tracer, logger=logger)

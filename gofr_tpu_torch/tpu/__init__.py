@@ -285,7 +285,7 @@ def _model_config(name: str):
 
 def new_engine_from_config(cfg, device="cuda", logger=None,
                            params: dict | None = None,
-                           metrics=None, requests=None) -> TorchEngine:
+                           metrics=None, observe=None) -> TorchEngine:
     """Build the engine from ``TPU_*`` rows on ``device`` (the CUDA card
     unless the caller asks for the CPU; raises when there is no card).
     ``params``: weights already on ``device`` for this model, used
@@ -293,8 +293,11 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
     another on the same weights). ``metrics``: what the admission gates
     and the engine count sheds, brownouts, expiries and dispatches into
     (``increment_counter``/``set_gauge``/``record_histogram``), if
-    given. ``requests``: the App's in-flight registry, where each
-    ``predict`` is listed while it waits. With ``TPU_TENANTS`` or
+    given. ``observe``: the App's observability bundle
+    (observe.Observe): its registry lists each ``predict`` and stream
+    while it waits, its recorder, timeline and tracer take the engines'
+    events, timeline slices and stage spans (``TPU_TIMELINE=0`` leaves
+    the engines holding no timeline). With ``TPU_TENANTS`` or
     ``TPU_TENANTS_INLINE`` the tenancy plane is installed on the engine
     and its generator; a registry that cannot be read raises ValueError
     naming its row before anything is built."""
@@ -366,14 +369,15 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
     generator = None
     if family == "llama":
         generator = _generator(cfg, mc, params, seq_buckets, device, logger,
-                               metrics, plan)
+                               metrics, plan, observe)
         params = generator.params   # under TP: rank 0's shard
     engine = TorchEngine(
         generator, name, device, logger=logger, metrics=metrics,
         max_delay=cfg.get_float("TPU_MAX_BATCH_DELAY", 0.004),
         gate=gate_from_config(cfg, "predict", metrics=metrics,
+                              tracer=getattr(observe, "tracer", None),
                               logger=logger),
-        class_policy=class_policy, requests=requests)
+        class_policy=class_policy, observe=observe)
     if family == "bert":
         def embed_fn(p, tokens, lengths):
             mask = (torch.arange(tokens.shape[1], device=tokens.device)[None]
@@ -442,7 +446,7 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
 
 
 def _generator(cfg, mc, params, seq_buckets, device, logger,
-               metrics, plan=None) -> GenerationEngine:
+               metrics, plan=None, observe=None) -> GenerationEngine:
     """The Llama generation engine from its rows (under TPU_SHARDING
     rank 0 of the tensor-parallel group)."""
     max_seq = cfg.get_int("TPU_MAX_SEQ", min(mc.max_seq, 2048))
@@ -472,7 +476,8 @@ def _generator(cfg, mc, params, seq_buckets, device, logger,
         lora_adapters=cfg.get_int("TPU_LORA_ADAPTERS", 0),
         lora_rank=cfg.get_int("TPU_LORA_RANK", 16),
         gate=gate_from_config(cfg, "generate", metrics=metrics,
+                              tracer=getattr(observe, "tracer", None),
                               logger=logger),
         slo_throughput_share=cfg.get_float("TPU_SLO_THROUGHPUT_SHARE", 0.25),
         slo_latency_slots=cfg.get_int("TPU_SLO_LATENCY_SLOTS", 1),
-        metrics=metrics, device=device, mesh=plan)
+        metrics=metrics, observe=observe, device=device, mesh=plan)

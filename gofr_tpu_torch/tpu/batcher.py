@@ -126,13 +126,18 @@ class CoalescingBatcher:
                  on_dispatch: Callable[[int, float], None] | None = None,
                  on_queue_depth: Callable[[int], None] | None = None,
                  on_expired: Callable[[int], None] | None = None,
-                 class_policy: ClassPolicy | None = None):
+                 class_policy: ClassPolicy | None = None,
+                 timeline=None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.runner = runner
         self.max_batch = max_batch
         self.max_delay = max_delay
         self.name = name
+        # serving timeline (observe/timeline.py): an expiry lands as a
+        # scheduler instant, so a trace shows why a queued item never
+        # dispatched (None: emission off)
+        self._timeline = timeline
         self.class_policy = class_policy
         self._thr: list[BatchItem] = []
         self._thr_delay = (max_delay * 4 if class_policy is None
@@ -230,7 +235,14 @@ class CoalescingBatcher:
         return err
 
     def _count_expired(self, n: int) -> None:
-        if n > 0 and self.on_expired is not None:
+        if n <= 0:
+            return
+        if self._timeline is not None:
+            try:
+                self._timeline.expired(self.name, count=n)
+            except Exception:
+                pass  # telemetry must never take the batcher down
+        if self.on_expired is not None:
             try:
                 self.on_expired(n)
             except Exception:

@@ -115,7 +115,7 @@ class TorchEngine:
     def __init__(self, generator: GenerationEngine | None = None,
                  model_name: str = "", device=None, *, logger=None,
                  metrics=None, max_delay: float = 0.004, gate=None,
-                 class_policy: ClassPolicy | None = None, requests=None):
+                 class_policy: ClassPolicy | None = None, observe=None):
         self.generator = generator
         self.model_name = model_name
         if device is None:
@@ -133,8 +133,14 @@ class TorchEngine:
         self.gate = gate
         self._gates: dict[str, Any] = {}
         self.class_policy = class_policy
-        # the App's in-flight registry (observe.RequestRegistry), if any
-        self.requests = requests
+        # the App's observability bundle (observe.Observe), if any: each
+        # predict call's registry entry and its recorder event on
+        # failure
+        self.observe = observe
+        # the serving timeline: None when emission is off, so a dispatch
+        # pays one attribute test
+        tl = getattr(observe, "timeline", None)
+        self._tl = tl if (tl is not None and tl.enabled) else None
         # tenancy.TenantPlane, set by new_engine_from_config from the
         # TPU_TENANTS rows; None: anonymous single-tenant serving
         self.tenancy = None
@@ -169,7 +175,7 @@ class TorchEngine:
                 name=f"tpu-{name}", on_dispatch=self._dispatch_metrics(prog),
                 on_queue_depth=self._depth_gauge(name),
                 on_expired=self._expired_counter(name),
-                class_policy=self.class_policy)
+                class_policy=self.class_policy, timeline=self._tl)
         if self.logger is not None:
             self.logger.info({"event": "tpu program registered",
                               "program": name, "kind": kind,
@@ -227,6 +233,8 @@ class TorchEngine:
         t0 = time.monotonic()
         out = self._execute(prog, items)
         prog.dispatches += 1
+        if self._tl is not None:
+            self._tl.predict(t0, time.monotonic(), prog.name, len(items))
         if self.metrics is not None:
             self.metrics.record_histogram("app_tpu_device_execute_duration",
                                           time.monotonic() - t0,
@@ -309,6 +317,8 @@ class TorchEngine:
             raise DeadlineExceeded(
                 f"deadline expired before predict({program!r}) was queued")
         gate = self._gate_for(program)
+        span = tracing.current_span()
+        trace_id = span.trace_id if span else ""
         spec = None
         if self.tenancy is not None:
             # the edge contract of generate(): resolve the ambient
@@ -316,39 +326,59 @@ class TorchEngine:
             # call
             spec = self.tenancy.resolve(current_tenant())
             slo_class = self.tenancy.effective_class(spec, slo_class)
-            self.tenancy.admit(spec, program=program, slo_class=slo_class,
-                               gate=gate)
+            try:
+                self.tenancy.admit(spec, program=program,
+                                   slo_class=slo_class, gate=gate)
+            except BaseException:
+                if self._tl is not None:
+                    self._tl.shed(program, slo_class, trace_id)
+                raise
         try:
             if gate is not None:
-                gate.admit(batcher.queue_depth(), program=program,
-                           slo_class=slo_class,
-                           tenant=spec.tenant_id if spec is not None
-                           else "")
+                try:
+                    gate.admit(batcher.queue_depth(), program=program,
+                               slo_class=slo_class,
+                               tenant=spec.tenant_id if spec is not None
+                               else "")
+                except BaseException:
+                    if self._tl is not None:
+                        self._tl.shed(program, slo_class, trace_id)
+                    raise
             self._validate_item(self._programs[program], item)
         except BaseException:
             if spec is not None:
                 self.tenancy.release(spec.tenant_id)
             raise
-        span = tracing.current_span()
-        trace_id = span.trace_id if span else ""
         t0 = time.monotonic()
         entry = None
-        if self.requests is not None:
-            entry = self.requests.add("predict", program, trace_id,
-                                      stage="batch-wait")
+        if self.observe is not None:
+            entry = self.observe.requests.add("predict", program, trace_id,
+                                              stage="batch-wait")
+        failed = None
         try:
             return batcher.submit(item, timeout=timeout, deadline=deadline,
                                   slo_class=slo_class)
+        except BaseException as e:
+            failed = e
+            raise
         finally:
             if spec is not None:
                 self.tenancy.release(spec.tenant_id)
-            if self.requests is not None:
-                self.requests.remove(entry)
+            dur = time.monotonic() - t0
+            if self.observe is not None:
+                self.observe.requests.remove(entry)
+                if failed is not None:
+                    # no request_id: that key is the generation streams'
+                    # counter, which /debug/events filters by
+                    self.observe.recorder.record(
+                        "predict_failed", trace_id=entry.trace_id,
+                        program=program, duration_s=round(dur, 6),
+                        error=repr(failed))
             if self.metrics is not None:
                 self.metrics.increment_counter("app_tpu_requests_total",
                                                program=program)
                 self.metrics.record_histogram(
-                    "app_tpu_predict_duration", time.monotonic() - t0,
+                    "app_tpu_predict_duration", dur,
                     exemplar=trace_id or None, program=program)
 
     def predict_batch(self, program: str, items: list) -> list:

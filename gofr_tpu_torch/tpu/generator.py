@@ -135,6 +135,7 @@ and takes it down.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -143,6 +144,7 @@ import itertools
 import queue
 import threading
 import time
+import weakref
 from collections import deque
 
 import numpy as np
@@ -170,6 +172,20 @@ from .kvcache import (CacheManager, HostKV, KVCacheOptions, KVLayout,
                       model_fingerprint)
 
 _REQ_IDS = itertools.count(1)
+
+# the engines whose serving loop runs, stopped at interpreter exit
+_LOOPS: "weakref.WeakSet[GenerationEngine]" = weakref.WeakSet()
+
+
+@atexit.register
+def _stop_loops_at_exit() -> None:
+    """A process may exit with an engine open (a CLI App's does). Its
+    loop is a daemon thread, and one that finalization stops inside a
+    CUDA call that released the interpreter lock unwinds through C++
+    frames that may not unwind ("terminate called without an active
+    exception"): stop every loop and join it first."""
+    for eng in list(_LOOPS):
+        eng._stop_loop()
 
 
 class GenerationError(RuntimeError):
@@ -774,7 +790,9 @@ class GenStream(PushStream):
     "mid-prefill", "mid-decode", or "post-handoff" for an ingested
     request), if it did; ``tenant``: the canonical
     tenant id on an engine with a tenancy plane ("default" otherwise)
-    and ``adapter`` the LoRA adapter it runs through."""
+    and ``adapter`` the LoRA adapter it runs through. ``obs_entry``: its
+    entry in the in-flight registry of the engine's ``Observe`` bundle
+    (None without one)."""
 
     def __init__(self, request_id: int, logprobs: bool = False):
         super().__init__()
@@ -795,6 +813,7 @@ class GenStream(PushStream):
         self.traceparent: str | None = None
         self.tenant = "default"
         self.adapter = 0
+        self.obs_entry = None
         # the stream holds one of its tenant's concurrency slots until
         # its terminal gives it back (_end_stream)
         self._tenant_held = False
@@ -898,12 +917,14 @@ class _Inflight:
 
 
 class _Slot:
-    __slots__ = ("request", "remaining", "generated")
+    __slots__ = ("request", "remaining", "generated", "last_token_t")
 
     def __init__(self):
         self.request: _Request | None = None
         self.remaining = 0
         self.generated = 0
+        # when the slot's last token was delivered (inter-token latency)
+        self.last_token_t = 0.0
 
     @property
     def free(self) -> bool:
@@ -955,6 +976,7 @@ class GenerationEngine:
                                             name="gofr-torch-gen",
                                             daemon=True)
             self._thread.start()
+            _LOOPS.add(self)
 
     def _construct(self, cfg: ModelConfig, params: dict, *, slots: int = 8,
                  max_seq: int | None = None, logger=None, seed: int = 0,
@@ -970,7 +992,7 @@ class GenerationEngine:
                  paged_blocks: int = 0, paged_block_size: int = 128,
                  kvcache=None, gate=None,
                  slo_throughput_share: float = 0.25,
-                 slo_latency_slots: int = 1, metrics=None):
+                 slo_latency_slots: int = 1, metrics=None, observe=None):
         if cfg.n_experts > 0:
             raise ValueError("the port serves dense Llama models; MoE is "
                              "not ported yet")
@@ -1025,6 +1047,18 @@ class GenerationEngine:
         if metrics is not None:
             # device-byte attribution gauges (app_tpu_device_bytes)
             hbm.set_metrics(metrics)
+        # the flight recorder, in-flight registry, timeline and tracer
+        # (observe.Observe; None: no recorder events, no stage spans).
+        # The hot paths hold the timeline, or None when it is off
+        # (TPU_TIMELINE=0), so the disabled cost is one attribute test.
+        # A tensor-parallel worker rank is built without one: rank 0
+        # records every dispatch of the group
+        self._observe = observe
+        tl = getattr(observe, "timeline", None)
+        self._tl = tl if (tl is not None and tl.enabled) else None
+        if self._tl is not None:
+            # device-byte changes land as counter samples on the trace
+            hbm.set_timeline(self._tl)
         # Multi-LoRA serving: n adapter slots of rank-r deltas on the
         # attention projections, stacked inside params["layers"] so the
         # layer loop slices them with the base weights; each request
@@ -1430,8 +1464,12 @@ class GenerationEngine:
             # the tenant's quota first: an over-quota tenant sheds on its
             # own 429 (reason tenant_quota), before the gate judges the
             # global pressure
-            self.tenancy.admit(spec, program="generate",
-                               slo_class=slo_class, gate=self.gate)
+            try:
+                self.tenancy.admit(spec, program="generate",
+                                   slo_class=slo_class, gate=self.gate)
+            except BaseException:
+                self._wide_shed(slo_class, tenant=tenant)
+                raise
         # from here to the queue the tenant holds a concurrency slot:
         # every raise gives it back, and once the stream exists the
         # stream's terminal does
@@ -1439,8 +1477,15 @@ class GenerationEngine:
         stream = None
         try:
             if self.gate is not None:
-                self.gate.admit(self._pending.qsize(), program="generate",
-                                slo_class=slo_class, tenant=tenant or "")
+                try:
+                    self.gate.admit(self._pending.qsize(),
+                                    program="generate", slo_class=slo_class,
+                                    tenant=tenant or "")
+                except BaseException:
+                    # shed before a stream exists: its wide event and
+                    # timeline marker are the only record of the request
+                    self._wide_shed(slo_class, tenant=tenant)
+                    raise
                 max_new_tokens = self.gate.cap_tokens(max_new_tokens,
                                                       slo_class=slo_class)
             if eos_id is not None and not isinstance(eos_id,
@@ -1487,6 +1532,20 @@ class GenerationEngine:
             if why is not None:
                 self._end_stream(stream, GenerationError(why))
                 return stream
+            if self._observe is not None:
+                # detail.request_id is the flight recorder's key, the one
+                # /debug/events filters by (registry entry ids are a
+                # separate counter)
+                stream.obs_entry = self._observe.requests.add(
+                    "generate", "generate", stream.trace_id, stage="queued",
+                    detail={"request_id": stream.request_id,
+                            "prompt_len": len(prompt),
+                            "max_new": int(max_new_tokens),
+                            "slo_class": slo_class})
+                self._observe.recorder.record(
+                    "submitted", request_id=stream.request_id,
+                    trace_id=stream.trace_id, prompt_len=len(prompt),
+                    max_new=int(max_new_tokens))
             req = _Request(stream, prompt, int(max_new_tokens),
                            float(temperature), int(top_k), eos_id, seed or 0,
                            pos_base=pos_base, deadline=deadline,
@@ -1512,7 +1571,8 @@ class GenerationEngine:
                 self._pending.put(req)
         except BaseException:
             if stream is not None:
-                self._release_tenant(stream)
+                self._obs_end(stream, "failed",
+                              error="rejected at admission")
             elif held:
                 self.tenancy.release(tenant)
             raise
@@ -1703,18 +1763,26 @@ class GenerationEngine:
             time.sleep(0.05)
         return idle()
 
-    def close(self) -> None:
+    def _stop_loop(self, timeout: float = 60.0) -> None:
+        """Stop the serving loop and wait for its thread."""
         with self._admission_lock:
             self._closed = True
         self._work.set()
+        self._thread.join(timeout=timeout)
+
+    def close(self) -> None:
         if self._comm is None or self._tp is not None:
-            self._thread.join(timeout=60.0)
+            self._stop_loop()
+        else:
+            with self._admission_lock:
+                self._closed = True
         with self._device_lock:
             if self.device.type == "cuda":
                 # blocks still in flight finish before their graphs and
                 # buffers can go
                 torch.cuda.synchronize(self.device)
-            self._fail_all(GenerationError("engine closed"))
+            self._fail_all(GenerationError("engine closed"),
+                           "engine closed")
         # every worker rank stops, and its lease rows go with it
         self._tp_close()
         # the arbiter must not keep claiming bytes for a closed engine
@@ -1944,7 +2012,7 @@ class GenerationEngine:
                             if inflight is None:
                                 break
                             pipe.append(inflight)
-                        self._depth_now = len(pipe)
+                        self._note_depth(len(pipe))
                     if not pipe:
                         continue
                     self._admit_inflight(pipe[0])
@@ -1954,7 +2022,7 @@ class GenerationEngine:
                         if pipe:
                             # a block still queued on the device: no gap
                             self._overlapped_reaps += 1
-                            self._gap_samples.append(0.0)
+                            self._record_gap(0.0)
                         else:
                             # the stream ran dry when this block's results
                             # came ready; the next dispatch closes the gap
@@ -2062,7 +2130,7 @@ class GenerationEngine:
                 if slot.request is not None:
                     slot.request.stream.failed = repr(e)
             self._fail_all(GenerationError(
-                f"generation engine is down: {self.down}"))
+                f"generation engine is down: {self.down}"), self.down)
 
     def _device_tensors(self) -> list[torch.Tensor]:
         """Every tensor a captured graph reads or writes that holds
@@ -2092,16 +2160,21 @@ class GenerationEngine:
         if cuda:
             torch.cuda.synchronize(self.device)   # the probe
 
-    def _fail_all(self, err: Exception) -> None:
+    def _fail_all(self, err: Exception, why: str) -> None:
+        """Fail every live stream and the queue with ``err``; ``why`` is
+        the terminal event's ``error`` (a live stream that already
+        carries its failure, on a down engine, records that one)."""
         for idx, slot in enumerate(self._slots):
             if slot.request is not None:
-                self._retire(idx, slot, err)
+                self._retire(idx, slot, err, end=(
+                    None if slot.request.stream.failed is not None
+                    else ("failed", {"error": why})))
         while True:
             try:
                 req = self._pending.get_nowait()
             except queue.Empty:
                 break
-            self._end_stream(req.stream, err)
+            self._end_stream(req.stream, err, "failed", error=why)
 
     def _admit_inflight(self, inflight: _Inflight) -> None:
         """Admit arrivals while a dispatched block runs on the device
@@ -2147,7 +2220,30 @@ class GenerationEngine:
         if self._idle_from is None:
             return
         gap, self._idle_from = max(0.0, now - self._idle_from), None
+        self._record_gap(gap, now)
+
+    def _note_depth(self, depth: int) -> None:
+        """The blocks in flight after a top-up: the gauge and the
+        timeline's counter track change only when the depth does."""
+        if depth == self._depth_now:
+            return
+        self._depth_now = depth
+        if self.metrics is not None:
+            self.metrics.set_gauge("app_tpu_pipeline_depth", float(depth),
+                                   program="generate")
+        if self._tl is not None:
+            self._tl.pipeline_depth(depth)
+
+    def _record_gap(self, gap: float, now: float | None = None) -> None:
+        """One inter-block gap: 0 for a reap with a block queued behind
+        it, else the device stream's idle time up to the dispatch at
+        ``now``, which also lands on the timeline's device track."""
         self._gap_samples.append(gap)
+        if self.metrics is not None:
+            self.metrics.record_histogram("app_tpu_dispatch_gap_duration",
+                                          gap, program="generate")
+        if self._tl is not None and now is not None and gap > 0.0:
+            self._tl.dispatch_gap(now - gap, now)
 
     def _admit(self, defer_lattice: bool = False) -> int:
         """Start pending requests in free slots; returns how many
@@ -2179,18 +2275,22 @@ class GenerationEngine:
                     self._pending.put_front(req)
                     return started
                 if req.stream.cancelled.is_set():
-                    self._end_stream(req.stream)
+                    self._end_stream(req.stream, None, "cancelled",
+                                     tokens=0)
                     continue
                 if req.deadline is not None and req.deadline.expired():
                     # an ingested request's budget ran out after the
                     # pool handoff: this worker records it as such
                     where = self._expiry_where(req, "queue")
-                    self._count_expired(where)
+                    self._count_expired(where, req.stream.request_id)
                     req.stream.where = where
                     wait_s = time.monotonic() - req.enqueued_at
-                    self._end_stream(req.stream, DeadlineExceeded(
-                        f"deadline expired after {wait_s:.3f}s in the "
-                        "admission queue"))
+                    self._end_stream(
+                        req.stream, DeadlineExceeded(
+                            f"deadline expired after {wait_s:.3f}s in the "
+                            "admission queue"), "failed",
+                        error="deadline expired in queue",
+                        wait_s=round(wait_s, 6))
                     continue
                 try:
                     # the arbiter's checkpoint, one zero-byte lease per
@@ -2361,11 +2461,15 @@ class GenerationEngine:
                                    blocks=shared + [0] * (self._mb
                                                           - len(shared)))
             self._run_admission(("readback",))
+            # a zero-copy block-share hit: the wide event and the
+            # timeline call its tier "paged"
             req.stream.cache_tier = "paged"
             req.stream.cache_tokens = m
+            if self._tl is not None:
+                self._tl.kvcache("paged", m, idx)
         self._scratch_busy = True
         try:
-            first = self._chunk_lattice(0, req, m)
+            first = self._chunk_lattice(0, req, m, track_slot=idx)
         finally:
             self._scratch_busy = False
         if req.stream.cancelled.is_set():
@@ -2377,8 +2481,8 @@ class GenerationEngine:
         self._write_table_row(idx)
         return first
 
-    def _chunk_lattice(self, row: int, req: _Request,
-                       pos: int = 0) -> tuple[int, float]:
+    def _chunk_lattice(self, row: int, req: _Request, pos: int = 0,
+                       track_slot: int | None = None) -> tuple[int, float]:
         """The chunked-prefill lattice (the JAX engine's
         ``_chunk_lattice``) for ``req.prompt[pos:]`` into batch row
         ``row`` of the serving cache (paged: row 0 of the scratch row;
@@ -2399,9 +2503,13 @@ class GenerationEngine:
         for the chunk. Shipping stops at the final window's start: on an
         int8 cache the final chunk recomputes its overlap over already
         quantized positions and the row keeps that version, which
-        ``_start`` ships from the settled row."""
+        ``_start`` ships from the settled row.
+
+        Each mid chunk's host dispatch lands on the timeline's track of
+        ``track_slot`` (the serving slot; ``row`` by default)."""
         n = len(req.prompt)
         c = self._chunk
+        tslot = row if track_slot is None else track_slot
         ship_cap = n
         if req.kv_sink is not None:
             rem = n - pos
@@ -2414,11 +2522,20 @@ class GenerationEngine:
             if self._expire_mid_lattice(req, pos):
                 return 0, 0.0
             chaos.fire(chaos.GENERATOR_CHUNK)
+            t0c = time.monotonic() if self._tl is not None else 0.0
             self._admission_inputs(req.prompt[pos:pos + c], req, slot=row,
                                    start=pos)
             self._run_admission(("mid",))
             pos += c
             req.stream.chunks += 1
+            if self._tl is not None:
+                # the host's dispatch slice (the device work runs behind
+                # it); index and length make the lattice readable
+                self._tl.chunk(t0c, time.monotonic(), tslot,
+                               req.stream.chunks - 1, c,
+                               req.stream.request_id)
+            if self.metrics is not None:
+                self.metrics.increment_counter("app_tpu_prefill_chunks_total")
             if req.kv_sink is not None and not self._ship_range(
                     row, req, min(pos, ship_cap)):
                 return 0, 0.0
@@ -2445,13 +2562,18 @@ class GenerationEngine:
         path retires the slot (paged: its blocks back to the pool)."""
         if req.deadline is None or not req.deadline.expired():
             return False
-        self._count_expired("mid-prefill")
+        self._count_expired("mid-prefill", req.stream.request_id)
         req.stream.where = "mid-prefill"
         req.stream.failed = "deadline expired mid-prefill"
         req.stream._q.put(DeadlineExceeded(
             f"deadline expired after {pos}/{len(req.prompt)} prompt "
             "tokens were prefilled"))
         req.stream.cancel()
+        if self._observe is not None:
+            self._observe.recorder.record(
+                "expired_mid_prefill", request_id=req.stream.request_id,
+                trace_id=req.stream.trace_id, prefilled=pos,
+                prompt_len=len(req.prompt))
         return True
 
     def _expire_decoding(self, idx: int, slot: _Slot) -> bool:
@@ -2465,17 +2587,23 @@ class GenerationEngine:
         if req is None or req.deadline is None or not req.deadline.expired():
             return False
         where = self._expiry_where(req, "mid-decode")
-        self._count_expired(where)
+        self._count_expired(where, req.stream.request_id)
         req.stream.where = where
         req.stream.failed = "deadline expired mid-decode"
         req.stream._q.put(DeadlineExceeded(
             f"deadline expired after {slot.generated} generated tokens"))
         req.stream.cancel()
+        if self._observe is not None:
+            self._observe.recorder.record(
+                "expired_mid_decode", request_id=req.stream.request_id,
+                trace_id=req.stream.trace_id, tokens=slot.generated)
         self._retire(idx, slot)
         return True
 
-    def _count_expired(self, where: str) -> None:
+    def _count_expired(self, where: str, request_id=None) -> None:
         self._expired[where] += 1
+        if self._tl is not None:
+            self._tl.expired(where, request_id)
         if self.metrics is not None:
             try:
                 self.metrics.increment_counter(
@@ -2567,6 +2695,16 @@ class GenerationEngine:
         req.stream.trace["admit"] = t0
         if self.gate is not None:
             self.gate.note_wait(t0 - req.enqueued_at)
+        if self._tl is not None:
+            self._tl.admit(idx, req.slo_class, t0 - req.enqueued_at,
+                           req.stream.request_id, req.stream.trace_id)
+        self._obs_stage(req.stream, "prefill")
+        if self._observe is not None:
+            self._observe.recorder.record(
+                "admitted", request_id=req.stream.request_id,
+                trace_id=req.stream.trace_id, slot=idx,
+                slo_class=req.slo_class,
+                wait_s=round(t0 - req.enqueued_at, 6))
         # claim the slot before any dispatch: a lattice runs nested
         # admission passes between its chunks
         slot.request = req
@@ -2600,9 +2738,18 @@ class GenerationEngine:
                 self._obs_gauges()
                 return
             self._end_stream(req.stream,
-                             GenerationError(f"prefill failed: {e!r}"))
+                             GenerationError(f"prefill failed: {e!r}"),
+                             "failed", stage="prefill", error=repr(e))
             raise
-        req.stream.trace["prefill_done"] = time.monotonic()
+        prefill_done = req.stream.trace["prefill_done"] = time.monotonic()
+        if self._tl is not None:
+            self._tl.prefill(t0, prefill_done, idx, len(req.prompt),
+                             req.stream.request_id, req.stream.trace_id)
+        self._obs_span("tpu.admit-wait", req.enqueued_at, t0, req.stream,
+                       {"slot": idx, "slo_class": req.slo_class})
+        self._obs_span("tpu.prefill", t0, prefill_done, req.stream,
+                       {"slot": idx, "prompt_len": len(req.prompt),
+                        "slo_class": req.slo_class})
         if req.kv_sink is not None:
             # prefill-only: ship what the chunk hooks have not (the whole
             # row for a bucket prompt) before the first token's delivery,
@@ -2610,6 +2757,10 @@ class GenerationEngine:
             # failure cancelled the stream; _deliver retires the slot
             self._ship_range(idx, req, len(req.prompt))
         self._prefix_store(idx, req)
+        if self.metrics is not None:
+            self.metrics.record_histogram("app_tpu_batch_wait_duration",
+                                          t0 - req.enqueued_at,
+                                          program="generate")
         if req.ingest is None:
             self.admissions += 1
         self.total_requests += 1
@@ -2847,10 +2998,15 @@ class GenerationEngine:
             self._kvc.reject(mt)
             return 0
         self._pool_copy(self.cache, idx, self._pool, row, m_eff)
-        self._kvc.accept(mt, time.monotonic() - t_start,
-                         tenant=self._tenant(req))
+        restore_s = time.monotonic() - t_start
+        self._kvc.accept(mt, restore_s, tenant=self._tenant(req))
         req.stream.cache_tier = mt.tier
         req.stream.cache_tokens = m_eff
+        if self._tl is not None:
+            self._tl.kvcache(mt.tier, m_eff, idx)
+        self._obs_span("tpu.prefix-restore", t_start, t_start + restore_s,
+                       req.stream, {"tier": mt.tier, "tokens": m_eff,
+                                    "slot": idx})
         if self.metrics is not None:
             try:
                 self.metrics.increment_counter(
@@ -2933,8 +3089,14 @@ class GenerationEngine:
                 program="generate", slo_class=req.slo_class,
                 retry_after=e.retry_after or 1.0,
                 trace_id=req.stream.trace_id)
+        else:
+            now = time.monotonic()
+            self._obs_span("tpu.shed", now, now, req.stream,
+                           {"reason": "hbm", "slo_class": req.slo_class})
+        if self._tl is not None:
+            self._tl.shed("generate", req.slo_class, req.stream.trace_id)
         req.stream.failed = "hbm exhausted: shed"
-        self._end_stream(req.stream, err)
+        self._end_stream(req.stream, err, "shed", tokens=0, error=str(e))
 
     # -- disaggregated serving (pd/) -----------------------------------------
     @staticmethod
@@ -2967,12 +3129,8 @@ class GenerationEngine:
             req.stream.failed = f"kv ship failed: {e!r}"
             req.stream._q.put(GenerationError(f"kv ship failed: {e!r}"))
             req.stream.cancel()
-            # the JAX engine's flight-recorder event; the port has no
-            # recorder yet (ROADMAP item 13c), so it is guarded on one
-            recorder = getattr(getattr(self, "_observe", None), "recorder",
-                               None)
-            if recorder is not None:
-                recorder.record(
+            if self._observe is not None:
+                self._observe.recorder.record(
                     "kv_ship_failed", request_id=req.stream.request_id,
                     trace_id=req.stream.trace_id, shipped=req.kv_shipped,
                     prompt_len=len(req.prompt), error=repr(e))
@@ -3058,6 +3216,8 @@ class GenerationEngine:
             hbm.release("pd-ingest", owner=self, tag="stage")
         req.stream.cache_tier = "pd-ship"
         req.stream.cache_tokens = n
+        if self._tl is not None:
+            self._tl.kvcache("pd", n, idx)
         if self.metrics is not None:
             try:
                 self.metrics.increment_counter("app_tpu_pd_ingests_total")
@@ -3371,10 +3531,23 @@ class GenerationEngine:
         a slot that deactivated on the device gets no more tokens.
         Records the block's share of the step time: reap to reap while
         a block stayed queued behind the last reap, else dispatch to
-        reap."""
+        reap; and the block's timeline event, dispatch to this wait's
+        end (the wait the tokens need anyway: no synchronisation of its
+        own)."""
         if done is not None:
             done.synchronize()
         now = time.monotonic()
+        if self._tl is not None:
+            # one ring event a block, fanned out to the slots' tracks
+            # only at export
+            self._tl.decode_block(
+                t_dispatch, now,
+                tuple(int(i) for i in np.flatnonzero(snap_active)),
+                self.decode_block)
+        if self.metrics is not None:
+            self.metrics.set_gauge("app_tpu_batch_fill",
+                                   float(self._active.sum()) / self.n_slots,
+                                   program="generate")
         start = self._steady_from if self._steady_from is not None \
             else t_dispatch
         self._block_s.append(now - start)
@@ -3383,12 +3556,16 @@ class GenerationEngine:
         toks_l = res[:, 0].astype(np.int64).tolist()
         lps_l = res[:, 1].tolist()
         emit_l = res[:, 2].tolist()
+        counts = res[:, 2].sum(axis=0)   # tokens each slot gets
         if done is not None:
             self._out_free.append((out, done))
         for idx, slot in enumerate(self._slots):
             if snap_active[idx] and self._active[idx] \
                     and slot.request is snap_reqs[idx]:
-                self._expire_decoding(idx, slot)
+                if self._expire_decoding(idx, slot):
+                    continue
+                if counts[idx]:
+                    self._record_itl(slot, int(counts[idx]))
         for k in range(len(toks_l)):
             trow, lrow, erow = toks_l[k], lps_l[k], emit_l[k]
             for idx, slot in enumerate(self._slots):
@@ -3408,21 +3585,31 @@ class GenerationEngine:
         if req.stream.cancelled.is_set():
             self._retire(idx, slot)
             return
+        now = time.monotonic()
         if slot.generated == 0:
-            now = req.stream.trace["first_put"] = time.monotonic()
+            req.stream.trace["first_put"] = now
+            ttft = now - req.stream.trace["submit"]
             if self.metrics is not None:
                 # one label-key set whether or not tenancy is on (tenant
                 # "" when untenanted), so the series never split on the
                 # deployment mode
                 try:
                     self.metrics.record_histogram(
-                        "app_tpu_ttft_duration",
-                        now - req.stream.trace["submit"],
+                        "app_tpu_ttft_duration", ttft,
                         exemplar=req.stream.trace_id or None,
                         program="generate", slo_class=req.slo_class,
                         tenant=self._tenant(req) or "")
                 except Exception:  # noqa: BLE001 — telemetry only
                     pass
+            self._obs_stage(req.stream, "decode")
+            if self._observe is not None:
+                self._observe.recorder.record(
+                    "first_token", request_id=req.stream.request_id,
+                    trace_id=req.stream.trace_id, slot=idx,
+                    slo_class=req.slo_class, ttft_s=round(ttft, 6))
+        # inter-token latency is recorded at the reap (_record_itl): a
+        # block delivers its K tokens back to back
+        slot.last_token_t = now
         req.stream._push((token, lp) if req.logprobs else token)
         slot.generated += 1
         slot.remaining -= 1
@@ -3439,6 +3626,10 @@ class GenerationEngine:
             self._retire(idx, slot, GenerationError(
                 f"mid-stream kill after {slot.generated} tokens: {e!r}"))
             return
+        if req.stream.obs_entry is not None:
+            req.stream.obs_entry.tokens = slot.generated
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_tpu_tokens_generated_total")
         at_eos = req.eos_id is not None and (
             token in req.eos_id if isinstance(req.eos_id, frozenset)
             else token == req.eos_id)
@@ -3447,13 +3638,43 @@ class GenerationEngine:
         if at_eos or slot.remaining <= 0 or at_capacity:
             self._retire(idx, slot)
 
-    def _retire(self, idx: int, slot: _Slot,
-                err: Exception | None = None) -> None:
+    def _retire(self, idx: int, slot: _Slot, err: Exception | None = None,
+                end: tuple | None = None) -> None:
         """Free the slot and end its stream, with ``err`` as its last
         item when the slot failed. The stream ends last, so a consumer
         that sees the end (or the error) sees the slot free and its
-        blocks back in the pool."""
+        blocks back in the pool. The terminal event (JAX's ``_retire``):
+        ``failed`` when the stream carries a failure, ``cancelled``
+        when it was cancelled, else ``finished``, with the slot, the
+        tokens, the duration and the decode rate; ``end`` = (event,
+        fields) replaces it (a closed engine's streams)."""
         stream = slot.request.stream
+        now = time.monotonic()
+        first = stream.trace.get("first_put")
+        decode_s = (now - first) if first is not None else 0.0
+        tps = slot.generated / decode_s if decode_s > 0 else 0.0
+        if self.metrics is not None and slot.generated > 1:
+            # a rate needs at least one inter-token interval
+            self.metrics.set_gauge("app_tpu_tokens_per_second", tps,
+                                   program="generate")
+        if first is not None and slot.generated > 0:
+            self._obs_span("tpu.decode", first, now, stream,
+                           {"slot": idx, "tokens": slot.generated,
+                            "slo_class": slot.request.slo_class})
+        if end is None:
+            event = ("failed" if stream.failed is not None
+                     else "cancelled" if stream.cancelled.is_set()
+                     else "finished")
+            submit = stream.trace.get("submit")
+            fields = {"slot": idx, "tokens": slot.generated,
+                      "duration_s": (round(now - submit, 6)
+                                     if submit is not None else None),
+                      "tokens_per_s": (round(tps, 3)
+                                       if slot.generated > 1 else None)}
+            if stream.failed is not None:
+                fields["error"] = stream.failed
+        else:
+            event, fields = end
         if self._paged:
             # freed blocks may be handed out at once; the retired slot's
             # frozen-cursor writes go to the trash block because its
@@ -3478,20 +3699,198 @@ class GenerationEngine:
         # EOS_MAX) deactivates a slot the device carry may still run
         self._host_wins[idx] = True
         self._touch()
-        self._end_stream(stream, err)
+        self._end_stream(stream, err, event, now, **fields)
         self._obs_gauges()
 
-    def _end_stream(self, stream: GenStream,
-                    err: Exception | None = None) -> None:
+    def _end_stream(self, stream: GenStream, err: Exception | None = None,
+                    event: str | None = None, now: float | None = None,
+                    **fields) -> None:
         """Every stream's terminal (finish, cancel, each expiry, a failed
         step or prefill, an out-of-memory shed, a refused prompt, a
-        closed engine): the stream gives back its tenant's concurrency
-        slot, then ends, with ``err`` as its last item when it failed. A
-        consumer that sees the end sees the slot back."""
-        self._release_tenant(stream)
+        closed engine): with ``event`` its terminal record (``_obs_end``),
+        else only its tenant's concurrency slot back (a prompt refused
+        before it was registered, as JAX records none); then the stream
+        ends, with ``err`` as its last item when it failed. A consumer
+        that sees the end sees the slot back and the record written.
+        ``now``: the terminal's instant, when the caller took one."""
+        if event is None:
+            self._release_tenant(stream)
+        else:
+            self._obs_end(stream, event, now, **fields)
         if err is not None:
             stream._q.put(err)
         stream._push(None)
+
+    # -- the flight recorder's plumbing (JAX's; the recorder, registry and
+    # span parts are no-ops without an Observe bundle) -----------------------
+    def _obs_end(self, stream: GenStream, event: str,
+                 now: float | None = None, **fields) -> None:
+        """A stream's terminal record: its tenant slot back, its registry
+        entry removed, its terminal lifecycle event (finished, failed,
+        cancelled, shed) and its canonical wide event, cut at ``now``
+        (the terminal's instant; this call's by default)."""
+        self._release_tenant(stream)
+        if self._observe is not None:
+            self._observe.requests.remove(stream.obs_entry)
+            self._observe.recorder.record(event, request_id=stream.request_id,
+                                          trace_id=stream.trace_id, **fields)
+        self._wide_event(stream, event, fields, now)
+
+    def _wide_fields(self, outcome: str, trace_id: str, slo_class: str,
+                     tenant: str | None = None) -> dict:
+        """The wide event's skeleton. The key order is part of the
+        contract (one grep on ``"event": "request"`` reconstructs any
+        request). ``tenant`` appears only on engines with a tenancy
+        plane."""
+        out = {"event": "request", "outcome": outcome,
+               "trace_id": trace_id, "slo_class": slo_class}
+        if tenant is not None:
+            out["tenant"] = tenant
+        return out
+
+    def _wide_event(self, stream: GenStream, outcome: str, fields: dict,
+                    now: float | None = None) -> None:
+        """One structured event per request at its terminal outcome, in
+        JAX's key order, through the logger (``Logger.wide``) and the
+        flight recorder: the class, queue wait, chunk count, cache tier,
+        tokens and trace id, and the critical-path ``breakdown`` (queue
+        wait, prefill, handoff, decode), which feeds
+        ``app_tpu_request_segment_duration``. The segments end at
+        ``now``, the instant the terminal's ``duration_s`` was taken
+        (JAX takes a second one here), so they sum to it up to the
+        rounding, whatever the terminal did in between."""
+        trace = stream.trace
+        submit = trace.get("submit")
+        admit = trace.get("admit")
+        if now is None:
+            now = time.monotonic()
+        if stream.cursor_base and outcome == "finished":
+            # a continuation that ran to completion is the resumed tail
+            # of an interrupted stream
+            outcome = "resumed"
+        wide = self._wide_fields(
+            outcome, stream.trace_id, stream.slo_class,
+            tenant=stream.tenant if self.tenancy is not None else None)
+        wide.update({
+            "request_id": stream.request_id,
+            "prompt_len": stream.prompt_len,
+            "tokens": fields.get("tokens", 0),
+            "queue_wait_s": (round(admit - submit, 6)
+                             if admit is not None and submit is not None
+                             else None),
+            "duration_s": fields.get(
+                "duration_s",
+                round(now - submit, 6) if submit is not None else None),
+            "chunks": stream.chunks,
+            "cache_tier": stream.cache_tier,
+            "cache_tokens": stream.cache_tokens,
+        })
+        if stream.cursor_base:
+            # where the continuation picked up, and how much of its
+            # prompt it recomputed
+            wide["resumed_at_cursor"] = stream.cursor_base
+            wide["recompute_tokens"] = max(
+                0, stream.prompt_len - stream.cache_tokens)
+        breakdown: dict = {}
+        prefill_done = trace.get("prefill_done")
+        first_put = trace.get("first_put")
+        cuts = [("queue_wait", submit, admit),
+                ("prefill", admit, prefill_done),
+                ("handoff", prefill_done, first_put),
+                ("decode", first_put, now)]
+        for seg, a, b in cuts:
+            if a is not None and b is not None:
+                breakdown[seg + "_s"] = round(max(0.0, b - a), 6)
+        if breakdown:
+            wide["breakdown"] = breakdown
+        if submit is not None:
+            # the wall-clock anchor a fleet merge places the request by
+            wide["submit_wall_s"] = round(time.time() - (now - submit), 6)
+        if trace.get("kv_transfer_s") is not None:
+            # the P/D wire segment precedes submit on a decode worker
+            wide["kv_transfer_s"] = trace["kv_transfer_s"]
+        if self.metrics is not None and breakdown:
+            tid = stream.trace_id or None
+            for i, (seg_s, v) in enumerate(sorted(breakdown.items())):
+                try:
+                    self.metrics.record_histogram(
+                        "app_tpu_request_segment_duration", v,
+                        exemplar=tid if i == 0 else None,
+                        segment=seg_s[:-2], program="generate")
+                except Exception:  # noqa: BLE001 — telemetry only
+                    pass
+        if "error" in fields:
+            wide["error"] = fields["error"]
+        if stream.where is not None:
+            wide["where"] = stream.where
+        if self._observe is not None:
+            self._observe.recorder.record(
+                "request", request_id=stream.request_id,
+                trace_id=stream.trace_id,
+                **{k: v for k, v in wide.items()
+                   if k not in ("event", "request_id", "trace_id")})
+        if self.logger is not None:
+            try:
+                self.logger.wide(wide)
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+
+    def _wide_shed(self, slo_class: str, tenant: str | None = None) -> None:
+        """The wide event and timeline marker of a request shed at the
+        gate or its tenant's quota: no stream exists yet, and the
+        ambient span is the only trace it ever had."""
+        trace_id = ""
+        if self._observe is not None:
+            span = tracing.current_span()
+            if span is not None:
+                trace_id = span.trace_id
+        if self._tl is not None:
+            self._tl.shed("generate", slo_class, trace_id)
+        wide = self._wide_fields("shed", trace_id, slo_class, tenant=tenant)
+        wide["sheds"] = 1
+        if self._observe is not None:
+            self._observe.recorder.record(
+                "request", trace_id=trace_id,
+                **{k: v for k, v in wide.items()
+                   if k not in ("event", "trace_id")})
+        if self.logger is not None:
+            try:
+                self.logger.wide(wide)
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+
+    def _obs_stage(self, stream: GenStream, stage: str) -> None:
+        if stream.obs_entry is not None:
+            stream.obs_entry.stage = stage
+
+    def _obs_span(self, name: str, start_s: float, end_s: float,
+                  stream: GenStream, attrs: dict | None = None) -> None:
+        """Export one stage span (admit wait, prefill, decode, a prefix
+        restore, a shed), parented by the request's trace context."""
+        obs = self._observe
+        if obs is None or obs.tracer is None:
+            return
+        try:
+            obs.tracer.record_span(name, start_s, end_s,
+                                   traceparent=stream.traceparent,
+                                   trace_id=stream.trace_id or None,
+                                   attributes=attrs)
+        except Exception:  # noqa: BLE001 — telemetry only
+            pass
+
+    def _record_itl(self, slot: _Slot, n: int) -> None:
+        """``n`` inter-token-latency samples for a slot about to receive
+        ``n`` tokens from one reap: the time since its previous delivery
+        spread over them (the device's cadence, not the host loop's
+        microsecond gaps within one delivery)."""
+        if self.metrics is None or n <= 0 or slot.last_token_t == 0.0:
+            return
+        gap = (time.monotonic() - slot.last_token_t) / n
+        tid = slot.request.stream.trace_id or None if slot.request else None
+        for i in range(n):
+            self.metrics.record_histogram("app_tpu_inter_token_duration",
+                                          gap, exemplar=tid if i == 0
+                                          else None, program="generate")
 
     def _release_tenant(self, stream: GenStream) -> None:
         """Give back the stream's tenant concurrency slot, exactly once
@@ -3730,7 +4129,12 @@ class GenerationEngine:
         retires instead."""
         if done is not None:
             done.synchronize()
-        self._verify_s.append(time.monotonic() - t0)
+        now = time.monotonic()
+        self._verify_s.append(now - t0)
+        if self._tl is not None:
+            self._tl.verify_block(
+                t0, now, tuple(int(i) for i in np.flatnonzero(snap_active)),
+                self._spec_k + 1)
         if done is not None:
             res = out.numpy().copy()
             self._verify_out_free.append((out, done))
@@ -3748,6 +4152,7 @@ class GenerationEngine:
                 continue
             if self._expire_decoding(idx, slot):
                 continue
+            self._record_itl(slot, int(emit_np[idx]))
             for k in range(emit_np[idx]):
                 if not self._active[idx]:
                     break  # retired mid-window (EOS, budget, cancel)

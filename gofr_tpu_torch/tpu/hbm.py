@@ -71,7 +71,10 @@ row a rank with a ``device`` field. ``TPU_HBM_DEVICE_BUDGET_MB``
 (``set_device_budget``) bounds the sum of the rows of each device: two
 ranks sharing one card are checked together on rank 0.
 
-Left with its ROADMAP item: the timeline's counter tracks (item 13).
+Serving timelines (``set_timeline``, weakly held as the metrics sinks
+are) receive an ``hbm`` counter sample on every accounting change and
+the reclaim and shed instants, so an exported trace carries one
+``hbm:<subsystem>`` counter track a subsystem.
 """
 
 from __future__ import annotations
@@ -92,8 +95,8 @@ __all__ = ["HBMExhausted", "PRI_CACHE", "PRI_SCRATCH", "PRI_SERVING",
            "account", "alloc", "arbiter_stats", "budget", "check",
            "configure", "device_budget", "is_oom_error", "lease",
            "live_bytes", "note_shed", "reclaim", "release", "reset",
-           "set_budget", "set_device_budget", "set_metrics", "snapshot",
-           "tenant_lease", "tree_nbytes"]
+           "set_budget", "set_device_budget", "set_metrics",
+           "set_timeline", "snapshot", "tenant_lease", "tree_nbytes"]
 
 GAUGE = "app_tpu_device_bytes"
 BUDGET_GAUGE = "app_tpu_hbm_budget_bytes"
@@ -206,6 +209,9 @@ class _Registry:
         # gauge sinks, weakly held: the registry outlives any metrics
         # Manager and must not pin one alive
         self._sinks: "weakref.WeakSet[Any]" = weakref.WeakSet()
+        # serving timelines (observe/timeline.py), the same weak fan-out:
+        # every accounting change lands a counter sample
+        self._timelines: "weakref.WeakSet[Any]" = weakref.WeakSet()
 
     # -- accounting -----------------------------------------------------------
     def account(self, subsystem: str, tree: Any, *, owner: Any = None,
@@ -624,6 +630,7 @@ class _Registry:
                         self._reclaims[sub] = self._reclaims.get(sub, 0) + 1
                         self._reclaimed_bytes += got
                     self._count_metric(RECLAIMS_COUNTER, subsystem=sub)
+                    self._event_timeline(sub, "reclaim", got)
             return freed
         finally:
             self._reclaim_mu.release()
@@ -631,7 +638,8 @@ class _Registry:
     def note_shed(self, subsystem: str) -> None:
         """Record one request degraded (429/RESOURCE_EXHAUSTED) because
         the arbiter could not cover an allocation
-        (``app_tpu_hbm_shed_total{subsystem=}``). Every
+        (``app_tpu_hbm_shed_total{subsystem=}``, and an instant on the
+        timelines' ``hbm:*`` track). Every
         :class:`HBMExhausted` raise site in this module counts itself;
         a caller that catches and re-routes one must NOT count it again
         (the batcher's own persistent out-of-memory shed, which raises a
@@ -639,6 +647,7 @@ class _Registry:
         with self._locked():
             self._sheds[subsystem] = self._sheds.get(subsystem, 0) + 1
         self._count_metric(SHED_COUNTER, subsystem=subsystem)
+        self._event_timeline(subsystem, "shed", 0)
 
     def arbiter_stats(self) -> dict:
         """The lease/reclaim table: budget, in-use, per-lease rows
@@ -704,6 +713,20 @@ class _Registry:
         except Exception:  # noqa: BLE001 — telemetry only
             pass
 
+    def set_timeline(self, timeline: Any) -> None:
+        """Attach a serving timeline (weakly held) that receives an
+        ``hbm`` counter sample on every accounting change plus the
+        reclaim and shed instants. ``None`` detaches all timelines."""
+        if timeline is None:
+            self._timelines.clear()
+            return
+        self._timelines.add(timeline)
+        for sub, n in self.live_bytes().items():
+            try:
+                timeline.hbm(sub, float(n))
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+
     def reset(self) -> None:
         """Test hook: forget everything -- entries, leases, budget,
         counters (and zero pushed gauges)."""
@@ -729,14 +752,28 @@ class _Registry:
             except Exception:  # noqa: BLE001 — accounting must never
                 pass  # take the serving path down
 
+    def _event_timeline(self, subsystem: str, what: str,
+                        nbytes: int) -> None:
+        for tl in list(self._timelines):
+            try:
+                tl.hbm_event(subsystem, what, float(nbytes))
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+
     def _push(self, subsystem: str) -> None:
         sinks = list(self._sinks)
-        if not sinks:
+        timelines = list(self._timelines)
+        if not sinks and not timelines:
             return
         value = float(self.live_bytes().get(subsystem, 0))
         for m in sinks:
             try:
                 m.set_gauge(GAUGE, value, subsystem=subsystem)
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+        for tl in timelines:
+            try:
+                tl.hbm(subsystem, value)
             except Exception:  # noqa: BLE001 — telemetry only
                 pass
 
@@ -764,5 +801,6 @@ reset = _registry.reset
 set_budget = _registry.set_budget
 set_device_budget = _registry.set_device_budget
 set_metrics = _registry.set_metrics
+set_timeline = _registry.set_timeline
 snapshot = _registry.snapshot
 tenant_lease = _registry.tenant_lease

@@ -424,3 +424,25 @@ def test_the_port_s_cli_process_exits_by_itself(tmp_path, weights_npz):
         timeout=_SUBPROCESS_S, stdin=subprocess.DEVNULL)
     assert (bad.returncode, bad.stdout) == (1, "")
     assert bad.stderr.startswith("No Command Found!")
+
+
+def test_an_engine_left_open_is_stopped_at_interpreter_exit():
+    """A process may exit with its engine open (the CLI process above
+    does): every engine with a serving loop is registered with the exit
+    hook, which stops the loop and joins its thread before the
+    interpreter's finalization could stop that daemon thread inside a
+    CUDA call."""
+    from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
+    from gofr_tpu_torch.tpu import generator
+
+    cfg = LLAMA_CONFIGS["tiny"]
+    eng = generator.GenerationEngine(cfg, llama.init(cfg, 0, device="cpu"),
+                                     slots=2, max_seq=64,
+                                     prompt_buckets=(16,), device="cpu")
+    try:
+        assert eng in generator._LOOPS and eng._thread.is_alive()
+        assert len(eng.generate([1, 2, 3], max_new_tokens=4).tokens()) == 4
+        eng._stop_loop(timeout=10.0)
+        assert not eng._thread.is_alive()
+    finally:
+        eng.close()

@@ -13,7 +13,9 @@ call of the same block function computes (contiguous and paged,
 sampling on and off, and after a prefill and a verify pass have moved
 the cursors between replays), and so does the verify pass's graph; a
 dispatch returns before its block is
-done; replays count their kernels' launches; a body that cannot be
+done, and with the serving timeline on its reap appends one decode
+event and nothing synchronises the device; replays count their
+kernels' launches; a body that cannot be
 captured makes construction raise, and a dead graph that the collector
 frees meanwhile does not. The admission path is captured too:
 K1 replays its eager bits inside a graph, each admission (a bucket
@@ -742,6 +744,57 @@ def test_a_dispatch_returns_before_its_block_completes(gen):
             assert not inflight.ready() and took < 0.2
             inflight.done.synchronize()
             assert inflight.ready()
+            eng._retire(0, slot)
+    finally:
+        eng.close()
+
+
+def test_a_timeline_on_decode_replay_appends_one_event_without_a_sync(
+        gen, monkeypatch):
+    """With an Observe bundle's timeline on, a decode block is still one
+    graph replay whose dispatch returns before the block completes; its
+    reap, waiting on the block's event as it always does, appends one
+    ``decode`` event (the slots as dispatched, K steps, dispatch to
+    reap), and no ``torch.cuda.synchronize`` runs on the way."""
+    from gofr_tpu_torch.observe import Observe
+    from gofr_tpu_torch.tpu.generator import GenStream, _Request
+
+    obs = Observe()
+    eng = _engine(False, observe=obs)
+    syncs = []
+    try:
+        assert eng._tl is obs.timeline
+        with eng._device_lock:
+            slot = eng._slots[0]
+            slot.request = _Request(GenStream(0), np.arange(1, 4), 50, 0.0,
+                                    0, None, 0)
+            slot.request.stream.trace["submit"] = time.monotonic()
+            slot.generated, slot.remaining = 1, 49
+            eng._active[0] = True
+            eng._budgets[0] = 49
+            eng._touch()
+            eng.cache.lengths[0] = 3
+            seq0 = obs.timeline.stats()["total_recorded"]
+            replays0 = eng.graph_replays
+            real = torch.cuda.synchronize
+            monkeypatch.setattr(torch.cuda, "synchronize",
+                                lambda *a, **k: syncs.append(a)
+                                or real(*a, **k))
+            torch.cuda._sleep(2_000_000_000)   # about a second of the stream
+            inflight = eng._decode_tick()
+            assert not inflight.ready()
+
+            def decodes():
+                return [e for e in obs.timeline.events()
+                        if e[0] >= seq0 and e[3] == "decode"]
+
+            assert decodes() == []             # emitted at the reap
+            inflight.reap(False)
+            monkeypatch.undo()
+            (event,) = decodes()
+            assert event[4] == (0,) and event[5] == eng.decode_block
+            assert event[2] > 0
+            assert eng.graph_replays == replays0 + 1 and syncs == []
             eng._retire(0, slot)
     finally:
         eng.close()

@@ -41,7 +41,7 @@ from gofr_tpu_torch import chaos as pchaos
 from gofr_tpu_torch import metrics as pmetrics
 from gofr_tpu_torch.config import MapConfig
 from gofr_tpu_torch.models import bert
-from gofr_tpu_torch.observe import RequestRegistry
+from gofr_tpu_torch.observe import Observe
 from gofr_tpu_torch.tpu import (UNPORTED_ROWS, TorchEngine,
                                 new_engine_from_config)
 
@@ -489,9 +489,10 @@ def test_the_dispatch_metrics_and_the_inflight_entry():
     """The JAX engine's metric names, and a ``predict`` entry in the
     in-flight registry at stage ``batch-wait`` while it waits."""
     m = _metrics(pmetrics)
-    reg = RequestRegistry()
+    obs = Observe()
+    reg = obs.requests
     eng = TorchEngine(device="cpu", metrics=m, max_delay=0.001,
-                      requests=reg)
+                      observe=obs)
     eng.register("echo", lambda p, t, lens: t, None, kind="tokens",
                  batch_buckets=(1, 2), seq_buckets=(8,))
     release = threading.Event()

@@ -8,9 +8,9 @@ each ``TPU_GATEWAY_*`` row reads the same on both. With a ``TPU_MODEL``
 row beside the gateway role the JAX App logs the engine's "builds no
 engine" error and serves the gateway without an engine, where the
 port's raises it (the port's rule that nothing falls back on its own).
-The fleet, timeline, flight-recorder, clock and multi-host rows the port
-reads nowhere raise by name (a falsey ``TPU_TIMELINE`` asks for what the
-port does, and builds); ``fused``, the JAX default role, builds. The SQL
+The fleet, timeline, flight-recorder and clock rows read the same on
+both packages' Apps; the multi-host rows the port reads nowhere raise
+by name; ``fused``, the JAX default role, builds. The SQL
 rows and ``REMOTE_LOG_URL`` build on both packages; a SQL dialect whose
 driver is not installed raises naming the row on the port, where JAX
 logs it and serves without ``sql``. The ``prefill`` role
@@ -145,7 +145,83 @@ def _pd_role_reads_alike(value, model):
 
 
 # The test below keeps the name it had while the port refused the
-# gateway and prefill roles; those cases now hold the two packages alike.
+# gateway and prefill roles and the observability rows; those cases now
+# hold the two packages alike.
+
+OBS_ROWS = ("TPU_OBS_PEERS", "TPU_TIMELINE_EVENTS", "TPU_TIMELINE",
+            "TPU_OBS_CLOCK_WINDOW", "TPU_OBS_FLEET_TIMEOUT_S",
+            "DEBUG_EVENT_BUFFER")
+
+
+def _fleet_timeouts(app, fleet, monkeypatch) -> list:
+    """The timeout a ``/debug/request`` peer query of ``app`` passes to
+    its package's ``fleet.fetch_json`` (the query then fails, typed)."""
+    import json
+    import urllib.request
+
+    seen = []
+
+    def fetch(url, path, timeout_s=2.0):
+        seen.append(timeout_s)
+        raise ConnectionRefusedError(url)
+
+    monkeypatch.setattr(fleet, "fetch_json", fetch)
+    app.run(block=False)
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{app.metrics_port}/debug/request?trace_id=t",
+            timeout=10) as r:
+        body = json.loads(r.read())
+    assert body["partial"] and body["degraded"][0]["reason"] == "unreachable"
+    return seen
+
+
+def _obs_row_reads_alike(row, value, model, monkeypatch):
+    """An observability row builds and reads the same on both packages'
+    Apps: the Observe bundle's timeline, recorder and clock, the fleet's
+    peer list, and the peer-query timeout. With a model row the port's
+    engine holds the App's timeline (None when it is off); the JAX App
+    is built without one (its reading of the row does not depend on
+    it)."""
+    from gofr_tpu.observe import fleet as jfleet
+    from gofr_tpu_torch.observe import fleet as pfleet
+
+    rows = {row: value}
+    if row == "TPU_OBS_FLEET_TIMEOUT_S":
+        rows["TPU_OBS_PEERS"] = "p=http://127.0.0.1:1"
+    japp = _jax_app(rows)
+    papp = _port_app(dict(rows, **({"TPU_MODEL": model, "TPU_SLOTS": "2"}
+                                   if model else {})))
+    try:
+        readings = []
+        for app, fleet in ((japp, jfleet), (papp, pfleet)):
+            obs = app.container.observe
+            reading = {
+                "timeline": (obs.timeline.enabled, obs.timeline.capacity),
+                "recorder": obs.recorder.capacity,
+                "clock_window": obs.clock.window,
+                "peers": [(t["name"], t["debug_url"], t["aligned"])
+                          for t in fleet.peer_targets(obs, app.config)]}
+            if row == "TPU_OBS_FLEET_TIMEOUT_S":
+                reading["timeouts"] = _fleet_timeouts(app, fleet,
+                                                      monkeypatch)
+            readings.append(reading)
+        assert readings[1] == readings[0]
+        want = {"TPU_OBS_PEERS": ("peers",
+                                  [("a", "http://127.0.0.1:1", False)]),
+                "TPU_TIMELINE_EVENTS": ("timeline", (True, 1024)),
+                "TPU_TIMELINE": ("timeline", (True, 65536)),
+                "TPU_OBS_CLOCK_WINDOW": ("clock_window", 64),
+                "TPU_OBS_FLEET_TIMEOUT_S": ("timeouts", [2.0]),
+                "DEBUG_EVENT_BUFFER": ("recorder", 2048)}[row]
+        assert readings[1][want[0]] == want[1]
+        if model is not None:
+            gen = papp.container.tpu.generator
+            assert gen._observe is papp.container.observe
+            assert gen._tl is papp.container.observe.timeline
+    finally:
+        japp.stop()
+        papp.stop()
+
 
 @pytest.mark.parametrize("row,value", [
     ("TPU_GATEWAY_REPLICAS", REPLICAS),
@@ -166,7 +242,11 @@ def _pd_role_reads_alike(value, model):
 ])
 @pytest.mark.parametrize("model", [None, "tiny"])
 def test_the_port_refuses_each_row_it_reads_nowhere_by_name(row, value,
-                                                            model):
+                                                            model,
+                                                            monkeypatch):
+    if row in OBS_ROWS:
+        _obs_row_reads_alike(row, value, model, monkeypatch)
+        return
     if row.startswith("TPU_GATEWAY_"):
         _gateway_row_reads_alike(row, value, model)
         return
@@ -182,13 +262,15 @@ def test_the_port_refuses_each_row_it_reads_nowhere_by_name(row, value,
 
 @pytest.mark.parametrize("value", ["0", "false", "OFF", "no", "disabled"])
 def test_a_falsey_timeline_row_builds_on_both(value):
-    """A falsey ``TPU_TIMELINE`` turns JAX's timeline off, which the port
-    has none of: the port's App builds, with a model and without."""
+    """A falsey ``TPU_TIMELINE`` turns the timeline off on both packages'
+    Apps: the ring reports its state, and the port's engine holds no
+    timeline (one attribute test a hot-path site)."""
     rows = dict(BASE, TPU_TIMELINE=value)
     japp = gofr_tpu.App(JMapConfig(rows))
     papp = gofr_tpu_torch.App(MapConfig(rows), device="cpu")
     try:
         assert not japp.container.observe.timeline.enabled
+        assert not papp.container.observe.timeline.enabled
         assert papp.container.tpu is None
     finally:
         japp.stop()
@@ -197,6 +279,8 @@ def test_a_falsey_timeline_row_builds_on_both(value):
                       "TPU_SLOTS": "2"})
     try:
         assert papp.container.tpu is not None
+        assert papp.container.tpu.generator._tl is None
+        assert papp.container.tpu._tl is None
     finally:
         papp.stop()
 
@@ -207,10 +291,12 @@ def test_the_multihost_rows_name_the_coordinator_timeout():
 
     assert "TPU_COORDINATOR_TIMEOUT_S" in MULTIHOST_ROWS
     assert set(MULTIHOST_ROWS) <= set(UNPORTED_ROWS)
+    assert unported_rows(MapConfig({"TPU_COORDINATOR_TIMEOUT_S": "1"})) \
+        == ["TPU_COORDINATOR_TIMEOUT_S"]
+    # the observability rows are read, as JAX reads them
     for row in ("TPU_TIMELINE", "TPU_OBS_CLOCK_WINDOW",
-                "TPU_OBS_FLEET_TIMEOUT_S", "DEBUG_EVENT_BUFFER",
-                "TPU_COORDINATOR_TIMEOUT_S"):
-        assert unported_rows(MapConfig({row: "1"})) == [row]
+                "TPU_OBS_FLEET_TIMEOUT_S", "DEBUG_EVENT_BUFFER"):
+        assert unported_rows(MapConfig({row: "1"})) == []
     assert unported_rows(MapConfig({"TPU_TIMELINE": "off"})) == []
     for row in ("DB_HOST", "DB_DIALECT", "REMOTE_LOG_URL"):
         assert unported_rows(MapConfig({row: "x"})) == []
