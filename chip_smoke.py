@@ -4735,7 +4735,7 @@ def adapter_npz(cfg, rank: int, seed: int) -> bytes:
 
     rng = np.random.default_rng(seed)
     arrays = {}
-    for name, (din, dout) in llama._lora_dims(cfg).items():
+    for name, (din, dout) in llama.lora_dims(cfg).items():
         L = cfg.n_layers
         arrays[f"{name}.a"] = (rng.standard_normal((L, din, rank), np.float32)
                                * din ** -0.5).astype(np.float16)
@@ -5524,7 +5524,7 @@ def phase_tenancy(card: str) -> dict:
                     * din ** -0.5).astype(np.float16),
                    (arng.standard_normal((layers, rank, dout), np.float32)
                     * LORA_B_SCALE).astype(np.float16))
-            for name, (din, dout) in llama._lora_dims(cfg).items()})
+            for name, (din, dout) in llama.lora_dims(cfg).items()})
     lane = install_async_lane(app)
     app.run(block=False)
     torch.cuda.synchronize()
@@ -7373,6 +7373,639 @@ def phase_tp(card: str) -> dict:
     return counts
 
 
+# -- phase tp_tiers: the prefix tiers, the paged index and LoRA under tp ------
+
+TP_TIERS_ROWS = dict(TP_ROWS, TPU_SHARDING="tp=2", HTTP_PORT="0",
+                     METRICS_PORT="0", LOG_LEVEL="WARN",
+                     APP_NAME="chip-smoke-tp-tiers", TPU_PREFIX_CACHE="2",
+                     TPU_PREFIX_MIN="1072", TPU_KVCACHE_HOST_MB="1024",
+                     TPU_KVCACHE_REDIS="true",
+                     TPU_KVCACHE_REDIS_TIMEOUT_S="10",
+                     TPU_LORA_ADAPTERS="2")
+# the reference: the same rows on one rank
+TP_TIERS_REF_ROWS = {k: v for k, v in TP_TIERS_ROWS.items()
+                     if k != "TPU_SHARDING"}
+TP_TIERS_PAGED_ROWS = dict(TP_ROWS, TPU_SHARDING="tp=2",
+                           TPU_PAGED_BLOCK="128", TPU_PAGED_BLOCKS="65",
+                           TPU_PREFIX_CACHE="4")
+TP_TIERS_SEED = 89
+TP_TIERS_SYSTEMS = 3            # system prompts of 1024 tokens
+TP_TIERS_SYSTEM_LEN = 1024
+TP_TIERS_TURN1 = (48, 200)      # first turns: stored (past TPU_PREFIX_MIN)
+TP_TIERS_TURN2 = (16, 32)       # follow-ups: not stored
+TP_TIERS_NEW = 8
+TP_TIERS_ADAPTER_LENS = (17, 300)   # adapter-1 prompts: bucket admissions
+TP_TIERS_ADAPTERS = 2               # adapter-1 streams
+TP_TIERS_PAGED_TAILS = (17, 60)     # tails after the paged system prompt
+TP_TIERS_COPY_REPS = 5
+# BASELINE config #5 (examples/tpu-sharded-70b/configs/.env) with
+# TPU_MODEL=llama3-8b; the ports are the App's own (0: any free one)
+CONFIG5_ENV = os.path.join("examples", "tpu-sharded-70b", "configs", ".env")
+CONFIG5_LENS = (600, 300, 64)   # the third request repeats the first
+CONFIG5_NEW = 8
+# the tp=8 run's depth, the one cut of the phase: at 32 layers the part
+# took 189 s on the card (the App ready in 111 s, TPU_WARMUP's 20 score
+# dispatches included, a decode step 2.1 s: eight ranks' eager gloo sums
+# on one card), a third of the script's limit
+CONFIG5_LAYERS = 8
+
+
+def config5_rows() -> dict:
+    """BASELINE config #5's rows read from the example's .env, with
+    TPU_MODEL=llama3-8b (Llama-3-70B does not fit one card) and the
+    App's ports 0."""
+    rows = {}
+    with open(os.path.join(ROOT, CONFIG5_ENV)) as f:
+        for line in f:
+            line = line.strip()
+            if line and not line.startswith("#") and "=" in line:
+                k, v = line.split("=", 1)
+                rows[k.strip()] = v.strip()
+    require(rows.get("TPU_SHARDING") == "tp=8"
+            and rows.get("TPU_PREFIX_CACHE") == "4",
+            f"{CONFIG5_ENV} is not config #5: {rows}")
+    rows.update(TPU_MODEL="llama3-8b", HTTP_PORT="0", METRICS_PORT="0",
+                LOG_LEVEL="WARN")
+    if CONFIG5_LAYERS is not None:
+        from gofr_tpu_torch.models.common import LLAMA_CONFIGS
+
+        name = f"llama3-8b-{CONFIG5_LAYERS}l"
+        LLAMA_CONFIGS[name] = LLAMA_CONFIGS["llama3-8b"].with_(
+            n_layers=CONFIG5_LAYERS)
+        rows["TPU_MODEL"] = name
+    return rows
+
+
+def adapter_tree(cfg, rank: int, seed: int) -> dict:
+    """A LoRA adapter as ``load_adapter`` takes it (float32 numpy): per
+    target A [L, in, r] ~ N(0, 1/in), B [L, r, out] ~ N(0, LORA_B_SCALE^2),
+    so its greedy tokens part from the base model's."""
+    import numpy as np
+
+    from gofr_tpu_torch.models import llama
+
+    rng = np.random.default_rng(seed)
+    L = cfg.n_layers
+    return {name: ((rng.standard_normal((L, din, rank), np.float32)
+                    * din ** -0.5).astype(np.float32),
+                   (rng.standard_normal((L, rank, dout), np.float32)
+                    * LORA_B_SCALE).astype(np.float32))
+            for name, (din, dout) in llama.lora_dims(cfg).items()}
+
+
+def _rank_launches(probe) -> list:
+    """Each rank's kernel counters from a ``tp_probe``."""
+    from gofr_tpu_torch.tpu.generator import _COUNTERS
+
+    names = [f"{mod.__name__.rsplit('.', 1)[1]}.{name}"
+             for mod, name in _COUNTERS]
+    return [dict(zip(names, (int(x) for x in row[-len(_COUNTERS):])))
+            for row in probe]
+
+
+def _record_first_logits():
+    """Wrap the admission's sampler (a TP rank dispatches eagerly, so
+    the module function runs at each admission) to keep (prompt length,
+    rank 0's summed logits) of each first token; returns (the list, the
+    undo)."""
+    from gofr_tpu_torch.tpu import generator as pgen_mod
+
+    kept = []
+    first_token = pgen_mod._first_token
+
+    def recording(logits, inp, draw):
+        kept.append((int(inp.length.item()),
+                     logits[0].float().cpu().numpy()))
+        return first_token(logits, inp, draw)
+
+    pgen_mod._first_token = recording
+
+    def undo():
+        pgen_mod._first_token = first_token
+
+    return kept, undo
+
+
+def _tie_gaps(prompts, firsts, ref_firsts, own_logits):
+    """For each stream whose first token differs from tp=1's: (index,
+    how far tp=1's token lies below the winner in the logits the TP
+    engine's admission sampled from). tp=1's side is not read: its
+    admissions are graph replays, and ``score`` takes no prompt past the
+    largest bucket."""
+    import numpy as np
+
+    out = []
+    for i, (p, t, r) in enumerate(zip(prompts, firsts, ref_firsts)):
+        if t == r:
+            continue
+        own = [lg for n, lg in own_logits
+               if n == len(p) and int(np.argmax(lg)) == t]
+        require(own, f"no admission of length {len(p)} sampled first "
+                f"token {t}")
+        out.append((i, float(own[-1].max() - own[-1][r])))
+    return out
+
+
+def _check_ties(what: str, ties) -> None:
+    require(all(gap <= TP_TIE_ATOL for _, gap in ties),
+            f"{what}: a first token differs from tp=1's past a near tie "
+            f"(TP_TIE_ATOL {TP_TIE_ATOL}): {ties}")
+
+
+def phase_tp_tiers(card: str) -> dict:
+    """The prefix tiers, the paged prefix index and LoRA under tensor
+    parallelism, and BASELINE config #5's rows, on the one card.
+    Llama-3-8B at full width and depth (seed-0 weights, int8 KV):
+
+    1. the reference, built first and freed: the tp=1 engine of the tp=2
+       App's rows: three 1024-token system prompts with their first
+       turns (misses, stored), follow-ups (two T0 hits, one T1 hit), a
+       follow-up that a second engine restores from T2, the paged
+       engine's prompts, adapter-1 streams after ``load_adapter``;
+    2. a ``gofr_tpu_torch.App`` with TPU_SHARDING=tp=2 over those rows
+       (T0 of 2 rows, T1 of 1024 MiB, T2 on a FakeRedisServer, 2 LoRA
+       adapters) serving the same requests over POST /generate: the
+       tiers None x 3, t0, t0, t1 as tp=1's; then a second tp=2 engine
+       on the same Redis: t2. Every first token equals tp=1's or differs
+       only at a near tie (tp=1's token within TP_TIE_ATOL of the winner
+       in the logits the TP admission sampled from); K1 and K2 the same
+       count on
+       both ranks; bytes and times of the T1 gathers (a row's shards to
+       rank 0) and the T2 write-through (frames a shard), a pool copy's
+       time as a command (its host broadcast and every rank's copy) and
+       rank 0's device copy alone, TTFT by tier; the adapter-1 streams
+       differ from tp=1's base-model streams of their prompts;
+    3. a paged tp=2 engine with TPU_PREFIX_CACHE=4: a 1024-token system
+       prompt stored, then hit twice ("paged"), K3 on both ranks;
+    4. config #5's rows (TPU_MODEL=llama3-8b): tp=8 (4 query heads and
+       1 KV head a rank), int8 weights and KV, 16 slots,
+       TPU_PREFIX_CACHE=4, TPU_SPEC_DECODE=4, TPU_WARMUP=true: an App
+       serving 3 requests and a repeat of the first (a T0 hit), K1 and
+       K2 on all 8 ranks, the same counts on each; its ready time and
+       step.
+
+    Returns the launch counts summed over the ranks of every TP run."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.models.common import LLAMA_CONFIGS
+    from gofr_tpu_torch.serving import install_generate
+    from gofr_tpu_torch.testutil.redisfake import FakeRedisServer
+    from gofr_tpu_torch.tpu import new_engine_from_config
+    from gofr_tpu_torch.tpu.kvcache import dense_hostkv
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    cfg = LLAMA_CONFIGS[TP_ROWS["TPU_MODEL"]]
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(TP_TIERS_SEED)
+    systems = [rng.integers(0, vocab, TP_TIERS_SYSTEM_LEN).tolist()
+               for _ in range(TP_TIERS_SYSTEMS)]
+
+    def turn(lo, hi):
+        return rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).tolist()
+
+    round1 = [s + turn(*TP_TIERS_TURN1) for s in systems]
+    # T0 holds systems 1 and 2 after round 1 (0 spilled to T1); system
+    # 0's follow-up promotes it and spills system 1
+    round2 = [systems[i] + turn(*TP_TIERS_TURN2) for i in (1, 2, 0)]
+    t2_prompt = systems[1] + turn(*TP_TIERS_TURN2)
+    adapter_prompts = [rng.integers(0, vocab, n).tolist() for n in
+                       rng.integers(TP_TIERS_ADAPTER_LENS[0],
+                                    TP_TIERS_ADAPTER_LENS[1] + 1,
+                                    TP_TIERS_ADAPTERS)]
+    paged_system = rng.integers(0, vocab, TP_TIERS_SYSTEM_LEN).tolist()
+    paged_prompts = [paged_system + turn(*TP_TIERS_PAGED_TAILS)
+                     for _ in range(3)]
+    adapter = adapter_tree(cfg, 16, TP_TIERS_SEED)
+    base_prompts = round1 + round2 + [t2_prompt] + paged_prompts
+    want_tiers = [None, None, None, "t0", "t0", "t1"]
+    redis = FakeRedisServer()
+    where = dict(REDIS_HOST=redis.host, REDIS_PORT=str(redis.port))
+    counts = {"flash_prefill": 0, "flash_decode": 0, "paged_decode": 0}
+
+    def ttft(s):
+        return 1e3 * (s.trace["first_put"] - s.trace["submit"])
+
+    try:
+        # 1. tp=1
+        t0 = time.monotonic()
+        ref = new_engine_from_config(MapConfig(dict(TP_TIERS_REF_ROWS,
+                                                    **where)), device="cuda")
+        ready1 = time.monotonic() - t0
+        rgen = ref.generator
+        try:
+            ref1 = [rgen.generate(p, max_new_tokens=TP_TIERS_NEW)
+                    for p in base_prompts]
+            ref1 = [(s.tokens(), s.cache_tier) for s in ref1]
+            # the adapter prompts on the base model: what adapter-1
+            # streams that never reached a rank would stream
+            ref_base = [rgen.generate(p, max_new_tokens=TP_TIERS_NEW)
+                        .tokens() for p in adapter_prompts]
+            rgen.load_adapter(1, adapter)
+            ref_ad = [rgen.generate(p, max_new_tokens=TP_TIERS_NEW,
+                                    adapter=1).tokens()
+                      for p in adapter_prompts]
+        finally:
+            ref.close()
+        release_graphs(rgen)
+        del ref, rgen
+        gc.collect()
+        torch.cuda.empty_cache()
+        require([t for _, t in ref1[:6]] == want_tiers,
+                f"tp=1 tiers {[t for _, t in ref1]}")
+        require(all(a != b for a, b in zip(ref_ad, ref_base)),
+                "at tp=1 adapter 1 does not move an adapter prompt's "
+                "stream off the base model's")
+        print(f"[tp_tiers] tp=1 reference ready in {ready1:.1f} s: tiers "
+              f"{[t for _, t in ref1]}; card: {card}", flush=True)
+
+        # 2. the tp=2 App
+        rows2 = dict(TP_TIERS_ROWS, **where)
+        t0 = time.monotonic()
+        app = App(MapConfig(rows2))
+        tpu = app.container.tpu
+        gen = tpu.generator
+        install_generate(app)
+        app.run(block=False)
+        ready2 = time.monotonic() - t0
+        require(gen.mesh is not None and gen._kvc is not None
+                and gen._kvc.redis is not None
+                and gen._kvc.redis.shards == 2,
+                f"the tp=2 tiers engine: {gen.kvcache_stats()}")
+        streams, gathers, writes = [], [], []
+        generate = tpu.generate
+
+        def tracked(prompt, *args, **kw):
+            s = generate(prompt, *args, **kw)
+            streams.append(s)
+            return s
+
+        tpu.generate = tracked
+        row_get = gen._kv_row_get
+
+        def timed_get(store, row, plen, start=0):
+            t = time.perf_counter()
+            kv = row_get(store, row, plen, start)
+            gathers.append(("pool" if store is gen._pool else "cache",
+                            kv.nbytes, 1e3 * (time.perf_counter() - t)))
+            return kv
+
+        gen._kv_row_get = timed_get
+        store_shared = gen._kvc.store_shared
+
+        def timed_write(key, adapter_id, kv):
+            b0 = gen._kvc.redis.bytes_put
+            t = time.perf_counter()
+            n = store_shared(key, adapter_id, kv)
+            writes.append((n, gen._kvc.redis.bytes_put - b0,
+                           1e3 * (time.perf_counter() - t)))
+            return n
+
+        gen._kvc.store_shared = timed_write
+        own, undo = _record_first_logits()
+        try:
+            _reset_launches()
+            gen.tp_zero_counts()
+            adm0, steps0 = gen.admissions, gen.decode_steps
+            got = []
+            for p in round1 + round2:
+                r = http_call(app.http_port, "POST", "/generate",
+                              {"tokens": p, "max_new": TP_TIERS_NEW})
+                require(r["status"] == 200, f"tp=2 tiers: {r['status']}")
+                got.append([ln["token"] for ln in r["lines"]])
+            gen.load_adapter(1, adapter)
+            for p in adapter_prompts:
+                r = http_call(app.http_port, "POST", "/generate",
+                              {"tokens": p, "max_new": TP_TIERS_NEW,
+                               "adapter": 1})
+                require(r["status"] == 200, f"tp=2 adapter: {r['status']}")
+                got.append([ln["token"] for ln in r["lines"]])
+            probe = gen.tp_probe()
+            admissions = gen.admissions - adm0
+            steps = gen.decode_steps - steps0
+            step2 = gen.stats()["decode_step_ms_mean"]
+            kvstats = gen.kvcache_stats()
+            gen._kv_row_get = row_get
+            # a pool copy, the engine idle: the command (its broadcast
+            # on the host, then every rank copies its own heads, no byte
+            # crossing ranks) between CUDA events, then rank 0's copies
+            # of its heads alone, the engine's plane copies without the
+            # command (the same bytes again: every rank's rows unchanged)
+            def timed(copy):
+                out = []
+                for _ in range(TP_TIERS_COPY_REPS):
+                    torch.cuda.synchronize()
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    copy()
+                    e1.record()
+                    e1.synchronize()
+                    out.append(e0.elapsed_time(e1))
+                return out
+
+            def rank0_copy():
+                with torch.no_grad():
+                    for dst, src in zip(gen._planes(gen.cache),
+                                        gen._planes(gen._pool)):
+                        dst[:, 0, :TP_TIERS_SYSTEM_LEN].copy_(
+                            src[:, 0, :TP_TIERS_SYSTEM_LEN])
+
+            with gen._device_lock:
+                cmd_ms = timed(lambda: gen._pool_copy(
+                    gen.cache, 0, gen._pool, 0, TP_TIERS_SYSTEM_LEN))
+                copy_ms = timed(rank0_copy)
+                pooled = dense_hostkv(gen._kv_row_get(gen._pool, 0,
+                                                      TP_TIERS_SYSTEM_LEN))
+                copied = dense_hostkv(gen._kv_row_get(gen.cache, 0,
+                                                      TP_TIERS_SYSTEM_LEN))
+        finally:
+            undo()
+            app.stop()
+        require(all(p.poll() is not None for p in gen._tp.procs),
+                "a tp=2 tiers worker outlived the App's stop")
+        require(all(torch.equal(a, b) for a, b in zip(pooled, copied)),
+                "a pool copy did not land a rank's heads")
+        tiers2 = [s.cache_tier for s in streams[:6]]
+        per_rank = _rank_launches(probe)
+        require(per_rank[0] == per_rank[1],
+                f"the tp=2 ranks launched different kernels: {per_rank}")
+        B = gen.n_slots
+        require((probe[:, :5 * B + 1] == probe[0, :5 * B + 1]).all(),
+                "a worker's carry, cursors or pool differ from rank 0's")
+        k1 = per_rank[0]["flash.launches"]
+        k2 = per_rank[0]["flash_decode.launches"]
+        require(k1 == LAYERS * TP_TIERS_ADAPTERS and k2 == LAYERS * steps
+                and k1 > 0 and k2 > 0,
+                f"tp=2 launches {per_rank[0]} for {TP_TIERS_ADAPTERS} bucket "
+                f"admissions and {steps} decode steps")
+        require(per_rank[0]["flash.plain_calls"] == 0
+                and per_rank[0]["flash_decode.plain_calls"] == 0,
+                f"plain versions ran on a tp=2 rank: {per_rank}")
+        counts["flash_prefill"] += 2 * k1
+        counts["flash_decode"] += 2 * k2
+        by_tier: dict = {}
+        for s in streams[:6]:
+            by_tier.setdefault(s.cache_tier or "miss", []).append(ttft(s))
+        spill = [g for g in gathers if g[0] == "pool"]
+        wt = [g for g in gathers if g[0] == "cache"]
+        print(f"[tp_tiers] tp=2 App ready in {ready2:.1f} s; tiers {tiers2} "
+              f"(tp=1 {[t for _, t in ref1[:6]]}); TTFT at the engine by "
+              f"tier: { {k: stats_line(v) for k, v in by_tier.items()} }; "
+              f"T1 gathers (a pool row's 2 shards to rank 0): "
+              f"{[(b, round(ms, 2)) for _, b, ms in spill]} (bytes, ms); "
+              f"write-through gathers {[(b, round(ms, 2)) for _, b, ms in wt]}"
+              f"; T2 write-through (blocks, frame bytes, ms) "
+              f"{[(n, b, round(ms, 2)) for n, b, ms in writes]}; a 1024-"
+              f"position pool copy, the command with its host broadcast: "
+              f"{[round(x, 4) for x in cmd_ms]} ms, rank 0's device copy "
+              f"of its heads: {[round(x, 4) for x in copy_ms]} ms; "
+              f"{admissions} admissions, {steps} decode steps, step "
+              f"{step2:.2f} ms; launches a rank {per_rank[0]}; prefix cache "
+              f"{ {k: kvstats[k] for k in ('entries', 'hits', 'misses')} }; "
+              f"card: {card}", flush=True)
+        require(tiers2 == want_tiers, f"tp=2 tiers {tiers2}")
+        require(bool(spill) and bool(writes),
+                "no T1 gather or T2 write-through ran")
+        firsts = [g[0] for g in got]
+        ref_firsts = ([t[0] for t, _ in ref1[:6]]
+                      + [t[0] for t in ref_ad])
+        ties = _tie_gaps(round1 + round2 + adapter_prompts, firsts,
+                         ref_firsts, own)
+        parts = [_first_difference(a, b) for a, b in
+                 zip(got, [t for t, _ in ref1[:6]] + ref_ad)]
+        off_base = [_first_difference(a, b)
+                    for a, b in zip(got[6:], ref_base)]
+        print(f"[tp_tiers] tp=2 first tokens {firsts} (tp=1 {ref_firsts}); "
+              f"ties {ties} (limit {TP_TIE_ATOL}); first index where each "
+              f"stream parts from tp=1's {parts}; first index where the "
+              f"tp=2 adapter-1 streams part from tp=1's base-model streams "
+              f"of their prompts {off_base} (tp=1's adapter-1 streams "
+              f"{[_first_difference(a, b) for a, b in zip(ref_ad, ref_base)]}"
+              f")", flush=True)
+        _check_ties("tp=2 tiers", ties)
+        require(all(d is not None for d in off_base),
+                "a tp=2 adapter-1 stream is the base model's: the adapter "
+                "did not reach every rank")
+        del app, tpu, gen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the second tp=2 engine on the same Redis: a T2 hit
+        t0 = time.monotonic()
+        eng = new_engine_from_config(MapConfig(rows2), device="cuda")
+        gen = eng.generator
+        own, undo = _record_first_logits()
+        try:
+            gen.tp_zero_counts()
+            _reset_launches()
+            s = gen.generate(t2_prompt, max_new_tokens=TP_TIERS_NEW)
+            t2_tokens = s.tokens()
+            probe = gen.tp_probe()
+            t2_steps = gen.decode_steps
+            fetched = gen._kvc.redis.stats()
+        finally:
+            undo()
+            eng.close()
+        per_rank = _rank_launches(probe)
+        require(per_rank[0] == per_rank[1],
+                f"the second engine's ranks differ: {per_rank}")
+        counts["flash_decode"] += 2 * per_rank[0]["flash_decode.launches"]
+        ties = _tie_gaps([t2_prompt], [t2_tokens[0]], [ref1[6][0][0]], own)
+        print(f"[tp_tiers] a second tp=2 engine on the same Redis (built and "
+              f"served in {time.monotonic() - t0:.1f} s): tier "
+              f"{s.cache_tier}, {s.cache_tokens} positions, TTFT "
+              f"{ttft(s):.1f} ms, T2 {fetched['blocks_got']} blocks / "
+              f"{fetched['bytes_got']} bytes fetched in "
+              f"{fetched['shards']} frames a block; first token "
+              f"{t2_tokens[0]} (tp=1 {ref1[6][0][0]}, tier "
+              f"{ref1[6][1]}), ties {ties}; {t2_steps} decode steps; "
+              f"card: {card}", flush=True)
+        require(s.cache_tier == "t2"
+                and s.cache_tokens >= TP_TIERS_SYSTEM_LEN - 16,
+                f"the second engine's tier {s.cache_tier} "
+                f"({s.cache_tokens})")
+        _check_ties("the T2 hit", ties)
+        del eng, gen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. the paged tp=2 engine with the prefix index
+        t0 = time.monotonic()
+        eng = new_engine_from_config(MapConfig(TP_TIERS_PAGED_ROWS),
+                                     device="cuda")
+        gen = eng.generator
+        own, undo = _record_first_logits()
+        try:
+            gen.tp_zero_counts()
+            _reset_launches()
+            steps0 = gen.decode_steps
+            pstreams = []
+            for p in paged_prompts:
+                s = gen.generate(p, max_new_tokens=TP_TIERS_NEW)
+                pstreams.append((s.tokens(), s.cache_tier, s.cache_tokens))
+            probe = gen.tp_probe()
+            psteps = gen.decode_steps - steps0
+            pstats = gen.stats()["prefix_cache"]
+        finally:
+            undo()
+            eng.close()
+        per_rank = _rank_launches(probe)
+        require(per_rank[0] == per_rank[1],
+                f"the paged ranks differ: {per_rank}")
+        k3 = per_rank[0]["paged_attention.launches"]
+        counts["paged_decode"] += 2 * k3
+        counts["flash_prefill"] += 2 * per_rank[0]["flash.launches"]
+        ref_paged = [t[0] for t, _ in ref1[7:]]
+        ties = _tie_gaps(paged_prompts, [t[0] for t, _, _ in pstreams],
+                         ref_paged, own)
+        print(f"[tp_tiers] paged tp=2 + TPU_PREFIX_CACHE=4 (built and served "
+              f"in {time.monotonic() - t0:.1f} s): tiers "
+              f"{[(t, m) for _, t, m in pstreams]}, index {pstats}, "
+              f"{psteps} decode steps, launches a rank {per_rank[0]}; first "
+              f"tokens {[t[0] for t, _, _ in pstreams]} (tp=1 {ref_paged}), "
+              f"ties {ties}; card: {card}", flush=True)
+        require([t for _, t, _ in pstreams] == [None, "paged", "paged"],
+                f"paged tiers {[t for _, t, _ in pstreams]}")
+        require(k3 == LAYERS * psteps and k3 > 0
+                and per_rank[0]["paged_attention.plain_calls"] == 0,
+                f"paged launches {per_rank[0]} for {psteps} decode steps")
+        _check_ties("paged tp=2", ties)
+        del eng, gen
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        redis.close()
+    k5, summary5 = tp_tiers_config5(card, rng)
+    for name, n in k5.items():
+        counts[name] += n
+    print(json.dumps({"tp_tiers": {
+        "ready_s": {"tp1": ready1, "tp2_app": ready2,
+                    "tp8_app": summary5["ready_s"]},
+        "tiers_tp2": tiers2, "pool_copy_command_ms": cmd_ms,
+        "pool_copy_rank0_device_ms": copy_ms, "step_ms_tp2": step2,
+        "step_ms_tp8": summary5["step_ms"],
+        "phase_s": time.monotonic() - t_phase, "card": card}}), flush=True)
+    return counts
+
+
+def tp_tiers_config5(card: str, rng) -> tuple:
+    """Phase tp_tiers' part 4: BASELINE config #5's rows at tp=8 with
+    TPU_MODEL=llama3-8b (``config5_rows``) as an App: 3 requests and a
+    repeat of the first (a T0 hit), K1 and K2 on all 8 ranks, the same
+    counts on each. Returns (the launches summed over the ranks, its
+    ready time and step)."""
+    import gc
+
+    import torch
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.models.common import LLAMA_CONFIGS
+    from gofr_tpu_torch.serving import install_generate
+
+    def ttft(s):
+        return 1e3 * (s.trace["first_put"] - s.trace["submit"])
+
+    rows5 = config5_rows()
+    vocab = LLAMA_CONFIGS[rows5["TPU_MODEL"]].vocab_size
+    layers5 = CONFIG5_LAYERS or LAYERS
+    prompts5 = [rng.integers(0, vocab, n).tolist() for n in CONFIG5_LENS]
+    prompts5.append(list(prompts5[0]))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    app = App(MapConfig(rows5))
+    tpu = app.container.tpu
+    gen = tpu.generator
+    install_generate(app)
+    app.run(block=False)
+    ready8 = time.monotonic() - t0
+    mesh = gen.stats()["mesh"]
+    streams5 = []
+    generate = tpu.generate
+
+    def tracked5(prompt, *args, **kw):
+        s = generate(prompt, *args, **kw)
+        streams5.append(s)
+        return s
+
+    tpu.generate = tracked5
+    own, undo = _record_first_logits()
+    try:
+        _reset_launches()
+        gen.tp_zero_counts()
+        adm0, steps0, passes0 = (gen.admissions, gen.decode_steps,
+                                 gen.verify_passes)
+        t_burst = time.monotonic()
+        got5 = []
+        for p in prompts5:
+            r = http_call(app.http_port, "POST", "/generate",
+                          {"tokens": p, "max_new": CONFIG5_NEW})
+            require(r["status"] == 200, f"config #5: {r['status']}")
+            got5.append([ln["token"] for ln in r["lines"]])
+        wall5 = time.monotonic() - t_burst
+        probe = gen.tp_probe()
+        st5 = gen.stats()
+        steps5 = gen.decode_steps - steps0
+        passes5 = gen.verify_passes - passes0
+        admissions5 = gen.admissions - adm0
+        health = tpu.health_check()
+    finally:
+        undo()
+        app.stop()
+    require(all(p.poll() is not None for p in gen._tp.procs),
+            "a tp=8 worker outlived the App's stop")
+    per_rank = _rank_launches(probe)
+    require(len(per_rank) == 8 and all(r == per_rank[0] for r in per_rank),
+            f"the tp=8 ranks launched different kernels: {per_rank}")
+    B = gen.n_slots
+    require((probe[:, :5 * B + 1] == probe[0, :5 * B + 1]).all(),
+            "a tp=8 worker's carry, cursors or pool differ from rank 0's")
+    k1 = per_rank[0]["flash.launches"]
+    k2 = per_rank[0]["flash_decode.launches"]
+    tiers5 = [s.cache_tier for s in streams5]
+    # the repeat's own admission logits (its final chunk samples last)
+    ties5 = [float(lg.max() - lg[got5[0][0]]) for n, lg in own
+             if n == len(prompts5[3])][-1:]
+    print(f"[tp_tiers] config #5's rows with TPU_MODEL=llama3-8b "
+          f"({layers5} layers): tp=8 App ready in {ready8:.1f} s (ranks "
+          f"{mesh['ranks']}, device group {mesh['backend']}, KV shards "
+          f"{mesh['kv_shards']}), health {health.status}; "
+          f"{len(prompts5)} requests in {wall5:.1f} s, tiers {tiers5}, "
+          f"TTFT {[round(ttft(s), 1) for s in streams5]} ms, decode step "
+          f"{st5['decode_step_ms_mean']} ms, {admissions5} admissions, "
+          f"{steps5} decode steps, {passes5} verify passes; launches a rank "
+          f"{per_rank[0]}; the repeat's first token {got5[3][0]} against "
+          f"the first serving's {got5[0][0]} (that token below the winner "
+          f"in the repeat's own logits: {ties5}); prefix cache "
+          f"{ {k: st5['prefix_cache'][k] for k in ('entries', 'hits')} }; "
+          f"peak allocated by rank 0 "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"card: {card}", flush=True)
+    require(health.status == "UP", f"tp=8 health {health.status}")
+    require(tiers5[3] == "t0", f"the repeat's tier {tiers5}")
+    require(k1 > 0 and k2 > 0 and k2 == layers5 * steps5
+            and per_rank[0]["flash.plain_calls"] == 0
+            and per_rank[0]["flash_decode.plain_calls"] == 0,
+            f"tp=8 launches {per_rank[0]} for {steps5} decode steps")
+    require(got5[3][0] == got5[0][0]
+            or (ties5 and min(ties5) <= TP_TIE_ATOL),
+            f"the repeat's first token {got5[3][0]} against "
+            f"{got5[0][0]}: {ties5}")
+    step5 = st5["decode_step_ms_mean"]
+    del app, tpu, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"flash_prefill": 8 * k1, "flash_decode": 8 * k2},
+            {"ready_s": ready8, "step_ms": step5})
+
+
 # -- phase cmd: the CLI App (new_cmd), migrations and SQL ----------------------
 
 CMD_ROWS = dict(MAIN_ROWS, LOG_LEVEL="INFO")
@@ -8150,8 +8783,8 @@ RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
                 "durable", "slo", "app", "predict", "grpc", "tiers", "lora",
-                "pubsub", "tenancy", "gateway", "pd", "tp", "cmd",
-                "observe")) -> dict:
+                "pubsub", "tenancy", "gateway", "pd", "tp", "tp_tiers",
+                "cmd", "observe")) -> dict:
     import torch
 
     card = card_line()
@@ -8208,11 +8841,12 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
         elif phase in ("grpc", "tiers", "lora", "tenancy", "gateway", "pd",
-                       "tp", "cmd", "observe"):
+                       "tp", "tp_tiers", "cmd", "observe"):
             counts = {"grpc": phase_grpc, "tiers": phase_tiers,
                       "lora": phase_lora, "tenancy": phase_tenancy,
                       "gateway": phase_gateway, "pd": phase_pd,
-                      "tp": phase_tp, "cmd": phase_cmd,
+                      "tp": phase_tp, "tp_tiers": phase_tp_tiers,
+                      "cmd": phase_cmd,
                       "observe": phase_observe}[phase](card)
             # K1's, K2's (and K3's) counts: the earlier phases' plus this
             # run's

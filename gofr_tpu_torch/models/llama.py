@@ -141,7 +141,8 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda",
 LORA_TARGETS = ("wq", "wk", "wv", "wo")
 
 
-def _lora_dims(cfg: ModelConfig) -> dict[str, tuple[int, int]]:
+def lora_dims(cfg: ModelConfig) -> dict[str, tuple[int, int]]:
+    """Each LoRA target's (in, out) dimensions."""
     D, H, KV, hd = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {"wq": (D, H * hd), "wk": (D, KV * hd), "wv": (D, KV * hd),
             "wo": (H * hd, D)}
@@ -149,7 +150,7 @@ def _lora_dims(cfg: ModelConfig) -> dict[str, tuple[int, int]]:
 
 def lora_nbytes(cfg: ModelConfig, n_adapters: int, rank: int) -> int:
     """Bytes of ``init_lora``'s stacks, from their shapes."""
-    n = sum(din + dout for din, dout in _lora_dims(cfg).values())
+    n = sum(din + dout for din, dout in lora_dims(cfg).values())
     return cfg.n_layers * n_adapters * rank * n * cfg.tdtype.itemsize
 
 
@@ -164,7 +165,7 @@ def init_lora(cfg: ModelConfig, n_adapters: int, rank: int,
     device = generator.device
     out = {}
     for name in LORA_TARGETS:
-        din, dout = _lora_dims(cfg)[name]
+        din, dout = lora_dims(cfg)[name]
         a = torch.randn((cfg.n_layers, n_adapters, din, rank),
                         generator=generator, device=device)
         out[f"lora_a_{name}"] = (a * din ** -0.5).to(cfg.tdtype)
@@ -227,11 +228,17 @@ def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend,
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
     attn = attend(q, k, v).reshape(B, S, H * hd)
-    # (x + base) + delta, the JAX package's order
-    x = x + _reduce(cfg, qmatmul(attn, w["wo"]))
+    base = qmatmul(attn, w["wo"])
     delta = _lora(attn, w, "wo", adapter)
-    if delta is not None:
-        x = x + delta
+    if getattr(cfg, "comm", None) is not None:
+        # a row-parallel wo: the rank's delta (its rows of A) is a
+        # partial sum too, so it joins the base's before the one sum
+        x = x + _reduce(cfg, base if delta is None else base + delta)
+    else:
+        # (x + base) + delta, the JAX package's order
+        x = x + base
+        if delta is not None:
+            x = x + delta
     h = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
     gated = F.silu(qmatmul(h, w["w_gate"])) * qmatmul(h, w["w_up"])
     return x + _reduce(cfg, qmatmul(gated, w["w_down"])), (k, v)

@@ -23,12 +23,28 @@ class QuantizedLinear(NamedTuple):
     scale: torch.Tensor
 
 
-def quantize_int8(w: torch.Tensor, axis: int = 0) -> QuantizedLinear:
-    """Quantize a weight per output channel (reduce over ``axis``)."""
-    wf = w.float()
-    absmax = torch.amax(torch.abs(wf), dim=axis, keepdim=True)
+def quantize_int8(w: torch.Tensor, axis: int = 0,
+                  whole: torch.Tensor | None = None) -> QuantizedLinear:
+    """Quantize a weight per output channel (reduce over ``axis``). A
+    stacked [L, ...] weight reduced within each layer is quantized one
+    layer at a time, so its float32 scratch never exceeds one layer (the
+    same values: no reduction crosses layers). ``whole``: the weight
+    ``w`` was cut from along ``axis`` (a tensor-parallel rank's rows):
+    the scales are the whole weight's, so the codes are the rows of the
+    whole weight's codes."""
+    if w.ndim >= 3 and axis % w.ndim != 0:
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scales = []
+        for i in range(w.shape[0]):
+            layer = quantize_int8(w[i], axis % w.ndim - 1,
+                                  None if whole is None else whole[i])
+            q[i] = layer.w
+            scales.append(layer.scale)
+        return QuantizedLinear(w=q, scale=torch.stack(scales))
+    src = w if whole is None else whole
+    absmax = torch.amax(torch.abs(src.float()), dim=axis, keepdim=True)
     scale = torch.clamp(absmax / 127.0, min=1e-8)
-    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    q = torch.clamp(torch.round(w.float() / scale), -127, 127).to(torch.int8)
     return QuantizedLinear(w=q, scale=scale.squeeze(axis).float())
 
 

@@ -16,7 +16,10 @@ runtime. PyTorch has no partitioner, so the port runs SPMD ranks:
     hosted by rank 0 on port 0: the kernel picks a free port, so two
     groups on one host never collide.
   - Two process groups (``TPComm``): a CPU gloo group carries rank 0's
-    commands and the small gathers (readiness, probes); a device group
+    commands, the small gathers (readiness, probes) and the host rows
+    that cross ranks point to point (a cache row's shards gathered to
+    rank 0 for the prefix tiers, each rank's heads of a row to upload,
+    each rank's slice of a LoRA adapter); a device group
     carries the activations' sums. The device group is NCCL when every
     rank has a card of its own and gloo when ranks share one (or run on
     the CPU): the choice follows from the device map alone and health
@@ -177,6 +180,30 @@ class TPComm:
                         else datetime.timedelta(seconds=timeout_s))
         self._run("gather", lambda: self._cmd.allreduce([t], opts).wait())
         return t.numpy()
+
+    def send_tensors(self, tensors, dst: int) -> None:
+        """Send CPU tensors to rank ``dst`` over the command group as one
+        byte buffer; the receiver knows their shapes and dtypes from the
+        command both ranks follow (``recv_tensors``)."""
+        buf = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                         for t in tensors])
+        self._run("send", lambda: self._cmd.send([buf], dst, 0)
+                  .wait(self.timeout))
+
+    def recv_tensors(self, specs, src: int) -> list[torch.Tensor]:
+        """What ``send_tensors`` sent from rank ``src``: ``specs`` the
+        [(shape, dtype)] of its tensors, in order."""
+        sizes = [int(np.prod(shape, dtype=np.int64))
+                 * torch.empty((), dtype=dt).element_size()
+                 for shape, dt in specs]
+        buf = torch.empty((sum(sizes),), dtype=torch.uint8)
+        self._run("recv", lambda: self._cmd.recv([buf], src, 0)
+                  .wait(self.timeout))
+        out, off = [], 0
+        for (shape, dt), n in zip(specs, sizes):
+            out.append(buf[off:off + n].clone().view(dt).reshape(shape))
+            off += n
+        return out
 
     def close(self) -> None:
         for pg in (self._dev, self._cmd):

@@ -16,6 +16,10 @@ and the model code sums the ranks' partial results itself
                              its slice of a zeroed [.., V] and the ranks
                              sum it)
   norms                     replicated
+  LoRA stacks               B of wq/wk/wv split like its projection's
+                             output columns, their A replicated; A of wo
+                             split like wo's input rows, its B replicated
+                             (the delta joins wo's partial sum)
 
 An int8 ``QuantizedLinear`` is sliced like its weight; its per-output
 scale is split with a column split and kept whole with a row split (the
@@ -76,6 +80,41 @@ def kv_head_shards(tp: int, n_kv_heads: int) -> int:
     return tp if n_kv_heads % tp == 0 else n_kv_heads
 
 
+def kv_frame_shards(tp: int, n_kv_heads: int) -> int:
+    """The KV-head shards a row's host snapshot and its T2 frames are
+    cut in: the JAX package's ``kv_head_shards`` (tp when tp divides the
+    KV heads, else 1: a replicated head axis is one dense shard), so a
+    port engine and a JAX mesh engine of one tp share frames. The T2
+    namespace carries it (``:tp{n}`` when n > 1)."""
+    return tp if tp > 1 and n_kv_heads % tp == 0 else 1
+
+
+def kv_head_range(cfg: ModelConfig, tp: int, rank: int) -> tuple[int, int]:
+    """The KV heads [lo, hi) of the whole model that rank ``rank``'s
+    caches hold: KV/tp heads a rank, or the one head the rank's query
+    heads read where heads are replicated."""
+    KV = cfg.n_kv_heads
+    if tp <= 1:
+        return 0, KV
+    if KV % tp == 0:
+        n = KV // tp
+        return rank * n, (rank + 1) * n
+    head = rank // (tp // KV)
+    return head, head + 1
+
+
+def kv_head_owners(cfg: ModelConfig, tp: int) -> list[int]:
+    """One rank a distinct KV-head range, in head order: the ranks whose
+    cache rows make up a whole row (the first of each replica group)."""
+    seen, out = set(), []
+    for r in range(max(tp, 1)):
+        span = kv_head_range(cfg, tp, r)
+        if span not in seen:
+            seen.add(span)
+            out.append(r)
+    return out
+
+
 def vocab_range(cfg: ModelConfig, tp: int, rank: int) -> tuple[int, int]:
     """The vocabulary ids [lo, hi) of rank ``rank``'s embedding rows and
     LM-head columns: an even split, or the whole vocabulary when tp does
@@ -106,11 +145,18 @@ def rank_config(cfg: ModelConfig, tp: int, rank: int,
                       vocab_lo=lo, vocab_hi=hi, comm=comm)
 
 
+# LoRA stack -> (the projection whose split it follows, column split)
+_LORA = {"lora_b_wq": ("wq", True), "lora_b_wk": ("wk", True),
+         "lora_b_wv": ("wv", True), "lora_a_wo": ("wo", False)}
+
+
 def _span(name: str, cfg: ModelConfig, rank: int, tp: int
           ) -> tuple[int, int] | None:
     """[lo, hi) of the split dim of leaf ``name`` on rank ``rank``, or
     None for a replicated leaf."""
     hd = cfg.dim // cfg.n_heads
+    if name in _LORA:
+        return _span(_LORA[name][0], cfg, rank, tp)
     if name in ("wq", "wo"):
         n = cfg.n_heads // tp * hd
         return rank * n, (rank + 1) * n
@@ -155,7 +201,8 @@ def shard_leaf(name: str, leaf, cfg: ModelConfig, rank: int, tp: int):
     lo, hi = span
     if name == "embedding":
         return _take(leaf, 0, lo, hi)
-    column = name in _COLUMN or name == "lm_head"
+    column = (name in _COLUMN or name == "lm_head"
+              or _LORA.get(name, ("", False))[1])
     if _is_quantized(leaf):
         w = _take(leaf.w, leaf.w.ndim - (1 if column else 2), lo, hi)
         scale = (_take(leaf.scale, leaf.scale.ndim - 1, lo, hi) if column
@@ -167,19 +214,14 @@ def shard_leaf(name: str, leaf, cfg: ModelConfig, rank: int, tp: int):
 def shard_params(params: dict, cfg: ModelConfig, rank: int, tp: int
                  ) -> dict:
     """Rank ``rank``'s shard of a full Llama parameter tree (the layout
-    of models.llama.init). LoRA stacks are refused: LoRA under tp is
-    ROADMAP item 11b."""
+    of models.llama.init, LoRA stacks (models.llama.init_lora) among the
+    layers' leaves or not)."""
     if tp <= 1:
         return params
     check_tp(cfg, tp)
     out = {}
     for k, v in params.items():
         if k == "layers":
-            if any(n.startswith("lora_") for n in v):
-                raise ShardingConfigError(
-                    f"tp={tp}: LoRA adapter stacks are not served under "
-                    "TPU_SHARDING yet (ROADMAP item 11b)",
-                    sharding_row=f"tp={tp}")
             out[k] = {n: shard_leaf(n, leaf, cfg, rank, tp)
                       for n, leaf in v.items()}
         else:

@@ -43,7 +43,7 @@ def _build(spec: dict, comm: TPComm) -> GenerationEngine:
     source = spec["weights"] if spec["shard"] is None else spec["shard"]
     params = rank_params(cfg, source, rank, tp, comm.device)
     return GenerationEngine(rank_config(cfg, tp, rank, comm), params,
-                            tp_comm=comm, device=comm.device,
+                            tp_comm=comm, tp_model=cfg, device=comm.device,
                             **spec["engine"])
 
 

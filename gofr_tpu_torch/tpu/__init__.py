@@ -140,10 +140,13 @@ Rows read:
                     ranks (parallel/): this process is rank 0 and starts
                     N - 1 worker processes, each holding its head shard
                     of the weights and caches (rank r on cuda:{r %
-                    device_count}, or the CPU). Any other axis above 1,
-                    a tp the model's head counts do not take, an encoder
-                    model, LoRA, the prefix caches and the P/D roles
-                    raise ShardingConfigError naming the row. A TP
+                    device_count}, or the CPU), LoRA stacks and T0
+                    pool included; rank 0 keeps the prefix index, T1
+                    and T2 (frames per KV-head shard, as the JAX mesh
+                    engine's). Any other axis above 1, a tp the model's
+                    head counts do not take, an encoder model and the
+                    P/D roles raise ShardingConfigError naming the
+                    row. A TP
                     engine runs its dispatches eagerly (no CUDA
                     graphs); a rank that dies, or a collective past 60
                     s, fails the live streams and takes it down
@@ -191,9 +194,6 @@ __all__ = ["BatcherClosed", "ClassPolicy", "CoalescingBatcher",
 # rows of the JAX package that name features outside this slice: the
 # multi-host ranks (the App's Container refuses them as well)
 UNPORTED_ROWS = MULTIHOST_ROWS
-# what TPU_SHARDING does not serve yet, each beside it (ROADMAP 11b)
-_TP_REFUSED = ("TPU_LORA_ADAPTERS", "TPU_PREFIX_CACHE", "TPU_KVCACHE_REDIS",
-               "TPU_KVCACHE_HOST_MB")
 
 # TPU_MODEL aliases, as the JAX package reads them
 BERT_ALIASES = {"bert": "bert-base", "bert-tiny": "tiny"}
@@ -247,17 +247,16 @@ def _check_rows(cfg) -> None:
                 "engine's budget is TPU_HBM_BUDGET_MB")
         return None
     row = plan.row()
-    beside = [r for r in _TP_REFUSED
-              if (cfg.get(r) or "").strip() not in ("", "0", "false")]
     if role in ("prefill", "decode"):
-        # as the JAX package refuses a mesh P/D worker: shipped KV is
-        # dense single-device rows, which no shard installs yet
-        beside.append(f"TPU_SERVING_ROLE={role}")
-    if beside:
+        # as the JAX package refuses a mesh P/D worker (its role x
+        # engine-kind matrix): shipped KV is dense single-device rows,
+        # which no shard ships or installs
         raise ShardingConfigError(
-            f"TPU_SHARDING={row!r} cannot run with {', '.join(beside)} "
-            "yet (ROADMAP item 11b): unset those rows or TPU_SHARDING",
-            sharding_row=row)
+            f"TPU_SERVING_ROLE={role} cannot run with TPU_SHARDING="
+            f"{row!r}: the KV-ship wire format is dense single-device "
+            "rows (the role x engine-kind matrix). Unset TPU_SHARDING on "
+            f"the {role} pool, or drop TPU_SERVING_ROLE to serve this "
+            "mesh fused", sharding_row=row)
     return plan
 
 

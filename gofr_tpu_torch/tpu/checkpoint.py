@@ -11,10 +11,11 @@ tree, the same leaves as the JAX package's ``maybe_quantize``.
 
 Tensor parallelism (parallel/): ``rank_params`` builds one rank's shard
 (parallel.sharding.shard_leaf) from a ``WeightSource``: a seeded init or
-a ``.npz`` sliced leaf by leaf as each leaf is made or read (quantized
-first, so a row split keeps the whole model's per-channel scales), so no
-rank ever holds the whole model -- its peak is its shard plus the
-largest single leaf -- or a shard rank 0 already sliced.
+a ``.npz`` sliced leaf by leaf as each leaf is made or read (with int8,
+the rank's part quantized on the whole leaf's per-channel scales, so a
+row split keeps them and no whole leaf is quantized), so no rank ever
+holds the whole model -- its peak is its shard plus the largest single
+leaf -- or a shard rank 0 already sliced.
 """
 
 from __future__ import annotations
@@ -114,10 +115,15 @@ def load_npz(path: str, device="cuda",
         return from_jax_params(walk(tree), device=device)
 
 
-def _quantize_leaf(name: str, node):
+def _quantize_leaf(name: str, node, whole=None):
+    """``node`` int8-quantized when it is a projection leaf; ``whole``:
+    the leaf it was sliced from (a rank's shard), whose scales a slice
+    of the contraction axis keeps."""
     if (name in _QUANT_LEAVES and isinstance(node, torch.Tensor)
             and node.ndim in (2, 3, 4)):
-        return quantize_int8(node, axis=node.ndim - 2)
+        axis = node.ndim - 2
+        cut = whole is not None and whole.shape[axis] != node.shape[axis]
+        return quantize_int8(node, axis=axis, whole=whole if cut else None)
     return node
 
 
@@ -165,11 +171,15 @@ def rank_params(cfg, source, rank: int, tp: int, device) -> dict:
         return from_jax_params(source.tree, device=device)
 
     def leaf(name, full):
+        # sliced first, then quantized with the whole leaf's scales: the
+        # rank's part of the whole leaf's codes, without the whole leaf's
+        # float32 scratch (the ranks that share a card build together)
+        if source.quant and isinstance(full, np.ndarray):
+            full = to_tensor(full, device)
+        part = shard_leaf(name, full, cfg, rank, tp)
         if source.quant:
-            if isinstance(full, np.ndarray):
-                full = to_tensor(full, device)
-            full = _quantize_leaf(name, full)
-        return shard_leaf(name, full, cfg, rank, tp)
+            part = _quantize_leaf(name, part, whole=full)
+        return part
 
     if source.kind == "seed":
         return llama.init(cfg, source.seed, device=device, leaf=leaf)

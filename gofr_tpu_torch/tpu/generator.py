@@ -158,8 +158,9 @@ from ..models.common import ModelConfig
 from ..ops import flash, flash_decode, kernels, paged_attention
 from ..parallel.distributed import DEFAULT_TIMEOUT_S, TPRanks
 from ..parallel.mesh import MeshPlan
-from ..parallel.sharding import (check_tp, kv_head_shards, rank_config,
-                                 shard_params)
+from ..parallel.sharding import (check_tp, kv_frame_shards, kv_head_owners,
+                                 kv_head_range, kv_head_shards, rank_config,
+                                 shard_leaf, shard_params)
 from ..resilience import (SLO_LATENCY, SLO_THROUGHPUT, DecodePipelinePolicy,
                           current_deadline, current_slo_class)
 from ..tenancy.fair import WeightedFairLine
@@ -168,8 +169,8 @@ from ..wire import PushStream
 from . import hbm, prng
 from .checkpoint import WeightSource, rank_params, to_tensor
 from .kvcache import (CacheManager, HostKV, KVCacheOptions, KVLayout,
-                      clamp_restore_len, dense_hostkv, dtype_name,
-                      model_fingerprint)
+                      ShardedHostKV, clamp_restore_len, dense_hostkv,
+                      dtype_name, model_fingerprint)
 
 _REQ_IDS = itertools.count(1)
 
@@ -317,7 +318,8 @@ class _ClassPending:
 # the constructor arguments a worker rank's follower engine is built with
 _TP_KWARGS = ("slots", "max_seq", "seed", "kv_dtype", "decode_block",
               "prompt_buckets", "prefill_chunk", "spec_decode_k",
-              "paged_blocks", "paged_block_size")
+              "paged_blocks", "paged_block_size", "prefix_cache_slots",
+              "prefix_store_min", "lora_adapters", "lora_rank")
 
 
 class _RankLeases:
@@ -338,6 +340,15 @@ def _host_tree(tree):
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
     return t.numpy()
+
+
+def _kv_heads(kv: HostKV, lo: int, hi: int) -> HostKV:
+    """KV heads [lo, hi) of a host snapshot: a TP rank's share of a
+    row."""
+    def cut(t):
+        return None if t is None else t[:, :, lo:hi].contiguous()
+
+    return HostKV(cut(kv.k), cut(kv.v), cut(kv.k_scale), cut(kv.v_scale))
 
 
 # the kernel wrappers' counters: a graph replay runs no Python, so the
@@ -947,14 +958,26 @@ class GenerationEngine:
     collective's limit. A TP engine dispatches
     its blocks, admissions and verify passes eagerly on every backend
     (no CUDA graphs: gloo collectives cannot be captured), and refuses
-    LoRA, the prefix caches and the P/D halves (ROADMAP item 11b)."""
+    the P/D halves, as the JAX package refuses a mesh P/D worker.
+
+    Under TP every rank holds its head shard of the T0 pool and of the
+    LoRA stacks; rank 0 keeps the ``CacheManager`` (and its T1 and T2),
+    the paged ``SharedPrefixIndex`` and the tenancy ledger, and each
+    seam that touches a rank's rows is one command: a pool copy on every
+    rank, a row's shards gathered to rank 0 (a ``ShardedHostKV``: a
+    spill, a write-through), each rank's heads of a host row (a
+    promotion), a pool resize, an adapter's slices. ``tp_model``: a
+    follower's whole-model config (its ``cfg`` is its rank's)."""
 
     def __init__(self, cfg: ModelConfig, params, *, mesh=None,
-                 tp_comm=None, tp_timeout_s: float = DEFAULT_TIMEOUT_S, **kw):
+                 tp_comm=None, tp_timeout_s: float = DEFAULT_TIMEOUT_S,
+                 tp_model: ModelConfig | None = None, **kw):
         self._tp = None      # rank 0 of a TP group: its TPRanks
         self._comm = tp_comm  # every rank of a TP group: its TPComm
         self._tp_holders: list = []   # the worker ranks' lease owners
         self._score_ropes: dict = {}  # a worker's score rope tables
+        # the whole model's config under TP (a rank's cfg is its shard's)
+        self._full_cfg = tp_model
         self.mesh = None
         if mesh is not None and not isinstance(mesh, MeshPlan):
             raise ValueError(
@@ -999,6 +1022,10 @@ class GenerationEngine:
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
+        # a worker rank of a TP group: it follows rank 0's commands and
+        # keeps no index of its own (rank 0 keeps the prefix tiers' and
+        # the paged pool's)
+        self._follower = self._comm is not None and self._tp is None
         # the decode, admission and verify dispatches are CUDA graph
         # replays on the card; a TP rank dispatches them eagerly
         self._graphed = self.device.type == "cuda" and self._comm is None
@@ -1070,14 +1097,23 @@ class GenerationEngine:
                 def build_lora():
                     gen = torch.Generator(device=self.device)
                     gen.manual_seed(self._seed + 1)
-                    return llama.init_lora(cfg, self._n_adapters,
-                                           int(lora_rank), gen)
+                    if self._full_cfg is None:
+                        return llama.init_lora(cfg, self._n_adapters,
+                                               int(lora_rank), gen)
+                    # a TP rank draws the whole model's stacks from the
+                    # same seed and keeps its slices, so every rank's
+                    # share is the tp=1 engine's
+                    full = self._full_cfg
+                    stacks = llama.init_lora(full, self._n_adapters,
+                                             int(lora_rank), gen)
+                    return {k: shard_leaf(k, v, full, cfg.rank, cfg.tp)
+                            for k, v in stacks.items()}
 
                 stacks = hbm.alloc(
                     "lora", build_lora, owner=self, tag="stacks",
                     nbytes=llama.lora_nbytes(cfg, self._n_adapters,
                                              int(lora_rank)),
-                    priority=hbm.PRI_CACHE)
+                    priority=hbm.PRI_CACHE, **self._hbm_place)
                 self.params = {**params, "layers": {**params["layers"],
                                                     **stacks}}
             else:
@@ -1150,7 +1186,7 @@ class GenerationEngine:
         # on a stored prompt's full blocks; a hit takes them into the new
         # slot and the prefill resumes at the match point
         self._prefix_idx = None
-        if self._paged and prefix_cache_slots > 0:
+        if self._paged and prefix_cache_slots > 0 and not self._follower:
             self._prefix_idx = paged_llama.SharedPrefixIndex(
                 prefix_cache_slots, self._alloc, self._block_t)
             self._store_min = int(prefix_store_min
@@ -1169,19 +1205,33 @@ class GenerationEngine:
         self._kvc = None
         self._stage = None   # pinned staging of a promotion's upload
         if not self._paged and prefix_cache_slots > 0:
-            opts = kvcache or KVCacheOptions()
+            # under TP every rank holds its head shard of the pool; rank
+            # 0 indexes it for all of them
             self._pool = self._alloc_pool(prefix_cache_slots)
-            layout = KVLayout(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
-                              self._pool.quantized, self._pool.k.dtype,
-                              self.max_seq)
+        if self._pool is not None and not self._follower:
+            opts = kvcache or KVCacheOptions()
+            # the whole model's row layout: a T1/T2 payload is a whole
+            # row (TP: its KV-head shards, framed per shard)
+            full = self._full_cfg or cfg
+            shards = kv_frame_shards(self.mesh.tp if self.mesh else 1,
+                                     full.n_kv_heads)
+            layout = KVLayout(full.n_layers, full.n_kv_heads,
+                              full.head_dim, self._pool.quantized,
+                              self._pool.k.dtype, self.max_seq)
+            # the JAX mesh engine's namespace: the shard count joins the
+            # dtype. Under TP rank 0's part of every leaf starts where the
+            # whole leaf does and is at least 8 wide, so the values the
+            # fingerprint samples of its shard are the whole model's
+            mesh_extra = f":tp{shards}" if shards > 1 else ""
             self._kvc = CacheManager(
                 prefix_cache_slots, layout, block=opts.block,
                 host_bytes=opts.host_mb << 20, redis=opts.redis,
                 redis_ttl_s=opts.redis_ttl_s,
                 epoch_refresh_s=opts.epoch_refresh_s,
                 fingerprint=model_fingerprint(
-                    cfg, params, extra=dtype_name(layout.dtype)),
-                metrics=metrics, logger=logger)
+                    full, params,
+                    extra=dtype_name(layout.dtype) + mesh_extra),
+                metrics=metrics, logger=logger, shards=shards)
             self._store_min = int(prefix_store_min
                                   or self.prompt_buckets[-1])
         if self._kvc is None and kvcache is not None \
@@ -1429,7 +1479,8 @@ class GenerationEngine:
                                       or ingest is not None):
             raise GenerationError(
                 "the P/D halves (kv_sink, ingest) are not served under "
-                "TPU_SHARDING yet (ROADMAP item 11b)")
+                "TPU_SHARDING: shipped KV is dense single-device rows, as "
+                "in the JAX package, which refuses a mesh P/D worker")
         if kv_sink is not None and ingest is not None:
             raise GenerationError("kv_sink and ingest are exclusive (a "
                                   "request is prefill-only or decode-only, "
@@ -1709,7 +1760,9 @@ class GenerationEngine:
         very tensors) reads the new ones. The adapter's stored prefixes
         are dropped after the copy, from the paged index or from every
         tier (T2 by an epoch bump): their KV flowed through the old
-        wk/wv."""
+        wk/wv. Under TP the pairs are the whole adapter's: rank 0 checks
+        them, sends each rank its slices (B of wq/wk/wv by output
+        columns, A of wo by input rows) and every rank copies its own."""
         if not self._n_adapters:
             raise GenerationError("engine built without lora_adapters")
         if not 0 < idx < self._n_adapters:
@@ -1720,21 +1773,41 @@ class GenerationEngine:
         for name in tree:
             if f"lora_a_{name}" not in layers:
                 raise GenerationError(f"unknown LoRA target {name!r}")
-        copies = []
+        tp = self.mesh.tp if self.mesh is not None else 1
+        copies, sends = [], {r: [] for r in range(1, tp)}
         for name, (a, b) in tree.items():
             for key, val in ((f"lora_a_{name}", a), (f"lora_b_{name}", b)):
                 dst = layers[key][:, idx]
                 src = val if isinstance(val, torch.Tensor) \
                     else to_tensor(val, torch.device("cpu"))
-                if tuple(src.shape) != tuple(dst.shape):
+                want = tuple(dst.shape)
+                if tp > 1:
+                    # the whole adapter's shape; each rank gets its slice
+                    din, dout = llama.lora_dims(self._full_cfg)[name]
+                    r = int(layers[f"lora_a_{name}"].shape[-1])
+                    want = ((dst.shape[0], din, r) if key.startswith("lora_a")
+                            else (dst.shape[0], r, dout))
+                if tuple(src.shape) != want:
                     raise GenerationError(
                         f"{key}: adapter weights of shape "
-                        f"{tuple(src.shape)}, the slot holds "
-                        f"{tuple(dst.shape)}")
+                        f"{tuple(src.shape)}, the slot holds {want}")
+                src = src.to(dst.dtype)
+                if tp > 1:
+                    src = src.cpu()
+                    for rank in sends:
+                        sends[rank].append(
+                            shard_leaf(key, src, self._full_cfg, rank, tp))
+                    src = shard_leaf(key, src, self._full_cfg, 0, tp)
                 copies.append((dst, src))
-        with self._device_lock, torch.no_grad():
+        keys = [f"lora_{ab}_{name}" for name in tree for ab in "ab"]
+        with self._device_lock, self._dispatch("lora", idx, keys), \
+                torch.no_grad():
+            # under TP rank 0 sends each rank its slices; every rank
+            # copies its own in place
+            for rank, tensors in sends.items():
+                self._comm.send_tensors(tensors, rank)
             for dst, src in copies:
-                dst.copy_(src.to(dst.dtype))
+                dst.copy_(src)
             if self._prefix_idx is not None:
                 # invalidated under the device lock, after the copy: the
                 # loop matches and stores only under this lock, so no
@@ -1742,6 +1815,17 @@ class GenerationEngine:
                 self._prefix_idx.invalidate_adapter(idx)
             if self._kvc is not None:
                 self._kvc.invalidate_adapter(idx)
+
+    def _follow_lora(self, idx: int, keys: list) -> None:
+        """A worker's half of ``load_adapter``: its slices from rank 0,
+        copied into its stacks in place."""
+        layers = self.params["layers"]
+        dsts = [layers[k][:, idx] for k in keys]
+        srcs = self._comm.recv_tensors(
+            [(tuple(d.shape), d.dtype) for d in dsts], 0)
+        with self._device_lock:
+            for dst, src in zip(dsts, srcs):
+                dst.copy_(src)
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Graceful shutdown, phase 1 (the App's ``stop(grace_s=...)``):
@@ -1794,25 +1878,12 @@ class GenerationEngine:
     # -- tensor parallelism (parallel/) --------------------------------------
     def _tp_launch(self, cfg: ModelConfig, params, mesh: MeshPlan, kw: dict,
                    timeout_s: float):
-        """Rank 0: refuse what the slice does not serve under TP, start
-        the worker ranks (parallel.distributed.TPRanks), each building
-        its own shard, and build this rank's. Returns (rank 0's config,
-        rank 0's weights)."""
-        from ..errors import ShardingConfigError
-
+        """Rank 0: refuse a tp the model does not take, start the worker
+        ranks (parallel.distributed.TPRanks), each building its own
+        shard, and build this rank's. Returns (rank 0's config, rank 0's
+        weights)."""
         tp, row = mesh.tp, mesh.row()
         check_tp(cfg, tp, row)
-        refused = [what for what, on in (
-            ("LoRA (lora_adapters)", int(kw.get("lora_adapters", 0)) > 0),
-            ("the prefix caches (prefix_cache_slots)",
-             int(kw.get("prefix_cache_slots", 0)) > 0),
-            ("the kv-cache tiers (kvcache)", kw.get("kvcache") is not None))
-            if on]
-        if refused:
-            raise ShardingConfigError(
-                f"TPU_SHARDING={row!r}: {', '.join(refused)} not served "
-                "under tensor parallelism yet (ROADMAP item 11b)",
-                sharding_row=row)
         device = resolve_device(kw.get("device", "cuda"))
         if device.type == "cuda":
             # the per-rank shapes are refused before any rank starts, and
@@ -1837,8 +1908,9 @@ class GenerationEngine:
         self._comm = self._tp.comm
         self.mesh = mesh
         self._kv_shards = kv_head_shards(tp, cfg.n_kv_heads)
-        own = rank_params(cfg, params, 0, tp, device)
-        return rank_config(cfg, tp, 0, self._comm), own
+        self._full_cfg = cfg
+        return (rank_config(cfg, tp, 0, self._comm),
+                rank_params(cfg, params, 0, tp, device))
 
     def _tp_ready(self) -> None:
         """Rank 0: wait for every worker's shard, then record each
@@ -1925,6 +1997,28 @@ class GenerationEngine:
                 _add_counts([-c for c in _counts()])
             elif op == "time_all_reduce":
                 self._reduce_loop(*args)
+            elif op == "pool_copy":
+                dst, dst_row, src, src_row, n = args
+                self._pool_copy(self._rows(dst), dst_row, self._rows(src),
+                                src_row, n)
+            elif op == "row_get":
+                name, row, plen, start, owners = args
+                if self.cfg.rank in owners:
+                    self._comm.send_tensors(self._planes(self._local_row(
+                        self._rows(name), row, plen, start)), 0)
+            elif op == "row_put":
+                name, row, plen = args
+                target = self._rows(name)
+                planes = self._comm.recv_tensors(
+                    [((t.shape[0], plen, *t.shape[3:]), t.dtype)
+                     for t in self._planes(target)], 0)
+                self._land_row(self._host_kv(planes), row, target)
+            elif op == "pool_resize":
+                self._resize_pool(*args)
+            elif op == "pool_drop":
+                self._drop_pool()
+            elif op == "lora":
+                self._follow_lora(*args)
             else:
                 raise ValueError(f"unknown tensor-parallel command {op!r}")
 
@@ -1950,17 +2044,19 @@ class GenerationEngine:
                     rope_tables=ropes[rope_max], flash=True)
 
     def _probe_row(self) -> np.ndarray:
+        pool_rows = 0 if self._pool is None else int(self._pool.k.shape[1])
         return np.concatenate(
             [t.long().cpu().numpy() for t in self._carry]
-            + [self.cache.lengths.long().cpu().numpy(),
+            + [self.cache.lengths.long().cpu().numpy(), [pool_rows],
                np.asarray(_counts(), np.int64)])
 
     def tp_probe(self) -> np.ndarray:
-        """Rank 0: every rank's device state, a [tp, 5B + 8] int64 array:
+        """Rank 0: every rank's device state, a [tp, 5B + 9] int64 array:
         a row a rank, its carry (last token, active, budget, position,
-        B each), its cache cursors (B) and its kernel wrappers' counters
-        (``_COUNTERS``' order). The carries and cursors agree when the
-        ranks follow rank 0."""
+        B each), its cache cursors (B), its T0 pool's rows (0 without
+        one) and its kernel wrappers' counters (``_COUNTERS``' order).
+        The carries, cursors and pool rows agree when the ranks follow
+        rank 0."""
         with self._device_lock, self._dispatch("probe"):
             return self._comm.gather(self._probe_row())
 
@@ -2155,8 +2251,9 @@ class GenerationEngine:
             for t in self._device_tensors():
                 t.zero_()
         if self._pool is not None:
+            rows = int(self._pool.k.shape[1])
             self._pool = None
-            self._pool = self._alloc_pool(self._kvc.slots)
+            self._pool = self._alloc_pool(rows)
         if cuda:
             torch.cuda.synchronize(self.device)   # the probe
 
@@ -2853,7 +2950,7 @@ class GenerationEngine:
             nbytes=_cache_nbytes(self.cfg, slots, self.max_seq,
                                  self._kv_dtype, slots),
             owner=self, tag="pool", priority=hbm.PRI_CACHE,
-            reclaim=self._hbm_pool_reclaim)
+            reclaim=self._hbm_pool_reclaim, **self._hbm_place)
 
     @staticmethod
     def _planes(c: llama.KVCache) -> list[torch.Tensor]:
@@ -2866,10 +2963,25 @@ class GenerationEngine:
         load (the JAX engine's ``_copy_row``; positions past n are never
         read, so only the prefix moves). Strided copies queued on the
         serving stream, behind the admission's replays and ahead of the
-        slot's first decode block; the cursors are untouched."""
-        with torch.no_grad():
+        slot's first decode block; the cursors are untouched. Under TP
+        one command: every rank copies its own heads, no byte crosses
+        ranks."""
+        with self._dispatch("pool_copy", self._row_name(dst), dst_row,
+                            self._row_name(src), src_row, n), \
+                torch.no_grad():
             for d, s in zip(self._planes(dst), self._planes(src)):
                 d[:, dst_row, :n].copy_(s[:, src_row, :n])
+
+    def _rows(self, name: str) -> llama.KVCache:
+        """One of the row stores a TP command names."""
+        return {"pool": self._pool, "cache": self.cache,
+                "scratch": getattr(self, "_scratch", None)}[name]
+
+    def _row_name(self, store: llama.KVCache) -> str:
+        for name in ("pool", "cache", "scratch"):
+            if store is self._rows(name):
+                return name
+        raise ValueError("not one of this engine's row stores")
 
     def _kv_match(self, req: _Request, prompt: np.ndarray | None = None):
         """Request-memoized ``CacheManager.match``, keyed by the
@@ -2890,12 +3002,34 @@ class GenerationEngine:
         return mt
 
     def _kv_row_get(self, store: llama.KVCache, row: int, plen: int,
-                    start: int = 0) -> HostKV:
+                    start: int = 0) -> "HostKV | ShardedHostKV":
         """Positions [start, plen) of one pool or cache row as CPU
         tensors: the spill half of T1 offload, the read half of T2
         write-through and (``start`` > 0) a prefill worker's incremental
         KV ship. The copy waits for the stream (every block in flight
-        included)."""
+        included). Under TP one command: each rank that holds a distinct
+        KV-head range sends its part to rank 0, and the snapshot is a
+        ``ShardedHostKV`` of those parts in head order, or, where the
+        JAX package's layout frames one shard (replicated heads), their
+        dense assembly."""
+        if self._tp is None:
+            return self._local_row(store, row, plen, start)
+        tp, full = self.mesh.tp, self._full_cfg
+        owners = kv_head_owners(full, tp)
+        with self._dispatch("row_get", self._row_name(store), row, plen,
+                            start, owners):
+            own = self._local_row(store, row, plen, start)
+            specs = [(tuple(t.shape), t.dtype) for t in self._planes(own)]
+            parts = [own] + [self._host_kv(self._comm.recv_tensors(specs, r))
+                             for r in owners[1:]]
+        kv = ShardedHostKV(tuple(parts))
+        return kv if kv_frame_shards(tp, full.n_kv_heads) > 1 \
+            else kv.assemble()
+
+    def _local_row(self, store: llama.KVCache, row: int, plen: int,
+                   start: int = 0) -> HostKV:
+        """This rank's heads of positions [start, plen) of one row, as
+        CPU tensors."""
         quant = store.k_scale is not None
 
         def host(t):
@@ -2904,6 +3038,12 @@ class GenerationEngine:
         return HostKV(host(store.k), host(store.v),
                       host(store.k_scale) if quant else None,
                       host(store.v_scale) if quant else None)
+
+    @staticmethod
+    def _host_kv(planes: list) -> HostKV:
+        """A HostKV from its planes in ``_planes`` order."""
+        return HostKV(*planes) if len(planes) == 4 \
+            else HostKV(planes[0], planes[1], None, None)
 
     def _offload_victim(self, victim) -> None:
         """Spill a T0-evicted entry's pool row to the host tier. MUST
@@ -2920,14 +3060,30 @@ class GenerationEngine:
         """Land a host snapshot's positions [0, plen) in row ``row`` of
         ``target`` (the T0 pool by default; a P/D ingest's serving cache
         or scratch row), the JAX engine's ``_write_row_from_host``
-        without its zero-padded Smax-wide row. Values are copied into
+        without its zero-padded Smax-wide row. Under TP one command:
+        rank 0 sends each rank its KV heads of the row and every rank
+        lands its own."""
+        target = self._pool if target is None else target
+        if self._tp is None:
+            self._land_row(kv, row, target)
+            return
+        tp, full = self.mesh.tp, self._full_cfg
+        with self._dispatch("row_put", self._row_name(target), row,
+                            kv.plen):
+            for r in range(1, tp):
+                part = _kv_heads(kv, *kv_head_range(full, tp, r))
+                self._comm.send_tensors(self._planes(part), r)
+            self._land_row(_kv_heads(kv, *kv_head_range(full, tp, 0)),
+                           row, target)
+
+    def _land_row(self, kv: HostKV, row: int, target: llama.KVCache) -> None:
+        """``_upload_row`` on this rank's heads. Values are copied into
         the target's tensors in place, which the captured graphs bind.
         On the card each plane goes through a pinned staging buffer, as
         one contiguous [L, plen, ...] block, so the upload is an
         asynchronous copy on the serving stream, behind the blocks in
         flight; the staging is reused once the previous upload's event
         has passed."""
-        target = self._pool if target is None else target
         planes = list(zip(self._planes(target), self._planes(kv)))
         with torch.no_grad():
             if self.device.type != "cuda":
@@ -2954,12 +3110,12 @@ class GenerationEngine:
         this engine (shape or quantization drift: a miss, never an
         error)."""
         kv = dense_hostkv(mt.hostkv) if mt.hostkv is not None else None
-        pool = self._pool
+        pool, lay = self._pool, self._kvc.layout
         if (kv is None or kv.plen > self.max_seq or len(mt.key) < kv.plen
                 or (pool.quantized and kv.k_scale is None)
                 or kv.k.dtype != pool.k.dtype
-                or kv.k.shape[0] != pool.k.shape[0]
-                or kv.k.shape[2:] != pool.k.shape[3:]):
+                or kv.k.shape[0] != lay.layers
+                or tuple(kv.k.shape[2:]) != (lay.kv_heads, lay.head_dim)):
             return None
         row, victim = self._kvc.store(mt.key[:kv.plen], mt.adapter)
         self._offload_victim(victim)
@@ -3230,15 +3386,18 @@ class GenerationEngine:
         """Shrink the T0 pool toward the host tier: spill every live
         entry's row to T1 (when configured), drop enough rows to cover
         ``need`` bytes (always keeping one), and reallocate the pool at
-        the smaller size. Future hits promote back from T1/T2 exactly
-        like post-recovery rewarming: the cache gets slower, the process
-        survives. Runs under the device lock. Returns bytes freed."""
+        the smaller size (under TP on every rank, one command, each
+        worker's lease row re-settled here). Future hits promote back
+        from T1/T2 exactly like post-recovery rewarming: the cache gets
+        slower, the process survives. Runs under the device lock.
+        Returns bytes freed (every rank's)."""
         with self._device_lock:
             kvc, pool = self._kvc, self._pool
             if kvc is None or pool is None or kvc.slots <= 1:
                 return 0
             slots = kvc.slots
-            total = hbm.tree_nbytes(pool)
+            total = hbm.tree_nbytes(pool) * (self.mesh.tp if self.mesh
+                                             else 1)
             row_b = max(1, total // slots)
             drop = min(slots - 1, -(-max(int(need), 1) // row_b))
             new_slots = slots - drop
@@ -3246,15 +3405,7 @@ class GenerationEngine:
                 self._offload_victim(entry)
             kvc.shrink(new_slots)
             self._tenant_cache_sync()
-            # drop the old pool BEFORE allocating the smaller one:
-            # holding both would spike usage past the very budget this
-            # reclaim is trying to satisfy
-            self._pool = pool = None
-            try:
-                self._pool = hbm.account("kvcache-t0",
-                                         self._new_pool(new_slots),
-                                         owner=self, tag="pool")
-            except Exception:  # noqa: BLE001 — degrade, never crash
+            if not self._resize_pool(new_slots):
                 # even the SMALLER pool failed to allocate (this runs
                 # under memory pressure): disable the prefix tiers, so
                 # serving continues cache-less, and count the whole old
@@ -3274,16 +3425,48 @@ class GenerationEngine:
                     "freed_bytes": drop * row_b})
             return drop * row_b
 
+    def _resize_pool(self, slots: int) -> bool:
+        """Reallocate the T0 pool at ``slots`` rows; under TP on every
+        rank (one command), True only when every rank's did. The old
+        pool goes BEFORE the smaller one is allocated: holding both would
+        spike usage past the very budget a reclaim is trying to
+        satisfy."""
+        with self._dispatch("pool_resize", slots):
+            self._pool = None
+            try:
+                self._pool = hbm.account("kvcache-t0", self._new_pool(slots),
+                                         owner=self, tag="pool")
+                ok = True
+            except Exception:  # noqa: BLE001 — degrade, never crash
+                ok = False
+            if self._comm is not None:
+                ok = bool(self._comm.gather([int(ok)]).min())
+        if ok:
+            # rank 0's arbiter holds a row for each worker's shard (equal
+            # shards: rank 0's bytes)
+            for holder in self._tp_holders:
+                hbm.settle("kvcache-t0", hbm.tree_nbytes(self._pool),
+                           owner=holder, tag="pool")
+        return ok
+
     def _disable_prefix_tiers(self) -> None:
         """Last-resort degradation: drop the hierarchical prefix cache
-        (pool gone, manager detached, its Redis client closed) so every
-        cache path sees what it sees on an engine built without one:
-        requests keep serving, they just prefill fully."""
+        (pool gone on every rank, manager detached, its Redis client
+        closed) so every cache path sees what it sees on an engine built
+        without one: requests keep serving, they just prefill fully."""
         kvc, self._kvc = self._kvc, None
-        self._pool = None
-        self._stage = None
+        with self._dispatch("pool_drop"):
+            self._drop_pool()
+        for holder in self._tp_holders:
+            hbm.release("kvcache-t0", owner=holder)
         if kvc is not None and kvc.redis is not None:
             kvc.redis.client.close()
+
+    def _drop_pool(self) -> None:
+        self._pool = None
+        self._stage = None
+        if self._follower:
+            hbm.release("kvcache-t0", owner=self, tag="pool")
 
     def _hbm_paged_reclaim(self, need: int) -> int:
         """Release ONE cold shared-prefix entry's blocks back to the

@@ -225,6 +225,18 @@ class _Registry:
         self._push(subsystem)
         return tree
 
+    def settle(self, subsystem: str, nbytes: int, *, owner: Any = None,
+               tag: str = "") -> None:
+        """Set an existing row's bytes, keeping its class, callback and
+        place (SET semantics): a tensor-parallel worker's lease row
+        re-settled by rank 0 after that rank resized what it holds."""
+        key = (subsystem, id(owner) if owner is not None else 0, tag)
+        with self._locked():
+            if key not in self._entries:
+                return
+            self._entries[key] = int(nbytes)
+        self._push(subsystem)
+
     def _finalize(self, owner: Any) -> None:
         # safety net for owners that die WITHOUT close(): an __init__
         # that runs out of memory after its first account() must not
@@ -802,5 +814,6 @@ set_budget = _registry.set_budget
 set_device_budget = _registry.set_device_budget
 set_metrics = _registry.set_metrics
 set_timeline = _registry.set_timeline
+settle = _registry.settle
 snapshot = _registry.snapshot
 tenant_lease = _registry.tenant_lease

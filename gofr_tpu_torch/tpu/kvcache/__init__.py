@@ -35,7 +35,8 @@ import torch
 from .hbm import HBMTier
 from .host import HostTier
 from .manager import CacheManager, Match, clamp_restore_len
-from .quant import HostKV, KVLayout, decode_block, dense_hostkv, encode_block
+from .quant import (HostKV, KVLayout, ShardedHostKV, decode_block,
+                    dense_hostkv, encode_block)
 from .radix import (CHAIN_SALT, Entry, RadixIndex, chain_hashes,
                     first_block_hash)
 from .redis_tier import RedisTier
@@ -43,7 +44,8 @@ from .redis_tier import RedisTier
 __all__ = [
     "CacheManager", "Match", "clamp_restore_len",
     "HBMTier", "HostTier", "RedisTier",
-    "HostKV", "KVLayout", "dense_hostkv", "encode_block", "decode_block",
+    "HostKV", "KVLayout", "ShardedHostKV", "dense_hostkv", "encode_block",
+    "decode_block",
     "CHAIN_SALT", "Entry", "RadixIndex", "chain_hashes", "first_block_hash",
     "KVCacheOptions", "options_from_config", "model_fingerprint",
 ]

@@ -35,7 +35,7 @@ import numpy as np
 
 from .hbm import HBMTier
 from .host import HostTier
-from .quant import HostKV, KVLayout
+from .quant import HostKV, KVLayout, ShardedHostKV
 from .radix import Entry
 from .redis_tier import RedisTier
 
@@ -57,7 +57,7 @@ class Match:
 
     def __init__(self, tier: str, matched_len: int, adapter: int,
                  entry: Entry | None = None, row: int | None = None,
-                 hostkv: HostKV | None = None,
+                 hostkv: "HostKV | ShardedHostKV | None" = None,
                  key: np.ndarray | None = None, consulted=()):
         self.tier = tier
         self.entry = entry
@@ -73,16 +73,22 @@ class CacheManager:
     def __init__(self, slots: int, layout: KVLayout, *, block: int = 16,
                  host_bytes: int = 0, redis=None, redis_ttl_s: float = 300.0,
                  epoch_refresh_s: float = 5.0, fingerprint: str = "",
-                 metrics=None, logger=None):
+                 metrics=None, logger=None, shards: int = 1):
         self.block = max(1, int(block))
         self.layout = layout
+        # a tensor-parallel engine's KV-head shard count: T1 stores its
+        # per-shard snapshots verbatim, T2 frames each shard under a
+        # shard-suffixed key (the fingerprint carries the count)
+        self.shards = max(1, int(shards))
         self.t0 = HBMTier(slots, self.block)
         self.host = HostTier(host_bytes, self.block) if host_bytes > 0 \
             else None
         self.redis = RedisTier(redis, fingerprint, layout, self.block,
                                ttl_s=redis_ttl_s,
                                epoch_refresh_s=epoch_refresh_s,
-                               logger=logger) if redis is not None else None
+                               logger=logger,
+                               shards=self.shards) if redis is not None \
+            else None
         self.metrics = metrics
         self.logger = logger
         # bumped on any mutation that can change a match verdict: the
@@ -317,7 +323,8 @@ class CacheManager:
         self._gauges()
         return row, victim
 
-    def offload(self, victim: Entry, kv: HostKV) -> bool:
+    def offload(self, victim: Entry,
+                kv: "HostKV | ShardedHostKV") -> bool:
         """Spill an evicted T0 entry's row into the host tier."""
         if self.host is None:
             return False
@@ -331,7 +338,7 @@ class CacheManager:
         return ok
 
     def store_shared(self, key: np.ndarray, adapter: int,
-                     kv: HostKV) -> int:
+                     kv: "HostKV | ShardedHostKV") -> int:
         """Write-through the new prefix's full blocks to Redis."""
         if self.redis is None:
             return 0

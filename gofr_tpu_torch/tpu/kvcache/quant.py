@@ -18,8 +18,11 @@ engines quantize on write with the per-vector max-abs scheme and
 dequantize on read, rounding to the cache dtype to nearest even as the
 JAX package's ml_dtypes cast does.
 
-(The mesh engines' per-shard snapshot, ``ShardedHostKV``, comes with
-tensor-parallel serving: ROADMAP queue 1 item 11.)
+A tensor-parallel engine's snapshot of one row is a ``ShardedHostKV``:
+one ``HostKV`` a KV-head shard, in head order, each read off its own
+rank. The T2 tier frames each part through the unchanged codec with the
+per-shard head count; the write paths consume the assembled dense row
+(``dense_hostkv``).
 """
 
 from __future__ import annotations
@@ -78,10 +81,54 @@ class HostKV(NamedTuple):
             self.v_scale[:, start:stop] if self.v_scale is not None else None)
 
 
-def dense_hostkv(kv: HostKV) -> HostKV:
-    """The canonical dense snapshot the write paths consume (a mesh
-    engine's per-shard snapshot assembles here once item 11 lands)."""
-    return kv
+class ShardedHostKV(NamedTuple):
+    """A tensor-parallel engine's host snapshot of one cache row: one
+    :class:`HostKV` per KV-head shard, ordered by head offset (part i
+    holds heads [i*KV/n, (i+1)*KV/n)). The spill reads each part off its
+    own rank (no assembly on the spill path); the T2 tier frames each
+    part through the UNCHANGED int8 block codec with the per-shard head
+    count, which is why its namespace carries the shard count (a 4-shard
+    frame must never decode on a 2-shard reader). ``assemble()`` is the
+    restore side's canonical dense row, so a T1 snapshot serves any
+    shard layout."""
+
+    parts: tuple  # of HostKV, kv-head order
+
+    @property
+    def shards(self) -> int:
+        return len(self.parts)
+
+    @property
+    def plen(self) -> int:
+        return self.parts[0].plen if self.parts else 0
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.nbytes for p in self.parts)
+
+    def slice_tokens(self, start: int, stop: int) -> "ShardedHostKV":
+        return ShardedHostKV(tuple(p.slice_tokens(start, stop)
+                                   for p in self.parts))
+
+    def assemble(self) -> HostKV:
+        """The shards concatenated back into one cache-native dense
+        HostKV along the KV-head axis."""
+        if len(self.parts) == 1:
+            return self.parts[0]
+        k = torch.cat([p.k for p in self.parts], dim=2)
+        v = torch.cat([p.v for p in self.parts], dim=2)
+        if self.parts[0].k_scale is not None:
+            ks = torch.cat([p.k_scale for p in self.parts], dim=2)
+            vs = torch.cat([p.v_scale for p in self.parts], dim=2)
+        else:
+            ks = vs = None
+        return HostKV(k, v, ks, vs)
+
+
+def dense_hostkv(kv: "HostKV | ShardedHostKV") -> HostKV:
+    """The canonical dense view of either snapshot flavour: what the
+    promote and ingest write paths (and their shape checks) consume."""
+    return kv.assemble() if isinstance(kv, ShardedHostKV) else kv
 
 
 def _quantize(x: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:

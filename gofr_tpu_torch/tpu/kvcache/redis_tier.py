@@ -34,8 +34,14 @@ the adapter's epoch with INCRBY, renaming its namespace for every
 replica at once; that bump is the one fail-CLOSED path: if it cannot
 reach Redis, the adapter's shared reads and writes stay off
 (``_pending_bumps``) until a later bump succeeds, retried at its next
-consult. The per-shard frames of mesh engines with tensor-parallel
-serving come with meshes (ROADMAP queue 1 item 11).
+consult.
+
+A tensor-parallel engine (``shards`` > 1) frames each stored block once
+a KV-head shard, through the unchanged codec with the per-shard head
+count, under the block's key suffixed ``:s{i}``; its fingerprint carries
+the shard count, so replicas sharded differently never read each
+other's frames, and a block counts as present only when every shard's
+frame decodes.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ import time
 
 import numpy as np
 
-from .quant import HostKV, KVLayout, concat_blocks, decode_block, encode_block
+from .quant import (HostKV, KVLayout, ShardedHostKV, concat_blocks,
+                    decode_block, encode_block)
 from .radix import chain_hashes
 
 NAMESPACE = "gofr:kv"
@@ -63,10 +70,23 @@ class RedisTier:
     def __init__(self, client, fingerprint: str, layout: KVLayout,
                  block: int = 16, ttl_s: float = 300.0,
                  epoch_refresh_s: float = 5.0, logger=None,
-                 namespace: str = NAMESPACE):
+                 namespace: str = NAMESPACE, shards: int = 1):
         self.client = client
         self.fingerprint = fingerprint
         self.layout = layout
+        # the KV-head shards a block is framed in (tensor-parallel
+        # engines): each frame is the unchanged codec over the shard's
+        # heads, keyed ...:s{i}
+        self.shards = max(1, int(shards))
+        if self.shards > 1:
+            if layout.kv_heads % self.shards:
+                raise ValueError(
+                    f"kv_heads={layout.kv_heads} not divisible by "
+                    f"shards={self.shards}")
+            self._shard_layout = layout._replace(
+                kv_heads=layout.kv_heads // self.shards)
+        else:
+            self._shard_layout = layout
         self.block = int(block)
         self.ttl_s = float(ttl_s)
         self.epoch_refresh_s = float(epoch_refresh_s)
@@ -89,8 +109,10 @@ class RedisTier:
     def _epoch_key(self, adapter: int) -> str:
         return f"{self.ns}:{self.fingerprint}:ep:{adapter}"
 
-    def _block_key(self, adapter: int, epoch: int, h: bytes) -> str:
-        return f"{self.ns}:{self.fingerprint}:{adapter}:{epoch}:{h.hex()}"
+    def _block_key(self, adapter: int, epoch: int, h: bytes,
+                   shard: int = 0) -> str:
+        key = f"{self.ns}:{self.fingerprint}:{adapter}:{epoch}:{h.hex()}"
+        return f"{key}:s{shard}" if self.shards > 1 else key
 
     def _epoch(self, adapter: int) -> int:
         if adapter in self._pending_bumps:
@@ -139,37 +161,51 @@ class RedisTier:
 
     # -- tier API ------------------------------------------------------------
     def match(self, prompt: np.ndarray, adapter: int = 0
-              ) -> "tuple[int, HostKV | None]":
+              ) -> "tuple[int, HostKV | ShardedHostKV | None]":
         """(matched_tokens, kv): the longest run of consecutive valid
-        shared blocks from position 0; (0, None) on miss or error."""
+        shared blocks from position 0; (0, None) on miss or error. With
+        shards a block counts only when EVERY shard's frame decodes (a
+        half-present block would restore half a row's heads), and a hit
+        is a :class:`ShardedHostKV`."""
         nb = len(prompt) // self.block
         if nb == 0 or not self.available:
             return 0, None
+        S = self.shards
         try:
             ep = self._epoch(adapter)
             hashes = list(chain_hashes(prompt, self.block, adapter))
-            raw = self.client.mget(*[self._block_key(adapter, ep, h)
-                                     for h in hashes])
+            raw = self.client.mget(*[self._block_key(adapter, ep, h, s)
+                                     for h in hashes for s in range(S)])
             self._ok()
         except Exception as e:  # noqa: BLE001 — fail-open by contract
             self._fail("match", e)
             return 0, None
-        blocks: list[HostKV] = []
-        for d in raw:
-            kv = decode_block(d, self.layout) if d is not None else None
-            if kv is None or kv.plen != self.block:
+        per_shard: list[list[HostKV]] = [[] for _ in range(S)]
+        n_ok = 0
+        for i in range(len(hashes)):
+            row = raw[i * S:(i + 1) * S]
+            kvs = [decode_block(d, self._shard_layout) if d is not None
+                   else None for d in row]
+            if any(kv is None or kv.plen != self.block for kv in kvs):
                 # an integrity reject is a PRESENT frame that failed
                 # decode (or carries the wrong plen); a merely-absent
-                # block is routine TTL/eviction churn
-                if d is not None:
+                # frame is routine TTL/eviction churn
+                if any((kv is None and d is not None)
+                       or (kv is not None and kv.plen != self.block)
+                       for d, kv in zip(row, kvs)):
                     self.checksum_rejects += 1
                 break
-            blocks.append(kv)
-            self.bytes_got += len(d)
-        if not blocks:
+            for s, kv in enumerate(kvs):
+                per_shard[s].append(kv)
+            self.bytes_got += sum(len(d) for d in row)
+            n_ok += 1
+        if not n_ok:
             return 0, None
-        self.blocks_got += len(blocks)
-        return len(blocks) * self.block, concat_blocks(blocks)
+        self.blocks_got += n_ok
+        if S == 1:
+            return n_ok * self.block, concat_blocks(per_shard[0])
+        return n_ok * self.block, ShardedHostKV(
+            tuple(concat_blocks(bl) for bl in per_shard))
 
     def pending_put_len(self, key: np.ndarray, adapter: int = 0) -> int:
         """Token positions a put() for ``key`` would actually read: up
@@ -193,10 +229,21 @@ class RedisTier:
                 last = i + 1
         return last * self.block
 
-    def put(self, key: np.ndarray, adapter: int, kv: HostKV) -> int:
+    def put(self, key: np.ndarray, adapter: int,
+            kv: "HostKV | ShardedHostKV") -> int:
         """Write-through the FULL blocks of a newly stored prefix; the
         trailing partial block stays replica-local (it has no chain
-        hash). Returns blocks written. One pipeline, one round trip."""
+        hash). Returns blocks written. One pipeline, one round trip.
+        With shards ``kv`` is a :class:`ShardedHostKV` of as many parts
+        (one frame a part a block), and a block enters the write-once
+        set only when every shard's SET succeeded: a half-written block
+        stays retryable."""
+        S = self.shards
+        if S > 1:
+            if not isinstance(kv, ShardedHostKV) or kv.shards != S:
+                return 0   # another shard layout's snapshot: skip
+        elif isinstance(kv, ShardedHostKV):
+            kv = kv.assemble()
         nb = min(len(key), kv.plen) // self.block
         if nb == 0 or not self.available:
             return 0
@@ -211,11 +258,14 @@ class RedisTier:
                 seen = (adapter, ep, h)
                 if seen in self._written:
                     continue
-                frame = encode_block(kv.slice_tokens(i * self.block,
-                                                     (i + 1) * self.block))
-                pipe.command("SET", self._block_key(adapter, ep, h), frame,
-                             "PX", int(self.ttl_s * 1000))
-                wrote.append((seen, len(frame)))
+                sl = kv.slice_tokens(i * self.block, (i + 1) * self.block)
+                sizes = []
+                for s, part in enumerate(sl.parts if S > 1 else (sl,)):
+                    frame = encode_block(part)
+                    pipe.command("SET", self._block_key(adapter, ep, h, s),
+                                 frame, "PX", int(self.ttl_s * 1000))
+                    sizes.append(len(frame))
+                wrote.append((seen, sizes))
             if not wrote:
                 return 0
             replies = pipe.execute()
@@ -229,14 +279,20 @@ class RedisTier:
         # pending_put_len would report the block shared forever while
         # no replica can ever read it
         ok = 0
-        for (seen, size), reply in zip(wrote, replies):
-            if reply != "OK":
-                self._fail("put-reply", reply if isinstance(reply, Exception)
-                           else RuntimeError(repr(reply)))
-                continue
-            self._written.add(seen)
-            self.bytes_put += size
-            ok += 1
+        r = 0
+        for seen, sizes in wrote:
+            good = True
+            for reply in replies[r:r + len(sizes)]:
+                if reply != "OK":
+                    good = False
+                    self._fail("put-reply",
+                               reply if isinstance(reply, Exception)
+                               else RuntimeError(repr(reply)))
+            r += len(sizes)
+            if good:
+                self._written.add(seen)
+                self.bytes_put += sum(sizes)
+                ok += 1
         self.blocks_put += ok
         return ok
 
@@ -261,7 +317,7 @@ class RedisTier:
 
     def stats(self) -> dict:
         return {"blocks_put": self.blocks_put, "blocks_got": self.blocks_got,
-                "shards": 1,
+                "shards": self.shards,
                 "bytes_put": self.bytes_put, "bytes_got": self.bytes_got,
                 "errors": self.errors,
                 "checksum_rejects": self.checksum_rejects,

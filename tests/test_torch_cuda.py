@@ -1919,6 +1919,100 @@ def test_a_tp2_engine_on_the_card_serves_tp1_s_first_tokens(gen, paged):
     assert all(p.poll() is not None for p in eng._tp.procs)
 
 
+def test_tp2_prefix_tiers_on_the_card_land_each_rank_s_heads(gen):
+    """SMALL at tp=2 on one card with a one-row T0 over a host tier: a
+    stored prompt pushed to T1 by a second one, then a T0 hit and a T1
+    hit, from the same tiers as tp=1; each first token is tp=1's, or,
+    where the two bf16 factorizations part at a near tie, tp=1's token
+    lies within 0.0625 of the winner in the logits the tp=2 admission
+    sampled from (on seed 0 one prompt's top two tie exactly at tp=2,
+    tiers or not). Every rank launches its kernels and its carry agrees.
+    A host row uploaded to the pool and copied into a free slot's row
+    reads back, gathered from both ranks, as the bytes uploaded: each
+    rank landed its own heads."""
+    from gofr_tpu_torch.parallel import MeshPlan
+    from gofr_tpu_torch.tpu import GenerationEngine
+    from gofr_tpu_torch.tpu import generator as pgen
+    from gofr_tpu_torch.tpu.generator import _COUNTERS
+    from gofr_tpu_torch.tpu.kvcache import (HostKV, KVCacheOptions,
+                                            dense_hostkv)
+
+    params = llama.init(SMALL, 0, device="cuda")
+    rng = np.random.default_rng(13)
+    systems = [rng.integers(1, SMALL.vocab_size, 64).tolist()
+               for _ in range(2)]
+    # the tiers' prompts run the lattice; the last, a bucket admission,
+    # launches K1
+    script = [systems[0] + [5, 6], systems[1] + [7, 8],
+              systems[1] + [9, 10, 11], systems[0] + [12, 13, 14],
+              rng.integers(1, SMALL.vocab_size, 20).tolist()]
+    args = dict(slots=4, max_seq=256, kv_dtype=torch.int8, decode_block=4,
+                prompt_buckets=(16, 32), prefix_cache_slots=1,
+                prefix_store_min=64, device="cuda")
+
+    def run(eng):
+        out = []
+        for p in script:
+            s = eng.generate(p, max_new_tokens=8)
+            out.append((s.tokens(), s.cache_tier, s.cache_tokens))
+        return out
+
+    ref = GenerationEngine(SMALL, params, kvcache=KVCacheOptions(host_mb=64),
+                           **args)
+    try:
+        want = run(ref)
+    finally:
+        ref.close()
+    eng = GenerationEngine(SMALL, params, mesh=MeshPlan(tp=2),
+                           kvcache=KVCacheOptions(host_mb=64), **args)
+    # a TP engine's admissions run eagerly: each first token's logits
+    own, first_token = [], pgen._first_token
+
+    def recording(logits, inp, draw):
+        own.append(logits[0].float().cpu())
+        return first_token(logits, inp, draw)
+
+    try:
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        eng.tp_zero_counts()
+        pgen._first_token = recording
+        try:
+            got = run(eng)
+        finally:
+            pgen._first_token = first_token
+        probe = eng.tp_probe()
+        g = torch.Generator().manual_seed(3)
+        L, n, KV, hd = SMALL.n_layers, 40, SMALL.n_kv_heads, SMALL.head_dim
+        kv = HostKV(torch.randint(-127, 128, (L, n, KV, hd), generator=g,
+                                  dtype=torch.int8),
+                    torch.randint(-127, 128, (L, n, KV, hd), generator=g,
+                                  dtype=torch.int8),
+                    torch.rand((L, n, KV), generator=g) + 0.01,
+                    torch.rand((L, n, KV), generator=g) + 0.01)
+        with eng._device_lock:
+            eng._upload_row(kv, 0)
+            pooled = dense_hostkv(eng._kv_row_get(eng._pool, 0, n))
+            eng._pool_copy(eng.cache, 3, eng._pool, 0, n)
+            copied = dense_hostkv(eng._kv_row_get(eng.cache, 3, n))
+    finally:
+        eng.close()
+    assert [g[1:] for g in got] == [w[1:] for w in want]
+    assert [g[1] for g in got] == [None, None, "t0", "t1", None]
+    assert len(own) == len(script)
+    for g, w, logits in zip(got, want, own):
+        assert int(logits.argmax()) == g[0][0]
+        assert g[0][0] == w[0][0] or \
+            float(logits.max() - logits[w[0][0]]) <= 0.0625
+    B = 4
+    assert (probe[:, :5 * B + 1] == probe[0, :5 * B + 1]).all()
+    counts = [row[-len(_COUNTERS):].tolist() for row in probe]
+    assert counts[0] == counts[1] and counts[0][0] > 0 and counts[0][2] > 0
+    for a, b in ((kv, pooled), (kv, copied)):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
 def test_a_cmd_app_on_the_card_streams_what_engine_generate_does(
         gen, monkeypatch, tmp_path):
     """A ``gofr_tpu_torch.new_cmd`` App on "cuda" (Llama-3-8B's width at

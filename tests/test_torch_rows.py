@@ -433,10 +433,6 @@ def test_the_pd_rows_read_alike(row, value, want):
     ({"TPU_SHARDING": "tp"}, "TPU_SHARDING"),
     ({"TPU_SHARDING": "tp=3"}, "TPU_SHARDING"),     # tiny: 4 query heads
     ({"TPU_SHARDING": "tp=8"}, "TPU_SHARDING"),
-    ({"TPU_SHARDING": "tp=2", "TPU_LORA_ADAPTERS": "2"}, "TPU_LORA_ADAPTERS"),
-    ({"TPU_SHARDING": "tp=2", "TPU_PREFIX_CACHE": "2"}, "TPU_PREFIX_CACHE"),
-    ({"TPU_SHARDING": "tp=2", "TPU_KVCACHE_HOST_MB": "4"},
-     "TPU_KVCACHE_HOST_MB"),
     ({"TPU_SHARDING": "tp=2", "TPU_SERVING_ROLE": "prefill",
       "TPU_PD_PEER": "127.0.0.1:1"}, "TPU_SERVING_ROLE=prefill"),
     ({"TPU_SHARDING": "tp=2", "TPU_SERVING_ROLE": "decode"},
@@ -465,6 +461,55 @@ def test_what_tensor_parallel_serving_does_not_take_is_refused_by_name(
     with pytest.raises(ValueError, match=name):
         ptpu.new_engine_from_config(
             MapConfig({"TPU_MODEL": "tiny", **rows}), device="cpu")
+
+
+# BASELINE config #5's rows (examples/tpu-sharded-70b/configs/.env) with
+# TPU_MODEL=tiny at tp=2; tiny's 128 positions cannot hold a prompt of
+# the default store minimum (the largest bucket, 128), so TPU_PREFIX_MIN
+# lets its 70-token prompt be stored
+CONFIG5_TINY = {"TPU_MODEL": "tiny", "TPU_QUANT": "int8",
+                "TPU_KV_DTYPE": "int8", "TPU_SHARDING": "tp=2",
+                "TPU_SLOTS": "16", "TPU_MAX_SEQ": "2048",
+                "TPU_PREFIX_CACHE": "4", "TPU_SPEC_DECODE": "4",
+                "TPU_WARMUP": "true", "TPU_PREFIX_MIN": "64"}
+
+
+@pytest.mark.parametrize("rows,stat", [
+    ({"TPU_SHARDING": "tp=2", "TPU_LORA_ADAPTERS": "2"}, "lora"),
+    ({"TPU_SHARDING": "tp=2", "TPU_PREFIX_CACHE": "2"}, "prefix_cache"),
+    ({"TPU_SHARDING": "tp=2", "TPU_PREFIX_CACHE": "2",
+      "TPU_KVCACHE_HOST_MB": "4"}, "prefix_cache"),
+    (CONFIG5_TINY, "spec_decode"),
+], ids=["TPU_LORA_ADAPTERS", "TPU_PREFIX_CACHE", "TPU_KVCACHE_HOST_MB",
+        "config5"])
+def test_what_tensor_parallel_serving_takes_builds_and_serves(rows, stat):
+    """LoRA, the prefix tiers and BASELINE config #5's rows (TPU_MODEL
+    swapped for tiny) build beside TPU_SHARDING=tp=2 and serve: a stored
+    prompt, then its repeat, which the T0 pool serves where there is
+    one; both ranks agree and leave with the engine."""
+    import numpy as np
+
+    from gofr_tpu_torch.tpu import new_engine_from_config
+
+    rows = {"TPU_MODEL": "tiny", "TPU_SLOTS": "4", "TPU_MAX_SEQ": "128",
+            **rows}
+    eng = new_engine_from_config(MapConfig(rows), device="cpu")
+    gen = eng.generator
+    prompt = np.random.default_rng(3).integers(1, 256, 70).tolist()
+    try:
+        first = gen.generate(prompt, max_new_tokens=6).tokens()
+        again = gen.generate(prompt, max_new_tokens=6)
+        assert len(first) == 6 and again.tokens() == first
+        probe = gen.tp_probe()
+        st = gen.stats()
+    finally:
+        eng.close()
+    assert st["mesh"]["devices"] == 2 and stat in st
+    if "prefix_cache" in st:
+        assert again.cache_tier == "t0"
+    B = gen.n_slots
+    assert (probe[:, :5 * B + 1] == probe[0, :5 * B + 1]).all()
+    assert all(p.poll() is not None for p in gen._tp.procs)
 
 
 @pytest.mark.parametrize("role", ["prefill", "decode"])
