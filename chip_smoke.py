@@ -369,13 +369,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      pipeline-depth and segment series, and the gateway's
      /debug/timeline?fleet=1 holding the replica's process, its decode
      slices and its clock aligned; a ``{"observe": {...}}`` line;
+  5r. (phase ``moe``) a mixture of experts: with at most 1 GiB left
+     allocated by earlier phases (cuBLAS's workspaces of their streams
+     cleared first), every expert of a 2-layer model at
+     Mixtral-8x7B's width set to one dense FFN reproduces the dense
+     model through K1 and K2; 4 full-width int8 layers through the
+     kernels against their plain versions (a row held where both runs
+     routed alike; the first token a row routed otherwise at a near tie
+     of its router probabilities); then Mixtral-8x7B at full width and
+     depth from the rows TPU_MODEL=mixtral-8x7b, TPU_QUANT=int8 (int8
+     weights quantized as drawn, int8 KV, 48 slots) through
+     ``gofr_tpu_torch.App``: the build's time and peak memory against
+     the int8 weights' bytes, 8 POST /generate streams of X + X bucket
+     prompts and one 700-token lattice prompt (64 greedy tokens each):
+     first tokens against a cache-free forward, K1 32 a bucket
+     admission and K2 32 a decode step equal to the timeline's events,
+     TTFT, tok/s, a 48-slot block's device time beside the weights'
+     byte bound, the decode graphs' replays against their eager blocks;
+     then a paged engine with TPU_SPEC_DECODE=4 on the same weights:
+     its streams equal the App's or part at a near tie, K1, K3 and K3w
+     on the counters, a verify replay against its eager pass; a
+     ``{"moe": {...}}`` line;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
      5's, the score run's and phases grpc's, tiers', lora's, tenancy's,
-     gateway's, pd's, tp's, cmd's and observe's; flash_decode's phase
-     5's and phases grpc's, tiers', lora's, tenancy's, gateway's, pd's,
-     tp's, cmd's and observe's;
-     paged_decode's phase paged's, lora's, pd's and tp's; paged_window's
-     phase spec's and tp's; phase tp's summed over its two ranks),
+     gateway's, pd's, tp's, cmd's, observe's and moe's; flash_decode's
+     phase 5's and phases grpc's, tiers', lora's, tenancy's, gateway's,
+     pd's, tp's, cmd's, observe's and moe's;
+     paged_decode's phase paged's, lora's, pd's, tp's and moe's;
+     paged_window's phase spec's, tp's and moe's; phase tp's summed over
+     its two ranks),
      then the card line, then the ``{"ok": true, "device": {...}}`` line
      last.
 
@@ -1046,6 +1068,34 @@ def phase_kernels(records: dict) -> None:
 
 # -- phase 4: kernels against plain versions through the model ----------------
 
+def prefill_decode_logits(params, cfg, tokens, lengths, steps, rope,
+                          smax: int, use_kernels: bool):
+    """A prefill of ``tokens`` [B, S] (true ``lengths``) into an int8
+    cache of ``smax`` positions, then one decode step a row of ``steps``
+    [N, B], through the kernels (K1, K2) or their plain versions: the
+    prefill's logits at the valid positions, then each step's, as one
+    [P + N * B, V] tensor."""
+    import torch
+
+    from gofr_tpu_torch.models import llama
+
+    b, s = tokens.shape
+    cache = llama.init_cache(cfg, b, smax, dtype=torch.int8, device="cuda")
+    out = []
+    with torch.no_grad():
+        logits, k, v, _ = llama.prefill_kv(params, cfg, tokens, lengths,
+                                           rope_tables=rope,
+                                           flash=use_kernels)
+        llama.write_kv(cache, k, v, lengths=lengths.clone())
+        valid = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+        out.append(logits[valid])
+        for step in steps:
+            logits, cache = llama.decode_step(params, cfg, step, cache,
+                                              rope, flash=use_kernels)
+            out.append(logits)
+    return torch.cat(out)
+
+
 def phase_model_4_layers() -> None:
     import numpy as np
     import torch
@@ -1060,27 +1110,10 @@ def phase_model_4_layers() -> None:
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to("cuda")
     steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, b))).to("cuda")
     rope = llama.get_rope_tables(cfg, smax, "cuda")
-
-    def run(use_kernels: bool):
-        cache = llama.init_cache(cfg, b, smax, dtype=torch.int8,
-                                 device="cuda")
-        out = []
-        with torch.no_grad():
-            logits, k, v, _ = llama.prefill_kv(params, cfg, tokens, lengths,
-                                               rope_tables=rope,
-                                               flash=use_kernels)
-            llama.write_kv(cache, k, v, lengths=lengths.clone())
-            valid = (torch.arange(s, device="cuda")[None, :]
-                     < lengths[:, None])
-            out.append(logits[valid])
-            for step in steps:
-                logits, cache = llama.decode_step(params, cfg, step, cache,
-                                                  rope, flash=use_kernels)
-                out.append(logits)
-        return torch.cat(out)
-
-    plain = run(False)
-    kern = run(True)
+    plain = prefill_decode_logits(params, cfg, tokens, lengths, steps, rope,
+                                  smax, False)
+    kern = prefill_decode_logits(params, cfg, tokens, lengths, steps, rope,
+                                 smax, True)
     torch.cuda.synchronize()
     diff = (kern - plain).abs().max().item()
     scale = plain.abs().max().item()
@@ -7403,11 +7436,28 @@ TP_TIERS_COPY_REPS = 5
 CONFIG5_ENV = os.path.join("examples", "tpu-sharded-70b", "configs", ".env")
 CONFIG5_LENS = (600, 300, 64)   # the third request repeats the first
 CONFIG5_NEW = 8
-# the tp=8 run's depth, the one cut of the phase: at 32 layers the part
-# took 189 s on the card (the App ready in 111 s, TPU_WARMUP's 20 score
-# dispatches included, a decode step 2.1 s: eight ranks' eager gloo sums
-# on one card), a third of the script's limit
-CONFIG5_LAYERS = 8
+# the tp=8 run's depth: at 32 layers the part took 189 s on the card (the
+# App ready in 111 s, TPU_WARMUP's 20 score dispatches included, a decode
+# step 2.1 s: eight ranks' eager gloo sums on one card), a third of the
+# script's limit; at 8 layers 63 s
+CONFIG5_LAYERS = 4
+# the depth of the phase's tp=1 and tp=2 engines: with phase moe the
+# whole run at 32 layers here (the phase 159.6-203.4 s) came within 80 s
+# of WATCHDOG_S
+TP_TIERS_LAYERS = 16
+
+
+def cut_model(base: str, layers) -> str:
+    """The TPU_MODEL name of Llama model ``base`` cut to ``layers``
+    layers, registered in the port's LLAMA_CONFIGS (a tensor-parallel
+    worker gets the config itself), or ``base`` for None."""
+    if layers is None:
+        return base
+    from gofr_tpu_torch.models.common import LLAMA_CONFIGS
+
+    name = f"{base}-{layers}l"
+    LLAMA_CONFIGS[name] = LLAMA_CONFIGS[base].with_(n_layers=layers)
+    return name
 
 
 def config5_rows() -> dict:
@@ -7424,15 +7474,8 @@ def config5_rows() -> dict:
     require(rows.get("TPU_SHARDING") == "tp=8"
             and rows.get("TPU_PREFIX_CACHE") == "4",
             f"{CONFIG5_ENV} is not config #5: {rows}")
-    rows.update(TPU_MODEL="llama3-8b", HTTP_PORT="0", METRICS_PORT="0",
-                LOG_LEVEL="WARN")
-    if CONFIG5_LAYERS is not None:
-        from gofr_tpu_torch.models.common import LLAMA_CONFIGS
-
-        name = f"llama3-8b-{CONFIG5_LAYERS}l"
-        LLAMA_CONFIGS[name] = LLAMA_CONFIGS["llama3-8b"].with_(
-            n_layers=CONFIG5_LAYERS)
-        rows["TPU_MODEL"] = name
+    rows.update(TPU_MODEL=cut_model("llama3-8b", CONFIG5_LAYERS),
+                HTTP_PORT="0", METRICS_PORT="0", LOG_LEVEL="WARN")
     return rows
 
 
@@ -7515,7 +7558,8 @@ def _check_ties(what: str, ties) -> None:
 def phase_tp_tiers(card: str) -> dict:
     """The prefix tiers, the paged prefix index and LoRA under tensor
     parallelism, and BASELINE config #5's rows, on the one card.
-    Llama-3-8B at full width and depth (seed-0 weights, int8 KV):
+    Llama-3-8B at full width and TP_TIERS_LAYERS layers (seed-0
+    weights, int8 KV):
 
     1. the reference, built first and freed: the tp=1 engine of the tp=2
        App's rows: three 1024-token system prompts with their first
@@ -7537,8 +7581,9 @@ def phase_tp_tiers(card: str) -> dict:
        differ from tp=1's base-model streams of their prompts;
     3. a paged tp=2 engine with TPU_PREFIX_CACHE=4: a 1024-token system
        prompt stored, then hit twice ("paged"), K3 on both ranks;
-    4. config #5's rows (TPU_MODEL=llama3-8b): tp=8 (4 query heads and
-       1 KV head a rank), int8 weights and KV, 16 slots,
+    4. config #5's rows (TPU_MODEL=llama3-8b at CONFIG5_LAYERS layers):
+       tp=8 (4 query heads and 1 KV head a rank), int8 weights and KV,
+       16 slots,
        TPU_PREFIX_CACHE=4, TPU_SPEC_DECODE=4, TPU_WARMUP=true: an App
        serving 3 requests and a repeat of the first (a T0 hit), K1 and
        K2 on all 8 ranks, the same counts on each; its ready time and
@@ -7561,7 +7606,8 @@ def phase_tp_tiers(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.monotonic()
-    cfg = LLAMA_CONFIGS[TP_ROWS["TPU_MODEL"]]
+    model = cut_model(TP_ROWS["TPU_MODEL"], TP_TIERS_LAYERS)
+    cfg = LLAMA_CONFIGS[model]
     vocab = cfg.vocab_size
     rng = np.random.default_rng(TP_TIERS_SEED)
     systems = [rng.integers(0, vocab, TP_TIERS_SYSTEM_LEN).tolist()
@@ -7595,8 +7641,9 @@ def phase_tp_tiers(card: str) -> dict:
     try:
         # 1. tp=1
         t0 = time.monotonic()
-        ref = new_engine_from_config(MapConfig(dict(TP_TIERS_REF_ROWS,
-                                                    **where)), device="cuda")
+        ref = new_engine_from_config(
+            MapConfig(dict(TP_TIERS_REF_ROWS, TPU_MODEL=model, **where)),
+            device="cuda")
         ready1 = time.monotonic() - t0
         rgen = ref.generator
         try:
@@ -7626,7 +7673,7 @@ def phase_tp_tiers(card: str) -> dict:
               f"{[t for _, t in ref1]}; card: {card}", flush=True)
 
         # 2. the tp=2 App
-        rows2 = dict(TP_TIERS_ROWS, **where)
+        rows2 = dict(TP_TIERS_ROWS, TPU_MODEL=model, **where)
         t0 = time.monotonic()
         app = App(MapConfig(rows2))
         tpu = app.container.tpu
@@ -7741,7 +7788,8 @@ def phase_tp_tiers(card: str) -> dict:
                 "a worker's carry, cursors or pool differ from rank 0's")
         k1 = per_rank[0]["flash.launches"]
         k2 = per_rank[0]["flash_decode.launches"]
-        require(k1 == LAYERS * TP_TIERS_ADAPTERS and k2 == LAYERS * steps
+        require(k1 == cfg.n_layers * TP_TIERS_ADAPTERS
+                and k2 == cfg.n_layers * steps
                 and k1 > 0 and k2 > 0,
                 f"tp=2 launches {per_rank[0]} for {TP_TIERS_ADAPTERS} bucket "
                 f"admissions and {steps} decode steps")
@@ -7838,7 +7886,8 @@ def phase_tp_tiers(card: str) -> dict:
 
         # 3. the paged tp=2 engine with the prefix index
         t0 = time.monotonic()
-        eng = new_engine_from_config(MapConfig(TP_TIERS_PAGED_ROWS),
+        eng = new_engine_from_config(MapConfig(dict(TP_TIERS_PAGED_ROWS,
+                                                    TPU_MODEL=model)),
                                      device="cuda")
         gen = eng.generator
         own, undo = _record_first_logits()
@@ -7873,7 +7922,7 @@ def phase_tp_tiers(card: str) -> dict:
               f"ties {ties}; card: {card}", flush=True)
         require([t for _, t, _ in pstreams] == [None, "paged", "paged"],
                 f"paged tiers {[t for _, t, _ in pstreams]}")
-        require(k3 == LAYERS * psteps and k3 > 0
+        require(k3 == cfg.n_layers * psteps and k3 > 0
                 and per_rank[0]["paged_attention.plain_calls"] == 0,
                 f"paged launches {per_rank[0]} for {psteps} decode steps")
         _check_ties("paged tp=2", ties)
@@ -8777,6 +8826,510 @@ def phase_observe(card: str) -> dict:
             "flash_decode": counts["flash_decode"]}
 
 
+# -- phase moe: a mixture of experts ------------------------------------------
+
+# Mixtral-8x7B (top-2 of 8 experts) from the rows a user gives: int8
+# weights (93 GB of bf16 expert stacks would not fit the card), int8 KV,
+# the default 48 slots and 2048 positions, the timeline on
+MOE_ROWS = {"TPU_MODEL": "mixtral-8x7b", "TPU_QUANT": "int8",
+            "HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "WARN",
+            "TPU_TIMELINE": "1"}
+# paged engines on the same weights: the App's 48 slots of 2048 positions
+# in 768 blocks of 128 (and the trash block), so a decode step's products
+# have the App's shapes; one without drafts, one with drafts of 4
+MOE_PAGED_ROWS = {"TPU_MODEL": "mixtral-8x7b", "TPU_QUANT": "int8",
+                  "TPU_PAGED_BLOCKS": "769", "TPU_PAGED_BLOCK": "128"}
+MOE_SEED = 97
+MOE_STREAMS = 8            # X + X prompts: bucket admissions (K1), drafts hit
+MOE_X = (16, 250)          # |X|, drawn here
+MOE_LATTICE = 700          # one prompt past the largest bucket
+MOE_NEW = 64
+MOE_LEFT_GIB = 1.0         # what earlier phases may leave allocated
+# a token may take another expert between two runs only where its k-th and
+# (k+1)-th router probabilities lie this close: bf16 roundings of the
+# stream (kernels against plain attention: a few bf16 steps of logits of
+# unit scale) move the router's float32 logits by about 2^-8, its
+# probabilities by less
+MOE_TIE_GAP = 2.0 ** -6
+
+
+@contextlib.contextmanager
+def routing_record():
+    """Record each ``llama._route`` call's top-k experts (sorted) and the
+    gap between the k-th and (k+1)-th probabilities of each token, on
+    the device; yields the list of (topi, gap)."""
+    import torch
+
+    from gofr_tpu_torch.models import llama
+
+    calls = []
+    route = llama._route
+
+    def recording(hf, router, k):
+        probs, topv, topi = route(hf, router, k)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        calls.append((torch.sort(topi, dim=-1).values,
+                      top[:, k - 1] - top[:, k]))
+        return probs, topv, topi
+
+    llama._route = recording
+    try:
+        yield calls
+    finally:
+        llama._route = route
+
+
+def routing_taint(a: list, b: list, lengths: list, s: int, layers: int):
+    """Two runs' routings of ``prefill_decode_logits`` (a prefill of
+    B rows of ``s`` positions, then decode steps of B rows; ``layers``
+    calls each). A token routed otherwise in one layer has another hidden
+    state from then on, and so has every later position of its row: its
+    own routings there may part at any gap. Returns (the root flips --
+    tokens routed otherwise with no earlier-layer flip at or before them
+    in their row, each with the smaller of its two gaps --, the number
+    of flips downstream of a root, and a mask over the function's output
+    rows that no flip reached: a prefill position before its row's first
+    flip, a row's decode steps until a flip in its prompt or a step)."""
+    import numpy as np
+
+    nb = len(lengths)
+    first = np.full(nb, s)              # a row's first flipped position
+    roots, downstream = [], 0
+    steps_keep = []
+    tainted = np.zeros(nb, bool)
+    in_step = np.zeros(nb, bool)
+    for j, ((ta, ga), (tb, gb)) in enumerate(zip(a, b)):
+        diff = (ta != tb).any(-1).cpu().numpy()
+        gap = np.minimum(ga.float().cpu().numpy(), gb.float().cpu().numpy())
+        if j < layers:                                   # the prefill
+            diff = diff.reshape(nb, s)
+            gap = gap.reshape(nb, s)
+            layer_first = first.copy()
+            for r in range(nb):
+                for p in np.flatnonzero(diff[r, :lengths[r]]):
+                    if p < first[r]:
+                        roots.append(("prefill", r, int(p), j,
+                                      float(gap[r, p])))
+                    else:
+                        downstream += 1
+                    layer_first[r] = min(layer_first[r], p)
+            first = layer_first
+            if j == layers - 1:
+                tainted = first < np.asarray(lengths)
+            continue
+        layer = (j - layers) % layers
+        if layer == 0:
+            in_step[:] = False
+        for r in np.flatnonzero(diff):
+            if tainted[r] or in_step[r]:
+                downstream += 1
+            else:
+                roots.append((f"step {(j - layers) // layers}", int(r), 0,
+                              layer, float(gap[r])))
+        in_step |= diff
+        if layer == layers - 1:
+            tainted = tainted | in_step
+            steps_keep.append(~tainted)
+    keep = [np.arange(n) < first[r] for r, n in enumerate(lengths)]
+    return roots, downstream, np.concatenate(keep + steps_keep)
+
+
+def moe_identical_experts(card: str, rng) -> None:
+    """Every expert of a 2-layer model at Mixtral's width set to one
+    dense SwiGLU FFN's weights (the same tensor, expanded), the router
+    random: whatever it picks, the renormalized top-2 combine gives the
+    dense FFN, so the logits through K1 and K2 equal the dense model's
+    within LOGIT_ATOL."""
+    import torch
+
+    from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
+
+    cfg = LLAMA_CONFIGS["mixtral-8x7b"].with_(n_layers=2)
+    dense_cfg = cfg.with_(n_experts=0)
+    dense = llama.init(dense_cfg, 0, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(MOE_SEED)
+    L, D, E = cfg.n_layers, cfg.dim, cfg.n_experts
+    layers = dict(dense["layers"])
+    layers["router"] = (torch.randn((L, D, E), generator=g, device="cuda")
+                        * D ** -0.5).to(cfg.tdtype)
+    for name in ("w_gate", "w_up", "w_down"):
+        w = dense["layers"][name]
+        layers[name] = w[:, None].expand(L, E, *w.shape[1:])
+    moe = {**dense, "layers": layers}
+    b, s, smax = 2, 256, 2048
+    lengths = torch.tensor([256, 131], dtype=torch.int32, device="cuda")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(
+        "cuda")
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, b))).to(
+        "cuda")
+    rope = llama.get_rope_tables(cfg, smax, "cuda")
+    with routing_record() as calls:
+        got = prefill_decode_logits(moe, cfg, tokens, lengths, steps, rope,
+                                    smax, True)
+    want = prefill_decode_logits(dense, dense_cfg, tokens, lengths, steps,
+                                 rope, smax, True)
+    torch.cuda.synchronize()
+    diff = (got - want).abs().max().item()
+    picked = torch.cat([t for t, _ in calls]).unique(dim=0).shape[0]
+    print(f"[moe] identical experts, 2 layers at Mixtral's width, B={b} "
+          f"prefill {s} + 4 decode steps through K1 and K2: max |logit "
+          f"diff| against the dense model {diff:.4e} (atol {LOGIT_ATOL}; "
+          f"max |logit| {want.abs().max().item():.3f}); {picked} distinct "
+          f"expert pairs routed; card: {card}", flush=True)
+    require(diff <= LOGIT_ATOL and bool(torch.isfinite(got).all()),
+            f"identical experts differ from the dense model by {diff}")
+    require(picked > 1, "the router picked one expert pair for every token")
+
+
+def moe_kernels_vs_plain(card: str, rng) -> None:
+    """4 layers at Mixtral's full width with int8 weights (quantized as
+    drawn), int8 KV: a prefill and 8 decode steps through K1 and K2,
+    against the same through their plain versions. Where both runs
+    route a token to the same experts the logits agree within
+    LOGIT_ATOL; the first token of a row routed otherwise must sit at a
+    near tie (MOE_TIE_GAP), and the logits it reaches (the rest of its
+    row) are printed, not held."""
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
+
+    cfg = LLAMA_CONFIGS["mixtral-8x7b"].with_(n_layers=4)
+    params = llama.init(cfg, 0, device="cuda", quant=True)
+    b, s, smax = 2, 256, 2048
+    lens = [256, 131]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(
+        "cuda")
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, b))).to(
+        "cuda")
+    rope = llama.get_rope_tables(cfg, smax, "cuda")
+    with routing_record() as plain_calls:
+        plain = prefill_decode_logits(params, cfg, tokens, lengths, steps,
+                                      rope, smax, False)
+    with routing_record() as kern_calls:
+        kern = prefill_decode_logits(params, cfg, tokens, lengths, steps,
+                                     rope, smax, True)
+    torch.cuda.synchronize()
+    roots, downstream, keep = routing_taint(kern_calls, plain_calls, lens,
+                                            s, cfg.n_layers)
+    err = (kern - plain).abs().amax(-1).cpu().numpy()
+    held = float(err[keep].max()) if keep.any() else 0.0
+    agree = float(np.mean(kern.argmax(-1).cpu().numpy()
+                          == plain.argmax(-1).cpu().numpy()))
+    print(f"[moe] mixtral-8x7b width, 4 layers, int8 weights and KV, B={b} "
+          f"prefill {s} + 8 decode steps: kernels vs plain max |logit diff| "
+          f"{held:.4e} over the {int(keep.sum())} of {len(keep)} logit rows "
+          f"no other routing reached (atol {LOGIT_ATOL}; all rows "
+          f"{float(err.max()):.4e}, argmax agreement {agree:.4f}); of "
+          f"{cfg.n_layers * (sum(lens) + 8 * b)} routings {len(roots)} took "
+          f"other experts first (where, row, position, layer, gap: "
+          f"{[r[:4] + (round(r[4], 6),) for r in roots]}; tie gap "
+          f"{MOE_TIE_GAP}) and {downstream} more downstream of them; card: "
+          f"{card}", flush=True)
+    require(bool(torch.isfinite(kern).all()), "non-finite MoE logits")
+    require(all(r[4] <= MOE_TIE_GAP for r in roots),
+            f"a token took other experts past a near tie: {roots}")
+    require(keep.any() and held <= LOGIT_ATOL,
+            f"4-layer MoE logits through the kernels differ from the plain "
+            f"path by {held} over {int(keep.sum())} rows")
+    del params
+
+
+def moe_tie_gap(params, cfg, prompt, a: list, b: list):
+    """Two greedy streams of ``prompt``: None when equal, else (the first
+    index where they part, the gap between the two tokens there in the
+    logits of a cache-free forward of the prompt and the common prefix,
+    the winner's logit there)."""
+    import torch
+
+    from gofr_tpu_torch.models import llama
+
+    i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if i is None:
+        require(len(a) == len(b), f"streams of {len(a)} and {len(b)} tokens")
+        return None
+    seq = torch.tensor([list(prompt) + list(a[:i])], device="cuda")
+    with torch.no_grad():
+        ref = llama.score(params, cfg, seq,
+                          torch.tensor([seq.shape[1]], device="cuda"))[0]
+    return i, abs(float(ref[a[i]] - ref[b[i]])), float(ref.max())
+
+
+def phase_moe(card: str) -> dict:
+    """A mixture of experts on the card. Fails unless earlier phases left
+    at most MOE_LEFT_GIB allocated. Identical experts reproduce a dense
+    model at Mixtral's width (2 layers); 4 full-width int8 layers agree
+    through the kernels and their plain versions. Then Mixtral-8x7B at
+    full width and depth from MOE_ROWS through ``gofr_tpu_torch.App``:
+    its build time and peak memory against the int8 weights' bytes; 8
+    POST /generate streams of X + X bucket prompts and one lattice
+    prompt, 64 greedy tokens each: each first token equal to a cache-free
+    forward's or within TP_TIE_ATOL of its winner, K1 32 a bucket
+    admission and K2 32 a decode step and the timeline's events x 32
+    equal to them; TTFT, tok/s, a 48-slot decode block's device time;
+    the decode graphs' replays against their eager blocks. Then paged
+    engines on the same weights (MOE_PAGED_ROWS, the App's slots): one
+    without drafts streams the App's tokens exactly (K3 returns K2's
+    bits and the products have the App's shapes); one with
+    TPU_SPEC_DECODE=4 streams them or parts at a near tie in the
+    cache-free forward's logits (TP_LOGIT_ATOL: its verify windows
+    attend their own rows in bf16 where decode steps read int8 codes,
+    and a token routed otherwise moves the logits after it); K1, K3
+    and K3w on the counters, a verify replay against its eager pass.
+    Returns the launches of the App's burst and the paged runs."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.tpu import hbm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    allocated = torch.cuda.memory_allocated()
+    # cuBLAS keeps a workspace (32 MiB on this card) for every stream a
+    # product ran on, each earlier engine's warm-up and capture streams
+    # among them, until they are cleared; what is left is tensors
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    left = torch.cuda.memory_allocated()
+    print(f"[moe] before building: {allocated / 2**30:.3f} GiB allocated, "
+          f"{(allocated - left) / 2**30:.3f} GiB of it cuBLAS workspaces "
+          f"(cleared: {clear is not None}); earlier phases hold "
+          f"{left / 2**30:.3f} GiB (at most {MOE_LEFT_GIB}); card: {card}",
+          flush=True)
+    require(left <= MOE_LEFT_GIB * 2**30,
+            f"earlier phases left {left / 2**30:.3f} GiB allocated")
+    rng = np.random.default_rng(MOE_SEED)
+    moe_identical_experts(card, rng)
+    moe_kernels_vs_plain(card, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = LLAMA_CONFIGS[MOE_ROWS["TPU_MODEL"]]
+    xs = [rng.integers(0, cfg.vocab_size, n).tolist()
+          for n in rng.integers(MOE_X[0], MOE_X[1] + 1, MOE_STREAMS)]
+    prompts = [x + x for x in xs]
+    prompts.append(rng.integers(0, cfg.vocab_size, MOE_LATTICE).tolist())
+
+    # the App
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    app, _ = _observe_app(MOE_ROWS)
+    gen = app.container.tpu.generator
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    weights = hbm.tree_nbytes(gen.params)
+    print(f"[moe] mixtral-8x7b App ready (int8 weights drawn and quantized "
+          f"matrix by matrix, {gen.n_slots} slots x {gen.max_seq} int8 KV, "
+          f"graphs captured) in {build_s:.1f} s; peak "
+          f"{peak / 1e9:.2f} GB allocated against the int8 weights' "
+          f"{weights / 1e9:.2f} GB; {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB allocated now; card: {card}", flush=True)
+    require(peak < 80e9, f"the build peaked at {peak / 1e9:.2f} GB")
+    bucket = max(gen.prompt_buckets)
+    n_lattice = sum(len(p) > bucket for p in prompts)
+    try:
+        warm = _timed_generate(app.http_port, {"tokens": prompts[0][:32],
+                                               "max_new": 4})
+        require(warm["status"] == 200 and len(_tokens(warm)) == 4,
+                f"the warm-up answered {warm['status']}")
+        adm0, steps0, replays0 = (gen.admissions, gen.decode_steps,
+                                  gen.graph_replays)
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        seq0 = timeline_mark(gen)
+        t0 = time.monotonic()
+        res = _threads([lambda p=p: _timed_generate(
+            app.http_port, {"tokens": p, "max_new": MOE_NEW})
+            for p in prompts])
+        wall = time.monotonic() - t0
+        counts = {"flash_prefill": flash.launches,
+                  "flash_decode": flash_decode.launches,
+                  "plain": flash.plain_calls + flash_decode.plain_calls,
+                  "paged": paged_attention.launches
+                  + paged_attention.window_launches}
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+        replays = gen.graph_replays - replays0
+        ring = timeline_window(gen, seq0, steps)
+        stats = gen.stats()
+        block_ms = block_device_ms(gen, [512] * gen.n_slots,
+                                   [0] * gen.n_slots, 5)
+    finally:
+        app.stop()
+    require(all(r["status"] == 200 for r in res),
+            f"statuses {[r['status'] for r in res]}")
+    outs = [_tokens(r) for r in res]
+    require(all(len(t) == MOE_NEW for t in outs),
+            f"stream lengths {[len(t) for t in outs]}")
+    ttft = [r["times"][0] - r["t_send"] for r in res]
+    tok_s = sum(map(len, outs)) / wall
+    print(f"[moe] the App's burst: {len(prompts)} POST /generate streams "
+          f"(prompts {[len(p) for p in prompts]}), {MOE_NEW} greedy tokens "
+          f"each, {tok_s:.1f} tok/s over {wall:.2f} s; TTFT at the client "
+          f"p50 {1e3 * float(np.median(ttft)):.1f} ms, max "
+          f"{1e3 * max(ttft):.1f}; decode step "
+          f"{stats['decode_step_ms_mean']:.2f} ms (host clock, K="
+          f"{gen.decode_block}); a {gen.n_slots}-slot decode block "
+          f"{block_ms:.2f} ms (CUDA events), {block_ms / gen.decode_block:.2f}"
+          f" ms a step against the weights' byte bound "
+          f"{weights / HBM_BYTES_PER_S * 1e3:.2f} ms; {admissions} "
+          f"admissions ({n_lattice} lattice), {steps} decode steps in "
+          f"{replays} replays; launches {counts}; timeline {ring}; card: "
+          f"{card}", flush=True)
+    require(admissions == len(prompts),
+            f"{admissions} admissions for {len(prompts)} requests")
+    require(counts["flash_prefill"] == cfg.n_layers * (admissions - n_lattice)
+            and counts["flash_decode"] == cfg.n_layers * steps
+            and counts["plain"] == 0 and counts["paged"] == 0,
+            f"launches {counts} for {admissions} admissions ({n_lattice} "
+            f"lattice) and {steps} decode steps of {cfg.n_layers} layers")
+    require(counts["flash_decode"] == cfg.n_layers * ring["decode_steps"]
+            and counts["flash_prefill"]
+            == cfg.n_layers * (ring["prefill"] - n_lattice),
+            f"the timeline's {ring} against the launches {counts}")
+    require(replays * gen.decode_block == steps,
+            f"{replays} replays for {steps} decode steps")
+    # first tokens against a cache-free forward of the same weights
+    params = gen.params
+    ties = []
+    for i, (p, toks) in enumerate(zip(prompts, outs)):
+        with torch.no_grad():
+            ref = llama.score(params, cfg, torch.tensor([p], device="cuda"),
+                              torch.tensor([len(p)], device="cuda"))[0]
+        top = int(ref.argmax())
+        if toks[0] != top:
+            ties.append((i, float(ref[top] - ref[toks[0]])))
+    print(f"[moe] first tokens against a cache-free forward: "
+          f"{len(prompts) - len(ties)} of {len(prompts)} equal, the others "
+          f"(index, below the winner) {ties} (TP_TIE_ATOL {TP_TIE_ATOL}); "
+          f"card: {card}", flush=True)
+    _check_ties("the MoE App", ties)
+    replay_vs_eager(gen, [512] * (gen.n_slots - 2) + [17, 2000], 107, "moe")
+    gen_slots = gen.n_slots
+    release_graphs(gen)
+    del app, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # paged engines on the same weights: without drafts, then with
+    paged = {}
+    for spec in (False, True):
+        rows = dict(MOE_PAGED_ROWS, TPU_SPEC_DECODE="4" if spec else "0")
+        paged[spec] = moe_paged(rows, params, prompts, card)
+    exact = paged[False]
+    differ = [i for i, (a, b) in enumerate(zip(outs, exact["outs"]))
+              if a != b]
+    print(f"[moe] the spec-less paged engine's streams against the App's: "
+          f"{len(prompts) - len(differ)} of {len(prompts)} equal; card: "
+          f"{card}", flush=True)
+    require(not differ, f"paged streams {differ} differ from the App's")
+    spec = paged[True]
+    parts = [(i, moe_tie_gap(params, cfg, p, a, b))
+             for i, (p, a, b) in enumerate(zip(prompts, outs, spec["outs"]))]
+    parted = [(i, g) for i, g in parts if g is not None]
+    print(f"[moe] the spec engine's streams parting from the App's (index, "
+          f"(first index, gap in the cache-free logits, the winner)): "
+          f"{parted} (tie bound TP_LOGIT_ATOL {TP_LOGIT_ATOL}); card: "
+          f"{card}", flush=True)
+    require(all(g[1] <= TP_LOGIT_ATOL for _, g in parted),
+            f"a spec stream parts from the App's past a near tie: {parted}")
+    require(spec["counts"]["paged_window"] > 0,
+            "no verify pass ran in the spec engine")
+    summary = {"build_s": build_s, "peak_gb": peak / 1e9,
+               "weights_gb": weights / 1e9, "tok_s": tok_s,
+               "ttft_p50_ms": 1e3 * float(np.median(ttft)),
+               "step_ms_host": stats["decode_step_ms_mean"],
+               "block_ms": block_ms, "slots": gen_slots,
+               "step_bound_ms": weights / HBM_BYTES_PER_S * 1e3,
+               "verify_ms": spec["verify_ms"],
+               "paged_tok_s": exact["tok_s"], "spec_tok_s": spec["tok_s"],
+               "parted": len(parted),
+               "phase_s": time.monotonic() - t_phase, "card": card}
+    print(json.dumps({"moe": summary}), flush=True)
+    return {"flash_prefill": counts["flash_prefill"]
+            + exact["counts"]["flash_prefill"]
+            + spec["counts"]["flash_prefill"],
+            "flash_decode": counts["flash_decode"],
+            "paged_decode": exact["counts"]["paged_decode"]
+            + spec["counts"]["paged_decode"],
+            "paged_window": spec["counts"]["paged_window"]}
+
+
+def moe_paged(rows: dict, params, prompts, card: str) -> dict:
+    """A paged engine from ``rows`` on ``params``: the prompts served at
+    once, greedy, MOE_NEW tokens each, after a warm-up request. Checks
+    K1 32 a bucket admission, K3 32 a decode step, K3w 32 a verify pass
+    (with drafts) and no plain version; with drafts a verify replay is
+    held against its eager pass and timed. Returns the streams' tokens,
+    the launches, tok/s and the verify replay's device ms."""
+    import torch
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.tpu import new_engine_from_config
+
+    t0 = time.monotonic()
+    engine = new_engine_from_config(MapConfig(rows), device="cuda",
+                                    params=params)
+    gen = engine.generator
+    torch.cuda.synchronize()
+    ready_s = time.monotonic() - t0
+    try:
+        engine.generate(prompts[0][:32], max_new_tokens=4).tokens()
+        adm0, steps0, passes0 = (gen.admissions, gen.decode_steps,
+                                 gen.verify_passes)
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        outs, streams, wall = _serve(engine, prompts, {}, MOE_NEW)
+        counts = {"flash_prefill": flash.launches,
+                  "paged_decode": paged_attention.launches,
+                  "paged_window": paged_attention.window_launches,
+                  "plain": flash.plain_calls + paged_attention.plain_calls
+                  + paged_attention.window_plain_calls,
+                  "flash_decode": flash_decode.launches}
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+        passes = gen.verify_passes - passes0
+        stats = gen.stats()
+    finally:
+        engine.close()
+    lattices = sum(bool(s.chunks) for s in streams)
+    verify_ms = None
+    if gen._spec_k:
+        verify_ms = verify_vs_eager(gen, [512] * (gen.n_slots - 1) + [0],
+                                    MOE_SEED, "moe")
+    release_graphs(gen)
+    print(f"[moe] paged engine (ready in {ready_s:.1f} s, {rows}): "
+          f"{serve_line(stats, streams, outs, wall)}; {admissions} "
+          f"admissions ({lattices} lattice), {steps} decode steps, {passes} "
+          f"verify passes ({stats.get('spec_decode')}); a verify replay "
+          f"{verify_ms} ms (CUDA events); launches {counts}; card: {card}",
+          flush=True)
+    require(all(len(t) == MOE_NEW for t in outs),
+            f"paged stream lengths {[len(t) for t in outs]}")
+    layers = gen.cfg.n_layers
+    require(counts["flash_prefill"] == layers * (admissions - lattices)
+            and counts["paged_decode"] == layers * steps
+            and counts["paged_window"] == layers * passes
+            and steps > 0 and counts["plain"] == 0
+            and counts["flash_decode"] == 0,
+            f"paged launches {counts} for {admissions} admissions "
+            f"({lattices} lattice), {steps} steps and {passes} verify "
+            f"passes")
+    return {"outs": outs, "counts": counts, "verify_ms": verify_ms,
+            "tok_s": sum(map(len, outs)) / wall}
+
+
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
@@ -8784,7 +9337,7 @@ RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
                 "durable", "slo", "app", "predict", "grpc", "tiers", "lora",
                 "pubsub", "tenancy", "gateway", "pd", "tp", "tp_tiers",
-                "cmd", "observe")) -> dict:
+                "cmd", "observe", "moe")) -> dict:
     import torch
 
     card = card_line()
@@ -8841,13 +9394,13 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
         elif phase in ("grpc", "tiers", "lora", "tenancy", "gateway", "pd",
-                       "tp", "tp_tiers", "cmd", "observe"):
+                       "tp", "tp_tiers", "cmd", "observe", "moe"):
             counts = {"grpc": phase_grpc, "tiers": phase_tiers,
                       "lora": phase_lora, "tenancy": phase_tenancy,
                       "gateway": phase_gateway, "pd": phase_pd,
                       "tp": phase_tp, "tp_tiers": phase_tp_tiers,
-                      "cmd": phase_cmd,
-                      "observe": phase_observe}[phase](card)
+                      "cmd": phase_cmd, "observe": phase_observe,
+                      "moe": phase_moe}[phase](card)
             # K1's, K2's (and K3's) counts: the earlier phases' plus this
             # run's
             for name, n in counts.items():

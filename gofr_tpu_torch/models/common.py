@@ -8,7 +8,7 @@ from typing import Any
 
 import torch
 
-from ..ops.quant import QuantizedLinear
+from ..ops.quant import QuantizedLinear, quantize_int8
 
 
 @dataclass(frozen=True)
@@ -31,8 +31,8 @@ class ModelConfig:
     image_size: int = 224
     patch_size: int = 14
     type_vocab_size: int = 2
-    # mixture-of-experts (0 experts = dense FFN); the port serves dense
-    # models only so far
+    # mixture-of-experts (0 experts = dense FFN); > 0 capacity factor =
+    # grouped dispatch with per-expert buffers of factor * T * k / E
     n_experts: int = 0
     experts_per_token: int = 2
     moe_capacity_factor: float = 0.0
@@ -119,22 +119,44 @@ VIT_CONFIGS = {
 
 
 def dense_init(shape, dtype: torch.dtype, generator: torch.Generator,
-               scale: float | None = None) -> torch.Tensor:
+               scale: float | None = None, quant: bool = False):
     """Truncated-normal fan-in init on ``generator``'s device: N(0, 1)
     cut at +-2, times ``scale`` or fan_in ** -0.5. Stacked ``[L, ...]``
-    weights are drawn one layer at a time in float32, so the float32
-    scratch never exceeds one layer."""
+    weights (``[L, E, in, out]`` expert stacks too) are drawn one
+    ``[in, out]`` matrix at a time in float32, so the float32 scratch
+    never exceeds one matrix.
+
+    ``quant``: each matrix, rounded to ``dtype``, is int8-quantized per
+    output channel as it is drawn, straight into a ``QuantizedLinear``
+    of codes ``shape`` and scales ``shape[:-2] + shape[-1:]``: the
+    codes and scales of ``quantize_int8(dense_init(...), ndim - 2)``,
+    without the whole weight in ``dtype``."""
     shape = tuple(shape)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     device = generator.device
-    out = torch.empty(shape, dtype=dtype, device=device)
-    rows = out.view(-1, *shape[-2:]) if len(shape) >= 3 else out[None]
-    for row in rows:
+
+    def matrices(t, tail):
+        return t.view(-1, *tail) if len(shape) >= 3 else t[None]
+
+    if quant:
+        codes = torch.empty(shape, dtype=torch.int8, device=device)
+        scales = torch.empty(shape[:-2] + shape[-1:], dtype=torch.float32,
+                             device=device)
+        rows = zip(matrices(codes, shape[-2:]), matrices(scales, shape[-1:]))
+    else:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        rows = ((row, None) for row in matrices(out, shape[-2:]))
+    for row, row_scale in rows:
         t = torch.empty(row.shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        row.copy_(t.mul_(std))
-    return out
+        if row_scale is None:
+            row.copy_(t.mul_(std))
+            continue
+        q = quantize_int8(t.mul_(std).to(dtype), axis=0)
+        row.copy_(q.w)
+        row_scale.copy_(q.scale)
+    return QuantizedLinear(codes, scales) if quant else out
 
 
 def layer_weights(layers: dict, i: int) -> dict:

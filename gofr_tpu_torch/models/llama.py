@@ -1,5 +1,6 @@
 """Llama-family decoder: GQA + RoPE + SwiGLU with a slot KV cache
-(counterpart of gofr_tpu/models/llama.py, dense FFN only).
+(counterpart of gofr_tpu/models/llama.py), with a dense FFN or a
+mixture of experts.
 
 Parameters are a plain dict of tensors in the JAX package's layout:
 layer weights stacked on a leading [L, ...] axis (sliced per layer in a
@@ -21,6 +22,21 @@ attention kernels never see an adapter. ``merge_lora`` folds one
 adapter into dense weights: the single-tenant path and the tests'
 oracle. Without stacks, or with ``adapter=None``, no LoRA op runs.
 
+Mixture of experts (``cfg.n_experts > 0``: tiny-moe, mixtral-8x7b):
+each layer's FFN is a router [D, E] and E SwiGLU experts, stacked
+``w_gate``/``w_up`` [L, E, D, F] and ``w_down`` [L, E, F, D], dense or
+int8. ``_route`` takes the top k of the float32 softmax (the lower
+expert on a tie, as ``lax.top_k``) and renormalizes; ``_moe_ffn``
+runs every expert on every token and combines them by a [T, E] weight
+that is zero off the top k (dense dispatch, what serving runs), or,
+with ``cfg.moe_capacity_factor > 0``, ``_moe_ffn_grouped`` scatters the
+claims into per-expert buffers of fixed capacity and drops those past
+it. Both are plain PyTorch, as the JAX package computes them outside
+any Pallas kernel, on fixed shapes with no host read, so a CUDA graph
+captures them. Programs that batch unrelated requests force dense
+dispatch (``multi_request_serving_config``); ``valid`` (from
+``lengths``) keeps padding from claiming capacity.
+
 ``flash=True`` runs attention through the CUDA kernels (ops.flash,
 ops.flash_decode), which take the plain versions on CPU tensors;
 ``flash=False`` calls the plain versions directly. ``verify_step``, the
@@ -32,6 +48,7 @@ the plain ``chunk_attention`` for the same reason.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -41,7 +58,7 @@ from ..device import resolve_device
 from ..ops import flash, flash_decode
 from ..ops.attention import chunk_attention, window_attention_appended
 from ..ops.norms import rms_norm
-from ..ops.quant import qmatmul, quantize_kv
+from ..ops.quant import QUANT_LEAVES, QuantizedLinear, qmatmul, quantize_kv
 from ..ops.rope import apply_rope, rope_frequencies
 from .common import ModelConfig, dense_init
 from .common import layer_weights as _layer_weights
@@ -92,15 +109,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int | None = None,
 
 
 def init(cfg: ModelConfig, seed: int = 0, *, device="cuda",
-         leaf=None) -> dict:
+         leaf=None, quant: bool = False) -> dict:
     """Random-init params on ``device`` from a seeded ``torch.Generator``;
-    the same dict layout a checkpoint loader fills. ``leaf(name,
-    tensor)``, if given, maps each leaf as soon as it is drawn (a
-    tensor-parallel rank's slice: tpu.checkpoint.rank_params), so the
-    whole model never exists at once; the draws are the same."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError("the port serves dense Llama models; "
-                                  "MoE is not ported yet")
+    the same dict layout a checkpoint loader fills (an MoE model's
+    ``router`` [L, D, E] and expert stacks [L, E, D, F] / [L, E, F, D]
+    in place of the dense FFN). ``leaf(name, tensor)``, if given, maps
+    each leaf as soon as it is drawn (a tensor-parallel rank's slice:
+    tpu.checkpoint.rank_params), so the whole model never exists at
+    once; the draws are the same. ``quant``: the projection leaves
+    (ops.quant.QUANT_LEAVES) are int8-quantized one [in, out] matrix at
+    a time as they are drawn (common.dense_init): the weights of
+    ``maybe_quantize(init(...), True)``, bit for bit, at a peak of the
+    int8 model plus one float32 matrix."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
@@ -115,24 +135,28 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda",
         return leaf(name, torch.ones(shape, dtype=dt, device=device))
 
     def draw(name, shape, scale=None):
-        return leaf(name, dense_init(shape, dt, gen, scale=scale))
+        return leaf(name, dense_init(shape, dt, gen, scale=scale,
+                                     quant=quant and name in QUANT_LEAVES))
 
-    # drawn in this order, whatever ``leaf`` does
-    params = {
-        "embedding": draw("embedding", (V, D), scale=0.02),
-        "layers": {
-            "attn_norm": ones("attn_norm", L, D),
-            "wq": draw("wq", (L, D, H * hd)),
-            "wk": draw("wk", (L, D, KV * hd)),
-            "wv": draw("wv", (L, D, KV * hd)),
-            "wo": draw("wo", (L, H * hd, D)),
-            "ffn_norm": ones("ffn_norm", L, D),
-            "w_gate": draw("w_gate", (L, D, Fd)),
-            "w_up": draw("w_up", (L, D, Fd)),
-            "w_down": draw("w_down", (L, Fd, D)),
-        },
-        "final_norm": ones("final_norm", D),
+    # drawn in this order (the JAX tree's), whatever ``leaf`` does
+    params = {"embedding": draw("embedding", (V, D), scale=0.02)}
+    layers = {
+        "attn_norm": ones("attn_norm", L, D),
+        "wq": draw("wq", (L, D, H * hd)),
+        "wk": draw("wk", (L, D, KV * hd)),
+        "wv": draw("wv", (L, D, KV * hd)),
+        "wo": draw("wo", (L, H * hd, D)),
+        "ffn_norm": ones("ffn_norm", L, D),
     }
+    E = cfg.n_experts
+    experts = (E,) if E > 0 else ()
+    if E > 0:
+        layers["router"] = draw("router", (L, D, E))
+    layers["w_gate"] = draw("w_gate", (L, *experts, D, Fd))
+    layers["w_up"] = draw("w_up", (L, *experts, D, Fd))
+    layers["w_down"] = draw("w_down", (L, *experts, Fd, D))
+    params["layers"] = layers
+    params["final_norm"] = ones("final_norm", D)
     if not cfg.tie_embeddings:
         params["lm_head"] = draw("lm_head", (D, V))
     return params
@@ -213,12 +237,114 @@ def _project(h, w, name: str, adapter):
     return out if delta is None else out + delta
 
 
+def _expert_mm(h, w):
+    """Each expert's product: ``h`` [E or 1, T, in] (1 broadcasts over
+    the experts) by ``w`` [E, in, out], dense or an int8
+    ``QuantizedLinear`` stack with scales [E, out] -> [E, T, out] in
+    ``h``'s dtype. An int8 stack is upcast to ``h``'s dtype and scaled
+    after the contraction in float32, as ``ops.quant.qmatmul`` does (the
+    JAX package's ``_expert_mm`` scales before its one rounding: equal
+    in float32, a bf16 step apart in bf16)."""
+    if isinstance(w, QuantizedLinear):
+        y = torch.matmul(h, w.w.to(h.dtype))
+        return (y.float() * w.scale[:, None, :]).to(h.dtype)
+    return torch.matmul(h, w)
+
+
+def _experts(h, w):
+    """The SwiGLU of every expert over its rows: ``h`` [E or 1, T, D]
+    -> [E, T, D]."""
+    gated = F.silu(_expert_mm(h, w["w_gate"])) * _expert_mm(h, w["w_up"])
+    return _expert_mm(gated, w["w_down"])
+
+
+def _route(hf, router, k: int):
+    """The one routing definition both dispatch layouts share (the JAX
+    package's ``_route``): the float32 softmax of ``hf`` [T, D] by
+    ``router`` [D, E], its top k (the lower expert on equal
+    probabilities, as ``lax.top_k``: a stable sort) and their weights
+    renormalized to sum to one. Returns (probs [T, E], topv [T, k]
+    float32, topi [T, k] int64)."""
+    probs = torch.softmax(torch.matmul(hf.float(), router.float()), dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    return probs, topv / topv.sum(dim=-1, keepdim=True), topi
+
+
+def _one_hot(idx, n: int) -> torch.Tensor:
+    """``idx`` [...] -> bool [..., n], by comparison (F.one_hot reads its
+    input's range back to the host)."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
+def _moe_ffn_grouped(h, w, cfg: ModelConfig, valid=None):
+    """Capacity-based grouped dispatch (the JAX package's
+    ``_moe_ffn_grouped``): each of the T * k claims, token-major (an
+    earlier token wins), takes the next place in its expert's buffer of
+    C = ceil(capacity_factor * T * k / E) rows; a claim past C is
+    dropped (its token's FFN gets nothing from that expert, the residual
+    stream carries it), and so is any claim of a token that ``valid``
+    [B, S] marks as padding, which takes no place either. Each expert
+    runs its buffer [E, C, D]; the rows come back and combine by the
+    renormalized router weights. Returns (out [B, S, D], probs
+    [B, S, E])."""
+    B, S, D = h.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.experts_per_token
+    # ceil, not truncate: at capacity factor 1.0 a perfectly balanced
+    # router fits with no drops
+    cap = max(1, math.ceil(cfg.moe_capacity_factor * T * K / E))
+    hf = h.reshape(T, D)
+    probs, topv, topi = _route(hf, w["router"], K)
+    flat_e = topi.reshape(T * K)
+    tok_of = torch.arange(T * K, device=h.device) // K          # token-major
+    claims = _one_hot(flat_e, E).to(torch.int32)               # [T*K, E]
+    if valid is not None:
+        vflat = valid.reshape(T)[tok_of]
+        claims = claims * vflat[:, None].to(torch.int32)
+    pos = torch.gather(torch.cumsum(claims, dim=0) - claims, 1,
+                       flat_e[:, None])[:, 0]                  # [T*K]
+    keep = pos < cap
+    if valid is not None:
+        keep = keep & vflat
+    # row C of each buffer takes the dropped writes and is cut off
+    buf = h.new_zeros((E, cap + 1, D))
+    buf[flat_e, torch.where(keep, pos, cap)] = hf[tok_of]
+    out_buf = _experts(buf[:, :cap], w)                        # [E, C, D]
+    vals = out_buf[flat_e, torch.where(keep, pos, 0)]          # [T*K, D]
+    vals = vals * keep[:, None].to(vals.dtype)
+    out = (vals.view(T, K, D) * topv.view(T, K, 1).to(vals.dtype)).sum(1)
+    return out.view(B, S, D), probs.view(B, S, E)
+
+
+def _moe_ffn(h, w, cfg: ModelConfig, valid=None):
+    """The mixture-of-experts SwiGLU FFN (the JAX package's
+    ``_moe_ffn``): with ``cfg.moe_capacity_factor > 0`` grouped dispatch
+    (``_moe_ffn_grouped``), else dense dispatch: every expert computes
+    every token ([E, T, D]) and a [T, E] combine that is zero off each
+    token's top k sums them; exact, on fixed shapes, at E / k times the
+    products of routed dispatch. ``w``: one layer's ``router`` [D, E]
+    and expert stacks [E, D, F] / [E, F, D], dense or int8. Returns
+    (out [B, S, D], probs [B, S, E] float32)."""
+    if cfg.moe_capacity_factor > 0:
+        return _moe_ffn_grouped(h, w, cfg, valid)
+    B, S, D = h.shape
+    E = cfg.n_experts
+    hf = h.reshape(B * S, D)
+    probs, topv, topi = _route(hf, w["router"], cfg.experts_per_token)
+    combine = (_one_hot(topi, E) * topv[..., None]).sum(1)     # [T, E]
+    y = _experts(hf[None], w)                                  # [E, T, D]
+    out = torch.einsum("etd,te->td", y, combine.to(y.dtype))
+    return out.view(B, S, D), probs.view(B, S, E)
+
+
 def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend,
-           adapter=None):
+           adapter=None, valid=None):
     """One transformer block; ``attend(q, k, v)`` runs attention;
     ``adapter`` [B] selects each row's LoRA adapter when ``w`` carries
-    the stacks. Returns (x_out, (k, v)) with this block's new keys and
-    values."""
+    the stacks; ``valid`` [B, S] bool marks the real tokens for an MoE
+    FFN's grouped dispatch (None: all real). Returns (x_out, (k, v))
+    with this block's new keys and values."""
     B, S = x.shape[0], x.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
@@ -240,6 +366,9 @@ def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend,
         if delta is not None:
             x = x + delta
     h = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
+    if cfg.n_experts > 0:
+        # one device only (TPU_SHARDING refuses an MoE model)
+        return x + _moe_ffn(h, w, cfg, valid)[0], (k, v)
     gated = F.silu(qmatmul(h, w["w_gate"])) * qmatmul(h, w["w_up"])
     return x + _reduce(cfg, qmatmul(gated, w["w_down"])), (k, v)
 
@@ -291,8 +420,9 @@ def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
             rope_tables, flash_attn: bool, collect_kv: bool = True,
             adapter=None):
     """Shared causal body of forward/prefill_kv/score: embed, run the
-    layers. Returns (x [B, S, D], k_stack, v_stack [L, B, S, KV, hd] --
-    None without ``collect_kv`` --, lengths)."""
+    layers (positions at or past a row's length are padding, ``valid``
+    False for an MoE FFN). Returns (x [B, S, D], k_stack, v_stack
+    [L, B, S, KV, hd] -- None without ``collect_kv`` --, lengths)."""
     B, S = tokens.shape
     device = tokens.device
     if lengths is None:
@@ -300,6 +430,7 @@ def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
     lengths = lengths.to(torch.int32)
     cos, sin = rope_tables or get_rope_tables(cfg, rope_max, device)
     positions = torch.arange(S, device=device).expand(B, S)
+    valid = positions < lengths[:, None]
     if flash_attn:
         def attend(q, k, v):
             return flash.flash_causal_prefill(q, k, v, lengths)
@@ -311,7 +442,7 @@ def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
-                           cos, sin, positions, attend, adapter)
+                           cos, sin, positions, attend, adapter, valid)
         if collect_kv:
             ks.append(k)
             vs.append(v)

@@ -14,10 +14,18 @@ from typing import NamedTuple
 import torch
 
 
+# the projection leaves a TPU_QUANT=int8 build quantizes (the JAX
+# loader's): plain [in, out], stacked [L, in, out] and the MoE expert
+# stacks [L, E, in, out]; the BERT and ViT trees share the attention names
+QUANT_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                          "lm_head"})
+
+
 class QuantizedLinear(NamedTuple):
     """Per-output-channel symmetric int8 weight. ``w``: [in, out] int8
-    (or stacked [L, in, out]), ``scale``: [out] float32 with
-    w_true ~= w * scale."""
+    (or stacked [L, in, out], or expert stacks [L, E, in, out]),
+    ``scale``: [out] float32 (stacked: ``w``'s shape less its ``in``
+    axis) with w_true ~= w * scale."""
 
     w: torch.Tensor
     scale: torch.Tensor
@@ -27,7 +35,8 @@ def quantize_int8(w: torch.Tensor, axis: int = 0,
                   whole: torch.Tensor | None = None) -> QuantizedLinear:
     """Quantize a weight per output channel (reduce over ``axis``). A
     stacked [L, ...] weight reduced within each layer is quantized one
-    layer at a time, so its float32 scratch never exceeds one layer (the
+    layer at a time (an [L, E, in, out] expert stack one matrix at a
+    time), so its float32 scratch never exceeds one layer (the
     same values: no reduction crosses layers). ``whole``: the weight
     ``w`` was cut from along ``axis`` (a tensor-parallel rank's rows):
     the scales are the whole weight's, so the codes are the rows of the

@@ -50,11 +50,21 @@ _COLUMN = {"wq", "wk", "wv", "w_gate", "w_up"}
 _ROW = {"wo", "w_down"}
 
 
-def check_tp(cfg: ModelConfig, tp: int, row: str = "") -> None:
-    """Refuse a tp the model's head counts do not take, naming the
-    row."""
+def check_tp(cfg: ModelConfig, tp: int, row: str = "",
+             model_row: str = "") -> None:
+    """Refuse a tp the model's head counts do not take, or a mixture of
+    experts (tp inside each expert and ep across them are not ported),
+    naming the row (and ``model_row``, the TPU_MODEL value)."""
     if tp <= 1:
         return
+    row = row or f"tp={tp}"
+    if cfg.n_experts > 0:
+        raise ShardingConfigError(
+            f"TPU_SHARDING={row!r} cannot serve TPU_MODEL="
+            f"{model_row or cfg.name!r}: a mixture of experts is served "
+            "on one device only (tp inside each expert and ep across "
+            "them are ROADMAP item 11b); unset TPU_SHARDING",
+            sharding_row=row)
     H, KV, F = cfg.n_heads, cfg.n_kv_heads, cfg.ffn_dim
     bad = []
     if H % tp:
@@ -65,7 +75,6 @@ def check_tp(cfg: ModelConfig, tp: int, row: str = "") -> None:
         bad.append(f"n_kv_heads={KV} (tp must divide it or be a "
                    "multiple of it)")
     if bad:
-        row = row or f"tp={tp}"
         raise ShardingConfigError(
             f"TPU_SHARDING={row!r}: tp={tp} does not fit model "
             f"{cfg.name!r}: {', '.join(bad)}", sharding_row=row)

@@ -7,10 +7,14 @@ with its generator and the ``score`` program.
 Rows read:
   TPU_MODEL         bert-base (alias bert; bert-tiny), vit-l-14 (aliases
                     vit, vit-l14; vit-tiny), or a Llama-family name
-                    (llama3-8b, llama-1b, tiny, ...; default tiny)
+                    (llama3-8b, llama-1b, tiny, ...; default tiny), the
+                    mixtures of experts mixtral-8x7b and tiny-moe among
+                    them (one device: TPU_SHARDING refuses them;
+                    Mixtral fits one 80 GB card with TPU_QUANT=int8)
   TPU_WEIGHTS       a ``.npz`` written by the JAX package's ``save_npz``;
                     absent = random init on the device from seed 0
-  TPU_QUANT         "int8" to quantize projection weights on load
+  TPU_QUANT         "int8" to quantize projection weights on load (a
+                    random init quantizes each matrix as it is drawn)
   TPU_BATCH_BUCKETS  csv of a predict program's batch buckets (default
                     1,2,4,8; the largest is a dispatch's cap)
   TPU_MAX_BATCH_DELAY  seconds the oldest waiting predict item may wait
@@ -144,9 +148,9 @@ Rows read:
                     pool included; rank 0 keeps the prefix index, T1
                     and T2 (frames per KV-head shard, as the JAX mesh
                     engine's). Any other axis above 1, a tp the model's
-                    head counts do not take, an encoder model and the
-                    P/D roles raise ShardingConfigError naming the
-                    row. A TP
+                    head counts do not take, an encoder model, an MoE
+                    model (naming TPU_MODEL too) and the P/D roles
+                    raise ShardingConfigError naming the row. A TP
                     engine runs its dispatches eagerly (no CUDA
                     graphs); a rank that dies, or a collective past 60
                     s, fails the live streams and takes it down
@@ -314,7 +318,7 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
                 f"TPU_SHARDING={plan.row()!r}: sharded {family} models "
                 "are not served yet (ROADMAP item 11b)",
                 sharding_row=plan.row())
-        check_tp(mc, plan.tp, plan.row())
+        check_tp(mc, plan.tp, plan.row(), model_row=name)
     if family == "llama" and device.type == "cuda":
         # the score program runs its attention through flash_prefill (on
         # each rank's head shard under TP): refuse a model the kernel
@@ -350,12 +354,14 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
             if not weights.endswith(".npz"):
                 raise ValueError(f"TPU_WEIGHTS={weights!r}: gofr_tpu_torch "
                                  "loads .npz checkpoints only")
-            params = load_npz(weights, device=device)
+            params = maybe_quantize(load_npz(weights, device=device), quant)
+        elif family == "llama":
+            # int8 as drawn, one matrix at a time: Mixtral's bf16 expert
+            # stacks (93 GB) would not fit on the card before quantizing
+            params = llama.init(mc, 0, device=device, quant=quant)
         else:
-            init = {"bert": bert.init, "vit": vit.init,
-                    "llama": llama.init}[family]
-            params = init(mc, 0, device=device)
-        params = maybe_quantize(params, quant)
+            init = {"bert": bert.init, "vit": vit.init}[family]
+            params = maybe_quantize(init(mc, 0, device=device), quant)
     batch_buckets = _csv_ints(cfg.get("TPU_BATCH_BUCKETS"),
                               DEFAULT_BATCH_BUCKETS)
     seq_buckets = _csv_ints(cfg.get("TPU_SEQ_BUCKETS"), DEFAULT_SEQ_BUCKETS)

@@ -27,12 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.quant import QuantizedLinear, quantize_int8
-
-# projection leaves worth int8-quantizing (stacked [L, in, out]): the
-# Llama names, which the BERT and ViT trees share for their attention
-# projections
-_QUANT_LEAVES = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"}
+from ..ops.quant import QUANT_LEAVES, QuantizedLinear, quantize_int8
 
 
 def to_tensor(arr, device: torch.device, dtype: torch.dtype | None = None
@@ -119,7 +114,7 @@ def _quantize_leaf(name: str, node, whole=None):
     """``node`` int8-quantized when it is a projection leaf; ``whole``:
     the leaf it was sliced from (a rank's shard), whose scales a slice
     of the contraction axis keeps."""
-    if (name in _QUANT_LEAVES and isinstance(node, torch.Tensor)
+    if (name in QUANT_LEAVES and isinstance(node, torch.Tensor)
             and node.ndim in (2, 3, 4)):
         axis = node.ndim - 2
         cut = whole is not None and whole.shape[axis] != node.shape[axis]
@@ -130,7 +125,8 @@ def _quantize_leaf(name: str, node, whole=None):
 def maybe_quantize(params: Any, enabled: bool) -> Any:
     """Int8-quantize the known projection leaves of a param tree per
     output channel (the contraction axis is ndim - 2 for plain and
-    stacked weights alike)."""
+    stacked weights and [L, E, in, out] expert stacks alike; their
+    scales are [L, E, out])."""
     if not enabled:
         return params
 

@@ -1016,9 +1016,6 @@ class GenerationEngine:
                  kvcache=None, gate=None,
                  slo_throughput_share: float = 0.25,
                  slo_latency_slots: int = 1, metrics=None, observe=None):
-        if cfg.n_experts > 0:
-            raise ValueError("the port serves dense Llama models; MoE is "
-                             "not ported yet")
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)

@@ -41,7 +41,10 @@ replica. A P/D pair of Apps on the card (a prefill worker shipping int8
 KV to a decode worker) streams what the decode worker's own fused
 serving answers, for a bucket prompt and a lattice one. A CLI App
 (``new_cmd``) at Llama-3-8B's width runs a ``generate`` sub-command
-through K1 and K2 and prints what a direct ``generate`` returns. They
+through K1 and K2 and prints what a direct ``generate`` returns. A
+mixture-of-experts model (int8 expert stacks or dense) launches K1 and
+K2 as a dense one does, its logits within the plain attention's, and
+its captured decode block replays the eager block. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -2076,3 +2079,65 @@ def test_a_cmd_app_on_the_card_streams_what_engine_generate_does(
     assert admissions == 1 and steps > 0
     assert launched == (2 * admissions, 0, 2 * steps, 0)
     assert '"migration applied"' in (tmp_path / "cmd.log").read_text()
+
+
+# -- a mixture of experts (models.llama's MoE layer) ---------------------------
+
+SMALL_MOE = SMALL.with_(n_experts=4, experts_per_token=2)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_the_moe_layer_through_the_kernels_equals_its_plain_version(gen,
+                                                                    quant):
+    """An MoE model (int8 expert stacks with ``quant``, quantized as
+    drawn): a prefill through K1 and 4 decode steps through K2 launch
+    one kernel a layer and step and no plain version, and their logits
+    are within the plain attention's (chip_smoke.py's LOGIT_ATOL) on the
+    same tokens; the router and its dense combine run inside a captured
+    decode block, whose replay equals the eager block."""
+    from gofr_tpu_torch.tpu import GenerationEngine
+
+    params = llama.init(SMALL_MOE, 0, device="cuda", quant=quant)
+    tokens = torch.randint(0, SMALL_MOE.vocab_size, (3, 64), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    lengths = torch.tensor([64, 40, 17], dtype=torch.int32, device="cuda")
+    steps, fed, logits = 4, None, {}
+    for kernels in (True, False):
+        flash.reset_counts()
+        flash_decode.reset_counts()
+        cache = llama.init_cache(SMALL_MOE, 3, 256, dtype=torch.int8,
+                                 device="cuda")
+        with torch.inference_mode():
+            lg, k, v, _ = llama.prefill_kv(
+                params, SMALL_MOE, tokens, lengths, rope_max=256,
+                flash=kernels, logit_pos=lengths - 1)
+            llama.write_kv(cache, k, v, lengths=lengths.clone())
+            out = [lg[:, 0]]
+            toks = fed or [lg[:, 0].argmax(-1)]
+            for i in range(steps):
+                lg, cache = llama.decode_step(params, SMALL_MOE, toks[i],
+                                              cache, flash=kernels)
+                out.append(lg)
+                if fed is None:
+                    toks.append(lg.argmax(-1))
+        fed = toks
+        logits[kernels] = torch.stack(out)
+        counts = (flash.launches, flash.plain_calls, flash_decode.launches,
+                  flash_decode.plain_calls)
+        if kernels:
+            assert counts == (SMALL_MOE.n_layers, 0,
+                              SMALL_MOE.n_layers * steps, 0)
+    assert (logits[True] - logits[False]).abs().max().item() <= 0.1
+    eng = GenerationEngine(SMALL_MOE, params, slots=3, max_seq=256,
+                           kv_dtype=torch.int8, decode_block=4,
+                           device="cuda")
+    try:
+        with eng._device_lock:
+            _random_state(eng, gen, [40, 131, 0], False)
+            _replay_equals_eager(eng, False)
+            eng._host_wins[:] = True
+            eng._touch()
+        assert len(eng.generate(list(range(1, 30)),
+                                max_new_tokens=8).tokens()) == 8
+    finally:
+        eng.close()
