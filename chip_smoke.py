@@ -390,11 +390,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      its streams equal the App's or part at a near tie, K1, K3 and K3w
      on the counters, a verify replay against its eager pass; a
      ``{"moe": {...}}`` line;
+  5s. (phase ``train``) training on the port
+     (``gofr_tpu_torch.parallel.train``), one card: Llama-1B at full
+     size (16 layers, bf16, seed-0 weights) through
+     examples/tpu-finetune's ``train -steps=20`` (8 x 128, the example's
+     synthetic batch) on ``gofr_tpu_torch.new_cmd``: the last logged
+     loss below the first; then ``resume -steps=5`` from its ``.npz``:
+     its 5 steps' losses and grad_norms, then its params, both moments
+     and the count, bit-equal to the same 5 steps run from the state in
+     memory (the optimizer rebuilt for 25 steps, as ``resume`` rebuilds
+     it); a step's time (CUDA events), tokens/s, the
+     optimizer's share and the peak; Llama-3-8B at full width cut to 8
+     layers, 3 steps at 4 x 512, its trained weights then served by a
+     GenerationEngine with phase 5's rows: 4 greedy prompts whose first
+     tokens are the cache-free forward's or within TP_TIE_ATOL of its
+     winner, K1 8 an admission and K2 8 a decode step; Mixtral-8x7B cut
+     to 2 layers, 3 steps at 4 x 512 with its aux_loss in [1, 8]; the
+     phase leaves nothing allocated; a ``{"train": {...}}`` line;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
      5's, the score run's and phases grpc's, tiers', lora's, tenancy's,
-     gateway's, pd's, tp's, cmd's, observe's and moe's; flash_decode's
-     phase 5's and phases grpc's, tiers', lora's, tenancy's, gateway's,
-     pd's, tp's, cmd's, observe's and moe's;
+     gateway's, pd's, tp's, cmd's, observe's, moe's and train's;
+     flash_decode's phase 5's and phases grpc's, tiers', lora's,
+     tenancy's, gateway's, pd's, tp's, cmd's, observe's, moe's and
+     train's;
      paged_decode's phase paged's, lora's, pd's, tp's and moe's;
      paged_window's phase spec's, tp's and moe's; phase tp's summed over
      its two ranks),
@@ -4817,7 +4835,7 @@ def f32_merged_logits(params: dict, cfg, prompt, adapter: int):
             for name in llama.LORA_TARGETS:
                 f[name] = f[name] + (w[f"lora_a_{name}"][adapter].float()
                                      @ w[f"lora_b_{name}"][adapter].float())
-            x, _ = llama._layer(x, f, mc, cos, sin, positions, attend)
+            x = llama._layer(x, f, mc, cos, sin, positions, attend)[0]
             del f
         x = rms_norm(x[:, -1], params["final_norm"].float(), cfg.norm_eps)
         logits = x @ deq(params["lm_head"])
@@ -7443,7 +7461,8 @@ CONFIG5_NEW = 8
 CONFIG5_LAYERS = 4
 # the depth of the phase's tp=1 and tp=2 engines: with phase moe the
 # whole run at 32 layers here (the phase 159.6-203.4 s) came within 80 s
-# of WATCHDOG_S
+# of WATCHDOG_S; with phase train beside it at 16 every phase took
+# 875.2-914.8 s, inside it
 TP_TIERS_LAYERS = 16
 
 
@@ -9330,6 +9349,599 @@ def moe_paged(rows: dict, params, prompts, card: str) -> dict:
             "tok_s": sum(map(len, outs)) / wall}
 
 
+# -- phase train: examples/tpu-finetune's train and resume on the port ------
+
+TRAIN_ROWS = {"LOG_LEVEL": "INFO"}
+TRAIN_MODEL = "llama-1b"
+TRAIN_STEPS = 20
+TRAIN_RESUME = 5
+TRAIN_ARGS = ["-batch=8", "-seq=128"]   # the example's defaults, named
+# The resumed run is held against the same TRAIN_RESUME steps run from
+# the state in memory: every step's loss and grad_norm, then the params,
+# both moments and the count after the last step, all bit-equal. The
+# checkpoint keeps every bit and the card runs the same kernels on the
+# same bits in the same order (cuBLAS is bit-reproducible on one card;
+# the dense path adds nothing atomically where order matters), and
+# every step past the first reads the restored moments, so a moment
+# lost or mis-restored parts them.
+# (base model, layers, batch, sequence, steps): Llama-3-8B at full width
+# cut to 8 layers (about 2.8 B params, 22 GB of state), whose trained
+# weights then serve through K1 and K2; Mixtral-8x7B cut to 2 layers
+# (about 3.2 B, 25 GB) with the load-balancing loss
+TRAIN_8B = ("llama3-8b", 8, 4, 512, 3)
+TRAIN_MOE = ("mixtral-8x7b", 2, 4, 512, 3)
+TRAIN_AUX = (1.0, 8.0)          # the MoE run's aux_loss must lie here
+TRAIN_SEED = 107
+TRAIN_SERVE = 4                 # greedy prompts on the trained 8-layer weights
+TRAIN_SERVE_LENS = (17, 500)    # bucket admissions (K1)
+TRAIN_SERVE_NEW = 16
+
+
+def finetune_routes(app, device: str = "cuda") -> None:
+    """examples/tpu-finetune/main.py's ``train`` and ``resume``
+    sub-commands on the port: the same flags, the same synthetic batch
+    and the same resume rule (a restored run's schedule covers
+    ``restored_step + steps``), with ``gofr_tpu_torch.parallel`` on one
+    device (``training_plan`` refuses any axis above 1)."""
+    import numpy as np
+
+    from gofr_tpu_torch import parallel
+    from gofr_tpu_torch.models import LLAMA_CONFIGS
+
+    def _data(ctx, cfg, batch: int, seq: int):
+        path = ctx.param("data", "")
+        if path:
+            with np.load(path) as f:
+                tokens = np.asarray(f["tokens"], np.int32)
+                lengths = (np.asarray(f["lengths"], np.int32)
+                           if "lengths" in f.files
+                           else np.full((len(tokens),), tokens.shape[1],
+                                        np.int32))
+            return tokens, lengths
+        rng = np.random.default_rng(0)  # bringup: synthetic tokens
+        tokens = rng.integers(1, cfg.vocab_size,
+                              (batch, seq)).astype(np.int32)
+        return tokens, np.full((batch,), seq, np.int32)
+
+    def _run(ctx, resume: bool) -> str:
+        cfg = LLAMA_CONFIGS[ctx.param("model", "tiny")]
+        steps = int(ctx.param("steps", "10"))
+        batch = int(ctx.param("batch", "8"))
+        seq = min(int(ctx.param("seq", "128")), cfg.max_seq)
+        out = ctx.param("out", "./ckpt")
+        lr = float(ctx.param("lr", "3e-4"))
+        mesh = parallel.training_plan(ctx.param("sharding", ""))
+
+        def optimizer(total: int):
+            return parallel.default_optimizer(lr=lr,
+                                              warmup=max(1, total // 10),
+                                              total_steps=max(total, 2))
+
+        if resume:
+            state = parallel.restore_train_state(out, cfg, optimizer(2),
+                                                 device=device)
+            start = int(state.step)
+            opt = optimizer(start + steps)
+            ctx.logger.info({"event": "resumed", "step": start})
+        else:
+            opt = optimizer(steps)
+            state = parallel.init_train_state(cfg, 0, opt, device=device)
+        step_fn = parallel.make_train_step(cfg, opt, device=device)
+
+        tokens, lengths = _data(ctx, cfg, batch, seq)
+        if tokens.shape[1] > seq:
+            tokens, lengths = tokens[:, :seq], np.minimum(lengths, seq)
+        n = len(tokens)
+        metrics = {"loss": float("nan")}
+        for i in range(steps):
+            lo = (i * batch) % max(1, n - batch + 1)
+            state, metrics = step_fn(state, tokens[lo:lo + batch],
+                                     lengths[lo:lo + batch])
+            if i % max(1, steps // 10) == 0:
+                ctx.logger.info({"event": "train", "step": int(state.step),
+                                 "loss": round(float(metrics["loss"]), 4)})
+        loss = float(metrics["loss"])
+        parallel.save_train_state(out, state)
+        shape = "x".join(f"{k}={v}" for k, v in mesh.shape().items())
+        return f"trained to step {int(state.step)} loss {loss:.4f} " \
+               f"mesh[{shape}] -> {out}"
+
+    @app.sub_command("train", description="fine-tune a model, save the state")
+    def train(ctx):
+        return _run(ctx, resume=False)
+
+    @app.sub_command("resume", description="continue training from -out")
+    def resume(ctx):
+        return _run(ctx, resume=True)
+
+
+class TrainClock:
+    """While installed, every step that ``parallel.make_train_step``
+    builds and every ``Optimizer.apply`` is timed between CUDA events
+    (the host clock on the CPU, for a rehearsal), the last state a step
+    returned is kept (``state``), and checkpoint saves and restores are
+    timed on the host clock."""
+
+    def __init__(self, device: str):
+        from gofr_tpu_torch import parallel
+        from gofr_tpu_torch.parallel import train
+
+        self.device = device
+        self.steps, self.opt, self.io = [], [], []
+        self.state = None
+        self._undo = []
+        make, apply = parallel.make_train_step, train.Optimizer.apply
+        save, restore = (parallel.save_train_state,
+                         parallel.restore_train_state)
+        clock = self
+
+        def timed_make(*a, **kw):
+            step = make(*a, **kw)
+
+            def timed(state, tokens, lengths):
+                t0 = clock.mark()
+                state, m = step(state, tokens, lengths)
+                clock.steps.append((t0, clock.mark(), m))
+                clock.state = state
+                return state, m
+            return timed
+
+        def timed_apply(self_, state, grads):
+            t0 = clock.mark()
+            out = apply(self_, state, grads)
+            clock.opt.append((t0, clock.mark()))
+            return out
+
+        def host_timed(name, fn):
+            def run(*a, **kw):
+                t0 = time.monotonic()
+                out = fn(*a, **kw)
+                clock.io.append((name, time.monotonic() - t0))
+                return out
+            return run
+
+        for owner, name, fn in (
+                (parallel, "make_train_step", timed_make),
+                (train.Optimizer, "apply", timed_apply),
+                (parallel, "save_train_state", host_timed("save", save)),
+                (parallel, "restore_train_state",
+                 host_timed("restore", restore))):
+            self._undo.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, fn)
+        self.make = make
+
+    def mark(self):
+        import torch
+
+        if self.device != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def ms(self, a, b) -> float:
+        if self.device != "cuda":
+            return (b - a) * 1e3
+        return a.elapsed_time(b)
+
+    def times(self) -> tuple[list, list]:
+        """(each step's ms, each optimizer update's ms) so far."""
+        import torch
+
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+        return ([self.ms(a, b) for a, b, _ in self.steps],
+                [self.ms(a, b) for a, b in self.opt])
+
+    def reset(self) -> None:
+        self.steps, self.opt, self.io = [], [], []
+        self.state = None
+
+    def close(self) -> None:
+        for owner, name, fn in self._undo:
+            setattr(owner, name, fn)
+        self.reset()
+
+
+def _peak_gb(device: str):
+    import torch
+
+    if device != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _reset_peak(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _step_line(clock, batch: int, seq: int) -> dict:
+    """A run's step time (the median past its first step), tokens/s and
+    the optimizer's share of a step."""
+    import numpy as np
+
+    step_ms, opt_ms = clock.times()
+    warm = step_ms[1:] or step_ms
+    med = float(np.median(warm))
+    opt = float(np.median(opt_ms[1:] or opt_ms))
+    return {"step_ms": med, "first_step_ms": step_ms[0],
+            "tok_s": batch * seq / med * 1e3, "opt_ms": opt,
+            "opt_share": opt / med, "steps": len(step_ms)}
+
+
+def profile_train_step(step, state, tokens, lengths, card: str) -> dict:
+    """One more train step under torch.profiler: its time between CUDA
+    events, the device's busy share of it (the kernels' own time), the
+    kernels launched by kind, and the host's time to issue the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        step(state, tokens, lengths)
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end)
+    # the kernels' own rows: an eager op's row, and an annotation's
+    # range on the device (the optimizer's step), repeat their time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    busy = sum(ms for _, ms, _ in rows)
+    kinds: dict = {}
+    for name, ms, count in rows:
+        k = kinds.setdefault(kernel_kind(name), [0.0, 0])
+        k[0] += ms
+        k[1] += count
+    top = sorted(rows, key=lambda r: -r[1])[:5]
+    print(f"[train] one step under torch.profiler: {step_ms:.2f} ms between "
+          f"CUDA events, the device busy {busy:.2f} ms "
+          f"({100 * busy / step_ms:.1f}%), {sum(c for _, _, c in rows)} "
+          f"kernels ({ {k: (round(v[0], 2), v[1]) for k, v in kinds.items()} }"
+          f" ms and launches by kind); the host issued it in {host_ms:.2f} "
+          f"ms; top kernels {[(n[:60], round(ms, 2), c) for n, ms, c in top]}"
+          f"; card: {card}", flush=True)
+    return {"profiled_step_ms": step_ms, "busy_ms": busy,
+            "busy_share": busy / step_ms, "host_ms": host_ms,
+            "kernels": sum(c for _, _, c in rows),
+            "by_kind": {k: v[0] for k, v in kinds.items()}}
+
+
+def train_llama_1b(card: str, device: str, tmp: str) -> dict:
+    """The example's ``train`` and ``resume`` on ``new_cmd``: the loss
+    falls over TRAIN_STEPS, and the resumed run equals, bit for bit, the
+    same TRAIN_RESUME steps run from the state in memory (the optimizer
+    rebuilt for TRAIN_STEPS + TRAIN_RESUME steps, as ``resume`` rebuilds
+    it): each step's loss and grad_norm, then the params, both moments
+    and the count."""
+    import json
+
+    import numpy as np
+
+    from gofr_tpu_torch import new_cmd, parallel
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.models import LLAMA_CONFIGS
+
+    log, ckpt = (os.path.join(tmp, n) for n in ("train.log", "ckpt.npz"))
+    app = new_cmd(MapConfig(dict(TRAIN_ROWS, CMD_LOGS_FILE=log)),
+                  device=device)
+    finetune_routes(app, device)
+    cfg = LLAMA_CONFIGS[TRAIN_MODEL]
+    flags = dict(a[1:].split("=") for a in TRAIN_ARGS)
+    batch, seq = int(flags["batch"]), int(flags["seq"])
+    clock = TrainClock(device)
+    try:
+        _reset_peak(device)
+        code, out, err, train_s = run_command_captured(
+            app, ["train", f"-model={TRAIN_MODEL}", f"-steps={TRAIN_STEPS}",
+                  *TRAIN_ARGS, f"-out={ckpt}"])
+        require(code == 0, f"train exited {code}: {err[-2000:]}")
+        peak = _peak_gb(device)
+        line = _step_line(clock, batch, seq)
+        io_train = dict(clock.io)
+        state = clock.state
+        with open(log) as f:
+            logged = [json.loads(ln)["message"] for ln in f
+                      if '"event": "train"' in ln]
+        losses = [m["loss"] for m in logged]
+        n = sum(t.numel() for t in state.opt_state.leaves.values())
+        print(f"[train] {TRAIN_MODEL} ({cfg.n_layers} layers, dim "
+              f"{cfg.dim}, {cfg.dtype}, seed-0 weights, {n / 1e9:.3f} B "
+              f"params): `train -steps={TRAIN_STEPS}` at {batch} x {seq} "
+              f"through new_cmd: {out.strip()!r}; logged losses {losses}; "
+              f"a step {line['step_ms']:.2f} ms (CUDA events, median past "
+              f"the first's {line['first_step_ms']:.1f}), "
+              f"{line['tok_s']:.0f} tokens/s, the optimizer "
+              f"{line['opt_ms']:.2f} ms ({100 * line['opt_share']:.1f}% of "
+              f"a step, fused AdamW); peak {peak} GB allocated; the save "
+              f"{io_train.get('save', 0):.1f} s, the command {train_s:.1f} "
+              f"s; card: {card}", flush=True)
+        require(len(losses) == 10 and losses[-1] < losses[0],
+                f"the loss did not fall: {losses}")
+        require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+
+        clock.reset()
+        code, out, err, resume_s = run_command_captured(
+            app, ["resume", f"-model={TRAIN_MODEL}",
+                  f"-steps={TRAIN_RESUME}", *TRAIN_ARGS, f"-out={ckpt}"])
+        require(code == 0, f"resume exited {code}: {err[-2000:]}")
+        require(f"trained to step {TRAIN_STEPS + TRAIN_RESUME} " in out,
+                f"resume printed {out!r}")
+        got = [{k: float(v) for k, v in m.items()}
+               for _, _, m in clock.steps]
+        resumed = clock.state
+        io_resume = dict(clock.io)
+        clock.reset()
+        # the same continuation from the state in memory
+        total = TRAIN_STEPS + TRAIN_RESUME
+        opt = parallel.default_optimizer(warmup=max(1, total // 10),
+                                         total_steps=max(total, 2))
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(1, cfg.vocab_size, (batch, seq)).astype(
+            np.int32)
+        step = clock.make(cfg, opt, device=device)
+        lengths = np.full((batch,), seq, np.int32)
+        ref = []
+        for _ in range(TRAIN_RESUME):
+            state, m = step(state, tokens, lengths)
+            ref.append({k: float(v) for k, v in m.items()})
+        parted = _train_state_parts(resumed, state)
+        del resumed
+        prof = (profile_train_step(step, state, tokens, lengths, card)
+                if device == "cuda" else {})
+        del state
+    finally:
+        clock.close()
+    same = [(g["loss"], g["grad_norm"]) == (r["loss"], r["grad_norm"])
+            for g, r in zip(got, ref)]
+    print(f"[train] `resume -steps={TRAIN_RESUME}`: {out.strip()!r}; the "
+          f"restore {io_resume.get('restore', 0):.1f} s, the command "
+          f"{resume_s:.1f} s; its (loss, grad_norm) a step "
+          f"{[(g['loss'], g['grad_norm']) for g in got]} against the "
+          f"in-memory continuation's "
+          f"{[(r['loss'], r['grad_norm']) for r in ref]}: bit-equal a step "
+          f"{same}; after the last step, elements that differ (max |d|) "
+          f"{parted}; card: {card}", flush=True)
+    require([g["step"] for g in got] == [r["step"] for r in ref]
+            == list(range(TRAIN_STEPS + 1, total + 1)),
+            f"steps {[g['step'] for g in got]} and "
+            f"{[r['step'] for r in ref]}")
+    require(all(same), f"the resumed steps {got} against the in-memory "
+            f"ones {ref}")
+    require(all(n == 0 for n, _ in parted.values()),
+            f"the resumed state parts from the in-memory one: {parted}")
+    return dict(line, **prof, peak_gb=peak, losses=losses,
+                save_s=io_train.get("save"),
+                restore_s=io_resume.get("restore"),
+                resume_losses=[g["loss"] for g in got],
+                resume_ref_losses=[r["loss"] for r in ref],
+                resume_grad_norms=[g["grad_norm"] for g in got],
+                resume_ref_grad_norms=[r["grad_norm"] for r in ref],
+                resume_state_parted=parted)
+
+
+def _train_state_parts(a, b) -> dict:
+    """For two TrainStates of one model: per tree (``params``, ``mu``,
+    ``nu``), the number of elements that differ and the largest
+    difference; ``count`` and ``step`` as 0 or 1 (equal or not)."""
+    import torch
+
+    from gofr_tpu_torch.parallel import train
+
+    trees = {"params": (train._leaves(a.params), train._leaves(b.params))}
+    for name in ("mu", "nu"):
+        trees[name] = (a.opt_state.moment(name), b.opt_state.moment(name))
+    out = {}
+    for name, (ta, tb) in trees.items():
+        require(ta.keys() == tb.keys(), f"{name}: other leaves")
+        n, worst = 0, 0.0
+        for path, x in ta.items():
+            y = tb[path]
+            k = int((x != y).sum())
+            n += k
+            if k:
+                worst = max(worst, float((x.float() - y.float()).abs()
+                                         .max()))
+        out[name] = (n, worst)
+    for name, x, y in (("count", a.opt_state.count, b.opt_state.count),
+                       ("step", a.step, b.step)):
+        out[name] = (int(int(x) != int(y)), float(abs(int(x) - int(y))))
+    return out
+
+
+def train_cut(card: str, device: str, base: str, layers: int, batch: int,
+              seq: int, steps: int, rng) -> tuple:
+    """``steps`` steps of ``base`` at full width cut to ``layers``, bf16,
+    seed-0 weights, on a seeded synthetic batch, through
+    ``make_train_step`` with the example's optimizer for ``steps``.
+    Returns (the summary, the params, detached, the TPU_MODEL name of
+    the cut)."""
+    import numpy as np
+
+    from gofr_tpu_torch import parallel
+    from gofr_tpu_torch.models import LLAMA_CONFIGS
+
+    name = cut_model(base, layers)
+    cfg = LLAMA_CONFIGS[name]
+    opt = parallel.default_optimizer(warmup=max(1, steps // 10),
+                                     total_steps=max(steps, 2))
+    tokens = rng.integers(1, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    lengths = np.full((batch,), seq, np.int32)
+    clock = TrainClock(device)
+    try:
+        _reset_peak(device)
+        t0 = time.monotonic()
+        state = parallel.init_train_state(cfg, 0, opt, device=device)
+        init_s = time.monotonic() - t0
+        n = sum(t.numel() for t in state.opt_state.leaves.values())
+        step = parallel.make_train_step(cfg, opt, device=device)
+        metrics = []
+        for _ in range(steps):
+            state, m = step(state, tokens, lengths)
+            metrics.append({k: float(v) for k, v in m.items()})
+        peak = _peak_gb(device)
+        line = _step_line(clock, batch, seq)
+    finally:
+        clock.close()
+    params = state.params
+    for t in state.opt_state.leaves.values():
+        t.requires_grad_(False)
+    del state, step
+    print(f"[train] {name} ({base} at full width, {layers} layers, "
+          f"{n / 1e9:.3f} B params, {cfg.dtype}): {steps} steps at {batch} x "
+          f"{seq}, metrics {metrics}; init {init_s:.1f} s; a step "
+          f"{line['step_ms']:.2f} ms (CUDA events; the first "
+          f"{line['first_step_ms']:.1f}), {line['tok_s']:.0f} tokens/s, "
+          f"the optimizer {100 * line['opt_share']:.1f}% of a step; peak "
+          f"{peak} GB allocated; card: {card}", flush=True)
+    require(all(math.isfinite(m[k]) for m in metrics
+                for k in ("loss", "grad_norm", "aux_loss")),
+            f"{name}: metrics {metrics}")
+    return dict(line, params_b=n / 1e9, peak_gb=peak, metrics=metrics,
+                init_s=init_s), params, name
+
+
+def train_serve(card: str, device: str, params, name: str, rng) -> dict:
+    """The trained weights, detached, on a GenerationEngine with phase
+    5's rows: TRAIN_SERVE greedy prompts, each first token the
+    cache-free forward's or within TP_TIE_ATOL of its winner, K1
+    n_layers a bucket admission and K2 n_layers a decode step."""
+    import torch
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
+    from gofr_tpu_torch.ops import flash, flash_decode
+    from gofr_tpu_torch.tpu import new_engine_from_config
+
+    cfg = LLAMA_CONFIGS[name]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in rng.integers(TRAIN_SERVE_LENS[0],
+                                     TRAIN_SERVE_LENS[1] + 1, TRAIN_SERVE)]
+    t0 = time.monotonic()
+    engine = new_engine_from_config(
+        MapConfig(dict(MAIN_ROWS, TPU_MODEL=name)), device=device,
+        params=params)
+    gen = engine.generator
+    ready_s = time.monotonic() - t0
+    try:
+        engine.generate(prompts[0][:32], max_new_tokens=4).tokens()
+        adm0, steps0 = gen.admissions, gen.decode_steps
+        flash.reset_counts()
+        flash_decode.reset_counts()
+        outs, streams, wall = _serve(engine, prompts, {}, TRAIN_SERVE_NEW)
+        counts = {"flash_prefill": flash.launches,
+                  "flash_decode": flash_decode.launches,
+                  "plain": flash.plain_calls + flash_decode.plain_calls}
+        admissions = gen.admissions - adm0
+        steps = gen.decode_steps - steps0
+    finally:
+        engine.close()
+    if device == "cuda":
+        release_graphs(gen)
+    ties = []
+    for i, (p, toks) in enumerate(zip(prompts, outs)):
+        with torch.no_grad():
+            ref = llama.score(params, cfg, torch.tensor([p], device=device),
+                              torch.tensor([len(p)], device=device))[0]
+        top = int(ref.argmax())
+        if toks[0] != top:
+            ties.append((i, float(ref[top] - ref[toks[0]])))
+    L = cfg.n_layers
+    print(f"[train] the trained {name} weights on a GenerationEngine "
+          f"(phase 5's rows, ready in {ready_s:.1f} s): {len(prompts)} "
+          f"greedy prompts {[len(p) for p in prompts]}, "
+          f"{TRAIN_SERVE_NEW} tokens each in {wall:.2f} s; first tokens "
+          f"against a cache-free forward: {len(prompts) - len(ties)} "
+          f"equal, the others (index, below the winner) {ties}; "
+          f"{admissions} admissions, {steps} decode steps, launches "
+          f"{counts}; card: {card}", flush=True)
+    require(all(len(t) == TRAIN_SERVE_NEW for t in outs),
+            f"stream lengths {[len(t) for t in outs]}")
+    _check_ties("the trained weights", ties)
+    require(counts["flash_prefill"] == L * admissions == L * len(prompts)
+            and counts["flash_decode"] == L * steps and steps > 0
+            and (device != "cuda" or counts["plain"] == 0),
+            f"launches {counts} for {admissions} admissions and {steps} "
+            f"decode steps of {L} layers")
+    return {"flash_prefill": counts["flash_prefill"],
+            "flash_decode": counts["flash_decode"], "ready_s": ready_s,
+            "ties": ties}
+
+
+def phase_train(card: str, device: str = "cuda") -> dict:
+    """Training on the port (``gofr_tpu_torch.parallel.train``) on one
+    card: Llama-1B at full size through examples/tpu-finetune's
+    ``train`` and ``resume`` on ``new_cmd`` (the loss falls, the resumed
+    step equals the in-memory continuation); Llama-3-8B at full width
+    cut to 8 layers, 3 steps, its trained weights serving through K1 and
+    K2; Mixtral-8x7B cut to 2 layers, 3 steps with the load-balancing
+    loss in TRAIN_AUX. Frees what it held (cuBLAS's workspaces
+    cleared). Returns the serving run's launches."""
+    import gc
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    def held() -> float:
+        gc.collect()
+        if device != "cuda":
+            return 0.0
+        torch.cuda.empty_cache()
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        return torch.cuda.memory_allocated() / 2**30
+
+    t_phase = time.monotonic()
+    before = held()
+    rng = np.random.default_rng(TRAIN_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        one_b = train_llama_1b(card, device, tmp)
+    held()
+    big, params, name = train_cut(card, device, *TRAIN_8B, rng)
+    serve = train_serve(card, device, params, name, rng)
+    del params
+    held()
+    moe, params, name = train_cut(card, device, *TRAIN_MOE, rng)
+    del params
+    aux = [m["aux_loss"] for m in moe["metrics"]]
+    print(f"[train] {name}'s aux_loss {aux} (in {TRAIN_AUX}); card: "
+          f"{card}", flush=True)
+    require(all(TRAIN_AUX[0] <= a <= TRAIN_AUX[1] for a in aux),
+            f"aux_loss {aux} outside {TRAIN_AUX}")
+    after = held()
+    print(f"[train] held before the phase {before:.3f} GiB, after "
+          f"{after:.3f} GiB (cuBLAS workspaces cleared); card: {card}",
+          flush=True)
+    require(after <= before + 1 / 1024,
+            f"the phase left {after - before:.3f} GiB allocated")
+    summary = {"llama_1b": one_b,
+               "llama3_8b_8l": {k: v for k, v in big.items()
+                                if k != "metrics"},
+               "llama3_8b_8l_metrics": big["metrics"],
+               "serve": {k: serve[k] for k in ("ready_s", "ties")},
+               "mixtral_2l": {k: v for k, v in moe.items()
+                              if k != "metrics"},
+               "mixtral_2l_metrics": moe["metrics"],
+               "held_gib": after, "phase_s": time.monotonic() - t_phase,
+               "card": card}
+    print(json.dumps({"train": summary}), flush=True)
+    return {"flash_prefill": serve["flash_prefill"],
+            "flash_decode": serve["flash_decode"]}
+
+
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
@@ -9337,7 +9949,7 @@ RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
                 "durable", "slo", "app", "predict", "grpc", "tiers", "lora",
                 "pubsub", "tenancy", "gateway", "pd", "tp", "tp_tiers",
-                "cmd", "observe", "moe")) -> dict:
+                "cmd", "observe", "moe", "train")) -> dict:
     import torch
 
     card = card_line()
@@ -9394,13 +10006,13 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
         elif phase in ("grpc", "tiers", "lora", "tenancy", "gateway", "pd",
-                       "tp", "tp_tiers", "cmd", "observe", "moe"):
+                       "tp", "tp_tiers", "cmd", "observe", "moe", "train"):
             counts = {"grpc": phase_grpc, "tiers": phase_tiers,
                       "lora": phase_lora, "tenancy": phase_tenancy,
                       "gateway": phase_gateway, "pd": phase_pd,
                       "tp": phase_tp, "tp_tiers": phase_tp_tiers,
                       "cmd": phase_cmd, "observe": phase_observe,
-                      "moe": phase_moe}[phase](card)
+                      "moe": phase_moe, "train": phase_train}[phase](card)
             # K1's, K2's (and K3's) counts: the earlier phases' plus this
             # run's
             for name, n in counts.items():

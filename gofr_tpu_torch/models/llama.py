@@ -39,11 +39,15 @@ dispatch (``multi_request_serving_config``); ``valid`` (from
 
 ``flash=True`` runs attention through the CUDA kernels (ops.flash,
 ops.flash_decode), which take the plain versions on CPU tensors;
-``flash=False`` calls the plain versions directly. ``verify_step``, the
-speculative verify pass over the contiguous cache, runs the plain
-``window_attention_appended`` on every device, as the JAX package runs
-its jnp version there; ``prefill_chunk``, a long prompt's chunk, runs
-the plain ``chunk_attention`` for the same reason.
+``flash=False`` calls the plain versions directly. ``forward(...,
+train=True)``, the training forward (parallel.train), runs the plain
+``causal_attention`` under the validity mask on every device, as the
+JAX package trains on its jnp attention; autograd differentiates
+every op of that path (none writes in place into a tensor it saved).
+``verify_step``, the speculative verify pass over the contiguous
+cache, runs the plain ``window_attention_appended`` on every device, as
+the JAX package runs its jnp version there; ``prefill_chunk``, a long
+prompt's chunk, runs the plain ``chunk_attention`` for the same reason.
 """
 
 from __future__ import annotations
@@ -53,10 +57,12 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops import flash, flash_decode
-from ..ops.attention import chunk_attention, window_attention_appended
+from ..ops.attention import (causal_attention, chunk_attention,
+                             window_attention_appended)
 from ..ops.norms import rms_norm
 from ..ops.quant import QUANT_LEAVES, QuantizedLinear, qmatmul, quantize_kv
 from ..ops.rope import apply_rope, rope_frequencies
@@ -343,8 +349,10 @@ def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend,
     """One transformer block; ``attend(q, k, v)`` runs attention;
     ``adapter`` [B] selects each row's LoRA adapter when ``w`` carries
     the stacks; ``valid`` [B, S] bool marks the real tokens for an MoE
-    FFN's grouped dispatch (None: all real). Returns (x_out, (k, v))
-    with this block's new keys and values."""
+    FFN's grouped dispatch (None: all real). Returns (x_out, (k, v),
+    router_probs): this block's new keys and values, and an MoE FFN's
+    router probabilities [B, S, E] float32 (None for a dense FFN), the
+    load-balancing loss's input in training."""
     B, S = x.shape[0], x.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
@@ -368,9 +376,10 @@ def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend,
     h = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
     if cfg.n_experts > 0:
         # one device only (TPU_SHARDING refuses an MoE model)
-        return x + _moe_ffn(h, w, cfg, valid)[0], (k, v)
+        ffn, probs = _moe_ffn(h, w, cfg, valid)
+        return x + ffn, (k, v), probs
     gated = F.silu(qmatmul(h, w["w_gate"])) * qmatmul(h, w["w_up"])
-    return x + _reduce(cfg, qmatmul(gated, w["w_down"])), (k, v)
+    return x + _reduce(cfg, qmatmul(gated, w["w_down"])), (k, v), None
 
 
 def _reduce(cfg: ModelConfig, part: torch.Tensor) -> torch.Tensor:
@@ -418,11 +427,17 @@ def _logits(params: dict, cfg: ModelConfig, x) -> torch.Tensor:
 
 def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
             rope_tables, flash_attn: bool, collect_kv: bool = True,
-            adapter=None):
+            adapter=None, train: bool = False, remat: bool = False):
     """Shared causal body of forward/prefill_kv/score: embed, run the
     layers (positions at or past a row's length are padding, ``valid``
-    False for an MoE FFN). Returns (x [B, S, D], k_stack, v_stack
-    [L, B, S, KV, hd] -- None without ``collect_kv`` --, lengths)."""
+    False for an MoE FFN). Attention is K1 (``flash_attn``), its plain
+    version, or with ``train`` the plain ``causal_attention`` under the
+    validity mask, the JAX package's training attention. ``remat`` runs
+    each layer under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward pass instead of kept. Returns (x
+    [B, S, D], k_stack, v_stack [L, B, S, KV, hd] -- None without
+    ``collect_kv`` --, lengths, each layer's router probabilities [B, S,
+    E] float32 -- None for a dense FFN)."""
     B, S = tokens.shape
     device = tokens.device
     if lengths is None:
@@ -431,7 +446,10 @@ def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
     cos, sin = rope_tables or get_rope_tables(cfg, rope_max, device)
     positions = torch.arange(S, device=device).expand(B, S)
     valid = positions < lengths[:, None]
-    if flash_attn:
+    if train:
+        def attend(q, k, v):
+            return causal_attention(q, k, v, mask=valid)
+    elif flash_attn:
         def attend(q, k, v):
             return flash.flash_causal_prefill(q, k, v, lengths)
     else:
@@ -439,27 +457,52 @@ def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
             return flash.causal_prefill_plain(q, k, v, lengths)
 
     x = _embed(params, cfg, tokens)
-    ks, vs = [], []
+    if train:
+        # one unbind a stacked leaf: its backward stacks the layers'
+        # gradients once, where a slice a layer (layer_weights) would
+        # write a zero-filled full-size gradient per layer and sum them
+        rows = {k: torch.unbind(v) for k, v in params["layers"].items()}
+        weights = [{k: r[i] for k, r in rows.items()}
+                   for i in range(cfg.n_layers)]
+    ks, vs, probs = [], [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
-                           cos, sin, positions, attend, adapter, valid)
+        w = weights[i] if train else _layer_weights(params["layers"], i)
+        args = (x, w, cfg, cos, sin, positions, attend, adapter, valid)
+        if remat:
+            x, (k, v), p = checkpoint(_layer, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
+        else:
+            x, (k, v), p = _layer(*args)
         if collect_kv:
             ks.append(k)
             vs.append(v)
+        probs.append(p)
     if not collect_kv:
-        return x, None, None, lengths
-    return x, torch.stack(ks), torch.stack(vs), lengths
+        return x, None, None, lengths, probs
+    return x, torch.stack(ks), torch.stack(vs), lengths, probs
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             lengths: torch.Tensor | None = None, rope_tables=None,
-            flash: bool = False, adapter=None) -> torch.Tensor:
+            flash: bool = False, adapter=None, *,
+            return_router_probs: bool = False, train: bool = False,
+            remat: bool = False):
     """Cache-free causal forward over [B, S] tokens -> [B, S, V] float32
-    logits; ``adapter`` [B]: each row's LoRA adapter."""
-    x, _, _, _ = _causal(params, cfg, tokens, lengths, tokens.shape[1],
-                         rope_tables, flash, collect_kv=False,
-                         adapter=adapter)
-    return _logits(params, cfg, x)
+    logits; ``adapter`` [B]: each row's LoRA adapter.
+
+    ``train``: the training forward (parallel.train), attention through
+    ``ops.attention.causal_attention`` with the validity mask, as the JAX
+    package's ``forward``; ``remat``: each layer checkpointed.
+    ``return_router_probs``: returns (logits, probs [L, B, S, E]
+    float32), probs None for a dense model."""
+    x, _, _, _, probs = _causal(params, cfg, tokens, lengths,
+                                tokens.shape[1], rope_tables, flash,
+                                collect_kv=False, adapter=adapter,
+                                train=train, remat=remat)
+    logits = _logits(params, cfg, x)
+    if not return_router_probs:
+        return logits
+    return logits, torch.stack(probs) if cfg.n_experts > 0 else None
 
 
 def _gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -478,9 +521,9 @@ def score(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     without the [B, S, V] float32 logits. Causal attention never lets a
     row see past itself, so the keys masked at or past ``lengths[b]``
     change nothing at the row read."""
-    x, _, _, _ = _causal(params, cfg, tokens, lengths, tokens.shape[1],
-                         rope_tables, flash, collect_kv=False,
-                         adapter=adapter)
+    x, _, _, _, _ = _causal(params, cfg, tokens, lengths, tokens.shape[1],
+                            rope_tables, flash, collect_kv=False,
+                            adapter=adapter)
     pos = torch.clamp(lengths.long() - 1, min=0)
     return _logits(params, cfg, _gather_rows(x, pos))[:, 0]
 
@@ -497,7 +540,7 @@ def prefill_kv(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     only [B, 1, V] logits are computed. Returns (logits [B, S, V] float32
     -- or [B, 1, V] with ``logit_pos`` --, k_stack, v_stack
     [L, B, S, KV, hd], lengths [B])."""
-    x, k_stack, v_stack, lengths = _causal(
+    x, k_stack, v_stack, lengths, _ = _causal(
         params, cfg, tokens, lengths, rope_max or tokens.shape[1],
         rope_tables, flash, adapter=adapter)
     if logit_pos is not None:
@@ -589,7 +632,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             return chunk_attention(q, k_l, v_l, k_new, v_new, start, ks_l,
                                    vs_l)
 
-        x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
+        x, (k, v), _ = _layer(x, _layer_weights(params["layers"], i), cfg,
                            cos, sin, positions, attend, adapter)
         ks.append(k)
         vs.append(v)
@@ -689,7 +732,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         def attend(q, k_new, v_new, k_l=k_l, v_l=v_l, ks_l=ks_l, vs_l=vs_l):
             return attn_fn(q, k_l, v_l, k_new, v_new, lengths, ks_l, vs_l)
 
-        x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
+        x, (k, v), _ = _layer(x, _layer_weights(params["layers"], i), cfg,
                            cos, sin, positions, attend, adapter)
         k_toks.append(k[:, 0])
         v_toks.append(v[:, 0])
@@ -738,7 +781,7 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             return window_attention_appended(q, k_l, v_l, k_new, v_new,
                                              lengths, ks_l, vs_l)
 
-        x, (k, v) = _layer(x, _layer_weights(params["layers"], i), cfg,
+        x, (k, v), _ = _layer(x, _layer_weights(params["layers"], i), cfg,
                            cos, sin, rope_pos, attend, adapter)
         k_w.append(k)
         v_w.append(v)

@@ -156,8 +156,9 @@ def paged_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             return paged_attention.paged_decode_attention(
                 q, k_l, v_l, k_new, v_new, table, lengths, ks_l, vs_l)
 
-        x, (k, v) = llama._layer(x, llama._layer_weights(params["layers"], i),
-                                 cfg, cos, sin, positions, attend, adapter)
+        x, (k, v), _ = llama._layer(
+            x, llama._layer_weights(params["layers"], i), cfg, cos, sin,
+            positions, attend, adapter)
         k_toks.append(k[:, 0])
         v_toks.append(v[:, 0])
     blk, off = _pool_coords(table, lengths, T)
@@ -207,8 +208,9 @@ def paged_verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             return paged_attention.paged_window_attention(
                 q, k_l, v_l, k_new, v_new, table, lengths, ks_l, vs_l)
 
-        x, (k, v) = llama._layer(x, llama._layer_weights(params["layers"], i),
-                                 cfg, cos, sin, rope_pos, attend, adapter)
+        x, (k, v), _ = llama._layer(
+            x, llama._layer_weights(params["layers"], i), cfg, cos, sin,
+            rope_pos, attend, adapter)
         k_w.append(k)
         v_w.append(v)
     blk, off = _pool_coords(table, positions, T)              # [B, W]

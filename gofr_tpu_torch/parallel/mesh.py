@@ -49,10 +49,12 @@ class MeshPlan:
                         if n > 1) or "tp=1"
 
 
-def parse_sharding(spec: str | None) -> MeshPlan | None:
-    """``"tp=8"`` / ``"tp=4,dp=1"`` -> MeshPlan (None when unset). A
-    malformed row, an unknown axis, a size below 1, or any axis other
-    than ``tp`` above 1 raises ``ShardingConfigError`` naming the row."""
+def parse_mesh_row(spec: str | None, what: str = "TPU_SHARDING"
+                   ) -> MeshPlan | None:
+    """``"tp=8"`` / ``"dp=2,fsdp=2"`` -> MeshPlan (None when unset), any
+    axis at any size; ``what`` names the row in an error. A malformed
+    row, an unknown axis or a size below 1 raises
+    ``ShardingConfigError`` naming the row."""
     if spec is None or not spec.strip():
         return None
     row = spec.strip()
@@ -66,11 +68,21 @@ def parse_sharding(spec: str | None) -> MeshPlan | None:
             size = 0
         if not eq or name not in MESH_AXES or size < 1:
             raise ShardingConfigError(
-                f"TPU_SHARDING={row!r}: expected comma-separated "
+                f"{what}={row!r}: expected comma-separated "
                 f"axis=size pairs over {MESH_AXES} with sizes >= 1",
                 sharding_row=row)
         axes[name] = size
-    plan = MeshPlan(**axes)
+    return MeshPlan(**axes)
+
+
+def parse_sharding(spec: str | None) -> MeshPlan | None:
+    """``"tp=8"`` / ``"tp=4,dp=1"`` -> MeshPlan (None when unset). A
+    malformed row, an unknown axis, a size below 1, or any axis other
+    than ``tp`` above 1 raises ``ShardingConfigError`` naming the row."""
+    plan = parse_mesh_row(spec)
+    if plan is None:
+        return None
+    row = spec.strip()
     others = [f"{ax}={n}" for ax, n in plan.shape().items()
               if ax != AXIS_TP and n > 1]
     if others:

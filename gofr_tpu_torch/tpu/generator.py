@@ -3030,7 +3030,12 @@ class GenerationEngine:
         quant = store.k_scale is not None
 
         def host(t):
-            return t[:, row, start:plen].contiguous().cpu()
+            part = t[:, row, start:plen]
+            if part.device.type == "cpu":
+                # a copy: one layer's row is contiguous already, and
+                # .contiguous() would hand back the store's own memory
+                return part.clone(memory_format=torch.contiguous_format)
+            return part.contiguous().cpu()
 
         return HostKV(host(store.k), host(store.v),
                       host(store.k_scale) if quant else None,

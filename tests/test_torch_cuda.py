@@ -44,7 +44,8 @@ serving answers, for a bucket prompt and a lattice one. A CLI App
 through K1 and K2 and prints what a direct ``generate`` returns. A
 mixture-of-experts model (int8 expert stacks or dense) launches K1 and
 K2 as a dense one does, its logits within the plain attention's, and
-its captured decode block replays the eager block. They
+its captured decode block replays the eager block. A bf16 train step
+on the card follows the CPU's float32 step. They
 need an NVIDIA card and skip without one; on the card run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -2141,3 +2142,47 @@ def test_the_moe_layer_through_the_kernels_equals_its_plain_version(gen,
                                 max_new_tokens=8).tokens()) == 8
     finally:
         eng.close()
+
+
+def test_a_bf16_train_step_on_the_card_follows_the_cpu_s_float32_step(gen):
+    """Three steps of ``parallel.make_train_step`` on ``tiny`` in bf16 on
+    the card against the same steps in float32 on the CPU from the same
+    weights and batch: the loss within 2e-2 and ``grad_norm`` within
+    5e-2 relative at every step; every param within 2^-7 of its
+    magnitude plus 4 lr (two steps at lr > 0: Adam moves a param by
+    about lr a step at most, and a bf16 gradient near zero can take the
+    other sign; on the CPU in bf16 5-10% of elements part by over lr /
+    10) and each leaf's median difference within 2^-7 of its median
+    magnitude plus lr / 10."""
+    from gofr_tpu_torch import parallel
+
+    lr = 1e-2
+    cfg = LLAMA_CONFIGS["tiny"]
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(1, cfg.vocab_size, (4, 64)).astype(np.int32)
+    lengths = np.array([64, 64, 50, 30], np.int32)
+    runs = {}
+    for device, dtype in (("cpu", "float32"), ("cuda", "bfloat16")):
+        c = cfg.with_(dtype=dtype)
+        opt = parallel.default_optimizer(lr=lr, warmup=1, total_steps=10)
+        params = {k: (v.to(device, c.tdtype) if not isinstance(v, dict)
+                      else {n: t.to(device, c.tdtype) for n, t in v.items()})
+                  for k, v in llama.init(cfg, 0, device="cpu").items()}
+        state = parallel.TrainState(0, params, opt.init(params))
+        step = parallel.make_train_step(c, opt, device=device)
+        metrics = []
+        for _ in range(3):
+            state, m = step(state, tokens, lengths)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[device] = (metrics, parallel.train._leaves(state.params))
+    (m32, p32), (m16, p16) = runs["cpu"], runs["cuda"]
+    for a, b in zip(m16, m32):
+        assert abs(a["loss"] - b["loss"]) <= 2e-2 * b["loss"], (a, b)
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= 5e-2 * b["grad_norm"]
+    assert m16[-1]["loss"] < m16[0]["loss"]
+    for name, t in p16.items():
+        want = p32[name].detach()
+        diff = (t.detach().float().cpu() - want).abs()
+        assert torch.all(diff <= RTOL * want.abs() + 4 * lr), name
+        assert float(diff.median()) <= RTOL * float(want.abs().median()) \
+            + lr / 10, name

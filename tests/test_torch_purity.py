@@ -16,7 +16,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "gofr_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "gofr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "gofr_tpu", "optax", "orbax")
 
 
 def _port_files():
@@ -67,6 +67,12 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                                             & set(FORBIDDEN))
            for p in files}
     assert not {p: r for p, r in bad.items() if r}
+    # training keeps to torch: its optimizer is torch.optim, its
+    # checkpoints numpy's .npz
+    assert PORT / "parallel" / "train.py" in files
+    assert _imported_roots(PORT / "parallel" / "train.py") <= {
+        "__future__", "dataclasses", "numpy", "os", "torch", "typing",
+        "zipfile"}
     # and the scan would see one if it were there
     assert "gofr_tpu" in _imported_roots(
         ROOT / "tests" / "test_torch_llama.py")
@@ -83,6 +89,8 @@ def _entry_points():
     from gofr_tpu_torch.container import Container
     from gofr_tpu_torch.models import (BERT_CONFIGS, LLAMA_CONFIGS,
                                        VIT_CONFIGS, bert, llama, vit)
+    from gofr_tpu_torch.parallel import (default_optimizer, init_train_state,
+                                         make_train_step)
     from gofr_tpu_torch.tpu import (GenerationEngine, TorchEngine,
                                     from_jax_params, new_engine_from_config)
 
@@ -107,12 +115,16 @@ def _entry_points():
             tiny, llama.init(tiny, 0, device="cpu"), slots=2, max_seq=16),
         "new_engine_from_config": lambda: new_engine_from_config(
             MapConfig({"TPU_MODEL": "tiny"})),
+        "init_train_state": lambda: init_train_state(
+            tiny, 0, default_optimizer()),
+        "make_train_step": lambda: make_train_step(tiny, default_optimizer()),
     }
 
 
 ENTRY_POINTS = ["App", "Container", "GenerationEngine", "TorchEngine",
-                "bert.init", "from_jax_params", "llama.init",
-                "llama.init_cache", "new_cmd", "new_engine_from_config",
+                "bert.init", "from_jax_params", "init_train_state",
+                "llama.init", "llama.init_cache", "make_train_step",
+                "new_cmd", "new_engine_from_config",
                 "new_engine_from_config[bert]",
                 "new_engine_from_config[vit]", "resolve_device", "vit.init"]
 

@@ -97,7 +97,7 @@ def _jmesh():
     return make_mesh(tp=2, devices=jax.devices()[:2])
 
 
-def _jax(weights, server=None, mesh=None, host_mb=64, **kw):
+def _jax(weights, server=None, mesh=None, host_mb=64, cfg=JTINY, **kw):
     """The JAX engine of the tiers' cases: 2 slots, 128 positions,
     buckets 8/16/32, int8 KV, a 1-row T0 storing prompts of 16+ tokens,
     radix blocks of 8, T1 of ``host_mb`` MiB, T2 on ``server``."""
@@ -106,18 +106,18 @@ def _jax(weights, server=None, mesh=None, host_mb=64, **kw):
         block=8, host_mb=host_mb, epoch_refresh_s=0.0,
         redis=JClient(server.host, server.port) if server else None)
     params = weights[0] if mesh is None else jshard_params(weights[0], mesh)
-    return JaxEngine(JTINY, params, mesh=mesh, kv_dtype=jnp.int8,
+    return JaxEngine(cfg, params, mesh=mesh, kv_dtype=jnp.int8,
                      kvcache=opts, slots=2, max_seq=128,
                      prompt_buckets=(8, 16, 32), prefix_store_min=16, **kw)
 
 
-def _port(params, server=None, tp=2, host_mb=64, **kw):
+def _port(params, server=None, tp=2, host_mb=64, cfg=TINY, **kw):
     """The port's engine of the same rows, as ``tp`` ranks."""
     kw.setdefault("prefix_cache_slots", 1)
     opts = pkv.KVCacheOptions(
         block=8, host_mb=host_mb, epoch_refresh_s=0.0,
         redis=RedisClient(server.host, server.port) if server else None)
-    return GenerationEngine(TINY, params, kv_dtype=torch.int8,
+    return GenerationEngine(cfg, params, kv_dtype=torch.int8,
                             mesh=MeshPlan(tp=tp) if tp > 1 else None,
                             kvcache=opts, slots=2, max_seq=128,
                             prompt_buckets=(8, 16, 32), prefix_store_min=16,
@@ -334,6 +334,41 @@ def test_tp2_tiers_miss_t0_t1_then_a_second_engine_s_t2_equal_jax(
     assert [r[1] for r in runs["port"]] == [None, "t0", None, "t1", "t2"]
     assert stores["port"] == stores["mesh"]
     assert any(k.endswith(":s1") for k in stores["port"])
+
+
+def test_one_layer_tp2_t1_and_t2_hits_equal_jax_and_tp1(redis_server,
+                                                         monkeypatch):
+    """A one-layer ``tiny`` (registered as ``tiny-1l`` in both packages'
+    configs): a tp=2 engine's miss, T0 hit, T1 hit and a second tp=2
+    engine's T2 hit stream the greedy tokens of JAX's unsharded engine
+    and of the port's tp=1 engine through the same script."""
+    jcfg = JTINY.with_(name="tiny-1l", n_layers=1)
+    cfg = TINY.with_(name="tiny-1l", n_layers=1)
+    monkeypatch.setitem(JAX_CONFIGS, "tiny-1l", jcfg)
+    monkeypatch.setitem(LLAMA_CONFIGS, "tiny-1l", cfg)
+    jparams = jllama.init(jcfg, jax.random.PRNGKey(1))
+    pparams = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
+    _, script, t2_prompt = _prompts()
+    runs = {}
+    for side, tp in (("jax", 1), ("port", 1), ("port", 2)):
+        redis_server.store.data.clear()
+        if side == "jax":
+            first, second = (_jax((jparams, None), redis_server, cfg=jcfg)
+                             for _ in range(2))
+        else:
+            first, second = (_port(pparams, redis_server, tp=tp, cfg=cfg)
+                             for _ in range(2))
+        with _closing(first), _closing(second):
+            got = [_serve(first, p) for p in script]
+            got.append(_serve(second, t2_prompt))
+            if tp > 1:
+                _agree(first)
+                _agree(second)
+        runs[side, tp] = got
+    assert [r[1] for r in runs["port", 2]] == [None, "t0", None, "t1", "t2"]
+    assert [r[1:] for r in runs["port", 2]] == [r[1:] for r in runs["jax", 1]]
+    assert [r[0] for r in runs["port", 2]] == [r[0] for r in runs["jax", 1]]
+    assert runs["port", 2] == runs["port", 1]
 
 
 def test_jax_s_mesh_engine_and_the_port_s_tp2_engine_share_t2(
