@@ -215,9 +215,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      flash_prefill 32 a bucket admission and flash_decode 32 a decode
      step;
   5j. (phase ``lora``) multi-LoRA on examples/tpu-multi-lora's routes
-     and rows: a ``gofr_tpu_torch.App`` builds Llama-3-8B with int8
-     weights and KV, 48 slots, 1024 positions and 4 adapter slots of
-     rank 16 (seed-0 weights); adapters 1-3 installed through ``POST
+     and rows: a ``gofr_tpu_torch.App`` builds Llama-3-8B (cut to
+     LORA_LAYERS = 4 layers) with int8 weights and KV, 48
+     slots, 1024 positions and 4 adapter slots of rank 16 (seed-0
+     weights); adapters 1-3 installed through ``POST
      /adapters/{idx}`` (seeded npz bodies, B scaled so their greedy
      tokens part from adapter 0's); ``GET /adapters``; 32 concurrent
      ``POST /generate`` of 17-500 tokens, 48 new, 8 an adapter (K1 32 a
@@ -308,16 +309,16 @@ Phases, in order; any failure raises and the script exits non-zero:
   5o. (phase ``tp``) tensor-parallel serving on the one card: K1, K2,
      K3 and K3w (int8) at the per-rank head counts (16, 4), (8, 2),
      (4, 1) and (8, 1) held against their plain versions and timed;
-     then Llama-3-8B at phase 5's rows (full width and depth, seed-0
-     weights) at tp=1 (8 greedy streams of 32 tokens, X + S + X prompts'
-     first tokens, score logits), freed; then a ``gofr_tpu_torch.App``
+     then Llama-3-8B at phase 5's rows (full width cut to TP_LAYERS = 4
+     layers, seed-0 weights) at tp=1 (8 greedy streams of 32
+     tokens, X + S + X prompts' first tokens, score logits), freed; then a ``gofr_tpu_torch.App``
      with TPU_SHARDING=tp=2 (this process rank 0, one worker process,
      both on cuda:0, the device group over gloo, dispatches eager): 8
      POST /generate streams and a score of each prompt, the score logits
      within TP_LOGIT_ATOL of tp=1's and every first token equal, each
      stream's first index parting from tp=1's printed, both ranks' carry
-     and cursors equal, K1 32 an admission or score dispatch and K2 32 a
-     decode step on each rank (counted through ``tp_probe``), the
+     and cursors equal, K1 n_layers an admission or score dispatch and K2
+     n_layers a decode step on each rank (counted through ``tp_probe``), the
      leased bytes and building peak of each rank, tok/s, TTFT, the step
      and one all_reduce's time by shape; the App's stop ends the worker;
      then a paged tp=2 engine with TPU_SPEC_DECODE=4 serving 4 X + S + X
@@ -376,14 +377,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      model through K1 and K2; 4 full-width int8 layers through the
      kernels against their plain versions (a row held where both runs
      routed alike; the first token a row routed otherwise at a near tie
-     of its router probabilities); then Mixtral-8x7B at full width and
-     depth from the rows TPU_MODEL=mixtral-8x7b, TPU_QUANT=int8 (int8
+     of its router probabilities); then Mixtral-8x7B at full width cut
+     to MOE_LAYERS = 16 layers from the rows
+     TPU_MODEL=mixtral-8x7b, TPU_QUANT=int8 (int8
      weights quantized as drawn, int8 KV, 48 slots) through
      ``gofr_tpu_torch.App``: the build's time and peak memory against
      the int8 weights' bytes, 8 POST /generate streams of X + X bucket
      prompts and one 700-token lattice prompt (64 greedy tokens each):
-     first tokens against a cache-free forward, K1 32 a bucket
-     admission and K2 32 a decode step equal to the timeline's events,
+     first tokens against a cache-free forward, K1 n_layers a bucket
+     admission and K2 n_layers a decode step equal to the timeline's
+     events,
      TTFT, tok/s, a 48-slot block's device time beside the weights'
      byte bound, the decode graphs' replays against their eager blocks;
      then a paged engine with TPU_SPEC_DECODE=4 on the same weights:
@@ -393,20 +396,32 @@ Phases, in order; any failure raises and the script exits non-zero:
   5s. (phase ``train``) training on the port
      (``gofr_tpu_torch.parallel.train``), one card: Llama-1B at full
      size (16 layers, bf16, seed-0 weights) through
-     examples/tpu-finetune's ``train -steps=20`` (8 x 128, the example's
-     synthetic batch) on ``gofr_tpu_torch.new_cmd``: the last logged
-     loss below the first; then ``resume -steps=5`` from its ``.npz``:
-     its 5 steps' losses and grad_norms, then its params, both moments
-     and the count, bit-equal to the same 5 steps run from the state in
-     memory (the optimizer rebuilt for 25 steps, as ``resume`` rebuilds
-     it); a step's time (CUDA events), tokens/s, the
-     optimizer's share and the peak; Llama-3-8B at full width cut to 8
-     layers, 3 steps at 4 x 512, its trained weights then served by a
-     GenerationEngine with phase 5's rows: 4 greedy prompts whose first
-     tokens are the cache-free forward's or within TP_TIE_ATOL of its
-     winner, K1 8 an admission and K2 8 a decode step; Mixtral-8x7B cut
-     to 2 layers, 3 steps at 4 x 512 with its aux_loss in [1, 8]; the
-     phase leaves nothing allocated; a ``{"train": {...}}`` line;
+     examples/tpu-finetune's ``train -steps=3`` (8 x 128, the example's
+     synthetic batch) on ``gofr_tpu_torch.new_cmd``, on one device, then
+     the same command with ``-sharding=dp=2,fsdp=2,tp=2`` (8 ranks on the
+     card over gloo): the first step's loss within 0.5% and grad_norm
+     within 2% of one device's, the ranks' checkpoint against the
+     one-device state (each param leaf's median difference within a
+     tenth of the median of one device's change from the seed-0 params,
+     which a checkpoint left at those params fails at every leaf that
+     moved; every param within 2^-7 of its magnitude plus 4 lr; each
+     moment's median difference within a tenth of its median
+     magnitude), each rank's state bytes (a quarter), collective time
+     and peak; ``resume -steps=5`` of the one-device ``.npz``: its steps'
+     losses and grad_norms, then its params, both moments and the count,
+     bit-equal to the same steps run from the state in memory; then
+     ``resume -steps=2 -sharding=tp=4,dp=2`` of the ranks' checkpoint:
+     trained to step 5, its loss below the first run's; a step's time
+     (CUDA events), tokens/s, the optimizer's share and the peak;
+     Llama-3-8B at full width cut to 2 layers (head_dim 128, which K1
+     and K2 take), 2 steps on one device, its params saved into a
+     serving ``.npz`` and served from it (TPU_WEIGHTS) with phase 5's
+     rows at TPU_SHARDING=tp=2 and on one device: 4 greedy prompts
+     whose first tokens equal the cache-free forward's, K1 2 an
+     admission and K2 2 a decode step on every rank, no plain call;
+     Mixtral-8x7B cut to 2 layers, 3 steps at 4 x 512 on one device with
+     its aux_loss in [1, 8]; the phase leaves nothing allocated; a
+     ``{"train": {...}}`` line;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
      5's, the score run's and phases grpc's, tiers', lora's, tenancy's,
      gateway's, pd's, tp's, cmd's, observe's, moe's and train's;
@@ -415,7 +430,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      train's;
      paged_decode's phase paged's, lora's, pd's, tp's and moe's;
      paged_window's phase spec's, tp's and moe's; phase tp's summed over
-     its two ranks),
+     its two ranks, phase train's over its two engines' ranks),
      then the card line, then the ``{"ok": true, "device": {...}}`` line
      last.
 
@@ -509,8 +524,11 @@ INT8_WINDOW_REL = 4 * 2.0 ** -7
 LAYERS = 32
 
 # a run that has not ended by then dumps every thread's stack to stderr
-# and exits 1, inside the 1200 s the script is given
-WATCHDOG_S = 1050
+# and exits 1, inside the 1200 s the script is given; every phase took
+# 990.7-1034.7 s on the card with phase train's ranks (one phase up to
+# 44% slower on one host than on another), so a passing run on a slow
+# host must not meet it
+WATCHDOG_S = 1150
 
 
 class SmokeFailure(RuntimeError):
@@ -4712,6 +4730,10 @@ LORA_ROWS = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "WARN",
 LORA_PAGED_ROWS = dict(LORA_ROWS, TPU_PAGED_BLOCKS="257",
                        TPU_PAGED_BLOCK="128")
 LORA_SEED = 59
+# the phase's depth, cut from 32 to keep the whole run inside PR 25's
+# 871.7 s after phase train grew by the ranks' training (the phase took
+# 127.3-131.5 s at 32 layers and 66.5-70.9 s at 16 on the card)
+LORA_LAYERS = 4
 LORA_PER_ADAPTER = 8         # burst requests a adapter (adapters 0-3)
 LORA_LENS = (17, 500)        # their prompt lengths: bucket admissions (K1)
 LORA_NEW = 48
@@ -4919,7 +4941,7 @@ def _first_split(a: list, b: list):
 
 
 def phase_lora(card: str) -> dict:
-    """Multi-LoRA serving at full width and depth, on
+    """Multi-LoRA serving at full width (LORA_LAYERS deep), on
     examples/tpu-multi-lora's routes and rows: a ``gofr_tpu_torch.App``
     builds Llama-3-8B (int8 weights and KV, 48 slots, 1024 positions,
     4 adapter slots of rank 16; seed-0 weights); adapters 1-3 installed
@@ -4948,8 +4970,10 @@ def phase_lora(card: str) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
+    model = cut_model(LORA_ROWS["TPU_MODEL"], LORA_LAYERS)
+    lora_rows = dict(LORA_ROWS, TPU_MODEL=model)
     t0 = time.monotonic()
-    app = App(MapConfig(LORA_ROWS))
+    app = App(MapConfig(lora_rows))
     multi_lora_routes(app)
     app.run(block=False)
     tpu = app.container.tpu
@@ -5124,7 +5148,7 @@ def phase_lora(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     t_p = time.monotonic()
-    peng = new_engine_from_config(MapConfig(LORA_PAGED_ROWS), device="cuda",
+    peng = new_engine_from_config(MapConfig(dict(LORA_PAGED_ROWS, TPU_MODEL=model)), device="cuda",
                                   params=paged_params)
     pgen = peng.generator
     try:
@@ -5144,7 +5168,7 @@ def phase_lora(card: str) -> dict:
     splits_p = [(adapters[i], _first_split(a, b)) for i, a, b in
                 zip(picks, paged, contig) if a != b]
     toks = len(prompts) * LORA_NEW
-    rows = LORA_ROWS
+    rows = lora_rows
     print(f"[lora] App with {rows['TPU_MODEL']} ({rows['TPU_QUANT']} "
           f"weights, {rows['TPU_KV_DTYPE']} KV, {rows['TPU_SLOTS']} slots, "
           f"{rows['TPU_MAX_SEQ']} positions, {rows['TPU_LORA_ADAPTERS']} "
@@ -7082,6 +7106,9 @@ TP_APP_ROWS = dict(TP_ROWS, TPU_SHARDING="tp=2", HTTP_PORT="0",
 TP_PAGED_ROWS = dict(TP_ROWS, TPU_SHARDING="tp=2", TPU_PAGED_BLOCK="128",
                      TPU_PAGED_BLOCKS="65", TPU_SPEC_DECODE="4")
 TP_SEED = 61
+# phase tp's depth, cut from 32 as LORA_LAYERS (the phase took 79.4-92.8
+# s at 32 layers and 57.8-61.0 s at 16)
+TP_LAYERS = 4
 TP_LENS = [17, 500, 123, 256, 64, 300, 40, 200]   # each a bucket admission
 TP_NEW = 32
 # the paged prompts are X + S + X, S tp=1's greedy continuation of X, so
@@ -7131,8 +7158,8 @@ def tp_kernel_shapes(card: str) -> dict:
 
 def phase_tp(card: str) -> dict:
     """Tensor-parallel serving on the one card: Llama-3-8B at full width
-    and depth as two ranks of ``TPU_SHARDING=tp=2`` (this process and one
-    worker process, both on cuda:0, the activations summed over gloo),
+    cut to TP_LAYERS layers as two ranks of ``TPU_SHARDING=tp=2`` (this
+    process and one worker process, both on cuda:0, the activations summed over gloo),
     against a tp=1 engine on the same seed-0 weights built first and
     freed. Holds the score logits (each prompt's prefill logits) within
     TP_LOGIT_ATOL of tp=1's and the first token of every stream equal;
@@ -7156,8 +7183,12 @@ def phase_tp(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     tp_kernel_shapes(card)
+    model = cut_model(TP_ROWS["TPU_MODEL"], TP_LAYERS)
+    rows, app_rows, paged_rows = (dict(r, TPU_MODEL=model) for r in (
+        TP_ROWS, TP_APP_ROWS, TP_PAGED_ROWS))
+    layers = LLAMA_CONFIGS[model].n_layers
     rng = np.random.default_rng(TP_SEED)
-    vocab = LLAMA_CONFIGS[TP_ROWS["TPU_MODEL"]].vocab_size
+    vocab = LLAMA_CONFIGS[model].vocab_size
     prompts = [rng.integers(0, vocab, n).tolist() for n in TP_LENS]
     xs = [rng.integers(0, vocab, n).tolist() for n in TP_PAGED_X]
 
@@ -7167,7 +7198,7 @@ def phase_tp(card: str) -> dict:
 
     # tp=1: the reference, on seed-0 weights (CUDA graphs, depth 2)
     t0 = time.monotonic()
-    ref = new_engine_from_config(MapConfig(TP_ROWS), device="cuda")
+    ref = new_engine_from_config(MapConfig(rows), device="cuda")
     ready1 = time.monotonic() - t0
     try:
         ref.generate(prompts[2], max_new_tokens=4).tokens()
@@ -7194,7 +7225,7 @@ def phase_tp(card: str) -> dict:
     # tp=2: the App, its engine rank 0 of two ranks on cuda:0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    app = App(MapConfig(TP_APP_ROWS))
+    app = App(MapConfig(app_rows))
     tpu = app.container.tpu
     gen = tpu.generator
     install_generate(app)
@@ -7288,10 +7319,10 @@ def phase_tp(card: str) -> dict:
             f"the ranks launched different kernels: {per_rank}")
     k1, k2 = (per_rank[0]["flash.launches"],
               per_rank[0]["flash_decode.launches"])
-    require(k1 == LAYERS * (admissions + dispatches),
+    require(k1 == layers * (admissions + dispatches),
             f"K1 launched {k1} times a rank for {admissions} admissions and "
-            f"{dispatches} score dispatches of {LAYERS} layers")
-    require(k2 == LAYERS * steps,
+            f"{dispatches} score dispatches of {layers} layers")
+    require(k2 == layers * steps,
             f"K2 launched {k2} times a rank for {steps} decode steps")
     require(per_rank[0]["flash.plain_calls"] == 0
             and per_rank[0]["flash_decode.plain_calls"] == 0,
@@ -7308,7 +7339,7 @@ def phase_tp(card: str) -> dict:
           f"{stats_line(t_first)}; decode step {step2:.2f} ms (tp=1 "
           f"{step1:.2f} ms); one all_reduce over the device group, ms by "
           f"shape: { {k: round(v, 4) for k, v in reduce_ms.items()} } "
-          f"({2 * LAYERS + 2} a decode step); "
+          f"({2 * layers + 2} a decode step); "
           f"{admissions} admissions, {steps} decode "
           f"steps, {dispatches} score dispatches; launches a rank "
           f"{per_rank}; score logits against tp=1: max |diff| "
@@ -7328,7 +7359,7 @@ def phase_tp(card: str) -> dict:
 
     # the paged engine at tp=2, with spec decode: K1, K3 and K3w
     t0 = time.monotonic()
-    eng = new_engine_from_config(MapConfig(TP_PAGED_ROWS), device="cuda")
+    eng = new_engine_from_config(MapConfig(paged_rows), device="cuda")
     pgen = eng.generator
     try:
         eng.generate(paged_prompts[0][:40], max_new_tokens=4).tokens()
@@ -7407,8 +7438,8 @@ def phase_tp(card: str) -> dict:
                 for _, g2, g1 in ties),
             f"a paged tp=2 first token differs from tp=1's past a near "
             f"tie: {ties}")
-    require(pk1 == LAYERS * admissions and k3 == LAYERS * steps
-            and k3w == LAYERS * passes,
+    require(pk1 == layers * admissions and k3 == layers * steps
+            and k3w == layers * passes,
             f"paged tp=2 launches {per_rank[0]} for {admissions} "
             f"admissions, {steps} decode steps, {passes} verify passes")
     require(k3 > 0 and k3w > 0, "K3 or K3w never ran on the paged ranks")
@@ -7462,8 +7493,10 @@ CONFIG5_LAYERS = 4
 # the depth of the phase's tp=1 and tp=2 engines: with phase moe the
 # whole run at 32 layers here (the phase 159.6-203.4 s) came within 80 s
 # of WATCHDOG_S; with phase train beside it at 16 every phase took
-# 875.2-914.8 s, inside it
-TP_TIERS_LAYERS = 16
+# 875.2-914.8 s, inside it; 8 since phase train's ranks came in (the
+# phase took 133.5-142.7 s at 16 layers, 91.9-111.9 s at 8 and 91.5 s at
+# 4: below 8 its time is not the depth's)
+TP_TIERS_LAYERS = 8
 
 
 def cut_model(base: str, layers) -> str:
@@ -8859,6 +8892,12 @@ MOE_ROWS = {"TPU_MODEL": "mixtral-8x7b", "TPU_QUANT": "int8",
 MOE_PAGED_ROWS = {"TPU_MODEL": "mixtral-8x7b", "TPU_QUANT": "int8",
                   "TPU_PAGED_BLOCKS": "769", "TPU_PAGED_BLOCK": "128"}
 MOE_SEED = 97
+# the App's and the paged engines' depth, cut from 32 for the whole run's
+# time (the phase took 97.5 s at 32 layers and 51.0-52.4 s at 16); at 4
+# the App's first tokens parted from the cache-free forward's past
+# TP_TIE_ATOL at 2 of 9 prompts, the kernel check beside it routing 7 of
+# 1612 tokens to other experts at router gaps under 0.0014
+MOE_LAYERS = 16
 MOE_STREAMS = 8            # X + X prompts: bucket admissions (K1), drafts hit
 MOE_X = (16, 250)          # |X|, drawn here
 MOE_LATTICE = 700          # one prompt past the largest bucket
@@ -9081,12 +9120,13 @@ def phase_moe(card: str) -> dict:
     at most MOE_LEFT_GIB allocated. Identical experts reproduce a dense
     model at Mixtral's width (2 layers); 4 full-width int8 layers agree
     through the kernels and their plain versions. Then Mixtral-8x7B at
-    full width and depth from MOE_ROWS through ``gofr_tpu_torch.App``:
-    its build time and peak memory against the int8 weights' bytes; 8
-    POST /generate streams of X + X bucket prompts and one lattice
-    prompt, 64 greedy tokens each: each first token equal to a cache-free
-    forward's or within TP_TIE_ATOL of its winner, K1 32 a bucket
-    admission and K2 32 a decode step and the timeline's events x 32
+    full width cut to MOE_LAYERS layers from MOE_ROWS through
+    ``gofr_tpu_torch.App``: its build time and peak memory against the
+    int8 weights' bytes; 8 POST /generate streams of X + X bucket
+    prompts and one lattice prompt, 64 greedy tokens each: each first
+    token equal to a cache-free forward's or within TP_TIE_ATOL of its
+    winner, K1 n_layers a bucket admission and K2 n_layers a decode step
+    and the timeline's events x n_layers
     equal to them; TTFT, tok/s, a 48-slot decode block's device time;
     the decode graphs' replays against their eager blocks. Then paged
     engines on the same weights (MOE_PAGED_ROWS, the App's slots): one
@@ -9132,7 +9172,8 @@ def phase_moe(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg = LLAMA_CONFIGS[MOE_ROWS["TPU_MODEL"]]
+    model = cut_model(MOE_ROWS["TPU_MODEL"], MOE_LAYERS)
+    cfg = LLAMA_CONFIGS[model]
     xs = [rng.integers(0, cfg.vocab_size, n).tolist()
           for n in rng.integers(MOE_X[0], MOE_X[1] + 1, MOE_STREAMS)]
     prompts = [x + x for x in xs]
@@ -9141,13 +9182,13 @@ def phase_moe(card: str) -> dict:
     # the App
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    app, _ = _observe_app(MOE_ROWS)
+    app, _ = _observe_app(dict(MOE_ROWS, TPU_MODEL=model))
     gen = app.container.tpu.generator
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated()
     weights = hbm.tree_nbytes(gen.params)
-    print(f"[moe] mixtral-8x7b App ready (int8 weights drawn and quantized "
+    print(f"[moe] {model} App ready (int8 weights drawn and quantized "
           f"matrix by matrix, {gen.n_slots} slots x {gen.max_seq} int8 KV, "
           f"graphs captured) in {build_s:.1f} s; peak "
           f"{peak / 1e9:.2f} GB allocated against the int8 weights' "
@@ -9243,7 +9284,8 @@ def phase_moe(card: str) -> dict:
     # paged engines on the same weights: without drafts, then with
     paged = {}
     for spec in (False, True):
-        rows = dict(MOE_PAGED_ROWS, TPU_SPEC_DECODE="4" if spec else "0")
+        rows = dict(MOE_PAGED_ROWS, TPU_MODEL=model,
+                    TPU_SPEC_DECODE="4" if spec else "0")
         paged[spec] = moe_paged(rows, params, prompts, card)
     exact = paged[False]
     differ = [i for i, (a, b) in enumerate(zip(outs, exact["outs"]))
@@ -9353,9 +9395,26 @@ def moe_paged(rows: dict, params, prompts, card: str) -> dict:
 
 TRAIN_ROWS = {"LOG_LEVEL": "INFO"}
 TRAIN_MODEL = "llama-1b"
-TRAIN_STEPS = 20
+# tests/test_examples.py's `train -steps=3` (20 steps before the ranks'
+# runs came in: cut for the whole run's time)
+TRAIN_STEPS = 3
 TRAIN_RESUME = 5
 TRAIN_ARGS = ["-batch=8", "-seq=128"]   # the example's defaults, named
+TRAIN_LR = 3e-4                         # the example's -lr default
+# the example's usage row, then its resume on another plan
+TRAIN_MESH = "dp=2,fsdp=2,tp=2"
+TRAIN_MESH_RESUME = ("tp=4,dp=2", 2)
+# the ranks' run against the one-device run in bf16: the first step's
+# loss and grad_norm (relative); each param leaf's median difference
+# within this share of the median of the one-device run's change from
+# the seed-0 params ("changes"; a checkpoint left at those params reads
+# 1), and every element within 2^-7 of its magnitude plus 4 lr (two
+# updates at lr, each of which a bf16 gradient near zero can turn the
+# other way: a screen for gross faults, wider than the run's whole
+# motion); each moment's median difference within this share of its
+# median magnitude
+TRAIN_MESH_TOL = {"loss": 5e-3, "grad_norm": 2e-2, "changes": 0.1,
+                  "moments": 0.1}
 # The resumed run is held against the same TRAIN_RESUME steps run from
 # the state in memory: every step's loss and grad_norm, then the params,
 # both moments and the count after the last step, all bit-equal. The
@@ -9365,10 +9424,13 @@ TRAIN_ARGS = ["-batch=8", "-seq=128"]   # the example's defaults, named
 # every step past the first reads the restored moments, so a moment
 # lost or mis-restored parts them.
 # (base model, layers, batch, sequence, steps): Llama-3-8B at full width
-# cut to 8 layers (about 2.8 B params, 22 GB of state), whose trained
-# weights then serve through K1 and K2; Mixtral-8x7B cut to 2 layers
-# (about 3.2 B, 25 GB) with the load-balancing loss
-TRAIN_8B = ("llama3-8b", 8, 4, 512, 3)
+# cut to 2 layers (about 1.5 B params, 8.9 GB of state), trained on one
+# device, whose params then serve through K1 and K2 at TRAIN_SERVE_MESH
+# and on one device (Llama-1B's head_dim 64 is outside them; 8 layers
+# before the ranks' runs came in); Mixtral-8x7B cut to 2 layers (about
+# 3.2 B, 25 GB) with the load-balancing loss, on one device
+TRAIN_8B = ("llama3-8b", 2, 2, 128, 2)
+TRAIN_SERVE_MESH = "tp=2"
 TRAIN_MOE = ("mixtral-8x7b", 2, 4, 512, 3)
 TRAIN_AUX = (1.0, 8.0)          # the MoE run's aux_loss must lie here
 TRAIN_SEED = 107
@@ -9382,7 +9444,9 @@ def finetune_routes(app, device: str = "cuda") -> None:
     sub-commands on the port: the same flags, the same synthetic batch
     and the same resume rule (a restored run's schedule covers
     ``restored_step + steps``), with ``gofr_tpu_torch.parallel`` on one
-    device (``training_plan`` refuses any axis above 1)."""
+    device or, with ``-sharding``, over the ranks of its dp, fsdp and tp
+    (``training_plan`` refuses ep, pp and sp), stopped once the state is
+    saved."""
     import numpy as np
 
     from gofr_tpu_torch import parallel
@@ -9419,13 +9483,14 @@ def finetune_routes(app, device: str = "cuda") -> None:
 
         if resume:
             state = parallel.restore_train_state(out, cfg, optimizer(2),
-                                                 device=device)
+                                                 plan=mesh, device=device)
             start = int(state.step)
             opt = optimizer(start + steps)
             ctx.logger.info({"event": "resumed", "step": start})
         else:
             opt = optimizer(steps)
-            state = parallel.init_train_state(cfg, 0, opt, device=device)
+            state = parallel.init_train_state(cfg, 0, opt, plan=mesh,
+                                              device=device)
         step_fn = parallel.make_train_step(cfg, opt, device=device)
 
         tokens, lengths = _data(ctx, cfg, batch, seq)
@@ -9442,6 +9507,7 @@ def finetune_routes(app, device: str = "cuda") -> None:
                                  "loss": round(float(metrics["loss"]), 4)})
         loss = float(metrics["loss"])
         parallel.save_train_state(out, state)
+        state.close()
         shape = "x".join(f"{k}={v}" for k, v in mesh.shape().items())
         return f"trained to step {int(state.step)} loss {loss:.4f} " \
                f"mesh[{shape}] -> {out}"
@@ -9459,8 +9525,9 @@ class TrainClock:
     """While installed, every step that ``parallel.make_train_step``
     builds and every ``Optimizer.apply`` is timed between CUDA events
     (the host clock on the CPU, for a rehearsal), the last state a step
-    returned is kept (``state``), and checkpoint saves and restores are
-    timed on the host clock."""
+    returned is kept (``state``), checkpoint saves and restores are
+    timed on the host clock, and a state on ranks has its ranks'
+    reports taken before its save (``reports``)."""
 
     def __init__(self, device: str):
         from gofr_tpu_torch import parallel
@@ -9469,6 +9536,7 @@ class TrainClock:
         self.device = device
         self.steps, self.opt, self.io = [], [], []
         self.state = None
+        self.reports = []
         self._undo = []
         make, apply = parallel.make_train_step, train.Optimizer.apply
         save, restore = (parallel.save_train_state,
@@ -9486,11 +9554,19 @@ class TrainClock:
                 return state, m
             return timed
 
-        def timed_apply(self_, state, grads):
+        def timed_apply(self_, state, grads, *rest):
             t0 = clock.mark()
-            out = apply(self_, state, grads)
+            out = apply(self_, state, grads, *rest)
             clock.opt.append((t0, clock.mark()))
             return out
+
+        def reporting_save(path, state):
+            # a state on ranks: each rank's bytes, collective time and
+            # peak, before the save gathers it
+            shard = state.opt_state.shard
+            if shard is not None:
+                clock.reports = shard.ranks.report(state)
+            return save(path, state)
 
         def host_timed(name, fn):
             def run(*a, **kw):
@@ -9503,7 +9579,8 @@ class TrainClock:
         for owner, name, fn in (
                 (parallel, "make_train_step", timed_make),
                 (train.Optimizer, "apply", timed_apply),
-                (parallel, "save_train_state", host_timed("save", save)),
+                (parallel, "save_train_state",
+                 host_timed("save", reporting_save)),
                 (parallel, "restore_train_state",
                  host_timed("restore", restore))):
             self._undo.append((owner, name, getattr(owner, name)))
@@ -9536,6 +9613,7 @@ class TrainClock:
     def reset(self) -> None:
         self.steps, self.opt, self.io = [], [], []
         self.state = None
+        self.reports = []
 
     def close(self) -> None:
         for owner, name, fn in self._undo:
@@ -9615,119 +9693,6 @@ def profile_train_step(step, state, tokens, lengths, card: str) -> dict:
             "busy_share": busy / step_ms, "host_ms": host_ms,
             "kernels": sum(c for _, _, c in rows),
             "by_kind": {k: v[0] for k, v in kinds.items()}}
-
-
-def train_llama_1b(card: str, device: str, tmp: str) -> dict:
-    """The example's ``train`` and ``resume`` on ``new_cmd``: the loss
-    falls over TRAIN_STEPS, and the resumed run equals, bit for bit, the
-    same TRAIN_RESUME steps run from the state in memory (the optimizer
-    rebuilt for TRAIN_STEPS + TRAIN_RESUME steps, as ``resume`` rebuilds
-    it): each step's loss and grad_norm, then the params, both moments
-    and the count."""
-    import json
-
-    import numpy as np
-
-    from gofr_tpu_torch import new_cmd, parallel
-    from gofr_tpu_torch.config import MapConfig
-    from gofr_tpu_torch.models import LLAMA_CONFIGS
-
-    log, ckpt = (os.path.join(tmp, n) for n in ("train.log", "ckpt.npz"))
-    app = new_cmd(MapConfig(dict(TRAIN_ROWS, CMD_LOGS_FILE=log)),
-                  device=device)
-    finetune_routes(app, device)
-    cfg = LLAMA_CONFIGS[TRAIN_MODEL]
-    flags = dict(a[1:].split("=") for a in TRAIN_ARGS)
-    batch, seq = int(flags["batch"]), int(flags["seq"])
-    clock = TrainClock(device)
-    try:
-        _reset_peak(device)
-        code, out, err, train_s = run_command_captured(
-            app, ["train", f"-model={TRAIN_MODEL}", f"-steps={TRAIN_STEPS}",
-                  *TRAIN_ARGS, f"-out={ckpt}"])
-        require(code == 0, f"train exited {code}: {err[-2000:]}")
-        peak = _peak_gb(device)
-        line = _step_line(clock, batch, seq)
-        io_train = dict(clock.io)
-        state = clock.state
-        with open(log) as f:
-            logged = [json.loads(ln)["message"] for ln in f
-                      if '"event": "train"' in ln]
-        losses = [m["loss"] for m in logged]
-        n = sum(t.numel() for t in state.opt_state.leaves.values())
-        print(f"[train] {TRAIN_MODEL} ({cfg.n_layers} layers, dim "
-              f"{cfg.dim}, {cfg.dtype}, seed-0 weights, {n / 1e9:.3f} B "
-              f"params): `train -steps={TRAIN_STEPS}` at {batch} x {seq} "
-              f"through new_cmd: {out.strip()!r}; logged losses {losses}; "
-              f"a step {line['step_ms']:.2f} ms (CUDA events, median past "
-              f"the first's {line['first_step_ms']:.1f}), "
-              f"{line['tok_s']:.0f} tokens/s, the optimizer "
-              f"{line['opt_ms']:.2f} ms ({100 * line['opt_share']:.1f}% of "
-              f"a step, fused AdamW); peak {peak} GB allocated; the save "
-              f"{io_train.get('save', 0):.1f} s, the command {train_s:.1f} "
-              f"s; card: {card}", flush=True)
-        require(len(losses) == 10 and losses[-1] < losses[0],
-                f"the loss did not fall: {losses}")
-        require(all(math.isfinite(x) for x in losses), f"losses {losses}")
-
-        clock.reset()
-        code, out, err, resume_s = run_command_captured(
-            app, ["resume", f"-model={TRAIN_MODEL}",
-                  f"-steps={TRAIN_RESUME}", *TRAIN_ARGS, f"-out={ckpt}"])
-        require(code == 0, f"resume exited {code}: {err[-2000:]}")
-        require(f"trained to step {TRAIN_STEPS + TRAIN_RESUME} " in out,
-                f"resume printed {out!r}")
-        got = [{k: float(v) for k, v in m.items()}
-               for _, _, m in clock.steps]
-        resumed = clock.state
-        io_resume = dict(clock.io)
-        clock.reset()
-        # the same continuation from the state in memory
-        total = TRAIN_STEPS + TRAIN_RESUME
-        opt = parallel.default_optimizer(warmup=max(1, total // 10),
-                                         total_steps=max(total, 2))
-        rng = np.random.default_rng(0)
-        tokens = rng.integers(1, cfg.vocab_size, (batch, seq)).astype(
-            np.int32)
-        step = clock.make(cfg, opt, device=device)
-        lengths = np.full((batch,), seq, np.int32)
-        ref = []
-        for _ in range(TRAIN_RESUME):
-            state, m = step(state, tokens, lengths)
-            ref.append({k: float(v) for k, v in m.items()})
-        parted = _train_state_parts(resumed, state)
-        del resumed
-        prof = (profile_train_step(step, state, tokens, lengths, card)
-                if device == "cuda" else {})
-        del state
-    finally:
-        clock.close()
-    same = [(g["loss"], g["grad_norm"]) == (r["loss"], r["grad_norm"])
-            for g, r in zip(got, ref)]
-    print(f"[train] `resume -steps={TRAIN_RESUME}`: {out.strip()!r}; the "
-          f"restore {io_resume.get('restore', 0):.1f} s, the command "
-          f"{resume_s:.1f} s; its (loss, grad_norm) a step "
-          f"{[(g['loss'], g['grad_norm']) for g in got]} against the "
-          f"in-memory continuation's "
-          f"{[(r['loss'], r['grad_norm']) for r in ref]}: bit-equal a step "
-          f"{same}; after the last step, elements that differ (max |d|) "
-          f"{parted}; card: {card}", flush=True)
-    require([g["step"] for g in got] == [r["step"] for r in ref]
-            == list(range(TRAIN_STEPS + 1, total + 1)),
-            f"steps {[g['step'] for g in got]} and "
-            f"{[r['step'] for r in ref]}")
-    require(all(same), f"the resumed steps {got} against the in-memory "
-            f"ones {ref}")
-    require(all(n == 0 for n, _ in parted.values()),
-            f"the resumed state parts from the in-memory one: {parted}")
-    return dict(line, **prof, peak_gb=peak, losses=losses,
-                save_s=io_train.get("save"),
-                restore_s=io_resume.get("restore"),
-                resume_losses=[g["loss"] for g in got],
-                resume_ref_losses=[r["loss"] for r in ref],
-                resume_grad_norms=[g["grad_norm"] for g in got],
-                resume_ref_grad_norms=[r["grad_norm"] for r in ref],
-                resume_state_parted=parted)
 
 
 def _train_state_parts(a, b) -> dict:
@@ -9811,84 +9776,425 @@ def train_cut(card: str, device: str, base: str, layers: int, batch: int,
                 init_s=init_s), params, name
 
 
-def train_serve(card: str, device: str, params, name: str, rng) -> dict:
-    """The trained weights, detached, on a GenerationEngine with phase
-    5's rows: TRAIN_SERVE greedy prompts, each first token the
-    cache-free forward's or within TP_TIE_ATOL of its winner, K1
-    n_layers a bucket admission and K2 n_layers a decode step."""
-    import torch
+def _train_run(app, clock, argv: list, what: str) -> dict:
+    """One example sub-command through ``app`` under ``clock``: its
+    output, seconds, every step's metrics (floats) and the step line,
+    the ranks' reports at the save (a state on ranks) and the saves'
+    and restores' seconds."""
+    clock.reset()
+    _reset_peak(clock.device)
+    code, out, err, secs = run_command_captured(app, argv)
+    require(code == 0, f"{what} exited {code}: {err[-2000:]}")
+    flags = dict(a[1:].split("=", 1) for a in argv if a.startswith("-"))
+    return {"out": out.strip(), "s": secs, "state": clock.state,
+            "metrics": [{k: float(v) for k, v in m.items()}
+                        for _, _, m in clock.steps],
+            "line": _step_line(clock, int(flags["batch"]),
+                               int(flags["seq"])),
+            "reports": clock.reports, "io": dict(clock.io)}
 
+
+def _rank_line(reports: list) -> str:
+    """Each rank's state bytes, its time in collectives over the run
+    (host clock) and its peak, from ``TrainRanks.report`` at the
+    save."""
+    def state_gb(r):
+        return (r["params_bytes"] + r["mu_bytes"] + r["nu_bytes"]) / 1e9
+
+    return "; ".join(
+        f"rank {i}: state {state_gb(r):.3f} GB, collectives "
+        f"{r['collective_s']:.2f} s ({r['collective_calls']} calls), peak "
+        f"{r['peak_bytes'] / 1e9:.2f} GB" for i, r in enumerate(reports))
+
+
+def _ckpt_parts(path: str, state, start: dict, lr: float) -> dict:
+    """A checkpoint against a state of the same model in memory, leaf by
+    leaf (one leaf of the file read at a time, compared on the state's
+    device): the step and count equal; for ``mu`` and ``nu`` the largest
+    |difference| and the largest ratio of a leaf's median |difference|
+    to its median magnitude. The params are held by their change from
+    ``start`` (the params both runs began from, by path): the largest
+    ratio of a leaf's median |difference| to the median of the state's
+    change (``change_median``; a leaf whose median did not move must
+    not differ at its median: ``unmoved_parted`` counts those that do),
+    the leaves whose median moved (``moved``; left unchanged, the
+    checkpoint would read 1 at each), the elements past 2^-7 of their
+    magnitude plus 4 lr and those past lr (a sign taken the other way
+    by a near-zero gradient)."""
+    import numpy as np
+
+    from gofr_tpu_torch.parallel import train
+
+    members = train._npz_members(path)
+    with np.load(path) as f:
+        require(int(f["step"]) == state.step and int(f["opt_state/count"])
+                == state.opt_state.count, f"{path}: step or count")
+    out = {}
+    for prefix, tree in train._state_trees(state.opt_state):
+        name = prefix.rsplit("/", 1)[-1]
+        t = out.setdefault(name, {"max": 0.0, "n": 0})
+        t.update({"change_median": 0.0, "moved": 0, "leaves": 0,
+                  "unmoved_parted": 0, "past": 0, "past_lr": 0}
+                 if name == "params" else {"rel_median": 0.0})
+        for p, y in tree.items():
+            m = members[f"{prefix}/{p}"]
+            x = train.to_tensor(train._read_block(
+                path, m, tuple((0, n) for n in m.shape)), y.device).float()
+            y = y.detach().float()
+            d = (x - y).abs()
+            t["max"] = max(t["max"], float(d.max()))
+            t["n"] += d.numel()
+            if name != "params":
+                t["rel_median"] = max(t["rel_median"], float(
+                    d.median() / y.abs().median().clamp(min=1e-30)))
+                continue
+            moved = float((y - start[p].float()).abs().median())
+            med = float(d.median())
+            t["leaves"] += 1
+            if moved > 0:
+                t["moved"] += 1
+                t["change_median"] = max(t["change_median"], med / moved)
+            elif med > 0:
+                t["unmoved_parted"] += 1
+            t["past"] += int((d > 2.0 ** -7 * y.abs() + 4 * lr).sum())
+            t["past_lr"] += int((d > lr).sum())
+            del x, y, d
+    return out
+
+
+def train_llama_1b(card: str, device: str, tmp: str) -> dict:
+    """Llama-1B at full size through the example's sub-commands on
+    ``new_cmd``: ``train -steps=TRAIN_STEPS`` on one device (the
+    yardstick) and over TRAIN_MESH's 8 ranks; the first step's loss and
+    grad_norm and the gathered state after the run held against the
+    one-device run's (TRAIN_MESH_TOL); the one-device ``resume`` equal,
+    bit for bit, to the same TRAIN_RESUME steps run from the state in
+    memory; and ``resume`` of the ranks' checkpoint on
+    TRAIN_MESH_RESUME's ranks, whose loss falls below the first run's."""
+    import numpy as np
+
+    from gofr_tpu_torch import new_cmd, parallel
     from gofr_tpu_torch.config import MapConfig
     from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
-    from gofr_tpu_torch.ops import flash, flash_decode
-    from gofr_tpu_torch.tpu import new_engine_from_config
+    from gofr_tpu_torch.parallel import train
 
+    log, one, ranks = (os.path.join(tmp, n)
+                       for n in ("train.log", "one.npz", "ranks.npz"))
+    app = new_cmd(MapConfig(dict(TRAIN_ROWS, CMD_LOGS_FILE=log)),
+                  device=device)
+    finetune_routes(app, device)
+    cfg = LLAMA_CONFIGS[TRAIN_MODEL]
+    flags = dict(a[1:].split("=") for a in TRAIN_ARGS)
+    batch, seq = int(flags["batch"]), int(flags["seq"])
+    base = ["train", f"-model={TRAIN_MODEL}", f"-steps={TRAIN_STEPS}",
+            *TRAIN_ARGS]
+    clock = TrainClock(device)
+    try:
+        _reset_peak(device)
+        solo = _train_run(app, clock, base + [f"-out={one}"], "train")
+        peak = _peak_gb(device)
+        state = solo.pop("state")
+        with open(log) as f:
+            losses = [json.loads(ln)["message"]["loss"] for ln in f
+                      if '"event": "train"' in ln]
+        n = sum(t.numel() for t in state.opt_state.leaves.values())
+        line = solo["line"]
+        print(f"[train] {TRAIN_MODEL} ({cfg.n_layers} layers, dim "
+              f"{cfg.dim}, {cfg.dtype}, seed-0 weights, {n / 1e9:.3f} B "
+              f"params) on one device: `train -steps={TRAIN_STEPS}` at "
+              f"{batch} x {seq} through new_cmd: {solo['out']!r}; logged "
+              f"losses {losses}; a step {line['step_ms']:.2f} ms (CUDA "
+              f"events, median past the first's "
+              f"{line['first_step_ms']:.1f}), {line['tok_s']:.0f} "
+              f"tokens/s, the optimizer {line['opt_ms']:.2f} ms "
+              f"({100 * line['opt_share']:.1f}% of a step, fused AdamW); "
+              f"peak {peak} GB allocated; the save "
+              f"{solo['io'].get('save', 0):.1f} s, the command "
+              f"{solo['s']:.1f} s; card: {card}", flush=True)
+        require(len(losses) == TRAIN_STEPS and losses[-1] < losses[0],
+                f"the loss did not fall: {losses}")
+        require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+
+        # the same command over the ranks of TRAIN_MESH
+        mesh = _train_run(app, clock, base + [
+            f"-out={ranks}", f"-sharding={TRAIN_MESH}"], "train on ranks")
+        mesh.pop("state")
+        line = mesh["line"]
+        reports = mesh["reports"]
+        first = {k: (mesh["metrics"][0][k], solo["metrics"][0][k])
+                 for k in ("loss", "grad_norm")}
+        start = train._leaves(llama.init(cfg, 0, device=device))
+        parts = _ckpt_parts(ranks, state, start, TRAIN_LR)
+        del start
+        whole = sum(t.numel() * t.element_size()
+                    for t in state.opt_state.leaves.values()) * 3
+        shares = [round((r["params_bytes"] + r["mu_bytes"] + r["nu_bytes"])
+                        / whole, 4) for r in reports]
+        peaks = sum(r["peak_bytes"] for r in reports) / 1e9
+        print(f"[train] {TRAIN_MODEL} `train -steps={TRAIN_STEPS} "
+              f"-sharding={TRAIN_MESH}` ({len(reports)} ranks on the one "
+              f"card over gloo): {mesh['out']!r}; metrics a step "
+              f"{mesh['metrics']}; a step {line['step_ms']:.2f} ms (rank "
+              f"0's CUDA events, median past the first's "
+              f"{line['first_step_ms']:.1f}), {line['tok_s']:.0f} tokens/s; "
+              f"each rank's state against the whole's {whole / 1e9:.3f} "
+              f"GB: {shares}; "
+              f"{_rank_line(reports)}"
+              f"; the ranks' peaks together {peaks:.2f} GB; "
+              f"the save (gathered to rank 0) {mesh['io'].get('save', 0):.1f}"
+              f" s, the command {mesh['s']:.1f} s; card: {card}", flush=True)
+        print(f"[train] on ranks against one device: the first step's "
+              f"(ranks, one device) {first}; the state after "
+              f"{TRAIN_STEPS} steps (the ranks' checkpoint against the "
+              f"one-device state in memory) {parts}; card: {card}",
+              flush=True)
+        for k, (got, want) in first.items():
+            require(abs(got - want) <= TRAIN_MESH_TOL[k] * abs(want),
+                    f"the first step's {k} on ranks {got} against one "
+                    f"device's {want}")
+        pp = parts["params"]
+        require(pp["past"] == 0 and pp["unmoved_parted"] == 0
+                and pp["change_median"] <= TRAIN_MESH_TOL["changes"]
+                and parts["mu"]["rel_median"] <= TRAIN_MESH_TOL["moments"]
+                and parts["nu"]["rel_median"] <= TRAIN_MESH_TOL["moments"],
+                f"the state on ranks parts from one device's: {parts}")
+        # the control: the ranks' update skipped leaves the seed-0
+        # params, which read 1 at every moved leaf
+        require(pp["moved"] > 0, f"no leaf's median moved in "
+                f"{TRAIN_STEPS} steps, so the params check has no force: "
+                f"{parts}")
+
+        # the one-device resume against the in-memory continuation
+        resumed = _train_run(app, clock, [
+            "resume", f"-model={TRAIN_MODEL}", f"-steps={TRAIN_RESUME}",
+            *TRAIN_ARGS, f"-out={one}"], "resume")
+        require(f"trained to step {TRAIN_STEPS + TRAIN_RESUME} "
+                in resumed["out"], f"resume printed {resumed['out']!r}")
+        got = resumed["metrics"]
+        total = TRAIN_STEPS + TRAIN_RESUME
+        opt = parallel.default_optimizer(warmup=max(1, total // 10),
+                                         total_steps=max(total, 2))
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(1, cfg.vocab_size, (batch, seq)).astype(
+            np.int32)
+        step = clock.make(cfg, opt, device=device)
+        lengths = np.full((batch,), seq, np.int32)
+        ref = []
+        for _ in range(TRAIN_RESUME):
+            state, m = step(state, tokens, lengths)
+            ref.append({k: float(v) for k, v in m.items()})
+        parted = _train_state_parts(resumed.pop("state"), state)
+        prof = (profile_train_step(step, state, tokens, lengths, card)
+                if device == "cuda" else {})
+        del state
+        os.unlink(one)
+
+        # the ranks' checkpoint resumed on another plan
+        row, steps = TRAIN_MESH_RESUME
+        again = _train_run(app, clock, [
+            "resume", f"-model={TRAIN_MODEL}", f"-steps={steps}",
+            *TRAIN_ARGS, f"-out={ranks}", f"-sharding={row}"],
+            "resume on ranks")
+        again.pop("state")
+        os.unlink(ranks)
+    finally:
+        clock.close()
+    same = [(g["loss"], g["grad_norm"]) == (r["loss"], r["grad_norm"])
+            for g, r in zip(got, ref)]
+    print(f"[train] `resume -steps={TRAIN_RESUME}`: {resumed['out']!r}; "
+          f"the restore {resumed['io'].get('restore', 0):.1f} s, the "
+          f"command {resumed['s']:.1f} s; its (loss, grad_norm) a step "
+          f"{[(g['loss'], g['grad_norm']) for g in got]} against the "
+          f"in-memory continuation's "
+          f"{[(r['loss'], r['grad_norm']) for r in ref]}: bit-equal a step "
+          f"{same}; after the last step, elements that differ (max |d|) "
+          f"{parted}; card: {card}", flush=True)
+    require([g["step"] for g in got] == [r["step"] for r in ref]
+            == list(range(TRAIN_STEPS + 1, total + 1)),
+            f"steps {[g['step'] for g in got]} and "
+            f"{[r['step'] for r in ref]}")
+    require(all(same), f"the resumed steps {got} against the in-memory "
+            f"ones {ref}")
+    require(all(n == 0 for n, _ in parted.values()),
+            f"the resumed state parts from the in-memory one: {parted}")
+    line = again["line"]
+    print(f"[train] `resume -steps={steps} -sharding={row}` of the ranks' "
+          f"checkpoint: {again['out']!r}; metrics a step "
+          f"{again['metrics']}; a step {line['step_ms']:.2f} ms (rank 0's "
+          f"CUDA events, median past the first's "
+          f"{line['first_step_ms']:.1f}), {line['tok_s']:.0f} tokens/s; "
+          f"{_rank_line(again['reports'])}; the "
+          f"restore (each rank its blocks) "
+          f"{again['io'].get('restore', 0):.1f} s, the command "
+          f"{again['s']:.1f} s; card: {card}", flush=True)
+    final = float(again["out"].split(" loss ")[1].split()[0])
+    first_loss = float(mesh["out"].split(" loss ")[1].split()[0])
+    require(f"trained to step {TRAIN_STEPS + steps} " in again["out"]
+            and final < first_loss - 1e-4,
+            f"the resume on ranks printed {again['out']!r} after "
+            f"{mesh['out']!r}")
+    summary = {k: v for k, v in solo["line"].items()}
+    return dict(summary, **prof, peak_gb=peak, losses=losses,
+                save_s=solo["io"].get("save"),
+                restore_s=resumed["io"].get("restore"),
+                resume_losses=[g["loss"] for g in got],
+                resume_ref_losses=[r["loss"] for r in ref],
+                resume_state_parted=parted,
+                ranks={"row": TRAIN_MESH, "line": mesh["line"],
+                       "metrics": mesh["metrics"], "first": first,
+                       "state_parts": parts, "save_s": mesh["io"].get("save"),
+                       "command_s": mesh["s"],
+                       "reports": [{k: v for k, v in r.items()
+                                    if k != "numel"} for r in reports]},
+                resumed_ranks={"row": row, "line": line,
+                               "metrics": again["metrics"],
+                               "restore_s": again["io"].get("restore"),
+                               "command_s": again["s"],
+                               "reports": [{k: v for k, v in r.items()
+                                            if k != "numel"}
+                                           for r in again["reports"]]})
+
+
+def train_serve(card: str, device: str, tmp: str, rng) -> dict:
+    """Llama-3-8B at full width cut to TRAIN_8B's layers (head_dim 128,
+    which K1 and K2 take; Llama-1B's 64 they do not) trained on one
+    device (``init_train_state``, ``make_train_step``), its params saved
+    into a serving ``.npz`` (``save_params``), then served from it
+    (TPU_WEIGHTS) with phase 5's rows at TPU_SHARDING=TRAIN_SERVE_MESH
+    and on one device: TRAIN_SERVE greedy
+    prompts, each first token the cache-free forward's, K1 n_layers a
+    bucket admission and K2 n_layers a decode step on every rank, no
+    plain call."""
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import parallel
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.tpu import load_npz, new_engine_from_config
+
+    base, layers, batch, seq, steps = TRAIN_8B
+    name = cut_model(base, layers)
     cfg = LLAMA_CONFIGS[name]
+    weights = os.path.join(tmp, "8b-weights.npz")
+    opt = parallel.default_optimizer(warmup=1, total_steps=max(steps, 2))
+    tokens = rng.integers(1, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    lengths = np.full((batch,), seq, np.int32)
+    clock = TrainClock(device)
+    try:
+        t0 = time.monotonic()
+        state = parallel.init_train_state(cfg, 0, opt, device=device)
+        init_s = time.monotonic() - t0
+        step = parallel.make_train_step(cfg, opt, device=device)
+        metrics = []
+        for _ in range(steps):
+            state, m = step(state, tokens, lengths)
+            metrics.append({k: float(v) for k, v in m.items()})
+        line = _step_line(clock, batch, seq)
+        t0 = time.monotonic()
+        parallel.save_params(weights, state)
+        save_s = time.monotonic() - t0
+        del state, step
+    finally:
+        clock.close()
+    print(f"[train] {name} ({base} at full width, {layers} layers, "
+          f"{cfg.dtype}) {steps} steps at {batch} x {seq} on one device: "
+          f"metrics {metrics}; the state drawn in {init_s:.1f} s; a step "
+          f"{line['step_ms']:.2f} ms (CUDA events; the first "
+          f"{line['first_step_ms']:.1f}); the params saved into a serving "
+          f".npz in {save_s:.1f} s; card: {card}", flush=True)
+    require(all(math.isfinite(m[k]) for m in metrics
+                for k in ("loss", "grad_norm")), f"{metrics}")
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in rng.integers(TRAIN_SERVE_LENS[0],
                                      TRAIN_SERVE_LENS[1] + 1, TRAIN_SERVE)]
-    t0 = time.monotonic()
-    engine = new_engine_from_config(
-        MapConfig(dict(MAIN_ROWS, TPU_MODEL=name)), device=device,
-        params=params)
-    gen = engine.generator
-    ready_s = time.monotonic() - t0
-    try:
-        engine.generate(prompts[0][:32], max_new_tokens=4).tokens()
-        adm0, steps0 = gen.admissions, gen.decode_steps
-        flash.reset_counts()
-        flash_decode.reset_counts()
-        outs, streams, wall = _serve(engine, prompts, {}, TRAIN_SERVE_NEW)
-        counts = {"flash_prefill": flash.launches,
-                  "flash_decode": flash_decode.launches,
-                  "plain": flash.plain_calls + flash_decode.plain_calls}
-        admissions = gen.admissions - adm0
-        steps = gen.decode_steps - steps0
-    finally:
-        engine.close()
-    if device == "cuda":
-        release_graphs(gen)
-    ties = []
-    for i, (p, toks) in enumerate(zip(prompts, outs)):
+    params = load_npz(weights, device=device)
+    refs = []
+    for p in prompts:
         with torch.no_grad():
-            ref = llama.score(params, cfg, torch.tensor([p], device=device),
-                              torch.tensor([len(p)], device=device))[0]
-        top = int(ref.argmax())
-        if toks[0] != top:
-            ties.append((i, float(ref[top] - ref[toks[0]])))
-    L = cfg.n_layers
-    print(f"[train] the trained {name} weights on a GenerationEngine "
-          f"(phase 5's rows, ready in {ready_s:.1f} s): {len(prompts)} "
-          f"greedy prompts {[len(p) for p in prompts]}, "
-          f"{TRAIN_SERVE_NEW} tokens each in {wall:.2f} s; first tokens "
-          f"against a cache-free forward: {len(prompts) - len(ties)} "
-          f"equal, the others (index, below the winner) {ties}; "
-          f"{admissions} admissions, {steps} decode steps, launches "
-          f"{counts}; card: {card}", flush=True)
-    require(all(len(t) == TRAIN_SERVE_NEW for t in outs),
-            f"stream lengths {[len(t) for t in outs]}")
-    _check_ties("the trained weights", ties)
-    require(counts["flash_prefill"] == L * admissions == L * len(prompts)
-            and counts["flash_decode"] == L * steps and steps > 0
-            and (device != "cuda" or counts["plain"] == 0),
-            f"launches {counts} for {admissions} admissions and {steps} "
-            f"decode steps of {L} layers")
-    return {"flash_prefill": counts["flash_prefill"],
-            "flash_decode": counts["flash_decode"], "ready_s": ready_s,
-            "ties": ties}
+            refs.append(llama.score(params, cfg,
+                                    torch.tensor([p], device=device),
+                                    torch.tensor([len(p)],
+                                                 device=device))[0])
+    del params
+    out = {}
+    for rows in ({"TPU_SHARDING": TRAIN_SERVE_MESH}, {}):
+        tag = rows.get("TPU_SHARDING", "tp=1")
+        t0 = time.monotonic()
+        engine = new_engine_from_config(MapConfig(dict(
+            MAIN_ROWS, TPU_MODEL=name, TPU_WEIGHTS=weights, **rows)),
+            device=device)
+        gen = engine.generator
+        ready_s = time.monotonic() - t0
+        try:
+            engine.generate(prompts[0][:32], max_new_tokens=4).tokens()
+            adm0, steps0 = gen.admissions, gen.decode_steps
+            for mod in (flash, flash_decode, paged_attention):
+                mod.reset_counts()
+            if rows:
+                gen.tp_zero_counts()
+            outs, _, wall = _serve(engine, prompts, {}, TRAIN_SERVE_NEW)
+            per_rank = (_rank_launches(gen.tp_probe()) if rows else [{
+                "flash.launches": flash.launches,
+                "flash.plain_calls": flash.plain_calls,
+                "flash_decode.launches": flash_decode.launches,
+                "flash_decode.plain_calls": flash_decode.plain_calls}])
+            admissions = gen.admissions - adm0
+            dsteps = gen.decode_steps - steps0
+        finally:
+            engine.close()
+        if device == "cuda" and not rows:
+            release_graphs(gen)
+        gaps = [float(r.max() - r[t[0]]) for r, t in zip(refs, outs)]
+        equal = sum(int(t[0] == int(r.argmax())) for r, t in zip(refs, outs))
+        print(f"[train] the trained {name} weights (TPU_WEIGHTS) at {tag} "
+              f"(phase 5's rows, ready in {ready_s:.1f} s): "
+              f"{len(prompts)} greedy prompts {[len(p) for p in prompts]}, "
+              f"{TRAIN_SERVE_NEW} tokens each in {wall:.2f} s; first tokens "
+              f"equal to the cache-free forward's {equal}/{len(prompts)} "
+              f"(below its winner by {gaps}); {admissions} admissions, "
+              f"{dsteps} decode steps; launches by rank {per_rank}; card: "
+              f"{card}", flush=True)
+        require(all(len(t) == TRAIN_SERVE_NEW for t in outs),
+                f"{tag}: stream lengths {[len(t) for t in outs]}")
+        require(equal == len(prompts), f"{tag}: first tokens {equal}/"
+                f"{len(prompts)} the cache-free forward's (gaps {gaps})")
+        L = cfg.n_layers
+        for r, c in enumerate(per_rank):
+            require(c["flash.launches"] == L * admissions == L * len(prompts)
+                    and c["flash_decode.launches"] == L * dsteps
+                    and dsteps > 0 and (device != "cuda" or (
+                        c["flash.plain_calls"] == 0
+                        and c["flash_decode.plain_calls"] == 0)),
+                    f"{tag} rank {r}: launches {c} for {admissions} "
+                    f"admissions and {dsteps} decode steps of {L} layers")
+        out[tag] = {"ready_s": ready_s, "equal": equal, "gaps": gaps,
+                    "launches": per_rank, "admissions": admissions,
+                    "decode_steps": dsteps}
+    os.unlink(weights)
+    return {"train": {"metrics": metrics, "line": line, "init_s": init_s,
+                      "save_s": save_s},
+            "serve": out,
+            # summed over both engines and every rank, as phase tp's
+            "flash_prefill": sum(c["flash.launches"] for o in out.values()
+                                 for c in o["launches"]),
+            "flash_decode": sum(c["flash_decode.launches"]
+                                for o in out.values() for c in o["launches"])}
 
 
 def phase_train(card: str, device: str = "cuda") -> dict:
     """Training on the port (``gofr_tpu_torch.parallel.train``) on one
     card: Llama-1B at full size through examples/tpu-finetune's
-    ``train`` and ``resume`` on ``new_cmd`` (the loss falls, the resumed
-    step equals the in-memory continuation); Llama-3-8B at full width
-    cut to 8 layers, 3 steps, its trained weights serving through K1 and
-    K2; Mixtral-8x7B cut to 2 layers, 3 steps with the load-balancing
-    loss in TRAIN_AUX. Frees what it held (cuBLAS's workspaces
-    cleared). Returns the serving run's launches."""
+    ``train`` and ``resume`` on ``new_cmd``, on one device and over
+    TRAIN_MESH's ranks (held against the one-device run), resumed on
+    TRAIN_MESH_RESUME's; Llama-3-8B at full width cut to TRAIN_8B's
+    layers trained on one device, its params serving through K1 and K2
+    at TRAIN_SERVE_MESH and on one device; Mixtral-8x7B cut to 2
+    layers, 3 steps on one device with the load-balancing loss in
+    TRAIN_AUX. Frees what it held (cuBLAS's workspaces cleared).
+    Returns the serving runs' launches, summed over their ranks."""
     import gc
-    import json
     import tempfile
 
     import numpy as np
@@ -9909,10 +10215,8 @@ def phase_train(card: str, device: str = "cuda") -> dict:
     rng = np.random.default_rng(TRAIN_SEED)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
         one_b = train_llama_1b(card, device, tmp)
-    held()
-    big, params, name = train_cut(card, device, *TRAIN_8B, rng)
-    serve = train_serve(card, device, params, name, rng)
-    del params
+        held()
+        serve = train_serve(card, device, tmp, rng)
     held()
     moe, params, name = train_cut(card, device, *TRAIN_MOE, rng)
     del params
@@ -9927,17 +10231,14 @@ def phase_train(card: str, device: str = "cuda") -> dict:
           flush=True)
     require(after <= before + 1 / 1024,
             f"the phase left {after - before:.3f} GiB allocated")
-    summary = {"llama_1b": one_b,
-               "llama3_8b_8l": {k: v for k, v in big.items()
-                                if k != "metrics"},
-               "llama3_8b_8l_metrics": big["metrics"],
-               "serve": {k: serve[k] for k in ("ready_s", "ties")},
+    summary = {"llama_1b": one_b, "llama3_8b_cut": serve["train"],
+               "serve": serve["serve"],
                "mixtral_2l": {k: v for k, v in moe.items()
                               if k != "metrics"},
                "mixtral_2l_metrics": moe["metrics"],
                "held_gib": after, "phase_s": time.monotonic() - t_phase,
                "card": card}
-    print(json.dumps({"train": summary}), flush=True)
+    print(json.dumps({"train": summary}, default=str), flush=True)
     return {"flash_prefill": serve["flash_prefill"],
             "flash_decode": serve["flash_decode"]}
 

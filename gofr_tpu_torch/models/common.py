@@ -72,6 +72,53 @@ class RankConfig(ModelConfig):
         return self.dim // self.full_heads
 
 
+class _Enter(torch.autograd.Function):
+    """Identity forward, a sum over the ranks backward: the input of a
+    column-parallel product (or of a vocab-split head), whose gradient
+    each rank holds a part of."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = ctx.group.all_reduce(g.float().contiguous())
+        return out.to(g.dtype), None
+
+
+class _Sum(torch.autograd.Function):
+    """A sum over the ranks forward, identity backward: a row-parallel
+    product's partial sums (or a vocab-split lookup's), whose sum every
+    rank then uses alike."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class TrainRanksComm:
+    """A ``RankConfig.comm`` for training: ``all_reduce`` (the model's
+    sums, out of place) and ``enter`` (a column-parallel input) as the
+    differentiable pair above over ``group`` (anything with an in-place
+    ``all_reduce(t)``: parallel.train binds its tensor-parallel
+    group). Serving's comm has no ``enter`` and sums in place."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return _Sum.apply(t, self.group)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _Enter.apply(x, self.group)
+
+
 LLAMA_CONFIGS = {
     # Llama-3-8B / 70B (architecture dims are public knowledge)
     "llama3-8b": ModelConfig(name="llama3-8b", vocab_size=128256, dim=4096,

@@ -355,7 +355,7 @@ def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend,
     load-balancing loss's input in training."""
     B, S = x.shape[0], x.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
+    h = _enter(cfg, rms_norm(x, w["attn_norm"], cfg.norm_eps))
     q = _project(h, w, "wq", adapter).reshape(B, S, H, hd)
     k = _project(h, w, "wk", adapter).reshape(B, S, KV, hd)
     v = _project(h, w, "wv", adapter).reshape(B, S, KV, hd)
@@ -373,13 +373,21 @@ def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend,
         x = x + base
         if delta is not None:
             x = x + delta
-    h = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
+    h = _enter(cfg, rms_norm(x, w["ffn_norm"], cfg.norm_eps))
     if cfg.n_experts > 0:
         # one device only (TPU_SHARDING refuses an MoE model)
         ffn, probs = _moe_ffn(h, w, cfg, valid)
         return x + ffn, (k, v), probs
     gated = F.silu(qmatmul(h, w["w_gate"])) * qmatmul(h, w["w_up"])
     return x + _reduce(cfg, qmatmul(gated, w["w_down"])), (k, v), None
+
+
+def _enter(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """A column-parallel product's input: in training (a comm with
+    ``enter``, models.common.TrainRanksComm) identity forward and a sum
+    of the ranks' gradients backward; anywhere else ``h`` itself."""
+    enter = getattr(getattr(cfg, "comm", None), "enter", None)
+    return h if enter is None else enter(h)
 
 
 def _reduce(cfg: ModelConfig, part: torch.Tensor) -> torch.Tensor:
@@ -413,6 +421,13 @@ def _logits(params: dict, cfg: ModelConfig, x) -> torch.Tensor:
     LM head writes its columns into a zeroed [.., V] and the ranks sum
     it, so every rank holds the same logits."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if getattr(getattr(cfg, "comm", None), "enter", None) is not None:
+        # training: a vocab-split head's input (a whole head's product
+        # is every rank's own, its gradient whole on each)
+        head = params["embedding"] if cfg.tie_embeddings \
+            else params["lm_head"].t()
+        if head.shape[0] != cfg.vocab_size:
+            x = _enter(cfg, x)
     if cfg.tie_embeddings:
         local = torch.matmul(x, params["embedding"].t()).float()
     else:
@@ -425,16 +440,25 @@ def _logits(params: dict, cfg: ModelConfig, x) -> torch.Tensor:
     return comm.all_reduce(full)
 
 
+def _gathered_layer(gather, i, x, w, *rest):
+    """Layer ``i`` on the weights ``gather`` makes of its stored ones."""
+    return _layer(x, gather(i, w), *rest)
+
+
 def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
             rope_tables, flash_attn: bool, collect_kv: bool = True,
-            adapter=None, train: bool = False, remat: bool = False):
+            adapter=None, train: bool = False, remat: bool = False,
+            gather=None):
     """Shared causal body of forward/prefill_kv/score: embed, run the
     layers (positions at or past a row's length are padding, ``valid``
     False for an MoE FFN). Attention is K1 (``flash_attn``), its plain
     version, or with ``train`` the plain ``causal_attention`` under the
     validity mask, the JAX package's training attention. ``remat`` runs
     each layer under ``torch.utils.checkpoint``: its activations are
-    recomputed in the backward pass instead of kept. Returns (x
+    recomputed in the backward pass instead of kept. ``gather(i, w)``
+    (training on ranks, parallel.train) maps layer i's stored weights to
+    the ones it computes with, inside the checkpointed region, so
+    ``remat`` gathers them again for the recomputation. Returns (x
     [B, S, D], k_stack, v_stack [L, B, S, KV, hd] -- None without
     ``collect_kv`` --, lengths, each layer's router probabilities [B, S,
     E] float32 -- None for a dense FFN)."""
@@ -468,11 +492,14 @@ def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
     for i in range(cfg.n_layers):
         w = weights[i] if train else _layer_weights(params["layers"], i)
         args = (x, w, cfg, cos, sin, positions, attend, adapter, valid)
+        fn = _layer
+        if gather is not None:
+            fn, args = _gathered_layer, (gather, i, *args)
         if remat:
-            x, (k, v), p = checkpoint(_layer, *args, use_reentrant=False,
+            x, (k, v), p = checkpoint(fn, *args, use_reentrant=False,
                                       preserve_rng_state=False)
         else:
-            x, (k, v), p = _layer(*args)
+            x, (k, v), p = fn(*args)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -486,19 +513,20 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             lengths: torch.Tensor | None = None, rope_tables=None,
             flash: bool = False, adapter=None, *,
             return_router_probs: bool = False, train: bool = False,
-            remat: bool = False):
+            remat: bool = False, gather=None):
     """Cache-free causal forward over [B, S] tokens -> [B, S, V] float32
     logits; ``adapter`` [B]: each row's LoRA adapter.
 
     ``train``: the training forward (parallel.train), attention through
     ``ops.attention.causal_attention`` with the validity mask, as the JAX
-    package's ``forward``; ``remat``: each layer checkpointed.
+    package's ``forward``; ``remat``: each layer checkpointed;
+    ``gather``: a training rank's per-layer gather (``_causal``).
     ``return_router_probs``: returns (logits, probs [L, B, S, E]
     float32), probs None for a dense model."""
     x, _, _, _, probs = _causal(params, cfg, tokens, lengths,
                                 tokens.shape[1], rope_tables, flash,
                                 collect_kv=False, adapter=adapter,
-                                train=train, remat=remat)
+                                train=train, remat=remat, gather=gather)
     logits = _logits(params, cfg, x)
     if not return_router_probs:
         return logits

@@ -33,6 +33,20 @@ runtime. PyTorch has no partitioner, so the port runs SPMD ranks:
     worker waits for its next command without a practical limit, since
     an idle engine sends none, and leaves when rank 0's sockets close.
 
+Training (parallel.train) runs one rank a device of a (dp, fsdp, tp)
+plan, started the same way (``TPRanks`` with a training spec; the
+worker runs parallel.train's ops). Each rank also joins the gloo
+sub-groups of its coordinates (``TrainGroups``): its ``tp`` group, its
+``fsdp`` group, its data group (dp x fsdp: the ranks of one tp index)
+and its model group (fsdp x tp: the ranks of one dp index). Gloo takes
+only ``broadcast`` and ``all_reduce`` on CUDA tensors, so the training
+gather is an ``all_reduce`` of a zero-filled buffer into which each rank
+wrote its block, summed as int32 words (a sum of one non-zero
+contribution a bit is the bits themselves, so the gather is exact in
+any dtype), and the reduce-scatter is an ``all_reduce`` of the whole
+gradient (in the params' dtype) followed by each rank's slice. Nothing is staged by
+hand: gloo copies a CUDA tensor through the host itself.
+
 Multi-host ranks stay refused: ``TPU_COORDINATOR``, ``TPU_NUM_PROCESSES``,
 ``TPU_PROCESS_ID`` and ``TPU_COORDINATOR_TIMEOUT_S`` raise by name
 (``MULTIHOST_ROWS``; ROADMAP item 11b).
@@ -77,6 +91,12 @@ def device_backend(device: torch.device, tp: int) -> str:
     if device.type == "cuda" and torch.cuda.device_count() >= tp:
         return "nccl"
     return "gloo"
+
+
+def _timeout(seconds: float) -> datetime.timedelta:
+    if not seconds or seconds <= 0:
+        raise ValueError("every collective needs a time limit")
+    return datetime.timedelta(seconds=float(seconds))
 
 
 def rank_device(device: torch.device, rank: int) -> torch.device:
@@ -328,3 +348,92 @@ class TPRanks:
                 self.comm.close()
                 self.comm = None
             self._store = None
+
+
+# the training sub-groups: kind -> (the axes a member differs on)
+TRAIN_GROUPS = {"world": ("dp", "fsdp", "tp"), "tp": ("tp",),
+                "fsdp": ("fsdp",), "data": ("dp", "fsdp"),
+                "model": ("fsdp", "tp")}
+
+
+class TrainGroups:
+    """One training rank's gloo groups over a MeshPlan (``plan``): the
+    whole ``world`` and its ``tp``, ``fsdp``, ``data`` and ``model``
+    groups (``TRAIN_GROUPS``), each None where it has one member. Every
+    collective has ``timeout_s``; a failure or a timeout marks the
+    groups broken and raises ``RankFailure``. ``collective_s`` sums the
+    host time spent in the collectives (a call on CUDA tensors waits for
+    the device work queued before it)."""
+
+    def __init__(self, store, plan, rank: int,
+                 timeout_s: float = DEFAULT_TIMEOUT_S):
+        import torch.distributed as dist
+
+        self.plan = plan
+        self.rank = rank
+        self.coords = plan.coords(rank)
+        self.timeout = _timeout(timeout_s)
+        self.broken: str | None = None
+        self.collective_s = 0.0
+        self.calls = 0
+        self.groups: dict[str, Any] = {}
+        for kind, axes in TRAIN_GROUPS.items():
+            members = self.members(kind)
+            if len(members) == 1:
+                self.groups[kind] = None
+                continue
+            key = [self.coords[ax] for ax in ("dp", "fsdp", "tp")
+                   if ax not in axes]
+            name = f"train/{kind}/{'.'.join(map(str, key))}"
+            self.groups[kind] = dist.ProcessGroupGloo(
+                dist.PrefixStore(name, store), members.index(rank),
+                len(members), self.timeout)
+
+    def members(self, kind: str) -> list[int]:
+        """The ranks of this rank's ``kind`` group, in rank order."""
+        axes = TRAIN_GROUPS[kind]
+        return [r for r in range(self.plan.n_ranks)
+                if all(self.plan.coords(r)[ax] == self.coords[ax]
+                       for ax in ("dp", "fsdp", "tp") if ax not in axes)]
+
+    def _run(self, what: str, fn):
+        if self.broken is not None:
+            raise RankFailure(f"training group is broken: {self.broken}")
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        except Exception as e:  # noqa: BLE001 — any collective error
+            self.broken = f"{what} on rank {self.rank}: {e}"
+            raise RankFailure(self.broken) from e
+        finally:
+            self.collective_s += time.perf_counter() - t0
+            self.calls += 1
+
+    def all_reduce(self, t: torch.Tensor, kind: str) -> torch.Tensor:
+        """Sum ``t`` over this rank's ``kind`` group IN PLACE; returns
+        ``t`` (itself where the group has one member)."""
+        import torch.distributed as dist
+
+        pg = self.groups[kind]
+        if pg is None:
+            return t
+        opts = dist.AllreduceOptions()
+        opts.timeout = self.timeout
+        self._run(f"{kind} all_reduce",
+                  lambda: pg.allreduce([t], opts).wait())
+        return t
+
+    def gather_bytes(self, buf: torch.Tensor, kind: str) -> torch.Tensor:
+        """The gather: ``buf`` (uint8, zero where this rank has no
+        block) summed over the ``kind`` group as int32 words, IN PLACE.
+        Exact when each byte has at most one non-zero contributor; the
+        buffer is a whole number of int32 words."""
+        self.all_reduce(buf.view(torch.int32), kind)
+        return buf
+
+    def close(self) -> None:
+        for pg in self.groups.values():
+            if pg is not None:
+                with contextlib.suppress(Exception):
+                    pg.shutdown()
+        self.groups = {k: None for k in self.groups}

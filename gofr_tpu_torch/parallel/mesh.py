@@ -8,7 +8,11 @@ one process a tensor-parallel rank (parallel.distributed) and each rank
 calls the single-card kernels on its own head shard. So the plan keeps
 the JAX axis vocabulary and row syntax (``tp=2``, ``tp=4,dp=1``), but
 only the ``tp`` axis is served; any other axis set above 1 raises
-``ShardingConfigError`` naming the row (ROADMAP item 11b).
+``ShardingConfigError`` naming the row (ROADMAP item 11b). Training
+(parallel.train) runs ``dp``, ``fsdp`` and ``tp``, one rank a device of
+JAX's mesh: rank r sits at JAX's device r of
+``reshape(dp, pp, fsdp, ep, sp, tp)`` (``MeshPlan.coords``), so ``tp``
+is the fastest axis.
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ AXIS_EP = "ep"
 AXIS_SP = "sp"
 AXIS_TP = "tp"
 MESH_AXES = (AXIS_DP, AXIS_PP, AXIS_FSDP, AXIS_EP, AXIS_SP, AXIS_TP)
+# the axes the batch splits over (JAX's DATA_AXES): ep is a data axis
+# for everything but the expert weights
+DATA_AXES = (AXIS_DP, AXIS_FSDP, AXIS_EP)
 
 
 @dataclass(frozen=True)
@@ -42,6 +49,26 @@ class MeshPlan:
     def shape(self) -> dict[str, int]:
         """Axis -> size, as the JAX engine's health reports its mesh."""
         return {ax: getattr(self, ax) for ax in MESH_AXES}
+
+    @property
+    def n_ranks(self) -> int:
+        """The devices (ranks) the plan covers."""
+        n = 1
+        for ax in MESH_AXES:
+            n *= getattr(self, ax)
+        return n
+
+    def coords(self, rank: int) -> dict[str, int]:
+        """Rank ``rank``'s index on each axis, in JAX's device order
+        (``reshape(dp, pp, fsdp, ep, sp, tp)``: tp fastest)."""
+        if not 0 <= rank < self.n_ranks:
+            raise ValueError(f"rank {rank} outside {self.row()}")
+        out = {}
+        for ax in reversed(MESH_AXES):
+            size = getattr(self, ax)
+            out[ax] = rank % size
+            rank //= size
+        return {ax: out[ax] for ax in MESH_AXES}
 
     def row(self) -> str:
         """The axes above 1 in ``TPU_SHARDING`` syntax."""

@@ -34,6 +34,17 @@ one its query heads read). Anything else raises ShardingConfigError.
 JAX refuses only a tp that splits a KV head beside data axes and serves
 the other misfits on its jnp fallback (gofr_tpu/tpu/generator.py:
 699-722); the port refuses them (ROADMAP queue 3).
+
+Training (parallel.train) stores the state in JAX's layout: ``spec_for``
+maps each leaf to a spec over the mesh axes (a tuple, one entry a dim:
+None, an axis name, or a tuple of names, major first, as a JAX
+``PartitionSpec``), ``fit_spec`` replicates any axis that does not
+divide its dim, and ``shard_block`` is the slice of the leaf a rank
+holds at its coordinates: column-parallel leaves ``(None, fsdp, tp)``,
+row-parallel ``(None, tp, fsdp)``, the embedding's vocabulary over
+``(tp, fsdp)``, ``lm_head`` ``(fsdp, tp)``, norms and the router
+replicated. The step computes with the Megatron split above
+(``train_span``), gathered from those blocks.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ import numpy as np
 
 from ..errors import ShardingConfigError
 from ..models.common import ModelConfig, RankConfig
+from .mesh import AXIS_EP, AXIS_FSDP, AXIS_PP, AXIS_SP, AXIS_TP, DATA_AXES
 
 # leaf name -> the dim it splits on (JAX's _COLUMN / _ROW)
 _COLUMN = {"wq", "wk", "wv", "w_gate", "w_up"}
@@ -236,3 +248,126 @@ def shard_params(params: dict, cfg: ModelConfig, rank: int, tp: int
         else:
             out[k] = shard_leaf(k, v, cfg, rank, tp)
     return out
+
+
+# -- the training layout (gofr_tpu/parallel/sharding.py's spec table) --------
+
+# leaf name -> the spec of the whole (possibly [L, ...]-stacked) leaf
+_T_COLUMN = {"wq", "wk", "wv", "w_gate", "w_up", "w_in"}
+_T_ROW = {"wo", "w_down", "w_out"}
+_T_COLUMN_BIAS = {"bq", "bk", "bv", "b_in"}
+_T_ROW_BIAS = {"bo", "b_out"}
+
+
+def spec_for(name: str, ndim: int, stacked: bool = False) -> tuple:
+    """The spec of parameter leaf ``name`` (JAX's ``spec_for``):
+    ``stacked`` leaves lead with their [L] dim over pp."""
+    lead = AXIS_PP if stacked else None
+    if name in _T_COLUMN:
+        if ndim == 4:   # MoE experts [L, E, D, F]
+            return (lead, AXIS_EP, AXIS_FSDP, AXIS_TP)
+        return (lead, AXIS_FSDP, AXIS_TP) if ndim == 3 \
+            else (AXIS_FSDP, AXIS_TP)
+    if name in _T_ROW:
+        if ndim == 4:   # MoE experts [L, E, F, D]
+            return (lead, AXIS_EP, AXIS_TP, AXIS_FSDP)
+        return (lead, AXIS_TP, AXIS_FSDP) if ndim == 3 \
+            else (AXIS_TP, AXIS_FSDP)
+    if name in _T_COLUMN_BIAS:
+        return (lead, AXIS_TP) if ndim == 2 else (AXIS_TP,)
+    if name in _T_ROW_BIAS:
+        return (lead, AXIS_FSDP) if ndim == 2 else (AXIS_FSDP,)
+    if name == "embedding":
+        # the vocabulary over (tp, fsdp), the feature dim whole
+        return ((AXIS_TP, AXIS_FSDP), None)
+    if name == "lm_head":
+        return (AXIS_FSDP, AXIS_TP)
+    if name in ("pos_embedding", "patch_proj", "pooler_w", "head"):
+        return (None, AXIS_FSDP) if ndim == 2 else (AXIS_FSDP,)
+    if stacked and ndim >= 1:   # per-layer norms and the router
+        return (lead,)
+    return ()
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _axis_size(plan, entry) -> int:
+    n = 1
+    for ax in _names(entry):
+        n *= getattr(plan, ax)
+    return n
+
+
+def fit_spec(spec: tuple, shape: tuple, plan) -> tuple:
+    """``spec`` padded or cut to ``len(shape)``, each entry whose axes
+    do not divide its dim replaced by None (replicated), as JAX's
+    ``fit_spec``."""
+    axes = list(spec) + [None] * (len(shape) - len(spec))
+    return tuple(ax if ax is not None and dim % _axis_size(plan, ax) == 0
+                 else None for dim, ax in zip(shape, axes[:len(shape)]))
+
+
+def param_specs(params: dict, stacked: bool = False) -> dict:
+    """The (unfitted) spec of every leaf of a Llama parameter tree, the
+    tree's own nesting (JAX's ``param_specs``)."""
+    return {k: (param_specs(v, stacked or k == "layers")
+                if isinstance(v, dict)
+                else spec_for(k, v.ndim, stacked=stacked))
+            for k, v in params.items()}
+
+
+def batch_spec() -> tuple:
+    """Tokens [B, S]: the batch over the data axes, the sequence over
+    sp (JAX's ``batch_spec``)."""
+    return (DATA_AXES, AXIS_SP)
+
+
+def shard_block(spec: tuple, shape: tuple, plan, coords: dict
+                ) -> tuple[tuple[int, int], ...]:
+    """The [lo, hi) of each dim of the block a rank at ``coords`` holds
+    of a leaf of ``shape`` under the fitted ``spec``: an axis entry
+    splits its dim evenly, a tuple of axes by their joint index (the
+    first axis major)."""
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        n = _axis_size(plan, entry)
+        idx = 0
+        for ax in _names(entry):
+            idx = idx * getattr(plan, ax) + coords[ax]
+        k = dim // n
+        out.append((idx * k, (idx + 1) * k))
+    return tuple(out)
+
+
+def spec_axes(spec: tuple, plan) -> set:
+    """The axes above 1 that split some dim under ``spec``."""
+    return {ax for entry in spec for ax in _names(entry)
+            if getattr(plan, ax) > 1}
+
+
+def train_span(name: str, ndim: int, cfg: ModelConfig, tp: int, t: int
+               ) -> tuple[int, int, int] | None:
+    """(dim, lo, hi): the part of leaf ``name`` tensor-parallel rank
+    ``t`` computes with (the Megatron split of ``shard_leaf``), None
+    where every rank computes with the whole leaf. A leaf the split has
+    no rule for raises under tp > 1."""
+    if tp <= 1:
+        return None
+    if name not in _COLUMN | _ROW | {"embedding", "lm_head", "attn_norm",
+                                     "ffn_norm", "final_norm"}:
+        raise ShardingConfigError(
+            f"leaf {name!r} has no tensor-parallel training rule")
+    span = _span(name, cfg, t, tp)
+    if span is None:
+        return None
+    if name == "embedding":
+        dim = 0
+    elif name in _ROW:
+        dim = ndim - 2
+    else:
+        dim = ndim - 1
+    return (dim, *span)

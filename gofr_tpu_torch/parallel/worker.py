@@ -1,4 +1,7 @@
-"""A tensor-parallel worker rank: the process that follows rank 0.
+"""A worker rank: the process that follows rank 0, serving a tensor
+parallel engine's shard or, with a training spec (``kind`` "train"),
+training its blocks of a state (parallel.train ``serve_rank``: build or
+restore its blocks, step, save its share, close, at rank 0's commands).
 
 The JAX package has no counterpart: its single controller hands each
 program to GSPMD, which runs it on every chip of the mesh. In the port
@@ -61,6 +64,17 @@ def serve(spec: dict) -> int:
         torch.set_num_threads(1)
     store = open_store(spec["store"], rank, tp, spec["timeout_s"])
     comm = TPComm(store, rank, tp, device, spec["timeout_s"])
+    if spec.get("kind") == "train":
+        from .train import serve_rank
+
+        try:
+            return serve_rank(spec, store, comm)
+        except BaseException:
+            store.set(f"error/{rank}", f"rank {rank}: "
+                      f"{traceback.format_exc(limit=8)}")
+            raise
+        finally:
+            comm.close()
     try:
         try:
             engine = _build(spec, comm)

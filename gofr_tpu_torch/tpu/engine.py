@@ -127,6 +127,11 @@ class TorchEngine:
             # device-byte and arbiter gauges (app_tpu_device_bytes,
             # app_tpu_hbm_*), also for engines without a generator
             hbm.set_metrics(metrics)
+            try:
+                metrics.set_gauge("app_tpu_devices",
+                                  float(self.device_count()))
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
         self.max_delay = max_delay
         # resilience.AdmissionGate TEMPLATE (None = admit everything):
         # each program gets its own clone, fed with that program's waits
@@ -452,6 +457,12 @@ class TorchEngine:
                                   "reason": "fixed-kind program registered "
                                             "without example_item"})
 
+    def device_count(self) -> int:
+        """The devices this process sees: the cards, or 1 on the CPU
+        (health's ``devices``, the ``app_tpu_devices`` gauge)."""
+        return torch.cuda.device_count() if self.device.type == "cuda" \
+            else 1
+
     # -- health --------------------------------------------------------------
     def health_check(self) -> Health:
         cuda = self.device.type == "cuda"
@@ -459,7 +470,7 @@ class TorchEngine:
             "platform": "gpu" if cuda else "cpu",
             "device_kind": (torch.cuda.get_device_name(self.device)
                             if cuda else "cpu"),
-            "devices": torch.cuda.device_count() if cuda else 1,
+            "devices": self.device_count(),
             "device": str(self.device),
             "model": self.model_name,
             "programs": {

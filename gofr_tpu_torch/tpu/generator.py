@@ -4171,6 +4171,9 @@ class GenerationEngine:
                         "event": "paged pool exhausted: stream truncated",
                         "slot": idx, "generated": slot.generated,
                         "free_blocks": self._alloc.free_blocks})
+                if self.metrics is not None:
+                    self.metrics.increment_counter(
+                        "app_tpu_paged_evictions_total")
                 self._retire(idx, slot)
                 continue
             self._write_table_row(idx)

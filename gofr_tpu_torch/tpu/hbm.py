@@ -100,6 +100,8 @@ __all__ = ["HBMExhausted", "PRI_CACHE", "PRI_SCRATCH", "PRI_SERVING",
 
 GAUGE = "app_tpu_device_bytes"
 BUDGET_GAUGE = "app_tpu_hbm_budget_bytes"
+DEVICE_GAUGE = "app_tpu_hbm_device_in_use_bytes"
+DEVICE_BUDGET_GAUGE = "app_tpu_hbm_device_budget_bytes"
 RECLAIMS_COUNTER = "app_tpu_hbm_reclaims_total"
 SHED_COUNTER = "app_tpu_hbm_shed_total"
 
@@ -209,6 +211,12 @@ class _Registry:
         # gauge sinks, weakly held: the registry outlives any metrics
         # Manager and must not pin one alive
         self._sinks: "weakref.WeakSet[Any]" = weakref.WeakSet()
+        # devices with a live DEVICE_GAUGE series: a device whose leases
+        # went pushes an explicit 0 at the next push; _push_mu keeps a
+        # stale snapshot from landing after fresher zeros (reentrant:
+        # live_bytes may push the rows of an owner that died)
+        self._pushed_devs: set[str] = set()
+        self._push_mu = threading.RLock()
         # serving timelines (observe/timeline.py), the same weak fan-out:
         # every accounting change lands a counter sample
         self._timelines: "weakref.WeakSet[Any]" = weakref.WeakSet()
@@ -347,6 +355,11 @@ class _Registry:
         placed on one device (``lease(..., device=)``) may hold
         together."""
         self._dev_budget = int(nbytes) if nbytes else None
+        for m in list(self._sinks):
+            try:
+                m.set_gauge(DEVICE_BUDGET_GAUGE, float(self._dev_budget or 0))
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
 
     def device_budget(self) -> int | None:
         return self._dev_budget
@@ -373,6 +386,15 @@ class _Registry:
 
     def _in_use_locked(self) -> int:
         return sum(self._entries.values())
+
+    def _device_bytes_locked(self) -> dict[str, int]:
+        """Bytes by device over the rows placed on one."""
+        out: dict[str, int] = {}
+        for k, n in self._entries.items():
+            if k in self._place:
+                dev = self._place[k][0]
+                out[dev] = out.get(dev, 0) + n
+        return out
 
     def _device_in_use_locked(self, device: str) -> int:
         return sum(n for k, n in self._entries.items()
@@ -722,6 +744,8 @@ class _Registry:
             self._push(sub)
         try:
             metrics.set_gauge(BUDGET_GAUGE, float(self._budget or 0))
+            metrics.set_gauge(DEVICE_BUDGET_GAUGE,
+                              float(self._dev_budget or 0))
         except Exception:  # noqa: BLE001 — telemetry only
             pass
 
@@ -777,12 +801,24 @@ class _Registry:
         timelines = list(self._timelines)
         if not sinks and not timelines:
             return
-        value = float(self.live_bytes().get(subsystem, 0))
-        for m in sinks:
-            try:
-                m.set_gauge(GAUGE, value, subsystem=subsystem)
-            except Exception:  # noqa: BLE001 — telemetry only
-                pass
+        with self._push_mu:
+            value = float(self.live_bytes().get(subsystem, 0))
+            # the rows placed on a device (a rank's leases), with an
+            # explicit 0 for a device whose rows went
+            with self._locked():
+                per_dev = {d: n for d, n in
+                           self._device_bytes_locked().items() if d}
+                gone = self._pushed_devs - set(per_dev)
+                self._pushed_devs = set(per_dev)
+            for m in sinks:
+                try:
+                    m.set_gauge(GAUGE, value, subsystem=subsystem)
+                    for d, n in per_dev.items():
+                        m.set_gauge(DEVICE_GAUGE, float(n), device=d)
+                    for d in gone:
+                        m.set_gauge(DEVICE_GAUGE, 0.0, device=d)
+                except Exception:  # noqa: BLE001 — telemetry only
+                    pass
         for tl in timelines:
             try:
                 tl.hbm(subsystem, value)

@@ -71,6 +71,7 @@ pytestmark = pytest.mark.cuda
 # as chip_smoke.py: bf16 outputs may part by about one bf16 step of the
 # plain value plus a small absolute term
 ATOL, RTOL = 1e-2, 2.0 ** -7
+MOMENTS_SHARE = 0.25
 
 
 @pytest.fixture
@@ -2186,3 +2187,130 @@ def test_a_bf16_train_step_on_the_card_follows_the_cpu_s_float32_step(gen):
         assert torch.all(diff <= RTOL * want.abs() + 4 * lr), name
         assert float(diff.median()) <= RTOL * float(want.abs().median()) \
             + lr / 10, name
+
+
+def _train_collectives_rank(rank: int, port: int, out: str) -> None:
+    """One of two fsdp ranks on the card: its block gathered through
+    ``TrainGroups.gather_bytes`` and a gradient summed through its
+    ``all_reduce``, both on CUDA tensors, saved for the parent."""
+    from gofr_tpu_torch.parallel import MeshPlan, TrainGroups
+    from gofr_tpu_torch.parallel.distributed import open_store
+
+    torch.cuda.set_device(0)
+    store = open_store(port, rank, 2, 60)
+    groups = TrainGroups(store, MeshPlan(fsdp=2), rank, timeout_s=60)
+    try:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        blocks = [torch.randn((33, 7), generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2)]
+        grads = [torch.randn((66, 7), generator=g, device="cuda")
+                 for _ in range(2)]
+        buf = torch.zeros(66 * 7 * 2 + 4, dtype=torch.uint8, device="cuda")
+        view = buf[:66 * 7 * 2].view(torch.bfloat16).view(66, 7)
+        view[33 * rank:33 * (rank + 1)] = blocks[rank]
+        groups.gather_bytes(buf, "fsdp")
+        total = groups.all_reduce(grads[rank].clone(), "fsdp")
+        torch.save({"gathered": view.cpu(), "cat": torch.cat(blocks).cpu(),
+                    "summed": total[33 * rank:33 * (rank + 1)].cpu(),
+                    "sum": (grads[0] + grads[1])[33 * rank:33 * (rank + 1)]
+                    .cpu()}, f"{out}/rank{rank}.pt")
+    finally:
+        groups.close()
+
+
+def test_the_training_gather_and_reduce_scatter_on_cuda_tensors(
+        gen, tmp_path):
+    """Two fsdp ranks sharing the card over gloo: the gather (an int32
+    all_reduce of a zero-filled buffer each rank wrote its bf16 block
+    into) equals ``torch.cat`` of the blocks bit for bit, and the
+    reduce-scatter (an all_reduce, then each rank's slice) of float32
+    gradients their sum."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_train_collectives_rank, args=(port, str(tmp_path)), nprocs=2)
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt")
+        assert torch.equal(got["gathered"], got["cat"])
+        torch.testing.assert_close(got["summed"], got["sum"], rtol=1e-6,
+                                   atol=1e-6)
+
+
+def _checkpoint_f32(a: np.ndarray) -> torch.Tensor:
+    """A checkpoint leaf as float32 (bf16 is saved as 2-byte voids)."""
+    if a.dtype.kind == "V":
+        return torch.from_numpy(a.view(np.uint16).astype(np.int32)
+                                << 16).view(torch.float32)
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def test_a_dp2_tp2_step_on_the_card_follows_the_cpu_s_step(gen, tmp_path):
+    """Three bf16 steps of ``tiny`` over dp=2,tp=2 ranks sharing the card
+    (the seed-0 weights rounded to bf16, restored onto the ranks from a
+    checkpoint) against the same steps in float32 on one CPU device, as
+    the one-device bf16 test holds them: the loss within 2e-2 and
+    grad_norm within 5e-2 relative at each step, and the loss falls
+    (the first step has lr 0 at warmup 1, so the third step's metrics
+    see the second's update). Each param's change from its start is
+    held against the float32 change: within 2^-7 of the param's
+    magnitude plus 4 lr at every element (a bf16 gradient near zero can
+    take the other sign) and, a leaf's median, within 2^-7 of the
+    median magnitude plus lr / 10 (the bf16 ranks on the CPU: medians
+    5.8e-5 to 1.5e-3 against bounds of 1.1e-3 to 8.9e-3); a state left
+    unchanged parts from the float32 change by its whole median
+    (0.0071-0.0185 a leaf on the CPU), past that bound at every leaf.
+    Each moment's median difference within MOMENTS_SHARE of its median
+    magnitude (the bf16 ranks on the CPU against float32: up to 0.109
+    for mu, 0.112 for nu; moments left at zero part by 1)."""
+    from gofr_tpu_torch import parallel
+
+    lr = 1e-2
+    cfg = LLAMA_CONFIGS["tiny"]
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(1, cfg.vocab_size, (4, 64)).astype(np.int32)
+    lengths = np.array([64, 64, 50, 30], np.int32)
+    opt = parallel.default_optimizer(lr=lr, warmup=1, total_steps=10)
+    runs = {}
+    for device, dtype, row in (("cpu", "float32", ""),
+                               ("cuda", "bfloat16", "dp=2,tp=2")):
+        c = cfg.with_(dtype=dtype)
+        init = str(tmp_path / f"{dtype}.npz")
+        parallel.save_train_state(init, parallel.init_train_state(
+            c, 0, opt, device="cpu"))
+        with np.load(init) as f:
+            start = {k: f[k] for k in f.files if k.startswith("params/")}
+        state = parallel.restore_train_state(
+            init, c, opt, plan=parallel.training_plan(row), device=device)
+        step = parallel.make_train_step(c, opt, device=device)
+        metrics = []
+        try:
+            for _ in range(3):
+                state, m = step(state, tokens, lengths)
+                metrics.append({k: float(v) for k, v in m.items()})
+            whole = parallel.gather_train_state(state)
+        finally:
+            state.close()
+        runs[device] = (metrics, whole, start)
+    (m32, s32, p0_32), (m16, s16, p0_16) = runs["cpu"], runs["cuda"]
+    for a, b in zip(m16, m32):
+        assert abs(a["loss"] - b["loss"]) <= 2e-2 * b["loss"], (a, b)
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= 5e-2 * b["grad_norm"]
+    assert m16[-1]["loss"] < m16[0]["loss"]
+    for name, a in s32.items():
+        want = _checkpoint_f32(a)
+        got = _checkpoint_f32(s16[name])
+        if name.startswith("params/"):
+            moved = want - _checkpoint_f32(p0_32[name])
+            diff = (got - _checkpoint_f32(p0_16[name]) - moved).abs()
+            assert torch.all(diff <= RTOL * want.abs() + 4 * lr), \
+                (name, float(diff.max()))
+            assert float(diff.median()) <= RTOL * float(
+                want.abs().median()) + lr / 10, (name, float(diff.median()))
+        elif name.startswith(("opt_state/mu/", "opt_state/nu/")):
+            diff = float((got - want).abs().median())
+            assert diff <= MOMENTS_SHARE * float(want.abs().median()), \
+                (name, diff)

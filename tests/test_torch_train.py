@@ -357,14 +357,22 @@ def _refusal(case: str):
     if case == "int8":
         params = maybe_quantize(tllama.init(cfg, 0, device="cpu"), True)
         return lambda: opt.init(params)
+    if case.startswith("plan:"):
+        # refused by the model's check before any rank starts
+        name, _, row = case[5:].partition("@")
+        return lambda: ppar.init_train_state(
+            LLAMA_CONFIGS[name], 0, opt,
+            plan=ppar.MeshPlan(**{k: int(v) for k, v in
+                                  (a.split("=") for a in row.split(","))}),
+            device="cpu")
     return lambda: ppar.init_train_state(cfg, 0, opt)   # "card"
 
 
 REFUSALS = {
-    "sharding:dp=2": (ShardingConfigError, "dp=2.*11b"),
-    "sharding:fsdp=2,tp=1": (ShardingConfigError, "fsdp=2"),
+    "plan:tiny@ep=2": (ShardingConfigError, "ep=2.*3c, ep with MoE"),
+    "plan:tiny-moe@tp=2": (ShardingConfigError, "mixture of experts.*3c"),
+    "plan:tiny@tp=3": (ShardingConfigError, "tp=3.*n_heads=4"),
     "sharding:ep=2": (ShardingConfigError, "ep=2.*MoE"),
-    "sharding:tp=2": (ShardingConfigError, "tp=2.*training under tp"),
     "sharding:pp=2": (ShardingConfigError, "pp=2.*pipeline.py"),
     "sharding:sp=2": (ShardingConfigError, "sp=2.*ring_attention.py"),
     "sharding:dp=2,pp=2": (ShardingConfigError, "dp=2.*pp=2"),
@@ -388,6 +396,18 @@ def test_one_device_rows_pass():
     for row in ("", "tp=1", "dp=1,fsdp=1,ep=1,pp=1,sp=1,tp=1"):
         assert ppar.training_plan(row).shape() == {
             ax: 1 for ax in ("dp", "pp", "fsdp", "ep", "sp", "tp")}
+
+
+@pytest.mark.parametrize("row", ["dp=2", "fsdp=2,tp=1", "tp=2",
+                                 "dp=2,fsdp=2,tp=2"])
+def test_the_rows_over_dp_fsdp_and_tp_pass(row):
+    """The rows the port now trains on (tests/test_torch_train_mesh.py
+    trains them); ``tiny`` takes each."""
+    plan = ppar.training_plan(row)
+    want = {k: int(v) for k, v in (a.split("=") for a in row.split(","))}
+    assert {ax: n for ax, n in plan.shape().items() if n > 1} == {
+        ax: n for ax, n in want.items() if n > 1}
+    ppar.check_train_plan(LLAMA_CONFIGS["tiny"], plan)
 
 
 # -- examples/tpu-finetune's train and resume on both packages' new_cmd ---------
