@@ -393,9 +393,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      its streams equal the App's or part at a near tie, K1, K3 and K3w
      on the counters, a verify replay against its eager pass; a
      ``{"moe": {...}}`` line;
+  5r2. (phase ``mesh``) serving over every mesh axis on the one card,
+     each engine from new_engine_from_config at full width cut to
+     MESH_LAYERS = 2 layers on seed-0 weights, against a one-device
+     engine of the same rows built first and freed: K2 held against its
+     plain version at a rank's batch (2 slots, 16/4 heads); Llama-3-8B
+     contiguous at TPU_SHARDING=dp=2,fsdp=2,tp=2 (8 ranks, 8 slots, 2 a
+     data index, int8 KV): a burst of 8 streams, each prompt scored
+     alone and four as one batch split over the data axes; the same
+     model paged at dp=2,tp=2 with TPU_SPEC_DECODE=4 (X + S + X
+     prompts); Mixtral-8x7B (TPU_QUANT=int8) at ep=2,tp=2, each rank's
+     int8 expert codes a quarter of the stacks: every first token the
+     one-device engine's or within TP_TIE_ATOL of the winner in the
+     ranks' own admission logits, score logits within TP_LOGIT_ATOL,
+     K1, K2, K3 and K3w on every rank as the admissions, steps and
+     verify passes count them, no plain call, each rank's peak and
+     weights; a ``{"mesh": {...}}`` line;
   5s. (phase ``train``) training on the port
      (``gofr_tpu_torch.parallel.train``), one card: Llama-1B at full
-     size (16 layers, bf16, seed-0 weights) through
+     width cut to TRAIN_LAYERS = 4 layers (bf16, seed-0 weights) through
      examples/tpu-finetune's ``train -steps=3`` (8 x 128, the example's
      synthetic batch) on ``gofr_tpu_torch.new_cmd``, on one device, then
      the same command with ``-sharding=dp=2,fsdp=2,tp=2`` (8 ranks on the
@@ -424,13 +440,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``{"train": {...}}`` line;
   6. a ``{"kernels": [...]}`` line (flash_prefill's launches are phase
      5's, the score run's and phases grpc's, tiers', lora's, tenancy's,
-     gateway's, pd's, tp's, cmd's, observe's, moe's and train's;
-     flash_decode's phase 5's and phases grpc's, tiers', lora's,
-     tenancy's, gateway's, pd's, tp's, cmd's, observe's, moe's and
-     train's;
-     paged_decode's phase paged's, lora's, pd's, tp's and moe's;
-     paged_window's phase spec's, tp's and moe's; phase tp's summed over
-     its two ranks, phase train's over its two engines' ranks),
+     gateway's, pd's, tp's, cmd's, observe's, moe's, mesh's and
+     train's; flash_decode's phase 5's and phases grpc's, tiers',
+     lora's, tenancy's, gateway's, pd's, tp's, cmd's, observe's, moe's,
+     mesh's and train's;
+     paged_decode's phase paged's, lora's, pd's, tp's, moe's and
+     mesh's; paged_window's phase spec's, tp's, moe's and mesh's; phase
+     tp's summed over its two ranks, phase mesh's over every engine's
+     ranks, phase train's over its two engines' ranks),
      then the card line, then the ``{"ok": true, "device": {...}}`` line
      last.
 
@@ -9391,10 +9408,366 @@ def moe_paged(rows: dict, params, prompts, card: str) -> dict:
             "tok_s": sum(map(len, outs)) / wall}
 
 
+# -- phase mesh: serving over the data axes (dp, fsdp, ep) beside tp --------
+
+# Llama-3-8B at full width from phase tp's rows (8 slots, 2048 positions,
+# int8 KV, K = 4): contiguous at dp=2,fsdp=2,tp=2 (8 ranks on the card, 2
+# slots each, every layer's blocks gathered over fsdp at each dispatch),
+# paged with TPU_SPEC_DECODE=4 at dp=2,tp=2 (the pool whole on every data
+# index); Mixtral-8x7B with int8 weights at ep=2,tp=2 (each rank a quarter
+# of the experts)
+MESH_ROWS = dict(TP_ROWS, TPU_SHARDING="dp=2,fsdp=2,tp=2")
+MESH_PAGED_ROWS = dict(TP_PAGED_ROWS, TPU_SHARDING="dp=2,tp=2")
+MESH_MOE_ROWS = {"TPU_MODEL": "mixtral-8x7b", "TPU_QUANT": "int8",
+                 "TPU_SLOTS": "4", "TPU_MAX_SEQ": "2048",
+                 "TPU_KV_DTYPE": "int8", "TPU_SHARDING": "ep=2,tp=2"}
+MESH_SEED = 131
+# the depth of every engine of the phase (full width): each dispatch of
+# the 8-rank engine gathers every layer's blocks over fsdp through the
+# host (gloo), so its time grows with the depth
+MESH_LAYERS = 2
+MESH_LENS = [17, 500, 123, 256, 64, 300, 40, 200]   # bucket admissions
+MESH_NEW = 8
+MESH_PAGED_X = [150, 90, 200, 60]    # prompts X + S + X, as phase tp's
+MESH_PAGED_NEW = 24
+MESH_MOE_LENS = [17, 300, 123, 64]
+MESH_MOE_NEW = 8
+
+
+def _plain_rows(rows: dict) -> dict:
+    return {k: v for k, v in rows.items() if k != "TPU_SHARDING"}
+
+
+def mesh_reference(rows: dict, prompts, n_new: int, xs=()) -> dict:
+    """The one-device engine of ``rows`` (without TPU_SHARDING) on the
+    same seed-0 weights, built, used and freed before the ranks start:
+    its greedy streams of the prompts, each prompt's score logits and,
+    for the paged prompts X + S + X (S its continuation of X), their
+    first tokens and score logits."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.tpu import new_engine_from_config
+
+    eng = new_engine_from_config(MapConfig(_plain_rows(rows)), device="cuda")
+    gen = eng.generator
+    try:
+        outs, _, _ = _serve(eng, prompts, {}, n_new)
+        scores = [eng.predict("score", np.asarray(p, np.int32))
+                  for p in prompts]
+        paged = None
+        if xs:
+            conts, _, _ = _serve(eng, xs, {}, 16)
+            pprompts = [x + s + x for x, s in zip(xs, conts)]
+            firsts, _, _ = _serve(eng, pprompts, {}, 1)
+            paged = {"prompts": pprompts, "firsts": [t[0] for t in firsts],
+                     "scores": [eng.predict("score", np.asarray(p, np.int32))
+                                for p in pprompts]}
+    finally:
+        eng.close()
+    release_graphs(gen)
+    del eng, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"outs": outs, "scores": scores, "paged": paged}
+
+
+def mesh_run(rows: dict, prompts, n_new: int, card: str,
+             split_score: bool = False) -> dict:
+    """One sharded engine from ``rows`` (new_engine_from_config): warmed
+    by one short request, the counters of every rank zeroed, the prompts
+    served as one burst (rank 0 keeping each admission's summed logits),
+    each prompt scored (``predict``, a batch of one: every data index
+    runs it whole) and, with ``split_score``, the first four as one
+    batch split over the data axes (``tp_score``); then each rank's
+    counters, peak and weights."""
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.ops import flash, flash_decode, paged_attention
+    from gofr_tpu_torch.tpu import new_engine_from_config
+    from gofr_tpu_torch.tpu.generator import _COUNTERS
+
+    # rank 0 is this process: its peak from here (a worker's is its own)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = new_engine_from_config(MapConfig(rows), device="cuda")
+    gen = eng.generator
+    ready_s = time.monotonic() - t0
+    try:
+        eng.generate(prompts[0][:32], max_new_tokens=2).tokens()
+        for mod in (flash, flash_decode, paged_attention):
+            mod.reset_counts()
+        gen.tp_zero_counts()
+        adm0, steps0, passes0 = (gen.admissions, gen.decode_steps,
+                                 gen.verify_passes)
+        disp0 = eng._programs["score"].dispatches
+        kept, undo = _record_first_logits()
+        try:
+            outs, streams, wall = _serve(eng, prompts, {}, n_new)
+        finally:
+            undo()
+        scores = [eng.predict("score", np.asarray(p, np.int32))
+                  for p in prompts]
+        split = None
+        if split_score:
+            batch = prompts[:4]
+            width = max(map(len, batch))
+            tokens = torch.zeros((len(batch), width), dtype=torch.long)
+            for i, p in enumerate(batch):
+                tokens[i, :len(p)] = torch.tensor(p)
+            lengths = torch.tensor([len(p) for p in batch])
+            rope = llama.get_rope_tables(gen.cfg, width, gen.device)
+            split = gen.tp_score(tokens.to(gen.device),
+                                 lengths.to(gen.device), rope,
+                                 width).float().cpu().numpy()
+        probe = gen.tp_probe()
+        out = {"admissions": gen.admissions - adm0,
+               "steps": gen.decode_steps - steps0,
+               "passes": gen.verify_passes - passes0,
+               "dispatches": (eng._programs["score"].dispatches - disp0
+                              + (1 if split_score else 0)),
+               "stats": gen.stats(), "health": eng.health_check(),
+               "reports": list(gen._tp.ready), "outs": outs,
+               "scores": scores, "split": split, "kept": kept,
+               "wall": wall, "ready_s": ready_s,
+               "layers": gen.cfg.n_layers, "cfg": gen._full_cfg}
+    finally:
+        eng.close()
+    require(all(p.poll() is not None for p in gen._tp.procs),
+            f"a rank of {rows['TPU_SHARDING']} outlived close()")
+    names = [f"{mod.__name__.rsplit('.', 1)[1]}.{name}"
+             for mod, name in _COUNTERS]
+    out["per_rank"] = [dict(zip(names, (int(x) for x in row[-len(names):])))
+                       for row in probe]
+    out["peaks"] = [int(row[-len(names) - 1]) for row in probe]
+    out["probe"] = probe
+    del eng, gen
+    return out
+
+
+def _mesh_check(tag: str, run: dict, prompts, firsts_ref, scores_ref,
+                kernels: dict, card: str) -> None:
+    """The checks every sharded engine of the phase passes: each first
+    token the one-device engine's or within TP_TIE_ATOL of the winner in
+    the logits the ranks sampled it from; score logits within
+    TP_LOGIT_ATOL; ``kernels`` ({counter: expected launches}) on every
+    rank, no plain version anywhere; the health's mesh the plan's."""
+    import numpy as np
+
+    from gofr_tpu_torch.parallel import parse_sharding
+
+    plan = parse_sharding(tag)
+    firsts = [o[0] for o in run["outs"]]
+    ties = _tie_gaps(prompts, firsts, firsts_ref, run["kept"])
+    diffs = [float(np.abs(a - b).max())
+             for a, b in zip(run["scores"], scores_ref)]
+    if run["split"] is not None:
+        diffs += [float(np.abs(a - b).max())
+                  for a, b in zip(run["split"], scores_ref)]
+    mesh = run["health"].details["mesh"]
+    print(f"[mesh] {tag}: first tokens {firsts} (one device "
+          f"{firsts_ref}; (index, gap to the winner) where they differ "
+          f"{ties}); score logits against one device max |diff| "
+          f"{max(diffs):.4e} (atol {TP_LOGIT_ATOL}); launches by rank "
+          f"{run['per_rank']}; card: {card}", flush=True)
+    _check_ties(tag, ties)
+    require(max(diffs) <= TP_LOGIT_ATOL,
+            f"{tag} score logits differ from one device's by {max(diffs)}")
+    require({ax: mesh[ax] for ax in plan.shape()} == plan.shape()
+            and run["health"].status == "UP",
+            f"{tag} health {run['health'].status}, mesh {mesh}")
+    require(len(run["per_rank"]) == plan.n_ranks,
+            f"{tag}: {len(run['per_rank'])} ranks probed")
+    for r, c in enumerate(run["per_rank"]):
+        require(all(c[k] == n for k, n in kernels.items())
+                and all(v == 0 for k, v in c.items() if "plain" in k),
+                f"{tag} rank {r}: launches {c}, expected {kernels} and no "
+                f"plain call")
+
+
+def phase_mesh(card: str) -> dict:
+    """Serving over every mesh axis on the one card, each engine from
+    ``new_engine_from_config`` at full width cut to MESH_LAYERS layers
+    on seed-0 weights, against a one-device engine of the same rows
+    built first and freed: Llama-3-8B contiguous at dp=2,fsdp=2,tp=2 (a
+    burst of 8 streams over 8 slots, 2 a data index) and paged with
+    TPU_SPEC_DECODE=4 at dp=2,tp=2; Mixtral-8x7B (int8 weights) at
+    ep=2,tp=2, each rank's expert codes a quarter of the whole. Every
+    first token is the one-device engine's or within TP_TIE_ATOL of its
+    winner, score logits within TP_LOGIT_ATOL; K1, K2, K3 and K3w
+    launched on every rank, no plain version; K2 held against its plain
+    version at a rank's batch. Returns the launches summed over the
+    ranks."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.models.common import LLAMA_CONFIGS
+    from gofr_tpu_torch.parallel import parse_sharding
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    model = cut_model(TP_ROWS["TPU_MODEL"], MESH_LAYERS)
+    moe_model = cut_model(MESH_MOE_ROWS["TPU_MODEL"], MESH_LAYERS)
+    rows, paged_rows = (dict(r, TPU_MODEL=model)
+                        for r in (MESH_ROWS, MESH_PAGED_ROWS))
+    moe_rows = dict(MESH_MOE_ROWS, TPU_MODEL=moe_model)
+    plan = parse_sharding(rows["TPU_SHARDING"])
+    cfg = LLAMA_CONFIGS[model]
+    B_own = int(rows["TPU_SLOTS"]) // plan.data
+    # K2 at a rank's batch and heads (B/(dp·fsdp) slots, 32/tp and 8/tp
+    # heads) against its plain version, before the counters are zeroed
+    g = torch.Generator(device="cuda")
+    g.manual_seed(MESH_SEED)
+    rec: dict = {}
+    decode_case(g, [512] * B_own, True, rec, h=cfg.n_heads // plan.tp,
+                kv=cfg.n_kv_heads // plan.tp)
+    print(f"[mesh] K2 at a rank's batch B={B_own} (H={cfg.n_heads // plan.tp}"
+          f", KV={cfg.n_kv_heads // plan.tp}): max_abs_err "
+          f"{rec['max_abs_err']:.3e} against its plain version; card: "
+          f"{card}", flush=True)
+
+    rng = np.random.default_rng(MESH_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in MESH_LENS]
+    xs = [rng.integers(0, cfg.vocab_size, n).tolist() for n in MESH_PAGED_X]
+    t0 = time.monotonic()
+    ref = mesh_reference(rows, prompts, MESH_NEW, xs)
+    print(f"[mesh] one-device {model} reference in "
+          f"{time.monotonic() - t0:.1f} s; card: {card}", flush=True)
+    counts = {"flash_prefill": 0, "flash_decode": 0, "paged_decode": 0,
+              "paged_window": 0}
+    summary = {}
+
+    # contiguous, dp=2,fsdp=2,tp=2
+    run = mesh_run(rows, prompts, MESH_NEW, card, split_score=True)
+    L = run["layers"]
+    k1 = L * (run["admissions"] + run["dispatches"])
+    k2 = L * run["steps"]
+    _mesh_check(rows["TPU_SHARDING"], run, prompts,
+                [o[0] for o in ref["outs"]], ref["scores"],
+                {"flash.launches": k1, "flash_decode.launches": k2,
+                 "paged_attention.launches": 0,
+                 "paged_attention.window_launches": 0}, card)
+    require(run["steps"] > 0 and run["admissions"] == len(prompts),
+            f"{run['admissions']} admissions, {run['steps']} decode steps")
+    require(run["stats"]["mesh"]["slots_per_rank"] == B_own,
+            f"slots a rank {run['stats']['mesh']['slots_per_rank']}")
+    counts["flash_prefill"] += k1 * plan.n_ranks
+    counts["flash_decode"] += k2 * plan.n_ranks
+    tok_s = sum(map(len, run["outs"])) / run["wall"]
+    step_ms = run["stats"]["decode_step_ms_mean"]
+    print(f"[mesh] {rows['TPU_SHARDING']} ({plan.n_ranks} ranks on the "
+          f"card, ready in {run['ready_s']:.1f} s): {len(prompts)} streams of "
+          f"{MESH_NEW} tokens at {tok_s:.2f} tok/s, a decode step "
+          f"{step_ms:.2f} ms (host clock); {run['admissions']} admissions, "
+          f"{run['steps']} decode steps, {run['dispatches']} score "
+          f"dispatches; peak allocated GB by rank "
+          f"{[round(p / 1e9, 3) for p in run['peaks']]}; weights GB by rank "
+          f"{[round(r['weight_bytes'] / 1e9, 3) for r in run['reports']]}; "
+          f"card: {card}", flush=True)
+    summary["contiguous"] = {"ready_s": run["ready_s"], "tok_s": tok_s,
+                             "step_ms": step_ms, "peaks": run["peaks"]}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # paged with spec decode, dp=2,tp=2
+    pplan = parse_sharding(paged_rows["TPU_SHARDING"])
+    pp = ref["paged"]
+    run = mesh_run(paged_rows, pp["prompts"], MESH_PAGED_NEW, card)
+    k1 = L * (run["admissions"] + run["dispatches"])
+    k3, k3w = L * run["steps"], L * run["passes"]
+    _mesh_check(paged_rows["TPU_SHARDING"], run, pp["prompts"],
+                pp["firsts"], pp["scores"],
+                {"flash.launches": k1, "flash_decode.launches": 0,
+                 "paged_attention.launches": k3,
+                 "paged_attention.window_launches": k3w}, card)
+    require(run["steps"] > 0 and run["passes"] > 0,
+            f"paged: {run['steps']} decode steps, {run['passes']} verify "
+            "passes")
+    counts["flash_prefill"] += k1 * pplan.n_ranks
+    counts["paged_decode"] += k3 * pplan.n_ranks
+    counts["paged_window"] += k3w * pplan.n_ranks
+    ptok_s = sum(map(len, run["outs"])) / run["wall"]
+    print(f"[mesh] paged {paged_rows['TPU_SHARDING']} + TPU_SPEC_DECODE=4 "
+          f"(ready in {run['ready_s']:.1f} s): {len(pp['prompts'])} streams "
+          f"of {MESH_PAGED_NEW} tokens at {ptok_s:.2f} tok/s, a decode step "
+          f"{run['stats']['decode_step_ms_mean']:.2f} ms; {run['steps']} "
+          f"decode steps, {run['passes']} verify passes "
+          f"({run['stats']['spec_decode']['tokens_per_window']} tokens a "
+          f"window); peak allocated GB by rank "
+          f"{[round(p / 1e9, 3) for p in run['peaks']]}; card: {card}",
+          flush=True)
+    summary["paged"] = {"ready_s": run["ready_s"], "tok_s": ptok_s,
+                        "step_ms": run["stats"]["decode_step_ms_mean"],
+                        "peaks": run["peaks"]}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Mixtral-8x7B, int8 weights, ep=2,tp=2
+    mplan = parse_sharding(moe_rows["TPU_SHARDING"])
+    mcfg = LLAMA_CONFIGS[moe_model]
+    mprompts = [rng.integers(0, mcfg.vocab_size, n).tolist()
+                for n in MESH_MOE_LENS]
+    t0 = time.monotonic()
+    mref = mesh_reference(moe_rows, mprompts, MESH_MOE_NEW)
+    print(f"[mesh] one-device {moe_model} (int8) reference in "
+          f"{time.monotonic() - t0:.1f} s; card: {card}", flush=True)
+    run = mesh_run(moe_rows, mprompts, MESH_MOE_NEW, card, split_score=True)
+    k1 = L * (run["admissions"] + run["dispatches"])
+    k2 = L * run["steps"]
+    _mesh_check(moe_rows["TPU_SHARDING"], run, mprompts,
+                [o[0] for o in mref["outs"]], mref["scores"],
+                {"flash.launches": k1, "flash_decode.launches": k2,
+                 "paged_attention.launches": 0,
+                 "paged_attention.window_launches": 0}, card)
+    counts["flash_prefill"] += k1 * mplan.n_ranks
+    counts["flash_decode"] += k2 * mplan.n_ranks
+    # each rank's int8 expert codes: a quarter of the whole stacks
+    quarter = (mcfg.n_layers * 3 * mcfg.n_experts * mcfg.dim * mcfg.ffn_dim
+               // mplan.n_ranks)
+    experts = [r["expert_bytes"] for r in run["reports"]]
+    mtok_s = sum(map(len, run["outs"])) / run["wall"]
+    print(f"[mesh] Mixtral {moe_rows['TPU_SHARDING']} (ready in "
+          f"{run['ready_s']:.1f} s): {len(mprompts)} streams of "
+          f"{MESH_MOE_NEW} tokens at {mtok_s:.2f} tok/s, a decode step "
+          f"{run['stats']['decode_step_ms_mean']:.2f} ms; expert bytes by "
+          f"rank {experts} (a quarter of the stacks: {quarter}); weights GB "
+          f"by rank "
+          f"{[round(r['weight_bytes'] / 1e9, 3) for r in run['reports']]}; "
+          f"peak allocated GB by rank "
+          f"{[round(p / 1e9, 3) for p in run['peaks']]}; card: {card}",
+          flush=True)
+    require(experts == [quarter] * mplan.n_ranks,
+            f"expert bytes by rank {experts}, not a quarter ({quarter})")
+    summary["moe"] = {"ready_s": run["ready_s"], "tok_s": mtok_s,
+                      "step_ms": run["stats"]["decode_step_ms_mean"],
+                      "peaks": run["peaks"], "expert_bytes": experts}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["phase_s"] = time.monotonic() - t_phase
+    summary["card"] = card
+    print(json.dumps({"mesh": summary}), flush=True)
+    return counts
+
+
 # -- phase train: examples/tpu-finetune's train and resume on the port ------
 
 TRAIN_ROWS = {"LOG_LEVEL": "INFO"}
 TRAIN_MODEL = "llama-1b"
+# its depth, cut from 16 for the whole run's time once phase mesh came
+# in (the ranks' steps are gloo collectives, about a layer's blocks each)
+TRAIN_LAYERS = 4
 # tests/test_examples.py's `train -steps=3` (20 steps before the ranks'
 # runs came in: cut for the whole run's time)
 TRAIN_STEPS = 3
@@ -9863,8 +10236,8 @@ def _ckpt_parts(path: str, state, start: dict, lr: float) -> dict:
 
 
 def train_llama_1b(card: str, device: str, tmp: str) -> dict:
-    """Llama-1B at full size through the example's sub-commands on
-    ``new_cmd``: ``train -steps=TRAIN_STEPS`` on one device (the
+    """Llama-1B at full width cut to TRAIN_LAYERS layers through the
+    example's sub-commands on ``new_cmd``: ``train -steps=TRAIN_STEPS`` on one device (the
     yardstick) and over TRAIN_MESH's 8 ranks; the first step's loss and
     grad_norm and the gathered state after the run held against the
     one-device run's (TRAIN_MESH_TOL); the one-device ``resume`` equal,
@@ -9883,10 +10256,11 @@ def train_llama_1b(card: str, device: str, tmp: str) -> dict:
     app = new_cmd(MapConfig(dict(TRAIN_ROWS, CMD_LOGS_FILE=log)),
                   device=device)
     finetune_routes(app, device)
-    cfg = LLAMA_CONFIGS[TRAIN_MODEL]
+    model = cut_model(TRAIN_MODEL, TRAIN_LAYERS)
+    cfg = LLAMA_CONFIGS[model]
     flags = dict(a[1:].split("=") for a in TRAIN_ARGS)
     batch, seq = int(flags["batch"]), int(flags["seq"])
-    base = ["train", f"-model={TRAIN_MODEL}", f"-steps={TRAIN_STEPS}",
+    base = ["train", f"-model={model}", f"-steps={TRAIN_STEPS}",
             *TRAIN_ARGS]
     clock = TrainClock(device)
     try:
@@ -9899,7 +10273,7 @@ def train_llama_1b(card: str, device: str, tmp: str) -> dict:
                       if '"event": "train"' in ln]
         n = sum(t.numel() for t in state.opt_state.leaves.values())
         line = solo["line"]
-        print(f"[train] {TRAIN_MODEL} ({cfg.n_layers} layers, dim "
+        print(f"[train] {model} ({cfg.n_layers} layers, dim "
               f"{cfg.dim}, {cfg.dtype}, seed-0 weights, {n / 1e9:.3f} B "
               f"params) on one device: `train -steps={TRAIN_STEPS}` at "
               f"{batch} x {seq} through new_cmd: {solo['out']!r}; logged "
@@ -9931,7 +10305,7 @@ def train_llama_1b(card: str, device: str, tmp: str) -> dict:
         shares = [round((r["params_bytes"] + r["mu_bytes"] + r["nu_bytes"])
                         / whole, 4) for r in reports]
         peaks = sum(r["peak_bytes"] for r in reports) / 1e9
-        print(f"[train] {TRAIN_MODEL} `train -steps={TRAIN_STEPS} "
+        print(f"[train] {model} `train -steps={TRAIN_STEPS} "
               f"-sharding={TRAIN_MESH}` ({len(reports)} ranks on the one "
               f"card over gloo): {mesh['out']!r}; metrics a step "
               f"{mesh['metrics']}; a step {line['step_ms']:.2f} ms (rank "
@@ -9966,7 +10340,7 @@ def train_llama_1b(card: str, device: str, tmp: str) -> dict:
 
         # the one-device resume against the in-memory continuation
         resumed = _train_run(app, clock, [
-            "resume", f"-model={TRAIN_MODEL}", f"-steps={TRAIN_RESUME}",
+            "resume", f"-model={model}", f"-steps={TRAIN_RESUME}",
             *TRAIN_ARGS, f"-out={one}"], "resume")
         require(f"trained to step {TRAIN_STEPS + TRAIN_RESUME} "
                 in resumed["out"], f"resume printed {resumed['out']!r}")
@@ -9992,7 +10366,7 @@ def train_llama_1b(card: str, device: str, tmp: str) -> dict:
         # the ranks' checkpoint resumed on another plan
         row, steps = TRAIN_MESH_RESUME
         again = _train_run(app, clock, [
-            "resume", f"-model={TRAIN_MODEL}", f"-steps={steps}",
+            "resume", f"-model={model}", f"-steps={steps}",
             *TRAIN_ARGS, f"-out={ranks}", f"-sharding={row}"],
             "resume on ranks")
         again.pop("state")
@@ -10185,8 +10559,8 @@ def train_serve(card: str, device: str, tmp: str, rng) -> dict:
 
 def phase_train(card: str, device: str = "cuda") -> dict:
     """Training on the port (``gofr_tpu_torch.parallel.train``) on one
-    card: Llama-1B at full size through examples/tpu-finetune's
-    ``train`` and ``resume`` on ``new_cmd``, on one device and over
+    card: Llama-1B at full width cut to TRAIN_LAYERS layers through
+    examples/tpu-finetune's ``train`` and ``resume`` on ``new_cmd``, on one device and over
     TRAIN_MESH's ranks (held against the one-device run), resumed on
     TRAIN_MESH_RESUME's; Llama-3-8B at full width cut to TRAIN_8B's
     layers trained on one device, its params serving through K1 and K2
@@ -10250,7 +10624,7 @@ RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 def run(phases=("build", "kernels", "model", "main", "paged", "spec",
                 "durable", "slo", "app", "predict", "grpc", "tiers", "lora",
                 "pubsub", "tenancy", "gateway", "pd", "tp", "tp_tiers",
-                "cmd", "observe", "moe", "train")) -> dict:
+                "cmd", "observe", "moe", "mesh", "train")) -> dict:
     import torch
 
     card = card_line()
@@ -10307,13 +10681,15 @@ def run(phases=("build", "kernels", "model", "main", "paged", "spec",
             rec = records["flash_prefill"]
             rec["launches"] = rec.get("launches", 0) + counts["flash_prefill"]
         elif phase in ("grpc", "tiers", "lora", "tenancy", "gateway", "pd",
-                       "tp", "tp_tiers", "cmd", "observe", "moe", "train"):
+                       "tp", "tp_tiers", "cmd", "observe", "moe", "mesh",
+                       "train"):
             counts = {"grpc": phase_grpc, "tiers": phase_tiers,
                       "lora": phase_lora, "tenancy": phase_tenancy,
                       "gateway": phase_gateway, "pd": phase_pd,
                       "tp": phase_tp, "tp_tiers": phase_tp_tiers,
                       "cmd": phase_cmd, "observe": phase_observe,
-                      "moe": phase_moe, "train": phase_train}[phase](card)
+                      "moe": phase_moe, "mesh": phase_mesh,
+                      "train": phase_train}[phase](card)
             # K1's, K2's (and K3's) counts: the earlier phases' plus this
             # run's
             for name, n in counts.items():

@@ -9,7 +9,17 @@ default on a missing or malformed value; ``get_bool`` reads
 from __future__ import annotations
 
 import os
-from typing import Mapping
+from typing import Mapping, Protocol
+
+
+class Config(Protocol):
+    """What a handler, a datasource or ``new_engine_from_config`` reads
+    rows through: ``EnvConfig``, ``MapConfig``, or any object with these
+    two methods."""
+
+    def get(self, key: str) -> str | None: ...
+
+    def get_or_default(self, key: str, default: str) -> str: ...
 
 
 class _TypedMixin:

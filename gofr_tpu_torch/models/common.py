@@ -58,7 +58,18 @@ class RankConfig(ModelConfig):
     [vocab_lo, vocab_hi) (the whole vocabulary when it is replicated).
     ``comm`` (parallel.distributed.TPComm) sums the ranks' partial
     results; the model code calls it where a ``ModelConfig`` has none,
-    so a tp = 1 model runs unchanged."""
+    so a tp = 1 model runs unchanged.
+
+    Serving over the data axes (parallel.sharding.serve_rank_config):
+    ``comm`` is the rank's ``parallel.sharding.RankView``, which also
+    gathers each layer's weight blocks over ``fsdp`` and computes the
+    embedding and LM head on the rank's blocks; ``e_lo``/``e_hi`` are
+    the experts [e_lo, e_hi) the rank runs (``n_experts`` stays the
+    router's whole set), and ``split_rows`` says the batch is the
+    rank's own slots, split over the data axes (a decode block, a split
+    score batch), so the embedding, the LM head and an MoE layer gather
+    the fsdp or ep group's rows first and keep the rank's own after
+    their sums."""
 
     tp: int = 1
     rank: int = 0
@@ -66,6 +77,9 @@ class RankConfig(ModelConfig):
     vocab_lo: int = 0
     vocab_hi: int = 0
     comm: Any = field(default=None, compare=False, hash=False, repr=False)
+    e_lo: int = 0
+    e_hi: int = 0
+    split_rows: bool = False
 
     @property
     def head_dim(self) -> int:

@@ -37,6 +37,19 @@ captures them. Programs that batch unrelated requests force dense
 dispatch (``multi_request_serving_config``); ``valid`` (from
 ``lengths``) keeps padding from claiming capacity.
 
+Over ranks (parallel/): a ``RankConfig``'s ``comm`` sums the
+row-parallel products, the vocab-split lookup and the logits over the
+tensor-parallel ranks (``_reduce``, ``_embed``, ``_logits``). A mixture
+of experts runs each expert's F/tp hidden units and, under ``ep``, only
+the rank's experts [e_lo, e_hi): its partial output joins one sum over
+the ranks (``_moe_ffn``). Under a serving plan with data axes the comm
+is a ``parallel.sharding.RankView``: each layer's weights (``_weights``)
+are gathered over ``fsdp`` from the rank's stored blocks at every call,
+the embedding and the LM head compute on the rank's own blocks and sum
+over fsdp x tp (``embed_rows``, ``head_logits``), and a batch split
+over the data axes (``split_rows``: the rank's own slots) gathers the
+fsdp or ep group's rows first and keeps the rank's own after the sum.
+
 ``flash=True`` runs attention through the CUDA kernels (ops.flash,
 ops.flash_decode), which take the plain versions on CPU tensors;
 ``flash=False`` calls the plain versions directly. ``forward(...,
@@ -283,6 +296,24 @@ def _one_hot(idx, n: int) -> torch.Tensor:
     return idx[..., None] == torch.arange(n, device=idx.device)
 
 
+def _expert_span(cfg: ModelConfig) -> tuple[int, int]:
+    """The experts [e_lo, e_hi) this rank runs: its ep block on a
+    serving rank, else all of them."""
+    hi = getattr(cfg, "e_hi", 0)
+    return (cfg.e_lo, hi) if hi else (0, cfg.n_experts)
+
+
+def _local_experts(buf, w, lo: int, hi: int, E: int):
+    """``_experts`` over the rank's experts [lo, hi) of ``buf`` [E, C, D];
+    the other experts' rows are zeros (another rank's share of the
+    sum)."""
+    if (lo, hi) == (0, E):
+        return _experts(buf, w)
+    out = buf.new_zeros(buf.shape)
+    out[lo:hi] = _experts(buf[lo:hi], w)
+    return out
+
+
 def _moe_ffn_grouped(h, w, cfg: ModelConfig, valid=None):
     """Capacity-based grouped dispatch (the JAX package's
     ``_moe_ffn_grouped``): each of the T * k claims, token-major (an
@@ -316,7 +347,8 @@ def _moe_ffn_grouped(h, w, cfg: ModelConfig, valid=None):
     # row C of each buffer takes the dropped writes and is cut off
     buf = h.new_zeros((E, cap + 1, D))
     buf[flat_e, torch.where(keep, pos, cap)] = hf[tok_of]
-    out_buf = _experts(buf[:, :cap], w)                        # [E, C, D]
+    lo, hi = _expert_span(cfg)
+    out_buf = _local_experts(buf[:, :cap], w, lo, hi, E)       # [E, C, D]
     vals = out_buf[flat_e, torch.where(keep, pos, 0)]          # [T*K, D]
     vals = vals * keep[:, None].to(vals.dtype)
     out = (vals.view(T, K, D) * topv.view(T, K, 1).to(vals.dtype)).sum(1)
@@ -331,16 +363,45 @@ def _moe_ffn(h, w, cfg: ModelConfig, valid=None):
     token's top k sums them; exact, on fixed shapes, at E / k times the
     products of routed dispatch. ``w``: one layer's ``router`` [D, E]
     and expert stacks [E, D, F] / [E, F, D], dense or int8. Returns
-    (out [B, S, D], probs [B, S, E] float32)."""
+    (out [B, S, D], probs [B, S, E] float32).
+
+    On a rank (``cfg.comm``): its experts' stacks hold F/tp hidden
+    units, and [e_lo, e_hi) of them under ``ep``; the partial output is
+    summed over the ranks in float32 (over ep x tp with a RankView).
+    With ``split_rows`` under ep the batch differs across the ep group:
+    its rows are gathered first, every rank routes them all, and after
+    the sum each keeps its own."""
+    comm = getattr(cfg, "comm", None)
+    rows = getattr(cfg, "split_rows", False) and getattr(comm, "ep", 1) > 1
+    B = h.shape[0]
+    if rows:
+        if cfg.moe_capacity_factor > 0:
+            raise ValueError("grouped MoE dispatch over rows split across "
+                             "ep ranks: serving forces dense dispatch for "
+                             "a batch of unrelated requests")
+        h = comm.gather_rows(h, "ep")
     if cfg.moe_capacity_factor > 0:
-        return _moe_ffn_grouped(h, w, cfg, valid)
+        out, probs = _moe_ffn_grouped(h, w, cfg, valid)
+    else:
+        out, probs = _moe_ffn_dense(h, w, cfg)
+    if comm is not None:
+        total = getattr(comm, "moe_sum", comm.all_reduce)
+        out = total(out.float()).to(out.dtype)
+    if rows:
+        i = comm.coords["ep"]
+        out, probs = out[i * B:(i + 1) * B], probs[i * B:(i + 1) * B]
+    return out, probs
+
+
+def _moe_ffn_dense(h, w, cfg: ModelConfig):
     B, S, D = h.shape
     E = cfg.n_experts
     hf = h.reshape(B * S, D)
     probs, topv, topi = _route(hf, w["router"], cfg.experts_per_token)
     combine = (_one_hot(topi, E) * topv[..., None]).sum(1)     # [T, E]
-    y = _experts(hf[None], w)                                  # [E, T, D]
-    out = torch.einsum("etd,te->td", y, combine.to(y.dtype))
+    lo, hi = _expert_span(cfg)
+    y = _experts(hf[None], w)                                  # [e, T, D]
+    out = torch.einsum("etd,te->td", y, combine[:, lo:hi].to(y.dtype))
     return out.view(B, S, D), probs.view(B, S, E)
 
 
@@ -375,7 +436,8 @@ def _layer(x, w, cfg: ModelConfig, cos, sin, positions, attend,
             x = x + delta
     h = _enter(cfg, rms_norm(x, w["ffn_norm"], cfg.norm_eps))
     if cfg.n_experts > 0:
-        # one device only (TPU_SHARDING refuses an MoE model)
+        # on ranks each expert's F/tp and the rank's experts: _moe_ffn
+        # sums the partial output over the ranks itself
         ffn, probs = _moe_ffn(h, w, cfg, valid)
         return x + ffn, (k, v), probs
     gated = F.silu(qmatmul(h, w["w_gate"])) * qmatmul(h, w["w_up"])
@@ -400,6 +462,14 @@ def _reduce(cfg: ModelConfig, part: torch.Tensor) -> torch.Tensor:
     return comm.all_reduce(part.float()).to(part.dtype)
 
 
+def _weights(params: dict, cfg: ModelConfig, i: int) -> dict:
+    """Layer ``i``'s weights as this rank computes with them (gathered
+    over fsdp from its blocks by a RankView)."""
+    w = _layer_weights(params["layers"], i)
+    gather = getattr(getattr(cfg, "comm", None), "gather_layer", None)
+    return w if gather is None else gather(w)
+
+
 def _embed(params: dict, cfg: ModelConfig, tokens) -> torch.Tensor:
     """Token embeddings in the model dtype. A rank of a vocab-split
     embedding looks up the ids in its rows [vocab_lo, vocab_hi), zeros
@@ -407,6 +477,9 @@ def _embed(params: dict, cfg: ModelConfig, tokens) -> torch.Tensor:
     exact)."""
     emb = params["embedding"]
     comm = getattr(cfg, "comm", None)
+    if hasattr(comm, "embed_rows"):
+        # a rank over the data axes: its block of rows (RankView)
+        return comm.embed_rows(emb, tokens, cfg).to(cfg.tdtype)
     if comm is None or emb.shape[0] == cfg.vocab_size:
         return emb[tokens].to(cfg.tdtype)
     local = tokens.long() - cfg.vocab_lo
@@ -421,18 +494,21 @@ def _logits(params: dict, cfg: ModelConfig, x) -> torch.Tensor:
     LM head writes its columns into a zeroed [.., V] and the ranks sum
     it, so every rank holds the same logits."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if getattr(getattr(cfg, "comm", None), "enter", None) is not None:
+    comm = getattr(cfg, "comm", None)
+    if hasattr(comm, "head_logits"):
+        # a rank over the data axes: its block of the head (RankView)
+        return comm.head_logits(params, x, cfg)
+    head_w = params["embedding" if cfg.tie_embeddings else "lm_head"]
+    if getattr(comm, "enter", None) is not None:
         # training: a vocab-split head's input (a whole head's product
         # is every rank's own, its gradient whole on each)
-        head = params["embedding"] if cfg.tie_embeddings \
-            else params["lm_head"].t()
+        head = head_w if cfg.tie_embeddings else head_w.t()
         if head.shape[0] != cfg.vocab_size:
             x = _enter(cfg, x)
     if cfg.tie_embeddings:
-        local = torch.matmul(x, params["embedding"].t()).float()
+        local = torch.matmul(x, head_w.t()).float()
     else:
-        local = qmatmul(x, params["lm_head"]).float()
-    comm = getattr(cfg, "comm", None)
+        local = qmatmul(x, head_w).float()
     if comm is None or local.shape[-1] == cfg.vocab_size:
         return local
     full = local.new_zeros((*local.shape[:-1], cfg.vocab_size))
@@ -490,7 +566,7 @@ def _causal(params: dict, cfg: ModelConfig, tokens, lengths, rope_max: int,
                    for i in range(cfg.n_layers)]
     ks, vs, probs = [], [], []
     for i in range(cfg.n_layers):
-        w = weights[i] if train else _layer_weights(params["layers"], i)
+        w = weights[i] if train else _weights(params, cfg, i)
         args = (x, w, cfg, cos, sin, positions, attend, adapter, valid)
         fn = _layer
         if gather is not None:
@@ -660,7 +736,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             return chunk_attention(q, k_l, v_l, k_new, v_new, start, ks_l,
                                    vs_l)
 
-        x, (k, v), _ = _layer(x, _layer_weights(params["layers"], i), cfg,
+        x, (k, v), _ = _layer(x, _weights(params, cfg, i), cfg,
                            cos, sin, positions, attend, adapter)
         ks.append(k)
         vs.append(v)
@@ -760,7 +836,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         def attend(q, k_new, v_new, k_l=k_l, v_l=v_l, ks_l=ks_l, vs_l=vs_l):
             return attn_fn(q, k_l, v_l, k_new, v_new, lengths, ks_l, vs_l)
 
-        x, (k, v), _ = _layer(x, _layer_weights(params["layers"], i), cfg,
+        x, (k, v), _ = _layer(x, _weights(params, cfg, i), cfg,
                            cos, sin, positions, attend, adapter)
         k_toks.append(k[:, 0])
         v_toks.append(v[:, 0])
@@ -809,7 +885,7 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             return window_attention_appended(q, k_l, v_l, k_new, v_new,
                                              lengths, ks_l, vs_l)
 
-        x, (k, v), _ = _layer(x, _layer_weights(params["layers"], i), cfg,
+        x, (k, v), _ = _layer(x, _weights(params, cfg, i), cfg,
                            cos, sin, rope_pos, attend, adapter)
         k_w.append(k)
         v_w.append(v)

@@ -157,7 +157,7 @@ def paged_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 q, k_l, v_l, k_new, v_new, table, lengths, ks_l, vs_l)
 
         x, (k, v), _ = llama._layer(
-            x, llama._layer_weights(params["layers"], i), cfg, cos, sin,
+            x, llama._weights(params, cfg, i), cfg, cos, sin,
             positions, attend, adapter)
         k_toks.append(k[:, 0])
         v_toks.append(v[:, 0])
@@ -209,7 +209,7 @@ def paged_verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 q, k_l, v_l, k_new, v_new, table, lengths, ks_l, vs_l)
 
         x, (k, v), _ = llama._layer(
-            x, llama._layer_weights(params["layers"], i), cfg, cos, sin,
+            x, llama._weights(params, cfg, i), cfg, cos, sin,
             rope_pos, attend, adapter)
         k_w.append(k)
         v_w.append(v)

@@ -33,6 +33,17 @@ runtime. PyTorch has no partitioner, so the port runs SPMD ranks:
     worker waits for its next command without a practical limit, since
     an idle engine sends none, and leaves when rank 0's sockets close.
 
+Serving over the data axes (a ``TPU_SHARDING`` plan over dp, fsdp, ep
+and tp) runs one rank a device of the plan, rank r at JAX's device r
+(``MeshPlan.coords``: tp innermost). Each rank's ``TPComm`` then also
+holds the sub-groups of its coordinates (``MeshGroups`` over
+``SERVE_GROUPS``: its ``tp`` group, which carries the model's sums, its
+``fsdp`` group, which gathers each layer's weight blocks, its ``ep``
+group, the ranks of one (dp, fsdp, tp) index, which gathers the hidden
+states an expert rank's experts see, the ``ep_tp`` group that sums an
+MoE layer's partial outputs, and the ``data`` group), on the device
+group's backend.
+
 Training (parallel.train) runs one rank a device of a (dp, fsdp, tp)
 plan, started the same way (``TPRanks`` with a training spec; the
 worker runs parallel.train's ops). Each rank also joins the gloo
@@ -117,31 +128,59 @@ def open_store(port: int, rank: int, tp: int, timeout_s: float):
                          wait_for_workers=False)
 
 
+def _process_group(store, name: str, rank: int, size: int, backend: str,
+                   timeout: datetime.timedelta):
+    import torch.distributed as dist
+
+    prefixed = dist.PrefixStore(name, store)
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        return dist.ProcessGroupNCCL(prefixed, rank, size, opts)
+    return dist.ProcessGroupGloo(prefixed, rank, size, timeout)
+
+
 class TPComm:
-    """One rank's two process groups: ``all_reduce`` on the device
-    group (what the model sums), and rank 0's commands (``send`` /
-    ``recv``) and ``gather`` on the CPU gloo group."""
+    """One rank's process groups: ``all_reduce`` on the device group
+    (what the model sums: the ``tp`` sub-group under a plan with data
+    axes), rank 0's commands (``send`` / ``recv``) and ``gather`` on the
+    CPU gloo group, and under such a plan ``groups``, the sub-groups of
+    the rank's coordinates (``MeshGroups``, None otherwise). ``broken``
+    names the first failed collective of any of them."""
 
     def __init__(self, store, rank: int, tp: int, device: torch.device,
-                 timeout_s: float = DEFAULT_TIMEOUT_S):
+                 timeout_s: float = DEFAULT_TIMEOUT_S, plan=None):
         import torch.distributed as dist
 
         self.rank = rank
         self.tp = tp
         self.device = device
+        self.plan = plan
         self.timeout = datetime.timedelta(seconds=timeout_s)
         self.backend = device_backend(device, tp)
-        self.broken: str | None = None
+        self._broken: str | None = None
         self._cmd = dist.ProcessGroupGloo(dist.PrefixStore("cmd", store),
                                           rank, tp, self.timeout)
-        if self.backend == "nccl":
-            opts = dist.ProcessGroupNCCL.Options()
-            opts._timeout = self.timeout
-            self._dev = dist.ProcessGroupNCCL(dist.PrefixStore("dev", store),
-                                              rank, tp, opts)
+        # the model's sums: over every rank under tp alone, else over
+        # the sub-groups of the rank's coordinates
+        self._dev = self.groups = None
+        if plan is not None and plan.data > 1:
+            self.groups = MeshGroups(store, plan, rank, timeout_s,
+                                     kinds=SERVE_GROUPS, backend=self.backend,
+                                     prefix="serve")
         else:
-            self._dev = dist.ProcessGroupGloo(dist.PrefixStore("dev", store),
-                                              rank, tp, self.timeout)
+            self._dev = _process_group(store, "dev", rank, tp, self.backend,
+                                       self.timeout)
+
+    @property
+    def broken(self) -> str | None:
+        if self._broken is None and self.groups is not None:
+            return self.groups.broken
+        return self._broken
+
+    @broken.setter
+    def broken(self, why: str | None) -> None:
+        self._broken = why
 
     def _run(self, what: str, fn):
         if self.broken is not None:
@@ -154,10 +193,13 @@ class TPComm:
             raise RankFailure(self.broken) from e
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks IN PLACE (on the device group);
-        returns ``t``. Every rank gets the same bits."""
+        """Sum ``t`` over the rank's tensor-parallel group IN PLACE (the
+        device group, or the ``tp`` sub-group under a plan with data
+        axes); returns ``t``. Every rank gets the same bits."""
         import torch.distributed as dist
 
+        if self.groups is not None:
+            return self.reduce(t, "tp")
         opts = dist.AllreduceOptions()
         opts.timeout = self.timeout
         self._run("all_reduce",
@@ -186,6 +228,14 @@ class TPComm:
         buf = torch.empty((int(n[0]),), dtype=torch.uint8)
         self._bcast(buf, self.timeout)
         return pickle.loads(buf.numpy().tobytes())
+
+    def reduce(self, t: torch.Tensor, kind: str) -> torch.Tensor:
+        """Sum ``t`` over the rank's ``kind`` sub-group IN PLACE (a plan
+        with data axes); returns ``t``."""
+        if self.broken is not None:
+            raise RankFailure(f"tensor-parallel group is broken: "
+                              f"{self.broken}")
+        return self.groups.all_reduce(t, kind)
 
     def gather(self, row, timeout_s: float | None = None) -> np.ndarray:
         """Every rank's int64 ``row`` (equal lengths) as a [tp, n] array,
@@ -226,9 +276,12 @@ class TPComm:
         return out
 
     def close(self) -> None:
+        if self.groups is not None:
+            self.groups.close()
         for pg in (self._dev, self._cmd):
-            with contextlib.suppress(Exception):
-                pg.shutdown()
+            if pg is not None:
+                with contextlib.suppress(Exception):
+                    pg.shutdown()
         self._dev = self._cmd = None
 
 
@@ -239,7 +292,9 @@ class TPRanks:
 
     ``spec``: what each worker needs to build its share (the worker
     reads ``spec`` plus its ``rank``); ``shards``: per worker rank, a
-    weight tree of its own to pass (numpy leaves), or None.
+    weight tree of its own to pass (numpy leaves), or None; ``plan``:
+    a serving plan with data axes (each rank's comm joins the
+    sub-groups of its coordinates; a worker reads it from ``spec``).
 
     ``step(op, args)`` is how rank 0 runs anything the ranks must run
     together: under one lock it broadcasts the command, then rank 0
@@ -248,7 +303,8 @@ class TPRanks:
     whichever of rank 0's threads issued them."""
 
     def __init__(self, tp: int, device: torch.device, spec: dict, *,
-                 shards: list | None = None, timeout_s: float = DEFAULT_TIMEOUT_S):
+                 shards: list | None = None, timeout_s: float = DEFAULT_TIMEOUT_S,
+                 plan=None):
         self.tp = tp
         self.device = device
         self.timeout_s = float(timeout_s)
@@ -263,18 +319,21 @@ class TPRanks:
                 os.pathsep) if p])
         try:
             for rank in range(1, tp):
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-c",
+                     "from gofr_tpu_torch.parallel.worker import main; "
+                     "main()"], stdin=subprocess.PIPE, env=env))
+            # every worker is started before any is written to: a spec
+            # past the pipe's buffer blocks until its worker reads it,
+            # after its imports, and the workers import side by side
+            for rank, proc in enumerate(self.procs, start=1):
                 msg = dict(spec, rank=rank, tp=tp, store=self._store.port,
                            device=str(device), timeout_s=self.timeout_s,
                            shard=None if shards is None else shards[rank])
-                proc = subprocess.Popen(
-                    [sys.executable, "-c",
-                     "from gofr_tpu_torch.parallel.worker import main; "
-                     "main()"], stdin=subprocess.PIPE, env=env)
-                self.procs.append(proc)
                 proc.stdin.write(pickle.dumps(msg, protocol=5))
                 proc.stdin.close()
             self.comm = TPComm(self._store, 0, tp, rank_device(device, 0),
-                               self.timeout_s)
+                               self.timeout_s, plan=plan)
         except BaseException:
             self.close()
             raise
@@ -350,55 +409,64 @@ class TPRanks:
             self._store = None
 
 
-# the training sub-groups: kind -> (the axes a member differs on)
+# the sub-groups: kind -> (the axes a member differs on). Training's:
 TRAIN_GROUPS = {"world": ("dp", "fsdp", "tp"), "tp": ("tp",),
                 "fsdp": ("fsdp",), "data": ("dp", "fsdp"),
                 "model": ("fsdp", "tp")}
+# serving's over dp, fsdp, ep and tp: the model's sums over tp, each
+# layer's gather over fsdp (over fsdp x tp where a block is not the
+# part a rank computes with), an MoE layer's hidden states over ep and
+# its partial outputs summed over ep x tp
+SERVE_GROUPS = {"tp": ("tp",), "fsdp": ("fsdp",), "ep": ("ep",),
+                "ep_tp": ("ep", "tp"), "model": ("fsdp", "tp"),
+                "data": ("dp", "fsdp", "ep")}
+_GROUP_AXES = ("dp", "fsdp", "ep", "tp")
 
 
-class TrainGroups:
-    """One training rank's gloo groups over a MeshPlan (``plan``): the
-    whole ``world`` and its ``tp``, ``fsdp``, ``data`` and ``model``
-    groups (``TRAIN_GROUPS``), each None where it has one member. Every
-    collective has ``timeout_s``; a failure or a timeout marks the
-    groups broken and raises ``RankFailure``. ``collective_s`` sums the
-    host time spent in the collectives (a call on CUDA tensors waits for
-    the device work queued before it)."""
+class MeshGroups:
+    """One rank's process groups over a MeshPlan (``plan``): for each
+    kind of ``kinds`` the ranks that differ from it only on that kind's
+    axes, each None where it has one member, on ``backend`` (gloo, or
+    NCCL where every rank has a card of its own). Every collective has
+    ``timeout_s``; a failure or a timeout marks the groups broken and
+    raises ``RankFailure``. ``collective_s`` sums the host time spent in
+    the collectives (a call on CUDA tensors waits for the device work
+    queued before it)."""
 
     def __init__(self, store, plan, rank: int,
-                 timeout_s: float = DEFAULT_TIMEOUT_S):
-        import torch.distributed as dist
-
+                 timeout_s: float = DEFAULT_TIMEOUT_S, *,
+                 kinds: dict = TRAIN_GROUPS, backend: str = "gloo",
+                 prefix: str = "train"):
         self.plan = plan
         self.rank = rank
+        self.kinds = kinds
         self.coords = plan.coords(rank)
         self.timeout = _timeout(timeout_s)
         self.broken: str | None = None
         self.collective_s = 0.0
         self.calls = 0
         self.groups: dict[str, Any] = {}
-        for kind, axes in TRAIN_GROUPS.items():
+        for kind, axes in kinds.items():
             members = self.members(kind)
             if len(members) == 1:
                 self.groups[kind] = None
                 continue
-            key = [self.coords[ax] for ax in ("dp", "fsdp", "tp")
-                   if ax not in axes]
-            name = f"train/{kind}/{'.'.join(map(str, key))}"
-            self.groups[kind] = dist.ProcessGroupGloo(
-                dist.PrefixStore(name, store), members.index(rank),
-                len(members), self.timeout)
+            key = [self.coords[ax] for ax in _GROUP_AXES if ax not in axes]
+            name = f"{prefix}/{kind}/{'.'.join(map(str, key))}"
+            self.groups[kind] = _process_group(
+                store, name, members.index(rank), len(members), backend,
+                self.timeout)
 
     def members(self, kind: str) -> list[int]:
         """The ranks of this rank's ``kind`` group, in rank order."""
-        axes = TRAIN_GROUPS[kind]
+        axes = self.kinds[kind]
         return [r for r in range(self.plan.n_ranks)
                 if all(self.plan.coords(r)[ax] == self.coords[ax]
-                       for ax in ("dp", "fsdp", "tp") if ax not in axes)]
+                       for ax in _GROUP_AXES if ax not in axes)]
 
     def _run(self, what: str, fn):
         if self.broken is not None:
-            raise RankFailure(f"training group is broken: {self.broken}")
+            raise RankFailure(f"rank group is broken: {self.broken}")
         t0 = time.perf_counter()
         try:
             return fn()
@@ -437,3 +505,9 @@ class TrainGroups:
                 with contextlib.suppress(Exception):
                     pg.shutdown()
         self.groups = {k: None for k in self.groups}
+
+
+class TrainGroups(MeshGroups):
+    """A training rank's gloo groups (``TRAIN_GROUPS``: the whole
+    ``world`` and its ``tp``, ``fsdp``, ``data`` and ``model``
+    groups)."""

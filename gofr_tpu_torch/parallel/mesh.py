@@ -4,15 +4,14 @@ gofr_tpu/parallel/mesh.py's ``MeshPlan`` and gofr_tpu/tpu/__init__.py's
 
 The JAX package builds a named ``jax.sharding.Mesh`` over the slice and
 lets XLA emit the collectives. PyTorch has no partitioner: the port runs
-one process a tensor-parallel rank (parallel.distributed) and each rank
-calls the single-card kernels on its own head shard. So the plan keeps
-the JAX axis vocabulary and row syntax (``tp=2``, ``tp=4,dp=1``), but
-only the ``tp`` axis is served; any other axis set above 1 raises
-``ShardingConfigError`` naming the row (ROADMAP item 11b). Training
-(parallel.train) runs ``dp``, ``fsdp`` and ``tp``, one rank a device of
-JAX's mesh: rank r sits at JAX's device r of
-``reshape(dp, pp, fsdp, ep, sp, tp)`` (``MeshPlan.coords``), so ``tp``
-is the fastest axis.
+one process a device of the mesh (parallel.distributed), rank r at JAX's
+device r of ``reshape(dp, pp, fsdp, ep, sp, tp)`` (``MeshPlan.coords``:
+``tp`` the fastest axis), and each rank calls the single-card kernels on
+its own shard. The plan keeps the JAX axis vocabulary and row syntax
+(``tp=2``, ``tp=4,dp=2``). Serving takes ``dp``, ``fsdp``, ``ep`` and
+``tp``; ``pp`` (training-only in JAX's mesh) and ``sp`` (ROADMAP item
+12) raise ``ShardingConfigError`` naming the row. Training
+(parallel.train) runs ``dp``, ``fsdp`` and ``tp``.
 """
 
 from __future__ import annotations
@@ -36,8 +35,8 @@ DATA_AXES = (AXIS_DP, AXIS_FSDP, AXIS_EP)
 @dataclass(frozen=True)
 class MeshPlan:
     """A (dp, pp, fsdp, ep, sp, tp) factorization, in the JAX mesh's
-    axis order. The port serves plans whose every axis but ``tp`` is
-    1."""
+    axis order. ``data``: the product of the data axes (dp, fsdp, ep),
+    the number of slot groups a batch splits into."""
 
     dp: int = 1
     pp: int = 1
@@ -57,6 +56,17 @@ class MeshPlan:
         for ax in MESH_AXES:
             n *= getattr(self, ax)
         return n
+
+    @property
+    def data(self) -> int:
+        """The data axes' product (JAX's ``data`` in its KV-head rule)."""
+        return self.dp * self.fsdp * self.ep
+
+    def data_index(self, coords: dict) -> int:
+        """The slot group of a rank at ``coords``: its (dp, fsdp, ep)
+        index, dp major (the order of JAX's ``DATA_AXES`` spec)."""
+        return (coords[AXIS_DP] * self.fsdp + coords[AXIS_FSDP]) \
+            * self.ep + coords[AXIS_EP]
 
     def coords(self, rank: int) -> dict[str, int]:
         """Rank ``rank``'s index on each axis, in JAX's device order
@@ -102,20 +112,26 @@ def parse_mesh_row(spec: str | None, what: str = "TPU_SHARDING"
     return MeshPlan(**axes)
 
 
+# the axes serving refuses, and why
+_NOT_SERVED = {AXIS_PP: "pp is a training axis (JAX's mesh serves no "
+                        "pipeline stages)",
+               AXIS_SP: "sp (sequence parallelism, ring attention) is not "
+                        "ported yet: ROADMAP item 12"}
+
+
 def parse_sharding(spec: str | None) -> MeshPlan | None:
-    """``"tp=8"`` / ``"tp=4,dp=1"`` -> MeshPlan (None when unset). A
-    malformed row, an unknown axis, a size below 1, or any axis other
-    than ``tp`` above 1 raises ``ShardingConfigError`` naming the row."""
+    """``"tp=8"`` / ``"tp=4,dp=2"`` / ``"ep=2,tp=2"`` -> MeshPlan (None
+    when unset) over dp, fsdp, ep and tp. A malformed row, an unknown
+    axis, a size below 1, or ``pp`` or ``sp`` above 1 raises
+    ``ShardingConfigError`` naming the row and the axis."""
     plan = parse_mesh_row(spec)
     if plan is None:
         return None
     row = spec.strip()
-    others = [f"{ax}={n}" for ax, n in plan.shape().items()
-              if ax != AXIS_TP and n > 1]
-    if others:
+    refused = [f"{ax}={getattr(plan, ax)} ({why})"
+               for ax, why in _NOT_SERVED.items() if getattr(plan, ax) > 1]
+    if refused:
         raise ShardingConfigError(
-            f"TPU_SHARDING={row!r}: gofr_tpu_torch serves the tp axis "
-            f"only; {', '.join(others)} is not ported yet (the data "
-            "axes dp/fsdp, ep with MoE, pp and sp: ROADMAP item 11b)",
-            sharding_row=row)
+            f"TPU_SHARDING={row!r}: gofr_tpu_torch serves dp, fsdp, ep "
+            f"and tp; {'; '.join(refused)}", sharding_row=row)
     return plan

@@ -89,8 +89,10 @@ from ..ops.quant import QuantizedLinear
 from ..tpu.checkpoint import _unflatten, from_jax_params, to_tensor
 from .distributed import DEFAULT_TIMEOUT_S, RankFailure, TPRanks, TrainGroups
 from .mesh import MeshPlan, parse_mesh_row
-from .sharding import (check_tp, fit_spec, rank_config, shard_block,
-                       spec_axes, spec_for, train_span)
+from .sharding import (Box, LeafLayout, _dims, _holds, _numel,
+                       _param_shapes, _slices, check_tp, fit_spec,
+                       gather_blocks, leaf_layout, rank_config, shard_block,
+                       spec_for)
 
 # where each axis the port does not train lands in ROADMAP
 _AXIS_HOME = {
@@ -618,127 +620,6 @@ def train_state_from_jax(state: Any, *, cfg: ModelConfig | None = None,
 # -- training over ranks ---------------------------------------------------
 
 
-def _param_shapes(cfg: ModelConfig) -> dict[str, tuple]:
-    """Every leaf's path -> its shape, as ``models.llama.init`` draws
-    them, in leaf order."""
-    L, D, H, KV, hd, Fd, V, E = (cfg.n_layers, cfg.dim, cfg.n_heads,
-                                 cfg.n_kv_heads, cfg.head_dim, cfg.ffn_dim,
-                                 cfg.vocab_size, cfg.n_experts)
-    ex = (E,) if E > 0 else ()
-    layers = {"attn_norm": (L, D), "wq": (L, D, H * hd),
-              "wk": (L, D, KV * hd), "wv": (L, D, KV * hd),
-              "wo": (L, H * hd, D), "ffn_norm": (L, D),
-              "w_gate": (L, *ex, D, Fd), "w_up": (L, *ex, D, Fd),
-              "w_down": (L, *ex, Fd, D)}
-    if E > 0:
-        layers["router"] = (L, D, E)
-    out = {"embedding": (V, D), "final_norm": (D,)}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = (D, V)
-    out.update({f"layers/{k}": v for k, v in layers.items()})
-    return dict(sorted(out.items()))
-
-
-Box = tuple  # ((lo, hi), ...) a dim
-
-
-def _slices(box: Box, base: Box) -> tuple:
-    """``box`` as slices of a tensor that holds ``base``."""
-    return tuple(slice(lo - b0, hi - b0)
-                 for (lo, hi), (b0, _) in zip(box, base))
-
-
-def _dims(box: Box) -> tuple:
-    return tuple(hi - lo for lo, hi in box)
-
-
-def _numel(box: Box) -> int:
-    n = 1
-    for lo, hi in box:
-        n *= hi - lo
-    return n
-
-
-def _holds(spec: tuple, plan: MeshPlan, coords: dict) -> bool:
-    """Whether the rank at ``coords`` is the one that counts its block:
-    dp index 0, and index 0 on each of fsdp and tp the spec does not
-    split on (the block is the same on every rank along those)."""
-    used = spec_axes(spec, plan)
-    return coords["dp"] == 0 and all(coords[ax] == 0 for ax in ("fsdp", "tp")
-                                     if ax not in used)
-
-
-@dataclass(frozen=True)
-class LeafLayout:
-    """Where one leaf sits on one rank. Boxes are [lo, hi) a dim of the
-    whole leaf: ``block`` the rank stores, ``region`` the rank gathers
-    (over its ``gather`` group, None where the block is the region),
-    ``compute`` the part it computes with (inside ``region``).
-    ``aligned``: the rank's fsdp group's blocks make its compute part
-    (else the region is the whole leaf, over the fsdp x tp group);
-    ``writes``: this rank puts its block into the gather; ``tp_split``:
-    the tp ranks compute with parts of the leaf (else each with all of
-    it); ``holds``: this rank counts its block (the norm, the save)."""
-
-    path: str
-    shape: tuple
-    spec: tuple
-    block: Box
-    region: Box
-    compute: Box
-    gather: str | None
-    aligned: bool
-    writes: bool
-    tp_split: bool
-    holds: bool
-
-    def reduce_group(self, split: bool) -> str | None:
-        """The group its gradient sums over: the data group for a split
-        batch, and tp where the split differs from the stored one."""
-        if self.aligned:
-            return "data" if split else None
-        return "world" if split else "tp"
-
-
-def leaf_layout(path: str, shape: tuple, cfg: ModelConfig, plan: MeshPlan,
-                coords: dict) -> LeafLayout:
-    """The ``LeafLayout`` of leaf ``path`` (of ``shape``) on the rank at
-    ``coords`` of ``plan``."""
-    name = path.rpartition("/")[2]
-    stacked = path.startswith("layers/")
-    spec = fit_spec(spec_for(name, len(shape), stacked), shape, plan)
-    full = tuple((0, n) for n in shape)
-
-    def compute_at(t):
-        span = train_span(name, len(shape), cfg, plan.tp, t)
-        box = list(full)
-        if span is not None:
-            box[span[0]] = span[1:]
-        return tuple(box)
-
-    def fsdp_region(t):
-        blocks = [shard_block(spec, shape, plan, dict(coords, fsdp=f, tp=t))
-                  for f in range(plan.fsdp)]
-        return tuple((min(b[i][0] for b in blocks),
-                      max(b[i][1] for b in blocks))
-                     for i in range(len(shape)))
-
-    aligned = all(fsdp_region(t) == compute_at(t) for t in range(plan.tp))
-    block = shard_block(spec, shape, plan, coords)
-    region = fsdp_region(coords["tp"]) if aligned else full
-    axes = ("fsdp",) if aligned else ("fsdp", "tp")
-    used = spec_axes(spec, plan)
-    return LeafLayout(
-        path=path, shape=tuple(shape), spec=spec, block=block,
-        region=region, compute=compute_at(coords["tp"]),
-        gather=None if block == region else ("fsdp" if aligned
-                                             else "model"),
-        aligned=aligned,
-        writes=all(coords[ax] == 0 for ax in axes if ax not in used),
-        tp_split=train_span(name, len(shape), cfg, plan.tp, 0) is not None,
-        holds=_holds(spec, plan, coords))
-
-
 def _layouts(cfg: ModelConfig, plan: MeshPlan, coords: dict) -> dict:
     return {p: leaf_layout(p, shape, cfg, plan, coords)
             for p, shape in _param_shapes(cfg).items()}
@@ -800,35 +681,7 @@ class _GatherJob:
         return lay.block[cut:], lay.region[cut:], lay.compute[cut:]
 
     def gather(self, shards) -> list:
-        out: list = [None] * len(shards)
-        jobs: dict[str, list] = {}
-        for i, (lay, x) in enumerate(zip(self.lays, shards)):
-            block, _, comp = self._boxes(lay)
-            if lay.gather is None:
-                out[i] = x[_slices(comp, block)]
-            else:
-                jobs.setdefault(lay.gather, []).append(i)
-        for kind, idx in jobs.items():
-            sizes = [_numel(self._boxes(self.lays[i])[1])
-                     * shards[i].element_size() for i in idx]
-            offs = [0]
-            for n in sizes:
-                offs.append(offs[-1] + -(-n // 4) * 4)
-            buf = torch.zeros(offs[-1], dtype=torch.uint8,
-                              device=shards[idx[0]].device)
-            regions = []
-            for i, off, n in zip(idx, offs, sizes):
-                lay, x = self.lays[i], shards[i]
-                block, region, _ = self._boxes(lay)
-                reg = buf[off:off + n].view(x.dtype).view(_dims(region))
-                if lay.writes:
-                    reg[_slices(block, region)] = x
-                regions.append(reg)
-            self.rank.groups.gather_bytes(buf, kind)
-            for i, reg in zip(idx, regions):
-                _, region, comp = self._boxes(self.lays[i])
-                out[i] = reg[_slices(comp, region)]
-        return out
+        return gather_blocks(self.rank.groups, self.lays, shards, self.layer)
 
     def reduce(self, grads, shards_meta) -> list:
         out: list = [None] * len(grads)

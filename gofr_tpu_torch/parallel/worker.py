@@ -1,7 +1,9 @@
-"""A worker rank: the process that follows rank 0, serving a tensor
-parallel engine's shard or, with a training spec (``kind`` "train"),
-training its blocks of a state (parallel.train ``serve_rank``: build or
-restore its blocks, step, save its share, close, at rank 0's commands).
+"""A worker rank: the process that follows rank 0, serving its shard
+of a sharded engine (its head shard under tp, its slots and weight
+blocks at its coordinates under the data axes) or, with a training
+spec (``kind`` "train"), training its blocks of a state
+(parallel.train ``serve_rank``: build or restore its blocks, step, save
+its share, close, at rank 0's commands).
 
 The JAX package has no counterpart: its single controller hands each
 program to GSPMD, which runs it on every chip of the mesh. In the port
@@ -34,18 +36,20 @@ from ..tpu import hbm
 from ..tpu.checkpoint import rank_params
 from ..tpu.generator import GenerationEngine
 from .distributed import READY_TIMEOUT_S, TPComm, open_store, rank_device
-from .sharding import rank_config
+from .sharding import serve_rank_config
 
 
 def _build(spec: dict, comm: TPComm) -> GenerationEngine:
-    cfg = spec["model"]
-    rank, tp = spec["rank"], spec["tp"]
+    cfg, plan = spec["model"], spec["plan"]
+    rank = spec["rank"]
     # rank 0's budgets, for this rank's own leases
     hbm.set_budget(spec["budget_bytes"])
     hbm.set_device_budget(spec["device_budget_bytes"])
     source = spec["weights"] if spec["shard"] is None else spec["shard"]
-    params = rank_params(cfg, source, rank, tp, comm.device)
-    return GenerationEngine(rank_config(cfg, tp, rank, comm), params,
+    # the rank's coordinates on the plan: its tp index for the head
+    # shard, its data index for its slots and its fsdp and ep blocks
+    params = rank_params(cfg, source, rank, plan.tp, comm.device, plan=plan)
+    return GenerationEngine(serve_rank_config(cfg, plan, rank, comm), params,
                             tp_comm=comm, tp_model=cfg, device=comm.device,
                             **spec["engine"])
 
@@ -63,7 +67,11 @@ def serve(spec: dict) -> int:
         # threads would spin against rank 0's
         torch.set_num_threads(1)
     store = open_store(spec["store"], rank, tp, spec["timeout_s"])
-    comm = TPComm(store, rank, tp, device, spec["timeout_s"])
+    # a serving rank's comm joins the sub-groups of its coordinates
+    # (training builds its own groups)
+    comm = TPComm(store, rank, tp, device, spec["timeout_s"],
+                  plan=None if spec.get("kind") == "train"
+                  else spec["plan"])
     if spec.get("kind") == "train":
         from .train import serve_rank
 

@@ -9,8 +9,9 @@ Rows read:
                     vit, vit-l14; vit-tiny), or a Llama-family name
                     (llama3-8b, llama-1b, tiny, ...; default tiny), the
                     mixtures of experts mixtral-8x7b and tiny-moe among
-                    them (one device: TPU_SHARDING refuses them;
-                    Mixtral fits one 80 GB card with TPU_QUANT=int8)
+                    them (Mixtral fits one 80 GB card with
+                    TPU_QUANT=int8; under TPU_SHARDING each expert's
+                    hidden units split over tp and the experts over ep)
   TPU_WEIGHTS       a ``.npz`` written by the JAX package's ``save_npz``;
                     absent = random init on the device from seed 0
   TPU_QUANT         "int8" to quantize projection weights on load (a
@@ -140,21 +141,31 @@ Rows read:
   TPU_RESUME_WAIT_S  how long a re-handoff waits for the peer to come
                     back (default 5)
 
-  TPU_SHARDING      "tp=N": serve a Llama model as N tensor-parallel
-                    ranks (parallel/): this process is rank 0 and starts
-                    N - 1 worker processes, each holding its head shard
-                    of the weights and caches (rank r on cuda:{r %
-                    device_count}, or the CPU), LoRA stacks and T0
-                    pool included; rank 0 keeps the prefix index, T1
-                    and T2 (frames per KV-head shard, as the JAX mesh
-                    engine's). Any other axis above 1, a tp the model's
-                    head counts do not take, an encoder model, an MoE
-                    model (naming TPU_MODEL too) and the P/D roles
-                    raise ShardingConfigError naming the row. A TP
-                    engine runs its dispatches eagerly (no CUDA
-                    graphs); a rank that dies, or a collective past 60
-                    s, fails the live streams and takes it down
-  TPU_HBM_DEVICE_BUDGET_MB  each TP rank's budget in MiB on its device
+  TPU_SHARDING      "tp=N", "tp=4,dp=2", "tp=2,dp=2,fsdp=2",
+                    "ep=2,tp=2", ...: serve a Llama model (an MoE one
+                    too) as one rank a device of the JAX mesh
+                    (parallel/): this process is rank 0 and starts the
+                    others as worker processes (rank r on cuda:{r %
+                    device_count}, or the CPU), each holding its head
+                    shard of the weights and caches. Under tp alone the
+                    LoRA stacks and T0 pool are sharded too and rank 0
+                    keeps the prefix index, T1 and T2 (frames per
+                    KV-head shard, as the JAX mesh engine's). Over the
+                    data axes dp, fsdp and ep a contiguous cache holds
+                    the rank's share of the slots, each rank its JAX
+                    blocks of the weights (fsdp gathered at every
+                    dispatch, an MoE model's experts over ep). pp, sp,
+                    a tp the model's head counts do not take, a tp
+                    that splits a KV head beside data axes, an ep that
+                    does not divide an MoE model's experts, an encoder
+                    model and the P/D roles raise ShardingConfigError
+                    naming the row; so do TPU_PREFIX_CACHE,
+                    TPU_LORA_ADAPTERS and the tenancy rows beside data
+                    axes. A sharded engine runs its dispatches eagerly
+                    (no CUDA graphs); a rank that dies, or a collective
+                    past 60 s, fails the live streams and takes it
+                    down
+  TPU_HBM_DEVICE_BUDGET_MB  each rank's budget in MiB on its device
                     (ranks sharing a card are checked together); only
                     beside TPU_SHARDING (a one-device engine's budget
                     is TPU_HBM_BUDGET_MB)
@@ -177,7 +188,8 @@ from ..models.common import BERT_CONFIGS, LLAMA_CONFIGS, VIT_CONFIGS
 from ..ops import kernels
 from ..parallel.distributed import MULTIHOST_ROWS
 from ..parallel.mesh import parse_sharding
-from ..parallel.sharding import check_tp, rank_config
+from ..parallel.sharding import (NOT_BESIDE_DATA_AXES, check_plan,
+                                 serve_rank_config)
 from ..resilience import gate_from_config
 from ..tenancy import plane_from_config
 from . import hbm
@@ -243,14 +255,26 @@ def _check_rows(cfg) -> None:
         raise ValueError(f"config rows not honoured by gofr_tpu_torch yet: "
                          f"{', '.join(rejected)}")
     plan = parse_sharding(cfg.get("TPU_SHARDING"))
-    if plan is None or plan.tp == 1:
+    if plan is None or plan.n_ranks == 1:
         if (cfg.get("TPU_HBM_DEVICE_BUDGET_MB") or "").strip():
             raise ValueError(
-                "TPU_HBM_DEVICE_BUDGET_MB is a tensor-parallel rank's "
-                "budget and needs TPU_SHARDING=tp=N; a one-device "
-                "engine's budget is TPU_HBM_BUDGET_MB")
+                "TPU_HBM_DEVICE_BUDGET_MB is a sharded engine's per-rank "
+                "budget and needs TPU_SHARDING; a one-device engine's "
+                "budget is TPU_HBM_BUDGET_MB")
         return None
     row = plan.row()
+    if plan.data > 1:
+        # the rows whose host seams (the spill, the promotion, the
+        # adapter's slices, the tenant's lines) would have to follow a
+        # slot's owner: refused by name before anything is built
+        beside = [name for name in ("TPU_PREFIX_CACHE", "TPU_LORA_ADAPTERS")
+                  if cfg.get_int(name, 0) > 0]
+        beside += [name for name in ("TPU_TENANTS", "TPU_TENANTS_INLINE")
+                   if (cfg.get(name) or "").strip()]
+        if beside:
+            raise ShardingConfigError(
+                f"{' and '.join(beside)} cannot run with TPU_SHARDING="
+                f"{row!r}: {NOT_BESIDE_DATA_AXES}", sharding_row=row)
     if role in ("prefill", "decode"):
         # as the JAX package refuses a mesh P/D worker (its role x
         # engine-kind matrix): shipped KV is dense single-device rows,
@@ -318,12 +342,13 @@ def new_engine_from_config(cfg, device="cuda", logger=None,
                 f"TPU_SHARDING={plan.row()!r}: sharded {family} models "
                 "are not served yet (ROADMAP item 11b)",
                 sharding_row=plan.row())
-        check_tp(mc, plan.tp, plan.row(), model_row=name)
+        check_plan(mc, plan, plan.row(), model_row=name)
     if family == "llama" and device.type == "cuda":
         # the score program runs its attention through flash_prefill (on
         # each rank's head shard under TP): refuse a model the kernel
         # does not take now, not at a request
-        shard = rank_config(mc, plan.tp if plan else 1, 0)
+        shard = (serve_rank_config(mc, plan, 0) if plan is not None
+                 else mc)
         try:
             kernels.check_attention_shape(
                 "flash_prefill", head_dim=shard.head_dim,

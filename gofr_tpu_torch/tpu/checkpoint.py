@@ -15,7 +15,12 @@ a ``.npz`` sliced leaf by leaf as each leaf is made or read (with int8,
 the rank's part quantized on the whole leaf's per-channel scales, so a
 row split keeps them and no whole leaf is quantized), so no rank ever
 holds the whole model -- its peak is its shard plus the largest single
-leaf -- or a shard rank 0 already sliced.
+leaf -- or a shard rank 0 already sliced. Under a serving plan with
+data axes (``plan``) a rank's shard is its blocks in JAX's layout
+(parallel.sharding ``block_leaf``: fsdp splits a leaf further, an
+expert stack is cut to the rank's ep block, an int8 scale follows only
+its output axis), made or read the same way and, with int8, quantized
+on the whole leaf's scales.
 """
 
 from __future__ import annotations
@@ -153,18 +158,31 @@ class WeightSource:
     tree: Any = None
 
 
-def rank_params(cfg, source, rank: int, tp: int, device) -> dict:
+def rank_params(cfg, source, rank: int, tp: int, device, plan=None) -> dict:
     """Rank ``rank``'s weight shard of a Llama model ``cfg`` on
     ``device``: from a ``WeightSource``, or sliced out of a whole
-    parameter tree (``source`` a dict of tensors)."""
+    parameter tree (``source`` a dict of tensors). ``plan``: a serving
+    plan with data axes, whose rank ``rank`` stores its blocks
+    (``rank`` then counts every rank of the plan)."""
     from ..models import llama
-    from ..parallel.sharding import shard_leaf, shard_params
+    from ..parallel.sharding import (block_leaf, leaf_path, rank_blocks,
+                                     shard_leaf, shard_params)
 
     device = resolve_device(device)
+    blocks = plan is not None and plan.data > 1
     if isinstance(source, dict):
-        return _to(shard_params(source, cfg, rank, tp), device)
+        return _to(rank_blocks(source, cfg, plan, rank) if blocks
+                   else shard_params(source, cfg, rank, tp), device)
     if source.kind == "shard":
         return from_jax_params(source.tree, device=device)
+
+    def block(name, full):
+        # the whole leaf on the device for a quantized block: its
+        # scales are the whole leaf's
+        if source.quant and isinstance(full, np.ndarray):
+            full = to_tensor(full, device)
+        return block_leaf(leaf_path(name), full, cfg, plan,
+                          plan.coords(rank), quant=source.quant)
 
     def leaf(name, full):
         # sliced first, then quantized with the whole leaf's scales: the
@@ -177,10 +195,11 @@ def rank_params(cfg, source, rank: int, tp: int, device) -> dict:
             part = _quantize_leaf(name, part, whole=full)
         return part
 
+    mapper = block if blocks else leaf
     if source.kind == "seed":
-        return llama.init(cfg, source.seed, device=device, leaf=leaf)
+        return llama.init(cfg, source.seed, device=device, leaf=mapper)
     if source.kind == "npz":
-        return load_npz(source.path, device=device, leaf=leaf)
+        return load_npz(source.path, device=device, leaf=mapper)
     raise ValueError(f"unknown weight source {source.kind!r}")
 
 

@@ -152,15 +152,17 @@ import torch
 
 from .. import chaos, tracing
 from ..device import resolve_device
-from ..errors import DeadlineExceeded
+from ..errors import DeadlineExceeded, ShardingConfigError
 from ..models import llama, paged_llama
 from ..models.common import ModelConfig
 from ..ops import flash, flash_decode, kernels, paged_attention
 from ..parallel.distributed import DEFAULT_TIMEOUT_S, TPRanks
 from ..parallel.mesh import MeshPlan
-from ..parallel.sharding import (check_tp, kv_frame_shards, kv_head_owners,
-                                 kv_head_range, kv_head_shards, rank_config,
-                                 shard_leaf, shard_params)
+from ..parallel.sharding import (NOT_BESIDE_DATA_AXES, check_plan,
+                                 kv_frame_shards, kv_head_owners,
+                                 kv_head_range, kv_head_shards, rank_blocks,
+                                 serve_rank_config, shard_leaf, shard_params,
+                                 slot_range)
 from ..resilience import (SLO_LATENCY, SLO_THROUGHPUT, DecodePipelinePolicy,
                           current_deadline, current_slo_class)
 from ..tenancy.fair import WeightedFairLine
@@ -715,7 +717,8 @@ def _first_token(logits: torch.Tensor, inp: AdmissionInputs,
 
 def prefill_admission(params: dict, cfg: ModelConfig, cache,
                       inp: AdmissionInputs, rope_tables, *, bucket: int,
-                      draw: bool) -> torch.Tensor:
+                      draw: bool, slot: torch.Tensor | None = None
+                      ) -> torch.Tensor:
     """A bucket admission (the JAX engine's ``_prefill_fn``, or
     ``_paged_prefill_fn`` for a ``paged_llama.PagedKVCache``): prefill
     the prompt padded to ``bucket`` tokens through flash_prefill with
@@ -725,17 +728,24 @@ def prefill_admission(params: dict, cfg: ModelConfig, cache,
     sample the first token at the prompt's last position, the prompt
     through its LoRA adapter (``inp.adapter``). Tensors in, [2]
     float64 (token, logprob) out, no host read: the engine captures one
-    graph per (bucket, draw) on the card."""
+    graph per (bucket, draw) on the card.
+
+    Over the data axes every data index runs the admission (JAX's
+    replicated batch of one): ``slot`` is the row of the rank's own
+    slots (``inp.slot`` counts every slot), and ``cache`` is None on a
+    data index that does not hold the slot, which writes nothing."""
     length = inp.length
+    slot = inp.slot if slot is None else slot
     logits, k, v, _ = llama.prefill_kv(
         params, cfg, inp.tokens(bucket), length, rope_tables=rope_tables,
         flash=True, logit_pos=inp.logit_pos, adapter=inp.adapter)
     if isinstance(cache, paged_llama.PagedKVCache):
         paged_llama.write_prompt_blocks(
             cache, k, v, inp.blocks(-(-bucket // cache.block_size)), length)
-    else:
-        llama.write_kv(cache, k, v, slot=inp.slot)
-    cache.lengths.index_copy_(0, inp.slot, length)
+    elif cache is not None:
+        llama.write_kv(cache, k, v, slot=slot)
+    if cache is not None:
+        cache.lengths.index_copy_(0, slot, length)
     return _first_token(logits[:, 0], inp, draw)
 
 
@@ -771,6 +781,17 @@ def writeback_admission(cache: paged_llama.PagedKVCache,
     paged_llama.write_row_to_blocks(cache, row,
                                     inp.blocks(-(-row.k.shape[2] // T)))
     cache.lengths.index_copy_(0, inp.slot, inp.length)
+
+
+def land_admission(cache: llama.KVCache, row: llama.KVCache,
+                   inp: AdmissionInputs, slot: torch.Tensor) -> None:
+    """A contiguous engine over the data axes: a long prompt's chunked
+    scratch row (``row``, B = 1) into the rank's own row ``slot`` of
+    the serving cache, then its cursor (the holder of the slot only)."""
+    for dst, src in zip(GenerationEngine._planes(cache),
+                        GenerationEngine._planes(row)):
+        dst.index_copy_(1, slot, src)
+    cache.lengths.index_copy_(0, slot, inp.length)
 
 
 def readback_admission(cache: paged_llama.PagedKVCache,
@@ -946,19 +967,40 @@ class GenerationEngine:
     """The serving loop (see the module docstring).
 
     ``mesh`` (parallel.mesh.MeshPlan, the ``TPU_SHARDING`` row's plan):
-    a plan with ``tp`` = N > 1 serves the model as N tensor-parallel
-    ranks (parallel.distributed). This process is rank 0 and keeps the
-    whole engine; ranks 1..N-1 are worker processes, each a follower
-    engine (``tp_comm``) over its own head shard of the weights and
-    caches: contiguous [L, B, Smax, KV/tp, hd], paged [L, N, T, KV/tp,
-    hd] with the block table replicated. ``cfg`` is the whole model's
-    and ``params`` either the whole model's weights (rank 0 slices
-    every rank's shard and passes it) or a ``checkpoint.WeightSource``
-    each rank builds its own shard from. ``tp_timeout_s``: every
-    collective's limit. A TP engine dispatches
-    its blocks, admissions and verify passes eagerly on every backend
-    (no CUDA graphs: gloo collectives cannot be captured), and refuses
-    the P/D halves, as the JAX package refuses a mesh P/D worker.
+    a plan of N > 1 devices serves the model as N ranks
+    (parallel.distributed), rank r at JAX's device r of the plan. This
+    process is rank 0 and keeps the whole engine; ranks 1..N-1 are
+    worker processes, each a follower engine (``tp_comm``) over its own
+    head shard of the weights and caches: contiguous [L, B, Smax,
+    KV/tp, hd], paged [L, N, T, KV/tp, hd] with the block table
+    replicated.
+
+    Over the data axes (dp, fsdp, ep; JAX's ``kv_cache_specs``) a
+    contiguous cache holds only the rank's data index's slots,
+    [L, B/(dp·fsdp·ep), Smax, KV/tp, hd] (every slot where the product
+    does not divide B): a decode block or a verify pass runs the rank's
+    own slots and rank 0 gathers every slot's tokens after it over the
+    command group (each slot's draw is keyed on its own seed and
+    position, so where it runs does not change it). An admission runs
+    on every data index, as JAX's replicated batch of one does, and only
+    the slot's holder writes its row (a long prompt's lattice runs on
+    each rank's scratch row and lands in the holder's). A paged pool is
+    whole on every data index, which runs every slot (JAX's
+    ``paged_cache_specs``). Each rank stores its blocks of the weights
+    in JAX's layout and gathers each layer's over fsdp at every
+    dispatch (the embedding and LM head compute on its blocks); an MoE
+    layer runs the rank's experts (models.llama ``_moe_ffn``). The
+    prefix tiers, the paged prefix index, LoRA and tenancy are refused
+    beside data axes (ROADMAP item 11b step 3d).
+
+    ``cfg`` is the whole model's and ``params`` either the whole model's
+    weights (rank 0 slices every rank's shard and passes it) or a
+    ``checkpoint.WeightSource`` each rank builds its own shard from.
+    ``tp_timeout_s``: every collective's limit. A sharded engine
+    dispatches its blocks, admissions and verify passes eagerly on every
+    backend (no CUDA graphs: gloo collectives cannot be captured), and
+    refuses the P/D halves, as the JAX package refuses a mesh P/D
+    worker.
 
     Under TP every rank holds its head shard of the T0 pool and of the
     LoRA stacks; rank 0 keeps the ``CacheManager`` (and its T1 and T2),
@@ -985,7 +1027,7 @@ class GenerationEngine:
                 " the port takes a parallel.mesh.MeshPlan (the "
                 "TPU_SHARDING row's plan), not a device mesh")
         try:
-            if mesh is not None and mesh.tp > 1:
+            if mesh is not None and mesh.n_ranks > 1:
                 cfg, params = self._tp_launch(cfg, params, mesh, kw,
                                               tp_timeout_s)
             self._construct(cfg, params, **kw)
@@ -1028,7 +1070,7 @@ class GenerationEngine:
         self._graphed = self.device.type == "cuda" and self._comm is None
         # a TP rank's leases name its device and rank (tpu.hbm)
         self._hbm_place = ({"device": str(self.device),
-                            "rank": getattr(cfg, "rank", 0)}
+                            "rank": self._comm.rank}
                            if self._comm is not None else {})
         self._spec_k = max(0, int(spec_decode_k))
         if self.device.type == "cuda":
@@ -1134,6 +1176,20 @@ class GenerationEngine:
         # host-owned table instead of owning [max_seq] rows, so the
         # pool is sized to the expected live tokens
         self._paged = paged_blocks > 0
+        # over the data axes (JAX's kv_cache_specs): the slots [lo, hi)
+        # this rank's contiguous cache holds, and whether that is a part
+        # of them (a paged pool is whole on every data index)
+        plan = getattr(self._comm, "plan", None)
+        self._plan = plan if plan is not None and plan.data > 1 else None
+        self._own = (0, slots)
+        if self._plan is not None and not self._paged:
+            self._own = slot_range(plan, plan.coords(self._comm.rank), slots)
+        self._split = self._own != (0, slots)
+        rows = self._own[1] - self._own[0]
+        # a decode block's and a verify pass's config: the batch is the
+        # rank's own slots (models.llama gathers a group's rows where
+        # the ranks of a sum hold different ones)
+        self._cfg_rows = cfg.with_(split_rows=True) if self._split else cfg
         if self._paged:
             self._block_t = int(paged_block_size)
             if self._block_t <= 0:
@@ -1173,10 +1229,10 @@ class GenerationEngine:
         else:
             self.cache = hbm.alloc(
                 "engine", lambda: llama.init_cache(
-                    cfg, slots, self.max_seq, dtype=kv_dtype,
+                    cfg, rows, self.max_seq, dtype=kv_dtype,
                     device=self.device),
-                nbytes=_cache_nbytes(cfg, slots, self.max_seq, kv_dtype,
-                                     slots),
+                nbytes=_cache_nbytes(cfg, rows, self.max_seq, kv_dtype,
+                                     rows),
                 owner=self, tag="cache", priority=hbm.PRI_SERVING,
                 **self._hbm_place)
         # zero-copy prefix sharing over the pool: entries hold references
@@ -1251,7 +1307,10 @@ class GenerationEngine:
         # write-back graph from construction: capturing one later, with
         # blocks in flight, is not safe
         self._lattice = self.max_seq - 1 > self._chunk
-        if self._paged:
+        # a contiguous cache split over the data axes runs the lattice
+        # on a scratch row on every rank too, and lands it in the
+        # holder's row: every data index runs the chunks alike
+        if self._paged or self._split:
             self._scratch = hbm.alloc(
                 "engine", lambda: llama.init_cache(
                     cfg, 1, self.max_seq, dtype=kv_dtype,
@@ -1385,7 +1444,13 @@ class GenerationEngine:
         """Attach the multi-tenant serving plane (tenancy.TenantPlane).
         From here on ``generate`` resolves the ambient tenant against
         the registry: quota admission, weighted fair lines, per-tenant
-        T0 budgets and tenant-labelled telemetry all switch on."""
+        T0 budgets and tenant-labelled telemetry all switch on. Refused
+        on an engine whose plan has data axes."""
+        if plane is not None and self._plan is not None:
+            row = self.mesh.row()
+            raise ShardingConfigError(
+                f"TPU_TENANTS cannot run with TPU_SHARDING={row!r}: "
+                f"{NOT_BESIDE_DATA_AXES}", sharding_row=row)
         self.tenancy = plane
         if plane is not None and self._kvc is not None:
             row_bytes = 0
@@ -1669,13 +1734,17 @@ class GenerationEngine:
             out["tenancy"] = self.tenancy.stats()
         if self.mesh is not None:
             out["mesh"] = {
-                "devices": self.mesh.tp,
-                "axes": {"tp": self.mesh.tp},
+                "devices": self.mesh.n_ranks,
+                "axes": {ax: n for ax, n in self.mesh.shape().items()
+                         if n > 1},
                 "kv_shards": self._kv_shards,
                 "backend": self._tp.backend,
                 "graphs": False,
                 "ranks": self._tp.devices(),
                 "alive": self._tp.alive(),
+                # the slot groups and each rank's contiguous cache rows
+                "data": self.mesh.data,
+                "slots_per_rank": self._own[1] - self._own[0],
             }
         if self.gate is not None:
             out["admission"] = self.gate.stats()
@@ -1875,39 +1944,53 @@ class GenerationEngine:
     # -- tensor parallelism (parallel/) --------------------------------------
     def _tp_launch(self, cfg: ModelConfig, params, mesh: MeshPlan, kw: dict,
                    timeout_s: float):
-        """Rank 0: refuse a tp the model does not take, start the worker
-        ranks (parallel.distributed.TPRanks), each building its own
-        shard, and build this rank's. Returns (rank 0's config, rank 0's
-        weights)."""
+        """Rank 0: refuse a plan the model or the engine's options do
+        not take, start the worker ranks (parallel.distributed.TPRanks),
+        each building its own shard, and build this rank's. Returns
+        (rank 0's config, rank 0's weights)."""
         tp, row = mesh.tp, mesh.row()
-        check_tp(cfg, tp, row)
+        check_plan(cfg, mesh, row)
+        if mesh.data > 1:
+            refused = [name for name, on in (
+                ("TPU_PREFIX_CACHE", int(kw.get("prefix_cache_slots") or 0)),
+                ("TPU_LORA_ADAPTERS", int(kw.get("lora_adapters") or 0)))
+                if on > 0]
+            if refused:
+                raise ShardingConfigError(
+                    f"{' and '.join(refused)} cannot run with TPU_SHARDING="
+                    f"{row!r}: {NOT_BESIDE_DATA_AXES}", sharding_row=row)
         device = resolve_device(kw.get("device", "cuda"))
         if device.type == "cuda":
             # the per-rank shapes are refused before any rank starts, and
             # the kernels are built once, here, for every rank
             check_kernel_shapes(
-                rank_config(cfg, tp, 0), device, kw.get("kv_dtype"),
+                serve_rank_config(cfg, mesh, 0), device, kw.get("kv_dtype"),
                 int(kw.get("paged_blocks", 0)) > 0,
                 int(kw.get("paged_block_size", 128)),
                 max(0, int(kw.get("spec_decode_k", 0))))
             kernels.build_all()
+        n = mesh.n_ranks
         shards = None
         if not isinstance(params, WeightSource):
-            shards = [None] + [WeightSource(
-                "shard", tree=_host_tree(shard_params(params, cfg, r, tp)))
-                for r in range(1, tp)]
-        spec = {"model": cfg, "weights": None if shards else params,
+            # rank 0 cuts every rank's shard (its blocks, over the data
+            # axes) out of the whole tree
+            shards = [None] + [WeightSource("shard", tree=_host_tree(
+                rank_blocks(params, cfg, mesh, r) if mesh.data > 1
+                else shard_params(params, cfg, r, tp)))
+                for r in range(1, n)]
+        spec = {"model": cfg, "plan": mesh,
+                "weights": None if shards else params,
                 "engine": {k: kw[k] for k in _TP_KWARGS if k in kw},
                 "budget_bytes": hbm.budget(),
                 "device_budget_bytes": hbm.device_budget()}
-        self._tp = TPRanks(tp, device, spec, shards=shards,
-                           timeout_s=timeout_s)
+        self._tp = TPRanks(n, device, spec, shards=shards,
+                           timeout_s=timeout_s, plan=mesh)
         self._comm = self._tp.comm
         self.mesh = mesh
         self._kv_shards = kv_head_shards(tp, cfg.n_kv_heads)
         self._full_cfg = cfg
-        return (rank_config(cfg, tp, 0, self._comm),
-                rank_params(cfg, params, 0, tp, device))
+        return (serve_rank_config(cfg, mesh, 0, self._comm),
+                rank_params(cfg, params, 0, tp, device, plan=mesh))
 
     def _tp_ready(self) -> None:
         """Rank 0: wait for every worker's shard, then record each
@@ -1940,9 +2023,17 @@ class GenerationEngine:
                   if r["owner"] == id(self)]
         peak = (torch.cuda.max_memory_allocated(self.device)
                 if self.device.type == "cuda" else None)
-        return {"rank": getattr(self.cfg, "rank", 0),
+        experts = [self.params["layers"][n] for n in ("w_gate", "w_up",
+                                                       "w_down")
+                   if self.cfg.n_experts > 0]
+        return {"rank": self._comm.rank if self._comm is not None else 0,
                 "device": str(self.device), "leases": leases,
-                "peak_bytes": peak}
+                "peak_bytes": peak,
+                # the weights this rank holds, and of them its expert
+                # stacks' (int8 codes, or the dense stacks)
+                "weight_bytes": hbm.tree_nbytes(self.params),
+                "expert_bytes": sum(hbm.tree_nbytes(getattr(w, "w", w))
+                                    for w in experts)}
 
     def tp_alive(self) -> bool:
         """False once a worker rank of this engine has died."""
@@ -1977,6 +2068,8 @@ class GenerationEngine:
             for dst, image in zip(targets, uploads):
                 if image is not None:
                     dst.copy_(torch.from_numpy(image))
+            if uploads[1] is not None:
+                self._adm_slot = int(uploads[1][AdmissionInputs.SLOT])
         with torch.no_grad():
             if op == "adm":
                 self._admission_fn(args[0])()
@@ -2027,33 +2120,52 @@ class GenerationEngine:
         with self._device_lock, self._dispatch(
                 "score", tokens.cpu().numpy(), lengths.cpu().numpy(),
                 rope_max):
-            return llama.score(self.params, self.cfg, tokens, lengths,
+            return self._score(tokens, lengths, rope_tables)
+
+    def _score(self, tokens, lengths, rope_tables) -> torch.Tensor:
+        """``llama.score`` on this rank (dense MoE dispatch: a batch of
+        unrelated requests). Over the data axes a batch their product
+        divides is split, each data index scoring its rows and every
+        rank gathering the logits; any other batch runs whole on every
+        data index."""
+        cfg = llama.multi_request_serving_config(self.cfg)
+        plan = self._plan
+        B = tokens.shape[0]
+        if plan is None or B % plan.data:
+            return llama.score(self.params, cfg, tokens, lengths,
                                rope_tables=rope_tables, flash=True)
+        lo, hi = slot_range(plan, plan.coords(self._comm.rank), B)
+        out = llama.score(self.params, cfg.with_(split_rows=True),
+                          tokens[lo:hi], lengths[lo:hi],
+                          rope_tables=rope_tables, flash=True)
+        return self._gather_slots(out, 0).to(self.device)
 
     def _follow_score(self, tokens, lengths, rope_max: int) -> None:
         ropes = self._score_ropes
         if rope_max not in ropes:
             ropes[rope_max] = llama.get_rope_tables(self.cfg, rope_max,
                                                     self.device)
-        llama.score(self.params, self.cfg,
-                    torch.from_numpy(tokens).to(self.device),
-                    torch.from_numpy(lengths).to(self.device),
-                    rope_tables=ropes[rope_max], flash=True)
+        self._score(torch.from_numpy(tokens).to(self.device),
+                    torch.from_numpy(lengths).to(self.device), ropes[rope_max])
 
     def _probe_row(self) -> np.ndarray:
         pool_rows = 0 if self._pool is None else int(self._pool.k.shape[1])
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else 0)
         return np.concatenate(
             [t.long().cpu().numpy() for t in self._carry]
-            + [self.cache.lengths.long().cpu().numpy(), [pool_rows],
+            + [self.cache.lengths.long().cpu().numpy(), [pool_rows, peak],
                np.asarray(_counts(), np.int64)])
 
     def tp_probe(self) -> np.ndarray:
-        """Rank 0: every rank's device state, a [tp, 5B + 9] int64 array:
-        a row a rank, its carry (last token, active, budget, position,
-        B each), its cache cursors (B), its T0 pool's rows (0 without
-        one) and its kernel wrappers' counters (``_COUNTERS``' order).
-        The carries, cursors and pool rows agree when the ranks follow
-        rank 0."""
+        """Rank 0: every rank's device state, a [ranks, 5B + 10] int64
+        array: a row a rank, its carry (last token, active, budget,
+        position, B each), its cache cursors (B), its T0 pool's rows (0
+        without one), its peak allocated bytes on the card (0 on the
+        CPU) and its kernel wrappers' counters (``_COUNTERS``' order). B
+        is the rank's own slots (every slot but over the data axes of a
+        contiguous cache). The carries, cursors and pool rows agree when
+        the ranks of a data index follow rank 0."""
         with self._device_lock, self._dispatch("probe"):
             return self._comm.gather(self._probe_row())
 
@@ -2509,7 +2621,15 @@ class GenerationEngine:
         pos = self._prefix_restore(idx, req)
         if pos == 0 and len(req.prompt) <= self._chunk:
             return self._bucket_prefill(idx, req)
-        return self._chunk_lattice(idx, req, pos)
+        if not self._split:
+            return self._chunk_lattice(idx, req, pos)
+        # over the data axes: the lattice on every rank's scratch row,
+        # then the slot's holder lands it in its row
+        first = self._chunk_lattice(0, req, pos, track_slot=idx)
+        if not req.stream.cancelled.is_set():
+            self._admission_inputs((), req, length=len(req.prompt), slot=idx)
+            self._run_admission(("land",))
+        return first
 
     def _bucket_prefill(self, idx: int, req: _Request,
                         blocks: list[int] = ()) -> tuple[int, float]:
@@ -2710,6 +2830,7 @@ class GenerationEngine:
                           logit_pos: int = 0, blocks=()) -> None:
         """Upload one admission dispatch's inputs (AdmissionInputs,
         through ``_Staged``)."""
+        self._adm_slot = slot
         self._adm_in.pack(self._adm_up.host(), tokens, length=length,
                           slot=slot, start=start, logit_pos=logit_pos,
                           temp=req.temperature, top_k=req.top_k,
@@ -2722,6 +2843,20 @@ class GenerationEngine:
         tensors: ("prefill", bucket, draw), ("mid",), ("final", width,
         draw), ("writeback",) or ("readback",)."""
         kind = key[0]
+        if self._split and kind in ("prefill", "land"):
+            # every data index runs it; the slot's holder writes its row
+            local = self._adm_slot - self._own[0]
+            mine = 0 <= local < self._own[1] - self._own[0]
+            slot = torch.full((1,), max(local, 0), dtype=torch.long,
+                              device=self.device)
+            if kind == "land":
+                return (functools.partial(land_admission, self.cache,
+                                          self._scratch, self._adm_in, slot)
+                        if mine else (lambda: None))
+            return functools.partial(
+                prefill_admission, self.params, self.cfg,
+                self.cache if mine else None, self._adm_in,
+                self.rope_tables, bucket=key[1], draw=key[2], slot=slot)
         if kind == "prefill":
             return functools.partial(
                 prefill_admission, self.params, self.cfg, self.cache,
@@ -2734,7 +2869,8 @@ class GenerationEngine:
         final = kind == "final"
         return functools.partial(
             chunk_admission, self.params, self.cfg,
-            self._scratch if self._paged else self.cache, self._adm_in,
+            self._scratch if self._paged or self._split else self.cache,
+            self._adm_in,
             self.rope_tables, width=key[1] if final else self._chunk,
             final=final, draw=final and key[2])
 
@@ -2755,6 +2891,8 @@ class GenerationEngine:
             keys += [("final", b, d) for b in buckets for d in (False, True)]
         if self._paged:
             keys.append(("writeback",))
+        if self._split:
+            keys.append(("land",))
         if self._prefix_idx is not None:
             keys.append(("readback",))
         return keys
@@ -3515,7 +3653,8 @@ class GenerationEngine:
         """The device slot-state carry built from the host arrays: the
         first block's stand-in for a previous block's (every slot starts
         under host_wins). ``torch.tensor`` copies the arrays."""
-        return tuple(torch.tensor(a, device=self.device)
+        lo, hi = self._own
+        return tuple(torch.tensor(a[lo:hi], device=self.device)
                      for a in (self._last_tokens, self._active,
                                self._budgets, self._pos_abs))
 
@@ -3545,13 +3684,32 @@ class GenerationEngine:
         self._pack_dirty = False
 
     def _block(self, draw: bool) -> torch.Tensor:
-        return fused_decode_block(
-            self.params, self.cfg, self.cache, self._pack, self._carry,
-            self.rope_tables, steps=self.decode_block,
+        lo, hi = self._own
+        out = fused_decode_block(
+            self.params, self._cfg_rows, self.cache, self._pack[lo:hi],
+            self._carry, self.rope_tables, steps=self.decode_block,
             # the host retires one delivered token before the cursor
             # reaches capacity (see _deliver): post-step cursors at
             # max_seq - 2 mean the NEXT delivery would reach the bound
             capacity=self.max_seq - 2, draw=draw)
+        return self._gather_slots(out, -1) if self._split else out
+
+    def _gather_slots(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        """Every data index's ``t`` (this rank's slots along ``axis``)
+        joined in slot order, on the host, on every rank: one gather
+        over the command group, each data index's rows from its tp
+        index 0 (its tp ranks hold the same values)."""
+        host = t.detach().cpu().contiguous()
+        raw = host.reshape(-1).view(torch.uint8).numpy()
+        n = raw.size
+        row = np.zeros((-(-n // 8) * 8,), np.uint8)
+        row[:n] = raw
+        rows = self._comm.gather(row.view(np.int64))
+        plan = self._plan
+        parts = [torch.from_numpy(rows[r].view(np.uint8)[:n].copy())
+                 .view(host.dtype).reshape(host.shape)
+                 for r in range(plan.n_ranks) if plan.coords(r)["tp"] == 0]
+        return torch.cat(parts, dim=axis)
 
     def _capture(self, fns: dict, label: str) -> dict:
         """Capture each ``fns[key]()`` into a CUDA graph, all the graphs
@@ -4227,12 +4385,14 @@ class GenerationEngine:
         """``verify_pass`` bound to the engine's tensors, its inputs
         read from ``_verify_in``."""
         W = self._spec_k + 1
-        buf = self._verify_in
+        lo, hi = self._own
+        buf = self._verify_in[lo:hi]
         table = (buf[:, W + 1:W + 1 + self._mb].to(torch.int32)
                  if self._paged else None)
-        return verify_pass(self.params, self.cfg, self.cache, buf[:, :W],
-                           buf[:, W].bool(), table, self.rope_tables,
-                           buf[:, -1])
+        out = verify_pass(self.params, self._cfg_rows, self.cache,
+                          buf[:, :W], buf[:, W].bool(), table,
+                          self.rope_tables, buf[:, -1])
+        return self._gather_slots(out, 0) if self._split else out
 
     def _capture_verify_graph(self) -> None:
         """The port of the JAX engine's ``_verify_jit``: the verify pass

@@ -6,7 +6,8 @@ and an int8 KV cache, int8 weights, paged, paged with speculative
 decoding, a prompt past the largest bucket (the chunk lattice), two LoRA
 adapters -- and one POST /generate through each package's App built
 from ``TPU_MODEL=tiny-moe`` with the same ``.npz``. Then the rows: an
-MoE model builds on one device, and beside ``TPU_SHARDING`` it raises
+MoE model builds on one device, and beside a ``TPU_SHARDING`` row it
+does not take (an ep that does not divide its experts) it raises
 ShardingConfigError naming both rows.
 """
 
@@ -35,7 +36,8 @@ from gofr_tpu_torch.config import MapConfig
 from gofr_tpu_torch.errors import ShardingConfigError
 from gofr_tpu_torch.models import LLAMA_CONFIGS, llama
 from gofr_tpu_torch.ops.quant import QuantizedLinear
-from gofr_tpu_torch.parallel.sharding import check_tp
+from gofr_tpu_torch.parallel.mesh import MeshPlan
+from gofr_tpu_torch.parallel.sharding import check_plan
 from gofr_tpu_torch.serving import install_generate
 from gofr_tpu_torch.tpu import (GenerationEngine, from_jax_params,
                                 new_engine_from_config)
@@ -271,27 +273,31 @@ def test_tpu_model_tiny_moe_builds_and_serves(quant):
 
 @pytest.mark.parametrize("model", ["tiny-moe", "mixtral-8x7b"])
 def test_tp_beside_an_moe_model_names_both_rows(model):
-    """Refused before any weight is drawn or worker started."""
+    """An MoE model is served under tp and ep (tests/test_torch_moe_mesh.py);
+    an ep that does not divide its experts (4 and 8) is refused naming
+    both rows, before any weight is drawn or worker started."""
     started = threading.active_count()
     with pytest.raises(ShardingConfigError) as err:
         new_engine_from_config(MapConfig({
-            "TPU_MODEL": model, "TPU_SHARDING": "tp=2"}), device="cpu")
+            "TPU_MODEL": model, "TPU_SHARDING": "ep=3,tp=2"}), device="cpu")
     msg = str(err.value)
-    assert "TPU_SHARDING='tp=2'" in msg and f"TPU_MODEL={model!r}" in msg
-    assert err.value.sharding_row == "tp=2"
+    assert "TPU_SHARDING='ep=3,tp=2'" in msg and f"TPU_MODEL={model!r}" in msg
+    assert "n_experts" in msg
+    assert err.value.sharding_row == "ep=3,tp=2"
     assert threading.active_count() == started
     with pytest.raises(ShardingConfigError, match="TPU_MODEL"):
-        check_tp(LLAMA_CONFIGS[model], 2, "tp=2")
-    check_tp(LLAMA_CONFIGS[model], 1, "tp=1")
+        check_plan(LLAMA_CONFIGS[model], MeshPlan(ep=3, tp=2))
+    for ok in (MeshPlan(tp=2), MeshPlan(ep=2, tp=2), MeshPlan(tp=1)):
+        check_plan(LLAMA_CONFIGS[model], ok)
 
 
 def test_a_tp_engine_refuses_an_moe_model(weights):
-    """The engine's own tensor-parallel launch refuses it too, before a
-    worker starts."""
+    """The engine's own sharded launch refuses an ep the mixture's
+    experts do not take, before a worker starts."""
     from gofr_tpu_torch.parallel.mesh import parse_sharding
 
     started = threading.active_count()
     with pytest.raises(ShardingConfigError, match="mixture of experts"):
         GenerationEngine(CFG, weights[1], slots=2, max_seq=64, device="cpu",
-                         mesh=parse_sharding("tp=2"))
+                         mesh=parse_sharding("ep=3,tp=2"))
     assert threading.active_count() == started

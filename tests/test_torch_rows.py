@@ -424,12 +424,13 @@ def test_the_pd_rows_read_alike(row, value, want):
         jeng.close()
 
 
-# -- tensor parallelism: what TPU_SHARDING does not serve yet ------------------
+# -- sharded serving: what TPU_SHARDING does not serve yet ---------------------
 
 @pytest.mark.parametrize("rows,name", [
-    ({"TPU_SHARDING": "tp=2,dp=2"}, "TPU_SHARDING"),
-    ({"TPU_SHARDING": "fsdp=2"}, "TPU_SHARDING"),
-    ({"TPU_SHARDING": "tp=2,ep=2"}, "TPU_SHARDING"),
+    # tiny's 2 KV heads split by tp=4 beside a data axis: JAX's refusal
+    ({"TPU_SHARDING": "tp=4,dp=2"}, "TPU_SHARDING"),
+    ({"TPU_SHARDING": "tp=2,pp=2"}, "TPU_SHARDING"),
+    ({"TPU_SHARDING": "sp=2"}, "TPU_SHARDING"),
     ({"TPU_SHARDING": "tp"}, "TPU_SHARDING"),
     ({"TPU_SHARDING": "tp=3"}, "TPU_SHARDING"),     # tiny: 4 query heads
     ({"TPU_SHARDING": "tp=8"}, "TPU_SHARDING"),
@@ -448,9 +449,9 @@ def test_the_pd_rows_read_alike(row, value, want):
 ])
 def test_what_tensor_parallel_serving_does_not_take_is_refused_by_name(
         monkeypatch, rows, name):
-    """Each row or pairing outside the tp slice raises ValueError (a
-    ShardingConfigError where the plan is at fault) naming it, before any
-    weights are made and before any rank starts."""
+    """Each row or pairing sharded serving does not take raises
+    ValueError (a ShardingConfigError where the plan is at fault) naming
+    it, before any weights are made and before any rank starts."""
     import gofr_tpu_torch.tpu as ptpu
     from gofr_tpu_torch.tpu import generator as pgen
 
